@@ -1,0 +1,97 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each kernel source is a plain ``extern "C"`` launcher. At first use it is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+``build/kernels/`` (named by a hash of the source and the flags, so an
+edited source builds anew) and loaded with ``ctypes``. There is no probing
+and no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# kernel name -> source file under csrc/
+SOURCES = {"t5_attention_core": "t5_attention_core.cu"}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+        "kernels are built from source at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    source = (CSRC_DIR / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None,
+          ptxas_verbose: bool = False) -> Dict[str, str]:
+    """Compile the named kernels (all by default), one ``nvcc`` process per
+    source, all started together. Sources already built are skipped unless
+    ``ptxas_verbose`` asks for the compiler's register / shared-memory /
+    spill report, which only a fresh build prints. Returns each built
+    kernel's compiler output."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists() and not ptxas_verbose:
+            continue
+        tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
+               "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out)
+    logs = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if it is not there yet."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        _loaded[name] = lib
+    return lib

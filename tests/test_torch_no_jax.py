@@ -1,0 +1,70 @@
+"""The port and chip_smoke.py import neither jax nor the JAX package, and
+the port's device rule holds."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from explicit_alignment_for_vqa_tasks_tpu_torch.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "explicit_alignment_for_vqa_tasks_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "explicit_alignment_for_vqa_tasks_tpu")
+
+
+def port_modules():
+    names = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(REPO).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def python_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_import_in_subprocess_pulls_in_no_jax():
+    modules = port_modules() + ["chip_smoke"]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", python_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (
+                f"{path.name}:{node.lineno} imports {name}")
+
+
+def test_resolve_device_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")).type == "cpu"
