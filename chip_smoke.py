@@ -12,6 +12,12 @@ register / shared-memory / spill report):
              at the main path's shapes (B=32, L=557, H=32, dh=64, bf16), and
              its time beside the plain version's, one PyTorch library call's
              and the card's bound
+  int8_kernels
+             the int8 encoder kernels (fused_t5_ln_qkv_q8,
+             fused_oproj_residual_q8, fused_t5_ffn_q8) against their plain
+             versions at the int8 path's shapes (M = 32 x 557 rows, D = 2048,
+             F = 5120, 8 groups, weights from the port's quantizer), with
+             kernel, plain and torch._int_mm (GEMMs only) times and bounds
   reference  the encoder at full width on a small input: kernel path against
              the plain materialised-bias path
   generate   VC-T0 few-shot generation at full T0-3B width and depth (random
@@ -23,6 +29,14 @@ register / shared-memory / spill report):
   profile    one more call under torch.profiler: the device time of the
              call's kernels, their share of the timed (unprofiled) call's
              wall time, and the kernels that take the most device time
+  generate_int8
+             the int8 bulk-eval configuration (int8_encoder_ffn and
+             int8_encoder_attn) on the same weights and prompts: SmoothQuant
+             calibration on that batch, generate twice (each of the four
+             encoder kernels launched once per layer in each run), its
+             encode / decode breakdown and profile, the cosine of the int8
+             encoder's output against the bf16 kernel path's, and the two
+             configurations' generate calls timed in turns
 
 Then a line listing every kernel of the path with its launches and times,
 and last the line {"ok": true, "device": {...}}. Any failed check exits
@@ -59,6 +73,12 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.models.vct0 import (  # noqa: E4
     project_prefix,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import (  # noqa: E402
+    fused_oproj_residual_q8,
+    fused_oproj_residual_q8_plain,
+    fused_t5_ffn_q8,
+    fused_t5_ffn_q8_plain,
+    fused_t5_ln_qkv_q8,
+    fused_t5_ln_qkv_q8_plain,
     t5_attention_core,
     t5_attention_core_plain,
 )
@@ -78,11 +98,29 @@ MAX_NEW_TOKENS = 20
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 KERNEL_ATOL = KERNEL_RTOL = 8e-3   # one bf16 ulp of outputs below 2
 REFERENCE_REL_ERR = 2e-2           # a few bf16 roundings over 2 layers
+# int8 kernel against plain: two bf16 ulps, plus room for a rare activation
+# code flipped by the norm's sum order
+Q8_REL_FROBENIUS = 2e-3
+Q8_ELEMENT_TOL = 1.6e-2            # x |want| + x rms(want)
+INT8_GROUPS = 8
+INT8_COSINE_FLOOR = 0.95           # a sanity floor; the value is recorded
 
-KERNEL_SOURCE = "explicit_alignment_for_vqa_tasks_tpu_torch/csrc/t5_attention_core.cu"
-KERNEL_REPLACES = "explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py:1168"
+PORT_CSRC = "explicit_alignment_for_vqa_tasks_tpu_torch/csrc/"
+JAX_OPS = "explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py"
+# kernel name -> (source, pallas_call it replaces)
+KERNELS = {
+    "t5_attention_core": (PORT_CSRC + "t5_attention_core.cu",
+                          JAX_OPS + ":1168"),
+    "fused_t5_ln_qkv_q8": (PORT_CSRC + "int8_encoder.cu", JAX_OPS + ":1666"),
+    "fused_oproj_residual_q8": (PORT_CSRC + "int8_encoder.cu",
+                                JAX_OPS + ":1715"),
+    "fused_t5_ffn_q8": (PORT_CSRC + "int8_encoder.cu", JAX_OPS + ":1595"),
+}
+PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
+                fused_oproj_residual_q8, fused_t5_ffn_q8)
 
 
 def emit(phase: str, **fields) -> None:
@@ -190,18 +228,130 @@ def phase_attention(gen: torch.Generator) -> dict:
     bytes_moved = 4 * q.numel() * q.element_size() + bias.numel() * 4 \
         + mask.numel() * 4
     flops = 4 * batch * heads * length * length * head_dim
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_FLOP_PER_S * 1e3
     result = dict(
         shape=dict(B=batch, L=length, H=heads, dh=head_dim),
         max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=max(bytes_ms, flops_ms),
-        bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-        bytes=bytes_moved, flops=flops,
+        library_ms=library_ms, **bound(bytes_moved, flops, BF16_FLOP_PER_S),
     )
     emit("attention", kernel_ms=kernel_ms, **{
         k: v for k, v in result.items() if k != "ms"})
     return result
+
+
+def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=bytes_moved, ops=ops)
+
+
+def compare_q8(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Kernel against plain: max abs error, relative Frobenius error, the
+    share of elements beyond one bf16 ulp of the plain value; fails unless
+    both tolerances hold."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rel = ((got - want).norm() / want.norm()).item()
+    rms = want.square().mean().sqrt()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    check(bool(torch.isfinite(got).all()), "int8 kernel output not finite")
+    check(rel <= Q8_REL_FROBENIUS,
+          f"int8 kernel's relative Frobenius error {rel} > {Q8_REL_FROBENIUS}")
+    check(bool((err <= Q8_ELEMENT_TOL * want.abs()
+                + Q8_ELEMENT_TOL * rms).all()),
+          f"int8 kernel outside {Q8_ELEMENT_TOL} x (|want| + rms(want))")
+    return dict(max_abs_err=err.max().item(), rel_frobenius=rel,
+                beyond_one_ulp=(err > ulp).float().mean().item())
+
+
+def phase_int8_kernels(gen: torch.Generator) -> dict:
+    """Each int8 kernel against its plain version at the int8 path's
+    shapes, on weights from the port's quantizer."""
+    cfg = t5_lib.T5Config.t0_3b()
+    length = splice_output_length(PROMPT_LEN, PREFIX_LENGTH, NUM_SHOTS + 1)
+    d_model, inner, d_ff = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff
+    rows = BATCH * length
+    dev = gen.device
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    def quant(k, n):
+        q, s = t5_lib._quant_stacked_i8(randn(1, k, n, scale=k ** -0.5),
+                                        INT8_GROUPS)
+        return q[0], s[0]
+
+    def codes(k):  # activation codes for the library yardstick
+        return torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    x = randn(BATCH, length, d_model, scale=2.0).bfloat16()
+    attn = randn(BATCH, length, inner).bfloat16()
+    lnw = (1 + 0.1 * randn(d_model)).bfloat16()
+    qkv_w = [quant(d_model, inner) for _ in range(3)]
+    o_w = quant(inner, d_model)
+    ffn_w = [quant(d_model, d_ff), quant(d_model, d_ff), quant(d_ff, d_model)]
+    act = rows * d_model * 2               # one bf16 (M, D) activation
+    cases = {
+        "fused_t5_ln_qkv_q8": dict(
+            fn=fused_t5_ln_qkv_q8, plain=fused_t5_ln_qkv_q8_plain,
+            args=(x, lnw, *[t for w in qkv_w for t in w]),
+            gemms=[(d_model, w) for w, _ in qkv_w],
+            bytes=act + d_model * 2 + 3 * rows * inner * 2
+            + sum(w.numel() + s.numel() * 4 for w, s in qkv_w),
+            ops=3 * 2 * rows * d_model * inner),
+        "fused_oproj_residual_q8": dict(
+            fn=fused_oproj_residual_q8, plain=fused_oproj_residual_q8_plain,
+            args=(x, attn, *o_w), gemms=[(inner, o_w[0])],
+            bytes=2 * act + rows * inner * 2 + o_w[0].numel()
+            + o_w[1].numel() * 4,
+            ops=2 * rows * inner * d_model),
+        "fused_t5_ffn_q8": dict(
+            fn=fused_t5_ffn_q8, plain=fused_t5_ffn_q8_plain,
+            args=(x, lnw, *[t for w in ffn_w for t in w]),
+            gemms=[(d_model, ffn_w[0][0]), (d_model, ffn_w[1][0]),
+                   (d_ff, ffn_w[2][0])],
+            bytes=2 * act + d_model * 2
+            + sum(w.numel() + s.numel() * 4 for w, s in ffn_w),
+            ops=2 * rows * d_model * d_ff * 2 + 2 * rows * d_ff * d_model),
+    }
+    results = {}
+    for name, case in cases.items():
+        fn, plain, args = case["fn"], case["plain"], case["args"]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [compare_q8(g, w) for g, w in zip(got, want)]
+        del got, want
+        kernel_ms = cuda_ms(lambda: fn(*args), iters=20)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
+        # yardstick only: torch._int_mm of the same int8 products, GEMMs
+        # alone (no norm, quantization, scales or epilogue), with the
+        # weights column-major as cuBLASLt's int8 GEMM takes them (the
+        # transpose is made before the timing), and as the port stores them
+        lib_in = [(codes(k), w) for k, w in case["gemms"]]
+        lib_col = [(a, w.t().contiguous().t()) for a, w in lib_in]
+        library_ms = cuda_ms(
+            lambda: [torch._int_mm(a, w) for a, w in lib_col], iters=10)
+        library_row_major_ms = cuda_ms(
+            lambda: [torch._int_mm(a, w) for a, w in lib_in], iters=10)
+        del lib_in, lib_col
+        results[name] = dict(
+            shape=dict(M=rows, D=d_model, inner=inner, F=d_ff,
+                       G=INT8_GROUPS),
+            max_abs_err=max(e["max_abs_err"] for e in errs),
+            rel_frobenius=max(e["rel_frobenius"] for e in errs),
+            beyond_one_ulp=max(e["beyond_one_ulp"] for e in errs),
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library="torch._int_mm, GEMMs only, column-major weights",
+            library_row_major_ms=library_row_major_ms,
+            **bound(case["bytes"], case["ops"], INT8_OP_PER_S))
+        emit("int8_kernels", kernel=name, kernel_ms=kernel_ms, **{
+            k: v for k, v in results[name].items() if k != "ms"})
+    return results
 
 
 def make_prompts(cfg: VCT0Config, dev: torch.device):
@@ -251,13 +401,17 @@ def phase_reference(model: VCT0Model, prefix, tokens, mask) -> None:
          rel_err=rel_err, limit=REFERENCE_REL_ERR)
 
 
-def phase_generate(model: VCT0Model, prefix, tokens, mask) -> dict:
+def phase_generate(model: VCT0Model, prefix, tokens, mask, expected: dict,
+                   phase: str = "generate") -> dict:
+    """generate twice; every kernel count is set to 0 just before each call
+    and read just after, and must equal ``expected`` (name -> launches)."""
     cfg = model.cfg
     runs = []
     for _ in range(2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t5_attention_core.launches = 0
+        for fn in PATH_KERNELS:
+            fn.launches = 0
         t0 = time.perf_counter()
         out_tokens, logprobs = model.generate(
             prefix, tokens, mask, num_shots=NUM_SHOTS,
@@ -265,13 +419,14 @@ def phase_generate(model: VCT0Model, prefix, tokens, mask) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs.append(dict(tokens=out_tokens, logprobs=logprobs, wall_s=wall,
-                         launches=t5_attention_core.launches,
+                         launches={fn.__name__: fn.launches
+                                   for fn in PATH_KERNELS},
                          peak_bytes=torch.cuda.max_memory_allocated()))
     first, second = runs
     for run in runs:
-        check(run["launches"] == cfg.lm.num_encoder_layers,
-              f"t5_attention_core launched {run['launches']} times, "
-              f"expected {cfg.lm.num_encoder_layers}")
+        check(run["launches"] == expected,
+              f"{phase}: kernels launched {run['launches']}, expected "
+              f"{expected}")
     out_tokens, logprobs = second["tokens"], second["logprobs"]
     check(tuple(out_tokens.shape) == (BATCH, MAX_NEW_TOKENS),
           f"tokens shape {tuple(out_tokens.shape)}")
@@ -294,11 +449,12 @@ def phase_generate(model: VCT0Model, prefix, tokens, mask) -> dict:
         rows_with_eos=int((out_tokens == cfg.lm.eos_token_id).any(1).sum()),
         first_tokens=out_tokens[0, :5].tolist(),
     )
-    emit("generate", **result)
+    emit(phase, **result)
     return result
 
 
-def phase_breakdown(model: VCT0Model, prefix, tokens, mask) -> None:
+def phase_breakdown(model: VCT0Model, prefix, tokens, mask,
+                    phase: str = "breakdown") -> dict:
     cfg, lm = model.cfg, model.params["lm"]
 
     def timed(fn):
@@ -322,12 +478,15 @@ def phase_breakdown(model: VCT0Model, prefix, tokens, mask) -> None:
             lm, cfg.lm, inputs_embeds=joint, attention_mask=joint_mask))
         _, decode_s = timed(lambda: greedy_decode_t5(
             lm, cfg.lm, hidden, joint_mask, MAX_NEW_TOKENS))
-    emit("breakdown", mapper_splice_s=splice_s, encode_s=encode_s,
-         decode_s=decode_s, decode_step_ms=decode_s / MAX_NEW_TOKENS * 1e3)
+    result = dict(mapper_splice_s=splice_s, encode_s=encode_s,
+                  decode_s=decode_s,
+                  decode_step_ms=decode_s / MAX_NEW_TOKENS * 1e3)
+    emit(phase, **result)
+    return result
 
 
 def phase_profile(model: VCT0Model, prefix, tokens, mask,
-                  timed_wall_s: float) -> None:
+                  timed_wall_s: float, phase: str = "profile") -> None:
     """The profiler slows the host, not the kernels, so the busy share is
     the kernels' device time over the unprofiled call's wall time."""
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -345,12 +504,78 @@ def phase_profile(model: VCT0Model, prefix, tokens, mask,
             kernels_us[event.name] = (kernels_us.get(event.name, 0.0)
                                       + event.time_range.elapsed_us())
     busy_s = sum(kernels_us.values()) / 1e6
-    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:6]
-    emit("profile", profiled_wall_s=profiled_wall, device_busy_s=busy_s,
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:10]
+    emit(phase, profiled_wall_s=profiled_wall, device_busy_s=busy_s,
          timed_wall_s=timed_wall_s,
          busy_share=busy_s / timed_wall_s if busy_s else None,
          device_events=len(kernels_us),
-         top_kernels_ms=[[name[:60], us / 1e3] for name, us in top])
+         top_kernels_ms=[[name[:90], us / 1e3] for name, us in top])
+
+
+def phase_generate_int8(model: VCT0Model, prefix, tokens, mask,
+                        bf16_encode_s: float) -> dict:
+    """The int8 bulk-eval configuration on the bf16 model's weights and
+    prompts: SmoothQuant calibration on that batch, generate twice, the
+    breakdown, and the cosine of its encoder output against the bf16
+    kernel path's on the same spliced input."""
+    lm_cfg = dataclasses.replace(model.cfg.lm, int8_encoder_ffn=True,
+                                 int8_encoder_attn=True)
+    int8 = VCT0Model(dataclasses.replace(model.cfg, lm=lm_cfg),
+                     dict(model.params))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = int8.calibrate_and_quantize_int8(
+        [dict(prefix=prefix, question_tokens=tokens, question_mask=mask)],
+        alpha=0.5)
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    check(all(bool(torch.isfinite(v).all()) for v in stats.values()),
+          "calibration statistics not finite")
+    emit("calibrate_int8", seconds=calibrate_s, alpha=0.5,
+         groups=int(int8.params["lm"]["encoder"]["ffn_q8"]["wi_0_s"].shape[1]),
+         params_gb=torch.cuda.memory_allocated() / 1e9)
+
+    layers = lm_cfg.num_encoder_layers
+    result = phase_generate(int8, prefix, tokens, mask,
+                            expected={fn.__name__: layers
+                                      for fn in PATH_KERNELS},
+                            phase="generate_int8")
+    breakdown = phase_breakdown(int8, prefix, tokens, mask,
+                                phase="breakdown_int8")
+    phase_profile(int8, prefix, tokens, mask, result["wall_s"],
+                  phase="profile_int8")
+
+    with torch.inference_mode():
+        joint, joint_mask = int8.encoder_calibration_batch(prefix, tokens,
+                                                           mask)
+        outs = [t5_lib.t5_encode(m.params["lm"], m.cfg.lm,
+                                 inputs_embeds=joint,
+                                 attention_mask=joint_mask).double()
+                for m in (model, int8)]
+    valid = joint_mask.bool()
+    a, b = outs[0][valid].flatten(), outs[1][valid].flatten()
+    cosine = (a @ b / (a.norm() * b.norm())).item()
+    check(cosine >= INT8_COSINE_FLOOR,
+          f"int8 encoder output's cosine to bf16 {cosine} < "
+          f"{INT8_COSINE_FLOOR}")
+    # the two configurations' generate calls in turns, since the decode's
+    # host-side time moves between calls of the same code
+    turns = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        m = model if name == "bf16" else int8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.generate(prefix, tokens, mask, num_shots=NUM_SHOTS,
+                   max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        turns[name].append(time.perf_counter() - t0)
+    emit("int8_vs_bf16", encoder_cosine=cosine, floor=INT8_COSINE_FLOOR,
+         int8_encode_s=breakdown["encode_s"], bf16_encode_s=bf16_encode_s,
+         encode_speedup=bf16_encode_s / breakdown["encode_s"],
+         generate_s_in_turns=turns,
+         prompts_per_s_in_turns={k: [BATCH / t for t in v]
+                                 for k, v in turns.items()})
+    return result
 
 
 def main() -> int:
@@ -367,11 +592,15 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     attention = phase_attention(gen)
+    int8_kernels = phase_int8_kernels(gen)
+    torch.cuda.empty_cache()
 
+    lm_cfg = t5_lib.T5Config.t0_3b(fused_encoder_attention=True)
     cfg = VCT0Config(
-        lm=t5_lib.T5Config.t0_3b(fused_encoder_attention=True),
+        lm=lm_cfg,
         mapper=MapperConfig(mapping_type="mlp", prefix_size=PREFIX_SIZE,
-                            d_model=2048, prefix_length=PREFIX_LENGTH,
+                            d_model=lm_cfg.d_model,
+                            prefix_length=PREFIX_LENGTH,
                             clip_length=PREFIX_LENGTH),
         sentinel_base=T5_SENTINEL_BASE,
     )
@@ -382,19 +611,30 @@ def main() -> int:
          params_gb=torch.cuda.memory_allocated() / 1e9)
     prefix, tokens, mask = make_prompts(cfg, dev)
     phase_reference(model, prefix, tokens, mask)
-    generate = phase_generate(model, prefix, tokens, mask)
-    phase_breakdown(model, prefix, tokens, mask)
+    layers = cfg.lm.num_encoder_layers
+    generate = phase_generate(
+        model, prefix, tokens, mask,
+        expected={fn.__name__: layers if fn is t5_attention_core else 0
+                  for fn in PATH_KERNELS})
+    breakdown = phase_breakdown(model, prefix, tokens, mask)
     phase_profile(model, prefix, tokens, mask, generate["wall_s"])
+    generate_int8 = phase_generate_int8(model, prefix, tokens, mask,
+                                        breakdown["encode_s"])
 
-    print(json.dumps({"kernels": [{
-        "name": "t5_attention_core", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": generate["launches_per_call"][-1],
-        "max_abs_err": attention["max_abs_err"], "ms": attention["ms"],
-        "plain_ms": attention["plain_ms"], "bound_ms": attention["bound_ms"],
-        "bound_by": attention["bound_by"],
-        "library_ms": attention["library_ms"],
-    }]}), flush=True)
+    measured = {"t5_attention_core": (attention, generate), **{
+        name: (res, generate_int8) for name, res in int8_kernels.items()}}
+    lines = []
+    for name, (res, run) in measured.items():
+        source, replaces = KERNELS[name]
+        lines.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": run["launches_per_call"][-1][name],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+        })
+    print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,9 @@ The trees keep their keys and the stacked layer axis, so the same weights
 run through both packages. Leaves arrive as numpy arrays
 (``np.asarray`` of each JAX leaf). numpy's bfloat16 (from ``ml_dtypes``) is
 refused by ``torch.from_numpy``, so every float leaf goes through float32,
-which holds any bf16 value exactly.
+which holds any bf16 value exactly. Integer leaves (the int8 weight codes)
+keep their type, and the int8 dequant scales (leaves named ``*_s``) stay
+float32 whatever the LM dtype: rounding them would change every product.
 """
 
 from __future__ import annotations
@@ -19,14 +21,17 @@ from .device import DeviceLike, resolve_device
 Params = Dict[str, Any]
 
 
-def _tree_to_torch(tree: Any, dtype: torch.dtype, device: torch.device) -> Any:
+def _tree_to_torch(tree: Any, dtype: torch.dtype, device: torch.device,
+                   name: str = "") -> Any:
     if isinstance(tree, dict):
-        return {k: _tree_to_torch(v, dtype, device) for k, v in tree.items()}
+        return {k: _tree_to_torch(v, dtype, device, k)
+                for k, v in tree.items()}
     arr = np.asarray(tree)
     if arr.dtype.kind in "iub":
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
     arr32 = np.ascontiguousarray(arr.astype(np.float32))
-    return torch.from_numpy(arr32).to(device=device, dtype=dtype)
+    leaf_dtype = torch.float32 if name.endswith("_s") else dtype
+    return torch.from_numpy(arr32).to(device=device, dtype=leaf_dtype)
 
 
 def t5_params_from_numpy(tree: Params, dtype: torch.dtype = torch.bfloat16,

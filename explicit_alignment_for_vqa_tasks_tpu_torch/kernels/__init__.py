@@ -21,7 +21,10 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # kernel name -> source file under csrc/
-SOURCES = {"t5_attention_core": "t5_attention_core.cu"}
+SOURCES = {
+    "t5_attention_core": "t5_attention_core.cu",
+    "int8_encoder": "int8_encoder.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -16,7 +16,12 @@ package:
 
 Encoder self-attention goes through ``ops.fused_attention_block
 .t5_attention_core`` (a CUDA kernel on the card) when
-``fused_encoder_attention`` is set, as the shipped configs set it.
+``fused_encoder_attention`` is set, as the shipped configs set it. The
+opt-in int8 bulk-eval modes (``int8_encoder_ffn``, ``int8_encoder_attn``)
+run the encoder's FFN and attention projections through the int8 kernels
+of the same module on weights quantized once by ``quantize_encoder_ffn`` /
+``quantize_encoder_attn``, optionally after SmoothQuant calibration
+(``calibrate_encoder_act_max``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..ops.fused_attention_block import t5_attention_core
+from ..ops.fused_attention_block import (
+    fused_oproj_residual_q8,
+    fused_t5_ffn_q8,
+    fused_t5_ln_qkv_q8,
+    t5_attention_core,
+)
 
 Params = Dict[str, Any]
 NEG_INF = -1e9
@@ -56,13 +66,18 @@ class T5Config:
     # encoder self-attention through the t5_attention_core kernel instead
     # of a materialised (B, H, L, L) fp32 bias
     fused_encoder_attention: bool = False
+    # opt-in int8 bulk-eval encoder (W8A8): the FFN through fused_t5_ffn_q8
+    # on params["encoder"]["ffn_q8"] (quantize_encoder_ffn), and the
+    # attention projections through fused_t5_ln_qkv_q8 /
+    # fused_oproj_residual_q8 on params["encoder"]["self_attn_q8"]
+    # (quantize_encoder_attn; needs fused_encoder_attention)
+    int8_encoder_ffn: bool = False
+    int8_encoder_attn: bool = False
     # the options below are not ported yet; see _check_ported
     fused_decode_attention: bool = False
     int8_cross_kv: bool = False
     int8_kv_layout: Optional[str] = None
     fused_encoder_ffn: bool = False
-    int8_encoder_ffn: bool = False
-    int8_encoder_attn: bool = False
     int8_decoder_step: bool = False
 
     @classmethod
@@ -84,11 +99,6 @@ _NOT_PORTED = {
     "fused_decode_attention":
         "the cross_attention_decode kernel (ROADMAP.md, Queue 2 #5)",
     "int8_cross_kv": "the int8 main-path stack (ROADMAP.md, Queue 1 item 8)",
-    "int8_encoder_ffn":
-        "the fused_t5_ffn_q8 kernel (ROADMAP.md, Queue 2 #4)",
-    "int8_encoder_attn":
-        "the fused_t5_ln_qkv_q8 and fused_oproj_residual_q8 kernels "
-        "(ROADMAP.md, Queue 2 #2 and #3)",
     "int8_decoder_step":
         "the int8 main-path stack (ROADMAP.md, Queue 1 item 8)",
     "fused_encoder_ffn": "the fused_t5_ffn kernel (ROADMAP.md, Queue 2 #6)",
@@ -172,10 +182,15 @@ def _layer(stacked: Params, i: int) -> Params:
     return {k: v[i] for k, v in stacked.items()}
 
 
-def _encoder_layer(enc: Params, i: int) -> Params:
-    return {"self_attn": _layer(enc["self_attn"], i),
-            "ffn": _layer(enc["ffn"], i),
-            "ln0": enc["ln0"][i], "ln1": enc["ln1"][i]}
+def _encoder_layer(enc: Params, i: int, cfg: T5Config) -> Params:
+    layer_p = {"self_attn": _layer(enc["self_attn"], i),
+               "ffn": _layer(enc["ffn"], i),
+               "ln0": enc["ln0"][i], "ln1": enc["ln1"][i]}
+    if cfg.int8_encoder_ffn:
+        layer_p["ffn_q8"] = _layer(enc["ffn_q8"], i)
+    if cfg.int8_encoder_attn:
+        layer_p["self_attn_q8"] = _layer(enc["self_attn_q8"], i)
+    return layer_p
 
 
 # ---------------------------------------------------------------------------
@@ -286,9 +301,203 @@ def _ffn_block(layer_p: Params, x: torch.Tensor, cfg: T5Config) -> torch.Tensor:
 
 
 def _encoder_ffn(layer_p: Params, y: torch.Tensor, cfg: T5Config) -> torch.Tensor:
-    """RMS-norm + FFN + residual (the JAX package's plain branch)."""
+    """RMS-norm + FFN + residual; int8 (the opt-in bulk-eval mode) when
+    cfg.int8_encoder_ffn (the layer then carries "ffn_q8")."""
+    if cfg.int8_encoder_ffn:
+        q8 = layer_p["ffn_q8"]
+        gated = cfg.is_gated_act
+        return fused_t5_ffn_q8(
+            y, q8["ln"] if "ln" in q8 else layer_p["ln1"],
+            q8["wi_0"], q8["wi_0_s"],
+            q8["wi_1"] if gated else None,
+            q8["wi_1_s"] if gated else None,
+            q8["wo"], q8["wo_s"],
+            eps=cfg.layer_norm_epsilon,
+        )
     ffn_in = rms_norm(y, layer_p["ln1"], cfg.layer_norm_epsilon)
     return y + _ffn_block(layer_p["ffn"], ffn_in, cfg)
+
+
+# ---------------------------------------------------------------------------
+# int8 encoder: quantization (once, the LM is frozen) and calibration
+# ---------------------------------------------------------------------------
+
+def _pick_groups(k_dim: int, requested) -> int:
+    """Resolve the contraction-group count for int8 quantization.
+    ``"auto"`` picks the largest g <= 8 such that g divides k_dim and the
+    group size is a multiple of 128; an explicit int is used as-is (it
+    must divide)."""
+    if requested != "auto":
+        g = int(requested)
+        if g < 1 or k_dim % g:
+            raise ValueError(
+                f"int8 groups={g} must divide the contraction dim {k_dim}")
+        return g
+    for cand in range(min(8, k_dim), 1, -1):
+        if k_dim % cand == 0 and (k_dim // cand) % 128 == 0:
+            return cand
+    return 1
+
+
+def _quant_stacked_i8(w: torch.Tensor,
+                      groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(layer, contraction-group, output-channel) symmetric int8
+    quantization of stacked (L, K, F) weights, in fp32 on w's device.
+    Returns int8 (L, K, F) codes and f32 (L, G, F) scales."""
+    w = w.float()
+    layers, k_dim, f_dim = w.shape
+    wg = w.reshape(layers, groups, k_dim // groups, f_dim)
+    scale = torch.clamp(wg.abs().amax(dim=2), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(wg / scale[:, :, None, :]), -127, 127)
+    return q.reshape(layers, k_dim, f_dim).to(torch.int8), scale
+
+
+def _smooth_factors(act_max: torch.Tensor, w_list, alpha: float) -> torch.Tensor:
+    """SmoothQuant factors (arXiv:2211.10438) for norm-preceded matmuls:
+    s_j = act_max_j^alpha / wmax_j^(1-alpha), wmax_j the largest |weight|
+    in input row j over all consuming matmuls. act_max (L, K); each w
+    (L, K, F); returns (L, K) fp32."""
+    wmax = torch.stack([w.float().abs().amax(dim=2) for w in w_list]).amax(0)
+    a = torch.clamp(act_max.float().to(wmax.device), min=1e-8)
+    s = a ** alpha / torch.clamp(wmax, min=1e-8) ** (1.0 - alpha)
+    return torch.clamp(s, 1e-4, 1e4)
+
+
+def quantize_encoder_ffn(params: Params, groups="auto",
+                         act_max: Optional[torch.Tensor] = None,
+                         alpha: float = 0.5) -> Params:
+    """Once, after loading the frozen LM: int8 quantization of the stacked
+    encoder FFN weights for cfg.int8_encoder_ffn. Returns a NEW params dict
+    whose ["encoder"]["ffn_q8"] holds (L, D, F) wi_0/wi_1 with (L, G, F)
+    scales and (L, F, D) wo with (L, G', D) scales; the input is not
+    changed. ``act_max`` (the (L, D) "ffn" entry of
+    calibrate_encoder_act_max) folds SmoothQuant factors into the norm
+    scale, stored as ffn_q8["ln"] in the LM dtype, and into the wi rows."""
+    enc = params["encoder"]
+    ffn = enc["ffn"]
+    wi_0 = ffn["wi_0"].float()
+    wi_1 = ffn["wi_1"].float() if "wi_1" in ffn else None
+    wo = ffn["wo"].float()
+
+    q8 = {}
+    if act_max is not None:
+        gates = [wi_0] if wi_1 is None else [wi_0, wi_1]
+        s = _smooth_factors(act_max, gates, alpha)        # (L, D)
+        q8["ln"] = (enc["ln1"].float() / s).to(enc["ln1"].dtype)
+        wi_0 = wi_0 * s[:, :, None]
+        if wi_1 is not None:
+            wi_1 = wi_1 * s[:, :, None]
+
+    g_in = _pick_groups(wi_0.shape[1], groups)
+    g_hid = _pick_groups(wo.shape[1], groups)
+    for name, w, g in (("wi_0", wi_0, g_in), ("wi_1", wi_1, g_in),
+                       ("wo", wo, g_hid)):
+        if w is None:
+            continue
+        q8[name], q8[name + "_s"] = _quant_stacked_i8(w, g)
+    out = dict(params)
+    out["encoder"] = dict(enc)
+    out["encoder"]["ffn_q8"] = q8
+    return out
+
+
+def quantize_encoder_attn(params: Params, groups="auto",
+                          act_max: Optional[torch.Tensor] = None,
+                          alpha: float = 0.5) -> Params:
+    """Once: int8 quantization of the stacked encoder attention projections
+    (q/k/v/o) for cfg.int8_encoder_attn, the grouped scheme of
+    quantize_encoder_ffn. ``act_max`` (the (L, D) "attn" entry) folds
+    SmoothQuant factors into the attention norm (self_attn_q8["ln"]) and
+    the q/k/v rows; o's input is the attention output, not norm-preceded,
+    so it keeps plain grouped quantization."""
+    enc = params["encoder"]
+    mats = {n: enc["self_attn"][n].float() for n in ("q", "k", "v", "o")}
+
+    q8 = {}
+    if act_max is not None:
+        s = _smooth_factors(act_max, [mats["q"], mats["k"], mats["v"]],
+                            alpha)
+        q8["ln"] = (enc["ln0"].float() / s).to(enc["ln0"].dtype)
+        for n in ("q", "k", "v"):
+            mats[n] = mats[n] * s[:, :, None]
+
+    for name, w in mats.items():
+        q8[name], q8[name + "_s"] = _quant_stacked_i8(
+            w, _pick_groups(w.shape[1], groups))
+    out = dict(params)
+    out["encoder"] = dict(enc)
+    out["encoder"]["self_attn_q8"] = q8
+    return out
+
+
+@torch.inference_mode()
+def calibrate_encoder_act_max(params: Params, cfg: T5Config,
+                              batches) -> Dict[str, torch.Tensor]:
+    """Run the exact (unfused, non-int8) encoder over ``batches`` and
+    record, per layer, the per-channel max |activation| at the two RMS-norm
+    outputs (the inputs of the q/k/v and wi_0/wi_1 matmuls), counting only
+    positions the attention mask keeps. ``batches``: iterable of
+    (input_ids | inputs_embeds, attention_mask or None) pairs. Returns
+    {"attn": (L, D), "ffn": (L, D)} fp32 on the params' device, for
+    quantize_encoder_attn / quantize_encoder_ffn."""
+    cal_cfg = dataclasses.replace(
+        cfg, int8_encoder_ffn=False, int8_encoder_attn=False,
+        fused_encoder_attention=False, fused_encoder_ffn=False,
+    )
+    enc = params["encoder"]
+    eps = cal_cfg.layer_norm_epsilon
+    out = None
+    for x, attention_mask in batches:
+        x = torch.as_tensor(x, device=enc["ln0"].device)
+        if x.dim() == 2:  # token ids
+            x = embed_tokens(params, cal_cfg, x)
+        x = x.to(cal_cfg.dtype)
+        batch, length, _ = x.shape
+        if attention_mask is None:
+            attention_mask = torch.ones((batch, length), dtype=torch.int32,
+                                        device=x.device)
+        attention_mask = torch.as_tensor(attention_mask, device=x.device)
+        pos_bias = compute_position_bias(
+            enc["rel_bias"], length, length, bidirectional=True, cfg=cal_cfg)
+        bias = pos_bias + torch.where(
+            attention_mask[:, None, None, :] > 0, 0.0, NEG_INF)
+        valid = (attention_mask > 0).float()[:, :, None]
+        a_amax, f_amax = [], []
+        for i in range(cal_cfg.num_encoder_layers):
+            layer_p = _encoder_layer(enc, i, cal_cfg)
+            attn_in = rms_norm(x, layer_p["ln0"], eps)
+            a_amax.append((attn_in.float().abs() * valid).amax(dim=(0, 1)))
+            x = x + _attn_block(layer_p["self_attn"], attn_in, attn_in, bias,
+                                cal_cfg)
+            ffn_in = rms_norm(x, layer_p["ln1"], eps)
+            f_amax.append((ffn_in.float().abs() * valid).amax(dim=(0, 1)))
+            x = x + _ffn_block(layer_p["ffn"], ffn_in, cal_cfg)
+        cur = {"attn": torch.stack(a_amax), "ffn": torch.stack(f_amax)}
+        out = cur if out is None else {
+            k: torch.maximum(out[k], cur[k]) for k in out}
+    if out is None:
+        raise ValueError("calibrate_encoder_act_max needs >= 1 batch")
+    return out
+
+
+def _check_int8_encoder(enc: Params, cfg: T5Config) -> None:
+    if cfg.int8_encoder_ffn and "ffn_q8" not in enc:
+        raise ValueError(
+            "cfg.int8_encoder_ffn requires params['encoder']['ffn_q8'] "
+            "— call quantize_encoder_ffn(params) once after loading the "
+            "frozen LM weights")
+    if cfg.int8_encoder_attn:
+        if not cfg.fused_encoder_attention:
+            raise ValueError(
+                "cfg.int8_encoder_attn requires fused_encoder_attention "
+                "(the t5_attention_core kernel between the int8 "
+                "projections)")
+        if "self_attn_q8" not in enc:
+            raise ValueError(
+                "cfg.int8_encoder_attn requires "
+                "params['encoder']['self_attn_q8'] — call "
+                "quantize_encoder_attn(params) once after loading the "
+                "frozen LM weights")
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +527,7 @@ def t5_encode(
         attention_mask = torch.ones((batch, length), dtype=torch.int32,
                                     device=x.device)
     eps = cfg.layer_norm_epsilon
+    _check_int8_encoder(enc, cfg)
     pos_bias = compute_position_bias(
         enc["rel_bias"], length, length, bidirectional=True, cfg=cfg
     )
@@ -326,7 +536,19 @@ def t5_encode(
         pos_hll = pos_bias[0].contiguous()  # (H, L, L), shared by the batch
         key_mask = attention_mask.to(torch.int32).contiguous()
         for i in range(cfg.num_encoder_layers):
-            layer_p = _encoder_layer(enc, i)
+            layer_p = _encoder_layer(enc, i, cfg)
+            if cfg.int8_encoder_attn:
+                a8 = layer_p["self_attn_q8"]
+                q, k, v = fused_t5_ln_qkv_q8(
+                    x, a8["ln"] if "ln" in a8 else layer_p["ln0"],
+                    a8["q"], a8["q_s"], a8["k"], a8["k_s"],
+                    a8["v"], a8["v_s"], eps=eps,
+                )
+                attn = t5_attention_core(q, k, v, pos_hll, key_mask,
+                                         cfg.num_heads)
+                x = fused_oproj_residual_q8(x, attn, a8["o"], a8["o_s"])
+                x = _encoder_ffn(layer_p, x, cfg)
+                continue
             p = layer_p["self_attn"]
             attn_in = rms_norm(x, layer_p["ln0"], eps)
             q = torch.matmul(attn_in, p["q"].to(x.dtype))
@@ -340,7 +562,7 @@ def t5_encode(
             attention_mask[:, None, None, :] > 0, 0.0, NEG_INF)
         bias = pos_bias + mask_bias  # (B, H, L, L) fp32
         for i in range(cfg.num_encoder_layers):
-            layer_p = _encoder_layer(enc, i)
+            layer_p = _encoder_layer(enc, i, cfg)
             attn_in = rms_norm(x, layer_p["ln0"], eps)
             x = x + _attn_block(layer_p["self_attn"], attn_in, attn_in,
                                 bias, cfg)

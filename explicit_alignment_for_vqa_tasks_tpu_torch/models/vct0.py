@@ -3,7 +3,10 @@
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/models/vct0.py,
 restricted to the main generate path with greedy decoding: embed the
 prompt, project the CLIP prefixes, splice them in at the sentinels, encode
-once and decode greedily with a KV cache. The other modes raise
+once and decode greedily with a KV cache; and the opt-in int8 bulk-eval
+encoder, quantized at build time (``quantize_int8_encoder``) or after
+SmoothQuant calibration on eval batches
+(``VCT0Model.calibrate_and_quantize_int8``). The other modes raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -70,6 +73,19 @@ def init_vct0_params(
     if lm_params is None:
         lm_params = t5_lib.init_t5_params(gen, cfg.lm, param_dtype)
     return {"lm": lm_params, "mapper": init_mapper(gen, cfg.mapper)}
+
+
+def quantize_int8_encoder(lm_params: Params,
+                          lm_cfg: t5_lib.T5Config) -> Params:
+    """The LM params with the encoder weights quantized for the int8 modes
+    ``lm_cfg`` enables, once, at build time with ``groups="auto"`` (as the
+    JAX package's model factory does when no calibration batches are
+    configured). Returns a new dict; ``lm_params`` is not changed."""
+    if lm_cfg.int8_encoder_ffn:
+        lm_params = t5_lib.quantize_encoder_ffn(lm_params)
+    if lm_cfg.int8_encoder_attn:
+        lm_params = t5_lib.quantize_encoder_attn(lm_params)
+    return lm_params
 
 
 def project_prefix(cfg: VCT0Config, mapper_params: Params,
@@ -160,3 +176,69 @@ class VCT0Model:
     def score_sequences(self, tokens: torch.Tensor,
                         token_logprobs: torch.Tensor) -> torch.Tensor:
         return _decoding.sequence_scores(tokens, token_logprobs)
+
+    # --- int8 SmoothQuant calibration (deferred quantization) ---------
+    @torch.inference_mode()
+    def encoder_calibration_batch(
+        self,
+        prefix: Optional[torch.Tensor] = None,
+        question_tokens: Optional[torch.Tensor] = None,
+        question_mask: Optional[torch.Tensor] = None,
+        no_prefix: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The spliced encoder inputs (embeds, mask) of one eval batch: the
+        calibration surface of the int8 modes. Covers the main spliced
+        path and no_prefix (text embeddings only)."""
+        lm_params, mapper_params = self.params["lm"], self.params["mapper"]
+        dev = self.device
+        tokens = torch.as_tensor(question_tokens, device=dev)
+        mask = torch.as_tensor(question_mask, device=dev).to(torch.int32)
+        text_embeds = t5_lib.embed_tokens(lm_params, self.cfg.lm, tokens)
+        if no_prefix or prefix is None:
+            return text_embeds, mask
+        if tokens.dim() != 2:
+            raise ValueError(
+                "int8 calibration supports the main spliced eval path "
+                "(2-D question tokens); for other modes calibrate via "
+                "models.t5.calibrate_encoder_act_max")
+        prefix = torch.as_tensor(prefix, device=dev)
+        prefix_proj = project_prefix(self.cfg, mapper_params, prefix)
+        return insert_prefix_into_input(
+            tokens, text_embeds, prefix_proj.to(text_embeds.dtype), mask,
+            prefix_length=self.cfg.prefix_length,
+            num_prefixes=prefix.shape[1], base_id=self.cfg.sentinel_base,
+        )
+
+    def calibrate_and_quantize_int8(self, batches, alpha: float = 0.5,
+                                    groups="auto") -> Dict[str, Any]:
+        """One-shot SmoothQuant calibration and int8 quantization of the
+        frozen LM encoder, on real eval batches. ``batches``: iterable of
+        dicts of ``encoder_calibration_batch``'s arguments. Returns the
+        act-max statistics and swaps the quantized LM params into
+        ``self.params``. One process only: the statistics are not gathered
+        across processes (ROADMAP.md, Queue 1 item 14)."""
+        lm_cfg = self.cfg.lm
+        if not (lm_cfg.int8_encoder_ffn or lm_cfg.int8_encoder_attn):
+            raise ValueError(
+                "calibrate_and_quantize_int8 needs an int8 encoder mode "
+                "enabled (int8_encoder_ffn / int8_encoder_attn)")
+        t5_lib._check_ported(lm_cfg)
+        stats = None
+        for b in batches:
+            emb, m = self.encoder_calibration_batch(**b)
+            cur = t5_lib.calibrate_encoder_act_max(
+                self.params["lm"], lm_cfg, [(emb, m)])
+            stats = cur if stats is None else {
+                k: torch.maximum(stats[k], cur[k]) for k in stats}
+        if stats is None:
+            raise ValueError("int8 calibration needs >= 1 batch")
+        lm = self.params["lm"]
+        if lm_cfg.int8_encoder_ffn:
+            lm = t5_lib.quantize_encoder_ffn(
+                lm, groups=groups, act_max=stats["ffn"], alpha=alpha)
+        if lm_cfg.int8_encoder_attn:
+            lm = t5_lib.quantize_encoder_attn(
+                lm, groups=groups, act_max=stats["attn"], alpha=alpha)
+        self.params = dict(self.params)
+        self.params["lm"] = lm
+        return stats

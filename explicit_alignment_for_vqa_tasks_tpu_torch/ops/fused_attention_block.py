@@ -1,20 +1,33 @@
-"""T5 encoder self-attention core: the CUDA kernel and its plain version.
+"""The T5 encoder's kernels: each CUDA kernel with its plain version.
 
-Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
-::t5_attention_core (:1105-1180). The kernel is
-``csrc/t5_attention_core.cu``; its note gives the design and the bound.
+Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py:
 
-The plain version follows the Pallas kernel's order of rounding, not that
-of the JAX package's XLA twin ``_t5_attention_reference``: the kernel casts
-the unnormalised probabilities to the input dtype before PV, sums the
-denominator from those cast values and divides after PV. In bf16 that
-order gives the kernel's results bit for bit, where the XLA twin's order
-(normalise in fp32, then PV) differs by up to a bf16 ulp.
+  * ``t5_attention_core`` (:1105-1180), kernel ``csrc/t5_attention_core.cu``;
+  * the int8 bulk-eval trio ``fused_t5_ln_qkv_q8`` (:1635-1677),
+    ``fused_oproj_residual_q8`` (:1695-1728) and ``fused_t5_ffn_q8``
+    (:1547-1603), kernels in ``csrc/int8_encoder.cu``.
+
+Each source's note gives the design and the bound.
+
+The attention core's plain version follows the Pallas kernel's order of
+rounding, not that of the JAX package's XLA twin ``_t5_attention_reference``:
+the kernel casts the unnormalised probabilities to the input dtype before
+PV, sums the denominator from those cast values and divides after PV. In
+bf16 that order gives the kernel's results bit for bit, where the XLA twin's
+order (normalise in fp32, then PV) differs by up to a bf16 ulp.
+
+The int8 plain versions follow the Pallas kernels' order of rounding too:
+fp32 RMSNorm ``(x * rsqrt(mean(x^2) + eps)) * w``; per-(row, group)
+activation scales ``max(amax, 1e-6) / 127`` and codes
+``clip(round_half_even(h / scale), +-127)`` (a true division); each group's
+exact integer product in fp32, then ``(p * hs) * s_g``, the groups added in
+order; one cast to the output dtype at the end.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -153,3 +166,345 @@ def t5_attention_core(
 
 
 t5_attention_core.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 T5 encoder (bulk eval): plain helpers
+# ---------------------------------------------------------------------------
+
+# The int8 kernels' tiles: a contraction group is a whole number of 64-deep
+# k steps and the output width a whole number of 128-wide column tiles.
+Q8_GROUP_MULTIPLE = 64
+Q8_WIDTH_MULTIPLE = 128
+
+
+def _tanh_gelu(x: torch.Tensor) -> torch.Tensor:
+    """HF gelu_new (tanh approximation) in the JAX kernels' order of
+    operations; not ``F.gelu``, whose order of rounding differs."""
+    return 0.5 * x * (
+        1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x * x * x))
+    )
+
+
+def _rms_norm_f32(x32: torch.Tensor, ln_weight: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return x32 * torch.rsqrt(var + eps) * ln_weight.float()
+
+
+def _row_quant_i8(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization of an fp32 (rows, K) tile.
+    Returns (int8 codes, (rows, 1) fp32 dequant scales)."""
+    amax = torch.amax(torch.abs(h), dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(h / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _group_quant_rows_i8(h: torch.Tensor, groups: int) -> list:
+    """Per-(row, contraction-group) quantization: [(codes, scales)] for
+    each of ``groups`` equal column slices of ``h``."""
+    kg = h.shape[-1] // groups
+    return [_row_quant_i8(h[:, g * kg:(g + 1) * kg]) for g in range(groups)]
+
+
+def _mm_q8_grouped(parts: list, w: torch.Tensor,
+                   s: torch.Tensor) -> torch.Tensor:
+    """sum_g (hq_g @ W_g) * hs_g * s_g, accumulated in fp32 in group order.
+
+    ``torch.matmul`` has no int8 path on CUDA, so the codes go to a float
+    type: a group's products and partial sums are integers below
+    K/G * 127^2, exact in fp32 (and under TF32, whose inputs hold any code
+    exactly) while that is below 2^24, i.e. a group size of at most 1040.
+    Larger groups multiply in float64."""
+    kg = parts[0][0].shape[-1]
+    exact = torch.float32 if kg * 127 * 127 < 2 ** 24 else torch.float64
+    acc = None
+    for g, (hq, hs) in enumerate(parts):
+        p = torch.matmul(hq.to(exact), w[g * kg:(g + 1) * kg].to(exact))
+        t = p.float() * hs * s[g].float()
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def _as_group_scales(s: torch.Tensor) -> torch.Tensor:
+    """Accept legacy per-output-channel (F,) scales as 1 group."""
+    return s.reshape(1, -1) if s.dim() == 1 else s
+
+
+# ---------------------------------------------------------------------------
+# int8 T5 encoder: plain versions
+# ---------------------------------------------------------------------------
+
+def fused_t5_ln_qkv_q8_plain(
+    x: torch.Tensor,             # (B, L, D) pre-norm residual stream
+    ln_weight: torch.Tensor,     # (D,) RMS-norm scale
+    wq: torch.Tensor, sq: torch.Tensor,   # int8 (D, inner) + f32 (G, inner)
+    wk: torch.Tensor, sk: torch.Tensor,
+    wv: torch.Tensor, sv: torch.Tensor,
+    eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """RMSNorm, one per-(row, group) quantization shared by Q, K and V,
+    three grouped int8 products; (q, k, v) in x.dtype."""
+    batch, seq, d_model = x.shape
+    g_in = _as_group_scales(sq).shape[0]
+    h = _rms_norm_f32(x.reshape(-1, d_model).float(), ln_weight, eps)
+    parts = _group_quant_rows_i8(h, g_in)
+    return tuple(
+        _mm_q8_grouped(parts, w, _as_group_scales(s))
+        .reshape(batch, seq, -1).to(x.dtype)
+        for w, s in ((wq, sq), (wk, sk), (wv, sv)))
+
+
+def fused_oproj_residual_q8_plain(
+    residual: torch.Tensor,      # (B, L, D) pre-attention stream
+    attn: torch.Tensor,          # (B, L, inner) attention core output
+    wo: torch.Tensor, so: torch.Tensor,   # int8 (inner, D) + f32 (G, D)
+) -> torch.Tensor:
+    """residual + attn @ Wo with attn quantized per (row, group), no norm;
+    the fp32 residual is added before the one cast to residual.dtype."""
+    batch, seq, inner = attn.shape
+    so = _as_group_scales(so)
+    parts = _group_quant_rows_i8(attn.reshape(-1, inner).float(), so.shape[0])
+    y = _mm_q8_grouped(parts, wo, so)
+    res = residual.reshape(batch * seq, -1).float()
+    return (res + y).reshape(residual.shape).to(residual.dtype)
+
+
+def fused_t5_ffn_q8_plain(
+    x: torch.Tensor,             # (B, L, D) pre-norm residual stream
+    ln_weight: torch.Tensor,     # (D,)
+    wi_0: torch.Tensor, s_0: torch.Tensor,       # int8 (D, F) + f32 (G, F)
+    wi_1: Optional[torch.Tensor], s_1: Optional[torch.Tensor],  # gate or None
+    wo: torch.Tensor, s_o: torch.Tensor,         # int8 (F, D) + f32 (G', D)
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """x + FFN(RMSNorm(x)): wi_0 and wi_1 share one activation
+    quantization; the hidden gelu(a0) * a1 stays fp32 and is requantized
+    with the g_hid groups of s_o before wo."""
+    batch, seq, d_model = x.shape
+    s_0, s_o = _as_group_scales(s_0), _as_group_scales(s_o)
+    x32 = x.reshape(-1, d_model).float()
+    parts = _group_quant_rows_i8(_rms_norm_f32(x32, ln_weight, eps),
+                                 s_0.shape[0])
+    hid = _tanh_gelu(_mm_q8_grouped(parts, wi_0, s_0))
+    if wi_1 is not None:
+        hid = hid * _mm_q8_grouped(parts, wi_1, _as_group_scales(s_1))
+    y = _mm_q8_grouped(_group_quant_rows_i8(hid, s_o.shape[0]), wo, s_o)
+    return (x32 + y).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 T5 encoder: wrappers around csrc/int8_encoder.cu
+# ---------------------------------------------------------------------------
+
+def _q8_launcher(name: str, n_ptrs: int, n_ints: int, n_floats: int):
+    fn = getattr(kernels.load("int8_encoder"), name + "_launch")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_q8_tensors(op: str, device: torch.device, dtypes: dict,
+                      **tensors) -> None:
+    """Every tensor on ``device`` (a CUDA device), contiguous, 16-byte
+    aligned and of the dtype named for it."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(
+                f"{op}: {name} is on {t.device}, the kernel needs every "
+                f"input on {device}")
+        if t.dtype != dtypes[name]:
+            raise ValueError(
+                f"{op}: {name} is {t.dtype}; the kernel takes "
+                f"{dtypes[name]} only")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} is not 16-byte aligned")
+
+
+def _check_q8_product(op: str, name: str, w: torch.Tensor, s: torch.Tensor,
+                      k_dim: int, groups: int) -> None:
+    """int8 (K, N) weights with (G, N) scales the kernel's tiles take."""
+    if w.dim() != 2 or w.shape[0] != k_dim:
+        raise ValueError(
+            f"{op}: {name} is {tuple(w.shape)}, expected ({k_dim}, N)")
+    if tuple(s.shape) != (groups, w.shape[1]):
+        raise ValueError(
+            f"{op}: {name}'s scales are {tuple(s.shape)}, expected "
+            f"{(groups, w.shape[1])}")
+    if k_dim % groups or (k_dim // groups) % Q8_GROUP_MULTIPLE:
+        raise ValueError(
+            f"{op}: {name}'s contraction {k_dim} in {groups} groups is not "
+            f"a whole number of {Q8_GROUP_MULTIPLE}-deep k steps per group")
+    if w.shape[1] % Q8_WIDTH_MULTIPLE:
+        raise ValueError(
+            f"{op}: {name}'s width {w.shape[1]} is not a multiple of "
+            f"{Q8_WIDTH_MULTIPLE}")
+
+
+def _k_major(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) weights as (N, K): the tensor cores' int8 product takes both
+    operands with the contraction contiguous. A copy of a few MB a call."""
+    return w.t().contiguous()
+
+
+def _run(op: str, fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: cudaError {rc}")
+
+
+_BF16, _I8, _F32 = torch.bfloat16, torch.int8, torch.float32
+
+
+def fused_t5_ln_qkv_q8(
+    x: torch.Tensor, ln_weight: torch.Tensor,
+    wq: torch.Tensor, sq: torch.Tensor,
+    wk: torch.Tensor, sk: torch.Tensor,
+    wv: torch.Tensor, sv: torch.Tensor,
+    eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """RMS-norm + the three int8 T5 attention input projections. CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (``fused_t5_ln_qkv_q8.launches`` counts those calls) or raise."""
+    if x.device.type == "cpu":
+        return fused_t5_ln_qkv_q8_plain(x, ln_weight, wq, sq, wk, sk, wv, sv,
+                                        eps)
+    op = "fused_t5_ln_qkv_q8"
+    sq, sk, sv = (_as_group_scales(s) for s in (sq, sk, sv))
+    _check_q8_tensors(
+        op, x.device,
+        dict(x=_BF16, ln_weight=_BF16, wq=_I8, wk=_I8, wv=_I8, sq=_F32,
+             sk=_F32, sv=_F32),
+        x=x, ln_weight=ln_weight, wq=wq, sq=sq, wk=wk, sk=sk, wv=wv, sv=sv)
+    batch, seq, d_model = x.shape
+    groups = sq.shape[0]
+    if tuple(ln_weight.shape) != (d_model,):
+        raise ValueError(f"{op}: ln_weight is {tuple(ln_weight.shape)}")
+    for name, w, s in (("wq", wq, sq), ("wk", wk, sk), ("wv", wv, sv)):
+        _check_q8_product(op, name, w, s, d_model, groups)
+    if not wq.shape == wk.shape == wv.shape:
+        raise ValueError(f"{op}: wq, wk and wv differ in shape")
+    rows, inner = batch * seq, wq.shape[1]
+    codes = torch.empty((rows, d_model), dtype=_I8, device=x.device)
+    row_scales = torch.empty((rows, groups), dtype=_F32, device=x.device)
+    q, k, v = (torch.empty((batch, seq, inner), dtype=_BF16, device=x.device)
+               for _ in range(3))
+    wq, wk, wv = (_k_major(w) for w in (wq, wk, wv))
+    _run(op, _q8_launcher(op, 13, 4, 1),
+         x.data_ptr(), ln_weight.data_ptr(), wq.data_ptr(), sq.data_ptr(),
+         wk.data_ptr(), sk.data_ptr(), wv.data_ptr(), sv.data_ptr(),
+         codes.data_ptr(), row_scales.data_ptr(), q.data_ptr(), k.data_ptr(),
+         v.data_ptr(), rows, d_model, inner, groups, eps,
+         torch.cuda.current_stream(x.device).cuda_stream)
+    fused_t5_ln_qkv_q8.launches += 1
+    return q, k, v
+
+
+def fused_oproj_residual_q8(
+    residual: torch.Tensor, attn: torch.Tensor,
+    wo: torch.Tensor, so: torch.Tensor,
+) -> torch.Tensor:
+    """residual + attn @ Wo with the product int8. CPU tensors take the
+    plain version; CUDA tensors launch the kernel
+    (``fused_oproj_residual_q8.launches``) or raise."""
+    if attn.device.type == "cpu":
+        return fused_oproj_residual_q8_plain(residual, attn, wo, so)
+    op = "fused_oproj_residual_q8"
+    so = _as_group_scales(so)
+    _check_q8_tensors(op, attn.device,
+                      dict(residual=_BF16, attn=_BF16, wo=_I8, so=_F32),
+                      residual=residual, attn=attn, wo=wo, so=so)
+    batch, seq, inner = attn.shape
+    groups = so.shape[0]
+    _check_q8_product(op, "wo", wo, so, inner, groups)
+    d_model = wo.shape[1]
+    if tuple(residual.shape) != (batch, seq, d_model):
+        raise ValueError(
+            f"{op}: residual is {tuple(residual.shape)}, expected "
+            f"{(batch, seq, d_model)}")
+    rows = batch * seq
+    codes = torch.empty((rows, inner), dtype=_I8, device=attn.device)
+    row_scales = torch.empty((rows, groups), dtype=_F32, device=attn.device)
+    out = torch.empty_like(residual)
+    wo = _k_major(wo)
+    _run(op, _q8_launcher(op, 7, 4, 0),
+         residual.data_ptr(), attn.data_ptr(), wo.data_ptr(), so.data_ptr(),
+         codes.data_ptr(), row_scales.data_ptr(), out.data_ptr(),
+         rows, inner, d_model, groups,
+         torch.cuda.current_stream(attn.device).cuda_stream)
+    fused_oproj_residual_q8.launches += 1
+    return out
+
+
+def fused_t5_ffn_q8(
+    x: torch.Tensor, ln_weight: torch.Tensor,
+    wi_0: torch.Tensor, s_0: torch.Tensor,
+    wi_1: Optional[torch.Tensor], s_1: Optional[torch.Tensor],
+    wo: torch.Tensor, s_o: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """x + FFN(RMSNorm(x)) with every product int8 (gated when wi_1 is
+    given). CPU tensors take the plain version; CUDA tensors launch the
+    kernel (``fused_t5_ffn_q8.launches``) or raise."""
+    if x.device.type == "cpu":
+        return fused_t5_ffn_q8_plain(x, ln_weight, wi_0, s_0, wi_1, s_1, wo,
+                                     s_o, eps)
+    op = "fused_t5_ffn_q8"
+    gated = wi_1 is not None
+    s_0, s_o = _as_group_scales(s_0), _as_group_scales(s_o)
+    tensors = dict(x=x, ln_weight=ln_weight, wi_0=wi_0, s_0=s_0, wo=wo,
+                   s_o=s_o)
+    if gated:
+        s_1 = _as_group_scales(s_1)
+        tensors.update(wi_1=wi_1, s_1=s_1)
+    _check_q8_tensors(
+        op, x.device,
+        dict(x=_BF16, ln_weight=_BF16, wi_0=_I8, wi_1=_I8, wo=_I8, s_0=_F32,
+             s_1=_F32, s_o=_F32),
+        **tensors)
+    batch, seq, d_model = x.shape
+    g_in, g_hid = s_0.shape[0], s_o.shape[0]
+    if tuple(ln_weight.shape) != (d_model,):
+        raise ValueError(f"{op}: ln_weight is {tuple(ln_weight.shape)}")
+    _check_q8_product(op, "wi_0", wi_0, s_0, d_model, g_in)
+    d_ff = wi_0.shape[1]
+    if gated:
+        _check_q8_product(op, "wi_1", wi_1, s_1, d_model, g_in)
+        if wi_1.shape != wi_0.shape:
+            raise ValueError(f"{op}: wi_0 and wi_1 differ in shape")
+    _check_q8_product(op, "wo", wo, s_o, d_ff, g_hid)
+    if wo.shape[1] != d_model:
+        raise ValueError(f"{op}: wo is {tuple(wo.shape)}, expected "
+                         f"({d_ff}, {d_model})")
+    rows, dev = batch * seq, x.device
+    codes_in = torch.empty((rows, d_model), dtype=_I8, device=dev)
+    scales_in = torch.empty((rows, g_in), dtype=_F32, device=dev)
+    # the fp32 hidden gelu(a0) * a1 goes through device memory once
+    hidden = torch.empty((rows, d_ff), dtype=_F32, device=dev)
+    codes_hid = torch.empty((rows, d_ff), dtype=_I8, device=dev)
+    scales_hid = torch.empty((rows, g_hid), dtype=_F32, device=dev)
+    out = torch.empty_like(x)
+    wi_0, wo = _k_major(wi_0), _k_major(wo)
+    if gated:
+        wi_1 = _k_major(wi_1)
+    _run(op, _q8_launcher(op, 14, 5, 1),
+         x.data_ptr(), ln_weight.data_ptr(), wi_0.data_ptr(), s_0.data_ptr(),
+         wi_1.data_ptr() if gated else None,
+         s_1.data_ptr() if gated else None,
+         wo.data_ptr(), s_o.data_ptr(), codes_in.data_ptr(),
+         scales_in.data_ptr(), hidden.data_ptr(), codes_hid.data_ptr(),
+         scales_hid.data_ptr(), out.data_ptr(),
+         rows, d_model, d_ff, g_in, g_hid, eps,
+         torch.cuda.current_stream(dev).cuda_stream)
+    fused_t5_ffn_q8.launches += 1
+    return out
+
+
+fused_t5_ln_qkv_q8.launches = 0
+fused_oproj_residual_q8.launches = 0
+fused_t5_ffn_q8.launches = 0
