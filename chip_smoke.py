@@ -37,6 +37,34 @@ register / shared-memory / spill report):
              encode / decode breakdown and profile, the cosine of the int8
              encoder's output against the bf16 kernel path's, and the two
              configurations' generate calls timed in turns
+  decode_attention
+             the cross_attention_decode kernel against its plain version at
+             the decode step's shapes (24 stacked layers of B=32, L=557,
+             D=2048 bf16 caches, layer 7), with kernel, plain,
+             scaled_dot_product_attention and bound times
+  t5_ffn     the fused_t5_ffn kernel against its plain version at the
+             encoder's shapes (M = 32 x 557 rows, D = 2048, F = 5120,
+             gated), with kernel, plain, bound times and the unfused bf16
+             FFN's (three cuBLAS matmuls, gelu and gate) as the yardstick
+  generate_fused
+             the configuration with every fused kernel (fused_encoder_attention,
+             fused_encoder_ffn, fused_decode_attention) on the same weights
+             and prompts: generate twice (t5_attention_core and fused_t5_ffn
+             24 launches, cross_attention_decode 24 per decode step run),
+             its breakdown and profile, its tokens' agreement with the
+             default path's (recorded, not gated), and the two
+             configurations' calls timed in turns (bf16, fused, fused, bf16)
+  generate_int8_all
+             every int8 opt-in of base_env.jsonnet (int8_encoder_ffn,
+             int8_encoder_attn, int8_cross_kv at the auto layout, which is
+             unmerged at B=32, int8_decoder_step) with
+             fused_encoder_attention: calibration and quantization (the
+             decoder step W8A16, its bf16 weights dropped), generate twice,
+             launches, peak memory, the params' size, breakdown and
+             profile
+  kv_layouts one decode step at full width and 2 decoder layers for each
+             int8 cross-KV layout: unmerged and merged logits bit-equal,
+             transposed close to them, each layout's cache bytes at rest
 
 Then a line listing every kernel of the path with its launches and times,
 and last the line {"ok": true, "device": {...}}. Any failed check exits
@@ -72,9 +100,15 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.models.vct0 import (  # noqa: E4
     init_vct0_params,
     project_prefix,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.ops.decode_attention import (  # noqa: E402
+    cross_attention_decode,
+    cross_attention_decode_plain,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import (  # noqa: E402
     fused_oproj_residual_q8,
     fused_oproj_residual_q8_plain,
+    fused_t5_ffn,
+    fused_t5_ffn_plain,
     fused_t5_ffn_q8,
     fused_t5_ffn_q8_plain,
     fused_t5_ln_qkv_q8,
@@ -107,6 +141,10 @@ Q8_REL_FROBENIUS = 2e-3
 Q8_ELEMENT_TOL = 1.6e-2            # x |want| + x rms(want)
 INT8_GROUPS = 8
 INT8_COSINE_FLOOR = 0.95           # a sanity floor; the value is recorded
+DECODE_LAYER = 7                   # the cache layer the decode kernel reads
+# transposed int8 cross-KV logits against unmerged: the same products
+# summed in another order (rel. Frobenius over the logits)
+LAYOUT_REL_ERR = 1e-3
 
 PORT_CSRC = "explicit_alignment_for_vqa_tasks_tpu_torch/csrc/"
 JAX_OPS = "explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py"
@@ -118,9 +156,14 @@ KERNELS = {
     "fused_oproj_residual_q8": (PORT_CSRC + "int8_encoder.cu",
                                 JAX_OPS + ":1715"),
     "fused_t5_ffn_q8": (PORT_CSRC + "int8_encoder.cu", JAX_OPS + ":1595"),
+    "cross_attention_decode": (
+        PORT_CSRC + "cross_attention_decode.cu",
+        "explicit_alignment_for_vqa_tasks_tpu/ops/decode_attention.py:134"),
+    "fused_t5_ffn": (PORT_CSRC + "t5_ffn.cu", JAX_OPS + ":671"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
-                fused_oproj_residual_q8, fused_t5_ffn_q8)
+                fused_oproj_residual_q8, fused_t5_ffn_q8,
+                cross_attention_decode, fused_t5_ffn)
 
 
 def emit(phase: str, **fields) -> None:
@@ -401,10 +444,26 @@ def phase_reference(model: VCT0Model, prefix, tokens, mask) -> None:
          rel_err=rel_err, limit=REFERENCE_REL_ERR)
 
 
-def phase_generate(model: VCT0Model, prefix, tokens, mask, expected: dict,
+def decode_steps_run(out_tokens: torch.Tensor, eos: int) -> int:
+    """The decode steps greedy_decode_from_cache ran for these tokens: it
+    stops after the step at which the last row emitted EOS."""
+    has_eos = (out_tokens == eos).any(dim=1)
+    if not bool(has_eos.all()):
+        return out_tokens.shape[1]
+    first_eos = (out_tokens == eos).float().argmax(dim=1)
+    return int(first_eos.max()) + 1
+
+
+def launches(**counts) -> dict:
+    """Expected launches of every kernel of the path (0 unless named)."""
+    return {fn.__name__: counts.get(fn.__name__, 0) for fn in PATH_KERNELS}
+
+
+def phase_generate(model: VCT0Model, prefix, tokens, mask, expected,
                    phase: str = "generate") -> dict:
     """generate twice; every kernel count is set to 0 just before each call
-    and read just after, and must equal ``expected`` (name -> launches)."""
+    and read just after, and must equal ``expected(steps)`` (name ->
+    launches), ``steps`` being the decode steps the call ran."""
     cfg = model.cfg
     runs = []
     for _ in range(2):
@@ -421,12 +480,15 @@ def phase_generate(model: VCT0Model, prefix, tokens, mask, expected: dict,
         runs.append(dict(tokens=out_tokens, logprobs=logprobs, wall_s=wall,
                          launches={fn.__name__: fn.launches
                                    for fn in PATH_KERNELS},
-                         peak_bytes=torch.cuda.max_memory_allocated()))
+                         peak_bytes=torch.cuda.max_memory_allocated(),
+                         steps=decode_steps_run(out_tokens,
+                                                cfg.lm.eos_token_id)))
     first, second = runs
     for run in runs:
-        check(run["launches"] == expected,
+        want = expected(run["steps"])
+        check(run["launches"] == want,
               f"{phase}: kernels launched {run['launches']}, expected "
-              f"{expected}")
+              f"{want}")
     out_tokens, logprobs = second["tokens"], second["logprobs"]
     check(tuple(out_tokens.shape) == (BATCH, MAX_NEW_TOKENS),
           f"tokens shape {tuple(out_tokens.shape)}")
@@ -446,10 +508,12 @@ def phase_generate(model: VCT0Model, prefix, tokens, mask, expected: dict,
         prompts_per_s=BATCH / second["wall_s"],
         peak_mem_gb=second["peak_bytes"] / 1e9,
         launches_per_call=[r["launches"] for r in runs],
+        decode_steps=[r["steps"] for r in runs],
         rows_with_eos=int((out_tokens == cfg.lm.eos_token_id).any(1).sum()),
         first_tokens=out_tokens[0, :5].tolist(),
     )
     emit(phase, **result)
+    result["tokens"] = out_tokens
     return result
 
 
@@ -512,6 +576,21 @@ def phase_profile(model: VCT0Model, prefix, tokens, mask,
          top_kernels_ms=[[name[:90], us / 1e3] for name, us in top])
 
 
+def generate_in_turns(models: dict, prefix, tokens, mask) -> dict:
+    """Two configurations' generate calls in turns (a, b, b, a), since the
+    decode's host-side time moves between calls of the same code."""
+    a, b = models
+    turns = {a: [], b: []}
+    for name in (a, b, b, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[name].generate(prefix, tokens, mask, num_shots=NUM_SHOTS,
+                              max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        turns[name].append(time.perf_counter() - t0)
+    return turns
+
+
 def phase_generate_int8(model: VCT0Model, prefix, tokens, mask,
                         bf16_encode_s: float) -> dict:
     """The int8 bulk-eval configuration on the bf16 model's weights and
@@ -536,10 +615,12 @@ def phase_generate_int8(model: VCT0Model, prefix, tokens, mask,
          params_gb=torch.cuda.memory_allocated() / 1e9)
 
     layers = lm_cfg.num_encoder_layers
-    result = phase_generate(int8, prefix, tokens, mask,
-                            expected={fn.__name__: layers
-                                      for fn in PATH_KERNELS},
-                            phase="generate_int8")
+    result = phase_generate(
+        int8, prefix, tokens, mask,
+        expected=lambda steps: launches(
+            t5_attention_core=layers, fused_t5_ln_qkv_q8=layers,
+            fused_oproj_residual_q8=layers, fused_t5_ffn_q8=layers),
+        phase="generate_int8")
     breakdown = phase_breakdown(int8, prefix, tokens, mask,
                                 phase="breakdown_int8")
     phase_profile(int8, prefix, tokens, mask, result["wall_s"],
@@ -558,17 +639,8 @@ def phase_generate_int8(model: VCT0Model, prefix, tokens, mask,
     check(cosine >= INT8_COSINE_FLOOR,
           f"int8 encoder output's cosine to bf16 {cosine} < "
           f"{INT8_COSINE_FLOOR}")
-    # the two configurations' generate calls in turns, since the decode's
-    # host-side time moves between calls of the same code
-    turns = {"bf16": [], "int8": []}
-    for name in ("bf16", "int8", "int8", "bf16"):
-        m = model if name == "bf16" else int8
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m.generate(prefix, tokens, mask, num_shots=NUM_SHOTS,
-                   max_new_tokens=MAX_NEW_TOKENS)
-        torch.cuda.synchronize()
-        turns[name].append(time.perf_counter() - t0)
+    turns = generate_in_turns({"bf16": model, "int8": int8}, prefix, tokens,
+                              mask)
     emit("int8_vs_bf16", encoder_cosine=cosine, floor=INT8_COSINE_FLOOR,
          int8_encode_s=breakdown["encode_s"], bf16_encode_s=bf16_encode_s,
          encode_speedup=bf16_encode_s / breakdown["encode_s"],
@@ -576,6 +648,265 @@ def phase_generate_int8(model: VCT0Model, prefix, tokens, mask,
          prompts_per_s_in_turns={k: [BATCH / t for t in v]
                                  for k, v in turns.items()})
     return result
+
+
+def phase_decode_attention(gen: torch.Generator) -> dict:
+    """The decode kernel against its plain version on one layer (not 0) of
+    full-size stacked caches, as the fused decode step calls it."""
+    cfg = t5_lib.T5Config.t0_3b()
+    layers, heads, head_dim = cfg.num_decoder_layers, cfg.num_heads, cfg.d_kv
+    length = splice_output_length(PROMPT_LEN, PREFIX_LENGTH, NUM_SHOTS + 1)
+    width = heads * head_dim
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    q = randn(BATCH, width)
+    k = randn(layers, BATCH, length, width)
+    v = randn(layers, BATCH, length, width)
+    mask = torch.ones((BATCH, length), dtype=torch.int32, device=dev)
+    for b in range(1, BATCH, 4):          # padded tails of several lengths
+        mask[b, length - 40 - 3 * b:] = 0
+    mask[BATCH - 1] = 0                   # one fully masked row
+    args = (q, k, v, mask, DECODE_LAYER, heads)
+
+    got = cross_attention_decode(*args)
+    torch.cuda.synchronize()
+    want = cross_attention_decode_plain(*args)
+    err = (got.float() - want.float()).abs()
+    max_abs_err = err.max().item()
+    check(torch.isfinite(got.float()).all().item(),
+          "decode kernel output not finite")
+    check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all()),
+          f"decode kernel outside atol/rtol 8e-3 of the plain version "
+          f"(max abs err {max_abs_err})")
+    kernel_ms = cuda_ms(lambda: cross_attention_decode(*args), iters=100)
+    plain_ms = cuda_ms(lambda: cross_attention_decode_plain(*args), iters=5)
+    # yardstick only: one PyTorch call computing the same function on
+    # (B, H, 1, dh) and (B, H, L, dh) views of the same layer
+    q4 = q.view(BATCH, heads, 1, head_dim)
+    k4, v4 = (c[DECODE_LAYER].view(BATCH, length, heads, head_dim)
+              .transpose(1, 2) for c in (k, v))
+    bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).bfloat16()
+    library_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=bias, scale=1.0), iters=20)
+    bytes_moved = (2 * BATCH * length * width * 2 + 2 * q.numel() * 2
+                   + mask.numel() * 4)
+    flops = 4 * BATCH * length * width
+    result = dict(
+        shape=dict(layers=layers, B=BATCH, L=length, H=heads, dh=head_dim,
+                   layer=DECODE_LAYER),
+        max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms,
+        library_ms=library_ms, library="scaled_dot_product_attention",
+        **bound(bytes_moved, flops, BF16_FLOP_PER_S))
+    emit("decode_attention", kernel_ms=kernel_ms, **{
+        key: val for key, val in result.items() if key != "ms"})
+    return result
+
+
+def phase_t5_ffn(gen: torch.Generator) -> dict:
+    """The bf16 FFN kernel against its plain version at the encoder's
+    shapes (gated, T0-3B widths)."""
+    cfg = t5_lib.T5Config.t0_3b()
+    length = splice_output_length(PROMPT_LEN, PREFIX_LENGTH, NUM_SHOTS + 1)
+    d_model, d_ff = cfg.d_model, cfg.d_ff
+    rows = BATCH * length
+    dev = gen.device
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    x = randn(BATCH, length, d_model, scale=2.0).bfloat16()
+    lnw = (1 + 0.1 * randn(d_model)).bfloat16()
+    wi_0, wi_1 = (randn(d_model, d_ff, scale=d_model ** -0.5).bfloat16()
+                  for _ in range(2))
+    wo = randn(d_ff, d_model, scale=d_ff ** -0.5).bfloat16()
+    args = (x, lnw, wi_0, wi_1, wo, cfg.layer_norm_epsilon)
+    got = fused_t5_ffn(*args)
+    torch.cuda.synchronize()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain version must multiply in fp32")
+    want = fused_t5_ffn_plain(*args)
+    errs = compare_q8(got, want)
+    del want
+    kernel_ms = cuda_ms(lambda: fused_t5_ffn(*args), iters=10)
+    plain_ms = cuda_ms(lambda: fused_t5_ffn_plain(*args), iters=3, warmup=1)
+    # yardstick only: the unfused bf16 FFN the encoder runs without
+    # fused_encoder_ffn (three cuBLAS matmuls, gelu, gate, residual)
+    ffn_p = {"wi_0": wi_0, "wi_1": wi_1, "wo": wo}
+    library_ms = cuda_ms(lambda: x + t5_lib._ffn_block(
+        ffn_p, t5_lib.rms_norm(x, lnw, cfg.layer_norm_epsilon), cfg),
+        iters=10)
+    bytes_moved = 2 * rows * d_model * 2 + d_model * 2 + 3 * d_model * d_ff * 2
+    flops = 3 * 2 * rows * d_model * d_ff
+    result = dict(
+        shape=dict(M=rows, D=d_model, F=d_ff, gated=True),
+        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        library="unfused bf16 FFN: rms_norm, 3 torch.matmul, gelu, gate",
+        **errs, **bound(bytes_moved, flops, BF16_FLOP_PER_S))
+    emit("t5_ffn", kernel_ms=kernel_ms, **{
+        key: val for key, val in result.items() if key != "ms"})
+    return result
+
+
+def phase_generate_fused(model: VCT0Model, prefix, tokens, mask,
+                         default: dict) -> dict:
+    """Every fused kernel on: the default path's weights and prompts,
+    generate twice, breakdown, profile, token agreement with the default
+    path (recorded), and both configurations' calls in turns."""
+    lm_cfg = dataclasses.replace(model.cfg.lm, fused_encoder_attention=True,
+                                 fused_encoder_ffn=True,
+                                 fused_decode_attention=True)
+    fused = VCT0Model(dataclasses.replace(model.cfg, lm=lm_cfg),
+                      dict(model.params))
+    layers = lm_cfg.num_encoder_layers
+    result = phase_generate(
+        fused, prefix, tokens, mask,
+        expected=lambda steps: launches(
+            t5_attention_core=layers, fused_t5_ffn=layers,
+            cross_attention_decode=lm_cfg.num_decoder_layers * steps),
+        phase="generate_fused")
+    breakdown = phase_breakdown(fused, prefix, tokens, mask,
+                                phase="breakdown_fused")
+    phase_profile(fused, prefix, tokens, mask, result["wall_s"],
+                  phase="profile_fused")
+    same = result["tokens"] == default["tokens"]
+    turns = generate_in_turns({"bf16": model, "fused": fused}, prefix,
+                              tokens, mask)
+    decode = decode_in_turns(model, fused, prefix, tokens, mask)
+    emit("fused_vs_bf16", token_agreement=same.float().mean().item(),
+         first_token_agreement=same[:, 0].float().mean().item(),
+         fused_decode_s=breakdown["decode_s"],
+         generate_s_in_turns=turns,
+         prompts_per_s_in_turns={k: [BATCH / t for t in v]
+                                 for k, v in turns.items()},
+         **decode)
+    return result
+
+
+def decode_in_turns(model: VCT0Model, fused: VCT0Model, prefix, tokens,
+                    mask) -> dict:
+    """The greedy decode alone, without and with cross_attention_decode,
+    on the same encoder states: host-clock seconds in turns (bf16, fused,
+    fused, bf16) and the device time of its kernels under the profiler."""
+    lm = model.params["lm"]
+    with torch.inference_mode():
+        joint, joint_mask = model.encoder_calibration_batch(prefix, tokens,
+                                                            mask)
+        hidden = t5_lib.t5_encode(lm, model.cfg.lm, inputs_embeds=joint,
+                                  attention_mask=joint_mask)
+    cfgs = {"bf16": model.cfg.lm, "fused": dataclasses.replace(
+        model.cfg.lm, fused_decode_attention=True)}
+
+    def decode(name):
+        with torch.inference_mode():
+            greedy_decode_t5(lm, cfgs[name], hidden, joint_mask,
+                             MAX_NEW_TOKENS)
+
+    wall = {"bf16": [], "fused": []}
+    for name in ("bf16", "fused", "fused", "bf16"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(name)
+        torch.cuda.synchronize()
+        wall[name].append(time.perf_counter() - t0)
+    device = {}
+    for name in cfgs:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            decode(name)
+            torch.cuda.synchronize()
+        device[name] = sum(
+            e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return dict(decode_s_in_turns=wall, decode_device_s=device)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the distinct tensors of a params tree."""
+    seen = {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            for child in node.values():
+                walk(child)
+        else:
+            seen[node.data_ptr()] = node.numel() * node.element_size()
+
+    walk(tree)
+    return sum(seen.values())
+
+
+def phase_generate_int8_all(model: VCT0Model, prefix, tokens, mask) -> dict:
+    """Every int8 opt-in of base_env.jsonnet at once (the decode's int8
+    cross-KV at the auto layout and the W8A16 step), with the attention
+    kernel: calibrate and quantize, then generate twice."""
+    lm_cfg = dataclasses.replace(
+        model.cfg.lm, fused_encoder_attention=True, int8_encoder_ffn=True,
+        int8_encoder_attn=True, int8_cross_kv=True, int8_decoder_step=True)
+    int8 = VCT0Model(dataclasses.replace(model.cfg, lm=lm_cfg),
+                     dict(model.params))
+    int8.calibrate_and_quantize_int8(
+        [dict(prefix=prefix, question_tokens=tokens, question_mask=mask)],
+        alpha=0.5)
+    dec = int8.params["lm"]["decoder"]
+    check("step_q8" in dec and not dec["ffn"] and not dec["self_attn"],
+          "the decode step's weights were not quantized with drop_bf16")
+    layers = lm_cfg.num_encoder_layers
+    result = phase_generate(
+        int8, prefix, tokens, mask,
+        expected=lambda steps: launches(
+            t5_attention_core=layers, fused_t5_ln_qkv_q8=layers,
+            fused_oproj_residual_q8=layers, fused_t5_ffn_q8=layers),
+        phase="generate_int8_all")
+    emit("int8_all_params", kv_layout=t5_lib._resolve_kv_layout(lm_cfg, BATCH),
+         params_gb=tree_bytes(int8.params) / 1e9,
+         bf16_params_gb=tree_bytes(model.params) / 1e9)
+    phase_breakdown(int8, prefix, tokens, mask, phase="breakdown_int8_all")
+    phase_profile(int8, prefix, tokens, mask, result["wall_s"],
+                  phase="profile_int8_all")
+    return result
+
+
+def phase_kv_layouts(model: VCT0Model, gen: torch.Generator) -> None:
+    """One decode step at full width and 2 decoder layers for each int8
+    cross-KV layout, on the same encoder states."""
+    lm = model.params["lm"]
+    length = splice_output_length(PROMPT_LEN, PREFIX_LENGTH, NUM_SHOTS + 1)
+    dev = gen.device
+    hidden = torch.randn((BATCH, length, model.cfg.lm.d_model),
+                         generator=gen, device=dev).bfloat16()
+    mask = torch.ones((BATCH, length), dtype=torch.int32, device=dev)
+    mask[1::4, length - 60:] = 0
+    token = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+    logits, cache_bytes = {}, {}
+    with torch.inference_mode():
+        for layout in ("unmerged", "merged", "transposed"):
+            cfg = dataclasses.replace(model.cfg.lm, num_decoder_layers=2,
+                                      int8_cross_kv=True,
+                                      int8_kv_layout=layout)
+            cache = t5_lib.init_decode_cache(lm, cfg, hidden, MAX_NEW_TOKENS)
+            cache_bytes[layout] = sum(
+                t.numel() * t.element_size() for key, t in cache.items()
+                if key.startswith("cross_"))
+            logits[layout], _ = t5_lib.t5_decode_step(lm, cfg, token, cache,
+                                                      mask)
+            del cache
+    check(bool(torch.isfinite(logits["unmerged"]).all()),
+          "int8 cross-KV logits not finite")
+    check(torch.equal(logits["unmerged"], logits["merged"]),
+          "unmerged and merged int8 cross-KV logits differ")
+    ref = logits["unmerged"]
+    rel = ((logits["transposed"] - ref).norm() / ref.norm()).item()
+    check(rel <= LAYOUT_REL_ERR,
+          f"transposed int8 cross-KV logits differ from unmerged: rel {rel}")
+    emit("kv_layouts", decoder_layers=2, batch=BATCH, length=length,
+         transposed_rel_err=rel, limit=LAYOUT_REL_ERR,
+         transposed_max_abs_diff=(logits["transposed"] - ref).abs().max()
+         .item(),
+         cross_cache_bytes_at_rest=cache_bytes)
 
 
 def main() -> int:
@@ -593,6 +924,10 @@ def main() -> int:
     gen.manual_seed(SEED)
     attention = phase_attention(gen)
     int8_kernels = phase_int8_kernels(gen)
+    torch.cuda.empty_cache()
+    decode_attention = phase_decode_attention(gen)
+    torch.cuda.empty_cache()
+    t5_ffn = phase_t5_ffn(gen)
     torch.cuda.empty_cache()
 
     lm_cfg = t5_lib.T5Config.t0_3b(fused_encoder_attention=True)
@@ -614,15 +949,25 @@ def main() -> int:
     layers = cfg.lm.num_encoder_layers
     generate = phase_generate(
         model, prefix, tokens, mask,
-        expected={fn.__name__: layers if fn is t5_attention_core else 0
-                  for fn in PATH_KERNELS})
+        expected=lambda steps: launches(t5_attention_core=layers))
     breakdown = phase_breakdown(model, prefix, tokens, mask)
     phase_profile(model, prefix, tokens, mask, generate["wall_s"])
     generate_int8 = phase_generate_int8(model, prefix, tokens, mask,
                                         breakdown["encode_s"])
+    torch.cuda.empty_cache()
+    generate_fused = phase_generate_fused(model, prefix, tokens, mask,
+                                          generate)
+    torch.cuda.empty_cache()
+    phase_generate_int8_all(model, prefix, tokens, mask)
+    torch.cuda.empty_cache()
+    phase_kv_layouts(model, gen)
 
-    measured = {"t5_attention_core": (attention, generate), **{
-        name: (res, generate_int8) for name, res in int8_kernels.items()}}
+    measured = {
+        "t5_attention_core": (attention, generate),
+        **{name: (res, generate_int8) for name, res in int8_kernels.items()},
+        "cross_attention_decode": (decode_attention, generate_fused),
+        "fused_t5_ffn": (t5_ffn, generate_fused),
+    }
     lines = []
     for name, (res, run) in measured.items():
         source, replaces = KERNELS[name]

@@ -12,7 +12,9 @@
 //
 //   h      = (x * rsqrt(mean(x^2) + eps)) * w        fp32 RMSNorm (not for
 //                                                    the out-projection)
-//   hs     = max(amax(|h| over the group), 1e-6) / 127    per (row, group)
+//   hs     = max(amax(|h| over the group), 1e-6) * (1/127)  per (row, group);
+//            the JAX kernels divide by 127.0, which XLA compiles into this
+//            product with the fp32 reciprocal
 //   hq     = clip(rint(h / hs), -127, 127)           IEEE division, ties even
 //   acc    = sum over g = 0..G-1, in order, of (float(P_g) * hs_g) * s_g
 //            where P_g is the group's exact int32 product hq_g . W_g
@@ -151,7 +153,7 @@ row_quant_kernel(const T* __restrict__ x, const bf16* __restrict__ lnw,
     float amax = 0.0f;
     for (int i = threadIdx.x; i < kg; i += NT) amax = fmaxf(amax, fabsf(hg[i]));
     amax = block_reduce<true>(amax, red);
-    const float scale = __fdiv_rn(fmaxf(amax, 1e-6f), 127.0f);
+    const float scale = __fmul_rn(fmaxf(amax, 1e-6f), 1.0f / 127.0f);
     int8_t* cg = codes + row * K + g * kg;
     for (int i = threadIdx.x; i < kg; i += NT) {
       const float q = rintf(__fdiv_rn(hg[i], scale));

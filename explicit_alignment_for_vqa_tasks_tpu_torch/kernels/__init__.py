@@ -24,6 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {
     "t5_attention_core": "t5_attention_core.cu",
     "int8_encoder": "int8_encoder.cu",
+    "cross_attention_decode": "cross_attention_decode.cu",
+    "t5_ffn": "t5_ffn.cu",
 }
 
 NVCC_FLAGS = (

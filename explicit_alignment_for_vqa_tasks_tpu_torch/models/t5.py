@@ -14,14 +14,27 @@ package:
     operands (exact) and multiplies in fp32;
   * T5 attention has NO 1/sqrt(d) scale; masks add -1e9.
 
-Encoder self-attention goes through ``ops.fused_attention_block
-.t5_attention_core`` (a CUDA kernel on the card) when
-``fused_encoder_attention`` is set, as the shipped configs set it. The
-opt-in int8 bulk-eval modes (``int8_encoder_ffn``, ``int8_encoder_attn``)
-run the encoder's FFN and attention projections through the int8 kernels
-of the same module on weights quantized once by ``quantize_encoder_ffn`` /
-``quantize_encoder_attn``, optionally after SmoothQuant calibration
-(``calibrate_encoder_act_max``).
+Every option of ``T5Config`` runs in the port, each through the same
+kernel or arithmetic as the JAX package:
+
+  * ``fused_encoder_attention`` (as the shipped configs set it): encoder
+    self-attention through ``ops.fused_attention_block.t5_attention_core``;
+  * ``fused_encoder_ffn``: the encoder FFN through ``fused_t5_ffn``;
+  * the opt-in int8 bulk-eval encoder (``int8_encoder_ffn``,
+    ``int8_encoder_attn``): the FFN and attention projections through the
+    int8 kernels of the same module, on weights quantized once by
+    ``quantize_encoder_ffn`` / ``quantize_encoder_attn``, optionally after
+    SmoothQuant calibration (``calibrate_encoder_act_max``);
+  * ``fused_decode_attention``: the decode step's cross-attention through
+    ``ops.decode_attention.cross_attention_decode``;
+  * ``int8_cross_kv`` (with the ``int8_kv_layout`` storage layouts): int8
+    cross K/V caches and the scale-folded decode cross-attention;
+  * ``int8_decoder_step``: weight-only int8 (W8A16) decode-step matmuls on
+    weights quantized once by ``quantize_decoder_step``.
+
+These CUDA kernels run on the card; CPU tensors take their plain versions.
+The int8 cross-KV attention and the W8A16 matmuls are plain PyTorch, as
+they are plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,8 +45,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..ops.decode_attention import cross_attention_decode
 from ..ops.fused_attention_block import (
+    INV_127,
     fused_oproj_residual_q8,
+    fused_t5_ffn,
     fused_t5_ffn_q8,
     fused_t5_ln_qkv_q8,
     t5_attention_core,
@@ -73,11 +89,21 @@ class T5Config:
     # (quantize_encoder_attn; needs fused_encoder_attention)
     int8_encoder_ffn: bool = False
     int8_encoder_attn: bool = False
-    # the options below are not ported yet; see _check_ported
+    # decode-step cross-attention through the cross_attention_decode kernel
+    # over the whole stacked cross K/V cache (not with int8_cross_kv)
     fused_decode_attention: bool = False
+    # int8 cross K/V caches, per-(layer, row, head, channel) scales over the
+    # encoder length, in the storage layout int8_kv_layout names:
+    # "unmerged" (layers, B, L, H, kv), "merged" (layers, B, L, H*kv),
+    # "transposed" (layers, B, H, kv, L), or None for auto ("transposed"
+    # when the decode batch is 96 or more, else "unmerged"); the layouts
+    # give the same values (_resolve_kv_layout)
     int8_cross_kv: bool = False
     int8_kv_layout: Optional[str] = None
+    # encoder RMSNorm + FFN + residual through the fused_t5_ffn kernel
     fused_encoder_ffn: bool = False
+    # weight-only int8 decode step (W8A16): the step's matmuls read
+    # params["decoder"]["step_q8"] (quantize_decoder_step)
     int8_decoder_step: bool = False
 
     @classmethod
@@ -93,23 +119,6 @@ class T5Config:
         )
         cfg.update(kw)
         return cls(**cfg)
-
-
-_NOT_PORTED = {
-    "fused_decode_attention":
-        "the cross_attention_decode kernel (ROADMAP.md, Queue 2 #5)",
-    "int8_cross_kv": "the int8 main-path stack (ROADMAP.md, Queue 1 item 8)",
-    "int8_decoder_step":
-        "the int8 main-path stack (ROADMAP.md, Queue 1 item 8)",
-    "fused_encoder_ffn": "the fused_t5_ffn kernel (ROADMAP.md, Queue 2 #6)",
-}
-
-
-def _check_ported(cfg: T5Config) -> None:
-    for flag, item in _NOT_PORTED.items():
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"T5Config.{flag} is not ported yet; it comes with {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +311,9 @@ def _ffn_block(layer_p: Params, x: torch.Tensor, cfg: T5Config) -> torch.Tensor:
 
 def _encoder_ffn(layer_p: Params, y: torch.Tensor, cfg: T5Config) -> torch.Tensor:
     """RMS-norm + FFN + residual; int8 (the opt-in bulk-eval mode) when
-    cfg.int8_encoder_ffn (the layer then carries "ffn_q8")."""
+    cfg.int8_encoder_ffn (the layer then carries "ffn_q8"), else through the
+    fused_t5_ffn kernel when cfg.fused_encoder_ffn (JAX models/t5.py:342-369,
+    the same precedence)."""
     if cfg.int8_encoder_ffn:
         q8 = layer_p["ffn_q8"]
         gated = cfg.is_gated_act
@@ -314,8 +325,35 @@ def _encoder_ffn(layer_p: Params, y: torch.Tensor, cfg: T5Config) -> torch.Tenso
             q8["wo"], q8["wo_s"],
             eps=cfg.layer_norm_epsilon,
         )
+    if cfg.fused_encoder_ffn:
+        ffn_p = layer_p["ffn"]
+        return fused_t5_ffn(
+            y, layer_p["ln1"], ffn_p["wi_0"],
+            ffn_p["wi_1"] if cfg.is_gated_act else None,
+            ffn_p["wo"], eps=cfg.layer_norm_epsilon,
+        )
     ffn_in = rms_norm(y, layer_p["ln1"], cfg.layer_norm_epsilon)
     return y + _ffn_block(layer_p["ffn"], ffn_in, cfg)
+
+
+def _matmul_w8(x: torch.Tensor, w8: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """Weight-only int8 matmul (JAX models/t5.py:387-403): (B, Q, K) x int8
+    (K, F) with f32 (G, F) per-(contraction-group, output-channel) scales.
+    Each group's partial product of x's values and the codes (both exact in
+    fp32) is taken in fp32 with no rounding to x's dtype, then the scales
+    apply in fp32 and the groups are summed. Returns (B, Q, F) fp32.
+
+    The int8 codes are upcast at every call: a bf16 matmul would round
+    each partial to bf16."""
+    groups, f_dim = scale.shape
+    k_dim = w8.shape[0]
+    batch, qlen, _ = x.shape
+    xg = x.float().reshape(batch * qlen, groups, k_dim // groups)
+    part = torch.bmm(xg.transpose(0, 1),
+                     w8.reshape(groups, k_dim // groups, f_dim).float())
+    out = (part * scale.float()[:, None, :]).sum(dim=0)
+    return out.reshape(batch, qlen, f_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +468,44 @@ def quantize_encoder_attn(params: Params, groups="auto",
     return out
 
 
+def quantize_decoder_step(params: Params, groups="auto",
+                          drop_bf16: bool = False) -> Params:
+    """Once: weight-only int8 quantization of every matmul of the decode
+    step for cfg.int8_decoder_step (JAX models/t5.py:545-593): self-attn
+    q/k/v/o, cross-attn q/o (the cross k/v feed the cache; int8 there is
+    cfg.int8_cross_kv) and the decoder FFN wi_0/wi_1/wo, with the grouped
+    scheme of quantize_encoder_ffn. Returns a NEW params dict whose
+    ["decoder"]["step_q8"] holds them under the JAX key names ("self_q",
+    "self_q_s", ..., "cross_o", "wi_0", ..., "wo_s").
+
+    ``drop_bf16=True`` also removes the quantized bf16 weights from the
+    decoder subtrees (cross-attn k/v, the norms and rel_bias stay): the
+    decode step then reads no bf16 matmul weight."""
+    dec = params["decoder"]
+    q8 = {}
+    dropped = {sub: set() for sub in ("self_attn", "cross_attn", "ffn")}
+    for sub, names, prefix in (
+        ("self_attn", ("q", "k", "v", "o"), "self_"),
+        ("cross_attn", ("q", "o"), "cross_"),
+        ("ffn", ("wi_0", "wi_1", "wo"), ""),
+    ):
+        for name in names:
+            if name not in dec[sub]:
+                continue  # the non-gated FFN has no wi_1
+            w = dec[sub][name]
+            q8[prefix + name], q8[prefix + name + "_s"] = _quant_stacked_i8(
+                w, _pick_groups(w.shape[1], groups))
+            dropped[sub].add(name)
+    out = dict(params)
+    out["decoder"] = dict(dec)
+    if drop_bf16:
+        for sub, names in dropped.items():
+            out["decoder"][sub] = {
+                k: v for k, v in dec[sub].items() if k not in names}
+    out["decoder"]["step_q8"] = q8
+    return out
+
+
 @torch.inference_mode()
 def calibrate_encoder_act_max(params: Params, cfg: T5Config,
                               batches) -> Dict[str, torch.Tensor]:
@@ -517,7 +593,6 @@ def t5_encode(
     attention_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns encoder hidden states (B, L, D)."""
-    _check_ported(cfg)
     enc = params["encoder"]
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, cfg, input_ids)
@@ -588,13 +663,66 @@ def lm_logits(params: Params, cfg: T5Config,
 # Incremental decoding with KV cache
 # ---------------------------------------------------------------------------
 
+def _resolve_kv_layout(cfg: T5Config, batch: int) -> str:
+    """The int8 cross-KV storage layout (T5Config.int8_kv_layout) for a
+    decode batch of ``batch`` rows (JAX models/t5.py:888-901)."""
+    if cfg.int8_kv_layout is not None:
+        if cfg.int8_kv_layout not in ("unmerged", "merged", "transposed"):
+            raise ValueError(
+                f"int8_kv_layout must be unmerged|merged|transposed|None, "
+                f"got {cfg.int8_kv_layout!r}")
+        return cfg.int8_kv_layout
+    return "transposed" if batch >= 96 else "unmerged"
+
+
+def _quant_cross_kv(x: torch.Tensor, layout: str
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 codes of one layer's (B, L, H, kv) cross K or V with
+    per-(row, head, channel) scales over the length axis, in ``layout``.
+    The scale is ``max(max|x| / 127, 1e-8)`` with the division as XLA
+    compiles it (a product with the fp32 reciprocal of 127); the codes are
+    a true division by it, rounded half to even."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=1, keepdim=True) * INV_127,
+                        min=1e-8)                        # (B, 1, H, kv)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    batch, length, heads, kv = q.shape
+    if layout == "merged":
+        return (q.reshape(batch, length, heads * kv),
+                scale.reshape(batch, 1, heads * kv))
+    if layout == "transposed":
+        return q.permute(0, 2, 3, 1).contiguous(), scale
+    return q, scale
+
+
 def cross_kv_cache(params: Params, cfg: T5Config,
-                   encoder_hidden: torch.Tensor) -> Params:
-    """Cross-attention K/V for every decoder layer, (layers, B, L, H, kv)
-    in the compute dtype."""
-    _check_ported(cfg)
+                   encoder_hidden: torch.Tensor,
+                   layout_batch: Optional[int] = None) -> Params:
+    """The cross-attention K/V cache of every decoder layer (JAX
+    models/t5.py:904-982): (layers, B, L, H, kv) in the compute dtype, or
+    with cfg.int8_cross_kv int8 codes ("cross_k", "cross_v") and fp32
+    scales ("cross_k_scale", "cross_v_scale") in the storage layout that
+    ``_resolve_kv_layout`` picks for ``layout_batch`` rows (the encoder
+    batch by default): unmerged (layers, B, L, H, kv) with (layers, B, 1,
+    H, kv) scales; merged (layers, B, L, H*kv) with (layers, B, 1, H*kv);
+    transposed (layers, B, H, kv, L) with (layers, B, 1, H, kv). Each
+    layer's bf16 K and V are quantized as they are projected, so no
+    (layers, ...) bf16 cache is held."""
     cross = params["decoder"]["cross_attn"]
     h = cfg.num_heads
+    if cfg.int8_cross_kv:
+        layout = _resolve_kv_layout(
+            cfg, encoder_hidden.shape[0] if layout_batch is None
+            else layout_batch)
+        out = {"cross_k": [], "cross_k_scale": [], "cross_v": [],
+               "cross_v_scale": []}
+        for i in range(cfg.num_decoder_layers):
+            for name in ("k", "v"):
+                codes, scales = _quant_cross_kv(
+                    _project(encoder_hidden, cross[name][i], h), layout)
+                out[f"cross_{name}"].append(codes)
+                out[f"cross_{name}_scale"].append(scales)
+        return {key: torch.stack(leaves) for key, leaves in out.items()}
     ks, vs = [], []
     for i in range(cfg.num_decoder_layers):
         ks.append(_project(encoder_hidden, cross["k"][i], h))
@@ -621,6 +749,36 @@ def init_decode_cache(params: Params, cfg: T5Config,
     return cache
 
 
+def _cross_attention_q8(cq: torch.Tensor, cache: Params, i: int,
+                        layout: str, cross_bias: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``i``'s scale-folded int8 cross-attention (JAX
+    models/t5.py:1109-1173): q.(k8 ks) = (q ks).k8 and P.(v8 vs) =
+    (P.v8) vs, so the codes enter both products as they are (exact in
+    bf16) and the products accumulate in fp32 with no rounding of the
+    scores. (B, 1, H, kv) in ``dtype``.
+
+    The codes are upcast to fp32 for each product: a bf16 matmul would
+    round its output."""
+    k8, v8 = cache["cross_k"][i], cache["cross_v"][i]
+    ks, vs = cache["cross_k_scale"][i], cache["cross_v_scale"][i]
+    batch, _, heads, kv = cq.shape
+    if layout == "merged":
+        k8, v8 = (t.reshape(batch, -1, heads, kv) for t in (k8, v8))
+        ks, vs = (t.reshape(batch, 1, heads, kv) for t in (ks, vs))
+    q_scaled = (cq.float() * ks.float()).to(dtype).float()
+    if layout == "transposed":   # (B, H, kv, L)
+        logits = torch.einsum("bqhd,bhdk->bhqk", q_scaled, k8.float())
+    else:                        # (B, L, H, kv)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q_scaled, k8.float())
+    weights = torch.softmax(logits + cross_bias, dim=-1).to(dtype).float()
+    if layout == "transposed":
+        pv = torch.einsum("bhqk,bhdk->bqhd", weights, v8.float())
+    else:
+        pv = torch.einsum("bhqk,bkhd->bqhd", weights, v8.float())
+    return (pv * vs.float()).to(dtype)
+
+
 def t5_decode_step(
     params: Params,
     cfg: T5Config,
@@ -628,20 +786,50 @@ def t5_decode_step(
     cache: Params,
     encoder_mask: torch.Tensor,  # (B, Lenc)
 ) -> Tuple[torch.Tensor, Params]:
-    """One incremental decode step. Returns (fp32 logits (B, V), cache).
+    """One incremental decode step (JAX models/t5.py:1003-1222). Returns
+    (fp32 logits (B, V), cache).
 
     Unlike the JAX step, which returns a new cache, this writes the step's
     self-attention K/V into the cache's buffers in place (no copy of the
     (layers, B, max_len, H, kv) buffers per step) and returns the same
-    dict with ``index`` advanced."""
-    _check_ported(cfg)
+    dict with ``index`` advanced.
+
+    The cross-attention takes the cross_attention_decode kernel when
+    cfg.fused_decode_attention, the scale-folded int8 products when
+    cfg.int8_cross_kv, else the plain fp32 attention. With
+    cfg.int8_decoder_step every matmul of the step reads the int8
+    ``step_q8`` weights (W8A16, ``_matmul_w8``) and no bf16 matmul weight,
+    so the tree may have had them dropped (quantize_decoder_step's
+    drop_bf16)."""
     dec = params["decoder"]
     eps = cfg.layer_norm_epsilon
     h = cfg.num_heads
+    if cfg.fused_decode_attention and cfg.int8_cross_kv:
+        raise ValueError(
+            "int8_cross_kv is implemented for the default (unfused) decode "
+            "path only; disable fused_decode_attention")
+    use_q8 = cfg.int8_decoder_step
+    if use_q8 and "step_q8" not in dec:
+        raise ValueError(
+            "int8_decoder_step requires params['decoder']['step_q8'] "
+            "(models.t5.quantize_decoder_step)")
+    q8 = dec.get("step_q8")
     x = embed_tokens(params, cfg, token[:, None])  # (B, 1, D)
+    batch, dtype = x.shape[0], x.dtype
     index = cache["index"]
     self_k, self_v = cache["self_k"], cache["self_v"]
     max_len = self_k.shape[2]
+
+    def proj(y: torch.Tensor, sub: str, name: str, q8_name: str,
+             i: int) -> torch.Tensor:
+        """(B, Q, D_in) through layer i's weight: W8A16 or bf16."""
+        if use_q8:
+            out = _matmul_w8(y, q8[q8_name][i], q8[q8_name + "_s"][i])
+            return out.to(dtype)
+        return torch.matmul(y, dec[sub][name][i].to(dtype))
+
+    def heads(y: torch.Tensor) -> torch.Tensor:
+        return y.reshape(y.shape[0], y.shape[1], h, -1)
 
     # self-attn bias: relative positions of the current step vs all cached
     # positions, plus invalidation of not-yet-written slots
@@ -653,27 +841,52 @@ def t5_decode_step(
     self_bias = self_bias + torch.where(pos_valid[None, None, None, :], 0.0,
                                         NEG_INF)
     cross_bias = torch.where(encoder_mask[:, None, None, :] > 0, 0.0, NEG_INF)
+    if cfg.fused_decode_attention:
+        # (layers, B, L, H, kv) -> (layers, B, L, H*kv): a view; the kernel
+        # offsets into the whole stacked cache by the layer index
+        nl, _, lenc = cache["cross_k"].shape[:3]
+        cross_k_flat = cache["cross_k"].view(nl, batch, lenc, -1)
+        cross_v_flat = cache["cross_v"].view(nl, batch, lenc, -1)
+        key_mask = encoder_mask.to(torch.int32).contiguous()
+    elif cfg.int8_cross_kv:
+        kv_layout = _resolve_kv_layout(cfg, batch)
 
     for i in range(cfg.num_decoder_layers):
-        sa = _layer(dec["self_attn"], i)
-        ca = _layer(dec["cross_attn"], i)
         sa_in = rms_norm(x, dec["ln0"][i], eps)
-        q = _project(sa_in, sa["q"], h)
-        self_k[i, :, index] = _project(sa_in, sa["k"], h)[:, 0]
-        self_v[i, :, index] = _project(sa_in, sa["v"], h)[:, 0]
-        attn = _attention(q, self_k[i], self_v[i], self_bias, x.dtype)
-        x = x + torch.matmul(attn.reshape(attn.shape[0], 1, -1),
-                             sa["o"].to(x.dtype))
+        q = heads(proj(sa_in, "self_attn", "q", "self_q", i))
+        self_k[i, :, index] = heads(proj(sa_in, "self_attn", "k", "self_k",
+                                         i))[:, 0]
+        self_v[i, :, index] = heads(proj(sa_in, "self_attn", "v", "self_v",
+                                         i))[:, 0]
+        attn = _attention(q, self_k[i], self_v[i], self_bias, dtype)
+        x = x + proj(attn.reshape(batch, 1, -1), "self_attn", "o", "self_o",
+                     i)
 
         ca_in = rms_norm(x, dec["ln1"][i], eps)
-        cq = _project(ca_in, ca["q"], h)
-        cattn = _attention(cq, cache["cross_k"][i], cache["cross_v"][i],
-                           cross_bias, x.dtype)
-        x = x + torch.matmul(cattn.reshape(cattn.shape[0], 1, -1),
-                             ca["o"].to(x.dtype))
+        cq = heads(proj(ca_in, "cross_attn", "q", "cross_q", i))
+        if cfg.fused_decode_attention:
+            cattn = cross_attention_decode(
+                cq.reshape(batch, -1), cross_k_flat, cross_v_flat, key_mask,
+                i, h)
+        elif cfg.int8_cross_kv:
+            cattn = _cross_attention_q8(cq, cache, i, kv_layout, cross_bias,
+                                        dtype)
+        else:
+            cattn = _attention(cq, cache["cross_k"][i], cache["cross_v"][i],
+                               cross_bias, dtype)
+        x = x + proj(cattn.reshape(batch, 1, -1), "cross_attn", "o",
+                     "cross_o", i)
 
         ffn_in = rms_norm(x, dec["ln2"][i], eps)
-        x = x + _ffn_block(_layer(dec["ffn"], i), ffn_in, cfg)
+        if use_q8:
+            hidden = gelu_new(_matmul_w8(ffn_in, q8["wi_0"][i],
+                                         q8["wi_0_s"][i]).to(dtype))
+            if cfg.is_gated_act:
+                hidden = hidden * _matmul_w8(ffn_in, q8["wi_1"][i],
+                                             q8["wi_1_s"][i]).to(dtype)
+            x = x + _matmul_w8(hidden, q8["wo"][i], q8["wo_s"][i]).to(dtype)
+        else:
+            x = x + _ffn_block(_layer(dec["ffn"], i), ffn_in, cfg)
     hidden = rms_norm(x, dec["final_ln"], eps)
     logits = lm_logits(params, cfg, hidden)[:, 0]
     cache["index"] = index + 1

@@ -3,11 +3,12 @@
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/models/vct0.py,
 restricted to the main generate path with greedy decoding: embed the
 prompt, project the CLIP prefixes, splice them in at the sentinels, encode
-once and decode greedily with a KV cache; and the opt-in int8 bulk-eval
-encoder, quantized at build time (``quantize_int8_encoder``) or after
-SmoothQuant calibration on eval batches
-(``VCT0Model.calibrate_and_quantize_int8``). The other modes raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+once and decode greedily with a KV cache, under any ``T5Config`` option;
+and the opt-in int8 modes, quantized at build time
+(``quantize_int8_encoder``) or, for the encoder, after SmoothQuant
+calibration on eval batches (``VCT0Model.calibrate_and_quantize_int8``).
+The other generate modes raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -77,14 +78,19 @@ def init_vct0_params(
 
 def quantize_int8_encoder(lm_params: Params,
                           lm_cfg: t5_lib.T5Config) -> Params:
-    """The LM params with the encoder weights quantized for the int8 modes
-    ``lm_cfg`` enables, once, at build time with ``groups="auto"`` (as the
-    JAX package's model factory does when no calibration batches are
-    configured). Returns a new dict; ``lm_params`` is not changed."""
+    """The LM params quantized for every int8 mode ``lm_cfg`` enables,
+    once, at build time with ``groups="auto"``, as the JAX package's model
+    factory does when no calibration batches are configured
+    (``trainers/model_factory.py:182-201``): the encoder FFN and attention
+    projections (W8A8), and the decode step's weights (W8A16, with the
+    bf16 decoder weights they replace dropped). Returns a new dict;
+    ``lm_params`` is not changed."""
     if lm_cfg.int8_encoder_ffn:
         lm_params = t5_lib.quantize_encoder_ffn(lm_params)
     if lm_cfg.int8_encoder_attn:
         lm_params = t5_lib.quantize_encoder_attn(lm_params)
+    if lm_cfg.int8_decoder_step:
+        lm_params = t5_lib.quantize_decoder_step(lm_params, drop_bf16=True)
     return lm_params
 
 
@@ -212,17 +218,18 @@ class VCT0Model:
     def calibrate_and_quantize_int8(self, batches, alpha: float = 0.5,
                                     groups="auto") -> Dict[str, Any]:
         """One-shot SmoothQuant calibration and int8 quantization of the
-        frozen LM encoder, on real eval batches. ``batches``: iterable of
-        dicts of ``encoder_calibration_batch``'s arguments. Returns the
-        act-max statistics and swaps the quantized LM params into
-        ``self.params``. One process only: the statistics are not gathered
-        across processes (ROADMAP.md, Queue 1 item 14)."""
+        frozen LM encoder, on real eval batches; with int8_decoder_step the
+        decode step's weights are quantized too, as the JAX package does
+        (``vct0.py:814-818``; weight-only, no statistics). ``batches``:
+        iterable of dicts of ``encoder_calibration_batch``'s arguments.
+        Returns the act-max statistics and swaps the quantized LM params
+        into ``self.params``. One process only: the statistics are not
+        gathered across processes (ROADMAP.md, Queue 1 item 14)."""
         lm_cfg = self.cfg.lm
         if not (lm_cfg.int8_encoder_ffn or lm_cfg.int8_encoder_attn):
             raise ValueError(
                 "calibrate_and_quantize_int8 needs an int8 encoder mode "
                 "enabled (int8_encoder_ffn / int8_encoder_attn)")
-        t5_lib._check_ported(lm_cfg)
         stats = None
         for b in batches:
             emb, m = self.encoder_calibration_batch(**b)
@@ -239,6 +246,9 @@ class VCT0Model:
         if lm_cfg.int8_encoder_attn:
             lm = t5_lib.quantize_encoder_attn(
                 lm, groups=groups, act_max=stats["attn"], alpha=alpha)
+        if lm_cfg.int8_decoder_step and "step_q8" not in lm["decoder"]:
+            lm = t5_lib.quantize_decoder_step(lm, groups=groups,
+                                              drop_bf16=True)
         self.params = dict(self.params)
         self.params["lm"] = lm
         return stats

@@ -5,7 +5,10 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
   * ``t5_attention_core`` (:1105-1180), kernel ``csrc/t5_attention_core.cu``;
   * the int8 bulk-eval trio ``fused_t5_ln_qkv_q8`` (:1635-1677),
     ``fused_oproj_residual_q8`` (:1695-1728) and ``fused_t5_ffn_q8``
-    (:1547-1603), kernels in ``csrc/int8_encoder.cu``.
+    (:1547-1603), kernels in ``csrc/int8_encoder.cu``;
+  * the bf16 encoder FFN ``fused_t5_ffn`` (:631-678, forward only), kernel
+    ``csrc/t5_ffn.cu``. Its backward (``fused_t5_ffn_vjp``) comes with
+    mapper training.
 
 Each source's note gives the design and the bound.
 
@@ -18,10 +21,11 @@ order (normalise in fp32, then PV) differs by up to a bf16 ulp.
 
 The int8 plain versions follow the Pallas kernels' order of rounding too:
 fp32 RMSNorm ``(x * rsqrt(mean(x^2) + eps)) * w``; per-(row, group)
-activation scales ``max(amax, 1e-6) / 127`` and codes
-``clip(round_half_even(h / scale), +-127)`` (a true division); each group's
-exact integer product in fp32, then ``(p * hs) * s_g``, the groups added in
-order; one cast to the output dtype at the end.
+activation scales ``max(amax, 1e-6) * (1/127)`` (the division by 127 as XLA
+compiles it) and codes ``clip(round_half_even(h / scale), +-127)`` (a true
+division); each group's exact integer product in fp32, then
+``(p * hs) * s_g``, the groups added in order; one cast to the output dtype
+at the end.
 """
 
 from __future__ import annotations
@@ -176,6 +180,9 @@ t5_attention_core.launches = 0
 # k steps and the output width a whole number of 128-wide column tiles.
 Q8_GROUP_MULTIPLE = 64
 Q8_WIDTH_MULTIPLE = 128
+# 1/127 as XLA folds it (in fp32; a Python float times an fp32 tensor is
+# an fp32 product with this value rounded to fp32)
+INV_127 = 1.0 / 127.0
 
 
 def _tanh_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -194,9 +201,15 @@ def _rms_norm_f32(x32: torch.Tensor, ln_weight: torch.Tensor,
 
 def _row_quant_i8(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 quantization of an fp32 (rows, K) tile.
-    Returns (int8 codes, (rows, 1) fp32 dequant scales)."""
+    Returns (int8 codes, (rows, 1) fp32 dequant scales).
+
+    The JAX kernels write ``max(amax, 1e-6) / 127.0``, which XLA compiles
+    into a multiplication by the fp32 reciprocal of 127 (its algebraic
+    simplifier folds a division by a constant); a true division differs by
+    an ulp in about one row in twenty. So the scale here is that product,
+    and the codes a true division by it, as XLA keeps them."""
     amax = torch.amax(torch.abs(h), dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-6) / 127.0
+    scale = torch.clamp(amax, min=1e-6) * INV_127
     q = torch.clamp(torch.round(h / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -298,8 +311,11 @@ def fused_t5_ffn_q8_plain(
 # int8 T5 encoder: wrappers around csrc/int8_encoder.cu
 # ---------------------------------------------------------------------------
 
-def _q8_launcher(name: str, n_ptrs: int, n_ints: int, n_floats: int):
-    fn = getattr(kernels.load("int8_encoder"), name + "_launch")
+def _launcher_of(lib: str, name: str, n_ptrs: int, n_ints: int,
+                 n_floats: int):
+    """``<name>_launch`` of kernel library ``lib``, its ctypes signature
+    (pointers, ints, floats, then the stream) declared."""
+    fn = getattr(kernels.load(lib), name + "_launch")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
@@ -307,8 +323,8 @@ def _q8_launcher(name: str, n_ptrs: int, n_ints: int, n_floats: int):
     return fn
 
 
-def _check_q8_tensors(op: str, device: torch.device, dtypes: dict,
-                      **tensors) -> None:
+def _check_tensors(op: str, device: torch.device, dtypes: dict,
+                   **tensors) -> None:
     """Every tensor on ``device`` (a CUDA device), contiguous, 16-byte
     aligned and of the dtype named for it."""
     for name, t in tensors.items():
@@ -376,7 +392,7 @@ def fused_t5_ln_qkv_q8(
                                         eps)
     op = "fused_t5_ln_qkv_q8"
     sq, sk, sv = (_as_group_scales(s) for s in (sq, sk, sv))
-    _check_q8_tensors(
+    _check_tensors(
         op, x.device,
         dict(x=_BF16, ln_weight=_BF16, wq=_I8, wk=_I8, wv=_I8, sq=_F32,
              sk=_F32, sv=_F32),
@@ -395,7 +411,7 @@ def fused_t5_ln_qkv_q8(
     q, k, v = (torch.empty((batch, seq, inner), dtype=_BF16, device=x.device)
                for _ in range(3))
     wq, wk, wv = (_k_major(w) for w in (wq, wk, wv))
-    _run(op, _q8_launcher(op, 13, 4, 1),
+    _run(op, _launcher_of("int8_encoder", op, 13, 4, 1),
          x.data_ptr(), ln_weight.data_ptr(), wq.data_ptr(), sq.data_ptr(),
          wk.data_ptr(), sk.data_ptr(), wv.data_ptr(), sv.data_ptr(),
          codes.data_ptr(), row_scales.data_ptr(), q.data_ptr(), k.data_ptr(),
@@ -416,9 +432,9 @@ def fused_oproj_residual_q8(
         return fused_oproj_residual_q8_plain(residual, attn, wo, so)
     op = "fused_oproj_residual_q8"
     so = _as_group_scales(so)
-    _check_q8_tensors(op, attn.device,
-                      dict(residual=_BF16, attn=_BF16, wo=_I8, so=_F32),
-                      residual=residual, attn=attn, wo=wo, so=so)
+    _check_tensors(op, attn.device,
+                   dict(residual=_BF16, attn=_BF16, wo=_I8, so=_F32),
+                   residual=residual, attn=attn, wo=wo, so=so)
     batch, seq, inner = attn.shape
     groups = so.shape[0]
     _check_q8_product(op, "wo", wo, so, inner, groups)
@@ -432,7 +448,7 @@ def fused_oproj_residual_q8(
     row_scales = torch.empty((rows, groups), dtype=_F32, device=attn.device)
     out = torch.empty_like(residual)
     wo = _k_major(wo)
-    _run(op, _q8_launcher(op, 7, 4, 0),
+    _run(op, _launcher_of("int8_encoder", op, 7, 4, 0),
          residual.data_ptr(), attn.data_ptr(), wo.data_ptr(), so.data_ptr(),
          codes.data_ptr(), row_scales.data_ptr(), out.data_ptr(),
          rows, inner, d_model, groups,
@@ -462,7 +478,7 @@ def fused_t5_ffn_q8(
     if gated:
         s_1 = _as_group_scales(s_1)
         tensors.update(wi_1=wi_1, s_1=s_1)
-    _check_q8_tensors(
+    _check_tensors(
         op, x.device,
         dict(x=_BF16, ln_weight=_BF16, wi_0=_I8, wi_1=_I8, wo=_I8, s_0=_F32,
              s_1=_F32, s_o=_F32),
@@ -492,7 +508,7 @@ def fused_t5_ffn_q8(
     wi_0, wo = _k_major(wi_0), _k_major(wo)
     if gated:
         wi_1 = _k_major(wi_1)
-    _run(op, _q8_launcher(op, 14, 5, 1),
+    _run(op, _launcher_of("int8_encoder", op, 14, 5, 1),
          x.data_ptr(), ln_weight.data_ptr(), wi_0.data_ptr(), s_0.data_ptr(),
          wi_1.data_ptr() if gated else None,
          s_1.data_ptr() if gated else None,
@@ -508,3 +524,85 @@ def fused_t5_ffn_q8(
 fused_t5_ln_qkv_q8.launches = 0
 fused_oproj_residual_q8.launches = 0
 fused_t5_ffn_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bf16 T5 encoder FFN: plain version and the wrapper around csrc/t5_ffn.cu
+# ---------------------------------------------------------------------------
+
+# The kernel's tiles: the contraction a whole number of 32-deep k steps, the
+# output widths a whole number of 128-wide column tiles.
+FFN_WIDTH_MULTIPLE = 128
+
+
+def fused_t5_ffn_plain(
+    x: torch.Tensor,             # (B, L, D) pre-norm residual stream
+    ln_weight: torch.Tensor,     # (D,)
+    wi_0: torch.Tensor,          # (D, F)
+    wi_1: Optional[torch.Tensor],  # (D, F) gate, or None
+    wo: torch.Tensor,            # (F, D)
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """x + FFN(RMSNorm(x)) in the Pallas kernel's order of rounding: the
+    fp32 norm rounded to bf16 whatever x's dtype, the bf16 weights'
+    products accumulated in fp32 (the operands upcast, which is exact, and
+    multiplied in true fp32: the port leaves
+    ``torch.backends.cuda.matmul.allow_tf32`` at its default, False),
+    gelu(a0) * a1 in fp32 and rounded to bf16 once, then the down product
+    and the fp32 residual, cast to x's dtype."""
+    bf = torch.bfloat16
+    x32 = x.float()
+    h = _rms_norm_f32(x32, ln_weight, eps).to(bf).float()
+    hid = _tanh_gelu(torch.matmul(h, wi_0.to(bf).float()))
+    if wi_1 is not None:
+        hid = hid * torch.matmul(h, wi_1.to(bf).float())
+    y = torch.matmul(hid.to(bf).float(), wo.to(bf).float())
+    return (x32 + y).to(x.dtype)
+
+
+def fused_t5_ffn(
+    x: torch.Tensor, ln_weight: torch.Tensor,
+    wi_0: torch.Tensor, wi_1: Optional[torch.Tensor], wo: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """x + FFN(RMSNorm(x)), gated when wi_1 is given (T5 v1.1 gated-gelu).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``fused_t5_ffn.launches`` counts those calls) or raise."""
+    if x.device.type == "cpu":
+        return fused_t5_ffn_plain(x, ln_weight, wi_0, wi_1, wo, eps)
+    op = "fused_t5_ffn"
+    gated = wi_1 is not None
+    tensors = dict(x=x, ln_weight=ln_weight, wi_0=wi_0, wo=wo)
+    if gated:
+        tensors["wi_1"] = wi_1
+    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
+                   **tensors)
+    batch, seq, d_model = x.shape
+    d_ff = wi_0.shape[-1]
+    if tuple(ln_weight.shape) != (d_model,):
+        raise ValueError(f"{op}: ln_weight is {tuple(ln_weight.shape)}")
+    for name, w, shape in (("wi_0", wi_0, (d_model, d_ff)),
+                           ("wi_1", wi_1, (d_model, d_ff)),
+                           ("wo", wo, (d_ff, d_model))):
+        if w is not None and tuple(w.shape) != shape:
+            raise ValueError(
+                f"{op}: {name} is {tuple(w.shape)}, expected {shape}")
+    if d_model % FFN_WIDTH_MULTIPLE or d_ff % FFN_WIDTH_MULTIPLE:
+        raise ValueError(
+            f"{op}: widths D={d_model}, F={d_ff} are not multiples of "
+            f"{FFN_WIDTH_MULTIPLE}")
+    rows, dev = batch * seq, x.device
+    h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
+    # the bf16 hidden gelu(a0) * a1 goes through device memory once
+    hidden = torch.empty((rows, d_ff), dtype=_BF16, device=dev)
+    out = torch.empty_like(x)
+    _run(op, _launcher_of("t5_ffn", op, 8, 3, 1),
+         x.data_ptr(), ln_weight.data_ptr(), wi_0.data_ptr(),
+         wi_1.data_ptr() if gated else None, wo.data_ptr(), h.data_ptr(),
+         hidden.data_ptr(), out.data_ptr(), rows, d_model, d_ff, eps,
+         torch.cuda.current_stream(dev).cuda_stream)
+    fused_t5_ffn.launches += 1
+    return out
+
+
+fused_t5_ffn.launches = 0

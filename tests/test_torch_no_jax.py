@@ -30,6 +30,15 @@ def python_files():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
+def test_every_kernel_module_is_scanned():
+    """The scans below cover every module of the port, the kernel
+    wrappers' modules among them."""
+    names = port_modules()
+    for module in ("ops.decode_attention", "ops.fused_attention_block",
+                   "models.t5", "kernels"):
+        assert f"{PORT.name}.{module}" in names, module
+
+
 def test_import_in_subprocess_pulls_in_no_jax():
     modules = port_modules() + ["chip_smoke"]
     code = (

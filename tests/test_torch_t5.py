@@ -157,13 +157,3 @@ def test_decode_step_logits_match_jax(params):
     np.testing.assert_allclose(tcache["self_k"].numpy(),
                                np.asarray(jcache["self_k"]),
                                rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("flag", sorted(tt5._NOT_PORTED))
-def test_unported_options_raise(params, flag):
-    _, tp = params
-    ids, mask = padded_batch()
-    cfg = dataclasses.replace(TCFG, **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt5.t5_encode(tp, cfg, input_ids=torch.from_numpy(ids),
-                      attention_mask=torch.from_numpy(mask))
