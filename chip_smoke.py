@@ -65,6 +65,22 @@ register / shared-memory / spill report):
   kv_layouts one decode step at full width and 2 decoder layers for each
              int8 cross-KV layout: unmerged and merged logits bit-equal,
              transposed close to them, each layout's cache bytes at rest
+  vit_kernels
+             the CLIP ViT split3 kernels (fused_ln_qkv, attention_core_oproj,
+             fused_mlp_block) against their plain versions at ViT-L/14@336
+             widths on 16 images (L = 577, D = 1024, 16 heads, F = 4096),
+             then timed at the image encoder's batch of 256 beside the plain
+             version, the bound and a library yardstick (layer_norm and
+             cuBLAS matmuls; scaled_dot_product_attention)
+  clip_encode
+             ClipImageEncoder at ViT-L/14@336, batch 256, random bf16 weights
+             from a seed and random normalised images: the default (plain)
+             path and fused_block (the three kernels, 24 launches each per
+             call, none on the default path), each called twice, with
+             images/s, peak memory, the device's busy share, the calls in
+             turns and the fused path's per-row cosine against the default
+             path's; and one ClipTextEncoder call at CLIPTextConfig width
+             (B = 512, L = 77)
 
 Then a line listing every kernel of the path with its launches and times,
 and last the line {"ok": true, "device": {...}}. Any failed check exits
@@ -87,6 +103,7 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from explicit_alignment_for_vqa_tasks_tpu_torch import kernels  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.models import clip as clip_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import t5 as t5_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models.mappers import (  # noqa: E402
     MapperConfig,
@@ -105,6 +122,12 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.decode_attention import (  #
     cross_attention_decode_plain,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import (  # noqa: E402
+    attention_core_oproj,
+    attention_core_oproj_plain,
+    fused_ln_qkv,
+    fused_ln_qkv_plain,
+    fused_mlp_block,
+    fused_mlp_block_plain,
     fused_oproj_residual_q8,
     fused_oproj_residual_q8_plain,
     fused_t5_ffn,
@@ -120,6 +143,10 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.prefix_splice import (  # no
     T5_SENTINEL_BASE,
     insert_prefix_into_input,
     splice_output_length,
+)
+from explicit_alignment_for_vqa_tasks_tpu_torch.tools.clip_encoder import (  # noqa: E402
+    ClipImageEncoder,
+    ClipTextEncoder,
 )
 
 SEED = 0
@@ -145,6 +172,10 @@ DECODE_LAYER = 7                   # the cache layer the decode kernel reads
 # transposed int8 cross-KV logits against unmerged: the same products
 # summed in another order (rel. Frobenius over the logits)
 LAYOUT_REL_ERR = 1e-3
+VIT_CHECK_BATCH = 16               # images of the ragged-edge value check
+CLIP_BATCH = 256                   # the image encoder's batch
+CLIP_COSINE_FLOOR = 0.99           # fused against default, per row
+TEXT_BATCH = 512                   # ClipTextEncoder's batch
 
 PORT_CSRC = "explicit_alignment_for_vqa_tasks_tpu_torch/csrc/"
 JAX_OPS = "explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py"
@@ -160,10 +191,15 @@ KERNELS = {
         PORT_CSRC + "cross_attention_decode.cu",
         "explicit_alignment_for_vqa_tasks_tpu/ops/decode_attention.py:134"),
     "fused_t5_ffn": (PORT_CSRC + "t5_ffn.cu", JAX_OPS + ":671"),
+    "fused_ln_qkv": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":290"),
+    "attention_core_oproj": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":366"),
+    "fused_mlp_block": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":445"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
                 fused_oproj_residual_q8, fused_t5_ffn_q8,
-                cross_attention_decode, fused_t5_ffn)
+                cross_attention_decode, fused_t5_ffn,
+                fused_ln_qkv, attention_core_oproj, fused_mlp_block)
+VIT_KERNELS = (fused_ln_qkv, attention_core_oproj, fused_mlp_block)
 
 
 def emit(phase: str, **fields) -> None:
@@ -549,17 +585,16 @@ def phase_breakdown(model: VCT0Model, prefix, tokens, mask,
     return result
 
 
-def phase_profile(model: VCT0Model, prefix, tokens, mask,
-                  timed_wall_s: float, phase: str = "profile") -> None:
-    """The profiler slows the host, not the kernels, so the busy share is
-    the kernels' device time over the unprofiled call's wall time."""
+def device_busy(fn, timed_wall_s: float, top: int = 10) -> dict:
+    """One more call of fn under torch.profiler. The profiler slows the
+    host, not the kernels, so the busy share is the kernels' device time
+    over the unprofiled call's wall time."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        model.generate(prefix, tokens, mask, num_shots=NUM_SHOTS,
-                       max_new_tokens=MAX_NEW_TOKENS)
+        fn()
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
     kernels_us = {}
@@ -568,12 +603,21 @@ def phase_profile(model: VCT0Model, prefix, tokens, mask,
             kernels_us[event.name] = (kernels_us.get(event.name, 0.0)
                                       + event.time_range.elapsed_us())
     busy_s = sum(kernels_us.values()) / 1e6
-    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:10]
-    emit(phase, profiled_wall_s=profiled_wall, device_busy_s=busy_s,
-         timed_wall_s=timed_wall_s,
-         busy_share=busy_s / timed_wall_s if busy_s else None,
-         device_events=len(kernels_us),
-         top_kernels_ms=[[name[:90], us / 1e3] for name, us in top])
+    largest = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:top]
+    return dict(profiled_wall_s=profiled_wall, device_busy_s=busy_s,
+                timed_wall_s=timed_wall_s,
+                busy_share=busy_s / timed_wall_s if busy_s else None,
+                device_events=len(kernels_us),
+                top_kernels_ms=[[name[:90], us / 1e3]
+                                for name, us in largest])
+
+
+def phase_profile(model: VCT0Model, prefix, tokens, mask,
+                  timed_wall_s: float, phase: str = "profile") -> None:
+    emit(phase, **device_busy(
+        lambda: model.generate(prefix, tokens, mask, num_shots=NUM_SHOTS,
+                               max_new_tokens=MAX_NEW_TOKENS),
+        timed_wall_s))
 
 
 def generate_in_turns(models: dict, prefix, tokens, mask) -> dict:
@@ -909,6 +953,212 @@ def phase_kv_layouts(model: VCT0Model, gen: torch.Generator) -> None:
          cross_cache_bytes_at_rest=cache_bytes)
 
 
+def phase_vit_kernels(gen: torch.Generator) -> dict:
+    """The three split3 kernels against their plain versions at ViT-L
+    widths on VIT_CHECK_BATCH images and on CLIP_BATCH images, the main
+    path's shape, then timed at CLIP_BATCH images."""
+    cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
+    seq, width, heads = cfg.seq_len, cfg.width, cfg.num_heads
+    d_ff = cfg.mlp_ratio * width
+    dev = gen.device
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale) \
+            .bfloat16()
+
+    x = randn(CLIP_BATCH, seq, width)
+    ln_s, ln_b = 1 + randn(width, scale=0.1), randn(width, scale=0.1)
+    w = [randn(width, width, scale=width ** -0.5) for _ in range(4)]
+    b = [randn(width, scale=0.1) for _ in range(4)]
+    w_fc, b_fc = randn(width, d_ff, scale=width ** -0.5), randn(d_ff, scale=0.1)
+    w_pr, b_pr = randn(d_ff, width, scale=d_ff ** -0.5), randn(width, scale=0.1)
+    q, k, v = (randn(CLIP_BATCH, seq, width, scale=s) for s in (0.5, 2.0, 1.0))
+    rows = CLIP_BATCH * seq
+    act = rows * width * 2                 # one bf16 (M, D) activation
+    f = torch.nn.functional
+
+    # yardsticks only: PyTorch calls computing the same functions (layer
+    # norm and cuBLAS matmuls over the concatenated QKV; scaled dot-product
+    # attention, the out-projection and the residual; layer norm, two
+    # matmuls and quickGELU); times, not value checks
+    w_qkv, b_qkv = torch.cat(w[:3], dim=1), torch.cat(b[:3])
+
+    def lib_qkv(n):
+        h = f.layer_norm(x[:n], (width,), ln_s, ln_b, cfg.layer_norm_epsilon)
+        return torch.addmm(b_qkv, h.view(-1, width), w_qkv)
+
+    def lib_oproj(n):
+        q4, k4, v4 = (t[:n].view(n, seq, heads, -1).transpose(1, 2)
+                      for t in (q, k, v))
+        o = f.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        o = o.transpose(1, 2).reshape(-1, width)
+        return x[:n].view(-1, width) + torch.addmm(b[3], o, w[3])
+
+    def lib_mlp(n):
+        h = f.layer_norm(x[:n], (width,), ln_s, ln_b, cfg.layer_norm_epsilon)
+        z = torch.addmm(b_fc, h.view(-1, width), w_fc)
+        return x[:n].view(-1, width) + torch.addmm(
+            b_pr, z * torch.sigmoid(1.702 * z), w_pr)
+
+    cases = {
+        "fused_ln_qkv": dict(
+            fn=fused_ln_qkv, plain=fused_ln_qkv_plain, library=lib_qkv,
+            args=lambda n: (x[:n], ln_s, ln_b, w[0], b[0], w[1], b[1], w[2],
+                            b[2], (width // heads) ** -0.5),
+            bytes=4 * act + 3 * width * width * 2 + 5 * width * 2,
+            ops=2 * rows * width * 3 * width),
+        "attention_core_oproj": dict(
+            fn=attention_core_oproj, plain=attention_core_oproj_plain,
+            library=lib_oproj,
+            args=lambda n: (x[:n], q[:n], k[:n], v[:n], w[3], b[3], heads),
+            bytes=5 * act + width * width * 2 + width * 2,
+            ops=4 * CLIP_BATCH * seq * seq * width + 2 * rows * width * width),
+        "fused_mlp_block": dict(
+            fn=fused_mlp_block, plain=fused_mlp_block_plain, library=lib_mlp,
+            args=lambda n: (x[:n], ln_s, ln_b, w_fc, b_fc, w_pr, b_pr),
+            bytes=2 * act + 2 * width * d_ff * 2 + (3 * width + d_ff) * 2,
+            ops=4 * rows * width * d_ff),
+    }
+    def value_check(name, fn, plain, args, batch) -> dict:
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        max_abs_err, differing, total = 0.0, 0, 0
+        for g, p in zip(got, want):
+            g, p = g.float(), p.float()
+            err = (g - p).abs()
+            check(bool(torch.isfinite(g).all()),
+                  f"{name} at B={batch}: output not finite")
+            check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * p.abs()).all()),
+                  f"{name} at B={batch} outside atol/rtol 8e-3 of the plain "
+                  f"version (max abs err {err.max().item()})")
+            max_abs_err = max(max_abs_err, err.max().item())
+            differing += int((err > 0).sum())
+            total += err.numel()
+            del g, p, err
+        del got, want
+        torch.cuda.empty_cache()
+        return dict(max_abs_err=max_abs_err, differing=differing,
+                    elements=total)
+
+    results = {}
+    for name, case in cases.items():
+        fn, plain = case["fn"], case["plain"]
+        small, full = case["args"](VIT_CHECK_BATCH), case["args"](CLIP_BATCH)
+        # B=16 covers a ragged last row tile; B=256 is the main path's shape
+        ragged = value_check(name, fn, plain, small, VIT_CHECK_BATCH)
+        main = value_check(name, fn, plain, full, CLIP_BATCH)
+        kernel_ms = cuda_ms(lambda: fn(*full), iters=10)
+        plain_ms = cuda_ms(lambda: plain(*full), iters=2, warmup=1)
+        library_ms = cuda_ms(lambda: case["library"](CLIP_BATCH), iters=10)
+        torch.cuda.empty_cache()
+        results[name] = dict(
+            shape=dict(B=CLIP_BATCH, L=seq, D=width, H=heads, F=d_ff),
+            **main, **{f"b{VIT_CHECK_BATCH}_{key}": val
+                       for key, val in ragged.items()},
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            **bound(case["bytes"], case["ops"], BF16_FLOP_PER_S))
+        emit("vit_kernels", kernel=name, kernel_ms=kernel_ms, **{
+            key: val for key, val in results[name].items() if key != "ms"})
+    return results
+
+
+def phase_clip_encode(gen: torch.Generator) -> dict:
+    """ClipImageEncoder at ViT-L/14@336, the default path and fused_block on
+    the same weights and images, each called twice with the kernel counts
+    set to 0 before each call and read after it; then the calls in turns,
+    the busy share, the fused path's cosine to the default path; and one
+    ClipTextEncoder call."""
+    dev = gen.device
+    cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
+    params = clip_lib.init_clip_vision_params(gen, cfg, torch.bfloat16)
+    encoders = {
+        "default": ClipImageEncoder(cfg, params, batch_size=CLIP_BATCH,
+                                    device=dev),
+        "fused": ClipImageEncoder(dataclasses.replace(cfg, fused_block=True),
+                                  params, batch_size=CLIP_BATCH, device=dev),
+    }
+    images = torch.randn((CLIP_BATCH, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device=dev).bfloat16()
+    per_call = {"default": 0, "fused": cfg.num_layers}
+    results, outs = {}, {}
+    for name, encoder in encoders.items():
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in PATH_KERNELS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            out = encoder.encode_batch(images)
+            wall = time.perf_counter() - t0
+            counts = {fn.__name__: fn.launches for fn in PATH_KERNELS}
+            want = launches(**{fn.__name__: per_call[name]
+                               for fn in VIT_KERNELS})
+            check(counts == want, f"clip_encode {name}: kernels launched "
+                  f"{counts}, expected {want}")
+            runs.append(dict(wall_s=wall, launches=counts,
+                             peak_bytes=torch.cuda.max_memory_allocated()))
+        check(out.shape == (CLIP_BATCH, cfg.projection_dim),
+              f"clip_encode {name}: embeddings {out.shape}")
+        check(bool(np.isfinite(out).all()),
+              f"clip_encode {name}: embeddings not finite")
+        outs[name] = out
+        wall = runs[-1]["wall_s"]
+        results[name] = dict(
+            wall_s=wall, first_wall_s=runs[0]["wall_s"],
+            images_per_s=CLIP_BATCH / wall,
+            peak_mem_gb=runs[-1]["peak_bytes"] / 1e9,
+            launches_per_call=[r["launches"] for r in runs],
+            **device_busy(lambda: encoder.encode_batch(images), wall, top=6))
+        emit("clip_encode", path=name, batch=CLIP_BATCH, seq=cfg.seq_len,
+             **results[name])
+    a, b = outs["fused"].astype(np.float64), outs["default"].astype(np.float64)
+    cosine = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                * np.linalg.norm(b, axis=-1))
+    check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
+          f"fused embeddings' cosine to the default path's {cosine.min()} < "
+          f"{CLIP_COSINE_FLOOR}")
+    turns = {"default": [], "fused": []}
+    for name in ("default", "fused", "fused", "default"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encoders[name].encode_batch(images)
+        turns[name].append(time.perf_counter() - t0)
+    emit("clip_fused_vs_default", cosine_min=float(cosine.min()),
+         cosine_mean=float(cosine.mean()), floor=CLIP_COSINE_FLOOR,
+         encode_s_in_turns=turns,
+         images_per_s_in_turns={k: [CLIP_BATCH / t for t in v]
+                                for k, v in turns.items()})
+    del encoders, params, images
+    torch.cuda.empty_cache()
+
+    text_cfg = clip_lib.CLIPTextConfig()
+    text = ClipTextEncoder(
+        text_cfg, clip_lib.init_clip_text_params(gen, text_cfg,
+                                                 torch.bfloat16),
+        batch_size=TEXT_BATCH, device=dev)
+    ids = torch.randint(1, text_cfg.vocab_size - 1,
+                        (TEXT_BATCH, text_cfg.context_length), generator=gen,
+                        device=dev, dtype=torch.int32)
+    eot = torch.randint(2, text_cfg.context_length, (TEXT_BATCH,),
+                        generator=gen, device=dev)
+    ids[torch.arange(TEXT_BATCH, device=dev), eot] = text_cfg.vocab_size - 1
+    text.encode_ids(ids)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text_out = text.encode_ids(ids)
+    text_s = time.perf_counter() - t0
+    check(text_out.shape == (TEXT_BATCH, text_cfg.projection_dim)
+          and bool(np.isfinite(text_out).all()),
+          "text embeddings not finite or of the wrong shape")
+    emit("clip_text", batch=TEXT_BATCH, length=text_cfg.context_length,
+         wall_s=text_s, texts_per_s=TEXT_BATCH / text_s)
+    return results["fused"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -961,12 +1211,18 @@ def main() -> int:
     phase_generate_int8_all(model, prefix, tokens, mask)
     torch.cuda.empty_cache()
     phase_kv_layouts(model, gen)
+    del model
+    torch.cuda.empty_cache()
+    vit_kernels = phase_vit_kernels(gen)
+    torch.cuda.empty_cache()
+    clip_encode = phase_clip_encode(gen)
 
     measured = {
         "t5_attention_core": (attention, generate),
         **{name: (res, generate_int8) for name, res in int8_kernels.items()},
         "cross_attention_decode": (decode_attention, generate_fused),
         "fused_t5_ffn": (t5_ffn, generate_fused),
+        **{name: (res, clip_encode) for name, res in vit_kernels.items()},
     }
     lines = []
     for name, (res, run) in measured.items():

@@ -50,3 +50,20 @@ def vct0_params_from_numpy(tree: Params, lm_dtype: torch.dtype = torch.bfloat16,
         "lm": _tree_to_torch(tree["lm"], lm_dtype, dev),
         "mapper": _tree_to_torch(tree["mapper"], torch.float32, dev),
     }
+
+
+def clip_vision_params_from_numpy(tree: Params,
+                                  dtype: torch.dtype = torch.bfloat16,
+                                  device: DeviceLike = None) -> Params:
+    """The JAX ``init_clip_vision_params`` (or ``clip_vision_params_from_hf``)
+    tree as port params: same keys and stacked layer axis, float leaves in
+    ``dtype`` on ``device`` (the card by default)."""
+    return _tree_to_torch(tree, dtype, resolve_device(device))
+
+
+def clip_text_params_from_numpy(tree: Params,
+                                dtype: torch.dtype = torch.bfloat16,
+                                device: DeviceLike = None) -> Params:
+    """The JAX CLIP text tree as port params (see
+    ``clip_vision_params_from_numpy``)."""
+    return _tree_to_torch(tree, dtype, resolve_device(device))

@@ -28,15 +28,12 @@
 //   rms_norm: one block per row writes h in bf16 (its fp32 row in shared
 //     memory, the sum of squares a block reduction).
 //   gemm (up): one 128 x 128 output tile per block of eight warps on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate). The
+//     tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate; the
+//     main loop, shared with vit_block.cu, is in bf16_gemm.cuh). The
 //     gated form takes 64 columns of wi_0 and the same 64 of wi_1 per block,
 //     so each thread holds both accumulators of an output element and the
 //     epilogue writes gelu(a0) * a1 as bf16: the Pallas kernel's one
-//     rounding of hid. A 4-slot cp.async ring stages 32-deep k steps of A
-//     (row-major) and B (the JAX (K, N) layout as it is: ldmatrix.trans
-//     gives the B fragments, so the weights need no transpose); the shared
-//     rows are padded by 16 bytes so that ldmatrix reads are free of bank
-//     conflicts.
+//     rounding of hid.
 //   gemm (down): the same kernel over wo with a residual epilogue.
 // The bf16 hid makes one round trip through device memory (182 MB at the
 // main shape).
@@ -46,46 +43,13 @@
 
 #include <cstdint>
 
+#include "bf16_gemm.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int NT = 256;  // threads per block, both kernels
-constexpr int NWARPS = NT / 32;
-constexpr int BM = 128, BK = 32;  // block rows and k step
-constexpr int B_COLS = 128;       // B tile columns over all products
-constexpr int STAGES = 4;         // cp.async ring slots
-constexpr int A_LD = BK + 8;      // padded shared row of A (elements)
-constexpr int B_LD = B_COLS + 8;  // padded shared row of B (elements)
-constexpr int A_TILE = BM * A_LD;
-constexpr int B_TILE = BK * B_LD;
-constexpr int STAGE_ELEMS = A_TILE + B_TILE;
-constexpr int GEMM_SMEM = STAGES * STAGE_ELEMS * 2;
+using namespace bf16_gemm;
 
 enum Epilogue : int { kGeluGate = 0, kGelu = 1, kResidual = 2 };
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  return v;
-}
-
-// Block-wide sum of one value per thread; every thread gets the result.
-__device__ float block_sum(float v, float* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < NWARPS ? red[lane] : 0.0f;
-    t = warp_sum(t);
-    if (lane == 0) red[NWARPS] = t;
-  }
-  __syncthreads();
-  return red[NWARPS];
-}
 
 // One block per row of x (D wide): h = bf16((x * rsqrt(mean(x^2) + eps)) * w)
 __global__ void __launch_bounds__(NT)
@@ -115,41 +79,6 @@ __device__ inline float tanh_gelu(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
 }
 
-__device__ inline uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-                   "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a . b for one m16n8k16 tile: bf16 in, fp32 accumulate
-__device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 struct GemmArgs {
   const bf16* a;         // (M, K) row-major
   const bf16* b[2];      // (K, N) row-major, one or two products
@@ -159,104 +88,23 @@ struct GemmArgs {
 };
 
 // out = epilogue(A . B[0] (, A . B[1])) for the block's BM rows and
-// 128 / NPROD columns of each product. Warp w takes rows 64 (w / 4) .. +63
-// and, of each product, 32 / NPROD columns starting at (w % 4) 32 / NPROD:
-// four n8 slots, slot s belonging to product s / SPP.
+// 128 / NPROD columns of each product (bf16_gemm.cuh's fragment layout).
 template <int NPROD, int EPI>
 __global__ void __launch_bounds__(NT)
 gemm_bf16_kernel(const GemmArgs args) {
   extern __shared__ __align__(128) bf16 smem[];
   constexpr int BN_P = B_COLS / NPROD;  // columns per product
   constexpr int SPP = 4 / NPROD;        // n8 slots per product per warp
-  constexpr int CPP = BN_P / 8;         // 16-byte chunks per B row, product
 
-  const int M = args.M, K = args.K, N = args.N;
+  const int M = args.M, N = args.N;
   const int n0 = blockIdx.x * BN_P, m0 = blockIdx.y * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int warp_m = warp / 4, warp_n = warp % 4;
   const int gid = lane >> 2, tig = lane & 3;
-  const int steps = K / BK;
-
-  auto load_step = [&](int step, int slot) {
-    bf16* sa = smem + slot * STAGE_ELEMS;
-    bf16* sb = sa + A_TILE;
-    const int k0 = step * BK;
-#pragma unroll
-    for (int u = 0; u < BM * (BK / 8) / NT; ++u) {
-      const int idx = threadIdx.x + u * NT;
-      const int r = idx / (BK / 8), c = idx % (BK / 8);
-      const bool valid = m0 + r < M;
-      const bf16* src =
-          args.a + static_cast<size_t>(valid ? m0 + r : 0) * K + k0 + c * 8;
-      cp_async16(sa + r * A_LD + c * 8, src, valid);
-    }
-#pragma unroll
-    for (int u = 0; u < BK * (B_COLS / 8) / NT; ++u) {
-      const int idx = threadIdx.x + u * NT;
-      const int r = idx / (B_COLS / 8), c = idx % (B_COLS / 8);
-      const bf16* b = c < CPP ? args.b[0] : args.b[1];
-      const bf16* src = b + static_cast<size_t>(k0 + r) * N + n0 +
-                        (c % CPP) * 8;
-      cp_async16(sb + r * B_LD + c * 8, src, true);
-    }
-  };
-
-  // shared column of n8 slot s of this warp
-  auto slot_col = [&](int s) {
-    return (s / SPP) * BN_P + warp_n * (SPP * 8) + (s % SPP) * 8;
-  };
 
   float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load_step(s, s);
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
-  for (int step = 0; step < steps; ++step) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    __syncthreads();  // everyone's copies of this step are in; the slot
-                      // refilled below was last read in the previous step
-    if (step + STAGES - 1 < steps) {
-      load_step(step + STAGES - 1, (step + STAGES - 1) % STAGES);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-
-    const bf16* sa = smem + (step % STAGES) * STAGE_ELEMS;
-    const bf16* sb = sa + A_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = warp_m * 64 + mt * 16 + (lane % 16);
-        ldmatrix_x4(af[mt], sa + r * A_LD + kk * 16 + (lane / 16) * 8);
-      }
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t t[4];
-        ldmatrix_x4_trans(t, sb + (kk * 16 + (lane % 16)) * B_LD +
-                                 slot_col(2 * j) + (lane / 16) * 8);
-        bfr[2 * j][0] = t[0];
-        bfr[2 * j][1] = t[1];
-        bfr[2 * j + 1][0] = t[2];
-        bfr[2 * j + 1][1] = t[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          mma_bf16(acc[mt][s], af[mt], bfr[s][0], bfr[s][1]);
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  mainloop<NPROD>(smem, args.a, args.b[0], args.b[1], M, args.K, N, m0, n0,
+                  acc);
 
   // epilogue: c0, c1 are row gid, columns 2 tig and 2 tig + 1 of the n8
   // tile; c2, c3 the same columns of row gid + 8

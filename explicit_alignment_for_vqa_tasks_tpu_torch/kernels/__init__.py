@@ -2,8 +2,9 @@
 
 Each kernel source is a plain ``extern "C"`` launcher. At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``build/kernels/`` (named by a hash of the source and the flags, so an
-edited source builds anew) and loaded with ``ctypes``. There is no probing
+``build/kernels/`` (named by a hash of the source, the headers under
+``csrc/`` it includes and the flags, so an edited source or header builds
+anew) and loaded with ``ctypes``. There is no probing
 and no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -12,10 +13,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -26,6 +28,7 @@ SOURCES = {
     "int8_encoder": "int8_encoder.cu",
     "cross_attention_decode": "cross_attention_decode.cu",
     "t5_ffn": "t5_ffn.cu",
+    "vit_block": "vit_block.cu",
 }
 
 NVCC_FLAGS = (
@@ -34,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_QUOTED_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -49,9 +53,28 @@ def nvcc_path() -> str:
     )
 
 
+def included_files(name: str) -> List[Path]:
+    """The kernel's source and every file under ``csrc/`` that it includes
+    with quotes, directly or through another such file, in a fixed order."""
+    found: List[Path] = []
+    todo = [CSRC_DIR / SOURCES[name]]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for include in _QUOTED_INCLUDE.findall(path.read_text()):
+            target = path.parent / include
+            if target.is_file():
+                todo.append(target)
+    return found
+
+
 def library_path(name: str) -> Path:
-    source = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in included_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,403 @@
+"""CLIP ViT image and text encoders in PyTorch.
+
+Counterpart of explicit_alignment_for_vqa_tasks_tpu/models/clip.py, with the
+same parameter trees (the layers stacked on a leading axis) and the same
+layout: NHWC images, patch embedding as a patch reshape and one matmul,
+pre-LN blocks with quickGELU, the post-LN on CLS and a linear projection;
+the text tower with a causal mask and EOT pooling.
+
+The default configuration is plain PyTorch, as the JAX package's is plain
+XLA. ``fused_block`` runs the long-sequence ``split3`` block (the JAX
+default for ViT-L/14@336, :201-235): three hand-written CUDA kernels,
+``fused_ln_qkv``, ``attention_core_oproj`` and ``fused_mlp_block``
+(``ops/fused_attention_block.py``, ``csrc/vit_block.cu``). The other fused
+variants and the int8 path reach kernels that are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP Queue 2 item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from ..device import DeviceLike
+from ..ops import fused_attention_block as fab
+
+Params = Dict[str, Any]
+NEG_INF = -1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    image_size: int = 336
+    patch_size: int = 14
+    width: int = 1024           # hidden size
+    num_layers: int = 24
+    num_heads: int = 16
+    mlp_ratio: int = 4
+    projection_dim: int = 768
+    layer_norm_epsilon: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    # bf16 attention logits and PV (the JAX package's bulk-extraction
+    # option); fp32 logits by default
+    fast_attention: bool = False
+    # the legacy fused attention block (Queue 2 #17 short, #11 long)
+    fused_attention: bool = False
+    # fused encoder blocks: at sequences longer than 128 "" and "split3" run
+    # the three split3 kernels; at 128 or fewer only "split3" is ported
+    fused_block: bool = False
+    fused_block_group: int = 0   # images per TPU program; 0 = auto
+    fused_block_long: str = ""
+    # the int8 blocks (Queue 2 #12 to #14)
+    int8: bool = False
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def seq_len(self) -> int:
+        return self.grid * self.grid + 1
+
+    @classmethod
+    def vit_l_14_336(cls, **kw) -> "CLIPVisionConfig":
+        return cls(**kw)
+
+    @classmethod
+    def vit_b_32(cls, **kw) -> "CLIPVisionConfig":
+        cfg = dict(image_size=224, patch_size=32, width=768, num_layers=12,
+                   num_heads=12, projection_dim=512)
+        cfg.update(kw)
+        return cls(**cfg)
+
+    @classmethod
+    def small_test(cls, **kw) -> "CLIPVisionConfig":
+        cfg = dict(image_size=28, patch_size=14, width=32, num_layers=2,
+                   num_heads=4, projection_dim=16, dtype=torch.float32)
+        cfg.update(kw)
+        return cls(**cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    projection_dim: int = 768
+    layer_norm_epsilon: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+
+    @classmethod
+    def small_test(cls, **kw) -> "CLIPTextConfig":
+        cfg = dict(vocab_size=96, context_length=16, width=32, num_layers=2,
+                   num_heads=4, projection_dim=16, dtype=torch.float32)
+        cfg.update(kw)
+        return cls(**cfg)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(fab.QUICK_GELU_ALPHA * x)
+
+
+def _layer_norm(x, scale, bias, eps):
+    """LayerNorm in fp32 in JAX ``_layer_norm``'s order (the mean, the mean
+    of squared deviations, ``(x - m) * rsqrt(var + eps)``, ``* scale +
+    bias``), cast back to x's dtype; not ``F.layer_norm``."""
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def _fused_group(batch: int) -> int:
+    for g in (4, 2, 1):
+        if batch % g == 0:
+            return g
+    return 1
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} runs a kernel the port does not have yet "
+        f"(ROADMAP Queue 2 {item})")
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """x @ w in dt: fp32 accumulation, one rounding to dt (the JAX einsum
+    with ``preferred_element_type=float32`` then ``astype(dt)``)."""
+    return torch.matmul(x, w.to(dt))
+
+
+def _split3_block(layer_p, x, num_heads, eps, group):
+    head_dim = x.shape[-1] // num_heads
+    q, k, v = fab.fused_ln_qkv(
+        x, layer_p["ln1_scale"], layer_p["ln1_bias"],
+        layer_p["q"], layer_p["q_bias"],
+        layer_p["k"], layer_p["k_bias"],
+        layer_p["v"], layer_p["v_bias"],
+        scale=head_dim ** -0.5, group=group, eps=eps,
+    )
+    y = fab.attention_core_oproj(
+        x, q, k, v, layer_p["o"], layer_p["o_bias"],
+        num_heads=num_heads, group=group,
+    )
+    return fab.fused_mlp_block(
+        y, layer_p["ln2_scale"], layer_p["ln2_bias"],
+        layer_p["mlp_fc"], layer_p["mlp_fc_bias"],
+        layer_p["mlp_proj"], layer_p["mlp_proj_bias"],
+        group=group, eps=eps,
+    )
+
+
+def _encoder_block(layer_p, x, bias, num_heads, eps, use_pallas=False,
+                   fast_attention=False, fused_attention=False,
+                   fused_block=False, fused_block_group=0,
+                   fused_block_long=""):
+    """One pre-LN block; the branches in the JAX ``_encoder_block``'s order
+    (:175-391)."""
+    dt = x.dtype
+    seq = x.shape[1]
+    head_dim = x.shape[-1] // num_heads
+
+    if fused_block and bias is None:
+        if seq > 128 and fused_block_long in ("whole", "whole_dd"):
+            raise _not_ported(
+                f"fused_block_long={fused_block_long!r} (fused_vit_block)",
+                "#7")
+        if (seq > 128 and fused_block_long in ("", "split3")) or (
+                seq <= 128 and fused_block_long == "split3"):
+            group = 1 if seq > 128 else (
+                fused_block_group or _fused_group(x.shape[0]))
+            return _split3_block(layer_p, x, num_heads, eps, group)
+        if seq > 128:
+            raise _not_ported(
+                f"fused_block_long={fused_block_long!r} (attention_core)",
+                "#11")
+        raise _not_ported(
+            f"fused_block at {seq} tokens without fused_block_long='split3' "
+            "(fused_vit_block)", "#7")
+
+    ln1 = _layer_norm(x, layer_p["ln1_scale"], layer_p["ln1_bias"], eps)
+
+    if fused_attention and bias is None:
+        if seq <= 128:
+            raise _not_ported("fused_attention at 128 tokens or fewer "
+                              "(fused_attention_block)", "#17")
+        raise _not_ported("fused_attention above 128 tokens "
+                          "(attention_core)", "#11")
+    if use_pallas:
+        raise _not_ported("use_pallas (ops/attention.py::flash_attention)",
+                          "#16")
+
+    q = _linear(ln1, layer_p["q"], dt) + layer_p["q_bias"].to(dt)
+    k = _linear(ln1, layer_p["k"], dt) + layer_p["k_bias"].to(dt)
+    v = _linear(ln1, layer_p["v"], dt) + layer_p["v_bias"].to(dt)
+    batch, seq, _ = q.shape
+
+    def heads(t):  # (B, L, H*dh) -> (B, H, L, dh)
+        return t.reshape(batch, seq, num_heads, head_dim).transpose(1, 2)
+
+    q, k, v = heads(q), heads(k), heads(v)
+    if fast_attention and bias is None:
+        # bf16 scores, the max-subtracted exp in fp32, bf16 PV
+        s = torch.matmul(q * (head_dim ** -0.5), k.transpose(-1, -2)) \
+            .to(torch.bfloat16)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp((s - m).float()).to(dt)
+        weights = p / p.sum(dim=-1, keepdim=True)
+        attn = torch.matmul(weights, v).to(torch.bfloat16).to(dt)
+    else:
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        logits = logits * (head_dim ** -0.5)
+        if bias is not None:
+            logits = logits + bias
+        weights = torch.softmax(logits, dim=-1).to(dt)
+        attn = torch.matmul(weights, v)
+    attn = attn.transpose(1, 2).reshape(batch, seq, -1)
+    attn = _linear(attn, layer_p["o"], dt)
+    x = x + attn + layer_p["o_bias"].to(dt)
+
+    ln2 = _layer_norm(x, layer_p["ln2_scale"], layer_p["ln2_bias"], eps)
+    hidden = _linear(ln2, layer_p["mlp_fc"], dt)
+    hidden = quick_gelu(hidden + layer_p["mlp_fc_bias"].to(dt))
+    hidden = _linear(hidden, layer_p["mlp_proj"], dt)
+    return x + hidden + layer_p["mlp_proj_bias"].to(dt)
+
+
+def _layers(blocks: Params):
+    """The stacked layer tree, one layer's leaves at a time (the JAX scan)."""
+    n = next(iter(blocks.values())).shape[0]
+    for i in range(n):
+        yield {name: leaf[i] for name, leaf in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# Vision tower
+# ---------------------------------------------------------------------------
+
+def _normal_init(gen: torch.Generator, dtype: torch.dtype,
+                 device: torch.device):
+    def normal(shape, std=0.02):
+        x = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return x.mul_(std).to(dtype)
+    return normal
+
+
+def _block_params(normal, n: int, w: int, d_ff: int, dtype, device) -> Params:
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        "ln1_scale": ones(n, w), "ln1_bias": zeros(n, w),
+        "q": normal((n, w, w)), "q_bias": zeros(n, w),
+        "k": normal((n, w, w)), "k_bias": zeros(n, w),
+        "v": normal((n, w, w)), "v_bias": zeros(n, w),
+        "o": normal((n, w, w)), "o_bias": zeros(n, w),
+        "ln2_scale": ones(n, w), "ln2_bias": zeros(n, w),
+        "mlp_fc": normal((n, w, d_ff)), "mlp_fc_bias": zeros(n, d_ff),
+        "mlp_proj": normal((n, d_ff, w)), "mlp_proj_bias": zeros(n, w),
+    }
+
+
+def init_clip_vision_params(gen: torch.Generator, cfg: CLIPVisionConfig,
+                            param_dtype: torch.dtype = torch.bfloat16,
+                            device: DeviceLike = None) -> Params:
+    """Random-init params with the JAX package's keys, shapes, stacked layer
+    axis and standard deviations, drawn on ``gen`` (on ``device``, by
+    default ``gen``'s device)."""
+    dev = torch.device(device) if device is not None else gen.device
+    normal = _normal_init(gen, param_dtype, dev)
+    w, n = cfg.width, cfg.num_layers
+    return {
+        "class_embedding": normal((w,)),
+        "patch_embedding": normal(
+            (cfg.patch_size, cfg.patch_size, 3, w), w ** -0.5),
+        "position_embedding": normal((cfg.seq_len, w)),
+        "pre_ln_scale": torch.ones((w,), dtype=param_dtype, device=dev),
+        "pre_ln_bias": torch.zeros((w,), dtype=param_dtype, device=dev),
+        "blocks": _block_params(normal, n, w, cfg.mlp_ratio * w, param_dtype,
+                                dev),
+        "post_ln_scale": torch.ones((w,), dtype=param_dtype, device=dev),
+        "post_ln_bias": torch.zeros((w,), dtype=param_dtype, device=dev),
+        "projection": normal((w, cfg.projection_dim), w ** -0.5),
+    }
+
+
+def patch_embed(params: Params, cfg: CLIPVisionConfig,
+                images: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) NHWC -> (B, grid*grid, width) via reshape + matmul."""
+    batch = images.shape[0]
+    g, p = cfg.grid, cfg.patch_size
+    x = images.to(cfg.dtype)
+    x = x.reshape(batch, g, p, g, p, 3)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(batch, g * g, p * p * 3)
+    kernel = params["patch_embedding"].reshape(p * p * 3, cfg.width)
+    return _linear(x, kernel, cfg.dtype)
+
+
+def clip_encode_image(
+    params: Params,
+    cfg: CLIPVisionConfig,
+    images: torch.Tensor,        # (B, H, W, 3) normalized NHWC
+    project: bool = True,
+    use_pallas: bool = False,
+) -> torch.Tensor:
+    """Returns (B, projection_dim) image embeddings (CLS pooled):
+    embeddings -> pre-LN -> transformer -> post-LN on CLS -> projection, as
+    HF CLIPVisionModelWithProjection computes them."""
+    if cfg.int8:
+        raise _not_ported("CLIPVisionConfig.int8 (quantize_vision_blocks, "
+                          "fused_vit_block_q8, fused_qkv_q8, "
+                          "fused_mlp_block_q8)", "#12 to #14")
+    x = patch_embed(params, cfg, images)
+    cls = params["class_embedding"].to(cfg.dtype)[None, None].expand(
+        x.shape[0], 1, cfg.width)
+    x = torch.cat([cls, x], dim=1)
+    x = x + params["position_embedding"].to(cfg.dtype)[None]
+    x = _layer_norm(x, params["pre_ln_scale"], params["pre_ln_bias"],
+                    cfg.layer_norm_epsilon)
+    for layer_p in _layers(params["blocks"]):
+        x = _encoder_block(
+            layer_p, x, None, cfg.num_heads, cfg.layer_norm_epsilon,
+            use_pallas=use_pallas, fast_attention=cfg.fast_attention,
+            fused_attention=cfg.fused_attention,
+            fused_block=cfg.fused_block,
+            fused_block_group=cfg.fused_block_group,
+            fused_block_long=cfg.fused_block_long,
+        )
+    pooled = _layer_norm(x[:, 0], params["post_ln_scale"],
+                         params["post_ln_bias"], cfg.layer_norm_epsilon)
+    if project and "projection" in params:
+        pooled = _linear(pooled, params["projection"], pooled.dtype)
+    return pooled
+
+
+# ---------------------------------------------------------------------------
+# Text tower
+# ---------------------------------------------------------------------------
+
+def init_clip_text_params(gen: torch.Generator, cfg: CLIPTextConfig,
+                          param_dtype: torch.dtype = torch.bfloat16,
+                          device: DeviceLike = None) -> Params:
+    """Random-init text params with the JAX package's keys and shapes."""
+    dev = torch.device(device) if device is not None else gen.device
+    normal = _normal_init(gen, param_dtype, dev)
+    w, n = cfg.width, cfg.num_layers
+    return {
+        "token_embedding": normal((cfg.vocab_size, w)),
+        "position_embedding": normal((cfg.context_length, w)),
+        "blocks": _block_params(normal, n, w, 4 * w, param_dtype, dev),
+        "final_ln_scale": torch.ones((w,), dtype=param_dtype, device=dev),
+        "final_ln_bias": torch.zeros((w,), dtype=param_dtype, device=dev),
+        "projection": normal((w, cfg.projection_dim), w ** -0.5),
+    }
+
+
+def clip_encode_text(
+    params: Params,
+    cfg: CLIPTextConfig,
+    input_ids: torch.Tensor,     # (B, L); EOT = the max id's position
+    project: bool = True,
+) -> torch.Tensor:
+    """Returns (B, projection_dim) text embeddings (EOT pooled)."""
+    x = params["token_embedding"].to(cfg.dtype)[input_ids.long()]
+    length = input_ids.shape[1]
+    x = x + params["position_embedding"].to(cfg.dtype)[None, :length]
+    causal = torch.ones((length, length), dtype=torch.bool,
+                        device=x.device).tril()
+    bias = torch.where(causal[None, None], 0.0, NEG_INF)
+    for layer_p in _layers(params["blocks"]):
+        x = _encoder_block(layer_p, x, bias, cfg.num_heads,
+                           cfg.layer_norm_epsilon)
+    x = _layer_norm(x, params["final_ln_scale"], params["final_ln_bias"],
+                    cfg.layer_norm_epsilon)
+    eot = torch.argmax(input_ids, dim=-1)
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+    if project and "projection" in params:
+        pooled = _linear(pooled, params["projection"], pooled.dtype)
+    return pooled
+
+
+# ---------------------------------------------------------------------------
+# Image preprocessing constants (OpenAI CLIP normalization)
+# ---------------------------------------------------------------------------
+
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def normalize_images(images_uint8: torch.Tensor) -> torch.Tensor:
+    """uint8 NHWC (B, H, W, 3) -> normalized float NHWC."""
+    x = images_uint8.float() / 255.0
+    mean = torch.tensor(CLIP_IMAGE_MEAN, device=x.device)
+    std = torch.tensor(CLIP_IMAGE_STD, device=x.device)
+    return (x - mean) / std

@@ -1,4 +1,5 @@
-"""The T5 encoder's kernels: each CUDA kernel with its plain version.
+"""The T5 encoder's and the CLIP ViT's kernels: each CUDA kernel with its
+plain version.
 
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py:
 
@@ -8,7 +9,10 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
     (:1547-1603), kernels in ``csrc/int8_encoder.cu``;
   * the bf16 encoder FFN ``fused_t5_ffn`` (:631-678, forward only), kernel
     ``csrc/t5_ffn.cu``. Its backward (``fused_t5_ffn_vjp``) comes with
-    mapper training.
+    mapper training;
+  * the CLIP ViT ``split3`` block: ``fused_ln_qkv`` (:268-298),
+    ``attention_core_oproj`` (:348-376) and ``fused_mlp_block``
+    (:419-459), kernels in ``csrc/vit_block.cu``.
 
 Each source's note gives the design and the bound.
 
@@ -76,15 +80,23 @@ def _launcher():
     return fn
 
 
+def _kernel_max_len(lib: str, symbol: str, head_dim: int) -> int:
+    """``symbol(head_dim)`` of kernel library ``lib``: the longest sequence
+    whose (32, L) fp32 score tile fits the current card's shared memory."""
+    key = (lib, head_dim)
+    if key not in _max_len_cache:
+        fn = getattr(kernels.load(lib), symbol)
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _max_len_cache[key] = fn(head_dim)
+    return _max_len_cache[key]
+
+
 def max_seq_len(head_dim: int) -> int:
     """The longest sequence the kernel takes on the current card: its
     (32, L) fp32 score tile lives in shared memory."""
-    if head_dim not in _max_len_cache:
-        fn = kernels.load("t5_attention_core").t5_attention_core_max_len
-        fn.argtypes = [ctypes.c_int]
-        fn.restype = ctypes.c_int
-        _max_len_cache[head_dim] = fn(head_dim)
-    return _max_len_cache[head_dim]
+    return _kernel_max_len("t5_attention_core", "t5_attention_core_max_len",
+                           head_dim)
 
 
 def _check_kernel_inputs(q, k, v, pos_bias, mask, num_heads):
@@ -606,3 +618,272 @@ def fused_t5_ffn(
 
 
 fused_t5_ffn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# CLIP ViT split3 block: plain versions and the wrappers around
+# csrc/vit_block.cu
+# ---------------------------------------------------------------------------
+
+# The GEMMs' tiles take widths (D, 3 x D, F) that are whole numbers of
+# 128-wide column tiles; the attention kernel keeps a (32, L) fp32 score
+# tile in shared memory.
+VIT_WIDTH_MULTIPLE = 128
+QUICK_GELU_ALPHA = 1.702
+
+
+def _ln_f32(z: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis of an fp32 ``z``: the mean, then the
+    mean of the squared deviations, ``(z - m) * rsqrt(var + eps)``, then
+    ``* scale + bias`` (JAX ``_ln_f32``'s order; not ``F.layer_norm``)."""
+    m = torch.mean(z, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(z - m), dim=-1, keepdim=True)
+    return (z - m) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def _bf16_operand(w: torch.Tensor) -> torch.Tensor:
+    """A weight as the Pallas wrappers pass it (cast to bf16), in fp32 for
+    an exact-product fp32 matmul."""
+    return w.to(torch.bfloat16).float()
+
+
+def fused_ln_qkv_plain(
+    x: torch.Tensor,             # (B, L, D) pre-LN residual stream
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    wq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, bv: torch.Tensor,
+    scale: float,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(q * scale, k, v) in x.dtype: ``h = bf16(LN(x))`` in fp32, each
+    product of h with a bf16 weight accumulated in fp32, then the bias,
+    then (q only) the fp32 scale, one cast at the end."""
+    h = _ln_f32(x.float(), ln_scale, ln_bias, eps).to(torch.bfloat16).float()
+
+    def proj(w, b):
+        return torch.matmul(h, _bf16_operand(w)) + b.float()
+
+    q = proj(wq, bq) * scale
+    return q.to(x.dtype), proj(wk, bk).to(x.dtype), proj(wv, bv).to(x.dtype)
+
+
+def attention_core_oproj_plain(
+    residual: torch.Tensor,      # (B, L, D) the block's residual stream
+    q: torch.Tensor,             # (B, L, D) PRE-SCALED queries, heads on lanes
+    k: torch.Tensor,
+    v: torch.Tensor,
+    wo: torch.Tensor, bo: torch.Tensor,
+    num_heads: int,
+) -> torch.Tensor:
+    """residual + Attn(q, k, v) @ wo + bo in the Pallas kernel's order: fp32
+    scores, unnormalised probabilities cast to q's dtype, their fp32 sum,
+    PV divided after the product and staged in the output dtype, then the
+    out-projection (bf16 weights, fp32 accumulation), its bias and the fp32
+    residual, one cast at the end."""
+    batch, seq, width = q.shape
+    head_dim = width // num_heads
+
+    def heads(t):  # (B, L, H*dh) -> (B, H, L, dh) in fp32 (exact for bf16)
+        return t.reshape(batch, seq, num_heads, head_dim).transpose(1, 2) \
+            .float()
+
+    s = torch.matmul(heads(q), heads(k).transpose(-1, -2))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(q.dtype)
+    denom = p.float().sum(dim=-1, keepdim=True)
+    o = (torch.matmul(p.float(), heads(v)) / denom).to(residual.dtype)
+    o = o.transpose(1, 2).reshape(batch, seq, width)
+    y = torch.matmul(o.to(q.dtype).float(), _bf16_operand(wo)) + bo.float()
+    return (residual.float() + y).to(residual.dtype)
+
+
+def fused_mlp_block_plain(
+    x: torch.Tensor,             # (B, L, D) pre-LN residual stream
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    w_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, b_proj: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """x + MLP(LN(x)) with quickGELU: ``h = bf16(LN(x))``, ``hid = h.w_fc +
+    b_fc`` in fp32, ``bf16(hid * sigmoid(1.702 hid))``, then the down
+    product, its bias and the fp32 residual, one cast at the end."""
+    x32 = x.float()
+    h = _ln_f32(x32, ln_scale, ln_bias, eps).to(torch.bfloat16).float()
+    hid = torch.matmul(h, _bf16_operand(w_fc)) + b_fc.float()
+    hid = (hid * torch.sigmoid(QUICK_GELU_ALPHA * hid)).to(torch.bfloat16)
+    y = torch.matmul(hid.float(), _bf16_operand(w_proj)) + b_proj.float()
+    return (x32 + y).to(x.dtype)
+
+
+def _check_group(op: str, batch: int, group: int) -> None:
+    """``group`` tiles the TPU grid (images per program); the results do
+    not depend on it, but the JAX wrappers assert that it divides B."""
+    if group < 1 or batch % group:
+        raise ValueError(f"{op}: batch {batch} is not a multiple of group "
+                         f"{group}")
+
+
+def _check_vit_widths(op: str, **widths: int) -> None:
+    for name, n in widths.items():
+        if n <= 0 or n % VIT_WIDTH_MULTIPLE:
+            raise ValueError(
+                f"{op}: width {name}={n} is not a multiple of "
+                f"{VIT_WIDTH_MULTIPLE}")
+
+
+def _check_shapes(op: str, **pairs) -> None:
+    for name, (t, shape) in pairs.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{op}: {name} is {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def vit_attention_max_len(head_dim: int) -> int:
+    """The longest sequence ``attention_core_oproj``'s attention kernel
+    takes on the current card at this head size (its (32, L) fp32 score
+    tile lives in shared memory); 0 for an unsupported head size."""
+    return _kernel_max_len("vit_block", "vit_attention_max_len", head_dim)
+
+
+def fused_ln_qkv(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    wq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, bv: torch.Tensor,
+    scale: float,
+    group: int = 1,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LayerNorm + the three biased CLIP projections; returns (q * scale,
+    k, v), each (B, L, D) in x.dtype. ``group`` (images per TPU program) is
+    checked (it must divide B) and does not change the results. CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (``fused_ln_qkv.launches`` counts those calls) or raise."""
+    op = "fused_ln_qkv"
+    _check_group(op, x.shape[0], group)
+    if x.device.type == "cpu":
+        return fused_ln_qkv_plain(x, ln_scale, ln_bias, wq, bq, wk, bk, wv,
+                                  bv, scale, eps)
+    tensors = dict(x=x, ln_scale=ln_scale, ln_bias=ln_bias, wq=wq, bq=bq,
+                   wk=wk, bk=bk, wv=wv, bv=bv)
+    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
+                   **tensors)
+    batch, seq, d_model = x.shape
+    vec, mat = (d_model,), (d_model, d_model)
+    _check_shapes(op, ln_scale=(ln_scale, vec), ln_bias=(ln_bias, vec),
+                  wq=(wq, mat), bq=(bq, vec), wk=(wk, mat), bk=(bk, vec),
+                  wv=(wv, mat), bv=(bv, vec))
+    _check_vit_widths(op, D=d_model)
+    rows, dev = batch * seq, x.device
+    h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
+    q, k, v = (torch.empty_like(x) for _ in range(3))
+    _run(op, _launcher_of("vit_block", op, 13, 2, 2),
+         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+         wv.data_ptr(), bv.data_ptr(), h.data_ptr(), q.data_ptr(),
+         k.data_ptr(), v.data_ptr(), rows, d_model, scale, eps,
+         torch.cuda.current_stream(dev).cuda_stream)
+    fused_ln_qkv.launches += 1
+    return q, k, v
+
+
+def attention_core_oproj(
+    residual: torch.Tensor,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    wo: torch.Tensor, bo: torch.Tensor,
+    num_heads: int,
+    group: int = 1,
+) -> torch.Tensor:
+    """residual + softmax(q k^T) v @ wo + bo over pre-scaled q (no bias, no
+    mask). ``group`` is checked (it must divide B) and does not change the
+    results. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (``attention_core_oproj.launches``) or raise."""
+    op = "attention_core_oproj"
+    _check_group(op, q.shape[0], group)
+    if q.device.type == "cpu":
+        return attention_core_oproj_plain(residual, q, k, v, wo, bo,
+                                          num_heads)
+    tensors = dict(residual=residual, q=q, k=k, v=v, wo=wo, bo=bo)
+    _check_tensors(op, q.device, {name: _BF16 for name in tensors},
+                   **tensors)
+    if q.dim() != 3:
+        raise ValueError(f"{op}: q is {tuple(q.shape)}, expected (B, L, D)")
+    batch, seq, d_model = q.shape
+    _check_shapes(op, residual=(residual, q.shape), k=(k, q.shape),
+                  v=(v, q.shape), wo=(wo, (d_model, d_model)),
+                  bo=(bo, (d_model,)))
+    _check_vit_widths(op, D=d_model)
+    if num_heads <= 0 or d_model % num_heads:
+        raise ValueError(
+            f"{op}: width {d_model} is not a multiple of {num_heads} heads")
+    head_dim = d_model // num_heads
+    if head_dim not in _SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{op}: head size {head_dim} is not one of "
+                         f"{_SUPPORTED_HEAD_DIMS}")
+    limit = vit_attention_max_len(head_dim)
+    if seq > limit:
+        raise ValueError(
+            f"{op}: sequence length {seq} exceeds {limit}, the longest whose "
+            f"score tile fits this card's shared memory at head size "
+            f"{head_dim}")
+    dev = q.device
+    # the attention output goes through device memory once, bf16
+    attn = torch.empty_like(q)
+    out = torch.empty_like(residual)
+    _run(op, _launcher_of("vit_block", op, 8, 4, 0),
+         residual.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         wo.data_ptr(), bo.data_ptr(), attn.data_ptr(), out.data_ptr(),
+         batch, seq, num_heads, head_dim,
+         torch.cuda.current_stream(dev).cuda_stream)
+    attention_core_oproj.launches += 1
+    return out
+
+
+def fused_mlp_block(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    w_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, b_proj: torch.Tensor,
+    group: int = 1,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """x + MLP(LN(x)) with quickGELU. ``group`` (images of a TPU program)
+    is checked and does not change the results. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (``fused_mlp_block.launches``)
+    or raise."""
+    op = "fused_mlp_block"
+    _check_group(op, x.shape[0], group)
+    if x.device.type == "cpu":
+        return fused_mlp_block_plain(x, ln_scale, ln_bias, w_fc, b_fc,
+                                     w_proj, b_proj, eps)
+    tensors = dict(x=x, ln_scale=ln_scale, ln_bias=ln_bias, w_fc=w_fc,
+                   b_fc=b_fc, w_proj=w_proj, b_proj=b_proj)
+    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
+                   **tensors)
+    batch, seq, d_model = x.shape
+    d_ff = w_fc.shape[-1]
+    vec = (d_model,)
+    _check_shapes(op, ln_scale=(ln_scale, vec), ln_bias=(ln_bias, vec),
+                  w_fc=(w_fc, (d_model, d_ff)), b_fc=(b_fc, (d_ff,)),
+                  w_proj=(w_proj, (d_ff, d_model)), b_proj=(b_proj, vec))
+    _check_vit_widths(op, D=d_model, F=d_ff)
+    rows, dev = batch * seq, x.device
+    h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
+    # the bf16 quickGELU hidden goes through device memory once
+    hidden = torch.empty((rows, d_ff), dtype=_BF16, device=dev)
+    out = torch.empty_like(x)
+    _run(op, _launcher_of("vit_block", op, 10, 3, 1),
+         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+         w_fc.data_ptr(), b_fc.data_ptr(), w_proj.data_ptr(),
+         b_proj.data_ptr(), h.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+         rows, d_model, d_ff, eps,
+         torch.cuda.current_stream(dev).cuda_stream)
+    fused_mlp_block.launches += 1
+    return out
+
+
+fused_ln_qkv.launches = 0
+attention_core_oproj.launches = 0
+fused_mlp_block.launches = 0

@@ -1,5 +1,5 @@
-"""The port and chip_smoke.py import neither jax nor the JAX package, and
-the port's device rule holds."""
+"""The port and chip_smoke.py import neither jax nor the JAX package (nor,
+at import time, PIL or transformers), and the port's device rule holds."""
 
 import ast
 import subprocess
@@ -14,6 +14,8 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.device import resolve_device
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "explicit_alignment_for_vqa_tasks_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "explicit_alignment_for_vqa_tasks_tpu")
+# absent on the card's machine: imported inside the functions that use them
+NOT_AT_IMPORT = ("PIL", "transformers")
 
 
 def port_modules():
@@ -35,7 +37,8 @@ def test_every_kernel_module_is_scanned():
     wrappers' modules among them."""
     names = port_modules()
     for module in ("ops.decode_attention", "ops.fused_attention_block",
-                   "models.t5", "kernels"):
+                   "models.t5", "kernels", "models.clip", "models.hf_convert",
+                   "tools.clip_encoder"):
         assert f"{PORT.name}.{module}" in names, module
 
 
@@ -47,6 +50,8 @@ def test_import_in_subprocess_pulls_in_no_jax():
         "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        f"late = sorted(m for m in sys.modules if m.split('.')[0] in {NOT_AT_IMPORT!r})\n"
+        "assert not late, late\n"
         "print('ok', len(sys.modules))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
