@@ -72,15 +72,27 @@ register / shared-memory / spill report):
              then timed at the image encoder's batch of 256 beside the plain
              version, the bound and a library yardstick (layer_norm and
              cuBLAS matmuls; scaled_dot_product_attention)
+  vit_q8_kernels
+             the int8 ViT kernels (fused_qkv_q8, attention_core with and
+             without fast_exp, fused_mlp_block_q8) against their plain
+             versions at ViT-L/14@336 widths on 16 and on 256 images
+             (weights from the port's quantize_vision_blocks, which must
+             give the same codes and scales on the card as on the CPU),
+             timed at 256 beside the plain version, the bound and a library
+             yardstick (torch._int_mm, GEMMs only; scaled_dot_product_attention)
   clip_encode
              ClipImageEncoder at ViT-L/14@336, batch 256, random bf16 weights
              from a seed and random normalised images: the default (plain)
-             path and fused_block (the three kernels, 24 launches each per
-             call, none on the default path), each called twice, with
-             images/s, peak memory, the device's busy share, the calls in
-             turns and the fused path's per-row cosine against the default
-             path's; and one ClipTextEncoder call at CLIPTextConfig width
-             (B = 512, L = 77)
+             path, fused_block (the three split3 kernels) and int8 (the
+             quantization timed once; fused_qkv_q8, attention_core and
+             fused_mlp_block_q8), each called twice with 24 launches of each
+             of its kernels per call and none of the others', with images/s,
+             peak memory, the device's busy share, the calls in turns and
+             the fused and int8 paths' per-row cosines against the default
+             path's; one split_fe encode at 2 layers (attention_core with
+             fast_exp and fused_mlp_block, 2 launches each) against the
+             default path at that depth; and one ClipTextEncoder call at
+             CLIPTextConfig width (B = 512, L = 77)
 
 Then a line listing every kernel of the path with its launches and times,
 and last the line {"ok": true, "device": {...}}. Any failed check exits
@@ -122,14 +134,20 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.decode_attention import (  #
     cross_attention_decode_plain,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import (  # noqa: E402
+    attention_core,
     attention_core_oproj,
     attention_core_oproj_plain,
+    attention_core_plain,
     fused_ln_qkv,
     fused_ln_qkv_plain,
     fused_mlp_block,
     fused_mlp_block_plain,
+    fused_mlp_block_q8,
+    fused_mlp_block_q8_plain,
     fused_oproj_residual_q8,
     fused_oproj_residual_q8_plain,
+    fused_qkv_q8,
+    fused_qkv_q8_plain,
     fused_t5_ffn,
     fused_t5_ffn_plain,
     fused_t5_ffn_q8,
@@ -174,7 +192,8 @@ DECODE_LAYER = 7                   # the cache layer the decode kernel reads
 LAYOUT_REL_ERR = 1e-3
 VIT_CHECK_BATCH = 16               # images of the ragged-edge value check
 CLIP_BATCH = 256                   # the image encoder's batch
-CLIP_COSINE_FLOOR = 0.99           # fused against default, per row
+CLIP_COSINE_FLOOR = 0.99           # fused or int8 against default, per row
+SPLIT_FE_LAYERS = 2                # depth of the split_fe encode
 TEXT_BATCH = 512                   # ClipTextEncoder's batch
 
 PORT_CSRC = "explicit_alignment_for_vqa_tasks_tpu_torch/csrc/"
@@ -194,12 +213,17 @@ KERNELS = {
     "fused_ln_qkv": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":290"),
     "attention_core_oproj": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":366"),
     "fused_mlp_block": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":445"),
+    "fused_qkv_q8": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":584"),
+    "attention_core": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":225"),
+    "fused_mlp_block_q8": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":516"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
                 fused_oproj_residual_q8, fused_t5_ffn_q8,
                 cross_attention_decode, fused_t5_ffn,
-                fused_ln_qkv, attention_core_oproj, fused_mlp_block)
+                fused_ln_qkv, attention_core_oproj, fused_mlp_block,
+                fused_qkv_q8, attention_core, fused_mlp_block_q8)
 VIT_KERNELS = (fused_ln_qkv, attention_core_oproj, fused_mlp_block)
+VIT_Q8_KERNELS = (fused_qkv_q8, attention_core, fused_mlp_block_q8)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1065,12 +1089,217 @@ def phase_vit_kernels(gen: torch.Generator) -> dict:
     return results
 
 
+def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
+    """The int8 path's kernels against their plain versions at ViT-L widths
+    on VIT_CHECK_BATCH and on CLIP_BATCH images, the main path's shape,
+    with one layer's weights from the port's quantize_vision_blocks, then
+    timed at CLIP_BATCH images."""
+    cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
+    seq, width, heads = cfg.seq_len, cfg.width, cfg.num_heads
+    d_ff = cfg.mlp_ratio * width
+    dev = gen.device
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale) \
+            .bfloat16()
+
+    shapes = {"q": (width, width), "k": (width, width), "v": (width, width),
+              "o": (width, width), "mlp_fc": (width, d_ff),
+              "mlp_proj": (d_ff, width)}
+    blocks = {name: randn(1, *shape, scale=shape[0] ** -0.5)
+              for name, shape in shapes.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q8 = clip_lib.quantize_vision_blocks({"blocks": blocks})
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    on_cpu = clip_lib.quantize_vision_blocks(
+        {"blocks": {name: w.cpu() for name, w in blocks.items()}})
+    check(all(torch.equal(q8[key].cpu(), on_cpu[key]) for key in q8),
+          "quantize_vision_blocks gives other codes or scales on the card "
+          "than on the CPU")
+    w_qkv, s_qkv = q8["qkv"][0], q8["qkv_scale"][0]
+    w_fc, s_fc = q8["mlp_fc"][0], q8["mlp_fc_scale"][0]
+    w_pr, s_pr = q8["mlp_proj"][0], q8["mlp_proj_scale"][0]
+    x = randn(CLIP_BATCH, seq, width)
+    ln_s, ln_b = 1 + randn(width, scale=0.1), randn(width, scale=0.1)
+    b_qkv, b_fc, b_pr = (randn(n, scale=0.1) for n in (3 * width, d_ff, width))
+    q, k, v = (randn(CLIP_BATCH, seq, width, scale=s) for s in (0.5, 2.0, 1.0))
+    rows = CLIP_BATCH * seq
+    act = rows * width * 2                 # one bf16 (M, D) activation
+
+    def codes(k_dim):  # activation codes for the library yardstick
+        return torch.randint(-127, 128, (rows, k_dim), generator=gen,
+                             device=dev, dtype=torch.int8)
+
+    def int_mm(gemms):
+        # yardstick only: torch._int_mm of the same int8 products, GEMMs
+        # alone, the weights column-major as cuBLASLt's int8 GEMM takes
+        # them (the transposes made before the timing)
+        pairs = [(codes(k_dim), w.t().contiguous().t()) for k_dim, w in gemms]
+        return lambda: [torch._int_mm(a, w) for a, w in pairs]
+
+    def sdpa():
+        # yardstick only: on contiguous (B, H, L, dh) copies of q, k, v
+        q4, k4, v4 = (t.view(CLIP_BATCH, seq, heads, -1).transpose(1, 2)
+                      .contiguous() for t in (q, k, v))
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0)
+
+    attention_bytes = 4 * act
+    attention_flops = 4 * CLIP_BATCH * seq * seq * width
+    cases = {
+        "fused_qkv_q8": dict(
+            fn=fused_qkv_q8, plain=fused_qkv_q8_plain, int8=True,
+            args=lambda n: (x[:n], ln_s, ln_b, w_qkv, s_qkv, b_qkv,
+                            (width // heads) ** -0.5),
+            library=lambda: int_mm([(width, w_qkv)]),
+            library_name="torch._int_mm, GEMMs only, column-major weights",
+            bytes=4 * act + w_qkv.numel() + 3 * width * (4 + 2)
+            + 2 * width * 2,
+            ops=2 * rows * width * 3 * width, peak=INT8_OP_PER_S),
+        "attention_core": dict(
+            fn=attention_core, plain=attention_core_plain, int8=False,
+            args=lambda n: (q[:n], k[:n], v[:n], heads), library=sdpa,
+            library_name="scaled_dot_product_attention, contiguous "
+                         "(B, H, L, dh) inputs",
+            bytes=attention_bytes, ops=attention_flops, peak=BF16_FLOP_PER_S),
+        "attention_core_fast_exp": dict(
+            fn=lambda *a: attention_core(*a, fast_exp=True),
+            plain=lambda *a: attention_core_plain(*a, fast_exp=True),
+            int8=False, args=lambda n: (q[:n], k[:n], v[:n], heads),
+            library=sdpa,
+            library_name="scaled_dot_product_attention, contiguous "
+                         "(B, H, L, dh) inputs",
+            bytes=attention_bytes, ops=attention_flops, peak=BF16_FLOP_PER_S),
+        "fused_mlp_block_q8": dict(
+            fn=fused_mlp_block_q8, plain=fused_mlp_block_q8_plain, int8=True,
+            args=lambda n: (x[:n], ln_s, ln_b, w_fc, s_fc, b_fc, w_pr, s_pr,
+                            b_pr),
+            library=lambda: int_mm([(width, w_fc), (d_ff, w_pr)]),
+            library_name="torch._int_mm, GEMMs only, column-major weights",
+            bytes=2 * act + w_fc.numel() + w_pr.numel()
+            + (d_ff + width) * (4 + 2) + 2 * width * 2,
+            ops=2 * 2 * rows * width * d_ff, peak=INT8_OP_PER_S),
+    }
+
+    def value_check(name, case, batch) -> dict:
+        args = case["args"](batch)
+        got = case["fn"](*args)
+        torch.cuda.synchronize()
+        want = case["plain"](*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        out = dict(max_abs_err=0.0, differing=0, elements=0)
+        for g, p in zip(got, want):
+            if case["int8"]:
+                errs = compare_q8(g, p)
+                out["rel_frobenius"] = max(out.get("rel_frobenius", 0.0),
+                                           errs["rel_frobenius"])
+            g, p = g.float(), p.float()
+            err = (g - p).abs()
+            check(bool(torch.isfinite(g).all()),
+                  f"{name} at B={batch}: output not finite")
+            if not case["int8"]:
+                check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * p.abs()).all()),
+                      f"{name} at B={batch} outside atol/rtol 8e-3 of the "
+                      f"plain version (max abs err {err.max().item()})")
+            out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
+            out["differing"] += int((err > 0).sum())
+            out["elements"] += err.numel()
+            del g, p, err
+        del got, want
+        torch.cuda.empty_cache()
+        return out
+
+    results = {}
+    for name, case in cases.items():
+        # B=16 covers a ragged last row tile; B=256 is the main path's shape
+        ragged = value_check(name, case, VIT_CHECK_BATCH)
+        main = value_check(name, case, CLIP_BATCH)
+        full = case["args"](CLIP_BATCH)
+        kernel_ms = cuda_ms(lambda: case["fn"](*full), iters=10)
+        plain_ms = cuda_ms(lambda: case["plain"](*full), iters=2, warmup=1)
+        library_ms = cuda_ms(case["library"](), iters=10)
+        torch.cuda.empty_cache()
+        results[name] = dict(
+            shape=dict(B=CLIP_BATCH, L=seq, D=width, H=heads, F=d_ff),
+            **main, **{f"b{VIT_CHECK_BATCH}_{key}": val
+                       for key, val in ragged.items()},
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library=case["library_name"],
+            **bound(case["bytes"], case["ops"], case["peak"]))
+        emit("vit_q8_kernels", kernel=name, kernel_ms=kernel_ms,
+             quantize_layer_s=quantize_s, **{
+                 key: val for key, val in results[name].items()
+                 if key != "ms"})
+    return results
+
+
+def encode_with_counts(encoder, images, expected: dict, what: str) -> tuple:
+    """One encode_batch call with every kernel count set to 0 just before
+    it and read just after; the counts must equal ``expected``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in PATH_KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = encoder.encode_batch(images)
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in PATH_KERNELS}
+    check(counts == expected,
+          f"{what}: kernels launched {counts}, expected {expected}")
+    return out, dict(wall_s=wall, launches=counts,
+                     peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def row_cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
+def phase_clip_split_fe(gen: torch.Generator, cfg, params, images) -> None:
+    """One split_fe encode at SPLIT_FE_LAYERS layers (attention_core with
+    fast_exp, then fused_mlp_block), against the default path at that
+    depth on the same weights and images."""
+    dev = gen.device
+    depth = dataclasses.replace(cfg, num_layers=SPLIT_FE_LAYERS)
+    shallow = dict(params)
+    shallow["blocks"] = {key: leaf[:SPLIT_FE_LAYERS]
+                         for key, leaf in params["blocks"].items()}
+    paths = {
+        "default": (depth, launches()),
+        "split_fe": (dataclasses.replace(depth, fused_block=True,
+                                         fused_block_long="split_fe"),
+                     launches(attention_core=SPLIT_FE_LAYERS,
+                              fused_mlp_block=SPLIT_FE_LAYERS)),
+    }
+    outs, runs = {}, {}
+    for name, (path_cfg, expected) in paths.items():
+        encoder = ClipImageEncoder(path_cfg, shallow, batch_size=CLIP_BATCH,
+                                   device=dev)
+        outs[name], runs[name] = encode_with_counts(
+            encoder, images, expected, f"clip_split_fe {name}")
+    cosine = row_cosine(outs["split_fe"], outs["default"])
+    check(bool(np.isfinite(outs["split_fe"]).all()),
+          "split_fe embeddings not finite")
+    check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
+          f"split_fe embeddings' cosine to the default path's "
+          f"{cosine.min()} < {CLIP_COSINE_FLOOR}")
+    emit("clip_split_fe", layers=SPLIT_FE_LAYERS, batch=CLIP_BATCH,
+         cosine_min=float(cosine.min()), cosine_mean=float(cosine.mean()),
+         floor=CLIP_COSINE_FLOOR,
+         launches={name: run["launches"] for name, run in runs.items()},
+         wall_s={name: run["wall_s"] for name, run in runs.items()})
+
+
 def phase_clip_encode(gen: torch.Generator) -> dict:
-    """ClipImageEncoder at ViT-L/14@336, the default path and fused_block on
-    the same weights and images, each called twice with the kernel counts
-    set to 0 before each call and read after it; then the calls in turns,
-    the busy share, the fused path's cosine to the default path; and one
-    ClipTextEncoder call."""
+    """ClipImageEncoder at ViT-L/14@336, the default path, fused_block and
+    int8 on the same weights and images, each called twice with the kernel
+    counts set to 0 before each call and read after it; then the calls in
+    turns, the busy share, the fused and int8 paths' cosines to the default
+    path; one split_fe encode at 2 layers; and one ClipTextEncoder call."""
     dev = gen.device
     cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
     params = clip_lib.init_clip_vision_params(gen, cfg, torch.bfloat16)
@@ -1080,27 +1309,27 @@ def phase_clip_encode(gen: torch.Generator) -> dict:
         "fused": ClipImageEncoder(dataclasses.replace(cfg, fused_block=True),
                                   params, batch_size=CLIP_BATCH, device=dev),
     }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encoders["int8"] = ClipImageEncoder(cfg, params, batch_size=CLIP_BATCH,
+                                        int8=True, device=dev)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    check("blocks_q8" not in params and encoders["int8"].cfg.int8,
+          "ClipImageEncoder(int8=True) changed the caller's params or did "
+          "not set cfg.int8")
     images = torch.randn((CLIP_BATCH, cfg.image_size, cfg.image_size, 3),
                          generator=gen, device=dev).bfloat16()
-    per_call = {"default": 0, "fused": cfg.num_layers}
+    per_call = {"default": (), "fused": VIT_KERNELS, "int8": VIT_Q8_KERNELS}
     results, outs = {}, {}
     for name, encoder in encoders.items():
+        want = launches(**{fn.__name__: cfg.num_layers
+                           for fn in per_call[name]})
         runs = []
         for _ in range(2):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for fn in PATH_KERNELS:
-                fn.launches = 0
-            t0 = time.perf_counter()
-            out = encoder.encode_batch(images)
-            wall = time.perf_counter() - t0
-            counts = {fn.__name__: fn.launches for fn in PATH_KERNELS}
-            want = launches(**{fn.__name__: per_call[name]
-                               for fn in VIT_KERNELS})
-            check(counts == want, f"clip_encode {name}: kernels launched "
-                  f"{counts}, expected {want}")
-            runs.append(dict(wall_s=wall, launches=counts,
-                             peak_bytes=torch.cuda.max_memory_allocated()))
+            out, run = encode_with_counts(encoder, images, want,
+                                          f"clip_encode {name}")
+            runs.append(run)
         check(out.shape == (CLIP_BATCH, cfg.projection_dim),
               f"clip_encode {name}: embeddings {out.shape}")
         check(bool(np.isfinite(out).all()),
@@ -1113,26 +1342,32 @@ def phase_clip_encode(gen: torch.Generator) -> dict:
             peak_mem_gb=runs[-1]["peak_bytes"] / 1e9,
             launches_per_call=[r["launches"] for r in runs],
             **device_busy(lambda: encoder.encode_batch(images), wall, top=6))
+        if name == "int8":
+            results[name]["quantize_s"] = quantize_s
         emit("clip_encode", path=name, batch=CLIP_BATCH, seq=cfg.seq_len,
              **results[name])
-    a, b = outs["fused"].astype(np.float64), outs["default"].astype(np.float64)
-    cosine = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
-                                * np.linalg.norm(b, axis=-1))
-    check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
-          f"fused embeddings' cosine to the default path's {cosine.min()} < "
-          f"{CLIP_COSINE_FLOOR}")
-    turns = {"default": [], "fused": []}
-    for name in ("default", "fused", "fused", "default"):
+    cosines = {}
+    for name in ("fused", "int8"):
+        cosine = row_cosine(outs[name], outs["default"])
+        check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
+              f"{name} embeddings' cosine to the default path's "
+              f"{cosine.min()} < {CLIP_COSINE_FLOOR}")
+        cosines[name] = dict(min=float(cosine.min()),
+                             mean=float(cosine.mean()))
+    turns = {name: [] for name in encoders}
+    for name in ("default", "fused", "int8", "int8", "fused", "default"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         encoders[name].encode_batch(images)
         turns[name].append(time.perf_counter() - t0)
-    emit("clip_fused_vs_default", cosine_min=float(cosine.min()),
-         cosine_mean=float(cosine.mean()), floor=CLIP_COSINE_FLOOR,
+    emit("clip_vs_default", cosine=cosines, floor=CLIP_COSINE_FLOOR,
          encode_s_in_turns=turns,
          images_per_s_in_turns={k: [CLIP_BATCH / t for t in v]
                                 for k, v in turns.items()})
-    del encoders, params, images
+    del encoders
+    torch.cuda.empty_cache()
+    phase_clip_split_fe(gen, cfg, params, images)
+    del params, images
     torch.cuda.empty_cache()
 
     text_cfg = clip_lib.CLIPTextConfig()
@@ -1156,7 +1391,7 @@ def phase_clip_encode(gen: torch.Generator) -> dict:
           "text embeddings not finite or of the wrong shape")
     emit("clip_text", batch=TEXT_BATCH, length=text_cfg.context_length,
          wall_s=text_s, texts_per_s=TEXT_BATCH / text_s)
-    return results["fused"]
+    return results
 
 
 def main() -> int:
@@ -1215,6 +1450,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     vit_kernels = phase_vit_kernels(gen)
     torch.cuda.empty_cache()
+    vit_q8_kernels = phase_vit_q8_kernels(gen)
+    torch.cuda.empty_cache()
     clip_encode = phase_clip_encode(gen)
 
     measured = {
@@ -1222,7 +1459,11 @@ def main() -> int:
         **{name: (res, generate_int8) for name, res in int8_kernels.items()},
         "cross_attention_decode": (decode_attention, generate_fused),
         "fused_t5_ffn": (t5_ffn, generate_fused),
-        **{name: (res, clip_encode) for name, res in vit_kernels.items()},
+        **{name: (res, clip_encode["fused"])
+           for name, res in vit_kernels.items()},
+        **{name: (vit_q8_kernels[name], clip_encode["int8"])
+           for name in ("fused_qkv_q8", "attention_core",
+                        "fused_mlp_block_q8")},
     }
     lines = []
     for name, (res, run) in measured.items():

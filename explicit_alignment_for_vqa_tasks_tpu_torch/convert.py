@@ -5,8 +5,14 @@ run through both packages. Leaves arrive as numpy arrays
 (``np.asarray`` of each JAX leaf). numpy's bfloat16 (from ``ml_dtypes``) is
 refused by ``torch.from_numpy``, so every float leaf goes through float32,
 which holds any bf16 value exactly. Integer leaves (the int8 weight codes)
-keep their type, and the int8 dequant scales (leaves named ``*_s``) stay
-float32 whatever the LM dtype: rounding them would change every product.
+keep their type. Two rules keep the int8 dequant scales float32 whatever
+the tree's dtype, since rounding them would change every product:
+
+  * leaves named ``*_s`` (the T5 int8 trees);
+  * every float leaf under a ``blocks_q8`` subtree (the CLIP tree of
+    ``models.clip.quantize_vision_blocks``, whose scales are named
+    ``*_scale``). The rule cannot be "ends in ``_scale``": the LayerNorm
+    scales (``ln1_scale``, ``pre_ln_scale``, ...) are bf16 parameters.
 """
 
 from __future__ import annotations
@@ -22,15 +28,16 @@ Params = Dict[str, Any]
 
 
 def _tree_to_torch(tree: Any, dtype: torch.dtype, device: torch.device,
-                   name: str = "") -> Any:
+                   name: str = "", in_q8: bool = False) -> Any:
     if isinstance(tree, dict):
-        return {k: _tree_to_torch(v, dtype, device, k)
+        return {k: _tree_to_torch(v, dtype, device, k,
+                                  in_q8 or k == "blocks_q8")
                 for k, v in tree.items()}
     arr = np.asarray(tree)
     if arr.dtype.kind in "iub":
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
     arr32 = np.ascontiguousarray(arr.astype(np.float32))
-    leaf_dtype = torch.float32 if name.endswith("_s") else dtype
+    leaf_dtype = torch.float32 if in_q8 or name.endswith("_s") else dtype
     return torch.from_numpy(arr32).to(device=device, dtype=leaf_dtype)
 
 

@@ -1,12 +1,14 @@
 // The CLIP ViT encoder block of the long-sequence "split3" path, for NVIDIA
 // Hopper (sm_90a).
 //
-// Replaces three Pallas kernels of
-// explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py, the
-// three programs of models/clip.py's split3 branch (:201-235):
+// Replaces four Pallas kernels of
+// explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py: the
+// three programs of models/clip.py's split3 branch (:201-235)
 //   fused_ln_qkv          pallas_call at :290, body :235-262
 //   attention_core_oproj  pallas_call at :366, body :301-342
 //   fused_mlp_block       pallas_call at :445, body :379-413
+// and the attention of the long split*, fused_attention and int8 branches
+//   attention_core        pallas_call at :225, body :161-200
 // It computes, in the Pallas kernels' order of rounding (activations,
 // weights and outputs bf16; x (M, D) with M = B L rows):
 //
@@ -16,11 +18,16 @@
 //     q   = bf16(((h . wq) + bq) * scale)   products accumulated in fp32,
 //     k   = bf16((h . wk) + bk)             then the bias, then the scale
 //     v   = bf16((h . wv) + bv)
-//   attention_core_oproj, per image and head (q pre-scaled, no bias, no
-//   mask)
+//   attention_core, per image and head (q pre-scaled, no bias, no mask)
 //     s   = q . k^T          fp32
 //     p   = bf16(exp(s - rowmax(s)))        unnormalised
 //     o   = bf16((p . v) / sum(float(p)))   the division after PV
+//     with fast_exp: e = exp(float(bf16(s - rowmax(s)))) in fp32,
+//     p = bf16(e), o = bf16((p . v) / sum(e)) (the interpret-mode Pallas
+//     kernel's rounding: XLA rounds the bf16 exponential only where a bf16
+//     operand needs it)
+//   attention_core_oproj
+//     o   = attention_core(q, k, v)
 //     out = bf16(res + ((o . wo) + bo))
 //   fused_mlp_block
 //     h   = bf16(LN(x))
@@ -40,8 +47,10 @@
 // each output written once:
 //   fused_ln_qkv          929.3 GFLOP = 0.940 ms; 1.22 GB = 0.36 ms
 //   attention_core_oproj  658.9 GFLOP = 0.666 ms; 1.51 GB = 0.45 ms
+//   attention_core        349.1 GFLOP = 0.353 ms; 1.21 GB = 0.361 ms
 //   fused_mlp_block       2,478 GFLOP = 2.506 ms; 0.62 GB = 0.19 ms
-// All three are bound by operations; the encoder runs each once per layer.
+// The split3 three are bound by operations, attention_core by bytes; the
+// encoder runs each of its kernels once per layer.
 //
 // Design (simple and right before fast). A Pallas program keeps one image's
 // LN output, scores and quickGELU hidden in VMEM; here each function is a
@@ -279,7 +288,7 @@ struct ChunkRegs {
   }
 };
 
-template <int DH>
+template <int DH, bool FAST_EXP>
 __global__ void __launch_bounds__(ATT_NT)
 vit_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -361,8 +370,15 @@ vit_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = lane; j < lp; j += 32) {
       bf16 p = __float2bfloat16(0.0f);
       if (j < L) {
-        p = __float2bfloat16(expf(__fsub_rn(srow[j], m)));
-        sum = __fadd_rn(sum, __bfloat162float(p));
+        if (FAST_EXP) {  // the sum takes the unrounded exponential
+          const float e = expf(__bfloat162float(
+              __float2bfloat16(__fsub_rn(srow[j], m))));
+          p = __float2bfloat16(e);
+          sum = __fadd_rn(sum, e);
+        } else {
+          p = __float2bfloat16(expf(__fsub_rn(srow[j], m)));
+          sum = __fadd_rn(sum, __bfloat162float(p));
+        }
       }
       __syncwarp();
       prow[j] = p;
@@ -436,20 +452,38 @@ int smem_limit() {
   return limit;
 }
 
-template <int DH>
+template <int DH, bool FAST_EXP>
 int attention(const void* q, const void* k, const void* v, void* out, int B,
               int L, int H, cudaStream_t stream) {
   const size_t smem = att_smem_bytes(L, DH);
   if (smem > static_cast<size_t>(smem_limit())) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      vit_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      vit_attention_kernel<DH, FAST_EXP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((L + TQ - 1) / TQ, H, B);
-  vit_attention_kernel<DH><<<grid, ATT_NT, smem, stream>>>(
+  vit_attention_kernel<DH, FAST_EXP><<<grid, ATT_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), L, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool FAST_EXP>
+int attention_dh(const void* q, const void* k, const void* v, void* out,
+                 int B, int L, int H, int dh, cudaStream_t stream) {
+  switch (dh) {
+    case 16: return attention<16, FAST_EXP>(q, k, v, out, B, L, H, stream);
+    case 32: return attention<32, FAST_EXP>(q, k, v, out, B, L, H, stream);
+    case 64: return attention<64, FAST_EXP>(q, k, v, out, B, L, H, stream);
+    case 128: return attention<128, FAST_EXP>(q, k, v, out, B, L, H, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The attention grid: (query tiles, H, B), within CUDA's limits.
+bool attention_shape_ok(int B, int L, int H) {
+  return B > 0 && L > 0 && H > 0 && B <= 65535 && H <= 65535 &&
+         static_cast<long long>(B) * L <= 0x7fffffff;
 }
 
 }  // namespace
@@ -506,20 +540,11 @@ extern "C" int attention_core_oproj_launch(const void* res, const void* q,
                                            void* attn, void* out, int B,
                                            int L, int H, int dh,
                                            void* stream) {
-  const long long rows = static_cast<long long>(B) * L;
-  if (B <= 0 || L <= 0 || H <= 0 || B > 65535 || H > 65535 ||
-      rows > 0x7fffffff || !gemm_shape_ok(static_cast<int>(rows), H * dh)) {
+  if (!attention_shape_ok(B, L, H) || !gemm_shape_ok(B * L, H * dh)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  switch (dh) {
-    case 16: rc = attention<16>(q, k, v, attn, B, L, H, s); break;
-    case 32: rc = attention<32>(q, k, v, attn, B, L, H, s); break;
-    case 64: rc = attention<64>(q, k, v, attn, B, L, H, s); break;
-    case 128: rc = attention<128>(q, k, v, attn, B, L, H, s); break;
-    default: return cudaErrorInvalidValue;
-  }
+  const int rc = attention_dh<false>(q, k, v, attn, B, L, H, dh, s);
   if (rc != 0) return rc;
   GemmArgs g{};
   g.a = static_cast<const bf16*>(attn);
@@ -527,10 +552,23 @@ extern "C" int attention_core_oproj_launch(const void* res, const void* q,
   g.bias[0] = static_cast<const bf16*>(bo);
   g.out[0] = static_cast<bf16*>(out);
   g.residual = static_cast<const bf16*>(res);
-  g.M = static_cast<int>(rows);
+  g.M = B * L;
   g.K = H * dh;
   g.N = H * dh;
   return gemm<kBiasResidual>(g, 1, s);
+}
+
+// out (B, L, H dh) bf16 = softmax(q k^T) v per head for q (pre-scaled), k,
+// v (B, L, H dh) bf16; the exponential of bf16(s - max) when fast_exp is
+// not 0. Runs on `stream`; returns the launch's cudaError_t (0 on success).
+extern "C" int attention_core_launch(const void* q, const void* k,
+                                     const void* v, void* out, int B, int L,
+                                     int H, int dh, int fast_exp,
+                                     void* stream) {
+  if (!attention_shape_ok(B, L, H)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast_exp ? attention_dh<true>(q, k, v, out, B, L, H, dh, s)
+                  : attention_dh<false>(q, k, v, out, B, L, H, dh, s);
 }
 
 // out (M, D) bf16 = x + quickGELU(bf16(LN(x)) . w_fc + b_fc) . w_proj +

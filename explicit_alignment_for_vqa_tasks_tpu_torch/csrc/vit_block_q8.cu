@@ -1,0 +1,224 @@
+// The int8 CLIP ViT block of the long-sequence int8 path, for NVIDIA Hopper
+// (sm_90a): the LayerNorm + q/k/v and the LayerNorm + MLP programs, every
+// product int8 on the tensor cores.
+//
+// Replaces two Pallas kernels of
+// explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py, the
+// int8 programs of models/clip.py's long-sequence int8 branch (:532-579):
+//   fused_qkv_q8        pallas_call at :584, body :530-556
+//   fused_mlp_block_q8  pallas_call at :516, body :462-492
+// (the attention between them is vit_block.cu's attention_core). What they
+// compute, in the Pallas kernels' order of rounding (x and the outputs
+// bf16; weights int8 (K, N) with fp32 (N,) per-output-channel scales, bf16
+// biases; x (M, D) with M = B L rows):
+//
+//   h    = ((x - m) * (1 / sqrt(var + eps))) * s + b   fp32 LayerNorm, NOT
+//          rounded to bf16 (m the mean, var the mean of (x - m)^2)
+//   hs   = max(amax(|h|), 1e-6) * (1/127)     per row (XLA's form of / 127)
+//   hq   = clip(rint(h / hs), -127, 127)
+//   fused_qkv_q8, one (D, 3D) product over the concatenated q | k | v:
+//     qkv = ((float(hq . W) * hs) * s) + b
+//     q, k, v = bf16(qkv[:, :D] * scale), bf16(qkv[:, D:2D]), bf16(qkv[:, 2D:])
+//   fused_mlp_block_q8:
+//     z   = ((float(hq . W_fc) * hs) * s_fc) + b_fc
+//     hid = z * (1 / (1 + exp(-(1.702 z))))    fp32 quickGELU, never bf16
+//     gs, gq: hid quantized per row over its whole width F
+//     out = bf16(x + (((float(gq . W_proj) * gs) * s_proj) + b_proj))
+//
+// Every multiply and add is written with __fmul_rn / __fadd_rn / __fsub_rn
+// so that nvcc cannot contract them into FMAs; the square root and the
+// divisions are correctly rounded and the exponential is expf (the build
+// has no --use_fast_math).
+//
+// What bounds them on an H100 SXM (1,979 TOP/s int8 dense, 3.35 TB/s), at
+// ViT-L/14@336 with the image encoder's batch of 256 (M = 256 x 577 =
+// 147,712 rows, D = 1024, F = 4096), 2 M K N operations per product, each
+// input read once and each output written once:
+//   fused_qkv_q8        929.3 G ops = 0.470 ms; 1.21 GB = 0.36 ms
+//   fused_mlp_block_q8  2,478 G ops = 1.252 ms; 0.61 GB = 0.18 ms
+// Both are bound by operations; the encoder runs each once per layer.
+//
+// Design (simple and right before fast), from q8_gemm.cuh's two kernels:
+//   fused_qkv_q8: row_quant with the LayerNorm in front (one block per row,
+//     the fp32 row in shared memory), then one s8 wgmma GEMM with N = 3 D
+//     over the K-major (3 D, D) weight whose epilogue adds the column's
+//     bias, scales the q columns and writes each 128-wide column tile into
+//     q, k or v.
+//   fused_mlp_block_q8: row_quant + LayerNorm; the up GEMM (N = F) with the
+//     bias-then-quickGELU epilogue writing the fp32 hidden; row_quant of the
+//     hidden over its whole 4096-wide row (16 KB of shared memory); the
+//     down GEMM (K = F, one contraction group: 4096 x 127^2 is far inside
+//     int32) with the bias-then-residual epilogue. The fp32 hidden makes one
+//     round trip through device memory (2.42 GB at the main shape) where
+//     the Pallas program keeps it in VMEM; fusing its quantization into the
+//     up GEMM (a block owning whole rows of F) is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+#include "q8_gemm.cuh"
+
+namespace {
+
+using namespace q8_gemm;
+
+enum Epilogue : int { kQkv = 0, kQuickGeluF32 = 1, kResidual = 2 };
+
+struct GemmArgs {
+  const int8_t* a;        // (M, K) activation codes, K contiguous
+  const float* a_scale;   // (M, 1) per-row scales
+  const int8_t* b;        // (N, K) int8 weights, K contiguous
+  const float* b_scale;   // (N,) fp32 per-output-channel scales
+  const bf16* bias;       // (N,)
+  const bf16* residual;   // (M, N) for kResidual
+  void* out[3];           // kQkv: q, k, v (M, D) bf16; else out[0] (M, N)
+  float scale;            // kQkv: the factor of the q columns
+  int M, K, N, D;         // D: kQkv's column width of q, k and v
+};
+
+__device__ inline float quick_gelu(float z) {
+  // z * sigmoid(1.702 z), the sigmoid as 1 / (1 + exp(-x))
+  const float e = expf(-__fmul_rn(1.702f, z));
+  return __fmul_rn(z, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(NT)
+vit_gemm_q8_kernel(const GemmArgs args) {
+  extern __shared__ __align__(128) int8_t smem[];
+  const int M = args.M, N = args.N;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int tig = threadIdx.x % 4;
+  const int row0 = fragment_row0(m0);
+  float acc[64];
+  mainloop(smem, args.a, args.a_scale, args.b, args.b_scale, M, args.K, N, 1,
+           m0, n0, acc);
+
+  // kQkv: the tile's 128 columns lie in one of q, k, v (D % 128 == 0)
+  const int part = EPI == kQkv ? n0 / args.D : 0;
+  const int width = EPI == kQkv ? args.D : N;
+  const int c0 = n0 - part * (EPI == kQkv ? args.D : 0);
+  // two consecutive columns of rows row0 and row0 + 8 per n8 chunk
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * tig;
+      const __nv_bfloat162 bv =
+          *reinterpret_cast<const __nv_bfloat162*>(args.bias + col);
+      float v0 = __fadd_rn(acc[4 * j + 2 * half], __low2float(bv));
+      float v1 = __fadd_rn(acc[4 * j + 2 * half + 1], __high2float(bv));
+      const size_t off =
+          static_cast<size_t>(row) * width + c0 + 8 * j + 2 * tig;
+      if constexpr (EPI == kQkv) {
+        if (part == 0) {
+          v0 = __fmul_rn(v0, args.scale);
+          v1 = __fmul_rn(v1, args.scale);
+        }
+        bf16* out = static_cast<bf16*>(
+            part == 0 ? args.out[0] : (part == 1 ? args.out[1] : args.out[2]));
+        *reinterpret_cast<__nv_bfloat162*>(out + off) =
+            __floats2bfloat162_rn(v0, v1);
+      } else if constexpr (EPI == kQuickGeluF32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(args.out[0]) + off) =
+            make_float2(quick_gelu(v0), quick_gelu(v1));
+      } else {  // kResidual
+        const __nv_bfloat162 r =
+            *reinterpret_cast<const __nv_bfloat162*>(args.residual + off);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(args.out[0]) +
+                                           off) =
+            __floats2bfloat162_rn(__fadd_rn(__low2float(r), v0),
+                                  __fadd_rn(__high2float(r), v1));
+      }
+    }
+  }
+}
+
+template <int EPI>
+int gemm(const GemmArgs& args, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      vit_gemm_q8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      GEMM_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(args.N / BN, (args.M + BM - 1) / BM, 1);
+  vit_gemm_q8_kernel<EPI><<<grid, NT, GEMM_SMEM, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+GemmArgs gemm_args(const void* a, const void* a_scale, const void* w,
+                   const void* s, const void* bias, int M, int K, int N) {
+  GemmArgs args{};
+  args.a = static_cast<const int8_t*>(a);
+  args.a_scale = static_cast<const float*>(a_scale);
+  args.b = static_cast<const int8_t*>(w);
+  args.b_scale = static_cast<const float*>(s);
+  args.bias = static_cast<const bf16*>(bias);
+  args.M = M;
+  args.K = K;
+  args.N = N;
+  return args;
+}
+
+}  // namespace
+
+// Each launcher runs on `stream` and returns the first cudaError_t of its
+// launches (0 on success). Scratch (codes, scales, the MLP hidden) is the
+// caller's. Weights come K-major: (N, K), the transpose of the JAX layout's
+// (K, N); scales are fp32 (N,), LayerNorm parameters and biases bf16.
+
+// q, k, v (M, D) bf16 = LN(x (M, D)) through w_qkv (3 D, D), the q columns
+// times scale.
+extern "C" int fused_qkv_q8_launch(const void* x, const void* ln_s,
+                                   const void* ln_b, const void* w_qkv,
+                                   const void* s_qkv, const void* b_qkv,
+                                   void* codes, void* row_scales, void* q,
+                                   void* k, void* v, int M, int D,
+                                   float scale, float eps, void* stream) {
+  if (!shape_ok(M, D, 3 * D, 1)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = row_quant<bf16, kLayer>(x, ln_s, ln_b, codes, row_scales, M, D, 1,
+                                   eps, s);
+  if (rc != 0) return rc;
+  GemmArgs args = gemm_args(codes, row_scales, w_qkv, s_qkv, b_qkv, M, D,
+                            3 * D);
+  args.out[0] = q;
+  args.out[1] = k;
+  args.out[2] = v;
+  args.scale = scale;
+  args.D = D;
+  return gemm<kQkv>(args, s);
+}
+
+// out (M, D) bf16 = x + MLP(LN(x)) for x (M, D); w_fc (F, D) and w_proj
+// (D, F). hidden is fp32 (M, F).
+extern "C" int fused_mlp_block_q8_launch(
+    const void* x, const void* ln_s, const void* ln_b, const void* w_fc,
+    const void* s_fc, const void* b_fc, const void* w_proj,
+    const void* s_proj, const void* b_proj, void* codes_in, void* scales_in,
+    void* hidden, void* codes_hid, void* scales_hid, void* out, int M, int D,
+    int F, float eps, void* stream) {
+  if (!shape_ok(M, D, F, 1) || !shape_ok(M, F, D, 1)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = row_quant<bf16, kLayer>(x, ln_s, ln_b, codes_in, scales_in, M, D,
+                                   1, eps, s);
+  if (rc != 0) return rc;
+  GemmArgs up = gemm_args(codes_in, scales_in, w_fc, s_fc, b_fc, M, D, F);
+  up.out[0] = hidden;
+  rc = gemm<kQuickGeluF32>(up, s);
+  if (rc != 0) return rc;
+  rc = row_quant<float, kNone>(hidden, nullptr, nullptr, codes_hid,
+                               scales_hid, M, F, 1, 0.0f, s);
+  if (rc != 0) return rc;
+  GemmArgs down =
+      gemm_args(codes_hid, scales_hid, w_proj, s_proj, b_proj, M, F, D);
+  down.out[0] = out;
+  down.residual = static_cast<const bf16*>(x);
+  return gemm<kResidual>(down, s);
+}

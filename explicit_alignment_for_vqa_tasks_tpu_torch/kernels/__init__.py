@@ -29,6 +29,7 @@ SOURCES = {
     "cross_attention_decode": "cross_attention_decode.cu",
     "t5_ffn": "t5_ffn.cu",
     "vit_block": "vit_block.cu",
+    "vit_block_q8": "vit_block_q8.cu",
 }
 
 NVCC_FLAGS = (

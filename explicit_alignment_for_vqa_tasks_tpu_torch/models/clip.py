@@ -10,9 +10,15 @@ The default configuration is plain PyTorch, as the JAX package's is plain
 XLA. ``fused_block`` runs the long-sequence ``split3`` block (the JAX
 default for ViT-L/14@336, :201-235): three hand-written CUDA kernels,
 ``fused_ln_qkv``, ``attention_core_oproj`` and ``fused_mlp_block``
-(``ops/fused_attention_block.py``, ``csrc/vit_block.cu``). The other fused
-variants and the int8 path reach kernels that are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP Queue 2 item that ports them.
+(``ops/fused_attention_block.py``, ``csrc/vit_block.cu``). Above 128 tokens
+the ``split*`` variants (:237-271) and ``fused_attention`` (:310-330) run
+the ``attention_core`` kernel, and ``cfg.int8`` (with the ``blocks_q8``
+tree of ``quantize_vision_blocks``) runs ``fused_qkv_q8``,
+``attention_core`` and ``fused_mlp_block_q8`` (:532-579,
+``csrc/vit_block_q8.cu``). The short-sequence fused variants and the int8
+path at 128 tokens or fewer reach kernels that are not ported yet and
+raise ``NotImplementedError`` naming the ROADMAP Queue 2 item that ports
+them.
 """
 
 from __future__ import annotations
@@ -43,14 +49,18 @@ class CLIPVisionConfig:
     # bf16 attention logits and PV (the JAX package's bulk-extraction
     # option); fp32 logits by default
     fast_attention: bool = False
-    # the legacy fused attention block (Queue 2 #17 short, #11 long)
+    # the legacy fused attention block: above 128 tokens the attention
+    # core kernel; at 128 or fewer Queue 2 #17
     fused_attention: bool = False
     # fused encoder blocks: at sequences longer than 128 "" and "split3" run
-    # the three split3 kernels; at 128 or fewer only "split3" is ported
+    # the three split3 kernels, "split", "split_c2", "split_fe" and
+    # "split_c2fe" the attention core kernel and fused_mlp_block; at 128 or
+    # fewer only "split3" is ported
     fused_block: bool = False
     fused_block_group: int = 0   # images per TPU program; 0 = auto
     fused_block_long: str = ""
-    # the int8 blocks (Queue 2 #12 to #14)
+    # the int8 blocks (params["blocks_q8"] from quantize_vision_blocks);
+    # above 128 tokens only (Queue 2 #12 at 128 or fewer)
     int8: bool = False
 
     @property
@@ -154,6 +164,41 @@ def _split3_block(layer_p, x, num_heads, eps, group):
     )
 
 
+# the long-sequence split variants (JAX :237-271): the attention core with
+# the exponential in bf16 or not; "_c2" only splits the MLP program's rows
+# in two for the TPU scheduler, which changes no value
+SPLIT_VARIANTS = {"split": False, "split_c2": False, "split_fe": True,
+                  "split_c2fe": True}
+
+
+def _qkv(layer_p, ln1, dt):
+    return tuple(_linear(ln1, layer_p[n], dt) + layer_p[n + "_bias"].to(dt)
+                 for n in ("q", "k", "v"))
+
+
+def _mlp(layer_p, x, eps):
+    """x + MLP(LN2(x)) as the XLA path computes it."""
+    dt = x.dtype
+    ln2 = _layer_norm(x, layer_p["ln2_scale"], layer_p["ln2_bias"], eps)
+    hidden = _linear(ln2, layer_p["mlp_fc"], dt)
+    hidden = quick_gelu(hidden + layer_p["mlp_fc_bias"].to(dt))
+    hidden = _linear(hidden, layer_p["mlp_proj"], dt)
+    return x + hidden + layer_p["mlp_proj_bias"].to(dt)
+
+
+def _core_attention(layer_p, x, num_heads, eps, fast_exp=False):
+    """x + the attention half of the block with the attention core kernel
+    (projections and out-projection as XLA runs them, JAX :251-265)."""
+    dt = x.dtype
+    head_dim = x.shape[-1] // num_heads
+    ln1 = _layer_norm(x, layer_p["ln1_scale"], layer_p["ln1_bias"], eps)
+    q, k, v = _qkv(layer_p, ln1, dt)
+    attn = fab.attention_core(q * (head_dim ** -0.5), k, v, num_heads,
+                              fast_exp=fast_exp)
+    attn = _linear(attn, layer_p["o"], dt)
+    return x + attn + layer_p["o_bias"].to(dt)
+
+
 def _encoder_block(layer_p, x, bias, num_heads, eps, use_pallas=False,
                    fast_attention=False, fused_attention=False,
                    fused_block=False, fused_block_group=0,
@@ -175,28 +220,35 @@ def _encoder_block(layer_p, x, bias, num_heads, eps, use_pallas=False,
                 fused_block_group or _fused_group(x.shape[0]))
             return _split3_block(layer_p, x, num_heads, eps, group)
         if seq > 128:
-            raise _not_ported(
-                f"fused_block_long={fused_block_long!r} (attention_core)",
-                "#11")
+            if fused_block_long not in SPLIT_VARIANTS:
+                # the JAX package runs any other name as "split"
+                raise ValueError(
+                    f"fused_block_long={fused_block_long!r} at {seq} tokens "
+                    f"is none of '', 'split3', 'whole', 'whole_dd', "
+                    f"{', '.join(map(repr, SPLIT_VARIANTS))}")
+            x = _core_attention(layer_p, x, num_heads, eps,
+                                SPLIT_VARIANTS[fused_block_long])
+            return fab.fused_mlp_block(
+                x, layer_p["ln2_scale"], layer_p["ln2_bias"],
+                layer_p["mlp_fc"], layer_p["mlp_fc_bias"],
+                layer_p["mlp_proj"], layer_p["mlp_proj_bias"],
+                group=1, eps=eps)
         raise _not_ported(
             f"fused_block at {seq} tokens without fused_block_long='split3' "
             "(fused_vit_block)", "#7")
-
-    ln1 = _layer_norm(x, layer_p["ln1_scale"], layer_p["ln1_bias"], eps)
 
     if fused_attention and bias is None:
         if seq <= 128:
             raise _not_ported("fused_attention at 128 tokens or fewer "
                               "(fused_attention_block)", "#17")
-        raise _not_ported("fused_attention above 128 tokens "
-                          "(attention_core)", "#11")
+        return _mlp(layer_p, _core_attention(layer_p, x, num_heads, eps),
+                    eps)
     if use_pallas:
         raise _not_ported("use_pallas (ops/attention.py::flash_attention)",
                           "#16")
 
-    q = _linear(ln1, layer_p["q"], dt) + layer_p["q_bias"].to(dt)
-    k = _linear(ln1, layer_p["k"], dt) + layer_p["k_bias"].to(dt)
-    v = _linear(ln1, layer_p["v"], dt) + layer_p["v_bias"].to(dt)
+    ln1 = _layer_norm(x, layer_p["ln1_scale"], layer_p["ln1_bias"], eps)
+    q, k, v = _qkv(layer_p, ln1, dt)
     batch, seq, _ = q.shape
 
     def heads(t):  # (B, L, H*dh) -> (B, H, L, dh)
@@ -220,13 +272,7 @@ def _encoder_block(layer_p, x, bias, num_heads, eps, use_pallas=False,
         attn = torch.matmul(weights, v)
     attn = attn.transpose(1, 2).reshape(batch, seq, -1)
     attn = _linear(attn, layer_p["o"], dt)
-    x = x + attn + layer_p["o_bias"].to(dt)
-
-    ln2 = _layer_norm(x, layer_p["ln2_scale"], layer_p["ln2_bias"], eps)
-    hidden = _linear(ln2, layer_p["mlp_fc"], dt)
-    hidden = quick_gelu(hidden + layer_p["mlp_fc_bias"].to(dt))
-    hidden = _linear(hidden, layer_p["mlp_proj"], dt)
-    return x + hidden + layer_p["mlp_proj_bias"].to(dt)
+    return _mlp(layer_p, x + attn + layer_p["o_bias"].to(dt), eps)
 
 
 def _layers(blocks: Params):
@@ -292,6 +338,52 @@ def init_clip_vision_params(gen: torch.Generator, cfg: CLIPVisionConfig,
     }
 
 
+def quantize_vision_blocks(params: Params) -> Params:
+    """Per-output-channel int8 quantization of each encoder block's
+    projections, in fp32 on the params' device: the JAX ``blocks_q8`` tree
+    (:435-460), layers stacked. q, k and v are concatenated into one (D, 3D)
+    matrix (its per-column scales make that exact); ``o`` is quantized too,
+    though only the short-sequence int8 block (Queue 2 #12) reads it. Codes
+    and scales are bit-equal to JAX's (``fab.quantize_weight_i8``)."""
+    blocks = params["blocks"]
+
+    def stacked(w):  # (layers, d_in, d_out) -> int8 codes, fp32 scales
+        pairs = [fab.quantize_weight_i8(w[i]) for i in range(w.shape[0])]
+        return (torch.stack([q for q, _ in pairs]),
+                torch.stack([s for _, s in pairs]))
+
+    out: Params = {}
+    out["qkv"], out["qkv_scale"] = stacked(torch.cat(
+        [blocks[n].float() for n in ("q", "k", "v")], dim=-1))
+    for name in ("o", "mlp_fc", "mlp_proj"):
+        out[name], out[name + "_scale"] = stacked(blocks[name])
+    return out
+
+
+def _int8_blocks(params: Params, cfg: CLIPVisionConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """The long-sequence int8 blocks (JAX :532-579): fused_qkv_q8, the
+    attention core, the bf16 out-projection, fused_mlp_block_q8."""
+    dt = cfg.dtype
+    head_dim = cfg.width // cfg.num_heads
+    eps = cfg.layer_norm_epsilon
+    q8 = params["blocks_q8"]
+    for i, lp in enumerate(_layers(params["blocks"])):
+        qkv_bias = torch.cat([lp["q_bias"], lp["k_bias"], lp["v_bias"]],
+                             dim=-1)
+        q, k, v = fab.fused_qkv_q8(
+            x, lp["ln1_scale"], lp["ln1_bias"], q8["qkv"][i],
+            q8["qkv_scale"][i], qkv_bias, scale=head_dim ** -0.5, eps=eps)
+        attn = fab.attention_core(q, k, v, cfg.num_heads)
+        attn = _linear(attn, lp["o"], dt)
+        y = x + attn + lp["o_bias"].to(dt)
+        x = fab.fused_mlp_block_q8(
+            y, lp["ln2_scale"], lp["ln2_bias"], q8["mlp_fc"][i],
+            q8["mlp_fc_scale"][i], lp["mlp_fc_bias"], q8["mlp_proj"][i],
+            q8["mlp_proj_scale"][i], lp["mlp_proj_bias"], eps=eps)
+    return x
+
+
 def patch_embed(params: Params, cfg: CLIPVisionConfig,
                 images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) NHWC -> (B, grid*grid, width) via reshape + matmul."""
@@ -315,9 +407,14 @@ def clip_encode_image(
     embeddings -> pre-LN -> transformer -> post-LN on CLS -> projection, as
     HF CLIPVisionModelWithProjection computes them."""
     if cfg.int8:
-        raise _not_ported("CLIPVisionConfig.int8 (quantize_vision_blocks, "
-                          "fused_vit_block_q8, fused_qkv_q8, "
-                          "fused_mlp_block_q8)", "#12 to #14")
+        if cfg.seq_len <= 128:
+            raise _not_ported("CLIPVisionConfig.int8 at 128 tokens or fewer "
+                              "(fused_vit_block_q8)", "#12")
+        if "blocks_q8" not in params:
+            # the JAX package silently runs the bf16 blocks here (:497)
+            raise ValueError(
+                "CLIPVisionConfig.int8 needs params['blocks_q8'] "
+                "(quantize_vision_blocks)")
     x = patch_embed(params, cfg, images)
     cls = params["class_embedding"].to(cfg.dtype)[None, None].expand(
         x.shape[0], 1, cfg.width)
@@ -325,15 +422,18 @@ def clip_encode_image(
     x = x + params["position_embedding"].to(cfg.dtype)[None]
     x = _layer_norm(x, params["pre_ln_scale"], params["pre_ln_bias"],
                     cfg.layer_norm_epsilon)
-    for layer_p in _layers(params["blocks"]):
-        x = _encoder_block(
-            layer_p, x, None, cfg.num_heads, cfg.layer_norm_epsilon,
-            use_pallas=use_pallas, fast_attention=cfg.fast_attention,
-            fused_attention=cfg.fused_attention,
-            fused_block=cfg.fused_block,
-            fused_block_group=cfg.fused_block_group,
-            fused_block_long=cfg.fused_block_long,
-        )
+    if cfg.int8:
+        x = _int8_blocks(params, cfg, x)
+    else:
+        for layer_p in _layers(params["blocks"]):
+            x = _encoder_block(
+                layer_p, x, None, cfg.num_heads, cfg.layer_norm_epsilon,
+                use_pallas=use_pallas, fast_attention=cfg.fast_attention,
+                fused_attention=cfg.fused_attention,
+                fused_block=cfg.fused_block,
+                fused_block_group=cfg.fused_block_group,
+                fused_block_long=cfg.fused_block_long,
+            )
     pooled = _layer_norm(x[:, 0], params["post_ln_scale"],
                          params["post_ln_bias"], cfg.layer_norm_epsilon)
     if project and "projection" in params:

@@ -12,7 +12,13 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
     mapper training;
   * the CLIP ViT ``split3`` block: ``fused_ln_qkv`` (:268-298),
     ``attention_core_oproj`` (:348-376) and ``fused_mlp_block``
-    (:419-459), kernels in ``csrc/vit_block.cu``.
+    (:419-459), kernels in ``csrc/vit_block.cu``;
+  * the CLIP ViT long-sequence attention ``attention_core`` (:203-232,
+    optional bf16 exp), kernel in ``csrc/vit_block.cu``;
+  * the int8 ViT long-sequence block: ``fused_qkv_q8`` (:559-593) and
+    ``fused_mlp_block_q8`` (:495-527), kernels in ``csrc/vit_block_q8.cu``,
+    with ``quantize_weight_i8`` (:690-699), the host quantizer of their
+    weights.
 
 Each source's note gives the design and the bound.
 
@@ -669,19 +675,23 @@ def fused_ln_qkv_plain(
     return q.to(x.dtype), proj(wk, bk).to(x.dtype), proj(wv, bv).to(x.dtype)
 
 
-def attention_core_oproj_plain(
-    residual: torch.Tensor,      # (B, L, D) the block's residual stream
+def attention_core_plain(
     q: torch.Tensor,             # (B, L, D) PRE-SCALED queries, heads on lanes
     k: torch.Tensor,
     v: torch.Tensor,
-    wo: torch.Tensor, bo: torch.Tensor,
     num_heads: int,
+    fast_exp: bool = False,
 ) -> torch.Tensor:
-    """residual + Attn(q, k, v) @ wo + bo in the Pallas kernel's order: fp32
-    scores, unnormalised probabilities cast to q's dtype, their fp32 sum,
-    PV divided after the product and staged in the output dtype, then the
-    out-projection (bf16 weights, fp32 accumulation), its bias and the fp32
-    residual, one cast at the end."""
+    """softmax(q k^T) v per head in the Pallas kernel's order: fp32 scores,
+    the unnormalised probabilities ``p = exp(s - max)`` cast to q's dtype
+    and their fp32 sum, PV in fp32 divided after the product, one cast to
+    q's dtype.
+
+    ``fast_exp`` takes the exponential of ``bf16(s - max)``. XLA evaluates
+    that bf16 exponential in fp32 and, allowed excess precision, rounds it
+    to bf16 only where a bf16 value is needed: the interpret-mode kernel
+    sums the unrounded fp32 exponentials and multiplies V by them cast to
+    q's dtype. So does this version."""
     batch, seq, width = q.shape
     head_dim = width // num_heads
 
@@ -690,10 +700,30 @@ def attention_core_oproj_plain(
             .float()
 
     s = torch.matmul(heads(q), heads(k).transpose(-1, -2))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(q.dtype)
-    denom = p.float().sum(dim=-1, keepdim=True)
-    o = (torch.matmul(p.float(), heads(v)) / denom).to(residual.dtype)
-    o = o.transpose(1, 2).reshape(batch, seq, width)
+    d = s - s.amax(dim=-1, keepdim=True)
+    if fast_exp:
+        e = torch.exp(d.to(torch.bfloat16).float())
+        p, denom = e.to(q.dtype), e.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp(d).to(q.dtype)
+        denom = p.float().sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.float(), heads(v)) / denom
+    return o.to(q.dtype).transpose(1, 2).reshape(batch, seq, width)
+
+
+def attention_core_oproj_plain(
+    residual: torch.Tensor,      # (B, L, D) the block's residual stream
+    q: torch.Tensor,             # (B, L, D) PRE-SCALED queries, heads on lanes
+    k: torch.Tensor,
+    v: torch.Tensor,
+    wo: torch.Tensor, bo: torch.Tensor,
+    num_heads: int,
+) -> torch.Tensor:
+    """residual + Attn(q, k, v) @ wo + bo in the Pallas kernel's order: the
+    attention as ``attention_core_plain`` computes it, staged in the output
+    dtype, then the out-projection (bf16 weights, fp32 accumulation), its
+    bias and the fp32 residual, one cast at the end."""
+    o = attention_core_plain(q, k, v, num_heads).to(residual.dtype)
     y = torch.matmul(o.to(q.dtype).float(), _bf16_operand(wo)) + bo.float()
     return (residual.float() + y).to(residual.dtype)
 
@@ -744,6 +774,25 @@ def vit_attention_max_len(head_dim: int) -> int:
     takes on the current card at this head size (its (32, L) fp32 score
     tile lives in shared memory); 0 for an unsupported head size."""
     return _kernel_max_len("vit_block", "vit_attention_max_len", head_dim)
+
+
+def _vit_head_dim(op: str, seq: int, d_model: int, num_heads: int) -> int:
+    """The head size, one the ViT attention kernel takes, at a sequence
+    length whose score tile fits the card's shared memory."""
+    if num_heads <= 0 or d_model % num_heads:
+        raise ValueError(
+            f"{op}: width {d_model} is not a multiple of {num_heads} heads")
+    head_dim = d_model // num_heads
+    if head_dim not in _SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{op}: head size {head_dim} is not one of "
+                         f"{_SUPPORTED_HEAD_DIMS}")
+    limit = vit_attention_max_len(head_dim)
+    if seq > limit:
+        raise ValueError(
+            f"{op}: sequence length {seq} exceeds {limit}, the longest whose "
+            f"score tile fits this card's shared memory at head size "
+            f"{head_dim}")
+    return head_dim
 
 
 def fused_ln_qkv(
@@ -815,19 +864,7 @@ def attention_core_oproj(
                   v=(v, q.shape), wo=(wo, (d_model, d_model)),
                   bo=(bo, (d_model,)))
     _check_vit_widths(op, D=d_model)
-    if num_heads <= 0 or d_model % num_heads:
-        raise ValueError(
-            f"{op}: width {d_model} is not a multiple of {num_heads} heads")
-    head_dim = d_model // num_heads
-    if head_dim not in _SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{op}: head size {head_dim} is not one of "
-                         f"{_SUPPORTED_HEAD_DIMS}")
-    limit = vit_attention_max_len(head_dim)
-    if seq > limit:
-        raise ValueError(
-            f"{op}: sequence length {seq} exceeds {limit}, the longest whose "
-            f"score tile fits this card's shared memory at head size "
-            f"{head_dim}")
+    head_dim = _vit_head_dim(op, seq, d_model, num_heads)
     dev = q.device
     # the attention output goes through device memory once, bf16
     attn = torch.empty_like(q)
@@ -887,3 +924,206 @@ def fused_mlp_block(
 fused_ln_qkv.launches = 0
 attention_core_oproj.launches = 0
 fused_mlp_block.launches = 0
+
+
+def attention_core(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    num_heads: int,
+    fast_exp: bool = False,
+) -> torch.Tensor:
+    """softmax(q k^T) v per head over pre-scaled q in the native (B, L, D)
+    layout (no bias, no mask), the exponential in bf16 with ``fast_exp``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``attention_core.launches``) or raise."""
+    op = "attention_core"
+    if q.device.type == "cpu":
+        return attention_core_plain(q, k, v, num_heads, fast_exp)
+    _check_tensors(op, q.device, dict(q=_BF16, k=_BF16, v=_BF16), q=q, k=k,
+                   v=v)
+    if q.dim() != 3:
+        raise ValueError(f"{op}: q is {tuple(q.shape)}, expected (B, L, D)")
+    batch, seq, d_model = q.shape
+    _check_shapes(op, k=(k, q.shape), v=(v, q.shape))
+    head_dim = _vit_head_dim(op, seq, d_model, num_heads)
+    out = torch.empty_like(q)
+    _run(op, _launcher_of("vit_block", op, 4, 5, 0),
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+         batch, seq, num_heads, head_dim, int(fast_exp),
+         torch.cuda.current_stream(q.device).cuda_stream)
+    attention_core.launches += 1
+    return out
+
+
+attention_core.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 CLIP ViT long-sequence block: the weight quantizer, plain versions and
+# the wrappers around csrc/vit_block_q8.cu
+# ---------------------------------------------------------------------------
+
+def quantize_weight_i8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 quantization of a (D_in, D_out)
+    weight, in fp32 on w's device: int8 codes and (D_out,) fp32 scales.
+
+    The JAX package runs this in numpy (host-side, once), where nothing
+    folds the division: the scale is ``max(amax, 1e-8) / 127.0`` and the
+    codes ``clip(round_half_even(w / scale), +-127)``, both true divisions.
+    The divisor 127 is a tensor here because PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal; so the codes and scales are
+    bit-equal to JAX's on either device."""
+    w = w.float()
+    amax = torch.clamp(w.abs().amax(dim=0), min=1e-8)
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def fused_qkv_q8_plain(
+    x: torch.Tensor,             # (B, L, D) pre-LN residual stream
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    w_qkv: torch.Tensor,         # int8 (D, 3D), q | k | v columns
+    s_qkv: torch.Tensor,         # fp32 (3D,) per-output-channel scales
+    b_qkv: torch.Tensor,         # (3D,)
+    scale: float,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(q * scale, k, v) in x.dtype: the fp32 LayerNorm ``h`` (never rounded
+    to bf16), one per-row quantization of it, one int8 product with the
+    concatenated weight, ``(acc * hs) * s + b``, q times the fp32 scale, one
+    cast at the end."""
+    batch, seq, d_model = x.shape
+    h = _ln_f32(x.reshape(-1, d_model).float(), ln_scale, ln_bias, eps)
+    qkv = _mm_q8_grouped([_row_quant_i8(h)], w_qkv, _as_group_scales(s_qkv)) \
+        + b_qkv.float()
+    q = qkv[:, :d_model] * scale
+    return tuple(t.reshape(batch, seq, d_model).to(x.dtype) for t in (
+        q, qkv[:, d_model:2 * d_model], qkv[:, 2 * d_model:]))
+
+
+def fused_mlp_block_q8_plain(
+    x: torch.Tensor,             # (B, L, D) pre-LN residual stream
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    w_fc: torch.Tensor, s_fc: torch.Tensor, b_fc: torch.Tensor,  # (D, F)
+    w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """x + MLP(LN(x)) with both products int8: the fp32 LayerNorm quantized
+    per row, ``hid = (acc * hs) * s_fc + b_fc``, fp32 quickGELU, the fp32
+    hidden requantized per row over its whole width, ``(acc * gs) * s_proj
+    + b_proj``, the fp32 residual, one cast at the end."""
+    d_model = x.shape[-1]
+    x32 = x.reshape(-1, d_model).float()
+    h = _ln_f32(x32, ln_scale, ln_bias, eps)
+    hid = _mm_q8_grouped([_row_quant_i8(h)], w_fc, _as_group_scales(s_fc)) \
+        + b_fc.float()
+    hid = hid * torch.sigmoid(QUICK_GELU_ALPHA * hid)
+    y = _mm_q8_grouped([_row_quant_i8(hid)], w_proj,
+                       _as_group_scales(s_proj)) + b_proj.float()
+    return (x32 + y).reshape(x.shape).to(x.dtype)
+
+
+def _check_vit_q8_product(op: str, name: str, w: torch.Tensor,
+                          s: torch.Tensor, k_dim: int) -> torch.Tensor:
+    """int8 (K, N) weights with (N,) or (1, N) scales in one contraction
+    group; returns the scales as (1, N)."""
+    s = _as_group_scales(s)
+    _check_q8_product(op, name, w, s, k_dim, 1)
+    return s
+
+
+def fused_qkv_q8(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    w_qkv: torch.Tensor, s_qkv: torch.Tensor, b_qkv: torch.Tensor,
+    scale: float,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LayerNorm + the concatenated int8 q | k | v product; returns (q *
+    scale, k, v), each (B, L, D) in x.dtype. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (``fused_qkv_q8.launches``) or
+    raise."""
+    op = "fused_qkv_q8"
+    if x.device.type == "cpu":
+        return fused_qkv_q8_plain(x, ln_scale, ln_bias, w_qkv, s_qkv, b_qkv,
+                                  scale, eps)
+    batch, seq, d_model = x.shape
+    s_qkv = _check_vit_q8_product(op, "w_qkv", w_qkv, s_qkv, d_model)
+    _check_tensors(op, x.device,
+                   dict(x=_BF16, ln_scale=_BF16, ln_bias=_BF16, w_qkv=_I8,
+                        s_qkv=_F32, b_qkv=_BF16),
+                   x=x, ln_scale=ln_scale, ln_bias=ln_bias, w_qkv=w_qkv,
+                   s_qkv=s_qkv, b_qkv=b_qkv)
+    vec = (d_model,)
+    _check_shapes(op, ln_scale=(ln_scale, vec), ln_bias=(ln_bias, vec),
+                  w_qkv=(w_qkv, (d_model, 3 * d_model)),
+                  b_qkv=(b_qkv, (3 * d_model,)))
+    _check_vit_widths(op, D=d_model)
+    rows, dev = batch * seq, x.device
+    codes = torch.empty((rows, d_model), dtype=_I8, device=dev)
+    row_scales = torch.empty((rows, 1), dtype=_F32, device=dev)
+    q, k, v = (torch.empty_like(x) for _ in range(3))
+    w_qkv = _k_major(w_qkv)
+    _run(op, _launcher_of("vit_block_q8", op, 11, 2, 2),
+         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+         w_qkv.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(),
+         codes.data_ptr(), row_scales.data_ptr(), q.data_ptr(), k.data_ptr(),
+         v.data_ptr(), rows, d_model, scale, eps,
+         torch.cuda.current_stream(dev).cuda_stream)
+    fused_qkv_q8.launches += 1
+    return q, k, v
+
+
+def fused_mlp_block_q8(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    w_fc: torch.Tensor, s_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """x + MLP(LN(x)) with quickGELU and both products int8. CPU tensors
+    take the plain version; CUDA tensors launch the kernel
+    (``fused_mlp_block_q8.launches``) or raise."""
+    op = "fused_mlp_block_q8"
+    if x.device.type == "cpu":
+        return fused_mlp_block_q8_plain(x, ln_scale, ln_bias, w_fc, s_fc,
+                                        b_fc, w_proj, s_proj, b_proj, eps)
+    batch, seq, d_model = x.shape
+    d_ff = w_fc.shape[-1]
+    s_fc = _check_vit_q8_product(op, "w_fc", w_fc, s_fc, d_model)
+    s_proj = _check_vit_q8_product(op, "w_proj", w_proj, s_proj, d_ff)
+    _check_tensors(op, x.device,
+                   dict(x=_BF16, ln_scale=_BF16, ln_bias=_BF16, w_fc=_I8,
+                        s_fc=_F32, b_fc=_BF16, w_proj=_I8, s_proj=_F32,
+                        b_proj=_BF16),
+                   x=x, ln_scale=ln_scale, ln_bias=ln_bias, w_fc=w_fc,
+                   s_fc=s_fc, b_fc=b_fc, w_proj=w_proj, s_proj=s_proj,
+                   b_proj=b_proj)
+    vec = (d_model,)
+    _check_shapes(op, ln_scale=(ln_scale, vec), ln_bias=(ln_bias, vec),
+                  b_fc=(b_fc, (d_ff,)), w_proj=(w_proj, (d_ff, d_model)),
+                  b_proj=(b_proj, vec))
+    _check_vit_widths(op, D=d_model, F=d_ff)
+    rows, dev = batch * seq, x.device
+    codes_in = torch.empty((rows, d_model), dtype=_I8, device=dev)
+    scales_in = torch.empty((rows, 1), dtype=_F32, device=dev)
+    # the fp32 quickGELU hidden goes through device memory once
+    hidden = torch.empty((rows, d_ff), dtype=_F32, device=dev)
+    codes_hid = torch.empty((rows, d_ff), dtype=_I8, device=dev)
+    scales_hid = torch.empty((rows, 1), dtype=_F32, device=dev)
+    out = torch.empty_like(x)
+    w_fc, w_proj = _k_major(w_fc), _k_major(w_proj)
+    _run(op, _launcher_of("vit_block_q8", op, 15, 3, 1),
+         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+         w_fc.data_ptr(), s_fc.data_ptr(), b_fc.data_ptr(),
+         w_proj.data_ptr(), s_proj.data_ptr(), b_proj.data_ptr(),
+         codes_in.data_ptr(), scales_in.data_ptr(), hidden.data_ptr(),
+         codes_hid.data_ptr(), scales_hid.data_ptr(), out.data_ptr(),
+         rows, d_model, d_ff, eps,
+         torch.cuda.current_stream(dev).cuda_stream)
+    fused_mlp_block_q8.launches += 1
+    return out
+
+
+fused_qkv_q8.launches = 0
+fused_mlp_block_q8.launches = 0

@@ -10,6 +10,7 @@ data-parallel encode over several cards comes with ROADMAP Queue 1 #14).
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
@@ -26,6 +27,7 @@ from ..models.clip import (
     clip_encode_text,
     init_clip_text_params,
     init_clip_vision_params,
+    quantize_vision_blocks,
 )
 
 logger = logging.getLogger(__name__)
@@ -76,7 +78,9 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
 
 class ClipImageEncoder:
     """Batched image encoder with a fixed batch size, on ``device`` (the
-    card unless the caller passes ``device="cpu"``)."""
+    card unless the caller passes ``device="cpu"``). ``int8`` quantizes the
+    blocks' projections once (``quantize_vision_blocks``, into a copy of
+    the caller's params dict) and runs the int8 blocks."""
 
     def __init__(
         self,
@@ -91,10 +95,6 @@ class ClipImageEncoder:
         device: DeviceLike = None,
     ):
         _check_mesh(mesh)
-        if int8:
-            raise NotImplementedError(
-                "int8 image encoding (quantize_vision_blocks and the int8 "
-                "ViT kernels) is not ported yet (ROADMAP Queue 2 #12 to #14)")
         self.cfg = cfg or CLIPVisionConfig.vit_l_14_336()
         self.device = resolve_device(device)
         self.batch_size = batch_size
@@ -110,6 +110,10 @@ class ClipImageEncoder:
             params = init_clip_vision_params(
                 make_generator(0, self.device), self.cfg, param_dtype)
         self.params = params
+        if int8:
+            self.params = dict(params)   # the caller's dict stays as it is
+            self.params["blocks_q8"] = quantize_vision_blocks(self.params)
+            self.cfg = dataclasses.replace(self.cfg, int8=True)
 
     def _try_load_hf(self, model_version: str,
                      param_dtype: torch.dtype) -> Optional[Dict]:

@@ -90,8 +90,8 @@ def main() -> None:
     )
     parser.add_argument(
         "--int8", action="store_true",
-        help="int8 bulk-extraction mode (not ported yet: ROADMAP Queue 2 "
-             "#12 to #14)",
+        help="int8 bulk-extraction mode: the blocks' projections "
+             "quantized per output channel, activations per row",
     )
     parser.add_argument(
         "--mesh_data", type=int, default=1,

@@ -4,24 +4,37 @@ shared-memory / spill report, run each once against its plain version, and
 time it.
 
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --int8-digests
 
 Shapes: ``fused_t5_ffn`` at M = 32 x 557 rows, D = 2048, F = 5120 (gated),
 with a SHA-256 of its bf16 output (the inputs come from a seeded generator,
-so two builds of the kernel can be compared bit for bit);
+so two builds of the kernel can be compared bit for bit); the same digests
+of the int8 T5 encoder kernels (``fused_t5_ln_qkv_q8``,
+``fused_oproj_residual_q8``, ``fused_t5_ffn_q8``) at M = 32 x 557 rows,
+D = inner = 2048, F = 5120, 8 contraction groups, with ``--int8-digests``
+alone (that part needs only what the port had before the ViT int8 kernels,
+so this file copied into an older tree digests that tree's build);
 ``cross_attention_decode`` on layer 7 of 24 stacked (32, 557, 2048) bf16
 caches; the CLIP ViT ``split3`` kernels (``fused_ln_qkv``,
-``attention_core_oproj``, ``fused_mlp_block``) at ViT-L/14@336 widths on 16
-images (L = 577, D = 1024, 16 heads, F = 4096). Prints one line per report
-and per kernel; ``chip_smoke.py`` makes the full measurement.
+``attention_core_oproj``, ``fused_mlp_block``) and the int8 path's
+(``fused_qkv_q8``, ``attention_core`` with and without ``fast_exp``,
+``fused_mlp_block_q8``, weights from ``quantize_vision_blocks``) at
+ViT-L/14@336 widths on 16 images (L = 577, D = 1024, 16 heads, F = 4096).
+Prints one line per report and per kernel; ``chip_smoke.py`` makes the full
+measurement.
 """
 
 from __future__ import annotations
 
 import hashlib
+import sys
 
 import torch
 
 from .. import kernels
+from ..models import clip
+from ..models.t5 import _quant_stacked_i8
 from ..ops import decode_attention as da
 from ..ops import fused_attention_block as fab
 
@@ -40,11 +53,49 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sha256_of(outs) -> str:
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for out in outs:
+        digest.update(out.view(torch.int16).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def int8_encoder_digests() -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def quant(k, n):
+        q, s = _quant_stacked_i8(randn(1, k, n, scale=k ** -0.5), 8)
+        return q[0], s[0]
+
+    rows, d_model, d_ff = 32 * 557, 2048, 5120
+    x = randn(1, rows, d_model, scale=2.0).bfloat16()
+    attn = randn(1, rows, d_model).bfloat16()
+    lnw = (1 + 0.1 * randn(d_model)).bfloat16()
+    qkv = [t for _ in range(3) for t in quant(d_model, d_model)]
+    o = quant(d_model, d_model)
+    ffn = [t for k, n in ((d_model, d_ff), (d_model, d_ff), (d_ff, d_model))
+           for t in quant(k, n)]
+    print("int8_encoder library", kernels.library_path("int8_encoder").name)
+    print("fused_t5_ln_qkv_q8 output sha256",
+          sha256_of(fab.fused_t5_ln_qkv_q8(x, lnw, *qkv)))
+    print("fused_oproj_residual_q8 output sha256",
+          sha256_of([fab.fused_oproj_residual_q8(x, attn, *o)]))
+    print("fused_t5_ffn_q8 output sha256",
+          sha256_of([fab.fused_t5_ffn_q8(x, lnw, *ffn)]), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: no CUDA device")
-    logs = kernels.build(["cross_attention_decode", "t5_ffn", "vit_block"],
-                         ptxas_verbose=True)
+    if "--int8-digests" in sys.argv[1:]:
+        int8_encoder_digests()
+        return
+    logs = kernels.build(["cross_attention_decode", "t5_ffn", "vit_block",
+                          "vit_block_q8"], ptxas_verbose=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -63,10 +114,7 @@ def main() -> None:
     wo = randn(d_ff, d_model, scale=d_ff ** -0.5)
     args = (x, lnw, wi_0, wi_1, wo)
     got = fab.fused_t5_ffn(*args)
-    torch.cuda.synchronize()
-    print("fused_t5_ffn output sha256",
-          hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes())
-          .hexdigest())
+    print("fused_t5_ffn output sha256", sha256_of([got]))
     got = got.float()
     want = fab.fused_t5_ffn_plain(*args).float()
     print(f"fused_t5_ffn M={rows}: rel err "
@@ -85,6 +133,7 @@ def main() -> None:
           f"{(got - want).abs().max().item()}, "
           f"{cuda_ms(lambda: da.cross_attention_decode(*args), 100)} ms")
     vit_probe(randn)
+    vit_q8_probe(randn)
 
 
 def vit_probe(randn) -> None:
@@ -106,6 +155,10 @@ def vit_probe(randn) -> None:
         "fused_mlp_block": (fab.fused_mlp_block, fab.fused_mlp_block_plain,
                             (x, ln_s, ln_b, w_fc, b_fc, w_pr, b_pr)),
     }
+    run_cases(cases, batch)
+
+
+def run_cases(cases: dict, batch: int) -> None:
     for name, (fn, plain, args) in cases.items():
         got, want = fn(*args), plain(*args)
         torch.cuda.synchronize()
@@ -117,6 +170,39 @@ def vit_probe(randn) -> None:
         print(f"{name} B={batch}: max abs err {err}, {differ} of "
               f"{sum(g.numel() for g in got)} elements differ, "
               f"{cuda_ms(lambda: fn(*args), 10)} ms")
+
+
+def vit_q8_probe(randn) -> None:
+    batch, cfg = 16, clip.CLIPVisionConfig.vit_l_14_336(num_layers=1)
+    seq, width, heads = cfg.seq_len, cfg.width, cfg.num_heads
+    d_ff = cfg.mlp_ratio * width
+    blocks = {name: randn(1, *shape, scale=shape[0] ** -0.5)
+              for name, shape in (("q", (width, width)), ("k", (width, width)),
+                                  ("v", (width, width)), ("o", (width, width)),
+                                  ("mlp_fc", (width, d_ff)),
+                                  ("mlp_proj", (d_ff, width)))}
+    q8 = clip.quantize_vision_blocks({"blocks": blocks})
+    x = randn(batch, seq, width)
+    ln_s, ln_b = 1 + randn(width, scale=0.1), randn(width, scale=0.1)
+    b_qkv, b_fc, b_pr = (randn(n, scale=0.1)
+                         for n in (3 * width, d_ff, width))
+    qkv_args = (x, ln_s, ln_b, q8["qkv"][0], q8["qkv_scale"][0], b_qkv,
+                (width // heads) ** -0.5)
+    q, k, v = fab.fused_qkv_q8(*qkv_args)
+    cases = {
+        "fused_qkv_q8": (fab.fused_qkv_q8, fab.fused_qkv_q8_plain, qkv_args),
+        "attention_core": (fab.attention_core, fab.attention_core_plain,
+                           (q, k, v, heads)),
+        "attention_core fast_exp": (
+            lambda *a: fab.attention_core(*a, fast_exp=True),
+            lambda *a: fab.attention_core_plain(*a, fast_exp=True),
+            (q, k, v, heads)),
+        "fused_mlp_block_q8": (
+            fab.fused_mlp_block_q8, fab.fused_mlp_block_q8_plain,
+            (x, ln_s, ln_b, q8["mlp_fc"][0], q8["mlp_fc_scale"][0], b_fc,
+             q8["mlp_proj"][0], q8["mlp_proj_scale"][0], b_pr)),
+    }
+    run_cases(cases, batch)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,10 @@
 params: the default path, fast_attention, the fused split3 path (Pallas in
 interpret mode on the JAX side, the kernels' plain versions on the port's),
 the text tower, and the branches whose kernels are not ported yet (the HF
-witness is in tests/test_torch_clip_tools.py, which builds it once)."""
+witness is in tests/test_torch_clip_tools.py, which builds it once; the
+long-sequence split* and fused_attention variants in
+tests/test_torch_clip_long.py; the int8 tower in
+tests/test_torch_clip_int8.py)."""
 
 import dataclasses
 
@@ -196,17 +199,11 @@ def test_encode_text_matches_jax():
 UNPORTED = [
     ("seq197", dict(fused_block=True, fused_block_long="whole"), "#7"),
     ("seq197", dict(fused_block=True, fused_block_long="whole_dd"), "#7"),
-    ("seq197", dict(fused_block=True, fused_block_long="split"), "#11"),
-    ("seq197", dict(fused_block=True, fused_block_long="split_c2"), "#11"),
-    ("seq197", dict(fused_block=True, fused_block_long="split_fe"), "#11"),
-    ("seq197", dict(fused_block=True, fused_block_long="split_c2fe"),
-     "#11"),
     ("small_test", dict(fused_block=True), "#7"),
     ("small_test", dict(fused_block=True, fused_block_long="whole_fe"),
      "#7"),
     ("small_test", dict(fused_attention=True), "#17"),
-    ("seq197", dict(fused_attention=True), "#11"),
-    ("small_test", dict(int8=True), "#12 to #14"),
+    ("small_test", dict(int8=True), "#12"),
 ]
 
 
@@ -216,6 +213,22 @@ UNPORTED = [
 def test_unported_branches_raise(towers, tower, kw, item):
     with pytest.raises(NotImplementedError, match=f"Queue 2 {item}"):
         encode_port(towers, tower, "float32", **kw)
+
+
+def test_unknown_long_variant_raises(towers):
+    """The JAX package runs any other fused_block_long above 128 tokens as
+    "split"; the port refuses it."""
+    with pytest.raises(ValueError, match="split_c2fe"):
+        encode_port(towers, "seq197", "float32", fused_block=True,
+                    fused_block_long="splt")
+
+
+def test_int8_without_blocks_q8_raises(towers):
+    """The JAX package silently runs the bf16 blocks when cfg.int8 is set
+    and the params hold no blocks_q8 (models/clip.py:497); the port
+    raises."""
+    with pytest.raises(ValueError, match="blocks_q8"):
+        encode_port(towers, "seq197", "float32", int8=True)
 
 
 def test_use_pallas_raises(towers):

@@ -1,9 +1,10 @@
 """The port's CLIP extraction tools against the JAX package's:
-preprocess_image bit-equal, ClipImageEncoder's padding and order, extract()
-of both packages on a few JPEGs (same keys, values, checkpoints), the
-refused options; and an HF CLIP built from a local config as a third
-witness of the CLIP towers, their converters and the encoders' loading of
-local HF weights (built once here, for the whole module)."""
+preprocess_image bit-equal, ClipImageEncoder's padding and order, the int8
+encoder, extract() of both packages on a few JPEGs (same keys, values,
+checkpoints; bf16 blocks and int8), the refused options; and an HF CLIP
+built from a local config as a third witness of the CLIP towers, their
+converters and the encoders' loading of local HF weights (built once here,
+for the whole module)."""
 
 import json
 import os
@@ -34,10 +35,16 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.tools import (  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import (  # noqa: E402
     extract_contrastive_image_embeddings as text_,
 )
+from test_torch_clip_int8 import (  # noqa: E402
+    IMAGE_SEED,
+    configs as seq197_configs,
+)
 
 # fp32 default path of both packages: the same ops, fp32 sums in another
 # order (tests/test_torch_clip.py)
 TOL = 1e-5
+# a code flipped at a .5 boundary moves an int8 embedding far less than this
+INT8_SAME_PATH_COSINE = 0.99999
 HF_TOL = 2e-4
 
 
@@ -49,6 +56,18 @@ def small():
         torch.Generator().manual_seed(3), tcfg, torch.float32))
     return (jclip.CLIPVisionConfig.small_test(), jax.tree.map(jnp.asarray, tree),
             tcfg, clip_vision_params_from_numpy(tree, torch.float32, "cpu"))
+
+
+@pytest.fixture(scope="module")
+def seq197():
+    """The int8 tower of tests/test_torch_clip_int8.py: 197-token configs of
+    both packages and one fp32 weight tree (the weights whose pinned batch
+    has no activation near a code boundary)."""
+    jcfg, tcfg = seq197_configs("float32")
+    tree = jax.tree.map(lambda t: t.numpy(), tclip.init_clip_vision_params(
+        torch.Generator().manual_seed(4), tcfg, torch.float32))
+    return (jcfg, jax.tree.map(jnp.asarray, tree), tcfg,
+            clip_vision_params_from_numpy(tree, torch.float32, "cpu"))
 
 
 IMAGES = {
@@ -100,11 +119,28 @@ def test_encoders_refuse_what_is_not_ported(small):
     _, _, tcfg, tp = small
     with pytest.raises(NotImplementedError, match="Queue 1 #14"):
         tenc.ClipImageEncoder(tcfg, tp, mesh=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2 #12 to #14"):
-        tenc.ClipImageEncoder(tcfg, tp, int8=True, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 #14"):
         tenc.ClipTextEncoder(tclip.CLIPTextConfig.small_test(), params={},
                              mesh=4, device="cpu")
+
+
+def test_int8_encoder_matches_jax(seq197):
+    """ClipImageEncoder(int8=True) quantizes into a copy of the caller's
+    dict, sets cfg.int8, and encodes the pinned batch (padded to the batch
+    size) as JAX's int8 encoder does."""
+    jcfg, jp, tcfg, tp = seq197
+    encoders = (jenc.ClipImageEncoder(jcfg, jp, batch_size=4, int8=True),
+                tenc.ClipImageEncoder(tcfg, tp, batch_size=4, int8=True,
+                                      device="cpu"))
+    assert "blocks_q8" not in jp and "blocks_q8" not in tp
+    assert encoders[1].cfg.int8 and not tcfg.int8
+    assert encoders[1].params["blocks"] is tp["blocks"]
+    assert encoders[1].params["blocks_q8"]["qkv"].dtype == torch.int8
+    images = np.random.default_rng(IMAGE_SEED).standard_normal(
+        (2, 28, 28, 3)).astype(np.float32)
+    want, got = (e.encode_batch(images) for e in encoders)
+    assert got.shape == (2, tcfg.projection_dim) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 def test_encoders_without_weights_draw_seed_0(monkeypatch, caplog):
@@ -162,7 +198,18 @@ def spy_checkpoints(encoder, out_path, seen):
 
 
 def test_extract_matches_jax(small, tmp_path):
-    jcfg, jp, tcfg, tp = small
+    assert_extract_matches_jax(*small, tmp_path, int8=False)
+
+
+def test_extract_int8_matches_jax(seq197, tmp_path):
+    """The int8 tower, each encoder built with int8=True as --int8 builds
+    it."""
+    assert_extract_matches_jax(*seq197, tmp_path, int8=True)
+
+
+def assert_extract_matches_jax(jcfg, jp, tcfg, tp, tmp_path, int8):
+    """extract() of both packages on the same JPEGs: the same keys, values
+    and checkpoints."""
     ids = [3, 11, 42, 7, 19]
     write_images(str(tmp_path), ids, "val2014")
     questions = [{"image_id": i, "question_id": n}
@@ -171,9 +218,10 @@ def test_extract_matches_jax(small, tmp_path):
     qfile.write_text(json.dumps({"questions": questions}))
     results, seen = {}, {}
     for name, module, encoder in (
-            ("jax", jext, jenc.ClipImageEncoder(jcfg, jp, batch_size=2)),
+            ("jax", jext, jenc.ClipImageEncoder(jcfg, jp, batch_size=2,
+                                                int8=int8)),
             ("port", text_, tenc.ClipImageEncoder(tcfg, tp, batch_size=2,
-                                                  device="cpu"))):
+                                                  int8=int8, device="cpu"))):
         out = tmp_path / f"{name}.pkl"
         seen[name] = []
         spy_checkpoints(encoder, str(out), seen[name])
@@ -186,7 +234,16 @@ def test_extract_matches_jax(small, tmp_path):
     for key, emb in want.items():
         assert got[key].shape == emb.shape == (1, tcfg.projection_dim)
         assert got[key].dtype == np.float32
-        np.testing.assert_allclose(got[key], emb, rtol=TOL, atol=TOL)
+        if int8:
+            # these JPEGs hold activations within an fp32 ulp of a .5 code
+            # boundary, where a code may round the other way: per-row
+            # cosine (test_int8_encoder_matches_jax holds a pinned batch
+            # clear of the boundaries to TOL)
+            a, b = got[key][0].astype(np.float64), emb[0].astype(np.float64)
+            assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) \
+                >= INT8_SAME_PATH_COSINE
+        else:
+            np.testing.assert_allclose(got[key], emb, rtol=TOL, atol=TOL)
     assert seen["port"] == seen["jax"] == [0, 0, 2, 2, 4]
 
 

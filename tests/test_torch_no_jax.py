@@ -38,7 +38,9 @@ def test_every_kernel_module_is_scanned():
     names = port_modules()
     for module in ("ops.decode_attention", "ops.fused_attention_block",
                    "models.t5", "kernels", "models.clip", "models.hf_convert",
-                   "tools.clip_encoder"):
+                   "tools.clip_encoder",
+                   "tools.extract_contrastive_image_embeddings",
+                   "tools.kernel_probe"):
         assert f"{PORT.name}.{module}" in names, module
 
 
