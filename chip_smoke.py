@@ -91,8 +91,34 @@ register / shared-memory / spill report):
              the fused and int8 paths' per-row cosines against the default
              path's; one split_fe encode at 2 layers (attention_core with
              fast_exp and fused_mlp_block, 2 launches each) against the
-             default path at that depth; and one ClipTextEncoder call at
+             default path at that depth; one whole and one whole_dd encode
+             at 2 layers (fused_vit_block, 2 launches each) against the
+             split3 path at that depth; and one ClipTextEncoder call at
              CLIPTextConfig width (B = 512, L = 77)
+  t5_quantizers
+             the T5 int8 weight quantizers (_quant_stacked_i8, and through
+             it quantize_encoder_ffn / _attn and quantize_decoder_step) at
+             T0-3B widths and 2 layers: the same codes and scales on the card
+             as on the CPU, bit for bit
+  vit_short_kernels
+             the ViT-B/32 whole-block kernels (fused_vit_block in its three
+             softmax orders, fused_vit_block_q8 on weights from
+             quantize_vision_blocks, fused_attention_block) against their
+             plain versions on 16 and on 1024 images (L = 50, D = 768, 12
+             heads, F = 3072), timed at 1024 beside the plain version, the
+             bound and a library yardstick (the unfused bf16 block;
+             torch._int_mm, GEMMs only; fp32 matmuls and
+             scaled_dot_product_attention)
+  clip_encode_b32
+             ClipImageEncoder at ViT-B/32 (12 layers), batch 1024, random
+             bf16 weights from a seed and random normalised images: the
+             default path, fused (fused_block with fast_attention and
+             fused_attention, as the JAX bench builds it: fused_vit_block),
+             int8 (fused_vit_block_q8) and fused_attention
+             (fused_attention_block), each called twice with 12 launches of
+             its kernel per call and none of the others', with images/s,
+             peak memory, the device's busy share, the calls in turns and
+             each path's per-row cosines against the default path's
 
 Then a line listing every kernel of the path with its launches and times,
 and last the line {"ok": true, "device": {...}}. Any failed check exits
@@ -146,6 +172,8 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import
     fused_mlp_block_q8_plain,
     fused_oproj_residual_q8,
     fused_oproj_residual_q8_plain,
+    fused_attention_block,
+    fused_attention_block_plain,
     fused_qkv_q8,
     fused_qkv_q8_plain,
     fused_t5_ffn,
@@ -154,6 +182,10 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import
     fused_t5_ffn_q8_plain,
     fused_t5_ln_qkv_q8,
     fused_t5_ln_qkv_q8_plain,
+    fused_vit_block,
+    fused_vit_block_plain,
+    fused_vit_block_q8,
+    fused_vit_block_q8_plain,
     t5_attention_core,
     t5_attention_core_plain,
 )
@@ -178,6 +210,7 @@ MAX_NEW_TOKENS = 20
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
+FP32_FLOP_PER_S = 67e12           # outside the tensor cores
 KERNEL_ATOL = KERNEL_RTOL = 8e-3   # one bf16 ulp of outputs below 2
 REFERENCE_REL_ERR = 2e-2           # a few bf16 roundings over 2 layers
 # int8 kernel against plain: two bf16 ulps, plus room for a rare activation
@@ -193,8 +226,10 @@ LAYOUT_REL_ERR = 1e-3
 VIT_CHECK_BATCH = 16               # images of the ragged-edge value check
 CLIP_BATCH = 256                   # the image encoder's batch
 CLIP_COSINE_FLOOR = 0.99           # fused or int8 against default, per row
-SPLIT_FE_LAYERS = 2                # depth of the split_fe encode
+SPLIT_FE_LAYERS = 2                # depth of the split_fe and whole encodes
 TEXT_BATCH = 512                   # ClipTextEncoder's batch
+B32_BATCH = 1024                   # the JAX bench's ViT-B/32 batch
+T5_QUANT_LAYERS = 2                # depth of the T5 quantizers' card = CPU check
 
 PORT_CSRC = "explicit_alignment_for_vqa_tasks_tpu_torch/csrc/"
 JAX_OPS = "explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py"
@@ -216,12 +251,16 @@ KERNELS = {
     "fused_qkv_q8": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":584"),
     "attention_core": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":225"),
     "fused_mlp_block_q8": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":516"),
+    "fused_vit_block": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":1398"),
+    "fused_vit_block_q8": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":810"),
+    "fused_attention_block": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":1452"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
                 fused_oproj_residual_q8, fused_t5_ffn_q8,
                 cross_attention_decode, fused_t5_ffn,
                 fused_ln_qkv, attention_core_oproj, fused_mlp_block,
-                fused_qkv_q8, attention_core, fused_mlp_block_q8)
+                fused_qkv_q8, attention_core, fused_mlp_block_q8,
+                fused_vit_block, fused_vit_block_q8, fused_attention_block)
 VIT_KERNELS = (fused_ln_qkv, attention_core_oproj, fused_mlp_block)
 VIT_Q8_KERNELS = (fused_qkv_q8, attention_core, fused_mlp_block_q8)
 
@@ -342,11 +381,17 @@ def phase_attention(gen: torch.Generator) -> dict:
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
+    return bound_mixed(bytes_moved, [(ops, ops_per_s)])
+
+
+def bound_mixed(bytes_moved: float, parts) -> dict:
+    """The least time for ``bytes_moved`` and the (operations, peak rate)
+    ``parts``, each part at its own type's peak, one after the other."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
+    ops_ms = sum(ops / ops_per_s for ops, ops_per_s in parts) * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes=bytes_moved, ops=ops)
+                bytes=bytes_moved, ops=sum(ops for ops, _ in parts))
 
 
 def compare_q8(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -366,6 +411,38 @@ def compare_q8(got: torch.Tensor, want: torch.Tensor) -> dict:
           f"int8 kernel outside {Q8_ELEMENT_TOL} x (|want| + rms(want))")
     return dict(max_abs_err=err.max().item(), rel_frobenius=rel,
                 beyond_one_ulp=(err > ulp).float().mean().item())
+
+
+def check_against_plain(name: str, fn, plain, args, batch: int,
+                        int8: bool = False) -> dict:
+    """The kernel against its plain version on the same inputs: each output
+    finite and within KERNEL_ATOL + KERNEL_RTOL |want| (int8 kernels:
+    compare_q8's rule); the largest error, the elements that differ."""
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    out = dict(max_abs_err=0.0, differing=0, elements=0)
+    for g, p in zip(got, want):
+        if int8:
+            out["rel_frobenius"] = max(out.get("rel_frobenius", 0.0),
+                                       compare_q8(g, p)["rel_frobenius"])
+        g, p = g.float(), p.float()
+        err = (g - p).abs()
+        check(bool(torch.isfinite(g).all()),
+              f"{name} at B={batch}: output not finite")
+        if not int8:
+            check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * p.abs()).all()),
+                  f"{name} at B={batch} outside atol/rtol 8e-3 of the "
+                  f"plain version (max abs err {err.max().item()})")
+        out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
+        out["differing"] += int((err > 0).sum())
+        out["elements"] += err.numel()
+        del g, p, err
+    del got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_int8_kernels(gen: torch.Generator) -> dict:
@@ -1043,37 +1120,14 @@ def phase_vit_kernels(gen: torch.Generator) -> dict:
             bytes=2 * act + 2 * width * d_ff * 2 + (3 * width + d_ff) * 2,
             ops=4 * rows * width * d_ff),
     }
-    def value_check(name, fn, plain, args, batch) -> dict:
-        got = fn(*args)
-        torch.cuda.synchronize()
-        want = plain(*args)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        max_abs_err, differing, total = 0.0, 0, 0
-        for g, p in zip(got, want):
-            g, p = g.float(), p.float()
-            err = (g - p).abs()
-            check(bool(torch.isfinite(g).all()),
-                  f"{name} at B={batch}: output not finite")
-            check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * p.abs()).all()),
-                  f"{name} at B={batch} outside atol/rtol 8e-3 of the plain "
-                  f"version (max abs err {err.max().item()})")
-            max_abs_err = max(max_abs_err, err.max().item())
-            differing += int((err > 0).sum())
-            total += err.numel()
-            del g, p, err
-        del got, want
-        torch.cuda.empty_cache()
-        return dict(max_abs_err=max_abs_err, differing=differing,
-                    elements=total)
-
     results = {}
     for name, case in cases.items():
         fn, plain = case["fn"], case["plain"]
         small, full = case["args"](VIT_CHECK_BATCH), case["args"](CLIP_BATCH)
         # B=16 covers a ragged last row tile; B=256 is the main path's shape
-        ragged = value_check(name, fn, plain, small, VIT_CHECK_BATCH)
-        main = value_check(name, fn, plain, full, CLIP_BATCH)
+        ragged = check_against_plain(name, fn, plain, small,
+                                     VIT_CHECK_BATCH)
+        main = check_against_plain(name, fn, plain, full, CLIP_BATCH)
         kernel_ms = cuda_ms(lambda: fn(*full), iters=10)
         plain_ms = cuda_ms(lambda: plain(*full), iters=2, warmup=1)
         library_ms = cuda_ms(lambda: case["library"](CLIP_BATCH), iters=10)
@@ -1183,41 +1237,13 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
             ops=2 * 2 * rows * width * d_ff, peak=INT8_OP_PER_S),
     }
 
-    def value_check(name, case, batch) -> dict:
-        args = case["args"](batch)
-        got = case["fn"](*args)
-        torch.cuda.synchronize()
-        want = case["plain"](*args)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        out = dict(max_abs_err=0.0, differing=0, elements=0)
-        for g, p in zip(got, want):
-            if case["int8"]:
-                errs = compare_q8(g, p)
-                out["rel_frobenius"] = max(out.get("rel_frobenius", 0.0),
-                                           errs["rel_frobenius"])
-            g, p = g.float(), p.float()
-            err = (g - p).abs()
-            check(bool(torch.isfinite(g).all()),
-                  f"{name} at B={batch}: output not finite")
-            if not case["int8"]:
-                check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * p.abs()).all()),
-                      f"{name} at B={batch} outside atol/rtol 8e-3 of the "
-                      f"plain version (max abs err {err.max().item()})")
-            out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
-            out["differing"] += int((err > 0).sum())
-            out["elements"] += err.numel()
-            del g, p, err
-        del got, want
-        torch.cuda.empty_cache()
-        return out
-
     results = {}
     for name, case in cases.items():
         # B=16 covers a ragged last row tile; B=256 is the main path's shape
-        ragged = value_check(name, case, VIT_CHECK_BATCH)
-        main = value_check(name, case, CLIP_BATCH)
         full = case["args"](CLIP_BATCH)
+        ragged, main = (check_against_plain(
+            name, case["fn"], case["plain"], case["args"](batch), batch,
+            case["int8"]) for batch in (VIT_CHECK_BATCH, CLIP_BATCH))
         kernel_ms = cuda_ms(lambda: case["fn"](*full), iters=10)
         plain_ms = cuda_ms(lambda: case["plain"](*full), iters=2, warmup=1)
         library_ms = cuda_ms(case["library"](), iters=10)
@@ -1233,6 +1259,202 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
              quantize_layer_s=quantize_s, **{
                  key: val for key, val in results[name].items()
                  if key != "ms"})
+    return results
+
+
+def flat_leaves(tree, prefix: str = ""):
+    """(path, tensor) for every leaf of a params tree."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from flat_leaves(val, f"{prefix}{key}/")
+        else:
+            yield prefix + key, val
+
+
+def phase_t5_quantizers(gen: torch.Generator) -> None:
+    """The T5 int8 weight quantizers at T0-3B widths and T5_QUANT_LAYERS
+    layers: _quant_stacked_i8 on random stacked weights in 8 groups, and
+    quantize_encoder_ffn / _attn and quantize_decoder_step on random
+    params, each on the card and on a CPU copy of its input; every code and
+    scale must be equal."""
+    cfg = t5_lib.T5Config.t0_3b(num_encoder_layers=T5_QUANT_LAYERS,
+                                num_decoder_layers=T5_QUANT_LAYERS)
+    params = t5_lib.init_t5_params(gen, cfg, torch.bfloat16)
+
+    def cpu_copy(tree):
+        return {key: cpu_copy(val) if isinstance(val, dict) else val.cpu()
+                for key, val in tree.items()}
+
+    w = torch.randn((T5_QUANT_LAYERS, cfg.d_model, cfg.d_ff), generator=gen,
+                    device=gen.device).mul_(cfg.d_model ** -0.5)
+    quantized = {"_quant_stacked_i8": (
+        dict(zip(("codes", "scales"), t5_lib._quant_stacked_i8(w, 8))),
+        dict(zip(("codes", "scales"),
+                 t5_lib._quant_stacked_i8(w.cpu(), 8))))}
+    on_cpu = cpu_copy(params)
+    for quantize in (t5_lib.quantize_encoder_ffn, t5_lib.quantize_encoder_attn,
+                     t5_lib.quantize_decoder_step):
+        quantized[quantize.__name__] = (quantize(params), quantize(on_cpu))
+    leaves = {}
+    for name, (card, host) in quantized.items():
+        card, host = dict(flat_leaves(card)), dict(flat_leaves(host))
+        check(card.keys() == host.keys(), f"{name}: other trees on the card")
+        q8 = [key for key in card if "q8" in key or name.startswith("_")]
+        differ = [key for key in q8 if not torch.equal(card[key].cpu(),
+                                                       host[key])]
+        check(not differ, f"{name} gives other codes or scales on the card "
+                          f"than on the CPU: {differ}")
+        leaves[name] = len(q8)
+    emit("t5_quantizers", layers=T5_QUANT_LAYERS, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, bit_equal_leaves=leaves)
+
+
+VIT_BLOCK_KEYS = ("ln1_scale", "ln1_bias", "q", "q_bias", "k", "k_bias", "v",
+                  "v_bias", "o", "o_bias", "ln2_scale", "ln2_bias", "mlp_fc",
+                  "mlp_fc_bias", "mlp_proj", "mlp_proj_bias")
+
+
+def phase_vit_short_kernels(gen: torch.Generator) -> dict:
+    """The ViT-B/32 whole-block kernels against their plain versions on
+    VIT_CHECK_BATCH and on B32_BATCH images (one layer of the tower's
+    seeded init weights, random LayerNorm parameters and biases; the int8
+    weights from quantize_vision_blocks), then timed at B32_BATCH beside the
+    plain version, the bound and a library yardstick."""
+    cfg = clip_lib.CLIPVisionConfig.vit_b_32(num_layers=1)
+    seq, width, heads = cfg.seq_len, cfg.width, cfg.num_heads
+    head_dim, d_ff = width // heads, cfg.mlp_ratio * width
+    dev = gen.device
+    eps = cfg.layer_norm_epsilon
+    layer = {name: leaf[0] for name, leaf in clip_lib.init_clip_vision_params(
+        gen, cfg, torch.bfloat16)["blocks"].items()}
+    for name, leaf in layer.items():
+        if name.endswith(("bias", "scale")):
+            base = 1.0 if name.endswith("scale") else 0.0
+            layer[name] = (base + 0.1 * torch.randn(
+                leaf.shape, generator=gen, device=dev)).bfloat16()
+    q8 = {name: leaf[0] for name, leaf in clip_lib.quantize_vision_blocks(
+        {"blocks": {n: layer[n][None] for n in (
+            "q", "k", "v", "o", "mlp_fc", "mlp_proj")}}).items()}
+    b_qkv = torch.cat([layer["q_bias"], layer["k_bias"], layer["v_bias"]])
+    w_qkv = torch.cat([layer["q"], layer["k"], layer["v"]], dim=1)
+    x = torch.randn((B32_BATCH, seq, width), generator=gen,
+                    device=dev).bfloat16()
+    block = [layer[n] for n in VIT_BLOCK_KEYS]
+    q8_block = (layer["ln1_scale"], layer["ln1_bias"], q8["qkv"],
+                q8["qkv_scale"], b_qkv, q8["o"], q8["o_scale"],
+                layer["o_bias"], layer["ln2_scale"], layer["ln2_bias"],
+                q8["mlp_fc"], q8["mlp_fc_scale"], layer["mlp_fc_bias"],
+                q8["mlp_proj"], q8["mlp_proj_scale"], layer["mlp_proj_bias"])
+    attn_args = [layer[n] for n in ("q", "q_bias", "k", "k_bias", "v",
+                                    "v_bias", "o", "o_bias")]
+    rows = B32_BATCH * seq
+    act = rows * width * 2                 # one bf16 (M, D) activation
+    f = torch.nn.functional
+
+    # yardsticks only: PyTorch calls computing the same functions
+    def lib_block():
+        # the unfused bf16 block: layer norms, cuBLAS matmuls, SDPA,
+        # quickGELU
+        x2 = x.view(-1, width)
+        h = f.layer_norm(x2, (width,), layer["ln1_scale"], layer["ln1_bias"],
+                         eps)
+        qkv = torch.addmm(b_qkv, h, w_qkv).view(B32_BATCH, seq, 3, heads,
+                                                head_dim)
+        o = f.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4))
+        r1 = x2 + torch.addmm(layer["o_bias"],
+                              o.transpose(1, 2).reshape(-1, width),
+                              layer["o"])
+        z = torch.addmm(layer["mlp_fc_bias"], f.layer_norm(
+            r1, (width,), layer["ln2_scale"], layer["ln2_bias"], eps),
+            layer["mlp_fc"])
+        return r1 + torch.addmm(layer["mlp_proj_bias"],
+                                z * torch.sigmoid(1.702 * z),
+                                layer["mlp_proj"])
+
+    def lib_int_mm():
+        # torch._int_mm of the four int8 products, GEMMs only, the weights
+        # column-major as cuBLASLt's int8 GEMM takes them (made before the
+        # timing)
+        pairs = [(torch.randint(-127, 128, (rows, w.shape[0]), generator=gen,
+                                device=dev, dtype=torch.int8),
+                  w.t().contiguous().t())
+                 for w in (q8["qkv"], q8["o"], q8["mlp_fc"], q8["mlp_proj"])]
+        return lambda: [torch._int_mm(a, w) for a, w in pairs]
+
+    def lib_f32():
+        # fp32 matmuls (TF32 off) and fp32 SDPA, on fp32 copies made before
+        # the timing
+        x32, wqkv32, wo32 = (t.float() for t in (x.view(-1, width), w_qkv,
+                                                 layer["o"]))
+        bqkv32, bo32 = b_qkv.float(), layer["o_bias"].float()
+
+        def run():
+            qkv = torch.addmm(bqkv32, x32, wqkv32).view(
+                B32_BATCH, seq, 3, heads, head_dim)
+            o = f.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4))
+            return torch.addmm(bo32, o.transpose(1, 2).reshape(-1, width),
+                               wo32)
+        return run
+
+    vecs = (4 * width + 4 * width + d_ff + width) * 2   # LNs and biases
+    weights = 4 * width * width + 2 * width * d_ff
+    attention_flops = 4 * B32_BATCH * seq * seq * width
+    block_bytes = 2 * act + weights * 2 + vecs
+    block_parts = [(2 * rows * weights + attention_flops, BF16_FLOP_PER_S)]
+    cases = {
+        f"fused_vit_block{suffix}": dict(
+            fn=lambda *a, kw=kw: fused_vit_block(*a, group=4, **kw),
+            plain=lambda *a, kw=kw: fused_vit_block_plain(*a, **kw),
+            args=lambda n: (x[:n], *block, heads), int8=False,
+            library=lambda: lib_block,
+            library_name="the unfused bf16 block: layer_norm, addmm, "
+                         "scaled_dot_product_attention, quickGELU",
+            bytes=block_bytes, parts=block_parts)
+        for suffix, kw in (("", {}), ("_deferred_div", {"deferred_div": True}),
+                           ("_fast_exp", {"fast_exp": True}))}
+    cases["fused_vit_block_q8"] = dict(
+        fn=lambda *a: fused_vit_block_q8(*a, group=4),
+        plain=fused_vit_block_q8_plain,
+        args=lambda n: (x[:n], *q8_block, heads), int8=True,
+        library=lib_int_mm,
+        library_name="torch._int_mm, GEMMs only, column-major weights",
+        bytes=2 * act + weights + (4 * width + d_ff + width) * 4 + vecs,
+        parts=[(2 * rows * weights, INT8_OP_PER_S),
+               (attention_flops, BF16_FLOP_PER_S)])
+    cases["fused_attention_block"] = dict(
+        fn=lambda *a: fused_attention_block(*a, group=4, block_diag=True),
+        plain=lambda *a: fused_attention_block_plain(*a, block_diag=True),
+        args=lambda n: (x[:n], *attn_args, heads), int8=False,
+        library=lib_f32,
+        library_name="fp32 addmm (TF32 off) and fp32 "
+                     "scaled_dot_product_attention",
+        bytes=2 * act + 4 * width * width * 2 + 4 * width * 2,
+        # this route: bf16 q, k, v; fp32 attention on the CUDA cores; the
+        # out-projection as three bf16 products over the split fp32 input
+        parts=[(2 * rows * 3 * width * width, BF16_FLOP_PER_S),
+               (attention_flops, FP32_FLOP_PER_S),
+               (3 * 2 * rows * width * width, BF16_FLOP_PER_S)])
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain versions must multiply in fp32")
+    results = {}
+    for name, case in cases.items():
+        full = case["args"](B32_BATCH)
+        ragged, main = (check_against_plain(
+            name, case["fn"], case["plain"], case["args"](batch), batch,
+            case["int8"]) for batch in (VIT_CHECK_BATCH, B32_BATCH))
+        kernel_ms = cuda_ms(lambda: case["fn"](*full), iters=10)
+        plain_ms = cuda_ms(lambda: case["plain"](*full), iters=2, warmup=1)
+        library_ms = cuda_ms(case["library"](), iters=10)
+        torch.cuda.empty_cache()
+        results[name] = dict(
+            shape=dict(B=B32_BATCH, L=seq, D=width, H=heads, F=d_ff, G=4),
+            **main, **{f"b{VIT_CHECK_BATCH}_{key}": val
+                       for key, val in ragged.items()},
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library=case["library_name"],
+            **bound_mixed(case["bytes"], case["parts"]))
+        emit("vit_short_kernels", kernel=name, kernel_ms=kernel_ms, **{
+            key: val for key, val in results[name].items() if key != "ms"})
     return results
 
 
@@ -1259,47 +1481,99 @@ def row_cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                               * np.linalg.norm(b, axis=-1))
 
 
-def phase_clip_split_fe(gen: torch.Generator, cfg, params, images) -> None:
-    """One split_fe encode at SPLIT_FE_LAYERS layers (attention_core with
-    fast_exp, then fused_mlp_block), against the default path at that
-    depth on the same weights and images."""
+def phase_clip_variants(gen: torch.Generator, cfg, params, images,
+                        phase: str, reference: tuple, variants: dict) -> None:
+    """One encode at SPLIT_FE_LAYERS layers of each of ``variants`` (name
+    -> (config, expected launches)) against ``reference`` (name, config,
+    expected launches) at that depth, on the same weights and images."""
     dev = gen.device
-    depth = dataclasses.replace(cfg, num_layers=SPLIT_FE_LAYERS)
     shallow = dict(params)
     shallow["blocks"] = {key: leaf[:SPLIT_FE_LAYERS]
                          for key, leaf in params["blocks"].items()}
-    paths = {
-        "default": (depth, launches()),
-        "split_fe": (dataclasses.replace(depth, fused_block=True,
-                                         fused_block_long="split_fe"),
-                     launches(attention_core=SPLIT_FE_LAYERS,
-                              fused_mlp_block=SPLIT_FE_LAYERS)),
-    }
+    ref_name, ref_cfg, ref_launches = reference
+    paths = {ref_name: (ref_cfg, ref_launches), **variants}
     outs, runs = {}, {}
     for name, (path_cfg, expected) in paths.items():
         encoder = ClipImageEncoder(path_cfg, shallow, batch_size=CLIP_BATCH,
                                    device=dev)
         outs[name], runs[name] = encode_with_counts(
-            encoder, images, expected, f"clip_split_fe {name}")
-    cosine = row_cosine(outs["split_fe"], outs["default"])
-    check(bool(np.isfinite(outs["split_fe"]).all()),
-          "split_fe embeddings not finite")
-    check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
-          f"split_fe embeddings' cosine to the default path's "
-          f"{cosine.min()} < {CLIP_COSINE_FLOOR}")
-    emit("clip_split_fe", layers=SPLIT_FE_LAYERS, batch=CLIP_BATCH,
-         cosine_min=float(cosine.min()), cosine_mean=float(cosine.mean()),
-         floor=CLIP_COSINE_FLOOR,
+            encoder, images, expected, f"{phase} {name}")
+    cosines = {}
+    for name in variants:
+        cosine = row_cosine(outs[name], outs[ref_name])
+        check(bool(np.isfinite(outs[name]).all()),
+              f"{name} embeddings not finite")
+        check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
+              f"{name} embeddings' cosine to the {ref_name} path's "
+              f"{cosine.min()} < {CLIP_COSINE_FLOOR}")
+        cosines[name] = dict(min=float(cosine.min()),
+                             mean=float(cosine.mean()))
+    emit(phase, layers=SPLIT_FE_LAYERS, batch=CLIP_BATCH, reference=ref_name,
+         cosine=cosines, floor=CLIP_COSINE_FLOOR,
          launches={name: run["launches"] for name, run in runs.items()},
          wall_s={name: run["wall_s"] for name, run in runs.items()})
 
 
+def encode_paths(phase: str, encoders: dict, per_call: dict, images,
+                 num_layers: int) -> dict:
+    """Each encoder (name -> ClipImageEncoder; "default" first) called twice
+    with the kernel counts set to 0 before each call and read after it
+    (``per_call[name]``'s kernels num_layers times, the others never), then
+    its busy share; the other paths' per-row cosines to the default path's;
+    and the calls in turns."""
+    batch = images.shape[0]
+    results, outs = {}, {}
+    for name, encoder in encoders.items():
+        want = launches(**{fn.__name__: num_layers
+                           for fn in per_call[name]})
+        runs = []
+        for _ in range(2):
+            out, run = encode_with_counts(encoder, images, want,
+                                          f"{phase} {name}")
+            runs.append(run)
+        check(out.shape == (batch, encoder.cfg.projection_dim),
+              f"{phase} {name}: embeddings {out.shape}")
+        check(bool(np.isfinite(out).all()),
+              f"{phase} {name}: embeddings not finite")
+        outs[name] = out
+        wall = runs[-1]["wall_s"]
+        results[name] = dict(
+            wall_s=wall, first_wall_s=runs[0]["wall_s"],
+            images_per_s=batch / wall,
+            peak_mem_gb=runs[-1]["peak_bytes"] / 1e9,
+            launches_per_call=[r["launches"] for r in runs],
+            **device_busy(lambda: encoder.encode_batch(images), wall, top=6))
+        emit(phase, path=name, batch=batch, seq=encoder.cfg.seq_len,
+             **results[name])
+    cosines = {}
+    for name in encoders:
+        if name == "default":
+            continue
+        cosine = row_cosine(outs[name], outs["default"])
+        check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
+              f"{phase} {name} embeddings' cosine to the default path's "
+              f"{cosine.min()} < {CLIP_COSINE_FLOOR}")
+        cosines[name] = dict(min=float(cosine.min()),
+                             mean=float(cosine.mean()))
+    turns = {name: [] for name in encoders}
+    order = list(encoders)
+    for name in order + order[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encoders[name].encode_batch(images)
+        turns[name].append(time.perf_counter() - t0)
+    emit(phase + "_vs_default", cosine=cosines, floor=CLIP_COSINE_FLOOR,
+         encode_s_in_turns=turns,
+         images_per_s_in_turns={k: [batch / t for t in v]
+                                for k, v in turns.items()})
+    return results
+
+
 def phase_clip_encode(gen: torch.Generator) -> dict:
     """ClipImageEncoder at ViT-L/14@336, the default path, fused_block and
-    int8 on the same weights and images, each called twice with the kernel
-    counts set to 0 before each call and read after it; then the calls in
-    turns, the busy share, the fused and int8 paths' cosines to the default
-    path; one split_fe encode at 2 layers; and one ClipTextEncoder call."""
+    int8 on the same weights and images (encode_paths); one split_fe encode
+    and one whole and one whole_dd encode at 2 layers; and one
+    ClipTextEncoder call."""
     dev = gen.device
     cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
     params = clip_lib.init_clip_vision_params(gen, cfg, torch.bfloat16)
@@ -1320,53 +1594,29 @@ def phase_clip_encode(gen: torch.Generator) -> dict:
           "not set cfg.int8")
     images = torch.randn((CLIP_BATCH, cfg.image_size, cfg.image_size, 3),
                          generator=gen, device=dev).bfloat16()
-    per_call = {"default": (), "fused": VIT_KERNELS, "int8": VIT_Q8_KERNELS}
-    results, outs = {}, {}
-    for name, encoder in encoders.items():
-        want = launches(**{fn.__name__: cfg.num_layers
-                           for fn in per_call[name]})
-        runs = []
-        for _ in range(2):
-            out, run = encode_with_counts(encoder, images, want,
-                                          f"clip_encode {name}")
-            runs.append(run)
-        check(out.shape == (CLIP_BATCH, cfg.projection_dim),
-              f"clip_encode {name}: embeddings {out.shape}")
-        check(bool(np.isfinite(out).all()),
-              f"clip_encode {name}: embeddings not finite")
-        outs[name] = out
-        wall = runs[-1]["wall_s"]
-        results[name] = dict(
-            wall_s=wall, first_wall_s=runs[0]["wall_s"],
-            images_per_s=CLIP_BATCH / wall,
-            peak_mem_gb=runs[-1]["peak_bytes"] / 1e9,
-            launches_per_call=[r["launches"] for r in runs],
-            **device_busy(lambda: encoder.encode_batch(images), wall, top=6))
-        if name == "int8":
-            results[name]["quantize_s"] = quantize_s
-        emit("clip_encode", path=name, batch=CLIP_BATCH, seq=cfg.seq_len,
-             **results[name])
-    cosines = {}
-    for name in ("fused", "int8"):
-        cosine = row_cosine(outs[name], outs["default"])
-        check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
-              f"{name} embeddings' cosine to the default path's "
-              f"{cosine.min()} < {CLIP_COSINE_FLOOR}")
-        cosines[name] = dict(min=float(cosine.min()),
-                             mean=float(cosine.mean()))
-    turns = {name: [] for name in encoders}
-    for name in ("default", "fused", "int8", "int8", "fused", "default"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        encoders[name].encode_batch(images)
-        turns[name].append(time.perf_counter() - t0)
-    emit("clip_vs_default", cosine=cosines, floor=CLIP_COSINE_FLOOR,
-         encode_s_in_turns=turns,
-         images_per_s_in_turns={k: [CLIP_BATCH / t for t in v]
-                                for k, v in turns.items()})
+    results = encode_paths(
+        "clip_encode", encoders,
+        {"default": (), "fused": VIT_KERNELS, "int8": VIT_Q8_KERNELS},
+        images, cfg.num_layers)
+    results["int8"]["quantize_s"] = quantize_s
+    emit("clip_int8_quantize", seconds=quantize_s)
     del encoders
     torch.cuda.empty_cache()
-    phase_clip_split_fe(gen, cfg, params, images)
+    depth = dataclasses.replace(cfg, num_layers=SPLIT_FE_LAYERS)
+    n = SPLIT_FE_LAYERS
+    phase_clip_variants(
+        gen, cfg, params, images, "clip_split_fe",
+        ("default", depth, launches()),
+        {"split_fe": (dataclasses.replace(depth, fused_block=True,
+                                          fused_block_long="split_fe"),
+                      launches(attention_core=n, fused_mlp_block=n))})
+    split3 = dataclasses.replace(depth, fused_block=True)
+    phase_clip_variants(
+        gen, cfg, params, images, "clip_whole",
+        ("split3", split3, launches(**{fn.__name__: n for fn in VIT_KERNELS})),
+        {name: (dataclasses.replace(split3, fused_block_long=name),
+                launches(fused_vit_block=n))
+         for name in ("whole", "whole_dd")})
     del params, images
     torch.cuda.empty_cache()
 
@@ -1391,6 +1641,46 @@ def phase_clip_encode(gen: torch.Generator) -> dict:
           "text embeddings not finite or of the wrong shape")
     emit("clip_text", batch=TEXT_BATCH, length=text_cfg.context_length,
          wall_s=text_s, texts_per_s=TEXT_BATCH / text_s)
+    return results
+
+
+def phase_clip_encode_b32(gen: torch.Generator) -> dict:
+    """ClipImageEncoder at ViT-B/32 (12 layers) on B32_BATCH images: the
+    default path, fused (the JAX bench's configuration), int8 and
+    fused_attention on the same weights and images (encode_paths)."""
+    dev = gen.device
+    cfg = clip_lib.CLIPVisionConfig.vit_b_32()
+    params = clip_lib.init_clip_vision_params(gen, cfg, torch.bfloat16)
+    bench = dataclasses.replace(cfg, fast_attention=True,
+                                fused_attention=True, fused_block=True)
+    encoders = {
+        "default": ClipImageEncoder(cfg, params, batch_size=B32_BATCH,
+                                    device=dev),
+        "fused": ClipImageEncoder(bench, params, batch_size=B32_BATCH,
+                                  device=dev),
+    }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encoders["int8"] = ClipImageEncoder(cfg, params, batch_size=B32_BATCH,
+                                        int8=True, device=dev)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    check("blocks_q8" not in params and encoders["int8"].cfg.int8,
+          "ClipImageEncoder(int8=True) changed the caller's params or did "
+          "not set cfg.int8")
+    encoders["fused_attention"] = ClipImageEncoder(
+        dataclasses.replace(cfg, fused_attention=True), params,
+        batch_size=B32_BATCH, device=dev)
+    images = torch.randn((B32_BATCH, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device=dev).bfloat16()
+    results = encode_paths(
+        "clip_encode_b32", encoders,
+        {"default": (), "fused": (fused_vit_block,),
+         "int8": (fused_vit_block_q8,),
+         "fused_attention": (fused_attention_block,)},
+        images, cfg.num_layers)
+    results["int8"]["quantize_s"] = quantize_s
+    emit("clip_b32_int8_quantize", seconds=quantize_s)
     return results
 
 
@@ -1453,6 +1743,12 @@ def main() -> int:
     vit_q8_kernels = phase_vit_q8_kernels(gen)
     torch.cuda.empty_cache()
     clip_encode = phase_clip_encode(gen)
+    torch.cuda.empty_cache()
+    phase_t5_quantizers(gen)
+    torch.cuda.empty_cache()
+    vit_short = phase_vit_short_kernels(gen)
+    torch.cuda.empty_cache()
+    clip_b32 = phase_clip_encode_b32(gen)
 
     measured = {
         "t5_attention_core": (attention, generate),
@@ -1464,6 +1760,11 @@ def main() -> int:
         **{name: (vit_q8_kernels[name], clip_encode["int8"])
            for name in ("fused_qkv_q8", "attention_core",
                         "fused_mlp_block_q8")},
+        "fused_vit_block": (vit_short["fused_vit_block"], clip_b32["fused"]),
+        "fused_vit_block_q8": (vit_short["fused_vit_block_q8"],
+                               clip_b32["int8"]),
+        "fused_attention_block": (vit_short["fused_attention_block"],
+                                  clip_b32["fused_attention"]),
     }
     lines = []
     for name, (res, run) in measured.items():

@@ -1,16 +1,20 @@
-// The CLIP ViT encoder block of the long-sequence "split3" path, for NVIDIA
-// Hopper (sm_90a).
+// The CLIP ViT encoder blocks in bf16, for NVIDIA Hopper (sm_90a).
 //
-// Replaces four Pallas kernels of
+// Replaces six Pallas kernels of
 // explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py: the
-// three programs of models/clip.py's split3 branch (:201-235)
-//   fused_ln_qkv          pallas_call at :290, body :235-262
-//   attention_core_oproj  pallas_call at :366, body :301-342
-//   fused_mlp_block       pallas_call at :445, body :379-413
-// and the attention of the long split*, fused_attention and int8 branches
-//   attention_core        pallas_call at :225, body :161-200
-// It computes, in the Pallas kernels' order of rounding (activations,
-// weights and outputs bf16; x (M, D) with M = B L rows):
+// three programs of models/clip.py's long-sequence split3 branch (:201-235)
+//   fused_ln_qkv           pallas_call at :290, body :235-262
+//   attention_core_oproj   pallas_call at :366, body :301-342
+//   fused_mlp_block        pallas_call at :445, body :379-413
+// the attention of the long split*, fused_attention and int8 branches
+//   attention_core         pallas_call at :225, body :161-200
+// the whole block of the short fused_block branch (:273-291) and of the long
+// whole / whole_dd variants (:182-199)
+//   fused_vit_block        pallas_call at :1398, body :1237-1346
+// and the attention half of the short fused_attention branch (:295-309)
+//   fused_attention_block  pallas_call at :1452, body :108-158 (block_diag)
+// It computes, in the Pallas kernels' order of rounding (x (M, D) with M = B L
+// rows; activations, weights and outputs bf16):
 //
 //   fused_ln_qkv
 //     h   = bf16(LN(x))      fp32: mean m, then var = mean((x - m)^2), then
@@ -18,14 +22,7 @@
 //     q   = bf16(((h . wq) + bq) * scale)   products accumulated in fp32,
 //     k   = bf16((h . wk) + bk)             then the bias, then the scale
 //     v   = bf16((h . wv) + bv)
-//   attention_core, per image and head (q pre-scaled, no bias, no mask)
-//     s   = q . k^T          fp32
-//     p   = bf16(exp(s - rowmax(s)))        unnormalised
-//     o   = bf16((p . v) / sum(float(p)))   the division after PV
-//     with fast_exp: e = exp(float(bf16(s - rowmax(s)))) in fp32,
-//     p = bf16(e), o = bf16((p . v) / sum(e)) (the interpret-mode Pallas
-//     kernel's rounding: XLA rounds the bf16 exponential only where a bf16
-//     operand needs it)
+//   attention_core: vit_attention.cuh's kBf16Sum (kFastExp with fast_exp)
 //   attention_core_oproj
 //     o   = attention_core(q, k, v)
 //     out = bf16(res + ((o . wo) + bo))
@@ -34,6 +31,20 @@
 //     z   = (h . w_fc) + b_fc
 //     hid = bf16(z * (1 / (1 + exp(-(1.702 z)))))   quickGELU
 //     out = bf16(x + ((hid . w_proj) + b_proj))
+//   fused_vit_block
+//     q, k, v = fused_ln_qkv(x)            (the Pallas kernel keeps them fp32
+//                                           and casts them to bf16 where used)
+//     o   = bf16(attention)  vit_attention.cuh's kNormalised by default,
+//                            kDeferredDiv with deferred_div, kFastExp with
+//                            fast_exp
+//     r1  = x + ((o . wo) + bo)            fp32, never rounded
+//     h2  = bf16(LN2(r1))                  the LayerNorm of the fp32 r1
+//     hid = bf16(quickGELU((h2 . w_fc) + b_fc))
+//     out = bf16(r1 + ((hid . w_proj) + b_proj))
+//   fused_attention_block (block_diag), everything fp32 after the upcast:
+//     q   = ((x . wq) + bq) * scale, k = (x . wk) + bk, v = (x . wv) + bv
+//     p   = e / sum(e), e = exp(s - max), s = q . k^T   per image and head
+//     out = bf16(((p . v) . wo) + bo)      (the caller adds the residual)
 //
 // Every multiply and add of the fp32 epilogues and norms is written with
 // __fmul_rn / __fadd_rn / __fsub_rn so that nvcc cannot contract them into
@@ -41,60 +52,80 @@
 // divisions are correctly rounded and the exponentials are expf (the build
 // has no --use_fast_math).
 //
-// What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at
-// ViT-L/14@336 with the image encoder's batch of 256 (M = 256 x 577 =
-// 147,712 rows, D = 1024, 16 heads of 64, F = 4096), each input read once and
-// each output written once:
+// What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 67 TFLOP/s fp32 on
+// the CUDA cores, 3.35 TB/s), each input read once and each output written
+// once. At ViT-L/14@336 with the image encoder's batch of 256 (M = 256 x 577
+// = 147,712 rows, D = 1024, 16 heads of 64, F = 4096):
 //   fused_ln_qkv          929.3 GFLOP = 0.940 ms; 1.22 GB = 0.36 ms
 //   attention_core_oproj  658.9 GFLOP = 0.666 ms; 1.51 GB = 0.45 ms
 //   attention_core        349.1 GFLOP = 0.353 ms; 1.21 GB = 0.361 ms
 //   fused_mlp_block       2,478 GFLOP = 2.506 ms; 0.62 GB = 0.19 ms
-// The split3 three are bound by operations, attention_core by bytes; the
-// encoder runs each of its kernels once per layer.
+// At ViT-B/32 with the bench's batch of 1024 (M = 1024 x 50 = 51,200 rows,
+// D = 768, 12 heads of 64, F = 3072):
+//   fused_vit_block       724.8 GFLOP of projections + 7.9 of attention =
+//                         0.741 ms; 171 MB = 0.051 ms
+//   fused_attention_block 181.2 GFLOP of q, k, v (bf16 operands) = 0.183
+//                         ms, 7.9 GFLOP of fp32 attention on the CUDA cores
+//                         = 0.117 ms and the out-projection as 3 x 60.4
+//                         GFLOP of bf16 products (below) = 0.183 ms: 0.484
+//                         ms for this route (1.20 ms with the out-projection
+//                         on the CUDA cores); 162 MB = 0.048 ms
+// All are bound by operations but attention_core, bound by bytes; the
+// encoders run each of their kernels once per layer.
 //
 // Design (simple and right before fast). A Pallas program keeps one image's
-// LN output, scores and quickGELU hidden in VMEM; here each function is a
-// short pipeline of kernels whose intermediates make one round trip through
-// device memory:
-//   layer_norm: one block per row writes h in bf16 (302.5 MB at the main
-//     shape), its fp32 row in shared memory, both sums block reductions.
+// LN output, scores and quickGELU hidden (fused_vit_block: a group's whole
+// block) in VMEM; no SM holds a ViT-B block's 14.2 MB of weights, so here
+// each function is a short pipeline of kernels whose intermediates make one
+// round trip through device memory:
+//   layer_norm: one block per row (of bf16 x, or of fp32 r1) writes h in
+//     bf16, its fp32 row in shared memory, both sums block reductions.
 //   gemm: bf16_gemm.cuh's 128 x 128 mma.sync main loop with the epilogue of
 //     the stage. Bias then scale for q, k and v: blockIdx.z picks the
 //     weight, bias, output and scale, so the three (D, D) weights need no
-//     concatenation and one launch covers them. Bias then quickGELU for the
-//     MLP's up product (the bf16 hid, 1.21 GB). Bias then residual for the
-//     out-projection and the MLP's down product.
-//   attention: t5_attention_core.cu's design without the position bias and
-//     the key mask. One block of eight warps per (32 query rows, head,
-//     image), query tiles fastest so that the blocks of one (image, head)
-//     run together and share its K and V in L2. The block keeps the whole
-//     fp32 score row of its tile in shared memory (73.9 KB at L = 577), so
-//     the softmax takes the max, the bf16-rounded exp, the sum and then PV
-//     in the Pallas kernel's order; the bf16 probabilities overwrite the
-//     scores in place. Both products run on the tensor cores through WMMA.
-//     It writes o in bf16 into a (B, L, D) buffer with the heads on the
-//     lanes (302.5 MB), which the out-projection GEMM reads.
+//     concatenation and one launch covers them (bf16 outputs, fp32 ones for
+//     fused_attention_block). Bias then quickGELU for the MLP's up product.
+//     Bias then residual for the out-projection and the MLP's down product;
+//     fused_vit_block's out-projection writes the fp32 r1 and its down
+//     product adds it.
+//   attention: vit_attention.cuh, in the softmax order of the function.
+//   fused_attention_block's attention has fp32 operands, where TF32 tensor
+//     cores would not hold the fp32 result: it runs on the CUDA cores in
+//     fp32 (fmaf), one block of eight warps per (head, image) with the
+//     image's K and V in shared memory, a warp per query row. Its output
+//     goes out as three bf16 planes, hi = bf16(o), mid = bf16(o - hi), lo =
+//     bf16(o - hi - mid), whose sum is o exactly; the out-projection is then
+//     one bf16 GEMM over (M, 3 D) . (3 D, D) with wo stacked three times,
+//     every product exact in fp32, so it differs from fp32 FFMA only in the
+//     order of the sums. The planes lie lo | mid | hi along K, smallest
+//     first: the tensor cores align each product to the running sum and
+//     truncate, so lo's products summed after hi's are lost (on an H100,
+//     with hi first, 0.13 % of the bf16 outputs were an ulp off the fp32
+//     plain version's; in this order 0.075 %).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
 
 #include "bf16_gemm.cuh"
-
-using namespace nvcuda;
+#include "vit_attention.cuh"
 
 namespace {
 
 using namespace bf16_gemm;
+using vit_attention::attention_dh;
+
+__device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ inline float to_f32(float v) { return v; }
 
 // ---- layer norm -----------------------------------------------------------
 
-// One block per row of x (D wide): h = bf16(LN(x) * s + b)
+// One block per row of x (D wide, T = bf16 or float): h = bf16(LN(x) * s + b)
+template <typename T>
 __global__ void __launch_bounds__(NT)
-layer_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
+layer_norm_kernel(const T* __restrict__ x, const bf16* __restrict__ scale,
                   const bf16* __restrict__ bias, bf16* __restrict__ h, int D,
                   float eps) {
   extern __shared__ float row[];  // D floats
@@ -103,7 +134,7 @@ layer_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
   const float width = static_cast<float>(D);
   float s = 0.0f;
   for (int i = threadIdx.x; i < D; i += NT) {
-    const float v = __bfloat162float(x[off + i]);
+    const float v = to_f32(x[off + i]);
     row[i] = v;
     s = __fadd_rn(s, v);
   }
@@ -123,10 +154,11 @@ layer_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
   }
 }
 
+template <typename T>
 int layer_norm(const void* x, const void* scale, const void* bias, void* h,
                int M, int D, float eps, cudaStream_t stream) {
-  layer_norm_kernel<<<M, NT, D * sizeof(float), stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
+  layer_norm_kernel<T><<<M, NT, D * sizeof(float), stream>>>(
+      static_cast<const T*>(x), static_cast<const bf16*>(scale),
       static_cast<const bf16*>(bias), static_cast<bf16*>(h), D, eps);
   return static_cast<int>(cudaGetLastError());
 }
@@ -139,9 +171,9 @@ struct GemmArgs {
   const bf16* a;         // (M, K) row-major
   const bf16* b[3];      // (K, N) row-major, one per blockIdx.z
   const bf16* bias[3];   // (N,)
-  bf16* out[3];          // (M, N)
+  void* out[3];          // (M, N) of the kernel's OutT
   float scale[3];        // kBiasScale: the factor after the bias
-  const bf16* residual;  // (M, N) for kBiasResidual
+  const void* residual;  // (M, N) of the kernel's ResT, for kBiasResidual
   int M, K, N;
 };
 
@@ -151,7 +183,20 @@ __device__ inline float quick_gelu(float z) {
   return __fmul_rn(z, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
 }
 
-template <int EPI>
+__device__ inline float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ inline float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ inline void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ inline void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+template <int EPI, typename OutT, typename ResT>
 __global__ void __launch_bounds__(NT)
 vit_gemm_kernel(const GemmArgs args) {
   extern __shared__ __align__(128) bf16 smem[];
@@ -159,7 +204,8 @@ vit_gemm_kernel(const GemmArgs args) {
   const bf16* b = z == 0 ? args.b[0] : (z == 1 ? args.b[1] : args.b[2]);
   const bf16* bias =
       z == 0 ? args.bias[0] : (z == 1 ? args.bias[1] : args.bias[2]);
-  bf16* out = z == 0 ? args.out[0] : (z == 1 ? args.out[1] : args.out[2]);
+  OutT* out = static_cast<OutT*>(
+      z == 0 ? args.out[0] : (z == 1 ? args.out[1] : args.out[2]));
   const float scale =
       z == 0 ? args.scale[0] : (z == 1 ? args.scale[1] : args.scale[2]);
 
@@ -184,10 +230,9 @@ vit_gemm_kernel(const GemmArgs args) {
       for (int s = 0; s < 4; ++s) {
         const int col = n0 + warp_n * 32 + s * 8 + 2 * tig;
         const size_t off = static_cast<size_t>(row) * N + col;
-        const __nv_bfloat162 bv =
-            *reinterpret_cast<const __nv_bfloat162*>(bias + col);
-        float v0 = __fadd_rn(acc[mt][s][2 * half], __low2float(bv));
-        float v1 = __fadd_rn(acc[mt][s][2 * half + 1], __high2float(bv));
+        const float2 bv = load2(bias + col);
+        float v0 = __fadd_rn(acc[mt][s][2 * half], bv.x);
+        float v1 = __fadd_rn(acc[mt][s][2 * half + 1], bv.y);
         if constexpr (EPI == kBiasScale) {
           v0 = __fmul_rn(v0, scale);
           v1 = __fmul_rn(v1, scale);
@@ -195,27 +240,64 @@ vit_gemm_kernel(const GemmArgs args) {
           v0 = quick_gelu(v0);
           v1 = quick_gelu(v1);
         } else {  // kBiasResidual
-          const __nv_bfloat162 r =
-              *reinterpret_cast<const __nv_bfloat162*>(args.residual + off);
-          v0 = __fadd_rn(__low2float(r), v0);
-          v1 = __fadd_rn(__high2float(r), v1);
+          const float2 r = load2(static_cast<const ResT*>(args.residual) + off);
+          v0 = __fadd_rn(r.x, v0);
+          v1 = __fadd_rn(r.y, v1);
         }
-        *reinterpret_cast<__nv_bfloat162*>(out + off) =
-            __floats2bfloat162_rn(v0, v1);
+        store2(out + off, v0, v1);
       }
     }
   }
 }
 
-template <int EPI>
+template <int EPI, typename OutT = bf16, typename ResT = bf16>
 int gemm(const GemmArgs& args, int products, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      vit_gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      GEMM_SMEM);
+      vit_gemm_kernel<EPI, OutT, ResT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(args.N / B_COLS, (args.M + BM - 1) / BM, products);
-  vit_gemm_kernel<EPI><<<grid, NT, GEMM_SMEM, stream>>>(args);
+  vit_gemm_kernel<EPI, OutT, ResT><<<grid, NT, GEMM_SMEM, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One product a . b + bias into out (bias then scale 1, which is exact,
+// when EPI is kBiasScale), with `residual` for kBiasResidual.
+GemmArgs gemm_args(const void* a, const void* b, const void* bias, void* out,
+                   const void* residual, int M, int K, int N) {
+  GemmArgs g{};
+  g.a = static_cast<const bf16*>(a);
+  g.b[0] = static_cast<const bf16*>(b);
+  g.bias[0] = static_cast<const bf16*>(bias);
+  g.out[0] = out;
+  g.scale[0] = 1.0f;
+  g.residual = residual;
+  g.M = M;
+  g.K = K;
+  g.N = N;
+  return g;
+}
+
+// The three products of q, k and v over the same a, q's times scale.
+GemmArgs qkv_args(const void* a, const void* wq, const void* bq,
+                  const void* wk, const void* bk, const void* wv,
+                  const void* bv, void* q, void* k, void* v, int M, int D,
+                  float scale) {
+  GemmArgs g{};
+  g.a = static_cast<const bf16*>(a);
+  const void* w[3] = {wq, wk, wv};
+  const void* b[3] = {bq, bk, bv};
+  void* o[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    g.b[i] = static_cast<const bf16*>(w[i]);
+    g.bias[i] = static_cast<const bf16*>(b[i]);
+    g.out[i] = o[i];
+    g.scale[i] = i == 0 ? scale : 1.0f;
+  }
+  g.M = M;
+  g.K = D;
+  g.N = D;
+  return g;
 }
 
 // The GEMMs take K and N as whole 128-wide tiles, a row grid within
@@ -226,264 +308,125 @@ bool gemm_shape_ok(int M, int D) {
          static_cast<size_t>(D) * sizeof(float) <= 48 * 1024;
 }
 
-// ---- attention (no bias, no mask) -------------------------------------------
-
-constexpr int TQ = 32;  // query rows per block
-constexpr int KC = 64;  // keys per staged K / V chunk
-constexpr int ATT_WARPS = 8;
-constexpr int ATT_NT = ATT_WARPS * 32;
-// Row padding of the shared-memory tiles (in elements), so that the rows of
-// a 16 x 16 WMMA tile start in different banks.
-constexpr int S_PAD = 4;    // fp32 score rows
-constexpr int ROW_PAD = 8;  // bf16 q / k / v rows
-
-__host__ __device__ inline int padded_len(int L) {
-  return (L + KC - 1) / KC * KC;
-}
-
-inline size_t att_smem_bytes(int L, int dh) {
-  const size_t lp = padded_len(L);
-  return TQ * (lp + S_PAD) * sizeof(float)     // scores, then probabilities
-         + TQ * (dh + ROW_PAD) * sizeof(bf16)  // q tile
-         + KC * (dh + ROW_PAD) * sizeof(bf16)  // k or v chunk
-         + TQ * sizeof(float);                 // denominators
-}
-
-// ROWS rows of one head (DH bf16 each) held in registers between their
-// 16-byte loads from global memory and their store to shared memory as
-// dst[ROWS][DH + ROW_PAD]; rows at or past L are zero. For K and V this
-// keeps the next chunk's loads in flight while the tensor cores work on
-// the current one.
-template <int DH, int ROWS>
-struct ChunkRegs {
-  static constexpr int VEC = 8;
-  static constexpr int PER_ROW = DH / VEC;
-  static constexpr int COUNT = ROWS * PER_ROW;
-  static constexpr int PER_THREAD = (COUNT + ATT_NT - 1) / ATT_NT;
-  uint4 val[PER_THREAD];
-
-  __device__ inline void fetch(const bf16* src, int row0, int L,
-                               int row_stride) {
-#pragma unroll
-    for (int u = 0; u < PER_THREAD; ++u) {
-      const int idx = threadIdx.x + u * ATT_NT;
-      const int r = idx / PER_ROW, c = idx % PER_ROW;
-      val[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < COUNT && row0 + r < L) {
-        val[u] = *reinterpret_cast<const uint4*>(
-            src + static_cast<size_t>(row0 + r) * row_stride + c * VEC);
-      }
-    }
-  }
-
-  __device__ inline void store(bf16* dst) const {
-#pragma unroll
-    for (int u = 0; u < PER_THREAD; ++u) {
-      const int idx = threadIdx.x + u * ATT_NT;
-      if (idx < COUNT) {
-        const int r = idx / PER_ROW, c = idx % PER_ROW;
-        *reinterpret_cast<uint4*>(dst + r * (DH + ROW_PAD) + c * VEC) = val[u];
-      }
-    }
-  }
-};
-
-template <int DH, bool FAST_EXP>
-__global__ void __launch_bounds__(ATT_NT)
-vit_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     int L, int H) {
-  const int q0 = blockIdx.x * TQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lp = padded_len(L);
-  const int HD = H * DH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t head_off =
-      static_cast<size_t>(b) * L * HD + static_cast<size_t>(h) * DH;
-
-  extern __shared__ __align__(128) unsigned char att_smem[];
-  constexpr int QK_LD = DH + ROW_PAD;
-  const int s_ld = lp + S_PAD;
-  float* S = reinterpret_cast<float*>(att_smem);
-  // probabilities: row i's bf16 values sit at the start of score row i
-  bf16* P = reinterpret_cast<bf16*>(S);
-  const int p_ld = 2 * s_ld;
-  bf16* Qs = reinterpret_cast<bf16*>(S + TQ * s_ld);
-  bf16* KV = Qs + TQ * QK_LD;
-  float* denom = reinterpret_cast<float*>(KV + KC * QK_LD);
-
-  {
-    ChunkRegs<DH, TQ> q_tile;
-    q_tile.fetch(q + head_off, q0, L, HD);
-    q_tile.store(Qs);
-  }
-
-  // ---- scores: S[TQ][lp] = q k^T in fp32 (keys past L score 0, unread) ---
-  constexpr int S_TILES = (TQ / 16) * (KC / 16);
-  ChunkRegs<DH, KC> chunk;
-  chunk.fetch(k + head_off, 0, L, HD);
-  for (int kc = 0; kc < lp; kc += KC) {
-    __syncthreads();  // the previous chunk has been consumed
-    chunk.store(KV);
-    if (kc + KC < lp) chunk.fetch(k + head_off, kc + KC, L, HD);
-    __syncthreads();
-    for (int t = warp; t < S_TILES; t += ATT_WARPS) {
-      const int tr = t / (KC / 16), tc = t % (KC / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int d = 0; d < DH; d += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        // K stored [key][d] is k^T in column-major order
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + tr * 16 * QK_LD + d, QK_LD);
-        wmma::load_matrix_sync(fb, KV + tc * 16 * QK_LD + d, QK_LD);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(S + tr * 16 * s_ld + kc + tc * 16, acc, s_ld,
-                              wmma::mem_row_major);
-    }
-  }
-  chunk.fetch(v + head_off, 0, L, HD);  // in flight during the softmax
-  __syncthreads();
-
-  // ---- softmax statistics, one warp per query row ---------------------
-  for (int i = warp; i < TQ; i += ATT_WARPS) {
-    float* srow = S + i * s_ld;
-    bf16* prow = P + i * p_ld;
-    if (q0 + i >= L) {  // past the sequence: no output, zero probabilities
-      for (int j = lane; j < lp; j += 32) prow[j] = __float2bfloat16(0.0f);
-      if (lane == 0) denom[i] = 1.0f;
-      continue;
-    }
-    float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    // every lane runs lp / 32 rounds; the bf16 writes of a round land on
-    // scores that earlier rounds (or this round, before the __syncwarp)
-    // have read
-    float sum = 0.0f;
-    for (int j = lane; j < lp; j += 32) {
-      bf16 p = __float2bfloat16(0.0f);
-      if (j < L) {
-        if (FAST_EXP) {  // the sum takes the unrounded exponential
-          const float e = expf(__bfloat162float(
-              __float2bfloat16(__fsub_rn(srow[j], m))));
-          p = __float2bfloat16(e);
-          sum = __fadd_rn(sum, e);
-        } else {
-          p = __float2bfloat16(expf(__fsub_rn(srow[j], m)));
-          sum = __fadd_rn(sum, __bfloat162float(p));
-        }
-      }
-      __syncwarp();
-      prow[j] = p;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-    }
-    if (lane == 0) denom[i] = sum;
-  }
-  __syncthreads();
-
-  // ---- o = p v in fp32, accumulated over key chunks --------------------
-  constexpr int O_TILES = (TQ / 16) * (DH / 16);
-  constexpr int PER_WARP = (O_TILES + ATT_WARPS - 1) / ATT_WARPS;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[PER_WARP];
-#pragma unroll
-  for (int u = 0; u < PER_WARP; ++u) wmma::fill_fragment(oacc[u], 0.0f);
-  for (int kc = 0; kc < lp; kc += KC) {
-    chunk.store(KV);
-    if (kc + KC < lp) chunk.fetch(v + head_off, kc + KC, L, HD);
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < PER_WARP; ++u) {
-      const int t = warp + u * ATT_WARPS;
-      if (t < O_TILES) {
-        const int tr = t / (DH / 16), tc = t % (DH / 16);
-#pragma unroll
-        for (int kk = 0; kk < KC; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, P + tr * 16 * p_ld + kc + kk, p_ld);
-          wmma::load_matrix_sync(fb, KV + kk * QK_LD + tc * 16, QK_LD);
-          wmma::mma_sync(oacc[u], fa, fb, oacc[u]);
-        }
-      }
-    }
-    __syncthreads();  // the chunk has been consumed
-  }
-
-  // ---- the division after PV and the bf16 store --------------------------
-  constexpr int O_LD = DH + S_PAD;
-  float* O = S;  // the probabilities are no longer needed
-#pragma unroll
-  for (int u = 0; u < PER_WARP; ++u) {
-    const int t = warp + u * ATT_WARPS;
-    if (t < O_TILES) {
-      const int tr = t / (DH / 16), tc = t % (DH / 16);
-      wmma::store_matrix_sync(O + tr * 16 * O_LD + tc * 16, oacc[u], O_LD,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TQ * DH; idx += ATT_NT) {
-    const int i = idx / DH, d = idx % DH;
-    const int qi = q0 + i;
-    if (qi < L) {
-      out[head_off + static_cast<size_t>(qi) * HD + d] =
-          __float2bfloat16(__fdiv_rn(O[i * O_LD + d], denom[i]));
-    }
-  }
-}
-
-int smem_limit() {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess) {
-    return 0;
-  }
-  return limit;
-}
-
-template <int DH, bool FAST_EXP>
-int attention(const void* q, const void* k, const void* v, void* out, int B,
-              int L, int H, cudaStream_t stream) {
-  const size_t smem = att_smem_bytes(L, DH);
-  if (smem > static_cast<size_t>(smem_limit())) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      vit_attention_kernel<DH, FAST_EXP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + TQ - 1) / TQ, H, B);
-  vit_attention_kernel<DH, FAST_EXP><<<grid, ATT_NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), L, H);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool FAST_EXP>
-int attention_dh(const void* q, const void* k, const void* v, void* out,
-                 int B, int L, int H, int dh, cudaStream_t stream) {
-  switch (dh) {
-    case 16: return attention<16, FAST_EXP>(q, k, v, out, B, L, H, stream);
-    case 32: return attention<32, FAST_EXP>(q, k, v, out, B, L, H, stream);
-    case 64: return attention<64, FAST_EXP>(q, k, v, out, B, L, H, stream);
-    case 128: return attention<128, FAST_EXP>(q, k, v, out, B, L, H, stream);
+// The bf16 attention in softmax order `mode` (vit_attention::Softmax).
+int attention_mode(int mode, const void* q, const void* k, const void* v,
+                   void* out, int B, int L, int H, int dh,
+                   cudaStream_t stream) {
+  namespace va = vit_attention;
+  switch (mode) {
+    case va::kBf16Sum:
+      return attention_dh<va::kBf16Sum, bf16>(q, k, v, out, B, L, H, dh,
+                                              stream);
+    case va::kFastExp:
+      return attention_dh<va::kFastExp, bf16>(q, k, v, out, B, L, H, dh,
+                                              stream);
+    case va::kNormalised:
+      return attention_dh<va::kNormalised, bf16>(q, k, v, out, B, L, H, dh,
+                                                 stream);
+    case va::kDeferredDiv:
+      return attention_dh<va::kDeferredDiv, bf16>(q, k, v, out, B, L, H, dh,
+                                                  stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The attention grid: (query tiles, H, B), within CUDA's limits.
-bool attention_shape_ok(int B, int L, int H) {
-  return B > 0 && L > 0 && H > 0 && B <= 65535 && H <= 65535 &&
-         static_cast<long long>(B) * L <= 0x7fffffff;
+// ---- fused_attention_block's fp32 attention ---------------------------------
+
+constexpr int F32_WARPS = 8;
+
+inline size_t f32_att_smem_bytes(int L, int dh) {
+  return (static_cast<size_t>(L) * (dh + 1)      // K, rows padded by one
+          + static_cast<size_t>(L) * dh          // V
+          + F32_WARPS * static_cast<size_t>(dh)  // each warp's q row
+          + F32_WARPS * static_cast<size_t>(L))  // each warp's score row
+         * sizeof(float);
+}
+
+// One block per (head, image) over fp32 q (pre-scaled), k, v (B, L, H DH):
+// s = q . k^T, p = e / sum(e) with e = exp(s - max), o = p . v, all fp32
+// (fmaf); o goes out as three bf16 planes of attn3 (B L, 3 H DH): lo | mid |
+// hi, hi + mid + lo = o exactly, the smallest first.
+template <int DH>
+__global__ void __launch_bounds__(F32_WARPS * 32)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, bf16* __restrict__ attn3,
+                     int L, int H) {
+  constexpr int K_LD = DH + 1;  // rows of K start in different banks
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int D = H * DH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  extern __shared__ float fsm[];
+  float* Ks = fsm;
+  float* Vs = Ks + L * K_LD;
+  float* qrow = Vs + L * DH + warp * DH;
+  float* srow = Vs + L * DH + F32_WARPS * DH + warp * L;
+  const size_t base =
+      static_cast<size_t>(b) * L * D + static_cast<size_t>(h) * DH;
+  for (int idx = threadIdx.x; idx < L * DH; idx += F32_WARPS * 32) {
+    const int j = idx / DH, d = idx % DH;
+    const size_t src = base + static_cast<size_t>(j) * D + d;
+    Ks[j * K_LD + d] = k[src];
+    Vs[j * DH + d] = v[src];
+  }
+  __syncthreads();
+  for (int i = warp; i < L; i += F32_WARPS) {
+    for (int d = lane; d < DH; d += 32) {
+      qrow[d] = q[base + static_cast<size_t>(i) * D + d];
+    }
+    __syncwarp();
+    float m = -INFINITY;
+    for (int j = lane; j < L; j += 32) {
+      float s = 0.0f;
+#pragma unroll 16
+      for (int d = 0; d < DH; ++d) s = fmaf(qrow[d], Ks[j * K_LD + d], s);
+      srow[j] = s;
+      m = fmaxf(m, s);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
+    float sum = 0.0f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(__fsub_rn(srow[j], m));
+      srow[j] = e;
+      sum = __fadd_rn(sum, e);
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < L; j += 32) srow[j] = __fdiv_rn(srow[j], sum);
+    __syncwarp();
+    const size_t row = (static_cast<size_t>(b) * L + i) * 3 * D +
+                       static_cast<size_t>(h) * DH;
+    for (int d = lane; d < DH; d += 32) {
+      float o = 0.0f;
+      for (int j = 0; j < L; ++j) o = fmaf(srow[j], Vs[j * DH + d], o);
+      const bf16 hi = __float2bfloat16(o);
+      const float rest = __fsub_rn(o, __bfloat162float(hi));
+      const bf16 mid = __float2bfloat16(rest);
+      const float low = __fsub_rn(rest, __bfloat162float(mid));
+      attn3[row + d] = __float2bfloat16(low);
+      attn3[row + D + d] = mid;
+      attn3[row + 2 * D + d] = hi;
+    }
+    __syncwarp();  // the rows are free for the next query
+  }
+}
+
+template <int DH>
+int attention_f32(const void* q, const void* k, const void* v, void* attn3,
+                  int B, int L, int H, cudaStream_t stream) {
+  const size_t smem = f32_att_smem_bytes(L, DH);
+  if (smem > static_cast<size_t>(vit_attention::smem_limit())) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  attention_f32_kernel<DH><<<dim3(H, B), F32_WARPS * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<bf16*>(attn3), L, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -491,11 +434,18 @@ bool attention_shape_ok(int B, int L, int H) {
 // Largest sequence length whose score tile fits the current device's shared
 // memory at head size dh (0 if dh is not supported).
 extern "C" int vit_attention_max_len(int dh) {
+  return vit_attention::max_len(dh);
+}
+
+// Largest sequence length whose fp32 K and V (fused_attention_block's
+// attention) fit the current device's shared memory at head size dh (0 if
+// dh is not supported).
+extern "C" int attention_block_max_len(int dh) {
   if (dh != 16 && dh != 32 && dh != 64 && dh != 128) return 0;
-  const long long fixed = att_smem_bytes(0, dh);
-  const long long per_key = TQ * sizeof(float);
-  const long long keys = (smem_limit() - fixed) / per_key;
-  return keys > 0 ? static_cast<int>(keys / KC * KC) : 0;
+  const long long fixed = f32_att_smem_bytes(0, dh);
+  const long long per_key = f32_att_smem_bytes(1, dh) - fixed;
+  const long long keys = (vit_attention::smem_limit() - fixed) / per_key;
+  return keys > 0 ? static_cast<int>(keys) : 0;
 }
 
 // q, k, v (M, D) bf16 = (bf16(LN(x)) . w + b) * (scale, 1, 1) for x (M, D)
@@ -511,23 +461,10 @@ extern "C" int fused_ln_qkv_launch(const void* x, const void* ln_s,
                                    float eps, void* stream) {
   if (!gemm_shape_ok(M, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = layer_norm(x, ln_s, ln_b, h, M, D, eps, s);
+  int rc = layer_norm<bf16>(x, ln_s, ln_b, h, M, D, eps, s);
   if (rc != 0) return rc;
-  GemmArgs g{};
-  g.a = static_cast<const bf16*>(h);
-  const void* w[3] = {wq, wk, wv};
-  const void* b[3] = {bq, bk, bv};
-  void* o[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    g.b[i] = static_cast<const bf16*>(w[i]);
-    g.bias[i] = static_cast<const bf16*>(b[i]);
-    g.out[i] = static_cast<bf16*>(o[i]);
-    g.scale[i] = i == 0 ? scale : 1.0f;
-  }
-  g.M = M;
-  g.K = D;
-  g.N = D;
-  return gemm<kBiasScale>(g, 3, s);
+  return gemm<kBiasScale>(
+      qkv_args(h, wq, bq, wk, bk, wv, bv, q, k, v, M, D, scale), 3, s);
 }
 
 // out (B, L, D) bf16 = res + softmax(q k^T) v . wo + bo per head, for res,
@@ -540,22 +477,15 @@ extern "C" int attention_core_oproj_launch(const void* res, const void* q,
                                            void* attn, void* out, int B,
                                            int L, int H, int dh,
                                            void* stream) {
-  if (!attention_shape_ok(B, L, H) || !gemm_shape_ok(B * L, H * dh)) {
+  if (!vit_attention::shape_ok(B, L, H) || !gemm_shape_ok(B * L, H * dh)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = attention_dh<false>(q, k, v, attn, B, L, H, dh, s);
+  const int rc = attention_dh<vit_attention::kBf16Sum, bf16>(
+      q, k, v, attn, B, L, H, dh, s);
   if (rc != 0) return rc;
-  GemmArgs g{};
-  g.a = static_cast<const bf16*>(attn);
-  g.b[0] = static_cast<const bf16*>(wo);
-  g.bias[0] = static_cast<const bf16*>(bo);
-  g.out[0] = static_cast<bf16*>(out);
-  g.residual = static_cast<const bf16*>(res);
-  g.M = B * L;
-  g.K = H * dh;
-  g.N = H * dh;
-  return gemm<kBiasResidual>(g, 1, s);
+  return gemm<kBiasResidual>(
+      gemm_args(attn, wo, bo, out, res, B * L, H * dh, H * dh), 1, s);
 }
 
 // out (B, L, H dh) bf16 = softmax(q k^T) v per head for q (pre-scaled), k,
@@ -565,10 +495,9 @@ extern "C" int attention_core_launch(const void* q, const void* k,
                                      const void* v, void* out, int B, int L,
                                      int H, int dh, int fast_exp,
                                      void* stream) {
-  if (!attention_shape_ok(B, L, H)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast_exp ? attention_dh<true>(q, k, v, out, B, L, H, dh, s)
-                  : attention_dh<false>(q, k, v, out, B, L, H, dh, s);
+  return attention_mode(
+      fast_exp ? vit_attention::kFastExp : vit_attention::kBf16Sum, q, k, v,
+      out, B, L, H, dh, static_cast<cudaStream_t>(stream));
 }
 
 // out (M, D) bf16 = x + quickGELU(bf16(LN(x)) . w_fc + b_fc) . w_proj +
@@ -586,26 +515,80 @@ extern "C" int fused_mlp_block_launch(const void* x, const void* ln_s,
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = layer_norm(x, ln_s, ln_b, h, M, D, eps, s);
+  int rc = layer_norm<bf16>(x, ln_s, ln_b, h, M, D, eps, s);
   if (rc != 0) return rc;
-  GemmArgs up{};
-  up.a = static_cast<const bf16*>(h);
-  up.b[0] = static_cast<const bf16*>(w_fc);
-  up.bias[0] = static_cast<const bf16*>(b_fc);
-  up.out[0] = static_cast<bf16*>(hidden);
-  up.M = M;
-  up.K = D;
-  up.N = F;
-  rc = gemm<kBiasQuickGelu>(up, 1, s);
+  rc = gemm<kBiasQuickGelu>(
+      gemm_args(h, w_fc, b_fc, hidden, nullptr, M, D, F), 1, s);
   if (rc != 0) return rc;
-  GemmArgs down{};
-  down.a = static_cast<const bf16*>(hidden);
-  down.b[0] = static_cast<const bf16*>(w_proj);
-  down.bias[0] = static_cast<const bf16*>(b_proj);
-  down.out[0] = static_cast<bf16*>(out);
-  down.residual = static_cast<const bf16*>(x);
-  down.M = M;
-  down.K = F;
-  down.N = D;
-  return gemm<kBiasResidual>(down, 1, s);
+  return gemm<kBiasResidual>(
+      gemm_args(hidden, w_proj, b_proj, out, x, M, F, D), 1, s);
+}
+
+// out (B, L, D) bf16 = the whole pre-LN CLIP block over x (B, L, D = H dh)
+// bf16, every parameter bf16 in the JAX layout (ln*, b* and bo (D,), b_fc
+// (F,), wq, wk, wv, wo (D, D), w_fc (D, F), w_proj (F, D)); `mode` the
+// attention's softmax order (vit_attention::Softmax). Scratch of the caller:
+// h (M, D) bf16 (LN1, then LN2), q, k, v, attn (M, D) bf16, r1 (M, D) fp32
+// and hidden (M, F) bf16. Runs on `stream`; returns the first cudaError_t of
+// its launches (0 on success).
+extern "C" int fused_vit_block_launch(
+    const void* x, const void* ln1_s, const void* ln1_b, const void* wq,
+    const void* bq, const void* wk, const void* bk, const void* wv,
+    const void* bv, const void* wo, const void* bo, const void* ln2_s,
+    const void* ln2_b, const void* w_fc, const void* b_fc, const void* w_proj,
+    const void* b_proj, void* h, void* q, void* k, void* v, void* attn,
+    void* r1, void* hidden, void* out, int B, int L, int H, int dh, int F,
+    int mode, float scale, float eps, void* stream) {
+  const int M = B * L, D = H * dh;
+  if (!vit_attention::shape_ok(B, L, H) || !gemm_shape_ok(M, D) || F <= 0 ||
+      F % B_COLS || F % BK) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = fused_ln_qkv_launch(x, ln1_s, ln1_b, wq, bq, wk, bk, wv, bv, h, q,
+                               k, v, M, D, scale, eps, stream);
+  if (rc != 0) return rc;
+  rc = attention_mode(mode, q, k, v, attn, B, L, H, dh, s);
+  if (rc != 0) return rc;
+  rc = gemm<kBiasResidual, float, bf16>(
+      gemm_args(attn, wo, bo, r1, x, M, D, D), 1, s);
+  if (rc != 0) return rc;
+  rc = layer_norm<float>(r1, ln2_s, ln2_b, h, M, D, eps, s);
+  if (rc != 0) return rc;
+  rc = gemm<kBiasQuickGelu>(
+      gemm_args(h, w_fc, b_fc, hidden, nullptr, M, D, F), 1, s);
+  if (rc != 0) return rc;
+  return gemm<kBiasResidual, bf16, float>(
+      gemm_args(hidden, w_proj, b_proj, out, r1, M, F, D), 1, s);
+}
+
+// out (B, L, D) bf16 = fused_attention_block(x) (block_diag) for post-LN x
+// (B, L, D = H dh) bf16, wq, wk, wv (D, D) and bq, bk, bv, bo (D,) bf16 in the
+// JAX layout and wo3 (3 D, D) bf16, wo stacked three times. Scratch of the
+// caller: q, k, v (M, D) fp32 and attn3 (M, 3 D) bf16. Runs on `stream`;
+// returns the first cudaError_t of its launches (0 on success).
+extern "C" int fused_attention_block_launch(
+    const void* x, const void* wq, const void* bq, const void* wk,
+    const void* bk, const void* wv, const void* bv, const void* wo3,
+    const void* bo, void* q, void* k, void* v, void* attn3, void* out, int B,
+    int L, int H, int dh, float scale, void* stream) {
+  const int M = B * L, D = H * dh;
+  if (!vit_attention::shape_ok(B, L, H) || !gemm_shape_ok(M, D) ||
+      !gemm_shape_ok(M, 3 * D)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = gemm<kBiasScale, float>(
+      qkv_args(x, wq, bq, wk, bk, wv, bv, q, k, v, M, D, scale), 3, s);
+  if (rc != 0) return rc;
+  switch (dh) {
+    case 16: rc = attention_f32<16>(q, k, v, attn3, B, L, H, s); break;
+    case 32: rc = attention_f32<32>(q, k, v, attn3, B, L, H, s); break;
+    case 64: rc = attention_f32<64>(q, k, v, attn3, B, L, H, s); break;
+    case 128: rc = attention_f32<128>(q, k, v, attn3, B, L, H, s); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (rc != 0) return rc;
+  return gemm<kBiasScale>(
+      gemm_args(attn3, wo3, bo, out, nullptr, M, 3 * D, D), 1, s);
 }

@@ -1,16 +1,19 @@
-// The int8 CLIP ViT block of the long-sequence int8 path, for NVIDIA Hopper
-// (sm_90a): the LayerNorm + q/k/v and the LayerNorm + MLP programs, every
-// product int8 on the tensor cores.
+// The int8 CLIP ViT blocks, for NVIDIA Hopper (sm_90a): the LayerNorm + q/k/v
+// and the LayerNorm + MLP programs of the long-sequence int8 path, and the
+// whole int8 block of the short one, every projection int8 on the tensor
+// cores.
 //
-// Replaces two Pallas kernels of
+// Replaces three Pallas kernels of
 // explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py, the
-// int8 programs of models/clip.py's long-sequence int8 branch (:532-579):
+// int8 programs of models/clip.py's long-sequence int8 branch (:532-579)
 //   fused_qkv_q8        pallas_call at :584, body :530-556
 //   fused_mlp_block_q8  pallas_call at :516, body :462-492
-// (the attention between them is vit_block.cu's attention_core). What they
-// compute, in the Pallas kernels' order of rounding (x and the outputs
-// bf16; weights int8 (K, N) with fp32 (N,) per-output-channel scales, bf16
-// biases; x (M, D) with M = B L rows):
+// (the attention between them is vit_block.cu's attention_core), and the
+// whole block of the int8 branch at 128 tokens or fewer (:497-530)
+//   fused_vit_block_q8  pallas_call at :810, body :702-769
+// What they compute, in the Pallas kernels' order of rounding (x and the
+// outputs bf16; weights int8 (K, N) with fp32 (N,) per-output-channel
+// scales, bf16 biases; x (M, D) with M = B L rows):
 //
 //   h    = ((x - m) * (1 / sqrt(var + eps))) * s + b   fp32 LayerNorm, NOT
 //          rounded to bf16 (m the mean, var the mean of (x - m)^2)
@@ -24,19 +27,30 @@
 //     hid = z * (1 / (1 + exp(-(1.702 z))))    fp32 quickGELU, never bf16
 //     gs, gq: hid quantized per row over its whole width F
 //     out = bf16(x + (((float(gq . W_proj) * gs) * s_proj) + b_proj))
+//   fused_vit_block_q8:
+//     q, k, v = fused_qkv_q8(x)
+//     o   = vit_attention.cuh's kNormalised attention, kept fp32
+//     r1  = x + (((float(oq . W_o) * os) * s_o) + b_o)   o quantized per row;
+//           fp32, never rounded
+//     out = fused_mlp_block_q8's MLP over the fp32 r1 (its LayerNorm, hidden
+//           and residual fp32), one cast to bf16
 //
 // Every multiply and add is written with __fmul_rn / __fadd_rn / __fsub_rn
 // so that nvcc cannot contract them into FMAs; the square root and the
 // divisions are correctly rounded and the exponential is expf (the build
 // has no --use_fast_math).
 //
-// What bounds them on an H100 SXM (1,979 TOP/s int8 dense, 3.35 TB/s), at
-// ViT-L/14@336 with the image encoder's batch of 256 (M = 256 x 577 =
-// 147,712 rows, D = 1024, F = 4096), 2 M K N operations per product, each
-// input read once and each output written once:
+// What bounds them on an H100 SXM (1,979 TOP/s int8 dense, 989 TFLOP/s bf16,
+// 3.35 TB/s), 2 M K N operations per product, each input read once and each
+// output written once. At ViT-L/14@336 with the image encoder's batch of 256
+// (M = 256 x 577 = 147,712 rows, D = 1024, F = 4096):
 //   fused_qkv_q8        929.3 G ops = 0.470 ms; 1.21 GB = 0.36 ms
 //   fused_mlp_block_q8  2,478 G ops = 1.252 ms; 0.61 GB = 0.18 ms
-// Both are bound by operations; the encoder runs each once per layer.
+// At ViT-B/32 with the bench's batch of 1024 (M = 51,200 rows, D = 768, 12
+// heads of 64, F = 3072):
+//   fused_vit_block_q8  724.8 G int8 ops = 0.366 ms, plus 7.9 GFLOP of bf16
+//                       attention = 0.008 ms; 164 MB = 0.049 ms
+// All are bound by operations; the encoders run each once per layer.
 //
 // Design (simple and right before fast), from q8_gemm.cuh's two kernels:
 //   fused_qkv_q8: row_quant with the LayerNorm in front (one block per row,
@@ -52,6 +66,13 @@
 //     round trip through device memory (2.42 GB at the main shape) where
 //     the Pallas program keeps it in VMEM; fusing its quantization into the
 //     up GEMM (a block owning whole rows of F) is later work.
+//   fused_vit_block_q8: fused_qkv_q8's two kernels; the attention with an
+//     fp32 output; row_quant of that output; the out-projection GEMM whose
+//     residual epilogue writes the fp32 r1; then fused_mlp_block_q8's four
+//     kernels with row_quant's LayerNorm reading r1 and the down GEMM adding
+//     it. The codes, row scales, q, k, v, attention output, r1 and hidden
+//     each make one round trip through device memory (no SM holds the
+//     block's 7.1 MB of int8 weights).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +81,7 @@
 #include <cstdint>
 
 #include "q8_gemm.cuh"
+#include "vit_attention.cuh"
 
 namespace {
 
@@ -73,8 +95,9 @@ struct GemmArgs {
   const int8_t* b;        // (N, K) int8 weights, K contiguous
   const float* b_scale;   // (N,) fp32 per-output-channel scales
   const bf16* bias;       // (N,)
-  const bf16* residual;   // (M, N) for kResidual
-  void* out[3];           // kQkv: q, k, v (M, D) bf16; else out[0] (M, N)
+  const void* residual;   // (M, N) of the kernel's ResT, for kResidual
+  void* out[3];           // kQkv: q, k, v (M, D) bf16; else out[0] (M, N),
+                          // of the kernel's OutT for kResidual
   float scale;            // kQkv: the factor of the q columns
   int M, K, N, D;         // D: kQkv's column width of q, k and v
 };
@@ -85,7 +108,20 @@ __device__ inline float quick_gelu(float z) {
   return __fmul_rn(z, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
 }
 
-template <int EPI>
+__device__ inline float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ inline float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ inline void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ inline void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+template <int EPI, typename OutT, typename ResT>
 __global__ void __launch_bounds__(NT)
 vit_gemm_q8_kernel(const GemmArgs args) {
   extern __shared__ __align__(128) int8_t smem[];
@@ -128,25 +164,22 @@ vit_gemm_q8_kernel(const GemmArgs args) {
         *reinterpret_cast<float2*>(static_cast<float*>(args.out[0]) + off) =
             make_float2(quick_gelu(v0), quick_gelu(v1));
       } else {  // kResidual
-        const __nv_bfloat162 r =
-            *reinterpret_cast<const __nv_bfloat162*>(args.residual + off);
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(args.out[0]) +
-                                           off) =
-            __floats2bfloat162_rn(__fadd_rn(__low2float(r), v0),
-                                  __fadd_rn(__high2float(r), v1));
+        const float2 r = load2(static_cast<const ResT*>(args.residual) + off);
+        store2(static_cast<OutT*>(args.out[0]) + off, __fadd_rn(r.x, v0),
+               __fadd_rn(r.y, v1));
       }
     }
   }
 }
 
-template <int EPI>
+template <int EPI, typename OutT = bf16, typename ResT = bf16>
 int gemm(const GemmArgs& args, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      vit_gemm_q8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      GEMM_SMEM);
+      vit_gemm_q8_kernel<EPI, OutT, ResT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(args.N / BN, (args.M + BM - 1) / BM, 1);
-  vit_gemm_q8_kernel<EPI><<<grid, NT, GEMM_SMEM, stream>>>(args);
+  vit_gemm_q8_kernel<EPI, OutT, ResT><<<grid, NT, GEMM_SMEM, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -219,6 +252,58 @@ extern "C" int fused_mlp_block_q8_launch(
   GemmArgs down =
       gemm_args(codes_hid, scales_hid, w_proj, s_proj, b_proj, M, F, D);
   down.out[0] = out;
-  down.residual = static_cast<const bf16*>(x);
+  down.residual = x;
   return gemm<kResidual>(down, s);
+}
+
+// out (B, L, D = H dh) bf16 = the whole int8 CLIP block over x (B, L, D)
+// bf16: w_qkv (3 D, D), wo (D, D), w_fc (F, D), w_proj (D, F) K-major with
+// their fp32 scales; ln*, bo, b_proj (D,), b_qkv (3 D,), b_fc (F,) bf16.
+// Scratch of the caller: codes (M, F) int8 and row_scales (M, 1) fp32 (each
+// product's input in turn), q, k, v (M, D) bf16, attn and r1 (M, D) fp32,
+// hidden (M, F) fp32.
+extern "C" int fused_vit_block_q8_launch(
+    const void* x, const void* ln1_s, const void* ln1_b, const void* w_qkv,
+    const void* s_qkv, const void* b_qkv, const void* wo, const void* so,
+    const void* bo, const void* ln2_s, const void* ln2_b, const void* w_fc,
+    const void* s_fc, const void* b_fc, const void* w_proj,
+    const void* s_proj, const void* b_proj, void* codes, void* row_scales,
+    void* q, void* k, void* v, void* attn, void* r1, void* hidden, void* out,
+    int B, int L, int H, int dh, int F, float scale, float eps,
+    void* stream) {
+  const int M = B * L, D = H * dh;
+  if (!vit_attention::shape_ok(B, L, H) || !shape_ok(M, D, 3 * D, 1) ||
+      !shape_ok(M, D, F, 1) || !shape_ok(M, F, D, 1)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = fused_qkv_q8_launch(x, ln1_s, ln1_b, w_qkv, s_qkv, b_qkv, codes,
+                               row_scales, q, k, v, M, D, scale, eps, stream);
+  if (rc != 0) return rc;
+  rc = vit_attention::attention_dh<vit_attention::kNormalised, float>(
+      q, k, v, attn, B, L, H, dh, s);
+  if (rc != 0) return rc;
+  rc = row_quant<float, kNone>(attn, nullptr, nullptr, codes, row_scales, M,
+                               D, 1, 0.0f, s);
+  if (rc != 0) return rc;
+  GemmArgs oproj = gemm_args(codes, row_scales, wo, so, bo, M, D, D);
+  oproj.out[0] = r1;
+  oproj.residual = x;
+  rc = gemm<kResidual, float, bf16>(oproj, s);
+  if (rc != 0) return rc;
+  rc = row_quant<float, kLayer>(r1, ln2_s, ln2_b, codes, row_scales, M, D, 1,
+                                eps, s);
+  if (rc != 0) return rc;
+  GemmArgs up = gemm_args(codes, row_scales, w_fc, s_fc, b_fc, M, D, F);
+  up.out[0] = hidden;
+  rc = gemm<kQuickGeluF32>(up, s);
+  if (rc != 0) return rc;
+  rc = row_quant<float, kNone>(hidden, nullptr, nullptr, codes, row_scales, M,
+                               F, 1, 0.0f, s);
+  if (rc != 0) return rc;
+  GemmArgs down =
+      gemm_args(codes, row_scales, w_proj, s_proj, b_proj, M, F, D);
+  down.out[0] = out;
+  down.residual = r1;
+  return gemm<kResidual, bf16, float>(down, s);
 }

@@ -12,13 +12,15 @@ default for ViT-L/14@336, :201-235): three hand-written CUDA kernels,
 ``fused_ln_qkv``, ``attention_core_oproj`` and ``fused_mlp_block``
 (``ops/fused_attention_block.py``, ``csrc/vit_block.cu``). Above 128 tokens
 the ``split*`` variants (:237-271) and ``fused_attention`` (:310-330) run
-the ``attention_core`` kernel, and ``cfg.int8`` (with the ``blocks_q8``
-tree of ``quantize_vision_blocks``) runs ``fused_qkv_q8``,
-``attention_core`` and ``fused_mlp_block_q8`` (:532-579,
-``csrc/vit_block_q8.cu``). The short-sequence fused variants and the int8
-path at 128 tokens or fewer reach kernels that are not ported yet and
-raise ``NotImplementedError`` naming the ROADMAP Queue 2 item that ports
-them.
+the ``attention_core`` kernel, ``whole`` and ``whole_dd`` (:182-199) the
+``fused_vit_block`` kernel, and ``cfg.int8`` (with the ``blocks_q8`` tree
+of ``quantize_vision_blocks``) runs ``fused_qkv_q8``, ``attention_core``
+and ``fused_mlp_block_q8`` (:532-579, ``csrc/vit_block_q8.cu``). At 128
+tokens or fewer (ViT-B/32's 50) ``fused_block`` runs ``fused_vit_block``
+(:273-291), ``fused_attention`` the ``fused_attention_block`` kernel
+(:295-309) and ``cfg.int8`` ``fused_vit_block_q8`` (:497-530).
+``use_pallas`` reaches a kernel that is not ported yet and raises
+``NotImplementedError`` naming the ROADMAP Queue 2 item that ports it.
 """
 
 from __future__ import annotations
@@ -50,17 +52,19 @@ class CLIPVisionConfig:
     # option); fp32 logits by default
     fast_attention: bool = False
     # the legacy fused attention block: above 128 tokens the attention
-    # core kernel; at 128 or fewer Queue 2 #17
+    # core kernel; at 128 or fewer fused_attention_block
     fused_attention: bool = False
     # fused encoder blocks: at sequences longer than 128 "" and "split3" run
     # the three split3 kernels, "split", "split_c2", "split_fe" and
-    # "split_c2fe" the attention core kernel and fused_mlp_block; at 128 or
-    # fewer only "split3" is ported
+    # "split_c2fe" the attention core kernel and fused_mlp_block, "whole"
+    # and "whole_dd" fused_vit_block; at 128 or fewer "split3" runs the
+    # split3 kernels and any other name fused_vit_block ("whole_fe" with its
+    # exponential in bf16)
     fused_block: bool = False
     fused_block_group: int = 0   # images per TPU program; 0 = auto
     fused_block_long: str = ""
-    # the int8 blocks (params["blocks_q8"] from quantize_vision_blocks);
-    # above 128 tokens only (Queue 2 #12 at 128 or fewer)
+    # the int8 blocks (params["blocks_q8"] from quantize_vision_blocks):
+    # fused_vit_block_q8 at 128 tokens or fewer, the long int8 path above
     int8: bool = False
 
     @property
@@ -164,6 +168,17 @@ def _split3_block(layer_p, x, num_heads, eps, group):
     )
 
 
+def _whole_block(layer_p, x, num_heads, eps, group, deferred_div=False,
+                 fast_exp=False):
+    return fab.fused_vit_block(
+        x, *(layer_p[n] for n in (
+            "ln1_scale", "ln1_bias", "q", "q_bias", "k", "k_bias", "v",
+            "v_bias", "o", "o_bias", "ln2_scale", "ln2_bias", "mlp_fc",
+            "mlp_fc_bias", "mlp_proj", "mlp_proj_bias")),
+        num_heads=num_heads, group=group, eps=eps, deferred_div=deferred_div,
+        fast_exp=fast_exp)
+
+
 # the long-sequence split variants (JAX :237-271): the attention core with
 # the exponential in bf16 or not; "_c2" only splits the MLP program's rows
 # in two for the TPU scheduler, which changes no value
@@ -211,9 +226,8 @@ def _encoder_block(layer_p, x, bias, num_heads, eps, use_pallas=False,
 
     if fused_block and bias is None:
         if seq > 128 and fused_block_long in ("whole", "whole_dd"):
-            raise _not_ported(
-                f"fused_block_long={fused_block_long!r} (fused_vit_block)",
-                "#7")
+            return _whole_block(layer_p, x, num_heads, eps, group=1,
+                                deferred_div=fused_block_long == "whole_dd")
         if (seq > 128 and fused_block_long in ("", "split3")) or (
                 seq <= 128 and fused_block_long == "split3"):
             group = 1 if seq > 128 else (
@@ -233,14 +247,23 @@ def _encoder_block(layer_p, x, bias, num_heads, eps, use_pallas=False,
                 layer_p["mlp_fc"], layer_p["mlp_fc_bias"],
                 layer_p["mlp_proj"], layer_p["mlp_proj_bias"],
                 group=1, eps=eps)
-        raise _not_ported(
-            f"fused_block at {seq} tokens without fused_block_long='split3' "
-            "(fused_vit_block)", "#7")
+        # 128 tokens or fewer: the whole block, its exponential in bf16 with
+        # "whole_fe"
+        return _whole_block(layer_p, x, num_heads, eps,
+                            group=fused_block_group or _fused_group(x.shape[0]),
+                            fast_exp=fused_block_long == "whole_fe")
 
     if fused_attention and bias is None:
         if seq <= 128:
-            raise _not_ported("fused_attention at 128 tokens or fewer "
-                              "(fused_attention_block)", "#17")
+            ln1 = _layer_norm(x, layer_p["ln1_scale"], layer_p["ln1_bias"],
+                              eps)
+            attn = fab.fused_attention_block(
+                ln1, *(layer_p[n].to(dt) for n in (
+                    "q", "q_bias", "k", "k_bias", "v", "v_bias", "o",
+                    "o_bias")),
+                num_heads=num_heads, group=_fused_group(x.shape[0]),
+                block_diag=True)
+            return _mlp(layer_p, x + attn, eps)
         return _mlp(layer_p, _core_attention(layer_p, x, num_heads, eps),
                     eps)
     if use_pallas:
@@ -343,8 +366,8 @@ def quantize_vision_blocks(params: Params) -> Params:
     projections, in fp32 on the params' device: the JAX ``blocks_q8`` tree
     (:435-460), layers stacked. q, k and v are concatenated into one (D, 3D)
     matrix (its per-column scales make that exact); ``o`` is quantized too,
-    though only the short-sequence int8 block (Queue 2 #12) reads it. Codes
-    and scales are bit-equal to JAX's (``fab.quantize_weight_i8``)."""
+    though only the short-sequence int8 block (``fused_vit_block_q8``) reads
+    it. Codes and scales are bit-equal to JAX's (``fab.quantize_weight_i8``)."""
     blocks = params["blocks"]
 
     def stacked(w):  # (layers, d_in, d_out) -> int8 codes, fp32 scales
@@ -384,6 +407,26 @@ def _int8_blocks(params: Params, cfg: CLIPVisionConfig,
     return x
 
 
+def _int8_whole_blocks(params: Params, cfg: CLIPVisionConfig,
+                       x: torch.Tensor) -> torch.Tensor:
+    """The int8 blocks at 128 tokens or fewer (JAX :497-530): one
+    fused_vit_block_q8 a layer, every projection int8."""
+    q8 = params["blocks_q8"]
+    group = cfg.fused_block_group or _fused_group(x.shape[0])
+    for i, lp in enumerate(_layers(params["blocks"])):
+        qkv_bias = torch.cat([lp["q_bias"], lp["k_bias"], lp["v_bias"]],
+                             dim=-1)
+        x = fab.fused_vit_block_q8(
+            x, lp["ln1_scale"], lp["ln1_bias"],
+            q8["qkv"][i], q8["qkv_scale"][i], qkv_bias,
+            q8["o"][i], q8["o_scale"][i], lp["o_bias"],
+            lp["ln2_scale"], lp["ln2_bias"],
+            q8["mlp_fc"][i], q8["mlp_fc_scale"][i], lp["mlp_fc_bias"],
+            q8["mlp_proj"][i], q8["mlp_proj_scale"][i], lp["mlp_proj_bias"],
+            num_heads=cfg.num_heads, group=group, eps=cfg.layer_norm_epsilon)
+    return x
+
+
 def patch_embed(params: Params, cfg: CLIPVisionConfig,
                 images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) NHWC -> (B, grid*grid, width) via reshape + matmul."""
@@ -407,9 +450,6 @@ def clip_encode_image(
     embeddings -> pre-LN -> transformer -> post-LN on CLS -> projection, as
     HF CLIPVisionModelWithProjection computes them."""
     if cfg.int8:
-        if cfg.seq_len <= 128:
-            raise _not_ported("CLIPVisionConfig.int8 at 128 tokens or fewer "
-                              "(fused_vit_block_q8)", "#12")
         if "blocks_q8" not in params:
             # the JAX package silently runs the bf16 blocks here (:497)
             raise ValueError(
@@ -422,7 +462,9 @@ def clip_encode_image(
     x = x + params["position_embedding"].to(cfg.dtype)[None]
     x = _layer_norm(x, params["pre_ln_scale"], params["pre_ln_bias"],
                     cfg.layer_norm_epsilon)
-    if cfg.int8:
+    if cfg.int8 and cfg.seq_len <= 128:
+        x = _int8_whole_blocks(params, cfg, x)
+    elif cfg.int8:
         x = _int8_blocks(params, cfg, x)
     else:
         for layer_p in _layers(params["blocks"]):

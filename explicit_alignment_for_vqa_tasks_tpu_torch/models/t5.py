@@ -381,11 +381,18 @@ def _quant_stacked_i8(w: torch.Tensor,
                       groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(layer, contraction-group, output-channel) symmetric int8
     quantization of stacked (L, K, F) weights, in fp32 on w's device.
-    Returns int8 (L, K, F) codes and f32 (L, G, F) scales."""
+    Returns int8 (L, K, F) codes and f32 (L, G, F) scales.
+
+    The JAX package quantizes in numpy, with true divisions: the scale is
+    ``max(amax, 1e-8) / 127.0``. The divisor is a tensor here because
+    PyTorch's CUDA division by a Python scalar multiplies by its
+    reciprocal; so the codes and scales are bit-equal to JAX's on either
+    device (as ``quantize_weight_i8``'s)."""
     w = w.float()
     layers, k_dim, f_dim = w.shape
     wg = w.reshape(layers, groups, k_dim // groups, f_dim)
-    scale = torch.clamp(wg.abs().amax(dim=2), min=1e-8) / 127.0
+    amax = torch.clamp(wg.abs().amax(dim=2), min=1e-8)
+    scale = amax / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(wg / scale[:, :, None, :]), -127, 127)
     return q.reshape(layers, k_dim, f_dim).to(torch.int8), scale
 

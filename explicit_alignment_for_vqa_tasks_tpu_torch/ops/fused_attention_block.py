@@ -18,7 +18,13 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
   * the int8 ViT long-sequence block: ``fused_qkv_q8`` (:559-593) and
     ``fused_mlp_block_q8`` (:495-527), kernels in ``csrc/vit_block_q8.cu``,
     with ``quantize_weight_i8`` (:690-699), the host quantizer of their
-    weights.
+    weights;
+  * the CLIP ViT whole blocks: ``fused_vit_block`` (:1349-1414, also the
+    long ``whole`` / ``whole_dd`` variants) and ``fused_attention_block``
+    (:1417-1462, ``block_diag=True`` only), kernels in ``csrc/vit_block.cu``;
+    the int8 ``fused_vit_block_q8`` (:772-826), kernel in
+    ``csrc/vit_block_q8.cu``. Their attention (and ``attention_core``'s)
+    is ``csrc/vit_attention.cuh``.
 
 Each source's note gives the design and the bound.
 
@@ -675,6 +681,57 @@ def fused_ln_qkv_plain(
     return q.to(x.dtype), proj(wk, bk).to(x.dtype), proj(wv, bv).to(x.dtype)
 
 
+# The softmax orders of the ViT attention kernels (the ``mode`` argument of
+# vit_attention.cuh), with e = exp(s - max):
+#   "bf16_sum"      p = q.dtype(e), divided after PV by the sum of those p
+#                   (attention_core);
+#   "fast_exp"      e = exp(bf16(s - max)), PV with q.dtype(e), divided after
+#                   PV by the sum of the fp32 e (attention_core and
+#                   fused_vit_block with fast_exp);
+#   "normalised"    p = q.dtype(e / sum(e)), nothing divided after PV
+#                   (fused_vit_block's default, fused_vit_block_q8);
+#   "deferred_div"  PV with q.dtype(e), divided after PV by the sum of the
+#                   fp32 e (fused_vit_block with deferred_div).
+SOFTMAX_MODES = {"bf16_sum": 0, "fast_exp": 1, "normalised": 2,
+                 "deferred_div": 3}
+
+
+def _softmax_pv_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_heads: int, mode: str) -> torch.Tensor:
+    """softmax(q k^T) v per head over (B, L, H*dh) pre-scaled q, in one of
+    the SOFTMAX_MODES orders: fp32 scores, fp32 PV; returns the fp32
+    (B, L, H*dh) output before any cast.
+
+    ``fast_exp`` takes the exponential of ``bf16(s - max)``. XLA evaluates
+    that bf16 exponential in fp32 and, allowed excess precision, rounds it
+    to bf16 only where a bf16 value is needed: the interpret-mode kernels
+    sum the unrounded fp32 exponentials and multiply V by them cast to q's
+    dtype. So does this version."""
+    batch, seq, width = q.shape
+    head_dim = width // num_heads
+
+    def heads(t):  # (B, L, H*dh) -> (B, H, L, dh) in fp32 (exact for bf16)
+        return t.reshape(batch, seq, num_heads, head_dim).transpose(1, 2) \
+            .float()
+
+    s = torch.matmul(heads(q), heads(k).transpose(-1, -2))
+    d = s - s.amax(dim=-1, keepdim=True)
+    if mode == "fast_exp":
+        d = d.to(torch.bfloat16).float()
+    e = torch.exp(d)
+    if mode == "normalised":
+        p, denom = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype), None
+    elif mode == "bf16_sum":
+        p = e.to(q.dtype)
+        denom = p.float().sum(dim=-1, keepdim=True)
+    else:
+        p, denom = e.to(q.dtype), e.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.float(), heads(v))
+    if denom is not None:
+        o = o / denom
+    return o.transpose(1, 2).reshape(batch, seq, width)
+
+
 def attention_core_plain(
     q: torch.Tensor,             # (B, L, D) PRE-SCALED queries, heads on lanes
     k: torch.Tensor,
@@ -685,30 +742,10 @@ def attention_core_plain(
     """softmax(q k^T) v per head in the Pallas kernel's order: fp32 scores,
     the unnormalised probabilities ``p = exp(s - max)`` cast to q's dtype
     and their fp32 sum, PV in fp32 divided after the product, one cast to
-    q's dtype.
-
-    ``fast_exp`` takes the exponential of ``bf16(s - max)``. XLA evaluates
-    that bf16 exponential in fp32 and, allowed excess precision, rounds it
-    to bf16 only where a bf16 value is needed: the interpret-mode kernel
-    sums the unrounded fp32 exponentials and multiplies V by them cast to
-    q's dtype. So does this version."""
-    batch, seq, width = q.shape
-    head_dim = width // num_heads
-
-    def heads(t):  # (B, L, H*dh) -> (B, H, L, dh) in fp32 (exact for bf16)
-        return t.reshape(batch, seq, num_heads, head_dim).transpose(1, 2) \
-            .float()
-
-    s = torch.matmul(heads(q), heads(k).transpose(-1, -2))
-    d = s - s.amax(dim=-1, keepdim=True)
-    if fast_exp:
-        e = torch.exp(d.to(torch.bfloat16).float())
-        p, denom = e.to(q.dtype), e.sum(dim=-1, keepdim=True)
-    else:
-        p = torch.exp(d).to(q.dtype)
-        denom = p.float().sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.float(), heads(v)) / denom
-    return o.to(q.dtype).transpose(1, 2).reshape(batch, seq, width)
+    q's dtype; with ``fast_exp`` the exponential of ``bf16(s - max)``
+    (``_softmax_pv_f32``'s "bf16_sum" and "fast_exp" orders)."""
+    mode = "fast_exp" if fast_exp else "bf16_sum"
+    return _softmax_pv_f32(q, k, v, num_heads, mode).to(q.dtype)
 
 
 def attention_core_oproj_plain(
@@ -1127,3 +1164,354 @@ def fused_mlp_block_q8(
 
 fused_qkv_q8.launches = 0
 fused_mlp_block_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# CLIP ViT whole blocks (128 tokens or fewer, and the long whole / whole_dd
+# variants): plain versions and the wrappers around csrc/vit_block.cu
+# (fused_vit_block, fused_attention_block) and csrc/vit_block_q8.cu
+# (fused_vit_block_q8)
+#
+# The Pallas kernels run a group of G images as one (G L, G L) score matrix
+# per head whose cross-image entries are ``s - 1e30``: their exponentials
+# after the row max are exactly 0 in fp32 and add nothing to a sum or to PV.
+# So the plain versions and the CUDA kernels work image by image; G changes
+# the Pallas results only through the order of the sums. The wrappers still
+# refuse a G that does not divide B, as the JAX wrappers assert.
+# ---------------------------------------------------------------------------
+
+def _vit_block_softmax(deferred_div: bool, fast_exp: bool) -> str:
+    """The Pallas kernel's softmax order (fast_exp wins, as in JAX)."""
+    if fast_exp:
+        return "fast_exp"
+    return "deferred_div" if deferred_div else "normalised"
+
+
+def fused_vit_block_plain(
+    x: torch.Tensor,             # (B, L, D) pre-LN residual stream
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    wq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, bv: torch.Tensor,
+    wo: torch.Tensor, bo: torch.Tensor,
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, b_proj: torch.Tensor,
+    num_heads: int,
+    eps: float = 1e-5,
+    deferred_div: bool = False,
+    fast_exp: bool = False,
+) -> torch.Tensor:
+    """x + Attn(LN1(x)) + MLP(LN2(x + Attn(LN1(x)))) in the Pallas kernel's
+    order of rounding, whatever x's dtype: ``h = bf16(LN1(x))``; q = (h.wq
+    + bq) * scale, k and v in fp32 (bf16 weights, fp32 accumulation), each
+    cast to bf16; the attention in fp32 (``_softmax_pv_f32``: "normalised",
+    "deferred_div" or "fast_exp"), rounded to bf16; ``r1 = x + (attn.wo +
+    bo)`` in fp32; ``h2 = bf16(LN2(r1))``; ``hid = bf16(quickGELU(h2.w_fc +
+    b_fc))``; one cast of ``r1 + (hid.w_proj + b_proj)`` to x's dtype."""
+    bf = torch.bfloat16
+    d_model = x.shape[-1]
+    x32 = x.float()
+
+    def proj(a, w, b):
+        return torch.matmul(a, _bf16_operand(w)) + b.float()
+
+    h = _ln_f32(x32, ln1_scale, ln1_bias, eps).to(bf).float()
+    q = (proj(h, wq, bq) * (d_model // num_heads) ** -0.5).to(bf)
+    k, v = proj(h, wk, bk).to(bf), proj(h, wv, bv).to(bf)
+    attn = _softmax_pv_f32(q, k, v, num_heads,
+                           _vit_block_softmax(deferred_div, fast_exp))
+    r1 = x32 + proj(attn.to(bf).float(), wo, bo)
+    h2 = _ln_f32(r1, ln2_scale, ln2_bias, eps).to(bf).float()
+    hid = proj(h2, w_fc, b_fc)
+    hid = (hid * torch.sigmoid(QUICK_GELU_ALPHA * hid)).to(bf).float()
+    return (r1 + proj(hid, w_proj, b_proj)).to(x.dtype)
+
+
+def fused_vit_block(
+    x: torch.Tensor,
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    wq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, bv: torch.Tensor,
+    wo: torch.Tensor, bo: torch.Tensor,
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, b_proj: torch.Tensor,
+    num_heads: int,
+    group: int = 4,
+    eps: float = 1e-5,
+    deferred_div: bool = False,
+    fast_exp: bool = False,
+) -> torch.Tensor:
+    """The whole pre-LN CLIP block (quickGELU) over (B, L, D) x. ``group``
+    (images per TPU program) is checked (it must divide B) and changes no
+    result. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (``fused_vit_block.launches``) or raise."""
+    op = "fused_vit_block"
+    _check_group(op, x.shape[0], group)
+    if x.device.type == "cpu":
+        return fused_vit_block_plain(
+            x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+            ln2_scale, ln2_bias, w_fc, b_fc, w_proj, b_proj, num_heads, eps,
+            deferred_div, fast_exp)
+    tensors = dict(x=x, ln1_scale=ln1_scale, ln1_bias=ln1_bias, wq=wq, bq=bq,
+                   wk=wk, bk=bk, wv=wv, bv=bv, wo=wo, bo=bo,
+                   ln2_scale=ln2_scale, ln2_bias=ln2_bias, w_fc=w_fc,
+                   b_fc=b_fc, w_proj=w_proj, b_proj=b_proj)
+    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
+                   **tensors)
+    if x.dim() != 3:
+        raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
+    batch, seq, d_model = x.shape
+    d_ff = w_fc.shape[-1]
+    vec, mat = (d_model,), (d_model, d_model)
+    _check_shapes(op, ln1_scale=(ln1_scale, vec), ln1_bias=(ln1_bias, vec),
+                  wq=(wq, mat), bq=(bq, vec), wk=(wk, mat), bk=(bk, vec),
+                  wv=(wv, mat), bv=(bv, vec), wo=(wo, mat), bo=(bo, vec),
+                  ln2_scale=(ln2_scale, vec), ln2_bias=(ln2_bias, vec),
+                  w_fc=(w_fc, (d_model, d_ff)), b_fc=(b_fc, (d_ff,)),
+                  w_proj=(w_proj, (d_ff, d_model)), b_proj=(b_proj, vec))
+    _check_vit_widths(op, D=d_model, F=d_ff)
+    head_dim = _vit_head_dim(op, seq, d_model, num_heads)
+    rows, dev = batch * seq, x.device
+    # through device memory, once each: bf16 h (LN1, then LN2), q, k, v and
+    # the attention output; the fp32 residual r1; the bf16 quickGELU hidden
+    h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
+    q, k, v, attn = (torch.empty_like(x) for _ in range(4))
+    r1 = torch.empty((rows, d_model), dtype=_F32, device=dev)
+    hidden = torch.empty((rows, d_ff), dtype=_BF16, device=dev)
+    out = torch.empty_like(x)
+    mode = SOFTMAX_MODES[_vit_block_softmax(deferred_div, fast_exp)]
+    _run(op, _launcher_of("vit_block", op, 25, 6, 2),
+         *(t.data_ptr() for t in tensors.values()),
+         h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         attn.data_ptr(), r1.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+         batch, seq, num_heads, head_dim, d_ff, mode, head_dim ** -0.5, eps,
+         torch.cuda.current_stream(dev).cuda_stream)
+    fused_vit_block.launches += 1
+    return out
+
+
+fused_vit_block.launches = 0
+
+
+def fused_vit_block_q8_plain(
+    x: torch.Tensor,             # (B, L, D) pre-LN residual stream
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    w_qkv: torch.Tensor, s_qkv: torch.Tensor, b_qkv: torch.Tensor,  # (D, 3D)
+    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w_fc: torch.Tensor, s_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
+    num_heads: int,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """``fused_vit_block`` with the four projections int8 (int8 (K, N)
+    weights with fp32 per-output-channel scales), in the Pallas kernel's
+    order: each product quantizes its fp32 input per row
+    (``_row_quant_i8``) and gives ``(acc * hs) * s + b``; the fp32
+    LayerNorm h (never rounded to bf16) feeds the concatenated q | k | v
+    product, q times the scale; the attention takes q, k, v cast to bf16
+    and its "normalised" softmax, and its fp32 output is quantized as it is;
+    ``r1 = x + attn-product`` in fp32; the MLP's LN2, quickGELU hidden and
+    residual in fp32; one cast to x's dtype."""
+    bf = torch.bfloat16
+    batch, seq, d_model = x.shape
+    x32 = x.reshape(-1, d_model).float()
+
+    def mm_q8(a, w, s, b):
+        return _mm_q8_grouped([_row_quant_i8(a)], w, _as_group_scales(s)) \
+            + b.float()
+
+    qkv = mm_q8(_ln_f32(x32, ln1_scale, ln1_bias, eps), w_qkv, s_qkv, b_qkv)
+    q = qkv[:, :d_model] * (d_model // num_heads) ** -0.5
+    q, k, v = (t.reshape(batch, seq, d_model).to(bf) for t in (
+        q, qkv[:, d_model:2 * d_model], qkv[:, 2 * d_model:]))
+    attn = _softmax_pv_f32(q, k, v, num_heads, "normalised")
+    r1 = x32 + mm_q8(attn.reshape(-1, d_model), wo, so, bo)
+    hid = mm_q8(_ln_f32(r1, ln2_scale, ln2_bias, eps), w_fc, s_fc, b_fc)
+    hid = hid * torch.sigmoid(QUICK_GELU_ALPHA * hid)
+    return (r1 + mm_q8(hid, w_proj, s_proj, b_proj)).reshape(x.shape) \
+        .to(x.dtype)
+
+
+def fused_vit_block_q8(
+    x: torch.Tensor,
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    w_qkv: torch.Tensor, s_qkv: torch.Tensor, b_qkv: torch.Tensor,
+    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w_fc: torch.Tensor, s_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
+    num_heads: int,
+    group: int = 4,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """The whole int8 CLIP block over (B, L, D) x. ``group`` is checked (it
+    must divide B) and changes no result. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (``fused_vit_block_q8.launches``)
+    or raise."""
+    op = "fused_vit_block_q8"
+    _check_group(op, x.shape[0], group)
+    if x.device.type == "cpu":
+        return fused_vit_block_q8_plain(
+            x, ln1_scale, ln1_bias, w_qkv, s_qkv, b_qkv, wo, so, bo,
+            ln2_scale, ln2_bias, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj,
+            num_heads, eps)
+    if x.dim() != 3:
+        raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
+    batch, seq, d_model = x.shape
+    d_ff = w_fc.shape[-1]
+    s_qkv = _check_vit_q8_product(op, "w_qkv", w_qkv, s_qkv, d_model)
+    so = _check_vit_q8_product(op, "wo", wo, so, d_model)
+    s_fc = _check_vit_q8_product(op, "w_fc", w_fc, s_fc, d_model)
+    s_proj = _check_vit_q8_product(op, "w_proj", w_proj, s_proj, d_ff)
+    tensors = dict(x=x, ln1_scale=ln1_scale, ln1_bias=ln1_bias, w_qkv=w_qkv,
+                   s_qkv=s_qkv, b_qkv=b_qkv, wo=wo, so=so, bo=bo,
+                   ln2_scale=ln2_scale, ln2_bias=ln2_bias, w_fc=w_fc,
+                   s_fc=s_fc, b_fc=b_fc, w_proj=w_proj, s_proj=s_proj,
+                   b_proj=b_proj)
+    _check_tensors(op, x.device,
+                   dict({name: _BF16 for name in tensors}, w_qkv=_I8, wo=_I8,
+                        w_fc=_I8, w_proj=_I8, s_qkv=_F32, so=_F32, s_fc=_F32,
+                        s_proj=_F32),
+                   **tensors)
+    vec = (d_model,)
+    _check_shapes(op, ln1_scale=(ln1_scale, vec), ln1_bias=(ln1_bias, vec),
+                  w_qkv=(w_qkv, (d_model, 3 * d_model)),
+                  b_qkv=(b_qkv, (3 * d_model,)), wo=(wo, (d_model, d_model)),
+                  bo=(bo, vec), ln2_scale=(ln2_scale, vec),
+                  ln2_bias=(ln2_bias, vec), b_fc=(b_fc, (d_ff,)),
+                  w_proj=(w_proj, (d_ff, d_model)), b_proj=(b_proj, vec))
+    _check_vit_widths(op, D=d_model, F=d_ff)
+    head_dim = _vit_head_dim(op, seq, d_model, num_heads)
+    rows, dev = batch * seq, x.device
+    # through device memory, once each: the codes and row scales of each
+    # product's input (one buffer, F wide), bf16 q, k and v, and the fp32
+    # attention output, residual r1 and quickGELU hidden
+    codes = torch.empty((rows, d_ff), dtype=_I8, device=dev)
+    row_scales = torch.empty((rows, 1), dtype=_F32, device=dev)
+    q, k, v = (torch.empty_like(x) for _ in range(3))
+    attn, r1 = (torch.empty((rows, d_model), dtype=_F32, device=dev)
+                for _ in range(2))
+    hidden = torch.empty((rows, d_ff), dtype=_F32, device=dev)
+    out = torch.empty_like(x)
+    for name in ("w_qkv", "wo", "w_fc", "w_proj"):
+        tensors[name] = _k_major(tensors[name])
+    _run(op, _launcher_of("vit_block_q8", op, 26, 5, 2),
+         *(t.data_ptr() for t in tensors.values()),
+         codes.data_ptr(), row_scales.data_ptr(), q.data_ptr(), k.data_ptr(),
+         v.data_ptr(), attn.data_ptr(), r1.data_ptr(), hidden.data_ptr(),
+         out.data_ptr(), batch, seq, num_heads, head_dim, d_ff,
+         head_dim ** -0.5, eps, torch.cuda.current_stream(dev).cuda_stream)
+    fused_vit_block_q8.launches += 1
+    return out
+
+
+fused_vit_block_q8.launches = 0
+
+
+def _block_diag_only(block_diag: bool) -> None:
+    if not block_diag:
+        raise NotImplementedError(
+            "fused_attention_block(block_diag=False) is not ported (ROADMAP "
+            "Queue 2 #17: its one caller, the CLIP tower's fused_attention "
+            "at 128 tokens or fewer, passes block_diag=True)")
+
+
+def fused_attention_block_plain(
+    x: torch.Tensor,             # (B, L, D) post-LN activations
+    wq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, bv: torch.Tensor,
+    wo: torch.Tensor, bo: torch.Tensor,
+    num_heads: int,
+    block_diag: bool = False,
+) -> torch.Tensor:
+    """softmax((x wq + bq) scale (x wk + bk)^T) (x wv + bv) wo + bo per head,
+    as the block-diagonal Pallas kernel computes it: x and the weights
+    upcast and everything in fp32 (the projections, q times the scale, the
+    scores, the normalised probabilities, PV and the out-projection), one
+    cast to x's dtype. The caller adds the residual."""
+    _block_diag_only(block_diag)
+    x32 = x.float()
+
+    def proj(a, w, b):
+        return torch.matmul(a, w.float()) + b.float()
+
+    q = proj(x32, wq, bq) * (x.shape[-1] // num_heads) ** -0.5
+    attn = _softmax_pv_f32(q, proj(x32, wk, bk), proj(x32, wv, bv),
+                           num_heads, "normalised")
+    return proj(attn, wo, bo).to(x.dtype)
+
+
+def attention_block_max_len(head_dim: int) -> int:
+    """The longest sequence ``fused_attention_block``'s fp32 attention
+    kernel takes on the current card at this head size (an image's fp32 K
+    and V live in shared memory); 0 for an unsupported head size."""
+    return _kernel_max_len("vit_block", "attention_block_max_len", head_dim)
+
+
+def fused_attention_block(
+    x: torch.Tensor,
+    wq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, bv: torch.Tensor,
+    wo: torch.Tensor, bo: torch.Tensor,
+    num_heads: int,
+    group: int = 16,
+    block_diag: bool = False,
+) -> torch.Tensor:
+    """The attention half of a CLIP block over post-LN x, without the
+    residual; only the block-diagonal kernel is ported. ``group`` is
+    checked (it must divide B) and changes no result. CPU tensors take the
+    plain version; CUDA tensors launch the kernel
+    (``fused_attention_block.launches``) or raise."""
+    op = "fused_attention_block"
+    _block_diag_only(block_diag)
+    _check_group(op, x.shape[0], group)
+    if x.device.type == "cpu":
+        return fused_attention_block_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                           num_heads, block_diag)
+    tensors = dict(x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo,
+                   bo=bo)
+    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
+                   **tensors)
+    if x.dim() != 3:
+        raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
+    batch, seq, d_model = x.shape
+    vec, mat = (d_model,), (d_model, d_model)
+    _check_shapes(op, wq=(wq, mat), bq=(bq, vec), wk=(wk, mat), bk=(bk, vec),
+                  wv=(wv, mat), bv=(bv, vec), wo=(wo, mat), bo=(bo, vec))
+    _check_vit_widths(op, D=d_model)
+    if num_heads <= 0 or d_model % num_heads:
+        raise ValueError(
+            f"{op}: width {d_model} is not a multiple of {num_heads} heads")
+    head_dim = d_model // num_heads
+    limit = attention_block_max_len(head_dim)
+    if seq > limit:
+        raise ValueError(
+            f"{op}: sequence length {seq} exceeds {limit}, the longest whose "
+            f"fp32 K and V fit this card's shared memory at head size "
+            f"{head_dim}")
+    rows, dev = batch * seq, x.device
+    # through device memory, once each: the fp32 q, k, v, and the fp32
+    # attention output as three bf16 planes (lo | mid | hi, (M, 3 D)) whose
+    # products with the three stacked copies of wo are exact
+    q, k, v = (torch.empty((rows, d_model), dtype=_F32, device=dev)
+               for _ in range(3))
+    attn3 = torch.empty((rows, 3 * d_model), dtype=_BF16, device=dev)
+    wo3 = torch.cat([wo, wo, wo])
+    out = torch.empty_like(x)
+    _run(op, _launcher_of("vit_block", op, 14, 4, 1),
+         x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wk.data_ptr(),
+         bk.data_ptr(), wv.data_ptr(), bv.data_ptr(), wo3.data_ptr(),
+         bo.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         attn3.data_ptr(), out.data_ptr(), batch, seq, num_heads, head_dim,
+         head_dim ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    fused_attention_block.launches += 1
+    return out
+
+
+fused_attention_block.launches = 0

@@ -20,7 +20,11 @@ caches; the CLIP ViT ``split3`` kernels (``fused_ln_qkv``,
 ``attention_core_oproj``, ``fused_mlp_block``) and the int8 path's
 (``fused_qkv_q8``, ``attention_core`` with and without ``fast_exp``,
 ``fused_mlp_block_q8``, weights from ``quantize_vision_blocks``) at
-ViT-L/14@336 widths on 16 images (L = 577, D = 1024, 16 heads, F = 4096).
+ViT-L/14@336 widths on 16 images (L = 577, D = 1024, 16 heads, F = 4096),
+with ``fused_vit_block`` there too in its long ``whole`` and ``whole_dd``
+orders; the short-sequence whole blocks (``fused_vit_block`` in its three
+softmax orders, ``fused_vit_block_q8``, ``fused_attention_block``) at
+ViT-B/32 widths on 16 images (L = 50, D = 768, 12 heads, F = 3072).
 Prints one line per report and per kernel; ``chip_smoke.py`` makes the full
 measurement.
 """
@@ -134,6 +138,12 @@ def main() -> None:
           f"{cuda_ms(lambda: da.cross_attention_decode(*args), 100)} ms")
     vit_probe(randn)
     vit_q8_probe(randn)
+    whole_block_probe(randn, clip.CLIPVisionConfig.vit_l_14_336(num_layers=1),
+                      {"whole": {}, "whole_dd": {"deferred_div": True}})
+    whole_block_probe(randn, clip.CLIPVisionConfig.vit_b_32(num_layers=1),
+                      {"normalised": {},
+                       "deferred_div": {"deferred_div": True},
+                       "whole_fe": {"fast_exp": True}}, short=True)
 
 
 def vit_probe(randn) -> None:
@@ -202,6 +212,45 @@ def vit_q8_probe(randn) -> None:
             (x, ln_s, ln_b, q8["mlp_fc"][0], q8["mlp_fc_scale"][0], b_fc,
              q8["mlp_proj"][0], q8["mlp_proj_scale"][0], b_pr)),
     }
+    run_cases(cases, batch)
+
+
+
+def whole_block_probe(randn, cfg, orders: dict, short: bool = False) -> None:
+    """fused_vit_block on 16 images of ``cfg`` in each named softmax order;
+    with ``short``, also fused_vit_block_q8 and fused_attention_block."""
+    batch, seq, width, heads = 16, cfg.seq_len, cfg.width, cfg.num_heads
+    layer = {name: leaf[0] for name, leaf in clip.init_clip_vision_params(
+        torch.Generator(device="cuda").manual_seed(1), cfg)["blocks"].items()}
+    x = randn(batch, seq, width)
+    block = [layer[n] for n in (
+        "ln1_scale", "ln1_bias", "q", "q_bias", "k", "k_bias", "v", "v_bias",
+        "o", "o_bias", "ln2_scale", "ln2_bias", "mlp_fc", "mlp_fc_bias",
+        "mlp_proj", "mlp_proj_bias")]
+    cases = {
+        f"fused_vit_block {name} L={seq}": (
+            lambda *a, kw=kw: fab.fused_vit_block(*a, **kw),
+            lambda *a, kw=kw: fab.fused_vit_block_plain(*a, **kw),
+            (x, *block, heads))
+        for name, kw in orders.items()}
+    if short:
+        q8 = clip.quantize_vision_blocks(
+            {"blocks": {n: layer[n][None] for n in (
+                "q", "k", "v", "o", "mlp_fc", "mlp_proj")}})
+        b_qkv = torch.cat([layer["q_bias"], layer["k_bias"], layer["v_bias"]])
+        cases["fused_vit_block_q8"] = (
+            fab.fused_vit_block_q8, fab.fused_vit_block_q8_plain,
+            (x, layer["ln1_scale"], layer["ln1_bias"], q8["qkv"][0],
+             q8["qkv_scale"][0], b_qkv, q8["o"][0], q8["o_scale"][0],
+             layer["o_bias"], layer["ln2_scale"], layer["ln2_bias"],
+             q8["mlp_fc"][0], q8["mlp_fc_scale"][0], layer["mlp_fc_bias"],
+             q8["mlp_proj"][0], q8["mlp_proj_scale"][0],
+             layer["mlp_proj_bias"], heads))
+        cases["fused_attention_block"] = (
+            lambda *a: fab.fused_attention_block(*a, block_diag=True),
+            lambda *a: fab.fused_attention_block_plain(*a, block_diag=True),
+            (x, *(layer[n] for n in ("q", "q_bias", "k", "k_bias", "v",
+                                     "v_bias", "o", "o_bias")), heads))
     run_cases(cases, batch)
 
 

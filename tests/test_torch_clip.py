@@ -1,11 +1,12 @@
 """The port's CLIP towers against the JAX package's on the same converted
-params: the default path, fast_attention, the fused split3 path (Pallas in
-interpret mode on the JAX side, the kernels' plain versions on the port's),
-the text tower, and the branches whose kernels are not ported yet (the HF
-witness is in tests/test_torch_clip_tools.py, which builds it once; the
-long-sequence split* and fused_attention variants in
-tests/test_torch_clip_long.py; the int8 tower in
-tests/test_torch_clip_int8.py)."""
+params: the default path, fast_attention, the fused split3 path and the
+whole-block branches (fused_vit_block, fused_vit_block_q8,
+fused_attention_block; Pallas in interpret mode on the JAX side, the
+kernels' plain versions on the port's), the text tower, and use_pallas,
+whose kernel is not ported yet (the HF witness is in
+tests/test_torch_clip_tools.py, which builds it once; the long-sequence
+split* and fused_attention variants in tests/test_torch_clip_long.py; the
+long int8 tower in tests/test_torch_clip_int8.py)."""
 
 import dataclasses
 
@@ -44,6 +45,9 @@ TOWERS = {
                    num_heads=4, projection_dim=32),
     "small_test": dict(image_size=28, patch_size=14, width=32, num_layers=2,
                        num_heads=4, projection_dim=16),
+    # small_test(patch_size=4): (28 / 4)^2 + 1 = 50 tokens, ViT-B/32's length
+    "seq50": dict(image_size=28, patch_size=4, width=32, num_layers=2,
+                  num_heads=4, projection_dim=16),
 }
 BATCH = 2
 
@@ -84,6 +88,8 @@ def encode_jax(towers, tower, dtype, **kw):
     if key not in _jax_cache:
         jp, _, images = towers[tower]
         jcfg, _ = configs(tower, dtype, **kw)
+        if kw.get("int8"):   # each side's blocks_q8 from its own quantizer
+            jp = dict(jp, blocks_q8=jclip.quantize_vision_blocks(jp))
         _jax_cache[key] = np.asarray(jclip.clip_encode_image(
             jp, jcfg, jnp.asarray(images)).astype(jnp.float32))
     return _jax_cache[key]
@@ -92,6 +98,8 @@ def encode_jax(towers, tower, dtype, **kw):
 def encode_port(towers, tower, dtype, **kw):
     _, tp, images = towers[tower]
     _, tcfg = configs(tower, dtype, **kw)
+    if kw.get("int8"):
+        tp = dict(tp, blocks_q8=tclip.quantize_vision_blocks(tp))
     out = tclip.clip_encode_image(tp, tcfg, torch.from_numpy(images))
     assert out.dtype == DTYPES[dtype][1]
     return out.float().numpy()
@@ -196,23 +204,51 @@ def test_encode_text_matches_jax():
     np.testing.assert_allclose(got, want, rtol=DEFAULT_TOL, atol=DEFAULT_TOL)
 
 
-UNPORTED = [
-    ("seq197", dict(fused_block=True, fused_block_long="whole"), "#7"),
-    ("seq197", dict(fused_block=True, fused_block_long="whole_dd"), "#7"),
-    ("small_test", dict(fused_block=True), "#7"),
+# The branches of the whole-block kernels, each against JAX's same branch:
+# the kernel each runs, whose launch count must not move on the CPU
+WHOLE_BLOCK_CASES = [
+    ("seq197", dict(fused_block=True, fused_block_long="whole"),
+     "fused_vit_block"),
+    ("seq197", dict(fused_block=True, fused_block_long="whole_dd"),
+     "fused_vit_block"),
+    ("small_test", dict(fused_block=True), "fused_vit_block"),
     ("small_test", dict(fused_block=True, fused_block_long="whole_fe"),
-     "#7"),
-    ("small_test", dict(fused_attention=True), "#17"),
-    ("small_test", dict(int8=True), "#12"),
+     "fused_vit_block"),
+    ("small_test", dict(fused_attention=True), "fused_attention_block"),
+    ("small_test", dict(int8=True), "fused_vit_block_q8"),
+    ("seq50", dict(int8=True), "fused_vit_block_q8"),
 ]
+# against the default path: the JAX package's bounds (the bf16 kernels',
+# tests/test_vit_long_variants.py; the int8 blocks', tests/test_int8_vit.py)
+QUANTIZED_COSINE = 0.995
 
 
-@pytest.mark.parametrize("tower,kw,item", UNPORTED,
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("tower,kw,kernel", WHOLE_BLOCK_CASES,
                          ids=[f"{t}-{'-'.join(map(str, k.values()))}"
-                              for t, k, _ in UNPORTED])
-def test_unported_branches_raise(towers, tower, kw, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 2 {item}"):
-        encode_port(towers, tower, "float32", **kw)
+                              for t, k, _ in WHOLE_BLOCK_CASES])
+def test_whole_block_branches_match_jax(towers, tower, kw, kernel, dtype):
+    fn = getattr(tfab, kernel)
+    before = fn.launches
+    got = encode_port(towers, tower, dtype, **kw)
+    assert fn.launches == before       # CPU tensors: the plain version
+    want = encode_jax(towers, tower, dtype, **kw)
+    cos = cosine(got, want)
+    assert (cos >= SAME_PATH_COSINE).all(), cos
+    cross = cosine(got, encode_jax(towers, tower, dtype))
+    floor = QUANTIZED_COSINE if kw.get("int8") else CROSS_PATH_COSINE
+    assert (cross > floor).all(), cross
+
+
+def test_fused_attention_block_fp32_is_the_default_arithmetic(towers):
+    """At 128 tokens or fewer fused_attention keeps the attention in fp32:
+    in an fp32 tower it is the default path's arithmetic, to fp32 noise."""
+    want = encode_jax(towers, "seq50", "float32", fused_attention=True)
+    got = encode_port(towers, "seq50", "float32", fused_attention=True)
+    np.testing.assert_allclose(got, want, rtol=DEFAULT_TOL, atol=DEFAULT_TOL)
+    default = encode_port(towers, "seq50", "float32")
+    np.testing.assert_allclose(got, default, rtol=DEFAULT_TOL,
+                               atol=DEFAULT_TOL)
 
 
 def test_unknown_long_variant_raises(towers):
@@ -226,12 +262,16 @@ def test_unknown_long_variant_raises(towers):
 def test_int8_without_blocks_q8_raises(towers):
     """The JAX package silently runs the bf16 blocks when cfg.int8 is set
     and the params hold no blocks_q8 (models/clip.py:497); the port
-    raises."""
-    with pytest.raises(ValueError, match="blocks_q8"):
-        encode_port(towers, "seq197", "float32", int8=True)
+    raises, on the long and on the short int8 branch."""
+    for tower in ("seq197", "seq50"):
+        _, tp, images = towers[tower]
+        _, tcfg = configs(tower, "float32", int8=True)
+        with pytest.raises(ValueError, match="blocks_q8"):
+            tclip.clip_encode_image(tp, tcfg, torch.from_numpy(images))
 
 
 def test_use_pallas_raises(towers):
+    """use_pallas reaches ops/attention.py::flash_attention, not ported."""
     _, tp, images = towers["small_test"]
     _, tcfg = configs("small_test", "float32")
     with pytest.raises(NotImplementedError, match="Queue 2 #16"):

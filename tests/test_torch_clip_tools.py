@@ -29,6 +29,9 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.convert import (  # noqa: E402
     clip_vision_params_from_numpy,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clip as tclip  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (  # noqa: E402
+    fused_attention_block as tfab,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import (  # noqa: E402
     clip_encoder as tenc,
 )
@@ -43,7 +46,8 @@ from test_torch_clip_int8 import (  # noqa: E402
 # fp32 default path of both packages: the same ops, fp32 sums in another
 # order (tests/test_torch_clip.py)
 TOL = 1e-5
-# a code flipped at a .5 boundary moves an int8 embedding far less than this
+# a code flipped at a .5 boundary, or a bf16 rounding inside a fused block
+# that goes the other way, moves an embedding far less than this
 INT8_SAME_PATH_COSINE = 0.99999
 HF_TOL = 2e-4
 
@@ -141,6 +145,37 @@ def test_int8_encoder_matches_jax(seq197):
     want, got = (e.encode_batch(images) for e in encoders)
     assert got.shape == (2, tcfg.projection_dim) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_vit_b32_shaped_fused_encoder_matches_jax(int8):
+    """A 50-token tower (small_test at patch 4: ViT-B/32's sequence length)
+    with fused_block=True, as bench.py builds ViT-B/32, and with int8=True
+    on top of it (the int8 branch wins, as in JAX): ClipImageEncoder of both
+    packages on the same fp32 weights and images, the batch padded to the
+    encoder's size; each row's cosine to JAX's (both sides round to bf16
+    at the same places inside the blocks)."""
+    jcfg = jclip.CLIPVisionConfig.small_test(patch_size=4, fused_block=True)
+    tcfg = tclip.CLIPVisionConfig.small_test(patch_size=4, fused_block=True)
+    assert tcfg.seq_len == 50
+    tree = jax.tree.map(lambda t: t.numpy(), tclip.init_clip_vision_params(
+        torch.Generator().manual_seed(5), tcfg, torch.float32))
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = clip_vision_params_from_numpy(tree, torch.float32, "cpu")
+    encoders = (jenc.ClipImageEncoder(jcfg, jp, batch_size=4, int8=int8),
+                tenc.ClipImageEncoder(tcfg, tp, batch_size=4, int8=int8,
+                                      device="cpu"))
+    assert "blocks_q8" not in tp and encoders[1].cfg.int8 == int8
+    kernel = tfab.fused_vit_block_q8 if int8 else tfab.fused_vit_block
+    before = kernel.launches
+    images = np.random.default_rng(6).standard_normal(
+        (3, 28, 28, 3)).astype(np.float32)
+    want, got = (e.encode_batch(images) for e in encoders)
+    assert kernel.launches == before       # CPU tensors: the plain version
+    assert got.shape == (3, tcfg.projection_dim) and got.dtype == np.float32
+    cosine = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                     * np.linalg.norm(want, axis=-1))
+    assert (cosine >= INT8_SAME_PATH_COSINE).all(), cosine
 
 
 def test_encoders_without_weights_draw_seed_0(monkeypatch, caplog):

@@ -556,3 +556,62 @@ def test_cuda_kernel_matches_plain_version(op, rows):
         assert bool(((g - w).abs() <= 1.6e-2 * w.abs() + 1.6e-2 * rms).all())
     with pytest.raises(ValueError, match="bfloat16"):
         fn(args[0].float(), *args[1:])
+
+
+# --- the T5 weight quantizer ------------------------------------------------
+
+def test_quant_stacked_i8_is_bit_equal_to_jax():
+    """Random columns in 2 groups, an all-zero column (the 1e-8 floor) and
+    columns of exact ties (scale 127 / 127 = 1, values k + 0.5), against
+    the JAX package's numpy quantizer."""
+    w = np.random.default_rng(0).standard_normal((2, 64, 48)).astype(
+        np.float32) * 0.1
+    w[:, :, 3] = 0.0
+    w[0, :, 5] = 0.0
+    w[0, :8, 5] = [127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -3.5]
+    w[1, 32:40, 6] = [-127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -3.5]
+    jt5 = pytest.importorskip("explicit_alignment_for_vqa_tasks_tpu.models.t5")
+    want_q, want_s = jt5._quant_stacked_i8(w, 2)
+    got_q, got_s = _quant_stacked_i8(torch.from_numpy(w), 2)
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    np.testing.assert_array_equal(got_q.numpy(), want_q)
+    assert got_s[0, 0, 3].item() == np.float32(1e-8) / np.float32(127.0)
+    assert got_q[0, :8, 5].tolist() == [127, 0, 2, 2, 0, -2, 126, -4]
+    assert got_q[1, 32:40, 6].tolist() == [-127, 0, 2, 2, 0, -2, 126, -4]
+
+
+@pytest.mark.gpu
+def test_t5_quantizers_on_the_card_equal_the_cpu():
+    """quantize_encoder_ffn / _attn and quantize_decoder_step give the same
+    int8 codes and fp32 scales on the card as on the CPU, bit for bit (the
+    scales divide by a tensor: a CUDA division by a Python scalar is a
+    product with its reciprocal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from explicit_alignment_for_vqa_tasks_tpu_torch.models import t5 as tt5
+
+    cfg = tt5.T5Config.small_test(d_model=256, d_kv=32, num_heads=8,
+                                  d_ff=512, num_encoder_layers=2,
+                                  num_decoder_layers=2)
+    params = tt5.init_t5_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, torch.bfloat16)
+
+    def cpu_copy(tree):
+        return {k: cpu_copy(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    def flat(tree, prefix=""):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                yield from flat(val, f"{prefix}{key}/")
+            else:
+                yield prefix + key, val
+
+    for quantize in (tt5.quantize_encoder_ffn, tt5.quantize_encoder_attn,
+                     tt5.quantize_decoder_step):
+        gpu = dict(flat(quantize(params)))
+        cpu = dict(flat(quantize(cpu_copy(params))))
+        assert gpu.keys() == cpu.keys()
+        for key, val in gpu.items():
+            assert torch.equal(val.cpu(), cpu[key]), (quantize.__name__, key)
