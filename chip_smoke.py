@@ -142,11 +142,18 @@ sys.path.insert(0, str(REPO))
 
 from explicit_alignment_for_vqa_tasks_tpu_torch import kernels  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clip as clip_lib  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.models import clipcap as clipcap_lib  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.models import gpt2 as gpt2_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import t5 as t5_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models.mappers import (  # noqa: E402
     MapperConfig,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.ops.attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_plain,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.decoding import (  # noqa: E402
+    greedy_decode_gpt2,
     greedy_decode_t5,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.models.vct0 import (  # noqa: E402
@@ -160,6 +167,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.decode_attention import (  #
     cross_attention_decode_plain,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import (  # noqa: E402
+    GPT2_BLOCK_KEYS,
     attention_core,
     attention_core_oproj,
     attention_core_oproj_plain,
@@ -174,6 +182,8 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import
     fused_oproj_residual_q8_plain,
     fused_attention_block,
     fused_attention_block_plain,
+    fused_gpt2_block,
+    fused_gpt2_block_plain,
     fused_qkv_q8,
     fused_qkv_q8_plain,
     fused_t5_ffn,
@@ -186,6 +196,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import
     fused_vit_block_plain,
     fused_vit_block_q8,
     fused_vit_block_q8_plain,
+    gpt2_block_group,
     t5_attention_core,
     t5_attention_core_plain,
 )
@@ -230,6 +241,17 @@ SPLIT_FE_LAYERS = 2                # depth of the split_fe and whole encodes
 TEXT_BATCH = 512                   # ClipTextEncoder's batch
 B32_BATCH = 1024                   # the JAX bench's ViT-B/32 batch
 T5_QUANT_LAYERS = 2                # depth of the T5 quantizers' card = CPU check
+# ClipCap: configs/vqa2/clip_cap.jsonnet's model_args (GPT-2 small, the mlp
+# mapper from ViT-B/32's 512-d embeddings to 10 prefix positions)
+CLIPCAP_MODEL_ARGS = {"prefix_length": 10, "clip_length": 10,
+                      "prefix_size": 512, "mapping_type": "mlp",
+                      "model_version": "gpt2"}
+CLIPCAP_BATCH = 32                 # the config's train.batch_size
+CLIPCAP_PROMPT = 32                # generate's longest prompt, in tokens
+CLIPCAP_LOSS_TOKENS = 54           # + 10 prefix = 64 positions: the kernel
+CLIPCAP_BUCKET_TOKENS = 128        # the shipped 128-token bucket: 138, none
+CLIPCAP_LOSS_REL = 1e-2            # fused against unfused loss, relative
+PALLAS_COSINE_FLOOR = 0.999        # use_pallas against default, per row
 
 PORT_CSRC = "explicit_alignment_for_vqa_tasks_tpu_torch/csrc/"
 JAX_OPS = "explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py"
@@ -254,13 +276,18 @@ KERNELS = {
     "fused_vit_block": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":1398"),
     "fused_vit_block_q8": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":810"),
     "fused_attention_block": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":1452"),
+    "fused_gpt2_block": (PORT_CSRC + "gpt2_block.cu", JAX_OPS + ":933"),
+    "flash_attention": (
+        PORT_CSRC + "flash_attention.cu",
+        "explicit_alignment_for_vqa_tasks_tpu/ops/attention.py:142"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
                 fused_oproj_residual_q8, fused_t5_ffn_q8,
                 cross_attention_decode, fused_t5_ffn,
                 fused_ln_qkv, attention_core_oproj, fused_mlp_block,
                 fused_qkv_q8, attention_core, fused_mlp_block_q8,
-                fused_vit_block, fused_vit_block_q8, fused_attention_block)
+                fused_vit_block, fused_vit_block_q8, fused_attention_block,
+                fused_gpt2_block, flash_attention)
 VIT_KERNELS = (fused_ln_qkv, attention_core_oproj, fused_mlp_block)
 VIT_Q8_KERNELS = (fused_qkv_q8, attention_core, fused_mlp_block_q8)
 
@@ -1515,7 +1542,7 @@ def phase_clip_variants(gen: torch.Generator, cfg, params, images,
 
 
 def encode_paths(phase: str, encoders: dict, per_call: dict, images,
-                 num_layers: int) -> dict:
+                 num_layers: int, floor: float = CLIP_COSINE_FLOOR) -> dict:
     """Each encoder (name -> ClipImageEncoder; "default" first) called twice
     with the kernel counts set to 0 before each call and read after it
     (``per_call[name]``'s kernels num_layers times, the others never), then
@@ -1550,9 +1577,9 @@ def encode_paths(phase: str, encoders: dict, per_call: dict, images,
         if name == "default":
             continue
         cosine = row_cosine(outs[name], outs["default"])
-        check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
+        check(bool((cosine >= floor).all()),
               f"{phase} {name} embeddings' cosine to the default path's "
-              f"{cosine.min()} < {CLIP_COSINE_FLOOR}")
+              f"{cosine.min()} < {floor}")
         cosines[name] = dict(min=float(cosine.min()),
                              mean=float(cosine.mean()))
     turns = {name: [] for name in encoders}
@@ -1562,7 +1589,7 @@ def encode_paths(phase: str, encoders: dict, per_call: dict, images,
         t0 = time.perf_counter()
         encoders[name].encode_batch(images)
         turns[name].append(time.perf_counter() - t0)
-    emit(phase + "_vs_default", cosine=cosines, floor=CLIP_COSINE_FLOOR,
+    emit(phase + "_vs_default", cosine=cosines, floor=floor,
          encode_s_in_turns=turns,
          images_per_s_in_turns={k: [batch / t for t in v]
                                 for k, v in turns.items()})
@@ -1684,6 +1711,434 @@ def phase_clip_encode_b32(gen: torch.Generator) -> dict:
     return results
 
 
+def gpt2_layer(gen: torch.Generator, cfg) -> list:
+    """One GPT-2 layer at ``cfg``'s widths, bf16: init-scale weights, random
+    LayerNorm parameters and biases, in the kernel's argument order."""
+    dev = gen.device
+    layer = {name: leaf[0] for name, leaf in gpt2_lib.init_gpt2_params(
+        gen, dataclasses.replace(cfg, num_layers=1))["blocks"].items()}
+    for name, leaf in layer.items():
+        if name.endswith(("bias", "scale")):
+            base = 1.0 if name.endswith("scale") else 0.0
+            layer[name] = (base + 0.1 * torch.randn(
+                leaf.shape, generator=gen, device=dev)).bfloat16()
+    return [layer[n] for n in GPT2_BLOCK_KEYS]
+
+
+def right_padded_mask(batch: int, length: int, dev, shortest: int) -> torch.Tensor:
+    """(B, L) int32: row b valid on its first L - (b % 8) (L - shortest) / 7
+    positions (every eighth row full, the shortest ``shortest``)."""
+    mask = torch.zeros((batch, length), dtype=torch.int32, device=dev)
+    for b in range(batch):
+        mask[b, :length - (b % 8) * (length - shortest) // 7] = 1
+    return mask
+
+
+def gpt2_block_ops(mask: torch.Tensor, d_model: int, d_ff: int) -> float:
+    """The block's operations on these inputs: the four projections over
+    every row, and QK^T and PV over each query's visible valid keys."""
+    rows = mask.numel()
+    projections = 2 * rows * (4 * d_model * d_model + 2 * d_model * d_ff)
+    pairs = int(mask.long().cumsum(dim=1).sum())
+    return projections + 4 * d_model * pairs
+
+
+def phase_gpt2_block(gen: torch.Generator) -> dict:
+    """fused_gpt2_block against its plain version at GPT-2 small widths
+    (D = 768, 12 heads, F = 3072): B=32, L=64 (G = 4) and B=8, L=128 with
+    right-padded rows; B=6, L=64 (G = 2) with a left-padded row that sees no
+    valid key; then timed at B=32, L=64 and L=128 beside the plain version,
+    the bound and the unfused bf16 block."""
+    cfg = gpt2_lib.GPT2Config.gpt2_small()
+    d_model, heads, d_ff = cfg.d_model, cfg.num_heads, 4 * cfg.d_model
+    head_dim, eps = d_model // heads, cfg.layer_norm_epsilon
+    dev = gen.device
+    params = gpt2_layer(gen, cfg)
+    (ln1_s, ln1_b, w_qkv, b_qkv, w_out, b_out, ln2_s, ln2_b, w_fc, b_fc,
+     w_proj, b_proj) = params
+    f = torch.nn.functional
+
+    def inputs(batch, length, left_pad=0):
+        x = torch.randn((batch, length, d_model), generator=gen,
+                        device=dev).bfloat16()
+        mask = right_padded_mask(batch, length, dev, length // 2)
+        mask[1, :left_pad] = 0
+        return x, mask
+
+    checks = {}
+    for batch, length, left_pad in ((32, 64, 0), (8, 128, 0), (6, 64, 7)):
+        x, mask = inputs(batch, length, left_pad)
+        checks[f"B{batch}_L{length}" + ("_left_padded" if left_pad else "")] \
+            = check_against_plain(
+                "fused_gpt2_block", lambda *a: fused_gpt2_block(*a, heads),
+                lambda *a: fused_gpt2_block_plain(*a, heads),
+                (x, mask, *params), batch)
+    timed = {}
+    for batch, length in ((32, 64), (32, 128)):
+        x, mask = inputs(batch, length)
+        args = (x, mask, *params, heads)
+        causal = torch.ones((length, length), dtype=torch.bool,
+                            device=dev).tril()
+        sdpa_mask = causal[None, None] & (mask[:, None, None, :] > 0)
+
+        def lib_block():
+            # yardstick only: the unfused bf16 block (layer_norm, cuBLAS
+            # addmm, scaled_dot_product_attention with the causal and key
+            # mask, tanh gelu)
+            x2 = x.view(-1, d_model)
+            h = f.layer_norm(x2, (d_model,), ln1_s, ln1_b, eps)
+            qkv = torch.addmm(b_qkv, h, w_qkv).view(batch, length, 3, heads,
+                                                    head_dim)
+            o = f.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4),
+                                               attn_mask=sdpa_mask)
+            r1 = x2 + torch.addmm(b_out, o.transpose(1, 2).reshape(
+                -1, d_model), w_out)
+            z = torch.addmm(b_fc, f.layer_norm(r1, (d_model,), ln2_s, ln2_b,
+                                               eps), w_fc)
+            return r1 + torch.addmm(b_proj, f.gelu(z, approximate="tanh"),
+                                    w_proj)
+
+        rows = batch * length
+        bytes_moved = (2 * rows * d_model * 2 + mask.numel() * 4
+                       + sum(p.numel() * 2 for p in params))
+        timed[f"L{length}"] = dict(
+            shape=dict(B=batch, L=length, D=d_model, H=heads, F=d_ff,
+                       G=gpt2_block_group(batch)),
+            ms=cuda_ms(lambda: fused_gpt2_block(*args), iters=20),
+            plain_ms=cuda_ms(lambda: fused_gpt2_block_plain(*args), iters=3,
+                             warmup=1),
+            library_ms=cuda_ms(lib_block, iters=20),
+            **bound(bytes_moved, gpt2_block_ops(mask, d_model, d_ff),
+                    BF16_FLOP_PER_S))
+        emit("gpt2_block_timed", **timed[f"L{length}"])
+    main = checks["B32_L64"]
+    result = dict(**timed["L64"], max_abs_err=max(
+        c["max_abs_err"] for c in checks.values()), checks=checks,
+        at_L128=timed["L128"],
+        library="the unfused bf16 block: layer_norm, addmm, "
+                "scaled_dot_product_attention (causal and key mask), "
+                "gelu(approximate='tanh')",
+        differing_share=main["differing"] / main["elements"])
+    emit("gpt2_block", **{k: v for k, v in result.items()
+                          if k not in ("at_L128",)})
+    return result
+
+
+def check_within_one_ulp(name: str, got: torch.Tensor,
+                         want: torch.Tensor) -> dict:
+    """Every element within one bf16 ulp of the plain version's: the ulp of
+    the larger of the two values (neighbours across a power of two), and
+    at least that of rms(want) / 256 (outputs near zero, where fp32 sums in
+    another order move by more than their own ulps)."""
+    g, w = got.float(), want.float()
+    floor = w.square().mean().sqrt() / 256
+    top = torch.maximum(torch.maximum(g.abs(), w.abs()), floor)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    err = (g - w).abs()
+    check(bool(torch.isfinite(g).all()), f"{name}: output not finite")
+    check(bool((err <= ulp).all()),
+          f"{name}: {int((err > ulp).sum())} elements beyond one bf16 ulp of "
+          f"the plain version (max abs err {err.max().item()})")
+    return dict(max_abs_err=err.max().item(), differing=int((err > 0).sum()),
+                elements=err.numel())
+
+
+def phase_flash_attention(gen: torch.Generator) -> dict:
+    """flash_attention against its plain version on 16 images at ViT-L/14@336
+    widths (L = 577, 16 heads of 64, bf16, no bias) and on a small shape
+    under a (B, 1, 1, Lk) key-mask bias (one row masked entirely) and a
+    per-(batch, head) bias; then timed at CLIP_BATCH beside the plain
+    version, the bound and scaled_dot_product_attention on fp32 copies."""
+    cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
+    seq, heads = cfg.seq_len, cfg.num_heads
+    head_dim = cfg.width // heads
+    dev = gen.device
+
+    def qkv(batch, length, n_heads):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        return ((randn(batch, length, n_heads, head_dim) * head_dim ** -0.5)
+                .bfloat16(), randn(batch, length, n_heads, head_dim).bfloat16(),
+                randn(batch, length, n_heads, head_dim).bfloat16())
+
+    checks = {}
+    q, k, v = qkv(VIT_CHECK_BATCH, seq, heads)
+    checks[f"B{VIT_CHECK_BATCH}"] = check_within_one_ulp(
+        "flash_attention", flash_attention(q, k, v),
+        flash_attention_plain(q, k, v))
+    q, k, v = qkv(3, 200, 4)
+    key_mask = torch.zeros((3, 1, 1, 200), device=dev)
+    key_mask[1, ..., 120:] = -1e9
+    key_mask[2] = -1e9
+    per_head = torch.randn((3, 4, 200, 200), generator=gen, device=dev)
+    for name, bias in (("key_mask", key_mask), ("per_batch_head", per_head)):
+        checks[name] = check_within_one_ulp(
+            f"flash_attention {name}", flash_attention(q, k, v, bias),
+            flash_attention_plain(q, k, v, bias))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    q, k, v = qkv(CLIP_BATCH, seq, heads)
+    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), iters=10)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), iters=2,
+                       warmup=1)
+    torch.cuda.empty_cache()
+    # yardstick only: SDPA on the fp32-upcast inputs (B, H, L, dh)
+    q32, k32, v32 = (t.float().transpose(1, 2) for t in (q, k, v))
+    library_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q32, k32, v32, scale=1.0), iters=10)
+    del q32, k32, v32
+    flops = 2 * CLIP_BATCH * heads * seq * seq * head_dim
+    main = checks[f"B{VIT_CHECK_BATCH}"]
+    result = dict(
+        shape=dict(B=CLIP_BATCH, L=seq, H=heads, dh=head_dim),
+        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        library="scaled_dot_product_attention, fp32 inputs, scale=1.0",
+        max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        checks=checks, differing_share=main["differing"] / main["elements"],
+        # this route: q k^T on the tensor cores, PV as three exact bf16
+        # products
+        **bound_mixed(4 * q.numel() * 2, [(flops, BF16_FLOP_PER_S),
+                                          (3 * flops, BF16_FLOP_PER_S)]))
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit("flash_attention", kernel_ms=kernel_ms,
+         **{key: val for key, val in result.items() if key != "ms"})
+    return result
+
+
+def clipcap_batch(gen: torch.Generator, tokens: int, answer: int = 5):
+    """CLIPCAP_BATCH right-padded token rows of ``tokens`` (the shortest
+    half as long), their mask, and labels on each row's last ``answer``
+    valid tokens (-100 elsewhere)."""
+    dev = gen.device
+    ids = torch.randint(0, 50256, (CLIPCAP_BATCH, tokens), generator=gen,
+                        device=dev, dtype=torch.int32)
+    mask = right_padded_mask(CLIPCAP_BATCH, tokens, dev, tokens // 2)
+    labels = torch.full_like(ids, -100)
+    for b, valid in enumerate(mask.sum(dim=1).tolist()):
+        labels[b, valid - answer:valid] = ids[b, valid - answer:valid]
+    return ids, mask, labels
+
+
+def timed_call(fn, expected: dict, what: str) -> tuple:
+    """fn() with every kernel count set to 0 just before and read just
+    after (they must equal ``expected``), on the host clock to a
+    synchronize, with the peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in PATH_KERNELS:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {kernel.__name__: kernel.launches for kernel in PATH_KERNELS}
+    check(counts == expected,
+          f"{what}: kernels launched {counts}, expected {expected}")
+    return out, dict(wall_s=wall, launches=counts,
+                     peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase_clipcap(gen: torch.Generator) -> dict:
+    """ClipCap at GPT-2 small width and depth with the mlp mapper (512 ->
+    10 x 768), random weights from SEED, prefixes from ViT-B/32
+    ClipImageEncoder embeddings of CLIPCAP_BATCH random images: generate
+    twice (no kernel), the loss at 64 positions with fused_block (12
+    fused_gpt2_block launches) and without it (none), and at 138 positions
+    with fused_block (none, as in JAX)."""
+    dev = gen.device
+    vit = clip_lib.CLIPVisionConfig.vit_b_32()
+    encoder = ClipImageEncoder(
+        vit, clip_lib.init_clip_vision_params(gen, vit, torch.bfloat16),
+        batch_size=CLIPCAP_BATCH, device=dev)
+    images = torch.randn((CLIPCAP_BATCH, vit.image_size, vit.image_size, 3),
+                         generator=gen, device=dev).bfloat16()
+    prefix, encode = timed_call(
+        lambda: torch.from_numpy(encoder.encode_batch(images)).to(dev),
+        launches(), "clipcap image encode")
+    check(tuple(prefix.shape) == (CLIPCAP_BATCH, vit.projection_dim)
+          and bool(torch.isfinite(prefix).all()), "prefix embeddings")
+    del encoder, images
+    torch.cuda.empty_cache()
+
+    lm_cfg = gpt2_lib.GPT2Config.gpt2_small(fused_block=True)
+    cfg = clipcap_lib.ClipCapConfig.from_model_args(CLIPCAP_MODEL_ARGS,
+                                                    lm_cfg=lm_cfg)
+    t0 = time.perf_counter()
+    model = clipcap_lib.build_clipcap_prefix(
+        cfg, clipcap_lib.init_clipcap_params(cfg, seed=SEED, device=dev))
+    torch.cuda.synchronize()
+    emit("clipcap_init", seconds=time.perf_counter() - t0,
+         params_gb=torch.cuda.memory_allocated() / 1e9)
+
+    # generate: CLIPCAP_BATCH prompts of up to CLIPCAP_PROMPT tokens
+    prompt, prompt_mask, _ = clipcap_batch(gen, CLIPCAP_PROMPT)
+    runs = []
+    for _ in range(2):
+        (tokens, logprobs), run = timed_call(
+            lambda: model.generate(prefix, prompt, prompt_mask,
+                                   max_new_tokens=MAX_NEW_TOKENS),
+            launches(), "clipcap generate")
+        runs.append(dict(run, tokens=tokens, logprobs=logprobs))
+    check(torch.equal(runs[0]["tokens"], runs[1]["tokens"]),
+          "clipcap: the two generate calls gave different tokens")
+    check(tuple(tokens.shape) == (CLIPCAP_BATCH, MAX_NEW_TOKENS)
+          and bool(((tokens >= 0) & (tokens < lm_cfg.vocab_size)).all()),
+          "clipcap tokens")
+    check(bool(torch.isfinite(logprobs).all() & (logprobs <= 0).all()),
+          "clipcap log-probs")
+    wall = runs[1]["wall_s"]
+    generate = dict(
+        batch=CLIPCAP_BATCH, prompt_tokens=CLIPCAP_PROMPT,
+        positions=cfg.prefix_length + CLIPCAP_PROMPT,
+        new_tokens=MAX_NEW_TOKENS, wall_s=wall,
+        first_wall_s=runs[0]["wall_s"], prompts_per_s=CLIPCAP_BATCH / wall,
+        peak_mem_gb=runs[1]["peak_bytes"] / 1e9,
+        launches_per_call=[r["launches"] for r in runs],
+        first_tokens=tokens[0, :5].tolist(),
+        **device_busy(lambda: model.generate(prefix, prompt, prompt_mask,
+                                             max_new_tokens=MAX_NEW_TOKENS),
+                      wall, top=6))
+    emit("clipcap_generate", image_encode_s=encode["wall_s"], **generate)
+    generate["breakdown"] = clipcap_generate_breakdown(model, prefix, prompt,
+                                                       prompt_mask)
+    emit("clipcap_generate_breakdown", **generate["breakdown"])
+
+    # the teacher-forced loss, a forward pass
+    n_layers = lm_cfg.num_layers
+    ids, mask, labels = clipcap_batch(gen, CLIPCAP_LOSS_TOKENS)
+    unfused = clipcap_lib.build_clipcap_prefix(
+        dataclasses.replace(cfg, lm=dataclasses.replace(
+            lm_cfg, fused_block=False)), model.params)
+    losses, loss_runs = {}, {}
+    with torch.inference_mode():
+        for name, path, want in (("fused", model, n_layers),
+                                 ("unfused", unfused, 0)):
+            calls = []
+            for _ in range(2):
+                value, run = timed_call(
+                    lambda: path.forward_loss(prefix, ids, mask, labels),
+                    launches(fused_gpt2_block=want), f"clipcap loss {name}")
+                calls.append(run)
+            losses[name] = float(value)
+            loss_runs[name] = dict(
+                wall_s=calls[1]["wall_s"], first_wall_s=calls[0]["wall_s"],
+                peak_mem_gb=calls[1]["peak_bytes"] / 1e9,
+                launches_per_call=[c["launches"] for c in calls],
+                **device_busy(lambda: path.forward_loss(prefix, ids, mask,
+                                                        labels),
+                              calls[1]["wall_s"], top=6))
+        rel = abs(losses["fused"] - losses["unfused"]) / abs(losses["unfused"])
+        check(all(np.isfinite(v) and v > 0 for v in losses.values()),
+              f"clipcap losses {losses}")
+        check(rel <= CLIPCAP_LOSS_REL,
+              f"clipcap fused loss {losses['fused']} against unfused "
+              f"{losses['unfused']}: rel {rel} > {CLIPCAP_LOSS_REL}")
+        long_ids, long_mask, long_labels = clipcap_batch(
+            gen, CLIPCAP_BUCKET_TOKENS)
+        long_loss, long_run = timed_call(
+            lambda: model.forward_loss(prefix, long_ids, long_mask,
+                                       long_labels),
+            launches(), "clipcap loss at the 128-token bucket")
+        check(bool(torch.isfinite(long_loss)), "clipcap loss at 138 positions")
+    loss = dict(batch=CLIPCAP_BATCH, tokens=CLIPCAP_LOSS_TOKENS,
+                positions=cfg.prefix_length + CLIPCAP_LOSS_TOKENS,
+                losses=losses, rel_diff=rel, limit=CLIPCAP_LOSS_REL,
+                **{name: run for name, run in loss_runs.items()},
+                bucket=dict(tokens=CLIPCAP_BUCKET_TOKENS,
+                            positions=cfg.prefix_length
+                            + CLIPCAP_BUCKET_TOKENS,
+                            loss=float(long_loss), wall_s=long_run["wall_s"],
+                            launches=long_run["launches"]))
+    emit("clipcap_loss", **loss)
+    loss["breakdown"] = clipcap_loss_breakdown(model, prefix, ids, mask)
+    emit("clipcap_loss_breakdown", **loss["breakdown"])
+    loss["launches_per_call"] = loss_runs["fused"]["launches_per_call"]
+    return dict(generate=generate, loss=loss)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def clipcap_generate_breakdown(model, prefix, prompt, prompt_mask) -> dict:
+    """The generate call's parts, each ending in a synchronize: mapper and
+    embedding, prefill, the greedy decode loop (prefill included)."""
+    cfg, lm = model.cfg, model.params["lm"]
+    with torch.inference_mode():
+        (embeds, mask), embed_s = timed(lambda: clipcap_lib.embed_with_prefix(
+            cfg, lm, model.params["mapper"], prefix, prompt, prompt_mask))
+        cache = gpt2_lib.init_gpt2_cache(cfg.lm, CLIPCAP_BATCH,
+                                         embeds.shape[1] + MAX_NEW_TOKENS,
+                                         device=embeds.device)
+        _, prefill_s = timed(lambda: gpt2_lib.gpt2_prefill(
+            lm, cfg.lm, embeds, mask, cache))
+        _, decode_s = timed(lambda: greedy_decode_gpt2(
+            lm, cfg.lm, embeds, mask, max_new_tokens=MAX_NEW_TOKENS))
+    return dict(mapper_embed_s=embed_s, prefill_s=prefill_s,
+                greedy_decode_s=decode_s,
+                decode_steps_s=decode_s - prefill_s,
+                decode_step_ms=(decode_s - prefill_s)
+                / (MAX_NEW_TOKENS - 1) * 1e3)
+
+
+def clipcap_loss_breakdown(model, prefix, ids, mask) -> dict:
+    """The fused loss call's parts, each ending in a synchronize: mapper and
+    embedding, the 12 fused blocks, and the final LayerNorm, LM head and
+    log-softmax."""
+    cfg, lm = model.cfg, model.params["lm"]
+    with torch.inference_mode():
+        (embeds, full_mask), embed_s = timed(
+            lambda: clipcap_lib.embed_with_prefix(
+                cfg, lm, model.params["mapper"], prefix, ids, mask))
+
+        def blocks():
+            x = embeds
+            for i in range(cfg.lm.num_layers):
+                x = fused_gpt2_block(
+                    x, full_mask, *(lm["blocks"][n][i]
+                                    for n in GPT2_BLOCK_KEYS),
+                    num_heads=cfg.lm.num_heads)
+            return x
+
+        x, blocks_s = timed(blocks)
+
+        def head():
+            logits = gpt2_lib.lm_logits(lm, cfg.lm, x)
+            return torch.log_softmax(logits[:, :-1].float(), dim=-1)
+
+        _, head_s = timed(head)
+    return dict(mapper_embed_s=embed_s, fused_blocks_s=blocks_s,
+                head_log_softmax_s=head_s)
+
+
+def phase_clip_encode_pallas(gen: torch.Generator) -> dict:
+    """ClipImageEncoder(use_pallas=True) at ViT-L/14@336 on CLIP_BATCH
+    images beside the default path (encode_paths): 24 flash_attention
+    launches a call, per-row cosine to the default path at least
+    PALLAS_COSINE_FLOOR."""
+    dev = gen.device
+    cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
+    params = clip_lib.init_clip_vision_params(gen, cfg, torch.bfloat16)
+    encoders = {
+        "default": ClipImageEncoder(cfg, params, batch_size=CLIP_BATCH,
+                                    device=dev),
+        "use_pallas": ClipImageEncoder(cfg, params, batch_size=CLIP_BATCH,
+                                       use_pallas=True, device=dev),
+    }
+    images = torch.randn((CLIP_BATCH, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device=dev).bfloat16()
+    return encode_paths("clip_encode_pallas", encoders,
+                        {"default": (), "use_pallas": (flash_attention,)},
+                        images, cfg.num_layers, floor=PALLAS_COSINE_FLOOR)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1749,6 +2204,14 @@ def main() -> int:
     vit_short = phase_vit_short_kernels(gen)
     torch.cuda.empty_cache()
     clip_b32 = phase_clip_encode_b32(gen)
+    torch.cuda.empty_cache()
+    gpt2_block = phase_gpt2_block(gen)
+    torch.cuda.empty_cache()
+    flash = phase_flash_attention(gen)
+    torch.cuda.empty_cache()
+    clipcap = phase_clipcap(gen)
+    torch.cuda.empty_cache()
+    clip_pallas = phase_clip_encode_pallas(gen)
 
     measured = {
         "t5_attention_core": (attention, generate),
@@ -1765,6 +2228,8 @@ def main() -> int:
                                clip_b32["int8"]),
         "fused_attention_block": (vit_short["fused_attention_block"],
                                   clip_b32["fused_attention"]),
+        "fused_gpt2_block": (gpt2_block, clipcap["loss"]),
+        "flash_attention": (flash, clip_pallas["use_pallas"]),
     }
     lines = []
     for name, (res, run) in measured.items():

@@ -74,3 +74,23 @@ def clip_text_params_from_numpy(tree: Params,
     """The JAX CLIP text tree as port params (see
     ``clip_vision_params_from_numpy``)."""
     return _tree_to_torch(tree, dtype, resolve_device(device))
+
+
+def gpt2_params_from_numpy(tree: Params, dtype: torch.dtype = torch.bfloat16,
+                           device: DeviceLike = None) -> Params:
+    """The JAX ``init_gpt2_params`` (or ``gpt2_params_from_hf``) tree as
+    port params: same keys and stacked layer axis, float leaves in ``dtype``
+    on ``device`` (the card by default)."""
+    return _tree_to_torch(tree, dtype, resolve_device(device))
+
+
+def clipcap_params_from_numpy(tree: Params,
+                              lm_dtype: torch.dtype = torch.bfloat16,
+                              device: DeviceLike = None) -> Params:
+    """The JAX ClipCap ``{"lm", "mapper"}`` tree as port params: the GPT-2
+    LM in ``lm_dtype``, the mapper in fp32 (the mapper runs in fp32)."""
+    dev = resolve_device(device)
+    return {
+        "lm": _tree_to_torch(tree["lm"], lm_dtype, dev),
+        "mapper": _tree_to_torch(tree["mapper"], torch.float32, dev),
+    }

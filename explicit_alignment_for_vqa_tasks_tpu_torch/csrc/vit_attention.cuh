@@ -15,6 +15,14 @@
 // s and PV in fp32; o is written as OutT (bf16, or fp32 for the int8 block,
 // whose Pallas kernel quantizes the unrounded attention output).
 //
+// MASKED (off for the ViT kernels, on for csrc/gpt2_block.cu's causal GPT-2
+// attention): key j is visible to query row i only when j <= i and
+// key_mask[b L + j] > 0. The Pallas kernel scores the others -1e30, whose
+// exponentials after a visible key's max are exactly 0, so they get e = 0
+// here. A row with no visible key gets zero probabilities and output 0; its
+// caller writes the Pallas kernel's value for such a row in a pass of its
+// own.
+//
 // A Pallas program of G images takes a (G L, G L) score matrix whose
 // cross-image entries are s - 1e30: their exponentials are exactly 0 and add
 // nothing to a sum or to PV, so this kernel works image by image.
@@ -138,11 +146,11 @@ struct ChunkRegs {
   }
 };
 
-template <int DH, int MODE, typename OutT>
+template <int DH, int MODE, typename OutT, bool MASKED>
 __global__ void __launch_bounds__(ATT_NT)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, OutT* __restrict__ out, int L,
-                 int H) {
+                 int H, const int* __restrict__ key_mask) {
   using namespace nvcuda;
   const int q0 = blockIdx.x * TQ;
   const int h = blockIdx.y;
@@ -203,16 +211,28 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = warp; i < TQ; i += ATT_WARPS) {
     float* srow = S + i * s_ld;
     bf16* prow = P + i * p_ld;
-    if (q0 + i >= L) {  // past the sequence: no output, zero probabilities
+    const int qi = q0 + i;
+    // key j counts for this row (always, unless MASKED)
+    auto visible = [&](int j) {
+      return !MASKED ||
+             (j <= qi && key_mask[static_cast<size_t>(b) * L + j] > 0);
+    };
+    float m = -INFINITY;
+    if (qi < L) {
+      for (int j = lane; j < L; j += 32) {
+        if (visible(j)) m = fmaxf(m, srow[j]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      }
+    }
+    // past the sequence, or (MASKED) no visible key: zero probabilities
+    if (qi >= L || (MASKED && m == -INFINITY)) {
+      __syncwarp();  // every lane has read its scores
       for (int j = lane; j < lp; j += 32) prow[j] = __float2bfloat16(0.0f);
       if (lane == 0) denom[i] = 1.0f;
       continue;
-    }
-    float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     }
     // every lane runs lp / 32 rounds; the bf16 writes of a round land on
     // scores that earlier rounds (or this round, before the __syncwarp)
@@ -221,14 +241,14 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = lane; j < lp; j += 32) {
       if (MODE == kNormalised) {  // the fp32 e stays in place for now
         if (j < L) {
-          const float e = expf(__fsub_rn(srow[j], m));
+          const float e = visible(j) ? expf(__fsub_rn(srow[j], m)) : 0.0f;
           srow[j] = e;
           sum = __fadd_rn(sum, e);
         }
         continue;
       }
       bf16 p = __float2bfloat16(0.0f);
-      if (j < L) {
+      if (j < L && visible(j)) {
         if (MODE == kFastExp) {
           const float e = expf(__bfloat162float(
               __float2bfloat16(__fsub_rn(srow[j], m))));
@@ -311,34 +331,45 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DH, int MODE, typename OutT>
+template <int DH, int MODE, typename OutT, bool MASKED>
 int attention(const void* q, const void* k, const void* v, void* out, int B,
-              int L, int H, cudaStream_t stream) {
+              int L, int H, const int* key_mask, cudaStream_t stream) {
   const size_t smem = att_smem_bytes(L, DH);
   if (smem > static_cast<size_t>(smem_limit())) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<DH, MODE, OutT>,
+      attention_kernel<DH, MODE, OutT, MASKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((L + TQ - 1) / TQ, H, B);
-  attention_kernel<DH, MODE, OutT><<<grid, ATT_NT, smem, stream>>>(
+  attention_kernel<DH, MODE, OutT, MASKED><<<grid, ATT_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<OutT*>(out), L, H);
+      static_cast<const bf16*>(v), static_cast<OutT*>(out), L, H, key_mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The attention of head size dh (16, 32, 64 or 128) in softmax order MODE;
-// returns its launch's cudaError_t (0 on success).
-template <int MODE, typename OutT>
+// The attention of head size dh (16, 32, 64 or 128) in softmax order MODE,
+// causal and under the (B, L) int32 key_mask when MASKED; returns its
+// launch's cudaError_t (0 on success).
+template <int MODE, typename OutT, bool MASKED = false>
 int attention_dh(const void* q, const void* k, const void* v, void* out,
-                 int B, int L, int H, int dh, cudaStream_t stream) {
-  if (!shape_ok(B, L, H)) return cudaErrorInvalidValue;
+                 int B, int L, int H, int dh, cudaStream_t stream,
+                 const int* key_mask = nullptr) {
+  if (!shape_ok(B, L, H) || (MASKED && key_mask == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   switch (dh) {
-    case 16: return attention<16, MODE, OutT>(q, k, v, out, B, L, H, stream);
-    case 32: return attention<32, MODE, OutT>(q, k, v, out, B, L, H, stream);
-    case 64: return attention<64, MODE, OutT>(q, k, v, out, B, L, H, stream);
+    case 16:
+      return attention<16, MODE, OutT, MASKED>(q, k, v, out, B, L, H,
+                                               key_mask, stream);
+    case 32:
+      return attention<32, MODE, OutT, MASKED>(q, k, v, out, B, L, H,
+                                               key_mask, stream);
+    case 64:
+      return attention<64, MODE, OutT, MASKED>(q, k, v, out, B, L, H,
+                                               key_mask, stream);
     case 128:
-      return attention<128, MODE, OutT>(q, k, v, out, B, L, H, stream);
+      return attention<128, MODE, OutT, MASKED>(q, k, v, out, B, L, H,
+                                                key_mask, stream);
     default: return cudaErrorInvalidValue;
   }
 }

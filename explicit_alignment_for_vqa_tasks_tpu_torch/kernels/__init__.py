@@ -30,6 +30,8 @@ SOURCES = {
     "t5_ffn": "t5_ffn.cu",
     "vit_block": "vit_block.cu",
     "vit_block_q8": "vit_block_q8.cu",
+    "gpt2_block": "gpt2_block.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = (

@@ -19,8 +19,9 @@ and ``fused_mlp_block_q8`` (:532-579, ``csrc/vit_block_q8.cu``). At 128
 tokens or fewer (ViT-B/32's 50) ``fused_block`` runs ``fused_vit_block``
 (:273-291), ``fused_attention`` the ``fused_attention_block`` kernel
 (:295-309) and ``cfg.int8`` ``fused_vit_block_q8`` (:497-530).
-``use_pallas`` reaches a kernel that is not ported yet and raises
-``NotImplementedError`` naming the ROADMAP Queue 2 item that ports it.
+``use_pallas`` (below those branches, as in JAX :356-359) runs the plain
+block with the ``flash_attention`` kernel (``ops/attention.py``,
+``csrc/flash_attention.cu``) in place of the fp32 attention.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from ..device import DeviceLike
 from ..ops import fused_attention_block as fab
+from ..ops.attention import flash_attention
 
 Params = Dict[str, Any]
 NEG_INF = -1e9
@@ -133,12 +135,6 @@ def _fused_group(batch: int) -> int:
         if batch % g == 0:
             return g
     return 1
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} runs a kernel the port does not have yet "
-        f"(ROADMAP Queue 2 {item})")
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -266,13 +262,19 @@ def _encoder_block(layer_p, x, bias, num_heads, eps, use_pallas=False,
             return _mlp(layer_p, x + attn, eps)
         return _mlp(layer_p, _core_attention(layer_p, x, num_heads, eps),
                     eps)
-    if use_pallas:
-        raise _not_ported("use_pallas (ops/attention.py::flash_attention)",
-                          "#16")
 
     ln1 = _layer_norm(x, layer_p["ln1_scale"], layer_p["ln1_bias"], eps)
     q, k, v = _qkv(layer_p, ln1, dt)
     batch, seq, _ = q.shape
+    if use_pallas:
+        # the flash_attention kernel on (B, L, H, dh) q, k, v; q scaled in
+        # dt, the scale rounded to dt as JAX rounds a weakly typed scalar
+        q, k, v = (t.reshape(batch, seq, num_heads, head_dim)
+                   for t in (q, k, v))
+        scale = torch.tensor(head_dim ** -0.5, dtype=dt, device=q.device)
+        attn = flash_attention(q * scale, k, v, bias=bias)
+        attn = _linear(attn.reshape(batch, seq, -1), layer_p["o"], dt)
+        return _mlp(layer_p, x + attn + layer_p["o_bias"].to(dt), eps)
 
     def heads(t):  # (B, L, H*dh) -> (B, H, L, dh)
         return t.reshape(batch, seq, num_heads, head_dim).transpose(1, 2)

@@ -1,11 +1,13 @@
-"""HuggingFace CLIP checkpoints -> the port's parameter trees (numpy).
+"""HuggingFace CLIP and GPT-2 checkpoints -> the port's parameter trees
+(numpy).
 
-Counterpart of the CLIP converters of
-explicit_alignment_for_vqa_tasks_tpu/models/hf_convert.py (:144-235): pure
+Counterpart of the CLIP and GPT-2 converters of
+explicit_alignment_for_vqa_tasks_tpu/models/hf_convert.py (:111-235): pure
 numpy on a state dict, so ``transformers`` is not imported here. The trees
 are the JAX package's (keys, stacked layer axis, (in, out) weights, HWIO
-patch kernel); ``convert.clip_vision_params_from_numpy`` and
-``clip_text_params_from_numpy`` carry them to torch tensors.
+patch kernel); ``convert.clip_vision_params_from_numpy``,
+``clip_text_params_from_numpy`` and ``gpt2_params_from_numpy`` carry them
+to torch tensors.
 """
 
 from __future__ import annotations
@@ -99,3 +101,33 @@ def clip_text_params_from_hf(state_dict: Mapping[str, Any], cfg,
         params["projection"] = _np(
             state_dict["text_projection.weight"], dtype).T
     return params
+
+
+# (ours, HF name template) of one GPT-2 layer; HF's Conv1D stores its
+# weights as (in, out), the orientation of the JAX tree
+_GPT2_BLOCK_KEYS = [
+    ("ln1_scale", "h.{}.ln_1.weight"), ("ln1_bias", "h.{}.ln_1.bias"),
+    ("attn_qkv", "h.{}.attn.c_attn.weight"),
+    ("attn_qkv_bias", "h.{}.attn.c_attn.bias"),
+    ("attn_out", "h.{}.attn.c_proj.weight"),
+    ("attn_out_bias", "h.{}.attn.c_proj.bias"),
+    ("ln2_scale", "h.{}.ln_2.weight"), ("ln2_bias", "h.{}.ln_2.bias"),
+    ("mlp_fc", "h.{}.mlp.c_fc.weight"), ("mlp_fc_bias", "h.{}.mlp.c_fc.bias"),
+    ("mlp_proj", "h.{}.mlp.c_proj.weight"),
+    ("mlp_proj_bias", "h.{}.mlp.c_proj.bias"),
+]
+
+
+def gpt2_params_from_hf(state_dict: Mapping[str, Any], cfg,
+                        dtype: Any = np.float32) -> Params:
+    """Convert a HF GPT2LMHeadModel (or GPT2Model) state_dict to the GPT-2
+    tree (see models/gpt2.py); no weight is transposed."""
+    sd = {k.removeprefix("transformer."): v for k, v in state_dict.items()}
+    return {
+        "wte": _np(sd["wte.weight"], dtype),
+        "wpe": _np(sd["wpe.weight"], dtype),
+        "blocks": {ours: _stack(sd, theirs, cfg.num_layers, dtype=dtype)
+                   for ours, theirs in _GPT2_BLOCK_KEYS},
+        "ln_f_scale": _np(sd["ln_f.weight"], dtype),
+        "ln_f_bias": _np(sd["ln_f.bias"], dtype),
+    }

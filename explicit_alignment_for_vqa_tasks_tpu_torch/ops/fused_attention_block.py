@@ -24,7 +24,11 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
     (:1417-1462, ``block_diag=True`` only), kernels in ``csrc/vit_block.cu``;
     the int8 ``fused_vit_block_q8`` (:772-826), kernel in
     ``csrc/vit_block_q8.cu``. Their attention (and ``attention_core``'s)
-    is ``csrc/vit_attention.cuh``.
+    is ``csrc/vit_attention.cuh``;
+  * the GPT-2 whole block ``fused_gpt2_block`` (:898-958, forward only),
+    kernel ``csrc/gpt2_block.cu`` over the same attention with its causal
+    key mask. Its backward (``fused_gpt2_block_vjp``) comes with mapper
+    training.
 
 Each source's note gives the design and the bound.
 
@@ -1515,3 +1519,176 @@ def fused_attention_block(
 
 
 fused_attention_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# GPT-2 whole block (ClipCap's teacher-forced forward): the plain version and
+# the wrapper around csrc/gpt2_block.cu
+#
+# The Pallas kernel runs a group of G sequences as one (G L, G L) score
+# matrix per head. A key is masked (-1e30) when it lies in another sequence
+# of the group, is causally later or is invalid; a query row with a visible
+# valid key gets exact zeros from every masked one. A row with none (a
+# sequence that starts with padding) has all G L scores at exactly -1e30, so
+# its softmax is uniform over the whole group and its output depends on G.
+# The plain version computes the group's score matrix as the Pallas kernel
+# does; the CUDA kernel works sequence by sequence and writes such rows in
+# a pass of its own. Both take G as the JAX wrapper does.
+# ---------------------------------------------------------------------------
+
+# one GPT-2 layer's parameters, in the kernel's argument order
+GPT2_BLOCK_KEYS = ("ln1_scale", "ln1_bias", "attn_qkv", "attn_qkv_bias",
+                   "attn_out", "attn_out_bias", "ln2_scale", "ln2_bias",
+                   "mlp_fc", "mlp_fc_bias", "mlp_proj", "mlp_proj_bias")
+GPT2_MASKED = -1e30
+
+
+def gpt2_block_group(batch: int, group: int = 4) -> int:
+    """The JAX wrapper's group: ``group`` halved until it divides B."""
+    while batch % group:
+        group //= 2
+    return max(group, 1)
+
+
+def fused_gpt2_block_plain(
+    x: torch.Tensor,             # (B, L, D) pre-LN residual stream
+    mask: torch.Tensor,          # (B, L) key validity, > 0 for real tokens
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    w_qkv: torch.Tensor, b_qkv: torch.Tensor,   # (D, 3D), (3D,)
+    w_out: torch.Tensor, b_out: torch.Tensor,
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, b_proj: torch.Tensor,
+    num_heads: int,
+    group: int = 4,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """The pre-LN causal GPT-2 block in the Pallas kernel's order of
+    rounding, whatever x's dtype: ``h = bf16(LN1(x))``; ``qkv = h.w_qkv +
+    b_qkv`` in fp32, q times the scale; the scores of q and k cast to bf16
+    over each group of G sequences (G from ``gpt2_block_group``) plus the
+    -1e30 mask; ``p = bf16(e / sum(e))``; PV with v cast to bf16, rounded to
+    bf16; ``r1 = x + (attn.w_out + b_out)`` in fp32; ``h2 = bf16(LN2(r1))``;
+    ``hid = bf16(tanh-gelu(h2.w_fc + b_fc))``; one cast of ``r1 +
+    (hid.w_proj + b_proj)`` to x's dtype. Weights are rounded to bf16 as the
+    JAX wrapper casts them."""
+    bf = torch.bfloat16
+    batch, seq, d_model = x.shape
+    g = gpt2_block_group(batch, group)
+    gl, head_dim = g * seq, d_model // num_heads
+    x32 = x.reshape(batch // g, gl, d_model).float()
+
+    def proj(a, w, b):
+        return torch.matmul(a, _bf16_operand(w)) + b.float()
+
+    def heads(t):  # (B/G, GL, D) -> bf16 values in fp32 (B/G, H, GL, dh)
+        return t.reshape(batch // g, gl, num_heads, head_dim).transpose(1, 2) \
+            .to(bf).float()
+
+    h = _ln_f32(x32, ln1_scale, ln1_bias, eps).to(bf).float()
+    qkv = proj(h, w_qkv, b_qkv)
+    q = qkv[..., :d_model] * head_dim ** -0.5
+    k, v = qkv[..., d_model:2 * d_model], qkv[..., 2 * d_model:]
+    pos = torch.arange(gl, device=x.device)
+    visible = ((pos[:, None] // seq == pos[None, :] // seq)
+               & (pos[:, None] % seq >= pos[None, :] % seq))
+    key_valid = mask.reshape(batch // g, 1, gl) > 0
+    block_mask = torch.where(visible[None] & key_valid, 0.0, GPT2_MASKED)
+    s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) + block_mask[:, None]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(bf).float()
+    attn = torch.matmul(p, heads(v)).transpose(1, 2).reshape(x32.shape)
+    r1 = x32 + proj(attn.to(bf).float(), w_out, b_out)
+    h2 = _ln_f32(r1, ln2_scale, ln2_bias, eps).to(bf).float()
+    hid = _tanh_gelu(proj(h2, w_fc, b_fc)).to(bf).float()
+    return (r1 + proj(hid, w_proj, b_proj)).reshape(x.shape).to(x.dtype)
+
+
+def gpt2_attention_max_len(head_dim: int) -> int:
+    """The longest sequence ``fused_gpt2_block``'s attention takes on the
+    current card at this head size; 0 for an unsupported head size."""
+    return _kernel_max_len("gpt2_block", "gpt2_attention_max_len", head_dim)
+
+
+def fused_gpt2_block(
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+    w_out: torch.Tensor, b_out: torch.Tensor,
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, b_proj: torch.Tensor,
+    num_heads: int,
+    group: int = 4,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """The whole pre-LN causal GPT-2 block (tanh-gelu) over (B, L, D) x
+    under the (B, L) key mask. ``group`` is the JAX wrapper's (halved until
+    it divides B); it decides only the rows with no visible valid key. CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (``fused_gpt2_block.launches``) or raise. The kernel is forward only:
+    an input that requires grad raises (its backward comes with mapper
+    training, ROADMAP Queue 1 item 6)."""
+    op = "fused_gpt2_block"
+    params = (ln1_scale, ln1_bias, w_qkv, b_qkv, w_out, b_out, ln2_scale,
+              ln2_bias, w_fc, b_fc, w_proj, b_proj)
+    if x.device.type == "cpu":
+        return fused_gpt2_block_plain(x, mask, *params, num_heads, group, eps)
+    tensors = dict(zip(("x",) + GPT2_BLOCK_KEYS, (x,) + params))
+    if any(t.requires_grad for t in tensors.values()):
+        raise NotImplementedError(
+            f"{op}: the CUDA kernel is forward only; its gradient is not "
+            f"ported yet (ROADMAP.md, Queue 1 item 6)")
+    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
+                   **tensors)
+    if x.dim() != 3:
+        raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
+    batch, seq, d_model = x.shape
+    d_ff = w_fc.shape[-1]
+    vec = (d_model,)
+    _check_shapes(op, mask=(mask, (batch, seq)), ln1_scale=(ln1_scale, vec),
+                  ln1_bias=(ln1_bias, vec),
+                  attn_qkv=(w_qkv, (d_model, 3 * d_model)),
+                  attn_qkv_bias=(b_qkv, (3 * d_model,)),
+                  attn_out=(w_out, (d_model, d_model)),
+                  attn_out_bias=(b_out, vec), ln2_scale=(ln2_scale, vec),
+                  ln2_bias=(ln2_bias, vec), mlp_fc=(w_fc, (d_model, d_ff)),
+                  mlp_fc_bias=(b_fc, (d_ff,)),
+                  mlp_proj=(w_proj, (d_ff, d_model)),
+                  mlp_proj_bias=(b_proj, vec))
+    _check_vit_widths(op, D=d_model, F=d_ff)
+    if num_heads <= 0 or d_model % num_heads:
+        raise ValueError(
+            f"{op}: width {d_model} is not a multiple of {num_heads} heads")
+    head_dim = d_model // num_heads
+    if head_dim not in _SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{op}: head size {head_dim} is not one of "
+                         f"{_SUPPORTED_HEAD_DIMS}")
+    limit = gpt2_attention_max_len(head_dim)
+    if seq > limit:
+        raise ValueError(
+            f"{op}: sequence length {seq} exceeds {limit}, the longest whose "
+            f"score tile fits this card's shared memory at head size "
+            f"{head_dim}")
+    mask = mask.to(device=x.device, dtype=torch.int32).contiguous()
+    rows, dev = batch * seq, x.device
+    # through device memory, once each: bf16 h (LN1, then LN2), q, k, v and
+    # the attention output; the fp32 residual r1; the bf16 tanh-gelu hidden
+    h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
+    q, k, v, attn = (torch.empty_like(x) for _ in range(4))
+    r1 = torch.empty((rows, d_model), dtype=_F32, device=dev)
+    hidden = torch.empty((rows, d_ff), dtype=_BF16, device=dev)
+    out = torch.empty_like(x)
+    _run(op, _launcher_of("gpt2_block", op, 22, 6, 2),
+         x.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
+         h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         attn.data_ptr(), r1.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+         batch, seq, num_heads, head_dim, d_ff,
+         gpt2_block_group(batch, group), head_dim ** -0.5, eps,
+         torch.cuda.current_stream(dev).cuda_stream)
+    fused_gpt2_block.launches += 1
+    return out
+
+
+fused_gpt2_block.launches = 0

@@ -6,6 +6,8 @@ time it.
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --int8-digests
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --flash-reference
 
 Shapes: ``fused_t5_ffn`` at M = 32 x 557 rows, D = 2048, F = 5120 (gated),
 with a SHA-256 of its bf16 output (the inputs come from a seeded generator,
@@ -24,7 +26,14 @@ ViT-L/14@336 widths on 16 images (L = 577, D = 1024, 16 heads, F = 4096),
 with ``fused_vit_block`` there too in its long ``whole`` and ``whole_dd``
 orders; the short-sequence whole blocks (``fused_vit_block`` in its three
 softmax orders, ``fused_vit_block_q8``, ``fused_attention_block``) at
-ViT-B/32 widths on 16 images (L = 50, D = 768, 12 heads, F = 3072).
+ViT-B/32 widths on 16 images (L = 50, D = 768, 12 heads, F = 3072);
+``fused_gpt2_block`` at GPT-2 small widths (D = 768, 12 heads, F = 3072) on
+32 sequences of 64 positions (right-padded rows) and on 6 (a left-padded
+row with no visible key, G = 2); ``flash_attention`` at ViT-L/14@336's
+attention on 16 images (L = 577, 16 heads of 64, no bias) and on a small
+shape under a key-mask and a per-(batch, head) bias; with
+``--flash-reference`` alone, ``flash_attention`` and its plain version on 2
+images at ViT-L/14@336's attention, each against an fp64 reference.
 Prints one line per report and per kernel; ``chip_smoke.py`` makes the full
 measurement.
 """
@@ -33,12 +42,15 @@ from __future__ import annotations
 
 import hashlib
 import sys
+from typing import Optional
 
 import torch
 
 from .. import kernels
 from ..models import clip
+from ..models import gpt2
 from ..models.t5 import _quant_stacked_i8
+from ..ops import attention as attn
 from ..ops import decode_attention as da
 from ..ops import fused_attention_block as fab
 
@@ -98,8 +110,12 @@ def main() -> None:
     if "--int8-digests" in sys.argv[1:]:
         int8_encoder_digests()
         return
+    if "--flash-reference" in sys.argv[1:]:
+        flash_reference()
+        return
     logs = kernels.build(["cross_attention_decode", "t5_ffn", "vit_block",
-                          "vit_block_q8"], ptxas_verbose=True)
+                          "vit_block_q8", "gpt2_block", "flash_attention"],
+                         ptxas_verbose=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -144,6 +160,7 @@ def main() -> None:
                       {"normalised": {},
                        "deferred_div": {"deferred_div": True},
                        "whole_fe": {"fast_exp": True}}, short=True)
+    clipcap_probe(randn)
 
 
 def vit_probe(randn) -> None:
@@ -168,7 +185,9 @@ def vit_probe(randn) -> None:
     run_cases(cases, batch)
 
 
-def run_cases(cases: dict, batch: int) -> None:
+def run_cases(cases: dict, batch: Optional[int] = None) -> None:
+    """Each case once against its plain version, then timed; the names
+    carry the batch unless ``batch`` is given."""
     for name, (fn, plain, args) in cases.items():
         got, want = fn(*args), plain(*args)
         torch.cuda.synchronize()
@@ -177,7 +196,8 @@ def run_cases(cases: dict, batch: int) -> None:
         err = max((g.float() - p.float()).abs().max().item()
                   for g, p in zip(got, want))
         differ = sum(int((g != p).sum()) for g, p in zip(got, want))
-        print(f"{name} B={batch}: max abs err {err}, {differ} of "
+        label = name if batch is None else f"{name} B={batch}"
+        print(f"{label}: max abs err {err}, {differ} of "
               f"{sum(g.numel() for g in got)} elements differ, "
               f"{cuda_ms(lambda: fn(*args), 10)} ms")
 
@@ -213,7 +233,6 @@ def vit_q8_probe(randn) -> None:
              q8["mlp_proj"][0], q8["mlp_proj_scale"][0], b_pr)),
     }
     run_cases(cases, batch)
-
 
 
 def whole_block_probe(randn, cfg, orders: dict, short: bool = False) -> None:
@@ -252,6 +271,81 @@ def whole_block_probe(randn, cfg, orders: dict, short: bool = False) -> None:
             (x, *(layer[n] for n in ("q", "q_bias", "k", "k_bias", "v",
                                      "v_bias", "o", "o_bias")), heads))
     run_cases(cases, batch)
+
+
+
+def clipcap_probe(randn) -> None:
+    """fused_gpt2_block and flash_attention against their plain versions."""
+    cfg = gpt2.GPT2Config.gpt2_small(num_layers=1)
+    layer = {name: leaf[0] for name, leaf in gpt2.init_gpt2_params(
+        torch.Generator(device="cuda").manual_seed(2), cfg)["blocks"].items()}
+    for name in layer:
+        if name.endswith(("bias", "scale")):
+            base = 1.0 if name.endswith("scale") else 0.0
+            layer[name] = (base + randn(*layer[name].shape, scale=0.1)
+                           ).bfloat16()
+    params = [layer[n] for n in fab.GPT2_BLOCK_KEYS]
+    cases = {}
+    for batch, seq, left in ((32, 64, 0), (6, 64, 7)):
+        x = randn(batch, seq, cfg.d_model)
+        mask = torch.ones((batch, seq), dtype=torch.int32, device="cuda")
+        for b in range(batch):
+            mask[b, seq - b % 9:] = 0
+        mask[1, :left] = 0
+        cases[f"fused_gpt2_block B={batch} L={seq} left pad {left}"] = (
+            fab.fused_gpt2_block, fab.fused_gpt2_block_plain,
+            (x, mask, *params, cfg.num_heads))
+    q, k, v = (randn(16, 577, 16, 64, scale=s) for s in (0.125, 1, 1))
+    cases["flash_attention B=16 L=577"] = (
+        attn.flash_attention, attn.flash_attention_plain, (q, k, v))
+    q, k, v = (randn(3, 70, 4, 64, scale=s) for s in (0.125, 1, 1))
+    key_mask = torch.zeros((3, 1, 1, 70), device="cuda")
+    key_mask[1, ..., 30:] = -1e9
+    key_mask[2] = -1e9                      # a row the bias masks entirely
+    cases["flash_attention key-mask bias"] = (
+        attn.flash_attention, attn.flash_attention_plain,
+        (q, k, v, key_mask))
+    cases["flash_attention per-(batch, head) bias"] = (
+        attn.flash_attention, attn.flash_attention_plain,
+        (q, k, v, randn(3, 4, 70, 70).float()))
+    run_cases(cases)
+
+
+def flash_reference() -> None:
+    """flash_attention and its plain version on 2 images at ViT-L/14@336's
+    attention (577 tokens, 16 heads of 64), each against an fp64
+    reference: how many outputs part from the plain version's by more than
+    one bf16 ulp of the plain value, and how many of each lie beyond one
+    ulp of the fp64 value."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = (randn(2, 577, 16, 64) * 0.125).bfloat16()
+    k, v = randn(2, 577, 16, 64).bfloat16(), randn(2, 577, 16, 64).bfloat16()
+    got = attn.flash_attention(q, k, v).double()
+    want = attn.flash_attention_plain(q, k, v).double()
+    q64, k64, v64 = (t.double().transpose(1, 2) for t in (q, k, v))
+    e = torch.softmax(q64 @ k64.transpose(-1, -2), dim=-1)
+    ref = (e @ v64).transpose(1, 2)
+
+    def ulp(a):
+        return torch.exp2(torch.floor(torch.log2(
+            a.abs().clamp_min(2.0 ** -126))) - 7)
+
+    strict = (got - want).abs() > ulp(want)
+    print(f"flash_attention vs plain: {int((got != want).sum())} of "
+          f"{got.numel()} differ, {int(strict.sum())} by more than one ulp "
+          f"of the plain value; rms(plain) {want.square().mean().sqrt()}")
+    for name, out in (("kernel", got), ("plain", want)):
+        far = (out - ref).abs() > ulp(ref)
+        print(f"{name} vs fp64: {int(far.sum())} beyond one ulp of fp64, "
+              f"max abs err {(out - ref).abs().max().item()}")
+    for i in strict.nonzero()[:12].tolist():
+        i = tuple(i)
+        print(f"  at {i}: kernel {got[i].item()}, plain {want[i].item()}, "
+              f"fp64 {ref[i].item()}")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 params: the default path, fast_attention, the fused split3 path and the
 whole-block branches (fused_vit_block, fused_vit_block_q8,
 fused_attention_block; Pallas in interpret mode on the JAX side, the
-kernels' plain versions on the port's), the text tower, and use_pallas,
-whose kernel is not ported yet (the HF witness is in
+kernels' plain versions on the port's), use_pallas (flash_attention), and
+the text tower (the HF witness is in
 tests/test_torch_clip_tools.py, which builds it once; the long-sequence
 split* and fused_attention variants in tests/test_torch_clip_long.py; the
 long int8 tower in tests/test_torch_clip_int8.py)."""
@@ -23,6 +23,9 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.convert import (  # noqa: E402
     clip_vision_params_from_numpy,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clip as tclip  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (  # noqa: E402
+    attention as tflash,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (  # noqa: E402
     fused_attention_block as tfab,
 )
@@ -48,6 +51,9 @@ TOWERS = {
     # small_test(patch_size=4): (28 / 4)^2 + 1 = 50 tokens, ViT-B/32's length
     "seq50": dict(image_size=28, patch_size=4, width=32, num_layers=2,
                   num_heads=4, projection_dim=16),
+    # (68 / 4)^2 + 1 = 290 > 256: flash_attention pads its query blocks
+    "seq290": dict(image_size=68, patch_size=4, width=32, num_layers=2,
+                   num_heads=4, projection_dim=16),
 }
 BATCH = 2
 
@@ -270,13 +276,30 @@ def test_int8_without_blocks_q8_raises(towers):
             tclip.clip_encode_image(tp, tcfg, torch.from_numpy(images))
 
 
-def test_use_pallas_raises(towers):
-    """use_pallas reaches ops/attention.py::flash_attention, not ported."""
-    _, tp, images = towers["small_test"]
-    _, tcfg = configs("small_test", "float32")
-    with pytest.raises(NotImplementedError, match="Queue 2 #16"):
-        tclip.clip_encode_image(tp, tcfg, torch.from_numpy(images),
-                                use_pallas=True)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("tower", ["small_test", "seq197", "seq290"])
+def test_use_pallas_matches_jax(towers, tower, dtype):
+    """use_pallas: the flash_attention kernel's plain version in the port,
+    the Pallas kernel in interpret mode in JAX, at 5 tokens (Lk padded to
+    128), 197 (Lk padded to 256) and 290 (Lk padded to 384, Lq to two
+    256-row query blocks); the rest of the block as the default path runs
+    it."""
+    jp, tp, images = towers[tower]
+    jcfg, tcfg = configs(tower, dtype)
+    want = np.asarray(jclip.clip_encode_image(
+        jp, jcfg, jnp.asarray(images), use_pallas=True).astype(jnp.float32))
+    before = tflash.flash_attention.launches
+    got = tclip.clip_encode_image(tp, tcfg, torch.from_numpy(images),
+                                  use_pallas=True)
+    assert tflash.flash_attention.launches == before   # CPU: plain version
+    assert got.dtype == DTYPES[dtype][1]
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=DEFAULT_TOL,
+                                   atol=DEFAULT_TOL)
+    else:
+        assert (cosine(got, want) >= SAME_PATH_COSINE).all(), \
+            cosine(got, want)
 
 
 def test_split3_group_does_not_change_the_result(towers):

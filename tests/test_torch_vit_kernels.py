@@ -242,7 +242,8 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     before = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert kernels.SOURCES["vit_block"] == "vit_block.cu"
     assert [p.name for p in kernels.included_files("vit_block")] == [
-        "vit_block.cu", "bf16_gemm.cuh", "vit_attention.cuh"]
+        "vit_block.cu", "block_stages.cuh", "vit_attention.cuh",
+        "bf16_gemm.cuh"]
     header = csrc / "bf16_gemm.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: kernels.library_path(name) for name in kernels.SOURCES}
