@@ -71,7 +71,11 @@ register / shared-memory / spill report):
              widths on 16 images (L = 577, D = 1024, 16 heads, F = 4096),
              then timed at the image encoder's batch of 256 beside the plain
              version, the bound and a library yardstick (layer_norm and
-             cuBLAS matmuls; scaled_dot_product_attention)
+             cuBLAS matmuls; scaled_dot_product_attention);
+             attention_core_oproj also with its attention stage timed alone
+             and the bound of its two-pass route (operations, exponentials
+             and bytes); at most 0.5 % of that stage's outputs may differ
+             from plain (the share of the whole function's is recorded)
   vit_q8_kernels
              the int8 ViT kernels (fused_qkv_q8, attention_core with and
              without fast_exp, fused_mlp_block_q8) against their plain
@@ -79,7 +83,15 @@ register / shared-memory / spill report):
              (weights from the port's quantize_vision_blocks, which must
              give the same codes and scales on the card as on the CPU),
              timed at 256 beside the plain version, the bound and a library
-             yardstick (torch._int_mm, GEMMs only; scaled_dot_product_attention)
+             yardstick (torch._int_mm, GEMMs only; scaled_dot_product_attention);
+             attention_core also beside its route's bound, at most 0.5 % of
+             its outputs differing from plain
+  vit_attention_edges
+             attention_core (both orders) and attention_core_oproj against
+             their plain versions on 2 images at every head size (16, 32,
+             64, 128; D = 256) and L of 1, 50, 64, 65, 577 and 1025: a
+             single key, ragged query and key tiles, a TMA box past L and a
+             length beyond the whole blocks' shared-memory limit
   clip_encode
              ClipImageEncoder at ViT-L/14@336, batch 256, random bf16 weights
              from a seed and random normalised images: the default (plain)
@@ -222,6 +234,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
 FP32_FLOP_PER_S = 67e12           # outside the tensor cores
+EXP_PER_S = 132 * 16 * 1.98e9      # 16 exponentials a clock on each SM
 KERNEL_ATOL = KERNEL_RTOL = 8e-3   # one bf16 ulp of outputs below 2
 REFERENCE_REL_ERR = 2e-2           # a few bf16 roundings over 2 layers
 # int8 kernel against plain: two bf16 ulps, plus room for a rare activation
@@ -235,6 +248,13 @@ DECODE_LAYER = 7                   # the cache layer the decode kernel reads
 # summed in another order (rel. Frobenius over the logits)
 LAYOUT_REL_ERR = 1e-3
 VIT_CHECK_BATCH = 16               # images of the ragged-edge value check
+# attention_core and attention_core_oproj against plain at CLIP_BATCH: only
+# the order of the fp32 sums differs, so few bf16 outputs may
+ATTENTION_MAX_DIFFERING = 0.005
+EDGE_LENGTHS = (1, 50, 64, 65, 577, 1025)
+EDGE_HEAD_DIMS = (16, 32, 64, 128)
+EDGE_WIDTH = 256
+EDGE_BATCH = 2
 CLIP_BATCH = 256                   # the image encoder's batch
 CLIP_COSINE_FLOOR = 0.99           # fused or int8 against default, per row
 SPLIT_FE_LAYERS = 2                # depth of the split_fe and whole encodes
@@ -419,6 +439,32 @@ def bound_mixed(bytes_moved: float, parts) -> dict:
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes=bytes_moved, ops=sum(ops for ops, _ in parts))
+
+
+def attention_route_bound(batch: int, seq: int, width: int, heads: int,
+                          bytes_moved: float, extra_ops: float = 0.0) -> dict:
+    """The bound of the two-pass wgmma attention's route beside the
+    function's: q . k^T twice and p . v (6 B L^2 D operations, plus
+    ``extra_ops`` such as an out-projection) at the bf16 peak, B H L^2
+    exponentials at EXP_PER_S and the bytes; the largest of the three."""
+    parts = dict(
+        bytes=bytes_moved / HBM_BYTES_PER_S * 1e3,
+        operations=(6 * batch * seq * seq * width + extra_ops)
+        / BF16_FLOP_PER_S * 1e3,
+        exponentials=batch * heads * seq * seq / EXP_PER_S * 1e3)
+    by = max(parts, key=parts.get)
+    return dict(route_bound_ms=parts[by], route_bound_by=by,
+                route_parts_ms=parts)
+
+
+def check_few_differ(name: str, res: dict) -> float:
+    """The share of outputs that differ from plain, at most
+    ATTENTION_MAX_DIFFERING."""
+    share = res["differing"] / res["elements"]
+    check(share <= ATTENTION_MAX_DIFFERING,
+          f"{name}: {share} of its outputs differ from plain, more than "
+          f"{ATTENTION_MAX_DIFFERING}")
+    return share
 
 
 def compare_q8(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -1158,13 +1204,33 @@ def phase_vit_kernels(gen: torch.Generator) -> dict:
         kernel_ms = cuda_ms(lambda: fn(*full), iters=10)
         plain_ms = cuda_ms(lambda: plain(*full), iters=2, warmup=1)
         library_ms = cuda_ms(lambda: case["library"](CLIP_BATCH), iters=10)
+        extra = {}
+        if name == "attention_core_oproj":
+            # the attention stage alone (the same kernel, attention_core's
+            # bf16_sum order) splits the time into attention and GEMM
+            attention_ms = cuda_ms(lambda: attention_core(q, k, v, heads),
+                                   iters=10)
+            # the share of outputs off plain: the attention stage's is held
+            # to ATTENTION_MAX_DIFFERING; the whole function's also counts
+            # the out-projection GEMM's sum order, and is recorded
+            stage = check_against_plain(
+                "attention_core_oproj's attention", attention_core,
+                attention_core_plain, (q, k, v, heads), CLIP_BATCH)
+            extra = dict(
+                attention_ms=attention_ms, gemm_ms=kernel_ms - attention_ms,
+                differing_share=main["differing"] / main["elements"],
+                attention_differing_share=check_few_differ(
+                    "attention_core_oproj's attention", stage),
+                **attention_route_bound(CLIP_BATCH, seq, width, heads,
+                                        case["bytes"],
+                                        2 * rows * width * width))
         torch.cuda.empty_cache()
         results[name] = dict(
             shape=dict(B=CLIP_BATCH, L=seq, D=width, H=heads, F=d_ff),
             **main, **{f"b{VIT_CHECK_BATCH}_{key}": val
                        for key, val in ragged.items()},
             ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            **bound(case["bytes"], case["ops"], BF16_FLOP_PER_S))
+            **bound(case["bytes"], case["ops"], BF16_FLOP_PER_S), **extra)
         emit("vit_kernels", kernel=name, kernel_ms=kernel_ms, **{
             key: val for key, val in results[name].items() if key != "ms"})
     return results
@@ -1274,6 +1340,11 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
         kernel_ms = cuda_ms(lambda: case["fn"](*full), iters=10)
         plain_ms = cuda_ms(lambda: case["plain"](*full), iters=2, warmup=1)
         library_ms = cuda_ms(case["library"](), iters=10)
+        extra = {}
+        if name.startswith("attention_core"):
+            extra = dict(differing_share=check_few_differ(name, main),
+                         **attention_route_bound(CLIP_BATCH, seq, width,
+                                                 heads, case["bytes"]))
         torch.cuda.empty_cache()
         results[name] = dict(
             shape=dict(B=CLIP_BATCH, L=seq, D=width, H=heads, F=d_ff),
@@ -1281,12 +1352,56 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
                        for key, val in ragged.items()},
             ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             library=case["library_name"],
-            **bound(case["bytes"], case["ops"], case["peak"]))
+            **bound(case["bytes"], case["ops"], case["peak"]), **extra)
         emit("vit_q8_kernels", kernel=name, kernel_ms=kernel_ms,
              quantize_layer_s=quantize_s, **{
                  key: val for key, val in results[name].items()
                  if key != "ms"})
     return results
+
+
+def phase_vit_attention_edges(gen: torch.Generator) -> None:
+    """attention_core (both orders) and attention_core_oproj against their
+    plain versions on EDGE_BATCH images at every EDGE_LENGTHS x
+    EDGE_HEAD_DIMS case."""
+    dev = gen.device
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale) \
+            .bfloat16()
+
+    cases = {}
+    worst = dict(max_abs_err=0.0, differing=0, elements=0)
+    for seq in EDGE_LENGTHS:
+        for head_dim in EDGE_HEAD_DIMS:
+            heads = EDGE_WIDTH // head_dim
+            q, k, v, res = (randn(EDGE_BATCH, seq, EDGE_WIDTH, scale=s)
+                            for s in (0.5, 2.0, 1.0, 1.0))
+            wo = randn(EDGE_WIDTH, EDGE_WIDTH, scale=EDGE_WIDTH ** -0.5)
+            bo = randn(EDGE_WIDTH, scale=0.1)
+            kernels_here = {
+                "attention_core": (attention_core, attention_core_plain,
+                                   (q, k, v, heads)),
+                "attention_core_fast_exp": (
+                    lambda *a: attention_core(*a, fast_exp=True),
+                    lambda *a: attention_core_plain(*a, fast_exp=True),
+                    (q, k, v, heads)),
+                "attention_core_oproj": (
+                    attention_core_oproj, attention_core_oproj_plain,
+                    (res, q, k, v, wo, bo, heads)),
+            }
+            for name, (fn, plain, args) in kernels_here.items():
+                res_case = check_against_plain(
+                    f"{name} L={seq} dh={head_dim}", fn, plain, args,
+                    EDGE_BATCH)
+                cases[f"{name} L={seq} dh={head_dim}"] = res_case
+                worst["max_abs_err"] = max(worst["max_abs_err"],
+                                           res_case["max_abs_err"])
+                worst["differing"] += res_case["differing"]
+                worst["elements"] += res_case["elements"]
+    emit("vit_attention_edges", batch=EDGE_BATCH, width=EDGE_WIDTH,
+         lengths=EDGE_LENGTHS, head_dims=EDGE_HEAD_DIMS, cases=len(cases),
+         **worst, worst_case=max(cases, key=lambda c: cases[c]["max_abs_err"]))
 
 
 def flat_leaves(tree, prefix: str = ""):
@@ -2196,6 +2311,8 @@ def main() -> int:
     vit_kernels = phase_vit_kernels(gen)
     torch.cuda.empty_cache()
     vit_q8_kernels = phase_vit_q8_kernels(gen)
+    torch.cuda.empty_cache()
+    phase_vit_attention_edges(gen)
     torch.cuda.empty_cache()
     clip_encode = phase_clip_encode(gen)
     torch.cuda.empty_cache()

@@ -1,11 +1,11 @@
-// The CLIP ViT attention core that csrc/vit_block.cu and csrc/vit_block_q8.cu
-// share, for NVIDIA Hopper (sm_90a): softmax(q k^T) v per image and head
-// over pre-scaled bf16 q, k, v in the (B, L, H dh) layout (no bias, no mask),
-// in one of four softmax orders (the port's SOFTMAX_MODES), e = exp(s - max):
-//   kBf16Sum      p = bf16(e); o = (p . v) / sum(float(p))   attention_core
+// The attention of the whole-block kernels (csrc/vit_block.cu's
+// fused_vit_block, csrc/vit_block_q8.cu, csrc/gpt2_block.cu), for NVIDIA
+// Hopper (sm_90a): softmax(q k^T) v per image and head over pre-scaled bf16
+// q, k, v in the (B, L, H dh) layout (no bias, no mask), in one of three
+// softmax orders (the port's SOFTMAX_MODES), e = exp(s - max):
 //   kFastExp      e = exp(float(bf16(s - max))); p = bf16(e);
-//                 o = (p . v) / sum(e)     attention_core and fused_vit_block
-//                 with fast_exp (the interpret-mode Pallas kernels' rounding:
+//                 o = (p . v) / sum(e)     fused_vit_block with fast_exp
+//                 (the interpret-mode Pallas kernels' rounding:
 //                 XLA rounds the bf16 exponential only where a bf16 operand
 //                 needs it)
 //   kNormalised   p = bf16(e / sum(e)); o = p . v     fused_vit_block,
@@ -50,8 +50,9 @@ namespace vit_attention {
 
 using bf16 = __nv_bfloat16;
 
+// the values of the port's SOFTMAX_MODES (0, "bf16_sum", is
+// attention_core's, in vit_attention_wgmma.cuh)
 enum Softmax : int {
-  kBf16Sum = 0,
   kFastExp = 1,
   kNormalised = 2,
   kDeferredDiv = 3
@@ -257,7 +258,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         } else {
           const float e = expf(__fsub_rn(srow[j], m));
           p = __float2bfloat16(e);
-          sum = __fadd_rn(sum, MODE == kBf16Sum ? __bfloat162float(p) : e);
+          sum = __fadd_rn(sum, e);
         }
       }
       __syncwarp();

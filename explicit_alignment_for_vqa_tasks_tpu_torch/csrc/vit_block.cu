@@ -22,9 +22,10 @@
 //     q   = bf16(((h . wq) + bq) * scale)   products accumulated in fp32,
 //     k   = bf16((h . wk) + bk)             then the bias, then the scale
 //     v   = bf16((h . wv) + bv)
-//   attention_core: vit_attention.cuh's kBf16Sum (kFastExp with fast_exp)
+//   attention_core: vit_attention_wgmma.cuh's kBf16Sum (kFastExp with
+//     fast_exp)
 //   attention_core_oproj
-//     o   = attention_core(q, k, v)
+//     o   = attention_core(q, k, v)        (kBf16Sum)
 //     out = bf16(res + ((o . wo) + bo))
 //   fused_mlp_block
 //     h   = bf16(LN(x))
@@ -58,7 +59,9 @@
 // = 147,712 rows, D = 1024, 16 heads of 64, F = 4096):
 //   fused_ln_qkv          929.3 GFLOP = 0.940 ms; 1.22 GB = 0.36 ms
 //   attention_core_oproj  658.9 GFLOP = 0.666 ms; 1.51 GB = 0.45 ms
+//                         (this route, q . k^T twice: 833.5 GFLOP = 0.843 ms)
 //   attention_core        349.1 GFLOP = 0.353 ms; 1.21 GB = 0.361 ms
+//                         (this route: 523.7 GFLOP = 0.530 ms)
 //   fused_mlp_block       2,478 GFLOP = 2.506 ms; 0.62 GB = 0.19 ms
 // At ViT-B/32 with the bench's batch of 1024 (M = 1024 x 50 = 51,200 rows,
 // D = 768, 12 heads of 64, F = 3072):
@@ -89,7 +92,10 @@
 //     for the MLP's up product. Bias then residual for the out-projection
 //     and the MLP's down product; fused_vit_block's out-projection writes
 //     the fp32 r1 and its down product adds it.
-//   attention: vit_attention.cuh, in the softmax order of the function.
+//   attention: attention_core and attention_core_oproj's on wgmma and TMA
+//     in vit_attention_wgmma.cuh (two passes over the keys, any L); the
+//     whole blocks' in vit_attention.cuh, in the softmax order of the
+//     function.
 //   fused_attention_block's attention has fp32 operands, where TF32 tensor
 //     cores would not hold the fp32 result: it runs on the CUDA cores in
 //     fp32 (fmaf), one block of eight warps per (head, image) with the
@@ -112,21 +118,20 @@
 
 #include "block_stages.cuh"
 #include "vit_attention.cuh"
+#include "vit_attention_wgmma.cuh"
 
 namespace {
 
 using namespace block_stages;
 using vit_attention::attention_dh;
 
-// The bf16 attention in softmax order `mode` (vit_attention::Softmax).
+// fused_vit_block's bf16 attention in softmax order `mode`
+// (vit_attention::Softmax).
 int attention_mode(int mode, const void* q, const void* k, const void* v,
                    void* out, int B, int L, int H, int dh,
                    cudaStream_t stream) {
   namespace va = vit_attention;
   switch (mode) {
-    case va::kBf16Sum:
-      return attention_dh<va::kBf16Sum, bf16>(q, k, v, out, B, L, H, dh,
-                                              stream);
     case va::kFastExp:
       return attention_dh<va::kFastExp, bf16>(q, k, v, out, B, L, H, dh,
                                               stream);
@@ -242,7 +247,8 @@ int attention_f32(const void* q, const void* k, const void* v, void* attn3,
 }  // namespace
 
 // Largest sequence length whose score tile fits the current device's shared
-// memory at head size dh (0 if dh is not supported).
+// memory at head size dh in vit_attention.cuh's kernel (fused_vit_block's
+// attention; 0 if dh is not supported).
 extern "C" int vit_attention_max_len(int dh) {
   return vit_attention::max_len(dh);
 }
@@ -288,12 +294,13 @@ extern "C" int attention_core_oproj_launch(const void* res, const void* q,
                                            void* attn, void* out, int B,
                                            int L, int H, int dh,
                                            void* stream) {
-  if (!vit_attention::shape_ok(B, L, H) || !gemm_shape_ok(B * L, H * dh)) {
+  if (!vit_attention_wgmma::shape_ok(B, L, H) ||
+      !gemm_shape_ok(B * L, H * dh)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = attention_dh<vit_attention::kBf16Sum, bf16>(
-      q, k, v, attn, B, L, H, dh, s);
+  const int rc = vit_attention_wgmma::attention_dh<
+      vit_attention_wgmma::kBf16Sum>(q, k, v, attn, B, L, H, dh, s);
   if (rc != 0) return rc;
   return gemm<kBiasResidual>(
       gemm_args(attn, wo, bo, out, res, B * L, H * dh, H * dh), 1, s);
@@ -306,9 +313,12 @@ extern "C" int attention_core_launch(const void* q, const void* k,
                                      const void* v, void* out, int B, int L,
                                      int H, int dh, int fast_exp,
                                      void* stream) {
-  return attention_mode(
-      fast_exp ? vit_attention::kFastExp : vit_attention::kBf16Sum, q, k, v,
-      out, B, L, H, dh, static_cast<cudaStream_t>(stream));
+  namespace vw = vit_attention_wgmma;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fast_exp) {
+    return vw::attention_dh<vw::kFastExp>(q, k, v, out, B, L, H, dh, s);
+  }
+  return vw::attention_dh<vw::kBf16Sum>(q, k, v, out, B, L, H, dh, s);
 }
 
 // out (M, D) bf16 = x + quickGELU(bf16(LN(x)) . w_fc + b_fc) . w_proj +

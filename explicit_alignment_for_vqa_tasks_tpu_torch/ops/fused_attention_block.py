@@ -14,7 +14,9 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
     ``attention_core_oproj`` (:348-376) and ``fused_mlp_block``
     (:419-459), kernels in ``csrc/vit_block.cu``;
   * the CLIP ViT long-sequence attention ``attention_core`` (:203-232,
-    optional bf16 exp), kernel in ``csrc/vit_block.cu``;
+    optional bf16 exp), kernel in ``csrc/vit_block.cu``. Its attention and
+    ``attention_core_oproj``'s are ``csrc/vit_attention_wgmma.cuh``
+    (``wgmma`` and TMA, two passes over the keys, any L);
   * the int8 ViT long-sequence block: ``fused_qkv_q8`` (:559-593) and
     ``fused_mlp_block_q8`` (:495-527), kernels in ``csrc/vit_block_q8.cu``,
     with ``quantize_weight_i8`` (:690-699), the host quantizer of their
@@ -23,8 +25,8 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
     long ``whole`` / ``whole_dd`` variants) and ``fused_attention_block``
     (:1417-1462, ``block_diag=True`` only), kernels in ``csrc/vit_block.cu``;
     the int8 ``fused_vit_block_q8`` (:772-826), kernel in
-    ``csrc/vit_block_q8.cu``. Their attention (and ``attention_core``'s)
-    is ``csrc/vit_attention.cuh``;
+    ``csrc/vit_block_q8.cu``. Their attention is
+    ``csrc/vit_attention.cuh``;
   * the GPT-2 whole block ``fused_gpt2_block`` (:898-958, forward only),
     kernel ``csrc/gpt2_block.cu`` over the same attention with its causal
     key mask. Its backward (``fused_gpt2_block_vjp``) comes with mapper
@@ -642,8 +644,8 @@ fused_t5_ffn.launches = 0
 # ---------------------------------------------------------------------------
 
 # The GEMMs' tiles take widths (D, 3 x D, F) that are whole numbers of
-# 128-wide column tiles; the attention kernel keeps a (32, L) fp32 score
-# tile in shared memory.
+# 128-wide column tiles; the whole blocks' attention kernel keeps a (32, L)
+# fp32 score tile in shared memory (attention_core's takes any L).
 VIT_WIDTH_MULTIPLE = 128
 QUICK_GELU_ALPHA = 1.702
 
@@ -811,15 +813,16 @@ def _check_shapes(op: str, **pairs) -> None:
 
 
 def vit_attention_max_len(head_dim: int) -> int:
-    """The longest sequence ``attention_core_oproj``'s attention kernel
-    takes on the current card at this head size (its (32, L) fp32 score
-    tile lives in shared memory); 0 for an unsupported head size."""
+    """The longest sequence the whole blocks' attention kernel
+    (``csrc/vit_attention.cuh``: ``fused_vit_block``,
+    ``fused_vit_block_q8``) takes on the current card at this head size
+    (its (32, L) fp32 score tile lives in shared memory); 0 for an
+    unsupported head size."""
     return _kernel_max_len("vit_block", "vit_attention_max_len", head_dim)
 
 
-def _vit_head_dim(op: str, seq: int, d_model: int, num_heads: int) -> int:
-    """The head size, one the ViT attention kernel takes, at a sequence
-    length whose score tile fits the card's shared memory."""
+def _vit_head_size(op: str, d_model: int, num_heads: int) -> int:
+    """The head size, one the ViT attention kernels take."""
     if num_heads <= 0 or d_model % num_heads:
         raise ValueError(
             f"{op}: width {d_model} is not a multiple of {num_heads} heads")
@@ -827,6 +830,13 @@ def _vit_head_dim(op: str, seq: int, d_model: int, num_heads: int) -> int:
     if head_dim not in _SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{op}: head size {head_dim} is not one of "
                          f"{_SUPPORTED_HEAD_DIMS}")
+    return head_dim
+
+
+def _vit_head_dim(op: str, seq: int, d_model: int, num_heads: int) -> int:
+    """The head size, one the whole blocks' attention kernel takes, at a
+    sequence length whose score tile fits the card's shared memory."""
+    head_dim = _vit_head_size(op, d_model, num_heads)
     limit = vit_attention_max_len(head_dim)
     if seq > limit:
         raise ValueError(
@@ -905,7 +915,7 @@ def attention_core_oproj(
                   v=(v, q.shape), wo=(wo, (d_model, d_model)),
                   bo=(bo, (d_model,)))
     _check_vit_widths(op, D=d_model)
-    head_dim = _vit_head_dim(op, seq, d_model, num_heads)
+    head_dim = _vit_head_size(op, d_model, num_heads)
     dev = q.device
     # the attention output goes through device memory once, bf16
     attn = torch.empty_like(q)
@@ -985,7 +995,7 @@ def attention_core(
         raise ValueError(f"{op}: q is {tuple(q.shape)}, expected (B, L, D)")
     batch, seq, d_model = q.shape
     _check_shapes(op, k=(k, q.shape), v=(v, q.shape))
-    head_dim = _vit_head_dim(op, seq, d_model, num_heads)
+    head_dim = _vit_head_size(op, d_model, num_heads)
     out = torch.empty_like(q)
     _run(op, _launcher_of("vit_block", op, 4, 5, 0),
          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -8,32 +8,42 @@ time it.
         --int8-digests
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --flash-reference
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --attention-variants DIR [DIR ...]
 
 Shapes: ``fused_t5_ffn`` at M = 32 x 557 rows, D = 2048, F = 5120 (gated),
 with a SHA-256 of its bf16 output (the inputs come from a seeded generator,
 so two builds of the kernel can be compared bit for bit); the same digests
 of the int8 T5 encoder kernels (``fused_t5_ln_qkv_q8``,
-``fused_oproj_residual_q8``, ``fused_t5_ffn_q8``) at M = 32 x 557 rows,
-D = inner = 2048, F = 5120, 8 contraction groups, with ``--int8-digests``
-alone (that part needs only what the port had before the ViT int8 kernels,
-so this file copied into an older tree digests that tree's build);
+``fused_oproj_residual_q8``, ``fused_t5_ffn_q8``) at M = 32 x 557 rows, D =
+inner = 2048, F = 5120, 8 contraction groups, with ``--int8-digests`` alone
+(that part needs only what the port had before the ViT int8 kernels, so
+this file copied into an older tree digests that tree's build);
 ``cross_attention_decode`` on layer 7 of 24 stacked (32, 557, 2048) bf16
 caches; the CLIP ViT ``split3`` kernels (``fused_ln_qkv``,
 ``attention_core_oproj``, ``fused_mlp_block``) and the int8 path's
 (``fused_qkv_q8``, ``attention_core`` with and without ``fast_exp``,
 ``fused_mlp_block_q8``, weights from ``quantize_vision_blocks``) at
 ViT-L/14@336 widths on 16 images (L = 577, D = 1024, 16 heads, F = 4096),
-with ``fused_vit_block`` there too in its long ``whole`` and ``whole_dd``
-orders; the short-sequence whole blocks (``fused_vit_block`` in its three
-softmax orders, ``fused_vit_block_q8``, ``fused_attention_block``) at
-ViT-B/32 widths on 16 images (L = 50, D = 768, 12 heads, F = 3072);
-``fused_gpt2_block`` at GPT-2 small widths (D = 768, 12 heads, F = 3072) on
-32 sequences of 64 positions (right-padded rows) and on 6 (a left-padded
-row with no visible key, G = 2); ``flash_attention`` at ViT-L/14@336's
-attention on 16 images (L = 577, 16 heads of 64, no bias) and on a small
-shape under a key-mask and a per-(batch, head) bias; with
-``--flash-reference`` alone, ``flash_attention`` and its plain version on 2
-images at ViT-L/14@336's attention, each against an fp64 reference.
+``attention_core_oproj`` with its attention stage timed alone, and both
+attention kernels with the bound of their two-pass route (operations,
+exponentials and bytes), with ``fused_vit_block`` there too in its long
+``whole`` and ``whole_dd`` orders; the short-sequence whole blocks
+(``fused_vit_block`` in its three softmax orders, ``fused_vit_block_q8``,
+``fused_attention_block``) at ViT-B/32 widths on 16 images (L = 50, D =
+768, 12 heads, F = 3072); ``fused_gpt2_block`` at GPT-2 small widths (D =
+768, 12 heads, F = 3072) on 32 sequences of 64 positions (right-padded
+rows) and on 6 (a left-padded row with no visible key, G = 2);
+``flash_attention`` at ViT-L/14@336's attention on 16 images (L = 577, 16
+heads of 64, no bias) and on a small shape under a key-mask and a
+per-(batch, head) bias; with ``--flash-reference`` alone,
+``flash_attention`` and its plain version on 2 images at ViT-L/14@336's
+attention, each against an fp64 reference; with ``--attention-variants``
+alone, ``attention_core`` (both orders) built from each given copy of
+``csrc/`` (versions of ``vit_attention_wgmma.cuh``, built in parallel, each
+with its ptxas serialization warnings, spills and registers), checked
+against the plain version and timed at ViT-L/14@336 with B = 256, in turns
+(the list, then reversed).
 Prints one line per report and per kernel; ``chip_smoke.py`` makes the full
 measurement.
 """
@@ -41,8 +51,11 @@ measurement.
 from __future__ import annotations
 
 import hashlib
+import re
+import subprocess
 import sys
-from typing import Optional
+from pathlib import Path
+from typing import List, Optional
 
 import torch
 
@@ -113,6 +126,9 @@ def main() -> None:
     if "--flash-reference" in sys.argv[1:]:
         flash_reference()
         return
+    if sys.argv[1:2] == ["--attention-variants"]:
+        attention_variants([Path(d).resolve() for d in sys.argv[2:]])
+        return
     logs = kernels.build(["cross_attention_decode", "t5_ffn", "vit_block",
                           "vit_block_q8", "gpt2_block", "flash_attention"],
                          ptxas_verbose=True)
@@ -163,6 +179,21 @@ def main() -> None:
     clipcap_probe(randn)
 
 
+def attention_route_bound(name: str, batch: int, seq: int, width: int,
+                          heads: int, bytes_moved: float,
+                          extra_ops: float = 0.0) -> None:
+    """Prints the bound of the two-pass wgmma attention's route on an H100
+    SXM: q . k^T twice and p . v (plus ``extra_ops``) at 989 TFLOP/s, the
+    B H L^2 exponentials at 16 a clock on each of 132 SMs at 1.98 GHz, the
+    bytes at 3.35 TB/s."""
+    parts = dict(
+        operations=(6 * batch * seq * seq * width + extra_ops) / 989e12,
+        exponentials=batch * heads * seq * seq / (132 * 16 * 1.98e9),
+        bytes=bytes_moved / 3.35e12)
+    print(f"{name} B={batch}: route bound "
+          + ", ".join(f"{k} {v * 1e3} ms" for k, v in parts.items()))
+
+
 def vit_probe(randn) -> None:
     batch, seq, width, heads, d_ff = 16, 577, 1024, 16, 4096
     x = randn(batch, seq, width)
@@ -183,6 +214,12 @@ def vit_probe(randn) -> None:
                             (x, ln_s, ln_b, w_fc, b_fc, w_pr, b_pr)),
     }
     run_cases(cases, batch)
+    act = batch * seq * width * 2
+    print(f"attention_core_oproj B={batch}: attention stage alone "
+          f"{cuda_ms(lambda: fab.attention_core(q, k, v, heads), 10)} ms")
+    attention_route_bound("attention_core_oproj", batch, seq, width, heads,
+                          5 * act + width * width * 2 + width * 2,
+                          2 * batch * seq * width * width)
 
 
 def run_cases(cases: dict, batch: Optional[int] = None) -> None:
@@ -233,6 +270,8 @@ def vit_q8_probe(randn) -> None:
              q8["mlp_proj"][0], q8["mlp_proj_scale"][0], b_pr)),
     }
     run_cases(cases, batch)
+    attention_route_bound("attention_core", batch, seq, width, heads,
+                          4 * batch * seq * width * 2)
 
 
 def whole_block_probe(randn, cfg, orders: dict, short: bool = False) -> None:
@@ -346,6 +385,51 @@ def flash_reference() -> None:
         i = tuple(i)
         print(f"  at {i}: kernel {got[i].item()}, plain {want[i].item()}, "
               f"fp64 {ref[i].item()}")
+
+
+
+def attention_variants(dirs: List[Path]) -> None:
+    """attention_core's kernel from each csrc copy in ``dirs``: built in
+    parallel (one process each), then checked and timed in turns."""
+    build = ("from pathlib import Path\n"
+             "from explicit_alignment_for_vqa_tasks_tpu_torch import kernels\n"
+             "kernels.CSRC_DIR = Path({!r})\n"
+             "print(kernels.build(['vit_block'], ptxas_verbose=True)"
+             "['vit_block'])\n")
+    procs = {d: subprocess.Popen(
+        [sys.executable, "-c", build.format(str(d))], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for d in dirs}
+    built = []
+    for d, proc in procs.items():
+        log, _ = proc.communicate()
+        warnings = sorted(set(re.findall(r"C75[0-9][0-9]", log)))
+        spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
+        registers = re.findall(r"Used (\d+) registers", log)
+        print(f"{d}: build exit {proc.returncode}, serialization warnings "
+              f"{warnings}, spill stores {spills}, registers {registers}",
+              flush=True)
+        if proc.returncode == 0:
+            built.append(d)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch, seq, width, heads = 256, 577, 1024, 16
+    q, k, v = (torch.randn((batch, seq, width), generator=gen, device="cuda")
+               .mul_(s).bfloat16() for s in (0.5, 2.0, 1.0))
+    want = {fe: fab.attention_core_plain(q, k, v, heads, fast_exp=fe).float()
+            for fe in (False, True)}
+    for d in built + built[::-1]:
+        kernels.CSRC_DIR = d
+        kernels._loaded.clear()
+        parts = []
+        for fe in (False, True):
+            got = fab.attention_core(q, k, v, heads, fast_exp=fe).float()
+            err = (got - want[fe]).abs()
+            ok = bool((err <= 8e-3 * (1 + want[fe].abs())).all())
+            ms = cuda_ms(lambda: fab.attention_core(q, k, v, heads,
+                                                    fast_exp=fe), 10)
+            parts.append(f"fast_exp={fe}: within 8e-3 (1 + |want|) {ok}, "
+                         f"{(err > 0).float().mean().item()} of the outputs "
+                         f"differ, {ms} ms")
+        print(f"{d}: " + "; ".join(parts), flush=True)
 
 
 if __name__ == "__main__":

@@ -157,6 +157,35 @@ def test_attention_core_plain_matches_pallas_kernel(dtype, fast_exp):
     assert (np.abs(got - want) <= limit).all(), np.abs(got - want).max()
 
 
+# The ragged edges of the card's attention kernel (a single key, a key tile
+# one past a whole one) at its other head sizes: its tests on the card rest
+# on the plain version there.
+EDGE_HEADS = 2
+
+
+@pytest.mark.parametrize("fast_exp", [False, True])
+@pytest.mark.parametrize("head_dim", [32, 128])
+@pytest.mark.parametrize("seq", [1, 65])
+def test_attention_core_plain_matches_pallas_kernel_at_edges(seq, head_dim,
+                                                             fast_exp):
+    jfab = jax_fab()
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seq + head_dim)
+    qkv = [normal(rng, BATCH, seq, EDGE_HEADS * head_dim, scale=s)
+           for s in (0.5, 2.0, 1.0)]
+    want = np.asarray(jfab.attention_core(
+        *(jnp.asarray(a, jnp.bfloat16) for a in qkv), EDGE_HEADS,
+        fast_exp=fast_exp, interpret=True).astype(jnp.float32))
+    got = tfab.attention_core_plain(
+        *(torch.from_numpy(a).bfloat16() for a in qkv), EDGE_HEADS,
+        fast_exp=fast_exp)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    got = got.float().numpy()
+    assert (np.abs(got - want) <= bf16_ulp_of(want)).all()
+    assert (got == want).mean() >= MIN_EQUAL
+
+
 def test_fast_exp_is_not_the_fp32_exponential():
     """With fast_exp the exponential's argument is rounded to bf16: in fp32
     the output moves by far more than fp32 noise."""
@@ -428,6 +457,10 @@ def test_library_paths_cover_the_int8_header():
 
 # --- on the card: the CUDA kernels against the plain versions --------------
 
+EDGE_LENGTHS = (1, 50, 64, 65, 577, 1025)
+EDGE_HEAD_DIMS = (16, 32, 64, 128)
+EDGE_WIDTH = 256                  # 16 heads of 16 ... 2 of 128
+
 def cuda_case(name):
     """ViT-L/14@336 widths (L 577, D 1024, 16 heads, F 4096) on 2 images,
     bf16, one layer's weights from quantize_vision_blocks."""
@@ -487,3 +520,44 @@ def test_cuda_kernel_matches_plain_version(name):
         assert bool(((g - p).abs() <= 1.6e-2 * (p.abs() + rms)).all())
     with pytest.raises(ValueError, match="bfloat16"):
         fn(args[0].float(), *args[1:], **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["attention_core", "attention_core_fast_exp",
+                                  "attention_core_oproj"])
+@pytest.mark.parametrize("head_dim", EDGE_HEAD_DIMS)
+@pytest.mark.parametrize("seq", EDGE_LENGTHS)
+def test_cuda_attention_core_sweep(seq, head_dim, name):
+    """The wgmma attention of attention_core (both orders) and
+    attention_core_oproj on 2 images at every head size and at lengths
+    with a single key, a ragged query and key tile, a TMA box past L and a
+    length beyond the old kernel's shared-memory limit: every element
+    within 8e-3 (1 + |want|) of the plain version, one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(seq + head_dim)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).bfloat16()
+
+    heads = EDGE_WIDTH // head_dim
+    q, k, v = (randn(2, seq, EDGE_WIDTH, scale=s) for s in (0.5, 2.0, 1.0))
+    if name == "attention_core_oproj":
+        args = (randn(2, seq, EDGE_WIDTH), q, k, v,
+                randn(EDGE_WIDTH, EDGE_WIDTH, scale=EDGE_WIDTH ** -0.5),
+                randn(EDGE_WIDTH, scale=0.1), heads)
+        kw = {}
+    else:
+        args = (q, k, v, heads)
+        kw = {"fast_exp": True} if name.endswith("fast_exp") else {}
+    base = name.replace("_fast_exp", "")
+    fn, plain = getattr(tfab, base), getattr(tfab, base + "_plain")
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    got, want = got.float(), plain(*args, **kw).float()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= 8e-3 * (1 + want.abs())).all()), \
+        (got - want).abs().max().item()
