@@ -17,7 +17,10 @@ register / shared-memory / spill report):
              fused_oproj_residual_q8, fused_t5_ffn_q8) against their plain
              versions at the int8 path's shapes (M = 32 x 557 rows, D = 2048,
              F = 5120, 8 groups, weights from the port's quantizer), with
-             kernel, plain and torch._int_mm (GEMMs only) times and bounds
+             kernel, plain and torch._int_mm (GEMMs only) times and bounds;
+             fused_oproj_residual_q8 also with each CUDA kernel's device ms
+             under the profiler, its GEMM beside _int_mm's and held within
+             Q8_GEMM_STAGE_MAX_RATIO of it
   reference  the encoder at full width on a small input: kernel path against
              the plain materialised-bias path
   generate   VC-T0 few-shot generation at full T0-3B width and depth (random
@@ -120,7 +123,11 @@ register / shared-memory / spill report):
              heads, F = 3072), timed at 1024 beside the plain version, the
              bound and a library yardstick (the unfused bf16 block;
              torch._int_mm, GEMMs only; fp32 matmuls and
-             scaled_dot_product_attention)
+             scaled_dot_product_attention); fused_vit_block_q8 also with
+             each CUDA kernel's device ms under the profiler (four
+             row_quant, four GEMMs, the attention), each GEMM beside
+             _int_mm of the same product and their sum held within
+             Q8_GEMM_STAGE_MAX_RATIO of the library's
   clip_encode_b32
              ClipImageEncoder at ViT-B/32 (12 layers), batch 1024, random
              bf16 weights from a seed and random normalised images: the
@@ -130,7 +137,8 @@ register / shared-memory / spill report):
              (fused_attention_block), each called twice with 12 launches of
              its kernel per call and none of the others', with images/s,
              peak memory, the device's busy share, the calls in turns and
-             each path's per-row cosines against the default path's
+             each path's per-row cosines against the default path's; the
+             int8 path's images/s beside the fused path's
 
 Then a line listing every kernel of the path with its launches and times,
 and last the line {"ok": true, "device": {...}}. Any failed check exits
@@ -221,6 +229,9 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.tools.clip_encoder import (  # n
     ClipImageEncoder,
     ClipTextEncoder,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe import (  # noqa: E402
+    kernel_split,
+)
 
 SEED = 0
 BATCH = 32
@@ -243,6 +254,9 @@ Q8_REL_FROBENIUS = 2e-3
 Q8_ELEMENT_TOL = 1.6e-2            # x |want| + x rms(want)
 INT8_GROUPS = 8
 INT8_COSINE_FLOOR = 0.95           # a sanity floor; the value is recorded
+# the GEMM stage of fused_oproj_residual_q8 and fused_vit_block_q8 (their
+# s8 GEMM kernels' device time) against torch._int_mm of the same products
+Q8_GEMM_STAGE_MAX_RATIO = 2.0
 DECODE_LAYER = 7                   # the cache layer the decode kernel reads
 # transposed int8 cross-KV logits against unmerged: the same products
 # summed in another order (rel. Frobenius over the logits)
@@ -591,6 +605,10 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
             lambda: [torch._int_mm(a, w) for a, w in lib_col], iters=10)
         library_row_major_ms = cuda_ms(
             lambda: [torch._int_mm(a, w) for a, w in lib_in], iters=10)
+        stage = {}
+        if name == "fused_oproj_residual_q8":
+            stage = gemm_stage(name, kernel_split(lambda: fn(*args)),
+                               [library_ms])
         del lib_in, lib_col
         results[name] = dict(
             shape=dict(M=rows, D=d_model, inner=inner, F=d_ff,
@@ -600,7 +618,7 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
             beyond_one_ulp=max(e["beyond_one_ulp"] for e in errs),
             ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             library="torch._int_mm, GEMMs only, column-major weights",
-            library_row_major_ms=library_row_major_ms,
+            library_row_major_ms=library_row_major_ms, **stage,
             **bound(case["bytes"], case["ops"], INT8_OP_PER_S))
         emit("int8_kernels", kernel=name, kernel_ms=kernel_ms, **{
             k: v for k, v in results[name].items() if k != "ms"})
@@ -784,6 +802,19 @@ def device_busy(fn, timed_wall_s: float, top: int = 10) -> dict:
                 device_events=len(kernels_us),
                 top_kernels_ms=[[name[:90], us / 1e3]
                                 for name, us in largest])
+
+
+def gemm_stage(name: str, split: dict, int_mm_ms: list) -> dict:
+    """The GEMM kernels of ``split`` beside torch._int_mm of the same
+    products, in order; fails unless their sum is within
+    Q8_GEMM_STAGE_MAX_RATIO of the library's."""
+    gemm_ms = [split[f"gemm_{i}"] for i in range(len(int_mm_ms))]
+    ratio = sum(gemm_ms) / sum(int_mm_ms)
+    check(ratio <= Q8_GEMM_STAGE_MAX_RATIO,
+          f"{name}: its GEMM stage takes {sum(gemm_ms)} ms, {ratio} x "
+          f"torch._int_mm's {sum(int_mm_ms)}")
+    return dict(kernel_split_ms=split, gemm_ms=gemm_ms, int_mm_ms=int_mm_ms,
+                gemm_stage_ms=sum(gemm_ms), gemm_stage_vs_int_mm=ratio)
 
 
 def phase_profile(model: VCT0Model, prefix, tokens, mask,
@@ -1513,14 +1544,17 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
                                 z * torch.sigmoid(1.702 * z),
                                 layer["mlp_proj"])
 
-    def lib_int_mm():
+    def int_mm_pairs():
         # torch._int_mm of the four int8 products, GEMMs only, the weights
         # column-major as cuBLASLt's int8 GEMM takes them (made before the
         # timing)
-        pairs = [(torch.randint(-127, 128, (rows, w.shape[0]), generator=gen,
-                                device=dev, dtype=torch.int8),
-                  w.t().contiguous().t())
-                 for w in (q8["qkv"], q8["o"], q8["mlp_fc"], q8["mlp_proj"])]
+        return [(torch.randint(-127, 128, (rows, w.shape[0]), generator=gen,
+                               device=dev, dtype=torch.int8),
+                 w.t().contiguous().t())
+                for w in (q8["qkv"], q8["o"], q8["mlp_fc"], q8["mlp_proj"])]
+
+    def lib_int_mm():
+        pairs = int_mm_pairs()
         return lambda: [torch._int_mm(a, w) for a, w in pairs]
 
     def lib_f32():
@@ -1587,13 +1621,20 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
         kernel_ms = cuda_ms(lambda: case["fn"](*full), iters=10)
         plain_ms = cuda_ms(lambda: case["plain"](*full), iters=2, warmup=1)
         library_ms = cuda_ms(case["library"](), iters=10)
+        stage = {}
+        if name == "fused_vit_block_q8":
+            # each CUDA kernel's device time; each GEMM beside _int_mm
+            int_mm_ms = [cuda_ms(lambda a=a, w=w: torch._int_mm(a, w),
+                                 iters=10) for a, w in int_mm_pairs()]
+            stage = gemm_stage(name, kernel_split(lambda: case["fn"](*full)),
+                               int_mm_ms)
         torch.cuda.empty_cache()
         results[name] = dict(
             shape=dict(B=B32_BATCH, L=seq, D=width, H=heads, F=d_ff, G=4),
             **main, **{f"b{VIT_CHECK_BATCH}_{key}": val
                        for key, val in ragged.items()},
             ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            library=case["library_name"],
+            library=case["library_name"], **stage,
             **bound_mixed(case["bytes"], case["parts"]))
         emit("vit_short_kernels", kernel=name, kernel_ms=kernel_ms, **{
             key: val for key, val in results[name].items() if key != "ms"})
@@ -1823,6 +1864,9 @@ def phase_clip_encode_b32(gen: torch.Generator) -> dict:
         images, cfg.num_layers)
     results["int8"]["quantize_s"] = quantize_s
     emit("clip_b32_int8_quantize", seconds=quantize_s)
+    emit("clip_b32_int8_vs_fused",
+         int8_images_per_s=results["int8"]["images_per_s"],
+         fused_images_per_s=results["fused"]["images_per_s"])
     return results
 
 

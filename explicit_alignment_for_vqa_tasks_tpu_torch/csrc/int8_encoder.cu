@@ -36,26 +36,35 @@
 // activations in and out, int8 weights, fp32 scales) take 0.05-0.09 ms. All
 // three are bound by operations.
 //
-// Design (simple and right before fast). A wrapper runs the two kinds of
-// CUDA kernel of q8_gemm.cuh (shared with vit_block_q8.cu):
-//   row_quant: one block per row, the fp32 row (RMS-normalised where the op
-//     norms) in shared memory, each group's amax a block reduction, the
-//     codes and the row's G scales to device memory.
-//   gemm_q8: q8_gemm.cuh's s8 wgmma main loop over 128 x 128 output tiles
-//     (the weights K-major, (N, K), so the wrapper passes them transposed),
-//     the groups folded in order; the epilogue here: bf16 store, residual
-//     add, gelu to an fp32 hidden, or the gate's product into that hidden.
+// Design. A wrapper runs two kinds of CUDA kernel:
+//   row_quant (q8_gemm.cuh, shared with vit_block_q8.cu): one block per
+//     row, the fp32 row (RMS-normalised where the op norms) in shared
+//     memory, each group's amax a block reduction, the codes and the row's
+//     G scales to device memory.
+//   the s8 wgmma GEMM (the weights K-major, (N, K), so the wrapper passes
+//     them transposed), the groups folded in order; the epilogue here: bf16
+//     store, residual add, gelu to an fp32 hidden, or the gate's product
+//     into that hidden. The out-projection runs on q8_gemm_tma.cuh's main
+//     loop (TMA, a producer warpgroup, wgmma kept in flight, persistent;
+//     128 x 128 tiles with two int32 accumulator sets alternating by
+//     group); q/k/v and the FFN still on q8_gemm.cuh's gemm_q8, 128 x 128
+//     tiles, one block each.
 // q, k and v are one gemm_q8 launch (grid z = 3) over one shared
 // quantization. The FFN runs row_quant, gemm (gelu), gemm (times the gate),
 // row_quant of the fp32 hidden, gemm (+ residual); the hidden makes one
 // round trip through device memory (365 MB at the main shape), which a
 // later version can fuse into the up-products' epilogue.
 //
-// Measured (PERF.md): the gemm runs at about a tenth of the int8 peak and
-// three times cuBLASLt's time; a WMMA version and an mma.sync
-// version with the same tiles and staging ran within 1.5x of it, and
-// neither deeper k steps nor padding the staging against bank conflicts
-// moved it. What holds it is not known yet.
+// What holds gemm_q8 at a tenth of the int8 peak (three times cuBLASLt's
+// time) is not the tensor cores but its main loop (it waits for its
+// products after every 64-deep k step, its consumer threads issue the
+// copies and meet at a __syncthreads() every step, its no-swizzle staging
+// has 4-way bank conflicts, each block pays its own prologue and epilogue)
+// and its epilogue, whose loads wait one by one behind the stores before
+// them. Measured on an H100 at M = 17,824, D = 2048, 8 groups: the
+// out-projection's GEMM took 0.72 ms on gemm_q8, 0.32 ms with the same
+// epilogue on q8_gemm_tma.cuh's loop and 0.23 ms with its loads first
+// (torch._int_mm: 0.22 ms; PERF.md has the runs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +72,7 @@
 #include <cstdint>
 
 #include "q8_gemm.cuh"
+#include "q8_gemm_tma.cuh"
 
 namespace {
 
@@ -137,6 +147,62 @@ gemm_q8_kernel(const GemmArgs args) {
   }
 }
 
+// gemm_q8_kernel's bf16 epilogues over q8_gemm_tma.cuh's main loop
+// (product 0), in the same order of rounding. Each chunk's residual is read
+// before any of its stores: the compiler may not move a load past a store
+// that could alias it, and loads between stores, each waiting for device
+// memory in turn, took longer than the tile's products.
+template <int EPI>
+struct TmaEpilogue {
+  static_assert(EPI == kBf16 || EPI == kResidualBf16, "bf16 epilogues only");
+  using Args = GemmArgs;
+  static constexpr int CHUNK = 8;
+  template <int TILE_N>
+  __device__ static void store(const Args& args,
+                               const float (&acc)[TILE_N / 2], int row0,
+                               int n0) {
+    const int M = args.M, N = args.N;
+    const int tig = threadIdx.x % 4;
+    bf16* out = static_cast<bf16*>(args.out[0]);
+#pragma unroll
+    for (int j0 = 0; j0 < TILE_N / 8; j0 += CHUNK) {
+      float2 res[2][CHUNK];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+#pragma unroll
+        for (int jj = 0; jj < CHUNK; ++jj) {
+          const size_t off =
+              static_cast<size_t>(row) * N + n0 + 8 * (j0 + jj) + 2 * tig;
+          res[half][jj] = EPI == kResidualBf16 && row < M
+                              ? __bfloat1622float2(
+                                    *reinterpret_cast<const __nv_bfloat162*>(
+                                        args.residual + off))
+                              : make_float2(0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+        if (row >= M) continue;
+#pragma unroll
+        for (int jj = 0; jj < CHUNK; ++jj) {
+          const int j = j0 + jj;
+          const size_t off =
+              static_cast<size_t>(row) * N + n0 + 8 * j + 2 * tig;
+          float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+          if (EPI == kResidualBf16) {
+            v0 = __fadd_rn(res[half][jj].x, v0);
+            v1 = __fadd_rn(res[half][jj].y, v1);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(out + off) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+};
+
 template <int EPI>
 int gemm(const GemmArgs& args, int products, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -205,7 +271,8 @@ extern "C" int fused_oproj_residual_q8_launch(
   GemmArgs args = gemm_args(codes, row_scales, M, K, N, G);
   set_product(args, 0, wo, so, out);
   args.residual = static_cast<const bf16*>(residual);
-  return gemm<kResidualBf16>(args, 1, s);
+  return q8_gemm_tma::gemm<TmaEpilogue<kResidualBf16>>(
+      codes, row_scales, wo, so, M, K, N, G, args, s);
 }
 
 // out (M, D) bf16 = x + FFN(RMSNorm(x)); w1 and s1 are null for the

@@ -69,18 +69,18 @@
 // Any L >= 1 (no shared-memory limit on L) and dh of 16, 32, 64 or 128.
 // An mbarrier wait that lasts seconds traps (a deadlock fails the launch
 // instead of hanging the card).
-// The tensor map's encoder comes from cudaGetDriverEntryPoint, so the
-// library builds with nvcc alone, without -lcuda.
+// The tensor map's encoder and the PTX wrappers are hopper_async.cuh's.
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
+
+#include "hopper_async.cuh"
 
 namespace vit_attention_wgmma {
 
@@ -124,105 +124,19 @@ inline bool shape_ok(int B, int L, int H) {
          static_cast<long long>(B) * L <= 0x7fffffff;
 }
 
-// ---- PTX: shared-memory addresses, mbarriers, TMA, wgmma -------------------
+// ---- PTX: shared-memory addresses, mbarriers, TMA, wgmma (hopper_async.cuh)
 
-__device__ inline uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ inline void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ inline void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Whether the phase of parity `parity` of the barrier has completed
-// (waiting a while for it first).
-__device__ inline bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Until that phase has completed. A wait of 2^34 clocks (several seconds)
-// is a deadlock, not a wait: the kernel traps, and its launch fails.
-__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// One box of the 3-D tensor map at (c0, c1, c2), innermost first, into
-// shared memory at dst; its bytes complete a transaction on bar.
-__device__ inline void tma_load_3d(void* dst, const CUtensorMap* map,
-                                   uint64_t* bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ inline void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ inline void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Until at most N of this warpgroup's committed wgmma groups are pending.
-template <int N>
-__device__ inline void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the fence, wait or issue beside it.
-template <int N>
-__device__ inline void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ inline void fence_operands(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-  }
-}
-
-// A wgmma shared-memory matrix descriptor for a swizzled layout: `lbo` and
-// `sbo` in bytes, `layout` 1 (128-byte swizzle), 2 (64) or 3 (32).
-__device__ inline uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                     uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
+using hopper_async::fence_operands;
+using hopper_async::gmma_desc;
+using hopper_async::mbar_arrive;
+using hopper_async::mbar_expect_tx;
+using hopper_async::mbar_init;
+using hopper_async::mbar_wait;
+using hopper_async::smem_addr;
+using hopper_async::tma_load_3d;
+using hopper_async::wgmma_commit;
+using hopper_async::wgmma_fence;
+using hopper_async::wgmma_wait;
 
 // The byte offset of (row, byte) in a panel of rows of ROW_BYTES bytes as
 // TMA swizzles it: the 16-byte chunks of a row XORed with bits 7 and up of
@@ -665,33 +579,11 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ---- the host side ---------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled (null where the driver lacks it).
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // The tensor map of a (B, L, H dh) bf16 tensor with a box of (1, 64, PC).
 template <int DH>
 bool encode_map(CUtensorMap* map, const void* base, int B, int L, int H) {
   using T = Tile<DH>;
-  const EncodeTiled encode = encode_tiled();
+  const auto encode = hopper_async::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t HD = static_cast<cuuint64_t>(H) * DH;
   const cuuint64_t dims[3] = {HD, static_cast<cuuint64_t>(L),

@@ -52,7 +52,7 @@
 //                       attention = 0.008 ms; 164 MB = 0.049 ms
 // All are bound by operations; the encoders run each once per layer.
 //
-// Design (simple and right before fast), from q8_gemm.cuh's two kernels:
+// Design, from q8_gemm.cuh's two kernels and q8_gemm_tma.cuh's loop:
 //   fused_qkv_q8: row_quant with the LayerNorm in front (one block per row,
 //     the fp32 row in shared memory), then one s8 wgmma GEMM with N = 3 D
 //     over the K-major (3 D, D) weight whose epilogue adds the column's
@@ -66,13 +66,17 @@
 //     round trip through device memory (2.42 GB at the main shape) where
 //     the Pallas program keeps it in VMEM; fusing its quantization into the
 //     up GEMM (a block owning whole rows of F) is later work.
-//   fused_vit_block_q8: fused_qkv_q8's two kernels; the attention with an
-//     fp32 output; row_quant of that output; the out-projection GEMM whose
-//     residual epilogue writes the fp32 r1; then fused_mlp_block_q8's four
-//     kernels with row_quant's LayerNorm reading r1 and the down GEMM adding
-//     it. The codes, row scales, q, k, v, attention output, r1 and hidden
-//     each make one round trip through device memory (no SM holds the
-//     block's 7.1 MB of int8 weights).
+//   fused_vit_block_q8: row_quant with the LayerNorm and the q | k | v
+//     GEMM; the attention with an fp32 output; row_quant of that output;
+//     the out-projection GEMM whose residual epilogue writes the fp32 r1;
+//     then row_quant's LayerNorm over r1, the up GEMM, row_quant of the
+//     hidden and the down GEMM adding r1. Its four GEMMs run on
+//     q8_gemm_tma.cuh's main loop (TMA, a producer warpgroup, wgmma kept in
+//     flight, a persistent grid; 128 x 256 tiles where the width allows),
+//     with the same epilogues as the two kernels above, which keep
+//     q8_gemm.cuh's loop. The codes, row scales, q, k, v, attention output,
+//     r1 and hidden each make one round trip through device memory (no SM
+//     holds the block's 7.1 MB of int8 weights).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +85,7 @@
 #include <cstdint>
 
 #include "q8_gemm.cuh"
+#include "q8_gemm_tma.cuh"
 #include "vit_attention.cuh"
 
 namespace {
@@ -170,6 +175,91 @@ vit_gemm_q8_kernel(const GemmArgs args) {
       }
     }
   }
+}
+
+// vit_gemm_q8_kernel's epilogues over q8_gemm_tma.cuh's main loop, in the
+// same order of rounding. Each chunk's bias and residual are read before
+// any of its stores: the compiler may not move a load past a store that
+// could alias it, and loads between stores, each waiting for memory in
+// turn, took longer than the tile's products.
+template <int EPI, typename OutT = bf16, typename ResT = bf16>
+struct TmaEpilogue {
+  using Args = GemmArgs;
+  static constexpr int CHUNK = 8;
+  template <int TILE_N>
+  __device__ static void store(const Args& args,
+                               const float (&acc)[TILE_N / 2], int row0,
+                               int n0) {
+    const int M = args.M, N = args.N;
+    const int tig = threadIdx.x % 4;
+    // kQkv: the tile's columns lie in one of q, k, v (D % TILE_N == 0)
+    const int part = EPI == kQkv ? n0 / args.D : 0;
+    const int width = EPI == kQkv ? args.D : N;
+    const int c0 = n0 - part * (EPI == kQkv ? args.D : 0);
+#pragma unroll
+    for (int j0 = 0; j0 < TILE_N / 8; j0 += CHUNK) {
+      float2 bias[CHUNK], res[2][CHUNK];
+#pragma unroll
+      for (int jj = 0; jj < CHUNK; ++jj) {
+        bias[jj] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            args.bias + n0 + 8 * (j0 + jj) + 2 * tig));
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+#pragma unroll
+        for (int jj = 0; jj < CHUNK; ++jj) {
+          const size_t off = static_cast<size_t>(row) * width + c0 +
+                             8 * (j0 + jj) + 2 * tig;
+          res[half][jj] =
+              EPI == kResidual && row < M
+                  ? load2(static_cast<const ResT*>(args.residual) + off)
+                  : make_float2(0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+        if (row >= M) continue;
+#pragma unroll
+        for (int jj = 0; jj < CHUNK; ++jj) {
+          const int j = j0 + jj;
+          float v0 = __fadd_rn(acc[4 * j + 2 * half], bias[jj].x);
+          float v1 = __fadd_rn(acc[4 * j + 2 * half + 1], bias[jj].y);
+          const size_t off =
+              static_cast<size_t>(row) * width + c0 + 8 * j + 2 * tig;
+          if constexpr (EPI == kQkv) {
+            if (part == 0) {
+              v0 = __fmul_rn(v0, args.scale);
+              v1 = __fmul_rn(v1, args.scale);
+            }
+            bf16* out = static_cast<bf16*>(
+                part == 0 ? args.out[0]
+                          : (part == 1 ? args.out[1] : args.out[2]));
+            *reinterpret_cast<__nv_bfloat162*>(out + off) =
+                __floats2bfloat162_rn(v0, v1);
+          } else if constexpr (EPI == kQuickGeluF32) {
+            *reinterpret_cast<float2*>(static_cast<float*>(args.out[0]) +
+                                       off) =
+                make_float2(quick_gelu(v0), quick_gelu(v1));
+          } else {  // kResidual
+            store2(static_cast<OutT*>(args.out[0]) + off,
+                   __fadd_rn(res[half][jj].x, v0),
+                   __fadd_rn(res[half][jj].y, v1));
+          }
+        }
+      }
+    }
+  }
+};
+
+// A product of the whole block on q8_gemm_tma.cuh's main loop (one
+// contraction group; the block's widths are multiples of 128).
+template <int EPI, typename OutT = bf16, typename ResT = bf16>
+int tma_gemm(const GemmArgs& args, cudaStream_t stream) {
+  return q8_gemm_tma::gemm<TmaEpilogue<EPI, OutT, ResT>, false>(
+      args.a, args.a_scale, args.b, args.b_scale, args.M, args.K, args.N, 1,
+      args, stream);
 }
 
 template <int EPI, typename OutT = bf16, typename ResT = bf16>
@@ -277,8 +367,17 @@ extern "C" int fused_vit_block_q8_launch(
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = fused_qkv_q8_launch(x, ln1_s, ln1_b, w_qkv, s_qkv, b_qkv, codes,
-                               row_scales, q, k, v, M, D, scale, eps, stream);
+  int rc = row_quant<bf16, kLayer>(x, ln1_s, ln1_b, codes, row_scales, M, D,
+                                   1, eps, s);
+  if (rc != 0) return rc;
+  GemmArgs qkv = gemm_args(codes, row_scales, w_qkv, s_qkv, b_qkv, M, D,
+                           3 * D);
+  qkv.out[0] = q;
+  qkv.out[1] = k;
+  qkv.out[2] = v;
+  qkv.scale = scale;
+  qkv.D = D;
+  rc = tma_gemm<kQkv>(qkv, s);
   if (rc != 0) return rc;
   rc = vit_attention::attention_dh<vit_attention::kNormalised, float>(
       q, k, v, attn, B, L, H, dh, s);
@@ -289,14 +388,14 @@ extern "C" int fused_vit_block_q8_launch(
   GemmArgs oproj = gemm_args(codes, row_scales, wo, so, bo, M, D, D);
   oproj.out[0] = r1;
   oproj.residual = x;
-  rc = gemm<kResidual, float, bf16>(oproj, s);
+  rc = tma_gemm<kResidual, float, bf16>(oproj, s);
   if (rc != 0) return rc;
   rc = row_quant<float, kLayer>(r1, ln2_s, ln2_b, codes, row_scales, M, D, 1,
                                 eps, s);
   if (rc != 0) return rc;
   GemmArgs up = gemm_args(codes, row_scales, w_fc, s_fc, b_fc, M, D, F);
   up.out[0] = hidden;
-  rc = gemm<kQuickGeluF32>(up, s);
+  rc = tma_gemm<kQuickGeluF32>(up, s);
   if (rc != 0) return rc;
   rc = row_quant<float, kNone>(hidden, nullptr, nullptr, codes, row_scales, M,
                                F, 1, 0.0f, s);
@@ -305,5 +404,5 @@ extern "C" int fused_vit_block_q8_launch(
       gemm_args(codes, row_scales, w_proj, s_proj, b_proj, M, F, D);
   down.out[0] = out;
   down.residual = r1;
-  return gemm<kResidual, bf16, float>(down, s);
+  return tma_gemm<kResidual, bf16, float>(down, s);
 }

@@ -82,6 +82,54 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_split(fn, calls: int = 6) -> dict:
+    """The device ms per call of each CUDA kernel that fn launches, under
+    torch.profiler over ``calls`` calls after a warm one: its row_quant,
+    attention and GEMM kernels numbered in launch order (``row_quant_0``,
+    ``gemm_0``, ...), every other kernel (PyTorch's copies) summed as
+    ``other``. The profiler drops a kernel's record now and then, so a
+    fill kernel before each call marks where the call begins, and only the
+    calls whose records are all there count."""
+    marker = torch.zeros(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            marker.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    runs = []  # per call: kind -> its kernels' microseconds in order
+    for event in events:
+        if "FillFunctor" in event.name:
+            runs.append({})
+            continue
+        if not runs:
+            continue
+        kind = next((k for k in ("row_quant", "attention", "gemm")
+                     if k in event.name), "other")
+        runs[-1].setdefault(kind, []).append(event.time_range.elapsed_us())
+    shapes = [tuple(sorted((k, len(v)) for k, v in run.items()))
+              for run in runs]
+    whole = max(set(shapes), key=shapes.count) if shapes else ()
+    complete = [run for run, shape in zip(runs, shapes) if shape == whole]
+    if len(complete) < 2:
+        raise RuntimeError(f"kernel_split: {len(complete)} of {calls} calls "
+                           f"traced whole")
+    split = {"other": sum(sum(run.get("other", [])) for run in complete)
+             / len(complete) / 1e3}
+    for kind, count in whole:
+        if kind == "other":
+            continue
+        for i in range(count):
+            split[f"{kind}_{i}"] = sum(run[kind][i] for run in complete) \
+                / len(complete) / 1e3
+    return split
+
+
 def sha256_of(outs) -> str:
     torch.cuda.synchronize()
     digest = hashlib.sha256()
@@ -115,6 +163,36 @@ def int8_encoder_digests() -> None:
           sha256_of([fab.fused_oproj_residual_q8(x, attn, *o)]))
     print("fused_t5_ffn_q8 output sha256",
           sha256_of([fab.fused_t5_ffn_q8(x, lnw, *ffn)]), flush=True)
+    print("vit_block_q8 library", kernels.library_path("vit_block_q8").name)
+    args = vit_block_q8_case(clip.CLIPVisionConfig.vit_b_32(num_layers=1), 64)
+    print("fused_vit_block_q8 output sha256",
+          sha256_of([fab.fused_vit_block_q8(*args)]), flush=True)
+
+
+def vit_block_q8_case(cfg, batch: int, seed: int = 0) -> tuple:
+    """fused_vit_block_q8's arguments at ``cfg``'s widths on ``batch``
+    images from a seeded generator: one layer of the tower's init weights
+    quantized by quantize_vision_blocks, random LayerNorm parameters and
+    biases, bf16 images' tokens."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layer = {name: leaf[0] for name, leaf in clip.init_clip_vision_params(
+        gen, cfg)["blocks"].items()}
+    for name, leaf in layer.items():
+        if name.endswith(("bias", "scale")):
+            base = 1.0 if name.endswith("scale") else 0.0
+            layer[name] = (base + 0.1 * torch.randn(
+                leaf.shape, generator=gen, device="cuda")).bfloat16()
+    q8 = {n: t[0] for n, t in clip.quantize_vision_blocks(
+        {"blocks": {n: layer[n][None] for n in (
+            "q", "k", "v", "o", "mlp_fc", "mlp_proj")}}).items()}
+    x = torch.randn((batch, cfg.seq_len, cfg.width), generator=gen,
+                    device="cuda").bfloat16()
+    b_qkv = torch.cat([layer[n + "_bias"] for n in "qkv"])
+    return (x, layer["ln1_scale"], layer["ln1_bias"], q8["qkv"],
+            q8["qkv_scale"], b_qkv, q8["o"], q8["o_scale"], layer["o_bias"],
+            layer["ln2_scale"], layer["ln2_bias"], q8["mlp_fc"],
+            q8["mlp_fc_scale"], layer["mlp_fc_bias"], q8["mlp_proj"],
+            q8["mlp_proj_scale"], layer["mlp_proj_bias"], cfg.num_heads)
 
 
 def main() -> None:
@@ -128,6 +206,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--attention-variants"]:
         attention_variants([Path(d).resolve() for d in sys.argv[2:]])
+        return
+    if sys.argv[1:2] == ["--q8-variants"]:
+        q8_variants([Path(d).resolve() for d in sys.argv[2:]])
         return
     logs = kernels.build(["cross_attention_decode", "t5_ffn", "vit_block",
                           "vit_block_q8", "gpt2_block", "flash_attention"],
@@ -391,25 +472,7 @@ def flash_reference() -> None:
 def attention_variants(dirs: List[Path]) -> None:
     """attention_core's kernel from each csrc copy in ``dirs``: built in
     parallel (one process each), then checked and timed in turns."""
-    build = ("from pathlib import Path\n"
-             "from explicit_alignment_for_vqa_tasks_tpu_torch import kernels\n"
-             "kernels.CSRC_DIR = Path({!r})\n"
-             "print(kernels.build(['vit_block'], ptxas_verbose=True)"
-             "['vit_block'])\n")
-    procs = {d: subprocess.Popen(
-        [sys.executable, "-c", build.format(str(d))], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for d in dirs}
-    built = []
-    for d, proc in procs.items():
-        log, _ = proc.communicate()
-        warnings = sorted(set(re.findall(r"C75[0-9][0-9]", log)))
-        spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
-        registers = re.findall(r"Used (\d+) registers", log)
-        print(f"{d}: build exit {proc.returncode}, serialization warnings "
-              f"{warnings}, spill stores {spills}, registers {registers}",
-              flush=True)
-        if proc.returncode == 0:
-            built.append(d)
+    built = build_variants(dirs, ["vit_block"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch, seq, width, heads = 256, 577, 1024, 16
     q, k, v = (torch.randn((batch, seq, width), generator=gen, device="cuda")
@@ -430,6 +493,128 @@ def attention_variants(dirs: List[Path]) -> None:
                          f"{(err > 0).float().mean().item()} of the outputs "
                          f"differ, {ms} ms")
         print(f"{d}: " + "; ".join(parts), flush=True)
+
+
+def build_variants(dirs: List[Path], names: List[str]) -> List[Path]:
+    """Builds ``names`` from each csrc copy in ``dirs``, one process each,
+    all at once, and prints each build's ptxas wgmma serialization warnings
+    (C75xx), spill stores and registers by entry function; returns the
+    copies that built."""
+    build = ("from pathlib import Path\n"
+             "from explicit_alignment_for_vqa_tasks_tpu_torch import kernels\n"
+             "kernels.CSRC_DIR = Path({!r})\n"
+             "logs = kernels.build({!r}, ptxas_verbose=True)\n"
+             "print('\\n'.join(logs.values()))\n")
+    procs = {d: subprocess.Popen(
+        [sys.executable, "-c", build.format(str(d), names)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for d in dirs}
+    built = []
+    for d, proc in procs.items():
+        log, _ = proc.communicate()
+        warnings = sorted(set(re.findall(r"C75[0-9][0-9]", log)))
+        print(f"{d}: build exit {proc.returncode}, serialization warnings "
+              f"{warnings}", flush=True)
+        entry = None
+        for line in log.splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                entry = found.group(1)
+            used = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if entry and (used or spill):
+                print(f"  {entry[:90]}: {line.split(':', 1)[-1].strip()}")
+            if "C75" in line or "error" in line:
+                print(f"  {line.strip()[:200]}")
+        if proc.returncode == 0:
+            built.append(d)
+    return built
+
+
+def oproj_case(rows: int, groups: int, depth: int, width: int) -> tuple:
+    """fused_oproj_residual_q8's arguments from a seeded generator: bf16
+    residual and attention output, weights (groups x depth, width) from the
+    T5 quantizer."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + 7 * groups
+                                                     + depth + width)
+    inner = groups * depth
+    x = (torch.randn((1, rows, width), generator=gen, device="cuda") * 2
+         ).bfloat16()
+    attn = torch.randn((1, rows, inner), generator=gen, device="cuda"
+                       ).bfloat16()
+    q, s = _quant_stacked_i8(torch.randn(
+        (1, inner, width), generator=gen, device="cuda") * inner ** -0.5,
+        groups)
+    return x, attn, q[0], s[0]
+
+
+# --q8-variants: fused_oproj_residual_q8's edges (rows below one tile, a
+# ragged 128-row tile and the main path's; groups of 64, 128 and 256 bytes
+# in 1, 2 and 8 groups; widths of one and two 128-column tiles and more)
+# and fused_vit_block_q8's (1, 3 and 16 images at three widths)
+Q8_ROWS = (64, 800, 32 * 557)
+Q8_GROUPS = tuple((g, depth) for g in (1, 2, 8) for depth in (64, 128, 256))
+Q8_WIDTHS = (128, 256, 768, 2048, 2304)
+VIT_Q8_BATCHES = (1, 3, 16)
+VIT_Q8_WIDTHS = ((768, 12), (640, 10), (128, 2))
+
+
+def q8_variants(dirs: List[Path]) -> None:
+    """fused_oproj_residual_q8 and fused_vit_block_q8 built from each csrc
+    copy in ``dirs`` (in parallel, with their ptxas reports): a SHA-256 of
+    each over the edge sweep, whether the copies agree bit for bit and
+    their outputs that differ from plain, then each timed at the main
+    shapes (M = 32 x 557, K = N = 2048, 8 groups; ViT-B/32 on 1024 images)
+    in turns (the list, then reversed), with each CUDA kernel's device ms
+    under the profiler."""
+    fab.vit_attention_max_len(64)  # vit_block from this tree, cached
+    built = build_variants(dirs, ["int8_encoder", "vit_block_q8"])
+    oproj = {(m, g, d, n): oproj_case(m, g, d, n) for m in Q8_ROWS
+             for g, d in Q8_GROUPS for n in Q8_WIDTHS}
+    vit = {(b, w): vit_block_q8_case(clip.CLIPVisionConfig.vit_b_32(
+        num_layers=1, width=w, num_heads=h), b)
+        for b in VIT_Q8_BATCHES for w, h in VIT_Q8_WIDTHS}
+    plain_oproj = {k: fab.fused_oproj_residual_q8_plain(*a)
+                   for k, a in oproj.items()}
+    digests = {}
+    for d in built:
+        kernels.CSRC_DIR = d
+        kernels._loaded.clear()
+        per_case, differ = {}, 0
+        for key, args in oproj.items():
+            out = fab.fused_oproj_residual_q8(*args)
+            per_case[("oproj", *key)] = sha256_of([out])
+            differ += int((out != plain_oproj[key]).sum())
+        for key, args in vit.items():
+            per_case[("vit", *key)] = sha256_of(
+                [fab.fused_vit_block_q8(*args, group=1)])
+        digests[d] = per_case
+        total = hashlib.sha256("".join(per_case.values()).encode())
+        print(f"{d}: {len(per_case)} cases, sweep sha256 "
+              f"{total.hexdigest()}, fused_oproj_residual_q8 outputs off "
+              f"plain {differ}", flush=True)
+    if len(digests) > 1:
+        first = next(iter(digests.values()))
+        for d, per_case in digests.items():
+            off = [k for k, v in per_case.items() if v != first[k]]
+            print(f"{d}: {len(off)} cases differ from {built[0]}: "
+                  f"{off[:12]}", flush=True)
+    del oproj, vit, plain_oproj
+    main_oproj = oproj_case(32 * 557, 8, 256, 2048)
+    main_vit = vit_block_q8_case(clip.CLIPVisionConfig.vit_b_32(
+        num_layers=1), 1024)
+    for d in built + built[::-1]:
+        kernels.CSRC_DIR = d
+        kernels._loaded.clear()
+        oproj_ms = cuda_ms(lambda: fab.fused_oproj_residual_q8(*main_oproj),
+                           20)
+        vit_ms = cuda_ms(lambda: fab.fused_vit_block_q8(*main_vit), 10)
+        print(f"{d}: fused_oproj_residual_q8 {oproj_ms} ms, "
+              f"fused_vit_block_q8 B=1024 {vit_ms} ms; by CUDA kernel "
+              f"{kernel_split(lambda: fab.fused_oproj_residual_q8(*main_oproj))}"
+              f", {kernel_split(lambda: fab.fused_vit_block_q8(*main_vit))}",
+              flush=True)
+
 
 
 if __name__ == "__main__":

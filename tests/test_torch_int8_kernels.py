@@ -14,6 +14,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.models.t5 import (
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (
     fused_attention_block as tfab,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.tools import kernel_probe
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # fp32: both sides round after every operation in the same order, so only
@@ -556,6 +557,36 @@ def test_cuda_kernel_matches_plain_version(op, rows):
         assert bool(((g - w).abs() <= 1.6e-2 * w.abs() + 1.6e-2 * rms).all())
     with pytest.raises(ValueError, match="bfloat16"):
         fn(args[0].float(), *args[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", kernel_probe.Q8_WIDTHS)
+@pytest.mark.parametrize("groups,depth", kernel_probe.Q8_GROUPS)
+@pytest.mark.parametrize("rows", kernel_probe.Q8_ROWS)
+def test_cuda_oproj_sweep(rows, groups, depth, width, record_property):
+    """fused_oproj_residual_q8 on every shape class of
+    csrc/q8_gemm_tma.cuh's loop (kernel_probe --q8-variants' sweep: rows
+    below one tile, a ragged tile and the main path's; 1, 2 and 8 groups of
+    64, 128 and 256 bytes; widths of one and two 128-column tiles and
+    more): within compare_q8's rule of the plain version, one launch
+    counted. The group depths are at most 1040, where the plain version's
+    fp32 sums of int8 products are exact: the count of outputs that differ
+    from plain is recorded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = kernel_probe.oproj_case(rows, groups, depth, width)
+    fn = tfab.fused_oproj_residual_q8
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = tfab.fused_oproj_residual_q8_plain(*args)
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    assert ((g - w).norm() / w.norm()).item() <= 2e-3
+    rms = w.square().mean().sqrt()
+    assert bool(((g - w).abs() <= 1.6e-2 * w.abs() + 1.6e-2 * rms).all())
+    record_property("differing", int((got != want).sum()))
 
 
 # --- the T5 weight quantizer ------------------------------------------------

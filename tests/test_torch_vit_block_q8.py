@@ -13,6 +13,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.models import clip as tclip
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (
     fused_attention_block as tfab,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.tools import kernel_probe
 from test_torch_int8_kernels import (  # noqa: E402
     near_boundary,
     nudge_columns,
@@ -274,3 +275,29 @@ def test_cuda_kernel_matches_plain_version():
     assert bool(((g - p).abs() <= 1.6e-2 * (p.abs() + rms)).all())
     with pytest.raises(ValueError, match="bfloat16"):
         tfab.fused_vit_block_q8(x.float(), *args[1:], group=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,heads", kernel_probe.VIT_Q8_WIDTHS)
+@pytest.mark.parametrize("batch", kernel_probe.VIT_Q8_BATCHES)
+def test_cuda_kernel_sweep(batch, width, heads):
+    """csrc/q8_gemm_tma.cuh's edges inside the block (kernel_probe
+    --q8-variants' sweep): 1, 3 and 16 images (50, 150 and 800 rows: less
+    than one 128-row tile, ragged last tiles), at ViT-B/32's widths (every
+    product 256-column tiles) and at two narrower ones whose q | k | v and
+    out-projection widths take 128-column tiles; within 1.6e-2 (|want| +
+    rms(want)) of the plain version with a relative Frobenius error of at
+    most 2e-3, one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = kernel_probe.vit_block_q8_case(tclip.CLIPVisionConfig.vit_b_32(
+        num_layers=1, width=width, num_heads=heads), batch)
+    before = tfab.fused_vit_block_q8.launches
+    got = tfab.fused_vit_block_q8(*args, group=1)
+    torch.cuda.synchronize()
+    assert tfab.fused_vit_block_q8.launches == before + 1
+    g, p = got.float(), tfab.fused_vit_block_q8_plain(*args).float()
+    assert bool(torch.isfinite(g).all())
+    assert ((g - p).norm() / p.norm()).item() <= 2e-3
+    rms = p.square().mean().sqrt()
+    assert bool(((g - p).abs() <= 1.6e-2 * (p.abs() + rms)).all())

@@ -243,7 +243,13 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     assert kernels.SOURCES["vit_block"] == "vit_block.cu"
     assert [p.name for p in kernels.included_files("vit_block")] == [
         "vit_block.cu", "block_stages.cuh", "vit_attention.cuh",
-        "vit_attention_wgmma.cuh", "bf16_gemm.cuh"]
+        "vit_attention_wgmma.cuh", "bf16_gemm.cuh", "hopper_async.cuh"]
+    assert [p.name for p in kernels.included_files("int8_encoder")] == [
+        "int8_encoder.cu", "q8_gemm.cuh", "q8_gemm_tma.cuh",
+        "hopper_async.cuh"]
+    assert [p.name for p in kernels.included_files("vit_block_q8")] == [
+        "vit_block_q8.cu", "q8_gemm.cuh", "q8_gemm_tma.cuh",
+        "vit_attention.cuh", "hopper_async.cuh"]
     header = csrc / "bf16_gemm.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: kernels.library_path(name) for name in kernels.SOURCES}
@@ -254,6 +260,27 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
         assert changed == uses_header, name
     assert after["vit_block"].name.startswith("vit_block-")
     assert after["vit_block"].parent == kernels.BUILD_DIR
+
+
+@pytest.mark.parametrize("header,users", [
+    ("q8_gemm_tma.cuh", {"int8_encoder", "vit_block_q8"}),
+    ("q8_gemm.cuh", {"int8_encoder", "vit_block_q8"}),
+    ("hopper_async.cuh", {"int8_encoder", "vit_block_q8", "vit_block"}),
+])
+def test_editing_a_header_renames_exactly_its_users(tmp_path, monkeypatch,
+                                                     header, users):
+    """An edit of a shared header renames the libraries of exactly the
+    kernels that build it in, so none of them loads a stale build and no
+    other rebuilds."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
+    before = {name: kernels.library_path(name) for name in kernels.SOURCES}
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
+    renamed = {name for name in kernels.SOURCES
+               if kernels.library_path(name) != before[name]}
+    assert renamed == users
 
 
 # --- on the card: the CUDA kernels against the plain versions --------------

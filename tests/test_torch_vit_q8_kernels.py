@@ -448,9 +448,11 @@ def test_wrapper_takes_plain_version_on_cpu(name):
 def test_library_paths_cover_the_int8_header():
     names = {name: [p.name for p in kernels.included_files(name)]
              for name in ("int8_encoder", "vit_block_q8")}
-    assert names == {"int8_encoder": ["int8_encoder.cu", "q8_gemm.cuh"],
+    assert names == {"int8_encoder": ["int8_encoder.cu", "q8_gemm.cuh",
+                                      "q8_gemm_tma.cuh", "hopper_async.cuh"],
                      "vit_block_q8": ["vit_block_q8.cu", "q8_gemm.cuh",
-                                      "vit_attention.cuh"]}
+                                      "q8_gemm_tma.cuh", "vit_attention.cuh",
+                                      "hopper_async.cuh"]}
     assert kernels.library_path("vit_block_q8").name.startswith(
         "vit_block_q8-")
 
