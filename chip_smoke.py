@@ -18,9 +18,11 @@ register / shared-memory / spill report):
              versions at the int8 path's shapes (M = 32 x 557 rows, D = 2048,
              F = 5120, 8 groups, weights from the port's quantizer), with
              kernel, plain and torch._int_mm (GEMMs only) times and bounds;
-             fused_oproj_residual_q8 also with each CUDA kernel's device ms
-             under the profiler, its GEMM beside _int_mm's and held within
-             Q8_GEMM_STAGE_MAX_RATIO of it
+             each also with each CUDA kernel's device ms under the profiler
+             and its GEMM stage beside _int_mm of the same products (the
+             FFN's one up-product beside the two of wi_0 and wi_1), held
+             within Q8_GEMM_STAGE_MAX_RATIO of it for the GEMMs on
+             q8_gemm_tma.cuh (fused_oproj_residual_q8, fused_t5_ffn_q8)
   reference  the encoder at full width on a small input: kernel path against
              the plain materialised-bias path
   generate   VC-T0 few-shot generation at full T0-3B width and depth (random
@@ -88,7 +90,11 @@ register / shared-memory / spill report):
              timed at 256 beside the plain version, the bound and a library
              yardstick (torch._int_mm, GEMMs only; scaled_dot_product_attention);
              attention_core also beside its route's bound, at most 0.5 % of
-             its outputs differing from plain
+             its outputs differing from plain; the int8 kernels with each
+             CUDA kernel's device ms and their GEMM stage beside _int_mm
+             (fused_mlp_block_q8's, on q8_gemm_tma.cuh, held within
+             Q8_GEMM_STAGE_MAX_RATIO), fused_mlp_block_q8 also beside its
+             route's bound (its fp32 hidden's round trip)
   vit_attention_edges
              attention_core (both orders) and attention_core_oproj against
              their plain versions on 2 images at every head size (16, 32,
@@ -564,13 +570,14 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
         "fused_t5_ln_qkv_q8": dict(
             fn=fused_t5_ln_qkv_q8, plain=fused_t5_ln_qkv_q8_plain,
             args=(x, lnw, *[t for w in qkv_w for t in w]),
-            gemms=[(d_model, w) for w, _ in qkv_w],
+            gemms=[(d_model, w) for w, _ in qkv_w], kernel_gemms=[[0, 1, 2]],
             bytes=act + d_model * 2 + 3 * rows * inner * 2
             + sum(w.numel() + s.numel() * 4 for w, s in qkv_w),
             ops=3 * 2 * rows * d_model * inner),
         "fused_oproj_residual_q8": dict(
             fn=fused_oproj_residual_q8, plain=fused_oproj_residual_q8_plain,
             args=(x, attn, *o_w), gemms=[(inner, o_w[0])],
+            kernel_gemms=[[0]],
             bytes=2 * act + rows * inner * 2 + o_w[0].numel()
             + o_w[1].numel() * 4,
             ops=2 * rows * inner * d_model),
@@ -579,6 +586,8 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
             args=(x, lnw, *[t for w in ffn_w for t in w]),
             gemms=[(d_model, ffn_w[0][0]), (d_model, ffn_w[1][0]),
                    (d_ff, ffn_w[2][0])],
+            # one up-product computes both gate products
+            kernel_gemms=[[0, 1], [2]],
             bytes=2 * act + d_model * 2
             + sum(w.numel() + s.numel() * 4 for w, s in ffn_w),
             ops=2 * rows * d_model * d_ff * 2 + 2 * rows * d_ff * d_model),
@@ -605,10 +614,15 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
             lambda: [torch._int_mm(a, w) for a, w in lib_col], iters=10)
         library_row_major_ms = cuda_ms(
             lambda: [torch._int_mm(a, w) for a, w in lib_in], iters=10)
-        stage = {}
-        if name == "fused_oproj_residual_q8":
-            stage = gemm_stage(name, kernel_split(lambda: fn(*args)),
-                               [library_ms])
+        # each CUDA GEMM kernel beside _int_mm of the products it computes;
+        # held to the ratio where the GEMMs run on q8_gemm_tma.cuh
+        int_mm_ms = [cuda_ms(lambda a=a, w=w: torch._int_mm(a, w), iters=10)
+                     for a, w in lib_col]
+        stage = gemm_stage(
+            name, kernel_split(lambda: fn(*args)),
+            [sum(int_mm_ms[i] for i in kernel) for kernel in
+             case["kernel_gemms"]],
+            checked=name != "fused_t5_ln_qkv_q8")
         del lib_in, lib_col
         results[name] = dict(
             shape=dict(M=rows, D=d_model, inner=inner, F=d_ff,
@@ -804,17 +818,20 @@ def device_busy(fn, timed_wall_s: float, top: int = 10) -> dict:
                                 for name, us in largest])
 
 
-def gemm_stage(name: str, split: dict, int_mm_ms: list) -> dict:
+def gemm_stage(name: str, split: dict, int_mm_ms: list,
+               checked: bool = True) -> dict:
     """The GEMM kernels of ``split`` beside torch._int_mm of the same
-    products, in order; fails unless their sum is within
-    Q8_GEMM_STAGE_MAX_RATIO of the library's."""
+    products, in order (an entry may be the sum of several _int_mm calls
+    that one kernel computes); with ``checked``, fails unless their sum is
+    within Q8_GEMM_STAGE_MAX_RATIO of the library's."""
     gemm_ms = [split[f"gemm_{i}"] for i in range(len(int_mm_ms))]
     ratio = sum(gemm_ms) / sum(int_mm_ms)
-    check(ratio <= Q8_GEMM_STAGE_MAX_RATIO,
+    check(not checked or ratio <= Q8_GEMM_STAGE_MAX_RATIO,
           f"{name}: its GEMM stage takes {sum(gemm_ms)} ms, {ratio} x "
           f"torch._int_mm's {sum(int_mm_ms)}")
     return dict(kernel_split_ms=split, gemm_ms=gemm_ms, int_mm_ms=int_mm_ms,
-                gemm_stage_ms=sum(gemm_ms), gemm_stage_vs_int_mm=ratio)
+                gemm_stage_ms=sum(gemm_ms), gemm_stage_vs_int_mm=ratio,
+                gemm_vs_int_mm=[g / i for g, i in zip(gemm_ms, int_mm_ms)])
 
 
 def phase_profile(model: VCT0Model, prefix, tokens, mask,
@@ -1306,16 +1323,21 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
     rows = CLIP_BATCH * seq
     act = rows * width * 2                 # one bf16 (M, D) activation
 
-    def codes(k_dim):  # activation codes for the library yardstick
-        return torch.randint(-127, 128, (rows, k_dim), generator=gen,
+    def codes(k_dim, g=gen):  # activation codes for the library yardstick
+        return torch.randint(-127, 128, (rows, k_dim), generator=g,
                              device=dev, dtype=torch.int8)
 
-    def int_mm(gemms):
+    def int_mm(gemms, g=gen):
         # yardstick only: torch._int_mm of the same int8 products, GEMMs
         # alone, the weights column-major as cuBLASLt's int8 GEMM takes
         # them (the transposes made before the timing)
-        pairs = [(codes(k_dim), w.t().contiguous().t()) for k_dim, w in gemms]
+        pairs = [(codes(k_dim, g), w.t().contiguous().t())
+                 for k_dim, w in gemms]
         return lambda: [torch._int_mm(a, w) for a, w in pairs]
+
+    # the per-GEMM yardsticks draw their codes from a generator of their
+    # own, so that the later phases' inputs do not depend on them
+    stage_gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def sdpa():
         # yardstick only: on contiguous (B, H, L, dh) copies of q, k, v
@@ -1360,6 +1382,10 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
             + (d_ff + width) * (4 + 2) + 2 * width * 2,
             ops=2 * 2 * rows * width * d_ff, peak=INT8_OP_PER_S),
     }
+    # the CUDA GEMM kernels of each int8 kernel, in launch order: the
+    # products (K, weight) that _int_mm times beside each
+    kernel_gemms = {"fused_qkv_q8": [(width, w_qkv)],
+                    "fused_mlp_block_q8": [(width, w_fc), (d_ff, w_pr)]}
 
     results = {}
     for name, case in cases.items():
@@ -1376,6 +1402,19 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
             extra = dict(differing_share=check_few_differ(name, main),
                          **attention_route_bound(CLIP_BATCH, seq, width,
                                                  heads, case["bytes"]))
+        if name in kernel_gemms:
+            int_mm_ms = [cuda_ms(int_mm([gemm], stage_gen), iters=10)
+                         for gemm in kernel_gemms[name]]
+            extra = gemm_stage(name, kernel_split(lambda: case["fn"](*full)),
+                               int_mm_ms, checked=name != "fused_qkv_q8")
+        if name == "fused_mlp_block_q8":
+            # this route: the fp32 hidden and its int8 codes each written
+            # and read once more
+            route = bound(case["bytes"] + 2 * rows * d_ff * (4 + 1),
+                          case["ops"], INT8_OP_PER_S)
+            extra.update(route_bound_ms=route["bound_ms"],
+                         route_bound_by=route["bound_by"],
+                         route_ops=route["ops"])
         torch.cuda.empty_cache()
         results[name] = dict(
             shape=dict(B=CLIP_BATCH, L=seq, D=width, H=heads, F=d_ff),

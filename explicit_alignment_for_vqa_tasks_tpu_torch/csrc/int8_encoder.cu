@@ -20,8 +20,9 @@
 //            where P_g is the group's exact int32 product hq_g . W_g
 //   qkv    : q, k, v = bf16(acc_q), bf16(acc_k), bf16(acc_v), one shared hq
 //   oproj  : out = bf16(float(residual) + acc)
-//   ffn    : hid = gelu_tanh(acc_0) * acc_1  (fp32, never rounded to bf16),
-//            requantized per (row, g_hid group), out = bf16(x + acc_o)
+//   ffn    : hid = gelu_tanh(acc_0) * acc_1  (fp32, never rounded to bf16;
+//            gelu_tanh(acc_0) without the gate), requantized per (row,
+//            g_hid group), out = bf16(x + acc_o)
 //
 // Every multiply and add of the fp32 epilogues is written with __fmul_rn /
 // __fadd_rn so that nvcc cannot contract them into FMAs: the plain PyTorch
@@ -43,28 +44,35 @@
 //     G scales to device memory.
 //   the s8 wgmma GEMM (the weights K-major, (N, K), so the wrapper passes
 //     them transposed), the groups folded in order; the epilogue here: bf16
-//     store, residual add, gelu to an fp32 hidden, or the gate's product
-//     into that hidden. The out-projection runs on q8_gemm_tma.cuh's main
-//     loop (TMA, a producer warpgroup, wgmma kept in flight, persistent;
-//     128 x 128 tiles with two int32 accumulator sets alternating by
-//     group); q/k/v and the FFN still on q8_gemm.cuh's gemm_q8, 128 x 128
-//     tiles, one block each.
-// q, k and v are one gemm_q8 launch (grid z = 3) over one shared
-// quantization. The FFN runs row_quant, gemm (gelu), gemm (times the gate),
-// row_quant of the fp32 hidden, gemm (+ residual); the hidden makes one
-// round trip through device memory (365 MB at the main shape), which a
-// later version can fuse into the up-products' epilogue.
+//     store, residual add, or the FFN's fp32 hidden. The out-projection and
+//     the FFN's products run on q8_gemm_tma.cuh's main loop (TMA, a
+//     producer warpgroup, wgmma kept in flight, persistent; 128 x 128
+//     tiles with two int32 accumulator sets alternating by group, 128 x 256
+//     where G = 1 and the width allows); q/k/v still on q8_gemm.cuh's
+//     gemm_q8, 128 x 128 tiles, one block each, one launch (grid z = 3)
+//     over one shared quantization.
+// The FFN runs row_quant, ONE up-product for wi_0 and wi_1 together,
+// row_quant of the fp32 hidden, and the down-product with the residual
+// epilogue. The wrapper interleaves the K-major gate weights by eight rows
+// (wi_0^T rows 8c .. 8c + 7, then wi_1^T's same rows: N = 2 F) and their
+// (G, 2 F) scales the same way. In the loop's fragment layout a thread's
+// chunk j holds columns n0 + 8 j + 2 tig (+1), so chunk 2c of a tile is a0
+// and chunk 2c + 1 is a1 of the same hidden columns n0 / 2 + 8 c + 2 tig
+// (+1): the epilogue writes hid = gelu(a0) * a1 once (without the gate,
+// gelu(acc)). The hidden's scale is the amax of each (row, g_hid group),
+// wider than a tile, so the fp32 hidden still makes one round trip through
+// device memory (365 MB at the main shape, about 0.11 ms of writes);
+// computing the up-products twice instead would add 748 G operations.
 //
-// What holds gemm_q8 at a tenth of the int8 peak (three times cuBLASLt's
-// time) is not the tensor cores but its main loop (it waits for its
-// products after every 64-deep k step, its consumer threads issue the
-// copies and meet at a __syncthreads() every step, its no-swizzle staging
-// has 4-way bank conflicts, each block pays its own prologue and epilogue)
-// and its epilogue, whose loads wait one by one behind the stores before
-// them. Measured on an H100 at M = 17,824, D = 2048, 8 groups: the
-// out-projection's GEMM took 0.72 ms on gemm_q8, 0.32 ms with the same
-// epilogue on q8_gemm_tma.cuh's loop and 0.23 ms with its loads first
-// (torch._int_mm: 0.22 ms; PERF.md has the runs).
+// What holds gemm_q8 (q/k/v) at a tenth of the int8 peak is q8_gemm.cuh's
+// main loop (it waits for its products after every 64-deep k step, its
+// consumer threads issue the copies and meet at a __syncthreads() every
+// step, its no-swizzle staging has 4-way bank conflicts, each block pays
+// its own prologue and epilogue). On q8_gemm_tma.cuh's loop, with each
+// chunk's loads before its stores, the GEMMs run near torch._int_mm on an
+// H100 at M = 17,824, D = 2048, F = 5120, 8 groups: the out-projection's
+// 0.23 ms (_int_mm 0.21), the FFN's up-product 1.23 ms (its two products
+// 1.05) and down-product 0.39 (0.41); PERF.md has the runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,14 +88,20 @@ using namespace q8_gemm;
 
 constexpr int MAX_PRODUCTS = 3;
 
-enum Epilogue : int { kBf16 = 0, kResidualBf16 = 1, kGeluF32 = 2, kMulF32 = 3 };
+// The epilogues of the products on q8_gemm_tma.cuh (TmaEpilogue).
+enum Epilogue : int {
+  kResidualBf16 = 0,
+  kGeluHidden = 1,
+  kGatedGeluHidden = 2,
+};
 
 struct GemmArgs {
   const int8_t* a;        // (M, K) activation codes, K contiguous
   const float* a_scale;   // (M, G) per-(row, group) scales
   const int8_t* b[MAX_PRODUCTS];        // (N, K) int8 weights, K contiguous
   const float* b_scale[MAX_PRODUCTS];   // (G, N) fp32 scales
-  void* out[MAX_PRODUCTS];              // (M, N) bf16 or fp32
+  void* out[MAX_PRODUCTS];              // (M, N) bf16, or the (M, F) fp32
+                                        // hidden (N = 2 F when gated)
   const bf16* residual;   // (M, N) for kResidualBf16
   int M, K, N, G;
 };
@@ -99,11 +113,9 @@ __device__ inline float tanh_gelu(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
 }
 
-// out[z] = epilogue(sum_g (float(A_g . B[z]_g^T) * a_scale_g) * b_scale[z]_g)
+// out[z] = bf16(sum_g (float(A_g . B[z]_g^T) * a_scale_g) * b_scale[z]_g)
 // for the 128 x 128 tile (blockIdx.y, blockIdx.x) of product z = blockIdx.z.
-template <int EPI>
-__global__ void __launch_bounds__(NT)
-gemm_q8_kernel(const GemmArgs args) {
+__global__ void __launch_bounds__(NT) gemm_q8_kernel(const GemmArgs args) {
   extern __shared__ __align__(128) int8_t smem[];
   const int z = blockIdx.z;
   const int M = args.M, N = args.N;
@@ -121,46 +133,73 @@ gemm_q8_kernel(const GemmArgs args) {
     if (row >= M) continue;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + 8 * j + 2 * tig;
-      const size_t off = static_cast<size_t>(row) * N + col;
-      float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-      if (EPI == kBf16 || EPI == kResidualBf16) {
-        if (EPI == kResidualBf16) {
-          const __nv_bfloat162 r =
-              *reinterpret_cast<const __nv_bfloat162*>(args.residual + off);
-          v0 = __fadd_rn(__low2float(r), v0);
-          v1 = __fadd_rn(__high2float(r), v1);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(args.out[z]) +
-                                           off) = __floats2bfloat162_rn(v0, v1);
-      } else {
-        float2* o =
-            reinterpret_cast<float2*>(static_cast<float*>(args.out[z]) + off);
-        if (EPI == kGeluF32) {
-          *o = make_float2(tanh_gelu(v0), tanh_gelu(v1));
-        } else {  // kMulF32: the hidden already holds gelu(a0)
-          const float2 h = *o;
-          *o = make_float2(__fmul_rn(h.x, v0), __fmul_rn(h.y, v1));
-        }
-      }
+      const size_t off = static_cast<size_t>(row) * N + n0 + 8 * j + 2 * tig;
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(args.out[z]) +
+                                         off) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                acc[4 * j + 2 * half + 1]);
     }
   }
 }
 
-// gemm_q8_kernel's bf16 epilogues over q8_gemm_tma.cuh's main loop
-// (product 0), in the same order of rounding. Each chunk's residual is read
-// before any of its stores: the compiler may not move a load past a store
-// that could alias it, and loads between stores, each waiting for device
-// memory in turn, took longer than the tile's products.
+// The epilogues over q8_gemm_tma.cuh's main loop (product 0), in the Pallas
+// kernels' order of rounding. Each chunk's residual is read before any of
+// its stores: the compiler may not move a load past a store that could
+// alias it, and loads between stores, each waiting for device memory in
+// turn, took longer than the tile's products.
+//   kResidualBf16: out (M, N) bf16 = residual + acc.
+//   kGeluHidden: the (M, N) fp32 hidden = gelu(acc).
+//   kGatedGeluHidden: the product's N = 2 F columns interleave wi_0 and wi_1
+//     by eight; chunk 2c of the tile holds a0 and chunk 2c + 1 a1 of hidden
+//     columns n0 / 2 + 8 c + 2 tig (+1), so the (M, F) fp32 hidden =
+//     gelu(a0) * a1 is written once.
 template <int EPI>
 struct TmaEpilogue {
-  static_assert(EPI == kBf16 || EPI == kResidualBf16, "bf16 epilogues only");
   using Args = GemmArgs;
   static constexpr int CHUNK = 8;
   template <int TILE_N>
   __device__ static void store(const Args& args,
                                const float (&acc)[TILE_N / 2], int row0,
                                int n0) {
+    if constexpr (EPI == kResidualBf16) {
+      store_residual<TILE_N>(args, acc, row0, n0);
+    } else {
+      store_hidden<TILE_N>(args, acc, row0, n0);
+    }
+  }
+
+  template <int TILE_N>
+  __device__ static void store_hidden(const Args& args,
+                                      const float (&acc)[TILE_N / 2],
+                                      int row0, int n0) {
+    constexpr bool GATED = EPI == kGatedGeluHidden;
+    constexpr int STEP = GATED ? 2 : 1;  // chunks a hidden column takes
+    const int width = args.N / STEP, c0 = n0 / STEP;
+    const int tig = threadIdx.x % 4;
+    float* out = static_cast<float*>(args.out[0]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      if (row >= args.M) continue;
+#pragma unroll
+      for (int j = 0; j < TILE_N / 8; j += STEP) {
+        const int e = 4 * j + 2 * half;
+        float v0 = tanh_gelu(acc[e]), v1 = tanh_gelu(acc[e + 1]);
+        if constexpr (GATED) {  // a1: the next chunk's same element
+          v0 = __fmul_rn(v0, acc[e + 4]);
+          v1 = __fmul_rn(v1, acc[e + 5]);
+        }
+        const size_t off = static_cast<size_t>(row) * width + c0 +
+                           8 * (j / STEP) + 2 * tig;
+        *reinterpret_cast<float2*>(out + off) = make_float2(v0, v1);
+      }
+    }
+  }
+
+  template <int TILE_N>
+  __device__ static void store_residual(const Args& args,
+                                        const float (&acc)[TILE_N / 2],
+                                        int row0, int n0) {
     const int M = args.M, N = args.N;
     const int tig = threadIdx.x % 4;
     bf16* out = static_cast<bf16*>(args.out[0]);
@@ -174,7 +213,7 @@ struct TmaEpilogue {
         for (int jj = 0; jj < CHUNK; ++jj) {
           const size_t off =
               static_cast<size_t>(row) * N + n0 + 8 * (j0 + jj) + 2 * tig;
-          res[half][jj] = EPI == kResidualBf16 && row < M
+          res[half][jj] = row < M
                               ? __bfloat1622float2(
                                     *reinterpret_cast<const __nv_bfloat162*>(
                                         args.residual + off))
@@ -190,28 +229,32 @@ struct TmaEpilogue {
           const int j = j0 + jj;
           const size_t off =
               static_cast<size_t>(row) * N + n0 + 8 * j + 2 * tig;
-          float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-          if (EPI == kResidualBf16) {
-            v0 = __fadd_rn(res[half][jj].x, v0);
-            v1 = __fadd_rn(res[half][jj].y, v1);
-          }
           *reinterpret_cast<__nv_bfloat162*>(out + off) =
-              __floats2bfloat162_rn(v0, v1);
+              __floats2bfloat162_rn(
+                  __fadd_rn(res[half][jj].x, acc[4 * j + 2 * half]),
+                  __fadd_rn(res[half][jj].y, acc[4 * j + 2 * half + 1]));
         }
       }
     }
   }
 };
 
-template <int EPI>
-int gemm(const GemmArgs& args, int products, cudaStream_t stream) {
+int gemm_bf16(const GemmArgs& args, int products, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_q8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      GEMM_SMEM);
+      gemm_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(args.N / BN, (args.M + BM - 1) / BM, products);
-  gemm_q8_kernel<EPI><<<grid, NT, GEMM_SMEM, stream>>>(args);
+  gemm_q8_kernel<<<grid, NT, GEMM_SMEM, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One product on q8_gemm_tma.cuh's loop with epilogue EPI (args' a, a_scale,
+// shape and product 0).
+template <int EPI>
+int tma_gemm(const GemmArgs& args, cudaStream_t stream) {
+  return q8_gemm_tma::gemm<TmaEpilogue<EPI>>(
+      args.a, args.a_scale, args.b[0], args.b_scale[0], args.M, args.K,
+      args.N, args.G, args, stream);
 }
 
 GemmArgs gemm_args(const void* a, const void* a_scale, int M, int K, int N,
@@ -255,7 +298,7 @@ extern "C" int fused_t5_ln_qkv_q8_launch(
   set_product(args, 0, wq, sq, q);
   set_product(args, 1, wk, sk, k);
   set_product(args, 2, wv, sv, v);
-  return gemm<kBf16>(args, 3, s);
+  return gemm_bf16(args, 3, s);
 }
 
 // out (M, N) bf16 = residual + attn (M, K) through wo (N, K).
@@ -271,39 +314,36 @@ extern "C" int fused_oproj_residual_q8_launch(
   GemmArgs args = gemm_args(codes, row_scales, M, K, N, G);
   set_product(args, 0, wo, so, out);
   args.residual = static_cast<const bf16*>(residual);
-  return q8_gemm_tma::gemm<TmaEpilogue<kResidualBf16>>(
-      codes, row_scales, wo, so, M, K, N, G, args, s);
+  return tma_gemm<kResidualBf16>(args, s);
 }
 
-// out (M, D) bf16 = x + FFN(RMSNorm(x)); w1 and s1 are null for the
-// non-gated FFN; w0, w1 are (F, D), wo is (D, F). hidden is fp32 (M, F).
+// out (M, D) bf16 = x + FFN(RMSNorm(x)). Gated: w01 (2 F, D) holds wi_0^T and
+// wi_1^T interleaved by eight rows, s01 (G_in, 2 F) their scales the same
+// way; else w01 (F, D) is wi_0^T, s01 (G_in, F). wo is (D, F). hidden is fp32
+// (M, F).
 extern "C" int fused_t5_ffn_q8_launch(
-    const void* x, const void* lnw, const void* w0, const void* s0,
-    const void* w1, const void* s1, const void* wo, const void* so,
-    void* codes_in, void* scales_in, void* hidden, void* codes_hid,
-    void* scales_hid, void* out, int M, int D, int F, int G_in, int G_hid,
-    float eps, void* stream) {
-  if (!shape_ok(M, D, F, G_in) || !shape_ok(M, F, D, G_hid)) {
+    const void* x, const void* lnw, const void* w01, const void* s01,
+    const void* wo, const void* so, void* codes_in, void* scales_in,
+    void* hidden, void* codes_hid, void* scales_hid, void* out, int M, int D,
+    int F, int gated, int G_in, int G_hid, float eps, void* stream) {
+  const int n_up = gated ? 2 * F : F;
+  if (!shape_ok(M, D, n_up, G_in) || !shape_ok(M, F, D, G_hid)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = row_quant<bf16, kRms>(x, lnw, nullptr, codes_in, scales_in, M, D,
                                  G_in, eps, s);
   if (rc != 0) return rc;
-  GemmArgs up = gemm_args(codes_in, scales_in, M, D, F, G_in);
-  set_product(up, 0, w0, s0, hidden);
-  rc = gemm<kGeluF32>(up, 1, s);
+  GemmArgs up = gemm_args(codes_in, scales_in, M, D, n_up, G_in);
+  set_product(up, 0, w01, s01, hidden);
+  rc = gated ? tma_gemm<kGatedGeluHidden>(up, s)
+             : tma_gemm<kGeluHidden>(up, s);
   if (rc != 0) return rc;
-  if (w1 != nullptr) {
-    set_product(up, 0, w1, s1, hidden);
-    rc = gemm<kMulF32>(up, 1, s);
-    if (rc != 0) return rc;
-  }
   rc = row_quant<float, kNone>(hidden, nullptr, nullptr, codes_hid,
                                scales_hid, M, F, G_hid, 0.0f, s);
   if (rc != 0) return rc;
   GemmArgs down = gemm_args(codes_hid, scales_hid, M, F, D, G_hid);
   set_product(down, 0, wo, so, out);
   down.residual = static_cast<const bf16*>(x);
-  return gemm<kResidualBf16>(down, 1, s);
+  return tma_gemm<kResidualBf16>(down, s);
 }

@@ -1,6 +1,7 @@
 // The s8 GEMM main loop on TMA and asynchronous wgmma, for NVIDIA Hopper
-// (sm_90a): the int8 products of fused_oproj_residual_q8
-// (csrc/int8_encoder.cu) and of fused_vit_block_q8 (csrc/vit_block_q8.cu).
+// (sm_90a): the int8 products of fused_oproj_residual_q8 and fused_t5_ffn_q8
+// (csrc/int8_encoder.cu) and of fused_vit_block_q8 and fused_mlp_block_q8
+// (csrc/vit_block_q8.cu).
 //
 //   acc = sum over g, in order, of (float(P_g) * hs_g) * s_g
 //

@@ -54,29 +54,33 @@
 //
 // Design, from q8_gemm.cuh's two kernels and q8_gemm_tma.cuh's loop:
 //   fused_qkv_q8: row_quant with the LayerNorm in front (one block per row,
-//     the fp32 row in shared memory), then one s8 wgmma GEMM with N = 3 D
-//     over the K-major (3 D, D) weight whose epilogue adds the column's
-//     bias, scales the q columns and writes each 128-wide column tile into
-//     q, k or v.
+//     the fp32 row in shared memory), then one s8 wgmma GEMM on
+//     q8_gemm.cuh's loop with N = 3 D over the K-major (3 D, D) weight
+//     whose epilogue adds the column's bias, scales the q columns and
+//     writes each 128-wide column tile into q, k or v.
 //   fused_mlp_block_q8: row_quant + LayerNorm; the up GEMM (N = F) with the
 //     bias-then-quickGELU epilogue writing the fp32 hidden; row_quant of the
 //     hidden over its whole 4096-wide row (16 KB of shared memory); the
 //     down GEMM (K = F, one contraction group: 4096 x 127^2 is far inside
-//     int32) with the bias-then-residual epilogue. The fp32 hidden makes one
-//     round trip through device memory (2.42 GB at the main shape) where
-//     the Pallas program keeps it in VMEM; fusing its quantization into the
-//     up GEMM (a block owning whole rows of F) is later work.
+//     int32) with the bias-then-residual epilogue. Both GEMMs run on
+//     q8_gemm_tma.cuh's main loop (TMA, a producer warpgroup, wgmma kept in
+//     flight, a persistent grid; 128 x 256 tiles where F allows, else 128 x
+//     128). The fp32 hidden makes one round trip through device memory
+//     (2.42 GB at the main shape) where the Pallas program keeps it in
+//     VMEM: its scale is the amax of the whole F-wide row, which no tile
+//     sees. Computing the up-product twice instead (partial amaxes per
+//     column tile, then the codes) lost on an H100: the epilogue's
+//     quickGELU, not the hidden's bytes, bounds each up-pass while the
+//     epilogue does not overlap the products (PERF.md has the runs).
 //   fused_vit_block_q8: row_quant with the LayerNorm and the q | k | v
 //     GEMM; the attention with an fp32 output; row_quant of that output;
 //     the out-projection GEMM whose residual epilogue writes the fp32 r1;
 //     then row_quant's LayerNorm over r1, the up GEMM, row_quant of the
 //     hidden and the down GEMM adding r1. Its four GEMMs run on
-//     q8_gemm_tma.cuh's main loop (TMA, a producer warpgroup, wgmma kept in
-//     flight, a persistent grid; 128 x 256 tiles where the width allows),
-//     with the same epilogues as the two kernels above, which keep
-//     q8_gemm.cuh's loop. The codes, row scales, q, k, v, attention output,
-//     r1 and hidden each make one round trip through device memory (no SM
-//     holds the block's 7.1 MB of int8 weights).
+//     q8_gemm_tma.cuh's main loop with the epilogues below. The codes, row
+//     scales, q, k, v, attention output, r1 and hidden each make one round
+//     trip through device memory (no SM holds the block's 7.1 MB of int8
+//     weights).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +96,8 @@ namespace {
 
 using namespace q8_gemm;
 
+// The epilogues of the products on q8_gemm_tma.cuh (TmaEpilogue); kQkv is
+// also vit_gemm_q8_kernel's.
 enum Epilogue : int { kQkv = 0, kQuickGeluF32 = 1, kResidual = 2 };
 
 struct GemmArgs {
@@ -113,6 +119,27 @@ __device__ inline float quick_gelu(float z) {
   return __fmul_rn(z, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
 }
 
+// 1 / d correctly rounded for d in [1, 2^126): the reciprocal's estimate and
+// two Newton steps on the FMA. There it equals __fdiv_rn(1.0f, d) (the
+// exhaustive quick_gelu_check below), without the division's slow-path
+// branch, which keeps an epilogue's elements from overlapping: with it the
+// ViT-L up-GEMM at B=256 took 2.16 ms on an H100, without it 1.56.
+__device__ __forceinline__ float rcp_rn_normal(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  const float y = __fmaf_rn(r, __fmaf_rn(-d, r, 1.0f), r);
+  return __fmaf_rn(y, __fmaf_rn(-d, y, 1.0f), y);
+}
+
+// quick_gelu(z) through rcp_rn_normal; sets `slow` where 1 + exp(-1.702 z)
+// is not in [1, 2^126) (z below about -51, or NaN), whose value the caller
+// computes again with quick_gelu
+__device__ __forceinline__ float quick_gelu_fast(float z, bool& slow) {
+  const float d = __fadd_rn(1.0f, expf(-__fmul_rn(1.702f, z)));
+  slow |= !(d < 0x1p126f);
+  return __fmul_rn(z, rcp_rn_normal(d));
+}
+
 __device__ inline float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
@@ -126,9 +153,9 @@ __device__ inline void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
 }
 
-template <int EPI, typename OutT, typename ResT>
-__global__ void __launch_bounds__(NT)
-vit_gemm_q8_kernel(const GemmArgs args) {
+// q, k, v = the kQkv epilogue of the 128 x 128 tile (blockIdx.y, blockIdx.x)
+// on q8_gemm.cuh's loop.
+__global__ void __launch_bounds__(NT) vit_gemm_q8_kernel(const GemmArgs args) {
   extern __shared__ __align__(128) int8_t smem[];
   const int M = args.M, N = args.N;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
@@ -138,10 +165,9 @@ vit_gemm_q8_kernel(const GemmArgs args) {
   mainloop(smem, args.a, args.a_scale, args.b, args.b_scale, M, args.K, N, 1,
            m0, n0, acc);
 
-  // kQkv: the tile's 128 columns lie in one of q, k, v (D % 128 == 0)
-  const int part = EPI == kQkv ? n0 / args.D : 0;
-  const int width = EPI == kQkv ? args.D : N;
-  const int c0 = n0 - part * (EPI == kQkv ? args.D : 0);
+  // the tile's 128 columns lie in one of q, k, v (D % 128 == 0)
+  const int part = n0 / args.D;
+  const int c0 = n0 - part * args.D;
   // two consecutive columns of rows row0 and row0 + 8 per n8 chunk
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -155,33 +181,24 @@ vit_gemm_q8_kernel(const GemmArgs args) {
       float v0 = __fadd_rn(acc[4 * j + 2 * half], __low2float(bv));
       float v1 = __fadd_rn(acc[4 * j + 2 * half + 1], __high2float(bv));
       const size_t off =
-          static_cast<size_t>(row) * width + c0 + 8 * j + 2 * tig;
-      if constexpr (EPI == kQkv) {
-        if (part == 0) {
-          v0 = __fmul_rn(v0, args.scale);
-          v1 = __fmul_rn(v1, args.scale);
-        }
-        bf16* out = static_cast<bf16*>(
-            part == 0 ? args.out[0] : (part == 1 ? args.out[1] : args.out[2]));
-        *reinterpret_cast<__nv_bfloat162*>(out + off) =
-            __floats2bfloat162_rn(v0, v1);
-      } else if constexpr (EPI == kQuickGeluF32) {
-        *reinterpret_cast<float2*>(static_cast<float*>(args.out[0]) + off) =
-            make_float2(quick_gelu(v0), quick_gelu(v1));
-      } else {  // kResidual
-        const float2 r = load2(static_cast<const ResT*>(args.residual) + off);
-        store2(static_cast<OutT*>(args.out[0]) + off, __fadd_rn(r.x, v0),
-               __fadd_rn(r.y, v1));
+          static_cast<size_t>(row) * args.D + c0 + 8 * j + 2 * tig;
+      if (part == 0) {
+        v0 = __fmul_rn(v0, args.scale);
+        v1 = __fmul_rn(v1, args.scale);
       }
+      bf16* out = static_cast<bf16*>(
+          part == 0 ? args.out[0] : (part == 1 ? args.out[1] : args.out[2]));
+      *reinterpret_cast<__nv_bfloat162*>(out + off) =
+          __floats2bfloat162_rn(v0, v1);
     }
   }
 }
 
-// vit_gemm_q8_kernel's epilogues over q8_gemm_tma.cuh's main loop, in the
-// same order of rounding. Each chunk's bias and residual are read before
-// any of its stores: the compiler may not move a load past a store that
-// could alias it, and loads between stores, each waiting for memory in
-// turn, took longer than the tile's products.
+// The epilogues over q8_gemm_tma.cuh's main loop, in the Pallas kernels'
+// order of rounding. Each chunk's bias and residual are read before any of
+// its stores: the compiler may not move a load past a store that could
+// alias it, and loads between stores, each waiting for memory in turn, took
+// longer than the tile's products.
 template <int EPI, typename OutT = bf16, typename ResT = bf16>
 struct TmaEpilogue {
   using Args = GemmArgs;
@@ -190,6 +207,7 @@ struct TmaEpilogue {
   __device__ static void store(const Args& args,
                                const float (&acc)[TILE_N / 2], int row0,
                                int n0) {
+    bool slow = false;  // kQuickGeluF32: an element needs quick_gelu
     const int M = args.M, N = args.N;
     const int tig = threadIdx.x % 4;
     // kQkv: the tile's columns lie in one of q, k, v (D % TILE_N == 0)
@@ -241,7 +259,8 @@ struct TmaEpilogue {
           } else if constexpr (EPI == kQuickGeluF32) {
             *reinterpret_cast<float2*>(static_cast<float*>(args.out[0]) +
                                        off) =
-                make_float2(quick_gelu(v0), quick_gelu(v1));
+                make_float2(quick_gelu_fast(v0, slow),
+                            quick_gelu_fast(v1, slow));
           } else {  // kResidual
             store2(static_cast<OutT*>(args.out[0]) + off,
                    __fadd_rn(res[half][jj].x, v0),
@@ -250,11 +269,57 @@ struct TmaEpilogue {
         }
       }
     }
+    if constexpr (EPI == kQuickGeluF32) {
+      if (slow) store_hidden_exact<TILE_N>(args, acc, row0, n0);
+    }
+  }
+
+  // kQuickGeluF32's hidden of this thread again through quick_gelu (rare:
+  // only where store's fast reciprocal was out of its range)
+  template <int TILE_N>
+  __device__ static void store_hidden_exact(const Args& args,
+                                            const float (&acc)[TILE_N / 2],
+                                            int row0, int n0) {
+    const int tig = threadIdx.x % 4;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      if (row >= args.M) continue;
+#pragma unroll
+      for (int j = 0; j < TILE_N / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * tig;
+        const float2 b = load2(args.bias + col);
+        *reinterpret_cast<float2*>(static_cast<float*>(args.out[0]) +
+                                   static_cast<size_t>(row) * args.N + col) =
+            make_float2(
+                quick_gelu(__fadd_rn(acc[4 * j + 2 * half], b.x)),
+                quick_gelu(__fadd_rn(acc[4 * j + 2 * half + 1], b.y)));
+      }
+    }
   }
 };
 
-// A product of the whole block on q8_gemm_tma.cuh's main loop (one
-// contraction group; the block's widths are multiples of 128).
+// Counts the floats z (all 2^32) where quick_gelu_fast differs from
+// quick_gelu in its bits (two NaNs count as equal), with its slow case
+// redone as the epilogue does.
+__global__ void quick_gelu_check_kernel(unsigned long long* differ) {
+  unsigned long long count = 0;
+  for (uint64_t i = blockIdx.x * static_cast<uint64_t>(blockDim.x) +
+                    threadIdx.x;
+       i < (1ull << 32); i += static_cast<uint64_t>(gridDim.x) * blockDim.x) {
+    const float z = __uint_as_float(static_cast<uint32_t>(i));
+    bool slow = false;
+    float got = quick_gelu_fast(z, slow);
+    if (slow) got = quick_gelu(z);
+    const float want = quick_gelu(z);
+    count += __float_as_uint(got) != __float_as_uint(want) &&
+             !(got != got && want != want);
+  }
+  atomicAdd(differ, count);
+}
+
+// A product on q8_gemm_tma.cuh's main loop (one contraction group; the
+// blocks' widths are multiples of 128).
 template <int EPI, typename OutT = bf16, typename ResT = bf16>
 int tma_gemm(const GemmArgs& args, cudaStream_t stream) {
   return q8_gemm_tma::gemm<TmaEpilogue<EPI, OutT, ResT>, false>(
@@ -262,14 +327,14 @@ int tma_gemm(const GemmArgs& args, cudaStream_t stream) {
       args, stream);
 }
 
-template <int EPI, typename OutT = bf16, typename ResT = bf16>
-int gemm(const GemmArgs& args, cudaStream_t stream) {
+// fused_qkv_q8's product on q8_gemm.cuh's loop.
+int qkv_gemm(const GemmArgs& args, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      vit_gemm_q8_kernel<EPI, OutT, ResT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+      vit_gemm_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      GEMM_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(args.N / BN, (args.M + BM - 1) / BM, 1);
-  vit_gemm_q8_kernel<EPI, OutT, ResT><<<grid, NT, GEMM_SMEM, stream>>>(args);
+  vit_gemm_q8_kernel<<<grid, NT, GEMM_SMEM, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -314,7 +379,7 @@ extern "C" int fused_qkv_q8_launch(const void* x, const void* ln_s,
   args.out[2] = v;
   args.scale = scale;
   args.D = D;
-  return gemm<kQkv>(args, s);
+  return qkv_gemm(args, s);
 }
 
 // out (M, D) bf16 = x + MLP(LN(x)) for x (M, D); w_fc (F, D) and w_proj
@@ -334,7 +399,7 @@ extern "C" int fused_mlp_block_q8_launch(
   if (rc != 0) return rc;
   GemmArgs up = gemm_args(codes_in, scales_in, w_fc, s_fc, b_fc, M, D, F);
   up.out[0] = hidden;
-  rc = gemm<kQuickGeluF32>(up, s);
+  rc = tma_gemm<kQuickGeluF32>(up, s);
   if (rc != 0) return rc;
   rc = row_quant<float, kNone>(hidden, nullptr, nullptr, codes_hid,
                                scales_hid, M, F, 1, 0.0f, s);
@@ -343,7 +408,16 @@ extern "C" int fused_mlp_block_q8_launch(
       gemm_args(codes_hid, scales_hid, w_proj, s_proj, b_proj, M, F, D);
   down.out[0] = out;
   down.residual = x;
-  return gemm<kResidual>(down, s);
+  return tma_gemm<kResidual>(down, s);
+}
+
+// differ (one uint64 on the card) += the floats where the epilogues'
+// quickGELU differs from quick_gelu's correctly rounded division.
+extern "C" int quick_gelu_check(void* differ, void* stream) {
+  quick_gelu_check_kernel<<<132 * 8, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(differ));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out (B, L, D = H dh) bf16 = the whole int8 CLIP block over x (B, L, D)

@@ -330,11 +330,20 @@ def fused_t5_ffn_q8_plain(
     x32 = x.reshape(-1, d_model).float()
     parts = _group_quant_rows_i8(_rms_norm_f32(x32, ln_weight, eps),
                                  s_0.shape[0])
-    hid = _tanh_gelu(_mm_q8_grouped(parts, wi_0, s_0))
-    if wi_1 is not None:
-        hid = hid * _mm_q8_grouped(parts, wi_1, _as_group_scales(s_1))
+    hid = _t5_ffn_q8_hidden(parts, wi_0, s_0, wi_1, s_1)
     y = _mm_q8_grouped(_group_quant_rows_i8(hid, s_o.shape[0]), wo, s_o)
     return (x32 + y).reshape(x.shape).to(x.dtype)
+
+
+def _t5_ffn_q8_hidden(parts: list, wi_0: torch.Tensor, s_0: torch.Tensor,
+                      wi_1: Optional[torch.Tensor],
+                      s_1: Optional[torch.Tensor]) -> torch.Tensor:
+    """The FFN's fp32 hidden from the input's quantization ``parts``:
+    gelu(a0) * a1, or gelu(a0) without the gate."""
+    hid = _tanh_gelu(_mm_q8_grouped(parts, wi_0, _as_group_scales(s_0)))
+    if wi_1 is not None:
+        hid = hid * _mm_q8_grouped(parts, wi_1, _as_group_scales(s_1))
+    return hid
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +405,31 @@ def _k_major(w: torch.Tensor) -> torch.Tensor:
     """(K, N) weights as (N, K): the tensor cores' int8 product takes both
     operands with the contraction contiguous. A copy of a few MB a call."""
     return w.t().contiguous()
+
+
+# rows of each gate weight that alternate in the gated FFN's up-product: one
+# 8-column chunk of the s8 loop's fragment layout
+GATE_INTERLEAVE = 8
+
+
+def _interleave_gate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, ...) a and b as one (2 N, ...) tensor whose rows alternate by
+    GATE_INTERLEAVE: a's rows 8c .. 8c + 7, then b's same rows."""
+    n = a.shape[0]
+    return torch.stack(
+        [a.reshape(n // GATE_INTERLEAVE, GATE_INTERLEAVE, *a.shape[1:]),
+         b.reshape(n // GATE_INTERLEAVE, GATE_INTERLEAVE, *b.shape[1:])],
+        dim=1).reshape(2 * n, *a.shape[1:])
+
+
+def _k_major_gated(wi_0: torch.Tensor, s_0: torch.Tensor, wi_1: torch.Tensor,
+                   s_1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gated FFN's up-product as one K-major (2 F, D) weight with (G, 2
+    F) scales: wi_0's and wi_1's output columns interleaved by eight, so
+    that the kernel's thread holding a0 of a column holds its a1 too. The
+    same per-call copy as _k_major's (no parameter changes layout)."""
+    return (_interleave_gate(wi_0.t(), wi_1.t()).contiguous(),
+            _interleave_gate(s_0.t(), s_1.t()).t().contiguous())
 
 
 def _run(op: str, fn, *args) -> None:
@@ -535,17 +569,17 @@ def fused_t5_ffn_q8(
     codes_hid = torch.empty((rows, d_ff), dtype=_I8, device=dev)
     scales_hid = torch.empty((rows, g_hid), dtype=_F32, device=dev)
     out = torch.empty_like(x)
-    wi_0, wo = _k_major(wi_0), _k_major(wo)
     if gated:
-        wi_1 = _k_major(wi_1)
-    _run(op, _launcher_of("int8_encoder", op, 14, 5, 1),
-         x.data_ptr(), ln_weight.data_ptr(), wi_0.data_ptr(), s_0.data_ptr(),
-         wi_1.data_ptr() if gated else None,
-         s_1.data_ptr() if gated else None,
+        w_up, s_up = _k_major_gated(wi_0, s_0, wi_1, s_1)
+    else:
+        w_up, s_up = _k_major(wi_0), s_0
+    wo = _k_major(wo)
+    _run(op, _launcher_of("int8_encoder", op, 12, 6, 1),
+         x.data_ptr(), ln_weight.data_ptr(), w_up.data_ptr(), s_up.data_ptr(),
          wo.data_ptr(), s_o.data_ptr(), codes_in.data_ptr(),
          scales_in.data_ptr(), hidden.data_ptr(), codes_hid.data_ptr(),
          scales_hid.data_ptr(), out.data_ptr(),
-         rows, d_model, d_ff, g_in, g_hid, eps,
+         rows, d_model, d_ff, int(gated), g_in, g_hid, eps,
          torch.cuda.current_stream(dev).cuda_stream)
     fused_t5_ffn_q8.launches += 1
     return out

@@ -5,7 +5,7 @@ time it.
 
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
-        --int8-digests
+        --int8-digests [--int8-times]
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --flash-reference
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
@@ -15,10 +15,15 @@ Shapes: ``fused_t5_ffn`` at M = 32 x 557 rows, D = 2048, F = 5120 (gated),
 with a SHA-256 of its bf16 output (the inputs come from a seeded generator,
 so two builds of the kernel can be compared bit for bit); the same digests
 of the int8 T5 encoder kernels (``fused_t5_ln_qkv_q8``,
-``fused_oproj_residual_q8``, ``fused_t5_ffn_q8``) at M = 32 x 557 rows, D =
-inner = 2048, F = 5120, 8 contraction groups, with ``--int8-digests`` alone
-(that part needs only what the port had before the ViT int8 kernels, so
-this file copied into an older tree digests that tree's build);
+``fused_oproj_residual_q8``, ``fused_t5_ffn_q8`` gated and not) at M = 32 x
+557 rows, D = inner = 2048, F = 5120, 8 contraction groups, and of the ViT
+ones (``fused_qkv_q8`` and ``fused_mlp_block_q8`` at ViT-L/14@336 widths on
+16 images, ``fused_vit_block_q8`` at ViT-B/32's on 64) with
+``--int8-digests``; ``--int8-times`` (with or without the digests) times
+them at the main shapes (ViT-L on 256 images, ViT-B/32 on 1024) with each
+CUDA kernel's device ms. Both need only what the port had since its int8
+whole block, so this file copied into an older tree digests and times that
+tree's build;
 ``cross_attention_decode`` on layer 7 of 24 stacked (32, 557, 2048) bf16
 caches; the CLIP ViT ``split3`` kernels (``fused_ln_qkv``,
 ``attention_core_oproj``, ``fused_mlp_block``) and the int8 path's
@@ -138,7 +143,11 @@ def sha256_of(outs) -> str:
     return digest.hexdigest()
 
 
-def int8_encoder_digests() -> None:
+def int8_cases(vit_l_batch: int, b32_batch: int) -> dict:
+    """name -> (kernel, its arguments) of the int8 kernels at the main
+    path's T5 shapes (M = 32 x 557, D = inner = 2048, F = 5120, 8 groups),
+    ViT-L/14@336 widths on ``vit_l_batch`` images and ViT-B/32's on
+    ``b32_batch``, all from seeded generators."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -156,17 +165,41 @@ def int8_encoder_digests() -> None:
     o = quant(d_model, d_model)
     ffn = [t for k, n in ((d_model, d_ff), (d_model, d_ff), (d_ff, d_model))
            for t in quant(k, n)]
+    cfg = clip.CLIPVisionConfig.vit_l_14_336(num_layers=1)
+    vit_l = vit_block_q8_case(cfg, vit_l_batch)
+    return {
+        "fused_t5_ln_qkv_q8": (fab.fused_t5_ln_qkv_q8, (x, lnw, *qkv)),
+        "fused_oproj_residual_q8": (fab.fused_oproj_residual_q8,
+                                    (x, attn, *o)),
+        "fused_t5_ffn_q8": (fab.fused_t5_ffn_q8, (x, lnw, *ffn)),
+        "fused_t5_ffn_q8 non-gated": (
+            fab.fused_t5_ffn_q8, (x, lnw, *ffn[:2], None, None, *ffn[4:])),
+        "fused_qkv_q8": (fab.fused_qkv_q8,
+                         (*vit_l[:6], (cfg.width // cfg.num_heads) ** -0.5)),
+        "fused_mlp_block_q8": (fab.fused_mlp_block_q8,
+                               (vit_l[0], *vit_l[9:17])),
+        "fused_vit_block_q8": (fab.fused_vit_block_q8, vit_block_q8_case(
+            clip.CLIPVisionConfig.vit_b_32(num_layers=1), b32_batch)),
+    }
+
+
+def int8_encoder_digests() -> None:
+    """A SHA-256 of each int8 kernel's output on int8_cases' inputs (ViT-L
+    on 16 images, ViT-B/32 on 64)."""
     print("int8_encoder library", kernels.library_path("int8_encoder").name)
-    print("fused_t5_ln_qkv_q8 output sha256",
-          sha256_of(fab.fused_t5_ln_qkv_q8(x, lnw, *qkv)))
-    print("fused_oproj_residual_q8 output sha256",
-          sha256_of([fab.fused_oproj_residual_q8(x, attn, *o)]))
-    print("fused_t5_ffn_q8 output sha256",
-          sha256_of([fab.fused_t5_ffn_q8(x, lnw, *ffn)]), flush=True)
     print("vit_block_q8 library", kernels.library_path("vit_block_q8").name)
-    args = vit_block_q8_case(clip.CLIPVisionConfig.vit_b_32(num_layers=1), 64)
-    print("fused_vit_block_q8 output sha256",
-          sha256_of([fab.fused_vit_block_q8(*args)]), flush=True)
+    for name, (fn, args) in int8_cases(16, 64).items():
+        out = fn(*args)
+        print(f"{name} output sha256",
+              sha256_of(out if isinstance(out, tuple) else [out]), flush=True)
+
+
+def int8_times(cases: dict, label: str = "") -> None:
+    """Each of int8_cases' kernels: CUDA-event ms and each CUDA kernel's
+    device ms, one line each after ``label``."""
+    for name, (fn, args) in cases.items():
+        print(f"{label}{name}: {cuda_ms(lambda: fn(*args), 10)} ms; by CUDA "
+              f"kernel {kernel_split(lambda: fn(*args))}", flush=True)
 
 
 def vit_block_q8_case(cfg, batch: int, seed: int = 0) -> tuple:
@@ -198,8 +231,12 @@ def vit_block_q8_case(cfg, batch: int, seed: int = 0) -> tuple:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: no CUDA device")
-    if "--int8-digests" in sys.argv[1:]:
-        int8_encoder_digests()
+    if {"--int8-digests", "--int8-times"} & set(sys.argv[1:]):
+        if "--int8-digests" in sys.argv[1:]:
+            int8_encoder_digests()
+        if "--int8-times" in sys.argv[1:]:
+            print(torch.cuda.get_device_name(0), flush=True)
+            int8_times(int8_cases(256, 1024))
         return
     if "--flash-reference" in sys.argv[1:]:
         flash_reference()
@@ -563,10 +600,10 @@ def q8_variants(dirs: List[Path]) -> None:
     """fused_oproj_residual_q8 and fused_vit_block_q8 built from each csrc
     copy in ``dirs`` (in parallel, with their ptxas reports): a SHA-256 of
     each over the edge sweep, whether the copies agree bit for bit and
-    their outputs that differ from plain, then each timed at the main
-    shapes (M = 32 x 557, K = N = 2048, 8 groups; ViT-B/32 on 1024 images)
-    in turns (the list, then reversed), with each CUDA kernel's device ms
-    under the profiler."""
+    their outputs that differ from plain, then every int8 kernel timed at
+    int8_cases' main shapes in turns (the list, then reversed), with each
+    CUDA kernel's device ms under the profiler. The wrappers are this
+    tree's: the copies must keep its launchers' signatures."""
     fab.vit_attention_max_len(64)  # vit_block from this tree, cached
     built = build_variants(dirs, ["int8_encoder", "vit_block_q8"])
     oproj = {(m, g, d, n): oproj_case(m, g, d, n) for m in Q8_ROWS
@@ -600,21 +637,11 @@ def q8_variants(dirs: List[Path]) -> None:
             print(f"{d}: {len(off)} cases differ from {built[0]}: "
                   f"{off[:12]}", flush=True)
     del oproj, vit, plain_oproj
-    main_oproj = oproj_case(32 * 557, 8, 256, 2048)
-    main_vit = vit_block_q8_case(clip.CLIPVisionConfig.vit_b_32(
-        num_layers=1), 1024)
+    main = int8_cases(256, 1024)
     for d in built + built[::-1]:
         kernels.CSRC_DIR = d
         kernels._loaded.clear()
-        oproj_ms = cuda_ms(lambda: fab.fused_oproj_residual_q8(*main_oproj),
-                           20)
-        vit_ms = cuda_ms(lambda: fab.fused_vit_block_q8(*main_vit), 10)
-        print(f"{d}: fused_oproj_residual_q8 {oproj_ms} ms, "
-              f"fused_vit_block_q8 B=1024 {vit_ms} ms; by CUDA kernel "
-              f"{kernel_split(lambda: fab.fused_oproj_residual_q8(*main_oproj))}"
-              f", {kernel_split(lambda: fab.fused_vit_block_q8(*main_vit))}",
-              flush=True)
-
+        int8_times(main, f"{d}: ")
 
 
 if __name__ == "__main__":

@@ -3,6 +3,8 @@ fused_oproj_residual_q8, fused_t5_ffn_q8): the plain versions against the
 JAX package's Pallas kernels (interpret mode on the CPU), the wrappers on
 CPU tensors, and the CUDA kernels against the plain versions on the card."""
 
+from typing import Tuple
+
 import numpy as np
 import pytest
 import torch
@@ -508,6 +510,59 @@ def test_wrappers_refuse_tiles_the_kernel_cannot_take():
         tfab._check_q8_product("op", "w", w, torch.ones(2, 128), k_dim, 2)
 
 
+# --- the gated FFN's one up-product (csrc/int8_encoder.cu) ------------------
+
+@pytest.mark.parametrize("groups", [1, 8])
+def test_gate_interleave_is_a_permutation(groups):
+    """The wrapper's K-major (2 F, D) up-weight and (G, 2 F) scales:
+    de-interleaving by eight rows gives wi_0^T, wi_1^T and their scales
+    back exactly."""
+    rng = np.random.default_rng(5)
+    d_model, d_ff = 256, 384
+    (w0, s0), (w1, s1) = ((torch.from_numpy(q), torch.from_numpy(s))
+                          for q, s in (weights(rng, (d_model, d_ff), groups)
+                                       for _ in range(2)))
+    w_up, s_up = tfab._k_major_gated(w0, s0, w1, s1)
+    assert w_up.shape == (2 * d_ff, d_model) and w_up.is_contiguous()
+    assert s_up.shape == (groups, 2 * d_ff) and s_up.is_contiguous()
+    w_pairs = w_up.reshape(d_ff // 8, 2, 8, d_model)
+    s_pairs = s_up.reshape(groups, d_ff // 8, 2, 8)
+    for i, (w, sc) in enumerate(((w0, s0), (w1, s1))):
+        assert torch.equal(w_pairs[:, i].reshape(d_ff, d_model), w.t())
+        assert torch.equal(s_pairs[:, :, i].reshape(groups, d_ff), sc)
+
+
+def gated_hidden_tilewise(acc: torch.Tensor, tile: int) -> torch.Tensor:
+    """The kernel's gated epilogue in plain PyTorch: ``acc`` is the (M, 2 F)
+    product over the interleaved weight; in each tile of ``tile`` columns,
+    chunk 2c (eight columns, a0) and chunk 2c + 1 (a1) give hidden columns
+    n0 / 2 + 8 c .. + 7 as gelu(a0) * a1."""
+    hid = torch.empty(acc.shape[0], acc.shape[1] // 2)
+    for n0 in range(0, acc.shape[1], tile):
+        for c in range(tile // 16):
+            a0 = acc[:, n0 + 16 * c:n0 + 16 * c + 8]
+            a1 = acc[:, n0 + 16 * c + 8:n0 + 16 * c + 16]
+            hid[:, n0 // 2 + 8 * c:n0 // 2 + 8 * c + 8] = \
+                tfab._tanh_gelu(a0) * a1
+    return hid
+
+
+@pytest.mark.parametrize("groups,tile", [(1, 256), (2, 128), (8, 128)])
+def test_tilewise_gated_product_gives_the_plain_hidden(groups, tile):
+    """The interleaved product, taken tile by tile as the kernel takes it
+    (128 x 256 tiles for one group, else 128 x 128), gives
+    fused_t5_ffn_q8_plain's fp32 hidden bit for bit."""
+    inp = case_inputs("ffn_gated", groups, seed=6)
+    stages, prods, _ = port_stages("ffn_gated", inp, "float32")
+    parts = stages[0][1]
+    (w0, s0), (w1, s1), _ = prods
+    w_up, s_up = tfab._k_major_gated(w0, s0, w1, s1)
+    got = gated_hidden_tilewise(tfab._mm_q8_grouped(parts, w_up.t(), s_up),
+                                tile)
+    want = tfab._t5_ffn_q8_hidden(parts, w0, s0, w1, s1)
+    assert torch.equal(got, want)
+
+
 # --- on the card: the CUDA kernels against the plain versions --------------
 
 def cuda_case(op, rows, groups, d_model=2048, d_ff=5120, seed=0):
@@ -587,6 +642,63 @@ def test_cuda_oproj_sweep(rows, groups, depth, width, record_property):
     rms = w.square().mean().sqrt()
     assert bool(((g - w).abs() <= 1.6e-2 * w.abs() + 1.6e-2 * rms).all())
     record_property("differing", int((got != want).sum()))
+
+
+def exact_norm_rows(gen, rows: int, width: int) -> Tuple[torch.Tensor, float]:
+    """(rows, width) fp32 rows on the card, each a random permutation of one
+    set of values, multiples of 1/8 below 2, half of them the negated other
+    half: every row's sum is exactly 0 and its mean square is exact in any
+    order of summation and the same in every row. Returns the rows and the
+    norm's eps that brings the mean square to exactly 4 (whose square root
+    and reciprocal square root are exact), so that a norm computed in any
+    order is bit-equal on either side."""
+    half = torch.randint(-15, 16, (width // 2,), generator=gen,
+                         device="cuda").float() / 8
+    values = torch.cat([half, -half])
+    order = torch.argsort(torch.rand((rows, width), generator=gen,
+                                     device="cuda"), dim=1)
+    mean_square = float(values.square().sum()) / width
+    return values[order], 4.0 - mean_square
+
+
+def exact_ffn_case(rows: int, gated: bool, g_in: int, g_hid: int,
+                   d_model: int = 2048, d_ff: int = 5120, seed: int = 0):
+    """T0-3B widths on a few rows of exact_norm_rows, bf16, weights from the
+    port's quantizer: (the FFN's arguments, eps)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def quant(k, n, groups):
+        w = torch.randn((1, k, n), generator=gen, device="cuda") * k ** -0.5
+        q, s = _quant_stacked_i8(w, groups)
+        return q[0], s[0]
+
+    x, eps = exact_norm_rows(gen, rows, d_model)
+    lnw = (1 + 0.1 * torch.randn(d_model, generator=gen, device="cuda")
+           ).bfloat16()
+    gate = quant(d_model, d_ff, g_in) if gated else (None, None)
+    return (x[None].bfloat16(), lnw, *quant(d_model, d_ff, g_in), *gate,
+            *quant(d_ff, d_model, g_hid)), eps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_in,g_hid", [(8, 8), (8, 80), (1, 1)])
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("rows", [64, 157])
+def test_cuda_ffn_q8_equals_plain(rows, gated, g_in, g_hid):
+    """fused_t5_ffn_q8 bit-equal to its plain version (rtol = atol = 0) on
+    inputs whose RMSNorm is exact in any order (exact_norm_rows): a ragged
+    row tile, the gate interleaved into one up-product or gelu alone, 8
+    input groups (128-column tiles) or 1 (256-column tiles), the hidden
+    requantized in 8 groups of 640 columns or 80 of 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, eps = exact_ffn_case(rows, gated, g_in, g_hid)
+    before = tfab.fused_t5_ffn_q8.launches
+    got = tfab.fused_t5_ffn_q8(*args, eps=eps)
+    torch.cuda.synchronize()
+    assert tfab.fused_t5_ffn_q8.launches == before + 1
+    want = tfab.fused_t5_ffn_q8_plain(*args, eps=eps)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # --- the T5 weight quantizer ------------------------------------------------

@@ -5,6 +5,8 @@ package's Pallas kernels (interpret mode on the CPU) in fp32 and bf16; the
 wrappers on CPU tensors; and the CUDA kernels against the plain versions on
 the card."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (
 from test_torch_int8_kernels import (  # noqa: E402
     TOL,
     assert_q8_close,
+    exact_norm_rows,
     near_boundary,
     nudge_columns,
     nudge_rows,
@@ -522,6 +525,61 @@ def test_cuda_kernel_matches_plain_version(name):
         assert bool(((g - p).abs() <= 1.6e-2 * (p.abs() + rms)).all())
     with pytest.raises(ValueError, match="bfloat16"):
         fn(args[0].float(), *args[1:], **kw)
+
+
+def exact_mlp_case(rows: int, d_model: int, d_ff: int, seed: int = 0):
+    """fused_mlp_block_q8's arguments on rows of exact_norm_rows (whose
+    LayerNorm is exact in any order), bf16, weights from the port's
+    quantize_weight_i8, random LayerNorm parameters and biases; and eps."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x, eps = exact_norm_rows(gen, rows, d_model)
+    fc = tfab.quantize_weight_i8(randn(d_model, d_ff, scale=d_model ** -0.5))
+    proj = tfab.quantize_weight_i8(randn(d_ff, d_model, scale=d_ff ** -0.5))
+    return (x[None].bfloat16(), (1 + randn(d_model, scale=0.1)).bfloat16(),
+            randn(d_model, scale=0.1).bfloat16(), *fc,
+            randn(d_ff, scale=0.1).bfloat16(), *proj,
+            randn(d_model, scale=0.1).bfloat16()), eps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,d_ff", [(1024, 4096), (256, 640)])
+@pytest.mark.parametrize("rows", [64, 157])
+def test_cuda_mlp_q8_equals_plain(rows, d_model, d_ff):
+    """fused_mlp_block_q8 bit-equal to its plain version (rtol = atol = 0)
+    on inputs whose LayerNorm is exact in any order: a ragged row tile, and
+    ViT-L's F = 4096 (the up-product in 128 x 256 tiles) or an F that is a
+    multiple of 128 but not of 256 (128 x 128 tiles, the down-product's
+    contraction 5 k steps of 128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, eps = exact_mlp_case(rows, d_model, d_ff)
+    before = tfab.fused_mlp_block_q8.launches
+    got = tfab.fused_mlp_block_q8(*args, eps=eps)
+    torch.cuda.synchronize()
+    assert tfab.fused_mlp_block_q8.launches == before + 1
+    want = tfab.fused_mlp_block_q8_plain(*args, eps=eps)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_quick_gelu_epilogue_is_exact_for_every_float():
+    """The int8 ViT up-GEMMs' quickGELU epilogue (its sigmoid's reciprocal
+    as an estimate and two FMA Newton steps, the rare case out of that
+    range computed again) equals quick_gelu's correctly rounded division
+    for every one of the 2^32 floats."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fn = kernels.load("vit_block_q8").quick_gelu_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    differ = torch.zeros(1, dtype=torch.int64, device="cuda")
+    assert fn(differ.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert differ.item() == 0
 
 
 @pytest.mark.gpu
