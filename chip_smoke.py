@@ -20,9 +20,18 @@ register / shared-memory / spill report):
              kernel, plain and torch._int_mm (GEMMs only) times and bounds;
              each also with each CUDA kernel's device ms under the profiler
              and its GEMM stage beside _int_mm of the same products (the
-             FFN's one up-product beside the two of wi_0 and wi_1), held
-             within Q8_GEMM_STAGE_MAX_RATIO of it for the GEMMs on
-             q8_gemm_tma.cuh (fused_oproj_residual_q8, fused_t5_ffn_q8)
+             q/k/v kernel's one stacked product beside the three of wq, wk
+             and wv, the FFN's one up-product beside the two of wi_0 and
+             wi_1), held within Q8_GEMM_STAGE_MAX_RATIO of it
+  q8_boundary
+             the .5-boundary check of the int8 kernels with a norm in front
+             (fused_t5_ln_qkv_q8, fused_t5_ffn_q8 on int8_kernels' inputs;
+             fused_qkv_q8, fused_mlp_block_q8 on vit_q8_kernels' 16
+             images): the share of their activation codes (and of the
+             hidden's) and of their outputs beyond one bf16 ulp that differ
+             from the plain version run on the CPU on the same inputs, for
+             the kernel and for the plain version run on the card; recorded,
+             not held to a bound
   reference  the encoder at full width on a small input: kernel path against
              the plain materialised-bias path
   generate   VC-T0 few-shot generation at full T0-3B width and depth (random
@@ -91,10 +100,9 @@ register / shared-memory / spill report):
              yardstick (torch._int_mm, GEMMs only; scaled_dot_product_attention);
              attention_core also beside its route's bound, at most 0.5 % of
              its outputs differing from plain; the int8 kernels with each
-             CUDA kernel's device ms and their GEMM stage beside _int_mm
-             (fused_mlp_block_q8's, on q8_gemm_tma.cuh, held within
-             Q8_GEMM_STAGE_MAX_RATIO), fused_mlp_block_q8 also beside its
-             route's bound (its fp32 hidden's round trip)
+             CUDA kernel's device ms and their GEMM stage beside _int_mm,
+             held within Q8_GEMM_STAGE_MAX_RATIO, fused_mlp_block_q8 also
+             beside its route's bound (its fp32 hidden's round trip)
   vit_attention_edges
              attention_core (both orders) and attention_core_oproj against
              their plain versions on 2 images at every head size (16, 32,
@@ -260,8 +268,8 @@ Q8_REL_FROBENIUS = 2e-3
 Q8_ELEMENT_TOL = 1.6e-2            # x |want| + x rms(want)
 INT8_GROUPS = 8
 INT8_COSINE_FLOOR = 0.95           # a sanity floor; the value is recorded
-# the GEMM stage of fused_oproj_residual_q8 and fused_vit_block_q8 (their
-# s8 GEMM kernels' device time) against torch._int_mm of the same products
+# the GEMM stage of every int8 kernel (its s8 GEMM kernels' device time, all
+# on q8_gemm_tma.cuh) against torch._int_mm of the same products
 Q8_GEMM_STAGE_MAX_RATIO = 2.0
 DECODE_LAYER = 7                   # the cache layer the decode kernel reads
 # transposed int8 cross-KV logits against unmerged: the same products
@@ -487,6 +495,12 @@ def check_few_differ(name: str, res: dict) -> float:
     return share
 
 
+def bf16_ulp(want: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element of the fp32 ``want``."""
+    return torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30)))
+                      - 7)
+
+
 def compare_q8(got: torch.Tensor, want: torch.Tensor) -> dict:
     """Kernel against plain: max abs error, relative Frobenius error, the
     share of elements beyond one bf16 ulp of the plain value; fails unless
@@ -495,7 +509,7 @@ def compare_q8(got: torch.Tensor, want: torch.Tensor) -> dict:
     err = (got - want).abs()
     rel = ((got - want).norm() / want.norm()).item()
     rms = want.square().mean().sqrt()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    ulp = bf16_ulp(want)
     check(bool(torch.isfinite(got).all()), "int8 kernel output not finite")
     check(rel <= Q8_REL_FROBENIUS,
           f"int8 kernel's relative Frobenius error {rel} > {Q8_REL_FROBENIUS}")
@@ -538,6 +552,43 @@ def check_against_plain(name: str, fn, plain, args, batch: int,
     return out
 
 
+def q8_boundary(name: str, fn, plain, args) -> None:
+    """The .5-boundary check of an int8 kernel with a norm in front, on
+    ``args`` (CUDA tensors): its activation codes (``codes``; the MLPs'
+    also ``hidden_codes``) and its outputs beside those of the plain
+    version run on the CPU on copies of the same inputs (the version held
+    bit-equal to JAX's interpret mode), and the same for the plain version
+    run on the card: per side, how many of each stage's codes differ and
+    how many outputs lie beyond one bf16 ulp of the CPU's, with their
+    shares. Recorded, not held to a bound."""
+    cpu_codes = {}
+    want = plain(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                   for a in args), codes_out=cpu_codes)
+    want = [w.float() for w in (want if isinstance(want, tuple) else (want,))]
+    elements = sum(w.numel() for w in want)
+    result = {}
+    for side, f in (("card_kernel", fn), ("card_plain", plain)):
+        codes = {}
+        got = f(*args, codes_out=codes)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        side_result = {}
+        for key, cpu in cpu_codes.items():
+            if key.endswith("codes"):
+                differ = int((codes[key].cpu() != cpu).sum())
+                side_result[f"{key}_differ"] = differ
+                side_result[f"{key}_differ_share"] = differ / cpu.numel()
+        beyond = 0
+        for g, w in zip(got, want):
+            beyond += int(((g.cpu().float() - w).abs() > bf16_ulp(w)).sum())
+        side_result.update(outputs_beyond_one_ulp=beyond,
+                           outputs_beyond_one_ulp_share=beyond / elements)
+        result[side] = side_result
+        del got, codes
+    result.update(codes=cpu_codes["codes"].numel(), outputs=elements)
+    emit("q8_boundary", kernel=name, **result)
+
+
 def phase_int8_kernels(gen: torch.Generator) -> dict:
     """Each int8 kernel against its plain version at the int8 path's
     shapes, on weights from the port's quantizer."""
@@ -570,6 +621,7 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
         "fused_t5_ln_qkv_q8": dict(
             fn=fused_t5_ln_qkv_q8, plain=fused_t5_ln_qkv_q8_plain,
             args=(x, lnw, *[t for w in qkv_w for t in w]),
+            # one product over the stacked wq, wk, wv computes all three
             gemms=[(d_model, w) for w, _ in qkv_w], kernel_gemms=[[0, 1, 2]],
             bytes=act + d_model * 2 + 3 * rows * inner * 2
             + sum(w.numel() + s.numel() * 4 for w, s in qkv_w),
@@ -602,6 +654,8 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
         want = want if isinstance(want, tuple) else (want,)
         errs = [compare_q8(g, w) for g, w in zip(got, want)]
         del got, want
+        if name in ("fused_t5_ln_qkv_q8", "fused_t5_ffn_q8"):
+            q8_boundary(name, fn, plain, args)
         kernel_ms = cuda_ms(lambda: fn(*args), iters=20)
         plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
         # yardstick only: torch._int_mm of the same int8 products, GEMMs
@@ -614,15 +668,13 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
             lambda: [torch._int_mm(a, w) for a, w in lib_col], iters=10)
         library_row_major_ms = cuda_ms(
             lambda: [torch._int_mm(a, w) for a, w in lib_in], iters=10)
-        # each CUDA GEMM kernel beside _int_mm of the products it computes;
-        # held to the ratio where the GEMMs run on q8_gemm_tma.cuh
+        # each CUDA GEMM kernel beside _int_mm of the products it computes
         int_mm_ms = [cuda_ms(lambda a=a, w=w: torch._int_mm(a, w), iters=10)
                      for a, w in lib_col]
         stage = gemm_stage(
             name, kernel_split(lambda: fn(*args)),
             [sum(int_mm_ms[i] for i in kernel) for kernel in
-             case["kernel_gemms"]],
-            checked=name != "fused_t5_ln_qkv_q8")
+             case["kernel_gemms"]])
         del lib_in, lib_col
         results[name] = dict(
             shape=dict(M=rows, D=d_model, inner=inner, F=d_ff,
@@ -818,15 +870,14 @@ def device_busy(fn, timed_wall_s: float, top: int = 10) -> dict:
                                 for name, us in largest])
 
 
-def gemm_stage(name: str, split: dict, int_mm_ms: list,
-               checked: bool = True) -> dict:
+def gemm_stage(name: str, split: dict, int_mm_ms: list) -> dict:
     """The GEMM kernels of ``split`` beside torch._int_mm of the same
     products, in order (an entry may be the sum of several _int_mm calls
-    that one kernel computes); with ``checked``, fails unless their sum is
-    within Q8_GEMM_STAGE_MAX_RATIO of the library's."""
+    that one kernel computes); fails unless their sum is within
+    Q8_GEMM_STAGE_MAX_RATIO of the library's."""
     gemm_ms = [split[f"gemm_{i}"] for i in range(len(int_mm_ms))]
     ratio = sum(gemm_ms) / sum(int_mm_ms)
-    check(not checked or ratio <= Q8_GEMM_STAGE_MAX_RATIO,
+    check(ratio <= Q8_GEMM_STAGE_MAX_RATIO,
           f"{name}: its GEMM stage takes {sum(gemm_ms)} ms, {ratio} x "
           f"torch._int_mm's {sum(int_mm_ms)}")
     return dict(kernel_split_ms=split, gemm_ms=gemm_ms, int_mm_ms=int_mm_ms,
@@ -1394,6 +1445,9 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
         ragged, main = (check_against_plain(
             name, case["fn"], case["plain"], case["args"](batch), batch,
             case["int8"]) for batch in (VIT_CHECK_BATCH, CLIP_BATCH))
+        if case["int8"]:
+            q8_boundary(name, case["fn"], case["plain"],
+                        case["args"](VIT_CHECK_BATCH))
         kernel_ms = cuda_ms(lambda: case["fn"](*full), iters=10)
         plain_ms = cuda_ms(lambda: case["plain"](*full), iters=2, warmup=1)
         library_ms = cuda_ms(case["library"](), iters=10)
@@ -1406,7 +1460,7 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
             int_mm_ms = [cuda_ms(int_mm([gemm], stage_gen), iters=10)
                          for gemm in kernel_gemms[name]]
             extra = gemm_stage(name, kernel_split(lambda: case["fn"](*full)),
-                               int_mm_ms, checked=name != "fused_qkv_q8")
+                               int_mm_ms)
         if name == "fused_mlp_block_q8":
             # this route: the fp32 hidden and its int8 codes each written
             # and read once more

@@ -42,15 +42,17 @@
 //     row, the fp32 row (RMS-normalised where the op norms) in shared
 //     memory, each group's amax a block reduction, the codes and the row's
 //     G scales to device memory.
-//   the s8 wgmma GEMM (the weights K-major, (N, K), so the wrapper passes
-//     them transposed), the groups folded in order; the epilogue here: bf16
-//     store, residual add, or the FFN's fp32 hidden. The out-projection and
-//     the FFN's products run on q8_gemm_tma.cuh's main loop (TMA, a
-//     producer warpgroup, wgmma kept in flight, persistent; 128 x 128
-//     tiles with two int32 accumulator sets alternating by group, 128 x 256
-//     where G = 1 and the width allows); q/k/v still on q8_gemm.cuh's
-//     gemm_q8, 128 x 128 tiles, one block each, one launch (grid z = 3)
-//     over one shared quantization.
+//   the s8 GEMM on q8_gemm_tma.cuh's main loop (TMA, a producer warpgroup,
+//     wgmma kept in flight, persistent; 128 x 128 tiles with two int32
+//     accumulator sets alternating by group, 128 x 256 where G = 1 and the
+//     width allows; the weights K-major, (N, K), so the wrapper passes them
+//     transposed), the groups folded in order; the epilogue here: bf16
+//     stores routed to q, k or v, residual add, or the FFN's fp32 hidden.
+// q/k/v run row_quant and ONE product of N = 3 inner over one shared
+// quantization: the wrapper stacks the K-major wq^T, wk^T and wv^T into one
+// (3 inner, D) weight and their scales into (G, 3 inner), and the epilogue
+// writes each column tile into q, k or v (a tile never straddles two: the
+// launcher asks that its width divide inner).
 // The FFN runs row_quant, ONE up-product for wi_0 and wi_1 together,
 // row_quant of the fp32 hidden, and the down-product with the residual
 // epilogue. The wrapper interleaves the K-major gate weights by eight rows
@@ -64,15 +66,11 @@
 // device memory (365 MB at the main shape, about 0.11 ms of writes);
 // computing the up-products twice instead would add 748 G operations.
 //
-// What holds gemm_q8 (q/k/v) at a tenth of the int8 peak is q8_gemm.cuh's
-// main loop (it waits for its products after every 64-deep k step, its
-// consumer threads issue the copies and meet at a __syncthreads() every
-// step, its no-swizzle staging has 4-way bank conflicts, each block pays
-// its own prologue and epilogue). On q8_gemm_tma.cuh's loop, with each
-// chunk's loads before its stores, the GEMMs run near torch._int_mm on an
-// H100 at M = 17,824, D = 2048, F = 5120, 8 groups: the out-projection's
-// 0.23 ms (_int_mm 0.21), the FFN's up-product 1.23 ms (its two products
-// 1.05) and down-product 0.39 (0.41); PERF.md has the runs.
+// With each chunk's loads before its stores, the GEMMs run near
+// torch._int_mm on an H100 at M = 17,824, D = 2048, F = 5120, 8 groups:
+// the out-projection's 0.23 ms (_int_mm 0.21), the FFN's up-product 1.23
+// ms (its two products 1.05) and down-product 0.39 (0.41); PERF.md has the
+// runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,24 +84,25 @@ namespace {
 
 using namespace q8_gemm;
 
-constexpr int MAX_PRODUCTS = 3;
-
 // The epilogues of the products on q8_gemm_tma.cuh (TmaEpilogue).
 enum Epilogue : int {
   kResidualBf16 = 0,
   kGeluHidden = 1,
   kGatedGeluHidden = 2,
+  kQkvBf16 = 3,
 };
 
 struct GemmArgs {
   const int8_t* a;        // (M, K) activation codes, K contiguous
   const float* a_scale;   // (M, G) per-(row, group) scales
-  const int8_t* b[MAX_PRODUCTS];        // (N, K) int8 weights, K contiguous
-  const float* b_scale[MAX_PRODUCTS];   // (G, N) fp32 scales
-  void* out[MAX_PRODUCTS];              // (M, N) bf16, or the (M, F) fp32
-                                        // hidden (N = 2 F when gated)
+  const int8_t* b;        // (N, K) int8 weights, K contiguous
+  const float* b_scale;   // (G, N) fp32 scales
+  void* out[3];           // kQkvBf16: q, k, v (M, width) bf16; else out[0],
+                          // (M, N) bf16 or the (M, F) fp32 hidden (N = 2 F
+                          // when gated)
   const bf16* residual;   // (M, N) for kResidualBf16
   int M, K, N, G;
+  int width;              // kQkvBf16: the columns of each of q, k and v
 };
 
 __device__ inline float tanh_gelu(float x) {
@@ -113,58 +112,55 @@ __device__ inline float tanh_gelu(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
 }
 
-// out[z] = bf16(sum_g (float(A_g . B[z]_g^T) * a_scale_g) * b_scale[z]_g)
-// for the 128 x 128 tile (blockIdx.y, blockIdx.x) of product z = blockIdx.z.
-__global__ void __launch_bounds__(NT) gemm_q8_kernel(const GemmArgs args) {
-  extern __shared__ __align__(128) int8_t smem[];
-  const int z = blockIdx.z;
-  const int M = args.M, N = args.N;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int tig = threadIdx.x % 4;
-  const int row0 = fragment_row0(m0);
-  float acc[64];
-  mainloop(smem, args.a, args.a_scale, args.b[z], args.b_scale[z], M, args.K,
-           N, args.G, m0, n0, acc);
-
-  // epilogue: two consecutive columns of rows row0 and row0 + 8 per chunk
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + 8 * half;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const size_t off = static_cast<size_t>(row) * N + n0 + 8 * j + 2 * tig;
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(args.out[z]) +
-                                         off) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half],
-                                acc[4 * j + 2 * half + 1]);
-    }
-  }
-}
-
-// The epilogues over q8_gemm_tma.cuh's main loop (product 0), in the Pallas
-// kernels' order of rounding. Each chunk's residual is read before any of
-// its stores: the compiler may not move a load past a store that could
-// alias it, and loads between stores, each waiting for device memory in
-// turn, took longer than the tile's products.
+// The epilogues over q8_gemm_tma.cuh's main loop, in the Pallas kernels'
+// order of rounding. Each chunk's residual is read before any of its
+// stores: the compiler may not move a load past a store that could alias
+// it, and loads between stores, each waiting for device memory in turn,
+// took longer than the tile's products.
 //   kResidualBf16: out (M, N) bf16 = residual + acc.
 //   kGeluHidden: the (M, N) fp32 hidden = gelu(acc).
 //   kGatedGeluHidden: the product's N = 2 F columns interleave wi_0 and wi_1
 //     by eight; chunk 2c of the tile holds a0 and chunk 2c + 1 a1 of hidden
 //     columns n0 / 2 + 8 c + 2 tig (+1), so the (M, F) fp32 hidden =
 //     gelu(a0) * a1 is written once.
+//   kQkvBf16: the product's N = 3 width columns are q | k | v; the tile's
+//     columns lie in one of them, bf16(acc) is written there.
 template <int EPI>
 struct TmaEpilogue {
   using Args = GemmArgs;
-  static constexpr int CHUNK = 8;
   template <int TILE_N>
   __device__ static void store(const Args& args,
                                const float (&acc)[TILE_N / 2], int row0,
                                int n0) {
     if constexpr (EPI == kResidualBf16) {
       store_residual<TILE_N>(args, acc, row0, n0);
+    } else if constexpr (EPI == kQkvBf16) {
+      store_qkv<TILE_N>(args, acc, row0, n0);
     } else {
       store_hidden<TILE_N>(args, acc, row0, n0);
+    }
+  }
+
+  template <int TILE_N>
+  __device__ static void store_qkv(const Args& args,
+                                   const float (&acc)[TILE_N / 2], int row0,
+                                   int n0) {
+    const int part = n0 / args.width, c0 = n0 - part * args.width;
+    const int tig = threadIdx.x % 4;
+    bf16* out = static_cast<bf16*>(
+        part == 0 ? args.out[0] : (part == 1 ? args.out[1] : args.out[2]));
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      if (row >= args.M) continue;
+#pragma unroll
+      for (int j = 0; j < TILE_N / 8; ++j) {
+        const size_t off =
+            static_cast<size_t>(row) * args.width + c0 + 8 * j + 2 * tig;
+        *reinterpret_cast<__nv_bfloat162*>(out + off) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                  acc[4 * j + 2 * half + 1]);
+      }
     }
   }
 
@@ -200,6 +196,7 @@ struct TmaEpilogue {
   __device__ static void store_residual(const Args& args,
                                         const float (&acc)[TILE_N / 2],
                                         int row0, int n0) {
+    constexpr int CHUNK = 8;  // 8-column chunks read before their stores
     const int M = args.M, N = args.N;
     const int tig = threadIdx.x % 4;
     bf16* out = static_cast<bf16*>(args.out[0]);
@@ -239,41 +236,27 @@ struct TmaEpilogue {
   }
 };
 
-int gemm_bf16(const GemmArgs& args, int products, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(args.N / BN, (args.M + BM - 1) / BM, products);
-  gemm_q8_kernel<<<grid, NT, GEMM_SMEM, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One product on q8_gemm_tma.cuh's loop with epilogue EPI (args' a, a_scale,
-// shape and product 0).
+// One product on q8_gemm_tma.cuh's loop with epilogue EPI.
 template <int EPI>
 int tma_gemm(const GemmArgs& args, cudaStream_t stream) {
   return q8_gemm_tma::gemm<TmaEpilogue<EPI>>(
-      args.a, args.a_scale, args.b[0], args.b_scale[0], args.M, args.K,
-      args.N, args.G, args, stream);
+      args.a, args.a_scale, args.b, args.b_scale, args.M, args.K, args.N,
+      args.G, args, stream);
 }
 
-GemmArgs gemm_args(const void* a, const void* a_scale, int M, int K, int N,
-                   int G) {
+GemmArgs gemm_args(const void* a, const void* a_scale, const void* w,
+                   const void* s, void* out, int M, int K, int N, int G) {
   GemmArgs args{};
   args.a = static_cast<const int8_t*>(a);
   args.a_scale = static_cast<const float*>(a_scale);
+  args.b = static_cast<const int8_t*>(w);
+  args.b_scale = static_cast<const float*>(s);
+  args.out[0] = out;
   args.M = M;
   args.K = K;
   args.N = N;
   args.G = G;
   return args;
-}
-
-void set_product(GemmArgs& args, int z, const void* w, const void* s,
-                 void* out) {
-  args.b[z] = static_cast<const int8_t*>(w);
-  args.b_scale[z] = static_cast<const float*>(s);
-  args.out[z] = out;
 }
 
 }  // namespace
@@ -283,22 +266,26 @@ void set_product(GemmArgs& args, int z, const void* w, const void* s,
 // caller's. Weights come K-major: wq etc. are (N, K), the transpose of the
 // JAX layout's (K, N).
 
-// q, k, v (M, N) bf16 = RMSNorm(x (M, D)) through wq, wk, wv (N, D).
+// q, k, v (M, inner) bf16 = RMSNorm(x (M, D)) through w_qkv (3 inner, D),
+// wq^T, wk^T and wv^T stacked, with s_qkv (G, 3 inner) their scales side by
+// side.
 extern "C" int fused_t5_ln_qkv_q8_launch(
-    const void* x, const void* lnw, const void* wq, const void* sq,
-    const void* wk, const void* sk, const void* wv, const void* sv,
+    const void* x, const void* lnw, const void* w_qkv, const void* s_qkv,
     void* codes, void* row_scales, void* q, void* k, void* v, int M, int D,
-    int N, int G, float eps, void* stream) {
-  if (!shape_ok(M, D, N, G)) return cudaErrorInvalidValue;
+    int inner, int G, float eps, void* stream) {
+  const int N = 3 * inner;
+  if (!shape_ok(M, D, N, G) || inner % q8_gemm_tma::tile_width(N, G) != 0) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = row_quant<bf16, kRms>(x, lnw, nullptr, codes, row_scales, M,
                                   D, G, eps, s);
   if (rc != 0) return rc;
-  GemmArgs args = gemm_args(codes, row_scales, M, D, N, G);
-  set_product(args, 0, wq, sq, q);
-  set_product(args, 1, wk, sk, k);
-  set_product(args, 2, wv, sv, v);
-  return gemm_bf16(args, 3, s);
+  GemmArgs args = gemm_args(codes, row_scales, w_qkv, s_qkv, q, M, D, N, G);
+  args.out[1] = k;
+  args.out[2] = v;
+  args.width = inner;
+  return tma_gemm<kQkvBf16>(args, s);
 }
 
 // out (M, N) bf16 = residual + attn (M, K) through wo (N, K).
@@ -311,8 +298,7 @@ extern "C" int fused_oproj_residual_q8_launch(
   int rc = row_quant<bf16, kNone>(attn, nullptr, nullptr, codes, row_scales,
                                   M, K, G, 0.0f, s);
   if (rc != 0) return rc;
-  GemmArgs args = gemm_args(codes, row_scales, M, K, N, G);
-  set_product(args, 0, wo, so, out);
+  GemmArgs args = gemm_args(codes, row_scales, wo, so, out, M, K, N, G);
   args.residual = static_cast<const bf16*>(residual);
   return tma_gemm<kResidualBf16>(args, s);
 }
@@ -334,16 +320,16 @@ extern "C" int fused_t5_ffn_q8_launch(
   int rc = row_quant<bf16, kRms>(x, lnw, nullptr, codes_in, scales_in, M, D,
                                  G_in, eps, s);
   if (rc != 0) return rc;
-  GemmArgs up = gemm_args(codes_in, scales_in, M, D, n_up, G_in);
-  set_product(up, 0, w01, s01, hidden);
+  GemmArgs up =
+      gemm_args(codes_in, scales_in, w01, s01, hidden, M, D, n_up, G_in);
   rc = gated ? tma_gemm<kGatedGeluHidden>(up, s)
              : tma_gemm<kGeluHidden>(up, s);
   if (rc != 0) return rc;
   rc = row_quant<float, kNone>(hidden, nullptr, nullptr, codes_hid,
                                scales_hid, M, F, G_hid, 0.0f, s);
   if (rc != 0) return rc;
-  GemmArgs down = gemm_args(codes_hid, scales_hid, M, F, D, G_hid);
-  set_product(down, 0, wo, so, out);
+  GemmArgs down =
+      gemm_args(codes_hid, scales_hid, wo, so, out, M, F, D, G_hid);
   down.residual = static_cast<const bf16*>(x);
   return tma_gemm<kResidualBf16>(down, s);
 }

@@ -1,6 +1,7 @@
 // The s8 GEMM main loop on TMA and asynchronous wgmma, for NVIDIA Hopper
-// (sm_90a): the int8 products of fused_oproj_residual_q8 and fused_t5_ffn_q8
-// (csrc/int8_encoder.cu) and of fused_vit_block_q8 and fused_mlp_block_q8
+// (sm_90a): every int8 product of the port, those of fused_t5_ln_qkv_q8,
+// fused_oproj_residual_q8 and fused_t5_ffn_q8 (csrc/int8_encoder.cu) and of
+// fused_qkv_q8, fused_mlp_block_q8 and fused_vit_block_q8
 // (csrc/vit_block_q8.cu).
 //
 //   acc = sum over g, in order, of (float(P_g) * hs_g) * s_g
@@ -8,17 +9,10 @@
 // P_g the exact int32 product of contraction group g of a (M, K) int8
 // activation codes with (M, G) row scales hs and b (N, K) int8 weights
 // (K-major, as int8 wgmma takes both operands) with (G, N) scales s: the
-// same sums, products and order of rounding as q8_gemm.cuh's mainloop (the
-// int32 products are exact, so the order of the k steps does not matter),
-// hence the same bits. Each kernel that includes this file brings its own
-// epilogue, called once a tile with acc in q8_gemm.cuh's fragment layout.
-//
-// Why q8_gemm.cuh's loop runs at a tenth of the int8 peak, from its code:
-// after every 64-deep k step it waits for its products (wait_group 0), so
-// the tensor cores drain; its 256 consumer threads also issue the
-// cp.async copies and meet at a __syncthreads() every step; the no-swizzle
-// layout makes 4-way bank conflicts on every fill; and each block pays its
-// own prologue and epilogue for one 128 x 128 tile.
+// plain versions' sums, products and order of rounding (the int32 products
+// are exact, so the order of the k steps does not matter), hence their
+// bits. Each kernel that includes this file brings its own epilogue,
+// called once a tile with acc in q8_gemm.cuh's fragment layout.
 //
 // Design (the hopper-kernels guide's fast shape):
 //   grid      persistent: one block an SM walks over the output tiles, N
@@ -97,15 +91,34 @@ struct Problem {
   int M, K, N, G;
 };
 
-// d (+)= A . B^T for a 64 x 128 x 32 step of a warpgroup
-__device__ inline void wgmma_s8(int (&d)[64], uint64_t desc_a,
-                                uint64_t desc_b, int accumulate) {
-  q8_gemm::wgmma_s8_m64n128k32(d, desc_a, desc_b, accumulate);
+// The columns of the tiles the loop takes for N columns in G groups: 256
+// with one group where N allows, else 128 (see gemm below).
+inline int tile_width(int N, int G) {
+  return G == 1 && N % 256 == 0 ? 256 : 128;
 }
 
 #define Q8_TMA_D8(i)                                                     \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),            \
       "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (+)= A . B^T for a 64 x 128 x 32 step of a warpgroup: int8 in, int32
+// accumulate (exact); d is overwritten when accumulate is 0
+__device__ inline void wgmma_s8(int (&d)[64], uint64_t desc_a,
+                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : Q8_TMA_D8(0), Q8_TMA_D8(8), Q8_TMA_D8(16), Q8_TMA_D8(24),
+        Q8_TMA_D8(32), Q8_TMA_D8(40), Q8_TMA_D8(48), Q8_TMA_D8(56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 
 // d (+)= A . B^T for a 64 x 256 x 32 step of a warpgroup: int8 in, int32
 // accumulate (exact); d is overwritten when accumulate is 0
@@ -135,9 +148,9 @@ __device__ inline void wgmma_s8(int (&d)[128], uint64_t desc_a,
 
 #undef Q8_TMA_D8
 
-// acc (+)= (float(d) * hs_g) * s_g for group g, the same operations as
-// q8_gemm::mainloop's fold (acc is set, not added to, at g = 0); row0 is
-// the thread's first fragment row, n0 the tile's first column.
+// acc (+)= (float(d) * hs_g) * s_g for group g (acc is set, not added to,
+// at g = 0); row0 is the thread's first fragment row, n0 the tile's first
+// column.
 template <bool FIRST, int ACC>
 __device__ inline void fold(const Problem& p, const int (&d)[ACC],
                             float (&acc)[ACC], int row0, int n0, int g) {
@@ -364,7 +377,7 @@ int gemm(const void* a, const void* a_scale, const void* b,
   if (!q8_gemm::shape_ok(M, K, N, G)) return cudaErrorInvalidValue;
   const Problem p{static_cast<const float*>(a_scale),
                   static_cast<const float*>(b_scale), M, K, N, G};
-  const bool wide = N % 256 == 0;
+  const bool wide = tile_width(N, G) == 256;
   if constexpr (!ANY_GROUPS) {
     if (G != 1 || K % 128 != 0) return cudaErrorInvalidValue;
     return wide ? launch<256, 128, 1, Epi>(a, b, p, args, stream)

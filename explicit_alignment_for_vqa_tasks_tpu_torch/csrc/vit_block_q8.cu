@@ -52,23 +52,22 @@
 //                       attention = 0.008 ms; 164 MB = 0.049 ms
 // All are bound by operations; the encoders run each once per layer.
 //
-// Design, from q8_gemm.cuh's two kernels and q8_gemm_tma.cuh's loop:
+// Design, from q8_gemm.cuh's row_quant and q8_gemm_tma.cuh's loop (TMA, a
+// producer warpgroup, wgmma kept in flight, a persistent grid; 128 x 256
+// tiles where the width allows, else 128 x 128):
 //   fused_qkv_q8: row_quant with the LayerNorm in front (one block per row,
-//     the fp32 row in shared memory), then one s8 wgmma GEMM on
-//     q8_gemm.cuh's loop with N = 3 D over the K-major (3 D, D) weight
-//     whose epilogue adds the column's bias, scales the q columns and
-//     writes each 128-wide column tile into q, k or v.
+//     the fp32 row in shared memory), then one s8 GEMM with N = 3 D over the
+//     K-major (3 D, D) weight whose epilogue adds the column's bias, scales
+//     the q columns and writes each column tile into q, k or v (a tile never
+//     straddles two of them: the launcher asks that its width divide D).
 //   fused_mlp_block_q8: row_quant + LayerNorm; the up GEMM (N = F) with the
 //     bias-then-quickGELU epilogue writing the fp32 hidden; row_quant of the
 //     hidden over its whole 4096-wide row (16 KB of shared memory); the
 //     down GEMM (K = F, one contraction group: 4096 x 127^2 is far inside
-//     int32) with the bias-then-residual epilogue. Both GEMMs run on
-//     q8_gemm_tma.cuh's main loop (TMA, a producer warpgroup, wgmma kept in
-//     flight, a persistent grid; 128 x 256 tiles where F allows, else 128 x
-//     128). The fp32 hidden makes one round trip through device memory
-//     (2.42 GB at the main shape) where the Pallas program keeps it in
-//     VMEM: its scale is the amax of the whole F-wide row, which no tile
-//     sees. Computing the up-product twice instead (partial amaxes per
+//     int32) with the bias-then-residual epilogue. The fp32 hidden makes
+//     one round trip through device memory (2.42 GB at the main shape)
+//     where the Pallas program keeps it in VMEM: its scale is the amax of
+//     the whole F-wide row, which no tile sees. Computing the up-product twice instead (partial amaxes per
 //     column tile, then the codes) lost on an H100: the epilogue's
 //     quickGELU, not the hidden's bytes, bounds each up-pass while the
 //     epilogue does not overlap the products (PERF.md has the runs).
@@ -76,11 +75,10 @@
 //     GEMM; the attention with an fp32 output; row_quant of that output;
 //     the out-projection GEMM whose residual epilogue writes the fp32 r1;
 //     then row_quant's LayerNorm over r1, the up GEMM, row_quant of the
-//     hidden and the down GEMM adding r1. Its four GEMMs run on
-//     q8_gemm_tma.cuh's main loop with the epilogues below. The codes, row
-//     scales, q, k, v, attention output, r1 and hidden each make one round
-//     trip through device memory (no SM holds the block's 7.1 MB of int8
-//     weights).
+//     hidden and the down GEMM adding r1, each with its epilogue below.
+//     The codes, row scales, q, k, v, attention output, r1 and hidden each
+//     make one round trip through device memory (no SM holds the block's
+//     7.1 MB of int8 weights).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,8 +94,7 @@ namespace {
 
 using namespace q8_gemm;
 
-// The epilogues of the products on q8_gemm_tma.cuh (TmaEpilogue); kQkv is
-// also vit_gemm_q8_kernel's.
+// The epilogues of the products on q8_gemm_tma.cuh (TmaEpilogue).
 enum Epilogue : int { kQkv = 0, kQuickGeluF32 = 1, kResidual = 2 };
 
 struct GemmArgs {
@@ -151,47 +148,6 @@ __device__ inline void store2(bf16* p, float v0, float v1) {
 }
 __device__ inline void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-
-// q, k, v = the kQkv epilogue of the 128 x 128 tile (blockIdx.y, blockIdx.x)
-// on q8_gemm.cuh's loop.
-__global__ void __launch_bounds__(NT) vit_gemm_q8_kernel(const GemmArgs args) {
-  extern __shared__ __align__(128) int8_t smem[];
-  const int M = args.M, N = args.N;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int tig = threadIdx.x % 4;
-  const int row0 = fragment_row0(m0);
-  float acc[64];
-  mainloop(smem, args.a, args.a_scale, args.b, args.b_scale, M, args.K, N, 1,
-           m0, n0, acc);
-
-  // the tile's 128 columns lie in one of q, k, v (D % 128 == 0)
-  const int part = n0 / args.D;
-  const int c0 = n0 - part * args.D;
-  // two consecutive columns of rows row0 and row0 + 8 per n8 chunk
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + 8 * half;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + 8 * j + 2 * tig;
-      const __nv_bfloat162 bv =
-          *reinterpret_cast<const __nv_bfloat162*>(args.bias + col);
-      float v0 = __fadd_rn(acc[4 * j + 2 * half], __low2float(bv));
-      float v1 = __fadd_rn(acc[4 * j + 2 * half + 1], __high2float(bv));
-      const size_t off =
-          static_cast<size_t>(row) * args.D + c0 + 8 * j + 2 * tig;
-      if (part == 0) {
-        v0 = __fmul_rn(v0, args.scale);
-        v1 = __fmul_rn(v1, args.scale);
-      }
-      bf16* out = static_cast<bf16*>(
-          part == 0 ? args.out[0] : (part == 1 ? args.out[1] : args.out[2]));
-      *reinterpret_cast<__nv_bfloat162*>(out + off) =
-          __floats2bfloat162_rn(v0, v1);
-    }
-  }
 }
 
 // The epilogues over q8_gemm_tma.cuh's main loop, in the Pallas kernels'
@@ -327,15 +283,9 @@ int tma_gemm(const GemmArgs& args, cudaStream_t stream) {
       args, stream);
 }
 
-// fused_qkv_q8's product on q8_gemm.cuh's loop.
-int qkv_gemm(const GemmArgs& args, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      vit_gemm_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      GEMM_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(args.N / BN, (args.M + BM - 1) / BM, 1);
-  vit_gemm_q8_kernel<<<grid, NT, GEMM_SMEM, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
+// D splits the q | k | v product's column tiles into q, k and v.
+bool qkv_tiles_ok(int D) {
+  return D % q8_gemm_tma::tile_width(3 * D, 1) == 0;
 }
 
 GemmArgs gemm_args(const void* a, const void* a_scale, const void* w,
@@ -367,7 +317,9 @@ extern "C" int fused_qkv_q8_launch(const void* x, const void* ln_s,
                                    void* codes, void* row_scales, void* q,
                                    void* k, void* v, int M, int D,
                                    float scale, float eps, void* stream) {
-  if (!shape_ok(M, D, 3 * D, 1)) return cudaErrorInvalidValue;
+  if (!shape_ok(M, D, 3 * D, 1) || !qkv_tiles_ok(D)) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = row_quant<bf16, kLayer>(x, ln_s, ln_b, codes, row_scales, M, D, 1,
                                    eps, s);
@@ -379,7 +331,7 @@ extern "C" int fused_qkv_q8_launch(const void* x, const void* ln_s,
   args.out[2] = v;
   args.scale = scale;
   args.D = D;
-  return qkv_gemm(args, s);
+  return tma_gemm<kQkv>(args, s);
 }
 
 // out (M, D) bf16 = x + MLP(LN(x)) for x (M, D); w_fc (F, D) and w_proj
@@ -437,7 +389,7 @@ extern "C" int fused_vit_block_q8_launch(
     void* stream) {
   const int M = B * L, D = H * dh;
   if (!vit_attention::shape_ok(B, L, H) || !shape_ok(M, D, 3 * D, 1) ||
-      !shape_ok(M, D, F, 1) || !shape_ok(M, F, D, 1)) {
+      !qkv_tiles_ok(D) || !shape_ok(M, D, F, 1) || !shape_ok(M, F, D, 1)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

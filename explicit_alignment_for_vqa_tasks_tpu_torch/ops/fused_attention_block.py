@@ -53,7 +53,7 @@ at the end.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -275,6 +275,16 @@ def _as_group_scales(s: torch.Tensor) -> torch.Tensor:
     return s.reshape(1, -1) if s.dim() == 1 else s
 
 
+def _record_codes(codes_out: Optional[dict], prefix: str,
+                  parts: list) -> None:
+    """With ``codes_out`` given, set its ``<prefix>codes`` (rows, K) int8
+    and ``<prefix>scales`` (rows, G) fp32 to the quantization ``parts``,
+    joined as the kernels' scratch holds them."""
+    if codes_out is not None:
+        codes_out[prefix + "codes"] = torch.cat([q for q, _ in parts], dim=1)
+        codes_out[prefix + "scales"] = torch.cat([s for _, s in parts], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # int8 T5 encoder: plain versions
 # ---------------------------------------------------------------------------
@@ -286,13 +296,16 @@ def fused_t5_ln_qkv_q8_plain(
     wk: torch.Tensor, sk: torch.Tensor,
     wv: torch.Tensor, sv: torch.Tensor,
     eps: float = 1e-6,
+    *, codes_out: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """RMSNorm, one per-(row, group) quantization shared by Q, K and V,
-    three grouped int8 products; (q, k, v) in x.dtype."""
+    three grouped int8 products; (q, k, v) in x.dtype. ``codes_out``, when
+    given, receives that quantization's ``codes`` and ``scales``."""
     batch, seq, d_model = x.shape
     g_in = _as_group_scales(sq).shape[0]
     h = _rms_norm_f32(x.reshape(-1, d_model).float(), ln_weight, eps)
     parts = _group_quant_rows_i8(h, g_in)
+    _record_codes(codes_out, "", parts)
     return tuple(
         _mm_q8_grouped(parts, w, _as_group_scales(s))
         .reshape(batch, seq, -1).to(x.dtype)
@@ -321,17 +334,23 @@ def fused_t5_ffn_q8_plain(
     wi_1: Optional[torch.Tensor], s_1: Optional[torch.Tensor],  # gate or None
     wo: torch.Tensor, s_o: torch.Tensor,         # int8 (F, D) + f32 (G', D)
     eps: float = 1e-6,
+    *, codes_out: Optional[dict] = None,
 ) -> torch.Tensor:
     """x + FFN(RMSNorm(x)): wi_0 and wi_1 share one activation
     quantization; the hidden gelu(a0) * a1 stays fp32 and is requantized
-    with the g_hid groups of s_o before wo."""
+    with the g_hid groups of s_o before wo. ``codes_out``, when given,
+    receives the input's ``codes`` and ``scales`` and the hidden's
+    ``hidden_codes`` and ``hidden_scales``."""
     batch, seq, d_model = x.shape
     s_0, s_o = _as_group_scales(s_0), _as_group_scales(s_o)
     x32 = x.reshape(-1, d_model).float()
     parts = _group_quant_rows_i8(_rms_norm_f32(x32, ln_weight, eps),
                                  s_0.shape[0])
     hid = _t5_ffn_q8_hidden(parts, wi_0, s_0, wi_1, s_1)
-    y = _mm_q8_grouped(_group_quant_rows_i8(hid, s_o.shape[0]), wo, s_o)
+    hid_parts = _group_quant_rows_i8(hid, s_o.shape[0])
+    _record_codes(codes_out, "", parts)
+    _record_codes(codes_out, "hidden_", hid_parts)
+    y = _mm_q8_grouped(hid_parts, wo, s_o)
     return (x32 + y).reshape(x.shape).to(x.dtype)
 
 
@@ -407,6 +426,18 @@ def _k_major(w: torch.Tensor) -> torch.Tensor:
     return w.t().contiguous()
 
 
+def _k_major_stacked(ws: Sequence[torch.Tensor],
+                     ss: Sequence[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Products of one input as ONE K-major (sum N, K) weight, the (K, N)
+    weights' transposes stacked in order, with their (G, N) scales side by
+    side as (G, sum N): the kernel's column tile n0 of the stacked product
+    is column n0 - offset of the product it falls in. One copy a call, as
+    _k_major's."""
+    return (torch.cat([w.t() for w in ws]).contiguous(),
+            torch.cat(list(ss), dim=1).contiguous())
+
+
 # rows of each gate weight that alternate in the gated FFN's up-product: one
 # 8-column chunk of the s8 loop's fragment layout
 GATE_INTERLEAVE = 8
@@ -447,13 +478,16 @@ def fused_t5_ln_qkv_q8(
     wk: torch.Tensor, sk: torch.Tensor,
     wv: torch.Tensor, sv: torch.Tensor,
     eps: float = 1e-6,
+    *, codes_out: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """RMS-norm + the three int8 T5 attention input projections. CPU
     tensors take the plain version; CUDA tensors launch the kernel
-    (``fused_t5_ln_qkv_q8.launches`` counts those calls) or raise."""
+    (``fused_t5_ln_qkv_q8.launches`` counts those calls) or raise.
+    ``codes_out``, when given, receives the activation ``codes`` and
+    ``scales`` (the kernel's scratch), as the plain version's does."""
     if x.device.type == "cpu":
         return fused_t5_ln_qkv_q8_plain(x, ln_weight, wq, sq, wk, sk, wv, sv,
-                                        eps)
+                                        eps, codes_out=codes_out)
     op = "fused_t5_ln_qkv_q8"
     sq, sk, sv = (_as_group_scales(s) for s in (sq, sk, sv))
     _check_tensors(
@@ -474,14 +508,15 @@ def fused_t5_ln_qkv_q8(
     row_scales = torch.empty((rows, groups), dtype=_F32, device=x.device)
     q, k, v = (torch.empty((batch, seq, inner), dtype=_BF16, device=x.device)
                for _ in range(3))
-    wq, wk, wv = (_k_major(w) for w in (wq, wk, wv))
-    _run(op, _launcher_of("int8_encoder", op, 13, 4, 1),
-         x.data_ptr(), ln_weight.data_ptr(), wq.data_ptr(), sq.data_ptr(),
-         wk.data_ptr(), sk.data_ptr(), wv.data_ptr(), sv.data_ptr(),
-         codes.data_ptr(), row_scales.data_ptr(), q.data_ptr(), k.data_ptr(),
-         v.data_ptr(), rows, d_model, inner, groups, eps,
-         torch.cuda.current_stream(x.device).cuda_stream)
+    w_qkv, s_qkv = _k_major_stacked((wq, wk, wv), (sq, sk, sv))
+    _run(op, _launcher_of("int8_encoder", op, 9, 4, 1),
+         x.data_ptr(), ln_weight.data_ptr(), w_qkv.data_ptr(),
+         s_qkv.data_ptr(), codes.data_ptr(), row_scales.data_ptr(),
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), rows, d_model, inner,
+         groups, eps, torch.cuda.current_stream(x.device).cuda_stream)
     fused_t5_ln_qkv_q8.launches += 1
+    if codes_out is not None:
+        codes_out.update(codes=codes, scales=row_scales)
     return q, k, v
 
 
@@ -527,13 +562,15 @@ def fused_t5_ffn_q8(
     wi_1: Optional[torch.Tensor], s_1: Optional[torch.Tensor],
     wo: torch.Tensor, s_o: torch.Tensor,
     eps: float = 1e-6,
+    *, codes_out: Optional[dict] = None,
 ) -> torch.Tensor:
     """x + FFN(RMSNorm(x)) with every product int8 (gated when wi_1 is
     given). CPU tensors take the plain version; CUDA tensors launch the
-    kernel (``fused_t5_ffn_q8.launches``) or raise."""
+    kernel (``fused_t5_ffn_q8.launches``) or raise. ``codes_out``, when
+    given, receives the plain version's keys from the kernel's scratch."""
     if x.device.type == "cpu":
         return fused_t5_ffn_q8_plain(x, ln_weight, wi_0, s_0, wi_1, s_1, wo,
-                                     s_o, eps)
+                                     s_o, eps, codes_out=codes_out)
     op = "fused_t5_ffn_q8"
     gated = wi_1 is not None
     s_0, s_o = _as_group_scales(s_0), _as_group_scales(s_o)
@@ -582,6 +619,9 @@ def fused_t5_ffn_q8(
          rows, d_model, d_ff, int(gated), g_in, g_hid, eps,
          torch.cuda.current_stream(dev).cuda_stream)
     fused_t5_ffn_q8.launches += 1
+    if codes_out is not None:
+        codes_out.update(codes=codes_in, scales=scales_in,
+                         hidden_codes=codes_hid, hidden_scales=scales_hid)
     return out
 
 
@@ -1072,14 +1112,18 @@ def fused_qkv_q8_plain(
     b_qkv: torch.Tensor,         # (3D,)
     scale: float,
     eps: float = 1e-5,
+    *, codes_out: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(q * scale, k, v) in x.dtype: the fp32 LayerNorm ``h`` (never rounded
     to bf16), one per-row quantization of it, one int8 product with the
     concatenated weight, ``(acc * hs) * s + b``, q times the fp32 scale, one
-    cast at the end."""
+    cast at the end. ``codes_out``, when given, receives that
+    quantization's ``codes`` and ``scales``."""
     batch, seq, d_model = x.shape
     h = _ln_f32(x.reshape(-1, d_model).float(), ln_scale, ln_bias, eps)
-    qkv = _mm_q8_grouped([_row_quant_i8(h)], w_qkv, _as_group_scales(s_qkv)) \
+    parts = [_row_quant_i8(h)]
+    _record_codes(codes_out, "", parts)
+    qkv = _mm_q8_grouped(parts, w_qkv, _as_group_scales(s_qkv)) \
         + b_qkv.float()
     q = qkv[:, :d_model] * scale
     return tuple(t.reshape(batch, seq, d_model).to(x.dtype) for t in (
@@ -1092,18 +1136,24 @@ def fused_mlp_block_q8_plain(
     w_fc: torch.Tensor, s_fc: torch.Tensor, b_fc: torch.Tensor,  # (D, F)
     w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
     eps: float = 1e-5,
+    *, codes_out: Optional[dict] = None,
 ) -> torch.Tensor:
     """x + MLP(LN(x)) with both products int8: the fp32 LayerNorm quantized
     per row, ``hid = (acc * hs) * s_fc + b_fc``, fp32 quickGELU, the fp32
     hidden requantized per row over its whole width, ``(acc * gs) * s_proj
-    + b_proj``, the fp32 residual, one cast at the end."""
+    + b_proj``, the fp32 residual, one cast at the end. ``codes_out``, when
+    given, receives the LayerNorm's ``codes`` and ``scales`` and the
+    hidden's ``hidden_codes`` and ``hidden_scales``."""
     d_model = x.shape[-1]
     x32 = x.reshape(-1, d_model).float()
     h = _ln_f32(x32, ln_scale, ln_bias, eps)
-    hid = _mm_q8_grouped([_row_quant_i8(h)], w_fc, _as_group_scales(s_fc)) \
-        + b_fc.float()
+    parts = [_row_quant_i8(h)]
+    hid = _mm_q8_grouped(parts, w_fc, _as_group_scales(s_fc)) + b_fc.float()
     hid = hid * torch.sigmoid(QUICK_GELU_ALPHA * hid)
-    y = _mm_q8_grouped([_row_quant_i8(hid)], w_proj,
+    hid_parts = [_row_quant_i8(hid)]
+    _record_codes(codes_out, "", parts)
+    _record_codes(codes_out, "hidden_", hid_parts)
+    y = _mm_q8_grouped(hid_parts, w_proj,
                        _as_group_scales(s_proj)) + b_proj.float()
     return (x32 + y).reshape(x.shape).to(x.dtype)
 
@@ -1123,15 +1173,17 @@ def fused_qkv_q8(
     w_qkv: torch.Tensor, s_qkv: torch.Tensor, b_qkv: torch.Tensor,
     scale: float,
     eps: float = 1e-5,
+    *, codes_out: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """LayerNorm + the concatenated int8 q | k | v product; returns (q *
     scale, k, v), each (B, L, D) in x.dtype. CPU tensors take the plain
     version; CUDA tensors launch the kernel (``fused_qkv_q8.launches``) or
-    raise."""
+    raise. ``codes_out``, when given, receives the activation ``codes`` and
+    ``scales`` (the kernel's scratch), as the plain version's does."""
     op = "fused_qkv_q8"
     if x.device.type == "cpu":
         return fused_qkv_q8_plain(x, ln_scale, ln_bias, w_qkv, s_qkv, b_qkv,
-                                  scale, eps)
+                                  scale, eps, codes_out=codes_out)
     batch, seq, d_model = x.shape
     s_qkv = _check_vit_q8_product(op, "w_qkv", w_qkv, s_qkv, d_model)
     _check_tensors(op, x.device,
@@ -1156,6 +1208,8 @@ def fused_qkv_q8(
          v.data_ptr(), rows, d_model, scale, eps,
          torch.cuda.current_stream(dev).cuda_stream)
     fused_qkv_q8.launches += 1
+    if codes_out is not None:
+        codes_out.update(codes=codes, scales=row_scales)
     return q, k, v
 
 
@@ -1165,14 +1219,17 @@ def fused_mlp_block_q8(
     w_fc: torch.Tensor, s_fc: torch.Tensor, b_fc: torch.Tensor,
     w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
     eps: float = 1e-5,
+    *, codes_out: Optional[dict] = None,
 ) -> torch.Tensor:
     """x + MLP(LN(x)) with quickGELU and both products int8. CPU tensors
     take the plain version; CUDA tensors launch the kernel
-    (``fused_mlp_block_q8.launches``) or raise."""
+    (``fused_mlp_block_q8.launches``) or raise. ``codes_out``, when given,
+    receives the plain version's keys from the kernel's scratch."""
     op = "fused_mlp_block_q8"
     if x.device.type == "cpu":
         return fused_mlp_block_q8_plain(x, ln_scale, ln_bias, w_fc, s_fc,
-                                        b_fc, w_proj, s_proj, b_proj, eps)
+                                        b_fc, w_proj, s_proj, b_proj, eps,
+                                        codes_out=codes_out)
     batch, seq, d_model = x.shape
     d_ff = w_fc.shape[-1]
     s_fc = _check_vit_q8_product(op, "w_fc", w_fc, s_fc, d_model)
@@ -1207,6 +1264,9 @@ def fused_mlp_block_q8(
          rows, d_model, d_ff, eps,
          torch.cuda.current_stream(dev).cuda_stream)
     fused_mlp_block_q8.launches += 1
+    if codes_out is not None:
+        codes_out.update(codes=codes_in, scales=scales_in,
+                         hidden_codes=codes_hid, hidden_scales=scales_hid)
     return out
 
 

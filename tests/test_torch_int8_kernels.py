@@ -563,6 +563,72 @@ def test_tilewise_gated_product_gives_the_plain_hidden(groups, tile):
     assert torch.equal(got, want)
 
 
+# --- q/k/v as one stacked product (csrc/int8_encoder.cu) --------------------
+
+def qkv_tilewise(acc: torch.Tensor, inner: int, tile: int) -> list:
+    """The kernel's q | k | v epilogue in plain PyTorch: ``acc`` is the (M,
+    3 inner) product over the stacked weight; each tile of ``tile`` columns
+    goes, cast to bf16, to the one of q, k, v its first column falls in, at
+    column n0 - part * inner."""
+    outs = [torch.empty(acc.shape[0], inner, dtype=torch.bfloat16)
+            for _ in range(3)]
+    for n0 in range(0, acc.shape[1], tile):
+        part = n0 // inner
+        c0 = n0 - part * inner
+        outs[part][:, c0:c0 + tile] = acc[:, n0:n0 + tile].bfloat16()
+    return outs
+
+
+@pytest.mark.parametrize("groups,tile", [(1, 256), (2, 128), (8, 128)])
+def test_tilewise_stacked_qkv_gives_the_plain_projections(groups, tile):
+    """The wrapper's K-major (3 inner, D) q | k | v weight and (G, 3 inner)
+    scales, the product taken tile by tile as the kernel's epilogue routes
+    it (128 x 256 tiles for one group, else 128 x 128), give
+    fused_t5_ln_qkv_q8_plain's q, k and v bit for bit."""
+    inp = case_inputs("qkv", groups, seed=7)
+    stages, prods, _ = port_stages("qkv", inp, "bfloat16")
+    w_qkv, s_qkv = tfab._k_major_stacked([w for w, _ in prods],
+                                         [s for _, s in prods])
+    inner, d_model = prods[0][0].shape[1], prods[0][0].shape[0]
+    assert w_qkv.shape == (3 * inner, d_model) and w_qkv.is_contiguous()
+    assert s_qkv.shape == (groups, 3 * inner) and s_qkv.is_contiguous()
+    assert inner % tile == 0
+    got = qkv_tilewise(tfab._mm_q8_grouped(stages[0][1], w_qkv.t(), s_qkv),
+                       inner, tile)
+    x = torch.from_numpy(inp["x"]).bfloat16()
+    want = tfab.fused_t5_ln_qkv_q8_plain(
+        x, torch.from_numpy(inp["lnw"]).bfloat16(),
+        *(t for prod in prods for t in prod), EPS)
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(w.shape), w)
+
+
+@pytest.mark.parametrize("op", ["qkv", "ffn_gated"])
+def test_codes_out_holds_the_plain_quantizations(op):
+    """codes_out, through the wrapper on CPU tensors: the activation codes
+    and (row, group) scales of each quantization stage, joined over the
+    groups as the kernel's scratch holds them."""
+    inp = case_inputs(op, 2, seed=8)
+    stages, _, _ = port_stages(op, inp, "bfloat16")
+    codes_out = {}
+    flat = [None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+            for q, s in inp["prods"] for a in (q, s)]
+    x = torch.from_numpy(inp["x"]).bfloat16()
+    getattr(tfab, WRAPPER[op])(x, torch.from_numpy(inp["lnw"]).bfloat16(),
+                               *flat, EPS, codes_out=codes_out)
+    prefixes = ["", "hidden_"][:len(stages)]
+    assert sorted(codes_out) == sorted(p + k for p in prefixes
+                                       for k in ("codes", "scales"))
+    for prefix, (h, parts) in zip(prefixes, stages):
+        codes, scales = codes_out[prefix + "codes"], codes_out[prefix + "scales"]
+        assert codes.dtype == torch.int8 and codes.shape == h.shape
+        assert scales.shape == (h.shape[0], len(parts))
+        for g, (q, hs) in enumerate(parts):
+            kg = q.shape[1]
+            assert torch.equal(codes[:, g * kg:(g + 1) * kg], q)
+            assert torch.equal(scales[:, g:g + 1], hs)
+
+
 # --- on the card: the CUDA kernels against the plain versions --------------
 
 def cuda_case(op, rows, groups, d_model=2048, d_ff=5120, seed=0):
@@ -699,6 +765,48 @@ def test_cuda_ffn_q8_equals_plain(rows, gated, g_in, g_hid):
     assert tfab.fused_t5_ffn_q8.launches == before + 1
     want = tfab.fused_t5_ffn_q8_plain(*args, eps=eps)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def exact_qkv_case(rows: int, d_model: int, inner: int, groups: int,
+                   seed: int = 0):
+    """fused_t5_ln_qkv_q8's arguments on rows of exact_norm_rows, bf16,
+    weights from the port's quantizer: (the arguments, eps)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def quant():
+        w = torch.randn((1, d_model, inner), generator=gen,
+                        device="cuda") * d_model ** -0.5
+        q, s = _quant_stacked_i8(w, groups)
+        return q[0], s[0]
+
+    x, eps = exact_norm_rows(gen, rows, d_model)
+    lnw = (1 + 0.1 * torch.randn(d_model, generator=gen, device="cuda")
+           ).bfloat16()
+    return (x[None].bfloat16(), lnw, *quant(), *quant(), *quant()), eps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,inner,groups", [
+    (2048, 2048, 8), (2048, 2048, 1), (512, 512, 8), (1024, 640, 1)])
+@pytest.mark.parametrize("rows", [64, 157])
+def test_cuda_qkv_q8_equals_plain(rows, d_model, inner, groups):
+    """fused_t5_ln_qkv_q8 bit-equal to its plain version (rtol = atol = 0)
+    on inputs whose RMSNorm is exact in any order (exact_norm_rows): a
+    ragged row tile; T0-3B's 8 groups of 256 (128 x 128 tiles, two int32
+    sets), one group (128 x 256 tiles), groups of 64 bytes (64-byte k
+    steps), and one group over an inner width of 640 (128 x 128 tiles, one
+    set), each column tile routed into q, k or v."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, eps = exact_qkv_case(rows, d_model, inner, groups)
+    fn = tfab.fused_t5_ln_qkv_q8
+    before = fn.launches
+    got = fn(*args, eps=eps)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = tfab.fused_t5_ln_qkv_q8_plain(*args, eps=eps)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 # --- the T5 weight quantizer ------------------------------------------------

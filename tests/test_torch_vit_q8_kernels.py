@@ -109,13 +109,33 @@ def run_attention(fn, qkv, dtype, **kw):
     return out.float().numpy()
 
 
-def jax_attention(qkv, dtype, **kw):
+# XLA's CPU compiler hands the interpret-mode kernel's dots to YNNPACK by
+# default (its xla_cpu_experimental_ynn_fusion_type). Those kernels are
+# where the reference parts from the Pallas kernel's plain fp32 order: with
+# them a few outputs near zero, whose bf16 ulp is far below the sums'
+# rounding, sit a full ulp from the port's (2 of 25,216 at seed 0), and
+# other YNNPACK fusion settings of the same program put outputs 2 ulps
+# apart. Compiled without them the reference runs XLA's own emitters and
+# equals the port in every output. fast_exp keeps the default compilation:
+# the port's "fast_exp" order follows the default's exponential (XLA keeps
+# the fp32 value it rounds to bf16 only for PV).
+PLAIN_XLA = {"xla_cpu_experimental_ynn_fusion_type": ""}
+
+
+def jax_attention_core(args, heads, **kw):
+    """The JAX package's attention_core in interpret mode on jax arrays,
+    compiled with PLAIN_XLA unless ``fast_exp``."""
     jfab = jax_fab()
+    options = None if kw.get("fast_exp") else PLAIN_XLA
+    return jfab.attention_core.lower(*args, heads, interpret=True, **kw) \
+        .compile(compiler_options=options)(*args)
+
+
+def jax_attention(qkv, dtype, **kw):
     import jax.numpy as jnp
 
     jd = getattr(jnp, dtype)
-    out = jfab.attention_core(*(jnp.asarray(a, jd) for a in qkv), HEADS,
-                              interpret=True, **kw)
+    out = jax_attention_core([jnp.asarray(a, jd) for a in qkv], HEADS, **kw)
     return np.asarray(out.astype(jnp.float32))
 
 
@@ -171,15 +191,15 @@ EDGE_HEADS = 2
 @pytest.mark.parametrize("seq", [1, 65])
 def test_attention_core_plain_matches_pallas_kernel_at_edges(seq, head_dim,
                                                              fast_exp):
-    jfab = jax_fab()
+    jax_fab()
     import jax.numpy as jnp
 
     rng = np.random.default_rng(seq + head_dim)
     qkv = [normal(rng, BATCH, seq, EDGE_HEADS * head_dim, scale=s)
            for s in (0.5, 2.0, 1.0)]
-    want = np.asarray(jfab.attention_core(
-        *(jnp.asarray(a, jnp.bfloat16) for a in qkv), EDGE_HEADS,
-        fast_exp=fast_exp, interpret=True).astype(jnp.float32))
+    want = np.asarray(jax_attention_core(
+        [jnp.asarray(a, jnp.bfloat16) for a in qkv], EDGE_HEADS,
+        fast_exp=fast_exp).astype(jnp.float32))
     got = tfab.attention_core_plain(
         *(torch.from_numpy(a).bfloat16() for a in qkv), EDGE_HEADS,
         fast_exp=fast_exp)
@@ -448,6 +468,24 @@ def test_wrapper_takes_plain_version_on_cpu(name):
     assert fn.launches == before
 
 
+@pytest.mark.parametrize("op", Q8_OPS)
+def test_codes_out_holds_the_plain_quantizations(op):
+    """codes_out, through the wrapper on CPU tensors: the LayerNorm's codes
+    and row scales, and for the MLP the hidden's, as port_stages computes
+    them."""
+    inp = q8_inputs(op, seed=2)
+    codes_out = {}
+    getattr(tfab, op)(*port_args(op, inp, "bfloat16"), eps=EPS,
+                      codes_out=codes_out)
+    stages = port_stages(op, inp, "bfloat16")
+    prefixes = ["", "hidden_"][:len(stages)]
+    assert sorted(codes_out) == sorted(p + k for p in prefixes
+                                       for k in ("codes", "scales"))
+    for prefix, (_, hq, hs) in zip(prefixes, stages):
+        assert torch.equal(codes_out[prefix + "codes"], hq)
+        assert torch.equal(codes_out[prefix + "scales"], hs)
+
+
 def test_library_paths_cover_the_int8_header():
     names = {name: [p.name for p in kernels.included_files(name)]
              for name in ("int8_encoder", "vit_block_q8")}
@@ -563,6 +601,45 @@ def test_cuda_mlp_q8_equals_plain(rows, d_model, d_ff):
     assert tfab.fused_mlp_block_q8.launches == before + 1
     want = tfab.fused_mlp_block_q8_plain(*args, eps=eps)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def exact_qkv_case(rows: int, d_model: int, seed: int = 0):
+    """fused_qkv_q8's arguments on rows of exact_norm_rows (whose LayerNorm
+    is exact in any order), bf16, the weight from the port's
+    quantize_weight_i8, random LayerNorm parameters and biases, 64-wide
+    heads' q scale; and eps."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x, eps = exact_norm_rows(gen, rows, d_model)
+    qkv = tfab.quantize_weight_i8(randn(d_model, 3 * d_model,
+                                        scale=d_model ** -0.5))
+    return (x[None].bfloat16(), (1 + randn(d_model, scale=0.1)).bfloat16(),
+            randn(d_model, scale=0.1).bfloat16(), *qkv,
+            randn(3 * d_model, scale=0.1).bfloat16(), 64 ** -0.5), eps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model", [1024, 640])
+@pytest.mark.parametrize("rows", [64, 157])
+def test_cuda_qkv_q8_equals_plain(rows, d_model):
+    """fused_qkv_q8 bit-equal to its plain version (rtol = atol = 0) on
+    inputs whose LayerNorm is exact in any order: a ragged row tile, and
+    ViT-L's D = 1024 (3 D in 128 x 256 tiles) or D = 640 (3 D not a
+    multiple of 256: 128 x 128 tiles), each column tile routed into q, k or
+    v."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, eps = exact_qkv_case(rows, d_model)
+    before = tfab.fused_qkv_q8.launches
+    got = tfab.fused_qkv_q8(*args, eps=eps)
+    torch.cuda.synchronize()
+    assert tfab.fused_qkv_q8.launches == before + 1
+    want = tfab.fused_qkv_q8_plain(*args, eps=eps)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 @pytest.mark.gpu
