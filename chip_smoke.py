@@ -11,7 +11,9 @@ register / shared-memory / spill report):
   attention  the t5_attention_core kernel against its plain PyTorch version
              at the main path's shapes (B=32, L=557, H=32, dh=64, bf16), and
              its time beside the plain version's, one PyTorch library call's
-             and the card's bound
+             and the card's bound, and the bound of its two-pass route
+             (q . k^T twice and p . v, the exponentials, the bytes); the
+             bias tiled as the encoder tiles it, that copy timed too
   int8_kernels
              the int8 encoder kernels (fused_t5_ln_qkv_q8,
              fused_oproj_residual_q8, fused_t5_ffn_q8) against their plain
@@ -85,7 +87,11 @@ register / shared-memory / spill report):
              widths on 16 images (L = 577, D = 1024, 16 heads, F = 4096),
              then timed at the image encoder's batch of 256 beside the plain
              version, the bound and a library yardstick (layer_norm and
-             cuBLAS matmuls; scaled_dot_product_attention);
+             cuBLAS matmuls; scaled_dot_product_attention); fused_ln_qkv
+             also with each CUDA kernel's device ms (its LayerNorm and its
+             q | k | v GEMM on bf16_gemm_tma.cuh) and the GEMM beside cuBLAS
+             addmm of the same product alone, held within
+             BF16_GEMM_STAGE_MAX_RATIO of it;
              attention_core_oproj also with its attention stage timed alone
              and the bound of its two-pass route (operations, exponentials
              and bytes); at most 0.5 % of that stage's outputs may differ
@@ -137,7 +143,8 @@ register / shared-memory / spill report):
              heads, F = 3072), timed at 1024 beside the plain version, the
              bound and a library yardstick (the unfused bf16 block;
              torch._int_mm, GEMMs only; fp32 matmuls and
-             scaled_dot_product_attention); fused_vit_block_q8 also with
+             scaled_dot_product_attention); fused_vit_block also with
+             each CUDA kernel's device ms; fused_vit_block_q8 also with
              each CUDA kernel's device ms under the profiler (four
              row_quant, four GEMMs, the attention), each GEMM beside
              _int_mm of the same product and their sum held within
@@ -233,6 +240,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import
     gpt2_block_group,
     t5_attention_core,
     t5_attention_core_plain,
+    t5_bias_tiles,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.prefix_splice import (  # noqa: E402
     T5_SENTINEL_BASE,
@@ -271,6 +279,9 @@ INT8_COSINE_FLOOR = 0.95           # a sanity floor; the value is recorded
 # the GEMM stage of every int8 kernel (its s8 GEMM kernels' device time, all
 # on q8_gemm_tma.cuh) against torch._int_mm of the same products
 Q8_GEMM_STAGE_MAX_RATIO = 2.0
+# the same for fused_ln_qkv's bf16 GEMM (bf16_gemm_tma.cuh) against cuBLAS
+# addmm of the same product
+BF16_GEMM_STAGE_MAX_RATIO = Q8_GEMM_STAGE_MAX_RATIO
 DECODE_LAYER = 7                   # the cache layer the decode kernel reads
 # transposed int8 cross-KV logits against unmerged: the same products
 # summed in another order (rel. Frobenius over the logits)
@@ -411,7 +422,9 @@ def phase_attention(gen: torch.Generator) -> dict:
         mask[b, length - 40 - 3 * b:] = 0
     mask[batch - 1] = 0                   # one fully masked row
 
-    got = t5_attention_core(q, k, v, bias, mask, heads)
+    # as the encoder passes it: the bias and its tiles, built once a call
+    tiles = t5_bias_tiles(bias)
+    got = t5_attention_core(q, k, v, bias, mask, heads, tiles)
     torch.cuda.synchronize()
     want = t5_attention_core_plain(q, k, v, bias, mask, heads)
     err = (got.float() - want.float()).abs()
@@ -427,8 +440,11 @@ def phase_attention(gen: torch.Generator) -> dict:
           "fully masked row is not the uniform mean of v")
     del want, err
 
-    kernel_ms = cuda_ms(lambda: t5_attention_core(q, k, v, bias, mask, heads),
-                        iters=20)
+    kernel_ms = cuda_ms(
+        lambda: t5_attention_core(q, k, v, bias, mask, heads, tiles),
+        iters=20)
+    # the tiled copy, made once an encode call (not a layer)
+    tiles_ms = cuda_ms(lambda: t5_bias_tiles(bias), iters=5)
     plain_ms = cuda_ms(
         lambda: t5_attention_core_plain(q, k, v, bias, mask, heads), iters=3,
         warmup=1)
@@ -448,7 +464,9 @@ def phase_attention(gen: torch.Generator) -> dict:
     result = dict(
         shape=dict(B=batch, L=length, H=heads, dh=head_dim),
         max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms,
-        library_ms=library_ms, **bound(bytes_moved, flops, BF16_FLOP_PER_S),
+        library_ms=library_ms, bias_tiles_ms=tiles_ms,
+        **bound(bytes_moved, flops, BF16_FLOP_PER_S),
+        **attention_route_bound(batch, length, width, heads, bytes_moved),
     )
     emit("attention", kernel_ms=kernel_ms, **{
         k: v for k, v in result.items() if k != "ms"})
@@ -885,6 +903,18 @@ def gemm_stage(name: str, split: dict, int_mm_ms: list) -> dict:
                 gemm_vs_int_mm=[g / i for g, i in zip(gemm_ms, int_mm_ms)])
 
 
+def bf16_gemm_stage(name: str, split: dict, addmm_ms: float) -> dict:
+    """The one bf16 GEMM kernel of ``split`` beside cuBLAS addmm of the same
+    product (bias included, no epilogue of its own); fails unless within
+    BF16_GEMM_STAGE_MAX_RATIO of it."""
+    ratio = split["gemm_0"] / addmm_ms
+    check(ratio <= BF16_GEMM_STAGE_MAX_RATIO,
+          f"{name}: its GEMM takes {split['gemm_0']} ms, {ratio} x cuBLAS "
+          f"addmm's {addmm_ms}")
+    return dict(kernel_split_ms=split, gemm_ms=split["gemm_0"],
+                addmm_ms=addmm_ms, gemm_vs_addmm=ratio)
+
+
 def phase_profile(model: VCT0Model, prefix, tokens, mask,
                   timed_wall_s: float, phase: str = "profile") -> None:
     emit(phase, **device_busy(
@@ -1304,6 +1334,17 @@ def phase_vit_kernels(gen: torch.Generator) -> dict:
         plain_ms = cuda_ms(lambda: plain(*full), iters=2, warmup=1)
         library_ms = cuda_ms(lambda: case["library"](CLIP_BATCH), iters=10)
         extra = {}
+        if name == "fused_ln_qkv":
+            # its LayerNorm and its GEMM by CUDA kernel; the GEMM beside
+            # cuBLAS addmm of the same (M, D) . (D, 3 D) product alone
+            h = f.layer_norm(x, (width,), ln_s, ln_b,
+                             cfg.layer_norm_epsilon).view(-1, width)
+            addmm_ms = cuda_ms(lambda: torch.addmm(b_qkv, h, w_qkv),
+                               iters=10)
+            del h
+            split = kernel_split(lambda: fn(*full))
+            extra = dict(layer_norm_ms=split["layer_norm_0"],
+                         **bf16_gemm_stage(name, split, addmm_ms))
         if name == "attention_core_oproj":
             # the attention stage alone (the same kernel, attention_core's
             # bf16_sum order) splits the time into attention and GEMM
@@ -1715,6 +1756,11 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
         plain_ms = cuda_ms(lambda: case["plain"](*full), iters=2, warmup=1)
         library_ms = cuda_ms(case["library"](), iters=10)
         stage = {}
+        if name == "fused_vit_block":
+            # each CUDA kernel's device time (its q | k | v GEMM is
+            # fused_ln_qkv's, on bf16_gemm_tma.cuh)
+            stage = dict(kernel_split_ms=kernel_split(
+                lambda: case["fn"](*full)))
         if name == "fused_vit_block_q8":
             # each CUDA kernel's device time; each GEMM beside _int_mm
             int_mm_ms = [cuda_ms(lambda a=a, w=w: torch._int_mm(a, w),

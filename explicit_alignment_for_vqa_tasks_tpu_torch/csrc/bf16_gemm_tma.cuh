@@ -1,0 +1,329 @@
+// The bf16 GEMM main loop on TMA and asynchronous wgmma, for NVIDIA Hopper
+// (sm_90a): the q | k | v product of fused_ln_qkv (csrc/vit_block.cu, and
+// through it fused_vit_block's). The bf16 counterpart of q8_gemm_tma.cuh,
+// with its design:
+//
+//   acc = a . b     a (M, K) bf16, K contiguous; b (K, N) bf16 in the JAX
+//                   layout, N contiguous; fp32 accumulation
+//
+// The product's columns may come from up to three weights of n_split
+// columns each (b_0 | b_1 | b_2, each (K, n_split)), one tensor map each,
+// and go to as many bf16 outputs (c_0 | c_1 | c_2, each (M, n_split)), so
+// that q, k and v are one product over three separate weights with no
+// copy. Each kernel that includes this file brings its own epilogue
+// arithmetic (Epi::chunk), given acc in the wgmma accumulator layout
+// (element 4 j + e of a consumer thread is row 64 wg + 16 warp + lane / 4
+// + 8 (e / 2) of the tile and column 8 j + 2 (lane % 4) + e % 2).
+//
+// Design (persistent and warp-specialised, on TMA and asynchronous wgmma):
+//   grid      persistent: one block an SM walks over the output tiles, N
+//             tiles fastest within a band of 128 rows, tile i on block i
+//             mod the grid, so that the blocks at work share their A bands
+//             and the weights stay in L2.
+//   loads     a producer warpgroup hands its registers back (setmaxnreg)
+//             and one of its threads keeps a ring of STAGES k steps in
+//             flight with TMA on mbarriers (full: the bytes have landed;
+//             empty: every consumer warp is done with the slot). A k step
+//             is 64 elements, one 128-byte swizzle row: A as one box of
+//             (64, 128 rows), K-major; B as BN / 64 boxes of (64 columns,
+//             64 k rows), each a 64-column panel of the tile, 128-byte
+//             swizzled. Rows past M are zero-filled by TMA.
+//   products  two consumer warpgroups of 64 rows each issue the k step's
+//             four wgmma.m64nBNk16.f32.bf16.bf16 through swizzled
+//             descriptors: A K-major (32 bytes further a k16 step), B
+//             MN-major (the transpose bit; 16 k rows = 2048 bytes further a
+//             step, the 64-column panels LBO = 8192 bytes apart, 8-row
+//             groups SBO = 1024 apart), then wait_group 1: the previous
+//             step's products are settled while this step's run, and only
+//             then is its slot released. Every wait counts the same groups
+//             on every path, and no register an in-flight product reads is
+//             rewritten, so ptxas keeps the products asynchronous.
+//   tiles     128 x 256 (128 fp32 accumulators a thread) where n_split %
+//             256 == 0, else 128 x 128; the consumers take 240 registers a
+//             thread, the producer keeps 24. The ring and the epilogue's
+//             buffers take 224 KB of shared memory.
+//   epilogue  the kernel's arithmetic from registers, 64 columns at a
+//             time, into bf16 in shared memory (two 8 KB buffers a
+//             warpgroup, 128-byte swizzled rows: the writes are free of
+//             bank conflicts), then a TMA store of the 64 x 64 box, which
+//             drains while the warpgroup goes on (rows past M are not
+//             written); the producer fills the next tile's stages
+//             meanwhile. (Stored straight from registers, 4 bytes a thread,
+//             the epilogue took 0.6 of fused_ln_qkv's 1.7 ms GEMM on an
+//             H100.)
+// Shapes: any M, K a multiple of 64, n_split a multiple of 128, one to
+// three weights (shape_ok). An mbarrier wait that lasts seconds traps.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hopper_async.cuh"
+
+namespace bf16_gemm_tma {
+
+namespace ha = hopper_async;
+
+constexpr int BM = 128;                    // rows a tile, 64 a warpgroup
+constexpr int BK = 64;                     // elements of a k step
+constexpr int PANEL = 64;                  // columns of a B box
+constexpr int CONSUMERS = 2;               // consumer warpgroups
+constexpr int NT = (CONSUMERS + 1) * 128;  // and the producer warpgroup
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 64,512 in all
+constexpr int RING_BYTES = 192 * 1024;     // of the 227 KB a block may use
+constexpr int MAX_B = 3;                   // weights of one product
+constexpr int OUT_BOX = 64;                // rows and columns of a store box
+constexpr int OUT_BOX_BYTES = OUT_BOX * OUT_BOX * 2;  // 8 KB, bf16
+constexpr int OUT_BYTES = CONSUMERS * 2 * OUT_BOX_BYTES;  // two a warpgroup
+
+template <int BN_>
+struct Tiles {
+  static constexpr int BN = BN_;                      // 256 or 128
+  static constexpr int A_BYTES = BM * BK * 2;         // 16 KB
+  static constexpr int PANEL_BYTES = BK * PANEL * 2;  // 8 KB
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int STAGES =
+      RING_BYTES / STAGE_BYTES < 8 ? RING_BYTES / STAGE_BYTES : 8;
+  static constexpr int ACC = BN / 2;  // accumulator elements a thread
+  static constexpr size_t SMEM =
+      static_cast<size_t>(STAGES) * STAGE_BYTES + OUT_BYTES +
+      2 * STAGES * sizeof(uint64_t) + 1024;  // ring, stores, barriers, slack
+};
+
+// The tensor maps of the weights (and of the outputs): column c of the
+// product is column c % n_split of weight (output) c / n_split.
+struct BMaps {
+  CUtensorMap map[MAX_B];
+};
+
+struct Problem {
+  int M, K, N, n_split;
+};
+
+// The columns of the tiles the loop takes for weights of n_split columns.
+inline int tile_width(int n_split) { return n_split % 256 == 0 ? 256 : 128; }
+
+inline bool shape_ok(int M, int K, int n_split, int weights) {
+  return M > 0 && K > 0 && K % BK == 0 && n_split > 0 &&
+         n_split % 128 == 0 && weights >= 1 && weights <= MAX_B &&
+         static_cast<long long>(n_split) * weights <= 0x7fffffff;
+}
+
+// The product over the tiles of the grid. Epi::chunk(args, which, col,
+// acc, j0, out) gives the bf16 pairs of one 64-column chunk of a thread's
+// fragments: out[2 jj + half] for its n8 group j0 + jj (columns col + 8 jj
+// + 2 (lane % 4) and the next of output `which`) and row 8 half past its
+// first; rows past M are never stored.
+template <int BN, class Epi>
+__global__ void __launch_bounds__(NT, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+            const __grid_constant__ BMaps maps_b,
+            const __grid_constant__ BMaps maps_c, const Problem p,
+            const __grid_constant__ typename Epi::Args args) {
+  using T = Tiles<BN>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ unsigned char bf16_tma_smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(bf16_tma_smem_raw) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  unsigned char* out_buf = ring + STAGES * T::STAGE_BYTES;  // 1024-aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_buf + OUT_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int tiles_n = p.N / BN;
+  const int tiles = (p.M + BM - 1) / BM * tiles_n;
+  const int steps = p.K / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      ha::mbar_init(&full[s], 1);
+      ha::mbar_init(&empty[s], CONSUMERS * 4);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {  // the producer: one thread issues every load
+    ha::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS * 128) return;
+    int t = 0;  // k steps loaded
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+      // a tile's columns lie in one weight (n_split % BN == 0)
+      const int which = n0 / p.n_split;
+      const int nb = n0 - which * p.n_split;
+      const CUtensorMap* map_b =
+          which == 0 ? &maps_b.map[0]
+                     : (which == 1 ? &maps_b.map[1] : &maps_b.map[2]);
+      for (int s = 0; s < steps; ++s, ++t) {
+        const int slot = t % STAGES;
+        if (t >= STAGES) ha::mbar_wait(&empty[slot], (t / STAGES - 1) & 1);
+        ha::mbar_expect_tx(&full[slot], T::STAGE_BYTES);
+        unsigned char* sa = ring + slot * T::STAGE_BYTES;
+        ha::tma_load_2d(sa, &map_a, &full[slot], s * BK, m0);
+#pragma unroll
+        for (int pn = 0; pn < BN / PANEL; ++pn) {
+          ha::tma_load_2d(sa + T::A_BYTES + pn * T::PANEL_BYTES, map_b,
+                          &full[slot], nb + pn * PANEL, s * BK);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- a consumer warpgroup: rows m0 + 64 wg .. + 63 of each tile ---------
+  ha::setmaxnreg_inc<CONSUMER_REGS>();
+  const int lane = threadIdx.x % 32;
+  const uint32_t ring_addr = ha::smem_addr(ring);
+  int t = 0;  // k steps consumed
+  auto release = [&](int tt) {
+    if (lane == 0) ha::mbar_arrive(&empty[tt % STAGES]);
+  };
+  // k step tt's products into d, asynchronously (one committed group);
+  // `first` overwrites d
+  auto issue = [&](float (&d)[T::ACC], int tt, bool first) {
+    const int slot = tt % STAGES;
+    ha::mbar_wait(&full[slot], (tt / STAGES) & 1);
+    const uint32_t a = ring_addr + slot * T::STAGE_BYTES + wg * 64 * BK * 2;
+    const uint32_t b = ring_addr + slot * T::STAGE_BYTES + T::A_BYTES;
+    ha::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      ha::wgmma_ss<1>(d, ha::gmma_desc(a + 32 * kk, 16, 8 * BK * 2, 1),
+                      ha::gmma_desc(b + kk * 16 * PANEL * 2, T::PANEL_BYTES,
+                                    8 * PANEL * 2, 1),
+                      (!first || kk > 0) ? 1 : 0);
+    }
+    ha::wgmma_commit();
+  };
+
+  const int wtid = threadIdx.x % 128;
+  const int row = wtid / 32 * 16 + lane / 4;  // the thread's first, of 64
+  int chunks = 0;  // epilogue chunks this warpgroup has stored
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+    float acc[T::ACC];
+    ha::fence_operands(acc);
+    issue(acc, t, true);
+    for (int s = 1; s < steps; ++s) {
+      issue(acc, t + s, false);
+      ha::wgmma_wait<1>();
+      release(t + s - 1);
+    }
+    ha::wgmma_wait<0>();
+    ha::fence_operands(acc);
+    release(t + steps - 1);
+    t += steps;
+
+    // the epilogue: 64 columns at a time into a swizzled buffer, then a
+    // TMA store of the warpgroup's 64 x 64 box
+    const int which = n0 / p.n_split;
+    const int col0 = n0 - which * p.n_split;
+    const CUtensorMap* map_c =
+        which == 0 ? &maps_c.map[0]
+                   : (which == 1 ? &maps_c.map[1] : &maps_c.map[2]);
+#pragma unroll
+    for (int c = 0; c < BN / OUT_BOX; ++c, ++chunks) {
+      unsigned char* buf = out_buf + (2 * wg + chunks % 2) * OUT_BOX_BYTES;
+      if (chunks >= 2) {  // the store of two chunks ago has read buf
+        if (wtid == 0) ha::bulk_wait_read<1>();
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      }
+      uint32_t out[16];
+      Epi::chunk(args, which, col0 + OUT_BOX * c, acc, 8 * c, out);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = row + 8 * half;
+          *reinterpret_cast<uint32_t*>(buf + r * 128 + ((jj ^ (r % 8)) << 4) +
+                                       4 * (lane % 4)) = out[2 * jj + half];
+        }
+      }
+      // the generic writes above come before the TMA's reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      if (wtid == 0) {
+        ha::tma_store_2d(map_c, buf, col0 + OUT_BOX * c, m0 + 64 * wg);
+        ha::bulk_commit();
+      }
+    }
+  }
+  if (wtid == 0) ha::bulk_wait<0>();  // shared memory outlives the stores
+}
+
+// ---- the host side ---------------------------------------------------------
+
+// The tensor map of a (rows, cols) row-major bf16 matrix with a box of
+// (64 columns, box_rows), swizzled by 128 bytes; reads past the end are
+// zeros, writes past it are dropped.
+inline bool encode_operand(CUtensorMap* map, const void* base, int rows,
+                           int cols, int box_rows) {
+  const auto encode = ha::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, class Epi>
+int launch(const void* a, const void* const* b, void* const* c, int weights,
+           const Problem& p, const typename Epi::Args& args,
+           cudaStream_t stream) {
+  using T = Tiles<BN>;
+  CUtensorMap map_a;
+  BMaps maps_b, maps_c;
+  if (!encode_operand(&map_a, a, p.M, p.K, BM)) return cudaErrorInvalidValue;
+  for (int i = 0; i < MAX_B; ++i) {
+    // unused maps repeat the last weight's and output's (never used)
+    const int k = i < weights ? i : weights - 1;
+    if (!encode_operand(&maps_b.map[i], b[k], p.K, p.n_split, BK) ||
+        !encode_operand(&maps_c.map[i], c[k], p.M, p.n_split, OUT_BOX)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const auto kernel = gemm_kernel<BN, Epi>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(T::SMEM));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long tiles =
+      static_cast<long long>((p.M + BM - 1) / BM) * (p.N / BN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  kernel<<<grid, NT, T::SMEM, stream>>>(map_a, maps_b, maps_c, p, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The product of a (M, K) with `weights` (K, n_split) weights b[0 ..
+// weights - 1], side by side (N = weights x n_split columns), into as many
+// (M, n_split) bf16 outputs c[0 ..], each 16-byte aligned, at 256 columns a
+// tile where n_split allows, else 128. Returns the launch's cudaError_t (0
+// on success).
+template <class Epi>
+int gemm(const void* a, const void* const* b, void* const* c, int weights,
+         int M, int K, int n_split, const typename Epi::Args& args,
+         cudaStream_t stream) {
+  if (!shape_ok(M, K, n_split, weights)) return cudaErrorInvalidValue;
+  const Problem p{M, K, n_split * weights, n_split};
+  return tile_width(n_split) == 256
+             ? launch<256, Epi>(a, b, c, weights, p, args, stream)
+             : launch<128, Epi>(a, b, c, weights, p, args, stream);
+}
+
+}  // namespace bf16_gemm_tma

@@ -122,8 +122,9 @@ extern "C" int fused_gpt2_block_launch(
     void* r1, void* hidden, void* out, int B, int L, int H, int dh, int F,
     int G, float scale, float eps, void* stream) {
   const int M = B * L, D = H * dh;
-  if (!vit_attention::shape_ok(B, L, H) || !gemm_shape_ok(M, D) || F <= 0 ||
-      F % B_COLS || F % BK || G <= 0 || B % G) {
+  if (!vit_attention::shape_ok(B, L, H) || !gemm_shape_ok(M, D) ||
+      !norm_shape_ok(D) || F <= 0 || F % B_COLS || F % BK || G <= 0 ||
+      B % G) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

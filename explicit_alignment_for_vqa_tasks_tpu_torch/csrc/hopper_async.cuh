@@ -1,8 +1,10 @@
 // The Hopper (sm_90a) pieces that the TMA + wgmma kernels share
-// (csrc/vit_attention_wgmma.cuh, csrc/q8_gemm_tma.cuh): shared-memory
-// addresses, mbarriers, TMA tile loads, wgmma's fence / commit / wait and
-// its swizzled shared-memory descriptors, warpgroup register hand-over
-// (setmaxnreg), and the tensor-map encoder on the host.
+// (csrc/vit_attention_wgmma.cuh, csrc/q8_gemm_tma.cuh,
+// csrc/bf16_gemm_tma.cuh): shared-memory addresses, mbarriers, TMA tile
+// loads and stores, wgmma's fence / commit / wait, its swizzled shared-memory
+// descriptors and its bf16 products (fp32 accumulate; A from registers or
+// from shared memory), warpgroup register hand-over (setmaxnreg), and the
+// tensor-map encoder on the host.
 //
 // The encoder comes from cudaGetDriverEntryPoint, so a library that uses it
 // builds with nvcc alone, without -lcuda.
@@ -93,6 +95,41 @@ __device__ inline void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned; they complete a transaction on bar.
+__device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                 uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A box of the 2-D tensor map at (c0, c1) from shared memory at src to
+// global memory, asynchronously (one bulk group per commit below).
+__device__ inline void tma_store_2d(const CUtensorMap* map, const void* src,
+                                    int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ inline void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ inline void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Until at most N of this thread's bulk groups are pending.
+template <int N>
+__device__ inline void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 
 __device__ inline void wgmma_fence() {
@@ -136,6 +173,161 @@ __device__ inline uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
+
+// ---- bf16 wgmma: m64nNk16, fp32 accumulate -----------------------------
+
+#define HA_F8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A . B for one 64 x 16 x 16 step of a warpgroup: A from registers
+// (the m64k16 bf16 fragment), B in shared memory (its descriptor), K-major
+// (TRANS_B 0) or MN-major (1); d is overwritten when accumulate is 0
+template <int TRANS_B>
+__device__ inline void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (+)= A . B for one 64 x 32 x 16 step of a warpgroup: A from registers
+// (the m64k16 bf16 fragment), B in shared memory (its descriptor), K-major
+// (TRANS_B 0) or MN-major (1); d is overwritten when accumulate is 0
+template <int TRANS_B>
+__device__ inline void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (+)= A . B for one 64 x 64 x 16 step of a warpgroup: A from registers
+// (the m64k16 bf16 fragment), B in shared memory (its descriptor), K-major
+// (TRANS_B 0) or MN-major (1); d is overwritten when accumulate is 0
+template <int TRANS_B>
+__device__ inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (+)= A . B for one 64 x 128 x 16 step of a warpgroup: A from registers
+// (the m64k16 bf16 fragment), B in shared memory (its descriptor), K-major
+// (TRANS_B 0) or MN-major (1); d is overwritten when accumulate is 0
+template <int TRANS_B>
+__device__ inline void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (+)= A . B for one 64 x 128 x 16 step of a warpgroup: A (K-major) and
+// B in shared memory (their descriptors), B K-major (TRANS_B 0) or MN-major
+// (1); d is overwritten when accumulate is 0
+template <int TRANS_B>
+__device__ inline void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : HA_F8(0), HA_F8(8), HA_F8(16), HA_F8(24),
+        HA_F8(32), HA_F8(40), HA_F8(48), HA_F8(56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (+)= A . B for one 64 x 256 x 16 step of a warpgroup: A (K-major) and
+// B in shared memory (their descriptors), B K-major (TRANS_B 0) or MN-major
+// (1); d is overwritten when accumulate is 0
+template <int TRANS_B>
+__device__ inline void wgmma_ss(float (&d)[128], uint64_t desc_a,
+                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : HA_F8(0), HA_F8(8), HA_F8(16), HA_F8(24),
+        HA_F8(32), HA_F8(40), HA_F8(48), HA_F8(56),
+        HA_F8(64), HA_F8(72), HA_F8(80), HA_F8(88),
+        HA_F8(96), HA_F8(104), HA_F8(112), HA_F8(120)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+#undef HA_F8
 
 // Hands this warpgroup's registers back to the SM (DEC) or takes more
 // (INC), REGS a thread; every warp of the warpgroup runs it.

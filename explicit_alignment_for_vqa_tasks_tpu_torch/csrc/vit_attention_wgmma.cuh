@@ -1,15 +1,26 @@
-// The CLIP ViT attention core of attention_core and attention_core_oproj on
-// NVIDIA Hopper (sm_90a), with wgmma and TMA: softmax(q k^T) v per image
-// and head over pre-scaled bf16 q, k, v in the (B, L, H dh) layout (no
-// bias, no mask), in the order of rounding of two Pallas kernels of
+// The attention cores of the CLIP ViT and of the T5 encoder on NVIDIA
+// Hopper (sm_90a), with wgmma and TMA: softmax(s) v per image (or batch
+// row) and head over bf16 q, k, v in the (B, L, H dh) layout, in the order
+// of rounding of three Pallas kernels of
 // explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py,
 //   attention_core         _make_core_kernel (:161-200), pallas_call :225
 //   attention_core_oproj   _make_core_oproj_kernel (:301-342), its
 //                          attention; pallas_call :366
-// (csrc/vit_block.cu adds the out-projection after it). With s = q . k^T in
-// fp32 and m the max of the WHOLE row of s:
+//   t5_attention_core      _make_t5_core_kernel (:1105-1131), pallas_call
+//                          :1168
+// (csrc/vit_block.cu adds the out-projection after the second;
+// csrc/t5_attention_core.cu launches the third). With s = q . k^T in fp32
+// (ViT: q pre-scaled, no bias, no mask) and m the max of the WHOLE row of
+// s over the keys below L:
 //   kBf16Sum   p = bf16(expf(s - m)), denom = sum(float(p))
 //   kFastExp   e = expf(float(bf16(s - m))), p = bf16(e), denom = sum(e)
+//   kT5        kBf16Sum's order on s = (s + bias[h][i][j]) + key_bias[b][j]
+//              (q unscaled; bias (H, L, L) fp32, read in the tiled order
+//              of ops/fused_attention_block.py::t5_bias_tiles; key_bias 0,
+//              or -1e9 where the (B, L) int32 mask is not > 0). Masked
+//              keys inside L take part like any other: a fully masked row
+//              comes out as the mean of v over all L keys (s + bias - 1e9
+//              rounds to -1e9 for every key, so every e is 1).
 // then o = (p . v) in fp32, __fdiv_rn(o, denom), stored in bf16. The
 // subtraction is __fsub_rn and the exponential expf (no exp2 with a log2(e)
 // pre-scale, no --use_fast_math): both would move the bf16 roundings of p.
@@ -22,10 +33,14 @@
 //   B H L^2   = 1.364 G exponentials, about 0.33 ms of MUFU time
 //   4 B L D bf16 = 1.21 GB = 0.361 ms of device memory
 // so its bound is 0.53 ms, by operations (the one-pass function's bound
-// is 0.361 ms, by bytes). The fp32 work around each exponential (the
-// subtraction, expf's range reduction, the bf16 packing and the sum) is
-// the same order of time on the CUDA cores, so the design overlaps it
-// with the tensor cores.
+// is 0.361 ms, by bytes). kT5 at T0-3B's encoder (B = 32, L = 557, 32
+// heads of 64): 6 B H L^2 dh = 122 GFLOP = 0.123 ms, 318 M exponentials
+// = 0.076 ms, and q, k, v, o, the bias and the mask, 332 MB = 0.099 ms,
+// so 0.123 ms by operations; the bias is read in both passes, from L2
+// after its first (2 x B x 47 MB of tiles = 3.0 GB of L2 reads a launch).
+// The fp32 work around each exponential (the subtraction, expf's range
+// reduction, the bf16 packing and the sum) is the same order of time on
+// the CUDA cores, so the design overlaps it with the tensor cores.
 //
 // Design. The Pallas order forbids FlashAttention's online softmax:
 // bf16(exp(s - m_partial)) exp(m_partial - m) does not round as
@@ -35,8 +50,10 @@
 //             mod the grid, so that the blocks at work hold neighbouring
 //             items (the tiles of one (image, head) together, finding its
 //             K and V in L2), and the loads of the next item overlap the
-//             end of this one. Two consumer warpgroups of 64 query rows
-//             each and one producer warp (288 threads).
+//             end of this one. kT5 orders them (query tile, batch row,
+//             head): the blocks at work then share one head's (L, L) bias
+//             in L2 as well. Two consumer warpgroups of 64 query rows each
+//             and one producer warp (288 threads).
 //   loads     the producer's one thread keeps a ring of STAGES tiles of 64
 //             keys x dh in flight with TMA on mbarriers (full: the bytes
 //             have landed; empty: both warpgroups are done with the slot),
@@ -53,6 +70,25 @@
 //             two tiles a round back to back, a max over the accumulators
 //             of the keys below L (a zero-filled key row scores 0 and must
 //             not join it), then across the quad of threads of a row.
+//   kT5 terms the bias comes tiled (t5_bias_tiles, once an encode): for
+//             each head, 64-query block and 64-key tile, a 16 KB block
+//             holding each consumer thread's 32 values of the tile, in its
+//             accumulators' order, 16 bytes apart from its neighbours'. The
+//             producer's lane 0 copies each key tile's two blocks (one a
+//             warpgroup) into a ring of their own with one bulk copy each,
+//             after the tile's K in both passes, and its 32 lanes make the
+//             tile's 64 key-mask bits (a coalesced load and two ballots;
+//             keys past L, never used, count as kept); the consumer
+//             threads read their values with eight conflict-free 16-byte
+//             loads and add them, and the masked keys' -1e9, in the same
+//             order in both passes, so both see the same s. A tile whose
+//             keys the mask all keeps skips the + 0 (only a -0 would become
+//             +0, which changes neither the max nor the exponentials). (On
+//             an H100 the kernel took 2.64 ms reading the (H, L, L) bias
+//             with 4-byte loads in the accumulator layout, 8 cache lines a
+//             warp load; 1.53 with the mask read a column at a time; 0.95
+//             with the bias in swizzled TMA boxes, two 8-byte loads with
+//             2-way bank conflicts where one 16-byte load does now.)
 //   pass 2    S again, tile by tile; e from it as above (keys at or past L
 //             get exactly 0) and the fp32 row sums in registers; p = bf16(e)
 //             packed straight into the A fragments of the P . V wgmma (the
@@ -86,13 +122,21 @@ namespace vit_attention_wgmma {
 
 using bf16 = __nv_bfloat16;
 
-enum Softmax : int { kBf16Sum = 0, kFastExp = 1 };
+enum Softmax : int { kBf16Sum = 0, kFastExp = 1, kT5 = 2 };
+
+constexpr float MASK_NEG = -1e9f;  // kT5's score of a masked key, added
 
 constexpr int ROWS = 64;                  // query rows a warpgroup; keys a tile
 constexpr int CONSUMERS = 2;              // consumer warpgroups
 constexpr int BQ = CONSUMERS * ROWS;      // query rows a block
 constexpr int NT = CONSUMERS * 128 + 32;  // and one producer warp
 constexpr int STAGES = 6;                 // K / V tiles in flight
+
+// kT5's bias tiles: 128 query rows x 64 keys of fp32, a 16 KB block of
+// t5_bias_tiles a warpgroup, in a ring of their own (fewer stages at dh =
+// 128, to fit the block's 227 KB).
+constexpr int BIAS_BLOCK_BYTES = ROWS * ROWS * 4;  // 16 KB
+constexpr int BIAS_TILE_BYTES = CONSUMERS * BIAS_BLOCK_BYTES;  // 32 KB
 
 // One 64-row tile of dh columns in shared memory: PANELS panels of PC
 // columns, each as TMA writes a box, rows of PC * 2 bytes swizzled by that
@@ -111,11 +155,18 @@ struct Tile {
   static constexpr int ALIGN = 1024;
 };
 
-template <int DH>
+template <int DH, int MODE>
+__host__ __device__ constexpr int bias_stages() {
+  return MODE != kT5 ? 0 : (DH == 128 ? 2 : 4);
+}
+
+template <int DH, int MODE>
 constexpr size_t smem_bytes() {
+  constexpr int NB = bias_stages<DH, MODE>();
   return static_cast<size_t>(2 * CONSUMERS + STAGES) * Tile<DH>::BYTES
-         + (2 * STAGES + 4) * sizeof(uint64_t)  // barriers
-         + Tile<DH>::ALIGN;                      // slack
+         + static_cast<size_t>(NB) * BIAS_TILE_BYTES
+         + (2 * STAGES + 4 + 3 * NB) * sizeof(uint64_t)  // barriers, keep
+         + Tile<DH>::ALIGN;                               // slack
 }
 
 // The attention grid: (query tiles, H, B), within CUDA's limits.
@@ -126,6 +177,7 @@ inline bool shape_ok(int B, int L, int H) {
 
 // ---- PTX: shared-memory addresses, mbarriers, TMA, wgmma (hopper_async.cuh)
 
+using hopper_async::bulk_load;
 using hopper_async::fence_operands;
 using hopper_async::gmma_desc;
 using hopper_async::mbar_arrive;
@@ -136,6 +188,7 @@ using hopper_async::smem_addr;
 using hopper_async::tma_load_3d;
 using hopper_async::wgmma_commit;
 using hopper_async::wgmma_fence;
+using hopper_async::wgmma_rs;
 using hopper_async::wgmma_wait;
 
 // The byte offset of (row, byte) in a panel of rows of ROW_BYTES bytes as
@@ -168,104 +221,6 @@ __device__ inline uint64_t mn_major_desc(uint32_t tile, int kk) {
                    8 * T::ROW_BYTES, T::LAYOUT);
 }
 
-// d (+)= A . B for one 64 x 16 x 16 step of a warpgroup: A from registers
-// (the m64k16 bf16 fragment), B in shared memory (its descriptor), K-major
-// (TRANS_B 0) or MN-major (1); d is overwritten when accumulate is 0
-template <int TRANS_B>
-__device__ inline void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
-                                uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7 "
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
-}
-
-// d (+)= A . B for one 64 x 32 x 16 step of a warpgroup: A from registers
-// (the m64k16 bf16 fragment), B in shared memory (its descriptor), K-major
-// (TRANS_B 0) or MN-major (1); d is overwritten when accumulate is 0
-template <int TRANS_B>
-__device__ inline void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
-                                uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15 "
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
-}
-
-// d (+)= A . B for one 64 x 64 x 16 step of a warpgroup: A from registers
-// (the m64k16 bf16 fragment), B in shared memory (its descriptor), K-major
-// (TRANS_B 0) or MN-major (1); d is overwritten when accumulate is 0
-template <int TRANS_B>
-__device__ inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
-}
-
-// d (+)= A . B for one 64 x 128 x 16 step of a warpgroup: A from registers
-// (the m64k16 bf16 fragment), B in shared memory (its descriptor), K-major
-// (TRANS_B 0) or MN-major (1); d is overwritten when accumulate is 0
-template <int TRANS_B>
-__device__ inline void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
-}
-
 // ---- the kernel -------------------------------------------------------------
 
 template <int DH, int MODE>
@@ -273,12 +228,27 @@ __global__ void __launch_bounds__(NT, 1)
 attention_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
-                 bf16* __restrict__ out, int B, int L, int H) {
+                 bf16* __restrict__ out, int B, int L, int H,
+                 const float* __restrict__ bias_tiles,
+                 const int* __restrict__ mask) {
   using T = Tile<DH>;
+  constexpr bool T5 = MODE == kT5;
+  constexpr int NB = bias_stages<DH, MODE>();
   const int tiles = (L + ROWS - 1) / ROWS;  // key tiles
   const int q_tiles = (L + BQ - 1) / BQ;
-  const int items = q_tiles * H * B;  // (query tile, head, image), the
-                                      // query tile fastest
+  const int items = q_tiles * H * B;  // the query tile fastest
+  // item -> its first query row, head and image: (query tile, head,
+  // image), kT5 (query tile, batch row, head)
+  auto coords = [&](int item, int& q0, int& h, int& b) {
+    q0 = item % q_tiles * BQ;
+    if (T5) {
+      b = item / q_tiles % B;
+      h = item / (q_tiles * B);
+    } else {
+      h = item / q_tiles % H;
+      b = item / (q_tiles * H);
+    }
+  };
   extern __shared__ unsigned char att_smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(att_smem_raw) + T::ALIGN - 1) &
@@ -286,10 +256,16 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
   // two Q buffers of one tile a warpgroup, then the ring
   unsigned char* qs = smem;
   unsigned char* ring = smem + 2 * CONSUMERS * T::BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * T::BYTES);
+  // kT5: the bias ring after the K / V ring (both on 1024 bytes)
+  unsigned char* bias_ring = ring + STAGES * T::BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias_ring +
+                                               NB * BIAS_TILE_BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* q_full = empty + STAGES;  // two of each
   uint64_t* q_empty = q_full + 2;
+  uint64_t* b_full = q_empty + 2;  // kT5: NB of each
+  uint64_t* b_empty = b_full + NB;
+  uint64_t* b_keep = b_empty + NB;  // kT5: each slot's key-mask bits
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -300,43 +276,93 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_init(&q_full[s], 1);
       mbar_init(&q_empty[s], CONSUMERS);
     }
+    for (int s = 0; s < NB; ++s) {
+      mbar_init(&b_full[s], 2);  // the copies' bytes and the keep bits
+      mbar_init(&b_empty[s], CONSUMERS * 4);  // one arrival a warp
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == CONSUMERS) {  // the producer warp: one thread issues every load
-    if (threadIdx.x % 32 != 0) return;
-    int t = 0;  // loads issued
-    int n = 0;  // items begun
+  if (wg == CONSUMERS) {  // the producer warp: its lane 0 issues every load
+    // (kT5: all its lanes read each bias tile's key mask)
+    const int lane = threadIdx.x % 32;
+    if (!T5 && lane != 0) return;
+    int t = 0;   // loads issued
+    int bt = 0;  // kT5: bias tiles issued
+    int n = 0;   // items begun
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-      const int q0 = item % q_tiles * BQ;
-      const int h = item / q_tiles % H, b = item / (q_tiles * H);
+      int q0, h, b;
+      coords(item, q0, h, b);
       const int col0 = h * DH;
       uint64_t* qbar = &q_full[n % 2];
-      if (n >= 2) mbar_wait(&q_empty[n % 2], (n / 2 - 1) & 1);
-      mbar_expect_tx(qbar, CONSUMERS * T::BYTES);
-      for (int w = 0; w < CONSUMERS; ++w) {
-        for (int p = 0; p < T::PANELS; ++p) {
-          tma_load_3d(qs + ((n % 2) * CONSUMERS + w) * T::BYTES +
-                          p * T::PANEL_BYTES,
-                      &map_q, qbar, col0 + p * T::PC, q0 + w * ROWS, b);
+      if (lane == 0) {
+        if (n >= 2) mbar_wait(&q_empty[n % 2], (n / 2 - 1) & 1);
+        mbar_expect_tx(qbar, CONSUMERS * T::BYTES);
+        for (int w = 0; w < CONSUMERS; ++w) {
+          for (int p = 0; p < T::PANELS; ++p) {
+            tma_load_3d(qs + ((n % 2) * CONSUMERS + w) * T::BYTES +
+                            p * T::PANEL_BYTES,
+                        &map_q, qbar, col0 + p * T::PC, q0 + w * ROWS, b);
+          }
         }
       }
       auto load = [&](const CUtensorMap* map, int j) {
         const int slot = t % STAGES;
-        if (t >= STAGES) mbar_wait(&empty[slot], (t / STAGES - 1) & 1);
-        mbar_expect_tx(&full[slot], T::BYTES);
-        for (int p = 0; p < T::PANELS; ++p) {
-          tma_load_3d(ring + slot * T::BYTES + p * T::PANEL_BYTES, map,
-                      &full[slot], col0 + p * T::PC, j * ROWS, b);
+        if (lane == 0) {
+          if (t >= STAGES) mbar_wait(&empty[slot], (t / STAGES - 1) & 1);
+          mbar_expect_tx(&full[slot], T::BYTES);
+          for (int p = 0; p < T::PANELS; ++p) {
+            tma_load_3d(ring + slot * T::BYTES + p * T::PANEL_BYTES, map,
+                        &full[slot], col0 + p * T::PC, j * ROWS, b);
+          }
         }
         ++t;
       };
-      for (int j = 0; j < tiles; ++j) load(&map_k, j);
+      // kT5: key tile j's bias rows of the item's 128 queries, after its
+      // K, and which of its 64 keys the batch row's mask keeps (bit c for
+      // key 64 j + c; keys at or past L, never used, count as kept, so
+      // that a last tile with all its keys kept takes the fast path)
+      const int* mask_b = T5 ? mask + static_cast<size_t>(b) * L : nullptr;
+      auto load_bias = [&](int j) {
+        if constexpr (T5) {
+          const int slot = bt % NB;
+          if (lane == 0) {
+            if (bt >= NB) mbar_wait(&b_empty[slot], (bt / NB - 1) & 1);
+            mbar_expect_tx(&b_full[slot], BIAS_TILE_BYTES);
+            for (int w = 0; w < CONSUMERS; ++w) {
+              // block (h, 64-query block q0 / 64 + w, key tile j)
+              const size_t blk =
+                  (static_cast<size_t>(h) * 2 * q_tiles + q0 / ROWS + w) *
+                      tiles + j;
+              bulk_load(bias_ring + slot * BIAS_TILE_BYTES +
+                            w * BIAS_BLOCK_BYTES,
+                        bias_tiles + blk * (BIAS_BLOCK_BYTES / 4),
+                        BIAS_BLOCK_BYTES, &b_full[slot]);
+            }
+          }
+          const int k0 = j * ROWS + lane;
+          const bool lo = k0 >= L || __ldg(mask_b + k0) > 0;
+          const bool hi = k0 + 32 >= L || __ldg(mask_b + k0 + 32) > 0;
+          const uint64_t keep =
+              static_cast<uint64_t>(__ballot_sync(0xffffffffu, lo)) |
+              static_cast<uint64_t>(__ballot_sync(0xffffffffu, hi)) << 32;
+          if (lane == 0) {  // after the slot's wait above
+            b_keep[slot] = keep;
+            mbar_arrive(&b_full[slot]);
+          }
+          ++bt;
+        }
+      };
+      for (int j = 0; j < tiles; ++j) {
+        load(&map_k, j);
+        load_bias(j);
+      }
       for (int j = 0; j < tiles; ++j) {
         load(&map_k, j);
         load(&map_v, j);
+        load_bias(j);
       }
     }
     return;
@@ -350,10 +376,11 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
   const int r = 16 * (tid / 32) + lane / 4;
   const int c2 = 2 * (lane % 4);
   int t0 = 0;  // the first load of this item
+  int b0 = 0;  // kT5: the first bias tile of this item
   int n = 0;   // items begun
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const int q0 = item % q_tiles * BQ;
-    const int h = item / q_tiles % H, b = item / (q_tiles * H);
+    int q0, h, b;
+    coords(item, q0, h, b);
     const unsigned char* q_buf = qs + ((n % 2) * CONSUMERS + wg) * T::BYTES;
     // this warpgroup's Q as the A fragments of q . k^T, in registers for
     // the whole item; then its buffer is free for the item after next
@@ -403,6 +430,48 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
     // path, so that ptxas can see which accumulators are settled and keeps
     // the products asynchronous.
 
+    // kT5: s = (s + bias) + key_bias in place for bias tile u of the item
+    // (pass 1's key tiles, then pass 2's), both from its ring slot: the
+    // thread's 32 bias values (t5_bias_tiles' order: its accumulators',
+    // 16 bytes apart from its neighbours') and the key-mask bits; then this
+    // warp's arrival frees the slot
+    auto add_bias = [&](float(&s)[32], int u) {
+      const int slot = (b0 + u) % NB;
+      mbar_wait(&b_full[slot], ((b0 + u) / NB) & 1);
+      const uint64_t keep = b_keep[slot];
+      const float4* mine = reinterpret_cast<const float4*>(
+                               bias_ring + slot * BIAS_TILE_BYTES +
+                               wg * BIAS_BLOCK_BYTES) +
+                           tid;
+      // a tile whose keys the mask all keeps (the warp's common case)
+      // skips the + 0
+      auto terms = [&](auto masked) {
+        constexpr bool MASKED = decltype(masked)::value;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {  // n8 group g: elements 4 g .. + 3
+          const float4 bv = mine[g * 128];
+          const float add[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * g + e;
+            s[i] = __fadd_rn(s[i], add[e]);
+            if (MASKED) {
+              const int col = 8 * g + c2 + e % 2;
+              s[i] = __fadd_rn(s[i], (keep >> col) & 1 ? 0.0f : MASK_NEG);
+            }
+          }
+        }
+      };
+      if (keep == ~0ull) terms(std::false_type());
+      else terms(std::true_type());
+      __syncwarp();
+      if (lane == 0) {
+        // the generic reads above come before the next bulk copy's writes
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&b_empty[slot]);
+      }
+    };
+
     // ---- pass 1: the row max over the keys below L -------------------------
     float sa[32], sb[32];
     float m0 = -INFINITY, m1 = -INFINITY;
@@ -434,6 +503,10 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_operands(sb);
       release(j);
       release(j + 1);
+      if constexpr (T5) {
+        add_bias(sa, j);
+        add_bias(sb, j + 1);
+      }
       row_max(sa, j);
       row_max(sb, j + 1);
     }
@@ -443,6 +516,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_operands(sa);
       release(j);
+      if constexpr (T5) add_bias(sa, j);
       row_max(sa, j);
     }
 #pragma unroll
@@ -527,6 +601,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<0>();
     fence_operands(sa);
     release(k_load(0));
+    if constexpr (T5) add_bias(sa, tiles);
     tile_exponentials(sa, 0);
     pack(sa);
     for (j = 0; j + 1 < tiles; ++j) {
@@ -539,6 +614,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<1>();
       fence_operands(sa);
       release(k_load(j + 1));
+      if constexpr (T5) add_bias(sa, tiles + j + 1);
       tile_exponentials(sa, j + 1);
       wgmma_wait<0>();
       fence_operands(o);
@@ -559,13 +635,13 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       sum1 = __fadd_rn(sum1, __shfl_xor_sync(0xffffffffu, sum1, off));
     }
     const int HD = H * DH;
-    const int row0 = q0 + wg * ROWS + r;
+    const int qi = q0 + wg * ROWS + r;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int qi = row0 + 8 * half;
-      if (qi >= L) continue;
+      const int row = qi + 8 * half;
+      if (row >= L) continue;
       const float denom = half ? sum1 : sum0;
-      bf16* dst = out + (static_cast<size_t>(b) * L + qi) * HD + h * DH + c2;
+      bf16* dst = out + (static_cast<size_t>(b) * L + row) * HD + h * DH + c2;
 #pragma unroll
       for (int g = 0; g < DH / 8; ++g) {
         const int i = 4 * g + 2 * half;
@@ -574,6 +650,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
     t0 += 3 * tiles;
+    b0 += T5 ? 2 * tiles : 0;
   }
 }
 
@@ -604,7 +681,8 @@ bool encode_map(CUtensorMap* map, const void* base, int B, int L, int H) {
 
 template <int DH, int MODE>
 int attention(const void* q, const void* k, const void* v, void* out, int B,
-              int L, int H, cudaStream_t stream) {
+              int L, int H, const float* bias_tiles, const int* mask,
+              cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
@@ -612,7 +690,7 @@ int attention(const void* q, const void* k, const void* v, void* out, int B,
       return cudaErrorInvalidValue;
     }
   }
-  constexpr size_t smem = smem_bytes<DH>();
+  constexpr size_t smem = smem_bytes<DH, MODE>();
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<DH, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -625,22 +703,33 @@ int attention(const void* q, const void* k, const void* v, void* out, int B,
   const long long items = static_cast<long long>((L + BQ - 1) / BQ) * H * B;
   const int grid = static_cast<int>(items < sms ? items : sms);
   attention_kernel<DH, MODE><<<grid, NT, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(out), B, L, H);
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), B, L, H,
+      bias_tiles, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The attention of head size dh (16, 32, 64 or 128) in softmax order MODE
-// over q, k, v and out (B, L, H dh) bf16, each 16-byte aligned; returns its
-// launch's cudaError_t (0 on success).
+// over q, k, v and out (B, L, H dh) bf16, each 16-byte aligned; kT5 also
+// over the (H, L, L) fp32 bias in t5_bias_tiles' order (16-byte aligned)
+// and mask (B, L) int32 (null otherwise). Returns its launch's cudaError_t
+// (0 on success).
 template <int MODE>
 int attention_dh(const void* q, const void* k, const void* v, void* out,
-                 int B, int L, int H, int dh, cudaStream_t stream) {
+                 int B, int L, int H, int dh, cudaStream_t stream,
+                 const void* bias_tiles = nullptr,
+                 const void* mask = nullptr) {
   if (!shape_ok(B, L, H)) return cudaErrorInvalidValue;
+  if (MODE == kT5 && (bias_tiles == nullptr || mask == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const float* bt = static_cast<const float*>(bias_tiles);
+  const int* ms = static_cast<const int*>(mask);
   switch (dh) {
-    case 16: return attention<16, MODE>(q, k, v, out, B, L, H, stream);
-    case 32: return attention<32, MODE>(q, k, v, out, B, L, H, stream);
-    case 64: return attention<64, MODE>(q, k, v, out, B, L, H, stream);
-    case 128: return attention<128, MODE>(q, k, v, out, B, L, H, stream);
+    case 16: return attention<16, MODE>(q, k, v, out, B, L, H, bt, ms, stream);
+    case 32: return attention<32, MODE>(q, k, v, out, B, L, H, bt, ms, stream);
+    case 64: return attention<64, MODE>(q, k, v, out, B, L, H, bt, ms, stream);
+    case 128:
+      return attention<128, MODE>(q, k, v, out, B, L, H, bt, ms, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -76,22 +76,29 @@
 // All are bound by operations but attention_core, bound by bytes; the
 // encoders run each of their kernels once per layer.
 //
-// Design (simple and right before fast). A Pallas program keeps one image's
-// LN output, scores and quickGELU hidden (fused_vit_block: a group's whole
-// block) in VMEM; no SM holds a ViT-B block's 14.2 MB of weights, so here
-// each function is a short pipeline of kernels whose intermediates make one
-// round trip through device memory:
-//   layer_norm (block_stages.cuh, shared with gpt2_block.cu): one block per
-//     row (of bf16 x, or of fp32 r1) writes h in bf16, its fp32 row in
-//     shared memory, both sums block reductions.
+// Design. A Pallas program keeps one image's LN output, scores and
+// quickGELU hidden (fused_vit_block: a group's whole block) in VMEM; no SM
+// holds a ViT-B block's 14.2 MB of weights, so here each function is a
+// short pipeline of kernels whose intermediates make one round trip
+// through device memory:
+//   layer_norm (block_stages.cuh, shared with gpt2_block.cu): one warp per
+//     row (of bf16 x, or of fp32 r1), the row in registers, writes h in
+//     bf16.
+//   q | k | v (fused_ln_qkv, and fused_vit_block through it): ONE product
+//     of N = 3 D over wq, wk and wv on bf16_gemm_tma.cuh's loop (TMA,
+//     persistent, asynchronous wgmma, 128 x 256 tiles where D % 256 == 0,
+//     else 128 x 128), the weights in their JAX (D, D) layout as MN-major
+//     B operands through three tensor maps (no copy); its epilogue
+//     (QkvEpilogue) routes each column tile into q, k or v (bias, then q's
+//     scale) through shared memory and TMA stores.
 //   gemm (block_stages.cuh): bf16_gemm.cuh's 128 x 128 mma.sync main loop
-//     with the epilogue of the stage. Bias then scale for q, k and v:
-//     blockIdx.z picks the weight, bias, output and scale, so the three
-//     (D, D) weights need no concatenation and one launch covers them (bf16
-//     outputs, fp32 ones for fused_attention_block). Bias then quickGELU
-//     for the MLP's up product. Bias then residual for the out-projection
-//     and the MLP's down product; fused_vit_block's out-projection writes
-//     the fp32 r1 and its down product adds it.
+//     with the epilogue of the stage, for the other products. Bias then
+//     scale for fused_attention_block's fp32 q, k and v: blockIdx.z picks
+//     the weight, bias, output and scale, so one launch covers the three
+//     (D, D) weights. Bias then quickGELU for the MLP's up product. Bias
+//     then residual for the out-projection and the MLP's down product;
+//     fused_vit_block's out-projection writes the fp32 r1 and its down
+//     product adds it.
 //   attention: attention_core and attention_core_oproj's on wgmma and TMA
 //     in vit_attention_wgmma.cuh (two passes over the keys, any L); the
 //     whole blocks' in vit_attention.cuh, in the softmax order of the
@@ -116,6 +123,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "bf16_gemm_tma.cuh"
 #include "block_stages.cuh"
 #include "vit_attention.cuh"
 #include "vit_attention_wgmma.cuh"
@@ -143,6 +151,54 @@ int attention_mode(int mode, const void* q, const void* k, const void* v,
                                                   stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---- fused_ln_qkv's q | k | v epilogue on bf16_gemm_tma.cuh -----------------
+
+struct QkvArgs {
+  const bf16* bias[3];  // bq, bk, bv (D,)
+  float scale;          // the factor of the q columns
+};
+
+// A 64-column chunk of the q | k | v product's tile in output `which` (0:
+// q, 1: k, 2: v): v = bf16((acc + bias) * scale) for q, bf16(acc + bias)
+// for k and v, both pairs of rows of a thread's n8 groups j0 .. j0 + 7.
+struct QkvEpilogue {
+  using Args = QkvArgs;
+  template <int ACC>
+  __device__ static void chunk(const Args& args, int which, int col,
+                               const float (&acc)[ACC], int j0,
+                               uint32_t (&out)[16]) {
+    const int tig = threadIdx.x % 4;
+    const bf16* bias =
+        which == 0 ? args.bias[0] : (which == 1 ? args.bias[1] : args.bias[2]);
+    float2 bv[8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      bv[jj] = load2(bias + col + 8 * jj + 2 * tig);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = 4 * (j0 + jj) + 2 * half;
+        float v0 = __fadd_rn(acc[i], bv[jj].x);
+        float v1 = __fadd_rn(acc[i + 1], bv[jj].y);
+        if (which == 0) {
+          v0 = __fmul_rn(v0, args.scale);
+          v1 = __fmul_rn(v1, args.scale);
+        }
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+        out[2 * jj + half] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
+    }
+  }
+};
+
+// fused_ln_qkv's shapes: the norm's row (block_stages.cuh) and the q | k | v
+// product's (K = D a multiple of 64, D a multiple of 128; any M).
+inline bool ln_qkv_shape_ok(int M, int D) {
+  return norm_shape_ok(D) && bf16_gemm_tma::shape_ok(M, D, D, 3);
 }
 
 // ---- fused_attention_block's fp32 attention ---------------------------------
@@ -275,13 +331,17 @@ extern "C" int fused_ln_qkv_launch(const void* x, const void* ln_s,
                                    const void* bv, void* h, void* q, void* k,
                                    void* v, int M, int D, float scale,
                                    float eps, void* stream) {
-  if (!gemm_shape_ok(M, D)) return cudaErrorInvalidValue;
+  if (!ln_qkv_shape_ok(M, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = layer_norm<bf16>(x, ln_s, ln_b, h, M, D, eps, s);
   if (rc != 0) return rc;
-  return gemm<kBiasScale>(
-      qkv_args(h, {wq, wk, wv}, {bq, bk, bv}, q, k, v, M, D, D, scale), 3,
-      s);
+  const QkvArgs args{{static_cast<const bf16*>(bq),
+                      static_cast<const bf16*>(bk),
+                      static_cast<const bf16*>(bv)},
+                     scale};
+  const void* const w[3] = {wq, wk, wv};
+  void* const out[3] = {q, k, v};
+  return bf16_gemm_tma::gemm<QkvEpilogue>(h, w, out, 3, M, D, D, args, s);
 }
 
 // out (B, L, D) bf16 = res + softmax(q k^T) v . wo + bo per head, for res,
@@ -332,7 +392,8 @@ extern "C" int fused_mlp_block_launch(const void* x, const void* ln_s,
                                       const void* b_proj, void* h,
                                       void* hidden, void* out, int M, int D,
                                       int F, float eps, void* stream) {
-  if (!gemm_shape_ok(M, D) || F <= 0 || F % B_COLS || F % BK) {
+  if (!norm_shape_ok(D) || !gemm_shape_ok(M, D) || F <= 0 || F % B_COLS ||
+      F % BK) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -361,8 +422,9 @@ extern "C" int fused_vit_block_launch(
     void* r1, void* hidden, void* out, int B, int L, int H, int dh, int F,
     int mode, float scale, float eps, void* stream) {
   const int M = B * L, D = H * dh;
-  if (!vit_attention::shape_ok(B, L, H) || !gemm_shape_ok(M, D) || F <= 0 ||
-      F % B_COLS || F % BK) {
+  // q | k | v on bf16_gemm_tma.cuh, the rest on the mma.sync GEMMs
+  if (!vit_attention::shape_ok(B, L, H) || !ln_qkv_shape_ok(M, D) ||
+      !gemm_shape_ok(M, D) || F <= 0 || F % B_COLS || F % BK) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -53,6 +53,7 @@ from ..ops.fused_attention_block import (
     fused_t5_ffn_q8,
     fused_t5_ln_qkv_q8,
     t5_attention_core,
+    t5_bias_tiles,
 )
 
 Params = Dict[str, Any]
@@ -616,6 +617,8 @@ def t5_encode(
 
     if cfg.fused_encoder_attention:
         pos_hll = pos_bias[0].contiguous()  # (H, L, L), shared by the batch
+        # the kernel's order of it, built once for every layer
+        bias_tiles = t5_bias_tiles(pos_hll) if pos_hll.is_cuda else None
         key_mask = attention_mask.to(torch.int32).contiguous()
         for i in range(cfg.num_encoder_layers):
             layer_p = _encoder_layer(enc, i, cfg)
@@ -627,7 +630,7 @@ def t5_encode(
                     a8["v"], a8["v_s"], eps=eps,
                 )
                 attn = t5_attention_core(q, k, v, pos_hll, key_mask,
-                                         cfg.num_heads)
+                                         cfg.num_heads, bias_tiles)
                 x = fused_oproj_residual_q8(x, attn, a8["o"], a8["o_s"])
                 x = _encoder_ffn(layer_p, x, cfg)
                 continue
@@ -636,7 +639,8 @@ def t5_encode(
             q = torch.matmul(attn_in, p["q"].to(x.dtype))
             k = torch.matmul(attn_in, p["k"].to(x.dtype))
             v = torch.matmul(attn_in, p["v"].to(x.dtype))
-            attn = t5_attention_core(q, k, v, pos_hll, key_mask, cfg.num_heads)
+            attn = t5_attention_core(q, k, v, pos_hll, key_mask, cfg.num_heads,
+                                     bias_tiles)
             x = x + torch.matmul(attn, p["o"].to(x.dtype))
             x = _encoder_ffn(layer_p, x, cfg)
     else:

@@ -3,7 +3,8 @@ plain version.
 
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py:
 
-  * ``t5_attention_core`` (:1105-1180), kernel ``csrc/t5_attention_core.cu``;
+  * ``t5_attention_core`` (:1105-1180), kernel ``csrc/t5_attention_core.cu``
+    over ``csrc/vit_attention_wgmma.cuh`` (two passes, any L);
   * the int8 bulk-eval trio ``fused_t5_ln_qkv_q8`` (:1635-1677),
     ``fused_oproj_residual_q8`` (:1695-1728) and ``fused_t5_ffn_q8``
     (:1547-1603), kernels in ``csrc/int8_encoder.cu``;
@@ -12,7 +13,8 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
     mapper training;
   * the CLIP ViT ``split3`` block: ``fused_ln_qkv`` (:268-298),
     ``attention_core_oproj`` (:348-376) and ``fused_mlp_block``
-    (:419-459), kernels in ``csrc/vit_block.cu``;
+    (:419-459), kernels in ``csrc/vit_block.cu`` (``fused_ln_qkv``'s q | k
+    | v product on ``csrc/bf16_gemm_tma.cuh``);
   * the CLIP ViT long-sequence attention ``attention_core`` (:203-232,
     optional bf16 exp), kernel in ``csrc/vit_block.cu``. Its attention and
     ``attention_core_oproj``'s are ``csrc/vit_attention_wgmma.cuh``
@@ -98,6 +100,32 @@ def _launcher():
     return fn
 
 
+# The kernel's bias blocks: 64 query rows x 64 keys, two a 128-query tile.
+T5_BIAS_BLOCK = 64
+
+
+def t5_bias_tiles(pos_bias: torch.Tensor) -> torch.Tensor:
+    """The (H, L, L) fp32 position bias in the order the kernel reads it:
+    for each head, 64-query block (an even number of them) and 64-key tile,
+    a 16 KB block holding each consumer thread's 32 values together, zero
+    past L. In the block, thread 32 w + 4 gid + tig of a warpgroup (wgmma's
+    accumulator layout) holds rows 16 w + gid + 8 half and columns 8 g + 2
+    tig + e as its values 4 g + 2 half + e, and value 4 g + x of thread t
+    sits at float 4 (128 g + t) + x. The encoder builds it once a call and
+    shares it across its layers (47 MB at 32 heads and 557 tokens)."""
+    heads, q_len, k_len = pos_bias.shape
+    size = T5_BIAS_BLOCK
+    blocks = -(-q_len // (2 * size)) * 2
+    tiles = -(-k_len // size)
+    padded = torch.zeros((heads, blocks * size, tiles * size),
+                         dtype=torch.float32, device=pos_bias.device)
+    padded[:, :q_len, :k_len] = pos_bias
+    # (h, block, w, half, gid, tile, g, tig, e) ->
+    # (h, block, tile, g, w, gid, tig, half, e)
+    return padded.view(heads, blocks, 4, 2, 8, tiles, 8, 4, 2).permute(
+        0, 1, 5, 6, 2, 4, 7, 3, 8).contiguous()
+
+
 def _kernel_max_len(lib: str, symbol: str, head_dim: int) -> int:
     """``symbol(head_dim)`` of kernel library ``lib``: the longest sequence
     whose (32, L) fp32 score tile fits the current card's shared memory."""
@@ -108,13 +136,6 @@ def _kernel_max_len(lib: str, symbol: str, head_dim: int) -> int:
         fn.restype = ctypes.c_int
         _max_len_cache[key] = fn(head_dim)
     return _max_len_cache[key]
-
-
-def max_seq_len(head_dim: int) -> int:
-    """The longest sequence the kernel takes on the current card: its
-    (32, L) fp32 score tile lives in shared memory."""
-    return _kernel_max_len("t5_attention_core", "t5_attention_core_max_len",
-                           head_dim)
 
 
 def _check_kernel_inputs(q, k, v, pos_bias, mask, num_heads):
@@ -161,12 +182,6 @@ def _check_kernel_inputs(q, k, v, pos_bias, mask, num_heads):
         raise ValueError(
             f"t5_attention_core: mask is {tuple(mask.shape)}, expected "
             f"{(batch, seq)}")
-    limit = max_seq_len(head_dim)
-    if seq > limit:
-        raise ValueError(
-            f"t5_attention_core: sequence length {seq} exceeds {limit}, the "
-            f"longest whose score tile fits this card's shared memory at "
-            f"head size {head_dim}")
     return head_dim
 
 
@@ -177,18 +192,29 @@ def t5_attention_core(
     pos_bias: torch.Tensor,  # (H, L, L) fp32
     mask: torch.Tensor,      # (B, L) int32 key-validity mask
     num_heads: int,
+    bias_tiles: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """T5 encoder self-attention core: scores + position bias + key mask +
     softmax + PV. CPU tensors take the plain version; CUDA tensors launch
     the kernel (``t5_attention_core.launches`` counts those launches) or
-    raise."""
+    raise. The kernel reads the bias as ``t5_bias_tiles(pos_bias)``, which
+    the caller may pass (the encoder builds it once for its layers) and
+    which is made here otherwise."""
     if q.device.type == "cpu":
         return t5_attention_core_plain(q, k, v, pos_bias, mask, num_heads)
     batch, seq, _ = q.shape
     head_dim = _check_kernel_inputs(q, k, v, pos_bias, mask, num_heads)
+    if bias_tiles is None:
+        bias_tiles = t5_bias_tiles(pos_bias)
+    blocks = -(-seq // (2 * T5_BIAS_BLOCK)) * 2
+    tiles = -(-seq // T5_BIAS_BLOCK)
+    _check_tensors("t5_attention_core", q.device,
+                   {"bias_tiles": torch.float32}, bias_tiles=bias_tiles)
+    _check_shapes("t5_attention_core", bias_tiles=(
+        bias_tiles, (num_heads, blocks, tiles, 8, 4, 8, 4, 2, 2)))
     out = torch.empty_like(q)
     rc = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_tiles.data_ptr(),
         mask.data_ptr(), out.data_ptr(), batch, seq, num_heads, head_dim,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -719,8 +745,11 @@ fused_t5_ffn.launches = 0
 
 # The GEMMs' tiles take widths (D, 3 x D, F) that are whole numbers of
 # 128-wide column tiles; the whole blocks' attention kernel keeps a (32, L)
-# fp32 score tile in shared memory (attention_core's takes any L).
+# fp32 score tile in shared memory (attention_core's takes any L); the
+# LayerNorm of csrc/block_stages.cuh keeps a row of at most NORM_MAX_WIDTH
+# in one warp's registers.
 VIT_WIDTH_MULTIPLE = 128
+NORM_MAX_WIDTH = 4096
 QUICK_GELU_ALPHA = 1.702
 
 
@@ -879,6 +908,13 @@ def _check_vit_widths(op: str, **widths: int) -> None:
                 f"{VIT_WIDTH_MULTIPLE}")
 
 
+def _check_norm_width(op: str, d_model: int) -> None:
+    """A width the bf16 kernels' LayerNorm takes (its GEMMs' too)."""
+    if d_model > NORM_MAX_WIDTH:
+        raise ValueError(f"{op}: width D={d_model} exceeds the LayerNorm "
+                         f"kernel's {NORM_MAX_WIDTH}")
+
+
 def _check_shapes(op: str, **pairs) -> None:
     for name, (t, shape) in pairs.items():
         if tuple(t.shape) != tuple(shape):
@@ -950,6 +986,7 @@ def fused_ln_qkv(
                   wq=(wq, mat), bq=(bq, vec), wk=(wk, mat), bk=(bk, vec),
                   wv=(wv, mat), bv=(bv, vec))
     _check_vit_widths(op, D=d_model)
+    _check_norm_width(op, d_model)
     rows, dev = batch * seq, x.device
     h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
     q, k, v = (torch.empty_like(x) for _ in range(3))
@@ -1031,6 +1068,7 @@ def fused_mlp_block(
                   w_fc=(w_fc, (d_model, d_ff)), b_fc=(b_fc, (d_ff,)),
                   w_proj=(w_proj, (d_ff, d_model)), b_proj=(b_proj, vec))
     _check_vit_widths(op, D=d_model, F=d_ff)
+    _check_norm_width(op, d_model)
     rows, dev = batch * seq, x.device
     h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
     # the bf16 quickGELU hidden goes through device memory once
@@ -1381,6 +1419,7 @@ def fused_vit_block(
                   w_fc=(w_fc, (d_model, d_ff)), b_fc=(b_fc, (d_ff,)),
                   w_proj=(w_proj, (d_ff, d_model)), b_proj=(b_proj, vec))
     _check_vit_widths(op, D=d_model, F=d_ff)
+    _check_norm_width(op, d_model)
     head_dim = _vit_head_dim(op, seq, d_model, num_heads)
     rows, dev = batch * seq, x.device
     # through device memory, once each: bf16 h (LN1, then LN2), q, k, v and
@@ -1762,6 +1801,7 @@ def fused_gpt2_block(
                   mlp_proj=(w_proj, (d_ff, d_model)),
                   mlp_proj_bias=(b_proj, vec))
     _check_vit_widths(op, D=d_model, F=d_ff)
+    _check_norm_width(op, d_model)
     if num_heads <= 0 or d_model % num_heads:
         raise ValueError(
             f"{op}: width {d_model} is not a multiple of {num_heads} heads")

@@ -7,6 +7,8 @@ time it.
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --int8-digests [--int8-times]
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --bf16-times
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --flash-reference
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --attention-variants DIR [DIR ...]
@@ -23,7 +25,11 @@ ones (``fused_qkv_q8`` and ``fused_mlp_block_q8`` at ViT-L/14@336 widths on
 them at the main shapes (ViT-L on 256 images, ViT-B/32 on 1024) with each
 CUDA kernel's device ms. Both need only what the port had since its int8
 whole block, so this file copied into an older tree digests and times that
-tree's build;
+tree's build; ``--bf16-times`` times ``t5_attention_core`` at the main
+path's shape (B = 32, L = 557, 32 heads of 64, padded tails and a fully
+masked row), ``fused_ln_qkv`` at ViT-L/14@336 widths on 256 images and
+``fused_vit_block`` at ViT-B/32's on 1024, each with its CUDA kernels'
+device ms (the LayerNorm stage among them), in the same way;
 ``cross_attention_decode`` on layer 7 of 24 stacked (32, 557, 2048) bf16
 caches; the CLIP ViT ``split3`` kernels (``fused_ln_qkv``,
 ``attention_core_oproj``, ``fused_mlp_block``) and the int8 path's
@@ -90,9 +96,9 @@ def cuda_ms(fn, iters: int) -> float:
 def kernel_split(fn, calls: int = 6) -> dict:
     """The device ms per call of each CUDA kernel that fn launches, under
     torch.profiler over ``calls`` calls after a warm one: its row_quant,
-    attention and GEMM kernels numbered in launch order (``row_quant_0``,
-    ``gemm_0``, ...), every other kernel (PyTorch's copies) summed as
-    ``other``. The profiler drops a kernel's record now and then, so a
+    layer_norm, attention and GEMM kernels numbered in launch order
+    (``row_quant_0``, ``gemm_0``, ...), every other kernel (PyTorch's
+    copies) summed as ``other``. The profiler drops a kernel's record now and then, so a
     fill kernel before each call marks where the call begins, and only the
     calls whose records are all there count."""
     marker = torch.zeros(1, device="cuda")
@@ -114,8 +120,8 @@ def kernel_split(fn, calls: int = 6) -> dict:
             continue
         if not runs:
             continue
-        kind = next((k for k in ("row_quant", "attention", "gemm")
-                     if k in event.name), "other")
+        kind = next((k for k in ("row_quant", "layer_norm", "attention",
+                                 "gemm") if k in event.name), "other")
         runs[-1].setdefault(kind, []).append(event.time_range.elapsed_us())
     shapes = [tuple(sorted((k, len(v)) for k, v in run.items()))
               for run in runs]
@@ -195,11 +201,60 @@ def int8_encoder_digests() -> None:
 
 
 def int8_times(cases: dict, label: str = "") -> None:
-    """Each of int8_cases' kernels: CUDA-event ms and each CUDA kernel's
-    device ms, one line each after ``label``."""
+    """Each of the cases' kernels (int8_cases', bf16_cases'): CUDA-event ms
+    and each CUDA kernel's device ms, one line each after ``label``."""
     for name, (fn, args) in cases.items():
         print(f"{label}{name}: {cuda_ms(lambda: fn(*args), 10)} ms; by CUDA "
               f"kernel {kernel_split(lambda: fn(*args))}", flush=True)
+
+
+def bf16_cases() -> dict:
+    """name -> (kernel, its arguments) of t5_attention_core at the main
+    path's shape (B = 32, L = 557, 32 heads of 64; padded tails and a fully
+    masked row), fused_ln_qkv at ViT-L/14@336 widths on 256 images and
+    fused_vit_block at ViT-B/32's on 1024 (one layer of the tower's init
+    weights, random LayerNorm parameters and biases), all from seeded
+    generators; only what the port had since its whole blocks."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    batch, seq, heads, dh = 32, 557, 32, 64
+    q, k = (randn(batch, seq, heads * dh, scale=0.5).bfloat16()
+            for _ in range(2))
+    v = (torch.rand((batch, seq, heads * dh), generator=gen, device="cuda")
+         * 2 - 1).bfloat16()
+    bias = randn(heads, seq, seq, scale=0.5)
+    mask = torch.ones((batch, seq), dtype=torch.int32, device="cuda")
+    for b in range(1, batch, 4):
+        mask[b, seq - 40 - 3 * b:] = 0
+    mask[batch - 1] = 0
+    cases = {"t5_attention_core": (fab.t5_attention_core,
+                                   (q, k, v, bias, mask, heads))}
+    width = 1024
+    x = randn(256, 577, width).bfloat16()
+    ln = [(1 + randn(width, scale=0.1)).bfloat16(),
+          randn(width, scale=0.1).bfloat16()]
+    wb = [t for _ in range(3) for t in (
+        randn(width, width, scale=width ** -0.5).bfloat16(),
+        randn(width, scale=0.1).bfloat16())]
+    cases["fused_ln_qkv"] = (fab.fused_ln_qkv, (x, *ln, *wb, 64 ** -0.5))
+    cfg = clip.CLIPVisionConfig.vit_b_32(num_layers=1)
+    layer = {name: leaf[0] for name, leaf in clip.init_clip_vision_params(
+        gen, cfg)["blocks"].items()}
+    for name, leaf in layer.items():
+        if name.endswith(("bias", "scale")):
+            base = 1.0 if name.endswith("scale") else 0.0
+            layer[name] = (base + randn(*leaf.shape, scale=0.1)).bfloat16()
+    block = [layer[n] for n in (
+        "ln1_scale", "ln1_bias", "q", "q_bias", "k", "k_bias", "v", "v_bias",
+        "o", "o_bias", "ln2_scale", "ln2_bias", "mlp_fc", "mlp_fc_bias",
+        "mlp_proj", "mlp_proj_bias")]
+    cases["fused_vit_block"] = (fab.fused_vit_block, (
+        randn(1024, cfg.seq_len, cfg.width).bfloat16(), *block,
+        cfg.num_heads))
+    return cases
 
 
 def vit_block_q8_case(cfg, batch: int, seed: int = 0) -> tuple:
@@ -237,6 +292,10 @@ def main() -> None:
         if "--int8-times" in sys.argv[1:]:
             print(torch.cuda.get_device_name(0), flush=True)
             int8_times(int8_cases(256, 1024))
+        return
+    if "--bf16-times" in sys.argv[1:]:
+        print(torch.cuda.get_device_name(0), flush=True)
+        int8_times(bf16_cases())
         return
     if "--flash-reference" in sys.argv[1:]:
         flash_reference()

@@ -7,9 +7,13 @@ import pytest
 import torch
 
 from explicit_alignment_for_vqa_tasks_tpu_torch import kernels
+from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (
+    fused_attention_block as fab,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import (
     t5_attention_core,
     t5_attention_core_plain,
+    t5_bias_tiles,
 )
 
 # (batch, length, heads, head_dim, padded tails per row, fully masked rows)
@@ -18,6 +22,9 @@ CASES = {
     "odd_heads": (2, 11, 3, 8, (1, 0), ()),
     "five_heads_dh16": (2, 21, 5, 16, (0, 7), (1,)),
     "single_row": (1, 9, 2, 8, (0,), ()),
+    # masked keys 60-64 and 59-128 straddle the kernel's 64-key tiles
+    "straddle_tile_65": (2, 65, 2, 16, (5, 0), ()),
+    "straddle_tiles_129": (2, 129, 2, 16, (0, 70), (0,)),
 }
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -98,6 +105,31 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert t5_attention_core.launches == before
 
 
+@pytest.mark.parametrize("length", [13, 70, 129])
+def test_bias_tiles_put_each_value_where_its_thread_reads_it(length):
+    """t5_bias_tiles: bias[h, row, col] at float 4 (128 g + t) + 2 half + e
+    of block (h, row // 64, col // 64), t = 32 w + 4 gid + tig for the
+    block's row 16 w + 8 half + gid and column 8 g + 2 tig + e (wgmma's
+    accumulator layout), an even number of 64-row blocks, zeros past L."""
+    heads = 2
+    bias = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (heads, length, length)).astype(np.float32))
+    tiles = t5_bias_tiles(bias)
+    blocks, keys = -(-length // 128) * 2, -(-length // 64)
+    assert tiles.shape == (heads, blocks, keys, 8, 4, 8, 4, 2, 2)
+    assert tiles.is_contiguous()
+    flat = tiles.reshape(heads, blocks, keys, 4096)
+    h, row, col = np.meshgrid(np.arange(heads), np.arange(length),
+                              np.arange(length), indexing="ij")
+    rr, cc = row % 64, col % 64
+    t = 32 * (rr // 16) + 4 * (rr % 8) + (cc % 8) // 2
+    at = 4 * (128 * (cc // 8) + t) + 2 * ((rr % 16) // 8) + cc % 2
+    got = flat[h, row // 64, col // 64, at]
+    np.testing.assert_array_equal(got.numpy(), bias.numpy())
+    assert float(flat.abs().sum()) == pytest.approx(
+        float(bias.abs().sum()), rel=1e-6)
+
+
 def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
     monkeypatch.setattr(kernels.os.path, "exists", lambda path: False)
@@ -113,12 +145,19 @@ def test_library_path_is_keyed_by_source_hash():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch,length,heads,head_dim", [
-    (4, 557, 32, 64),   # the main path's length and heads at T0-3B width
-    (2, 37, 3, 16),
-    (3, 130, 5, 128),
+@pytest.mark.parametrize("batch,length,heads,head_dim,edge", [
+    (4, 557, 32, 64, None),   # the main path's length and heads at T0-3B width
+    (2, 37, 3, 16, None),
+    (3, 130, 5, 128, None),
+    (2, 1, 3, 32, None),      # a single key
+    (3, 65, 4, 64, 64),       # a key tile of one key; row 0 masked from 64
+    (2, 1700, 2, 64, None),   # beyond the earlier shared-memory length cap
+    (32, 557, 32, 64, None),  # the main path's shape
 ])
-def test_cuda_kernel_matches_plain_version(batch, length, heads, head_dim):
+def test_cuda_kernel_matches_plain_version(batch, length, heads, head_dim,
+                                           edge):
+    """bf16: within 8e-3 (1 + |want|) of the plain version, one launch
+    counted; the last row, fully masked, is the mean of v over all keys."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -134,6 +173,8 @@ def test_cuda_kernel_matches_plain_version(batch, length, heads, head_dim):
     bias = randn(heads, length, length)
     mask = torch.ones((batch, length), dtype=torch.int32, device="cuda")
     mask[1, -length // 5:] = 0
+    if edge is not None:
+        mask[0, edge:] = 0
     mask[batch - 1] = 0
     before = t5_attention_core.launches
     got = t5_attention_core(q, k, v, bias, mask, heads)
@@ -141,6 +182,13 @@ def test_cuda_kernel_matches_plain_version(batch, length, heads, head_dim):
     assert t5_attention_core.launches == before + 1
     want = t5_attention_core_plain(q, k, v, bias, mask, heads)
     torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=8e-3)
+    # the bias tiles the encoder builds once for its layers: the same bits
+    assert torch.equal(t5_attention_core(q, k, v, bias, mask, heads,
+                                         t5_bias_tiles(bias)), got)
+    uniform = v[batch - 1].float().mean(dim=0)
+    torch.testing.assert_close(got[batch - 1].float(),
+                               uniform.expand(length, -1), rtol=8e-3,
                                atol=8e-3)
     with pytest.raises(ValueError, match="bfloat16"):
         t5_attention_core(q.float(), k.float(), v.float(), bias, mask, heads)

@@ -242,8 +242,11 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     before = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert kernels.SOURCES["vit_block"] == "vit_block.cu"
     assert [p.name for p in kernels.included_files("vit_block")] == [
-        "vit_block.cu", "block_stages.cuh", "vit_attention.cuh",
-        "vit_attention_wgmma.cuh", "bf16_gemm.cuh", "hopper_async.cuh"]
+        "vit_block.cu", "bf16_gemm_tma.cuh", "block_stages.cuh",
+        "vit_attention.cuh", "vit_attention_wgmma.cuh", "hopper_async.cuh",
+        "bf16_gemm.cuh"]
+    assert [p.name for p in kernels.included_files("t5_attention_core")] == [
+        "t5_attention_core.cu", "vit_attention_wgmma.cuh", "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("int8_encoder")] == [
         "int8_encoder.cu", "q8_gemm.cuh", "q8_gemm_tma.cuh",
         "hopper_async.cuh"]
@@ -265,7 +268,10 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
 @pytest.mark.parametrize("header,users", [
     ("q8_gemm_tma.cuh", {"int8_encoder", "vit_block_q8"}),
     ("q8_gemm.cuh", {"int8_encoder", "vit_block_q8"}),
-    ("hopper_async.cuh", {"int8_encoder", "vit_block_q8", "vit_block"}),
+    ("hopper_async.cuh", {"int8_encoder", "vit_block_q8", "vit_block",
+                          "t5_attention_core"}),
+    ("bf16_gemm_tma.cuh", {"vit_block"}),
+    ("vit_attention_wgmma.cuh", {"vit_block", "t5_attention_core"}),
 ])
 def test_editing_a_header_renames_exactly_its_users(tmp_path, monkeypatch,
                                                      header, users):
@@ -285,12 +291,23 @@ def test_editing_a_header_renames_exactly_its_users(tmp_path, monkeypatch,
 
 # --- on the card: the CUDA kernels against the plain versions --------------
 
+# (kernel, images, tokens, width, heads): every kernel at ViT-L/14@336
+# widths on 2 images; fused_ln_qkv also with rows that are no multiple of
+# its GEMM's 128-row tiles (150, 77, 394) at widths of 128-wide column
+# tiles (640) and of 256-wide ones (768, 1024)
+CUDA_CASES = [pytest.param(name, 2, 577, 1024, 16, id=name)
+              for name in KERNELS] + [
+    pytest.param("fused_ln_qkv", 3, 50, 640, 10, id="fused_ln_qkv-D640"),
+    pytest.param("fused_ln_qkv", 1, 77, 768, 12, id="fused_ln_qkv-D768"),
+    pytest.param("fused_ln_qkv", 2, 197, 1024, 16, id="fused_ln_qkv-D1024"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", KERNELS)
-def test_cuda_kernel_matches_plain_version(name):
-    """ViT-L/14@336 widths (L 577, D 1024, 16 heads, F 4096) on 2 images,
-    bf16: every element within 8e-3 (1 + |want|) of the plain version, one
-    launch counted, and fp32 inputs refused."""
+@pytest.mark.parametrize("name,batch,seq,width,heads", CUDA_CASES)
+def test_cuda_kernel_matches_plain_version(name, batch, seq, width, heads):
+    """bf16 (F = 4 D): every element within 8e-3 (1 + |want|) of the plain
+    version, one launch counted, and fp32 inputs refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -299,7 +316,7 @@ def test_cuda_kernel_matches_plain_version(name):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 ).bfloat16()
 
-    batch, seq, width, heads, d_ff = 2, 577, 1024, 16, 4096
+    d_ff = 4 * width
     x = randn(batch, seq, width)
     ln_s, ln_b = 1 + randn(width, scale=0.1), randn(width, scale=0.1)
     w = [randn(width, width, scale=width ** -0.5) for _ in range(4)]
