@@ -60,8 +60,14 @@ register / shared-memory / spill report):
              scaled_dot_product_attention and bound times
   t5_ffn     the fused_t5_ffn kernel against its plain version at the
              encoder's shapes (M = 32 x 557 rows, D = 2048, F = 5120,
-             gated), with kernel, plain, bound times and the unfused bf16
-             FFN's (three cuBLAS matmuls, gelu and gate) as the yardstick
+             gated, and non-gated on the same inputs), with kernel, plain,
+             bound times and the unfused bf16 FFN's (three cuBLAS matmuls,
+             gelu and gate) as the yardstick; also with each CUDA kernel's
+             device ms (its RMSNorm, the paired up-GEMM and the residual
+             down-GEMM on bf16_gemm_tma.cuh) and the GEMMs beside cuBLAS
+             matmuls of the same products (the up pair as one matmul over
+             [wi_0 | wi_1]), their sum held within
+             BF16_GEMM_STAGE_MAX_RATIO of cuBLAS's
   generate_fused
              the configuration with every fused kernel (fused_encoder_attention,
              fused_encoder_ffn, fused_decode_attention) on the same weights
@@ -88,10 +94,11 @@ register / shared-memory / spill report):
              then timed at the image encoder's batch of 256 beside the plain
              version, the bound and a library yardstick (layer_norm and
              cuBLAS matmuls; scaled_dot_product_attention); fused_ln_qkv
-             also with each CUDA kernel's device ms (its LayerNorm and its
-             q | k | v GEMM on bf16_gemm_tma.cuh) and the GEMM beside cuBLAS
-             addmm of the same product alone, held within
-             BF16_GEMM_STAGE_MAX_RATIO of it;
+             and fused_mlp_block also with each CUDA kernel's device ms
+             (the LayerNorm, and the q | k | v GEMM or the up and down
+             GEMMs, on bf16_gemm_tma.cuh) and the GEMMs beside cuBLAS addmm
+             of the same products alone, their sum held within
+             BF16_GEMM_STAGE_MAX_RATIO of cuBLAS's;
              attention_core_oproj also with its attention stage timed alone
              and the bound of its two-pass route (operations, exponentials
              and bytes); at most 0.5 % of that stage's outputs may differ
@@ -279,8 +286,8 @@ INT8_COSINE_FLOOR = 0.95           # a sanity floor; the value is recorded
 # the GEMM stage of every int8 kernel (its s8 GEMM kernels' device time, all
 # on q8_gemm_tma.cuh) against torch._int_mm of the same products
 Q8_GEMM_STAGE_MAX_RATIO = 2.0
-# the same for fused_ln_qkv's bf16 GEMM (bf16_gemm_tma.cuh) against cuBLAS
-# addmm of the same product
+# the same for the bf16 GEMMs on bf16_gemm_tma.cuh (fused_ln_qkv,
+# fused_mlp_block, fused_t5_ffn) against cuBLAS of the same products
 BF16_GEMM_STAGE_MAX_RATIO = Q8_GEMM_STAGE_MAX_RATIO
 DECODE_LAYER = 7                   # the cache layer the decode kernel reads
 # transposed int8 cross-KV logits against unmerged: the same products
@@ -903,16 +910,19 @@ def gemm_stage(name: str, split: dict, int_mm_ms: list) -> dict:
                 gemm_vs_int_mm=[g / i for g, i in zip(gemm_ms, int_mm_ms)])
 
 
-def bf16_gemm_stage(name: str, split: dict, addmm_ms: float) -> dict:
-    """The one bf16 GEMM kernel of ``split`` beside cuBLAS addmm of the same
-    product (bias included, no epilogue of its own); fails unless within
-    BF16_GEMM_STAGE_MAX_RATIO of it."""
-    ratio = split["gemm_0"] / addmm_ms
+def bf16_gemm_stage(name: str, split: dict, cublas_ms: list) -> dict:
+    """The bf16 GEMM kernels of ``split`` (all on bf16_gemm_tma.cuh) beside
+    cuBLAS calls of the same products, in order (addmm where the kernel
+    adds a bias, else matmul; no epilogue of their own); fails unless
+    their sum is within BF16_GEMM_STAGE_MAX_RATIO of cuBLAS's."""
+    gemm_ms = [split[f"gemm_{i}"] for i in range(len(cublas_ms))]
+    ratio = sum(gemm_ms) / sum(cublas_ms)
     check(ratio <= BF16_GEMM_STAGE_MAX_RATIO,
-          f"{name}: its GEMM takes {split['gemm_0']} ms, {ratio} x cuBLAS "
-          f"addmm's {addmm_ms}")
-    return dict(kernel_split_ms=split, gemm_ms=split["gemm_0"],
-                addmm_ms=addmm_ms, gemm_vs_addmm=ratio)
+          f"{name}: its GEMM stage takes {sum(gemm_ms)} ms, {ratio} x "
+          f"cuBLAS's {sum(cublas_ms)}")
+    return dict(kernel_split_ms=split, gemm_ms=gemm_ms, cublas_ms=cublas_ms,
+                gemm_stage_ms=sum(gemm_ms), gemm_stage_vs_cublas=ratio,
+                gemm_vs_cublas=[g / c for g, c in zip(gemm_ms, cublas_ms)])
 
 
 def phase_profile(model: VCT0Model, prefix, tokens, mask,
@@ -1055,7 +1065,9 @@ def phase_decode_attention(gen: torch.Generator) -> dict:
 
 def phase_t5_ffn(gen: torch.Generator) -> dict:
     """The bf16 FFN kernel against its plain version at the encoder's
-    shapes (gated, T0-3B widths)."""
+    shapes (gated, T0-3B widths), timed, split by CUDA kernel with each
+    GEMM beside cuBLAS; the non-gated form against its plain version at
+    the same widths."""
     cfg = t5_lib.T5Config.t0_3b()
     length = splice_output_length(PROMPT_LEN, PREFIX_LENGTH, NUM_SHOTS + 1)
     d_model, d_ff = cfg.d_model, cfg.d_ff
@@ -1077,8 +1089,13 @@ def phase_t5_ffn(gen: torch.Generator) -> dict:
           "TF32 matmuls are on: the plain version must multiply in fp32")
     want = fused_t5_ffn_plain(*args)
     errs = compare_q8(got, want)
-    del want
+    non_gated = (x, lnw, wi_0, None, wo, cfg.layer_norm_epsilon)
+    got = fused_t5_ffn(*non_gated)
+    torch.cuda.synchronize()
+    non_gated_errs = compare_q8(got, fused_t5_ffn_plain(*non_gated))
+    del got, want
     kernel_ms = cuda_ms(lambda: fused_t5_ffn(*args), iters=10)
+    non_gated_ms = cuda_ms(lambda: fused_t5_ffn(*non_gated), iters=10)
     plain_ms = cuda_ms(lambda: fused_t5_ffn_plain(*args), iters=3, warmup=1)
     # yardstick only: the unfused bf16 FFN the encoder runs without
     # fused_encoder_ffn (three cuBLAS matmuls, gelu, gate, residual)
@@ -1086,13 +1103,28 @@ def phase_t5_ffn(gen: torch.Generator) -> dict:
     library_ms = cuda_ms(lambda: x + t5_lib._ffn_block(
         ffn_p, t5_lib.rms_norm(x, lnw, cfg.layer_norm_epsilon), cfg),
         iters=10)
+    # its RMSNorm and two GEMMs by CUDA kernel, each GEMM beside cuBLAS:
+    # the up pair as one matmul over [wi_0 | wi_1], the down as one matmul
+    # (a hidden of its own generator's, so that the later phases' inputs
+    # stay those of earlier runs)
+    h = x.view(rows, d_model)
+    w_up = torch.cat([wi_0, wi_1], 1)
+    hid = torch.randn((rows, d_ff), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev).bfloat16()
+    cublas_ms = [cuda_ms(lambda: torch.matmul(h, w_up), iters=10),
+                 cuda_ms(lambda: torch.matmul(hid, wo), iters=10)]
+    del w_up, hid
+    split = kernel_split(lambda: fused_t5_ffn(*args))
     bytes_moved = 2 * rows * d_model * 2 + d_model * 2 + 3 * d_model * d_ff * 2
     flops = 3 * 2 * rows * d_model * d_ff
     result = dict(
         shape=dict(M=rows, D=d_model, F=d_ff, gated=True),
         ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
         library="unfused bf16 FFN: rms_norm, 3 torch.matmul, gelu, gate",
-        **errs, **bound(bytes_moved, flops, BF16_FLOP_PER_S))
+        **errs, non_gated=dict(ms=non_gated_ms, **non_gated_errs),
+        rms_norm_ms=split["rms_norm_0"],
+        **bf16_gemm_stage("fused_t5_ffn", split, cublas_ms),
+        **bound(bytes_moved, flops, BF16_FLOP_PER_S))
     emit("t5_ffn", kernel_ms=kernel_ms, **{
         key: val for key, val in result.items() if key != "ms"})
     return result
@@ -1344,7 +1376,21 @@ def phase_vit_kernels(gen: torch.Generator) -> dict:
             del h
             split = kernel_split(lambda: fn(*full))
             extra = dict(layer_norm_ms=split["layer_norm_0"],
-                         **bf16_gemm_stage(name, split, addmm_ms))
+                         **bf16_gemm_stage(name, split, [addmm_ms]))
+        if name == "fused_mlp_block":
+            # its LayerNorm and two GEMMs by CUDA kernel, beside two cuBLAS
+            # addmm of the same products (up (M, D) . (D, F), down (M, F)
+            # . (F, D))
+            h = f.layer_norm(x, (width,), ln_s, ln_b,
+                             cfg.layer_norm_epsilon).view(-1, width)
+            hid = torch.addmm(b_fc, h, w_fc)
+            cublas_ms = [cuda_ms(lambda: torch.addmm(b_fc, h, w_fc), iters=10),
+                         cuda_ms(lambda: torch.addmm(b_pr, hid, w_pr),
+                                 iters=10)]
+            del h, hid
+            split = kernel_split(lambda: fn(*full))
+            extra = dict(layer_norm_ms=split["layer_norm_0"],
+                         **bf16_gemm_stage(name, split, cublas_ms))
         if name == "attention_core_oproj":
             # the attention stage alone (the same kernel, attention_core's
             # bf16_sum order) splits the time into attention and GEMM

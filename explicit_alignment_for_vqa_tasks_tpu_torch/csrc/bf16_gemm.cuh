@@ -1,23 +1,23 @@
-// The bf16 GEMM main loop that csrc/t5_ffn.cu and csrc/vit_block.cu share,
-// for NVIDIA Hopper (sm_90a), with the block reduction of their norm passes.
+// The bf16 mma.sync GEMM main loop of block_stages.cuh (the products of
+// fused_vit_block but its q | k | v, of attention_core_oproj's
+// out-projection, fused_attention_block and fused_gpt2_block), for NVIDIA
+// Hopper (sm_90a). The other bf16 products run on bf16_gemm_tma.cuh.
 //
 // One 128 x 128 output tile per block of eight warps on the tensor cores
 // with mma.sync m16n8k16 (bf16 in, fp32 accumulate). A 4-slot cp.async ring
 // stages 32-deep k steps of A (row-major (M, K)) and B (the JAX (K, N)
 // layout as it is: ldmatrix.trans gives the B fragments, so the weights
 // need no transpose); the shared rows are padded by 16 bytes so that
-// ldmatrix reads are free of bank conflicts. With NPROD = 2 a block takes
-// 64 columns of each of two products over the same A, so that a thread
-// holds both accumulators of an output element.
+// ldmatrix reads are free of bank conflicts.
 //
 // Each kernel that includes this file writes its own epilogue from the
 // accumulators: acc[mt][s][e] of warp w (warp_m = w / 4, warp_n = w % 4)
 // and lane l (gid = l / 4, tig = l % 4) is row
 //   m0 + 64 warp_m + 16 mt + gid + 8 (e / 2)
-// and, of product s / SPP (SPP = 4 / NPROD n8 slots per product), column
-//   n0 + SPP 8 warp_n + 8 (s % SPP) + 2 tig + e % 2.
-// The caller guarantees K % BK == 0 and N % (B_COLS / NPROD) == 0; rows at
-// or past M are zero-filled and must not be stored.
+// and column
+//   n0 + 32 warp_n + 8 s + 2 tig + e % 2.
+// The caller guarantees K % BK == 0 and N % B_COLS == 0; rows at or past M
+// are zero-filled and must not be stored.
 
 #pragma once
 
@@ -30,10 +30,9 @@ namespace bf16_gemm {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 256;  // threads per block, GEMM and norm kernels
-constexpr int NWARPS = NT / 32;
+constexpr int NT = 256;  // threads per block
 constexpr int BM = 128, BK = 32;  // block rows and k step
-constexpr int B_COLS = 128;       // B tile columns over all products
+constexpr int B_COLS = 128;       // B tile columns
 constexpr int STAGES = 4;         // cp.async ring slots
 constexpr int A_LD = BK + 8;      // padded shared row of A (elements)
 constexpr int B_LD = B_COLS + 8;  // padded shared row of B (elements)
@@ -41,30 +40,6 @@ constexpr int A_TILE = BM * A_LD;
 constexpr int B_TILE = BK * B_LD;
 constexpr int STAGE_ELEMS = A_TILE + B_TILE;
 constexpr int GEMM_SMEM = STAGES * STAGE_ELEMS * 2;
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  return v;
-}
-
-// Block-wide sum of one value per thread; every thread gets the result.
-// `red` holds NWARPS + 1 floats of shared memory.
-__device__ inline float block_sum(float v, float* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < NWARPS ? red[lane] : 0.0f;
-    t = warp_sum(t);
-    if (lane == 0) red[NWARPS] = t;
-  }
-  __syncthreads();
-  return red[NWARPS];
-}
 
 __device__ inline uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -101,18 +76,12 @@ __device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc = A[m0 : m0 + BM] . B[0][:, n0 : n0 + B_COLS / NPROD] (and the same
-// columns of B[1] when NPROD = 2), in the fragment layout described above.
-// `smem` holds GEMM_SMEM bytes of dynamic shared memory.
-template <int NPROD>
+// acc = A[m0 : m0 + BM] . B[:, n0 : n0 + B_COLS], in the fragment layout
+// described above. `smem` holds GEMM_SMEM bytes of dynamic shared memory.
 __device__ __forceinline__ void mainloop(bf16* smem, const bf16* a,
-                                         const bf16* b0, const bf16* b1,
-                                         int M, int K, int N, int m0, int n0,
+                                         const bf16* b, int M, int K, int N,
+                                         int m0, int n0,
                                          float (&acc)[4][4][4]) {
-  constexpr int BN_P = B_COLS / NPROD;  // columns per product
-  constexpr int SPP = 4 / NPROD;        // n8 slots per product per warp
-  constexpr int CPP = BN_P / 8;         // 16-byte chunks per B row, product
-
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int warp_m = warp / 4, warp_n = warp % 4;
   const int steps = K / BK;
@@ -134,16 +103,9 @@ __device__ __forceinline__ void mainloop(bf16* smem, const bf16* a,
     for (int u = 0; u < BK * (B_COLS / 8) / NT; ++u) {
       const int idx = threadIdx.x + u * NT;
       const int r = idx / (B_COLS / 8), c = idx % (B_COLS / 8);
-      const bf16* b = c < CPP ? b0 : b1;
-      const bf16* src = b + static_cast<size_t>(k0 + r) * N + n0 +
-                        (c % CPP) * 8;
+      const bf16* src = b + static_cast<size_t>(k0 + r) * N + n0 + c * 8;
       cp_async16(sb + r * B_LD + c * 8, src, true);
     }
-  };
-
-  // shared column of n8 slot s of this warp
-  auto slot_col = [&](int s) {
-    return (s / SPP) * BN_P + warp_n * (SPP * 8) + (s % SPP) * 8;
   };
 
 #pragma unroll
@@ -182,7 +144,7 @@ __device__ __forceinline__ void mainloop(bf16* smem, const bf16* a,
       for (int j = 0; j < 2; ++j) {
         uint32_t t[4];
         ldmatrix_x4_trans(t, sb + (kk * 16 + (lane % 16)) * B_LD +
-                                 slot_col(2 * j) + (lane / 16) * 8);
+                                 warp_n * 32 + 16 * j + (lane / 16) * 8);
         bfr[2 * j][0] = t[0];
         bfr[2 * j][1] = t[1];
         bfr[2 * j + 1][0] = t[2];

@@ -1,7 +1,8 @@
 // The bf16 GEMM main loop on TMA and asynchronous wgmma, for NVIDIA Hopper
 // (sm_90a): the q | k | v product of fused_ln_qkv (csrc/vit_block.cu, and
-// through it fused_vit_block's). The bf16 counterpart of q8_gemm_tma.cuh,
-// with its design:
+// through it fused_vit_block's), the products of fused_mlp_block
+// (csrc/vit_block.cu) and of fused_t5_ffn (csrc/t5_ffn.cu). The bf16
+// counterpart of q8_gemm_tma.cuh, with its design:
 //
 //   acc = a . b     a (M, K) bf16, K contiguous; b (K, N) bf16 in the JAX
 //                   layout, N contiguous; fp32 accumulation
@@ -10,10 +11,16 @@
 // columns each (b_0 | b_1 | b_2, each (K, n_split)), one tensor map each,
 // and go to as many bf16 outputs (c_0 | c_1 | c_2, each (M, n_split)), so
 // that q, k and v are one product over three separate weights with no
-// copy. Each kernel that includes this file brings its own epilogue
-// arithmetic (Epi::chunk), given acc in the wgmma accumulator layout
-// (element 4 j + e of a consumer thread is row 64 wg + 16 warp + lane / 4
-// + 8 (e / 2) of the tile and column 8 j + 2 (lane % 4) + e % 2).
+// copy. The paired form (gemm_paired) computes two products over the same
+// a, a . b_0 and a . b_1, into one output: a 256-column B tile is 128
+// columns of b_0 and the same 128 of b_1, so that n8 group j and group j +
+// 16 of a thread's accumulators are the same output column of the two
+// products (T5's gate, gelu(a . wi_0) * (a . wi_1), with no weight copy).
+// Each kernel that includes this file brings its own epilogue arithmetic
+// (Epi::chunk), given acc in the wgmma accumulator layout (element 4 j + e
+// of a consumer thread is row 64 wg + 16 warp + lane / 4 + 8 (e / 2) of the
+// tile and column 8 j + 2 (lane % 4) + e % 2 of its B tile);
+// ResidualEpilogue below is the one they share.
 //
 // Design (persistent and warp-specialised, on TMA and asynchronous wgmma):
 //   grid      persistent: one block an SM walks over the output tiles, N
@@ -39,8 +46,11 @@
 //             on every path, and no register an in-flight product reads is
 //             rewritten, so ptxas keeps the products asynchronous.
 //   tiles     128 x 256 (128 fp32 accumulators a thread) where n_split %
-//             256 == 0, else 128 x 128; the consumers take 240 registers a
-//             thread, the producer keeps 24. The ring and the epilogue's
+//             256 == 0 or the product is paired (128 output columns), else
+//             128 x 128; the consumers take 240 registers a thread
+//             (setmaxnreg), the producer keeps 24, though ptxas compiles
+//             the whole kernel within 168 (384 threads, one block an SM),
+//             128 of them the accumulators. The ring and the epilogue's
 //             buffers take 224 KB of shared memory.
 //   epilogue  the kernel's arithmetic from registers, 64 columns at a
 //             time, into bf16 in shared memory (two 8 KB buffers a
@@ -50,9 +60,15 @@
 //             written); the producer fills the next tile's stages
 //             meanwhile. (Stored straight from registers, 4 bytes a thread,
 //             the epilogue took 0.6 of fused_ln_qkv's 1.7 ms GEMM on an
-//             H100.)
+//             H100.) Nothing overlaps the epilogue's arithmetic with the
+//             warpgroup's next products; only the producer runs ahead.
 // Shapes: any M, K a multiple of 64, n_split a multiple of 128, one to
-// three weights (shape_ok). An mbarrier wait that lasts seconds traps.
+// three weights, or two paired (shape_ok). An mbarrier wait that lasts
+// seconds traps. Built with BF16_GEMM_TMA_BARE_EPILOGUE defined, every
+// epilogue only rounds acc (the first product's, when paired) to bf16: a
+// measurement of the loop without its epilogue's arithmetic and reads
+// (tools/kernel_probe.py --epilogue-cost), whose outputs are not the
+// function's.
 
 #pragma once
 
@@ -100,25 +116,77 @@ struct BMaps {
   CUtensorMap map[MAX_B];
 };
 
+// N output columns, each output (and weight) n_split of them.
 struct Problem {
   int M, K, N, n_split;
 };
 
+// One of the first three maps of `maps` (a dynamic index into a
+// __grid_constant__ array would copy it to local memory).
+__device__ inline const CUtensorMap* pick(const BMaps& maps, int i) {
+  return i == 0 ? &maps.map[0] : (i == 1 ? &maps.map[1] : &maps.map[2]);
+}
+
 // The columns of the tiles the loop takes for weights of n_split columns.
 inline int tile_width(int n_split) { return n_split % 256 == 0 ? 256 : 128; }
 
+// Two neighbouring elements as they lie in memory (bf16 or fp32), and as
+// floats: loads of a chunk keep them packed until used (the registers left
+// beside the accumulators are few).
+template <typename T>
+struct Pair {
+  using type = __nv_bfloat162;
+};
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <typename T>
+__device__ inline typename Pair<T>::type load_pair(const T* p) {
+  return *reinterpret_cast<const typename Pair<T>::type*>(p);
+}
+__device__ inline float2 to_float2(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
+}
+__device__ inline float2 to_float2(float2 v) { return v; }
+
+__device__ inline uint32_t pack_bf16(float v0, float v1) {
+  const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<const uint32_t*>(&pair);
+}
+
+#ifdef BF16_GEMM_TMA_BARE_EPILOGUE
+// acc's chunk rounded to bf16 and nothing else (see the file's head)
+template <int ACC, class Put>
+__device__ inline void bare_chunk(const float (&acc)[ACC], int j0,
+                                  const Put& put) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = 4 * (j0 + jj) + 2 * half;
+      put(jj, half, pack_bf16(acc[i], acc[i + 1]));
+    }
+  }
+}
+#endif
+
+// (weights = 2 also for the paired form)
 inline bool shape_ok(int M, int K, int n_split, int weights) {
   return M > 0 && K > 0 && K % BK == 0 && n_split > 0 &&
          n_split % 128 == 0 && weights >= 1 && weights <= MAX_B &&
          static_cast<long long>(n_split) * weights <= 0x7fffffff;
 }
 
-// The product over the tiles of the grid. Epi::chunk(args, which, col,
-// acc, j0, out) gives the bf16 pairs of one 64-column chunk of a thread's
-// fragments: out[2 jj + half] for its n8 group j0 + jj (columns col + 8 jj
-// + 2 (lane % 4) and the next of output `which`) and row 8 half past its
-// first; rows past M are never stored.
-template <int BN, class Epi>
+// The product over the tiles of the grid (PRODUCTS = 2: paired, BN / 2
+// output columns a tile). Epi::chunk(args, which, row, col, acc, j0, put)
+// gives the bf16 pairs of one 64-column chunk of a thread's fragments,
+// each by put(jj, half, pair) (a write to shared memory, so that a pair
+// holds no register once made): for its n8 group j0 + jj (columns col + 8
+// jj + 2 (lane % 4) and the next of output `which`; when paired, also group
+// j0 + jj + BN / 16 of the second product) and row `row` + 8 half, `row`
+// the thread's first; rows at or past M are never stored.
+template <int BN, int PRODUCTS, class Epi>
 __global__ void __launch_bounds__(NT, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             const __grid_constant__ BMaps maps_b,
@@ -126,6 +194,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             const __grid_constant__ typename Epi::Args args) {
   using T = Tiles<BN>;
   constexpr int STAGES = T::STAGES;
+  constexpr int OUT_N = BN / PRODUCTS;        // output columns a tile
+  constexpr int PANELS = BN / PANEL / PRODUCTS;  // B boxes a product
   extern __shared__ unsigned char bf16_tma_smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(bf16_tma_smem_raw) + 1023) &
@@ -133,7 +203,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   unsigned char* out_buf = ring + STAGES * T::STAGE_BYTES;  // 1024-aligned
   uint64_t* full = reinterpret_cast<uint64_t*>(out_buf + OUT_BYTES);
   uint64_t* empty = full + STAGES;
-  const int tiles_n = p.N / BN;
+  const int tiles_n = p.N / OUT_N;
   const int tiles = (p.M + BM - 1) / BM * tiles_n;
   const int steps = p.K / BK;
 
@@ -152,13 +222,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     if (threadIdx.x != CONSUMERS * 128) return;
     int t = 0;  // k steps loaded
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
-      // a tile's columns lie in one weight (n_split % BN == 0)
+      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * OUT_N;
+      // a tile's columns lie in one weight (n_split % OUT_N == 0); paired,
+      // the same columns of weights 0 and 1
       const int which = n0 / p.n_split;
       const int nb = n0 - which * p.n_split;
-      const CUtensorMap* map_b =
-          which == 0 ? &maps_b.map[0]
-                     : (which == 1 ? &maps_b.map[1] : &maps_b.map[2]);
       for (int s = 0; s < steps; ++s, ++t) {
         const int slot = t % STAGES;
         if (t >= STAGES) ha::mbar_wait(&empty[slot], (t / STAGES - 1) & 1);
@@ -167,8 +235,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         ha::tma_load_2d(sa, &map_a, &full[slot], s * BK, m0);
 #pragma unroll
         for (int pn = 0; pn < BN / PANEL; ++pn) {
-          ha::tma_load_2d(sa + T::A_BYTES + pn * T::PANEL_BYTES, map_b,
-                          &full[slot], nb + pn * PANEL, s * BK);
+          ha::tma_load_2d(sa + T::A_BYTES + pn * T::PANEL_BYTES,
+                          pick(maps_b, PRODUCTS == 2 ? pn / PANELS : which),
+                          &full[slot], nb + pn % PANELS * PANEL, s * BK);
         }
       }
     }
@@ -205,7 +274,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const int row = wtid / 32 * 16 + lane / 4;  // the thread's first, of 64
   int chunks = 0;  // epilogue chunks this warpgroup has stored
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * OUT_N;
     float acc[T::ACC];
     ha::fence_operands(acc);
     issue(acc, t, true);
@@ -223,27 +292,27 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     // TMA store of the warpgroup's 64 x 64 box
     const int which = n0 / p.n_split;
     const int col0 = n0 - which * p.n_split;
-    const CUtensorMap* map_c =
-        which == 0 ? &maps_c.map[0]
-                   : (which == 1 ? &maps_c.map[1] : &maps_c.map[2]);
+    const CUtensorMap* map_c = pick(maps_c, which);
 #pragma unroll
-    for (int c = 0; c < BN / OUT_BOX; ++c, ++chunks) {
+    for (int c = 0; c < OUT_N / OUT_BOX; ++c, ++chunks) {
       unsigned char* buf = out_buf + (2 * wg + chunks % 2) * OUT_BOX_BYTES;
       if (chunks >= 2) {  // the store of two chunks ago has read buf
         if (wtid == 0) ha::bulk_wait_read<1>();
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       }
-      uint32_t out[16];
-      Epi::chunk(args, which, col0 + OUT_BOX * c, acc, 8 * c, out);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = row + 8 * half;
-          *reinterpret_cast<uint32_t*>(buf + r * 128 + ((jj ^ (r % 8)) << 4) +
-                                       4 * (lane % 4)) = out[2 * jj + half];
-        }
-      }
+      // the bf16 pair of n8 group jj of the chunk, row `row` + 8 half, into
+      // its place in the swizzled box, as soon as the epilogue has it
+      const auto put = [&](int jj, int half, uint32_t pair) {
+        const int r = row + 8 * half;
+        *reinterpret_cast<uint32_t*>(buf + r * 128 + ((jj ^ (r % 8)) << 4) +
+                                     4 * (lane % 4)) = pair;
+      };
+#ifdef BF16_GEMM_TMA_BARE_EPILOGUE
+      bare_chunk(acc, 8 * c, put);
+#else
+      Epi::chunk(args, which, m0 + 64 * wg + row, col0 + OUT_BOX * c, acc,
+                 8 * c, put);
+#endif
       // the generic writes above come before the TMA's reads
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
@@ -255,6 +324,65 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   if (wtid == 0) ha::bulk_wait<0>();  // shared memory outlives the stores
 }
+
+// out = bf16(res + (acc + bias)) (BIAS) or bf16(res + acc), the sums in
+// fp32: res (M, ld) of ResT (bf16 or fp32), bias (n_split,) bf16. A
+// chunk's bias and residual are all read, packed, before its arithmetic
+// and its stores: loads issued one at a time between stores, each waiting
+// for memory in turn, took longer than a tile's products (q8_gemm_tma.cuh's
+// epilogues, on an H100); its pairs go to shared memory at the end, which
+// kept the 256-wide tiles free of spills. (Loading the residual's 64 x 64
+// box by TMA into the staging buffer instead took the same time.)
+template <typename ResT, bool BIAS>
+struct ResidualEpilogue {
+  struct Args {
+    const __nv_bfloat16* bias;  // BIAS only
+    const ResT* residual;
+    int M, ld;
+  };
+  template <int ACC, class Put>
+  __device__ static void chunk(const Args& args, int /*which*/, int row,
+                               int col, const float (&acc)[ACC], int j0,
+                               const Put& put) {
+    using RawRes = typename Pair<ResT>::type;
+    const int c = col + 2 * (threadIdx.x % 4);
+    __nv_bfloat162 bv[8];
+    RawRes rv[2][8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      if (BIAS) bv[jj] = load_pair(args.bias + c + 8 * jj);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // rows past M read the last row's values, which are never stored
+      const int r = min(row + 8 * half, args.M - 1);
+      const ResT* res = args.residual + static_cast<size_t>(r) * args.ld + c;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) rv[half][jj] = load_pair(res + 8 * jj);
+    }
+    uint32_t out[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = 4 * (j0 + jj) + 2 * half;
+        float v0 = acc[i], v1 = acc[i + 1];
+        if (BIAS) {
+          const float2 b = to_float2(bv[jj]);
+          v0 = __fadd_rn(v0, b.x);
+          v1 = __fadd_rn(v1, b.y);
+        }
+        const float2 r = to_float2(rv[half][jj]);
+        out[2 * jj + half] = pack_bf16(__fadd_rn(r.x, v0), __fadd_rn(r.y, v1));
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      put(jj, 0, out[2 * jj]);
+      put(jj, 1, out[2 * jj + 1]);
+    }
+  }
+};
 
 // ---- the host side ---------------------------------------------------------
 
@@ -277,9 +405,9 @@ inline bool encode_operand(CUtensorMap* map, const void* base, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, class Epi>
-int launch(const void* a, const void* const* b, void* const* c, int weights,
-           const Problem& p, const typename Epi::Args& args,
+template <int BN, int PRODUCTS, class Epi>
+int launch(const void* a, const void* const* b, int weights, void* const* c,
+           int outputs, const Problem& p, const typename Epi::Args& args,
            cudaStream_t stream) {
   using T = Tiles<BN>;
   CUtensorMap map_a;
@@ -287,13 +415,14 @@ int launch(const void* a, const void* const* b, void* const* c, int weights,
   if (!encode_operand(&map_a, a, p.M, p.K, BM)) return cudaErrorInvalidValue;
   for (int i = 0; i < MAX_B; ++i) {
     // unused maps repeat the last weight's and output's (never used)
-    const int k = i < weights ? i : weights - 1;
-    if (!encode_operand(&maps_b.map[i], b[k], p.K, p.n_split, BK) ||
-        !encode_operand(&maps_c.map[i], c[k], p.M, p.n_split, OUT_BOX)) {
+    const int kb = i < weights ? i : weights - 1;
+    const int kc = i < outputs ? i : outputs - 1;
+    if (!encode_operand(&maps_b.map[i], b[kb], p.K, p.n_split, BK) ||
+        !encode_operand(&maps_c.map[i], c[kc], p.M, p.n_split, OUT_BOX)) {
       return cudaErrorInvalidValue;
     }
   }
-  const auto kernel = gemm_kernel<BN, Epi>;
+  const auto kernel = gemm_kernel<BN, PRODUCTS, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::SMEM));
@@ -304,7 +433,7 @@ int launch(const void* a, const void* const* b, void* const* c, int weights,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const long long tiles =
-      static_cast<long long>((p.M + BM - 1) / BM) * (p.N / BN);
+      static_cast<long long>((p.M + BM - 1) / BM) * (p.N / (BN / PRODUCTS));
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
   kernel<<<grid, NT, T::SMEM, stream>>>(map_a, maps_b, maps_c, p, args);
   return static_cast<int>(cudaGetLastError());
@@ -322,8 +451,23 @@ int gemm(const void* a, const void* const* b, void* const* c, int weights,
   if (!shape_ok(M, K, n_split, weights)) return cudaErrorInvalidValue;
   const Problem p{M, K, n_split * weights, n_split};
   return tile_width(n_split) == 256
-             ? launch<256, Epi>(a, b, c, weights, p, args, stream)
-             : launch<128, Epi>(a, b, c, weights, p, args, stream);
+             ? launch<256, 1, Epi>(a, b, weights, c, weights, p, args, stream)
+             : launch<128, 1, Epi>(a, b, weights, c, weights, p, args,
+                                   stream);
+}
+
+// The paired product: c (M, N) bf16 = Epi(a . b0, a . b1) for a (M, K) and
+// b0, b1 (K, N) in the JAX layout, 128 columns of each a tile (N a
+// multiple of 128). Returns the launch's cudaError_t (0 on success).
+template <class Epi>
+int gemm_paired(const void* a, const void* b0, const void* b1, void* c,
+                int M, int K, int N, const typename Epi::Args& args,
+                cudaStream_t stream) {
+  if (!shape_ok(M, K, N, 2)) return cudaErrorInvalidValue;
+  const void* const b[2] = {b0, b1};
+  void* const out[1] = {c};
+  return launch<256, 2, Epi>(a, b, 2, out, 1, Problem{M, K, N, N}, args,
+                             stream);
 }
 
 }  // namespace bf16_gemm_tma

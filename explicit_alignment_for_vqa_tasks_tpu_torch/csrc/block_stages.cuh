@@ -1,16 +1,8 @@
 // The stages that csrc/vit_block.cu and csrc/gpt2_block.cu build their
 // pre-LN transformer blocks from, for NVIDIA Hopper (sm_90a):
 //
-//   layer_norm: one warp per row (of bf16 x, or of an fp32 residual r1)
-//     writes h = bf16(LN(x) * s + b): the row in the warp's registers (16-
-//     byte loads of 8 elements a lane, 8 rows a block of 256 threads), both
-//     sums a lane's own elements in order then a butterfly of shuffles.
-//     fp32: mean m, then var = mean((x - m)^2), then
-//     ((x - m) * (1 / sqrt(var + eps))) * s + b. It moves the row once in
-//     and h once out: a bound by bytes (a block per row with block
-//     reductions took 0.45 ms for ViT-L's 147,712 x 1024 rows on an H100,
-//     whose 605 MB take 0.18). Rows of at most LN_MAX_WIDTH elements, a
-//     multiple of 8.
+//   layer_norm: row_norm.cuh's, one warp per row (of bf16 x, or of an fp32
+//     residual r1).
 //   gemm: bf16_gemm.cuh's 128 x 128 mma.sync main loop with the epilogue of
 //     the stage, in fp32 on the accumulator:
 //       kBiasScale      (acc + bias) * scale   blockIdx.z picks the weight,
@@ -37,134 +29,15 @@
 #include <cmath>
 #include <cstdint>
 
+#include "activations.cuh"
 #include "bf16_gemm.cuh"
+#include "row_norm.cuh"
 
 namespace block_stages {
 
+using namespace activations;
 using namespace bf16_gemm;
-
-// ---- layer norm -----------------------------------------------------------
-
-constexpr int LN_VEC = 8;         // elements of a lane's load
-constexpr int LN_ROWS = 8;        // rows a block of 256 threads, one a warp
-constexpr int LN_MAX_CHUNKS = 16;  // 8-element loads a lane, at most
-constexpr int LN_MAX_WIDTH = LN_MAX_CHUNKS * 32 * LN_VEC;  // 4096
-
-// 8 consecutive elements of a row as floats (16 bytes of bf16, 32 of fp32)
-__device__ inline void load8(const bf16* p, float (&v)[LN_VEC]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ inline void load8(const float* p, float (&v)[LN_VEC]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// One warp per row of x (D wide, T = bf16 or float): h = bf16(LN(x) * s +
-// b). Lane l holds the row's 8-element chunks l, l + 32, ... (CHUNKS of
-// them, the last ones past D / 8 unused).
-template <typename T, int CHUNKS>
-__global__ void __launch_bounds__(LN_ROWS * 32)
-layer_norm_kernel(const T* __restrict__ x, const bf16* __restrict__ scale,
-                  const bf16* __restrict__ bias, bf16* __restrict__ h, int M,
-                  int D, float eps) {
-  const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32;
-  if (row >= M) return;
-  const int lane = threadIdx.x % 32;
-  const int chunks = D / LN_VEC;
-  const size_t off = static_cast<size_t>(row) * D;
-  const float width = static_cast<float>(D);
-  float v[CHUNKS][LN_VEC];
-#pragma unroll
-  for (int c = 0; c < CHUNKS; ++c) {
-    if (lane + 32 * c < chunks) {
-      load8(x + off + LN_VEC * (lane + 32 * c), v[c]);
-    }
-  }
-  float s = 0.0f;
-#pragma unroll
-  for (int c = 0; c < CHUNKS; ++c) {
-    if (lane + 32 * c >= chunks) continue;
-#pragma unroll
-    for (int e = 0; e < LN_VEC; ++e) s = __fadd_rn(s, v[c][e]);
-  }
-  const float mean = __fdiv_rn(warp_sum(s), width);
-  float ss = 0.0f;
-#pragma unroll
-  for (int c = 0; c < CHUNKS; ++c) {
-    if (lane + 32 * c >= chunks) continue;
-#pragma unroll
-    for (int e = 0; e < LN_VEC; ++e) {
-      const float d = __fsub_rn(v[c][e], mean);
-      ss = __fadd_rn(ss, __fmul_rn(d, d));
-    }
-  }
-  const float var = __fdiv_rn(warp_sum(ss), width);
-  const float r = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
-#pragma unroll
-  for (int c = 0; c < CHUNKS; ++c) {
-    const int col = LN_VEC * (lane + 32 * c);
-    if (col >= D) continue;
-    float sc[LN_VEC], bi[LN_VEC];
-    load8(scale + col, sc);
-    load8(bias + col, bi);
-    uint4 packed;
-    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int i = 0; i < LN_VEC / 2; ++i) {
-      float y[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int e = 2 * i + u;
-        y[u] = __fadd_rn(
-            __fmul_rn(__fmul_rn(__fsub_rn(v[c][e], mean), r), sc[e]), bi[e]);
-      }
-      out[i] = __floats2bfloat162_rn(y[0], y[1]);
-    }
-    *reinterpret_cast<uint4*>(h + off + col) = packed;
-  }
-}
-
-template <typename T, int CHUNKS>
-int layer_norm_rows(const void* x, const void* scale, const void* bias,
-                    void* h, int M, int D, float eps, cudaStream_t stream) {
-  layer_norm_kernel<T, CHUNKS>
-      <<<(M + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const bf16*>(scale),
-          static_cast<const bf16*>(bias), static_cast<bf16*>(h), M, D, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The norm of M rows of D (a multiple of 8, at most LN_MAX_WIDTH) elements,
-// at the fewest chunks a lane that hold a row.
-template <typename T>
-int layer_norm(const void* x, const void* scale, const void* bias, void* h,
-               int M, int D, float eps, cudaStream_t stream) {
-  if (M <= 0 || D <= 0 || D % LN_VEC || D > LN_MAX_WIDTH) {
-    return cudaErrorInvalidValue;
-  }
-  const int chunks = (D / LN_VEC + 31) / 32;
-  using Launch = int (*)(const void*, const void*, const void*, void*, int,
-                         int, float, cudaStream_t);
-  const Launch launch =
-      chunks <= 1    ? &layer_norm_rows<T, 1>
-      : chunks <= 2  ? &layer_norm_rows<T, 2>
-      : chunks <= 3  ? &layer_norm_rows<T, 3>
-      : chunks <= 4  ? &layer_norm_rows<T, 4>
-      : chunks <= 6  ? &layer_norm_rows<T, 6>
-      : chunks <= 8  ? &layer_norm_rows<T, 8>
-      : chunks <= 12 ? &layer_norm_rows<T, 12>
-                     : &layer_norm_rows<T, 16>;
-  return launch(x, scale, bias, h, M, D, eps, stream);
-}
+using namespace row_norm;
 
 // ---- GEMM with the stages' epilogues ----------------------------------------
 
@@ -185,20 +58,6 @@ struct GemmArgs {
   const void* residual;  // (M, N) of the kernel's ResT, for kBiasResidual
   int M, K, N, ldb;
 };
-
-__device__ inline float quick_gelu(float z) {
-  // z * sigmoid(1.702 z), the sigmoid as 1 / (1 + exp(-x))
-  const float e = expf(-__fmul_rn(1.702f, z));
-  return __fmul_rn(z, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
-}
-
-__device__ inline float tanh_gelu(float z) {
-  // 0.5 z (1 + tanh(0.7978845608028654 (z + 0.044715 z z z))), evaluated
-  // left to right as the JAX _tanh_gelu writes it
-  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, z), z), z);
-  const float t = tanhf(__fmul_rn(0.7978845608028654f, __fadd_rn(z, cube)));
-  return __fmul_rn(__fmul_rn(0.5f, z), __fadd_rn(1.0f, t));
-}
 
 __device__ inline float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -233,7 +92,7 @@ stage_gemm_kernel(const GemmArgs args) {
   const int gid = lane >> 2, tig = lane & 3;
 
   float acc[4][4][4];
-  mainloop<1>(smem, args.a, b, nullptr, M, args.K, args.ldb, m0, n0, acc);
+  mainloop(smem, args.a, b, M, args.K, args.ldb, m0, n0, acc);
 
   // c0, c1 are row gid, columns 2 tig and 2 tig + 1 of the n8 tile; c2, c3
   // the same columns of row gid + 8
@@ -326,11 +185,6 @@ inline GemmArgs qkv_args(const void* a, const void* const (&w)[3],
 inline bool gemm_shape_ok(int M, int D) {
   return M > 0 && D > 0 && D % B_COLS == 0 && D % BK == 0 &&
          (M + BM - 1) / BM <= 65535;
-}
-
-// The norm takes rows of a multiple of 8 elements, at most LN_MAX_WIDTH.
-inline bool norm_shape_ok(int D) {
-  return D > 0 && D % LN_VEC == 0 && D <= LN_MAX_WIDTH;
 }
 
 }  // namespace block_stages

@@ -77,6 +77,7 @@
 
 #include <cstdint>
 
+#include "activations.cuh"
 #include "q8_gemm.cuh"
 #include "q8_gemm_tma.cuh"
 
@@ -105,12 +106,7 @@ struct GemmArgs {
   int width;              // kQkvBf16: the columns of each of q, k and v
 };
 
-__device__ inline float tanh_gelu(float x) {
-  // 0.5 * x * (1 + tanh(0.7978845608028654 * (x + 0.044715 * x * x * x)))
-  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
-  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(x, cube));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
-}
+using activations::tanh_gelu;
 
 // The epilogues over q8_gemm_tma.cuh's main loop, in the Pallas kernels'
 // order of rounding. Each chunk's residual is read before any of its

@@ -81,7 +81,7 @@
 // holds a ViT-B block's 14.2 MB of weights, so here each function is a
 // short pipeline of kernels whose intermediates make one round trip
 // through device memory:
-//   layer_norm (block_stages.cuh, shared with gpt2_block.cu): one warp per
+//   layer_norm (row_norm.cuh, shared with gpt2_block.cu): one warp per
 //     row (of bf16 x, or of fp32 r1), the row in registers, writes h in
 //     bf16.
 //   q | k | v (fused_ln_qkv, and fused_vit_block through it): ONE product
@@ -91,14 +91,18 @@
 //     B operands through three tensor maps (no copy); its epilogue
 //     (QkvEpilogue) routes each column tile into q, k or v (bias, then q's
 //     scale) through shared memory and TMA stores.
+//   fused_mlp_block's two products on the same loop: the up product with
+//     the bias-then-quickGELU epilogue (BiasQuickGeluEpilogue, the
+//     sigmoid's reciprocal branch-free and exact), the down product with
+//     the bias-then-residual one (bf16_gemm_tma.cuh's ResidualEpilogue).
 //   gemm (block_stages.cuh): bf16_gemm.cuh's 128 x 128 mma.sync main loop
 //     with the epilogue of the stage, for the other products. Bias then
 //     scale for fused_attention_block's fp32 q, k and v: blockIdx.z picks
 //     the weight, bias, output and scale, so one launch covers the three
-//     (D, D) weights. Bias then quickGELU for the MLP's up product. Bias
-//     then residual for the out-projection and the MLP's down product;
-//     fused_vit_block's out-projection writes the fp32 r1 and its down
-//     product adds it.
+//     (D, D) weights. Bias then quickGELU for fused_vit_block's up
+//     product. Bias then residual for the out-projections and
+//     fused_vit_block's down product; fused_vit_block's out-projection
+//     writes the fp32 r1 and its down product adds it.
 //   attention: attention_core and attention_core_oproj's on wgmma and TMA
 //     in vit_attention_wgmma.cuh (two passes over the keys, any L); the
 //     whole blocks' in vit_attention.cuh, in the softmax order of the
@@ -165,10 +169,10 @@ struct QkvArgs {
 // for k and v, both pairs of rows of a thread's n8 groups j0 .. j0 + 7.
 struct QkvEpilogue {
   using Args = QkvArgs;
-  template <int ACC>
-  __device__ static void chunk(const Args& args, int which, int col,
-                               const float (&acc)[ACC], int j0,
-                               uint32_t (&out)[16]) {
+  template <int ACC, class Put>
+  __device__ static void chunk(const Args& args, int which, int /*row*/,
+                               int col, const float (&acc)[ACC], int j0,
+                               const Put& put) {
     const int tig = threadIdx.x % 4;
     const bf16* bias =
         which == 0 ? args.bias[0] : (which == 1 ? args.bias[1] : args.bias[2]);
@@ -189,11 +193,68 @@ struct QkvEpilogue {
           v1 = __fmul_rn(v1, args.scale);
         }
         const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
-        out[2 * jj + half] = *reinterpret_cast<const uint32_t*>(&pair);
+        put(jj, half, *reinterpret_cast<const uint32_t*>(&pair));
       }
     }
   }
 };
+
+// ---- fused_mlp_block's epilogues on bf16_gemm_tma.cuh ---------------------
+
+// The up product: hid = bf16(quickGELU(acc + bias)), the sigmoid's
+// reciprocal branch-free (activations.cuh's quick_gelu_fast) where every z
+// of the thread's chunk is at least QUICK_GELU_FAST_FLOOR, else (rare)
+// with quick_gelu's correctly rounded division. The test comes first, so
+// that no accumulator outlives its use (a redo after the fast pass kept
+// the chunk's 32 alive: 0.2 of a 2.6 ms up-GEMM at ViT-L, B=256, on an
+// H100).
+struct BiasQuickGeluEpilogue {
+  struct Args {
+    const bf16* bias;  // (F,)
+  };
+  template <int ACC, class Put>
+  __device__ static void chunk(const Args& args, int, int, int col,
+                               const float (&acc)[ACC], int j0,
+                               const Put& put) {
+    const bf16* bias = args.bias + col + 2 * (threadIdx.x % 4);
+    float z[8][4];  // z[jj][2 half + e], in place of the chunk's acc
+    bool low = false;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 b = load2(bias + 8 * jj);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        z[jj][e] = __fadd_rn(acc[4 * (j0 + jj) + e], e % 2 ? b.y : b.x);
+        low |= !(z[jj][e] >= QUICK_GELU_FAST_FLOOR);  // NaN too
+      }
+    }
+    if (low) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          put(jj, half, bf16_gemm_tma::pack_bf16(
+                            quick_gelu(z[jj][2 * half]),
+                            quick_gelu(z[jj][2 * half + 1])));
+        }
+      }
+      return;
+    }
+    bool unused = false;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        put(jj, half, bf16_gemm_tma::pack_bf16(
+                          quick_gelu_fast(z[jj][2 * half], unused),
+                          quick_gelu_fast(z[jj][2 * half + 1], unused)));
+      }
+    }
+  }
+};
+
+// The down product: out = bf16(x + (acc + bias)).
+using BiasResidualEpilogue = bf16_gemm_tma::ResidualEpilogue<bf16, true>;
 
 // fused_ln_qkv's shapes: the norm's row (block_stages.cuh) and the q | k | v
 // product's (K = D a multiple of 64, D a multiple of 128; any M).
@@ -392,18 +453,23 @@ extern "C" int fused_mlp_block_launch(const void* x, const void* ln_s,
                                       const void* b_proj, void* h,
                                       void* hidden, void* out, int M, int D,
                                       int F, float eps, void* stream) {
-  if (!norm_shape_ok(D) || !gemm_shape_ok(M, D) || F <= 0 || F % B_COLS ||
-      F % BK) {
+  namespace bt = bf16_gemm_tma;
+  if (!norm_shape_ok(D) || !bt::shape_ok(M, D, F, 1) ||
+      !bt::shape_ok(M, F, D, 1)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = layer_norm<bf16>(x, ln_s, ln_b, h, M, D, eps, s);
   if (rc != 0) return rc;
-  rc = gemm<kBiasQuickGelu>(
-      gemm_args(h, w_fc, b_fc, hidden, nullptr, M, D, F), 1, s);
+  void* const hid[1] = {hidden};
+  rc = bt::gemm<BiasQuickGeluEpilogue>(h, &w_fc, hid, 1, M, D, F,
+                                       {static_cast<const bf16*>(b_fc)}, s);
   if (rc != 0) return rc;
-  return gemm<kBiasResidual>(
-      gemm_args(hidden, w_proj, b_proj, out, x, M, F, D), 1, s);
+  void* const res[1] = {out};
+  const BiasResidualEpilogue::Args args{static_cast<const bf16*>(b_proj),
+                                        static_cast<const bf16*>(x), M, D};
+  return bt::gemm<BiasResidualEpilogue>(hidden, &w_proj, res, 1, M, F, D,
+                                        args, s);
 }
 
 // out (B, L, D) bf16 = the whole pre-LN CLIP block over x (B, L, D = H dh)

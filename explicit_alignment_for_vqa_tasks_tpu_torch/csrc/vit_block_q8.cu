@@ -86,6 +86,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "activations.cuh"
 #include "q8_gemm.cuh"
 #include "q8_gemm_tma.cuh"
 #include "vit_attention.cuh"
@@ -110,32 +111,8 @@ struct GemmArgs {
   int M, K, N, D;         // D: kQkv's column width of q, k and v
 };
 
-__device__ inline float quick_gelu(float z) {
-  // z * sigmoid(1.702 z), the sigmoid as 1 / (1 + exp(-x))
-  const float e = expf(-__fmul_rn(1.702f, z));
-  return __fmul_rn(z, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
-}
-
-// 1 / d correctly rounded for d in [1, 2^126): the reciprocal's estimate and
-// two Newton steps on the FMA. There it equals __fdiv_rn(1.0f, d) (the
-// exhaustive quick_gelu_check below), without the division's slow-path
-// branch, which keeps an epilogue's elements from overlapping: with it the
-// ViT-L up-GEMM at B=256 took 2.16 ms on an H100, without it 1.56.
-__device__ __forceinline__ float rcp_rn_normal(float d) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
-  const float y = __fmaf_rn(r, __fmaf_rn(-d, r, 1.0f), r);
-  return __fmaf_rn(y, __fmaf_rn(-d, y, 1.0f), y);
-}
-
-// quick_gelu(z) through rcp_rn_normal; sets `slow` where 1 + exp(-1.702 z)
-// is not in [1, 2^126) (z below about -51, or NaN), whose value the caller
-// computes again with quick_gelu
-__device__ __forceinline__ float quick_gelu_fast(float z, bool& slow) {
-  const float d = __fadd_rn(1.0f, expf(-__fmul_rn(1.702f, z)));
-  slow |= !(d < 0x1p126f);
-  return __fmul_rn(z, rcp_rn_normal(d));
-}
+using activations::quick_gelu;
+using activations::quick_gelu_fast;
 
 __device__ inline float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -255,9 +232,11 @@ struct TmaEpilogue {
   }
 };
 
-// Counts the floats z (all 2^32) where quick_gelu_fast differs from
-// quick_gelu in its bits (two NaNs count as equal), with its slow case
-// redone as the epilogue does.
+// Counts the floats z (all 2^32) where activations.cuh's quick_gelu_fast
+// differs from quick_gelu in its bits (two NaNs count as equal), used as
+// this file's up-GEMM epilogue uses it (its slow case redone) or as
+// vit_block.cu's does (below QUICK_GELU_FAST_FLOOR, and for NaN, the
+// division instead).
 __global__ void quick_gelu_check_kernel(unsigned long long* differ) {
   unsigned long long count = 0;
   for (uint64_t i = blockIdx.x * static_cast<uint64_t>(blockDim.x) +
@@ -267,9 +246,14 @@ __global__ void quick_gelu_check_kernel(unsigned long long* differ) {
     bool slow = false;
     float got = quick_gelu_fast(z, slow);
     if (slow) got = quick_gelu(z);
+    const float floored = z >= activations::QUICK_GELU_FAST_FLOOR
+                              ? quick_gelu_fast(z, slow)
+                              : quick_gelu(z);
     const float want = quick_gelu(z);
     count += __float_as_uint(got) != __float_as_uint(want) &&
              !(got != got && want != want);
+    count += __float_as_uint(floored) != __float_as_uint(want) &&
+             !(floored != floored && want != want);
   }
   atomicAdd(differ, count);
 }

@@ -15,7 +15,7 @@ generation runs no kernel.
 The JAX package registers the two model classes in its registry; here
 ``build_clipcap_model`` and ``build_clipcap_prefix`` are plain functions
 (the registry and the model factory are ROADMAP Queue 1 item 7). Mapper
-training is Queue 1 item 6: the loss is a forward pass here.
+training is Queue 1 item 10: the loss is a forward pass here.
 """
 
 from __future__ import annotations

@@ -660,8 +660,10 @@ fused_t5_ffn_q8.launches = 0
 # bf16 T5 encoder FFN: plain version and the wrapper around csrc/t5_ffn.cu
 # ---------------------------------------------------------------------------
 
-# The kernel's tiles: the contraction a whole number of 32-deep k steps, the
-# output widths a whole number of 128-wide column tiles.
+# The kernel's tiles: the contraction a whole number of 64-deep k steps, the
+# output widths a whole number of 128-wide column tiles (the gated product's
+# tiles 128 columns of each of wi_0 and wi_1); its RMSNorm keeps a row of at
+# most NORM_MAX_WIDTH in one warp's registers.
 FFN_WIDTH_MULTIPLE = 128
 
 
@@ -721,6 +723,7 @@ def fused_t5_ffn(
         raise ValueError(
             f"{op}: widths D={d_model}, F={d_ff} are not multiples of "
             f"{FFN_WIDTH_MULTIPLE}")
+    _check_norm_width(op, d_model)
     rows, dev = batch * seq, x.device
     h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
     # the bf16 hidden gelu(a0) * a1 goes through device memory once
@@ -746,8 +749,8 @@ fused_t5_ffn.launches = 0
 # The GEMMs' tiles take widths (D, 3 x D, F) that are whole numbers of
 # 128-wide column tiles; the whole blocks' attention kernel keeps a (32, L)
 # fp32 score tile in shared memory (attention_core's takes any L); the
-# LayerNorm of csrc/block_stages.cuh keeps a row of at most NORM_MAX_WIDTH
-# in one warp's registers.
+# row norms of csrc/row_norm.cuh keep a row of at most NORM_MAX_WIDTH in
+# one warp's registers.
 VIT_WIDTH_MULTIPLE = 128
 NORM_MAX_WIDTH = 4096
 QUICK_GELU_ALPHA = 1.702
@@ -909,9 +912,9 @@ def _check_vit_widths(op: str, **widths: int) -> None:
 
 
 def _check_norm_width(op: str, d_model: int) -> None:
-    """A width the bf16 kernels' LayerNorm takes (its GEMMs' too)."""
+    """A width the bf16 kernels' row norm (csrc/row_norm.cuh) takes."""
     if d_model > NORM_MAX_WIDTH:
-        raise ValueError(f"{op}: width D={d_model} exceeds the LayerNorm "
+        raise ValueError(f"{op}: width D={d_model} exceeds the norm "
                          f"kernel's {NORM_MAX_WIDTH}")
 
 
@@ -1772,7 +1775,7 @@ def fused_gpt2_block(
     tensors take the plain version; CUDA tensors launch the kernel
     (``fused_gpt2_block.launches``) or raise. The kernel is forward only:
     an input that requires grad raises (its backward comes with mapper
-    training, ROADMAP Queue 1 item 6)."""
+    training, ROADMAP Queue 1 item 10)."""
     op = "fused_gpt2_block"
     params = (ln1_scale, ln1_bias, w_qkv, b_qkv, w_out, b_out, ln2_scale,
               ln2_bias, w_fc, b_fc, w_proj, b_proj)
@@ -1782,7 +1785,7 @@ def fused_gpt2_block(
     if any(t.requires_grad for t in tensors.values()):
         raise NotImplementedError(
             f"{op}: the CUDA kernel is forward only; its gradient is not "
-            f"ported yet (ROADMAP.md, Queue 1 item 6)")
+            f"ported yet (ROADMAP.md, Queue 1 item 10)")
     _check_tensors(op, x.device, {name: _BF16 for name in tensors},
                    **tensors)
     if x.dim() != 3:

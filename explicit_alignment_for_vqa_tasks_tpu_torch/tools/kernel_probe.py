@@ -9,6 +9,10 @@ time it.
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --bf16-times
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --epilogue-cost
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --ffn-variants DIR [DIR ...]
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --flash-reference
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --attention-variants DIR [DIR ...]
@@ -27,9 +31,16 @@ CUDA kernel's device ms. Both need only what the port had since its int8
 whole block, so this file copied into an older tree digests and times that
 tree's build; ``--bf16-times`` times ``t5_attention_core`` at the main
 path's shape (B = 32, L = 557, 32 heads of 64, padded tails and a fully
-masked row), ``fused_ln_qkv`` at ViT-L/14@336 widths on 256 images and
-``fused_vit_block`` at ViT-B/32's on 1024, each with its CUDA kernels'
-device ms (the LayerNorm stage among them), in the same way;
+masked row), ``fused_ln_qkv`` at ViT-L/14@336 widths on 256 images,
+``fused_vit_block`` at ViT-B/32's on 1024, ``fused_t5_ffn`` (gated and
+not) at the main path's shape and ``fused_mlp_block`` at ViT-L/14@336
+widths on 256 images, each with a SHA-256 of its outputs and its CUDA
+kernels' device ms (the norm stage among them), in the same way;
+``--ffn-variants DIR...`` times the last three by CUDA kernel as built
+from each given copy of ``csrc/`` (in parallel, with their ptxas reports),
+in turns; ``--epilogue-cost`` does so for this tree's ``csrc/`` and a copy
+built with ``BF16_GEMM_TMA_BARE_EPILOGUE`` (the GEMMs with no epilogue
+arithmetic or reads);
 ``cross_attention_decode`` on layer 7 of 24 stacked (32, 557, 2048) bf16
 caches; the CLIP ViT ``split3`` kernels (``fused_ln_qkv``,
 ``attention_core_oproj``, ``fused_mlp_block``) and the int8 path's
@@ -63,6 +74,7 @@ from __future__ import annotations
 
 import hashlib
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -96,7 +108,8 @@ def cuda_ms(fn, iters: int) -> float:
 def kernel_split(fn, calls: int = 6) -> dict:
     """The device ms per call of each CUDA kernel that fn launches, under
     torch.profiler over ``calls`` calls after a warm one: its row_quant,
-    layer_norm, attention and GEMM kernels numbered in launch order
+    layer_norm, rms_norm, attention and GEMM kernels numbered in launch
+    order
     (``row_quant_0``, ``gemm_0``, ...), every other kernel (PyTorch's
     copies) summed as ``other``. The profiler drops a kernel's record now and then, so a
     fill kernel before each call marks where the call begins, and only the
@@ -120,8 +133,9 @@ def kernel_split(fn, calls: int = 6) -> dict:
             continue
         if not runs:
             continue
-        kind = next((k for k in ("row_quant", "layer_norm", "attention",
-                                 "gemm") if k in event.name), "other")
+        kind = next((k for k in ("row_quant", "layer_norm", "rms_norm",
+                                 "attention", "gemm") if k in event.name),
+                    "other")
         runs[-1].setdefault(kind, []).append(event.time_range.elapsed_us())
     shapes = [tuple(sorted((k, len(v)) for k, v in run.items()))
               for run in runs]
@@ -211,10 +225,11 @@ def int8_times(cases: dict, label: str = "") -> None:
 def bf16_cases() -> dict:
     """name -> (kernel, its arguments) of t5_attention_core at the main
     path's shape (B = 32, L = 557, 32 heads of 64; padded tails and a fully
-    masked row), fused_ln_qkv at ViT-L/14@336 widths on 256 images and
+    masked row), fused_ln_qkv at ViT-L/14@336 widths on 256 images,
     fused_vit_block at ViT-B/32's on 1024 (one layer of the tower's init
-    weights, random LayerNorm parameters and biases), all from seeded
-    generators; only what the port had since its whole blocks."""
+    weights, random LayerNorm parameters and biases), and ffn_cases', all
+    from seeded generators; only what the port had since its whole
+    blocks."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -254,7 +269,81 @@ def bf16_cases() -> dict:
     cases["fused_vit_block"] = (fab.fused_vit_block, (
         randn(1024, cfg.seq_len, cfg.width).bfloat16(), *block,
         cfg.num_heads))
+    cases.update(ffn_cases())
     return cases
+
+
+def ffn_cases() -> dict:
+    """name -> (kernel, its arguments) of fused_t5_ffn at the main path's
+    shape (M = 32 x 557, D = 2048, F = 5120; gated and not) and
+    fused_mlp_block at ViT-L/14@336 widths on 256 images (D = 1024, F =
+    4096), from a seeded generator."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).bfloat16()
+
+    d_model, d_ff = 2048, 5120
+    x = randn(32, 557, d_model, scale=2.0)
+    lnw = 1 + randn(d_model, scale=0.1)
+    wi_0, wi_1 = (randn(d_model, d_ff, scale=d_model ** -0.5)
+                  for _ in range(2))
+    wo = randn(d_ff, d_model, scale=d_ff ** -0.5)
+    width, d_ff = 1024, 4096
+    mlp = (randn(256, 577, width), 1 + randn(width, scale=0.1),
+           randn(width, scale=0.1), randn(width, d_ff, scale=width ** -0.5),
+           randn(d_ff, scale=0.1), randn(d_ff, width, scale=d_ff ** -0.5),
+           randn(width, scale=0.1))
+    return {
+        "fused_t5_ffn": (fab.fused_t5_ffn, (x, lnw, wi_0, wi_1, wo)),
+        "fused_t5_ffn non-gated": (fab.fused_t5_ffn,
+                                   (x, lnw, wi_0, None, wo)),
+        "fused_mlp_block": (fab.fused_mlp_block, mlp),
+    }
+
+
+def bf16_digests(cases: dict) -> None:
+    """A SHA-256 of each case's outputs (all of q, k and v for
+    fused_ln_qkv)."""
+    for name, (fn, args) in cases.items():
+        out = fn(*args)
+        print(f"{name} output sha256",
+              sha256_of(out if isinstance(out, tuple) else [out]),
+              flush=True)
+
+
+def epilogue_cost() -> None:
+    """ffn_variants of this tree's csrc/ and of a copy whose
+    bf16_gemm_tma.cuh is built with BF16_GEMM_TMA_BARE_EPILOGUE (every
+    epilogue only rounds acc to bf16, no residual or bias read): each
+    GEMM's epilogue costs at most its difference."""
+    bare = kernels.BUILD_DIR.parent / "variants" / "bare_epilogue"
+    shutil.rmtree(bare, ignore_errors=True)
+    shutil.copytree(kernels.CSRC_DIR, bare)
+    header = bare / "bf16_gemm_tma.cuh"
+    header.write_text("#define BF16_GEMM_TMA_BARE_EPILOGUE 1\n"
+                      + header.read_text())
+    ffn_variants([kernels.CSRC_DIR, bare])
+
+
+def ffn_variants(dirs: List[Path]) -> None:
+    """fused_t5_ffn (gated and not) and fused_mlp_block built from each
+    csrc copy in ``dirs`` (in parallel, with their ptxas reports), a
+    SHA-256 of each one's outputs, then timed by CUDA kernel at ffn_cases'
+    shapes in turns (the list, then reversed). The wrappers are this
+    tree's: the copies must keep its launchers' signatures."""
+    built = build_variants(dirs, ["t5_ffn", "vit_block"])
+    cases = ffn_cases()
+    for d in built:
+        kernels.CSRC_DIR = d
+        kernels._loaded.clear()
+        print(d.name, flush=True)
+        bf16_digests(cases)
+    for d in built + built[::-1]:
+        kernels.CSRC_DIR = d
+        kernels._loaded.clear()
+        int8_times(cases, f"{d.name}: ")
 
 
 def vit_block_q8_case(cfg, batch: int, seed: int = 0) -> tuple:
@@ -295,7 +384,17 @@ def main() -> None:
         return
     if "--bf16-times" in sys.argv[1:]:
         print(torch.cuda.get_device_name(0), flush=True)
-        int8_times(bf16_cases())
+        cases = bf16_cases()
+        bf16_digests(cases)
+        int8_times(cases)
+        return
+    if "--epilogue-cost" in sys.argv[1:]:
+        print(torch.cuda.get_device_name(0), flush=True)
+        epilogue_cost()
+        return
+    if sys.argv[1:2] == ["--ffn-variants"]:
+        print(torch.cuda.get_device_name(0), flush=True)
+        ffn_variants([Path(d).resolve() for d in sys.argv[2:]])
         return
     if "--flash-reference" in sys.argv[1:]:
         flash_reference()

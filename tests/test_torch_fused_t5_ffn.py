@@ -192,13 +192,15 @@ def test_encode_with_fused_ffn_matches_jax(gated):
 # --- on the card: the CUDA kernel against the plain version ----------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [64, 157])
+@pytest.mark.parametrize("d_model,d_ff", [(2048, 5120), (640, 1664)])
+@pytest.mark.parametrize("rows", [64, 157, 300])
 @pytest.mark.parametrize("gated", [True, False])
-def test_cuda_kernel_matches_plain_version(gated, rows):
-    """T0-3B widths (D 2048, F 5120) on a few rows, bf16: relative
-    Frobenius error within 2e-3 and every element within 1.6e-2 of
-    (|want| + rms(want)), as for the int8 kernels (an fp32 sum in another
-    order can move a bf16 rounding of h or hid)."""
+def test_cuda_kernel_matches_plain_version(gated, rows, d_model, d_ff):
+    """T0-3B widths (D 2048, F 5120: 256-wide tiles) and widths of 128-wide
+    tiles (D 640, F 1664) on a few rows, the last 128-row tile ragged,
+    bf16: relative Frobenius error within 2e-3 and every element within
+    1.6e-2 of (|want| + rms(want)), as for the int8 kernels (an fp32 sum in
+    another order can move a bf16 rounding of h or hid)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -206,7 +208,6 @@ def test_cuda_kernel_matches_plain_version(gated, rows):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
 
-    d_model, d_ff = 2048, 5120
     x = randn(1, rows, d_model, scale=2.0).bfloat16()
     lnw = (1 + 0.1 * randn(d_model)).bfloat16()
     wi_0 = randn(d_model, d_ff, scale=d_model ** -0.5).bfloat16()

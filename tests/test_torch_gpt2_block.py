@@ -302,7 +302,7 @@ def test_cuda_fused_gpt2_block_matches_plain_version(batch, seq, left_pad):
         err.max().item()
     with pytest.raises(ValueError, match="bfloat16"):
         tfab.fused_gpt2_block(x.float(), mask, *params, heads)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tfab.fused_gpt2_block(x.clone().requires_grad_(), mask, *params,
                               heads)
 

@@ -244,15 +244,18 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     assert [p.name for p in kernels.included_files("vit_block")] == [
         "vit_block.cu", "bf16_gemm_tma.cuh", "block_stages.cuh",
         "vit_attention.cuh", "vit_attention_wgmma.cuh", "hopper_async.cuh",
-        "bf16_gemm.cuh"]
+        "activations.cuh", "bf16_gemm.cuh", "row_norm.cuh"]
+    assert [p.name for p in kernels.included_files("t5_ffn")] == [
+        "t5_ffn.cu", "activations.cuh", "bf16_gemm_tma.cuh", "row_norm.cuh",
+        "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("t5_attention_core")] == [
         "t5_attention_core.cu", "vit_attention_wgmma.cuh", "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("int8_encoder")] == [
-        "int8_encoder.cu", "q8_gemm.cuh", "q8_gemm_tma.cuh",
-        "hopper_async.cuh"]
+        "int8_encoder.cu", "activations.cuh", "q8_gemm.cuh",
+        "q8_gemm_tma.cuh", "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("vit_block_q8")] == [
-        "vit_block_q8.cu", "q8_gemm.cuh", "q8_gemm_tma.cuh",
-        "vit_attention.cuh", "hopper_async.cuh"]
+        "vit_block_q8.cu", "activations.cuh", "q8_gemm.cuh",
+        "q8_gemm_tma.cuh", "vit_attention.cuh", "hopper_async.cuh"]
     header = csrc / "bf16_gemm.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: kernels.library_path(name) for name in kernels.SOURCES}
@@ -269,8 +272,13 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     ("q8_gemm_tma.cuh", {"int8_encoder", "vit_block_q8"}),
     ("q8_gemm.cuh", {"int8_encoder", "vit_block_q8"}),
     ("hopper_async.cuh", {"int8_encoder", "vit_block_q8", "vit_block",
-                          "t5_attention_core"}),
-    ("bf16_gemm_tma.cuh", {"vit_block"}),
+                          "t5_attention_core", "t5_ffn"}),
+    ("bf16_gemm_tma.cuh", {"vit_block", "t5_ffn"}),
+    ("bf16_gemm.cuh", {"vit_block", "gpt2_block"}),
+    ("row_norm.cuh", {"vit_block", "gpt2_block", "t5_ffn"}),
+    # the one copy of the quickGELU (both ViT up-GEMMs) and the tanh-gelu
+    ("activations.cuh", {"vit_block", "vit_block_q8", "gpt2_block",
+                         "t5_ffn", "int8_encoder"}),
     ("vit_attention_wgmma.cuh", {"vit_block", "t5_attention_core"}),
 ])
 def test_editing_a_header_renames_exactly_its_users(tmp_path, monkeypatch,
@@ -292,14 +300,16 @@ def test_editing_a_header_renames_exactly_its_users(tmp_path, monkeypatch,
 # --- on the card: the CUDA kernels against the plain versions --------------
 
 # (kernel, images, tokens, width, heads): every kernel at ViT-L/14@336
-# widths on 2 images; fused_ln_qkv also with rows that are no multiple of
-# its GEMM's 128-row tiles (150, 77, 394) at widths of 128-wide column
-# tiles (640) and of 256-wide ones (768, 1024)
+# widths on 2 images; fused_ln_qkv and fused_mlp_block (the products on
+# bf16_gemm_tma.cuh) also with rows that are no multiple of their GEMMs'
+# 128-row tiles (150, 77, 394) at widths of 128-wide column tiles (640)
+# and of 256-wide ones (768, 1024)
 CUDA_CASES = [pytest.param(name, 2, 577, 1024, 16, id=name)
               for name in KERNELS] + [
-    pytest.param("fused_ln_qkv", 3, 50, 640, 10, id="fused_ln_qkv-D640"),
-    pytest.param("fused_ln_qkv", 1, 77, 768, 12, id="fused_ln_qkv-D768"),
-    pytest.param("fused_ln_qkv", 2, 197, 1024, 16, id="fused_ln_qkv-D1024"),
+    pytest.param(name, batch, seq, width, heads, id=f"{name}-D{width}")
+    for name in ("fused_ln_qkv", "fused_mlp_block")
+    for batch, seq, width, heads in ((3, 50, 640, 10), (1, 77, 768, 12),
+                                     (2, 197, 1024, 16))
 ]
 
 

@@ -489,11 +489,12 @@ def test_codes_out_holds_the_plain_quantizations(op):
 def test_library_paths_cover_the_int8_header():
     names = {name: [p.name for p in kernels.included_files(name)]
              for name in ("int8_encoder", "vit_block_q8")}
-    assert names == {"int8_encoder": ["int8_encoder.cu", "q8_gemm.cuh",
-                                      "q8_gemm_tma.cuh", "hopper_async.cuh"],
-                     "vit_block_q8": ["vit_block_q8.cu", "q8_gemm.cuh",
-                                      "q8_gemm_tma.cuh", "vit_attention.cuh",
-                                      "hopper_async.cuh"]}
+    assert names == {"int8_encoder": ["int8_encoder.cu", "activations.cuh",
+                                      "q8_gemm.cuh", "q8_gemm_tma.cuh",
+                                      "hopper_async.cuh"],
+                     "vit_block_q8": ["vit_block_q8.cu", "activations.cuh",
+                                      "q8_gemm.cuh", "q8_gemm_tma.cuh",
+                                      "vit_attention.cuh", "hopper_async.cuh"]}
     assert kernels.library_path("vit_block_q8").name.startswith(
         "vit_block_q8-")
 
@@ -644,10 +645,11 @@ def test_cuda_qkv_q8_equals_plain(rows, d_model):
 
 @pytest.mark.gpu
 def test_cuda_quick_gelu_epilogue_is_exact_for_every_float():
-    """The int8 ViT up-GEMMs' quickGELU epilogue (its sigmoid's reciprocal
-    as an estimate and two FMA Newton steps, the rare case out of that
-    range computed again) equals quick_gelu's correctly rounded division
-    for every one of the 2^32 floats."""
+    """The ViT up-GEMMs' quickGELU epilogues (the sigmoid's reciprocal as
+    an estimate and two FMA Newton steps; the int8 one computes the rare
+    case out of that range again, the bf16 one takes the division below
+    a floor) equal quick_gelu's correctly rounded division for every one
+    of the 2^32 floats."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     fn = kernels.load("vit_block_q8").quick_gelu_check
