@@ -287,7 +287,8 @@ INT8_COSINE_FLOOR = 0.95           # a sanity floor; the value is recorded
 # on q8_gemm_tma.cuh) against torch._int_mm of the same products
 Q8_GEMM_STAGE_MAX_RATIO = 2.0
 # the same for the bf16 GEMMs on bf16_gemm_tma.cuh (fused_ln_qkv,
-# fused_mlp_block, fused_t5_ffn) against cuBLAS of the same products
+# fused_mlp_block, fused_t5_ffn, fused_vit_block, fused_gpt2_block) against
+# cuBLAS of the same products
 BF16_GEMM_STAGE_MAX_RATIO = Q8_GEMM_STAGE_MAX_RATIO
 DECODE_LAYER = 7                   # the cache layer the decode kernel reads
 # transposed int8 cross-KV logits against unmerged: the same products
@@ -923,6 +924,38 @@ def bf16_gemm_stage(name: str, split: dict, cublas_ms: list) -> dict:
     return dict(kernel_split_ms=split, gemm_ms=gemm_ms, cublas_ms=cublas_ms,
                 gemm_stage_ms=sum(gemm_ms), gemm_stage_vs_cublas=ratio,
                 gemm_vs_cublas=[g / c for g, c in zip(gemm_ms, cublas_ms)])
+
+
+def yardstick_operands(dev, rows: int, *widths: int) -> list:
+    """Random bf16 (rows, width) operands for cuBLAS yardsticks, from a
+    generator of their own: the phases' generator, and so every later
+    input, stays as it was without them."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return [torch.randn((rows, n), generator=gen, device=dev).bfloat16()
+            for n in widths]
+
+
+def tma_products(name: str, fn, products: int, calls: int = 3) -> list:
+    """The GEMM kernels that ``calls`` calls of fn launch under
+    torch.profiler (every kernel whose name says gemm, xmma or cutlass);
+    fails unless all are bf16_gemm_tma.cuh's, in ``products`` distinct
+    instances (one per epilogue: no mma.sync stage and no cuBLAS call)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    gemms = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(k in e.name.lower()
+                            for k in ("gemm", "xmma", "cutlass"))})
+    check(len(gemms) == products
+          and all("bf16_gemm_tma::gemm_kernel" in n for n in gemms),
+          f"{name}: its GEMM kernels are {gemms}, not {products} "
+          f"bf16_gemm_tma.cuh instances")
+    return [n[:120] for n in gemms]
 
 
 def phase_profile(model: VCT0Model, prefix, tokens, mask,
@@ -1724,6 +1757,16 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
                                 z * torch.sigmoid(1.702 * z),
                                 layer["mlp_proj"])
 
+    def lib_block_gemms_ms():
+        # cuBLAS addmm of the block's four bf16 products (q | k | v over the
+        # concatenated weight), each timed alone on random operands
+        h, hid = yardstick_operands(dev, rows, width, d_ff)
+        products = ((b_qkv, h, w_qkv), (layer["o_bias"], h, layer["o"]),
+                    (layer["mlp_fc_bias"], h, layer["mlp_fc"]),
+                    (layer["mlp_proj_bias"], hid, layer["mlp_proj"]))
+        return [cuda_ms(lambda p=p: torch.addmm(*p), iters=10)
+                for p in products]
+
     def int_mm_pairs():
         # torch._int_mm of the four int8 products, GEMMs only, the weights
         # column-major as cuBLASLt's int8 GEMM takes them (made before the
@@ -1803,10 +1846,13 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
         library_ms = cuda_ms(case["library"](), iters=10)
         stage = {}
         if name == "fused_vit_block":
-            # each CUDA kernel's device time (its q | k | v GEMM is
-            # fused_ln_qkv's, on bf16_gemm_tma.cuh)
-            stage = dict(kernel_split_ms=kernel_split(
-                lambda: case["fn"](*full)))
+            # each CUDA kernel's device time; its four GEMMs (q | k | v,
+            # out-projection, up, down, all on bf16_gemm_tma.cuh) each
+            # beside cuBLAS addmm of the same product
+            stage = bf16_gemm_stage(name, kernel_split(
+                lambda: case["fn"](*full)), lib_block_gemms_ms())
+            stage["gemm_kernels"] = tma_products(
+                name, lambda: case["fn"](*full), 4)
         if name == "fused_vit_block_q8":
             # each CUDA kernel's device time; each GEMM beside _int_mm
             int_mm_ms = [cuda_ms(lambda a=a, w=w: torch._int_mm(a, w),
@@ -2091,8 +2137,9 @@ def phase_gpt2_block(gen: torch.Generator) -> dict:
     """fused_gpt2_block against its plain version at GPT-2 small widths
     (D = 768, 12 heads, F = 3072): B=32, L=64 (G = 4) and B=8, L=128 with
     right-padded rows; B=6, L=64 (G = 2) with a left-padded row that sees no
-    valid key; then timed at B=32, L=64 and L=128 beside the plain version,
-    the bound and the unfused bf16 block."""
+    valid key; then timed at B=32, L=64 and L=128 in turns with the unfused
+    bf16 block (library, kernel, library, kernel), beside the plain version
+    and the bound, and by CUDA kernel, each GEMM beside cuBLAS addmm."""
     cfg = gpt2_lib.GPT2Config.gpt2_small()
     d_model, heads, d_ff = cfg.d_model, cfg.num_heads, 4 * cfg.d_model
     head_dim, eps = d_model // heads, cfg.layer_norm_epsilon
@@ -2142,16 +2189,32 @@ def phase_gpt2_block(gen: torch.Generator) -> dict:
             return r1 + torch.addmm(b_proj, f.gelu(z, approximate="tanh"),
                                     w_proj)
 
+        def kernel():
+            return fused_gpt2_block(*args)
+
         rows = batch * length
         bytes_moved = (2 * rows * d_model * 2 + mask.numel() * 4
                        + sum(p.numel() * 2 for p in params))
+        # the library's and the kernel's times in turns, each the mean of
+        # its two
+        turns = [cuda_ms(fn, iters=20)
+                 for fn in (lib_block, kernel, lib_block, kernel)]
+        # cuBLAS addmm of the block's four products on random operands
+        h, hid = yardstick_operands(dev, rows, d_model, d_ff)
+        cublas_ms = [cuda_ms(lambda p=p: torch.addmm(*p), iters=20)
+                     for p in ((b_qkv, h, w_qkv), (b_out, h, w_out),
+                               (b_fc, h, w_fc), (b_proj, hid, w_proj))]
         timed[f"L{length}"] = dict(
             shape=dict(B=batch, L=length, D=d_model, H=heads, F=d_ff,
                        G=gpt2_block_group(batch)),
-            ms=cuda_ms(lambda: fused_gpt2_block(*args), iters=20),
+            ms=(turns[1] + turns[3]) / 2,
             plain_ms=cuda_ms(lambda: fused_gpt2_block_plain(*args), iters=3,
                              warmup=1),
-            library_ms=cuda_ms(lib_block, iters=20),
+            library_ms=(turns[0] + turns[2]) / 2,
+            turns_ms=dict(library=turns[0::2], kernel=turns[1::2]),
+            **bf16_gemm_stage("fused_gpt2_block", kernel_split(kernel),
+                              cublas_ms),
+            gemm_kernels=tma_products("fused_gpt2_block", kernel, 4),
             **bound(bytes_moved, gpt2_block_ops(mask, d_model, d_ff),
                     BF16_FLOP_PER_S))
         emit("gpt2_block_timed", **timed[f"L{length}"])

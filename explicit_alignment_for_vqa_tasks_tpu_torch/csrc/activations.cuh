@@ -1,5 +1,5 @@
 // The fp32 activations of the port's GEMM epilogues, one copy for every
-// kernel that uses them (block_stages.cuh, t5_ffn.cu, vit_block.cu,
+// kernel that uses them (gpt2_block.cu, t5_ffn.cu, vit_block.cu,
 // vit_block_q8.cu, int8_encoder.cu), in the JAX functions' order of
 // rounding. Every multiply and add is written with __fmul_rn / __fadd_rn so
 // that nvcc cannot contract them into FMAs that the plain PyTorch versions

@@ -1,26 +1,29 @@
 // The bf16 GEMM main loop on TMA and asynchronous wgmma, for NVIDIA Hopper
-// (sm_90a): the q | k | v product of fused_ln_qkv (csrc/vit_block.cu, and
-// through it fused_vit_block's), the products of fused_mlp_block
-// (csrc/vit_block.cu) and of fused_t5_ffn (csrc/t5_ffn.cu). The bf16
-// counterpart of q8_gemm_tma.cuh, with its design:
+// (sm_90a): every product of fused_ln_qkv, fused_mlp_block and
+// fused_vit_block (csrc/vit_block.cu), of fused_t5_ffn (csrc/t5_ffn.cu) and
+// of fused_gpt2_block (csrc/gpt2_block.cu). The bf16 counterpart of
+// q8_gemm_tma.cuh, with its design:
 //
 //   acc = a . b     a (M, K) bf16, K contiguous; b (K, N) bf16 in the JAX
 //                   layout, N contiguous; fp32 accumulation
 //
 // The product's columns may come from up to three weights of n_split
-// columns each (b_0 | b_1 | b_2, each (K, n_split)), one tensor map each,
-// and go to as many bf16 outputs (c_0 | c_1 | c_2, each (M, n_split)), so
-// that q, k and v are one product over three separate weights with no
-// copy. The paired form (gemm_paired) computes two products over the same
-// a, a . b_0 and a . b_1, into one output: a 256-column B tile is 128
-// columns of b_0 and the same 128 of b_1, so that n8 group j and group j +
-// 16 of a thread's accumulators are the same output column of the two
-// products (T5's gate, gelu(a . wi_0) * (a . wi_1), with no weight copy).
-// Each kernel that includes this file brings its own epilogue arithmetic
-// (Epi::chunk), given acc in the wgmma accumulator layout (element 4 j + e
-// of a consumer thread is row 64 wg + 16 warp + lane / 4 + 8 (e / 2) of the
-// tile and column 8 j + 2 (lane % 4) + e % 2 of its B tile);
-// ResidualEpilogue below is the one they share.
+// columns each (b_0 | b_1 | b_2, each (K, n_split), their rows ldb >=
+// n_split elements apart), one tensor map each, and go to as many outputs
+// (c_0 | c_1 | c_2, each (M, n_split)), so that q, k and v are one product
+// over three separate weights, or over the column thirds of one fused (D,
+// 3 D) weight (ldb = 3 D), with no copy. The paired form (gemm_paired)
+// computes two products over the same a, a . b_0 and a . b_1, into one
+// output: a 256-column B tile is 128 columns of b_0 and the same 128 of
+// b_1, so that n8 group j and group j + 16 of a thread's accumulators are
+// the same output column of the two products (T5's gate, gelu(a . wi_0) *
+// (a . wi_1), with no weight copy). Each kernel that includes this file
+// brings its own epilogue arithmetic (Epi::chunk), given acc in the wgmma
+// accumulator layout (element 4 j + e of a consumer thread is row 64 wg +
+// 16 warp + lane / 4 + 8 (e / 2) of the tile and column 8 j + 2 (lane % 4)
+// + e % 2 of its B tile); ResidualEpilogue and QkvEpilogue below are the
+// ones they share. The outputs are bf16, or fp32 where the epilogue names
+// `using Out = float` (the whole blocks' residual r1).
 //
 // Design (persistent and warp-specialised, on TMA and asynchronous wgmma):
 //   grid      persistent: one block an SM walks over the output tiles, N
@@ -46,29 +49,35 @@
 //             on every path, and no register an in-flight product reads is
 //             rewritten, so ptxas keeps the products asynchronous.
 //   tiles     128 x 256 (128 fp32 accumulators a thread) where n_split %
-//             256 == 0 or the product is paired (128 output columns), else
-//             128 x 128; the consumers take 240 registers a thread
-//             (setmaxnreg), the producer keeps 24, though ptxas compiles
-//             the whole kernel within 168 (384 threads, one block an SM),
-//             128 of them the accumulators. The ring and the epilogue's
-//             buffers take 224 KB of shared memory.
+//             256 == 0 and the grid of such tiles has one for every SM,
+//             or the product is paired (128 output columns), else 128 x
+//             128 (GPT-2's out-projection and down product at M = 2,048:
+//             48 wide tiles for 132 SMs, 96 narrow ones); either width sums
+//             each output's k steps in the same order. The consumers take
+//             240 registers a thread (setmaxnreg), the producer keeps 24,
+//             though ptxas compiles the whole kernel within 168 (384
+//             threads, one block an SM), 128 of them the accumulators. The
+//             ring and the epilogue's buffers take 224 KB of shared memory.
 //   epilogue  the kernel's arithmetic from registers, 64 columns at a
-//             time, into bf16 in shared memory (two 8 KB buffers a
-//             warpgroup, 128-byte swizzled rows: the writes are free of
-//             bank conflicts), then a TMA store of the 64 x 64 box, which
-//             drains while the warpgroup goes on (rows past M are not
-//             written); the producer fills the next tile's stages
-//             meanwhile. (Stored straight from registers, 4 bytes a thread,
-//             the epilogue took 0.6 of fused_ln_qkv's 1.7 ms GEMM on an
-//             H100.) Nothing overlaps the epilogue's arithmetic with the
+//             time, into shared memory (two 8 KB buffers a warpgroup,
+//             128-byte swizzled rows: the writes are free of bank
+//             conflicts), then TMA stores, which drain while the warpgroup
+//             goes on (rows past M are not written); the producer fills the
+//             next tile's stages meanwhile. A bf16 chunk is one 64 x 64 box
+//             in one buffer, the chunks alternating; an fp32 chunk is two
+//             64 x 32 boxes (128-byte rows too) in both buffers, so that it
+//             waits for the previous chunk's stores to have read them.
+//             (Stored straight from registers, 4 bytes a thread, the
+//             epilogue took 0.6 of fused_ln_qkv's 1.7 ms GEMM on an H100.)
+//             Nothing overlaps the epilogue's arithmetic with the
 //             warpgroup's next products; only the producer runs ahead.
 // Shapes: any M, K a multiple of 64, n_split a multiple of 128, one to
 // three weights, or two paired (shape_ok). An mbarrier wait that lasts
 // seconds traps. Built with BF16_GEMM_TMA_BARE_EPILOGUE defined, every
-// epilogue only rounds acc (the first product's, when paired) to bf16: a
-// measurement of the loop without its epilogue's arithmetic and reads
-// (tools/kernel_probe.py --epilogue-cost), whose outputs are not the
-// function's.
+// epilogue only rounds acc (the first product's, when paired) to its
+// output type: a measurement of the loop without its epilogue's arithmetic
+// and reads (tools/kernel_probe.py --epilogue-cost), whose outputs are not
+// the function's.
 
 #pragma once
 
@@ -76,6 +85,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper_async.cuh"
 
@@ -91,8 +101,8 @@ constexpr int NT = (CONSUMERS + 1) * 128;  // and the producer warpgroup
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 64,512 in all
 constexpr int RING_BYTES = 192 * 1024;     // of the 227 KB a block may use
 constexpr int MAX_B = 3;                   // weights of one product
-constexpr int OUT_BOX = 64;                // rows and columns of a store box
-constexpr int OUT_BOX_BYTES = OUT_BOX * OUT_BOX * 2;  // 8 KB, bf16
+constexpr int OUT_BOX = 64;                // rows and bf16 columns of a box
+constexpr int OUT_BOX_BYTES = OUT_BOX * OUT_BOX * 2;  // 8 KB, 128 B a row
 constexpr int OUT_BYTES = CONSUMERS * 2 * OUT_BOX_BYTES;  // two a warpgroup
 
 template <int BN_>
@@ -121,14 +131,31 @@ struct Problem {
   int M, K, N, n_split;
 };
 
+// The output type of an epilogue: Epi::Out where it names one (fp32), else
+// bf16.
+template <class Epi, class = void>
+struct OutOf {
+  using type = __nv_bfloat16;
+};
+template <class Epi>
+struct OutOf<Epi, std::void_t<typename Epi::Out>> {
+  using type = typename Epi::Out;
+};
+
 // One of the first three maps of `maps` (a dynamic index into a
 // __grid_constant__ array would copy it to local memory).
 __device__ inline const CUtensorMap* pick(const BMaps& maps, int i) {
   return i == 0 ? &maps.map[0] : (i == 1 ? &maps.map[1] : &maps.map[2]);
 }
 
-// The columns of the tiles the loop takes for weights of n_split columns.
-inline int tile_width(int n_split) { return n_split % 256 == 0 ? 256 : 128; }
+// The columns of the tiles the loop takes for an (M, N) product of weights
+// of n_split columns on `sms` SMs: 256 where n_split allows and the grid of
+// such tiles has one for every SM, else 128.
+inline int tile_width(int M, int N, int n_split, int sms) {
+  if (n_split % 256 != 0) return 128;
+  const long long wide = static_cast<long long>((M + BM - 1) / BM) * (N / 256);
+  return wide < sms ? 128 : 256;
+}
 
 // Two neighbouring elements as they lie in memory (bf16 or fp32), and as
 // floats: loads of a chunk keep them packed until used (the registers left
@@ -155,9 +182,29 @@ __device__ inline uint32_t pack_bf16(float v0, float v1) {
   return *reinterpret_cast<const uint32_t*>(&pair);
 }
 
+// Two neighbouring outputs as an epilogue hands them to put: packed bf16,
+// or an fp32 pair.
+template <typename Out>
+struct OutPair {
+  using type = uint32_t;
+};
+template <>
+struct OutPair<float> {
+  using type = float2;
+};
+template <typename Out>
+__device__ inline typename OutPair<Out>::type pack_out(float v0, float v1) {
+  if constexpr (std::is_same<Out, float>::value) {
+    return make_float2(v0, v1);
+  } else {
+    return pack_bf16(v0, v1);
+  }
+}
+
 #ifdef BF16_GEMM_TMA_BARE_EPILOGUE
-// acc's chunk rounded to bf16 and nothing else (see the file's head)
-template <int ACC, class Put>
+// acc's chunk rounded to the output type and nothing else (see the file's
+// head)
+template <typename Out, int ACC, class Put>
 __device__ inline void bare_chunk(const float (&acc)[ACC], int j0,
                                   const Put& put) {
 #pragma unroll
@@ -165,7 +212,7 @@ __device__ inline void bare_chunk(const float (&acc)[ACC], int j0,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int i = 4 * (j0 + jj) + 2 * half;
-      put(jj, half, pack_bf16(acc[i], acc[i + 1]));
+      put(jj, half, pack_out<Out>(acc[i], acc[i + 1]));
     }
   }
 }
@@ -180,12 +227,13 @@ inline bool shape_ok(int M, int K, int n_split, int weights) {
 
 // The product over the tiles of the grid (PRODUCTS = 2: paired, BN / 2
 // output columns a tile). Epi::chunk(args, which, row, col, acc, j0, put)
-// gives the bf16 pairs of one 64-column chunk of a thread's fragments,
-// each by put(jj, half, pair) (a write to shared memory, so that a pair
-// holds no register once made): for its n8 group j0 + jj (columns col + 8
-// jj + 2 (lane % 4) and the next of output `which`; when paired, also group
-// j0 + jj + BN / 16 of the second product) and row `row` + 8 half, `row`
-// the thread's first; rows at or past M are never stored.
+// gives the output pairs (pack_out<Out>) of one 64-column chunk of a
+// thread's fragments, each by put(jj, half, pair) (a write to shared
+// memory, so that a pair holds no register once made): for its n8 group j0
+// + jj (columns col + 8 jj + 2 (lane % 4) and the next of output `which`;
+// when paired, also group j0 + jj + BN / 16 of the second product) and row
+// `row` + 8 half, `row` the thread's first; rows at or past M are never
+// stored.
 template <int BN, int PRODUCTS, class Epi>
 __global__ void __launch_bounds__(NT, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -193,9 +241,17 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             const __grid_constant__ BMaps maps_c, const Problem p,
             const __grid_constant__ typename Epi::Args args) {
   using T = Tiles<BN>;
+  using Out = typename OutOf<Epi>::type;
   constexpr int STAGES = T::STAGES;
   constexpr int OUT_N = BN / PRODUCTS;        // output columns a tile
   constexpr int PANELS = BN / PANEL / PRODUCTS;  // B boxes a product
+  // a chunk's store boxes of 128-byte rows: one of 64 bf16 columns, or two
+  // of 32 fp32 ones (both of the warpgroup's buffers); the chunks whose
+  // stores may still read the buffers when the next one is written
+  constexpr bool F32_OUT = std::is_same<Out, float>::value;
+  constexpr int BOXES = F32_OUT ? 2 : 1;
+  constexpr int BOX_COLS = OUT_BOX / BOXES;
+  constexpr int IN_FLIGHT = 2 / BOXES;
   extern __shared__ unsigned char bf16_tma_smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(bf16_tma_smem_raw) + 1023) &
@@ -288,27 +344,39 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     release(t + steps - 1);
     t += steps;
 
-    // the epilogue: 64 columns at a time into a swizzled buffer, then a
-    // TMA store of the warpgroup's 64 x 64 box
+    // the epilogue: 64 columns at a time into swizzled buffers, then TMA
+    // stores of the warpgroup's 64-row boxes
     const int which = n0 / p.n_split;
     const int col0 = n0 - which * p.n_split;
     const CUtensorMap* map_c = pick(maps_c, which);
 #pragma unroll
     for (int c = 0; c < OUT_N / OUT_BOX; ++c, ++chunks) {
-      unsigned char* buf = out_buf + (2 * wg + chunks % 2) * OUT_BOX_BYTES;
-      if (chunks >= 2) {  // the store of two chunks ago has read buf
-        if (wtid == 0) ha::bulk_wait_read<1>();
+      unsigned char* buf =
+          out_buf + (2 * wg + (F32_OUT ? 0 : chunks % 2)) * OUT_BOX_BYTES;
+      if (chunks >= IN_FLIGHT) {  // the stores that last used buf read it
+        if (wtid == 0) ha::bulk_wait_read<IN_FLIGHT - 1>();
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       }
-      // the bf16 pair of n8 group jj of the chunk, row `row` + 8 half, into
-      // its place in the swizzled box, as soon as the epilogue has it
-      const auto put = [&](int jj, int half, uint32_t pair) {
+      // the pair of n8 group jj of the chunk, row `row` + 8 half, into its
+      // place in the swizzled box, as soon as the epilogue has it: bf16,
+      // 4 bytes in 16-byte unit jj of the row; fp32, 8 bytes in unit 2 (jj
+      // % 4) + (lane % 4) / 2 of box jj / 4
+      const auto put = [&](int jj, int half,
+                           typename OutPair<Out>::type pair) {
         const int r = row + 8 * half;
-        *reinterpret_cast<uint32_t*>(buf + r * 128 + ((jj ^ (r % 8)) << 4) +
-                                     4 * (lane % 4)) = pair;
+        if constexpr (F32_OUT) {
+          const int u = 2 * (jj % 4) + (lane % 4) / 2;
+          *reinterpret_cast<float2*>(buf + (jj / 4) * OUT_BOX_BYTES +
+                                     r * 128 + ((u ^ (r % 8)) << 4) +
+                                     8 * (lane % 2)) = pair;
+        } else {
+          *reinterpret_cast<uint32_t*>(buf + r * 128 +
+                                       ((jj ^ (r % 8)) << 4) +
+                                       4 * (lane % 4)) = pair;
+        }
       };
 #ifdef BF16_GEMM_TMA_BARE_EPILOGUE
-      bare_chunk(acc, 8 * c, put);
+      bare_chunk<Out>(acc, 8 * c, put);
 #else
       Epi::chunk(args, which, m0 + 64 * wg + row, col0 + OUT_BOX * c, acc,
                  8 * c, put);
@@ -317,7 +385,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       if (wtid == 0) {
-        ha::tma_store_2d(map_c, buf, col0 + OUT_BOX * c, m0 + 64 * wg);
+#pragma unroll
+        for (int b = 0; b < BOXES; ++b) {
+          ha::tma_store_2d(map_c, buf + b * OUT_BOX_BYTES,
+                           col0 + OUT_BOX * c + BOX_COLS * b, m0 + 64 * wg);
+        }
         ha::bulk_commit();
       }
     }
@@ -325,16 +397,20 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   if (wtid == 0) ha::bulk_wait<0>();  // shared memory outlives the stores
 }
 
-// out = bf16(res + (acc + bias)) (BIAS) or bf16(res + acc), the sums in
-// fp32: res (M, ld) of ResT (bf16 or fp32), bias (n_split,) bf16. A
+// out = res + (acc + bias) (BIAS) or res + acc, the sums in fp32, rounded
+// once to OutT (bf16, or fp32: not rounded): res (M, ld) of ResT (bf16 or
+// fp32), bias (n_split,) bf16. The whole blocks' out-projection writes
+// their fp32 r1 (ResT bf16, OutT fp32), their down product adds it (ResT
+// fp32, OutT bf16). A
 // chunk's bias and residual are all read, packed, before its arithmetic
 // and its stores: loads issued one at a time between stores, each waiting
 // for memory in turn, took longer than a tile's products (q8_gemm_tma.cuh's
 // epilogues, on an H100); its pairs go to shared memory at the end, which
 // kept the 256-wide tiles free of spills. (Loading the residual's 64 x 64
 // box by TMA into the staging buffer instead took the same time.)
-template <typename ResT, bool BIAS>
+template <typename ResT, bool BIAS, typename OutT = __nv_bfloat16>
 struct ResidualEpilogue {
+  using Out = OutT;
   struct Args {
     const __nv_bfloat16* bias;  // BIAS only
     const ResT* residual;
@@ -360,7 +436,7 @@ struct ResidualEpilogue {
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) rv[half][jj] = load_pair(res + 8 * jj);
     }
-    uint32_t out[16];
+    typename OutPair<OutT>::type out[16];
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
@@ -373,7 +449,8 @@ struct ResidualEpilogue {
           v1 = __fadd_rn(v1, b.y);
         }
         const float2 r = to_float2(rv[half][jj]);
-        out[2 * jj + half] = pack_bf16(__fadd_rn(r.x, v0), __fadd_rn(r.y, v1));
+        out[2 * jj + half] =
+            pack_out<OutT>(__fadd_rn(r.x, v0), __fadd_rn(r.y, v1));
       }
     }
 #pragma unroll
@@ -384,53 +461,104 @@ struct ResidualEpilogue {
   }
 };
 
+// The q | k | v product's epilogue, weights (and outputs) 0, 1, 2 for q, k
+// and v: bf16((acc + bias) * scale) for q, bf16(acc + bias) for k and v
+// (fused_ln_qkv's and the GPT-2 block's).
+struct QkvEpilogue {
+  struct Args {
+    const __nv_bfloat16* bias[3];  // bq, bk, bv (n_split,)
+    float scale;                   // the factor of the q columns
+  };
+  template <int ACC, class Put>
+  __device__ static void chunk(const Args& args, int which, int /*row*/,
+                               int col, const float (&acc)[ACC], int j0,
+                               const Put& put) {
+    const __nv_bfloat16* bias =
+        which == 0 ? args.bias[0] : (which == 1 ? args.bias[1] : args.bias[2]);
+    const int c = col + 2 * (threadIdx.x % 4);
+    float2 bv[8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      bv[jj] = to_float2(load_pair(bias + c + 8 * jj));
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = 4 * (j0 + jj) + 2 * half;
+        float v0 = __fadd_rn(acc[i], bv[jj].x);
+        float v1 = __fadd_rn(acc[i + 1], bv[jj].y);
+        if (which == 0) {
+          v0 = __fmul_rn(v0, args.scale);
+          v1 = __fmul_rn(v1, args.scale);
+        }
+        put(jj, half, pack_bf16(v0, v1));
+      }
+    }
+  }
+};
+
 // ---- the host side ---------------------------------------------------------
 
-// The tensor map of a (rows, cols) row-major bf16 matrix with a box of
-// (64 columns, box_rows), swizzled by 128 bytes; reads past the end are
-// zeros, writes past it are dropped.
+// The tensor map of a (rows, cols) row-major matrix of bf16 (or fp32)
+// elements whose rows lie ld elements apart (16-byte multiples), with a box
+// of (128 bytes of columns, box_rows), swizzled by 128 bytes; reads past
+// the end are zeros, writes past it are dropped.
 inline bool encode_operand(CUtensorMap* map, const void* base, int rows,
-                           int cols, int box_rows) {
+                           int cols, int ld, int box_rows,
+                           bool f32 = false) {
   const auto encode = ha::encode_tiled();
   if (encode == nullptr) return false;
+  const int bytes = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, steps,
+  return encode(map,
+                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2, const_cast<void*>(base), dims, strides, box, steps,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The current device's SMs.
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
 template <int BN, int PRODUCTS, class Epi>
-int launch(const void* a, const void* const* b, int weights, void* const* c,
-           int outputs, const Problem& p, const typename Epi::Args& args,
-           cudaStream_t stream) {
+int launch(const void* a, const void* const* b, int ldb, int weights,
+           void* const* c, int outputs, const Problem& p,
+           const typename Epi::Args& args, int sms, cudaStream_t stream) {
   using T = Tiles<BN>;
+  constexpr bool f32_out =
+      std::is_same<typename OutOf<Epi>::type, float>::value;
   CUtensorMap map_a;
   BMaps maps_b, maps_c;
-  if (!encode_operand(&map_a, a, p.M, p.K, BM)) return cudaErrorInvalidValue;
+  if (!encode_operand(&map_a, a, p.M, p.K, p.K, BM)) {
+    return cudaErrorInvalidValue;
+  }
   for (int i = 0; i < MAX_B; ++i) {
     // unused maps repeat the last weight's and output's (never used)
     const int kb = i < weights ? i : weights - 1;
     const int kc = i < outputs ? i : outputs - 1;
-    if (!encode_operand(&maps_b.map[i], b[kb], p.K, p.n_split, BK) ||
-        !encode_operand(&maps_c.map[i], c[kc], p.M, p.n_split, OUT_BOX)) {
+    if (!encode_operand(&maps_b.map[i], b[kb], p.K, p.n_split, ldb, BK) ||
+        !encode_operand(&maps_c.map[i], c[kc], p.M, p.n_split, p.n_split,
+                        OUT_BOX, f32_out)) {
       return cudaErrorInvalidValue;
     }
   }
   const auto kernel = gemm_kernel<BN, PRODUCTS, Epi>;
-  cudaError_t err = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::SMEM));
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const long long tiles =
       static_cast<long long>((p.M + BM - 1) / BM) * (p.N / (BN / PRODUCTS));
@@ -440,20 +568,27 @@ int launch(const void* a, const void* const* b, int weights, void* const* c,
 }
 
 // The product of a (M, K) with `weights` (K, n_split) weights b[0 ..
-// weights - 1], side by side (N = weights x n_split columns), into as many
-// (M, n_split) bf16 outputs c[0 ..], each 16-byte aligned, at 256 columns a
-// tile where n_split allows, else 128. Returns the launch's cudaError_t (0
-// on success).
+// weights - 1], their rows ldb elements apart (n_split when 0), side by
+// side (N = weights x n_split columns), into as many (M, n_split) outputs
+// c[0 ..] of the epilogue's type, each 16-byte aligned, at tile_width's
+// columns a tile. Returns the launch's cudaError_t (0 on success).
 template <class Epi>
 int gemm(const void* a, const void* const* b, void* const* c, int weights,
          int M, int K, int n_split, const typename Epi::Args& args,
-         cudaStream_t stream) {
-  if (!shape_ok(M, K, n_split, weights)) return cudaErrorInvalidValue;
+         cudaStream_t stream, int ldb = 0) {
+  if (!shape_ok(M, K, n_split, weights) || (ldb != 0 && ldb < n_split)) {
+    return cudaErrorInvalidValue;
+  }
+  ldb = ldb != 0 ? ldb : n_split;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const Problem p{M, K, n_split * weights, n_split};
-  return tile_width(n_split) == 256
-             ? launch<256, 1, Epi>(a, b, weights, c, weights, p, args, stream)
-             : launch<128, 1, Epi>(a, b, weights, c, weights, p, args,
-                                   stream);
+  return tile_width(M, p.N, n_split, sms) == 256
+             ? launch<256, 1, Epi>(a, b, ldb, weights, c, weights, p, args,
+                                   sms, stream)
+             : launch<128, 1, Epi>(a, b, ldb, weights, c, weights, p, args,
+                                   sms, stream);
 }
 
 // The paired product: c (M, N) bf16 = Epi(a . b0, a . b1) for a (M, K) and
@@ -464,10 +599,13 @@ int gemm_paired(const void* a, const void* b0, const void* b1, void* c,
                 int M, int K, int N, const typename Epi::Args& args,
                 cudaStream_t stream) {
   if (!shape_ok(M, K, N, 2)) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const void* const b[2] = {b0, b1};
   void* const out[1] = {c};
-  return launch<256, 2, Epi>(a, b, 2, out, 1, Problem{M, K, N, N}, args,
-                             stream);
+  return launch<256, 2, Epi>(a, b, N, 2, out, 1, Problem{M, K, N, N}, args,
+                             sms, stream);
 }
 
 }  // namespace bf16_gemm_tma

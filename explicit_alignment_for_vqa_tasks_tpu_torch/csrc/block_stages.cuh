@@ -1,5 +1,5 @@
-// The stages that csrc/vit_block.cu and csrc/gpt2_block.cu build their
-// pre-LN transformer blocks from, for NVIDIA Hopper (sm_90a):
+// The stages of csrc/vit_block.cu's kernels that are not on
+// bf16_gemm_tma.cuh's loop, for NVIDIA Hopper (sm_90a):
 //
 //   layer_norm: row_norm.cuh's, one warp per row (of bf16 x, or of an fp32
 //     residual r1).
@@ -7,56 +7,43 @@
 //     the stage, in fp32 on the accumulator:
 //       kBiasScale      (acc + bias) * scale   blockIdx.z picks the weight,
 //                       bias, output and scale, so that q, k and v come from
-//                       one launch (three (D, D) weights, or the column
-//                       thirds of a fused (D, 3 D) one through `ldb`)
-//       kBiasQuickGelu  quickGELU(acc + bias)  z * (1 / (1 + exp(-1.702 z)))
-//       kBiasResidual   residual + (acc + bias)
-//       kBiasTanhGelu   tanh-gelu(acc + bias)  0.5 z (1 + tanh(0.7978845608
-//                       (z + 0.044715 z^3))), in the JAX _tanh_gelu's order
+//                       one launch (fused_attention_block's three (D, D)
+//                       weights); with scale 1, its out-projection
+//       kBiasResidual   residual + (acc + bias)   attention_core_oproj's
+//                       out-projection
 //     Outputs bf16 or fp32 (OutT), residuals bf16 or fp32 (ResT).
 //
-// Every multiply and add is written with __fmul_rn / __fadd_rn / __fsub_rn
-// so that nvcc cannot contract them into FMAs that the plain PyTorch
-// versions do not have; the square root and the divisions are correctly
-// rounded and the exponentials and tanh are expf and tanhf (the build has
-// no --use_fast_math).
+// Every multiply and add is written with __fmul_rn / __fadd_rn so that
+// nvcc cannot contract them into FMAs that the plain PyTorch versions do
+// not have (the build has no --use_fast_math).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cmath>
 #include <cstdint>
 
-#include "activations.cuh"
 #include "bf16_gemm.cuh"
 #include "row_norm.cuh"
 
 namespace block_stages {
 
-using namespace activations;
 using namespace bf16_gemm;
 using namespace row_norm;
 
 // ---- GEMM with the stages' epilogues ----------------------------------------
 
-enum Epilogue : int {
-  kBiasScale = 0,
-  kBiasQuickGelu = 1,
-  kBiasResidual = 2,
-  kBiasTanhGelu = 3
-};
+enum Epilogue : int { kBiasScale, kBiasResidual };
 
 struct GemmArgs {
   const bf16* a;         // (M, K) row-major
-  const bf16* b[3];      // (K, N) row-major with row stride ldb, one per
-                         // blockIdx.z
+  const bf16* b[3];      // (K, N) row-major, one per blockIdx.z
   const bf16* bias[3];   // (N,)
   void* out[3];          // (M, N) of the kernel's OutT
   float scale[3];        // kBiasScale: the factor after the bias
   const void* residual;  // (M, N) of the kernel's ResT, for kBiasResidual
-  int M, K, N, ldb;
+  int M, K, N;
 };
 
 __device__ inline float2 load2(const bf16* p) {
@@ -92,7 +79,7 @@ stage_gemm_kernel(const GemmArgs args) {
   const int gid = lane >> 2, tig = lane & 3;
 
   float acc[4][4][4];
-  mainloop(smem, args.a, b, M, args.K, args.ldb, m0, n0, acc);
+  mainloop(smem, args.a, b, M, args.K, N, m0, n0, acc);
 
   // c0, c1 are row gid, columns 2 tig and 2 tig + 1 of the n8 tile; c2, c3
   // the same columns of row gid + 8
@@ -112,12 +99,6 @@ stage_gemm_kernel(const GemmArgs args) {
         if constexpr (EPI == kBiasScale) {
           v0 = __fmul_rn(v0, scale);
           v1 = __fmul_rn(v1, scale);
-        } else if constexpr (EPI == kBiasQuickGelu) {
-          v0 = quick_gelu(v0);
-          v1 = quick_gelu(v1);
-        } else if constexpr (EPI == kBiasTanhGelu) {
-          v0 = tanh_gelu(v0);
-          v1 = tanh_gelu(v1);
         } else {  // kBiasResidual
           const float2 r = load2(static_cast<const ResT*>(args.residual) + off);
           v0 = __fadd_rn(r.x, v0);
@@ -155,15 +136,14 @@ inline GemmArgs gemm_args(const void* a, const void* b, const void* bias,
   g.M = M;
   g.K = K;
   g.N = N;
-  g.ldb = N;
   return g;
 }
 
 // The three products of q, k and v over the same a, q's times scale: the
-// weights w[i] (D, D) with row stride ldb, each (D,) bias at bias[i].
+// weights w[i] (D, D), each (D,) bias at bias[i].
 inline GemmArgs qkv_args(const void* a, const void* const (&w)[3],
                          const void* const (&bias)[3], void* q, void* k,
-                         void* v, int M, int D, int ldb, float scale) {
+                         void* v, int M, int D, float scale) {
   GemmArgs g{};
   g.a = static_cast<const bf16*>(a);
   void* o[3] = {q, k, v};
@@ -176,7 +156,6 @@ inline GemmArgs qkv_args(const void* a, const void* const (&w)[3],
   g.M = M;
   g.K = D;
   g.N = D;
-  g.ldb = ldb;
   return g;
 }
 

@@ -44,42 +44,52 @@
 // 14.2 MB of weights, 0.006 ms. At 128 positions (M = 4,096), 58.8 GFLOP,
 // 0.059 ms. Bound by operations.
 //
-// Design (simple and right before fast). The Pallas program keeps a group's
-// whole block in VMEM; no SM holds the block's 14.2 MB of weights, so here
-// the block is vit_block.cu's fused_vit_block pipeline, whose intermediates
-// make one round trip through device memory:
-//   layer_norm, then one GEMM launch (block_stages.cuh) whose three
-//     blockIdx.z slices take the column thirds of the fused (D, 3 D) weight
-//     (row stride 3 D), writing q (scaled), k and v;
+// Design. The Pallas program keeps a group's whole block in VMEM; no SM
+// holds the block's 14.2 MB of weights, so here the block is vit_block.cu's
+// fused_vit_block pipeline, whose intermediates make one round trip through
+// device memory, every product on bf16_gemm_tma.cuh's loop (TMA,
+// persistent, asynchronous wgmma, TMA-stored epilogues; 128 x 256 tiles,
+// or 128 x 128 where the wide tiles would be fewer than the SMs, as for the
+// out-projection and the down product at M = 2,048):
+//   layer_norm (row_norm.cuh), then ONE q | k | v product over the column
+//     thirds of the fused (D, 3 D) weight, three tensor maps w_qkv + i D
+//     with a row stride of 3 D (no copy), its epilogue (QkvEpilogue) adding
+//     b_qkv's thirds and scaling q (gpt2_ln_qkv_launch);
 //   the attention: vit_attention.cuh's kNormalised order with its MASKED
 //     option (causal and key mask), one block per (32 query rows, head,
 //     sequence); then masked_rows_kernel;
-//   the out-projection GEMM adds x and writes the fp32 r1; LN2 of r1; the
-//     up GEMM with the tanh-gelu epilogue; the down GEMM adds r1.
+//   the out-projection adds x and writes the fp32 r1 (ResidualEpilogue with
+//     an fp32 output); LN2 of r1; the up product with the bias-then-tanh-
+//     gelu epilogue (BiasTanhGeluEpilogue); the down product adds r1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "block_stages.cuh"
+#include "activations.cuh"
+#include "bf16_gemm_tma.cuh"
+#include "row_norm.cuh"
 #include "vit_attention.cuh"
 
 namespace {
 
-using namespace block_stages;
+namespace bt = bf16_gemm_tma;
+using bf16 = __nv_bfloat16;
+
+constexpr int ROWS_NT = 256;  // masked_rows_kernel's threads
 
 // One block per query row (b, i) of attn (M, D): if no key j <= i of
 // sequence b is valid, the row becomes bf16(sum over the G L rows r of its
 // group (G sequences from (b / G) G) of p v[r]), p = bf16(1 / (G L)), each
 // column summed in order over r in fp32.
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(ROWS_NT)
 masked_rows_kernel(const int* __restrict__ mask, const bf16* __restrict__ v,
                    bf16* __restrict__ attn, int L, int D, int G) {
   const int row = blockIdx.x;
   const int b = row / L, i = row % L;
   int valid = 0;
-  for (int j = threadIdx.x; j <= i; j += NT) {
+  for (int j = threadIdx.x; j <= i; j += ROWS_NT) {
     valid |= mask[static_cast<size_t>(b) * L + j] > 0;
   }
   if (__syncthreads_or(valid)) return;
@@ -87,7 +97,7 @@ masked_rows_kernel(const int* __restrict__ mask, const bf16* __restrict__ v,
   const size_t first = static_cast<size_t>(b / G) * rows;
   const float p = __bfloat162float(__float2bfloat16(
       __fdiv_rn(1.0f, static_cast<float>(rows))));
-  for (int d = threadIdx.x; d < D; d += NT) {
+  for (int d = threadIdx.x; d < D; d += ROWS_NT) {
     float o = 0.0f;
     for (int r = 0; r < rows; ++r) {
       o = __fadd_rn(o, __fmul_rn(p, __bfloat162float(
@@ -97,12 +107,73 @@ masked_rows_kernel(const int* __restrict__ mask, const bf16* __restrict__ v,
   }
 }
 
+// The up product: hid = bf16(tanh-gelu(acc + bias)), activations.cuh's
+// tanh_gelu in the JAX _tanh_gelu's order. The chunk's bias is read before
+// its arithmetic.
+struct BiasTanhGeluEpilogue {
+  struct Args {
+    const bf16* bias;  // (F,)
+  };
+  template <int ACC, class Put>
+  __device__ static void chunk(const Args& args, int, int, int col,
+                               const float (&acc)[ACC], int j0,
+                               const Put& put) {
+    const bf16* bias = args.bias + col + 2 * (threadIdx.x % 4);
+    float2 bv[8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      bv[jj] = bt::to_float2(bt::load_pair(bias + 8 * jj));
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = 4 * (j0 + jj) + 2 * half;
+        put(jj, half,
+            bt::pack_bf16(
+                activations::tanh_gelu(__fadd_rn(acc[i], bv[jj].x)),
+                activations::tanh_gelu(__fadd_rn(acc[i + 1], bv[jj].y))));
+      }
+    }
+  }
+};
+
+// The out-projection, r1 = x + (acc + bias) in fp32, and the down product,
+// out = bf16(r1 + (acc + bias)).
+using R1Epilogue = bt::ResidualEpilogue<bf16, true, float>;
+using R1ResidualEpilogue = bt::ResidualEpilogue<float, true>;
+
 }  // namespace
 
 // Largest sequence length whose attention score tile fits the current
 // device's shared memory at head size dh (0 if dh is not supported).
 extern "C" int gpt2_attention_max_len(int dh) {
   return vit_attention::max_len(dh);
+}
+
+// The block's first stage: q, k, v (M, D) bf16 = (bf16(LN1(x)) . w_qkv's
+// column thirds + b_qkv's thirds) * (scale, 1, 1) for x (M, D) bf16, ln_s,
+// ln_b (D,), w_qkv (D, 3 D) and b_qkv (3 D,) bf16 in the JAX layout; one
+// product over three tensor maps of w_qkv, no copy. h (M, D) is the
+// caller's bf16 scratch. Runs on `stream`; returns the first cudaError_t
+// of its launches (0 on success).
+extern "C" int gpt2_ln_qkv_launch(const void* x, const void* ln_s,
+                                  const void* ln_b, const void* w_qkv,
+                                  const void* b_qkv, void* h, void* q,
+                                  void* k, void* v, int M, int D,
+                                  float scale, float eps, void* stream) {
+  if (!row_norm::norm_shape_ok(D) || !bt::shape_ok(M, D, D, 3)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc = row_norm::layer_norm<bf16>(x, ln_s, ln_b, h, M, D, eps, s);
+  if (rc != 0) return rc;
+  const bf16* w = static_cast<const bf16*>(w_qkv);
+  const bf16* b = static_cast<const bf16*>(b_qkv);
+  const void* const thirds[3] = {w, w + D, w + 2 * D};
+  void* const out[3] = {q, k, v};
+  return bt::gemm<bt::QkvEpilogue>(h, thirds, out, 3, M, D, D,
+                                   {{b, b + D, b + 2 * D}, scale}, s, 3 * D);
 }
 
 // out (B, L, D) bf16 = the whole pre-LN GPT-2 block over x (B, L, D = H dh)
@@ -122,37 +193,40 @@ extern "C" int fused_gpt2_block_launch(
     void* r1, void* hidden, void* out, int B, int L, int H, int dh, int F,
     int G, float scale, float eps, void* stream) {
   const int M = B * L, D = H * dh;
-  if (!vit_attention::shape_ok(B, L, H) || !gemm_shape_ok(M, D) ||
-      !norm_shape_ok(D) || F <= 0 || F % B_COLS || F % BK || G <= 0 ||
+  // every product on bf16_gemm_tma.cuh
+  if (!vit_attention::shape_ok(B, L, H) || !row_norm::norm_shape_ok(D) ||
+      !bt::shape_ok(M, D, D, 3) || !bt::shape_ok(M, D, D, 1) ||
+      !bt::shape_ok(M, D, F, 1) || !bt::shape_ok(M, F, D, 1) || G <= 0 ||
       B % G) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* wq = static_cast<const bf16*>(w_qkv);
-  const bf16* bq = static_cast<const bf16*>(b_qkv);
-  int rc = layer_norm<bf16>(x, ln1_s, ln1_b, h, M, D, eps, s);
-  if (rc != 0) return rc;
-  rc = gemm<kBiasScale>(
-      qkv_args(h, {wq, wq + D, wq + 2 * D}, {bq, bq + D, bq + 2 * D}, q, k,
-               v, M, D, 3 * D, scale),
-      3, s);
+  int rc = gpt2_ln_qkv_launch(x, ln1_s, ln1_b, w_qkv, b_qkv, h, q, k, v, M,
+                              D, scale, eps, stream);
   if (rc != 0) return rc;
   rc = vit_attention::attention_dh<vit_attention::kNormalised, bf16, true>(
       q, k, v, attn, B, L, H, dh, s, static_cast<const int*>(mask));
   if (rc != 0) return rc;
-  masked_rows_kernel<<<M, NT, 0, s>>>(static_cast<const int*>(mask),
-                                      static_cast<const bf16*>(v),
-                                      static_cast<bf16*>(attn), L, D, G);
+  masked_rows_kernel<<<M, ROWS_NT, 0, s>>>(static_cast<const int*>(mask),
+                                           static_cast<const bf16*>(v),
+                                           static_cast<bf16*>(attn), L, D, G);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  rc = gemm<kBiasResidual, float, bf16>(
-      gemm_args(attn, w_out, b_out, r1, x, M, D, D), 1, s);
+  void* const res[1] = {r1};
+  rc = bt::gemm<R1Epilogue>(attn, &w_out, res, 1, M, D, D,
+                            {static_cast<const bf16*>(b_out),
+                             static_cast<const bf16*>(x), M, D},
+                            s);
   if (rc != 0) return rc;
-  rc = layer_norm<float>(r1, ln2_s, ln2_b, h, M, D, eps, s);
+  rc = row_norm::layer_norm<float>(r1, ln2_s, ln2_b, h, M, D, eps, s);
   if (rc != 0) return rc;
-  rc = gemm<kBiasTanhGelu>(
-      gemm_args(h, w_fc, b_fc, hidden, nullptr, M, D, F), 1, s);
+  void* const hid[1] = {hidden};
+  rc = bt::gemm<BiasTanhGeluEpilogue>(h, &w_fc, hid, 1, M, D, F,
+                                      {static_cast<const bf16*>(b_fc)}, s);
   if (rc != 0) return rc;
-  return gemm<kBiasResidual, bf16, float>(
-      gemm_args(hidden, w_proj, b_proj, out, r1, M, F, D), 1, s);
+  void* const outs[1] = {out};
+  return bt::gemm<R1ResidualEpilogue>(
+      hidden, &w_proj, outs, 1, M, F, D,
+      {static_cast<const bf16*>(b_proj), static_cast<const float*>(r1), M, D},
+      s);
 }

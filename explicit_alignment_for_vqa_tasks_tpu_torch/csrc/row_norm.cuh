@@ -1,6 +1,6 @@
 // The row norms in front of the bf16 GEMMs, for NVIDIA Hopper (sm_90a):
-// the LayerNorm of vit_block.cu and gpt2_block.cu (through block_stages.cuh)
-// and the RMSNorm of t5_ffn.cu.
+// the LayerNorm of vit_block.cu (through block_stages.cuh) and
+// gpt2_block.cu, and the RMSNorm of t5_ffn.cu.
 //
 // One warp per row (of bf16 x, or of an fp32 residual r1) writes h in bf16:
 // the row in the warp's registers (16-byte loads of 8 elements a lane, 8

@@ -95,14 +95,16 @@
 //     the bias-then-quickGELU epilogue (BiasQuickGeluEpilogue, the
 //     sigmoid's reciprocal branch-free and exact), the down product with
 //     the bias-then-residual one (bf16_gemm_tma.cuh's ResidualEpilogue).
+//   fused_vit_block's other three products on the same loop too: the
+//     out-projection adds x and writes the fp32 r1 (ResidualEpilogue with
+//     an fp32 output, stored as 64 x 32 fp32 boxes); the up product as
+//     fused_mlp_block's; the down product adds the fp32 r1.
 //   gemm (block_stages.cuh): bf16_gemm.cuh's 128 x 128 mma.sync main loop
-//     with the epilogue of the stage, for the other products. Bias then
-//     scale for fused_attention_block's fp32 q, k and v: blockIdx.z picks
+//     with the epilogue of the stage, for attention_core_oproj's
+//     out-projection (bias then residual) and fused_attention_block's
+//     products (bias then scale: for its fp32 q, k and v blockIdx.z picks
 //     the weight, bias, output and scale, so one launch covers the three
-//     (D, D) weights. Bias then quickGELU for fused_vit_block's up
-//     product. Bias then residual for the out-projections and
-//     fused_vit_block's down product; fused_vit_block's out-projection
-//     writes the fp32 r1 and its down product adds it.
+//     (D, D) weights).
 //   attention: attention_core and attention_core_oproj's on wgmma and TMA
 //     in vit_attention_wgmma.cuh (two passes over the keys, any L); the
 //     whole blocks' in vit_attention.cuh, in the softmax order of the
@@ -127,6 +129,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "activations.cuh"
 #include "bf16_gemm_tma.cuh"
 #include "block_stages.cuh"
 #include "vit_attention.cuh"
@@ -134,7 +137,9 @@
 
 namespace {
 
+using namespace activations;
 using namespace block_stages;
+using bf16_gemm_tma::QkvEpilogue;
 using vit_attention::attention_dh;
 
 // fused_vit_block's bf16 attention in softmax order `mode`
@@ -157,49 +162,7 @@ int attention_mode(int mode, const void* q, const void* k, const void* v,
   }
 }
 
-// ---- fused_ln_qkv's q | k | v epilogue on bf16_gemm_tma.cuh -----------------
-
-struct QkvArgs {
-  const bf16* bias[3];  // bq, bk, bv (D,)
-  float scale;          // the factor of the q columns
-};
-
-// A 64-column chunk of the q | k | v product's tile in output `which` (0:
-// q, 1: k, 2: v): v = bf16((acc + bias) * scale) for q, bf16(acc + bias)
-// for k and v, both pairs of rows of a thread's n8 groups j0 .. j0 + 7.
-struct QkvEpilogue {
-  using Args = QkvArgs;
-  template <int ACC, class Put>
-  __device__ static void chunk(const Args& args, int which, int /*row*/,
-                               int col, const float (&acc)[ACC], int j0,
-                               const Put& put) {
-    const int tig = threadIdx.x % 4;
-    const bf16* bias =
-        which == 0 ? args.bias[0] : (which == 1 ? args.bias[1] : args.bias[2]);
-    float2 bv[8];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      bv[jj] = load2(bias + col + 8 * jj + 2 * tig);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int i = 4 * (j0 + jj) + 2 * half;
-        float v0 = __fadd_rn(acc[i], bv[jj].x);
-        float v1 = __fadd_rn(acc[i + 1], bv[jj].y);
-        if (which == 0) {
-          v0 = __fmul_rn(v0, args.scale);
-          v1 = __fmul_rn(v1, args.scale);
-        }
-        const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
-        put(jj, half, *reinterpret_cast<const uint32_t*>(&pair));
-      }
-    }
-  }
-};
-
-// ---- fused_mlp_block's epilogues on bf16_gemm_tma.cuh ---------------------
+// ---- the MLP epilogues on bf16_gemm_tma.cuh --------------------------------
 
 // The up product: hid = bf16(quickGELU(acc + bias)), the sigmoid's
 // reciprocal branch-free (activations.cuh's quick_gelu_fast) where every z
@@ -253,8 +216,12 @@ struct BiasQuickGeluEpilogue {
   }
 };
 
-// The down product: out = bf16(x + (acc + bias)).
+// fused_mlp_block's down product: out = bf16(x + (acc + bias)).
 using BiasResidualEpilogue = bf16_gemm_tma::ResidualEpilogue<bf16, true>;
+// fused_vit_block's out-projection, r1 = x + (acc + bias) in fp32, and its
+// down product, out = bf16(r1 + (acc + bias)).
+using R1Epilogue = bf16_gemm_tma::ResidualEpilogue<bf16, true, float>;
+using R1ResidualEpilogue = bf16_gemm_tma::ResidualEpilogue<float, true>;
 
 // fused_ln_qkv's shapes: the norm's row (block_stages.cuh) and the q | k | v
 // product's (K = D a multiple of 64, D a multiple of 128; any M).
@@ -396,10 +363,10 @@ extern "C" int fused_ln_qkv_launch(const void* x, const void* ln_s,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = layer_norm<bf16>(x, ln_s, ln_b, h, M, D, eps, s);
   if (rc != 0) return rc;
-  const QkvArgs args{{static_cast<const bf16*>(bq),
-                      static_cast<const bf16*>(bk),
-                      static_cast<const bf16*>(bv)},
-                     scale};
+  const QkvEpilogue::Args args{{static_cast<const bf16*>(bq),
+                                static_cast<const bf16*>(bk),
+                                static_cast<const bf16*>(bv)},
+                               scale};
   const void* const w[3] = {wq, wk, wv};
   void* const out[3] = {q, k, v};
   return bf16_gemm_tma::gemm<QkvEpilogue>(h, w, out, 3, M, D, D, args, s);
@@ -487,10 +454,12 @@ extern "C" int fused_vit_block_launch(
     const void* b_proj, void* h, void* q, void* k, void* v, void* attn,
     void* r1, void* hidden, void* out, int B, int L, int H, int dh, int F,
     int mode, float scale, float eps, void* stream) {
+  namespace bt = bf16_gemm_tma;
   const int M = B * L, D = H * dh;
-  // q | k | v on bf16_gemm_tma.cuh, the rest on the mma.sync GEMMs
+  // every product on bf16_gemm_tma.cuh
   if (!vit_attention::shape_ok(B, L, H) || !ln_qkv_shape_ok(M, D) ||
-      !gemm_shape_ok(M, D) || F <= 0 || F % B_COLS || F % BK) {
+      !bt::shape_ok(M, D, D, 1) || !bt::shape_ok(M, D, F, 1) ||
+      !bt::shape_ok(M, F, D, 1)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -499,16 +468,23 @@ extern "C" int fused_vit_block_launch(
   if (rc != 0) return rc;
   rc = attention_mode(mode, q, k, v, attn, B, L, H, dh, s);
   if (rc != 0) return rc;
-  rc = gemm<kBiasResidual, float, bf16>(
-      gemm_args(attn, wo, bo, r1, x, M, D, D), 1, s);
+  void* const res[1] = {r1};
+  rc = bt::gemm<R1Epilogue>(attn, &wo, res, 1, M, D, D,
+                            {static_cast<const bf16*>(bo),
+                             static_cast<const bf16*>(x), M, D},
+                            s);
   if (rc != 0) return rc;
   rc = layer_norm<float>(r1, ln2_s, ln2_b, h, M, D, eps, s);
   if (rc != 0) return rc;
-  rc = gemm<kBiasQuickGelu>(
-      gemm_args(h, w_fc, b_fc, hidden, nullptr, M, D, F), 1, s);
+  void* const hid[1] = {hidden};
+  rc = bt::gemm<BiasQuickGeluEpilogue>(h, &w_fc, hid, 1, M, D, F,
+                                       {static_cast<const bf16*>(b_fc)}, s);
   if (rc != 0) return rc;
-  return gemm<kBiasResidual, bf16, float>(
-      gemm_args(hidden, w_proj, b_proj, out, r1, M, F, D), 1, s);
+  void* const outs[1] = {out};
+  return bt::gemm<R1ResidualEpilogue>(
+      hidden, &w_proj, outs, 1, M, F, D,
+      {static_cast<const bf16*>(b_proj), static_cast<const float*>(r1), M, D},
+      s);
 }
 
 // out (B, L, D) bf16 = fused_attention_block(x) (block_diag) for post-LN x
@@ -528,7 +504,7 @@ extern "C" int fused_attention_block_launch(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = gemm<kBiasScale, float>(
-      qkv_args(x, {wq, wk, wv}, {bq, bk, bv}, q, k, v, M, D, D, scale), 3,
+      qkv_args(x, {wq, wk, wv}, {bq, bk, bv}, q, k, v, M, D, scale), 3,
       s);
   if (rc != 0) return rc;
   switch (dh) {

@@ -32,8 +32,9 @@ whole block, so this file copied into an older tree digests and times that
 tree's build; ``--bf16-times`` times ``t5_attention_core`` at the main
 path's shape (B = 32, L = 557, 32 heads of 64, padded tails and a fully
 masked row), ``fused_ln_qkv`` at ViT-L/14@336 widths on 256 images,
-``fused_vit_block`` at ViT-B/32's on 1024, ``fused_t5_ffn`` (gated and
-not) at the main path's shape and ``fused_mlp_block`` at ViT-L/14@336
+``fused_vit_block`` at ViT-B/32's on 1024, ``fused_gpt2_block`` at GPT-2
+small's on 32 sequences of 64 and of 128 positions, ``fused_t5_ffn`` (gated
+and not) at the main path's shape and ``fused_mlp_block`` at ViT-L/14@336
 widths on 256 images, each with a SHA-256 of its outputs and its CUDA
 kernels' device ms (the norm stage among them), in the same way;
 ``--ffn-variants DIR...`` times the last three by CUDA kernel as built
@@ -108,8 +109,8 @@ def cuda_ms(fn, iters: int) -> float:
 def kernel_split(fn, calls: int = 6) -> dict:
     """The device ms per call of each CUDA kernel that fn launches, under
     torch.profiler over ``calls`` calls after a warm one: its row_quant,
-    layer_norm, rms_norm, attention and GEMM kernels numbered in launch
-    order
+    layer_norm, rms_norm, masked_rows, attention and GEMM kernels numbered
+    in launch order
     (``row_quant_0``, ``gemm_0``, ...), every other kernel (PyTorch's
     copies) summed as ``other``. The profiler drops a kernel's record now and then, so a
     fill kernel before each call marks where the call begins, and only the
@@ -134,8 +135,8 @@ def kernel_split(fn, calls: int = 6) -> dict:
         if not runs:
             continue
         kind = next((k for k in ("row_quant", "layer_norm", "rms_norm",
-                                 "attention", "gemm") if k in event.name),
-                    "other")
+                                 "masked_rows", "attention", "gemm")
+                     if k in event.name), "other")
         runs[-1].setdefault(kind, []).append(event.time_range.elapsed_us())
     shapes = [tuple(sorted((k, len(v)) for k, v in run.items()))
               for run in runs]
@@ -227,9 +228,10 @@ def bf16_cases() -> dict:
     path's shape (B = 32, L = 557, 32 heads of 64; padded tails and a fully
     masked row), fused_ln_qkv at ViT-L/14@336 widths on 256 images,
     fused_vit_block at ViT-B/32's on 1024 (one layer of the tower's init
-    weights, random LayerNorm parameters and biases), and ffn_cases', all
-    from seeded generators; only what the port had since its whole
-    blocks."""
+    weights, random LayerNorm parameters and biases), fused_gpt2_block at
+    GPT-2 small's on 32 sequences of 64 and of 128 positions (right-padded
+    rows; one layer the same way), and ffn_cases', all from seeded
+    generators; only what the port had since its whole blocks."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -269,6 +271,20 @@ def bf16_cases() -> dict:
     cases["fused_vit_block"] = (fab.fused_vit_block, (
         randn(1024, cfg.seq_len, cfg.width).bfloat16(), *block,
         cfg.num_heads))
+    gpt2_cfg = gpt2.GPT2Config.gpt2_small(num_layers=1)
+    layer = {name: leaf[0] for name, leaf in gpt2.init_gpt2_params(
+        gen, gpt2_cfg)["blocks"].items()}
+    for name, leaf in layer.items():
+        if name.endswith(("bias", "scale")):
+            base = 1.0 if name.endswith("scale") else 0.0
+            layer[name] = (base + randn(*leaf.shape, scale=0.1)).bfloat16()
+    for seq in (64, 128):
+        mask = torch.ones((32, seq), dtype=torch.int32, device="cuda")
+        for b in range(32):
+            mask[b, seq - b % 9:] = 0
+        cases[f"fused_gpt2_block L={seq}"] = (fab.fused_gpt2_block, (
+            randn(32, seq, gpt2_cfg.d_model).bfloat16(), mask,
+            *(layer[n] for n in fab.GPT2_BLOCK_KEYS), gpt2_cfg.num_heads))
     cases.update(ffn_cases())
     return cases
 

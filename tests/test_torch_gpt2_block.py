@@ -308,6 +308,58 @@ def test_cuda_fused_gpt2_block_matches_plain_version(batch, seq, left_pad):
 
 
 @pytest.mark.gpu
+def test_cuda_tile_widths_agree_bit_for_bit():
+    """At M = 2,048 (32 sequences of 64) the out-projection and the down
+    product (N = 768) take 128-wide tiles, since 256-wide ones would be
+    fewer than the SMs; in a batch large enough for 256-wide tiles the same
+    32 sequences come out bit for bit the same (each output sums its k
+    steps in the same order at either width)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x, mask, params, heads = cuda_block(32, 64)
+    d_model = x.shape[-1]
+    assert 2048 // 128 * (d_model // 256) < sms
+    repeat = -(-sms // (2048 // 128 * (d_model // 256)))
+    big = torch.cat([x] + [torch.randn_like(x) for _ in range(repeat - 1)])
+    assert big.shape[0] * 64 // 128 * (d_model // 256) >= sms
+    small_out = tfab.fused_gpt2_block(x, mask, *params, heads)
+    big_out = tfab.fused_gpt2_block(big, mask.repeat(repeat, 1), *params,
+                                    heads)
+    torch.cuda.synchronize()
+    assert torch.equal(small_out, big_out[:32])
+
+
+@pytest.mark.gpu
+def test_cuda_qkv_thirds_match_separate_weights():
+    """The q | k | v stage over the three column-third tensor maps of the
+    fused (D, 3 D) weight (row stride 3 D, no copy) gives q, k and v bit
+    for bit as fused_ln_qkv over the thirds copied into separate (D, D)
+    weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, _, params, heads = cuda_block(32, 64)
+    ln_s, ln_b, w_qkv, b_qkv = params[:4]
+    rows, d_model = 32 * 64, x.shape[-1]
+    scale = (d_model // heads) ** -0.5
+    h = torch.empty((rows, d_model), dtype=torch.bfloat16, device="cuda")
+    q, k, v = (torch.empty_like(x) for _ in range(3))
+    launch = tfab._launcher_of("gpt2_block", "gpt2_ln_qkv", 9, 2, 2)
+    rc = launch(x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+                w_qkv.data_ptr(), b_qkv.data_ptr(), h.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), rows, d_model,
+                scale, EPS, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    thirds = [t for i in range(3) for t in (
+        w_qkv[:, i * d_model:(i + 1) * d_model].contiguous(),
+        b_qkv[i * d_model:(i + 1) * d_model].contiguous())]
+    want = tfab.fused_ln_qkv(x, ln_s, ln_b, *thirds, scale, eps=EPS)
+    torch.cuda.synchronize()
+    for got, ref in zip((q, k, v), want):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
 def test_cuda_gpt2_forward_fused_matches_unfused():
     """2 layers of GPT-2 small on 4 sequences of 64 tokens: the fused
     forward's logits against the unfused plain path's, per-position cosine

@@ -283,6 +283,28 @@ def test_cuda_fused_vit_block_matches_plain_version(mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("batch", [6, 3])
+def test_cuda_fused_vit_block_ragged_rows(batch):
+    """ViT-B/32 widths on 6 and 3 images (300 and 150 rows: the last row
+    band of every product, the fp32 r1's among them, ends inside a 64-row
+    store box): within the whole-block rule of the plain version, and bit
+    for bit the rows of the same images in a batch of 16, so no box wrote
+    past its rows and no row depends on the others."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = tclip.CLIPVisionConfig.vit_b_32()
+    x, layer = cuda_layer(cfg, 16)
+    params = [layer[n] for n in BLOCK_KEYS]
+    whole = tfab.fused_vit_block(x, *params, cfg.num_heads, group=1)
+    part = x[:batch].contiguous()
+    got = tfab.fused_vit_block(part, *params, cfg.num_heads, group=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole[:batch])
+    assert_kernel_close(got, tfab.fused_vit_block_plain(part, *params,
+                                                        cfg.num_heads))
+
+
+@pytest.mark.gpu
 def test_cuda_fused_attention_block_matches_plain_version():
     """ViT-B/32 widths on 8 images: within one bf16 ulp of the fp32 plain
     version's output (the kernel's products are exact, its sums in another

@@ -242,9 +242,12 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     before = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert kernels.SOURCES["vit_block"] == "vit_block.cu"
     assert [p.name for p in kernels.included_files("vit_block")] == [
-        "vit_block.cu", "bf16_gemm_tma.cuh", "block_stages.cuh",
-        "vit_attention.cuh", "vit_attention_wgmma.cuh", "hopper_async.cuh",
-        "activations.cuh", "bf16_gemm.cuh", "row_norm.cuh"]
+        "vit_block.cu", "activations.cuh", "bf16_gemm_tma.cuh",
+        "block_stages.cuh", "vit_attention.cuh", "vit_attention_wgmma.cuh",
+        "hopper_async.cuh", "bf16_gemm.cuh", "row_norm.cuh"]
+    assert [p.name for p in kernels.included_files("gpt2_block")] == [
+        "gpt2_block.cu", "activations.cuh", "bf16_gemm_tma.cuh",
+        "row_norm.cuh", "vit_attention.cuh", "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("t5_ffn")] == [
         "t5_ffn.cu", "activations.cuh", "bf16_gemm_tma.cuh", "row_norm.cuh",
         "hopper_async.cuh"]
@@ -272,9 +275,13 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     ("q8_gemm_tma.cuh", {"int8_encoder", "vit_block_q8"}),
     ("q8_gemm.cuh", {"int8_encoder", "vit_block_q8"}),
     ("hopper_async.cuh", {"int8_encoder", "vit_block_q8", "vit_block",
-                          "t5_attention_core", "t5_ffn"}),
-    ("bf16_gemm_tma.cuh", {"vit_block", "t5_ffn"}),
-    ("bf16_gemm.cuh", {"vit_block", "gpt2_block"}),
+                          "t5_attention_core", "t5_ffn", "gpt2_block"}),
+    # every product of the whole blocks; the mma.sync loop only for
+    # attention_core_oproj's out-projection and fused_attention_block
+    ("bf16_gemm_tma.cuh", {"vit_block", "t5_ffn", "gpt2_block"}),
+    ("bf16_gemm.cuh", {"vit_block"}),
+    ("block_stages.cuh", {"vit_block"}),
+    ("vit_attention.cuh", {"vit_block", "vit_block_q8", "gpt2_block"}),
     ("row_norm.cuh", {"vit_block", "gpt2_block", "t5_ffn"}),
     # the one copy of the quickGELU (both ViT up-GEMMs) and the tanh-gelu
     ("activations.cuh", {"vit_block", "vit_block_q8", "gpt2_block",
