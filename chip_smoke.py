@@ -150,7 +150,11 @@ register / shared-memory / spill report):
              heads, F = 3072), timed at 1024 beside the plain version, the
              bound and a library yardstick (the unfused bf16 block;
              torch._int_mm, GEMMs only; fp32 matmuls and
-             scaled_dot_product_attention); fused_vit_block also with
+             scaled_dot_product_attention); fused_attention_block in its
+             three forms (block_diag; without it in compute_dtype fp32 and
+             bf16), each with its CUDA kernels' device ms and its two GEMMs
+             on bf16_gemm_tma.cuh beside cuBLAS addmm, the fp32 forms also
+             within one bf16 ulp of plain; fused_vit_block also with
              each CUDA kernel's device ms; fused_vit_block_q8 also with
              each CUDA kernel's device ms under the profiler (four
              row_quant, four GEMMs, the attention), each GEMM beside
@@ -940,22 +944,39 @@ def tma_products(name: str, fn, products: int, calls: int = 3) -> list:
     torch.profiler (every kernel whose name says gemm, xmma or cutlass);
     fails unless all are bf16_gemm_tma.cuh's, in ``products`` distinct
     instances (one per epilogue: no mma.sync stage and no cuBLAS call)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    gemms = sorted({e.name for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and any(k in e.name.lower()
-                            for k in ("gemm", "xmma", "cutlass"))})
+    gemms = [n for n in cuda_kernel_names(fn, calls)
+             if any(k in n.lower() for k in ("gemm", "xmma", "cutlass"))]
     check(len(gemms) == products
           and all("bf16_gemm_tma::gemm_kernel" in n for n in gemms),
           f"{name}: its GEMM kernels are {gemms}, not {products} "
           f"bf16_gemm_tma.cuh instances")
     return [n[:120] for n in gemms]
+
+
+def cuda_kernel_names(fn, calls: int = 3, traces: int = 3) -> list:
+    """The names of the CUDA kernels that ``calls`` calls of fn launch,
+    under torch.profiler with the host's activity traced too, as
+    device_busy traces it. Traced with CUDA activity alone,
+    flash_attention's calls came back with no CUDA record at all, every
+    time, late in a whole run of this script (on an H100; the same calls
+    traced whole in a process of their own): a trace with no CUDA record
+    says nothing, and is taken again, up to ``traces`` times in all. (A
+    trace may also drop some of a call's records, so it gives no device
+    times here.)"""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            return names
+    return []
 
 
 def phase_profile(model: VCT0Model, prefix, tokens, mask,
@@ -1780,20 +1801,30 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
         pairs = int_mm_pairs()
         return lambda: [torch._int_mm(a, w) for a, w in pairs]
 
-    def lib_f32():
-        # fp32 matmuls (TF32 off) and fp32 SDPA, on fp32 copies made before
+    def lib_attention(dtype):
+        # matmuls (fp32: TF32 off) and SDPA in dtype, on copies made before
         # the timing
-        x32, wqkv32, wo32 = (t.float() for t in (x.view(-1, width), w_qkv,
-                                                 layer["o"]))
-        bqkv32, bo32 = b_qkv.float(), layer["o_bias"].float()
+        x_, wqkv, wo, bqkv, bo = (t.to(dtype) for t in (
+            x.view(-1, width), w_qkv, layer["o"], b_qkv, layer["o_bias"]))
 
         def run():
-            qkv = torch.addmm(bqkv32, x32, wqkv32).view(
+            qkv = torch.addmm(bqkv, x_, wqkv).view(
                 B32_BATCH, seq, 3, heads, head_dim)
             o = f.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4))
-            return torch.addmm(bo32, o.transpose(1, 2).reshape(-1, width),
-                               wo32)
+            return torch.addmm(bo, o.transpose(1, 2).reshape(-1, width), wo)
         return run
+
+    def lib_attention_gemms_ms(planes):
+        # cuBLAS addmm of fused_attention_block's two products, each timed
+        # alone on random operands: q | k | v over the concatenated weight,
+        # and the out-projection over the three planes and wo stacked three
+        # times (fp32 forms) or over the bf16 attention output
+        h, a3 = yardstick_operands(dev, rows, width, 3 * width)
+        wo = torch.cat([layer["o"]] * 3) if planes else layer["o"]
+        products = ((b_qkv, h, w_qkv),
+                    (layer["o_bias"], a3 if planes else h, wo))
+        return [cuda_ms(lambda p=p: torch.addmm(*p), iters=10)
+                for p in products]
 
     vecs = (4 * width + 4 * width + d_ff + width) * 2   # LNs and biases
     weights = 4 * width * width + 2 * width * d_ff
@@ -1820,19 +1851,33 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
         bytes=2 * act + weights + (4 * width + d_ff + width) * 4 + vecs,
         parts=[(2 * rows * weights, INT8_OP_PER_S),
                (attention_flops, BF16_FLOP_PER_S)])
-    cases["fused_attention_block"] = dict(
-        fn=lambda *a: fused_attention_block(*a, group=4, block_diag=True),
-        plain=lambda *a: fused_attention_block_plain(*a, block_diag=True),
-        args=lambda n: (x[:n], *attn_args, heads), int8=False,
-        library=lib_f32,
-        library_name="fp32 addmm (TF32 off) and fp32 "
-                     "scaled_dot_product_attention",
-        bytes=2 * act + 4 * width * width * 2 + 4 * width * 2,
-        # this route: bf16 q, k, v; fp32 attention on the CUDA cores; the
-        # out-projection as three bf16 products over the split fp32 input
-        parts=[(2 * rows * 3 * width * width, BF16_FLOP_PER_S),
-               (attention_flops, FP32_FLOP_PER_S),
-               (3 * 2 * rows * width * width, BF16_FLOP_PER_S)])
+    # fused_attention_block in its three forms: block_diag (the tower's),
+    # and without it in compute_dtype fp32 (the same function and chain)
+    # and bf16
+    attention_bytes = 2 * act + 4 * width * width * 2 + 4 * width * 2
+    for suffix, kw in (("", {"block_diag": True}),
+                       ("_unblocked", {"compute_dtype": torch.float32}),
+                       ("_unblocked_bf16", {"compute_dtype": torch.bfloat16})):
+        fp32 = kw.get("compute_dtype", torch.float32) == torch.float32
+        cases["fused_attention_block" + suffix] = dict(
+            fn=lambda *a, kw=kw: fused_attention_block(*a, group=4, **kw),
+            plain=lambda *a, kw=kw: fused_attention_block_plain(*a, **kw),
+            args=lambda n: (x[:n], *attn_args, heads), int8=False,
+            library=lambda fp32=fp32: lib_attention(
+                torch.float32 if fp32 else torch.bfloat16),
+            library_name=("fp32 addmm (TF32 off) and fp32 "
+                          "scaled_dot_product_attention" if fp32 else
+                          "bf16 addmm and scaled_dot_product_attention"),
+            bytes=attention_bytes,
+            # fp32: bf16 q, k, v; fp32 attention on the CUDA cores; the
+            # out-projection as three bf16 products over the split fp32
+            # input. bf16: four bf16 products and the bf16 attention
+            parts=([(2 * rows * 3 * width * width, BF16_FLOP_PER_S),
+                    (attention_flops, FP32_FLOP_PER_S),
+                    (3 * 2 * rows * width * width, BF16_FLOP_PER_S)] if fp32
+                   else [(2 * rows * 4 * width * width + attention_flops,
+                          BF16_FLOP_PER_S)]),
+            planes=fp32)
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: the plain versions must multiply in fp32")
     results = {}
@@ -1853,6 +1898,26 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
                 lambda: case["fn"](*full)), lib_block_gemms_ms())
             stage["gemm_kernels"] = tma_products(
                 name, lambda: case["fn"](*full), 4)
+        if name.startswith("fused_attention_block"):
+            # each CUDA kernel's device time; its two GEMMs (q | k | v, the
+            # out-projection, both on bf16_gemm_tma.cuh) each beside cuBLAS
+            # addmm of the same product; the fp32 forms within one bf16 ulp
+            # of plain (the share of outputs off recorded) and the bytes of
+            # their scratch round trips (fp32 q, k, v and the planes, each
+            # written and read)
+            stage = bf16_gemm_stage(name, kernel_split(
+                lambda: case["fn"](*full)),
+                lib_attention_gemms_ms(case["planes"]))
+            stage["gemm_kernels"] = tma_products(
+                name, lambda: case["fn"](*full), 2)
+            if case["planes"]:
+                ulp = check_within_one_ulp(name, case["fn"](*full),
+                                           case["plain"](*full))
+                stage["one_ulp_differing_share"] = (ulp["differing"]
+                                                    / ulp["elements"])
+                scratch = 2 * (3 * rows * width * 4 + rows * 3 * width * 2)
+                stage["route_bytes_ms"] = (attention_bytes + scratch) \
+                    / HBM_BYTES_PER_S * 1e3
         if name == "fused_vit_block_q8":
             # each CUDA kernel's device time; each GEMM beside _int_mm
             int_mm_ms = [cuda_ms(lambda a=a, w=w: torch._int_mm(a, w),
@@ -2254,8 +2319,13 @@ def phase_flash_attention(gen: torch.Generator) -> dict:
     """flash_attention against its plain version on 16 images at ViT-L/14@336
     widths (L = 577, 16 heads of 64, bf16, no bias) and on a small shape
     under a (B, 1, 1, Lk) key-mask bias (one row masked entirely) and a
-    per-(batch, head) bias; then timed at CLIP_BATCH beside the plain
-    version, the bound and scaled_dot_product_attention on fp32 copies."""
+    per-(batch, head) bias; its CUDA kernels under the profiler (the wgmma
+    attention's kF32Planes, no other: the CUDA-event time is that kernel's;
+    clip_encode_pallas gives its device time in the encode); then timed at
+    CLIP_BATCH beside the
+    plain version, the function's bound, its route's and
+    scaled_dot_product_attention on fp32 copies, and with a key-mask bias
+    at CLIP_BATCH and a per-(batch, head) one on 16 images."""
     cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
     seq, heads = cfg.seq_len, cfg.num_heads
     head_dim = cfg.width // heads
@@ -2268,17 +2338,32 @@ def phase_flash_attention(gen: torch.Generator) -> dict:
                 .bfloat16(), randn(batch, length, n_heads, head_dim).bfloat16(),
                 randn(batch, length, n_heads, head_dim).bfloat16())
 
+    def key_mask_bias(batch, length):
+        # (B, 1, 1, L): row 1 keeps 120 keys, row 2 none, the others all
+        bias = torch.zeros((batch, 1, 1, length), device=dev)
+        bias[1, ..., 120:] = -1e9
+        bias[2] = -1e9
+        return bias
+
     checks = {}
     q, k, v = qkv(VIT_CHECK_BATCH, seq, heads)
     checks[f"B{VIT_CHECK_BATCH}"] = check_within_one_ulp(
         "flash_attention", flash_attention(q, k, v),
         flash_attention_plain(q, k, v))
+    names = cuda_kernel_names(lambda: flash_attention(q, k, v), calls=10)
+    check(len(names) == 1
+          and "vit_attention_wgmma::attention_kernel<64, 3>" in names[0],
+          f"flash_attention: its CUDA kernels are {names}, not the wgmma "
+          f"attention's kF32Planes")
+    per_head = torch.randn((VIT_CHECK_BATCH, heads, seq, seq), generator=gen,
+                           device=dev)
+    per_head_ms = cuda_ms(lambda: flash_attention(q, k, v, per_head),
+                          iters=10)
+    del q, k, v, per_head
     q, k, v = qkv(3, 200, 4)
-    key_mask = torch.zeros((3, 1, 1, 200), device=dev)
-    key_mask[1, ..., 120:] = -1e9
-    key_mask[2] = -1e9
     per_head = torch.randn((3, 4, 200, 200), generator=gen, device=dev)
-    for name, bias in (("key_mask", key_mask), ("per_batch_head", per_head)):
+    for name, bias in (("key_mask", key_mask_bias(3, 200)),
+                       ("per_batch_head", per_head)):
         checks[name] = check_within_one_ulp(
             f"flash_attention {name}", flash_attention(q, k, v, bias),
             flash_attention_plain(q, k, v, bias))
@@ -2287,6 +2372,9 @@ def phase_flash_attention(gen: torch.Generator) -> dict:
 
     q, k, v = qkv(CLIP_BATCH, seq, heads)
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), iters=10)
+    key_mask = key_mask_bias(CLIP_BATCH, seq)
+    key_mask_ms = cuda_ms(lambda: flash_attention(q, k, v, key_mask),
+                          iters=10)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), iters=2,
                        warmup=1)
     torch.cuda.empty_cache()
@@ -2297,17 +2385,23 @@ def phase_flash_attention(gen: torch.Generator) -> dict:
             q32, k32, v32, scale=1.0), iters=10)
     del q32, k32, v32
     flops = 2 * CLIP_BATCH * heads * seq * seq * head_dim
+    bytes_moved = 4 * q.numel() * 2
     main = checks[f"B{VIT_CHECK_BATCH}"]
+    # this route: q k^T twice (both passes), PV as three exact bf16 products
+    route = bound_mixed(bytes_moved, [(2 * flops, BF16_FLOP_PER_S),
+                                      (3 * flops, BF16_FLOP_PER_S)])
     result = dict(
         shape=dict(B=CLIP_BATCH, L=seq, H=heads, dh=head_dim),
         ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
         library="scaled_dot_product_attention, fp32 inputs, scale=1.0",
+        key_mask_ms=key_mask_ms,
+        **{f"per_batch_head_ms_B{VIT_CHECK_BATCH}": per_head_ms},
+        cuda_kernels=names,
         max_abs_err=max(c["max_abs_err"] for c in checks.values()),
         checks=checks, differing_share=main["differing"] / main["elements"],
-        # this route: q k^T on the tensor cores, PV as three exact bf16
-        # products
-        **bound_mixed(4 * q.numel() * 2, [(flops, BF16_FLOP_PER_S),
-                                          (3 * flops, BF16_FLOP_PER_S)]))
+        route_bound_ms=route["bound_ms"], route_bound_by=route["bound_by"],
+        # the function: q k^T and PV once each, and its bytes
+        **bound_mixed(bytes_moved, [(2 * flops, BF16_FLOP_PER_S)]))
     del q, k, v
     torch.cuda.empty_cache()
     emit("flash_attention", kernel_ms=kernel_ms,

@@ -1,6 +1,6 @@
 // The bf16 mma.sync GEMM main loop of block_stages.cuh (attention_core_oproj's
-// out-projection and fused_attention_block's products), for NVIDIA Hopper
-// (sm_90a). The other bf16 products run on bf16_gemm_tma.cuh.
+// out-projection), for NVIDIA Hopper (sm_90a). The other bf16 products run
+// on bf16_gemm_tma.cuh.
 //
 // One 128 x 128 output tile per block of eight warps on the tensor cores
 // with mma.sync m16n8k16 (bf16 in, fp32 accumulate). A 4-slot cp.async ring

@@ -1,7 +1,8 @@
 // The bf16 GEMM main loop on TMA and asynchronous wgmma, for NVIDIA Hopper
-// (sm_90a): every product of fused_ln_qkv, fused_mlp_block and
-// fused_vit_block (csrc/vit_block.cu), of fused_t5_ffn (csrc/t5_ffn.cu) and
-// of fused_gpt2_block (csrc/gpt2_block.cu). The bf16 counterpart of
+// (sm_90a): every product of fused_ln_qkv, fused_mlp_block,
+// fused_vit_block and fused_attention_block (csrc/vit_block.cu), of
+// fused_t5_ffn (csrc/t5_ffn.cu) and of fused_gpt2_block
+// (csrc/gpt2_block.cu). The bf16 counterpart of
 // q8_gemm_tma.cuh, with its design:
 //
 //   acc = a . b     a (M, K) bf16, K contiguous; b (K, N) bf16 in the JAX
@@ -12,7 +13,11 @@
 // n_split elements apart), one tensor map each, and go to as many outputs
 // (c_0 | c_1 | c_2, each (M, n_split)), so that q, k and v are one product
 // over three separate weights, or over the column thirds of one fused (D,
-// 3 D) weight (ldb = 3 D), with no copy. The paired form (gemm_paired)
+// 3 D) weight (ldb = 3 D), with no copy. B may also hold fewer rows than
+// K (b_rows, a multiple of 64 that divides K): its k coordinate then wraps,
+// so that a (M, 3 D) . (3 D, D) product reads one (D, D) weight three
+// times along K (fused_attention_block's out-projection over its three
+// bf16 planes) with no stacked copy. The paired form (gemm_paired)
 // computes two products over the same a, a . b_0 and a . b_1, into one
 // output: a 256-column B tile is 128 columns of b_0 and the same 128 of
 // b_1, so that n8 group j and group j + 16 of a thread's accumulators are
@@ -23,7 +28,8 @@
 // 16 warp + lane / 4 + 8 (e / 2) of the tile and column 8 j + 2 (lane % 4)
 // + e % 2 of its B tile); ResidualEpilogue and QkvEpilogue below are the
 // ones they share. The outputs are bf16, or fp32 where the epilogue names
-// `using Out = float` (the whole blocks' residual r1).
+// `using Out = float` (the whole blocks' residual r1, fused_attention_block's
+// fp32 q, k and v).
 //
 // Design (persistent and warp-specialised, on TMA and asynchronous wgmma):
 //   grid      persistent: one block an SM walks over the output tiles, N
@@ -126,9 +132,10 @@ struct BMaps {
   CUtensorMap map[MAX_B];
 };
 
-// N output columns, each output (and weight) n_split of them.
+// N output columns, each output (and weight) n_split of them; the weights'
+// k coordinate wraps at kb rows (kb = K: it does not).
 struct Problem {
-  int M, K, N, n_split;
+  int M, K, N, n_split, kb;
 };
 
 // The output type of an epilogue: Epi::Out where it names one (fp32), else
@@ -283,6 +290,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       // the same columns of weights 0 and 1
       const int which = n0 / p.n_split;
       const int nb = n0 - which * p.n_split;
+      int kb = 0;  // the weights' k coordinate of step s, wrapping at p.kb
       for (int s = 0; s < steps; ++s, ++t) {
         const int slot = t % STAGES;
         if (t >= STAGES) ha::mbar_wait(&empty[slot], (t / STAGES - 1) & 1);
@@ -293,8 +301,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         for (int pn = 0; pn < BN / PANEL; ++pn) {
           ha::tma_load_2d(sa + T::A_BYTES + pn * T::PANEL_BYTES,
                           pick(maps_b, PRODUCTS == 2 ? pn / PANELS : which),
-                          &full[slot], nb + pn % PANELS * PANEL, s * BK);
+                          &full[slot], nb + pn % PANELS * PANEL, kb);
         }
+        kb = kb + BK == p.kb ? 0 : kb + BK;
       }
     }
     return;
@@ -462,9 +471,14 @@ struct ResidualEpilogue {
 };
 
 // The q | k | v product's epilogue, weights (and outputs) 0, 1, 2 for q, k
-// and v: bf16((acc + bias) * scale) for q, bf16(acc + bias) for k and v
-// (fused_ln_qkv's and the GPT-2 block's).
-struct QkvEpilogue {
+// and v: OutT((acc + bias) * scale) for q, OutT(acc + bias) for k and v
+// (fused_ln_qkv's and the GPT-2 block's in bf16, fused_attention_block's in
+// fp32); with ROUND_FIRST, q = bf16(bf16(acc + bias) * scale), the scale
+// bf16 too (fused_attention_block's bf16 compute_dtype, whose Pallas kernel
+// scales the bf16 q by a bf16 scale).
+template <typename OutT = __nv_bfloat16, bool ROUND_FIRST = false>
+struct QkvEpilogueOf {
+  using Out = OutT;
   struct Args {
     const __nv_bfloat16* bias[3];  // bq, bk, bv (n_split,)
     float scale;                   // the factor of the q columns
@@ -489,10 +503,39 @@ struct QkvEpilogue {
         float v0 = __fadd_rn(acc[i], bv[jj].x);
         float v1 = __fadd_rn(acc[i + 1], bv[jj].y);
         if (which == 0) {
+          if (ROUND_FIRST) {
+            v0 = __bfloat162float(__float2bfloat16(v0));
+            v1 = __bfloat162float(__float2bfloat16(v1));
+          }
           v0 = __fmul_rn(v0, args.scale);
           v1 = __fmul_rn(v1, args.scale);
         }
-        put(jj, half, pack_bf16(v0, v1));
+        put(jj, half, pack_out<OutT>(v0, v1));
+      }
+    }
+  }
+};
+using QkvEpilogue = QkvEpilogueOf<>;
+
+// out = bf16(acc + bias), bias (n_split,) bf16 (fused_attention_block's
+// out-projection).
+struct BiasEpilogue {
+  struct Args {
+    const __nv_bfloat16* bias;
+  };
+  template <int ACC, class Put>
+  __device__ static void chunk(const Args& args, int /*which*/, int /*row*/,
+                               int col, const float (&acc)[ACC], int j0,
+                               const Put& put) {
+    const int c = col + 2 * (threadIdx.x % 4);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 b = to_float2(load_pair(args.bias + c + 8 * jj));
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = 4 * (j0 + jj) + 2 * half;
+        put(jj, half, pack_bf16(__fadd_rn(acc[i], b.x),
+                                __fadd_rn(acc[i + 1], b.y)));
       }
     }
   }
@@ -549,7 +592,7 @@ int launch(const void* a, const void* const* b, int ldb, int weights,
     // unused maps repeat the last weight's and output's (never used)
     const int kb = i < weights ? i : weights - 1;
     const int kc = i < outputs ? i : outputs - 1;
-    if (!encode_operand(&maps_b.map[i], b[kb], p.K, p.n_split, ldb, BK) ||
+    if (!encode_operand(&maps_b.map[i], b[kb], p.kb, p.n_split, ldb, BK) ||
         !encode_operand(&maps_c.map[i], c[kc], p.M, p.n_split, p.n_split,
                         OUT_BOX, f32_out)) {
       return cudaErrorInvalidValue;
@@ -571,19 +614,23 @@ int launch(const void* a, const void* const* b, int ldb, int weights,
 // weights - 1], their rows ldb elements apart (n_split when 0), side by
 // side (N = weights x n_split columns), into as many (M, n_split) outputs
 // c[0 ..] of the epilogue's type, each 16-byte aligned, at tile_width's
-// columns a tile. Returns the launch's cudaError_t (0 on success).
+// columns a tile; with b_rows (a multiple of 64 dividing K; K when 0), the
+// weights are (b_rows, n_split), read K / b_rows times along K. Returns the
+// launch's cudaError_t (0 on success).
 template <class Epi>
 int gemm(const void* a, const void* const* b, void* const* c, int weights,
          int M, int K, int n_split, const typename Epi::Args& args,
-         cudaStream_t stream, int ldb = 0) {
-  if (!shape_ok(M, K, n_split, weights) || (ldb != 0 && ldb < n_split)) {
+         cudaStream_t stream, int ldb = 0, int b_rows = 0) {
+  b_rows = b_rows != 0 ? b_rows : K;
+  if (!shape_ok(M, K, n_split, weights) || (ldb != 0 && ldb < n_split) ||
+      b_rows <= 0 || b_rows % BK != 0 || K % b_rows != 0) {
     return cudaErrorInvalidValue;
   }
   ldb = ldb != 0 ? ldb : n_split;
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const Problem p{M, K, n_split * weights, n_split};
+  const Problem p{M, K, n_split * weights, n_split, b_rows};
   return tile_width(M, p.N, n_split, sms) == 256
              ? launch<256, 1, Epi>(a, b, ldb, weights, c, weights, p, args,
                                    sms, stream)
@@ -604,7 +651,7 @@ int gemm_paired(const void* a, const void* b0, const void* b1, void* c,
   if (err != cudaSuccess) return err;
   const void* const b[2] = {b0, b1};
   void* const out[1] = {c};
-  return launch<256, 2, Epi>(a, b, N, 2, out, 1, Problem{M, K, N, N}, args,
+  return launch<256, 2, Epi>(a, b, N, 2, out, 1, Problem{M, K, N, N, K}, args,
                              sms, stream);
 }
 

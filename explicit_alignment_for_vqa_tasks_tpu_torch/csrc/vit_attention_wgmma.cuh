@@ -1,17 +1,20 @@
-// The attention cores of the CLIP ViT and of the T5 encoder on NVIDIA
-// Hopper (sm_90a), with wgmma and TMA: softmax(s) v per image (or batch
-// row) and head over bf16 q, k, v in the (B, L, H dh) layout, in the order
-// of rounding of three Pallas kernels of
+// The attention cores of the CLIP ViT and of the T5 encoder, and the fp32
+// attention of the CLIP encoder's use_pallas option, on NVIDIA Hopper
+// (sm_90a), with wgmma and TMA: softmax(s) v per image (or batch row) and
+// head over bf16 q, k, v in the (B, L, H dh) layout, in the order of
+// rounding of four Pallas kernels: of
 // explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py,
 //   attention_core         _make_core_kernel (:161-200), pallas_call :225
 //   attention_core_oproj   _make_core_oproj_kernel (:301-342), its
 //                          attention; pallas_call :366
 //   t5_attention_core      _make_t5_core_kernel (:1105-1131), pallas_call
 //                          :1168
+// and of explicit_alignment_for_vqa_tasks_tpu/ops/attention.py,
+//   flash_attention        _attn_kernel(_bias) (:29-63), pallas_call :142
 // (csrc/vit_block.cu adds the out-projection after the second;
-// csrc/t5_attention_core.cu launches the third). With s = q . k^T in fp32
-// (ViT: q pre-scaled, no bias, no mask) and m the max of the WHOLE row of
-// s over the keys below L:
+// csrc/t5_attention_core.cu launches the third, csrc/flash_attention.cu
+// the fourth). With s = q . k^T in fp32 (ViT: q pre-scaled, no bias, no
+// mask) and m the max of the WHOLE row of s over the keys below Lk:
 //   kBf16Sum   p = bf16(expf(s - m)), denom = sum(float(p))
 //   kFastExp   e = expf(float(bf16(s - m))), p = bf16(e), denom = sum(e)
 //   kT5        kBf16Sum's order on s = (s + bias[h][i][j]) + key_bias[b][j]
@@ -21,10 +24,21 @@
 //              keys inside L take part like any other: a fully masked row
 //              comes out as the mean of v over all L keys (s + bias - 1e9
 //              rounds to -1e9 for every key, so every e is 1).
+//   kF32Planes flash_attention: s = s + bias[b sb + h sh + i sq + j sk]
+//              where a bias is given (fp32, any broadcast strides); Lq
+//              queries and Lk keys; e = expf(s - m) stays fp32, never
+//              rounded, denom = sum(e); P . V as three exact bf16 products,
+//              e split in registers into hi = bf16(e), mid = bf16(e - hi),
+//              lo = bf16(e - hi - mid) (hi + mid + lo = e). JAX pads Lk with
+//              n_pad keys scored exactly -1e9 whose v is 0: they are not
+//              stored, and join the max as -1e9 and the denominator as
+//              n_pad expf(-1e9 - m) (they matter only in a row whose bias
+//              masks every key).
 // then o = (p . v) in fp32, __fdiv_rn(o, denom), stored in bf16. The
 // subtraction is __fsub_rn and the exponential expf (no exp2 with a log2(e)
-// pre-scale, no --use_fast_math): both would move the bf16 roundings of p.
-// Only the order of the fp32 sums differs from the plain version's.
+// pre-scale, no --use_fast_math): both would move the bf16 roundings of p
+// (and kF32Planes' e). Only the order of the fp32 sums differs from the
+// plain version's.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s; 132
 // SMs at 16 exponentials a clock each). At ViT-L/14@336 with B = 256
@@ -33,7 +47,10 @@
 //   B H L^2   = 1.364 G exponentials, about 0.33 ms of MUFU time
 //   4 B L D bf16 = 1.21 GB = 0.361 ms of device memory
 // so its bound is 0.53 ms, by operations (the one-pass function's bound
-// is 0.361 ms, by bytes). kT5 at T0-3B's encoder (B = 32, L = 557, 32
+// is 0.361 ms, by bytes). kF32Planes at the same shape (flash_attention's
+// caller) adds two P . V products: 10 B L^2 D = 873 GFLOP = 0.883 ms (its
+// function's bound stays 0.361 ms, by bytes). kT5 at T0-3B's encoder (B =
+// 32, L = 557, 32
 // heads of 64): 6 B H L^2 dh = 122 GFLOP = 0.123 ms, 318 M exponentials
 // = 0.076 ms, and q, k, v, o, the bias and the mask, 332 MB = 0.099 ms,
 // so 0.123 ms by operations; the bias is read in both passes, from L2
@@ -44,7 +61,8 @@
 //
 // Design. The Pallas order forbids FlashAttention's online softmax:
 // bf16(exp(s - m_partial)) exp(m_partial - m) does not round as
-// bf16(exp(s - m)) does. So the kernel makes two passes over the keys:
+// bf16(exp(s - m)) does (nor, in kF32Planes, as the fp32 exp(s - m)). So
+// the kernel makes two passes over the keys:
 //   grid      persistent: one block an SM walks over the (128-query tile,
 //             head, image) items, query tiles fastest, item i on block i
 //             mod the grid, so that the blocks at work hold neighbouring
@@ -63,12 +81,13 @@
 //             of (1, 64, PC), PC = min(dh, 64) columns, swizzled by PC * 2
 //             bytes (128 at dh = 64): rows past L come in as zeros and
 //             never hold the next image's. dh = 128 takes two boxes a tile.
+//             Q has a map (and a length) of its own, K and V theirs.
 //   Q         each warpgroup reads its 64 rows once into registers, as the
 //             A fragments of q . k^T, and frees the buffer: the products
 //             then read only K and V from shared memory.
 //   pass 1    S = Q . K^T with wgmma.m64n64k16 (the K tile a K-major B),
 //             two tiles a round back to back, a max over the accumulators
-//             of the keys below L (a zero-filled key row scores 0 and must
+//             of the keys below Lk (a zero-filled key row scores 0 and must
 //             not join it), then across the quad of threads of a row.
 //   kT5 terms the bias comes tiled (t5_bias_tiles, once an encode): for
 //             each head, 64-query block and 64-key tile, a 16 KB block
@@ -89,22 +108,36 @@
 //             warp load; 1.53 with the mask read a column at a time; 0.95
 //             with the bias in swizzled TMA boxes, two 8-byte loads with
 //             2-way bank conflicts where one 16-byte load does now.)
-//   pass 2    S again, tile by tile; e from it as above (keys at or past L
+//   kF32Planes terms  the optional bias by plain 4-byte loads through its
+//             strides, added in both passes in the same order (no shipped
+//             caller passes one; the CLIP tower's has none).
+//   pass 2    S again, tile by tile; e from it as above (keys at or past Lk
 //             get exactly 0) and the fp32 row sums in registers; p = bf16(e)
 //             packed straight into the A fragments of the P . V wgmma (the
 //             m64n64 accumulator layout is the m64k16 A layout), O += P . V
-//             with the V tile as an MN-major B.
+//             with the V tile as an MN-major B. kF32Planes packs e's three
+//             planes into three sets of A fragments and issues three P . V
+//             products against the same V tile into ONE set of
+//             accumulators, lo, mid, then hi within each tile. (Three sets,
+//             lo, mid and hi apart, added (lo + mid) + hi at the end, keep
+//             more of lo's small products, which the tensor cores truncate
+//             against a larger running sum; but with the exponentials'
+//             tile, Q and the planes they need 192 of the 168 registers a
+//             thread has at dh = 64. On an H100 at ViT-L/14@336, B = 256:
+//             three sets spilled and took 5.6 ms, two 4.3, one 3.05; the
+//             outputs that differ from the plain version at all went from
+//             0.046 % to 0.113 % of 16 images', every one within one ulp.)
 //   overlap   wgmma stays asynchronous: the next tile's Q . K^T and this
 //             tile's P . V are issued together, and the next tile's
 //             exponentials run (in place, in its accumulators) while P . V
 //             does; each wait counts the same groups on every path, so that
 //             ptxas keeps the products asynchronous (no C7513 / C7514
 //             serialization). The two warpgroups overlap each other's waits.
-//   epilogue  the sums across the quad, __fdiv_rn, bf16; rows past L are
+//   epilogue  the sums across the quad, __fdiv_rn, bf16; rows past Lq are
 //             not stored.
-// Any L >= 1 (no shared-memory limit on L) and dh of 16, 32, 64 or 128.
-// An mbarrier wait that lasts seconds traps (a deadlock fails the launch
-// instead of hanging the card).
+// Any Lq, Lk >= 1 (no shared-memory limit on either) and dh of 16, 32, 64
+// or 128. An mbarrier wait that lasts seconds traps (a deadlock fails the
+// launch instead of hanging the card).
 // The tensor map's encoder and the PTX wrappers are hopper_async.cuh's.
 
 #pragma once
@@ -122,9 +155,18 @@ namespace vit_attention_wgmma {
 
 using bf16 = __nv_bfloat16;
 
-enum Softmax : int { kBf16Sum = 0, kFastExp = 1, kT5 = 2 };
+enum Softmax : int { kBf16Sum = 0, kFastExp = 1, kT5 = 2, kF32Planes = 3 };
 
 constexpr float MASK_NEG = -1e9f;  // kT5's score of a masked key, added
+constexpr float PAD_SCORE = -1e9f;  // kF32Planes: JAX's padded keys' score
+
+// kF32Planes' terms: the fp32 bias at b sb + h sh + i sq + j sk (strides in
+// elements, 0 on broadcast axes), or null; JAX's n_pad padded keys.
+struct FlashTerms {
+  const float* bias;
+  long long sb, sh, sq, sk;
+  int n_pad;
+};
 
 constexpr int ROWS = 64;                  // query rows a warpgroup; keys a tile
 constexpr int CONSUMERS = 2;              // consumer warpgroups
@@ -228,14 +270,15 @@ __global__ void __launch_bounds__(NT, 1)
 attention_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
-                 bf16* __restrict__ out, int B, int L, int H,
+                 bf16* __restrict__ out, int B, int Lq, int Lk, int H,
                  const float* __restrict__ bias_tiles,
-                 const int* __restrict__ mask) {
+                 const int* __restrict__ mask, const FlashTerms flash) {
   using T = Tile<DH>;
   constexpr bool T5 = MODE == kT5;
+  constexpr bool PLANES = MODE == kF32Planes;
   constexpr int NB = bias_stages<DH, MODE>();
-  const int tiles = (L + ROWS - 1) / ROWS;  // key tiles
-  const int q_tiles = (L + BQ - 1) / BQ;
+  const int tiles = (Lk + ROWS - 1) / ROWS;  // key tiles
+  const int q_tiles = (Lq + BQ - 1) / BQ;
   const int items = q_tiles * H * B;  // the query tile fastest
   // item -> its first query row, head and image: (query tile, head,
   // image), kT5 (query tile, batch row, head)
@@ -324,7 +367,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       // K, and which of its 64 keys the batch row's mask keeps (bit c for
       // key 64 j + c; keys at or past L, never used, count as kept, so
       // that a last tile with all its keys kept takes the fast path)
-      const int* mask_b = T5 ? mask + static_cast<size_t>(b) * L : nullptr;
+      const int* mask_b = T5 ? mask + static_cast<size_t>(b) * Lk : nullptr;
       auto load_bias = [&](int j) {
         if constexpr (T5) {
           const int slot = bt % NB;
@@ -343,8 +386,8 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
             }
           }
           const int k0 = j * ROWS + lane;
-          const bool lo = k0 >= L || __ldg(mask_b + k0) > 0;
-          const bool hi = k0 + 32 >= L || __ldg(mask_b + k0 + 32) > 0;
+          const bool lo = k0 >= Lk || __ldg(mask_b + k0) > 0;
+          const bool hi = k0 + 32 >= Lk || __ldg(mask_b + k0 + 32) > 0;
           const uint64_t keep =
               static_cast<uint64_t>(__ballot_sync(0xffffffffu, lo)) |
               static_cast<uint64_t>(__ballot_sync(0xffffffffu, hi)) << 32;
@@ -472,11 +515,31 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     };
 
-    // ---- pass 1: the row max over the keys below L -------------------------
+    // kF32Planes: s = s + bias in place for key tile jj (rows past Lq and
+    // keys past Lk, never used, take none)
+    const int qi = q0 + wg * ROWS + r;  // the thread's first query row
+    auto add_flash_bias = [&](float(&s)[32], int jj) {
+      if (!PLANES || flash.bias == nullptr) return;
+      const float* brow = flash.bias + b * flash.sb + h * flash.sh +
+                          qi * flash.sq + jj * ROWS * flash.sk;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + c2 + i % 2;
+        const int half = (i / 2) % 2;
+        if (qi + 8 * half < Lq && jj * ROWS + col < Lk) {
+          s[i] = __fadd_rn(
+              s[i], __ldg(brow + 8 * half * flash.sq + col * flash.sk));
+        }
+      }
+    };
+
+    // ---- pass 1: the row max over the keys below Lk ------------------------
     float sa[32], sb[32];
-    float m0 = -INFINITY, m1 = -INFINITY;
+    // JAX's padded keys score -1e9
+    float m0 = PLANES && flash.n_pad > 0 ? PAD_SCORE : -INFINITY;
+    float m1 = m0;
     auto row_max = [&](const float(&s)[32], int j) {
-      const int lim = L - j * ROWS;  // keys of this tile below L
+      const int lim = Lk - j * ROWS;  // keys of this tile below Lk
       if (lim >= ROWS) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -507,6 +570,8 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
         add_bias(sa, j);
         add_bias(sb, j + 1);
       }
+      add_flash_bias(sa, j);
+      add_flash_bias(sb, j + 1);
       row_max(sa, j);
       row_max(sb, j + 1);
     }
@@ -517,6 +582,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_operands(sa);
       release(j);
       if constexpr (T5) add_bias(sa, j);
+      add_flash_bias(sa, j);
       row_max(sa, j);
     }
 #pragma unroll
@@ -532,6 +598,9 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
     uint32_t pa[4][4];  // P of a tile as the A fragments of 4 k steps
+    // kF32Planes: e's lo and mid planes as A fragments of their own (pa
+    // holds hi)
+    uint32_t pa_low[2][PLANES ? 4 : 1][4];
     float sum0 = 0.0f, sum1 = 0.0f;
     // e of one score (keys at or past L: dropped, exactly 0; p is bf16(e))
     // and its share of the row's denominator
@@ -543,6 +612,11 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       if (MODE == kFastExp) {
         const float e =
             expf(__bfloat162float(__float2bfloat16(__fsub_rn(s, m))));
+        share = e;
+        return e;
+      }
+      if (PLANES) {  // e itself, fp32
+        const float e = expf(__fsub_rn(s, m));
         share = e;
         return e;
       }
@@ -564,12 +638,13 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     };
     auto tile_exponentials = [&](float(&s)[32], int jj) {
-      const int lim = L - jj * ROWS;
+      const int lim = Lk - jj * ROWS;
       if (lim >= ROWS) exponentials(s, lim, std::false_type());
       else exponentials(s, lim, std::true_type());
     };
     // p = bf16(e) into the A fragments: k step kk's are the elements
-    // 8 kk .. 8 kk + 7 of the accumulator, in order
+    // 8 kk .. 8 kk + 7 of the accumulator, in order (kF32Planes: e's hi
+    // plane there, mid and lo into pa_low)
     auto pack = [&](const float(&e)[32]) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -578,17 +653,45 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
           const int i = 8 * kk + 2 * hh;
           const __nv_bfloat162 p = __floats2bfloat162_rn(e[i], e[i + 1]);
           pa[kk][hh] = *reinterpret_cast<const uint32_t*>(&p);
+          if constexpr (PLANES) {
+            const float2 hi = __bfloat1622float2(p);
+            const float r0 = __fsub_rn(e[i], hi.x);
+            const float r1 = __fsub_rn(e[i + 1], hi.y);
+            const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+            const float2 mf = __bfloat1622float2(mid);
+            const __nv_bfloat162 lo = __floats2bfloat162_rn(
+                __fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y));
+            pa_low[0][kk][hh] = *reinterpret_cast<const uint32_t*>(&lo);
+            pa_low[1][kk][hh] = *reinterpret_cast<const uint32_t*>(&mid);
+          }
         }
       }
     };
-    // O += P . V_j, asynchronously (one group)
+    auto fence_pv = [&]() {
+      fence_operands(o);
+      fence_operands(pa);
+      if constexpr (PLANES) {
+        fence_operands(pa_low[0]);
+        fence_operands(pa_low[1]);
+      }
+    };
+    // O += P . V_j, asynchronously (one group); kF32Planes: lo, mid, then
+    // hi against the same V tile, into the same accumulators
     auto issue_pv = [&](int jj) {
       const int v_load = k_load(jj) + 1;
       wait_full(v_load);
       const uint32_t v_tile = tile_addr(v_load);
-      fence_operands(o);
-      fence_operands(pa);
+      fence_pv();
       wgmma_fence();
+      if constexpr (PLANES) {
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_rs<1>(o, pa_low[pl][kk], mn_major_desc<DH>(v_tile, kk), 1);
+          }
+        }
+      }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         wgmma_rs<1>(o, pa[kk], mn_major_desc<DH>(v_tile, kk), 1);
@@ -602,6 +705,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_operands(sa);
     release(k_load(0));
     if constexpr (T5) add_bias(sa, tiles);
+    add_flash_bias(sa, 0);
     tile_exponentials(sa, 0);
     pack(sa);
     for (j = 0; j + 1 < tiles; ++j) {
@@ -615,17 +719,16 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_operands(sa);
       release(k_load(j + 1));
       if constexpr (T5) add_bias(sa, tiles + j + 1);
+      add_flash_bias(sa, j + 1);
       tile_exponentials(sa, j + 1);
       wgmma_wait<0>();
-      fence_operands(o);
-      fence_operands(pa);
+      fence_pv();
       release(k_load(j) + 1);
       pack(sa);
     }
     issue_pv(tiles - 1);
     wgmma_wait<0>();
-    fence_operands(o);
-    fence_operands(pa);
+    fence_pv();
     release(k_load(tiles - 1) + 1);
 
     // ---- the division after PV and the store -------------------------------
@@ -634,14 +737,18 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       sum0 = __fadd_rn(sum0, __shfl_xor_sync(0xffffffffu, sum0, off));
       sum1 = __fadd_rn(sum1, __shfl_xor_sync(0xffffffffu, sum1, off));
     }
+    if (PLANES && flash.n_pad > 0) {  // the padded keys' exp(-1e9 - m)
+      const float pad = static_cast<float>(flash.n_pad);
+      sum0 = __fadd_rn(sum0, __fmul_rn(pad, expf(__fsub_rn(PAD_SCORE, m0))));
+      sum1 = __fadd_rn(sum1, __fmul_rn(pad, expf(__fsub_rn(PAD_SCORE, m1))));
+    }
     const int HD = H * DH;
-    const int qi = q0 + wg * ROWS + r;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = qi + 8 * half;
-      if (row >= L) continue;
+      if (row >= Lq) continue;
       const float denom = half ? sum1 : sum0;
-      bf16* dst = out + (static_cast<size_t>(b) * L + row) * HD + h * DH + c2;
+      bf16* dst = out + (static_cast<size_t>(b) * Lq + row) * HD + h * DH + c2;
 #pragma unroll
       for (int g = 0; g < DH / 8; ++g) {
         const int i = 4 * g + 2 * half;
@@ -681,12 +788,12 @@ bool encode_map(CUtensorMap* map, const void* base, int B, int L, int H) {
 
 template <int DH, int MODE>
 int attention(const void* q, const void* k, const void* v, void* out, int B,
-              int L, int H, const float* bias_tiles, const int* mask,
-              cudaStream_t stream) {
+              int Lq, int Lk, int H, const float* bias_tiles, const int* mask,
+              const FlashTerms& flash, cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    if (!encode_map<DH>(&maps[i], bases[i], B, L, H)) {
+    if (!encode_map<DH>(&maps[i], bases[i], B, i == 0 ? Lq : Lk, H)) {
       return cudaErrorInvalidValue;
     }
   }
@@ -700,36 +807,72 @@ int attention(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long items = static_cast<long long>((L + BQ - 1) / BQ) * H * B;
+  const long long items = static_cast<long long>((Lq + BQ - 1) / BQ) * H * B;
   const int grid = static_cast<int>(items < sms ? items : sms);
   attention_kernel<DH, MODE><<<grid, NT, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(out), B, L, H,
-      bias_tiles, mask);
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), B, Lq, Lk, H,
+      bias_tiles, mask, flash);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The attention of head size dh (16, 32, 64 or 128) in softmax order MODE
-// over q, k, v and out (B, L, H dh) bf16, each 16-byte aligned; kT5 also
-// over the (H, L, L) fp32 bias in t5_bias_tiles' order (16-byte aligned)
-// and mask (B, L) int32 (null otherwise). Returns its launch's cudaError_t
-// (0 on success).
+// (not kF32Planes) over q, k, v and out (B, L, H dh) bf16, each 16-byte
+// aligned; kT5 also over the (H, L, L) fp32 bias in t5_bias_tiles' order
+// (16-byte aligned) and mask (B, L) int32 (null otherwise). Returns its
+// launch's cudaError_t (0 on success).
 template <int MODE>
 int attention_dh(const void* q, const void* k, const void* v, void* out,
                  int B, int L, int H, int dh, cudaStream_t stream,
                  const void* bias_tiles = nullptr,
                  const void* mask = nullptr) {
+  static_assert(MODE != kF32Planes, "flash_dh launches kF32Planes");
   if (!shape_ok(B, L, H)) return cudaErrorInvalidValue;
   if (MODE == kT5 && (bias_tiles == nullptr || mask == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const float* bt = static_cast<const float*>(bias_tiles);
   const int* ms = static_cast<const int*>(mask);
+  const FlashTerms none{nullptr, 0, 0, 0, 0, 0};
   switch (dh) {
-    case 16: return attention<16, MODE>(q, k, v, out, B, L, H, bt, ms, stream);
-    case 32: return attention<32, MODE>(q, k, v, out, B, L, H, bt, ms, stream);
-    case 64: return attention<64, MODE>(q, k, v, out, B, L, H, bt, ms, stream);
+    case 16:
+      return attention<16, MODE>(q, k, v, out, B, L, L, H, bt, ms, none,
+                                 stream);
+    case 32:
+      return attention<32, MODE>(q, k, v, out, B, L, L, H, bt, ms, none,
+                                 stream);
+    case 64:
+      return attention<64, MODE>(q, k, v, out, B, L, L, H, bt, ms, none,
+                                 stream);
     case 128:
-      return attention<128, MODE>(q, k, v, out, B, L, H, bt, ms, stream);
+      return attention<128, MODE>(q, k, v, out, B, L, L, H, bt, ms, none,
+                                  stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// kF32Planes (flash_attention) of head size dh (16, 32, 64 or 128) over q
+// and out (B, Lq, H dh), k and v (B, Lk, H dh) bf16, each 16-byte aligned,
+// with `flash`'s bias and padded keys. Returns its launch's cudaError_t (0
+// on success).
+inline int flash_dh(const void* q, const void* k, const void* v, void* out,
+                    int B, int Lq, int Lk, int H, int dh,
+                    const FlashTerms& flash, cudaStream_t stream) {
+  if (!shape_ok(B, Lq, H) || !shape_ok(B, Lk, H) || flash.n_pad < 0) {
+    return cudaErrorInvalidValue;
+  }
+  switch (dh) {
+    case 16:
+      return attention<16, kF32Planes>(q, k, v, out, B, Lq, Lk, H, nullptr,
+                                       nullptr, flash, stream);
+    case 32:
+      return attention<32, kF32Planes>(q, k, v, out, B, Lq, Lk, H, nullptr,
+                                       nullptr, flash, stream);
+    case 64:
+      return attention<64, kF32Planes>(q, k, v, out, B, Lq, Lk, H, nullptr,
+                                       nullptr, flash, stream);
+    case 128:
+      return attention<128, kF32Planes>(q, k, v, out, B, Lq, Lk, H, nullptr,
+                                        nullptr, flash, stream);
     default: return cudaErrorInvalidValue;
   }
 }

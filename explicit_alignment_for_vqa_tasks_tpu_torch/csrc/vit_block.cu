@@ -12,7 +12,8 @@
 // whole / whole_dd variants (:182-199)
 //   fused_vit_block        pallas_call at :1398, body :1237-1346
 // and the attention half of the short fused_attention branch (:295-309)
-//   fused_attention_block  pallas_call at :1452, body :108-158 (block_diag)
+//   fused_attention_block  pallas_call at :1452, bodies :107-158 (block_diag)
+//                          and :47-105 (not)
 // It computes, in the Pallas kernels' order of rounding (x (M, D) with M = B L
 // rows; activations, weights and outputs bf16):
 //
@@ -42,10 +43,18 @@
 //     h2  = bf16(LN2(r1))                  the LayerNorm of the fp32 r1
 //     hid = bf16(quickGELU((h2 . w_fc) + b_fc))
 //     out = bf16(r1 + ((hid . w_proj) + b_proj))
-//   fused_attention_block (block_diag), everything fp32 after the upcast:
+//   fused_attention_block (block_diag, or compute_dtype float32: the same
+//     function, since the block-diagonal kernel's -1e30 on other images'
+//     keys gives them exact zeros), everything fp32 after the upcast:
 //     q   = ((x . wq) + bq) * scale, k = (x . wk) + bk, v = (x . wv) + bv
 //     p   = e / sum(e), e = exp(s - max), s = q . k^T   per image and head
 //     out = bf16(((p . v) . wo) + bo)      (the caller adds the residual)
+//   fused_attention_block (compute_dtype bfloat16):
+//     q   = bf16(bf16((x . wq) + bq) * bf16(scale)), k = bf16((x . wk) + bk),
+//     v   = bf16((x . wv) + bv)
+//     o   = bf16(p . v), p = bf16(e / sum(e))   (vit_attention.cuh's
+//                                                kNormalised)
+//     out = bf16((o . wo) + bo)
 //
 // Every multiply and add of the fp32 epilogues and norms is written with
 // __fmul_rn / __fadd_rn / __fsub_rn so that nvcc cannot contract them into
@@ -72,7 +81,10 @@
 //                         = 0.117 ms and the out-projection as 3 x 60.4
 //                         GFLOP of bf16 products (below) = 0.183 ms: 0.484
 //                         ms for this route (1.20 ms with the out-projection
-//                         on the CUDA cores); 162 MB = 0.048 ms
+//                         on the CUDA cores); 162 MB = 0.048 ms, and this
+//                         route's scratch round trips (the fp32 q, k, v,
+//                         3 x 157 MB, and the planes, 236 MB, each written
+//                         and read) 1.42 GB = 0.42 ms
 // All are bound by operations but attention_core, bound by bytes; the
 // encoders run each of their kernels once per layer.
 //
@@ -99,29 +111,40 @@
 //     out-projection adds x and writes the fp32 r1 (ResidualEpilogue with
 //     an fp32 output, stored as 64 x 32 fp32 boxes); the up product as
 //     fused_mlp_block's; the down product adds the fp32 r1.
+//   fused_attention_block's products on the same loop: q | k | v as one
+//     product of N = 3 D whose epilogue writes fp32 q, k, v (64 x 32 fp32
+//     store boxes), or bf16 ones with q's scale after the rounding
+//     (compute_dtype bfloat16); the out-projection with the bias epilogue,
+//     over the three planes below reading wo three times along K (no
+//     stacked copy).
 //   gemm (block_stages.cuh): bf16_gemm.cuh's 128 x 128 mma.sync main loop
-//     with the epilogue of the stage, for attention_core_oproj's
-//     out-projection (bias then residual) and fused_attention_block's
-//     products (bias then scale: for its fp32 q, k and v blockIdx.z picks
-//     the weight, bias, output and scale, so one launch covers the three
-//     (D, D) weights).
+//     with the bias-then-residual epilogue, for attention_core_oproj's
+//     out-projection.
 //   attention: attention_core and attention_core_oproj's on wgmma and TMA
 //     in vit_attention_wgmma.cuh (two passes over the keys, any L); the
 //     whole blocks' in vit_attention.cuh, in the softmax order of the
 //     function.
-//   fused_attention_block's attention has fp32 operands, where TF32 tensor
-//     cores would not hold the fp32 result: it runs on the CUDA cores in
-//     fp32 (fmaf), one block of eight warps per (head, image) with the
-//     image's K and V in shared memory, a warp per query row. Its output
-//     goes out as three bf16 planes, hi = bf16(o), mid = bf16(o - hi), lo =
-//     bf16(o - hi - mid), whose sum is o exactly; the out-projection is then
-//     one bf16 GEMM over (M, 3 D) . (3 D, D) with wo stacked three times,
-//     every product exact in fp32, so it differs from fp32 FFMA only in the
-//     order of the sums. The planes lie lo | mid | hi along K, smallest
-//     first: the tensor cores align each product to the running sum and
-//     truncate, so lo's products summed after hi's are lost (on an H100,
-//     with hi first, 0.13 % of the bf16 outputs were an ulp off the fp32
-//     plain version's; in this order 0.075 %).
+//   fused_attention_block's fp32 attention has fp32 operands, where TF32
+//     tensor cores would not hold the fp32 result: it runs on the CUDA
+//     cores in fp32 (fmaf), one block per (head, image) holding every row
+//     of the image (L <= 128), its Q and K transposed, V and then P in
+//     shared memory, filled by 16-byte loads. Register tiles: a half-warp
+//     per 4 query rows, each thread 4 rows x 4 keys of s a span of 64 keys
+//     (16 FMAs a step of dh for two 16-byte loads), the row max and sum by
+//     shuffles, then 4 rows x dh / 16 dims of p . v. Each dot product keeps
+//     its order over dh (and p . v over the keys), and the softmax max ->
+//     exp -> sum -> divide. (The warp-per-row kernel it replaces, with two
+//     shared-memory loads an FMA and K and V copied by 4-byte loads, took
+//     1.25 ms of a 2.68 ms call at ViT-B/32, B = 1024, on an H100.) Its
+//     output goes out as three bf16 planes, hi = bf16(o), mid = bf16(o -
+//     hi), lo = bf16(o - hi - mid), whose sum is o exactly; the
+//     out-projection is then one bf16 GEMM over (M, 3 D) . (3 D, D), every
+//     product exact in fp32, so it differs from fp32 FFMA only in the order
+//     of the sums. The planes lie lo | mid | hi along K, smallest first:
+//     the tensor cores align each product to the running sum and truncate,
+//     so lo's products summed after hi's are lost (on an H100, with hi
+//     first, 0.13 % of the bf16 outputs were an ulp off the fp32 plain
+//     version's; in this order 0.075 %).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -222,6 +245,12 @@ using BiasResidualEpilogue = bf16_gemm_tma::ResidualEpilogue<bf16, true>;
 // down product, out = bf16(r1 + (acc + bias)).
 using R1Epilogue = bf16_gemm_tma::ResidualEpilogue<bf16, true, float>;
 using R1ResidualEpilogue = bf16_gemm_tma::ResidualEpilogue<float, true>;
+// fused_attention_block's q | k | v: fp32 (block_diag, compute_dtype
+// float32), or bf16 with q's scale after the rounding (compute_dtype
+// bfloat16).
+using QkvF32Epilogue = bf16_gemm_tma::QkvEpilogueOf<float>;
+using QkvRoundFirstEpilogue =
+    bf16_gemm_tma::QkvEpilogueOf<__nv_bfloat16, true>;
 
 // fused_ln_qkv's shapes: the norm's row (block_stages.cuh) and the q | k | v
 // product's (K = D a multiple of 64, D a multiple of 128; any M).
@@ -231,83 +260,225 @@ inline bool ln_qkv_shape_ok(int M, int D) {
 
 // ---- fused_attention_block's fp32 attention ---------------------------------
 
-constexpr int F32_WARPS = 8;
+// One block of 4 l8 threads (l8 = L rounded up to 8) per (head, image); a
+// half-warp per 4 query rows, so every row of the image in one pass.
+constexpr int F32_MAX_LEN = 128;
 
+__host__ __device__ inline int f32_rows(int L) { return (L + 7) / 8 * 8; }
+__host__ __device__ inline int f32_keys(int L) { return (L + 63) / 64 * 64; }
+
+// Q^T (dh x l8), in whose place P (l8 / 4 row groups x L keys x 4 rows)
+// goes after the scores; K^T (dh x the keys rounded up to 64), zero past L;
+// V (L x dh).
 inline size_t f32_att_smem_bytes(int L, int dh) {
-  return (static_cast<size_t>(L) * (dh + 1)      // K, rows padded by one
-          + static_cast<size_t>(L) * dh          // V
-          + F32_WARPS * static_cast<size_t>(dh)  // each warp's q row
-          + F32_WARPS * static_cast<size_t>(L))  // each warp's score row
-         * sizeof(float);
+  const size_t l8 = f32_rows(L);
+  return (l8 * (dh > L ? dh : L) + static_cast<size_t>(dh) * f32_keys(L) +
+          static_cast<size_t>(L) * dh) * sizeof(float);
 }
 
-// One block per (head, image) over fp32 q (pre-scaled), k, v (B, L, H DH):
-// s = q . k^T, p = e / sum(e) with e = exp(s - max), o = p . v, all fp32
-// (fmaf); o goes out as three bf16 planes of attn3 (B L, 3 H DH): lo | mid |
-// hi, hi + mid + lo = o exactly, the smallest first.
-template <int DH>
-__global__ void __launch_bounds__(F32_WARPS * 32)
+// VW floats at p, as one vector load of shared memory.
+template <int VW>
+__device__ inline void load_vec(const float* p, float (&out)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
+  } else if constexpr (VW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    out[0] = t.x; out[1] = t.y;
+  } else {
+    out[0] = *p;
+  }
+}
+
+// VW values rounded to bf16 at p, as one store.
+template <int VW>
+__device__ inline void store_bf16(bf16* p, const float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const uint32_t*>(&a);
+    t.y = *reinterpret_cast<const uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(p) = t;
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16(v[0]);
+  }
+}
+
+// Over fp32 q (pre-scaled), k, v (B, L, H DH), all fp32 on the CUDA cores
+// (fmaf): s = q . k^T, each dot over DH in order; p = e / sum(e) with e =
+// exp(s - max); o = p . v over the keys in order. o goes out as three bf16
+// planes of attn3 (B L, 3 H DH): lo | mid | hi, hi + mid + lo = o exactly,
+// the smallest first. Register tiles: a thread holds 4 query rows x 4 KU
+// keys of s (keys 64 u + 4 lane + t, lane of 16), fed by one float4 of Q^T
+// (the 4 rows) and KU float4 of K^T a step of DH; the row max and sum by
+// shuffles within the half-warp; then 4 rows x DH / 16 dims of o, fed by a
+// float4 of P (the 4 rows' p of key j) and DH / 16 values of V's row j.
+// L <= 64 KU.
+template <int DH, int KU>
+__global__ void __launch_bounds__(4 * F32_MAX_LEN)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, bf16* __restrict__ attn3,
                      int L, int H) {
-  constexpr int K_LD = DH + 1;  // rows of K start in different banks
+  constexpr int VW = DH >= 64 ? 4 : DH / 16;  // o's dims a vector
+  constexpr int NV = DH / (16 * VW);           // o's vectors a thread
+  constexpr int LK = 64 * KU;                  // K^T's row
   const int h = blockIdx.x, b = blockIdx.y;
   const int D = H * DH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  extern __shared__ float fsm[];
-  float* Ks = fsm;
-  float* Vs = Ks + L * K_LD;
-  float* qrow = Vs + L * DH + warp * DH;
-  float* srow = Vs + L * DH + F32_WARPS * DH + warp * L;
+  const int l8 = f32_rows(L);
+  const int g = threadIdx.x / 16, lane = threadIdx.x % 16;
+  extern __shared__ float4 f32_smem[];
+  float* qp = reinterpret_cast<float*>(f32_smem);
+  float* kt = qp + l8 * (DH > L ? DH : L);
+  float* vs = kt + DH * LK;
   const size_t base =
       static_cast<size_t>(b) * L * D + static_cast<size_t>(h) * DH;
-  for (int idx = threadIdx.x; idx < L * DH; idx += F32_WARPS * 32) {
-    const int j = idx / DH, d = idx % DH;
-    const size_t src = base + static_cast<size_t>(j) * D + d;
-    Ks[j * K_LD + d] = k[src];
-    Vs[j * DH + d] = v[src];
+
+  // q and k transposed, v as it is, each by 16-byte loads. Neighbouring
+  // threads take neighbouring rows of q and k (so that their transposed
+  // stores fall in different banks) and neighbouring columns of v.
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < l8 * (DH / 4); idx += blockDim.x) {
+    const int i = idx % l8, c = 4 * (idx / l8);
+    float4 qv = make_float4(0.0f, 0.0f, 0.0f, 0.0f), kv = qv;
+    if (i < L) {
+      const size_t src = base + static_cast<size_t>(i) * D + c;
+      qv = __ldg(reinterpret_cast<const float4*>(q + src));
+      kv = __ldg(reinterpret_cast<const float4*>(k + src));
+    }
+    qp[c * l8 + i] = qv.x;
+    qp[(c + 1) * l8 + i] = qv.y;
+    qp[(c + 2) * l8 + i] = qv.z;
+    qp[(c + 3) * l8 + i] = qv.w;
+    kt[c * LK + i] = kv.x;
+    kt[(c + 1) * LK + i] = kv.y;
+    kt[(c + 2) * LK + i] = kv.z;
+    kt[(c + 3) * LK + i] = kv.w;
+  }
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < L * (DH / 4); idx += blockDim.x) {
+    const int i = idx / (DH / 4), c = 4 * (idx % (DH / 4));
+    *reinterpret_cast<float4*>(vs + i * DH + c) = __ldg(
+        reinterpret_cast<const float4*>(v + base + static_cast<size_t>(i) * D +
+                                        c));
+  }
+  for (int idx = threadIdx.x; idx < DH * (LK - l8); idx += blockDim.x) {
+    kt[idx / (LK - l8) * LK + l8 + idx % (LK - l8)] = 0.0f;
   }
   __syncthreads();
-  for (int i = warp; i < L; i += F32_WARPS) {
-    for (int d = lane; d < DH; d += 32) {
-      qrow[d] = q[base + static_cast<size_t>(i) * D + d];
+
+  // s: rows 4 g + r, keys 64 u + 4 lane + t at s[r][4 u + t]
+  float s[4][4 * KU];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4 * KU; ++c) s[r][c] = 0.0f;
+#pragma unroll 8
+  for (int d = 0; d < DH; ++d) {
+    float qr[4];
+    load_vec<4>(qp + d * l8 + 4 * g, qr);
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      float kr[4];
+      load_vec<4>(kt + d * LK + 64 * u + 4 * lane, kr);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          s[r][4 * u + t] = fmaf(qr[r], kr[t], s[r][4 * u + t]);
+        }
     }
-    __syncwarp();
+  }
+
+  // the softmax of each row over its L keys: max, exp, sum, then divide
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
     float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      float s = 0.0f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) s = fmaf(qrow[d], Ks[j * K_LD + d], s);
-      srow[j] = s;
-      m = fmaxf(m, s);
+#pragma unroll
+    for (int c = 0; c < 4 * KU; ++c) {
+      if (64 * (c / 4) + 4 * lane + c % 4 < L) m = fmaxf(m, s[r][c]);
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int off = 8; off > 0; off >>= 1) {
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     }
     float sum = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(__fsub_rn(srow[j], m));
-      srow[j] = e;
-      sum = __fadd_rn(sum, e);
+#pragma unroll
+    for (int c = 0; c < 4 * KU; ++c) {
+      const bool key = 64 * (c / 4) + 4 * lane + c % 4 < L;
+      s[r][c] = key ? expf(__fsub_rn(s[r][c], m)) : 0.0f;
+      sum = __fadd_rn(sum, s[r][c]);
     }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) srow[j] = __fdiv_rn(srow[j], sum);
-    __syncwarp();
-    const size_t row = (static_cast<size_t>(b) * L + i) * 3 * D +
-                       static_cast<size_t>(h) * DH;
-    for (int d = lane; d < DH; d += 32) {
-      float o = 0.0f;
-      for (int j = 0; j < L; ++j) o = fmaf(srow[j], Vs[j * DH + d], o);
-      const bf16 hi = __float2bfloat16(o);
-      const float rest = __fsub_rn(o, __bfloat162float(hi));
-      const bf16 mid = __float2bfloat16(rest);
-      const float low = __fsub_rn(rest, __bfloat162float(mid));
-      attn3[row + d] = __float2bfloat16(low);
-      attn3[row + D + d] = mid;
-      attn3[row + 2 * D + d] = hi;
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
     }
-    __syncwarp();  // the rows are free for the next query
+#pragma unroll
+    for (int c = 0; c < 4 * KU; ++c) s[r][c] = __fdiv_rn(s[r][c], sum);
+  }
+
+  // P in Q^T's place once every row's scores are done: key j of row group
+  // g as the float4 of its 4 rows
+  __syncthreads();
+  float* pg = qp + g * L * 4;
+#pragma unroll
+  for (int c = 0; c < 4 * KU; ++c) {
+    const int j = 64 * (c / 4) + 4 * lane + c % 4;
+    if (j < L) {
+      *reinterpret_cast<float4*>(pg + 4 * j) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+    }
+  }
+  __syncwarp();
+
+  // o: rows 4 g + r, dims 16 VW n + VW lane + e at o[r][VW n + e]
+  float o[4][VW * NV];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < VW * NV; ++c) o[r][c] = 0.0f;
+#pragma unroll 4
+  for (int j = 0; j < L; ++j) {
+    float pr[4];
+    load_vec<4>(pg + 4 * j, pr);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      float vr[VW];
+      load_vec<VW>(vs + j * DH + 16 * VW * n + VW * lane, vr);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          o[r][VW * n + e] = fmaf(pr[r], vr[e], o[r][VW * n + e]);
+        }
+    }
+  }
+
+  // the three planes, lo | mid | hi
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * g + r;
+    if (row >= L) continue;
+    bf16* dst = attn3 + (static_cast<size_t>(b) * L + row) * 3 * D +
+                static_cast<size_t>(h) * DH;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      float lo[VW], mid[VW], hi[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        const float x = o[r][VW * n + e];
+        hi[e] = __bfloat162float(__float2bfloat16(x));
+        const float rest = __fsub_rn(x, hi[e]);
+        mid[e] = __bfloat162float(__float2bfloat16(rest));
+        lo[e] = __fsub_rn(rest, mid[e]);
+      }
+      const int d0 = 16 * VW * n + VW * lane;
+      store_bf16<VW>(dst + d0, lo);
+      store_bf16<VW>(dst + D + d0, mid);
+      store_bf16<VW>(dst + 2 * D + d0, hi);
+    }
   }
 }
 
@@ -315,14 +486,17 @@ template <int DH>
 int attention_f32(const void* q, const void* k, const void* v, void* attn3,
                   int B, int L, int H, cudaStream_t stream) {
   const size_t smem = f32_att_smem_bytes(L, DH);
-  if (smem > static_cast<size_t>(vit_attention::smem_limit())) {
+  if (L > F32_MAX_LEN ||
+      smem > static_cast<size_t>(vit_attention::smem_limit())) {
     return cudaErrorInvalidValue;
   }
+  const auto kernel = L <= 64 ? attention_f32_kernel<DH, 1>
+                              : attention_f32_kernel<DH, 2>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  attention_f32_kernel<DH><<<dim3(H, B), F32_WARPS * 32, smem, stream>>>(
+  kernel<<<dim3(H, B), 4 * f32_rows(L), smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<bf16*>(attn3), L, H);
   return static_cast<int>(cudaGetLastError());
@@ -337,15 +511,16 @@ extern "C" int vit_attention_max_len(int dh) {
   return vit_attention::max_len(dh);
 }
 
-// Largest sequence length whose fp32 K and V (fused_attention_block's
-// attention) fit the current device's shared memory at head size dh (0 if
-// dh is not supported).
+// Largest sequence length fused_attention_block's fp32 attention takes at
+// head size dh on the current device: at most F32_MAX_LEN (a block holds
+// every row of an image), its fp32 Q, K, V and P in shared memory (0 if dh
+// is not supported).
 extern "C" int attention_block_max_len(int dh) {
   if (dh != 16 && dh != 32 && dh != 64 && dh != 128) return 0;
-  const long long fixed = f32_att_smem_bytes(0, dh);
-  const long long per_key = f32_att_smem_bytes(1, dh) - fixed;
-  const long long keys = (vit_attention::smem_limit() - fixed) / per_key;
-  return keys > 0 ? static_cast<int>(keys) : 0;
+  const size_t limit = vit_attention::smem_limit();
+  int L = F32_MAX_LEN;
+  while (L > 0 && f32_att_smem_bytes(L, dh) > limit) --L;
+  return L;
 }
 
 // q, k, v (M, D) bf16 = (bf16(LN(x)) . w + b) * (scale, 1, 1) for x (M, D)
@@ -390,8 +565,7 @@ extern "C" int attention_core_oproj_launch(const void* res, const void* q,
   const int rc = vit_attention_wgmma::attention_dh<
       vit_attention_wgmma::kBf16Sum>(q, k, v, attn, B, L, H, dh, s);
   if (rc != 0) return rc;
-  return gemm<kBiasResidual>(
-      gemm_args(attn, wo, bo, out, res, B * L, H * dh, H * dh), 1, s);
+  return residual_gemm(attn, wo, bo, out, res, B * L, H * dh, H * dh, s);
 }
 
 // out (B, L, H dh) bf16 = softmax(q k^T) v per head for q (pre-scaled), k,
@@ -487,24 +661,30 @@ extern "C" int fused_vit_block_launch(
       s);
 }
 
-// out (B, L, D) bf16 = fused_attention_block(x) (block_diag) for post-LN x
-// (B, L, D = H dh) bf16, wq, wk, wv (D, D) and bq, bk, bv, bo (D,) bf16 in the
-// JAX layout and wo3 (3 D, D) bf16, wo stacked three times. Scratch of the
+// out (B, L, D) bf16 = fused_attention_block(x) in fp32 (block_diag, or
+// compute_dtype float32) for post-LN x (B, L, D = H dh) bf16, wq, wk, wv, wo
+// (D, D) and bq, bk, bv, bo (D,) bf16 in the JAX layout. Scratch of the
 // caller: q, k, v (M, D) fp32 and attn3 (M, 3 D) bf16. Runs on `stream`;
 // returns the first cudaError_t of its launches (0 on success).
 extern "C" int fused_attention_block_launch(
     const void* x, const void* wq, const void* bq, const void* wk,
-    const void* bk, const void* wv, const void* bv, const void* wo3,
+    const void* bk, const void* wv, const void* bv, const void* wo,
     const void* bo, void* q, void* k, void* v, void* attn3, void* out, int B,
     int L, int H, int dh, float scale, void* stream) {
+  namespace bt = bf16_gemm_tma;
   const int M = B * L, D = H * dh;
-  if (!vit_attention::shape_ok(B, L, H) || !gemm_shape_ok(M, D) ||
-      !gemm_shape_ok(M, 3 * D)) {
+  if (!vit_attention::shape_ok(B, L, H) || !bt::shape_ok(M, D, D, 3) ||
+      !bt::shape_ok(M, 3 * D, D, 1)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = gemm<kBiasScale, float>(
-      qkv_args(x, {wq, wk, wv}, {bq, bk, bv}, q, k, v, M, D, scale), 3,
+  const void* const w[3] = {wq, wk, wv};
+  void* const qkv[3] = {q, k, v};
+  int rc = bt::gemm<QkvF32Epilogue>(
+      x, w, qkv, 3, M, D, D,
+      {{static_cast<const bf16*>(bq), static_cast<const bf16*>(bk),
+        static_cast<const bf16*>(bv)},
+       scale},
       s);
   if (rc != 0) return rc;
   switch (dh) {
@@ -515,6 +695,41 @@ extern "C" int fused_attention_block_launch(
     default: return cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
-  return gemm<kBiasScale>(
-      gemm_args(attn3, wo3, bo, out, nullptr, M, 3 * D, D), 1, s);
+  // lo | mid | hi along K, each against wo (its k coordinate wraps at D)
+  void* const outs[1] = {out};
+  return bt::gemm<bt::BiasEpilogue>(attn3, &wo, outs, 1, M, 3 * D, D,
+                                    {static_cast<const bf16*>(bo)}, s, 0, D);
+}
+
+// out (B, L, D) bf16 = fused_attention_block(x, compute_dtype=bfloat16)
+// (not block_diag) for post-LN x and the parameters as above; scale_bf16
+// the bf16 scale as a float. Scratch of the caller: q, k, v and attn (M, D)
+// bf16. Runs on `stream`; returns the first cudaError_t of its launches (0
+// on success).
+extern "C" int fused_attention_block_bf16_launch(
+    const void* x, const void* wq, const void* bq, const void* wk,
+    const void* bk, const void* wv, const void* bv, const void* wo,
+    const void* bo, void* q, void* k, void* v, void* attn, void* out, int B,
+    int L, int H, int dh, float scale_bf16, void* stream) {
+  namespace bt = bf16_gemm_tma;
+  namespace va = vit_attention;
+  const int M = B * L, D = H * dh;
+  if (!va::shape_ok(B, L, H) || !bt::shape_ok(M, D, D, 3)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* const w[3] = {wq, wk, wv};
+  void* const qkv[3] = {q, k, v};
+  int rc = bt::gemm<QkvRoundFirstEpilogue>(
+      x, w, qkv, 3, M, D, D,
+      {{static_cast<const bf16*>(bq), static_cast<const bf16*>(bk),
+        static_cast<const bf16*>(bv)},
+       scale_bf16},
+      s);
+  if (rc != 0) return rc;
+  rc = attention_dh<va::kNormalised, bf16>(q, k, v, attn, B, L, H, dh, s);
+  if (rc != 0) return rc;
+  void* const outs[1] = {out};
+  return bt::gemm<bt::BiasEpilogue>(attn, &wo, outs, 1, M, D, D,
+                                    {static_cast<const bf16*>(bo)}, s);
 }

@@ -2,8 +2,10 @@
 kernel with its plain version.
 
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/attention.py
-(``flash_attention``, :29-152), kernel ``csrc/flash_attention.cu`` (its note
-gives the design and the bound). The interface is JAX's: (B, Lq, H, D)
+(``flash_attention``, :29-152), kernel ``csrc/flash_attention.cu`` over
+``csrc/vit_attention_wgmma.cuh`` (two passes over the keys on wgmma and
+TMA, any Lq and Lk; its note gives the design and the bound). The
+interface is JAX's: (B, Lq, H, D)
 pre-scaled queries, (B, Lk, H, D) keys and values, an optional additive
 bias broadcastable to (B, H, Lq, Lk); the output is (B, Lq, H, D) in q's
 dtype.
@@ -73,13 +75,6 @@ def flash_attention_plain(
     return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
-def flash_attention_max_len(head_dim: int) -> int:
-    """The longest key sequence the kernel takes on the current card at
-    this head size (its (32, Lk) fp32 score tile lives in shared memory);
-    0 for an unsupported head size."""
-    return kernels.load("flash_attention").flash_attention_max_len(head_dim)
-
-
 def _launcher():
     fn = kernels.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
@@ -100,6 +95,8 @@ def _check_inputs(q, k, v, bias) -> None:
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be a contiguous (B, L, H, D) "
                              f"tensor, not {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} is not 16-byte aligned")
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (
             q.shape[0], q.shape[2], q.shape[3]):
         raise ValueError(f"{op}: q {tuple(q.shape)}, k {tuple(k.shape)} and "
@@ -108,12 +105,6 @@ def _check_inputs(q, k, v, bias) -> None:
     if head_dim not in _SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{op}: head size {head_dim} is not one of "
                          f"{_SUPPORTED_HEAD_DIMS}")
-    limit = flash_attention_max_len(head_dim)
-    if k.shape[1] > limit:
-        raise ValueError(
-            f"{op}: key length {k.shape[1]} exceeds {limit}, the longest "
-            f"whose score tile fits this card's shared memory at head size "
-            f"{head_dim}")
     if bias is not None and bias.device != q.device:
         raise ValueError(f"{op}: bias is on {bias.device}, q on {q.device}")
 

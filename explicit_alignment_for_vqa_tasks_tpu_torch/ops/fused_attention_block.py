@@ -25,7 +25,8 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
     weights;
   * the CLIP ViT whole blocks: ``fused_vit_block`` (:1349-1414, also the
     long ``whole`` / ``whole_dd`` variants) and ``fused_attention_block``
-    (:1417-1462, ``block_diag=True`` only), kernels in ``csrc/vit_block.cu``;
+    (:1417-1462, with ``block_diag`` and without, in fp32 or bf16
+    ``compute_dtype``), kernels in ``csrc/vit_block.cu``;
     the int8 ``fused_vit_block_q8`` (:772-826), kernel in
     ``csrc/vit_block_q8.cu``. Their attention is
     ``csrc/vit_attention.cuh``;
@@ -129,7 +130,7 @@ def t5_bias_tiles(pos_bias: torch.Tensor) -> torch.Tensor:
 def _kernel_max_len(lib: str, symbol: str, head_dim: int) -> int:
     """``symbol(head_dim)`` of kernel library ``lib``: the longest sequence
     whose (32, L) fp32 score tile fits the current card's shared memory."""
-    key = (lib, head_dim)
+    key = (lib, symbol, head_dim)
     if key not in _max_len_cache:
         fn = getattr(kernels.load(lib), symbol)
         fn.argtypes = [ctypes.c_int]
@@ -1562,12 +1563,15 @@ def fused_vit_block_q8(
 fused_vit_block_q8.launches = 0
 
 
-def _block_diag_only(block_diag: bool) -> None:
-    if not block_diag:
-        raise NotImplementedError(
-            "fused_attention_block(block_diag=False) is not ported (ROADMAP "
-            "Queue 2 #17: its one caller, the CLIP tower's fused_attention "
-            "at 128 tokens or fewer, passes block_diag=True)")
+def _attention_block_dtype(op: str, block_diag: bool,
+                           compute_dtype: torch.dtype) -> torch.dtype:
+    """The block's compute dtype: fp32 when block-diagonal (the Pallas
+    kernel ignores ``compute_dtype`` there), else ``compute_dtype``, fp32
+    or bf16 as JAX's ``_make_kernel`` takes."""
+    if compute_dtype not in (_F32, _BF16):
+        raise ValueError(f"{op}: compute_dtype {compute_dtype} is not "
+                         f"torch.float32 or torch.bfloat16")
+    return _F32 if block_diag else compute_dtype
 
 
 def fused_attention_block_plain(
@@ -1578,28 +1582,36 @@ def fused_attention_block_plain(
     wo: torch.Tensor, bo: torch.Tensor,
     num_heads: int,
     block_diag: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """softmax((x wq + bq) scale (x wk + bk)^T) (x wv + bv) wo + bo per head,
-    as the block-diagonal Pallas kernel computes it: x and the weights
-    upcast and everything in fp32 (the projections, q times the scale, the
-    scores, the normalised probabilities, PV and the out-projection), one
-    cast to x's dtype. The caller adds the residual."""
-    _block_diag_only(block_diag)
-    x32 = x.float()
+    """softmax((x wq + bq) scale (x wk + bk)^T) (x wv + bv) wo + bo per head
+    in the Pallas kernels' order, ``cd`` the compute dtype (fp32 when
+    ``block_diag``): x and the weights cast to cd; each projection
+    accumulated in fp32 plus its fp32 bias, cast to cd; ``q * cd(scale)``
+    rounded in cd; fp32 scores, max and exp; ``p = cd(e / sum(e))``; PV in
+    fp32 cast to cd; the out-projection in fp32 plus ``bo``, one cast to
+    x's dtype. The caller adds the residual. With cd fp32 every cast is
+    exact, so this is the block-diagonal kernel's all-fp32 function too
+    (its -1e30 on other images' keys gives them exact zeros)."""
+    cd = _attention_block_dtype("fused_attention_block", block_diag,
+                                compute_dtype)
+    xc = x.to(cd).float()
 
     def proj(a, w, b):
-        return torch.matmul(a, w.float()) + b.float()
+        return torch.matmul(a, w.to(cd).float()) + b.float()
 
-    q = proj(x32, wq, bq) * (x.shape[-1] // num_heads) ** -0.5
-    attn = _softmax_pv_f32(q, proj(x32, wk, bk), proj(x32, wv, bv),
-                           num_heads, "normalised")
-    return proj(attn, wo, bo).to(x.dtype)
+    q = proj(xc, wq, bq).to(cd)
+    q = q * torch.tensor((x.shape[-1] // num_heads) ** -0.5, dtype=cd)
+    attn = _softmax_pv_f32(q, proj(xc, wk, bk).to(cd), proj(xc, wv, bv).to(cd),
+                           num_heads, "normalised").to(cd)
+    return proj(attn.float(), wo, bo).to(x.dtype)
 
 
 def attention_block_max_len(head_dim: int) -> int:
     """The longest sequence ``fused_attention_block``'s fp32 attention
-    kernel takes on the current card at this head size (an image's fp32 K
-    and V live in shared memory); 0 for an unsupported head size."""
+    kernel takes on the current card at this head size (a block holds an
+    image's fp32 Q, K, V and probabilities, at most 128 rows); 0 for an
+    unsupported head size."""
     return _kernel_max_len("vit_block", "attention_block_max_len", head_dim)
 
 
@@ -1612,18 +1624,21 @@ def fused_attention_block(
     num_heads: int,
     group: int = 16,
     block_diag: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The attention half of a CLIP block over post-LN x, without the
-    residual; only the block-diagonal kernel is ported. ``group`` is
+    residual, in the order of ``fused_attention_block_plain``. ``group`` is
     checked (it must divide B) and changes no result. CPU tensors take the
     plain version; CUDA tensors launch the kernel
-    (``fused_attention_block.launches``) or raise."""
+    (``fused_attention_block.launches``) or raise: the fp32 chain when
+    ``block_diag`` or ``compute_dtype`` is fp32 (the same function), the
+    bf16 chain otherwise."""
     op = "fused_attention_block"
-    _block_diag_only(block_diag)
+    cd = _attention_block_dtype(op, block_diag, compute_dtype)
     _check_group(op, x.shape[0], group)
     if x.device.type == "cpu":
         return fused_attention_block_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
-                                           num_heads, block_diag)
+                                           num_heads, block_diag, cd)
     tensors = dict(x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo,
                    bo=bo)
     _check_tensors(op, x.device, {name: _BF16 for name in tensors},
@@ -1635,31 +1650,35 @@ def fused_attention_block(
     _check_shapes(op, wq=(wq, mat), bq=(bq, vec), wk=(wk, mat), bk=(bk, vec),
                   wv=(wv, mat), bv=(bv, vec), wo=(wo, mat), bo=(bo, vec))
     _check_vit_widths(op, D=d_model)
-    if num_heads <= 0 or d_model % num_heads:
-        raise ValueError(
-            f"{op}: width {d_model} is not a multiple of {num_heads} heads")
-    head_dim = d_model // num_heads
-    limit = attention_block_max_len(head_dim)
-    if seq > limit:
-        raise ValueError(
-            f"{op}: sequence length {seq} exceeds {limit}, the longest whose "
-            f"fp32 K and V fit this card's shared memory at head size "
-            f"{head_dim}")
     rows, dev = batch * seq, x.device
-    # through device memory, once each: the fp32 q, k, v, and the fp32
-    # attention output as three bf16 planes (lo | mid | hi, (M, 3 D)) whose
-    # products with the three stacked copies of wo are exact
-    q, k, v = (torch.empty((rows, d_model), dtype=_F32, device=dev)
-               for _ in range(3))
-    attn3 = torch.empty((rows, 3 * d_model), dtype=_BF16, device=dev)
-    wo3 = torch.cat([wo, wo, wo])
+    scale = (d_model // num_heads) ** -0.5
+    if cd == _F32:
+        head_dim = _vit_head_size(op, d_model, num_heads)
+        limit = attention_block_max_len(head_dim)
+        if seq > limit:
+            raise ValueError(
+                f"{op}: sequence length {seq} exceeds {limit}, the longest "
+                f"the fp32 attention kernel takes at head size {head_dim}")
+        # through device memory, once each: the fp32 q, k, v, and the fp32
+        # attention output as three bf16 planes (lo | mid | hi, (M, 3 D))
+        # whose products with wo, read three times along K, are exact
+        q, k, v = (torch.empty((rows, d_model), dtype=_F32, device=dev)
+                   for _ in range(3))
+        attn = torch.empty((rows, 3 * d_model), dtype=_BF16, device=dev)
+        launch = "fused_attention_block"
+    else:
+        # bf16 q, k, v and attention output; the bf16 scale
+        head_dim = _vit_head_dim(op, seq, d_model, num_heads)
+        q, k, v, attn = (torch.empty((rows, d_model), dtype=_BF16,
+                                     device=dev) for _ in range(4))
+        scale = float(torch.tensor(scale, dtype=_BF16))
+        launch = "fused_attention_block_bf16"
     out = torch.empty_like(x)
-    _run(op, _launcher_of("vit_block", op, 14, 4, 1),
-         x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wk.data_ptr(),
-         bk.data_ptr(), wv.data_ptr(), bv.data_ptr(), wo3.data_ptr(),
-         bo.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-         attn3.data_ptr(), out.data_ptr(), batch, seq, num_heads, head_dim,
-         head_dim ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    _run(op, _launcher_of("vit_block", launch, 14, 4, 1),
+         *(t.data_ptr() for t in tensors.values()), q.data_ptr(),
+         k.data_ptr(), v.data_ptr(), attn.data_ptr(), out.data_ptr(), batch,
+         seq, num_heads, head_dim, scale,
+         torch.cuda.current_stream(dev).cuda_stream)
     fused_attention_block.launches += 1
     return out
 

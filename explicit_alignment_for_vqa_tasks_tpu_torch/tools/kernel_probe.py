@@ -16,6 +16,8 @@ time it.
         --flash-reference
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --attention-variants DIR [DIR ...]
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --flash-variants DIR [DIR ...]
 
 Shapes: ``fused_t5_ffn`` at M = 32 x 557 rows, D = 2048, F = 5120 (gated),
 with a SHA-256 of its bf16 output (the inputs come from a seeded generator,
@@ -32,7 +34,11 @@ whole block, so this file copied into an older tree digests and times that
 tree's build; ``--bf16-times`` times ``t5_attention_core`` at the main
 path's shape (B = 32, L = 557, 32 heads of 64, padded tails and a fully
 masked row), ``fused_ln_qkv`` at ViT-L/14@336 widths on 256 images,
-``fused_vit_block`` at ViT-B/32's on 1024, ``fused_gpt2_block`` at GPT-2
+``attention_core`` (both orders), ``attention_core_oproj`` and
+``flash_attention`` at ViT-L/14@336's attention on 256 images,
+``fused_vit_block`` and ``fused_attention_block`` (block_diag, and without
+it in both ``compute_dtype``s where the tree has them) at ViT-B/32's on
+1024, ``fused_gpt2_block`` at GPT-2
 small's on 32 sequences of 64 and of 128 positions, ``fused_t5_ffn`` (gated
 and not) at the main path's shape and ``fused_mlp_block`` at ViT-L/14@336
 widths on 256 images, each with a SHA-256 of its outputs and its CUDA
@@ -66,7 +72,9 @@ alone, ``attention_core`` (both orders) built from each given copy of
 ``csrc/`` (versions of ``vit_attention_wgmma.cuh``, built in parallel, each
 with its ptxas serialization warnings, spills and registers), checked
 against the plain version and timed at ViT-L/14@336 with B = 256, in turns
-(the list, then reversed).
+(the list, then reversed); with ``--flash-variants`` alone, the same for
+``flash_attention`` (checked within one bf16 ulp on 16 images and at head
+size 128, with the share of outputs that differ from plain).
 Prints one line per report and per kernel; ``chip_smoke.py`` makes the full
 measurement.
 """
@@ -74,6 +82,7 @@ measurement.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import re
 import shutil
 import subprocess
@@ -227,7 +236,9 @@ def bf16_cases() -> dict:
     """name -> (kernel, its arguments) of t5_attention_core at the main
     path's shape (B = 32, L = 557, 32 heads of 64; padded tails and a fully
     masked row), fused_ln_qkv at ViT-L/14@336 widths on 256 images,
-    fused_vit_block at ViT-B/32's on 1024 (one layer of the tower's init
+    attention_core (both orders), attention_core_oproj and flash_attention
+    at its attention, fused_vit_block and fused_attention_block (each form
+    the tree has) at ViT-B/32's on 1024 (one layer of the tower's init
     weights, random LayerNorm parameters and biases), fused_gpt2_block at
     GPT-2 small's on 32 sequences of 64 and of 128 positions (right-padded
     rows; one layer the same way), and ffn_cases', all from seeded
@@ -257,6 +268,18 @@ def bf16_cases() -> dict:
         randn(width, width, scale=width ** -0.5).bfloat16(),
         randn(width, scale=0.1).bfloat16())]
     cases["fused_ln_qkv"] = (fab.fused_ln_qkv, (x, *ln, *wb, 64 ** -0.5))
+    # the wgmma attention in each of its ViT orders and flash_attention's,
+    # and attention_core_oproj, at ViT-L/14@336's attention on 256 images
+    q, k, v = (randn(256, 577, width, scale=s).bfloat16()
+               for s in (0.5, 2.0, 1.0))
+    for fe in (False, True):
+        cases[f"attention_core fast_exp={fe}"] = (
+            lambda *a, fe=fe: fab.attention_core(*a, fast_exp=fe),
+            (q, k, v, 16))
+    cases["attention_core_oproj"] = (fab.attention_core_oproj,
+                                     (x, q, k, v, wb[0], wb[1], 16))
+    cases["flash_attention"] = (attn.flash_attention, tuple(
+        t.view(256, 577, 16, 64) for t in (q, k, v)))
     cfg = clip.CLIPVisionConfig.vit_b_32(num_layers=1)
     layer = {name: leaf[0] for name, leaf in clip.init_clip_vision_params(
         gen, cfg)["blocks"].items()}
@@ -268,9 +291,21 @@ def bf16_cases() -> dict:
         "ln1_scale", "ln1_bias", "q", "q_bias", "k", "k_bias", "v", "v_bias",
         "o", "o_bias", "ln2_scale", "ln2_bias", "mlp_fc", "mlp_fc_bias",
         "mlp_proj", "mlp_proj_bias")]
+    x_b32 = randn(1024, cfg.seq_len, cfg.width).bfloat16()
     cases["fused_vit_block"] = (fab.fused_vit_block, (
-        randn(1024, cfg.seq_len, cfg.width).bfloat16(), *block,
-        cfg.num_heads))
+        x_b32, *block, cfg.num_heads))
+    # fused_attention_block in each form this tree has (block_diag; without
+    # it in fp32 and bf16 compute_dtype, where the wrapper takes one)
+    attn_args = (x_b32, *block[2:10], cfg.num_heads)
+    forms = {"block_diag": {"block_diag": True}}
+    if "compute_dtype" in inspect.signature(
+            fab.fused_attention_block).parameters:
+        forms.update({f"compute_dtype={d}": {"compute_dtype": d}
+                      for d in (torch.float32, torch.bfloat16)})
+    for form, kw in forms.items():
+        cases[f"fused_attention_block {form}"] = (
+            lambda *a, kw=kw: fab.fused_attention_block(*a, group=4, **kw),
+            attn_args)
     gpt2_cfg = gpt2.GPT2Config.gpt2_small(num_layers=1)
     layer = {name: leaf[0] for name, leaf in gpt2.init_gpt2_params(
         gen, gpt2_cfg)["blocks"].items()}
@@ -417,6 +452,10 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--attention-variants"]:
         attention_variants([Path(d).resolve() for d in sys.argv[2:]])
+        return
+    if sys.argv[1:2] == ["--flash-variants"]:
+        print(torch.cuda.get_device_name(0), flush=True)
+        flash_variants([Path(d).resolve() for d in sys.argv[2:]])
         return
     if sys.argv[1:2] == ["--q8-variants"]:
         q8_variants([Path(d).resolve() for d in sys.argv[2:]])
@@ -704,6 +743,44 @@ def attention_variants(dirs: List[Path]) -> None:
                          f"{(err > 0).float().mean().item()} of the outputs "
                          f"differ, {ms} ms")
         print(f"{d}: " + "; ".join(parts), flush=True)
+
+
+def within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(every element within one bf16 ulp of the larger of the two values,
+    at least that of rms(want) / 256; the share of elements that differ)."""
+    g, w = got.float(), want.float()
+    top = torch.maximum(torch.maximum(g.abs(), w.abs()),
+                        w.square().mean().sqrt() / 256)
+    err = (g - w).abs()
+    return (bool((err <= torch.exp2(torch.floor(torch.log2(top)) - 7)).all()),
+            (err > 0).float().mean().item())
+
+
+def flash_variants(dirs: List[Path]) -> None:
+    """flash_attention's kernel from each csrc copy in ``dirs``: built in
+    parallel (one process each), checked against the plain version on 16
+    images at ViT-L/14@336's attention and at head size 128, then timed on
+    256 images in turns (the list, then reversed)."""
+    built = build_variants(dirs, ["flash_attention"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def qkv(batch, heads, dh):
+        q, k, v = (torch.randn((batch, 577, heads, dh), generator=gen,
+                               device="cuda") for _ in range(3))
+        return (q * dh ** -0.5).bfloat16(), k.bfloat16(), v.bfloat16()
+
+    checks = {"B=16 dh=64": qkv(16, 16, 64), "B=2 dh=128": qkv(2, 8, 128)}
+    want = {name: attn.flash_attention_plain(*a) for name, a in checks.items()}
+    timed = qkv(256, 16, 64)
+    for d in built + built[::-1]:
+        kernels.CSRC_DIR = d
+        kernels._loaded.clear()
+        parts = []
+        for name, args in checks.items():
+            ok, share = within_one_ulp(attn.flash_attention(*args), want[name])
+            parts.append(f"{name}: within one ulp {ok}, {share} differ")
+        ms = cuda_ms(lambda: attn.flash_attention(*timed), 10)
+        print(f"{d}: " + "; ".join(parts) + f"; B=256 {ms} ms", flush=True)
 
 
 def build_variants(dirs: List[Path], names: List[str]) -> List[Path]:

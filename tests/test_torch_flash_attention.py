@@ -4,7 +4,7 @@ flash_attention_plain against the JAX package's Pallas flash_attention
 bias, a causal bias, a per-(batch, head) bias, Lq != Lk (neither a multiple
 of 8), Lq above the 256-row query block, and rows the bias masks entirely;
 the wrapper on CPU tensors; and the CUDA kernel against the plain version
-on the card."""
+on the card, also at head sizes 32 and 128 and at 2,500 keys."""
 
 import numpy as np
 import pytest
@@ -161,25 +161,44 @@ def assert_within_one_ulp(got, want):
     assert (np.abs(g - w) <= bf16_ulp_of(top)).all(), np.abs(g - w).max()
 
 
+# name: (batch, lq, lk, heads, head_dim, bias kind)
+CUDA_CASES = {
+    "none": (2, 577, 577, 16, 64, None),
+    "key_mask": (3, 70, 200, 4, 64, "key_mask"),
+    "causal": (2, 150, 150, 4, 64, "causal"),
+    "lq_ne_lk": (2, 13, 237, 4, 64, None),
+    "per_batch_head": (3, 70, 200, 4, 64, "per_batch_head"),
+    "long_queries": (1, 300, 140, 4, 64, None),
+    "fully_masked_row": (3, 70, 200, 4, 64, "fully_masked_row"),
+    "head_dim_32": (2, 577, 577, 8, 32, None),
+    "head_dim_128": (2, 577, 577, 8, 128, "per_batch_head"),
+    # beyond the 1,664 keys whose (32, Lk) fp32 score tile fitted the
+    # shared memory of the WMMA kernel this one replaced
+    "long_keys": (2, 96, 2500, 4, 64, "key_mask"),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("bias_kind", ["none", "key_mask", "per_batch_head",
-                                       "fully_masked_row"])
-def test_cuda_flash_attention_matches_plain_version(bias_kind):
+@pytest.mark.parametrize("case", list(CUDA_CASES))
+def test_cuda_flash_attention_matches_plain_version(case):
     """ViT-L/14@336's 577 tokens and 16 heads of 64 on 2 images without a
-    bias; a smaller (3, 70, 200) case under each bias: every element within
-    one bf16 ulp of the plain version, one launch counted, fp32 refused."""
+    bias, and smaller cases under each bias kind, at Lq != Lk, Lq above
+    JAX's 256-row query block, head sizes 32 and 128 and 2,500 keys: every
+    element within one bf16 ulp of the plain version, one launch counted,
+    fp32 refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    if bias_kind == "none":
-        q, k, v = cuda_qkv(2, 577, 577)
-        bias = None
-    else:
-        q, k, v = cuda_qkv(3, 70, 200, heads=4)
-        if bias_kind == "per_batch_head":
-            bias = torch.randn((3, 4, 70, 200), device="cuda")
-        else:
-            valid = (200, 150, 0 if bias_kind == "fully_masked_row" else 9)
-            bias = torch.from_numpy(key_mask_bias(3, 200, valid)).cuda()
+    batch, lq, lk, heads, head_dim, kind = CUDA_CASES[case]
+    q, k, v = cuda_qkv(batch, lq, lk, heads=heads, head_dim=head_dim)
+    bias = None
+    if kind == "per_batch_head":
+        bias = torch.randn((batch, heads, lq, lk), device="cuda")
+    elif kind == "causal":
+        bias = torch.from_numpy(causal_bias(lq, lk)).cuda()
+    elif kind is not None:
+        valid = [lk - 50 * b for b in range(batch)]
+        valid[-1] = 0 if kind == "fully_masked_row" else 9
+        bias = torch.from_numpy(key_mask_bias(batch, lk, valid)).cuda()
     before = tattn.flash_attention.launches
     got = tattn.flash_attention(q, k, v, bias)
     torch.cuda.synchronize()

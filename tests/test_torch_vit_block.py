@@ -1,6 +1,7 @@
 """The port's whole-block CLIP kernels in bf16 and fp32: fused_vit_block (the
 short fused_block path and the long whole / whole_dd variants) and
-fused_attention_block (block_diag): each plain version against the JAX
+fused_attention_block (block_diag; without it in
+tests/test_torch_attention_block.py): each plain version against the JAX
 package's Pallas kernel (interpret mode on the CPU) in its three softmax
 orders, at 5, 50 and 197 tokens and with groups of 1, 2 and 4 images; the
 wrappers on CPU tensors; and the CUDA kernels against the plain versions on
@@ -196,14 +197,6 @@ def test_attention_block_group_changes_only_the_order_of_sums(group):
     got = run_port(tfab.fused_attention_block, "fused_attention_block", x,
                    layer, "float32", group=group)
     assert_close(got, want, "float32", fp32_tol=FP32_TOL)
-
-
-def test_attention_block_without_block_diag_raises():
-    x, layer = make_inputs(seed=7, batch=2, seq=5)
-    args = port_args("fused_attention_block", x, layer, "float32")
-    for fn in (tfab.fused_attention_block, tfab.fused_attention_block_plain):
-        with pytest.raises(NotImplementedError, match="Queue 2 #17"):
-            fn(*args)
 
 
 # --- the wrappers on the CPU ------------------------------------------------

@@ -275,7 +275,8 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     ("q8_gemm_tma.cuh", {"int8_encoder", "vit_block_q8"}),
     ("q8_gemm.cuh", {"int8_encoder", "vit_block_q8"}),
     ("hopper_async.cuh", {"int8_encoder", "vit_block_q8", "vit_block",
-                          "t5_attention_core", "t5_ffn", "gpt2_block"}),
+                          "t5_attention_core", "t5_ffn", "gpt2_block",
+                          "flash_attention"}),
     # every product of the whole blocks; the mma.sync loop only for
     # attention_core_oproj's out-projection and fused_attention_block
     ("bf16_gemm_tma.cuh", {"vit_block", "t5_ffn", "gpt2_block"}),
@@ -286,7 +287,8 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     # the one copy of the quickGELU (both ViT up-GEMMs) and the tanh-gelu
     ("activations.cuh", {"vit_block", "vit_block_q8", "gpt2_block",
                          "t5_ffn", "int8_encoder"}),
-    ("vit_attention_wgmma.cuh", {"vit_block", "t5_attention_core"}),
+    ("vit_attention_wgmma.cuh", {"vit_block", "t5_attention_core",
+                                 "flash_attention"}),
 ])
 def test_editing_a_header_renames_exactly_its_users(tmp_path, monkeypatch,
                                                      header, users):
