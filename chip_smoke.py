@@ -68,6 +68,18 @@ register / shared-memory / spill report):
              matmuls of the same products (the up pair as one matmul over
              [wi_0 | wi_1]), their sum held within
              BF16_GEMM_STAGE_MAX_RATIO of cuBLAS's
+  fp32_kernels
+             the fp32 forms that tpu.compute_dtype=float32 reaches, against
+             their plain versions at the main path's shapes:
+             t5_attention_core (fp32 q, k, v; B=32, L=557, 32 heads of 64;
+             the CUDA-core kernel of attention_f32.cuh) and
+             cross_attention_decode (fp32 (24, 32, 557, 2048) caches) within
+             FP32_ATOL / FP32_RTOL, each also on B=4, L=130 (a length that
+             is not a multiple of the 64-key tile), every case with one row
+             of PADDED_KEYS masked keys and one fully masked row; and
+             fused_t5_ffn on fp32 x (bf16 weights) by compare_q8's rule, as
+             t5_ffn holds the bf16 form; each with kernel, plain, library
+             and bound times and its launches a call
   generate_fused
              the configuration with every fused kernel (fused_encoder_attention,
              fused_encoder_ffn, fused_decode_attention) on the same weights
@@ -171,6 +183,32 @@ register / shared-memory / spill report):
              peak memory, the device's busy share, the calls in turns and
              each path's per-row cosines against the default path's; the
              int8 path's images/s beside the fused path's
+  config_generate
+             the shipped configs/vqa2/few_shot_vqa_hotpotqa.jsonnet through
+             the port's config path (main.parse_args_sys, process_config
+             with --opts seed=SEED, build_model_from_config on the card):
+             the T5Config and the mapper fields generate reads equal the
+             in-code config's (the fields that differ are listed), every
+             param leaf bit-equal to init_vct0_params(cfg, seed=SEED), then
+             generate twice: t5_attention_core 24 launches a call and the
+             generate phase's tokens, wall time and prompts/s (this phase
+             and the two below run last, after every earlier phase, so
+             that those run as they did before them)
+  config_generate_fp32
+             the same file with --opts tpu.compute_dtype=float32
+             tpu.fused_ffn=True
+             model_config.lm_config.fused_decode_attention=True (bf16
+             params, fp32 activations): cfg.lm.dtype float32, generate
+             twice with t5_attention_core and fused_t5_ffn 24 launches a
+             call and cross_attention_decode 24 a decode step; the encoder
+             states against the same model's unfused fp32 encode (plain
+             PyTorch, TF32 off) within FP32_ENCODER_REL_ERR; the token
+             agreement with the bf16 default (recorded), the device's busy
+             share, peak memory and the encode / decode split
+  bench_generate
+             tools/bench_generate.py's body once at its defaults with one
+             trial (random T0-3B weights, B=32, 512 tokens, 4 shots, 20
+             steps): its JSON line
 
 Then a line listing every kernel of the path with its launches and times,
 and last the line {"ok": true, "device": {...}}. Any failed check exits
@@ -181,6 +219,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -191,6 +230,9 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
+# the config's "pretrained" T0 weights are looked for on local disk only
+os.environ.setdefault("HF_HUB_OFFLINE", "1")
+os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 
 from explicit_alignment_for_vqa_tasks_tpu_torch import kernels  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clip as clip_lib  # noqa: E402
@@ -265,6 +307,14 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.tools.clip_encoder import (  # n
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe import (  # noqa: E402
     kernel_split,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.main import parse_args_sys  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_generate  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.model_factory import (  # noqa: E402
+    build_model_from_config,
+)
+from explicit_alignment_for_vqa_tasks_tpu_torch.utils.config_system import (  # noqa: E402
+    process_config,
+)
 
 SEED = 0
 BATCH = 32
@@ -323,6 +373,25 @@ CLIPCAP_LOSS_TOKENS = 54           # + 10 prefix = 64 positions: the kernel
 CLIPCAP_BUCKET_TOKENS = 128        # the shipped 128-token bucket: 138, none
 CLIPCAP_LOSS_REL = 1e-2            # fused against unfused loss, relative
 PALLAS_COSINE_FLOOR = 0.999        # use_pallas against default, per row
+# the fp32 forms against their plain versions: the same fp32 operations
+# with the sums in other orders (rows 1 and 5); an L that is not a multiple
+# of the 64-key tile, and one row with this many masked keys
+FP32_ATOL = FP32_RTOL = 1e-5
+FP32_EDGE_BATCH, FP32_EDGE_LEN = 4, 130
+PADDED_KEYS = 100
+# the fp32 config run's encoder against its unfused fp32 encode: the fused
+# FFN rounds its norm and hidden to bf16 (as the Pallas kernel does) where
+# the unfused path keeps fp32, 24 layers deep
+FP32_ENCODER_REL_ERR = 3e-2
+CONFIG_FILE = REPO / "configs" / "vqa2" / "few_shot_vqa_hotpotqa.jsonnet"
+FP32_OPTS = ("tpu.compute_dtype=float32", "tpu.fused_ffn=True",
+             "model_config.lm_config.fused_decode_attention=True")
+# what VCT0Model.generate reads of the config: every T5Config field but
+# remat (a training knob), and these of the mapper's (the mlp mapper reads
+# no depth or heads)
+UNREAD_LM_FIELDS = ("remat",)
+READ_MAPPER_FIELDS = ("mapping_type", "prefix_size", "d_model",
+                      "prefix_length")
 
 PORT_CSRC = "explicit_alignment_for_vqa_tasks_tpu_torch/csrc/"
 JAX_OPS = "explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py"
@@ -351,6 +420,13 @@ KERNELS = {
     "flash_attention": (
         PORT_CSRC + "flash_attention.cu",
         "explicit_alignment_for_vqa_tasks_tpu/ops/attention.py:142"),
+    # the fp32 forms that tpu.compute_dtype=float32 reaches
+    "t5_attention_core_f32": (PORT_CSRC + "attention_f32.cuh",
+                              JAX_OPS + ":1168"),
+    "cross_attention_decode_f32": (
+        PORT_CSRC + "cross_attention_decode.cu",
+        "explicit_alignment_for_vqa_tasks_tpu/ops/decode_attention.py:134"),
+    "fused_t5_ffn_f32": (PORT_CSRC + "t5_ffn.cu", JAX_OPS + ":671"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
                 fused_oproj_residual_q8, fused_t5_ffn_q8,
@@ -1184,6 +1260,184 @@ def phase_t5_ffn(gen: torch.Generator) -> dict:
     return result
 
 
+def fp32_mask(batch: int, length: int, dev) -> torch.Tensor:
+    """Row 0 with PADDED_KEYS masked keys, padded tails of several lengths,
+    the last row fully masked."""
+    mask = torch.ones((batch, length), dtype=torch.int32, device=dev)
+    mask[0, length - PADDED_KEYS:] = 0
+    for b in range(1, batch - 1, 4):
+        mask[b, length - 40 - 3 * b:] = 0
+    mask[batch - 1] = 0
+    return mask
+
+
+def check_fp32(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """An fp32 form against its plain version: finite, fp32, every element
+    within FP32_ATOL + FP32_RTOL |want|; the largest error."""
+    check(got.dtype == torch.float32, f"{name}: output is {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: output not finite")
+    err = (got - want).abs()
+    check(bool((err <= FP32_ATOL + FP32_RTOL * want.abs()).all()),
+          f"{name}: outside atol/rtol {FP32_ATOL} of the plain version "
+          f"(max abs err {err.max().item()})")
+    return err.max().item()
+
+
+def launched(fn, call) -> int:
+    """The launches that one call adds to fn's count."""
+    before = fn.launches
+    call()
+    torch.cuda.synchronize()
+    return fn.launches - before
+
+
+def phase_fp32_kernels(gen: torch.Generator) -> dict:
+    """The fp32 forms of t5_attention_core, cross_attention_decode and
+    fused_t5_ffn against their plain versions at the main path's shapes
+    (and the two attentions at an L that is not a multiple of their tile),
+    timed beside their bounds and a library call."""
+    cfg = t5_lib.T5Config.t0_3b()
+    heads, head_dim, layers = cfg.num_heads, cfg.d_kv, cfg.num_decoder_layers
+    length = splice_output_length(PROMPT_LEN, PREFIX_LENGTH, NUM_SHOTS + 1)
+    width, d_model, d_ff = heads * head_dim, cfg.d_model, cfg.d_ff
+    dev = gen.device
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain versions must multiply in fp32")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    def attention_args(batch, seq):
+        q = randn(batch, seq, width, scale=0.5)
+        k = randn(batch, seq, width, scale=0.5)
+        v = torch.rand((batch, seq, width), generator=gen,
+                       device=dev).mul_(2).sub_(1)
+        return (q, k, v, randn(heads, seq, seq, scale=0.5),
+                fp32_mask(batch, seq, dev), heads)
+
+    def check_attention(args):
+        got = t5_attention_core(*args)
+        torch.cuda.synchronize()
+        err = check_fp32("t5_attention_core (fp32)", got,
+                         t5_attention_core_plain(*args))
+        q, _, v = args[:3]
+        uniform = v[-1].mean(dim=0).expand(q.shape[1], -1)
+        check(bool(torch.allclose(got[-1], uniform, atol=FP32_ATOL,
+                                  rtol=FP32_RTOL)),
+              "t5_attention_core (fp32): the fully masked row is not the "
+              "mean of v")
+        return err
+
+    results = {}
+    edge_err = check_attention(attention_args(FP32_EDGE_BATCH, FP32_EDGE_LEN))
+    args = attention_args(BATCH, length)
+    err = check_attention(args)
+    q, k, v, bias, mask, _ = args
+    per_call = launched(t5_attention_core, lambda: t5_attention_core(*args))
+    kernel_ms = cuda_ms(lambda: t5_attention_core(*args), iters=5)
+    plain_ms = cuda_ms(lambda: t5_attention_core_plain(*args), iters=3,
+                       warmup=1)
+    q4, k4, v4 = (x.view(BATCH, length, heads, head_dim).transpose(1, 2)
+                  for x in (q, k, v))
+    lib_bias = bias[None] + torch.where(mask[:, None, None, :] > 0, 0.0,
+                                        -1e9)
+    library_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=lib_bias, scale=1.0), iters=5)
+    del lib_bias, q4, k4, v4
+    flops = 4 * BATCH * heads * length * length * head_dim
+    results["t5_attention_core_f32"] = dict(
+        shape=dict(B=BATCH, L=length, H=heads, dh=head_dim),
+        max_abs_err=err, edge=dict(B=FP32_EDGE_BATCH, L=FP32_EDGE_LEN,
+                                   max_abs_err=edge_err),
+        padded_keys=PADDED_KEYS, launches_per_call=per_call, ms=kernel_ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library="scaled_dot_product_attention, fp32, (B, H, L, L) bias",
+        route_bound_ms=1.5 * flops / FP32_FLOP_PER_S * 1e3,
+        **bound(4 * q.numel() * 4 + bias.numel() * 4 + mask.numel() * 4,
+                flops, FP32_FLOP_PER_S))
+    del args, q, k, v, bias, mask
+    torch.cuda.empty_cache()
+
+    def decode_args(batch, seq, n_layers):
+        return (randn(batch, width), randn(n_layers, batch, seq, width),
+                randn(n_layers, batch, seq, width), fp32_mask(batch, seq, dev),
+                min(DECODE_LAYER, n_layers - 1), heads)
+
+    def check_decode(args):
+        got = cross_attention_decode(*args)
+        torch.cuda.synchronize()
+        return check_fp32("cross_attention_decode (fp32)", got,
+                          cross_attention_decode_plain(*args))
+
+    edge_err = check_decode(decode_args(FP32_EDGE_BATCH, FP32_EDGE_LEN, 2))
+    args = decode_args(BATCH, length, layers)
+    err = check_decode(args)
+    q, k, v, mask = args[:4]
+    per_call = launched(cross_attention_decode,
+                        lambda: cross_attention_decode(*args))
+    kernel_ms = cuda_ms(lambda: cross_attention_decode(*args), iters=50)
+    plain_ms = cuda_ms(lambda: cross_attention_decode_plain(*args), iters=5)
+    q4 = q.view(BATCH, heads, 1, head_dim)
+    k4, v4 = (c[DECODE_LAYER].view(BATCH, length, heads, head_dim)
+              .transpose(1, 2) for c in (k, v))
+    lib_bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9)
+    library_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=lib_bias, scale=1.0), iters=20)
+    results["cross_attention_decode_f32"] = dict(
+        shape=dict(layers=layers, B=BATCH, L=length, H=heads, dh=head_dim,
+                   layer=DECODE_LAYER),
+        max_abs_err=err, edge=dict(B=FP32_EDGE_BATCH, L=FP32_EDGE_LEN,
+                                   max_abs_err=edge_err),
+        padded_keys=PADDED_KEYS, launches_per_call=per_call, ms=kernel_ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library="scaled_dot_product_attention, fp32",
+        **bound(2 * BATCH * length * width * 4 + 2 * q.numel() * 4
+                + mask.numel() * 4, 4 * BATCH * length * width,
+                FP32_FLOP_PER_S))
+    del args, q, k, v, mask, q4, k4, v4
+    torch.cuda.empty_cache()
+
+    x = randn(BATCH, length, d_model, scale=2.0)
+    lnw = (1 + 0.1 * randn(d_model)).bfloat16()
+    wi_0, wi_1 = (randn(d_model, d_ff, scale=d_model ** -0.5).bfloat16()
+                  for _ in range(2))
+    wo = randn(d_ff, d_model, scale=d_ff ** -0.5).bfloat16()
+    args = (x, lnw, wi_0, wi_1, wo, cfg.layer_norm_epsilon)
+    got = fused_t5_ffn(*args)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32, f"fused_t5_ffn (fp32): {got.dtype}")
+    errs = compare_q8(got, fused_t5_ffn_plain(*args))
+    del got
+    per_call = launched(fused_t5_ffn, lambda: fused_t5_ffn(*args))
+    kernel_ms = cuda_ms(lambda: fused_t5_ffn(*args), iters=10)
+    plain_ms = cuda_ms(lambda: fused_t5_ffn_plain(*args), iters=3, warmup=1)
+    # yardstick only: the unfused FFN the fp32 encoder runs without
+    # fused_encoder_ffn (the weights upcast, three fp32 matmuls)
+    fp32_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ffn_p = {"wi_0": wi_0, "wi_1": wi_1, "wo": wo}
+    library_ms = cuda_ms(lambda: x + t5_lib._ffn_block(
+        ffn_p, t5_lib.rms_norm(x, lnw, cfg.layer_norm_epsilon), fp32_cfg),
+        iters=5)
+    rows = BATCH * length
+    results["fused_t5_ffn_f32"] = dict(
+        shape=dict(M=rows, D=d_model, F=d_ff, gated=True, x="float32"),
+        **errs, launches_per_call=per_call, ms=kernel_ms, plain_ms=plain_ms,
+        library_ms=library_ms,
+        library="unfused fp32 FFN: rms_norm, 3 fp32 torch.matmul, gelu, "
+                "gate",
+        **bound(2 * rows * d_model * 4 + d_model * 2
+                + 3 * d_model * d_ff * 2, 3 * 2 * rows * d_model * d_ff,
+                BF16_FLOP_PER_S))
+    del args, x
+    torch.cuda.empty_cache()
+    for name, res in results.items():
+        emit("fp32_kernels", kernel=name, kernel_ms=res["ms"], **{
+            key: val for key, val in res.items() if key != "ms"})
+    return results
+
+
 def phase_generate_fused(model: VCT0Model, prefix, tokens, mask,
                          default: dict) -> dict:
     """Every fused kernel on: the default path's weights and prompts,
@@ -1340,6 +1594,142 @@ def phase_kv_layouts(model: VCT0Model, gen: torch.Generator) -> None:
          transposed_max_abs_diff=(logits["transposed"] - ref).abs().max()
          .item(),
          cross_cache_bytes_at_rest=cache_bytes)
+
+
+def config_model(*opts) -> tuple:
+    """The shipped VQA2 config through the port's config path: the CLI
+    parser, process_config with --opts seed=SEED and ``opts``, the model
+    factory on the card. Returns (model, seconds to build)."""
+    argv = [str(CONFIG_FILE), "--mode", "test", "--opts", f"seed={SEED}",
+            *opts]
+    config = process_config(parse_args_sys(argv))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, kind = build_model_from_config(config)
+    torch.cuda.synchronize()
+    check(kind == "vct0" and isinstance(model, VCT0Model),
+          f"the config built a {kind} model, not VC-T0")
+    check(model.device.type == "cuda", f"the config's model is on "
+          f"{model.device}, not the card")
+    return model, time.perf_counter() - t0
+
+
+def fields_differing(a, b) -> list:
+    return sorted(f.name for f in dataclasses.fields(a)
+                  if getattr(a, f.name) != getattr(b, f.name))
+
+
+def phase_config_generate(cfg: VCT0Config, prefix, tokens, mask,
+                          default: dict) -> dict:
+    """The config-built bf16 model against the in-code config ``cfg``: the
+    fields generate reads, every param leaf against init_vct0_params(cfg,
+    seed=SEED), then generate twice with the generate phase's launches and
+    tokens."""
+    built, build_s = config_model()
+    lm_diff = fields_differing(built.cfg.lm, cfg.lm)
+    mapper_diff = fields_differing(built.cfg.mapper, cfg.mapper)
+    read = ([f for f in lm_diff if f not in UNREAD_LM_FIELDS]
+            + [f for f in mapper_diff if f in READ_MAPPER_FIELDS])
+    check(not read, f"config_generate: the config's {read} differ from the "
+          f"in-code config's")
+    check((built.cfg.prefix_length, built.cfg.sentinel_base)
+          == (cfg.prefix_length, cfg.sentinel_base),
+          "config_generate: prefix length or sentinel base differ")
+    got = dict(flat_leaves(built.params))
+    want = dict(flat_leaves(init_vct0_params(cfg, seed=SEED,
+                                             device=built.device)))
+    check(sorted(got) == sorted(want),
+          "config_generate: the params trees differ in their leaves")
+    unequal = [key for key in want
+               if got[key].dtype != want[key].dtype
+               or not torch.equal(got[key], want[key])]
+    check(not unequal, f"config_generate: leaves {unequal[:5]} differ from "
+          f"init_vct0_params(cfg, seed={SEED})")
+    emit("config_model", config=str(CONFIG_FILE.relative_to(REPO)),
+         opts=[f"seed={SEED}"], build_s=build_s,
+         lm_fields_differing=lm_diff, mapper_fields_differing=mapper_diff,
+         param_leaves_bit_equal=len(want))
+    del got, want
+    torch.cuda.empty_cache()
+    layers = built.cfg.lm.num_encoder_layers
+    result = phase_generate(
+        built, prefix, tokens, mask,
+        expected=lambda steps: launches(t5_attention_core=layers),
+        phase="config_generate")
+    check(torch.equal(result["tokens"], default["tokens"]),
+          "config_generate: tokens differ from the generate phase's")
+    return result
+
+
+def phase_config_generate_fp32(prefix, tokens, mask, default: dict) -> dict:
+    """The shipped config with FP32_OPTS: bf16 params, fp32 activations,
+    the three T5 kernels in their fp32 forms."""
+    built, build_s = config_model(*FP32_OPTS)
+    lm_cfg = built.cfg.lm
+    check(lm_cfg.dtype == torch.float32,
+          f"config_generate_fp32: cfg.lm.dtype is {lm_cfg.dtype}")
+    check(lm_cfg.fused_encoder_attention and lm_cfg.fused_encoder_ffn
+          and lm_cfg.fused_decode_attention,
+          "config_generate_fp32: a fused option is off")
+    check(built.params["lm"]["shared"].dtype == torch.bfloat16,
+          "config_generate_fp32: the params are not bf16 (tpu.params_dtype)")
+    layers = lm_cfg.num_encoder_layers
+    result = phase_generate(
+        built, prefix, tokens, mask,
+        expected=lambda steps: launches(
+            t5_attention_core=layers, fused_t5_ffn=layers,
+            cross_attention_decode=lm_cfg.num_decoder_layers * steps),
+        phase="config_generate_fp32")
+    breakdown = phase_breakdown(built, prefix, tokens, mask,
+                                phase="breakdown_config_fp32")
+    busy = device_busy(
+        lambda: built.generate(prefix, tokens, mask, num_shots=NUM_SHOTS,
+                               max_new_tokens=MAX_NEW_TOKENS),
+        result["wall_s"])
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the unfused encode must multiply in fp32")
+    lm = built.params["lm"]
+    with torch.inference_mode():
+        joint, joint_mask = built.encoder_calibration_batch(prefix, tokens,
+                                                            mask)
+        got = t5_lib.t5_encode(lm, lm_cfg, inputs_embeds=joint,
+                               attention_mask=joint_mask)
+        want = t5_lib.t5_encode(lm, dataclasses.replace(
+            lm_cfg, fused_encoder_attention=False, fused_encoder_ffn=False),
+            inputs_embeds=joint, attention_mask=joint_mask)
+    valid = joint_mask.bool()
+    got, want = got[valid], want[valid]
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          "config_generate_fp32: encoder states not finite fp32")
+    rel = ((got - want).norm() / want.norm()).item()
+    check(rel <= FP32_ENCODER_REL_ERR,
+          f"config_generate_fp32: the fused fp32 encoder is {rel} off the "
+          f"unfused fp32 encode (limit {FP32_ENCODER_REL_ERR})")
+    same = result["tokens"] == default["tokens"]
+    emit("config_generate_fp32_check", opts=list(FP32_OPTS), build_s=build_s,
+         encoder_rel_err=rel, limit=FP32_ENCODER_REL_ERR,
+         encoder_max_abs_diff=(got - want).abs().max().item(),
+         token_agreement_with_bf16=same.float().mean().item(),
+         first_token_agreement_with_bf16=same[:, 0].float().mean().item(),
+         wall_s=result["wall_s"], prompts_per_s=result["prompts_per_s"],
+         peak_mem_gb=result["peak_mem_gb"], encode_s=breakdown["encode_s"],
+         decode_s=breakdown["decode_s"], **busy)
+    return result
+
+
+def phase_bench_generate() -> dict:
+    """tools/bench_generate.py's body at its defaults, one trial; its JSON
+    line printed as the bench prints it."""
+    args = bench_generate.build_parser().parse_args(["--trials", "1"])
+    result = bench_generate.bench(args)
+    print(json.dumps(result), flush=True)
+    check(result["metric"] == bench_generate.METRIC and result["value"] > 0,
+          f"bench_generate: {result['metric']} = {result['value']}")
+    check(result["device"]["name"] == torch.cuda.get_device_name(0),
+          "bench_generate: did not run on the card")
+    emit("bench_generate", prompts_per_s=result["value"],
+         config=result["config"], device=result["device"])
+    return result
 
 
 def phase_vit_kernels(gen: torch.Generator) -> dict:
@@ -2660,6 +3050,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     t5_ffn = phase_t5_ffn(gen)
     torch.cuda.empty_cache()
+    # a generator of its own: the later phases' inputs stay those of the
+    # runs before this phase existed (PERF.md compares them across runs)
+    fp32_kernels = phase_fp32_kernels(
+        torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.empty_cache()
 
     lm_cfg = t5_lib.T5Config.t0_3b(fused_encoder_attention=True)
     cfg = VCT0Config(
@@ -2715,6 +3110,12 @@ def main() -> int:
     clipcap = phase_clipcap(gen)
     torch.cuda.empty_cache()
     clip_pallas = phase_clip_encode_pallas(gen)
+    torch.cuda.empty_cache()
+    phase_config_generate(cfg, prefix, tokens, mask, generate)
+    torch.cuda.empty_cache()
+    config_fp32 = phase_config_generate_fp32(prefix, tokens, mask, generate)
+    torch.cuda.empty_cache()
+    phase_bench_generate()
 
     measured = {
         "t5_attention_core": (attention, generate),
@@ -2733,6 +3134,7 @@ def main() -> int:
                                   clip_b32["fused_attention"]),
         "fused_gpt2_block": (gpt2_block, clipcap["loss"]),
         "flash_attention": (flash, clip_pallas["use_pallas"]),
+        **{name: (res, config_fp32) for name, res in fp32_kernels.items()},
     }
     lines = []
     for name, (res, run) in measured.items():
@@ -2740,7 +3142,9 @@ def main() -> int:
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": run["launches_per_call"][-1][name],
+            # an fp32 form counts under its function's name
+            "launches": run["launches_per_call"][-1][
+                name.removesuffix("_f32")],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],

@@ -39,6 +39,11 @@
 // shared memory. The layer index is an argument: the kernel offsets its
 // pointers into the whole stacked cache, so no per-layer slice is copied
 // (what the Pallas kernel's scalar prefetch achieves).
+//
+// The fp32 form (q and the caches fp32, as tpu.compute_dtype=float32 makes
+// them; JAX's compute_dtype = k_cache.dtype, decode_attention.py:101) is the
+// same kernel on 4-float chunks: p is normalised and kept in fp32, and the
+// output is fp32. Its bound is 2 x 146 MB = 292 MB a launch, 0.087 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,8 +96,14 @@ __device__ float block_reduce(float v, float* red) {
   return r;
 }
 
+// Elements of the caches' type (bf16 or fp32) a 16-byte chunk
+template <typename T>
+__host__ __device__ constexpr int per_chunk() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
 // 8 bf16 of a 16-byte chunk as floats
-__device__ inline void unpack8(const uint4& u, float (&f)[8]) {
+__device__ inline void unpack(const uint4& u, float (&f)[8]) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -102,15 +113,32 @@ __device__ inline void unpack8(const uint4& u, float (&f)[8]) {
   }
 }
 
-template <int DH>
+// 4 floats of a 16-byte chunk
+__device__ inline void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+// A value rounded to the caches' type, as a float; and stored as that type
+__device__ inline float round_to(float x, const bf16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ inline float round_to(float x, const float*) { return x; }
+__device__ inline void store(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ inline void store(float* p, float x) { *p = x; }
+
+template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
-cross_attention_decode_kernel(const bf16* __restrict__ q,
-                              const bf16* __restrict__ kc,
-                              const bf16* __restrict__ vc,
+cross_attention_decode_kernel(const T* __restrict__ q,
+                              const T* __restrict__ kc,
+                              const T* __restrict__ vc,
                               const int* __restrict__ mask,
-                              bf16* __restrict__ out, int layer, int B, int L,
+                              T* __restrict__ out, int layer, int B, int L,
                               int H) {
-  constexpr int CH = DH / 8;        // 16-byte chunks per head row
+  constexpr int EPC = per_chunk<T>();  // elements a 16-byte chunk
+  constexpr int CH = DH / EPC;      // 16-byte chunks per head row
   constexpr int RPW = 32 / CH;      // rows a warp takes at once
   constexpr int STEP = RPW * NWARPS;  // rows the block takes at once
   extern __shared__ float s[];      // L scores, then probabilities
@@ -122,14 +150,14 @@ cross_attention_decode_kernel(const bf16* __restrict__ q,
   const int c = lane % CH, rsub = lane / CH;
   const size_t D = static_cast<size_t>(H) * DH;
   const size_t head = (static_cast<size_t>(layer) * B + b) * L * D +
-                      static_cast<size_t>(h) * DH + c * 8;
+                      static_cast<size_t>(h) * DH + c * EPC;
   const uint4* kp = reinterpret_cast<const uint4*>(kc + head);
   const uint4* vp = reinterpret_cast<const uint4*>(vc + head);
-  const size_t row_step = D / 8;  // one cache row in 16-byte chunks
+  const size_t row_step = D / EPC;  // one cache row in 16-byte chunks
   const int* mrow = mask + static_cast<size_t>(b) * L;
 
-  float qf[8];
-  unpack8(*reinterpret_cast<const uint4*>(q + b * D + h * DH + c * 8), qf);
+  float qf[EPC];
+  unpack(*reinterpret_cast<const uint4*>(q + b * D + h * DH + c * EPC), qf);
 
   // scores: each lane's partial dot over its chunk, summed over the CH
   // lanes of the row
@@ -142,11 +170,11 @@ cross_attention_decode_kernel(const bf16* __restrict__ q,
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      float kf[8];
-      unpack8(kr[u], kf);
+      float kf[EPC];
+      unpack(kr[u], kf);
       float dot = 0.0f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) dot += kf[e] * qf[e];
+      for (int e = 0; e < EPC; ++e) dot += kf[e] * qf[e];
 #pragma unroll
       for (int off = CH / 2; off > 0; off >>= 1) {
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -159,7 +187,8 @@ cross_attention_decode_kernel(const bf16* __restrict__ q,
   }
   __syncthreads();
 
-  // softmax over the L scores: max, exp and sum, division and bf16 rounding
+  // softmax over the L scores: max, exp and sum, division and the rounding
+  // to T
   float m = -INFINITY;
   for (int i = threadIdx.x; i < L; i += NT) m = fmaxf(m, s[i]);
   m = block_reduce<true>(m, red);
@@ -171,14 +200,14 @@ cross_attention_decode_kernel(const bf16* __restrict__ q,
   }
   sum = block_reduce<false>(sum, red);
   for (int i = threadIdx.x; i < L; i += NT) {
-    s[i] = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(s[i], sum)));
+    s[i] = round_to(__fdiv_rn(s[i], sum), q);
   }
   __syncthreads();
 
-  // PV: each lane sums p[r] * v[r, its 8 channels] over its rows
-  float acc[8];
+  // PV: each lane sums p[r] * v[r, its EPC channels] over its rows
+  float acc[EPC];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+  for (int e = 0; e < EPC; ++e) acc[e] = 0.0f;
   for (int r0 = warp * RPW; r0 < L; r0 += STEP * UNROLL) {
     uint4 vr[UNROLL];
 #pragma unroll
@@ -190,15 +219,15 @@ cross_attention_decode_kernel(const bf16* __restrict__ q,
     for (int u = 0; u < UNROLL; ++u) {
       const int r = r0 + u * STEP + rsub;
       const float p = r < L ? s[r] : 0.0f;
-      float vf[8];
-      unpack8(vr[u], vf);
+      float vf[EPC];
+      unpack(vr[u], vf);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] += p * vf[e];
+      for (int e = 0; e < EPC; ++e) acc[e] += p * vf[e];
     }
   }
   // lanes of one chunk (same c, every rsub) are CH apart
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
+  for (int e = 0; e < EPC; ++e) {
 #pragma unroll
     for (int off = CH; off < 32; off <<= 1) {
       acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
@@ -206,14 +235,14 @@ cross_attention_decode_kernel(const bf16* __restrict__ q,
   }
   if (rsub == 0) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) part[warp][c * 8 + e] = acc[e];
+    for (int e = 0; e < EPC; ++e) part[warp][c * EPC + e] = acc[e];
   }
   __syncthreads();
   if (threadIdx.x < DH) {
     float o = 0.0f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) o += part[w][threadIdx.x];
-    out[b * D + h * DH + threadIdx.x] = __float2bfloat16_rn(o);
+    store(out + b * D + h * DH + threadIdx.x, o);
   }
 }
 
@@ -227,7 +256,7 @@ int smem_limit() {
   return limit;
 }
 
-template <int DH>
+template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            void* out, int layer, int B, int L, int H, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(L) * sizeof(float);
@@ -237,16 +266,34 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   }
   if (smem + fixed > STATIC_SMEM_LIMIT) {
     cudaError_t err = cudaFuncSetAttribute(
-        cross_attention_decode_kernel<DH>,
+        cross_attention_decode_kernel<T, DH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(H, B);
-  cross_attention_decode_kernel<DH><<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(mask),
-      static_cast<bf16*>(out), layer, B, L, H);
+  cross_attention_decode_kernel<T, DH><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(mask),
+      static_cast<T*>(out), layer, B, L, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* mask,
+             void* out, int layer, int layers, int B, int L, int H, int dh,
+             void* stream) {
+  if (layer < 0 || layer >= layers || B <= 0 || B > 65535 || L <= 0 ||
+      H <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16: return launch<T, 16>(q, k, v, mask, out, layer, B, L, H, s);
+    case 32: return launch<T, 32>(q, k, v, mask, out, layer, B, L, H, s);
+    case 64: return launch<T, 64>(q, k, v, mask, out, layer, B, L, H, s);
+    case 128: return launch<T, 128>(q, k, v, mask, out, layer, B, L, H, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -260,16 +307,17 @@ extern "C" int cross_attention_decode_launch(const void* q, const void* k,
                                              void* out, int layer, int layers,
                                              int B, int L, int H, int dh,
                                              void* stream) {
-  if (layer < 0 || layer >= layers || B <= 0 || B > 65535 || L <= 0 ||
-      H <= 0) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16: return launch<16>(q, k, v, mask, out, layer, B, L, H, s);
-    case 32: return launch<32>(q, k, v, mask, out, layer, B, L, H, s);
-    case 64: return launch<64>(q, k, v, mask, out, layer, B, L, H, s);
-    case 128: return launch<128>(q, k, v, mask, out, layer, B, L, H, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch<bf16>(q, k, v, mask, out, layer, layers, B, L, H, dh,
+                        stream);
+}
+
+// The same with q, the caches and out fp32.
+extern "C" int cross_attention_decode_f32_launch(const void* q, const void* k,
+                                                 const void* v,
+                                                 const void* mask, void* out,
+                                                 int layer, int layers, int B,
+                                                 int L, int H, int dh,
+                                                 void* stream) {
+  return dispatch<float>(q, k, v, mask, out, layer, layers, B, L, H, dh,
+                         stream);
 }

@@ -2,7 +2,8 @@
 // the LayerNorm of vit_block.cu (through block_stages.cuh) and
 // gpt2_block.cu, and the RMSNorm of t5_ffn.cu.
 //
-// One warp per row (of bf16 x, or of an fp32 residual r1) writes h in bf16:
+// One warp per row (of bf16 x, or of an fp32 residual r1 or x) writes h in
+// bf16:
 // the row in the warp's registers (16-byte loads of 8 elements a lane, 8
 // rows a block of 256 threads), each sum a lane's own elements in order
 // then a butterfly of shuffles. In fp32:
@@ -58,13 +59,14 @@ __device__ inline void load8(const float* p, float (&v)[VEC]) {
 }
 
 // The calling warp's row of x (D wide, T = bf16 or float): h = bf16(LN(x)
-// * s + b), or with RMS h = bf16(RMSNorm(x) * s) (bias unused). Lane l
+// * s + b), or with RMS h = bf16(RMSNorm(x) * s) (bias unused); the scale
+// and bias of type S (bf16, or float for the RMSNorm of fp32 params). Lane l
 // holds the row's 8-element chunks l, l + 32, ... (CHUNKS of them, the last
 // ones past D / 8 unused).
-template <typename T, int CHUNKS, bool RMS>
+template <typename T, typename S, int CHUNKS, bool RMS>
 __device__ __forceinline__ void norm_row(
-    const T* __restrict__ x, const __nv_bfloat16* __restrict__ scale,
-    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ h,
+    const T* __restrict__ x, const S* __restrict__ scale,
+    const S* __restrict__ bias, __nv_bfloat16* __restrict__ h,
     int M, int D, float eps) {
   const int row = blockIdx.x * ROWS + threadIdx.x / 32;
   if (row >= M) return;
@@ -140,37 +142,36 @@ layer_norm_kernel(const T* __restrict__ x,
                   const __nv_bfloat16* __restrict__ scale,
                   const __nv_bfloat16* __restrict__ bias,
                   __nv_bfloat16* __restrict__ h, int M, int D, float eps) {
-  norm_row<T, CHUNKS, false>(x, scale, bias, h, M, D, eps);
+  norm_row<T, __nv_bfloat16, CHUNKS, false>(x, scale, bias, h, M, D, eps);
 }
 
-template <int CHUNKS>
+template <typename T, typename S, int CHUNKS>
 __global__ void __launch_bounds__(ROWS * 32)
-rms_norm_kernel(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ scale,
+rms_norm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
                 __nv_bfloat16* __restrict__ h, int M, int D, float eps) {
-  norm_row<__nv_bfloat16, CHUNKS, true>(x, scale, nullptr, h, M, D, eps);
+  norm_row<T, S, CHUNKS, true>(x, scale, nullptr, h, M, D, eps);
 }
 
-template <typename T, int CHUNKS, bool RMS>
+template <typename T, typename S, int CHUNKS, bool RMS>
 int norm_rows(const void* x, const void* scale, const void* bias, void* h,
               int M, int D, float eps, cudaStream_t stream) {
   const int blocks = (M + ROWS - 1) / ROWS;
-  const auto* s = static_cast<const __nv_bfloat16*>(scale);
+  const auto* s = static_cast<const S*>(scale);
   auto* out = static_cast<__nv_bfloat16*>(h);
   if constexpr (RMS) {
-    rms_norm_kernel<CHUNKS><<<blocks, ROWS * 32, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), s, out, M, D, eps);
+    rms_norm_kernel<T, S, CHUNKS><<<blocks, ROWS * 32, 0, stream>>>(
+        static_cast<const T*>(x), s, out, M, D, eps);
   } else {
     layer_norm_kernel<T, CHUNKS><<<blocks, ROWS * 32, 0, stream>>>(
-        static_cast<const T*>(x), s,
-        static_cast<const __nv_bfloat16*>(bias), out, M, D, eps);
+        static_cast<const T*>(x), s, static_cast<const S*>(bias), out, M, D,
+        eps);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The norm of M rows of D (a multiple of 8, at most MAX_WIDTH) elements, at
 // the fewest chunks a lane that hold a row.
-template <typename T, bool RMS>
+template <typename T, typename S, bool RMS>
 int norm(const void* x, const void* scale, const void* bias, void* h, int M,
          int D, float eps, cudaStream_t stream) {
   if (M <= 0 || D <= 0 || D % VEC || D > MAX_WIDTH) {
@@ -180,14 +181,14 @@ int norm(const void* x, const void* scale, const void* bias, void* h, int M,
   using Launch = int (*)(const void*, const void*, const void*, void*, int,
                          int, float, cudaStream_t);
   const Launch launch =
-      chunks <= 1    ? &norm_rows<T, 1, RMS>
-      : chunks <= 2  ? &norm_rows<T, 2, RMS>
-      : chunks <= 3  ? &norm_rows<T, 3, RMS>
-      : chunks <= 4  ? &norm_rows<T, 4, RMS>
-      : chunks <= 6  ? &norm_rows<T, 6, RMS>
-      : chunks <= 8  ? &norm_rows<T, 8, RMS>
-      : chunks <= 12 ? &norm_rows<T, 12, RMS>
-                     : &norm_rows<T, 16, RMS>;
+      chunks <= 1    ? &norm_rows<T, S, 1, RMS>
+      : chunks <= 2  ? &norm_rows<T, S, 2, RMS>
+      : chunks <= 3  ? &norm_rows<T, S, 3, RMS>
+      : chunks <= 4  ? &norm_rows<T, S, 4, RMS>
+      : chunks <= 6  ? &norm_rows<T, S, 6, RMS>
+      : chunks <= 8  ? &norm_rows<T, S, 8, RMS>
+      : chunks <= 12 ? &norm_rows<T, S, 12, RMS>
+                     : &norm_rows<T, S, 16, RMS>;
   return launch(x, scale, bias, h, M, D, eps, stream);
 }
 
@@ -195,13 +196,15 @@ int norm(const void* x, const void* scale, const void* bias, void* h, int M,
 template <typename T>
 int layer_norm(const void* x, const void* scale, const void* bias, void* h,
                int M, int D, float eps, cudaStream_t stream) {
-  return norm<T, false>(x, scale, bias, h, M, D, eps, stream);
+  return norm<T, __nv_bfloat16, false>(x, scale, bias, h, M, D, eps, stream);
 }
 
-// h = bf16(RMSNorm(x) * scale) over rows of bf16 x
-inline int rms_norm(const void* x, const void* scale, void* h, int M, int D,
-                    float eps, cudaStream_t stream) {
-  return norm<__nv_bfloat16, true>(x, scale, nullptr, h, M, D, eps, stream);
+// h = bf16(RMSNorm(x) * scale) over rows of x (T = bf16 or float), the
+// scale of type S (bf16 or float)
+template <typename T = __nv_bfloat16, typename S = __nv_bfloat16>
+int rms_norm(const void* x, const void* scale, void* h, int M, int D,
+             float eps, cudaStream_t stream) {
+  return norm<T, S, true>(x, scale, nullptr, h, M, D, eps, stream);
 }
 
 // The norms take rows of a multiple of 8 elements, at most MAX_WIDTH.

@@ -25,9 +25,17 @@
 // values together. Any L >= 1. Its note gives the design and the bound
 // (0.123 ms by operations at the main path's B = 32, L = 557, 32 heads of
 // 64 on an H100 SXM; 0.099 ms by bytes).
+//
+// The fp32 form (q, k, v and o fp32, as tpu.compute_dtype=float32 reaches
+// it; p kept in fp32, the Pallas kernel's astype(q.dtype)) is
+// attention_f32.cuh's CUDA-core kernel with scale 1, the (H, L, L) bias as
+// it is and the key mask: two passes over the keys, any L, head sizes 64
+// and 128. Its note gives the design and the bound (1.21 ms by operations
+// at the main path's shapes; its route's 1.82).
 
 #include <cuda_runtime.h>
 
+#include "attention_f32.cuh"
 #include "vit_attention_wgmma.cuh"
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
@@ -39,4 +47,23 @@ extern "C" int t5_attention_core_launch(const void* q, const void* k,
   return vw::attention_dh<vw::kT5>(q, k, v, out, B, L, H, dh,
                                    static_cast<cudaStream_t>(stream),
                                    bias_tiles, mask);
+}
+
+// The fp32 form: q, k, v, out (B, L, H*dh) fp32, bias (H, L, L) fp32 as it
+// is, mask (B, L) int32. Launch on `stream`; returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int t5_attention_core_f32_launch(const void* q, const void* k,
+                                            const void* v, const void* bias,
+                                            const void* mask, void* out,
+                                            int B, int L, int H, int dh,
+                                            void* stream) {
+  const int D = H * dh;
+  const attention_f32::Args args{
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      0, static_cast<long long>(L) * L, L,
+      static_cast<const int*>(mask), static_cast<float*>(out),
+      B, L, L, H, D, D, D, 1.0f};
+  return attention_f32::attention(args, dh,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -38,6 +38,14 @@
 //     (bf16_gemm_tma.cuh's ResidualEpilogue).
 // The bf16 hid makes one round trip through device memory (182 MB at the
 // main shape).
+//
+// The fp32 form (fp32 x, as tpu.compute_dtype=float32 makes the residual
+// stream; JAX's kernel takes any x dtype and casts only the weights to
+// bf16, :665-676): the RMSNorm reads fp32 rows (and an fp32 scale where the
+// params are fp32) and still writes h in bf16, the products are the same
+// bf16 ones, and the down product's epilogue adds the fp32 residual and
+// stores the fp32 sum as it is (two 64 x 32 fp32 store boxes a chunk). The
+// same operations; x and out take 146 MB more of bytes at the main shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,27 +87,20 @@ struct GeluEpilogue {
   }
 };
 
-using ResidualEpilogue = bf16_gemm_tma::ResidualEpilogue<__nv_bfloat16, false>;
-
-}  // namespace
-
-// out (M, D) bf16 = x + FFN(RMSNorm(x)) for x (M, D) bf16; w0, w1 (D, F)
-// and wo (F, D) bf16 in the JAX layout; w1 is null for the non-gated FFN.
-// h (M, D) and hidden (M, F) are the caller's bf16 scratch. D and F are
-// multiples of 128, D at most row_norm::MAX_WIDTH. Runs on `stream`;
-// returns the first cudaError_t of its launches (0 on success).
-extern "C" int fused_t5_ffn_launch(const void* x, const void* lnw,
-                                   const void* w0, const void* w1,
-                                   const void* wo, void* h, void* hidden,
-                                   void* out, int M, int D, int F, float eps,
-                                   void* stream) {
+// The launches of the three kernels for x and out of type T (bf16, or fp32
+// where tpu.compute_dtype=float32 makes the residual stream fp32) and the
+// norm's scale of type S; h, the hidden and the weights are bf16 whatever T
+// is, as in the Pallas kernel.
+template <typename T, typename S>
+int ffn(const void* x, const void* lnw, const void* w0, const void* w1,
+        const void* wo, void* h, void* hidden, void* out, int M, int D,
+        int F, float eps, cudaStream_t s) {
   namespace bt = bf16_gemm_tma;
   if (!row_norm::norm_shape_ok(D) || !bt::shape_ok(M, D, F, 2) ||
       !bt::shape_ok(M, F, D, 1)) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = row_norm::rms_norm(x, lnw, h, M, D, eps, s);
+  int rc = row_norm::rms_norm<T, S>(x, lnw, h, M, D, eps, s);
   if (rc != 0) return rc;
   if (w1 != nullptr) {
     rc = bt::gemm_paired<GeluEpilogue<true>>(h, w0, w1, hidden, M, D, F, {},
@@ -109,9 +110,34 @@ extern "C" int fused_t5_ffn_launch(const void* x, const void* lnw,
     rc = bt::gemm<GeluEpilogue<false>>(h, &w0, hid, 1, M, D, F, {}, s);
   }
   if (rc != 0) return rc;
+  // out = T(x + hid . wo): the fp32 sum rounded once to T (fp32: as it is)
+  using Residual = bt::ResidualEpilogue<T, false, T>;
   void* const res[1] = {out};
-  const ResidualEpilogue::Args args{nullptr,
-                                    static_cast<const __nv_bfloat16*>(x), M,
-                                    D};
-  return bt::gemm<ResidualEpilogue>(hidden, &wo, res, 1, M, F, D, args, s);
+  const typename Residual::Args args{nullptr, static_cast<const T*>(x), M,
+                                     D};
+  return bt::gemm<Residual>(hidden, &wo, res, 1, M, F, D, args, s);
+}
+
+}  // namespace
+
+// out (M, D) = x + FFN(RMSNorm(x)) for x (M, D) bf16 (x_f32 0) or fp32
+// (x_f32 1), out of x's type, the norm's scale bf16 (lnw_f32 0) or fp32
+// (lnw_f32 1, fp32 params); w0, w1 (D, F) and wo (F, D) bf16 in the JAX
+// layout; w1 is null for the non-gated FFN. h (M, D) and hidden (M, F) are
+// the caller's bf16 scratch. D and F are multiples of 128, D at most
+// row_norm::MAX_WIDTH. Runs on `stream`; returns the first cudaError_t of
+// its launches (0 on success).
+extern "C" int fused_t5_ffn_launch(const void* x, const void* lnw,
+                                   const void* w0, const void* w1,
+                                   const void* wo, void* h, void* hidden,
+                                   void* out, int M, int D, int F, int x_f32,
+                                   int lnw_f32, float eps, void* stream) {
+  using bf16 = __nv_bfloat16;
+  const auto launch = x_f32 != 0
+                          ? (lnw_f32 != 0 ? &ffn<float, float>
+                                          : &ffn<float, bf16>)
+                          : (lnw_f32 != 0 ? &ffn<bf16, float>
+                                          : &ffn<bf16, bf16>);
+  return launch(x, lnw, w0, w1, wo, h, hidden, out, M, D, F, eps,
+                static_cast<cudaStream_t>(stream));
 }

@@ -1,13 +1,13 @@
-"""HuggingFace CLIP and GPT-2 checkpoints -> the port's parameter trees
-(numpy).
+"""HuggingFace T5, CLIP and GPT-2 checkpoints -> the port's parameter
+trees (numpy).
 
-Counterpart of the CLIP and GPT-2 converters of
-explicit_alignment_for_vqa_tasks_tpu/models/hf_convert.py (:111-235): pure
+Counterpart of the T5, CLIP and GPT-2 converters of
+explicit_alignment_for_vqa_tasks_tpu/models/hf_convert.py (:33-235): pure
 numpy on a state dict, so ``transformers`` is not imported here. The trees
 are the JAX package's (keys, stacked layer axis, (in, out) weights, HWIO
-patch kernel); ``convert.clip_vision_params_from_numpy``,
-``clip_text_params_from_numpy`` and ``gpt2_params_from_numpy`` carry them
-to torch tensors.
+patch kernel); ``convert.t5_params_from_numpy``,
+``clip_vision_params_from_numpy``, ``clip_text_params_from_numpy`` and
+``gpt2_params_from_numpy`` carry them to torch tensors.
 """
 
 from __future__ import annotations
@@ -58,6 +58,62 @@ def _blocks(sd: Mapping[str, Any], n_layers: int, dtype: Any) -> Params:
     return {ours: _stack(sd, theirs, n_layers, transpose=transpose,
                          dtype=dtype)
             for ours, theirs, transpose in _BLOCK_KEYS}
+
+
+def t5_params_from_hf(state_dict: Mapping[str, Any], cfg,
+                      dtype: Any = np.float32) -> Params:
+    """A HF ``T5ForConditionalGeneration`` state dict (T5 v1.1 layout) as
+    the stacked T5 tree of ``models/t5.py``: attention and FFN weights
+    transposed to (in, out) and stacked on a leading layer axis, the
+    relative-position biases of block 0, the untied LM head transposed."""
+    sd = state_dict
+    ne, nd = cfg.num_encoder_layers, cfg.num_decoder_layers
+
+    def block(prefix: str, n: int, layer_idx: int, name: str,
+              transpose: bool = True) -> np.ndarray:
+        return _stack(sd, prefix + ".block.{}" + f".layer.{layer_idx}.{name}",
+                      n, transpose=transpose, dtype=dtype)
+
+    def attn(prefix: str, n: int, layer_idx: int) -> Params:
+        kind = "SelfAttention" if layer_idx == 0 else "EncDecAttention"
+        return {name: block(prefix, n, layer_idx, f"{kind}.{name}.weight")
+                for name in ("q", "k", "v", "o")}
+
+    def ffn(prefix: str, n: int, layer_idx: int) -> Params:
+        names = ("wi_0", "wo", "wi_1") if cfg.is_gated_act else ("wi_0", "wo")
+        return {name: block(prefix, n, layer_idx,
+                            f"DenseReluDense.{name}.weight")
+                for name in names}
+
+    def lns(prefix: str, n: int, count: int) -> Params:
+        return {f"ln{i}": block(prefix, n, i, "layer_norm.weight", False)
+                for i in range(count)}
+
+    def rel_bias(prefix: str) -> np.ndarray:
+        return _np(sd[prefix + ".block.0.layer.0.SelfAttention."
+                      "relative_attention_bias.weight"], dtype)
+
+    params: Params = {
+        "shared": _np(sd["shared.weight"], dtype),
+        "encoder": {
+            "self_attn": attn("encoder", ne, 0),
+            "ffn": ffn("encoder", ne, 1),
+            **lns("encoder", ne, 2),
+            "rel_bias": rel_bias("encoder"),
+            "final_ln": _np(sd["encoder.final_layer_norm.weight"], dtype),
+        },
+        "decoder": {
+            "self_attn": attn("decoder", nd, 0),
+            "cross_attn": attn("decoder", nd, 1),
+            "ffn": ffn("decoder", nd, 2),
+            **lns("decoder", nd, 3),
+            "rel_bias": rel_bias("decoder"),
+            "final_ln": _np(sd["decoder.final_layer_norm.weight"], dtype),
+        },
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = _np(sd["lm_head.weight"], dtype).T
+    return params
 
 
 def clip_vision_params_from_hf(state_dict: Mapping[str, Any], cfg,

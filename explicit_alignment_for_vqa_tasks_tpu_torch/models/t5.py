@@ -617,8 +617,11 @@ def t5_encode(
 
     if cfg.fused_encoder_attention:
         pos_hll = pos_bias[0].contiguous()  # (H, L, L), shared by the batch
-        # the kernel's order of it, built once for every layer
-        bias_tiles = t5_bias_tiles(pos_hll) if pos_hll.is_cuda else None
+        # the bf16 kernel's order of it, built once for every layer (the
+        # fp32 kernel reads pos_hll as it is)
+        bias_tiles = (t5_bias_tiles(pos_hll)
+                      if pos_hll.is_cuda and x.dtype == torch.bfloat16
+                      else None)
         key_mask = attention_mask.to(torch.int32).contiguous()
         for i in range(cfg.num_encoder_layers):
             layer_p = _encoder_layer(enc, i, cfg)

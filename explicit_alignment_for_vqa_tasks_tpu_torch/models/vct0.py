@@ -8,7 +8,8 @@ and the opt-in int8 modes, quantized at build time
 (``quantize_int8_encoder``) or, for the encoder, after SmoothQuant
 calibration on eval batches (``VCT0Model.calibrate_and_quantize_int8``).
 The other generate modes raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+item that ports them. ``build_vct0_model`` and ``build_vct0_prefix`` are
+registered in ``registry.MODELS`` under the config's ``ModelClass`` names.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from ..device import DeviceLike, make_generator, resolve_device
 from ..ops import decoding as _decoding
 from ..ops.prefix_splice import T5_SENTINEL_BASE, insert_prefix_into_input
+from ..registry import MODELS
 from . import t5 as t5_lib
 from .mappers import MapperConfig, init_mapper, mapper_apply
 
@@ -252,3 +254,15 @@ class VCT0Model:
         self.params = dict(self.params)
         self.params["lm"] = lm
         return stats
+
+
+@MODELS.register("VCT0Model")
+def build_vct0_model(cfg: VCT0Config, params: Params) -> VCT0Model:
+    return VCT0Model(dataclasses.replace(cfg, freeze_lm=False), params)
+
+
+@MODELS.register("VCT0Prefix")
+def build_vct0_prefix(cfg: VCT0Config, params: Params) -> VCT0Model:
+    """Frozen-LM variant (reference: vct0.py:535-544): only
+    params['mapper'] is trainable."""
+    return VCT0Model(dataclasses.replace(cfg, freeze_lm=True), params)

@@ -3,7 +3,8 @@
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/decode_attention.py
 (``cross_attention_decode``, pallas_call at :134, body :54-78); the CUDA
 kernel is ``csrc/cross_attention_decode.cu``, whose note gives the design
-and the bound.
+and the bound. It takes bf16 caches, and fp32 ones (the compute dtype
+``tpu.compute_dtype=float32`` gives), with q of the caches' dtype.
 
 The plain version follows the Pallas kernel's order of rounding: q is cast
 to the cache dtype, the scores are that cast q against the cache-dtype K
@@ -26,6 +27,9 @@ from .. import kernels
 
 NEG_INF = -1e9
 _SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# the caches' dtype -> the kernel's entry point
+_LAUNCHERS = {torch.bfloat16: "cross_attention_decode_launch",
+              torch.float32: "cross_attention_decode_f32_launch"}
 
 
 def cross_attention_decode_plain(
@@ -51,8 +55,8 @@ def cross_attention_decode_plain(
     return out.reshape(batch, width).to(q.dtype)
 
 
-def _launcher():
-    fn = kernels.load("cross_attention_decode").cross_attention_decode_launch
+def _launcher(symbol: str):
+    fn = getattr(kernels.load("cross_attention_decode"), symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
@@ -72,11 +76,16 @@ def _check_kernel_inputs(q, k_cache, v_cache, mask, layer, num_heads) -> int:
             raise ValueError(f"{op}: {name} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{op}: {name} is not 16-byte aligned")
-    for name in ("q", "k_cache", "v_cache"):
-        if tensors[name].dtype != torch.bfloat16:
+    if k_cache.dtype not in _LAUNCHERS:
+        raise ValueError(
+            f"{op}: k_cache is {k_cache.dtype}; the kernel takes bfloat16 or "
+            "float32")
+    for name in ("q", "v_cache"):
+        if tensors[name].dtype != k_cache.dtype:
             raise ValueError(
-                f"{op}: {name} is {tensors[name].dtype}; the kernel takes "
-                "bfloat16 only")
+                f"{op}: {name} is {tensors[name].dtype}, k_cache is "
+                f"{k_cache.dtype}; the kernel takes q and the caches of one "
+                "dtype (bfloat16 or float32)")
     if mask.dtype != torch.int32:
         raise ValueError(f"{op}: mask is {mask.dtype}, not int32")
     if k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
@@ -122,7 +131,7 @@ def cross_attention_decode(
                                     num_heads)
     layers, batch, seq, _ = k_cache.shape
     out = torch.empty_like(q)
-    rc = _launcher()(
+    rc = _launcher(_LAUNCHERS[k_cache.dtype])(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
         out.data_ptr(), layer, layers, batch, seq, num_heads, head_dim,
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -4,13 +4,15 @@ plain version.
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py:
 
   * ``t5_attention_core`` (:1105-1180), kernel ``csrc/t5_attention_core.cu``
-    over ``csrc/vit_attention_wgmma.cuh`` (two passes, any L);
+    over ``csrc/vit_attention_wgmma.cuh`` (bf16; two passes, any L) and,
+    for fp32 q, k and v, over ``csrc/attention_f32.cuh`` (CUDA cores, two
+    passes, any L);
   * the int8 bulk-eval trio ``fused_t5_ln_qkv_q8`` (:1635-1677),
     ``fused_oproj_residual_q8`` (:1695-1728) and ``fused_t5_ffn_q8``
     (:1547-1603), kernels in ``csrc/int8_encoder.cu``;
-  * the bf16 encoder FFN ``fused_t5_ffn`` (:631-678, forward only), kernel
-    ``csrc/t5_ffn.cu``. Its backward (``fused_t5_ffn_vjp``) comes with
-    mapper training;
+  * the encoder FFN ``fused_t5_ffn`` (:631-678, forward only; x and the
+    output bf16 or fp32, the products bf16), kernel ``csrc/t5_ffn.cu``. Its
+    backward (``fused_t5_ffn_vjp``) comes with mapper training;
   * the CLIP ViT ``split3`` block: ``fused_ln_qkv`` (:268-298),
     ``attention_core_oproj`` (:348-376) and ``fused_mlp_block``
     (:419-459), kernels in ``csrc/vit_block.cu`` (``fused_ln_qkv``'s q | k
@@ -64,6 +66,8 @@ from .. import kernels
 
 NEG_INF = -1e9
 _SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# the fp32 attention of csrc/attention_f32.cuh: whole 64-dim groups a head
+_F32_HEAD_DIMS = (64, 128)
 _max_len_cache: dict = {}
 
 
@@ -92,8 +96,8 @@ def t5_attention_core_plain(
     return o.to(q.dtype).transpose(1, 2).reshape(batch, seq, width)
 
 
-def _launcher():
-    fn = kernels.load("t5_attention_core").t5_attention_core_launch
+def _launcher(symbol: str):
+    fn = getattr(kernels.load("t5_attention_core"), symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
@@ -151,11 +155,15 @@ def _check_kernel_inputs(q, k, v, pos_bias, mask, num_heads):
         if t.data_ptr() % 16:
             raise ValueError(
                 f"t5_attention_core: {name} is not 16-byte aligned")
-    for name in ("q", "k", "v"):
-        if tensors[name].dtype != torch.bfloat16:
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(
+            f"t5_attention_core: q is {q.dtype}; the kernel takes bfloat16 "
+            "or float32")
+    for name in ("k", "v"):
+        if tensors[name].dtype != q.dtype:
             raise ValueError(
-                f"t5_attention_core: {name} is {tensors[name].dtype}; the "
-                "kernel takes bfloat16 only")
+                f"t5_attention_core: {name} is {tensors[name].dtype}, q is "
+                f"{q.dtype}; the kernel takes q, k and v of one dtype")
     if pos_bias.dtype != torch.float32:
         raise ValueError(
             f"t5_attention_core: pos_bias is {pos_bias.dtype}, not float32")
@@ -171,10 +179,11 @@ def _check_kernel_inputs(q, k, v, pos_bias, mask, num_heads):
             f"t5_attention_core: width {width} is not a multiple of "
             f"{num_heads} heads")
     head_dim = width // num_heads
-    if head_dim not in _SUPPORTED_HEAD_DIMS:
+    dims = _F32_HEAD_DIMS if q.dtype == torch.float32 else _SUPPORTED_HEAD_DIMS
+    if head_dim not in dims:
         raise ValueError(
-            f"t5_attention_core: head size {head_dim} is not one of "
-            f"{_SUPPORTED_HEAD_DIMS}")
+            f"t5_attention_core: head size {head_dim} is not one of {dims} "
+            f"({q.dtype})")
     if tuple(pos_bias.shape) != (num_heads, seq, seq):
         raise ValueError(
             f"t5_attention_core: pos_bias is {tuple(pos_bias.shape)}, "
@@ -197,25 +206,35 @@ def t5_attention_core(
 ) -> torch.Tensor:
     """T5 encoder self-attention core: scores + position bias + key mask +
     softmax + PV. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (``t5_attention_core.launches`` counts those launches) or
-    raise. The kernel reads the bias as ``t5_bias_tiles(pos_bias)``, which
-    the caller may pass (the encoder builds it once for its layers) and
-    which is made here otherwise."""
+    the kernel (``t5_attention_core.launches`` counts those launches, of
+    either form) or raise. bf16 q, k, v take the tensor-core kernel, which
+    reads the bias as ``t5_bias_tiles(pos_bias)``: the caller may pass it
+    (the encoder builds it once for its layers), and it is made here
+    otherwise. fp32 q, k, v take the CUDA-core kernel, which reads
+    ``pos_bias`` as it is (no ``bias_tiles``)."""
     if q.device.type == "cpu":
         return t5_attention_core_plain(q, k, v, pos_bias, mask, num_heads)
     batch, seq, _ = q.shape
     head_dim = _check_kernel_inputs(q, k, v, pos_bias, mask, num_heads)
-    if bias_tiles is None:
-        bias_tiles = t5_bias_tiles(pos_bias)
-    blocks = -(-seq // (2 * T5_BIAS_BLOCK)) * 2
-    tiles = -(-seq // T5_BIAS_BLOCK)
-    _check_tensors("t5_attention_core", q.device,
-                   {"bias_tiles": torch.float32}, bias_tiles=bias_tiles)
-    _check_shapes("t5_attention_core", bias_tiles=(
-        bias_tiles, (num_heads, blocks, tiles, 8, 4, 8, 4, 2, 2)))
+    if q.dtype == torch.float32:
+        if bias_tiles is not None:
+            raise ValueError(
+                "t5_attention_core: bias_tiles is the bf16 kernel's layout; "
+                "the fp32 kernel reads pos_bias as it is")
+        symbol, bias = "t5_attention_core_f32_launch", pos_bias
+    else:
+        if bias_tiles is None:
+            bias_tiles = t5_bias_tiles(pos_bias)
+        blocks = -(-seq // (2 * T5_BIAS_BLOCK)) * 2
+        tiles = -(-seq // T5_BIAS_BLOCK)
+        _check_tensors("t5_attention_core", q.device,
+                       {"bias_tiles": torch.float32}, bias_tiles=bias_tiles)
+        _check_shapes("t5_attention_core", bias_tiles=(
+            bias_tiles, (num_heads, blocks, tiles, 8, 4, 8, 4, 2, 2)))
+        symbol, bias = "t5_attention_core_launch", bias_tiles
     out = torch.empty_like(q)
-    rc = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_tiles.data_ptr(),
+    rc = _launcher(symbol)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         mask.data_ptr(), out.data_ptr(), batch, seq, num_heads, head_dim,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -699,16 +718,27 @@ def fused_t5_ffn(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """x + FFN(RMSNorm(x)), gated when wi_1 is given (T5 v1.1 gated-gelu).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``fused_t5_ffn.launches`` counts those calls) or raise."""
+    x (and the output) bf16 or fp32, ln_weight bf16 or fp32; the weights
+    are cast to bf16 here where they are not (fp32 params), as the JAX
+    wrapper casts them. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (``fused_t5_ffn.launches`` counts those calls) or
+    raise."""
     if x.device.type == "cpu":
         return fused_t5_ffn_plain(x, ln_weight, wi_0, wi_1, wo, eps)
     op = "fused_t5_ffn"
     gated = wi_1 is not None
+    for name, t in (("x", x), ("ln_weight", ln_weight)):
+        if t.dtype not in (_BF16, _F32):
+            raise ValueError(
+                f"{op}: {name} is {t.dtype}; the kernel takes bfloat16 or "
+                "float32")
+    wi_0, wo = _bf16_weight(wi_0), _bf16_weight(wo)
     tensors = dict(x=x, ln_weight=ln_weight, wi_0=wi_0, wo=wo)
     if gated:
+        wi_1 = _bf16_weight(wi_1)
         tensors["wi_1"] = wi_1
-    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
+    _check_tensors(op, x.device, dict(x=x.dtype, ln_weight=ln_weight.dtype,
+                                      wi_0=_BF16, wi_1=_BF16, wo=_BF16),
                    **tensors)
     batch, seq, d_model = x.shape
     d_ff = wi_0.shape[-1]
@@ -730,13 +760,20 @@ def fused_t5_ffn(
     # the bf16 hidden gelu(a0) * a1 goes through device memory once
     hidden = torch.empty((rows, d_ff), dtype=_BF16, device=dev)
     out = torch.empty_like(x)
-    _run(op, _launcher_of("t5_ffn", op, 8, 3, 1),
+    _run(op, _launcher_of("t5_ffn", op, 8, 5, 1),
          x.data_ptr(), ln_weight.data_ptr(), wi_0.data_ptr(),
          wi_1.data_ptr() if gated else None, wo.data_ptr(), h.data_ptr(),
-         hidden.data_ptr(), out.data_ptr(), rows, d_model, d_ff, eps,
+         hidden.data_ptr(), out.data_ptr(), rows, d_model, d_ff,
+         int(x.dtype == _F32), int(ln_weight.dtype == _F32), eps,
          torch.cuda.current_stream(dev).cuda_stream)
     fused_t5_ffn.launches += 1
     return out
+
+
+def _bf16_weight(w: torch.Tensor) -> torch.Tensor:
+    """A weight as the Pallas wrapper passes it: bf16 (a copy a call for
+    fp32 params; none for bf16 ones)."""
+    return w if w.dtype == _BF16 else w.to(_BF16).contiguous()
 
 
 fused_t5_ffn.launches = 0

@@ -226,4 +226,4 @@ def test_cuda_kernel_matches_plain_version(gated, rows, d_model, d_ff):
     rms = want.square().mean().sqrt()
     assert bool(((got - want).abs() <= 1.6e-2 * (want.abs() + rms)).all())
     with pytest.raises(ValueError, match="bfloat16"):
-        tfab.fused_t5_ffn(x.float(), lnw, wi_0, wi_1, wo)
+        tfab.fused_t5_ffn(x.half(), lnw, wi_0, wi_1, wo)

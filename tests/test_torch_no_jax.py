@@ -41,7 +41,10 @@ def test_every_kernel_module_is_scanned():
                    "tools.clip_encoder", "models.gpt2", "models.clipcap",
                    "ops.attention", "ops.decoding",
                    "tools.extract_contrastive_image_embeddings",
-                   "tools.kernel_probe"):
+                   "tools.kernel_probe", "tools.bench_generate", "main",
+                   "registry", "trainers", "trainers.model_factory",
+                   "utils", "utils.config_system", "utils.jsonnet_eval",
+                   "utils.attr_dict", "utils.seed", "utils.loggers"):
         assert f"{PORT.name}.{module}" in names, module
 
 

@@ -252,7 +252,8 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
         "t5_ffn.cu", "activations.cuh", "bf16_gemm_tma.cuh", "row_norm.cuh",
         "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("t5_attention_core")] == [
-        "t5_attention_core.cu", "vit_attention_wgmma.cuh", "hopper_async.cuh"]
+        "t5_attention_core.cu", "attention_f32.cuh", "vit_attention_wgmma.cuh",
+        "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("int8_encoder")] == [
         "int8_encoder.cu", "activations.cuh", "q8_gemm.cuh",
         "q8_gemm_tma.cuh", "hopper_async.cuh"]
@@ -289,6 +290,8 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
                          "t5_ffn", "int8_encoder"}),
     ("vit_attention_wgmma.cuh", {"vit_block", "t5_attention_core",
                                  "flash_attention"}),
+    # the fp32 CUDA-core attention (t5_attention_core's fp32 form)
+    ("attention_f32.cuh", {"t5_attention_core"}),
 ])
 def test_editing_a_header_renames_exactly_its_users(tmp_path, monkeypatch,
                                                      header, users):
