@@ -209,19 +209,44 @@ register / shared-memory / spill report):
              tools/bench_generate.py's body once at its defaults with one
              trial (random T0-3B weights, B=32, 512 tokens, 4 shots, 20
              steps): its JSON line
+  config_eval
+             the few-shot VQA eval as a user runs it: the port's CLI
+             (main.run --mode test) on the shipped config at full width
+             (T0_3B, mlp mapper, 10 x 768 prefixes, random weights from the
+             config's seed, SimpleTokenizer, 4 shots) over 70 synthetic val
+             questions (batches of 32, 32 and 6) written with CLIP-embedding
+             and RICES pickles into a temporary folder, the mapper from a
+             checkpoint written with the port's save_checkpoint: one
+             prediction a question in answers.pkl, the metric present and
+             equal to answers.pkl scored again, the tokens
+             of direct generate calls on the same collated batches,
+             t5_attention_core 24 launches an encode (counted, and in a
+             torch.profiler trace); questions/s of test(), generate
+             seconds per batch, the host share and peak memory
+  config_eval_int8
+             the same on 32 questions with int8_encoder_ffn,
+             int8_encoder_attn and int8_calibrate_batches=1: the executor
+             calibrates on the first batch, rows 2-4 launch 24 times, and
+             the tokens equal a direct calibrate_and_quantize_int8 and
+             generate on that batch
 
-Then a line listing every kernel of the path with its launches and times,
-and last the line {"ok": true, "device": {...}}. Any failed check exits
-non-zero before that line; without a CUDA card it exits non-zero at once.
+Then a line listing every kernel of the path with its launches (those of
+t5_attention_core from config_eval, of the int8 trio from config_eval_int8)
+and times, and last the line {"ok": true, "device": {...}}. Any failed
+check exits non-zero before that line; without a CUDA card it exits
+non-zero at once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -235,12 +260,14 @@ os.environ.setdefault("HF_HUB_OFFLINE", "1")
 os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 
 from explicit_alignment_for_vqa_tasks_tpu_torch import kernels  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch import main as eval_main  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clip as clip_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clipcap as clipcap_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import gpt2 as gpt2_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import t5 as t5_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models.mappers import (  # noqa: E402
     MapperConfig,
+    init_mapper,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.attention import (  # noqa: E402
     flash_attention,
@@ -309,12 +336,25 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe import (  # n
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.main import parse_args_sys  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_generate  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import model_factory  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.base_executor import (  # noqa: E402
+    BaseExecutor,
+    tree_to_device,
+)
+from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.checkpointing import (  # noqa: E402
+    load_checkpoint,
+    save_checkpoint,
+)
+from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.few_shot_vqa_executor import (  # noqa: E402
+    FewShotVQAExecutor,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.model_factory import (  # noqa: E402
     build_model_from_config,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.utils.config_system import (  # noqa: E402
     process_config,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.utils.vqa_eval import VQAEval  # noqa: E402
 
 SEED = 0
 BATCH = 32
@@ -1732,6 +1772,415 @@ def phase_bench_generate() -> dict:
     return result
 
 
+EVAL_QUESTIONS = 70                # batches of 32 + 32 + 6 at test.batch_size
+EVAL_INT8_QUESTIONS = 32           # the int8 run's one calibrated batch
+EVAL_TRAIN_QUESTIONS = 16          # the in-context pool
+EVAL_RICES = 8                     # retrieved examples a question keeps
+EVAL_OBJECTS = ("cup", "dog", "car", "kite", "bus", "sign", "chair",
+                "plate", "train", "horse")
+# (question type, answer type, question, answers), as in VQA v2
+EVAL_TYPES = (
+    ("what color is", "other", "what color is the {} ?",
+     ("red", "blue", "green", "white", "black")),
+    ("how many", "number", "how many {}s are there ?",
+     ("1", "2", "three", "4", "none")),
+    ("is the", "yes/no", "is the {} on the left ?", ("yes", "no")),
+)
+
+
+def write_eval_data(folder: Path, n_val: int) -> dict:
+    """Synthetic VQA2 artifacts in the file formats of
+    tests/test_e2e.py::write_vqa_fixtures, at the shipped config's widths:
+    n_val val questions on n_val images, EVAL_TRAIN_QUESTIONS train
+    questions, 768-wide CLIP embeddings of every image and RICES lists of
+    EVAL_RICES train examples, best last. Ten answers a question, seven of
+    them the majority's."""
+    rng = np.random.default_rng(SEED)
+    data = folder / "data"
+    data.mkdir(parents=True, exist_ok=True)
+    files, splits = {}, {}
+    for name, n, qid_base in (("train2014", EVAL_TRAIN_QUESTIONS, 1000000),
+                              ("val2014", n_val, 2000000)):
+        questions, annotations = [], []
+        for i in range(n):
+            img_id, qid = qid_base // 1000 + i, qid_base + i
+            qtype, atype, text, pool = EVAL_TYPES[i % len(EVAL_TYPES)]
+            obj = EVAL_OBJECTS[int(rng.integers(len(EVAL_OBJECTS)))]
+            major = pool[int(rng.integers(len(pool)))]
+            answers = [major] * 7 + [pool[int(k)] for k in
+                                     rng.integers(0, len(pool), 3)]
+            questions.append({"question_id": qid, "image_id": img_id,
+                              "question": text.format(obj)})
+            annotations.append({
+                "question_id": qid, "image_id": img_id,
+                "question_type": qtype, "answer_type": atype,
+                "multiple_choice_answer": major,
+                "answers": [{"answer": a, "answer_confidence": "yes",
+                             "answer_id": k + 1}
+                            for k, a in enumerate(answers)]})
+        meta = {"info": {}, "task_type": "Open-Ended",
+                "data_type": "mscoco", "data_subtype": name, "license": {}}
+        for kind, rows in (("questions", questions),
+                           ("annotations", annotations)):
+            path = data / f"{name}_{kind}.json"
+            path.write_text(json.dumps({**meta, kind: rows}))
+            files[f"{name}_{kind}"] = str(path)
+        splits[name] = (questions, annotations)
+    train_q, train_a = splits["train2014"]
+    embeddings = {
+        str(q["image_id"]):
+            rng.standard_normal((1, PREFIX_SIZE)).astype(np.float32)
+        for q in train_q + splits["val2014"][0]}
+    rices = {
+        str(q["question_id"]): [
+            {"question_id": train_q[j]["question_id"],
+             "img_key": train_q[j]["image_id"],
+             "question": train_q[j]["question"],
+             "gold_answer": train_a[j]["multiple_choice_answer"]}
+            for j in rng.choice(len(train_q), EVAL_RICES, replace=False)]
+        for q in splits["val2014"][0]}
+    for name, obj in (("embeddings", embeddings), ("rices", rices)):
+        path = data / f"{name}.pkl"
+        path.write_bytes(pickle.dumps(obj))
+        files[name] = str(path)
+    return files
+
+
+def eval_argv(folder: Path, files: dict, *opts) -> list:
+    """The port's CLI on the shipped config, pointed at ``files``: test
+    mode, NUM_SHOTS shots, SimpleTokenizer (the card's machine has no
+    transformers), random weights from the config's seed."""
+    vqa = {"question_files": {"train": files["train2014_questions"],
+                              "val": files["val2014_questions"]},
+           "annotation_files": {"train": files["train2014_annotations"],
+                                "val": files["val2014_annotations"]}}
+    modules = "data_loader.dataset_modules.module_dict."
+    return [
+        str(CONFIG_FILE), "--mode", "test", "--experiment_name", "eval",
+        "--num_shots", str(NUM_SHOTS),
+        "--in_context_examples_fpath", files["rices"],
+        "--disable_wandb", "--disable_tensorboard", "--opts",
+        f"EXPERIMENT_FOLDER={folder}/experiments",
+        f"TENSORBOARD_FOLDER={folder}/tb",
+        f"cache.default_folder={folder}/cache",
+        "model_config.TokenizerClass=SimpleTokenizer",
+        "model_config.pretrained=0",
+        f"{modules}LoadVQA2Data.config.vqa_data_path={vqa!r}",
+        f"{modules}LoadVQA2Data.config.image_data_path="
+        f"{ {'train': str(folder), 'val': str(folder)}!r}",
+        f"{modules}LoadClipEmbeddings.config="
+        f"{ {'train': files['embeddings'], 'val': files['embeddings']}!r}",
+        *opts]
+
+
+class EvalTimer:
+    """Times each call of the functions in ``timed`` during one main.run
+    by the host clock to a synchronize, keeps each generate call's tokens,
+    and sums the garbage collector's time inside test(). Installed for the
+    run and taken off after."""
+
+    def __init__(self):
+        self.timed = ((VCT0Model, "generate"),
+                      (VCT0Model, "calibrate_and_quantize_int8"),
+                      (FewShotVQAExecutor, "_collect_generative"),
+                      (FewShotVQAExecutor, "evaluate_outputs"),
+                      (BaseExecutor, "test"))
+        self.seconds = {name: [] for _, name in self.timed}
+        self.tokens, self.gc_s, self.in_test = [], 0.0, False
+
+    def wrap(self, name: str, original):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            outer, self.in_test = self.in_test, self.in_test or name == "test"
+            t0 = time.perf_counter()
+            out = original(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name].append(time.perf_counter() - t0)
+            self.in_test = outer
+            if name == "generate":
+                self.tokens.append(out[0])
+            return out
+        return timed
+
+    def collecting(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self.gc_t0 = time.perf_counter()
+        elif self.in_test:
+            self.gc_s += time.perf_counter() - self.gc_t0
+
+    def __enter__(self):
+        self.originals = [(owner, name, getattr(owner, name))
+                          for owner, name in self.timed]
+        for owner, name, original in self.originals:
+            setattr(owner, name, self.wrap(name, original))
+        gc.callbacks.append(self.collecting)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self.collecting)
+        for owner, name, original in self.originals:
+            setattr(owner, name, original)
+
+
+def eval_batch_inputs(batch, dev: torch.device) -> dict:
+    return dict(prefix=torch.as_tensor(batch.clip_embeddings, device=dev),
+                question_tokens=torch.as_tensor(batch.generative_input_ids,
+                                                device=dev),
+                question_mask=torch.as_tensor(
+                    batch.generative_attention_mask, device=dev))
+
+
+def run_eval(phase: str, folder: Path, files: dict, n_val: int,
+             *opts) -> dict:
+    """main.run on ``files`` with ``opts``: a mapper checkpoint written
+    first with the port's save_checkpoint (random, seeded), every kernel
+    count set to 0 just before the run and read just after; then the
+    checks every eval run must pass."""
+    argv = eval_argv(folder, files, *opts)
+    config = process_config(parse_args_sys(argv))
+    lm_cfg = model_factory.T5_CONFIGS[config.model_config.ConfigClass]()
+    mapper_cfg = VCT0Config.from_model_args(
+        dict(config.model_config.model_args), lm_cfg=lm_cfg).mapper
+    mapper = init_mapper(torch.Generator().manual_seed(SEED), mapper_cfg)
+    save_checkpoint(config.saved_model_path, 0, {"mapper": mapper})
+    del mapper
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in PATH_KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with EvalTimer() as timer:
+        executor, metrics = eval_main.run(argv)
+    run_s = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in PATH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    check(executor.model.device.type == "cuda",
+          f"{phase}: the executor's model is on {executor.model.device}")
+    results = Path(config.results_path) / "answers.pkl"
+    predictions = pickle.loads(results.read_bytes())
+    qids = [p["question_id"] for p in predictions]
+    want_qids = [2000000 + i for i in range(n_val)]
+    check(sorted(qids) == want_qids,
+          f"{phase}: answers.pkl holds {len(qids)} predictions, not one for "
+          f"each of the {n_val} questions")
+    key = "test_evaluation/accuracy_overall"
+    check(key in metrics, f"{phase}: {key} missing: the VQA scoring failed "
+          "(its error is in the log)")
+    batches = len(executor.test_dataloader)
+    calls = len(timer.seconds["generate"])
+    check(calls == batches,
+          f"{phase}: {calls} generate calls for {batches} batches")
+    seconds = {name: sum(s) for name, s in timer.seconds.items()}
+    test_s, generate_s = seconds["test"], seconds["generate"]
+    # test() less generate: the calibration, the collects (tokens to the
+    # host, detokenize), the scoring, and the rest (waits on the collate
+    # thread, moves to the card)
+    host = {"calibrate_s": seconds["calibrate_and_quantize_int8"],
+            "collect_s": seconds["_collect_generative"],
+            "score_s": seconds["evaluate_outputs"]}
+    host["rest_s"] = (test_s - generate_s - host["calibrate_s"]
+                      - host["collect_s"] - host["score_s"])
+    return dict(executor=executor, metrics=metrics, predictions=predictions,
+                tokens=timer.tokens, launches=counts, config=config,
+                stats=dict(
+                    questions=n_val, batches=batches, run_s=run_s,
+                    test_s=test_s, questions_per_s=n_val / test_s,
+                    generate_s_per_batch=timer.seconds["generate"],
+                    generate_s=generate_s,
+                    host_share=1 - generate_s / test_s,
+                    host_split_s=host, gc_in_test_s=timer.gc_s,
+                    peak_mem_gb=peak / 1e9,
+                    accuracy_overall=metrics[key]))
+
+
+def check_direct_generate(phase: str, run: dict, model=None) -> None:
+    """The run's batches collated again (on one thread, as with
+    SimpleTokenizer the run collated them, so the ids are the run's)
+    through ``model.generate`` directly: the run's tokens, and its
+    answers.pkl decoded from them."""
+    executor = run["executor"]
+    model = model or executor.model
+    dev = model.device
+    max_new = int(run["config"].data_loader.additional.max_target_length)
+    answers = {p["question_id"]: p["answer"] for p in run["predictions"]}
+    for i, batch in enumerate(executor.test_dataloader):
+        tokens, _ = model.generate(**eval_batch_inputs(batch, dev),
+                                   max_new_tokens=max_new)
+        check(torch.equal(tokens, run["tokens"][i]),
+              f"{phase}: batch {i}'s tokens differ from direct generate's")
+        rows = tokens.cpu().numpy()
+        for row, qid, valid in zip(rows, batch.question_ids,
+                                   batch.sample_valid):
+            if valid:
+                check(answers[qid] == executor.decoder_tokenizer.decode(
+                    row.tolist(), skip_special_tokens=True),
+                    f"{phase}: question {qid}'s answer is not its tokens'")
+
+
+def t5_kernel_launches_traced(argv: list, batch, folder: Path,
+                              layers: int) -> list:
+    """t5_attention_core's CUDA kernel counted in torch.profiler traces of
+    one generate (one encode) on ``batch``, by the model that ``argv``'s
+    config builds, in a process of its own: late in a whole run of this
+    script a trace can come back with no CUDA record at all (see
+    cuda_kernel_names), and a fresh process traces whole. The child
+    (``--trace-t5-encode``) names the kernel from a trace of the wrapper
+    alone, then takes up to 3 traces of the call; a trace can drop records
+    but not add them, so one that holds fewer than ``layers`` is taken
+    again, and the last must hold exactly ``layers``."""
+    (folder / "argv.json").write_text(json.dumps(argv))
+    np.savez(folder / "inputs.npz", prefix=batch.clip_embeddings,
+             question_tokens=batch.generative_input_ids,
+             question_mask=batch.generative_attention_mask)
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--trace-t5-encode",
+         str(folder), str(layers)],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "the t5_attention_core trace failed:\n"
+          + proc.stderr[-3000:])
+    traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(len(traced["names"]) == 1,
+          f"t5_attention_core traced as {traced['names']}")
+    counts = traced["counts"]
+    check(counts[-1] == layers,
+          f"t5_attention_core: {counts} launches traced in one encode, not "
+          f"{layers}")
+    return counts
+
+
+def trace_t5_encode(folder: Path, layers: int) -> None:
+    """The child of t5_kernel_launches_traced: prints the kernel's traced
+    names and the count of each trace of one encode."""
+    argv = json.loads((folder / "argv.json").read_text())
+    model, _ = build_model_from_config(process_config(parse_args_sys(argv)))
+    dev = model.device
+    cfg = model.cfg.lm
+    width = cfg.num_heads * cfg.d_kv
+    q = torch.randn(1, 64, width, device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros(cfg.num_heads, 64, 64, device=dev)
+    tiles = t5_bias_tiles(bias)
+    mask = torch.ones(1, 64, dtype=torch.int32, device=dev)
+    names = [name for name in cuda_kernel_names(lambda: t5_attention_core(
+        q, q, q, bias, mask, cfg.num_heads, bias_tiles=tiles))
+        if "attention" in name]
+    counts = []
+    if len(names) != 1:
+        print(json.dumps({"names": names, "counts": counts}), flush=True)
+        return
+    inputs = {key: torch.as_tensor(value, device=dev)
+              for key, value in np.load(folder / "inputs.npz").items()}
+    model.generate(**inputs, max_new_tokens=1)
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            model.generate(**inputs, max_new_tokens=1)
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and e.name == names[0]))
+        if counts[-1] >= layers:
+            break
+    print(json.dumps({"names": names, "counts": counts}), flush=True)
+
+
+def check_scoring(phase: str, run: dict) -> dict:
+    """The run's accuracy scored again from its answers.pkl, and
+    predictions that are right for every other question scoring above 0."""
+    helper = run["executor"].data_loader.data.vqa_data.vqa_helpers["val"]
+    lookup = run["executor"].data_loader.data.vqa_data.lookup
+    half_right = [{"question_id": p["question_id"],
+                   "answer": lookup[str(p["question_id"])].gold_answer
+                   if i % 2 else "no"}
+                  for i, p in enumerate(run["predictions"])]
+    accuracy = {}
+    for name, predictions in (("run", run["predictions"]),
+                              ("half_right", half_right)):
+        ev = VQAEval(helper, helper.load_res_from_list(predictions), n=2)
+        ev.evaluate()
+        accuracy[name] = ev.accuracy["overall"]
+    check(accuracy["run"]
+          == run["metrics"]["test_evaluation/accuracy_overall"],
+          f"{phase}: the run's accuracy is not its answers.pkl's")
+    check(accuracy["half_right"] > 0, f"{phase}: half-right predictions "
+          "scored 0")
+    return accuracy
+
+
+def phase_config_eval(smi: str) -> dict:
+    """The port's CLI (main.run --mode test) on the shipped config at full
+    width: EVAL_QUESTIONS synthetic val questions, 4 shots, a mapper
+    checkpoint; one prediction a question, the metric (scored again),
+    direct generate's tokens, t5_attention_core 24 launches an encode
+    (counted and traced), the eval's questions/s, generate seconds, host
+    share and its split (collects, scoring, the rest; the garbage
+    collector's time)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = write_eval_data(folder, EVAL_QUESTIONS)
+        run = run_eval("config_eval", folder, files, EVAL_QUESTIONS)
+        executor = run["executor"]
+        layers = executor.model.cfg.lm.num_encoder_layers
+        want = launches(t5_attention_core=layers * run["stats"]["batches"])
+        check(run["launches"] == want, f"config_eval: kernels launched "
+              f"{run['launches']}, expected {want}")
+        check_direct_generate("config_eval", run)
+        traced = t5_kernel_launches_traced(
+            eval_argv(folder, files), next(iter(executor.test_dataloader)),
+            folder, layers)
+        scorers = check_scoring("config_eval", run)
+        lengths = sorted({int(b.generative_input_ids.shape[1])
+                          for b in executor.test_dataloader})
+    emit("config_eval", nvidia_smi=smi, launches=run["launches"],
+         traced_t5_attention_core_per_encode=traced,
+         prompt_buckets=lengths, accuracy=scorers, **run["stats"])
+    return dict(launches_per_call=[run["launches"]], **run["stats"])
+
+
+def phase_config_eval_int8(smi: str) -> dict:
+    """The same CLI run on EVAL_INT8_QUESTIONS questions with the int8
+    encoder modes calibrated on the first eval batch through the
+    executor: rows 2-4 launched 24 times, and the predictions of a direct
+    calibrate_and_quantize_int8 plus generate on the same batch."""
+    opts = ("tpu.int8_encoder_ffn=true", "tpu.int8_encoder_attn=true",
+            "tpu.int8_calibrate_batches=1")
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = write_eval_data(folder, EVAL_INT8_QUESTIONS)
+        run = run_eval("config_eval_int8", folder, files,
+                       EVAL_INT8_QUESTIONS, *opts)
+        executor = run["executor"]
+        model = executor.model
+        check(model.pending_int8_calibration is None
+              and "ln" in model.params["lm"]["encoder"]["ffn_q8"]
+              and "ln" in model.params["lm"]["encoder"]["self_attn_q8"],
+              "config_eval_int8: the executor did not calibrate")
+        layers = model.cfg.lm.num_encoder_layers
+        n = layers * run["stats"]["batches"]
+        want = launches(t5_attention_core=n, fused_t5_ln_qkv_q8=n,
+                        fused_oproj_residual_q8=n, fused_t5_ffn_q8=n)
+        check(run["launches"] == want, f"config_eval_int8: kernels launched "
+              f"{run['launches']}, expected {want}")
+        executor.model = None
+        del model
+        torch.cuda.empty_cache()
+        # the same weights anew (the config's seed, the checkpoint's mapper)
+        direct, _ = build_model_from_config(run["config"])
+        direct.params["mapper"] = tree_to_device(load_checkpoint(
+            os.path.join(run["config"].saved_model_path, "model_00"))[
+                "mapper"], direct.device)
+        batch = next(iter(executor.test_dataloader))
+        inputs = eval_batch_inputs(batch, direct.device)
+        direct.calibrate_and_quantize_int8([inputs], alpha=float(
+            run["config"].tpu.get("int8_smooth_alpha", 0.5)))
+        direct.pending_int8_calibration = None
+        check_direct_generate("config_eval_int8", run, model=direct)
+        del direct
+    emit("config_eval_int8", nvidia_smi=smi, opts=list(opts),
+         launches=run["launches"], **run["stats"])
+    return dict(launches_per_call=[run["launches"]], **run["stats"])
+
+
 def phase_vit_kernels(gen: torch.Generator) -> dict:
     """The three split3 kernels against their plain versions at ViT-L
     widths on VIT_CHECK_BATCH images and on CLIP_BATCH images, the main
@@ -3039,7 +3488,7 @@ def main() -> int:
               f"not from this checkout ({REPO})", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    phase_env()
+    smi = phase_env()
     phase_build()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3078,8 +3527,7 @@ def main() -> int:
         expected=lambda steps: launches(t5_attention_core=layers))
     breakdown = phase_breakdown(model, prefix, tokens, mask)
     phase_profile(model, prefix, tokens, mask, generate["wall_s"])
-    generate_int8 = phase_generate_int8(model, prefix, tokens, mask,
-                                        breakdown["encode_s"])
+    phase_generate_int8(model, prefix, tokens, mask, breakdown["encode_s"])
     torch.cuda.empty_cache()
     generate_fused = phase_generate_fused(model, prefix, tokens, mask,
                                           generate)
@@ -3116,10 +3564,15 @@ def main() -> int:
     config_fp32 = phase_config_generate_fp32(prefix, tokens, mask, generate)
     torch.cuda.empty_cache()
     phase_bench_generate()
+    torch.cuda.empty_cache()
+    config_eval = phase_config_eval(smi)
+    torch.cuda.empty_cache()
+    config_eval_int8 = phase_config_eval_int8(smi)
 
     measured = {
-        "t5_attention_core": (attention, generate),
-        **{name: (res, generate_int8) for name, res in int8_kernels.items()},
+        "t5_attention_core": (attention, config_eval),
+        **{name: (res, config_eval_int8)
+           for name, res in int8_kernels.items()},
         "cross_attention_decode": (decode_attention, generate_fused),
         "fused_t5_ffn": (t5_ffn, generate_fused),
         **{name: (res, clip_encode["fused"])
@@ -3157,4 +3610,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trace-t5-encode"]:
+        trace_t5_encode(Path(sys.argv[2]), int(sys.argv[3]))
+        sys.exit(0)
     sys.exit(main())

@@ -5,8 +5,10 @@ parser and the seeding."""
 
 import glob
 import json
+import logging
 import os
 import random
+import sys
 
 import numpy as np
 import pytest
@@ -181,9 +183,23 @@ def test_parse_args_sys_matches_jax(extra):
     assert vars(tmain.parse_args_sys(argv)) == vars(jmain.parse_args_sys(argv))
 
 
-def test_main_names_the_unported_steps():
-    with pytest.raises(NotImplementedError, match=r"item 7 steps \(c\)"):
-        tmain.run(["configs/vqa2/few_shot_vqa_hotpotqa.jsonnet"])
+def test_main_names_the_unported_steps(tmp_path, monkeypatch):
+    """main.run runs the eval now (tests/test_torch_eval_cli.py); what it
+    still refuses before any data is read names its ROADMAP item: more
+    than one process."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(sys, "excepthook", sys.excepthook)
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    try:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+            tmain.run(["configs/vqa2/few_shot_vqa_hotpotqa.jsonnet",
+                       "--mode", "test", "--opts",
+                       f"EXPERIMENT_FOLDER={tmp_path}/experiments",
+                       f"TENSORBOARD_FOLDER={tmp_path}/tb"])
+    finally:
+        root.handlers[:] = handlers
+        root.setLevel(level)
 
 
 def test_set_seed_seeds_the_host_as_jax_does():

@@ -1,5 +1,6 @@
 """The port and chip_smoke.py import neither jax nor the JAX package (nor,
-at import time, PIL or transformers), and the port's device rule holds."""
+at import time, PIL, transformers or orbax), and the port's device rule
+holds."""
 
 import ast
 import subprocess
@@ -15,7 +16,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "explicit_alignment_for_vqa_tasks_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "explicit_alignment_for_vqa_tasks_tpu")
 # absent on the card's machine: imported inside the functions that use them
-NOT_AT_IMPORT = ("PIL", "transformers")
+NOT_AT_IMPORT = ("PIL", "transformers", "orbax")
 
 
 def port_modules():
@@ -44,7 +45,14 @@ def test_every_kernel_module_is_scanned():
                    "tools.kernel_probe", "tools.bench_generate", "main",
                    "registry", "trainers", "trainers.model_factory",
                    "utils", "utils.config_system", "utils.jsonnet_eval",
-                   "utils.attr_dict", "utils.seed", "utils.loggers"):
+                   "utils.attr_dict", "utils.seed", "utils.loggers",
+                   "utils.vqa_eval", "utils.vqa_tools", "tools.time_vqa_scoring", "data",
+                   "data.tokenization", "data.loader",
+                   "data.in_context_examples", "data.module_parser",
+                   "data.vqa2_datasets", "data.data_loader_wrapper",
+                   "data.data_loader_vqa2", "trainers.checkpointing",
+                   "trainers.metrics_processors", "trainers.base_executor",
+                   "trainers.few_shot_vqa_executor"):
         assert f"{PORT.name}.{module}" in names, module
 
 
