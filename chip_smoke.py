@@ -99,6 +99,18 @@ register / shared-memory / spill report):
   kv_layouts one decode step at full width and 2 decoder layers for each
              int8 cross-KV layout: unmerged and merged logits bit-equal,
              transposed close to them, each layout's cache bytes at rest
+  generate_modes
+             the other generate modes on the generate phase's weights and
+             prompts, each called twice with every kernel's launches
+             checked against the decode steps it ran (and their rows):
+             beam search (K = 3, cross_attention_decode 24 launches a step
+             on 96 rows), prefill_chunks=2 and force_eos_at on the generate
+             phase's model (tokens equal to that phase's, and cut at each
+             row's step), no_prefix, one-at-a-time (5 segments of 128
+             tokens: one encode of 160 rows, the decode over 5 x 137 keys),
+             prefix-only captioning and a forced decoder prefix (4 tokens)
+             with cross_attention_decode; each with wall time, prompts/s,
+             peak memory and launches
   vit_kernels
              the CLIP ViT split3 kernels (fused_ln_qkv, attention_core_oproj,
              fused_mlp_block) against their plain versions at ViT-L/14@336
@@ -208,7 +220,9 @@ register / shared-memory / spill report):
   bench_generate
              tools/bench_generate.py's body once at its defaults with one
              trial (random T0-3B weights, B=32, 512 tokens, 4 shots, 20
-             steps): its JSON line
+             steps): its JSON line; bench_generate_ensembles the same with
+             --ensembles 3 --members_per_call 3 (three permutations of each
+             prompt decoded as one 96-row call, the pick on the host)
   config_eval
              the few-shot VQA eval as a user runs it: the port's CLI
              (main.run --mode test) on the shipped config at full width
@@ -229,6 +243,16 @@ register / shared-memory / spill report):
              calibrates on the first batch, rows 2-4 launch 24 times, and
              the tokens equal a direct calibrate_and_quantize_int8 and
              generate on that batch
+  config_eval_modes
+             the same CLI run on 32 questions once in each of the paper's
+             other eval modes: --no_prefix 1 with the hotpotqa_no_prefix
+             template, one-at-a-time, --num_permutations_of_in_context_examples
+             3 with tpu.ensemble_members_per_call 1 and 3 (equal answers),
+             --ensemble_one_shots 1 (4 members) and num_beams 3; each with
+             one prediction a question, the metric equal to answers.pkl
+             scored again, t5_attention_core 24 launches a generate call,
+             questions/s, generate seconds and peak memory (no_prefix and
+             beams also against direct generate on the collated batch)
 
 Then a line listing every kernel of the path with its launches (those of
 t5_attention_core from config_eval, of the int8 trio from config_eval_int8)
@@ -1636,6 +1660,176 @@ def phase_kv_layouts(model: VCT0Model, gen: torch.Generator) -> None:
          cross_cache_bytes_at_rest=cache_bytes)
 
 
+BEAMS = 3                          # generate_modes' and config_eval_modes' K
+SEGMENT_LEN = 128                  # one-at-a-time: the data side's bucket
+FORCED_LEN = 4                     # the forced decoder prefix, start incl.
+EOS_AT_STEPS = (2, 3, 4, 5)        # force_eos_at's steps (2-5 token answers)
+
+
+class DecodeSteps:
+    """Records the rows of each t5_decode_step call made while it is
+    installed (ops/decoding.py calls the step through models.t5)."""
+
+    def __enter__(self):
+        self.rows, self.original = [], t5_lib.t5_decode_step
+
+        def counted(params, cfg, token, cache, mask):
+            self.rows.append(int(token.shape[0]))
+            return self.original(params, cfg, token, cache, mask)
+
+        t5_lib.t5_decode_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        t5_lib.t5_decode_step = self.original
+
+
+def make_segments(cfg: VCT0Config, dev: torch.device):
+    """One-at-a-time prompts: (B, NUM_SHOTS + 1, SEGMENT_LEN) tokens,
+    segment i holding its sentinel <extra_id_i>, every fourth row's
+    segments right-padded."""
+    rng = np.random.default_rng(SEED + 1)
+    segments = NUM_SHOTS + 1
+    tokens = rng.integers(3, 32000, (BATCH, segments, SEGMENT_LEN)).astype(
+        np.int32)
+    mask = np.ones((BATCH, segments, SEGMENT_LEN), np.int32)
+    for b in range(BATCH):
+        for i in range(segments):
+            valid = SEGMENT_LEN - (20 + i if b % 4 == 3 else 0)
+            tokens[b, i, valid:] = cfg.lm.pad_token_id
+            mask[b, i, valid:] = 0
+            tokens[b, i, rng.integers(valid - 1)] = cfg.sentinel_base - i
+    return (torch.from_numpy(tokens).to(dev), torch.from_numpy(mask).to(dev))
+
+
+def run_mode(mode: str, model: VCT0Model, expected, **kwargs) -> dict:
+    """generate(**kwargs) twice; in each call every kernel count is set to
+    0 just before and read just after, and must equal ``expected(steps,
+    rows)`` for the decode steps the call ran and their rows. The second
+    call's tokens must equal the first's; its wall time, prompts/s and peak
+    memory are kept."""
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in PATH_KERNELS:
+            fn.launches = 0
+        with DecodeSteps() as steps:
+            t0 = time.perf_counter()
+            out_tokens, logprobs = model.generate(
+                max_new_tokens=MAX_NEW_TOKENS, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in PATH_KERNELS}
+        want = expected(len(steps.rows), set(steps.rows))
+        check(counts == want, f"generate_modes {mode}: kernels launched "
+              f"{counts}, expected {want}")
+        runs.append(dict(tokens=out_tokens, logprobs=logprobs, wall_s=wall,
+                         launches=counts, steps=len(steps.rows),
+                         step_rows=sorted(set(steps.rows)),
+                         peak_bytes=torch.cuda.max_memory_allocated()))
+    first, second = runs
+    out_tokens, logprobs = second["tokens"], second["logprobs"]
+    check(tuple(out_tokens.shape) == (BATCH, MAX_NEW_TOKENS),
+          f"generate_modes {mode}: tokens shape {tuple(out_tokens.shape)}")
+    check(torch.equal(first["tokens"], out_tokens),
+          f"generate_modes {mode}: the two calls' tokens differ")
+    check(bool(((out_tokens >= 0)
+                & (out_tokens < model.cfg.lm.vocab_size)).all()),
+          f"generate_modes {mode}: token outside the vocabulary")
+    check(bool(torch.isfinite(logprobs).all()) and bool((logprobs <= 0).all()),
+          f"generate_modes {mode}: log-probs not finite or above 0")
+    return dict(wall_s=second["wall_s"], first_wall_s=first["wall_s"],
+                prompts_per_s=BATCH / second["wall_s"],
+                peak_mem_gb=second["peak_bytes"] / 1e9,
+                launches=second["launches"], decode_steps=second["steps"],
+                step_rows=second["step_rows"], tokens=out_tokens)
+
+
+def phase_generate_modes(model: VCT0Model, prefix, tokens, mask,
+                         default: dict) -> dict:
+    """The other generate modes at full T0-3B width on the generate phase's
+    weights and prompts (B=32), each run twice with its launches checked:
+    beam search (K=3) with cross_attention_decode on 96 rows a step;
+    prefill_chunks=2 and force_eos_at on the default model, against the
+    generate phase's tokens; no_prefix, one-at-a-time (5 segments of 128
+    tokens, one encode of 160 rows, the decoder over 5 x 137 keys),
+    prefix-only captioning and a forced decoder prefix through
+    cross_attention_decode."""
+    lm_cfg = dataclasses.replace(model.cfg.lm, fused_decode_attention=True)
+    fused = VCT0Model(dataclasses.replace(model.cfg, lm=lm_cfg),
+                      dict(model.params))
+    enc, dec = lm_cfg.num_encoder_layers, lm_cfg.num_decoder_layers
+    rng = np.random.default_rng(SEED + 2)
+    main = dict(prefix=prefix, question_tokens=tokens, question_mask=mask,
+                num_shots=NUM_SHOTS)
+    seg_tokens, seg_mask = make_segments(model.cfg, prefix.device)
+    force_eos_at = torch.from_numpy(rng.choice(
+        np.asarray(EOS_AT_STEPS, np.int32), size=BATCH)).to(prefix.device)
+    forced = rng.integers(3, 32000, (BATCH, FORCED_LEN)).astype(np.int32)
+    forced[:, 0] = lm_cfg.decoder_start_token_id
+
+    def with_decode_kernel(encodes: int = 1, rows: int = BATCH):
+        def expected(steps, step_rows):
+            check(step_rows <= {rows}, f"decode steps on {step_rows} rows, "
+                  f"not {rows}")
+            return launches(t5_attention_core=enc * encodes,
+                            cross_attention_decode=dec * steps)
+        return expected
+
+    def encodes_only(encodes: int = 1):
+        return lambda steps, step_rows: launches(
+            t5_attention_core=enc * encodes)
+
+    modes = {
+        "beam": (fused, with_decode_kernel(rows=BATCH * BEAMS),
+                 dict(main, num_beams=BEAMS)),
+        "prefill_chunks": (model, encodes_only(2),
+                           dict(main, prefill_chunks=2)),
+        "force_eos_at": (model, encodes_only(),
+                         dict(main, force_eos_at=force_eos_at)),
+        "no_prefix": (fused, with_decode_kernel(),
+                      dict(question_tokens=tokens, question_mask=mask,
+                           no_prefix=True)),
+        "one_at_a_time": (fused, with_decode_kernel(),
+                          dict(prefix=prefix, question_tokens=seg_tokens,
+                               question_mask=seg_mask,
+                               pass_examples_through_encoder_one_at_a_time=True)),
+        "prefix_only": (fused, with_decode_kernel(), dict(prefix=prefix)),
+        "forced": (fused, with_decode_kernel(),
+                   dict(main, decoder_input_ids=torch.from_numpy(forced).to(
+                       prefix.device))),
+    }
+    results = {}
+    for mode, (which, expected, kwargs) in modes.items():
+        results[mode] = run_mode(mode, which, expected, **kwargs)
+    check(torch.equal(results["prefill_chunks"]["tokens"], default["tokens"]),
+          "generate_modes: prefill_chunks=2 gave other tokens than the "
+          "unchunked generate phase")
+    steps_col = torch.arange(MAX_NEW_TOKENS, device=prefix.device)[None]
+    want_cut = torch.where(steps_col < force_eos_at[:, None],
+                           default["tokens"], 0)
+    check(torch.equal(results["force_eos_at"]["tokens"], want_cut),
+          "generate_modes: force_eos_at did not cut the generate phase's "
+          "tokens at each row's step")
+    seg_len = splice_output_length(SEGMENT_LEN, PREFIX_LENGTH, 1)
+    spliced = splice_output_length(PROMPT_LEN, PREFIX_LENGTH, NUM_SHOTS + 1)
+    encoder = {"beam": f"{spliced} ({BEAMS} beams a prompt in the decode)",
+               "prefill_chunks": f"{spliced} (2 chunks of {BATCH // 2} "
+                                 "rows)",
+               "force_eos_at": str(spliced), "no_prefix": str(PROMPT_LEN),
+               "one_at_a_time": f"{NUM_SHOTS + 1} x {seg_len} (one encode "
+                                f"of {(NUM_SHOTS + 1) * BATCH} rows)",
+               "prefix_only": str(PREFIX_LENGTH * (NUM_SHOTS + 1)),
+               "forced": f"{spliced}, {FORCED_LEN} forced decoder tokens"}
+    for mode, res in results.items():
+        emit(f"generate_modes_{mode}", batch=BATCH, encoder_tokens=encoder[
+            mode], **{k: v for k, v in res.items() if k != "tokens"})
+    emit("generate_modes", forced_eos_steps_mean=float(
+        force_eos_at.float().mean()), prefill_chunks_tokens_equal=True)
+    return results
+
+
 def config_model(*opts) -> tuple:
     """The shipped VQA2 config through the port's config path: the CLI
     parser, process_config with --opts seed=SEED and ``opts``, the model
@@ -1757,17 +1951,18 @@ def phase_config_generate_fp32(prefix, tokens, mask, default: dict) -> dict:
     return result
 
 
-def phase_bench_generate() -> dict:
-    """tools/bench_generate.py's body at its defaults, one trial; its JSON
-    line printed as the bench prints it."""
-    args = bench_generate.build_parser().parse_args(["--trials", "1"])
+def phase_bench_generate(*flags, phase: str = "bench_generate") -> dict:
+    """tools/bench_generate.py's body at its defaults and ``flags``, one
+    trial; its JSON line printed as the bench prints it."""
+    args = bench_generate.build_parser().parse_args(["--trials", "1",
+                                                     *flags])
     result = bench_generate.bench(args)
     print(json.dumps(result), flush=True)
     check(result["metric"] == bench_generate.METRIC and result["value"] > 0,
-          f"bench_generate: {result['metric']} = {result['value']}")
+          f"{phase}: {result['metric']} = {result['value']}")
     check(result["device"]["name"] == torch.cuda.get_device_name(0),
-          "bench_generate: did not run on the card")
-    emit("bench_generate", prompts_per_s=result["value"],
+          f"{phase}: did not run on the card")
+    emit(phase, prompts_per_s=result["value"],
          config=result["config"], device=result["device"])
     return result
 
@@ -1846,10 +2041,11 @@ def write_eval_data(folder: Path, n_val: int) -> dict:
     return files
 
 
-def eval_argv(folder: Path, files: dict, *opts) -> list:
+def eval_argv(folder: Path, files: dict, *opts, flags=()) -> list:
     """The port's CLI on the shipped config, pointed at ``files``: test
     mode, NUM_SHOTS shots, SimpleTokenizer (the card's machine has no
-    transformers), random weights from the config's seed."""
+    transformers), random weights from the config's seed; ``flags`` are
+    more of the CLI's flags (the eval modes'), ``opts`` more --opts."""
     vqa = {"question_files": {"train": files["train2014_questions"],
                               "val": files["val2014_questions"]},
            "annotation_files": {"train": files["train2014_annotations"],
@@ -1859,7 +2055,7 @@ def eval_argv(folder: Path, files: dict, *opts) -> list:
         str(CONFIG_FILE), "--mode", "test", "--experiment_name", "eval",
         "--num_shots", str(NUM_SHOTS),
         "--in_context_examples_fpath", files["rices"],
-        "--disable_wandb", "--disable_tensorboard", "--opts",
+        "--disable_wandb", "--disable_tensorboard", *flags, "--opts",
         f"EXPERIMENT_FOLDER={folder}/experiments",
         f"TENSORBOARD_FOLDER={folder}/tb",
         f"cache.default_folder={folder}/cache",
@@ -1931,12 +2127,13 @@ def eval_batch_inputs(batch, dev: torch.device) -> dict:
 
 
 def run_eval(phase: str, folder: Path, files: dict, n_val: int,
-             *opts) -> dict:
-    """main.run on ``files`` with ``opts``: a mapper checkpoint written
-    first with the port's save_checkpoint (random, seeded), every kernel
-    count set to 0 just before the run and read just after; then the
-    checks every eval run must pass."""
-    argv = eval_argv(folder, files, *opts)
+             *opts, flags=(), calls_per_batch: int = 1) -> dict:
+    """main.run on ``files`` with ``opts`` and ``flags``: a mapper
+    checkpoint written first with the port's save_checkpoint (random,
+    seeded), every kernel count set to 0 just before the run and read just
+    after; then the checks every eval run must pass (``calls_per_batch``
+    generate calls a batch: an ensemble's member calls)."""
+    argv = eval_argv(folder, files, *opts, flags=flags)
     config = process_config(parse_args_sys(argv))
     lm_cfg = model_factory.T5_CONFIGS[config.model_config.ConfigClass]()
     mapper_cfg = VCT0Config.from_model_args(
@@ -1968,7 +2165,7 @@ def run_eval(phase: str, folder: Path, files: dict, n_val: int,
           "(its error is in the log)")
     batches = len(executor.test_dataloader)
     calls = len(timer.seconds["generate"])
-    check(calls == batches,
+    check(calls == batches * calls_per_batch,
           f"{phase}: {calls} generate calls for {batches} batches")
     seconds = {name: sum(s) for name, s in timer.seconds.items()}
     test_s, generate_s = seconds["test"], seconds["generate"]
@@ -1993,11 +2190,12 @@ def run_eval(phase: str, folder: Path, files: dict, n_val: int,
                     accuracy_overall=metrics[key]))
 
 
-def check_direct_generate(phase: str, run: dict, model=None) -> None:
+def check_direct_generate(phase: str, run: dict, model=None,
+                          **kwargs) -> None:
     """The run's batches collated again (on one thread, as with
     SimpleTokenizer the run collated them, so the ids are the run's)
-    through ``model.generate`` directly: the run's tokens, and its
-    answers.pkl decoded from them."""
+    through ``model.generate(**kwargs)`` directly: the run's tokens, and
+    its answers.pkl decoded from them."""
     executor = run["executor"]
     model = model or executor.model
     dev = model.device
@@ -2005,7 +2203,7 @@ def check_direct_generate(phase: str, run: dict, model=None) -> None:
     answers = {p["question_id"]: p["answer"] for p in run["predictions"]}
     for i, batch in enumerate(executor.test_dataloader):
         tokens, _ = model.generate(**eval_batch_inputs(batch, dev),
-                                   max_new_tokens=max_new)
+                                   max_new_tokens=max_new, **kwargs)
         check(torch.equal(tokens, run["tokens"][i]),
               f"{phase}: batch {i}'s tokens differ from direct generate's")
         rows = tokens.cpu().numpy()
@@ -2179,6 +2377,81 @@ def phase_config_eval_int8(smi: str) -> dict:
     emit("config_eval_int8", nvidia_smi=smi, opts=list(opts),
          launches=run["launches"], **run["stats"])
     return dict(launches_per_call=[run["launches"]], **run["stats"])
+
+
+EVAL_MODES_QUESTIONS = 32          # one batch at test.batch_size
+EVAL_PERMUTATIONS = 3
+
+
+def no_prefix_template_opt() -> str:
+    """--opts of the shipped config's input modules with the text-only
+    template (--opts addresses no list element, so the whole list)."""
+    config = process_config(parse_args_sys([str(CONFIG_FILE)]))
+    modules = config.model_config.input_modules.to_dict()["module_list"]
+    check(modules and modules[0]["option"] == "hotpotqa",
+          f"the shipped config's first input module is {modules[:1]}")
+    modules[0]["option"] = "hotpotqa_no_prefix"
+    return f"model_config.input_modules.module_list={modules!r}"
+
+
+def phase_config_eval_modes(smi: str) -> dict:
+    """The CLI run of config_eval on EVAL_MODES_QUESTIONS questions in each
+    of the paper's other eval modes: no_prefix (the hotpotqa_no_prefix
+    template), one-at-a-time, permutations (E = 3) with members_per_call 1
+    and 3 (equal predictions), ensemble_one_shots (4 members) and
+    num_beams = 3. Each with one prediction a question, the metric equal
+    to answers.pkl scored again, t5_attention_core 24 launches a generate
+    call, questions/s; no_prefix and beams also against direct generate."""
+    per = {
+        "no_prefix": ((no_prefix_template_opt(),), ("--no_prefix", "1"), 1,
+                      dict(no_prefix=True)),
+        "one_at_a_time": ((), (
+            "--pass_examples_through_encoder_one_at_a_time", "1"), 1, None),
+        "permutations": (("tpu.ensemble_members_per_call=1",), (
+            "--num_permutations_of_in_context_examples",
+            str(EVAL_PERMUTATIONS)), EVAL_PERMUTATIONS, None),
+        "permutations_batched": ((
+            f"tpu.ensemble_members_per_call={EVAL_PERMUTATIONS}",), (
+            "--num_permutations_of_in_context_examples",
+            str(EVAL_PERMUTATIONS)), 1, None),
+        "ensemble_one_shots": ((), ("--ensemble_one_shots", "1"),
+                               NUM_SHOTS, None),
+        "beams": ((f"data_loader.additional.num_beams={BEAMS}",), (), 1,
+                  dict(num_beams=BEAMS)),
+    }
+    results, answers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = write_eval_data(folder, EVAL_MODES_QUESTIONS)
+        for mode, (opts, flags, calls, direct) in per.items():
+            run = run_eval(f"config_eval_{mode}", folder, files,
+                           EVAL_MODES_QUESTIONS, *opts, flags=flags,
+                           calls_per_batch=calls)
+            executor = run["executor"]
+            layers = executor.model.cfg.lm.num_encoder_layers
+            want = launches(t5_attention_core=layers * calls
+                            * run["stats"]["batches"])
+            check(run["launches"] == want, f"config_eval_{mode}: kernels "
+                  f"launched {run['launches']}, expected {want}")
+            if direct is not None:
+                check_direct_generate(f"config_eval_{mode}", run, **direct)
+            check_scoring(f"config_eval_{mode}", run)
+            answers[mode] = sorted((p["question_id"], p["answer"])
+                                   for p in run["predictions"])
+            results[mode] = dict(launches_per_call=[run["launches"]],
+                                 **run["stats"])
+            emit(f"config_eval_{mode}", nvidia_smi=smi, opts=list(opts),
+                 flags=list(flags), launches=run["launches"],
+                 generate_calls_per_batch=calls, **run["stats"])
+            del run, executor
+            gc.collect()
+            torch.cuda.empty_cache()
+    check(answers["permutations_batched"] == answers["permutations"],
+          "config_eval_modes: members_per_call 3 predicted other answers "
+          "than the per-member loop")
+    emit("config_eval_modes", modes=list(per),
+         batched_permutations_equal_looped=True)
+    return results
 
 
 def phase_vit_kernels(gen: torch.Generator) -> dict:
@@ -3535,6 +3808,8 @@ def main() -> int:
     phase_generate_int8_all(model, prefix, tokens, mask)
     torch.cuda.empty_cache()
     phase_kv_layouts(model, gen)
+    torch.cuda.empty_cache()
+    phase_generate_modes(model, prefix, tokens, mask, generate)
     del model
     torch.cuda.empty_cache()
     vit_kernels = phase_vit_kernels(gen)
@@ -3565,9 +3840,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_bench_generate()
     torch.cuda.empty_cache()
+    phase_bench_generate("--ensembles", "3", "--members_per_call", "3",
+                         phase="bench_generate_ensembles")
+    torch.cuda.empty_cache()
     config_eval = phase_config_eval(smi)
     torch.cuda.empty_cache()
     config_eval_int8 = phase_config_eval_int8(smi)
+    torch.cuda.empty_cache()
+    phase_config_eval_modes(smi)
 
     measured = {
         "t5_attention_core": (attention, config_eval),

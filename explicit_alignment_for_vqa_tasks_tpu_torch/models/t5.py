@@ -711,7 +711,8 @@ def _quant_cross_kv(x: torch.Tensor, layout: str
 
 def cross_kv_cache(params: Params, cfg: T5Config,
                    encoder_hidden: torch.Tensor,
-                   layout_batch: Optional[int] = None) -> Params:
+                   layout_batch: Optional[int] = None,
+                   out: Optional[Params] = None, row0: int = 0) -> Params:
     """The cross-attention K/V cache of every decoder layer (JAX
     models/t5.py:904-982): (layers, B, L, H, kv) in the compute dtype, or
     with cfg.int8_cross_kv int8 codes ("cross_k", "cross_v") and fp32
@@ -721,27 +722,38 @@ def cross_kv_cache(params: Params, cfg: T5Config,
     H, kv) scales; merged (layers, B, L, H*kv) with (layers, B, 1, H*kv);
     transposed (layers, B, H, kv, L) with (layers, B, 1, H, kv). Each
     layer's bf16 K and V are quantized as they are projected, so no
-    (layers, ...) bf16 cache is held."""
+    (layers, ...) bf16 cache is held.
+
+    With ``out`` (a dict), each layer's leaves are written into rows
+    row0 .. row0 + B of (layers, layout_batch, ...) buffers in ``out``,
+    allocated there by the first call: a chunked prefill fills one cache
+    chunk by chunk. Returns the dict written."""
     cross = params["decoder"]["cross_attn"]
     h = cfg.num_heads
-    if cfg.int8_cross_kv:
-        layout = _resolve_kv_layout(
-            cfg, encoder_hidden.shape[0] if layout_batch is None
-            else layout_batch)
-        out = {"cross_k": [], "cross_k_scale": [], "cross_v": [],
-               "cross_v_scale": []}
-        for i in range(cfg.num_decoder_layers):
-            for name in ("k", "v"):
-                codes, scales = _quant_cross_kv(
-                    _project(encoder_hidden, cross[name][i], h), layout)
-                out[f"cross_{name}"].append(codes)
-                out[f"cross_{name}_scale"].append(scales)
-        return {key: torch.stack(leaves) for key, leaves in out.items()}
-    ks, vs = [], []
+    batch = encoder_hidden.shape[0]
+    total = batch if layout_batch is None else layout_batch
+    cache = {} if out is None else out
+    rows = slice(row0, row0 + batch) if out is not None else slice(None)
+
+    def put(key: str, i: int, leaf: torch.Tensor) -> None:
+        if key not in cache:
+            cache[key] = leaf.new_empty(
+                (cfg.num_decoder_layers, batch if out is None else total)
+                + tuple(leaf.shape[1:]))
+        cache[key][i, rows] = leaf
+
+    layout = (_resolve_kv_layout(cfg, total) if cfg.int8_cross_kv
+              else None)
     for i in range(cfg.num_decoder_layers):
-        ks.append(_project(encoder_hidden, cross["k"][i], h))
-        vs.append(_project(encoder_hidden, cross["v"][i], h))
-    return {"cross_k": torch.stack(ks), "cross_v": torch.stack(vs)}
+        for name in ("k", "v"):
+            proj = _project(encoder_hidden, cross[name][i], h)
+            if layout is None:
+                put(f"cross_{name}", i, proj)
+                continue
+            codes, scales = _quant_cross_kv(proj, layout)
+            put(f"cross_{name}", i, codes)
+            put(f"cross_{name}_scale", i, scales)
+    return cache
 
 
 def init_decode_cache(params: Params, cfg: T5Config,

@@ -1,14 +1,20 @@
 """VC-T0: frozen T5/T0 LM + mapping network + prefix splicing.
 
-Counterpart of explicit_alignment_for_vqa_tasks_tpu/models/vct0.py,
-restricted to the main generate path with greedy decoding: embed the
-prompt, project the CLIP prefixes, splice them in at the sentinels, encode
-once and decode greedily with a KV cache, under any ``T5Config`` option;
-and the opt-in int8 modes, quantized at build time
+Counterpart of explicit_alignment_for_vqa_tasks_tpu/models/vct0.py's
+generate surface, under any ``T5Config`` option:
+  - main: embed the prompt, project the CLIP prefixes, splice them in at
+    the sentinels, encode once, decode with a KV cache (greedy, beam
+    search, ``force_eos_at``, or the prefill in batch chunks);
+  - ``no_prefix``: the text-only prompt;
+  - one-at-a-time: each segment (shot) encoded apart with its own
+    sentinel <extra_id_i>, the states concatenated for the decoder;
+  - a forced decoder prefix, teacher-forced before the greedy decode;
+  - prefix-only captioning.
+The opt-in int8 modes are quantized at build time
 (``quantize_int8_encoder``) or, for the encoder, after SmoothQuant
 calibration on eval batches (``VCT0Model.calibrate_and_quantize_int8``).
-The other generate modes raise ``NotImplementedError`` naming the ROADMAP
-item that ports them. ``build_vct0_model`` and ``build_vct0_prefix`` are
+The pipelined generate paths raise ``NotImplementedError`` naming their
+ROADMAP item. ``build_vct0_model`` and ``build_vct0_prefix`` are
 registered in ``registry.MODELS`` under the config's ``ModelClass`` names.
 """
 
@@ -104,29 +110,146 @@ def project_prefix(cfg: VCT0Config, mapper_params: Params,
                         cfg.lm.d_model)
 
 
+def _splice(lm_params: Params, cfg: VCT0Config, prefix_proj: torch.Tensor,
+            tokens: torch.Tensor, mask: torch.Tensor, num_prefixes: int,
+            base_id: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prompt's embeddings with the projected prefixes (the mapper's
+    fp32, cast to the text embeddings' dtype) spliced in at sentinels
+    base_id, base_id - 1, ..."""
+    text_embeds = t5_lib.embed_tokens(lm_params, cfg.lm, tokens)
+    return insert_prefix_into_input(
+        tokens, text_embeds, prefix_proj.to(text_embeds.dtype), mask,
+        prefix_length=cfg.prefix_length, num_prefixes=num_prefixes,
+        base_id=base_id,
+    )
+
+
+def _decode(lm_params: Params, cfg: VCT0Config, hidden: torch.Tensor,
+            mask: torch.Tensor, max_new_tokens: int, num_beams: int = 1,
+            force_eos_at: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if num_beams > 1:
+        # the winner's true per-token log-probs: sequence_scores ranks
+        # beam outputs as it ranks greedy ones
+        return _decoding.beam_search_t5(lm_params, cfg.lm, hidden, mask,
+                                        num_beams=num_beams,
+                                        max_new_tokens=max_new_tokens)
+    return _decoding.greedy_decode_t5(lm_params, cfg.lm, hidden, mask,
+                                      max_new_tokens,
+                                      force_eos_at=force_eos_at)
+
+
 def _generate_main(
     lm_params: Params, mapper_params: Params, cfg: VCT0Config,
     prefix: torch.Tensor, tokens: torch.Tensor, mask: torch.Tensor,
-    num_prefixes: int, max_new_tokens: int,
+    num_prefixes: int, max_new_tokens: int, num_beams: int = 1,
+    force_eos_at: Optional[torch.Tensor] = None, prefill_chunks: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    text_embeds = t5_lib.embed_tokens(lm_params, cfg.lm, tokens)
-    # the mapper runs in fp32 and is cast to the text embeddings' dtype
-    prefix_proj = project_prefix(cfg, mapper_params, prefix)
-    joint, joint_mask = insert_prefix_into_input(
-        tokens, text_embeds, prefix_proj.to(text_embeds.dtype), mask,
-        prefix_length=cfg.prefix_length, num_prefixes=num_prefixes,
-        base_id=cfg.sentinel_base,
-    )
+    joint, joint_mask = _splice(
+        lm_params, cfg, project_prefix(cfg, mapper_params, prefix), tokens,
+        mask, num_prefixes, cfg.sentinel_base)
+    if prefill_chunks > 1:
+        if num_beams > 1:
+            raise ValueError(
+                "prefill_chunks > 1 is greedy-only (beam search expands "
+                "the batch before the cache is built)")
+        return _decoding.chunked_prefill_greedy_decode_t5(
+            lm_params, cfg.lm, joint, joint_mask, max_new_tokens,
+            prefill_chunks=prefill_chunks, force_eos_at=force_eos_at)
     hidden = t5_lib.t5_encode(
         lm_params, cfg.lm, inputs_embeds=joint, attention_mask=joint_mask
     )
-    return _decoding.greedy_decode_t5(lm_params, cfg.lm, hidden, joint_mask,
-                                      max_new_tokens)
+    return _decode(lm_params, cfg, hidden, joint_mask, max_new_tokens,
+                   num_beams, force_eos_at)
 
 
-def _not_ported(mode: str, item: str) -> None:
-    raise NotImplementedError(
-        f"VCT0Model.generate: {mode} is not ported yet (ROADMAP.md, {item})")
+def _generate_no_prefix(
+    lm_params: Params, cfg: VCT0Config, tokens: torch.Tensor,
+    mask: torch.Tensor, max_new_tokens: int, num_beams: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    hidden = t5_lib.t5_encode(lm_params, cfg.lm, input_ids=tokens,
+                              attention_mask=mask)
+    return _decode(lm_params, cfg, hidden, mask, max_new_tokens, num_beams)
+
+
+def _generate_prefix_only(
+    lm_params: Params, mapper_params: Params, cfg: VCT0Config,
+    prefix: torch.Tensor, max_new_tokens: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Captioning: the P projected prefixes alone are the encoder input
+    (P x prefix_length positions)."""
+    prefix_proj = project_prefix(cfg, mapper_params, prefix)
+    prefix_embeds = prefix_proj.reshape(
+        prefix.shape[0], -1, cfg.lm.d_model).to(cfg.lm.dtype)
+    mask = torch.ones(prefix_embeds.shape[:2], dtype=torch.int32,
+                      device=prefix_embeds.device)
+    hidden = t5_lib.t5_encode(lm_params, cfg.lm, inputs_embeds=prefix_embeds,
+                              attention_mask=mask)
+    return _decode(lm_params, cfg, hidden, mask, max_new_tokens)
+
+
+def _generate_forced(
+    lm_params: Params, mapper_params: Params, cfg: VCT0Config,
+    prefix: torch.Tensor, tokens: torch.Tensor, mask: torch.Tensor,
+    decoder_input_ids: torch.Tensor, max_new_tokens: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Only the test image's prefix (the last) is spliced (reference:
+    vct0.py:466-482)."""
+    prefix_proj = project_prefix(cfg, mapper_params, prefix)
+    joint, joint_mask = _splice(lm_params, cfg, prefix_proj[:, -1:], tokens,
+                                mask, 1, cfg.sentinel_base)
+    hidden = t5_lib.t5_encode(
+        lm_params, cfg.lm, inputs_embeds=joint, attention_mask=joint_mask
+    )
+    return _decoding.forced_decode_t5(lm_params, cfg.lm, hidden, joint_mask,
+                                      decoder_input_ids, max_new_tokens)
+
+
+def _one_at_a_time_segments(
+    lm_params: Params, mapper_params: Params, cfg: VCT0Config,
+    prefix: Optional[torch.Tensor], tokens: torch.Tensor,
+    mask: torch.Tensor, num_segments: int, with_prefix: bool,
+):
+    """Each segment's encoder input (reference: vct0.py:427-444): with
+    ``with_prefix``, segment i's prompt with prefix i spliced in at its
+    sentinel <extra_id_i> = sentinel_base - i, else its text embeddings.
+    Yields (inputs_embeds, mask) per segment."""
+    prefix_proj = (project_prefix(cfg, mapper_params, prefix)
+                   if with_prefix else None)
+    for i in range(num_segments):
+        seg_tokens, seg_mask = tokens[:, i], mask[:, i]
+        if with_prefix:
+            yield _splice(lm_params, cfg, prefix_proj[:, i:i + 1], seg_tokens,
+                          seg_mask, 1, cfg.sentinel_base - i)
+        else:
+            yield (t5_lib.embed_tokens(lm_params, cfg.lm, seg_tokens),
+                   seg_mask)
+
+
+def _generate_one_at_a_time(
+    lm_params: Params, mapper_params: Params, cfg: VCT0Config,
+    prefix: Optional[torch.Tensor], tokens: torch.Tensor, mask: torch.Tensor,
+    num_segments: int, max_new_tokens: int, with_prefix: bool,
+    num_beams: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise encoder: the S segments share one shape, so they are
+    stacked on the batch axis into ONE encode of S*B rows (encoder rows are
+    independent), then laid out again as (B, S*L, D) for the decoder, the
+    mask to match."""
+    seg_inputs, seg_masks = zip(*_one_at_a_time_segments(
+        lm_params, mapper_params, cfg, prefix, tokens, mask, num_segments,
+        with_prefix))
+    stacked_mask = torch.cat(seg_masks, dim=0)                  # (S*B, L)
+    hidden = t5_lib.t5_encode(lm_params, cfg.lm,
+                              inputs_embeds=torch.cat(seg_inputs, dim=0),
+                              attention_mask=stacked_mask)
+    batch, seg_len = tokens.shape[0], hidden.shape[1]
+    encoder_hidden = hidden.reshape(num_segments, batch, seg_len, -1) \
+        .transpose(0, 1).reshape(batch, num_segments * seg_len, -1)
+    encoder_mask = stacked_mask.reshape(num_segments, batch, seg_len) \
+        .transpose(0, 1).reshape(batch, num_segments * seg_len)
+    return _decode(lm_params, cfg, encoder_hidden, encoder_mask,
+                   max_new_tokens, num_beams)
 
 
 class VCT0Model:
@@ -137,6 +260,9 @@ class VCT0Model:
         self.cfg = cfg
         self.params = params
         self.device = params["lm"]["shared"].device
+        # the JAX package's (mesh, n_micro, sequence_parallel) of a
+        # pipelined mesh; its generate twins are not ported
+        self.pipeline_ctx = None
 
     @torch.inference_mode()
     def generate(
@@ -153,33 +279,78 @@ class VCT0Model:
         force_eos_at: Optional[torch.Tensor] = None,
         prefill_chunks: int = 1,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (tokens (B, T) int32, token_logprobs (B, T) fp32).
-        Inputs may be tensors or arrays; they are moved to the params'
-        device."""
-        if num_beams > 1:
-            _not_ported("num_beams > 1", "Queue 1 item 5")
-        if force_eos_at is not None:
-            _not_ported("force_eos_at", "Queue 1 item 5")
-        if prefill_chunks > 1:
-            _not_ported("prefill_chunks > 1", "Queue 1 item 5")
-        if no_prefix:
-            _not_ported("no_prefix", "Queue 1 item 6")
-        if pass_examples_through_encoder_one_at_a_time:
-            _not_ported("one-at-a-time encoding", "Queue 1 item 6")
-        if question_tokens is None:
-            _not_ported("prefix-only captioning", "Queue 1 item 6")
-        if decoder_input_ids is not None:
-            _not_ported("a forced decoder prefix", "Queue 1 item 6")
+        """Returns (tokens (B, T) int32, token_logprobs (B, T) fp32). With
+        num_beams > 1 the log-probs are the winning hypothesis's true
+        per-token values, so ``score_sequences`` ranks greedy and beam
+        outputs alike. Inputs may be tensors or arrays; they are moved to
+        the params' device.
+
+        One-at-a-time takes (B, S, L) tokens and mask and (B, S, size)
+        prefixes. ``force_eos_at`` ((B,) int32, the bench's
+        --eos_at_steps) and ``prefill_chunks`` > 1 (the prefill in batch
+        chunks, value-equal) are for the main greedy path only."""
+        main_greedy_only = (
+            num_beams > 1 or no_prefix or decoder_input_ids is not None
+            or pass_examples_through_encoder_one_at_a_time
+            or self.pipeline_ctx is not None or question_tokens is None)
+        if force_eos_at is not None and main_greedy_only:
+            raise ValueError(
+                "force_eos_at is a bench hook for the main single-device "
+                "greedy generate path only")
+        if prefill_chunks > 1 and main_greedy_only:
+            raise ValueError(
+                "prefill_chunks > 1 is supported on the main single-device "
+                "greedy generate path only")
+        if num_beams > 1 and decoder_input_ids is not None:
+            # forced_decode_t5 continues greedily after teacher forcing
+            raise ValueError(
+                "num_beams > 1 with a forced decoder prefix "
+                "(decoder_input_modules) is not implemented — the forced "
+                "path continues greedily after teacher forcing; set "
+                "num_beams=1 or drop decoder_input_modules")
+        if num_beams > 1 and question_tokens is None:
+            raise ValueError(
+                "num_beams > 1 is not supported on the prefix-only "
+                "captioning path (greedy decode only)")
+        if self.pipeline_ctx is not None:
+            raise NotImplementedError(
+                "VCT0Model.generate: the pipelined generate paths are not "
+                "ported yet (ROADMAP.md, Queue 1 item 14)")
         dev = self.device
-        prefix = torch.as_tensor(prefix, device=dev)
-        tokens = torch.as_tensor(question_tokens, device=dev)
-        mask = torch.as_tensor(question_mask, device=dev)
+
+        def on_device(x):
+            return None if x is None else torch.as_tensor(x, device=dev)
+
+        prefix, tokens = on_device(prefix), on_device(question_tokens)
+        mask = on_device(question_mask)
+        if mask is not None:
+            mask = mask.to(torch.int32)
+        lm_params, mapper_params = self.params["lm"], self.params["mapper"]
+        cfg = self.cfg
+        if pass_examples_through_encoder_one_at_a_time:
+            return _generate_one_at_a_time(
+                lm_params, mapper_params, cfg, None if no_prefix else prefix,
+                tokens, mask, num_segments=tokens.shape[1],
+                max_new_tokens=max_new_tokens, with_prefix=not no_prefix,
+                num_beams=num_beams)
+        if no_prefix:
+            return _generate_no_prefix(lm_params, cfg, tokens, mask,
+                                       max_new_tokens, num_beams)
+        if tokens is None:
+            # prefix-only captioning (reference: vct0.py:484-491)
+            return _generate_prefix_only(lm_params, mapper_params, cfg,
+                                         prefix, max_new_tokens)
+        if decoder_input_ids is not None:
+            return _generate_forced(lm_params, mapper_params, cfg, prefix,
+                                    tokens, mask,
+                                    on_device(decoder_input_ids),
+                                    max_new_tokens)
         num_prefixes = prefix.shape[1] if num_shots is None else num_shots + 1
         return _generate_main(
-            self.params["lm"], self.params["mapper"], self.cfg, prefix,
-            tokens, mask.to(torch.int32), num_prefixes=num_prefixes,
-            max_new_tokens=max_new_tokens,
-        )
+            lm_params, mapper_params, cfg, prefix, tokens, mask,
+            num_prefixes=num_prefixes, max_new_tokens=max_new_tokens,
+            num_beams=num_beams, force_eos_at=on_device(force_eos_at),
+            prefill_chunks=prefill_chunks)
 
     def score_sequences(self, tokens: torch.Tensor,
                         token_logprobs: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """Few-shot VQA evaluation executor (the main path).
 
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/trainers/few_shot_vqa_executor.py
-(reference: src/trainers/few_shot_vqa_executor.py:46-416): greedy
-generation over spliced prompts, prediction decoding, VQA metrics, and the
-deferred SmoothQuant calibration of the int8 encoder modes. The model is
-built on the card unless the caller passes ``device``; each batch's numpy
-arrays are moved onto the model's device. The ensemble modes are not
-ported yet (ROADMAP.md, Queue 1 item 9); the other generate modes reach
-``VCT0Model.generate``, which names the items that port them.
+(reference: src/trainers/few_shot_vqa_executor.py:46-416): generation
+over spliced prompts in every eval mode (main, ``no_prefix``, the
+one-at-a-time encoder, a forced decoder prefix, beam search, and the
+one-shot and prompt-permutation ensembles, members scored by summed
+log-prob), prediction decoding, VQA metrics, and the deferred SmoothQuant
+calibration of the int8 encoder modes. The model is built on the card
+unless the caller passes ``device``; each batch's numpy arrays are moved
+onto the model's device.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike
+from ..ops.decoding import sequence_scores
 from ..registry import EXECUTORS
 from ..utils.attr_dict import AttrDict
 from .base_executor import BaseExecutor, tree_to_device
@@ -32,13 +34,73 @@ TABLE_COLUMNS = [
 ]
 
 
-def ensemble_generate(*args: Any, **kwargs: Any) -> np.ndarray:
-    """One-shot and permutation ensembling (the JAX package's
-    ``ensemble_generate``): not ported yet."""
-    raise NotImplementedError(
-        "ensemble generation (ensemble_one_shots, "
-        "num_permutations_of_in_context_examples) is not ported yet "
-        "(ROADMAP.md, Queue 1 item 9)")
+def ensemble_generate(
+    model: Any,
+    input_ids: torch.Tensor,        # (B, E, L)
+    attention_mask: torch.Tensor,   # (B, E, L)
+    clip_embeddings: torch.Tensor,
+    num_ensembles: int,
+    num_shots: Optional[int],
+    no_prefix: bool,
+    max_new_tokens: int,
+    mode: str,
+    num_beams: int = 1,
+    members_per_call: int = 1,
+) -> np.ndarray:
+    """Generate each ensemble member, score each sequence by its summed
+    token log-probs (skipping ids {0, 1, 2}) and keep, per question, the
+    first member of the highest score (reference:
+    few_shot_vqa_executor.py:293-332). Returns (B, T) tokens.
+
+    ``mode`` "one_shot": member i pairs shot i's embedding with the test
+    image's, ``clip_embeddings`` (B, shots + 1, size); "permutation":
+    member i takes permutation i's whole set, (B, E, P, size). Beam
+    outputs carry the winner's true per-token log-probs, so the ranking is
+    the same for greedy and beam.
+
+    ``members_per_call`` m (tpu.ensemble_members_per_call; 1 is the
+    reference's per-member loop) folds m members into the batch of one
+    generate call, question b's member j as row b * m + j: the decode's
+    per-step costs are shared by m * B rows and the host waits once a
+    call. Rows are independent, so the picks equal the loop's; each call's
+    caches grow m-fold."""
+    batch = input_ids.shape[0]
+    members_per_call = max(1, min(members_per_call, num_ensembles))
+    all_tokens, all_scores = [], []
+    for start in range(0, num_ensembles, members_per_call):
+        stop = min(start + members_per_call, num_ensembles)
+        m = stop - start
+        if mode == "one_shot":
+            # (B, m, 2, size): one in-context embedding and the test image
+            # (reference :298-299)
+            shots = clip_embeddings[:, start:stop]
+            test_img = clip_embeddings[:, -1:][:, None].expand(
+                (batch, m, 1) + tuple(clip_embeddings.shape[2:]))
+            member_clip = torch.cat([shots[:, :, None], test_img], dim=2)
+        else:
+            # permutation i's full embedding set (reference :301-302)
+            member_clip = clip_embeddings[:, start:stop]
+        member_clip = member_clip.reshape(
+            (batch * m,) + tuple(member_clip.shape[2:]))
+        tokens, logprobs = model.generate(
+            prefix=member_clip,
+            question_tokens=input_ids[:, start:stop].reshape(
+                batch * m, input_ids.shape[-1]),
+            question_mask=attention_mask[:, start:stop].reshape(
+                batch * m, attention_mask.shape[-1]),
+            no_prefix=no_prefix,
+            num_shots=num_shots,
+            max_new_tokens=max_new_tokens,
+            num_beams=num_beams,
+        )
+        scores = sequence_scores(tokens, logprobs)
+        tokens_np = tokens.cpu().numpy().reshape(batch, m, -1)
+        scores_np = scores.cpu().numpy().reshape(batch, m)
+        for j in range(m):
+            all_tokens.append(tokens_np[:, j])
+            all_scores.append(scores_np[:, j])
+    best = np.argmax(np.stack(all_scores, axis=1), axis=1)     # (B,)
+    return np.stack(all_tokens, axis=1)[np.arange(batch), best]
 
 
 @EXECUTORS.register()
@@ -146,14 +208,16 @@ class FewShotVQAExecutor(BaseExecutor):
         ensemble_one_shots = bool(additional.get("ensemble_one_shots", 0))
         no_prefix = bool(additional.get("no_prefix", 0))
         num_beams = int(additional.get("num_beams", 1))
-        if ensemble_one_shots or num_perms > 0:
-            ensemble_generate()
 
-        # rows-per-question in the FLAT token arrays
-        group = num_shots + 1 if one_at_a_time else 1
         input_ids = self._to_model(batch.generative_input_ids)
         attention_mask = self._to_model(batch.generative_attention_mask)
         clip_embeddings = self._to_model(batch.clip_embeddings)
+
+        def members(count: int) -> tuple:
+            """The flat (B * count, L) prompts as (B, count, L)."""
+            return (input_ids.reshape(-1, count, input_ids.shape[-1]),
+                    attention_mask.reshape(-1, count,
+                                           attention_mask.shape[-1]))
 
         decoder_input_ids = None
         if "decoder_generative_input_ids" in batch:
@@ -162,22 +226,38 @@ class FewShotVQAExecutor(BaseExecutor):
                 batch.decoder_generative_input_ids)[:, :-1]
 
         if one_at_a_time:
-            # flat (B*(k+1), L) -> (B, k+1, L)
             # (reference: few_shot_vqa_executor.py:186-188)
-            input_ids = input_ids.reshape(-1, group, input_ids.shape[-1])
-            attention_mask = attention_mask.reshape(
-                -1, group, attention_mask.shape[-1]
+            input_ids, attention_mask = members(num_shots + 1)
+            tokens, _ = self.model.generate(
+                prefix=clip_embeddings,
+                question_tokens=input_ids,
+                question_mask=attention_mask,
+                no_prefix=no_prefix,
+                pass_examples_through_encoder_one_at_a_time=True,
+                max_new_tokens=max_new,
+                num_beams=num_beams,
             )
-        tokens, _ = self.model.generate(
-            prefix=clip_embeddings,
-            question_tokens=input_ids,
-            question_mask=attention_mask,
-            decoder_input_ids=decoder_input_ids,
-            no_prefix=no_prefix,
-            pass_examples_through_encoder_one_at_a_time=one_at_a_time,
-            max_new_tokens=max_new,
-            num_beams=num_beams,
-        )
+        elif ensemble_one_shots or num_perms > 0:
+            count = num_shots if ensemble_one_shots else num_perms
+            input_ids, attention_mask = members(count)
+            tokens = torch.from_numpy(self.generate_from_ensembles(
+                input_ids, attention_mask, clip_embeddings,
+                num_ensembles=count,
+                num_shots=1 if ensemble_one_shots else None,
+                no_prefix=no_prefix, max_new_tokens=max_new,
+                mode="one_shot" if ensemble_one_shots else "permutation",
+                num_beams=num_beams,
+            ))
+        else:
+            tokens, _ = self.model.generate(
+                prefix=clip_embeddings,
+                question_tokens=input_ids,
+                question_mask=attention_mask,
+                decoder_input_ids=decoder_input_ids,
+                no_prefix=no_prefix,
+                max_new_tokens=max_new,
+                num_beams=num_beams,
+            )
         return {
             "tokens": tokens,
             "input_ids": input_ids,
@@ -225,8 +305,30 @@ class FewShotVQAExecutor(BaseExecutor):
             "table_entries": table_entries,
         }
 
-    def generate_from_ensembles(self, *args: Any, **kwargs: Any) -> Any:
-        return ensemble_generate(*args, **kwargs)
+    def generate_from_ensembles(
+        self,
+        input_ids: torch.Tensor,        # (B, E, L)
+        attention_mask: torch.Tensor,   # (B, E, L)
+        clip_embeddings: torch.Tensor,
+        num_ensembles: int,
+        num_shots: Optional[int],
+        no_prefix: bool,
+        max_new_tokens: int,
+        mode: str,
+        num_beams: int = 1,
+    ) -> np.ndarray:
+        """:func:`ensemble_generate` with tpu.ensemble_members_per_call
+        from the config (default 1, the reference's per-member loop)."""
+        members_per_call = int(
+            self.config.get("tpu", {}).get("ensemble_members_per_call", 1)
+            or 1
+        )
+        return ensemble_generate(
+            self.model, input_ids, attention_mask, clip_embeddings,
+            num_ensembles=num_ensembles, num_shots=num_shots,
+            no_prefix=no_prefix, max_new_tokens=max_new_tokens, mode=mode,
+            num_beams=num_beams, members_per_call=members_per_call,
+        )
 
     # ------------------------------------------------------------------
     def evaluate_outputs(self, step_outputs: List[Dict],

@@ -4,9 +4,11 @@ against the JAX package's executor, on the CPU at the tiny T5_test size of
 tests/test_e2e.py: the JAX model's LM carried across by convert.py and its
 mapper through the port's save_checkpoint, then equal generated tokens,
 answers.pkl and metrics, for SimpleTokenizer and the committed subword
-fixture and in the int8 calibrated eval; the eval loop against per-batch
-steps; a missing checkpoint; and each generate mode, dataset module and
-metric that is not ported yet raising with its ROADMAP item."""
+fixture and in the int8 calibrated eval; each other generate mode
+(no_prefix, one-at-a-time, beams, a decoder prefix, the one-shot and
+permutation ensembles) equal to JAX's the same way; the eval loop against
+per-batch steps; a missing checkpoint; and each dataset module and metric
+that is not ported yet raising with its ROADMAP item."""
 
 import copy
 import os
@@ -38,8 +40,8 @@ from test_e2e import (  # noqa: E402
 from test_torch_eval_data import port_config  # noqa: E402
 
 
-def configs(tmp_path, tokenizer="simple", **additional):
-    fixtures = write_vqa_fixtures(tmp_path, n_val_imgs=5)
+def configs(tmp_path, tokenizer="simple", n_val=5, **additional):
+    fixtures = write_vqa_fixtures(tmp_path, n_val_imgs=n_val)
     jconfig = make_test_config(tmp_path, fixtures, **additional)
     if tokenizer == "fixture":
         jconfig = use_fixture_tokenizer(jconfig)
@@ -107,9 +109,11 @@ def run_both(jconfig, tconfig):
     return (jexecutor, jcalls, jmetrics), (texecutor, tcalls, tmetrics)
 
 
-def assert_same_eval(jrun, trun, jconfig, tconfig, n_questions):
+def assert_same_eval(jrun, trun, jconfig, tconfig, n_questions,
+                     calls_per_batch=1):
     (_, jcalls, jmetrics), (_, tcalls, tmetrics) = jrun, trun
-    assert len(tcalls) == len(jcalls) == -(-n_questions // 2)
+    assert len(tcalls) == len(jcalls) == -(-n_questions // 2) * \
+        calls_per_batch
     for got, want in zip(tcalls, jcalls):
         # JAX pads a batch to its data axis; the extra rows repeat the last
         np.testing.assert_array_equal(got, want[:len(got)])
@@ -198,24 +202,33 @@ DECODER_PREFIX = TAttrDict(
 )
 
 
-@pytest.mark.parametrize("mode,additional,item", [
-    ("ensemble_one_shots", {"ensemble_one_shots": 1}, "item 9"),
-    ("permutations", {"num_permutations_of_in_context_examples": 2},
-     "item 9"),
+def mode_configs(tmp_path, mode, additional, n_val=3):
+    """The test configs of one generate mode: its data_loader.additional
+    flags, the no_prefix template, the decoder prefix's modules."""
+    jconfig, tconfig = configs(tmp_path, n_val=n_val, **additional)
+    for config in (jconfig, tconfig):
+        if additional.get("no_prefix"):
+            config.model_config.input_modules.module_list[0].option = (
+                "hotpotqa_no_prefix")
+        if mode.startswith("decoder_prefix"):
+            config.model_config.decoder_input_modules = copy.deepcopy(
+                DECODER_PREFIX)
+    return jconfig, tconfig
+
+
+@pytest.mark.parametrize("mode,additional,calls_per_batch", [
+    ("ensemble_one_shots", {"ensemble_one_shots": 1}, 2),
+    ("permutations", {"num_permutations_of_in_context_examples": 2}, 2),
     ("one_at_a_time", {"pass_examples_through_encoder_one_at_a_time": 1},
-     "item 6"),
-    ("no_prefix", {"no_prefix": 1}, "item 6"),
-    ("beams", {"num_beams": 2}, "item 5"),
-    ("decoder_prefix", {}, "item 6"),
+     1),
+    ("no_prefix", {"no_prefix": 1}, 1),
+    ("beams", {"num_beams": 2}, 1),
+    ("decoder_prefix", {}, 1),
 ])
-def test_unported_generate_modes_raise(tmp_path, mode, additional, item):
-    _, tconfig = configs(tmp_path, **additional)
-    if mode == "no_prefix":
-        tconfig.model_config.input_modules.module_list[0].option = (
-            "hotpotqa_no_prefix")
-    if mode == "decoder_prefix":
-        tconfig.model_config.decoder_input_modules = copy.deepcopy(
-            DECODER_PREFIX)
-    texecutor = port_executor(tconfig)
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        texecutor.test()
+def test_generate_mode_eval_equals_jax(tmp_path, mode, additional,
+                                       calls_per_batch):
+    """The mode's generate calls (each ensemble member's too), answers.pkl
+    and metrics equal the JAX executor's (tests/test_e2e.py:311-437)."""
+    jconfig, tconfig = mode_configs(tmp_path, mode, additional)
+    jrun, trun = run_both(jconfig, tconfig)
+    assert_same_eval(jrun, trun, jconfig, tconfig, 3, calls_per_batch)

@@ -3,7 +3,7 @@ process on the CPU: the shipped VQA2 config built at ``T5_test`` size over
 the compute dtype and fused-kernel grid (every ``T5Config`` field, and
 JAX's greedy tokens on JAX's params carried across by ``convert.py``), the
 ClipCap config, ``t5_params_from_hf`` on a local HF witness, the bench's
-body and its unported flags; on the card (``gpu``, skipped here), the fp32
+body and each of its flags; on the card (``gpu``, skipped here), the fp32
 forms of ``t5_attention_core``, ``cross_attention_decode`` and
 ``fused_t5_ffn`` against their plain versions."""
 
@@ -256,16 +256,43 @@ def test_bench_body_runs_and_prints_jax_keys(flags, capsys):
     assert "prompts/s" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--eos_step1"], "item 5"),
-    (["--eos_at_steps", "2,3"], "item 5"),
-    (["--prefill_chunks", "2"], "item 5"),
-    (["--ensembles", "2"], "item 9"),
-    (["--members_per_call", "2"], "item 9"),
+@pytest.mark.parametrize("flags,want", [
+    (["--eos_step1"], {"eos_step1": True}),
+    (["--eos_at_steps", "2,3"], {"eos_at_steps": "2,3"}),
+    (["--prefill_chunks", "2"], {"prefill_chunks": 2}),
+    (["--ensembles", "2"], {"ensembles": 2, "members_per_call": 1,
+                            "prefill_chunks": None}),
+    (["--members_per_call", "2"], {"ensembles": None,
+                                   "members_per_call": None}),
+    (["--ensembles", "3", "--members_per_call", "3"],
+     {"ensembles": 3, "members_per_call": 3}),
 ])
-def test_unported_bench_flags_raise(flags, item):
-    args = tbench.build_parser().parse_args(flags)
-    with pytest.raises(NotImplementedError, match=item):
+def test_bench_flags_run_with_jax_keys(flags, want, capsys):
+    """Each flag of the JAX bench runs the bench's body (at a small width)
+    and prints the JAX bench's keys; the ensemble path records no
+    prefill_chunks, which it does not take."""
+    args = tbench.build_parser().parse_args(
+        ["--batch", "2", "--seq", "30", "--shots", "1", "--decode_steps",
+         "3", "--trials", "1", *flags])
+    result = tbench.bench(args, tt5.T5Config.small_test(), "cpu")
+    keys, config_keys = jax_bench_keys()
+    assert list(result) == keys + ["device"]
+    assert list(result["config"]) == config_keys
+    assert result["value"] > 0
+    for key, value in want.items():
+        assert result["config"][key] == value
+    forced = result["config"]["mean_forced_answer_len"]
+    assert (forced is not None) == ("--eos_at_steps" in flags)
+    if forced is not None:
+        assert 2 <= forced <= 3
+    assert "prompts/s" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--prefill_chunks", "2"],
+                                   ["--eos_at_steps", "2,3"]])
+def test_bench_refuses_main_path_knobs_beside_ensembles(flags):
+    args = tbench.build_parser().parse_args(["--ensembles", "2", *flags])
+    with pytest.raises(ValueError, match="main generate path only"):
         tbench.bench(args, tt5.T5Config.small_test(), "cpu")
 
 

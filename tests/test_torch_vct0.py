@@ -1,5 +1,9 @@
-"""The port's VC-T0 main generate path, mapper and prefix splice against
-the JAX package's, on the same weights, on the CPU (small_test LM, fp32)."""
+"""The port's VC-T0 generate modes, mapper and prefix splice against the
+JAX package's, on the same weights, on the CPU (small_test LM, fp32):
+the main path, and each other mode (beam search, no_prefix, one-at-a-time,
+a forced decoder prefix, prefix-only, chunked prefill, force_eos_at) with
+equal tokens and log-probs within 1e-4; the mode combinations JAX refuses
+refused alike; the pipelined paths raising with their ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -51,7 +55,7 @@ def few_shot_batch(seed, num_shots=2, batch=3, length=14):
     num_prefixes = num_shots + 1
     tokens = rng.integers(3, 30000, (batch, length)).astype(np.int32)
     mask = np.ones((batch, length), np.int32)
-    pads = [0, 3, 1][:batch]
+    pads = [0, 3, 1, 2][:batch]
     for b in range(batch):
         valid = length - pads[b]
         tokens[b, valid:] = 0
@@ -120,18 +124,122 @@ def test_init_matches_jax_tree_shapes():
     assert tp["lm"]["shared"].shape == jp["lm"]["shared"].shape
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(num_beams=2), dict(no_prefix=True), dict(prefill_chunks=2),
-    dict(pass_examples_through_encoder_one_at_a_time=True),
-    dict(decoder_input_ids=np.zeros((3, 2), np.int32)),
-    dict(force_eos_at=np.ones((3,), np.int32)),
-])
-def test_unported_modes_raise(params, kwargs):
+def one_at_a_time_batch(seed, segments=3, batch=3, length=9):
+    """(B, S, L) prompts, segment i with its sentinel <extra_id_i>, some
+    rows right-padded, and (B, S, 16) prefixes."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(3, 30000, (batch, segments, length)).astype(
+        np.int32)
+    mask = np.ones((batch, segments, length), np.int32)
+    for b in range(batch):
+        for i in range(segments):
+            valid = length - (b + i) % 3
+            tokens[b, i, valid:] = 0
+            mask[b, i, valid:] = 0
+            tokens[b, i, rng.integers(valid - 1)] = S - i
+    prefix = rng.standard_normal((batch, segments, 16)).astype(np.float32)
+    return prefix, tokens, mask
+
+
+def mode_inputs(mode, seed=0):
+    """generate's keyword arguments for one mode (numpy arrays)."""
+    if mode.startswith("one_at_a_time"):
+        prefix, tokens, mask = one_at_a_time_batch(seed)
+        kwargs = dict(pass_examples_through_encoder_one_at_a_time=True)
+    else:
+        prefix, tokens, mask = few_shot_batch(
+            seed, batch=4 if mode == "prefill_chunks" else 3)
+        kwargs = dict(num_shots=2)
+    kwargs.update(prefix=prefix, question_tokens=tokens, question_mask=mask,
+                  **MODES[mode])
+    if mode == "prefix_only":
+        kwargs.update(question_tokens=None, question_mask=None)
+    return kwargs
+
+
+MODES = {
+    "beams": dict(num_beams=2),
+    "beams_3": dict(num_beams=3),
+    "no_prefix": dict(no_prefix=True),
+    "no_prefix_beams": dict(no_prefix=True, num_beams=2),
+    "prefill_chunks": dict(prefill_chunks=2),
+    "one_at_a_time": {},
+    "one_at_a_time_beams": dict(num_beams=2),
+    "one_at_a_time_no_prefix": dict(no_prefix=True),
+    "one_at_a_time_no_prefix_beams": dict(no_prefix=True, num_beams=3),
+    "decoder_prefix": dict(decoder_input_ids=np.array(
+        [[0, 5], [0, 6], [0, 7]], np.int32)),
+    "force_eos_at": dict(force_eos_at=np.array([1, 3, 2], np.int32)),
+    "prefix_only": {},
+}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_generate_modes_match_jax(params, mode):
+    jp, tp = params
+    jcfg, tcfg = configs(True)
+    kwargs = mode_inputs(mode)
+    jkwargs = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+               for k, v in kwargs.items()}
+    jtok, jlp = jvct0.VCT0Model(jcfg, jp).generate(max_new_tokens=6,
+                                                   **jkwargs)
+    ttok, tlp = tvct0.VCT0Model(tcfg, tp).generate(max_new_tokens=6,
+                                                   **kwargs)
+    assert ttok.dtype == torch.int32 and tlp.dtype == torch.float32
+    assert tuple(ttok.shape) == (len(kwargs["prefix"]), 6)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    np.testing.assert_allclose(tlp.numpy(), np.asarray(jlp), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_prefill_chunks_and_force_eos_at_keep_the_main_tokens(params):
+    """Chunked prefill gives the unchunked tokens; force_eos_at cuts each
+    row at its step and keeps the tokens before it."""
     _, tp = params
     _, tcfg = configs(True)
+    model = tvct0.VCT0Model(tcfg, tp)
+    kwargs = mode_inputs("prefill_chunks")
+    del kwargs["prefill_chunks"]
+    want = model.generate(max_new_tokens=6, **kwargs)
+    got = model.generate(max_new_tokens=6, prefill_chunks=2, **kwargs)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    steps = np.array([1, 3, 2, 6], np.int32)
+    cut = model.generate(max_new_tokens=6, force_eos_at=steps, **kwargs)[0]
+    for row, step in enumerate(steps):
+        assert torch.equal(cut[row, :step], want[0][row, :step])
+        assert not cut[row, step:].any()
+
+
+@pytest.mark.parametrize("mode,extra", [
+    ("beams", dict(force_eos_at=np.ones((3,), np.int32))),
+    ("no_prefix", dict(prefill_chunks=3)),
+    ("decoder_prefix", dict(num_beams=2)),
+    ("prefix_only", dict(num_beams=2)),
+    ("one_at_a_time", dict(force_eos_at=np.ones((3,), np.int32))),
+])
+def test_mode_combinations_refused_as_jax(params, mode, extra):
+    jp, tp = params
+    jcfg, tcfg = configs(True)
+    kwargs = {**mode_inputs(mode), **extra}
+    jkwargs = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+               for k, v in kwargs.items()}
+    with pytest.raises(ValueError) as want:
+        jvct0.VCT0Model(jcfg, jp).generate(**jkwargs)
+    with pytest.raises(ValueError) as got:
+        tvct0.VCT0Model(tcfg, tp).generate(**kwargs)
+    assert str(got.value) == str(want.value)
+
+
+def test_pipelined_generate_raises(params):
+    """The JAX package's pipelined twins (a 3-D mesh's pipeline_ctx) wait
+    for the multi-process port."""
+    _, tp = params
+    _, tcfg = configs(True)
+    model = tvct0.VCT0Model(tcfg, tp)
+    model.pipeline_ctx = ("mesh", 2, False)
     prefix, tokens, mask = few_shot_batch(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvct0.VCT0Model(tcfg, tp).generate(prefix, tokens, mask, **kwargs)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        model.generate(prefix, tokens, mask, num_shots=2)
 
 
 @pytest.mark.parametrize("mapping_type", ["transformer", "perceiver"])
