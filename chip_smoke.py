@@ -253,6 +253,48 @@ register / shared-memory / spill report):
              scored again, t5_attention_core 24 launches a generate call,
              questions/s, generate seconds and peak memory (no_prefix and
              beams also against direct generate on the collated batch)
+  train_step the mapper's captioning train step at T0-3B width and depth
+             (random weights from SEED, the mlp mapper, B=32, 32-token
+             captions, 10 prefix positions as the encoder's whole input) on
+             one fixed batch: the kernels' route (t5_attention_core and
+             fused_t5_ffn forward, 24 launches each a step; their XLA twins
+             backward, no launch) against the unfused route: losses within
+             TRAIN_LOSS_REL, the mapper gradients' cosine at least
+             TRAIN_GRAD_COSINE and norms within TRAIN_GRAD_NORM_REL; under
+             remat 48 launches each and the same loss; the raw wrappers
+             refusing a grad-requiring input; TRAIN_STEPS AdamW steps of
+             each route in turns with the forward / backward / optimizer
+             split, examples/s and peak memory; the loss falling over
+             DESCENT_STEPS steps; the device's busy share and largest
+             kernels traced in a process of its own (--trace-train-step)
+  config_train
+             mapper training as a user runs it: the port's CLI (main.run
+             --mode train) on the shipped conceptual_captions.jsonnet at
+             full width (SimpleTokenizer, tpu.fused_attention and
+             tpu.fused_ffn), one epoch over 128 synthetic caption rows (4
+             steps of 32) with 64 val rows, the shipped
+             gradient_accumulation_steps 4: the mapper unchanged by the
+             first 3 steps and changed by the 4th, model_00 and the index
+             written, both validations' caption tables, the kernels' exact
+             launches, each step's seconds, the logged examples/s; the rows
+             through the shipped parquet loader where pyarrow imports, else
+             through a subclass of it that holds them in memory (the line
+             says which)
+  clipcap_train_step
+             ClipCap's train step at GPT-2 small width (B=32, 32 tokens +
+             10 prefix positions): fused_block (12 fused_gpt2_block
+             launches in the forward, none in the backward) against the
+             unfused block (losses, mapper gradient cosine and norms), then
+             timed steps of each in turns
+  bench_train
+             tools/bench_train.py's body at its defaults for --model vct0
+             and clipcap, with and without --fused_attention: the JSON
+             lines, the path's kernel launched once a layer a step
+
+The phases from vit_kernels to clip_encode_pallas (the CLIP and GPT-2
+ones) run in a process of their own (--clip-phases), from the shared
+generator's state: late in a process that has traced the T5 phases,
+kernel_split's traces lose records.
 
 Then a line listing every kernel of the path with its launches (those of
 t5_attention_core from config_eval, of the int8 trio from config_eval_int8)
@@ -265,6 +307,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib.util
 import json
 import os
 import pickle
@@ -285,6 +328,10 @@ os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 
 from explicit_alignment_for_vqa_tasks_tpu_torch import kernels  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch import main as eval_main  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.data import (  # noqa: E402
+    DataLoaderConceptualCaptions,
+    ListDataset,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clip as clip_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clipcap as clipcap_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import gpt2 as gpt2_lib  # noqa: E402
@@ -306,6 +353,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.models.vct0 import (  # noqa: E4
     VCT0Model,
     init_vct0_params,
     project_prefix,
+    vct0_caption_loss,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.decode_attention import (  # noqa: E402
     cross_attention_decode,
@@ -359,7 +407,11 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe import (  # n
     kernel_split,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.main import parse_args_sys  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.registry import (  # noqa: E402
+    DATA_LOADERS,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_generate  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_train  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import model_factory  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.base_executor import (  # noqa: E402
     BaseExecutor,
@@ -374,6 +426,16 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.few_shot_vqa_executor i
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.model_factory import (  # noqa: E402
     build_model_from_config,
+)
+from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.optimization import (  # noqa: E402
+    MultiStepAdamW,
+    tree_leaves,
+)
+from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.vct0_executor import (  # noqa: E402
+    VCT0Executor,
+)
+from explicit_alignment_for_vqa_tasks_tpu_torch.utils.attr_dict import (  # noqa: E402
+    AttrDict,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.utils.config_system import (  # noqa: E402
     process_config,
@@ -3752,6 +3814,665 @@ def phase_clip_encode_pallas(gen: torch.Generator) -> dict:
                         images, cfg.num_layers, floor=PALLAS_COSINE_FLOOR)
 
 
+# ---------------------------------------------------------------------------
+# Mapper training: VC-T0 on Conceptual Captions, and ClipCap's step
+# ---------------------------------------------------------------------------
+
+CC_CONFIG_FILE = (REPO / "configs" / "conceptual_captions"
+                  / "conceptual_captions.jsonnet")
+TRAIN_BATCH = 32                   # conceptual_captions.jsonnet's batch_size
+CAPTION_LEN = 32                   # its max_target_length
+TRAIN_STEPS = 3                    # timed steps of each route, in turns
+DESCENT_STEPS = 5                  # AdamW steps on one batch: the loss falls
+TRAIN_LR = 1e-4                    # the shipped train.lr
+# the kernels' route (their forwards, the twins' backwards) against the
+# unfused route: the loss relative, the mapper gradient's cosine and norm
+TRAIN_LOSS_REL = 2e-2
+TRAIN_GRAD_COSINE = 0.999
+TRAIN_GRAD_NORM_REL = 2e-2
+CC_TRAIN_ROWS, CC_VAL_ROWS = 128, 64   # 4 train steps, 2 val batches
+CC_WORDS = ("a", "the", "dog", "cat", "man", "woman", "car", "tree", "red",
+            "small", "sits", "runs", "on", "in", "grass", "street", "beach",
+            "house", "with", "ball", "photo", "of", "at", "night")
+
+
+def caption_batch(gen: torch.Generator, batch: int, vocab: int):
+    """(CLIP embeddings (B, PREFIX_SIZE), labels (B, CAPTION_LEN)): caption
+    ids in [2, vocab), each row's tail past a random length of at least
+    half the row on -100, as the loader pads."""
+    dev = gen.device
+    clip = torch.randn((batch, PREFIX_SIZE), generator=gen, device=dev)
+    labels = torch.randint(2, vocab, (batch, CAPTION_LEN), generator=gen,
+                           device=dev)
+    lengths = torch.randint(CAPTION_LEN // 2, CAPTION_LEN + 1, (batch,),
+                            generator=gen, device=dev)
+    pad = torch.arange(CAPTION_LEN, device=dev)[None] >= lengths[:, None]
+    return clip, labels.masked_fill(pad, -100)
+
+
+def trainable_copy(mapper: dict) -> dict:
+    return {name: {key: value.detach().clone().requires_grad_()
+                   for key, value in layer.items()}
+            for name, layer in mapper.items()}
+
+
+def flat_grad(mapper: dict) -> torch.Tensor:
+    return torch.cat([t.grad.float().flatten() for t in tree_leaves(mapper)])
+
+
+def kernel_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in PATH_KERNELS}
+
+
+def launched_only(counts: dict) -> dict:
+    """The kernels of ``counts`` that launched (for the output lines)."""
+    return {name: n for name, n in counts.items() if n}
+
+
+def zero_counts() -> None:
+    for fn in PATH_KERNELS:
+        fn.launches = 0
+
+
+def grad_step(loss_fn, mapper: dict, expected: dict, what: str) -> tuple:
+    """loss_fn(mapper) and its backward with every count set to 0 just
+    before: the forward launches ``expected``, the backward none. Returns
+    (loss, the mapper's flat gradient)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    loss = loss_fn(mapper)
+    torch.cuda.synchronize()
+    forward = kernel_counts()
+    check(forward == expected,
+          f"{what}: the forward launched {forward}, expected {expected}")
+    loss.backward()
+    torch.cuda.synchronize()
+    check(kernel_counts() == forward,
+          f"{what}: the backward launched {kernel_counts()} - {forward}")
+    check(bool(torch.isfinite(loss)), f"{what}: loss {loss.item()}")
+    return loss.item(), flat_grad(mapper)
+
+
+def compare_grads(what: str, losses: dict, grads: dict, rel_limit: float,
+                  a: str = "fused", b: str = "unfused") -> dict:
+    rel = abs(losses[a] - losses[b]) / abs(losses[b])
+    cos = float(torch.nn.functional.cosine_similarity(grads[a], grads[b],
+                                                      dim=0))
+    norm_ratio = float(grads[a].norm() / grads[b].norm())
+    check(rel <= rel_limit, f"{what}: loss {losses[a]} against {losses[b]}, "
+          f"rel {rel} > {rel_limit}")
+    check(cos >= TRAIN_GRAD_COSINE, f"{what}: mapper gradient cosine {cos} "
+          f"< {TRAIN_GRAD_COSINE}")
+    check(abs(norm_ratio - 1) <= TRAIN_GRAD_NORM_REL,
+          f"{what}: mapper gradient norm ratio {norm_ratio}")
+    return dict(losses=losses, loss_rel_diff=rel, grad_cosine=cos,
+                grad_norm_ratio=norm_ratio)
+
+
+def timed_train_steps(routes: dict, steps: int) -> dict:
+    """``steps`` steps of each route in turns (a, b, b, a, ...): each route
+    ``name -> (loss_fn, mapper, optimizer, expected launches)``. A step is
+    split at synchronizes into forward, backward and optimizer; its
+    launches are checked; the first step of each is the warm one."""
+    names = list(routes)
+    out = {name: dict(step_s=[], forward_s=[], backward_s=[],
+                      optimizer_s=[], losses=[], peak_bytes=0)
+           for name in names}
+    for step in range(steps):
+        for name in (names if step % 2 == 0 else names[::-1]):
+            loss_fn, mapper, optimizer, expected = routes[name]
+            rec = out[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            loss = loss_fn(mapper)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            optimizer.step()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            check(kernel_counts() == expected,
+                  f"train step {name}: launched {kernel_counts()}, "
+                  f"expected {expected}")
+            rec["forward_s"].append(t1 - t0)
+            rec["backward_s"].append(t2 - t1)
+            rec["optimizer_s"].append(t3 - t2)
+            rec["step_s"].append(t3 - t0)
+            rec["losses"].append(loss.item())
+            rec["peak_bytes"] = max(rec["peak_bytes"],
+                                    torch.cuda.max_memory_allocated())
+    for name, rec in out.items():
+        warm = rec["step_s"][1:] or rec["step_s"]
+        rec["mean_step_s"] = sum(warm) / len(warm)
+        rec["examples_per_s"] = TRAIN_BATCH / rec["mean_step_s"]
+        rec["peak_mem_gb"] = rec.pop("peak_bytes") / 1e9
+    return out
+
+
+def vct0_train_setup(dev: torch.device) -> tuple:
+    """T0-3B with the mlp mapper (768 -> 10 x 2048), random weights from
+    SEED; its configs for the kernels' route (the encoder's attention and
+    FFN kernels), the unfused route and the kernels' route under remat."""
+    lm_cfg = t5_lib.T5Config.t0_3b()
+    mapper = MapperConfig(mapping_type="mlp", prefix_size=PREFIX_SIZE,
+                          d_model=lm_cfg.d_model, prefix_length=PREFIX_LENGTH,
+                          clip_length=PREFIX_LENGTH)
+    fused = dataclasses.replace(lm_cfg, fused_encoder_attention=True,
+                                fused_encoder_ffn=True)
+    cfgs = {"fused": VCT0Config(lm=fused, mapper=mapper),
+            "unfused": VCT0Config(lm=lm_cfg, mapper=mapper),
+            "fused_remat": VCT0Config(
+                lm=dataclasses.replace(fused, remat=True), mapper=mapper)}
+    params = init_vct0_params(cfgs["fused"], seed=SEED, device=dev)
+    return cfgs, params
+
+
+def adamw(mapper: dict) -> MultiStepAdamW:
+    return MultiStepAdamW(tree_leaves(mapper), lambda step: TRAIN_LR,
+                          eps=1e-8)
+
+
+def phase_train_step(dev: torch.device, smi: str) -> dict:
+    """The captioning train step at T0-3B width and depth, B = TRAIN_BATCH,
+    CAPTION_LEN-token captions, PREFIX_LENGTH prefix positions, on one
+    fixed batch: the kernels' route against the unfused one (losses,
+    mapper gradients), launches per step (24 each of t5_attention_core and
+    fused_t5_ffn in the forward, none in the backward; 48 under remat, the
+    same loss and gradient), the raw wrappers refusing a grad-requiring
+    input; TRAIN_STEPS timed steps of each route in turns with the
+    forward / backward / optimizer split and peak memory; the loss falling
+    over DESCENT_STEPS AdamW steps; the device's busy share and largest
+    kernels traced in a process of its own."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    cfgs, params = vct0_train_setup(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lm = params["lm"]
+    layers = cfgs["fused"].lm.num_encoder_layers
+    clip, labels = caption_batch(gen, TRAIN_BATCH,
+                                 min(30000, cfgs["fused"].lm.vocab_size))
+
+    def loss_of(cfg):
+        return lambda mapper: vct0_caption_loss(mapper, lm, cfg, clip, labels)
+
+    expected = {
+        "fused": launches(t5_attention_core=layers, fused_t5_ffn=layers),
+        "unfused": launches(),
+        "fused_remat": launches(t5_attention_core=layers,
+                                fused_t5_ffn=layers)}
+    losses, grads = {}, {}
+    for name in ("fused", "unfused"):
+        mapper = trainable_copy(params["mapper"])
+        losses[name], grads[name] = grad_step(loss_of(cfgs[name]), mapper,
+                                              expected[name],
+                                              f"train_step {name}")
+        del mapper
+    routes = compare_grads("train_step", losses, grads, TRAIN_LOSS_REL)
+
+    # remat: the layers' forwards again in the backward, kernels included
+    mapper = trainable_copy(params["mapper"])
+    torch.cuda.synchronize()
+    zero_counts()
+    loss = loss_of(cfgs["fused_remat"])(mapper)
+    loss.backward()
+    torch.cuda.synchronize()
+    remat_counts = kernel_counts()
+    want = launches(t5_attention_core=2 * layers, fused_t5_ffn=2 * layers)
+    check(remat_counts == want,
+          f"train_step remat: launched {remat_counts}, expected {want}")
+    remat_cos = float(torch.nn.functional.cosine_similarity(
+        flat_grad(mapper), grads["fused"], dim=0))
+    check(loss.item() == losses["fused"] and remat_cos >= TRAIN_GRAD_COSINE,
+          f"train_step remat: loss {loss.item()} against {losses['fused']}, "
+          f"gradient cosine {remat_cos}")
+    del mapper, loss, grads
+
+    # the raw wrappers: a grad-requiring input on the card raises
+    width = cfgs["fused"].lm.num_heads * cfgs["fused"].lm.d_kv
+    q = torch.randn((2, 10, width), device=dev).bfloat16().requires_grad_()
+    bias = torch.zeros((cfgs["fused"].lm.num_heads, 10, 10), device=dev)
+    key_mask = torch.ones((2, 10), dtype=torch.int32, device=dev)
+    x = torch.randn((2, 10, cfgs["fused"].lm.d_model),
+                    device=dev).bfloat16().requires_grad_()
+    ffn = {k: v[0] for k, v in lm["encoder"]["ffn"].items()}
+    refused = []
+    for name, call in (
+            ("t5_attention_core", lambda: t5_attention_core(
+                q, q, q, bias, key_mask, cfgs["fused"].lm.num_heads)),
+            ("fused_t5_ffn", lambda: fused_t5_ffn(
+                x, lm["encoder"]["ln1"][0], ffn["wi_0"], ffn["wi_1"],
+                ffn["wo"]))):
+        zero_counts()
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(name)
+        check(kernel_counts() == launches(),
+              f"train_step: {name} launched on a grad-requiring input")
+    check(refused == ["t5_attention_core", "fused_t5_ffn"],
+          f"train_step: only {refused} refused a grad-requiring input")
+
+    # the routes' steps in turns, each on its own mapper and optimizer
+    turns = {}
+    for name in ("fused", "unfused"):
+        mapper = trainable_copy(params["mapper"])
+        turns[name] = (loss_of(cfgs[name]), mapper, adamw(mapper),
+                       expected[name])
+    stepped = timed_train_steps(turns, TRAIN_STEPS)
+    del turns
+    torch.cuda.empty_cache()
+
+    # DESCENT_STEPS AdamW steps on the kernels' route
+    mapper = trainable_copy(params["mapper"])
+    optimizer = adamw(mapper)
+    descent = []
+    for _ in range(DESCENT_STEPS):
+        loss = loss_of(cfgs["fused"])(mapper)
+        loss.backward()
+        optimizer.step()
+        descent.append(loss.item())
+    check(descent[-1] < descent[0],
+          f"train_step: the loss did not fall over {DESCENT_STEPS} AdamW "
+          f"steps: {descent}")
+    del mapper, optimizer, params, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = traced_in_child("--trace-train-step",
+                           stepped["fused"]["mean_step_s"])
+    result = dict(
+        batch=TRAIN_BATCH, caption_len=CAPTION_LEN,
+        encoder_positions=PREFIX_LENGTH, init_s=init_s, nvidia_smi=smi,
+        launches_per_step={name: launched_only(expected[name])
+                           for name in ("fused", "unfused")},
+        remat_launches_per_step=launched_only(remat_counts),
+        remat_grad_cosine=remat_cos,
+        refused_grad=refused, descent_losses=descent, **routes,
+        **stepped, fused_busy=busy)
+    emit("train_step", **result)
+    result["launches_per_call"] = [expected["fused"]]
+    return result
+
+
+def traced_in_child(flag: str, timed_wall_s: float) -> dict:
+    """``chip_smoke.py flag`` in a process of its own (late in a whole run
+    a trace can come back with records missing, see cuda_kernel_names):
+    the device's busy share over one warm step and its largest kernels."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), flag],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"{flag} failed:\n" + proc.stderr[-3000:])
+    traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    traced["parent_mean_step_s"] = timed_wall_s
+    return traced
+
+
+def trace_train_step() -> None:
+    """The child of traced_in_child for train_step: two warm steps of the
+    kernels' route, then device_busy over one more."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cfgs, params = vct0_train_setup(dev)
+    clip, labels = caption_batch(gen, TRAIN_BATCH,
+                                 min(30000, cfgs["fused"].lm.vocab_size))
+    mapper = trainable_copy(params["mapper"])
+    optimizer = adamw(mapper)
+
+    def step():
+        vct0_caption_loss(mapper, params["lm"], cfgs["fused"], clip,
+                          labels).backward()
+        optimizer.step()
+
+    for _ in range(2):
+        _, wall = timed(step)
+    print(json.dumps(device_busy(step, wall, top=8)), flush=True)
+
+
+def cc_rows(n: int, rng: np.random.Generator) -> list:
+    """Conceptual Captions rows in the parquet artifacts' schema: 6-12 word
+    captions and 768-wide CLIP embeddings, each in a one-element list as
+    the reference stores caption and image_url."""
+    return [{"image_url": [f"http://img/{i}"],
+             "caption": [" ".join(rng.choice(CC_WORDS,
+                                             int(rng.integers(6, 13))))],
+             "clip_embeddings": rng.standard_normal(PREFIX_SIZE)
+             .astype(np.float32).tolist()} for i in range(n)]
+
+
+class TrainRecorder:
+    """For one main.run: each training step's loss, host seconds to a
+    synchronize and the mapper's sum before and after it; each
+    validation's caption table rows; every logged metric. Installed for the
+    run and taken off after."""
+
+    def __init__(self):
+        self.steps, self.tables, self.metrics = [], [], {}
+
+    def __enter__(self):
+        self.originals = {name: getattr(owner, name) for owner, name in (
+            (VCT0Executor, "training_step"),
+            (VCT0Executor, "evaluate_outputs"),
+            (BaseExecutor, "log_metrics"))}
+        step, evaluate, log = (self.originals[n] for n in (
+            "training_step", "evaluate_outputs", "log_metrics"))
+
+        def mapper_sum(executor):
+            return float(sum(t.detach().double().sum() for t in
+                             tree_leaves(executor.model.params["mapper"])))
+
+        def training_step(executor, batch, batch_idx):
+            before = mapper_sum(executor)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(executor, batch, batch_idx)
+            torch.cuda.synchronize()
+            self.steps.append(dict(seconds=time.perf_counter() - t0,
+                                   loss=float(out["loss"]), before=before,
+                                   after=mapper_sum(executor)))
+            return out
+
+        def evaluate_outputs(executor, outputs, mode="test"):
+            log_dict = evaluate(executor, outputs, mode)
+            self.tables.append(log_dict.artifacts["test_table"]["rows"])
+            return log_dict
+
+        def log_metrics(executor, metrics, step=None):
+            self.metrics.update(metrics)
+            return log(executor, metrics, step)
+
+        VCT0Executor.training_step = training_step
+        VCT0Executor.evaluate_outputs = evaluate_outputs
+        BaseExecutor.log_metrics = log_metrics
+        return self
+
+    def __exit__(self, *exc):
+        VCT0Executor.training_step = self.originals["training_step"]
+        VCT0Executor.evaluate_outputs = self.originals["evaluate_outputs"]
+        BaseExecutor.log_metrics = self.originals["log_metrics"]
+
+
+def phase_config_train(smi: str) -> dict:
+    """Mapper training as a user runs it: the port's CLI (main.run --mode
+    train) on the shipped conceptual_captions.jsonnet at full width (T0_3B,
+    mlp mapper, random weights from the config's seed, SimpleTokenizer)
+    with tpu.fused_attention and tpu.fused_ffn, one epoch over CC_TRAIN_ROWS
+    synthetic rows (4 steps of TRAIN_BATCH) and CC_VAL_ROWS val rows, the
+    shipped gradient_accumulation_steps 4 (one applied update). The rows
+    go through the shipped parquet loader where pyarrow imports, else
+    through the same loader holding them in memory. Checks: the mapper
+    unchanged by the first 3 steps and changed by the 4th, model_00 and
+    the index written, the validations' captions, exact launches."""
+    rng = np.random.default_rng(SEED)
+    rows = {"train": cc_rows(CC_TRAIN_ROWS, rng),
+            "val": cc_rows(CC_VAL_ROWS, rng)}
+    modules = "data_loader.dataset_modules.module_dict.LoadConceptualCaptions"
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        if importlib.util.find_spec("pyarrow") is not None:
+            import pyarrow as pa
+            import pyarrow.parquet as pq
+
+            source = "parquet"
+            opts = []
+            for split, split_rows in rows.items():
+                path = folder / f"cc_{split}.parquet"
+                pq.write_table(pa.table({key: [r[key] for r in split_rows]
+                                         for key in split_rows[0]}), path)
+                opts.append(f"{modules}.config.{split}={path}")
+        else:
+            source = "in_memory"
+
+            class InMemoryConceptualCaptions(DataLoaderConceptualCaptions):
+                """The shipped loader, its parquet rows held in memory."""
+
+                def LoadConceptualCaptions(self, module_config):
+                    self.data.conceptual_captions = AttrDict(
+                        train=ListDataset(rows["train"]),
+                        val=ListDataset(rows["val"]))
+
+            if InMemoryConceptualCaptions.__name__ not in DATA_LOADERS:
+                DATA_LOADERS.register()(InMemoryConceptualCaptions)
+            opts = [f"data_loader.type={InMemoryConceptualCaptions.__name__}"]
+        argv = [str(CC_CONFIG_FILE), "--mode", "train", "--experiment_name",
+                "train", "--disable_wandb", "--disable_tensorboard",
+                "--opts", f"EXPERIMENT_FOLDER={folder}/experiments",
+                f"TENSORBOARD_FOLDER={folder}/tb",
+                f"cache.default_folder={folder}/cache",
+                "model_config.TokenizerClass=SimpleTokenizer",
+                "model_config.pretrained=0", "tpu.fused_attention=true",
+                "tpu.fused_ffn=true", "train.epochs=1", *opts]
+        config = process_config(parse_args_sys(argv))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with TrainRecorder() as rec:
+            executor, metrics = eval_main.run(argv)
+        run_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(executor.model.device.type == "cuda",
+              f"config_train: the model is on {executor.model.device}")
+        saved = Path(config.saved_model_path)
+        index = json.loads((saved / "checkpoint_index.json").read_text())
+        check(index["epochs"] == ["model_00"] and index["last"] == "model_00"
+              and (saved / "model_00" / "trainable_state.pt").is_file(),
+              f"config_train: checkpoint index {index}")
+        checkpoint = load_checkpoint(str(saved / "model_00"))
+        check(checkpoint["opt_state"]["applied"] == 1
+              and int(checkpoint["epoch"]) == 0,
+              "config_train: model_00 holds another optimizer state")
+        checkpoint_gb = sum(t.numel() * t.element_size()
+                            for t in tree_leaves(checkpoint["mapper"])
+                            + list(checkpoint["opt_state"]["mu"])
+                            + list(checkpoint["opt_state"]["nu"])
+                            + list(checkpoint["opt_state"]["acc"])) / 1e9
+        del checkpoint
+    steps = rec.steps
+    accumulate = int(config.train.additional.gradient_accumulation_steps)
+    check(len(steps) == CC_TRAIN_ROWS // TRAIN_BATCH == accumulate,
+          f"config_train: {len(steps)} steps")
+    check(all(s["after"] == s["before"] for s in steps[:-1])
+          and steps[-1]["after"] != steps[-1]["before"]
+          and executor.optimizer.applied == 1,
+          "config_train: the mapper changed before the k-th step or not at "
+          "it: " + str([(s["before"], s["after"]) for s in steps]))
+    check(all(np.isfinite(s["loss"]) for s in steps), "config_train losses")
+    val_batches = CC_VAL_ROWS // TRAIN_BATCH
+    check(len(rec.tables) == 2 and all(
+        len(t) == CC_VAL_ROWS and all(len(r) == 3 for r in t)
+        for t in rec.tables), "config_train: the validations' caption "
+          "tables")
+    layers = executor.model.cfg.lm.num_encoder_layers
+    # each step one encode; each val batch two (the loss, then generate)
+    encodes = len(steps) + 2 * 2 * val_batches
+    want = launches(t5_attention_core=layers * encodes,
+                    fused_t5_ffn=layers * encodes)
+    check(counts == want,
+          f"config_train: kernels launched {counts}, expected {want}")
+    result = dict(
+        nvidia_smi=smi, data=source, rows=dict(train=CC_TRAIN_ROWS,
+                                               val=CC_VAL_ROWS),
+        run_s=run_s, step_s=[s["seconds"] for s in steps],
+        losses=[s["loss"] for s in steps], launches=launched_only(counts),
+        applied_updates=executor.optimizer.applied,
+        logged={k: v for k, v in rec.metrics.items()
+                if k.startswith(("train/", "valid/"))},
+        first_caption=rec.tables[-1][0], checkpoint_gb=checkpoint_gb,
+        peak_mem_gb=peak / 1e9)
+    emit("config_train", **result)
+    del executor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(result, launches_per_call=[counts])
+
+
+def phase_clipcap_train_step(dev: torch.device) -> dict:
+    """ClipCap's train step at GPT-2 small width and depth with the mlp
+    mapper (512 -> 10 x 768), B = TRAIN_BATCH, CAPTION_LEN tokens + 10
+    prefix positions: fused_block (12 fused_gpt2_block launches in the
+    forward, none in the backward) against the unfused block (losses,
+    mapper gradients), then TRAIN_STEPS timed steps of each in turns."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lm_cfg = gpt2_lib.GPT2Config.gpt2_small(fused_block=True)
+    cfgs = {"fused": clipcap_lib.ClipCapConfig.from_model_args(
+        CLIPCAP_MODEL_ARGS, lm_cfg=lm_cfg)}
+    cfgs["unfused"] = dataclasses.replace(cfgs["fused"], lm=dataclasses.replace(
+        lm_cfg, fused_block=False))
+    params = clipcap_lib.init_clipcap_params(cfgs["fused"], seed=SEED,
+                                             device=dev)
+    prefix = torch.randn((TRAIN_BATCH, CLIPCAP_MODEL_ARGS["prefix_size"]),
+                         generator=gen, device=dev)
+    ids, mask, _ = clipcap_batch(gen, CAPTION_LEN)
+    labels = ids.masked_fill(mask == 0, -100)
+
+    def loss_of(cfg):
+        return lambda mapper: clipcap_lib.clipcap_loss(
+            mapper, params["lm"], cfg, prefix, ids, mask, labels)
+
+    expected = {"fused": launches(fused_gpt2_block=lm_cfg.num_layers),
+                "unfused": launches()}
+    losses, grads = {}, {}
+    for name, cfg in cfgs.items():
+        mapper = trainable_copy(params["mapper"])
+        losses[name], grads[name] = grad_step(
+            loss_of(cfg), mapper, expected[name], f"clipcap_train_step {name}")
+    routes = compare_grads("clipcap_train_step", losses, grads,
+                           CLIPCAP_LOSS_REL)
+    turns = {}
+    for name, cfg in cfgs.items():
+        mapper = trainable_copy(params["mapper"])
+        turns[name] = (loss_of(cfg), mapper, adamw(mapper), expected[name])
+    timed_steps = timed_train_steps(turns, TRAIN_STEPS)
+    result = dict(batch=TRAIN_BATCH, positions=PREFIX_LENGTH + CAPTION_LEN,
+                  launches_per_step={name: launched_only(counts)
+                                     for name, counts in expected.items()},
+                  **routes, **timed_steps)
+    emit("clipcap_train_step", **result)
+    del turns, params
+    torch.cuda.empty_cache()
+    return dict(result, launches_per_call=[expected["fused"]])
+
+
+def phase_bench_train() -> dict:
+    """tools/bench_train.py's body at its defaults (B = 32, 32 tokens, 10
+    steps after a first) for both models, without and with
+    --fused_attention: each JSON line printed as the bench prints it, the
+    path's kernel launched once a layer in each of its 11 steps."""
+    results = {}
+    for model, kernel, layers in (
+            ("vct0", "t5_attention_core",
+             t5_lib.T5Config.t0_3b().num_encoder_layers),
+            ("clipcap", "fused_gpt2_block",
+             gpt2_lib.GPT2Config.gpt2_small().num_layers)):
+        for fused in ("0", "1"):
+            args = bench_train.build_parser().parse_args(
+                ["--model", model, "--fused_attention", fused])
+            zero_counts()
+            result = bench_train.bench(args)
+            print(json.dumps(result), flush=True)
+            counts = kernel_counts()
+            want = launches(**({kernel: layers * (args.steps + 1)}
+                               if fused == "1" else {}))
+            check(counts == want, f"bench_train {model} {fused}: launched "
+                  f"{counts}, expected {want}")
+            check(result["metric"] == bench_train.METRICS[model]
+                  and result["value"] > 0
+                  and np.isfinite(result["config"]["final_loss"])
+                  and result["device"]["name"]
+                  == torch.cuda.get_device_name(0),
+                  f"bench_train {model} {fused}: {result}")
+            results[f"{model}_{'fused' if fused == '1' else 'unfused'}"] = (
+                dict(examples_per_s=result["value"],
+                     step_s=result["step_s"], launches=launched_only(counts)))
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit("bench_train", **results)
+    return results
+
+
+LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
+def clip_phases(gen: torch.Generator) -> dict:
+    """The CLIP and GPT-2 phases in order, each drawing from ``gen``, and
+    of each what the kernels line reads: a kernel's LINE_FIELDS and a
+    run's launches_per_call."""
+    def fields(res: dict) -> dict:
+        return {key: res[key] for key in LINE_FIELDS}
+
+    def kernels_of(res: dict, *names) -> dict:
+        return {name: fields(res[name]) for name in names}
+
+    def runs(res: dict, *names) -> dict:
+        return {name: {"launches_per_call": res[name]["launches_per_call"]}
+                for name in names}
+
+    out = {}
+    out["vit_kernels"] = kernels_of(
+        phase_vit_kernels(gen), "fused_ln_qkv", "attention_core_oproj",
+        "fused_mlp_block")
+    torch.cuda.empty_cache()
+    out["vit_q8_kernels"] = kernels_of(
+        phase_vit_q8_kernels(gen), "fused_qkv_q8", "attention_core",
+        "fused_mlp_block_q8")
+    torch.cuda.empty_cache()
+    phase_vit_attention_edges(gen)
+    torch.cuda.empty_cache()
+    out["clip_encode"] = runs(phase_clip_encode(gen), "fused", "int8")
+    torch.cuda.empty_cache()
+    phase_t5_quantizers(gen)
+    torch.cuda.empty_cache()
+    out["vit_short"] = kernels_of(
+        phase_vit_short_kernels(gen), "fused_vit_block",
+        "fused_vit_block_q8", "fused_attention_block")
+    torch.cuda.empty_cache()
+    out["clip_b32"] = runs(phase_clip_encode_b32(gen), "fused", "int8",
+                           "fused_attention")
+    torch.cuda.empty_cache()
+    out["gpt2_block"] = fields(phase_gpt2_block(gen))
+    torch.cuda.empty_cache()
+    out["flash"] = fields(phase_flash_attention(gen))
+    torch.cuda.empty_cache()
+    out["clipcap"] = runs(phase_clipcap(gen), "loss")
+    torch.cuda.empty_cache()
+    out["clip_pallas"] = runs(phase_clip_encode_pallas(gen), "use_pallas")
+    torch.cuda.empty_cache()
+    return out
+
+
+def clip_phases_in_child(gen: torch.Generator) -> dict:
+    """clip_phases in a process of its own (--clip-phases), from ``gen``'s
+    state, so that their inputs are those of a run in this process. In a
+    process that has run the T5 phases' traces, kernel_split's traces of
+    the CLIP kernels came back with records missing (1 of 6 calls whole,
+    on an H100); a fresh process traces whole. Its lines go to this
+    process's output; its results come back through a file."""
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        torch.save(gen.get_state(), folder / "generator.pt")
+        sys.stdout.flush()
+        sys.stderr.flush()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--clip-phases",
+             str(folder)], timeout=900)
+        check(proc.returncode == 0,
+              f"the CLIP and GPT-2 phases failed (exit {proc.returncode})")
+        return json.loads((folder / "clip_phases.json").read_text())
+
+
+def run_clip_phases(folder: Path) -> None:
+    """The child of clip_phases_in_child."""
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.set_state(torch.load(folder / "generator.pt"))
+    (folder / "clip_phases.json").write_text(json.dumps(clip_phases(gen)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3812,28 +4533,16 @@ def main() -> int:
     phase_generate_modes(model, prefix, tokens, mask, generate)
     del model
     torch.cuda.empty_cache()
-    vit_kernels = phase_vit_kernels(gen)
-    torch.cuda.empty_cache()
-    vit_q8_kernels = phase_vit_q8_kernels(gen)
-    torch.cuda.empty_cache()
-    phase_vit_attention_edges(gen)
-    torch.cuda.empty_cache()
-    clip_encode = phase_clip_encode(gen)
-    torch.cuda.empty_cache()
-    phase_t5_quantizers(gen)
-    torch.cuda.empty_cache()
-    vit_short = phase_vit_short_kernels(gen)
-    torch.cuda.empty_cache()
-    clip_b32 = phase_clip_encode_b32(gen)
-    torch.cuda.empty_cache()
-    gpt2_block = phase_gpt2_block(gen)
-    torch.cuda.empty_cache()
-    flash = phase_flash_attention(gen)
-    torch.cuda.empty_cache()
-    clipcap = phase_clipcap(gen)
-    torch.cuda.empty_cache()
-    clip_pallas = phase_clip_encode_pallas(gen)
-    torch.cuda.empty_cache()
+    clip_side = clip_phases_in_child(gen)
+    vit_kernels = clip_side["vit_kernels"]
+    vit_q8_kernels = clip_side["vit_q8_kernels"]
+    clip_encode = clip_side["clip_encode"]
+    vit_short = clip_side["vit_short"]
+    clip_b32 = clip_side["clip_b32"]
+    gpt2_block = clip_side["gpt2_block"]
+    flash = clip_side["flash"]
+    clipcap = clip_side["clipcap"]
+    clip_pallas = clip_side["clip_pallas"]
     phase_config_generate(cfg, prefix, tokens, mask, generate)
     torch.cuda.empty_cache()
     config_fp32 = phase_config_generate_fp32(prefix, tokens, mask, generate)
@@ -3848,6 +4557,13 @@ def main() -> int:
     config_eval_int8 = phase_config_eval_int8(smi)
     torch.cuda.empty_cache()
     phase_config_eval_modes(smi)
+    torch.cuda.empty_cache()
+    phase_train_step(dev, smi)
+    torch.cuda.empty_cache()
+    phase_config_train(smi)
+    phase_clipcap_train_step(dev)
+    torch.cuda.empty_cache()
+    phase_bench_train()
 
     measured = {
         "t5_attention_core": (attention, config_eval),
@@ -3892,5 +4608,11 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--trace-t5-encode"]:
         trace_t5_encode(Path(sys.argv[2]), int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--clip-phases"]:
+        run_clip_phases(Path(sys.argv[2]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--trace-train-step"]:
+        trace_train_step()
         sys.exit(0)
     sys.exit(main())

@@ -13,8 +13,7 @@ asks ``jax.process_count()``, the port asks ``torch.distributed``
 (``device.world_size``), which refuses a run over more than one process
 until the multi-process eval is ported (ROADMAP.md, Queue 1 item 14).
 The modules that no shipped config's ``module_list`` names (VinVL, OCR,
-Oscar captions, OK-VQA) raise naming Queue 1 item 16, and the loader
-builds the test split only: training waits for item 10.
+Oscar captions, OK-VQA) raise naming Queue 1 item 16.
 """
 
 from __future__ import annotations
@@ -160,12 +159,11 @@ class DataLoaderVQA2(DataLoaderWrapper):
         self.data.vqa_data = vqa_data
 
     def set_dataloader(self) -> None:
-        """Wrap the val split in the test batch iterator
+        """Wrap the val split in the test batch iterator, and in train mode
+        the train split in the shuffled train iterator
         (reference: data_loader_vqa2.py:498-569)."""
         dataset_cls = DATASETS.get(self.config.data_loader.dataset_type)
-        self.test_dataset = dataset_cls(self.config, dict(
-            data=self.data.vqa_data.val,
-            mode="test",
+        common = dict(
             clip_embeddings=self.data.get("clip_embeddings"),
             in_context_examples=self.data.get("in_context_examples"),
             answer_candidate_list=self.data.vqa_data.answer_candidate_list,
@@ -173,16 +171,32 @@ class DataLoaderVQA2(DataLoaderWrapper):
             decoder_tokenizer=self.decoder_tokenizer,
             feature_extractor=self.feature_extractor,
             image_preprocessor=self.image_preprocessor,
-        ))
-        # reference test loader: 4 workers (data_loader_vqa2.py:563).
-        # SimpleTokenizer numbers words in the order it first meets them:
-        # one collate thread keeps that order, and so the ids, the same
-        # from run to run
-        num_workers = self.config.data_loader.additional.get(
-            "num_workers_test", 4)
+        )
+        additional = self.config.data_loader.additional
+        # reference loaders: 8 train and 4 test workers
+        # (data_loader_vqa2.py:529, :563). SimpleTokenizer numbers words in
+        # the order it first meets them: one collate thread keeps that
+        # order, and so the ids, the same from run to run
+        num_workers = additional.get("num_workers", 8)
+        num_workers_test = additional.get("num_workers_test", 4)
         if isinstance(self.tokenizer, SimpleTokenizer) or isinstance(
                 self.decoder_tokenizer, SimpleTokenizer):
-            num_workers = 1
+            num_workers = num_workers_test = 1
+        if self.config.mode == "train":
+            self.train_dataset = dataset_cls(self.config, dict(
+                common, data=self.data.vqa_data.train, mode="train"))
+            self.train_dataloader = BatchIterator(
+                self.train_dataset,
+                batch_size=self.config.train.batch_size,
+                collate_fn=self.train_dataset.collate_fn,
+                shuffle=True,
+                seed=self.config.seed,
+                num_workers=num_workers,
+            )
+            logger.info("[Data Statistics] train batches: %d",
+                        len(self.train_dataloader))
+        self.test_dataset = dataset_cls(self.config, dict(
+            common, data=self.data.vqa_data.val, mode="test"))
         # one process: its shard [0::1] is the whole question set (the
         # JAX package shards by process here, world_size refuses that)
         shard_id, num_shards = 0, world_size()
@@ -191,7 +205,7 @@ class DataLoaderVQA2(DataLoaderWrapper):
             batch_size=self.config.valid.batch_size,
             collate_fn=self.test_dataset.collate_fn,
             shuffle=False,
-            num_workers=num_workers,
+            num_workers=num_workers_test,
             shard_id=shard_id,
             num_shards=num_shards,
         )

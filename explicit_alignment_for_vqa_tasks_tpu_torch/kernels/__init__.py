@@ -6,6 +6,11 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``csrc/`` it includes and the flags, so an edited source or header builds
 anew) and loaded with ``ctypes``. There is no probing
 and no fallback: a missing ``nvcc`` or a failed build raises.
+
+A kernel computes its forward pass only. ``refuse_grad`` is the guard each
+CUDA path of a kernel wrapper calls: an input that requires a gradient,
+with grad enabled, raises rather than leave the kernel's output cut from
+the autograd graph (its gradient silently zero).
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -126,3 +133,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def refuse_grad(op: str, *tensors: Optional[torch.Tensor],
+                vjp: Optional[str] = None) -> None:
+    """Raise ``NotImplementedError`` when grad is enabled and any of
+    ``tensors`` requires a gradient: kernel ``op`` computes none. ``vjp``
+    names the wrapper's autograd form, where it has one."""
+    if not torch.is_grad_enabled() or not any(
+            t is not None and t.requires_grad for t in tensors):
+        return
+    hint = (f"call {vjp}, its autograd form (the kernel forward, the "
+            "gradient through its XLA twin)" if vjp else
+            "it has no autograd form, as the JAX package's Pallas kernel "
+            "has no custom_vjp")
+    raise NotImplementedError(
+        f"{op}: the CUDA kernel computes no gradient and an input requires "
+        f"one; {hint}")

@@ -11,9 +11,9 @@ flags:
 
 Flow: evaluate the config -> build the data loader (registry by config
 ``data_loader.type``) -> build the executor (``train.type``), whose model
-lives on the card -> load the checkpoint -> test. Training is not ported
-yet (ROADMAP.md, Queue 1 item 10): ``--mode train`` raises. The JAX
-package's TPU knobs (scoped VMEM, the XLA compilation cache) have no
+lives on the card -> load the checkpoint -> train (``--mode train``, e.g.
+``configs/conceptual_captions/conceptual_captions.jsonnet``) or test. The
+JAX package's TPU knobs (scoped VMEM, the XLA compilation cache) have no
 counterpart, and its device statistics wait for Queue 1 item 15.
 """
 
@@ -116,12 +116,8 @@ def main(config: Any, device: DeviceLike = None
          ) -> Tuple[Any, Dict[str, float]]:
     """Orchestration (reference: src/main.py:69-197). The model is built
     on ``device``, the card unless the caller passes another. Returns the
-    executor and the test metrics."""
+    executor and the test metrics (none for a train run)."""
     world_size()  # one process: more raise (the JAX package starts them here)
-    if config.mode == "train":
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP.md, Queue 1 item 10): "
-            "run --mode test")
     set_seed(int(config.get("seed", 2021)))
 
     data_loader_cls = DATA_LOADERS.get(config.data_loader.type)
@@ -141,6 +137,9 @@ def main(config: Any, device: DeviceLike = None
 
     try:
         executor.maybe_load_checkpoint()
+        if config.mode == "train":
+            executor.train()
+            return executor, {}
         return executor, executor.test()
     finally:
         multi_logger.close()

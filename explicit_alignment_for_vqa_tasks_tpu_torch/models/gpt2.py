@@ -9,8 +9,9 @@ the attention softmax is fp32, masks are additive ``NEG_INF`` biases.
 ``gpt2_forward`` is the full-sequence forward (teacher forcing, the ClipCap
 loss). With ``cfg.fused_block`` and at most 128 positions it runs the whole
 block as one ``fused_gpt2_block`` call per layer
-(``ops/fused_attention_block.py``, kernel ``csrc/gpt2_block.cu``), as the
-JAX package does (:182-202); otherwise the plain block below. The KV-cached
+(``ops/fused_attention_block.py``, kernel ``csrc/gpt2_block.cu``) through
+its autograd form ``fused_gpt2_block_vjp``, so the loss differentiates, as
+the JAX package does (:182-202); otherwise the plain block below. The KV-cached
 ``gpt2_prefill`` and ``gpt2_decode_step`` run no kernel, in either package.
 The cache's ``index`` is a host integer: the decode loop runs on the host.
 """
@@ -219,9 +220,9 @@ def gpt2_forward(
                 if attention_mask is None
                 else attention_mask.to(torch.int32))
         for layer_p in _layers(params["blocks"]):
-            x = fab.fused_gpt2_block(
+            x = fab.fused_gpt2_block_vjp(
                 x, mask, *(layer_p[n] for n in fab.GPT2_BLOCK_KEYS),
-                num_heads=cfg.num_heads, eps=cfg.layer_norm_epsilon)
+                cfg.num_heads, cfg.layer_norm_epsilon)
         return lm_logits(params, cfg, x)
 
     bias = _causal_bias(length, x.device)

@@ -1,4 +1,5 @@
-"""T5 / T0 encoder-decoder in PyTorch, for inference.
+"""T5 / T0 encoder-decoder in PyTorch: inference, and the teacher-forced
+captioning loss that mapper training differentiates.
 
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/models/t5.py. The
 parameters are the JAX package's tree as a nested dict of tensors with the
@@ -18,8 +19,13 @@ Every option of ``T5Config`` runs in the port, each through the same
 kernel or arithmetic as the JAX package:
 
   * ``fused_encoder_attention`` (as the shipped configs set it): encoder
-    self-attention through ``ops.fused_attention_block.t5_attention_core``;
-  * ``fused_encoder_ffn``: the encoder FFN through ``fused_t5_ffn``;
+    self-attention through ``ops.fused_attention_block.t5_attention_core``,
+    called as ``t5_attention_core_vjp`` (its backward through JAX's XLA
+    twin, so the loss differentiates through the kernel's forward);
+  * ``fused_encoder_ffn``: the encoder FFN through ``fused_t5_ffn``, as
+    ``fused_t5_ffn_vjp``;
+  * ``remat``: each encoder and decoder layer recomputed in the backward
+    (``torch.utils.checkpoint``);
   * the opt-in int8 bulk-eval encoder (``int8_encoder_ffn``,
     ``int8_encoder_attn``): the FFN and attention projections through the
     int8 kernels of the same module, on weights quantized once by
@@ -44,15 +50,16 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..ops.decode_attention import cross_attention_decode
 from ..ops.fused_attention_block import (
     INV_127,
     fused_oproj_residual_q8,
-    fused_t5_ffn,
     fused_t5_ffn_q8,
+    fused_t5_ffn_vjp,
     fused_t5_ln_qkv_q8,
-    t5_attention_core,
+    t5_attention_core_vjp,
     t5_bias_tiles,
 )
 
@@ -78,7 +85,8 @@ class T5Config:
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
     dtype: Any = torch.bfloat16  # compute dtype
-    # training knob (rematerialise each layer); no effect on inference
+    # training knob: each layer's activations recomputed in the backward
+    # instead of kept; no effect on inference
     remat: bool = False
     # encoder self-attention through the t5_attention_core kernel instead
     # of a materialised (B, H, L, L) fp32 bias
@@ -190,6 +198,19 @@ def init_t5_params(gen: torch.Generator, cfg: T5Config,
 def _layer(stacked: Params, i: int) -> Params:
     """Layer ``i`` of a dict of stacked weights."""
     return {k: v[i] for k, v in stacked.items()}
+
+
+def _maybe_remat(cfg: T5Config, layer, x: torch.Tensor,
+                 layer_p: Params) -> torch.Tensor:
+    """``layer(x, layer_p)``; under ``cfg.remat`` with grad enabled, its
+    activations are not kept but recomputed in the backward (JAX
+    ``jax.checkpoint`` of the scan body, models/t5.py:753, :821). A layer's
+    kernels then launch twice a step. The layers draw no random numbers, so
+    no RNG state is kept for the recompute."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            layer, x, layer_p, use_reentrant=False, preserve_rng_state=False)
+    return layer(x, layer_p)
 
 
 def _encoder_layer(enc: Params, i: int, cfg: T5Config) -> Params:
@@ -328,10 +349,10 @@ def _encoder_ffn(layer_p: Params, y: torch.Tensor, cfg: T5Config) -> torch.Tenso
         )
     if cfg.fused_encoder_ffn:
         ffn_p = layer_p["ffn"]
-        return fused_t5_ffn(
+        return fused_t5_ffn_vjp(
             y, layer_p["ln1"], ffn_p["wi_0"],
             ffn_p["wi_1"] if cfg.is_gated_act else None,
-            ffn_p["wo"], eps=cfg.layer_norm_epsilon,
+            ffn_p["wo"], cfg.layer_norm_epsilon,
         )
     ffn_in = rms_norm(y, layer_p["ln1"], cfg.layer_norm_epsilon)
     return y + _ffn_block(layer_p["ffn"], ffn_in, cfg)
@@ -623,8 +644,12 @@ def t5_encode(
                       if pos_hll.is_cuda and x.dtype == torch.bfloat16
                       else None)
         key_mask = attention_mask.to(torch.int32).contiguous()
-        for i in range(cfg.num_encoder_layers):
-            layer_p = _encoder_layer(enc, i, cfg)
+
+        def attention(q, k, v):
+            return t5_attention_core_vjp(q, k, v, pos_hll, key_mask,
+                                         cfg.num_heads, bias_tiles)
+
+        def layer(x, layer_p):
             if cfg.int8_encoder_attn:
                 a8 = layer_p["self_attn_q8"]
                 q, k, v = fused_t5_ln_qkv_q8(
@@ -632,31 +657,142 @@ def t5_encode(
                     a8["q"], a8["q_s"], a8["k"], a8["k_s"],
                     a8["v"], a8["v_s"], eps=eps,
                 )
-                attn = t5_attention_core(q, k, v, pos_hll, key_mask,
-                                         cfg.num_heads, bias_tiles)
-                x = fused_oproj_residual_q8(x, attn, a8["o"], a8["o_s"])
-                x = _encoder_ffn(layer_p, x, cfg)
-                continue
+                x = fused_oproj_residual_q8(x, attention(q, k, v), a8["o"],
+                                            a8["o_s"])
+                return _encoder_ffn(layer_p, x, cfg)
             p = layer_p["self_attn"]
             attn_in = rms_norm(x, layer_p["ln0"], eps)
-            q = torch.matmul(attn_in, p["q"].to(x.dtype))
-            k = torch.matmul(attn_in, p["k"].to(x.dtype))
-            v = torch.matmul(attn_in, p["v"].to(x.dtype))
-            attn = t5_attention_core(q, k, v, pos_hll, key_mask, cfg.num_heads,
-                                     bias_tiles)
+            attn = attention(torch.matmul(attn_in, p["q"].to(x.dtype)),
+                             torch.matmul(attn_in, p["k"].to(x.dtype)),
+                             torch.matmul(attn_in, p["v"].to(x.dtype)))
             x = x + torch.matmul(attn, p["o"].to(x.dtype))
-            x = _encoder_ffn(layer_p, x, cfg)
+            return _encoder_ffn(layer_p, x, cfg)
     else:
         mask_bias = torch.where(
             attention_mask[:, None, None, :] > 0, 0.0, NEG_INF)
         bias = pos_bias + mask_bias  # (B, H, L, L) fp32
-        for i in range(cfg.num_encoder_layers):
-            layer_p = _encoder_layer(enc, i, cfg)
+
+        def layer(x, layer_p):
             attn_in = rms_norm(x, layer_p["ln0"], eps)
             x = x + _attn_block(layer_p["self_attn"], attn_in, attn_in,
                                 bias, cfg)
-            x = _encoder_ffn(layer_p, x, cfg)
+            return _encoder_ffn(layer_p, x, cfg)
+
+    for i in range(cfg.num_encoder_layers):
+        x = _maybe_remat(cfg, layer, x, _encoder_layer(enc, i, cfg))
     return rms_norm(x, enc["final_ln"], eps)
+
+
+# ---------------------------------------------------------------------------
+# Decoder, teacher forced (training loss)
+# ---------------------------------------------------------------------------
+
+def _decoder_scan(params: Params, cfg: T5Config, x: torch.Tensor,
+                  encoder_hidden: torch.Tensor, self_bias: torch.Tensor,
+                  cross_bias: torch.Tensor) -> torch.Tensor:
+    """Every decoder layer over the whole target (JAX models/t5.py:799-829),
+    then the final RMSNorm."""
+    dec = params["decoder"]
+    eps = cfg.layer_norm_epsilon
+
+    def layer(y, layer_p):
+        sa_in = rms_norm(y, layer_p["ln0"], eps)
+        y = y + _attn_block(layer_p["self_attn"], sa_in, sa_in, self_bias,
+                            cfg)
+        ca_in = rms_norm(y, layer_p["ln1"], eps)
+        y = y + _attn_block(layer_p["cross_attn"], ca_in, encoder_hidden,
+                            cross_bias, cfg)
+        ffn_in = rms_norm(y, layer_p["ln2"], eps)
+        return y + _ffn_block(layer_p["ffn"], ffn_in, cfg)
+
+    for i in range(cfg.num_decoder_layers):
+        layer_p = {name: _layer(dec[name], i)
+                   for name in ("self_attn", "cross_attn", "ffn")}
+        layer_p.update({name: dec[name][i] for name in ("ln0", "ln1", "ln2")})
+        x = _maybe_remat(cfg, layer, x, layer_p)
+    return rms_norm(x, dec["final_ln"], eps)
+
+
+def t5_decode(
+    params: Params,
+    cfg: T5Config,
+    decoder_input_ids: torch.Tensor,
+    encoder_hidden: torch.Tensor,
+    encoder_mask: Optional[torch.Tensor] = None,
+    decoder_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full-sequence (teacher-forced) decoding (JAX models/t5.py:842-885);
+    returns fp32 logits (B, T, V). Refuses the params of
+    ``quantize_decoder_step(drop_bf16=True)``, whose bf16 decoder weights
+    are gone."""
+    dec = params["decoder"]
+    if "q" not in dec["self_attn"]:
+        raise ValueError(
+            "the bf16 decoder matmul weights were dropped by "
+            "quantize_decoder_step(drop_bf16=True) — int8_decoder_step "
+            "is an eval-only mode; teacher-forced passes (training loss "
+            "/ rescoring) need the bf16 decoder, so disable "
+            "tpu.int8_decoder_step for this run")
+    x = embed_tokens(params, cfg, decoder_input_ids)
+    batch, qlen, _ = x.shape
+    dev = x.device
+    if encoder_mask is None:
+        encoder_mask = torch.ones((batch, encoder_hidden.shape[1]),
+                                  dtype=torch.int32, device=dev)
+    causal = torch.ones((qlen, qlen), dtype=torch.bool, device=dev).tril()
+    self_bias = compute_position_bias(dec["rel_bias"], qlen, qlen,
+                                      bidirectional=False, cfg=cfg)
+    self_bias = self_bias + torch.where(causal[None, None], 0.0, NEG_INF)
+    if decoder_mask is not None:
+        self_bias = self_bias + torch.where(
+            decoder_mask[:, None, None, :] > 0, 0.0, NEG_INF)
+    cross_bias = torch.where(encoder_mask[:, None, None, :] > 0, 0.0, NEG_INF)
+    hidden = _decoder_scan(params, cfg, x, encoder_hidden, self_bias,
+                           cross_bias)
+    return lm_logits(params, cfg, hidden)
+
+
+def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:
+    """Teacher-forcing decoder inputs from labels: the start token, then the
+    labels but the last, -100 read as pad (JAX models/t5.py:1228-1237)."""
+    clean = torch.where(labels == -100, cfg.pad_token_id, labels)
+    start = torch.full_like(clean[:, :1], cfg.decoder_start_token_id)
+    return torch.cat([start, clean[:, :-1]], dim=1)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token cross-entropy over the positions whose label is not -100,
+    from an fp32 log-softmax, divided by that count (at least 1). Returns
+    (loss, count) (JAX models/t5.py:1240-1252)."""
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0).long()
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    token_ll = torch.gather(log_probs, -1, safe[..., None])[..., 0]
+    count = valid.sum()
+    return -(token_ll * valid).sum() / count.clamp(min=1), count
+
+
+def t5_forward_loss(
+    params: Params,
+    cfg: T5Config,
+    labels: torch.Tensor,
+    input_ids: Optional[torch.Tensor] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Seq2seq cross-entropy of ``labels`` (the captioning objective, JAX
+    models/t5.py:1255-1277): encode, decode the right-shifted labels
+    teacher forced, ``cross_entropy_loss``. With
+    ``fused_encoder_attention`` / ``fused_encoder_ffn`` the encoder runs the
+    kernels forward and their twins backward."""
+    encoder_hidden = t5_encode(params, cfg, input_ids=input_ids,
+                               inputs_embeds=inputs_embeds,
+                               attention_mask=attention_mask)
+    logits = t5_decode(params, cfg, shift_right(labels, cfg), encoder_hidden,
+                       attention_mask)
+    loss, _ = cross_entropy_loss(logits, labels)
+    return loss
 
 
 def lm_logits(params: Params, cfg: T5Config,

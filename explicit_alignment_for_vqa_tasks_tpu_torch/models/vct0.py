@@ -10,6 +10,8 @@ generate surface, under any ``T5Config`` option:
     sentinel <extra_id_i>, the states concatenated for the decoder;
   - a forced decoder prefix, teacher-forced before the greedy decode;
   - prefix-only captioning.
+``vct0_caption_loss`` is the mapper's training loss (the prefix alone as
+the encoder input, the frozen LM teacher forced on the caption).
 The opt-in int8 modes are quantized at build time
 (``quantize_int8_encoder``) or, for the encoder, after SmoothQuant
 calibration on eval batches (``VCT0Model.calibrate_and_quantize_int8``).
@@ -108,6 +110,33 @@ def project_prefix(cfg: VCT0Config, mapper_params: Params,
     flat = mapper_apply(cfg.mapper, mapper_params, prefix)
     return flat.reshape(*prefix.shape[:-1], cfg.mapper.prefix_length,
                         cfg.lm.d_model)
+
+
+def _frozen(lm_params: Params) -> Params:
+    """The LM tree with every tensor detached: no gradient reaches it."""
+    return {k: _frozen(v) if isinstance(v, dict) else v.detach()
+            for k, v in lm_params.items()}
+
+
+def vct0_caption_loss(
+    mapper_params: Params,
+    lm_params: Params,
+    cfg: VCT0Config,
+    clip_embeddings: torch.Tensor,   # (B, prefix_size)
+    labels: torch.Tensor,            # (B, T), -100 on padding
+) -> torch.Tensor:
+    """Captioning loss with the projected prefix as the whole encoder input
+    (JAX models/vct0.py:112-130; reference: vct0.py:380-394): the mapper's
+    fp32 output as (B, prefix_length, d_model) in the LM's dtype,
+    ``t5_forward_loss`` on it. With ``freeze_lm`` the LM is detached, so
+    only the mapper gets gradients. A 0-d fp32 tensor."""
+    if cfg.freeze_lm:
+        lm_params = _frozen(lm_params)
+    flat = mapper_apply(cfg.mapper, mapper_params, clip_embeddings)
+    prefix_embeds = flat.reshape(-1, cfg.mapper.prefix_length,
+                                 cfg.lm.d_model).to(cfg.lm.dtype)
+    return t5_lib.t5_forward_loss(lm_params, cfg.lm, labels,
+                                  inputs_embeds=prefix_embeds)
 
 
 def _splice(lm_params: Params, cfg: VCT0Config, prefix_proj: torch.Tensor,

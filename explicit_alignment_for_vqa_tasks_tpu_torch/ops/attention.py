@@ -121,6 +121,7 @@ def flash_attention(
     raise. The bias is read in place through broadcast strides."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias)
+    kernels.refuse_grad("flash_attention", q, k, v, bias)
     _check_inputs(q, k, v, bias)
     batch, lq, heads, head_dim = q.shape
     lk = k.shape[1]

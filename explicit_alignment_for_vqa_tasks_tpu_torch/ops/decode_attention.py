@@ -127,6 +127,7 @@ def cross_attention_decode(
     if q.device.type == "cpu":
         return cross_attention_decode_plain(q, k_cache, v_cache, mask, layer,
                                             num_heads)
+    kernels.refuse_grad("cross_attention_decode", q, k_cache, v_cache)
     head_dim = _check_kernel_inputs(q, k_cache, v_cache, mask, layer,
                                     num_heads)
     layers, batch, seq, _ = k_cache.shape

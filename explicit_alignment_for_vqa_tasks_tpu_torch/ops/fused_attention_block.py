@@ -10,9 +10,8 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
   * the int8 bulk-eval trio ``fused_t5_ln_qkv_q8`` (:1635-1677),
     ``fused_oproj_residual_q8`` (:1695-1728) and ``fused_t5_ffn_q8``
     (:1547-1603), kernels in ``csrc/int8_encoder.cu``;
-  * the encoder FFN ``fused_t5_ffn`` (:631-678, forward only; x and the
-    output bf16 or fp32, the products bf16), kernel ``csrc/t5_ffn.cu``. Its
-    backward (``fused_t5_ffn_vjp``) comes with mapper training;
+  * the encoder FFN ``fused_t5_ffn`` (:631-678; x and the output bf16 or
+    fp32, the products bf16), kernel ``csrc/t5_ffn.cu``;
   * the CLIP ViT ``split3`` block: ``fused_ln_qkv`` (:268-298),
     ``attention_core_oproj`` (:348-376) and ``fused_mlp_block``
     (:419-459), kernels in ``csrc/vit_block.cu`` (``fused_ln_qkv``'s q | k
@@ -32,12 +31,21 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
     the int8 ``fused_vit_block_q8`` (:772-826), kernel in
     ``csrc/vit_block_q8.cu``. Their attention is
     ``csrc/vit_attention.cuh``;
-  * the GPT-2 whole block ``fused_gpt2_block`` (:898-958, forward only),
-    kernel ``csrc/gpt2_block.cu`` over the same attention with its causal
-    key mask. Its backward (``fused_gpt2_block_vjp``) comes with mapper
-    training.
+  * the GPT-2 whole block ``fused_gpt2_block`` (:898-958), kernel
+    ``csrc/gpt2_block.cu`` over the same attention with its causal key
+    mask.
 
 Each source's note gives the design and the bound.
+
+Every kernel computes a forward pass only, as every Pallas kernel of the
+JAX package does. Three of them have autograd forms, the counterparts of
+JAX's ``custom_vjp``s: ``t5_attention_core_vjp``, ``fused_t5_ffn_vjp`` and
+``fused_gpt2_block_vjp``, each a ``torch.autograd.Function`` whose forward
+calls the wrapper and whose backward differentiates the port's copy of
+JAX's XLA twin (``_t5_attention_reference``, ``_t5_ffn_reference``,
+``_gpt2_block_reference``). The CUDA path of every wrapper raises when grad
+is enabled and an input requires it (``kernels.refuse_grad``), so no kernel
+output is silently cut from the graph.
 
 The attention core's plain version follows the Pallas kernel's order of
 rounding, not that of the JAX package's XLA twin ``_t5_attention_reference``:
@@ -214,6 +222,8 @@ def t5_attention_core(
     ``pos_bias`` as it is (no ``bias_tiles``)."""
     if q.device.type == "cpu":
         return t5_attention_core_plain(q, k, v, pos_bias, mask, num_heads)
+    kernels.refuse_grad("t5_attention_core", q, k, v, pos_bias,
+                        vjp="t5_attention_core_vjp")
     batch, seq, _ = q.shape
     head_dim = _check_kernel_inputs(q, k, v, pos_bias, mask, num_heads)
     if q.dtype == torch.float32:
@@ -246,6 +256,87 @@ def t5_attention_core(
 
 
 t5_attention_core.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The autograd forms: the kernel forward, the gradient through JAX's XLA twin
+# ---------------------------------------------------------------------------
+
+def _twin_grads(needs: Sequence[bool], inputs: Sequence[Optional[torch.Tensor]],
+                twin, d_out: torch.Tensor) -> list:
+    """The gradients of ``twin(*inputs)`` against ``d_out`` for the inputs
+    whose ``needs`` is set, None for the others: the twin recomputed with
+    grad on and differentiated by ``torch.autograd.grad``, as JAX's
+    ``custom_vjp`` backward runs ``jax.vjp`` of it. Nothing is computed for
+    an input that needs no gradient (the frozen LM's weights)."""
+    leaves = [None if t is None else t.detach().requires_grad_(need)
+              for t, need in zip(inputs, needs)]
+    wanted = [t for t, need in zip(leaves, needs) if need]
+    if not wanted:
+        return [None] * len(inputs)
+    with torch.enable_grad():
+        out = twin(*leaves)
+    got = iter(torch.autograd.grad(out, wanted, d_out))
+    return [next(got) if need else None for need in needs]
+
+
+def _t5_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    pos_bias: torch.Tensor, mask: torch.Tensor, num_heads: int,
+    *, wide: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """JAX's XLA twin of the kernel (``_t5_attention_reference``,
+    :1179-1197), which its custom VJP differentiates: scores, bias, key
+    mask and softmax in ``wide`` (fp32), the normalised probabilities times
+    V in ``wide``, one cast to q's dtype. Not the kernel's order of
+    rounding (``t5_attention_core_plain`` casts the unnormalised
+    probabilities before P·V and divides after it). ``wide`` is float64
+    only in the gradient check."""
+    batch, seq, width = q.shape
+    head_dim = width // num_heads
+
+    def split(x):
+        return x.reshape(batch, seq, num_heads, head_dim).to(wide)
+
+    s = torch.einsum("bqhd,bkhd->bhqk", split(q), split(k))
+    s = s + pos_bias[None].to(wide)
+    s = s + torch.where(mask[:, None, None, :] > 0, 0.0, NEG_INF).to(wide)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, split(v))
+    return out.reshape(batch, seq, width).to(q.dtype)
+
+
+class _T5AttentionCoreVJP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, pos_bias, mask, num_heads, bias_tiles):
+        ctx.save_for_backward(q, k, v, pos_bias, mask)
+        ctx.num_heads = num_heads
+        return t5_attention_core(q, k, v, pos_bias, mask, num_heads,
+                                 bias_tiles)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, pos_bias, mask = ctx.saved_tensors
+        grads = _twin_grads(
+            ctx.needs_input_grad[:4], (q, k, v, pos_bias),
+            lambda q_, k_, v_, b_: _t5_attention_reference(
+                q_, k_, v_, b_, mask, ctx.num_heads), d_out)
+        return (*grads, None, None, None)
+
+
+def t5_attention_core_vjp(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    pos_bias: torch.Tensor, mask: torch.Tensor, num_heads: int,
+    bias_tiles: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Differentiable ``t5_attention_core`` (JAX ``t5_attention_core_vjp``,
+    :1202-1234): the forward is the wrapper (the kernel on CUDA tensors,
+    the plain version on the CPU); the backward recomputes through
+    ``_t5_attention_reference`` and differentiates it, since the kernel
+    never keeps the probabilities. No kernel runs in the backward. ``mask``
+    gets no gradient; ``pos_bias`` gets one when it requires it."""
+    return _T5AttentionCoreVJP.apply(q, k, v, pos_bias, mask, num_heads,
+                                     bias_tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -534,6 +625,7 @@ def fused_t5_ln_qkv_q8(
     if x.device.type == "cpu":
         return fused_t5_ln_qkv_q8_plain(x, ln_weight, wq, sq, wk, sk, wv, sv,
                                         eps, codes_out=codes_out)
+    kernels.refuse_grad("fused_t5_ln_qkv_q8", x, ln_weight, sq, sk, sv)
     op = "fused_t5_ln_qkv_q8"
     sq, sk, sv = (_as_group_scales(s) for s in (sq, sk, sv))
     _check_tensors(
@@ -575,6 +667,7 @@ def fused_oproj_residual_q8(
     (``fused_oproj_residual_q8.launches``) or raise."""
     if attn.device.type == "cpu":
         return fused_oproj_residual_q8_plain(residual, attn, wo, so)
+    kernels.refuse_grad("fused_oproj_residual_q8", residual, attn, so)
     op = "fused_oproj_residual_q8"
     so = _as_group_scales(so)
     _check_tensors(op, attn.device,
@@ -617,6 +710,7 @@ def fused_t5_ffn_q8(
     if x.device.type == "cpu":
         return fused_t5_ffn_q8_plain(x, ln_weight, wi_0, s_0, wi_1, s_1, wo,
                                      s_o, eps, codes_out=codes_out)
+    kernels.refuse_grad("fused_t5_ffn_q8", x, ln_weight, s_0, s_1, s_o)
     op = "fused_t5_ffn_q8"
     gated = wi_1 is not None
     s_0, s_o = _as_group_scales(s_0), _as_group_scales(s_o)
@@ -701,14 +795,38 @@ def fused_t5_ffn_plain(
     multiplied in true fp32: the port leaves
     ``torch.backends.cuda.matmul.allow_tf32`` at its default, False),
     gelu(a0) * a1 in fp32 and rounded to bf16 once, then the down product
-    and the fp32 residual, cast to x's dtype."""
-    bf = torch.bfloat16
-    x32 = x.float()
-    h = _rms_norm_f32(x32, ln_weight, eps).to(bf).float()
-    hid = _tanh_gelu(torch.matmul(h, wi_0.to(bf).float()))
+    and the fp32 residual, cast to x's dtype. JAX's XLA twin of the kernel
+    (``_t5_ffn_reference``, which its custom VJP differentiates) has this
+    order of rounding too, so the two are one function here."""
+    return _t5_ffn_reference(x, ln_weight, wi_0, wi_1, wo, eps)
+
+
+def _t5_ffn_reference(
+    x: torch.Tensor, ln_weight: torch.Tensor,
+    wi_0: torch.Tensor, wi_1: Optional[torch.Tensor], wo: torch.Tensor,
+    eps: float = 1e-6,
+    *, wide: torch.dtype = torch.float32, narrow: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """JAX's ``_t5_ffn_reference`` (:1047-1066): ``x32 * rsqrt(mean(x32^2) +
+    eps) * w`` in ``wide``, rounded to ``narrow``; the products of
+    ``narrow`` operands summed in ``wide``; the tanh-gelu hidden times the
+    gate in ``wide``, rounded to ``narrow`` for the down product; the
+    residual in ``wide``, one cast to x's dtype. ``wide`` and ``narrow``
+    are fp32 and bf16 except in the float64 gradient check."""
+    x32 = x.to(wide)
+
+    def operand(t):
+        return t.to(narrow).to(wide)
+
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    # h is cast up once for each product, as JAX's einsums each read the
+    # narrow h: the backward rounds each product's gradient of h to narrow
+    # and sums the two in narrow, as JAX's transposes do
+    h = (x32 * torch.rsqrt(var + eps) * ln_weight.to(wide)).to(narrow)
+    hid = _tanh_gelu(torch.matmul(h.to(wide), operand(wi_0)))
     if wi_1 is not None:
-        hid = hid * torch.matmul(h, wi_1.to(bf).float())
-    y = torch.matmul(hid.to(bf).float(), wo.to(bf).float())
+        hid = hid * torch.matmul(h.to(wide), operand(wi_1))
+    y = torch.matmul(operand(hid), operand(wo))
     return (x32 + y).to(x.dtype)
 
 
@@ -726,6 +844,8 @@ def fused_t5_ffn(
     if x.device.type == "cpu":
         return fused_t5_ffn_plain(x, ln_weight, wi_0, wi_1, wo, eps)
     op = "fused_t5_ffn"
+    kernels.refuse_grad(op, x, ln_weight, wi_0, wi_1, wo,
+                        vjp="fused_t5_ffn_vjp")
     gated = wi_1 is not None
     for name, t in (("x", x), ("ln_weight", ln_weight)):
         if t.dtype not in (_BF16, _F32):
@@ -779,6 +899,35 @@ def _bf16_weight(w: torch.Tensor) -> torch.Tensor:
 fused_t5_ffn.launches = 0
 
 
+class _FusedT5FfnVJP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_weight, wi_0, wi_1, wo, eps):
+        ctx.save_for_backward(x, ln_weight, wi_0, wi_1, wo)
+        ctx.eps = eps
+        return fused_t5_ffn(x, ln_weight, wi_0, wi_1, wo, eps=eps)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        inputs = ctx.saved_tensors
+        grads = _twin_grads(
+            ctx.needs_input_grad[:5], inputs,
+            lambda *t: _t5_ffn_reference(*t, ctx.eps), d_out)
+        return (*grads, None)
+
+
+def fused_t5_ffn_vjp(
+    x: torch.Tensor, ln_weight: torch.Tensor,
+    wi_0: torch.Tensor, wi_1: Optional[torch.Tensor], wo: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Differentiable ``fused_t5_ffn`` (JAX ``fused_t5_ffn_vjp``,
+    :1069-1102): the wrapper forward (the kernel on CUDA tensors), the
+    gradient by recomputing ``_t5_ffn_reference``, since the kernel keeps
+    neither the normed input nor the hidden. No kernel runs in the
+    backward."""
+    return _FusedT5FfnVJP.apply(x, ln_weight, wi_0, wi_1, wo, eps)
+
+
 # ---------------------------------------------------------------------------
 # CLIP ViT split3 block: plain versions and the wrappers around
 # csrc/vit_block.cu
@@ -801,7 +950,8 @@ def _ln_f32(z: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ``* scale + bias`` (JAX ``_ln_f32``'s order; not ``F.layer_norm``)."""
     m = torch.mean(z, dim=-1, keepdim=True)
     var = torch.mean(torch.square(z - m), dim=-1, keepdim=True)
-    return (z - m) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return (z - m) * torch.rsqrt(var + eps) * scale.to(z.dtype) + bias.to(
+        z.dtype)
 
 
 def _bf16_operand(w: torch.Tensor) -> torch.Tensor:
@@ -1017,6 +1167,8 @@ def fused_ln_qkv(
     if x.device.type == "cpu":
         return fused_ln_qkv_plain(x, ln_scale, ln_bias, wq, bq, wk, bk, wv,
                                   bv, scale, eps)
+    kernels.refuse_grad("fused_ln_qkv", x, ln_scale, ln_bias, wq, bq, wk, bk,
+                        wv, bv)
     tensors = dict(x=x, ln_scale=ln_scale, ln_bias=ln_bias, wq=wq, bq=bq,
                    wk=wk, bk=bk, wv=wv, bv=bv)
     _check_tensors(op, x.device, {name: _BF16 for name in tensors},
@@ -1057,6 +1209,7 @@ def attention_core_oproj(
     if q.device.type == "cpu":
         return attention_core_oproj_plain(residual, q, k, v, wo, bo,
                                           num_heads)
+    kernels.refuse_grad("attention_core_oproj", residual, q, k, v, wo, bo)
     tensors = dict(residual=residual, q=q, k=k, v=v, wo=wo, bo=bo)
     _check_tensors(op, q.device, {name: _BF16 for name in tensors},
                    **tensors)
@@ -1098,6 +1251,8 @@ def fused_mlp_block(
     if x.device.type == "cpu":
         return fused_mlp_block_plain(x, ln_scale, ln_bias, w_fc, b_fc,
                                      w_proj, b_proj, eps)
+    kernels.refuse_grad("fused_mlp_block", x, ln_scale, ln_bias, w_fc, b_fc,
+                        w_proj, b_proj)
     tensors = dict(x=x, ln_scale=ln_scale, ln_bias=ln_bias, w_fc=w_fc,
                    b_fc=b_fc, w_proj=w_proj, b_proj=b_proj)
     _check_tensors(op, x.device, {name: _BF16 for name in tensors},
@@ -1142,6 +1297,7 @@ def attention_core(
     op = "attention_core"
     if q.device.type == "cpu":
         return attention_core_plain(q, k, v, num_heads, fast_exp)
+    kernels.refuse_grad(op, q, k, v)
     _check_tensors(op, q.device, dict(q=_BF16, k=_BF16, v=_BF16), q=q, k=k,
                    v=v)
     if q.dim() != 3:
@@ -1263,6 +1419,7 @@ def fused_qkv_q8(
     if x.device.type == "cpu":
         return fused_qkv_q8_plain(x, ln_scale, ln_bias, w_qkv, s_qkv, b_qkv,
                                   scale, eps, codes_out=codes_out)
+    kernels.refuse_grad("fused_qkv_q8", x, ln_scale, ln_bias, s_qkv, b_qkv)
     batch, seq, d_model = x.shape
     s_qkv = _check_vit_q8_product(op, "w_qkv", w_qkv, s_qkv, d_model)
     _check_tensors(op, x.device,
@@ -1309,6 +1466,8 @@ def fused_mlp_block_q8(
         return fused_mlp_block_q8_plain(x, ln_scale, ln_bias, w_fc, s_fc,
                                         b_fc, w_proj, s_proj, b_proj, eps,
                                         codes_out=codes_out)
+    kernels.refuse_grad("fused_mlp_block_q8", x, ln_scale, ln_bias, s_fc,
+                        b_fc, s_proj, b_proj)
     batch, seq, d_model = x.shape
     d_ff = w_fc.shape[-1]
     s_fc = _check_vit_q8_product(op, "w_fc", w_fc, s_fc, d_model)
@@ -1446,6 +1605,7 @@ def fused_vit_block(
                    wk=wk, bk=bk, wv=wv, bv=bv, wo=wo, bo=bo,
                    ln2_scale=ln2_scale, ln2_bias=ln2_bias, w_fc=w_fc,
                    b_fc=b_fc, w_proj=w_proj, b_proj=b_proj)
+    kernels.refuse_grad(op, *tensors.values())
     _check_tensors(op, x.device, {name: _BF16 for name in tensors},
                    **tensors)
     if x.dim() != 3:
@@ -1547,6 +1707,8 @@ def fused_vit_block_q8(
             x, ln1_scale, ln1_bias, w_qkv, s_qkv, b_qkv, wo, so, bo,
             ln2_scale, ln2_bias, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj,
             num_heads, eps)
+    kernels.refuse_grad(op, x, ln1_scale, ln1_bias, s_qkv, b_qkv, so, bo,
+                        ln2_scale, ln2_bias, s_fc, b_fc, s_proj, b_proj)
     if x.dim() != 3:
         raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
     batch, seq, d_model = x.shape
@@ -1678,6 +1840,7 @@ def fused_attention_block(
                                            num_heads, block_diag, cd)
     tensors = dict(x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo,
                    bo=bo)
+    kernels.refuse_grad(op, *tensors.values())
     _check_tensors(op, x.device, {name: _BF16 for name in tensors},
                    **tensors)
     if x.dim() != 3:
@@ -1830,18 +1993,15 @@ def fused_gpt2_block(
     it divides B); it decides only the rows with no visible valid key. CPU
     tensors take the plain version; CUDA tensors launch the kernel
     (``fused_gpt2_block.launches``) or raise. The kernel is forward only:
-    an input that requires grad raises (its backward comes with mapper
-    training, ROADMAP Queue 1 item 10)."""
+    with grad enabled, an input that requires grad raises; the autograd
+    form is ``fused_gpt2_block_vjp``."""
     op = "fused_gpt2_block"
     params = (ln1_scale, ln1_bias, w_qkv, b_qkv, w_out, b_out, ln2_scale,
               ln2_bias, w_fc, b_fc, w_proj, b_proj)
     if x.device.type == "cpu":
         return fused_gpt2_block_plain(x, mask, *params, num_heads, group, eps)
     tensors = dict(zip(("x",) + GPT2_BLOCK_KEYS, (x,) + params))
-    if any(t.requires_grad for t in tensors.values()):
-        raise NotImplementedError(
-            f"{op}: the CUDA kernel is forward only; its gradient is not "
-            f"ported yet (ROADMAP.md, Queue 1 item 10)")
+    kernels.refuse_grad(op, *tensors.values(), vjp="fused_gpt2_block_vjp")
     _check_tensors(op, x.device, {name: _BF16 for name in tensors},
                    **tensors)
     if x.dim() != 3:
@@ -1895,3 +2055,89 @@ def fused_gpt2_block(
 
 
 fused_gpt2_block.launches = 0
+
+
+def _gpt2_block_reference(
+    x: torch.Tensor, mask: torch.Tensor,
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+    w_out: torch.Tensor, b_out: torch.Tensor,
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, b_proj: torch.Tensor,
+    num_heads: int, eps: float,
+    *, wide: torch.dtype = torch.float32, narrow: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """JAX's ``_gpt2_block_reference`` (:961-995), which its custom VJP
+    differentiates: the block of ``fused_gpt2_block_plain`` sequence by
+    sequence, softmax normalised in ``wide`` before its cast to ``narrow``,
+    and no averaging over the kernel's group on a row with no visible
+    valid key (the -1e30 scores give that row a uniform softmax over its own
+    keys). ``wide`` and ``narrow`` are fp32 and bf16 except in the float64
+    gradient check."""
+    batch, seq, d_model = x.shape
+    head_dim = d_model // num_heads
+
+    def operand(t):
+        return t.to(narrow).to(wide)
+
+    def mm(a, w):
+        return torch.matmul(operand(a), operand(w))
+
+    def heads(t):
+        return t.reshape(batch, seq, num_heads, head_dim)
+
+    x32 = x.to(wide)
+    qkv = mm(_ln_f32(x32, ln1_scale, ln1_bias, eps), w_qkv) + b_qkv.to(wide)
+    q, k, v = qkv.split(d_model, dim=-1)
+    s = torch.einsum("bqhd,bkhd->bhqk", operand(heads(q * head_dim ** -0.5)),
+                     operand(heads(k)))
+    causal = torch.ones((seq, seq), dtype=torch.bool, device=x.device).tril()
+    visible = causal[None, None] & (mask[:, None, None, :] > 0)
+    s = s + torch.where(visible, 0.0, GPT2_MASKED).to(wide)
+    p = operand(torch.softmax(s, dim=-1))
+    attn = torch.einsum("bhqk,bkhd->bqhd", p, operand(heads(v)))
+    r1 = x32 + mm(attn.reshape(x.shape), w_out) + b_out.to(wide)
+    hid = _tanh_gelu(mm(_ln_f32(r1, ln2_scale, ln2_bias, eps), w_fc)
+                     + b_fc.to(wide))
+    return (r1 + mm(hid, w_proj) + b_proj.to(wide)).to(x.dtype)
+
+
+class _FusedGpt2BlockVJP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mask, *rest):
+        params, (num_heads, eps) = rest[:-2], rest[-2:]
+        ctx.save_for_backward(x, mask, *params)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        return fused_gpt2_block(x, mask, *params, num_heads=num_heads,
+                                eps=eps)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        x, mask, *params = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        grads = _twin_grads(
+            (needs[0],) + needs[2:2 + len(params)], (x, *params),
+            lambda x_, *p_: _gpt2_block_reference(
+                x_, mask, *p_, ctx.num_heads, ctx.eps), d_out)
+        return (grads[0], None, *grads[1:], None, None)
+
+
+def fused_gpt2_block_vjp(
+    x: torch.Tensor, mask: torch.Tensor,
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+    w_out: torch.Tensor, b_out: torch.Tensor,
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    w_fc: torch.Tensor, b_fc: torch.Tensor,
+    w_proj: torch.Tensor, b_proj: torch.Tensor,
+    num_heads: int, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Differentiable ``fused_gpt2_block`` (JAX ``fused_gpt2_block_vjp``,
+    :999-1045; the wrapper's default group of 4): the wrapper forward (the
+    kernel on CUDA tensors), the gradient through ``_gpt2_block_reference``,
+    so ClipCap's loss reaches the mapper through the frozen GPT-2. ``mask``
+    gets no gradient. No kernel runs in the backward."""
+    return _FusedGpt2BlockVJP.apply(
+        x, mask, ln1_scale, ln1_bias, w_qkv, b_qkv, w_out, b_out, ln2_scale,
+        ln2_bias, w_fc, b_fc, w_proj, b_proj, num_heads, eps)

@@ -115,18 +115,14 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_split(fn, calls: int = 6) -> dict:
-    """The device ms per call of each CUDA kernel that fn launches, under
-    torch.profiler over ``calls`` calls after a warm one: its row_quant,
-    layer_norm, rms_norm, masked_rows, attention and GEMM kernels numbered
-    in launch order
-    (``row_quant_0``, ``gemm_0``, ...), every other kernel (PyTorch's
-    copies) summed as ``other``. The profiler drops a kernel's record now and then, so a
-    fill kernel before each call marks where the call begins, and only the
-    calls whose records are all there count."""
-    marker = torch.zeros(1, device="cuda")
-    fn()
-    torch.cuda.synchronize()
+def _shape(run: dict) -> tuple:
+    return tuple(sorted((kind, len(us)) for kind, us in run.items()))
+
+
+def _traced_calls(fn, marker, calls: int) -> list:
+    """One torch.profiler session over ``calls`` calls of fn, each after a
+    fill of ``marker``: per call, kind -> its kernels' microseconds in
+    launch order."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
@@ -136,7 +132,7 @@ def kernel_split(fn, calls: int = 6) -> dict:
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    runs = []  # per call: kind -> its kernels' microseconds in order
+    runs = []
     for event in events:
         if "FillFunctor" in event.name:
             runs.append({})
@@ -147,13 +143,52 @@ def kernel_split(fn, calls: int = 6) -> dict:
                                  "masked_rows", "attention", "gemm")
                      if k in event.name), "other")
         runs[-1].setdefault(kind, []).append(event.time_range.elapsed_us())
-    shapes = [tuple(sorted((k, len(v)) for k, v in run.items()))
-              for run in runs]
-    whole = max(set(shapes), key=shapes.count) if shapes else ()
-    complete = [run for run, shape in zip(runs, shapes) if shape == whole]
-    if len(complete) < 2:
-        raise RuntimeError(f"kernel_split: {len(complete)} of {calls} calls "
-                           f"traced whole")
+    return runs
+
+
+def kernel_split(fn, calls: int = 6, rounds: int = 8) -> dict:
+    """The device ms per call of each CUDA kernel that fn launches, under
+    torch.profiler over ``calls`` calls after a warm one: its row_quant,
+    layer_norm, rms_norm, masked_rows, attention and GEMM kernels numbered
+    in launch order
+    (``row_quant_0``, ``gemm_0``, ...), every other kernel (PyTorch's
+    copies) summed as ``other``. A fill kernel before each call marks where
+    the call begins; a session's first fill often goes unrecorded, and
+    then its first call with it. The profiler drops other records now and
+    then too; in a process that has run many traces most calls of a
+    session may lose one. So sessions are traced until one comes back with
+    at least two calls, all of one shape, and that session counts; when
+    none of ``rounds`` does, the calls of the largest shape seen in at
+    least two calls count (a dropped record only shrinks a call's
+    shape)."""
+    marker = torch.zeros(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for attempt in range(1, rounds + 1):
+        session = _traced_calls(fn, marker, calls)
+        shapes = {_shape(run) for run in session}
+        if len(session) >= 2 and len(shapes) == 1:
+            whole, complete = shapes.pop(), session
+            if attempt > 1:
+                print(f"kernel_split: session {attempt} of {calls} calls "
+                      f"traced whole", file=sys.stderr, flush=True)
+            break
+        runs += session
+    else:
+        shapes = [_shape(run) for run in runs]
+        seen = {shape for shape in shapes if shapes.count(shape) >= 2}
+        if not seen:
+            raise RuntimeError(
+                f"kernel_split: no call shape seen twice in {rounds} sessions "
+                f"of {calls} calls: "
+                f"{sorted(((shapes.count(s), s) for s in set(shapes)), reverse=True)}")
+        whole = max(seen, key=lambda shape: (sum(n for _, n in shape),
+                                             shapes.count(shape)))
+        complete = [run for run, shape in zip(runs, shapes) if shape == whole]
+        print(f"kernel_split: no session of {calls} calls traced whole in "
+              f"{rounds}; {len(complete)} of {len(runs)} calls of the largest "
+              f"shape seen twice count", file=sys.stderr, flush=True)
     split = {"other": sum(sum(run.get("other", [])) for run in complete)
              / len(complete) / 1e3}
     for kind, count in whole:

@@ -1,13 +1,18 @@
-"""BaseExecutor: the eval run loop (replaces PyTorch-Lightning).
+"""BaseExecutor: the run loop (replaces PyTorch-Lightning).
 
-Counterpart of explicit_alignment_for_vqa_tasks_tpu/trainers/base_executor.py,
-its eval half: subclasses implement ``_generative_step`` and
-``evaluate_outputs``; the base runs the eval loop, logs the metrics
-(reference: base_executor.py:59-71) and loads the checkpoint
-(reference: src/main.py:35-66). One process on one card: where the JAX
-package places params and batches on a device mesh, the port moves them
-onto the model's device. Training is not ported yet (ROADMAP.md, Queue 1
-item 10): ``train`` raises.
+Counterpart of explicit_alignment_for_vqa_tasks_tpu/trainers/base_executor.py
+(reference: src/trainers/base_executor.py:34-84 + the PL Trainer wiring in
+src/main.py:85-197): subclasses implement ``training_step`` /
+``_generative_step`` / ``evaluate_outputs`` and the ``trainable_state`` /
+``load_trainable_state`` hooks; the base provides the epoch loop, periodic
+validation (``valid.step_size`` steps, capped at ``valid.break_interval``
+batches), checkpointing every ``train.save_interval`` epochs with
+best/last aliases, metric logging (reference: base_executor.py:59-71), a
+two-batch sanity validation before training, and checkpoint loading
+(reference: src/main.py:35-66), a train run resuming at the epoch after
+the checkpoint's. One process on one card: where the JAX package places
+params and batches on a device mesh, the port moves them onto the model's
+device.
 """
 
 from __future__ import annotations
@@ -15,14 +20,25 @@ from __future__ import annotations
 import json
 import logging
 import os
+import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..utils.attr_dict import AttrDict
 from ..utils.loggers import MultiLogger
-from .checkpointing import get_checkpoint_model_path, load_checkpoint
+from ..utils.profiling import ThroughputMeter
+from .checkpointing import (
+    get_checkpoint_model_path,
+    load_checkpoint,
+    save_checkpoint,
+)
 from .metrics_processors import MetricsProcessor
+
+# tpu.profile_dir: torch.profiler traces these training steps (0-based
+# global steps [first, last)), once training is warm
+PROFILE_STEPS = (10, 13)
 
 logger = logging.getLogger(__name__)
 
@@ -69,10 +85,17 @@ class BaseExecutor(MetricsProcessor):
             self.multi_logger.log_metrics(metrics, step or self.global_step)
 
     @property
+    def train_dataloader(self):
+        return self.data_loader.train_dataloader
+
+    @property
     def test_dataloader(self):
         return self.data_loader.test_dataloader
 
     # -- subclass hooks --------------------------------------------------
+    def training_step(self, batch: AttrDict, batch_idx: int):
+        raise NotImplementedError
+
     def _generative_step(self, batch: AttrDict, batch_idx: int) -> Dict:
         raise NotImplementedError
 
@@ -80,13 +103,95 @@ class BaseExecutor(MetricsProcessor):
                          mode: str = "test") -> AttrDict:
         raise NotImplementedError
 
+    def on_train_start(self) -> None:
+        pass
+
+    def trainable_state(self) -> Dict[str, Any]:
+        """State persisted in checkpoints (the mapper, the optimizer's)."""
+        raise NotImplementedError
+
     def load_trainable_state(self, state: Dict[str, Any]) -> None:
         raise NotImplementedError
 
+    # ------------------------------------------------------------------
     def train(self) -> None:
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP.md, Queue 1 item 10): "
-            "run --mode test")
+        """The epoch loop (JAX base_executor.py:322-415)."""
+        cfg = self.config
+        max_epochs = int(cfg.train.get("epochs", 1))
+        step_size = int(cfg.valid.get("step_size", 0) or 0)
+        save_interval = int(cfg.train.get("save_interval", 1))
+        self.on_train_start()
+
+        # sanity-check validation (PL behavior: 2 batches)
+        self.in_sanity_check = True
+        try:
+            self.validate(max_batches=2)
+        finally:
+            self.in_sanity_check = False
+
+        meter = ThroughputMeter(device=getattr(getattr(self, "model", None),
+                                               "device", None))
+        profile_dir = cfg.get("tpu", {}).get("profile_dir", "")
+        profiler = None
+
+        for epoch in range(self.current_epoch, max_epochs):
+            self.current_epoch = epoch
+            if hasattr(self.train_dataloader, "set_epoch"):
+                self.train_dataloader.set_epoch(epoch)
+            epoch_t0 = time.perf_counter()
+            losses: List[float] = []
+            for batch_idx, batch in enumerate(self.train_dataloader):
+                if profile_dir and self.global_step == PROFILE_STEPS[0]:
+                    profiler = _start_profiler()
+                meter.start()
+                out = self.training_step(batch, batch_idx)
+                meter.stop(items=int(cfg.train.batch_size))
+                self.global_step += 1
+                if profiler is not None and \
+                        self.global_step == PROFILE_STEPS[1]:
+                    _stop_profiler(profiler, profile_dir)
+                    profiler = None
+                if out is not None and "loss" in out:
+                    loss = float(out["loss"])
+                    losses.append(loss)
+                    if self.global_step % 50 == 0:
+                        self.log_metrics({"train/loss": loss})
+                if step_size and self.global_step % step_size == 0:
+                    self.validate(
+                        max_batches=int(
+                            cfg.valid.get("break_interval", 0) or 0
+                        ) or None
+                    )
+            epoch_time = time.perf_counter() - epoch_t0
+            if losses:
+                summary = meter.summary()
+                self.log_metrics({
+                    "train/loss_epoch": float(np.mean(losses)),
+                    "train/epoch_time_s": epoch_time,
+                    "train/examples_per_s": summary.get("items_per_s", 0.0),
+                    "train/mean_step_s": summary.get("mean_step_s", 0.0),
+                })
+            logger.info(
+                "epoch %d done in %.1fs (mean loss %s)",
+                epoch, epoch_time,
+                f"{np.mean(losses):.4f}" if losses else "n/a",
+            )
+
+            val_metrics = self.validate()
+            if (epoch + 1) % save_interval == 0:
+                metric_name = cfg.train.additional.get(
+                    "save_top_k_metric", "valid/loss")
+                metric_mode = cfg.train.additional.get(
+                    "save_top_k_mode", "min")
+                save_checkpoint(
+                    cfg.saved_model_path, epoch, self.trainable_state(),
+                    metric_value=val_metrics.get(metric_name),
+                    metric_mode=metric_mode,
+                )
+            if self.multi_logger is not None:
+                self.multi_logger.log_auto_extrema(self.global_step)
+        if profiler is not None:  # the run ended inside the window
+            _stop_profiler(profiler, profile_dir)
 
     # ------------------------------------------------------------------
     def _eval_loop(self, max_batches: Optional[int] = None) -> List[Dict]:
@@ -101,6 +206,14 @@ class BaseExecutor(MetricsProcessor):
                 break
             outputs.append(self._generative_step(batch, batch_idx))
         return outputs
+
+    def validate(self, max_batches: Optional[int] = None
+                 ) -> Dict[str, float]:
+        outputs = self._eval_loop(max_batches)
+        if not outputs:
+            return {}
+        log_dict = self.evaluate_outputs(outputs, mode="test")
+        return self.logging_results(log_dict, prefix="valid")
 
     def test(self) -> Dict[str, float]:
         num_eval = int(self.config.test.get("num_evaluation", 0) or 0)
@@ -151,22 +264,51 @@ class BaseExecutor(MetricsProcessor):
         return metrics_to_log
 
     # ------------------------------------------------------------------
-    def maybe_load_checkpoint(self) -> str:
-        """Load the test checkpoint that ``config.test`` names; test mode
-        without one raises (reference: base_executor.py:510-537)."""
+    def maybe_load_checkpoint(self) -> Optional[str]:
+        """Load the checkpoint that ``config.test`` (test mode) or
+        ``config.train`` names: test mode without one raises, a train run
+        without one starts afresh, and a train run from one resumes at the
+        epoch after it (reference: base_executor.py:510-537)."""
+        block = self.config.test if self.config.mode == "test" \
+            else self.config.train
         path = get_checkpoint_model_path(
             self.config.saved_model_path,
-            load_epoch=int(self.config.test.get("load_epoch", -1)),
-            load_best_model=bool(self.config.test.get("load_best_model", 0)),
-            load_model_path=self.config.test.get("load_model_path", ""),
+            load_epoch=int(block.get("load_epoch", -1)),
+            load_best_model=bool(block.get("load_best_model", 0)),
+            load_model_path=block.get("load_model_path", ""),
         )
         if path is None:
-            raise FileNotFoundError(
-                "test mode requires a checkpoint but none was found "
-                f"under {self.config.saved_model_path}"
-            )
+            if self.config.mode == "test":
+                raise FileNotFoundError(
+                    "test mode requires a checkpoint but none was found "
+                    f"under {self.config.saved_model_path}"
+                )
+            logger.info("no checkpoint found — first time to train")
+            return None
         state = dict(load_checkpoint(path))
-        state.pop("epoch", None)
+        epoch = state.pop("epoch", None)
         self.load_trainable_state(state)
+        if self.config.mode == "train" and epoch is not None:
+            self.current_epoch = int(epoch) + 1
+            logger.info("resuming from epoch %d", self.current_epoch)
         logger.info("loaded checkpoint %s", path)
         return path
+
+
+def _start_profiler() -> torch.profiler.profile:
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler: torch.profiler.profile, profile_dir: str) -> None:
+    """End the trace and write it under ``profile_dir`` as a Chrome trace
+    (the JAX package writes its ``jax.profiler`` trace there)."""
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "train_steps.trace.json")
+    profiler.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)

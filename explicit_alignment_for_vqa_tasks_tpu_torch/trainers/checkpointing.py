@@ -2,7 +2,9 @@
 
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/trainers/checkpointing.py.
 Only the mapper trains (reference: vct0.py:535-544), so the payload is the
-trainable state tree (the mapper's tensors) plus ``epoch``. The JAX
+trainable state tree (the mapper's tensors; in a train run also the
+optimizer's ``state_dict()``, under ``opt_state``) plus ``epoch``; a run
+resumed from it goes on as the uninterrupted run would. The JAX
 package saves it with Orbax, which the port does not use: each checkpoint
 is a directory ``model_{epoch:02d}`` holding ``trainable_state.pt``
 (``torch.save`` of the tree, tensors on the CPU). The index
@@ -47,6 +49,8 @@ def _save_index(saved_model_path: str, index: Dict[str, Any]) -> None:
 def _to_cpu(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
     return tree

@@ -105,7 +105,8 @@ def ensemble_generate(
 
 @EXECUTORS.register()
 class FewShotVQAExecutor(BaseExecutor):
-    """Eval-only executor (reference: few_shot_vqa_executor.py:139-140)."""
+    """Eval-only executor: training_step is a no-op
+    (reference: few_shot_vqa_executor.py:139-140)."""
 
     def __init__(self, config: Any, data_loader: Any,
                  device: DeviceLike = None):
@@ -138,6 +139,9 @@ class FewShotVQAExecutor(BaseExecutor):
 
     def _to_model(self, array: Any) -> torch.Tensor:
         return torch.as_tensor(array, device=self.model.device)
+
+    def training_step(self, batch: AttrDict, batch_idx: int):
+        return None
 
     def _maybe_calibrate_int8(self) -> None:
         """Deferred int8 quantization (tpu.int8_calibrate_batches > 0):

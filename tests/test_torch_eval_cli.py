@@ -2,8 +2,9 @@
 against the JAX package's, on the CPU at the tiny T5_test size: ``--mode
 test`` writes an answers.pkl equal to the JAX package's main.run on the
 same weights, data and seed, for SimpleTokenizer and the committed subword
-fixture, with the JAX executor's metrics; ``--mode train`` and a
-multi-process launch raise with their ROADMAP items; torch checkpoints
+fixture, with the JAX executor's metrics; ``--mode train`` on the few-shot
+config stops with the JAX package's error and on ClipCap's config raises
+with its ROADMAP item, as a multi-process launch does; torch checkpoints
 keep the JAX package's index, aliases and resolution, and an Orbax
 checkpoint is refused."""
 
@@ -154,10 +155,29 @@ def test_cli_test_mode_equals_jax(tmp_path, cli_env, tokenizer):
 
 
 def test_cli_train_mode_raises(tmp_path, cli_env):
+    """--mode train on the few-shot config: the eval executor's no-op
+    training step over the VQA2 train split, whose questions the fixture's
+    in-context file does not hold; the port stops where the JAX package
+    does, with its error. ClipCap's executor is not ported (item 11)."""
     fixtures = write_vqa_fixtures(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tmain.run(argv(tmp_path, fixtures, "torch", mode="train"),
-                  device="cpu")
+    # a train run has no results_path: the sanity validation writes its
+    # answers.pkl into the working directory (in both packages)
+    cli_env.chdir(tmp_path)
+    errors = []
+    for folder, run in (("jax", jmain.run),
+                        ("torch", lambda a: tmain.run(a, device="cpu"))):
+        train_argv = argv(tmp_path, fixtures, folder, "train.epochs=1",
+                          mode="train")
+        train_argv[0] = os.path.join(REPO_ROOT, train_argv[0])
+        with pytest.raises(KeyError) as raised:
+            run(train_argv)
+        errors.append(str(raised.value))
+    assert errors[0] == errors[1]
+    assert "no in-context examples for question" in errors[1]
+    clip_cap = argv(tmp_path, fixtures, "clip_cap", mode="train")
+    clip_cap[0] = os.path.join(REPO_ROOT, "configs/vqa2/clip_cap.jsonnet")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tmain.run(clip_cap, device="cpu")
 
 
 def test_cli_refuses_more_than_one_process(tmp_path, cli_env):
