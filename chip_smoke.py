@@ -72,11 +72,15 @@ register / shared-memory / spill report):
              the fp32 forms that tpu.compute_dtype=float32 reaches, against
              their plain versions at the main path's shapes:
              t5_attention_core (fp32 q, k, v; B=32, L=557, 32 heads of 64;
-             the CUDA-core kernel of attention_f32.cuh) and
+             the CUDA-core kernel of attention_f32.cuh, its held route) and
              cross_attention_decode (fp32 (24, 32, 557, 2048) caches) within
              FP32_ATOL / FP32_RTOL, each also on B=4, L=130 (a length that
-             is not a multiple of the 64-key tile), every case with one row
-             of PADDED_KEYS masked keys and one fully masked row; and
+             is not a multiple of the 64-key tile), t5_attention_core also
+             on FP32_LONG_LEN (its two-pass route), every case with one row
+             of PADDED_KEYS masked keys and one fully masked row;
+             t5_attention_core's held route and the two-pass route timed
+             in turns at the main shape (the two-pass kernel through its
+             own launcher), beside both routes' bounds and the function's;
              fused_t5_ffn on fp32 x (bf16 weights) by compare_q8's rule, as
              t5_ffn holds the bf16 form; each with kernel, plain, library
              and bound times and its launches a call
@@ -394,6 +398,9 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.ops.fused_attention_block import
     t5_attention_core_plain,
     t5_bias_tiles,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (  # noqa: E402
+    fused_attention_block as port_fab,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.prefix_splice import (  # noqa: E402
     T5_SENTINEL_BASE,
     insert_prefix_into_input,
@@ -505,6 +512,11 @@ PALLAS_COSINE_FLOOR = 0.999        # use_pallas against default, per row
 FP32_ATOL = FP32_RTOL = 1e-5
 FP32_EDGE_BATCH, FP32_EDGE_LEN = 4, 130
 PADDED_KEYS = 100
+# t5_attention_core's fp32 form past its held route's limit (576 at dh 64):
+# the two-pass route
+FP32_LONG_BATCH, FP32_LONG_LEN = 2, 700
+FP32_HELD, FP32_TWO_PASS = ("t5_attention_core_f32_held_launch",
+                            "t5_attention_core_f32_launch")
 # the fp32 config run's encoder against its unfused fp32 encode: the fused
 # FFN rounds its norm and hidden to bf16 (as the Pallas kernel does) where
 # the unfused path keeps fp32, 24 layers deep
@@ -1455,12 +1467,39 @@ def phase_fp32_kernels(gen: torch.Generator) -> dict:
         return err
 
     results = {}
+    check(port_fab.t5_f32_route(length, head_dim) == FP32_HELD
+          and port_fab.t5_f32_route(FP32_LONG_LEN, head_dim) == FP32_TWO_PASS,
+          "t5_attention_core (fp32): the main path's L does not take the "
+          "held route, or FP32_LONG_LEN does not take the two-pass route")
     edge_err = check_attention(attention_args(FP32_EDGE_BATCH, FP32_EDGE_LEN))
+    long_err = check_attention(attention_args(FP32_LONG_BATCH, FP32_LONG_LEN))
     args = attention_args(BATCH, length)
     err = check_attention(args)
     q, k, v, bias, mask, _ = args
     per_call = launched(t5_attention_core, lambda: t5_attention_core(*args))
-    kernel_ms = cuda_ms(lambda: t5_attention_core(*args), iters=5)
+    two_pass = port_fab._launcher(FP32_TWO_PASS)
+    two_pass_out = torch.empty_like(q)
+
+    def call_two_pass():
+        rc = two_pass(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      bias.data_ptr(), mask.data_ptr(),
+                      two_pass_out.data_ptr(), BATCH, length, heads,
+                      head_dim, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"t5_attention_core (fp32, two-pass): cudaError {rc}")
+
+    call_two_pass()
+    torch.cuda.synchronize()
+    two_pass_err = check_fp32("t5_attention_core (fp32, two-pass)",
+                              two_pass_out, t5_attention_core_plain(*args))
+    # the held route and the two-pass route in turns
+    turns = {"held": [], "two_pass": []}
+    for name in ("held", "two_pass", "two_pass", "held"):
+        call = ((lambda: t5_attention_core(*args)) if name == "held"
+                else call_two_pass)
+        turns[name].append(cuda_ms(call, iters=5))
+    kernel_ms = sum(turns["held"]) / 2
+    two_pass_ms = sum(turns["two_pass"]) / 2
+    del two_pass_out
     plain_ms = cuda_ms(lambda: t5_attention_core_plain(*args), iters=3,
                        warmup=1)
     q4, k4, v4 = (x.view(BATCH, length, heads, head_dim).transpose(1, 2)
@@ -1472,14 +1511,21 @@ def phase_fp32_kernels(gen: torch.Generator) -> dict:
             q4, k4, v4, attn_mask=lib_bias, scale=1.0), iters=5)
     del lib_bias, q4, k4, v4
     flops = 4 * BATCH * heads * length * length * head_dim
+    tiled = -(-length // 64) * 64   # the held route's whole 64-row tiles
     results["t5_attention_core_f32"] = dict(
         shape=dict(B=BATCH, L=length, H=heads, dh=head_dim),
         max_abs_err=err, edge=dict(B=FP32_EDGE_BATCH, L=FP32_EDGE_LEN,
                                    max_abs_err=edge_err),
-        padded_keys=PADDED_KEYS, launches_per_call=per_call, ms=kernel_ms,
+        long=dict(B=FP32_LONG_BATCH, L=FP32_LONG_LEN, route=FP32_TWO_PASS,
+                  max_abs_err=long_err),
+        route=FP32_HELD, padded_keys=PADDED_KEYS,
+        launches_per_call=per_call, ms=kernel_ms, turns_ms=turns,
+        two_pass_ms=two_pass_ms, two_pass_max_abs_err=two_pass_err,
         plain_ms=plain_ms, library_ms=library_ms,
         library="scaled_dot_product_attention, fp32, (B, H, L, L) bias",
-        route_bound_ms=1.5 * flops / FP32_FLOP_PER_S * 1e3,
+        route_bound_ms=4 * BATCH * heads * tiled * tiled * head_dim
+        / FP32_FLOP_PER_S * 1e3,
+        two_pass_route_bound_ms=1.5 * flops / FP32_FLOP_PER_S * 1e3,
         **bound(4 * q.numel() * 4 + bias.numel() * 4 + mask.numel() * 4,
                 flops, FP32_FLOP_PER_S))
     del args, q, k, v, bias, mask

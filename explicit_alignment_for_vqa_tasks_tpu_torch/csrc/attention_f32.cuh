@@ -18,10 +18,46 @@
 // multiply and add outside the dots is __fmul_rn / __fadd_rn, so that nvcc
 // contracts nothing the plain PyTorch version does not have.
 //
-// Design (simple and right first): two passes over the keys, so any Lq and
-// Lk (no score row is held whole). A block of 256 threads takes 64 query
-// rows of one (b, h), Q in shared memory; key tiles of 64 keys (K and V, in
-// shared memory, zero past Lk) stream through it.
+// Two routes, chosen by Lk alone (held_smem_bytes; the wrapper reckons the
+// same bytes from the same constants, and launch_held refuses an Lk whose
+// rows do not fit):
+//
+// The held route (attention_f32_held_kernel), where a block's score rows fit
+// its shared memory, as the TPU kernel holds its (L, L) score block in VMEM:
+// a block of 256 threads takes HELD_ROWS = 64 query rows of one (b, h) and
+// keeps their fp32 scores over all keys (Lk rounded up to 64-key tiles, the
+// row stride that plus 8 floats) in dynamic shared memory.
+//   q . k^T  once: each step takes two 64-key K tiles; each thread computes
+//            8 rows x 4 keys (rows rg + 8 i, keys kg + 32 j; a warp is 4
+//            rows x 8 keys), the same fmaf chain over dh in order as the
+//            two-pass route, then the scale, bias, mask and -inf past Lk
+//            (the bias and mask loaded before the dots); it writes s into
+//            the score rows and keeps its rows' max;
+//   softmax  the rows' max across the block, then p = exp(s - m) written
+//            over s in place (__fsub_rn, expf) with each row's sum: warp w
+//            takes rows 8 w .. 8 w + 7, lane l float4 column l of each step,
+//            the first step's before P . V and step t + 1's during step t's
+//            P . V (loaded before the product, stored after it, so that the
+//            exponentials run under it);
+//   P . V    each step takes two 64-key V tiles; the two halves of the block
+//            take keys 0-31 and 32-63 of each tile, each thread 8 rows x 4
+//            dims (8 x 8 at dh 128); the halves' sums are added once at the
+//            end, then divided by the row's sum.
+// Q, K and V come by cp.async (16 bytes a thread, zero-filled past Lq and
+// Lk) into a ring of four 64-key slots: a step's two tiles are copied while
+// the step before runs (the first V tiles while the softmax starts). Tiles
+// are stored unpadded, 16-byte chunk c of row r at c ^ (r & 7), so that the
+// 8 keys (or rows) a warp reads at one chunk fall in 8 distinct bank groups.
+// So the scores, the max and every p are bit for bit the two-pass route's;
+// only the order of the denominator's sum and of P . V differ.
+//
+// Shared memory: 4 (64 dh + 4 x 64 dh + 64 (Lk_pad + 8)) bytes, at most
+// MAX_SMEM = 232,448 (the most an H100 gives a block): Lk <= 576 at dh 64,
+// Lk <= 256 at dh 128. One block an SM.
+//
+// The two-pass route (attention_f32_kernel), for any longer Lk: a block of
+// 256 threads takes 64 query rows, Q in shared memory; key tiles of 64 keys
+// (K and V, in shared memory, zero past Lk) stream through it.
 //   pass 1  each thread computes 4 rows x 4 keys of s (rows ty + 16 i, keys
 //           tx + 16 j, ty and tx of 16), fed by float4 reads of Q's and K's
 //           rows (a 68-float row stride: conflict-free), keeps its rows'
@@ -30,16 +66,35 @@
 //   pass 2  recomputes the same s bit for bit, p = exp(s - m), sums p, puts
 //           p in shared memory, then each thread accumulates 4 rows x 4
 //           dims of o (dims 4 tx + 64 g) from float4s of P and V.
+//
 // Keys past Lk take no part (s = -inf, p = 0); rows past Lq are not stored.
 // The grid is (b, query tile, head), b fastest, so that the blocks at work
 // share one head's bias tile in L2.
 //
 // What bounds it (H100 SXM, 67 TFLOP/s fp32 outside the tensor cores): the
-// function does 4 B H Lq Lk dh operations (q . k^T and p . v); this route
-// does q . k^T twice, 6 B H Lq Lk dh. At T5's B = 32, L = 557, 32 heads of
-// 64 that is 81.3 GFLOP (1.21 ms) for the function and 122 GFLOP (1.82 ms)
-// for the route; the bytes (q, k, v, out, 73 MB each, and the 40 MB bias)
-// take 0.1 ms. Bound by operations.
+// function does 4 B H Lq Lk dh operations (q . k^T and p . v). At T5's
+// B = 32, L = 557, 32 heads of 64 that is 81.3 GFLOP (1.21 ms); the held
+// route computes on whole 64-row and 64-key tiles, 576 x 576 (87.0 GFLOP,
+// 1.30 ms); the two-pass route does q . k^T twice, 6 B H Lq Lk dh (122
+// GFLOP, 1.82 ms). The bytes (q, k, v, out, 73 MB each, and the 40 MB bias)
+// take 0.1 ms. Bound by operations. What feeds the FMA pipes: per 4 dims a
+// warp of the held route makes 12 shared-memory loads of 16 bytes a
+// thread, each one wavefront (the 8 lanes of a row, or of a key, read one
+// address), against 128 FFMA instructions: each word a thread reads feeds 4
+// (Q, P) or 8 (K, V) FMAs, and the loads take 37.5 % of the FMA pipes' time
+// (the two-pass route's 4 x 4 tiles: 12 wavefronts against 64 FFMAs, 75 %).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W at those shapes: the held
+// route 3.11 ms, the two-pass route 5.16 ms and fp32
+// scaled_dot_product_attention 5.02 ms in the same call (chip_smoke.py's
+// fp32_kernels); by part (tools/kernel_probe.py --f32-split) the dots of
+// q . k^T add 1.00 ms (65 % of their share of the FMA rate), P . V 0.83 ms
+// (78 %), the bias 0.11, the key mask 0.10 and the exponentials 0.07 ms
+// (under P . V); the rest, 0.91 ms, is the copies, barriers, score stores
+// and each block's start and end with one block an SM. The scores on the
+// tensor cores as six bf16-plane products (the variant that
+// tools/kernel_probe.py --f32-variants timed) took 3.21 ms against this
+// route's 3.01 in the same call.
 
 #pragma once
 
@@ -297,6 +352,415 @@ inline int attention(const Args& a, int dh, cudaStream_t stream) {
   switch (dh) {
     case 64: return launch<64>(a, stream);
     case 128: return launch<128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// --- the held route ---------------------------------------------------------
+
+constexpr int HELD_ROWS = 64;    // query rows a block
+constexpr int HELD_TILE = 64;    // keys a ring slot
+constexpr int HELD_SLOTS = 4;    // ring slots: a step's two tiles, the next's
+constexpr int HELD_PAD = 8;      // floats past Lk_pad a score row: 4 rows of
+                                 // one column fall in 4 distinct bank groups
+constexpr size_t MAX_SMEM = 232448;  // the most an H100 gives a block
+
+// The held route's dynamic shared memory for Lk keys at head size dh: Q,
+// the ring and the score rows (Lk rounded up to whole tiles, plus the pad).
+__host__ __device__ constexpr size_t held_smem_bytes(int lk, int dh) {
+  return sizeof(float) *
+         (static_cast<size_t>(HELD_ROWS) * dh +
+          static_cast<size_t>(HELD_SLOTS) * HELD_TILE * dh +
+          static_cast<size_t>(HELD_ROWS) *
+              ((lk + HELD_TILE - 1) / HELD_TILE * HELD_TILE + HELD_PAD));
+}
+
+__device__ inline void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// `rows` rows of a (.., DH) fp32 operand, global row r0 + r from src (rows
+// ld apart) into shared row r, 16-byte chunk c at c ^ (r & 7); zero from
+// global row `valid` on. A thread copies chunk threadIdx.x % (DH / 4) of
+// every NT / (DH / 4)-th row: a multiple of 8 rows, so one swizzle.
+template <int DH>
+__device__ inline void copy_rows(float* dst, const float* src, long long ld,
+                                 int rows, int r0, int valid) {
+  constexpr int C4 = DH / 4, RSTEP = NT / C4;
+  static_assert(RSTEP % 8 == 0, "a thread's rows share one swizzle");
+  const int c = threadIdx.x % C4;
+  int r = threadIdx.x / C4;
+  const float* from = src + static_cast<long long>(r0 + r) * ld + 4 * c;
+  float* to = dst + r * DH + 4 * (c ^ (r & 7));
+  for (; r < rows; r += RSTEP, from += RSTEP * ld, to += RSTEP * DH) {
+    const bool in = r0 + r < valid;
+    cp_async16(to, in ? from : src, in);
+  }
+}
+
+// q . k^T of one step (keys k0 .. k0 + 32 NJ - 1; NJ = 4: two tiles, 2: the
+// last, odd one) for this thread's 8 rows x NJ keys (rows rg + 8 i, keys
+// kg + 32 j), each an fmaf chain over dh in order; then the scale, the
+// bias, the key mask and -inf past Lk; s into the score rows S, the rows'
+// running max into mx. bias: this thread's first row of the (b, h) bias
+// (null without one), its rows brow floats apart; mask: row b of the key
+// mask (or null); rows: how many of the thread's rows lie before Lq.
+template <int DH, int NJ>
+__device__ inline void held_scores(const Args& a, const float* Qs,
+                                   const float* Kp, float* S, int sld,
+                                   const float* bias, int brow,
+                                   const int* mask, int rows, int k0, int rg,
+                                   int kg, float (&mx)[8]) {
+  constexpr int C4 = DH / 4;
+  // the bias and the key mask first, so that their loads run under the dots
+  bool in[NJ];
+  float key_bias[NJ], bv[8][NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int key = k0 + kg + 32 * j;
+    in[j] = key < a.Lk;
+    key_bias[j] =
+        (in[j] && mask != nullptr && mask[key] <= 0) ? MASK_NEG : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      bv[i][j] = (bias != nullptr && in[j] && i < rows)
+                     ? bias[8 * i * brow + key]
+                     : 0.0f;
+    }
+  }
+  float s[8][NJ];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[i][j] = 0.0f;
+  }
+  const float* Qr = Qs + rg * DH;  // rows rg + 8 i: (row & 7) == rg
+  const float* Kr = Kp + kg * DH;  // keys kg + 32 j: (key & 7) == kg & 7
+  const int xk = kg & 7;
+#pragma unroll 8
+  for (int c = 0; c < C4; ++c) {
+    float4 qv[8], kv[NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      qv[i] = *reinterpret_cast<const float4*>(Qr + 8 * i * DH +
+                                               4 * (c ^ rg));
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      kv[j] = *reinterpret_cast<const float4*>(Kr + 32 * j * DH +
+                                               4 * (c ^ xk));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float t = s[i][j];
+        t = fmaf(qv[i].x, kv[j].x, t);
+        t = fmaf(qv[i].y, kv[j].y, t);
+        t = fmaf(qv[i].z, kv[j].z, t);
+        t = fmaf(qv[i].w, kv[j].w, t);
+        s[i][j] = t;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float t = __fmul_rn(s[i][j], a.scale);
+      if (bias != nullptr && in[j] && i < rows) t = __fadd_rn(t, bv[i][j]);
+      if (mask != nullptr) t = __fadd_rn(t, key_bias[j]);
+      t = in[j] ? t : -INFINITY;
+      mx[i] = fmaxf(mx[i], t);
+      S[(rg + 8 * i) * sld + k0 + kg + 32 * j] = t;
+    }
+  }
+}
+
+// p = exp(s - m) of a warp's 8 score rows, one float4 column of each (P
+// holds the first row's), loaded, computed, then stored: the loads come
+// before a product and the stores after it, so that the exponentials run
+// under the product.
+__device__ inline void load_p4(const float* P, int sld, float4 (&x)[8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    x[r] = *reinterpret_cast<const float4*>(P + r * sld);
+  }
+}
+
+__device__ inline void exp_p4(const float (&m)[8], float4 (&x)[8],
+                              float (&sum)[8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    x[r].x = expf(__fsub_rn(x[r].x, m[r]));
+    x[r].y = expf(__fsub_rn(x[r].y, m[r]));
+    x[r].z = expf(__fsub_rn(x[r].z, m[r]));
+    x[r].w = expf(__fsub_rn(x[r].w, m[r]));
+    sum[r] = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fadd_rn(sum[r], x[r].x), x[r].y), x[r].z),
+        x[r].w);
+  }
+}
+
+__device__ inline void store_p4(float* P, int sld, const float4 (&x)[8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    *reinterpret_cast<float4*>(P + r * sld) = x[r];
+  }
+}
+
+// o += P . V over keys 32 half .. 32 half + 31 of one V tile (Vt, shared)
+// for this thread's 8 rows x 4 G dims; P holds the tile's columns of the
+// thread's first row.
+template <int DH>
+__device__ inline void held_pv(const float* P, const float* Vt, int sld,
+                               int half, int dg,
+                               float (&o)[8][DH / 64][4]) {
+  constexpr int G = DH / 64;
+  const float* Pr = P + 32 * half;
+  const float* Vr = Vt + 32 * half * DH;
+#pragma unroll
+  for (int kk = 0; kk < 32; kk += 4) {
+    float4 pv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      pv[i] = *reinterpret_cast<const float4*>(Pr + 8 * i * sld + kk);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kk + e;  // (key & 7) is the row's swizzle
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            Vr + key * DH + 4 * ((dg + 16 * g) ^ (key & 7)));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float p = e == 0 ? pv[i].x
+                          : e == 1 ? pv[i].y
+                          : e == 2 ? pv[i].z
+                                   : pv[i].w;
+          o[i][g][0] = fmaf(p, vv.x, o[i][g][0]);
+          o[i][g][1] = fmaf(p, vv.y, o[i][g][1]);
+          o[i][g][2] = fmaf(p, vv.z, o[i][g][2]);
+          o[i][g][3] = fmaf(p, vv.w, o[i][g][3]);
+        }
+      }
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(NT, 1)
+attention_f32_held_kernel(const Args a) {
+  constexpr int G = DH / 64;
+  constexpr int SLOT = HELD_TILE * DH;  // floats a ring slot
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* ring = Qs + HELD_ROWS * DH;
+  float* S = ring + HELD_SLOTS * SLOT;
+  const int tiles = (a.Lk + HELD_TILE - 1) / HELD_TILE;
+  const int sld = tiles * HELD_TILE + HELD_PAD;
+  const int steps = (tiles + 1) / 2;  // steps of two tiles, each product
+
+  const int b = blockIdx.x, q0 = blockIdx.y * HELD_ROWS, h = blockIdx.z;
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  const float* kb = a.k + static_cast<long long>(b) * a.Lk * a.ldk + h * DH;
+  const float* vb = a.v + static_cast<long long>(b) * a.Lk * a.ldk + h * DH;
+
+  // copy t < steps holds K tiles 2t, 2t + 1, copy steps + t the V tiles
+  // 2t, 2t + 1, in slots 2 (t % 2) and 2 (t % 2) + 1
+  auto copy_step = [&](int t) {
+    const bool is_v = t >= steps;
+    const int key0 = 2 * HELD_TILE * (is_v ? t - steps : t);
+    copy_rows<DH>(ring + 2 * (t % 2) * SLOT, is_v ? vb : kb, a.ldk,
+                  2 * HELD_TILE, key0, a.Lk);
+  };
+
+  copy_rows<DH>(Qs,
+                a.q + static_cast<long long>(b) * a.Lq * a.ldq + h * DH,
+                a.ldq, HELD_ROWS, q0, a.Lq);
+  copy_step(0);
+  cp_async_commit();
+
+  // q . k^T: 8 rows x 4 keys a thread, a warp 4 rows x 8 keys
+  const int rg = 4 * (w % 2) + l / 8, kg = 8 * (w / 2) + l % 8;
+  const int rows = a.Lq - q0 - rg <= 0 ? 0 : (a.Lq - q0 - rg + 7) / 8;
+  const int brow = static_cast<int>(a.bias_row);
+  const float* bias =
+      a.bias == nullptr
+          ? nullptr
+          : a.bias + b * a.bias_b + h * a.bias_h +
+                static_cast<long long>(q0 + rg) * a.bias_row;
+  const int* mask =
+      a.mask == nullptr ? nullptr
+                        : a.mask + static_cast<long long>(b) * a.Lk;
+  float mx[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx[i] = -INFINITY;
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // step t's tiles are in; step t - 1's slots are free
+    copy_step(t + 1);
+    cp_async_commit();
+    const float* Kp = ring + 2 * (t % 2) * SLOT;
+    const int k0 = 2 * HELD_TILE * t;
+    if (k0 + HELD_TILE < a.Lk) {
+      held_scores<DH, 4>(a, Qs, Kp, S, sld, bias, brow, mask, rows, k0, rg,
+                         kg, mx);
+    } else {
+      held_scores<DH, 2>(a, Qs, Kp, S, sld, bias, brow, mask, rows, k0, rg,
+                         kg, mx);
+    }
+  }
+
+  // each row's max (Q's buffer holds the 4 key columns' maxima, then the
+  // rows' sums); warp w then takes rows 8 w .. 8 w + 7 of p, float4 column
+  // l of each step, the first step's now and step t + 1's under step t's
+  // P . V
+  float* red = Qs;
+  float* denom = Qs + 4 * HELD_ROWS;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+    }
+  }
+  __syncthreads();  // Q is no longer read
+  if (l % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) red[(w / 2) * HELD_ROWS + rg + 8 * i] = mx[i];
+  }
+  __syncthreads();
+  float m[8], sum[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = 8 * w + r;
+    m[r] = fmaxf(fmaxf(red[row], red[HELD_ROWS + row]),
+                 fmaxf(red[2 * HELD_ROWS + row], red[3 * HELD_ROWS + row]));
+    sum[r] = 0.0f;
+  }
+  float* Pw = S + 8 * w * sld + 4 * l;  // this lane's column of step 0
+  if (4 * l < (tiles < 2 ? tiles : 2) * HELD_TILE) {
+    float4 x[8];
+    load_p4(Pw, sld, x);
+    exp_p4(m, x, sum);
+    store_p4(Pw, sld, x);
+  }
+
+  // P . V: half 0 (warps 0-3) takes keys 0-31 of each tile, half 1 keys
+  // 32-63; a thread 8 rows x 4 G dims, a warp 4 rows x 8 float4 columns
+  const int half = w / 4, wh = w % 4;
+  const int pr = 4 * (wh % 2) + l / 8, dg = 8 * (wh / 2) + l % 8;
+  float o[8][G][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][g][e] = 0.0f;
+    }
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // step t's V tiles and p are in
+    if (t + 1 < steps) copy_step(steps + t + 1);
+    cp_async_commit();
+    // p of step t + 1 (its columns 2 HELD_TILE (t + 1) + 4 l)
+    const int next = 2 * HELD_TILE * (t + 1) + 4 * l;
+    const bool exp_next = next < tiles * HELD_TILE;
+    float4 x[8];
+    if (exp_next) {
+      load_p4(Pw + 2 * HELD_TILE * (t + 1), sld, x);
+      exp_p4(m, x, sum);
+    }
+    const float* Vp = ring + 2 * ((steps + t) % 2) * SLOT;
+    const int tile = 2 * t;
+    held_pv<DH>(S + pr * sld + tile * HELD_TILE, Vp, sld, half, dg, o);
+    if (tile + 1 < tiles) {
+      held_pv<DH>(S + pr * sld + (tile + 1) * HELD_TILE, Vp + SLOT, sld,
+                  half, dg, o);
+    }
+    if (exp_next) store_p4(Pw + 2 * HELD_TILE * (t + 1), sld, x);
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], off));
+    }
+  }
+  if (l == 0) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) denom[8 * w + r] = sum[r];
+  }
+
+  // the halves' sums through the ring, then o / denom
+  __syncthreads();  // the ring is no longer read; every row's sum is written
+  float* part = ring + half * HELD_ROWS * DH;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      *reinterpret_cast<float4*>(part + (pr + 8 * i) * DH +
+                                 4 * (dg + 16 * g)) =
+          make_float4(o[i][g][0], o[i][g][1], o[i][g][2], o[i][g][3]);
+    }
+  }
+  __syncthreads();
+  constexpr int C4 = DH / 4;
+  for (int idx = threadIdx.x; idx < HELD_ROWS * C4; idx += NT) {
+    const int r = idx / C4, c = idx % C4;
+    if (q0 + r >= a.Lq) break;
+    const float4 x = *reinterpret_cast<const float4*>(ring + r * DH + 4 * c);
+    const float4 y = *reinterpret_cast<const float4*>(
+        ring + (HELD_ROWS + r) * DH + 4 * c);
+    const float d = denom[r];
+    *reinterpret_cast<float4*>(
+        a.out + (static_cast<long long>(b) * a.Lq + q0 + r) * a.ldo +
+        h * DH + 4 * c) =
+        make_float4(__fdiv_rn(__fadd_rn(x.x, y.x), d),
+                    __fdiv_rn(__fadd_rn(x.y, y.y), d),
+                    __fdiv_rn(__fadd_rn(x.z, y.z), d),
+                    __fdiv_rn(__fadd_rn(x.w, y.w), d));
+  }
+}
+
+// cudaErrorInvalidValue, and nothing launched, where the score rows do not
+// fit (held_smem_bytes(Lk, DH) > MAX_SMEM) or the arguments are out of range.
+template <int DH>
+int launch_held(const Args& a, cudaStream_t stream) {
+  const int tiles = (a.Lq + HELD_ROWS - 1) / HELD_ROWS;
+  if (a.B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || tiles > 65535 ||
+      a.H > 65535 || a.ldq % 4 || a.ldk % 4 || a.ldo % 4 ||
+      held_smem_bytes(a.Lk, DH) > MAX_SMEM) {
+    return cudaErrorInvalidValue;
+  }
+  const auto kernel = attention_f32_held_kernel<DH>;
+  const size_t bytes = held_smem_bytes(a.Lk, DH);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.B, tiles, a.H), NT, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int attention_held(const Args& a, int dh, cudaStream_t stream) {
+  switch (dh) {
+    case 64: return launch_held<64>(a, stream);
+    case 128: return launch_held<128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -28,10 +28,15 @@
 //
 // The fp32 form (q, k, v and o fp32, as tpu.compute_dtype=float32 reaches
 // it; p kept in fp32, the Pallas kernel's astype(q.dtype)) is
-// attention_f32.cuh's CUDA-core kernel with scale 1, the (H, L, L) bias as
-// it is and the key mask: two passes over the keys, any L, head sizes 64
-// and 128. Its note gives the design and the bound (1.21 ms by operations
-// at the main path's shapes; its route's 1.82).
+// attention_f32.cuh's CUDA-core attention with scale 1, the (H, L, L) bias
+// as it is and the key mask, head sizes 64 and 128, by one of two routes
+// that L alone chooses: t5_attention_core_f32_held_launch where a block's
+// 64 score rows fit its shared memory (L <= 576 at dh 64, <= 256 at dh 128:
+// q . k^T once into the held rows, softmax in place, P . V from them, K and
+// V by cp.async into a ring), t5_attention_core_f32_launch (two passes over
+// the keys) for any L. Its note gives the design and the bound (1.21 ms by
+// operations at the main path's shapes; the held route's 1.30 on its whole
+// tiles, the two-pass route's 1.82).
 
 #include <cuda_runtime.h>
 
@@ -49,21 +54,45 @@ extern "C" int t5_attention_core_launch(const void* q, const void* k,
                                    bias_tiles, mask);
 }
 
-// The fp32 form: q, k, v, out (B, L, H*dh) fp32, bias (H, L, L) fp32 as it
-// is, mask (B, L) int32. Launch on `stream`; returns the cudaError_t of the
-// launch (0 on success).
-extern "C" int t5_attention_core_f32_launch(const void* q, const void* k,
-                                            const void* v, const void* bias,
-                                            const void* mask, void* out,
-                                            int B, int L, int H, int dh,
-                                            void* stream) {
+namespace {
+
+// q, k, v, out (B, L, H*dh) fp32, bias (H, L, L) fp32 as it is, mask (B, L)
+// int32
+attention_f32::Args f32_args(const void* q, const void* k, const void* v,
+                             const void* bias, const void* mask, void* out,
+                             int B, int L, int H, int dh) {
   const int D = H * dh;
-  const attention_f32::Args args{
+  return attention_f32::Args{
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       0, static_cast<long long>(L) * L, L,
       static_cast<const int*>(mask), static_cast<float*>(out),
       B, L, L, H, D, D, D, 1.0f};
-  return attention_f32::attention(args, dh,
-                                  static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// The fp32 form by the two-pass route (any L). Launch on `stream`; returns
+// the cudaError_t of the launch (0 on success).
+extern "C" int t5_attention_core_f32_launch(const void* q, const void* k,
+                                            const void* v, const void* bias,
+                                            const void* mask, void* out,
+                                            int B, int L, int H, int dh,
+                                            void* stream) {
+  return attention_f32::attention(
+      f32_args(q, k, v, bias, mask, out, B, L, H, dh), dh,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The fp32 form by the held route: cudaErrorInvalidValue, and nothing
+// launched, for an L whose score rows do not fit a block's shared memory.
+extern "C" int t5_attention_core_f32_held_launch(const void* q, const void* k,
+                                                 const void* v,
+                                                 const void* bias,
+                                                 const void* mask, void* out,
+                                                 int B, int L, int H, int dh,
+                                                 void* stream) {
+  return attention_f32::attention_held(
+      f32_args(q, k, v, bias, mask, out, B, L, H, dh), dh,
+      static_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,9 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
 
   * ``t5_attention_core`` (:1105-1180), kernel ``csrc/t5_attention_core.cu``
     over ``csrc/vit_attention_wgmma.cuh`` (bf16; two passes, any L) and,
-    for fp32 q, k and v, over ``csrc/attention_f32.cuh`` (CUDA cores, two
-    passes, any L);
+    for fp32 q, k and v, over ``csrc/attention_f32.cuh`` (CUDA cores; where
+    a block's score rows fit its shared memory, ``t5_f32_route``, q·kᵀ once
+    into them and P·V from them, else two passes, any L);
   * the int8 bulk-eval trio ``fused_t5_ln_qkv_q8`` (:1635-1677),
     ``fused_oproj_residual_q8`` (:1695-1728) and ``fused_t5_ffn_q8``
     (:1547-1603), kernels in ``csrc/int8_encoder.cu``;
@@ -76,6 +77,10 @@ NEG_INF = -1e9
 _SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 # the fp32 attention of csrc/attention_f32.cuh: whole 64-dim groups a head
 _F32_HEAD_DIMS = (64, 128)
+# its held route's query rows a block, keys a ring slot, ring slots, floats
+# past the last tile a score row, and the most shared memory a block gets
+_F32_HELD_ROWS, _F32_HELD_TILE, _F32_HELD_SLOTS, _F32_HELD_PAD = 64, 64, 4, 8
+_F32_MAX_SMEM = 232448
 _max_len_cache: dict = {}
 
 
@@ -137,6 +142,26 @@ def t5_bias_tiles(pos_bias: torch.Tensor) -> torch.Tensor:
     # (h, block, tile, g, w, gid, tig, half, e)
     return padded.view(heads, blocks, 4, 2, 8, tiles, 8, 4, 2).permute(
         0, 1, 5, 6, 2, 4, 7, 3, 8).contiguous()
+
+
+def t5_f32_held_smem_bytes(seq: int, head_dim: int) -> int:
+    """The shared memory of the fp32 kernel's held route for ``seq`` keys
+    (``held_smem_bytes`` of ``csrc/attention_f32.cuh``): Q's rows, the ring
+    of K / V tiles and the score rows over whole key tiles, fp32."""
+    keys = -(-seq // _F32_HELD_TILE) * _F32_HELD_TILE
+    return 4 * (_F32_HELD_ROWS * head_dim
+                + _F32_HELD_SLOTS * _F32_HELD_TILE * head_dim
+                + _F32_HELD_ROWS * (keys + _F32_HELD_PAD))
+
+
+def t5_f32_route(seq: int, head_dim: int) -> str:
+    """The launcher of ``t5_attention_core``'s fp32 form for length
+    ``seq``: the held route where its score rows fit a block's shared
+    memory, the two-pass route (any length) past that. The held launcher
+    refuses the lengths it cannot hold, so the two limits cannot part."""
+    if t5_f32_held_smem_bytes(seq, head_dim) <= _F32_MAX_SMEM:
+        return "t5_attention_core_f32_held_launch"
+    return "t5_attention_core_f32_launch"
 
 
 def _kernel_max_len(lib: str, symbol: str, head_dim: int) -> int:
@@ -219,7 +244,8 @@ def t5_attention_core(
     reads the bias as ``t5_bias_tiles(pos_bias)``: the caller may pass it
     (the encoder builds it once for its layers), and it is made here
     otherwise. fp32 q, k, v take the CUDA-core kernel, which reads
-    ``pos_bias`` as it is (no ``bias_tiles``)."""
+    ``pos_bias`` as it is (no ``bias_tiles``), by the route that
+    ``t5_f32_route`` gives for L."""
     if q.device.type == "cpu":
         return t5_attention_core_plain(q, k, v, pos_bias, mask, num_heads)
     kernels.refuse_grad("t5_attention_core", q, k, v, pos_bias,
@@ -231,7 +257,7 @@ def t5_attention_core(
             raise ValueError(
                 "t5_attention_core: bias_tiles is the bf16 kernel's layout; "
                 "the fp32 kernel reads pos_bias as it is")
-        symbol, bias = "t5_attention_core_f32_launch", pos_bias
+        symbol, bias = t5_f32_route(seq, head_dim), pos_bias
     else:
         if bias_tiles is None:
             bias_tiles = t5_bias_tiles(pos_bias)

@@ -18,6 +18,10 @@ time it.
         --attention-variants DIR [DIR ...]
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --flash-variants DIR [DIR ...]
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --f32-variants DIR [DIR ...]
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --f32-split
 
 Shapes: ``fused_t5_ffn`` at M = 32 x 557 rows, D = 2048, F = 5120 (gated),
 with a SHA-256 of its bf16 output (the inputs come from a seeded generator,
@@ -74,7 +78,15 @@ with its ptxas serialization warnings, spills and registers), checked
 against the plain version and timed at ViT-L/14@336 with B = 256, in turns
 (the list, then reversed); with ``--flash-variants`` alone, the same for
 ``flash_attention`` (checked within one bf16 ulp on 16 images and at head
-size 128, with the share of outputs that differ from plain).
+size 128, with the share of outputs that differ from plain); with
+``--f32-variants`` alone, ``t5_attention_core``'s fp32 form built from each
+given copy of ``csrc/`` (versions of ``attention_f32.cuh``), checked within
+1e-5 + 1e-5 |want| of the plain version at the main path's shape and at
+L = 1, 65 and 130, and timed at the main path's shape in turns; with
+``--f32-split`` alone, the held route of that fp32 form timed at the main
+path's shape whole and with one part cut at a time (the dots of q . k^T,
+P . V, the exponentials, the bias, the key mask), each cut copy of
+``csrc/`` built under ``build/f32split/``, in turns: what each part adds.
 Prints one line per report and per kernel; ``chip_smoke.py`` makes the full
 measurement.
 """
@@ -492,6 +504,14 @@ def main() -> None:
         print(torch.cuda.get_device_name(0), flush=True)
         flash_variants([Path(d).resolve() for d in sys.argv[2:]])
         return
+    if sys.argv[1:2] == ["--f32-variants"]:
+        print(torch.cuda.get_device_name(0), flush=True)
+        f32_variants([Path(d).resolve() for d in sys.argv[2:]])
+        return
+    if "--f32-split" in sys.argv[1:]:
+        print(torch.cuda.get_device_name(0), flush=True)
+        f32_split()
+        return
     if sys.argv[1:2] == ["--q8-variants"]:
         q8_variants([Path(d).resolve() for d in sys.argv[2:]])
         return
@@ -778,6 +798,102 @@ def attention_variants(dirs: List[Path]) -> None:
                          f"{(err > 0).float().mean().item()} of the outputs "
                          f"differ, {ms} ms")
         print(f"{d}: " + "; ".join(parts), flush=True)
+
+
+def f32_attention_case(batch: int, seq: int, heads: int, head_dim: int,
+                       gen: torch.Generator) -> tuple:
+    """t5_attention_core's fp32 arguments: q, k at 0.5 N(0, 1), v uniform
+    in [-1, 1), a bias at 0.5 N(0, 1); row 0 with 100 masked keys (7 below
+    L = 130), the last row fully masked."""
+    width = heads * head_dim
+    q, k = (torch.randn((batch, seq, width), generator=gen,
+                        device="cuda").mul_(0.5) for _ in range(2))
+    v = torch.rand((batch, seq, width), generator=gen,
+                   device="cuda").mul_(2).sub_(1)
+    bias = torch.randn((heads, seq, seq), generator=gen,
+                       device="cuda").mul_(0.5)
+    mask = torch.ones((batch, seq), dtype=torch.int32, device="cuda")
+    mask[0, seq - (100 if seq > 130 else 7):] = 0
+    mask[batch - 1] = 0
+    return q, k, v, bias, mask, heads
+
+
+def f32_variants(dirs: List[Path]) -> None:
+    """t5_attention_core's fp32 form from each csrc copy in ``dirs``: built
+    in parallel (one process each), checked against the plain version, then
+    timed at B = 32, L = 557, 32 heads of 64 in turns (the list, then
+    reversed)."""
+    built = build_variants(dirs, ["t5_attention_core"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks = {f"B={b} L={n} H={h} dh={d}": f32_attention_case(b, n, h, d, gen)
+              for b, n, h, d in ((32, 557, 32, 64), (2, 1, 3, 64),
+                                 (3, 65, 4, 64), (4, 130, 5, 128))}
+    want = {name: fab.t5_attention_core_plain(*a)
+            for name, a in checks.items()}
+    timed = checks["B=32 L=557 H=32 dh=64"]
+    for d in built + built[::-1]:
+        kernels.CSRC_DIR = d
+        kernels._loaded.clear()
+        parts = []
+        for name, args in checks.items():
+            err = (fab.t5_attention_core(*args) - want[name]).abs()
+            ok = bool((err <= 1e-5 + 1e-5 * want[name].abs()).all())
+            parts.append(f"{name}: within 1e-5 {ok}, max abs err "
+                         f"{err.max().item()}")
+        ms = cuda_ms(lambda: fab.t5_attention_core(*timed), 10)
+        print(f"{d}: " + "; ".join(parts) + f"; B=32 L=557 {ms} ms",
+              flush=True)
+
+
+# the held route's parts, each cut from a copy of csrc/ (file, text, cut)
+F32_CUTS = {
+    "dots": ("attention_f32.cuh", "  for (int c = 0; c < C4; ++c) {\n"
+             "    float4 qv[8], kv[NJ];",
+             "  for (int c = 0; c < C4 * (a.B < 0); ++c) {\n"
+             "    float4 qv[8], kv[NJ];"),
+    "pv": ("attention_f32.cuh", "held_pv<DH>(S + pr",
+           "if (a.B < 0) held_pv<DH>(S + pr"),
+    "exp": ("attention_f32.cuh", "exp_p4(m, x, sum);",
+            "if (a.B < 0) exp_p4(m, x, sum);"),
+    "bias": ("t5_attention_core.cu", "static_cast<const float*>(bias),",
+             "nullptr,"),
+    "mask": ("t5_attention_core.cu", "static_cast<const int*>(mask),",
+             "nullptr,"),
+}
+
+
+def f32_split() -> None:
+    """The fp32 held route at B = 32, L = 557, 32 heads of 64: whole, and
+    with each of F32_CUTS cut (its output then meaningless), timed in turns;
+    prints each time and what the cut part adds to the whole."""
+    dirs = {}
+    for name in ("whole", *F32_CUTS):
+        d = kernels.BUILD_DIR.parent / "f32split" / name
+        if d.exists():
+            shutil.rmtree(d)
+        shutil.copytree(kernels.CSRC_DIR, d)
+        if name in F32_CUTS:
+            file, old, new = F32_CUTS[name]
+            text = (d / file).read_text()
+            if old not in text:
+                raise SystemExit(f"kernel_probe: {name}: not in {file}")
+            (d / file).write_text(text.replace(old, new))
+        dirs[name] = d.resolve()
+    built = build_variants(list(dirs.values()), ["t5_attention_core"])
+    if len(built) != len(dirs):
+        raise SystemExit("kernel_probe: a cut copy did not build")
+    args = f32_attention_case(32, 557, 32, 64,
+                              torch.Generator(device="cuda").manual_seed(0))
+    times = {name: [] for name in dirs}
+    for name in list(dirs) + list(dirs)[::-1]:
+        kernels.CSRC_DIR = dirs[name]
+        kernels._loaded.clear()
+        times[name].append(cuda_ms(lambda: fab.t5_attention_core(*args), 10))
+    whole = sum(times["whole"]) / 2
+    for name, ms in times.items():
+        print(f"f32 split {name}: {ms} ms"
+              + ("" if name == "whole" else
+                 f"; the part adds {whole - sum(ms) / 2} ms"), flush=True)
 
 
 def within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> tuple:

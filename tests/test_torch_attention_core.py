@@ -194,3 +194,108 @@ def test_cuda_kernel_matches_plain_version(batch, length, heads, head_dim,
         t5_attention_core(q.float(), k, v, bias, mask, heads)
     with pytest.raises(ValueError, match="int32"):
         t5_attention_core(q, k, v, bias, mask.bool(), heads)
+
+
+HELD = "t5_attention_core_f32_held_launch"
+TWO_PASS = "t5_attention_core_f32_launch"
+# the held route's longest L (csrc/attention_f32.cuh's note)
+HELD_MAX_LEN = {64: 576, 128: 256}
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_f32_route_holds_score_rows_up_to_their_limit(head_dim):
+    """Every L whose score rows fit a block's 232,448 bytes takes the held
+    kernel, among them 1, 64, 65, 130 and the main path's 557 (at dh 64);
+    one row more exceeds them, and every longer L takes the two-pass
+    kernel."""
+    limit = HELD_MAX_LEN[head_dim]
+    assert fab.t5_f32_held_smem_bytes(limit, head_dim) <= 232448
+    assert fab.t5_f32_held_smem_bytes(limit + 1, head_dim) > 232448
+    for length in (1, 64, 65, 130, 557):
+        if length <= limit:
+            assert fab.t5_f32_route(length, head_dim) == HELD
+    assert all(fab.t5_f32_route(length, head_dim) == HELD
+               for length in range(1, limit + 1))
+    assert all(fab.t5_f32_route(length, head_dim) == TWO_PASS
+               for length in range(limit + 1, 4 * limit))
+
+
+def f32_case(batch, length, heads, head_dim, edge, seed=0):
+    """fp32 q, k, v, bias and mask on the card: row 1 padded by a fifth,
+    row 0 masked from ``edge``, the last row fully masked."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    width = heads * head_dim
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    q = randn(batch, length, width, scale=0.5)
+    k = randn(batch, length, width, scale=0.5)
+    v = torch.rand((batch, length, width), generator=gen, device="cuda") * 2 - 1
+    bias = randn(heads, length, length)
+    mask = torch.ones((batch, length), dtype=torch.int32, device="cuda")
+    if batch > 2:
+        mask[1, -max(length // 5, 1):] = 0
+    if edge is not None:
+        mask[0, edge:] = 0
+    mask[batch - 1] = 0
+    return q, k, v, bias, mask, heads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,length,heads,head_dim,edge,route", [
+    (32, 557, 32, 64, None, HELD),  # the main path's shape
+    (4, 130, 5, 128, None, HELD),
+    (2, 1, 3, 64, None, HELD),      # a single key
+    (3, 65, 4, 64, 64, HELD),       # a tile of one key; row 0 masked from 64
+    (2, 700, 2, 64, None, TWO_PASS),   # past the held rows' limit
+    (2, 300, 3, 128, 150, TWO_PASS),
+])
+def test_cuda_f32_kernel_matches_plain_version(batch, length, heads,
+                                               head_dim, edge, route):
+    """fp32: within 1e-5 + 1e-5 |want| of the plain version by the route L
+    gives, one launch counted; the last row, fully masked, is the mean of v
+    over all keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert fab.t5_f32_route(length, head_dim) == route
+    args = f32_case(batch, length, heads, head_dim, edge)
+    before = t5_attention_core.launches
+    got = t5_attention_core(*args)
+    torch.cuda.synchronize()
+    assert t5_attention_core.launches == before + 1
+    want = t5_attention_core_plain(*args)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    v = args[2]
+    torch.testing.assert_close(got[batch - 1],
+                               v[batch - 1].mean(dim=0).expand(length, -1),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_cuda_f32_held_launcher_refuses_past_its_limit(head_dim):
+    """Called directly, the held launcher takes L = its limit and matches
+    the plain version; at one row more it returns cudaErrorInvalidValue and
+    writes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    launch = fab._launcher(HELD)
+    stream = torch.cuda.current_stream().cuda_stream
+    for length, rc_want in ((HELD_MAX_LEN[head_dim], 0),
+                            (HELD_MAX_LEN[head_dim] + 1, 1)):
+        q, k, v, bias, mask, heads = f32_case(2, length, 2, head_dim, 7)
+        out = torch.full_like(q, float("nan"))
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    mask.data_ptr(), out.data_ptr(), 2, length, heads,
+                    head_dim, stream)
+        torch.cuda.synchronize()
+        assert rc == rc_want
+        if rc:
+            assert bool(out.isnan().all())
+        else:
+            torch.testing.assert_close(
+                out, t5_attention_core_plain(q, k, v, bias, mask, heads),
+                rtol=1e-5, atol=1e-5)
