@@ -83,7 +83,17 @@ register / shared-memory / spill report):
              own launcher), beside both routes' bounds and the function's;
              fused_t5_ffn on fp32 x (bf16 weights) by compare_q8's rule, as
              t5_ffn holds the bf16 form; each with kernel, plain, library
-             and bound times and its launches a call
+             and bound times and its launches a call; the fp32 forms of
+             the int8 trio (fused_t5_ln_qkv_q8, fused_oproj_residual_q8,
+             fused_t5_ffn_q8 on fp32 x, attention output and residual, an
+             fp32 norm scale) at the int8 path's shapes by compare_q8's
+             rule, with the share of activation codes off the plain
+             version's on the card and q8_boundary's counts, torch._int_mm
+             of their products as the yardstick; fused_gpt2_block's fp32
+             form at B=32, L=64 and 128 (bf16 parameters) within the bf16
+             form's whole-block rule, its output on bf16-valued x rounded
+             to bf16 equal to the bf16 form's, timed in turns with an
+             unfused fp32-activation block (bf16 addmm, SDPA)
   generate_fused
              the configuration with every fused kernel (fused_encoder_attention,
              fused_encoder_ffn, fused_decode_attention) on the same weights
@@ -247,6 +257,13 @@ register / shared-memory / spill report):
              calibrates on the first batch, rows 2-4 launch 24 times, and
              the tokens equal a direct calibrate_and_quantize_int8 and
              generate on that batch
+  config_eval_fp32_int8
+             config_eval_int8's run with tpu.compute_dtype=float32,
+             tpu.fused_ffn and fused_decode_attention too: the int8 trio's
+             and t5_attention_core's fp32 forms 24 launches a batch,
+             cross_attention_decode 24 a decode step run, the tokens of a
+             direct calibrate_and_quantize_int8 and generate on that
+             batch, its fp32 encoder states finite
   config_eval_modes
              the same CLI run on 32 questions once in each of the paper's
              other eval modes: --no_prefix 1 with the hotpotqa_no_prefix
@@ -290,6 +307,21 @@ register / shared-memory / spill report):
              launches in the forward, none in the backward) against the
              unfused block (losses, mapper gradient cosine and norms), then
              timed steps of each in turns
+  config_clipcap
+             ClipCap as a user runs it: the port's CLI (main.run --mode
+             train, then --mode test from model_00) on the shipped
+             configs/vqa2/clip_cap.jsonnet at GPT-2 small width and depth
+             (random weights, SimpleTokenizer, 512-wide CLIP embeddings),
+             256 synthetic train questions (8 steps of 32, 2 updates at
+             the shipped accumulation of 4) and 64 val questions; once as
+             shipped (bf16, 138 positions: no kernel) and once with
+             tpu.compute_dtype=float32 and buckets [32, 64] (42 positions:
+             fused_gpt2_block's fp32 form 12 launches a training forward,
+             none in generate): the first loss equal to a direct
+             clipcap_loss on its batch, model_00 loaded back, answers.pkl
+             and the metric, direct generate's tokens and answers, the
+             train and eval walls, questions/s and peaks; then one train
+             step each with mapping_type transformer and perceiver
   bench_train
              tools/bench_train.py's body at its defaults for --model vct0
              and clipcap, with and without --fused_attention: the JSON
@@ -301,14 +333,16 @@ generator's state: late in a process that has traced the T5 phases,
 kernel_split's traces lose records.
 
 Then a line listing every kernel of the path with its launches (those of
-t5_attention_core from config_eval, of the int8 trio from config_eval_int8)
-and times, and last the line {"ok": true, "device": {...}}. Any failed
+t5_attention_core from config_eval, of the int8 trio from config_eval_int8,
+of their fp32 forms from config_eval_fp32_int8, of fused_gpt2_block's fp32
+form from config_clipcap's fp32 run) and times, and last the line {"ok": true, "device": {...}}. Any failed
 check exits non-zero before that line; without a CUDA card it exits
 non-zero at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -419,6 +453,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.registry import (  # noqa: E402
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_generate  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_train  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import clipcap_executor  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import model_factory  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.base_executor import (  # noqa: E402
     BaseExecutor,
@@ -510,6 +545,25 @@ PALLAS_COSINE_FLOOR = 0.999        # use_pallas against default, per row
 # with the sums in other orders (rows 1 and 5); an L that is not a multiple
 # of the 64-key tile, and one row with this many masked keys
 FP32_ATOL = FP32_RTOL = 1e-5
+# the int8 kernels' fp32 forms (rows 2-4) against their plain versions: the
+# same int8 products, only the loads and stores widened, so the outputs
+# part only where a code on a .5 boundary flips (the out-projection, with no
+# norm in front, not at all); a bf16 rounding of x or of an output alone
+# would cost about 1e-3
+FP32_Q8_REL_FROBENIUS = 1e-4
+FP32_Q8_CODES_OFF_SHARE = 1e-4     # codes off the card's plain version's
+# fused_gpt2_block's fp32 form against its plain version: the bf16 form's
+# whole-block rule (its intermediates are bf16), and, since its fp32 loads
+# and stores are what it adds, at least this share of the outputs within
+# FP32_ATOL (1 + |want|) (an output rounded to bf16: about 0.3 %) and a
+# relative Frobenius error at most this fraction of that of the bf16 form
+# with casts around it (the plain version on x rounded to bf16, its output
+# rounded to bf16)
+FP32_GPT2_CLOSE_FLOOR = 0.2
+FP32_GPT2_REL_OF_BF16_CAST = 0.25
+# config_clipcap's fp32 run: B=32 at 10 prefix + 32 tokens (ragged query
+# tiles, M = 1,344); the kernel's timed shapes: 64 and 128 positions
+FP32_GPT2_PATH_LEN = 42
 FP32_EDGE_BATCH, FP32_EDGE_LEN = 4, 130
 PADDED_KEYS = 100
 # t5_attention_core's fp32 form past its held route's limit (576 at dh 64):
@@ -565,6 +619,14 @@ KERNELS = {
         PORT_CSRC + "cross_attention_decode.cu",
         "explicit_alignment_for_vqa_tasks_tpu/ops/decode_attention.py:134"),
     "fused_t5_ffn_f32": (PORT_CSRC + "t5_ffn.cu", JAX_OPS + ":671"),
+    # with the int8 encoder (config_eval_fp32_int8), and ClipCap's block
+    # (config_clipcap's fp32 run)
+    "fused_t5_ln_qkv_q8_f32": (PORT_CSRC + "int8_encoder.cu",
+                               JAX_OPS + ":1666"),
+    "fused_oproj_residual_q8_f32": (PORT_CSRC + "int8_encoder.cu",
+                                    JAX_OPS + ":1715"),
+    "fused_t5_ffn_q8_f32": (PORT_CSRC + "int8_encoder.cu", JAX_OPS + ":1595"),
+    "fused_gpt2_block_f32": (PORT_CSRC + "gpt2_block.cu", JAX_OPS + ":933"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
                 fused_oproj_residual_q8, fused_t5_ffn_q8,
@@ -804,33 +866,44 @@ def q8_boundary(name: str, fn, plain, args) -> None:
     bit-equal to JAX's interpret mode), and the same for the plain version
     run on the card: per side, how many of each stage's codes differ and
     how many outputs lie beyond one bf16 ulp of the CPU's, with their
-    shares. Recorded, not held to a bound."""
+    shares. Recorded, not held to a bound. Returns how many of the
+    kernel's codes (every stage's) differ from the card's plain version's,
+    of how many, and their share."""
     cpu_codes = {}
     want = plain(*(a.cpu() if isinstance(a, torch.Tensor) else a
                    for a in args), codes_out=cpu_codes)
     want = [w.float() for w in (want if isinstance(want, tuple) else (want,))]
     elements = sum(w.numel() for w in want)
-    result = {}
+    keys = [key for key in cpu_codes if key.endswith("codes")]
+    result, card_codes = {}, {}
     for side, f in (("card_kernel", fn), ("card_plain", plain)):
-        codes = {}
+        codes = card_codes[side] = {}
         got = f(*args, codes_out=codes)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         side_result = {}
-        for key, cpu in cpu_codes.items():
-            if key.endswith("codes"):
-                differ = int((codes[key].cpu() != cpu).sum())
-                side_result[f"{key}_differ"] = differ
-                side_result[f"{key}_differ_share"] = differ / cpu.numel()
+        for key in keys:
+            cpu = cpu_codes[key]
+            differ = int((codes[key].cpu() != cpu).sum())
+            side_result[f"{key}_differ"] = differ
+            side_result[f"{key}_differ_share"] = differ / cpu.numel()
         beyond = 0
         for g, w in zip(got, want):
             beyond += int(((g.cpu().float() - w).abs() > bf16_ulp(w)).sum())
         side_result.update(outputs_beyond_one_ulp=beyond,
                            outputs_beyond_one_ulp_share=beyond / elements)
         result[side] = side_result
-        del got, codes
-    result.update(codes=cpu_codes["codes"].numel(), outputs=elements)
+        del got
+    off = sum(int((card_codes["card_kernel"][key]
+                   != card_codes["card_plain"][key]).sum()) for key in keys)
+    total = sum(cpu_codes[key].numel() for key in keys)
+    del card_codes
+    off_plain = dict(codes_off_plain=off, codes=total,
+                     codes_off_plain_share=off / total)
+    result.update(codes=cpu_codes["codes"].numel(), outputs=elements,
+                  kernel_codes_off_card_plain=off)
     emit("q8_boundary", kernel=name, **result)
+    return off_plain
 
 
 def phase_int8_kernels(gen: torch.Generator) -> dict:
@@ -1604,10 +1677,282 @@ def phase_fp32_kernels(gen: torch.Generator) -> dict:
                 BF16_FLOP_PER_S))
     del args, x
     torch.cuda.empty_cache()
+    results.update(fp32_int8_kernels(gen))
+    results["fused_gpt2_block_f32"] = fp32_gpt2_block(gen)
     for name, res in results.items():
         emit("fp32_kernels", kernel=name, kernel_ms=res["ms"], **{
             key: val for key, val in res.items() if key != "ms"})
     return results
+
+
+def fp32_int8_kernels(gen: torch.Generator) -> dict:
+    """The fp32 forms of rows 2-4 (tpu.compute_dtype=float32 with the int8
+    encoder): fp32 x, attention output and residual, an fp32 norm scale (a
+    calibrated one may be fp32), at the int8 path's shapes (M = 32 x 557,
+    D = 2048, F = 5120, INT8_GROUPS groups) on weights from the port's
+    quantizer, against their plain versions by compare_q8's rule and within
+    FP32_Q8_REL_FROBENIUS; fp32 outputs; the out-projection bit-equal; the
+    two with a norm at most FP32_Q8_CODES_OFF_SHARE of their activation
+    codes off the card plain version's (q8_boundary, which also counts
+    both against the CPU's); timed beside the plain version, torch._int_mm
+    of the same products (GEMMs only) and the bound."""
+    cfg = t5_lib.T5Config.t0_3b()
+    length = splice_output_length(PROMPT_LEN, PREFIX_LENGTH, NUM_SHOTS + 1)
+    d_model, inner, d_ff = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff
+    rows = BATCH * length
+    dev = gen.device
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    def quant(k, n):
+        q, s = t5_lib._quant_stacked_i8(randn(1, k, n, scale=k ** -0.5),
+                                        INT8_GROUPS)
+        return q[0], s[0]
+
+    def codes(k):  # activation codes for the library yardstick
+        return torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    x = randn(BATCH, length, d_model, scale=2.0)
+    attn = randn(BATCH, length, inner)
+    lnw = 1 + 0.1 * randn(d_model)
+    qkv_w = [quant(d_model, inner) for _ in range(3)]
+    o_w = quant(inner, d_model)
+    ffn_w = [quant(d_model, d_ff), quant(d_model, d_ff), quant(d_ff, d_model)]
+    act = rows * d_model * 4               # one fp32 (M, D) activation
+    cases = {
+        "fused_t5_ln_qkv_q8_f32": dict(
+            fn=fused_t5_ln_qkv_q8, plain=fused_t5_ln_qkv_q8_plain,
+            args=(x, lnw, *[t for w in qkv_w for t in w]),
+            gemms=[(d_model, w) for w, _ in qkv_w],
+            bytes=act + d_model * 4 + 3 * rows * inner * 4
+            + sum(w.numel() + s.numel() * 4 for w, s in qkv_w),
+            ops=3 * 2 * rows * d_model * inner),
+        "fused_oproj_residual_q8_f32": dict(
+            fn=fused_oproj_residual_q8, plain=fused_oproj_residual_q8_plain,
+            args=(x, attn, *o_w), gemms=[(inner, o_w[0])],
+            bytes=2 * act + rows * inner * 4 + o_w[0].numel()
+            + o_w[1].numel() * 4,
+            ops=2 * rows * inner * d_model),
+        "fused_t5_ffn_q8_f32": dict(
+            fn=fused_t5_ffn_q8, plain=fused_t5_ffn_q8_plain,
+            args=(x, lnw, *[t for w in ffn_w for t in w]),
+            gemms=[(d_model, ffn_w[0][0]), (d_model, ffn_w[1][0]),
+                   (d_ff, ffn_w[2][0])],
+            bytes=2 * act + d_model * 4
+            + sum(w.numel() + s.numel() * 4 for w, s in ffn_w),
+            ops=2 * rows * d_model * d_ff * 2 + 2 * rows * d_ff * d_model),
+    }
+    results = {}
+    for name, case in cases.items():
+        fn, plain, args = case["fn"], case["plain"], case["args"]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(all(g.dtype == torch.float32 for g in got),
+              f"{name}: outputs {[g.dtype for g in got]}, not fp32")
+        errs = [compare_q8(g, w) for g, w in zip(got, want)]
+        differing = sum(int((g != w).sum()) for g, w in zip(got, want))
+        elements = sum(w.numel() for w in want)
+        del got, want
+        rel = max(e["rel_frobenius"] for e in errs)
+        check(rel <= FP32_Q8_REL_FROBENIUS,
+              f"{name}: relative Frobenius error {rel} to the plain version "
+              f"> {FP32_Q8_REL_FROBENIUS}")
+        codes_off = {}
+        if name == "fused_oproj_residual_q8_f32":  # no norm: no flips
+            check(differing == 0, f"{name}: {differing} outputs differ from "
+                  "the plain version's")
+        else:
+            codes_off = q8_boundary(name, fn, plain, args)
+            check(codes_off["codes_off_plain_share"]
+                  <= FP32_Q8_CODES_OFF_SHARE,
+                  f"{name}: {codes_off['codes_off_plain']} of "
+                  f"{codes_off['codes']} codes differ from the card's plain "
+                  f"version's (> {FP32_Q8_CODES_OFF_SHARE})")
+        per_call = launched(fn, lambda: fn(*args))
+        kernel_ms = cuda_ms(lambda: fn(*args), iters=20)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
+        # yardstick only: torch._int_mm of the same int8 products, GEMMs
+        # alone, the weights column-major as cuBLASLt's int8 GEMM takes them
+        lib_col = [(codes(k), w.t().contiguous().t())
+                   for k, w in case["gemms"]]
+        library_ms = cuda_ms(
+            lambda: [torch._int_mm(a, w) for a, w in lib_col], iters=10)
+        del lib_col
+        results[name] = dict(
+            shape=dict(M=rows, D=d_model, inner=inner, F=d_ff,
+                       G=INT8_GROUPS, x="float32", ln="float32"),
+            max_abs_err=max(e["max_abs_err"] for e in errs),
+            rel_frobenius=rel,
+            beyond_one_ulp=max(e["beyond_one_ulp"] for e in errs),
+            outputs_off_plain_share=differing / elements, **codes_off,
+            launches_per_call=per_call, ms=kernel_ms, plain_ms=plain_ms,
+            library_ms=library_ms,
+            library="torch._int_mm, GEMMs only, column-major weights",
+            **bound(case["bytes"], case["ops"], INT8_OP_PER_S))
+        torch.cuda.empty_cache()
+    del x, attn, qkv_w, o_w, ffn_w
+    torch.cuda.empty_cache()
+    return results
+
+
+def gpt2_f32_rule(name: str, got: torch.Tensor, want: torch.Tensor, x,
+                  mask, params, heads) -> dict:
+    """fused_gpt2_block's fp32 form against its plain version on the same
+    inputs: finite fp32 outputs, each within the bf16 form's whole-block
+    rule, KERNEL_ATOL + KERNEL_RTOL |want| (the intermediates are bf16, and
+    the tensor cores' sums round some of them the other way); at least
+    FP32_GPT2_CLOSE_FLOOR of them within FP32_ATOL (1 + |want|), and a
+    relative Frobenius error at most FP32_GPT2_REL_OF_BF16_CAST of the bf16
+    form's with casts around it (the plain version on x rounded to bf16,
+    its output rounded to bf16), so that a form which rounded x or its
+    output fails. The readings of both."""
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          f"{name}: {got.dtype} output or not finite")
+    err = (got - want).abs()
+    check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * want.abs()).all()),
+          f"{name} outside atol/rtol 8e-3 of the plain version (max abs err "
+          f"{err.max().item()})")
+    cast = fused_gpt2_block_plain(x.bfloat16().float(), mask, *params,
+                                  heads).bfloat16().float()
+
+    def readings(out, out_err):
+        return dict(
+            rel_frobenius=((out - want).norm() / want.norm()).item(),
+            within_fp32_tol_share=(out_err <= FP32_ATOL * (1 + want.abs()))
+            .float().mean().item())
+
+    own, by_cast = readings(got, err), readings(cast, (cast - want).abs())
+    del cast
+    check(own["within_fp32_tol_share"] >= FP32_GPT2_CLOSE_FLOOR,
+          f"{name}: {own['within_fp32_tol_share']} of outputs within "
+          f"{FP32_ATOL} (1 + |want|) of plain (< {FP32_GPT2_CLOSE_FLOOR})")
+    check(own["rel_frobenius"]
+          <= FP32_GPT2_REL_OF_BF16_CAST * by_cast["rel_frobenius"],
+          f"{name}: relative Frobenius error {own['rel_frobenius']} > "
+          f"{FP32_GPT2_REL_OF_BF16_CAST} x the bf16 form's with casts "
+          f"({by_cast['rel_frobenius']})")
+    rms = want.square().mean().sqrt()
+    return dict(max_abs_err=err.max().item(),
+                flip_max=(err / (want.abs() + rms)).max().item(),
+                outputs_off_plain_share=(err > 0).float().mean().item(),
+                **own, bf16_cast=by_cast)
+
+
+def fp32_gpt2_block(gen: torch.Generator) -> dict:
+    """The fp32 form of fused_gpt2_block (tpu.compute_dtype=float32) at
+    GPT-2 small widths, B=32 with right-padded rows, bf16 parameters (the
+    config's params_dtype): at config_clipcap's fp32 run's 42 positions
+    (ragged query tiles and rows), and at 64 and 128; at 64 also with fp32
+    parameters (tpu.params_dtype=float32: LayerNorms and biases no bf16
+    holds, the weights cast to bf16 by the wrapper on every call, timed
+    with that cast). Each held to its plain version by gpt2_f32_rule; on
+    bf16-valued x its output rounded to bf16 is the bf16 form's, bit for
+    bit; timed beside the plain version, the bound and an unfused
+    fp32-activation block (LayerNorm in fp32, bf16 addmm, SDPA)."""
+    cfg = gpt2_lib.GPT2Config.gpt2_small()
+    d_model, heads, d_ff = cfg.d_model, cfg.num_heads, 4 * cfg.d_model
+    head_dim, eps = d_model // heads, cfg.layer_norm_epsilon
+    dev = gen.device
+    batch = 32
+    params = gpt2_layer(gen, cfg)
+    # the shapes added after the first two draw from a generator of their
+    # own, so that the shared one's draws, and every later phase's inputs,
+    # stay as they were
+    own = torch.Generator(device=dev).manual_seed(FP32_GPT2_PATH_LEN)
+    params_f32 = [p.float() + 1e-3 * torch.rand(p.shape, generator=own,
+                                                device=dev)
+                  if p.dim() == 1 else p.float() for p in params]
+    f = torch.nn.functional
+    timed = {}
+    for length, source in ((64, gen), (128, gen), (FP32_GPT2_PATH_LEN, own)):
+        x = torch.randn((batch, length, d_model), generator=source,
+                        device=dev)
+        mask = right_padded_mask(batch, length, dev, length // 2)
+        forms = {"params_bf16": params}
+        if length == 64:
+            forms["params_f32"] = params_f32
+        for form, p_form in forms.items():
+            args = (x, mask, *p_form, heads)
+            name = f"fused_gpt2_block (fp32, {form}) at L={length}"
+            got = fused_gpt2_block(*args)
+            torch.cuda.synchronize()
+            want = fused_gpt2_block_plain(*args)
+            errs = gpt2_f32_rule(name, got, want, x, mask, p_form, heads)
+            del got, want
+            row = dict(shape=dict(B=batch, L=length, D=d_model, H=heads,
+                                  F=d_ff, G=gpt2_block_group(batch),
+                                  x="float32", params=str(p_form[0].dtype)
+                                  .removeprefix("torch.")), **errs)
+            if form == "params_f32":
+                row.update(
+                    launches_per_call=launched(
+                        fused_gpt2_block, lambda: fused_gpt2_block(*args)),
+                    ms=cuda_ms(lambda: fused_gpt2_block(*args), iters=20),
+                    ms_note="the wrapper's four weight casts to bf16 "
+                            "included")
+                timed[f"L{length}"]["params_f32"] = row
+                continue
+            xb = x.bfloat16()
+            same = torch.equal(fused_gpt2_block(xb.float(), mask, *params,
+                                                heads).bfloat16(),
+                               fused_gpt2_block(xb, mask, *params, heads))
+            check(same, f"{name}: on bf16 x, its output rounded to bf16 is "
+                  "not the bf16 form's")
+            per_call = launched(fused_gpt2_block,
+                                lambda: fused_gpt2_block(*args))
+            causal = torch.ones((length, length), dtype=torch.bool,
+                                device=dev).tril()
+            sdpa_mask = causal[None, None] & (mask[:, None, None, :] > 0)
+            ln1 = (params[0].float(), params[1].float())
+            ln2 = (params[6].float(), params[7].float())
+            (_, _, w_qkv, b_qkv, w_out, b_out, _, _, w_fc, b_fc, w_proj,
+             b_proj) = params
+
+            def lib_block():
+                # yardstick only: the unfused block on fp32 activations, its
+                # products in bf16 as the kernel's (fp32 LayerNorms and
+                # residuals; cuBLAS addmm; scaled_dot_product_attention with
+                # the causal and key mask; tanh gelu)
+                x2 = x.view(-1, d_model)
+                h = f.layer_norm(x2, (d_model,), *ln1, eps).bfloat16()
+                qkv = torch.addmm(b_qkv, h, w_qkv).view(
+                    batch, length, 3, heads, head_dim)
+                o = f.scaled_dot_product_attention(
+                    *qkv.permute(2, 0, 3, 1, 4), attn_mask=sdpa_mask)
+                r1 = x2 + torch.addmm(b_out, o.transpose(1, 2).reshape(
+                    -1, d_model), w_out)
+                z = torch.addmm(b_fc, f.layer_norm(r1, (d_model,), *ln2,
+                                                   eps).bfloat16(), w_fc)
+                return r1 + torch.addmm(
+                    b_proj, f.gelu(z, approximate="tanh"), w_proj)
+
+            turns = [cuda_ms(fn, iters=20) for fn in (
+                lib_block, lambda: fused_gpt2_block(*args), lib_block,
+                lambda: fused_gpt2_block(*args))]
+            rows = batch * length
+            timed[f"L{length}"] = dict(
+                row, rounds_to_bf16_form=same, launches_per_call=per_call,
+                ms=(turns[1] + turns[3]) / 2,
+                plain_ms=cuda_ms(lambda: fused_gpt2_block_plain(*args),
+                                 iters=3, warmup=1),
+                library_ms=(turns[0] + turns[2]) / 2,
+                turns_ms=dict(library=turns[0::2], kernel=turns[1::2]),
+                library="the unfused block on fp32 activations: fp32 "
+                        "layer_norm, bf16 addmm, scaled_dot_product_attention"
+                        " (causal and key mask), gelu(approximate='tanh')",
+                **bound(2 * rows * d_model * 4 + mask.numel() * 4
+                        + sum(p.numel() * 2 for p in params),
+                        gpt2_block_ops(mask, d_model, d_ff),
+                        BF16_FLOP_PER_S))
+        del args, x
+        torch.cuda.empty_cache()
+    return dict(timed["L64"], at_L128=timed["L128"],
+                at_path_len=timed[f"L{FP32_GPT2_PATH_LEN}"])
 
 
 def phase_generate_fused(model: VCT0Model, prefix, tokens, mask,
@@ -2091,18 +2436,20 @@ EVAL_TYPES = (
 )
 
 
-def write_eval_data(folder: Path, n_val: int) -> dict:
+def write_eval_data(folder: Path, n_val: int,
+                    n_train: int = EVAL_TRAIN_QUESTIONS,
+                    width: int = PREFIX_SIZE) -> dict:
     """Synthetic VQA2 artifacts in the file formats of
     tests/test_e2e.py::write_vqa_fixtures, at the shipped config's widths:
-    n_val val questions on n_val images, EVAL_TRAIN_QUESTIONS train
-    questions, 768-wide CLIP embeddings of every image and RICES lists of
-    EVAL_RICES train examples, best last. Ten answers a question, seven of
-    them the majority's."""
+    n_val val questions on n_val images, n_train train questions,
+    ``width``-wide CLIP embeddings of every image (768 for VC-T0's config,
+    512 for ClipCap's) and RICES lists of EVAL_RICES train examples, best
+    last. Ten answers a question, seven of them the majority's."""
     rng = np.random.default_rng(SEED)
     data = folder / "data"
     data.mkdir(parents=True, exist_ok=True)
     files, splits = {}, {}
-    for name, n, qid_base in (("train2014", EVAL_TRAIN_QUESTIONS, 1000000),
+    for name, n, qid_base in (("train2014", n_train, 1000000),
                               ("val2014", n_val, 2000000)):
         questions, annotations = [], []
         for i in range(n):
@@ -2132,7 +2479,7 @@ def write_eval_data(folder: Path, n_val: int) -> dict:
     train_q, train_a = splits["train2014"]
     embeddings = {
         str(q["image_id"]):
-            rng.standard_normal((1, PREFIX_SIZE)).astype(np.float32)
+            rng.standard_normal((1, width)).astype(np.float32)
         for q in train_q + splits["val2014"][0]}
     rices = {
         str(q["question_id"]): [
@@ -2183,12 +2530,12 @@ class EvalTimer:
     and sums the garbage collector's time inside test(). Installed for the
     run and taken off after."""
 
-    def __init__(self):
-        self.timed = ((VCT0Model, "generate"),
-                      (VCT0Model, "calibrate_and_quantize_int8"),
-                      (FewShotVQAExecutor, "_collect_generative"),
-                      (FewShotVQAExecutor, "evaluate_outputs"),
-                      (BaseExecutor, "test"))
+    def __init__(self, timed=((VCT0Model, "generate"),
+                              (VCT0Model, "calibrate_and_quantize_int8"),
+                              (FewShotVQAExecutor, "_collect_generative"),
+                              (FewShotVQAExecutor, "evaluate_outputs"),
+                              (BaseExecutor, "test"))):
+        self.timed = timed
         self.seconds = {name: [] for _, name in self.timed}
         self.tokens, self.gc_s, self.in_test = [], 0.0, False
 
@@ -2484,6 +2831,77 @@ def phase_config_eval_int8(smi: str) -> dict:
         del direct
     emit("config_eval_int8", nvidia_smi=smi, opts=list(opts),
          launches=run["launches"], **run["stats"])
+    return dict(launches_per_call=[run["launches"]], **run["stats"])
+
+
+def phase_config_eval_fp32_int8(smi: str) -> dict:
+    """config_eval_int8's run with FP32_OPTS too: fp32 activations (bf16
+    params) through the int8 encoder's fp32 forms, t5_attention_core's fp32
+    form, fused_decode_attention's. Checks: t5_attention_core and rows 2-4
+    24 launches a batch, cross_attention_decode 24 a decode step run, the
+    predictions of a direct calibrate_and_quantize_int8 plus generate on
+    the same batch, and that batch's fp32 encoder states finite."""
+    opts = (*FP32_OPTS, "tpu.int8_encoder_ffn=true",
+            "tpu.int8_encoder_attn=true", "tpu.int8_calibrate_batches=1")
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = write_eval_data(folder, EVAL_INT8_QUESTIONS)
+        run = run_eval("config_eval_fp32_int8", folder, files,
+                       EVAL_INT8_QUESTIONS, *opts)
+        executor = run["executor"]
+        model = executor.model
+        lm_cfg = model.cfg.lm
+        check(lm_cfg.dtype == torch.float32 and lm_cfg.int8_encoder_ffn
+              and lm_cfg.int8_encoder_attn and lm_cfg.fused_decode_attention,
+              "config_eval_fp32_int8: the config is not fp32 with the int8 "
+              "encoder")
+        check(model.pending_int8_calibration is None
+              and "ln" in model.params["lm"]["encoder"]["ffn_q8"]
+              and "ln" in model.params["lm"]["encoder"]["self_attn_q8"],
+              "config_eval_fp32_int8: the executor did not calibrate")
+        ln_dtypes = sorted({str(model.params["lm"]["encoder"][part]["ln"]
+                                .dtype) for part in ("ffn_q8",
+                                                     "self_attn_q8")})
+        layers = lm_cfg.num_encoder_layers
+        n = layers * run["stats"]["batches"]
+        eos = executor.tokenizer.eos_token_id
+        steps = sum(decode_steps_run(t, eos) for t in run["tokens"])
+        want = launches(t5_attention_core=n, fused_t5_ln_qkv_q8=n,
+                        fused_oproj_residual_q8=n, fused_t5_ffn_q8=n,
+                        cross_attention_decode=lm_cfg.num_decoder_layers
+                        * steps)
+        check(run["launches"] == want, f"config_eval_fp32_int8: kernels "
+              f"launched {run['launches']}, expected {want}")
+        executor.model = None
+        del model
+        torch.cuda.empty_cache()
+        direct, _ = build_model_from_config(run["config"])
+        direct.params["mapper"] = tree_to_device(load_checkpoint(
+            os.path.join(run["config"].saved_model_path, "model_00"))[
+                "mapper"], direct.device)
+        batch = next(iter(executor.test_dataloader))
+        inputs = eval_batch_inputs(batch, direct.device)
+        direct.calibrate_and_quantize_int8([inputs], alpha=float(
+            run["config"].tpu.get("int8_smooth_alpha", 0.5)))
+        direct.pending_int8_calibration = None
+        check_direct_generate("config_eval_fp32_int8", run, model=direct)
+        with torch.inference_mode():
+            joint, joint_mask = direct.encoder_calibration_batch(
+                inputs["prefix"], inputs["question_tokens"],
+                inputs["question_mask"])
+            states = t5_lib.t5_encode(direct.params["lm"], direct.cfg.lm,
+                                      inputs_embeds=joint,
+                                      attention_mask=joint_mask)
+        valid = states[joint_mask.bool()]
+        check(states.dtype == torch.float32
+              and bool(torch.isfinite(valid).all()),
+              "config_eval_fp32_int8: encoder states not finite fp32")
+        rms = valid.square().mean().sqrt().item()
+        del direct, states, valid
+    emit("config_eval_fp32_int8", nvidia_smi=smi, opts=list(opts),
+         launches=run["launches"], decode_steps=steps,
+         calibrated_ln_dtypes=ln_dtypes, encoder_states_rms=rms,
+         **run["stats"])
     return dict(launches_per_call=[run["launches"]], **run["stats"])
 
 
@@ -4190,18 +4608,21 @@ def cc_rows(n: int, rng: np.random.Generator) -> list:
 
 
 class TrainRecorder:
-    """For one main.run: each training step's loss, host seconds to a
-    synchronize and the mapper's sum before and after it; each
-    validation's caption table rows; every logged metric. Installed for the
-    run and taken off after."""
+    """For one main.run of ``executor_cls``: each training step's loss,
+    host seconds to a synchronize and the mapper's sum before and after
+    it; the first step's batch and a copy of the mapper before it; each
+    validation's table rows; every logged metric. Installed for the run
+    and taken off after."""
 
-    def __init__(self):
+    def __init__(self, executor_cls=VCT0Executor):
+        self.executor_cls = executor_cls
         self.steps, self.tables, self.metrics = [], [], {}
+        self.first = None
 
     def __enter__(self):
+        cls = self.executor_cls
         self.originals = {name: getattr(owner, name) for owner, name in (
-            (VCT0Executor, "training_step"),
-            (VCT0Executor, "evaluate_outputs"),
+            (cls, "training_step"), (cls, "evaluate_outputs"),
             (BaseExecutor, "log_metrics"))}
         step, evaluate, log = (self.originals[n] for n in (
             "training_step", "evaluate_outputs", "log_metrics"))
@@ -4211,6 +4632,9 @@ class TrainRecorder:
                              tree_leaves(executor.model.params["mapper"])))
 
         def training_step(executor, batch, batch_idx):
+            if self.first is None:
+                self.first = dict(batch=batch, mapper=tree_clone(
+                    executor.model.params["mapper"]))
             before = mapper_sum(executor)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4230,15 +4654,22 @@ class TrainRecorder:
             self.metrics.update(metrics)
             return log(executor, metrics, step)
 
-        VCT0Executor.training_step = training_step
-        VCT0Executor.evaluate_outputs = evaluate_outputs
+        cls.training_step = training_step
+        cls.evaluate_outputs = evaluate_outputs
         BaseExecutor.log_metrics = log_metrics
         return self
 
     def __exit__(self, *exc):
-        VCT0Executor.training_step = self.originals["training_step"]
-        VCT0Executor.evaluate_outputs = self.originals["evaluate_outputs"]
+        self.executor_cls.training_step = self.originals["training_step"]
+        self.executor_cls.evaluate_outputs = self.originals[
+            "evaluate_outputs"]
         BaseExecutor.log_metrics = self.originals["log_metrics"]
+
+
+def tree_clone(tree: dict) -> dict:
+    """A detached copy of a nested dict of tensors."""
+    return {k: tree_clone(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
 
 
 def phase_config_train(smi: str) -> dict:
@@ -4402,6 +4833,262 @@ def phase_clipcap_train_step(dev: torch.device) -> dict:
     del turns, params
     torch.cuda.empty_cache()
     return dict(result, launches_per_call=[expected["fused"]])
+
+
+CLIPCAP_CONFIG_FILE = REPO / "configs" / "vqa2" / "clip_cap.jsonnet"
+CLIPCAP_PREFIX_SIZE = 512          # the config's prefix_size (ViT-B/32)
+CLIPCAP_TRAIN_QUESTIONS = 256      # 8 steps of 32: 2 updates at the shipped 4
+CLIPCAP_VAL_QUESTIONS = 64         # 2 batches
+# the fp32 run's buckets: the padded length plus the 10 prefix positions
+# stays at 128 or fewer, so gpt2_forward takes fused_gpt2_block
+CLIPCAP_FP32_OPTS = ("tpu.compute_dtype=float32", "tpu.length_buckets=[32,64]")
+# the run's first loss against clipcap_loss called again on its batch and
+# the mapper before it: the same calls on the same inputs
+CLIPCAP_DIRECT_LOSS_REL = 1e-5
+
+
+def clipcap_argv(folder: Path, files: dict, mode: str, *opts) -> list:
+    """The port's CLI on the shipped clip_cap.jsonnet pointed at ``files``:
+    GPT-2 small with random weights from the config's seed, SimpleTokenizer
+    (the card's machine has no transformers), one epoch."""
+    vqa = {"question_files": {"train": files["train2014_questions"],
+                              "val": files["val2014_questions"]},
+           "annotation_files": {"train": files["train2014_annotations"],
+                                "val": files["val2014_annotations"]}}
+    modules = "data_loader.dataset_modules.module_dict."
+    return [
+        str(CLIPCAP_CONFIG_FILE), "--mode", mode, "--experiment_name",
+        "clipcap", "--disable_wandb", "--disable_tensorboard", "--opts",
+        f"EXPERIMENT_FOLDER={folder}/experiments",
+        f"TENSORBOARD_FOLDER={folder}/tb",
+        f"cache.default_folder={folder}/cache",
+        "model_config.TokenizerClass=SimpleTokenizer",
+        "model_config.pretrained=0", "train.epochs=1",
+        f"{modules}LoadVQA2Data.config.vqa_data_path={vqa!r}",
+        f"{modules}LoadVQA2Data.config.image_data_path="
+        f"{ {'train': str(folder), 'val': str(folder)}!r}",
+        f"{modules}LoadClipEmbeddings.config="
+        f"{ {'train': files['embeddings'], 'val': files['embeddings']}!r}",
+        *opts]
+
+
+def clipcap_inputs(executor, batch) -> tuple:
+    """The loss's inputs of one training batch, on the model's device."""
+    ids = np.asarray(batch.input_ids)
+    return tuple(torch.as_tensor(a, device=executor.model.device) for a in (
+        clipcap_executor.last_clip_row(batch.clip_embeddings), ids,
+        np.asarray(batch.attention_mask), executor._answer_labels(ids)))
+
+
+def config_clipcap_run(name: str, folder: Path, files: dict, opts) -> dict:
+    """main.run --mode train, then --mode test from its model_00, on
+    clip_cap.jsonnet with ``opts``; every kernel count set to 0 just before
+    each run and read just after. Checks: the training steps and updates,
+    the kernels' exact launches (fused_gpt2_block once a layer a training
+    forward where the positions allow, none in generate), the first loss
+    against a direct clipcap_loss, model_00 loaded back, answers.pkl with
+    one prediction a question and the metric, direct generate's tokens and
+    answers."""
+    phase = f"config_clipcap_{name}"
+    folder.mkdir(parents=True, exist_ok=True)
+    train_argv = clipcap_argv(folder, files, "train", *opts)
+    config = process_config(parse_args_sys(train_argv))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    # a train run has no results folder: its validations write answers.pkl
+    # into the working directory, here the run's own
+    with TrainRecorder(clipcap_executor.ClipCapExecutor) as rec, \
+            contextlib.chdir(folder):
+        executor, _ = eval_main.run(train_argv)
+    train_s = time.perf_counter() - t0
+    train_counts = kernel_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    model = executor.model
+    check(model.device.type == "cuda", f"{phase}: the model is on "
+          f"{model.device}")
+    batch_size = int(config.train.batch_size)
+    steps = rec.steps
+    n_steps = CLIPCAP_TRAIN_QUESTIONS // batch_size
+    accumulate = int(config.train.additional.gradient_accumulation_steps)
+    check(len(steps) == n_steps and executor.optimizer.applied
+          == n_steps // accumulate,
+          f"{phase}: {len(steps)} steps, {executor.optimizer.applied} "
+          "updates")
+    check(all(np.isfinite(s["loss"]) for s in steps), f"{phase} losses")
+    first = clipcap_inputs(executor, rec.first["batch"])
+    positions = first[1].shape[1] + model.cfg.prefix_length
+    fused = model.cfg.lm.fused_block and positions <= 128
+    layers = model.cfg.lm.num_layers
+    want = launches(fused_gpt2_block=layers * n_steps if fused else 0)
+    check(train_counts == want, f"{phase}: the train run launched "
+          f"{train_counts}, expected {want}")
+    with torch.no_grad():
+        direct = float(clipcap_lib.clipcap_loss(
+            rec.first["mapper"], model.params["lm"], model.cfg, *first))
+    check(abs(direct - steps[0]["loss"]) <= CLIPCAP_DIRECT_LOSS_REL
+          * abs(direct), f"{phase}: the first step's loss {steps[0]['loss']}"
+          f" is not a direct clipcap_loss's {direct}")
+    trained = [t.detach().clone() for t in
+               tree_leaves(model.params["mapper"])]
+    saved = load_checkpoint(os.path.join(config.saved_model_path,
+                                         "model_00"))
+    check(all(torch.equal(a.to(b.device), b) for a, b in
+              zip(tree_leaves(saved["mapper"]), trained)),
+          f"{phase}: model_00's mapper is not the trained one")
+    del executor, model, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    test_argv = clipcap_argv(folder, files, "test", *opts)
+    tconfig = process_config(parse_args_sys(test_argv))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with EvalTimer(timed=((clipcap_lib.ClipCaptionModel, "generate"),
+                          (BaseExecutor, "test"))) as timer:
+        executor, metrics = eval_main.run(test_argv)
+    run_s = time.perf_counter() - t0
+    test_counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(test_counts == launches(), f"{phase}: the test run launched "
+          f"{test_counts}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(executor.model.params["mapper"]), trained)),
+        f"{phase}: the test run's mapper is not model_00's")
+    predictions = pickle.loads((Path(tconfig.results_path)
+                                / "answers.pkl").read_bytes())
+    check(sorted(p["question_id"] for p in predictions)
+          == [2000000 + i for i in range(CLIPCAP_VAL_QUESTIONS)],
+          f"{phase}: answers.pkl holds {len(predictions)} predictions")
+    key = "test_evaluation/accuracy_overall"
+    check(key in metrics, f"{phase}: {key} missing")
+    answers = {p["question_id"]: p["answer"] for p in predictions}
+    max_new = int(tconfig.data_loader.additional.max_target_length)
+    eos = executor.tokenizer.eos_token_id
+    batches = 0
+    for i, batch in enumerate(executor.test_dataloader):
+        dev = executor.model.device
+        tokens, _ = executor.model.generate(
+            torch.as_tensor(clipcap_executor.last_clip_row(
+                batch.clip_embeddings), device=dev),
+            torch.as_tensor(batch.generative_input_ids, device=dev),
+            torch.as_tensor(batch.generative_attention_mask, device=dev),
+            max_new_tokens=max_new, eos_token_id=eos)
+        check(torch.equal(tokens, timer.tokens[i]),
+              f"{phase}: batch {i}'s tokens differ from direct generate's")
+        for row, qid, valid in zip(tokens.cpu().numpy(), batch.question_ids,
+                                   batch.sample_valid):
+            if valid:
+                check(answers[qid] == executor.decode_prediction(
+                    row.tolist()), f"{phase}: question {qid}'s answer is "
+                    "not its tokens'")
+        batches += 1
+    check(len(timer.tokens) == batches,
+          f"{phase}: {len(timer.tokens)} generate calls for {batches} "
+          "batches")
+    test_s = sum(timer.seconds["test"])
+    generate_s = sum(timer.seconds["generate"])
+    result = dict(
+        opts=list(opts), dtype=str(executor.model.cfg.lm.dtype),
+        positions=positions, fused_block=fused, train_s=train_s,
+        step_s=[s["seconds"] for s in steps],
+        losses=[s["loss"] for s in steps], direct_first_loss=direct,
+        applied_updates=n_steps // accumulate,
+        train_launches=launched_only(train_counts),
+        logged_examples_per_s=rec.metrics.get("train/examples_per_s"),
+        train_peak_mem_gb=train_peak / 1e9, test_run_s=run_s, test_s=test_s,
+        questions_per_s=CLIPCAP_VAL_QUESTIONS / test_s,
+        generate_s_per_batch=timer.seconds["generate"],
+        host_share=1 - generate_s / test_s, peak_mem_gb=peak / 1e9,
+        accuracy_overall=metrics[key])
+    del executor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(result, train_counts=train_counts)
+
+
+def clipcap_mapper_step(folder: Path, files: dict, mapping_type: str) -> dict:
+    """One train step of ClipCapExecutor with ``mapping_type`` (the
+    config override) in the fp32 run's configuration, applied at once
+    (gradient_accumulation_steps=1) at the config's learning rate (no
+    warmup, whose first rate is 0): a finite loss, fused_gpt2_block once a
+    layer, every mapper tensor moved."""
+    argv = clipcap_argv(
+        folder, files, "train", *CLIPCAP_FP32_OPTS,
+        f"model_config.model_args.mapping_type={mapping_type}",
+        "train.additional.gradient_accumulation_steps=1",
+        "train.additional.warmup_steps=0")
+    config = process_config(parse_args_sys(argv))
+    loader = DATA_LOADERS.get(config.data_loader.type)(config)
+    loader.build_dataset()
+    loader.set_dataloader()
+    executor = clipcap_executor.ClipCapExecutor(config, loader)
+    model = executor.model
+    check(model.cfg.mapper.mapping_type == mapping_type,
+          f"config_clipcap: the mapper is {model.cfg.mapper.mapping_type}")
+    before = [t.detach().clone() for t in tree_leaves(model.params["mapper"])]
+    batch = next(iter(executor.train_dataloader))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = executor.training_step(batch, 0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts()
+    want = launches(fused_gpt2_block=model.cfg.lm.num_layers)
+    check(counts == want, f"config_clipcap {mapping_type}: launched "
+          f"{counts}, expected {want}")
+    loss = float(out["loss"])
+    after = tree_leaves(model.params["mapper"])
+    check(np.isfinite(loss) and executor.optimizer.applied == 1
+          and all(not torch.equal(a.detach(), b)
+                  for a, b in zip(after, before)),
+          f"config_clipcap {mapping_type}: loss {loss}, or a mapper tensor "
+          "the step did not move")
+    result = dict(loss=loss, step_s=seconds,
+                  mapper_params=sum(t.numel() for t in before),
+                  launches=launched_only(counts))
+    del executor, model, before, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_config_clipcap(smi: str) -> dict:
+    """ClipCap as a user runs it: the port's CLI on the shipped
+    clip_cap.jsonnet at GPT-2 small width and depth (random weights,
+    SimpleTokenizer), CLIPCAP_TRAIN_QUESTIONS synthetic train questions (8
+    steps of 32, the shipped accumulation of 4) and CLIPCAP_VAL_QUESTIONS
+    val questions: --mode train then --mode test twice, as shipped (bf16,
+    the 128-token bucket: 138 positions, no kernel) and with
+    CLIPCAP_FP32_OPTS (fp32 activations at 42 positions: fused_gpt2_block's
+    fp32 form 12 launches a training forward), each with
+    config_clipcap_run's checks; then one train step each with the
+    transformer and the perceiver mapper."""
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = write_eval_data(folder, CLIPCAP_VAL_QUESTIONS,
+                                n_train=CLIPCAP_TRAIN_QUESTIONS,
+                                width=CLIPCAP_PREFIX_SIZE)
+        runs = {}
+        for name, opts in (("bf16", ()), ("fp32", CLIPCAP_FP32_OPTS)):
+            runs[name] = config_clipcap_run(name, folder / name, files, opts)
+        check(not runs["bf16"]["fused_block"] and runs["fp32"]["fused_block"],
+              "config_clipcap: the bf16 run took the kernel or the fp32 run "
+              "did not")
+        mappers = {t: clipcap_mapper_step(folder / t, files, t)
+                   for t in ("transformer", "perceiver")}
+    for name, run in runs.items():
+        emit("config_clipcap", run=name, nvidia_smi=smi, **{
+            k: v for k, v in run.items() if k != "train_counts"})
+    emit("config_clipcap_mappers", **mappers)
+    return dict(launches_per_call=[runs["fp32"]["train_counts"]],
+                runs={name: {k: v for k, v in run.items()
+                             if k != "train_counts"}
+                      for name, run in runs.items()}, mappers=mappers)
 
 
 def phase_bench_train() -> dict:
@@ -4602,12 +5289,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     config_eval_int8 = phase_config_eval_int8(smi)
     torch.cuda.empty_cache()
+    config_eval_fp32_int8 = phase_config_eval_fp32_int8(smi)
+    torch.cuda.empty_cache()
     phase_config_eval_modes(smi)
     torch.cuda.empty_cache()
     phase_train_step(dev, smi)
     torch.cuda.empty_cache()
     phase_config_train(smi)
     phase_clipcap_train_step(dev)
+    torch.cuda.empty_cache()
+    config_clipcap = phase_config_clipcap(smi)
     torch.cuda.empty_cache()
     phase_bench_train()
 
@@ -4629,7 +5320,12 @@ def main() -> int:
                                   clip_b32["fused_attention"]),
         "fused_gpt2_block": (gpt2_block, clipcap["loss"]),
         "flash_attention": (flash, clip_pallas["use_pallas"]),
-        **{name: (res, config_fp32) for name, res in fp32_kernels.items()},
+        **{name: (res, {"fused_t5_ln_qkv_q8_f32": config_eval_fp32_int8,
+                        "fused_oproj_residual_q8_f32": config_eval_fp32_int8,
+                        "fused_t5_ffn_q8_f32": config_eval_fp32_int8,
+                        "fused_gpt2_block_f32": config_clipcap}.get(
+                            name, config_fp32))
+           for name, res in fp32_kernels.items()},
     }
     lines = []
     for name, (res, run) in measured.items():

@@ -51,7 +51,11 @@ def t5_params_from_numpy(tree: Params, dtype: torch.dtype = torch.bfloat16,
 def vct0_params_from_numpy(tree: Params, lm_dtype: torch.dtype = torch.bfloat16,
                            device: DeviceLike = None) -> Params:
     """The JAX ``{"lm", "mapper"}`` tree as port params: the LM in
-    ``lm_dtype``, the mapper in fp32 (the mapper runs in fp32)."""
+    ``lm_dtype``, the mapper in fp32 (the mapper runs in fp32). The mapper
+    may be of any type: the MLP's ``fc1`` / ``fc2``, the Transformer's
+    ``linear``, ``prefix_const`` and stacked ``blocks`` (``mlp`` nested),
+    the Perceiver's ``input_proj``, ``latents``, ``final_ln_*`` and
+    stacked ``blocks``; keys and layer axis are kept."""
     dev = resolve_device(device)
     return {
         "lm": _tree_to_torch(tree["lm"], lm_dtype, dev),
@@ -88,7 +92,8 @@ def clipcap_params_from_numpy(tree: Params,
                               lm_dtype: torch.dtype = torch.bfloat16,
                               device: DeviceLike = None) -> Params:
     """The JAX ClipCap ``{"lm", "mapper"}`` tree as port params: the GPT-2
-    LM in ``lm_dtype``, the mapper in fp32 (the mapper runs in fp32)."""
+    LM in ``lm_dtype``, the mapper (of any type, as in
+    ``vct0_params_from_numpy``) in fp32 (the mapper runs in fp32)."""
     dev = resolve_device(device)
     return {
         "lm": _tree_to_torch(tree["lm"], lm_dtype, dev),

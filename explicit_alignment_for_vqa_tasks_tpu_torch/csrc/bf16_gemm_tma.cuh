@@ -408,7 +408,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 
 // out = res + (acc + bias) (BIAS) or res + acc, the sums in fp32, rounded
 // once to OutT (bf16, or fp32: not rounded): res (M, ld) of ResT (bf16 or
-// fp32), bias (n_split,) bf16. The whole blocks' out-projection writes
+// fp32), bias (n_split,) of BiasT (bf16, or fp32: the GPT-2 block's fp32
+// form, whose fp32 parameters JAX adds unrounded). The whole blocks' out-projection writes
 // their fp32 r1 (ResT bf16, OutT fp32), their down product adds it (ResT
 // fp32, OutT bf16). A
 // chunk's bias and residual are all read, packed, before its arithmetic
@@ -417,11 +418,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 // epilogues, on an H100); its pairs go to shared memory at the end, which
 // kept the 256-wide tiles free of spills. (Loading the residual's 64 x 64
 // box by TMA into the staging buffer instead took the same time.)
-template <typename ResT, bool BIAS, typename OutT = __nv_bfloat16>
+template <typename ResT, bool BIAS, typename OutT = __nv_bfloat16,
+          typename BiasT = __nv_bfloat16>
 struct ResidualEpilogue {
   using Out = OutT;
   struct Args {
-    const __nv_bfloat16* bias;  // BIAS only
+    const BiasT* bias;  // BIAS only
     const ResT* residual;
     int M, ld;
   };
@@ -431,7 +433,7 @@ struct ResidualEpilogue {
                                const Put& put) {
     using RawRes = typename Pair<ResT>::type;
     const int c = col + 2 * (threadIdx.x % 4);
-    __nv_bfloat162 bv[8];
+    typename Pair<BiasT>::type bv[8];
     RawRes rv[2][8];
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
@@ -475,19 +477,21 @@ struct ResidualEpilogue {
 // (fused_ln_qkv's and the GPT-2 block's in bf16, fused_attention_block's in
 // fp32); with ROUND_FIRST, q = bf16(bf16(acc + bias) * scale), the scale
 // bf16 too (fused_attention_block's bf16 compute_dtype, whose Pallas kernel
-// scales the bf16 q by a bf16 scale).
-template <typename OutT = __nv_bfloat16, bool ROUND_FIRST = false>
+// scales the bf16 q by a bf16 scale). The biases are of BiasT (bf16, or
+// fp32 in the GPT-2 block's fp32 form).
+template <typename OutT = __nv_bfloat16, bool ROUND_FIRST = false,
+          typename BiasT = __nv_bfloat16>
 struct QkvEpilogueOf {
   using Out = OutT;
   struct Args {
-    const __nv_bfloat16* bias[3];  // bq, bk, bv (n_split,)
-    float scale;                   // the factor of the q columns
+    const BiasT* bias[3];  // bq, bk, bv (n_split,)
+    float scale;           // the factor of the q columns
   };
   template <int ACC, class Put>
   __device__ static void chunk(const Args& args, int which, int /*row*/,
                                int col, const float (&acc)[ACC], int j0,
                                const Put& put) {
-    const __nv_bfloat16* bias =
+    const BiasT* bias =
         which == 0 ? args.bias[0] : (which == 1 ? args.bias[1] : args.bias[2]);
     const int c = col + 2 * (threadIdx.x % 4);
     float2 bv[8];

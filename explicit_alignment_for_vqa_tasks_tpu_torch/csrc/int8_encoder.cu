@@ -7,8 +7,9 @@
 //   fused_t5_ffn_q8          (pallas_call at :1595, body :1500-1538)
 //
 // What they compute, in the Pallas kernels' order of rounding (x, the
-// residual and the outputs bf16; weights int8 (K, N) with fp32 (G, N)
-// per-(contraction group, output column) scales):
+// residual and the outputs bf16, or fp32 in the fp32 forms below; weights
+// int8 (K, N) with fp32 (G, N) per-(contraction group, output column)
+// scales):
 //
 //   h      = (x * rsqrt(mean(x^2) + eps)) * w        fp32 RMSNorm (not for
 //                                                    the out-projection)
@@ -23,6 +24,16 @@
 //   ffn    : hid = gelu_tanh(acc_0) * acc_1  (fp32, never rounded to bf16;
 //            gelu_tanh(acc_0) without the gate), requantized per (row,
 //            g_hid group), out = bf16(x + acc_o)
+//
+// The fp32 forms (tpu.compute_dtype=float32 with an int8 opt-in): the JAX
+// kernels take x in any dtype and write x.dtype (residual.dtype for the
+// out-projection), reading the norm's scale .astype(f32). On fp32 x the
+// arithmetic above is the same; only the loads and the stores change:
+// row_quant reads the fp32 row (and an fp32 scale: the wrappers widen a bf16
+// one, which is exact), q, k, v and the residual sums are stored unrounded
+// (kQkvF32, kResidualF32: an fp32 residual in, fp32 out), and the
+// out-projection's attn and residual are each bf16 or fp32. The s8 main
+// loop is the bf16 forms' own. Each launcher takes the dtypes as flags.
 //
 // Every multiply and add of the fp32 epilogues is written with __fmul_rn /
 // __fadd_rn so that nvcc cannot contract them into FMAs: the plain PyTorch
@@ -91,6 +102,8 @@ enum Epilogue : int {
   kGeluHidden = 1,
   kGatedGeluHidden = 2,
   kQkvBf16 = 3,
+  kQkvF32 = 4,
+  kResidualF32 = 5,
 };
 
 struct GemmArgs {
@@ -98,10 +111,10 @@ struct GemmArgs {
   const float* a_scale;   // (M, G) per-(row, group) scales
   const int8_t* b;        // (N, K) int8 weights, K contiguous
   const float* b_scale;   // (G, N) fp32 scales
-  void* out[3];           // kQkvBf16: q, k, v (M, width) bf16; else out[0],
-                          // (M, N) bf16 or the (M, F) fp32 hidden (N = 2 F
+  void* out[3];           // kQkv*: q, k, v (M, width); else out[0], (M, N)
+                          // bf16 or fp32 or the (M, F) fp32 hidden (N = 2 F
                           // when gated)
-  const bf16* residual;   // (M, N) for kResidualBf16
+  const void* residual;   // (M, N) bf16 (kResidualBf16) or fp32
   int M, K, N, G;
   int width;              // kQkvBf16: the columns of each of q, k and v
 };
@@ -121,6 +134,8 @@ using activations::tanh_gelu;
 //     gelu(a0) * a1 is written once.
 //   kQkvBf16: the product's N = 3 width columns are q | k | v; the tile's
 //     columns lie in one of them, bf16(acc) is written there.
+//   kQkvF32, kResidualF32: the same with fp32 outputs (and an fp32
+//     residual), nothing rounded.
 template <int EPI>
 struct TmaEpilogue {
   using Args = GemmArgs;
@@ -129,21 +144,39 @@ struct TmaEpilogue {
                                const float (&acc)[TILE_N / 2], int row0,
                                int n0) {
     if constexpr (EPI == kResidualBf16) {
-      store_residual<TILE_N>(args, acc, row0, n0);
+      store_residual<TILE_N, bf16>(args, acc, row0, n0);
+    } else if constexpr (EPI == kResidualF32) {
+      store_residual<TILE_N, float>(args, acc, row0, n0);
     } else if constexpr (EPI == kQkvBf16) {
-      store_qkv<TILE_N>(args, acc, row0, n0);
+      store_qkv<TILE_N, bf16>(args, acc, row0, n0);
+    } else if constexpr (EPI == kQkvF32) {
+      store_qkv<TILE_N, float>(args, acc, row0, n0);
     } else {
       store_hidden<TILE_N>(args, acc, row0, n0);
     }
   }
 
-  template <int TILE_N>
+  // A pair of adjacent outputs, rounded to bf16 or stored as they are.
+  __device__ static void put_pair(bf16* p, float v0, float v1) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  }
+  __device__ static void put_pair(float* p, float v0, float v1) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  }
+  __device__ static float2 get_pair(const bf16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ static float2 get_pair(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+
+  template <int TILE_N, typename OutT>
   __device__ static void store_qkv(const Args& args,
                                    const float (&acc)[TILE_N / 2], int row0,
                                    int n0) {
     const int part = n0 / args.width, c0 = n0 - part * args.width;
     const int tig = threadIdx.x % 4;
-    bf16* out = static_cast<bf16*>(
+    OutT* out = static_cast<OutT*>(
         part == 0 ? args.out[0] : (part == 1 ? args.out[1] : args.out[2]));
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -153,9 +186,7 @@ struct TmaEpilogue {
       for (int j = 0; j < TILE_N / 8; ++j) {
         const size_t off =
             static_cast<size_t>(row) * args.width + c0 + 8 * j + 2 * tig;
-        *reinterpret_cast<__nv_bfloat162*>(out + off) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * half],
-                                  acc[4 * j + 2 * half + 1]);
+        put_pair(out + off, acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
       }
     }
   }
@@ -188,14 +219,16 @@ struct TmaEpilogue {
     }
   }
 
-  template <int TILE_N>
+  // out (M, N) of T = residual (M, N) of T + acc, the sum in fp32.
+  template <int TILE_N, typename T>
   __device__ static void store_residual(const Args& args,
                                         const float (&acc)[TILE_N / 2],
                                         int row0, int n0) {
     constexpr int CHUNK = 8;  // 8-column chunks read before their stores
     const int M = args.M, N = args.N;
     const int tig = threadIdx.x % 4;
-    bf16* out = static_cast<bf16*>(args.out[0]);
+    T* out = static_cast<T*>(args.out[0]);
+    const T* residual = static_cast<const T*>(args.residual);
 #pragma unroll
     for (int j0 = 0; j0 < TILE_N / 8; j0 += CHUNK) {
       float2 res[2][CHUNK];
@@ -206,11 +239,8 @@ struct TmaEpilogue {
         for (int jj = 0; jj < CHUNK; ++jj) {
           const size_t off =
               static_cast<size_t>(row) * N + n0 + 8 * (j0 + jj) + 2 * tig;
-          res[half][jj] = row < M
-                              ? __bfloat1622float2(
-                                    *reinterpret_cast<const __nv_bfloat162*>(
-                                        args.residual + off))
-                              : make_float2(0.0f, 0.0f);
+          res[half][jj] = row < M ? get_pair(residual + off)
+                                  : make_float2(0.0f, 0.0f);
         }
       }
 #pragma unroll
@@ -222,10 +252,9 @@ struct TmaEpilogue {
           const int j = j0 + jj;
           const size_t off =
               static_cast<size_t>(row) * N + n0 + 8 * j + 2 * tig;
-          *reinterpret_cast<__nv_bfloat162*>(out + off) =
-              __floats2bfloat162_rn(
-                  __fadd_rn(res[half][jj].x, acc[4 * j + 2 * half]),
-                  __fadd_rn(res[half][jj].y, acc[4 * j + 2 * half + 1]));
+          put_pair(out + off,
+                   __fadd_rn(res[half][jj].x, acc[4 * j + 2 * half]),
+                   __fadd_rn(res[half][jj].y, acc[4 * j + 2 * half + 1]));
         }
       }
     }
@@ -260,61 +289,73 @@ GemmArgs gemm_args(const void* a, const void* a_scale, const void* w,
 // Each launcher runs on `stream` and returns the first cudaError_t of its
 // launches (0 on success). Scratch (codes, scales, the FFN hidden) is the
 // caller's. Weights come K-major: wq etc. are (N, K), the transpose of the
-// JAX layout's (K, N).
+// JAX layout's (K, N). x_f32 (attn_f32, residual_f32) selects the fp32
+// form: that tensor (and the norm's scale lnw) fp32 instead of bf16, the
+// outputs in x's (the residual's) dtype.
 
-// q, k, v (M, inner) bf16 = RMSNorm(x (M, D)) through w_qkv (3 inner, D),
+// q, k, v (M, inner) = RMSNorm(x (M, D)) through w_qkv (3 inner, D),
 // wq^T, wk^T and wv^T stacked, with s_qkv (G, 3 inner) their scales side by
 // side.
 extern "C" int fused_t5_ln_qkv_q8_launch(
     const void* x, const void* lnw, const void* w_qkv, const void* s_qkv,
     void* codes, void* row_scales, void* q, void* k, void* v, int M, int D,
-    int inner, int G, float eps, void* stream) {
+    int inner, int G, int x_f32, float eps, void* stream) {
   const int N = 3 * inner;
   if (!shape_ok(M, D, N, G) || inner % q8_gemm_tma::tile_width(N, G) != 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = row_quant<bf16, kRms>(x, lnw, nullptr, codes, row_scales, M,
-                                  D, G, eps, s);
+  int rc = x_f32 ? row_quant<float, kRms, float>(x, lnw, nullptr, codes,
+                                                 row_scales, M, D, G, eps, s)
+                 : row_quant<bf16, kRms>(x, lnw, nullptr, codes, row_scales,
+                                         M, D, G, eps, s);
   if (rc != 0) return rc;
   GemmArgs args = gemm_args(codes, row_scales, w_qkv, s_qkv, q, M, D, N, G);
   args.out[1] = k;
   args.out[2] = v;
   args.width = inner;
-  return tma_gemm<kQkvBf16>(args, s);
+  return x_f32 ? tma_gemm<kQkvF32>(args, s) : tma_gemm<kQkvBf16>(args, s);
 }
 
-// out (M, N) bf16 = residual + attn (M, K) through wo (N, K).
+// out (M, N) = residual + attn (M, K) through wo (N, K), attn and residual
+// each bf16 or fp32, out in the residual's dtype (the JAX kernel writes
+// residual.dtype).
 extern "C" int fused_oproj_residual_q8_launch(
     const void* residual, const void* attn, const void* wo, const void* so,
     void* codes, void* row_scales, void* out, int M, int K, int N, int G,
-    void* stream) {
+    int attn_f32, int residual_f32, void* stream) {
   if (!shape_ok(M, K, N, G)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = row_quant<bf16, kNone>(attn, nullptr, nullptr, codes, row_scales,
-                                  M, K, G, 0.0f, s);
+  int rc = attn_f32 ? row_quant<float, kNone>(attn, nullptr, nullptr, codes,
+                                              row_scales, M, K, G, 0.0f, s)
+                    : row_quant<bf16, kNone>(attn, nullptr, nullptr, codes,
+                                             row_scales, M, K, G, 0.0f, s);
   if (rc != 0) return rc;
   GemmArgs args = gemm_args(codes, row_scales, wo, so, out, M, K, N, G);
-  args.residual = static_cast<const bf16*>(residual);
-  return tma_gemm<kResidualBf16>(args, s);
+  args.residual = residual;
+  return residual_f32 ? tma_gemm<kResidualF32>(args, s)
+                      : tma_gemm<kResidualBf16>(args, s);
 }
 
-// out (M, D) bf16 = x + FFN(RMSNorm(x)). Gated: w01 (2 F, D) holds wi_0^T and
+// out (M, D) = x + FFN(RMSNorm(x)). Gated: w01 (2 F, D) holds wi_0^T and
 // wi_1^T interleaved by eight rows, s01 (G_in, 2 F) their scales the same
 // way; else w01 (F, D) is wi_0^T, s01 (G_in, F). wo is (D, F). hidden is fp32
-// (M, F).
+// (M, F) in either form.
 extern "C" int fused_t5_ffn_q8_launch(
     const void* x, const void* lnw, const void* w01, const void* s01,
     const void* wo, const void* so, void* codes_in, void* scales_in,
     void* hidden, void* codes_hid, void* scales_hid, void* out, int M, int D,
-    int F, int gated, int G_in, int G_hid, float eps, void* stream) {
+    int F, int gated, int G_in, int G_hid, int x_f32, float eps,
+    void* stream) {
   const int n_up = gated ? 2 * F : F;
   if (!shape_ok(M, D, n_up, G_in) || !shape_ok(M, F, D, G_hid)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = row_quant<bf16, kRms>(x, lnw, nullptr, codes_in, scales_in, M, D,
-                                 G_in, eps, s);
+  int rc = x_f32 ? row_quant<float, kRms, float>(x, lnw, nullptr, codes_in,
+                                                 scales_in, M, D, G_in, eps, s)
+                 : row_quant<bf16, kRms>(x, lnw, nullptr, codes_in, scales_in,
+                                         M, D, G_in, eps, s);
   if (rc != 0) return rc;
   GemmArgs up =
       gemm_args(codes_in, scales_in, w01, s01, hidden, M, D, n_up, G_in);
@@ -326,6 +367,7 @@ extern "C" int fused_t5_ffn_q8_launch(
   if (rc != 0) return rc;
   GemmArgs down =
       gemm_args(codes_hid, scales_hid, wo, so, out, M, F, D, G_hid);
-  down.residual = static_cast<const bf16*>(x);
-  return tma_gemm<kResidualBf16>(down, s);
+  down.residual = x;
+  return x_f32 ? tma_gemm<kResidualF32>(down, s)
+               : tma_gemm<kResidualBf16>(down, s);
 }

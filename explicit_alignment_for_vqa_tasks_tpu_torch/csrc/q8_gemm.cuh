@@ -4,8 +4,10 @@
 // or LayerNorm in front), the shapes the GEMM takes, and the fragment
 // layout its epilogues write from.
 //
-//   row_quant_kernel<T, NORM>: one block per row of x (K wide, T = bf16 or
-//     float). The fp32 row sits in shared memory, normalised in place by
+//   row_quant_kernel<T, NORM, W>: one block per row of x (K wide, T = bf16
+//     or float), the norm's scale and bias of W (bf16, or fp32 where the
+//     caller's parameters are fp32). The fp32 row sits in shared memory,
+//     normalised in place by
 //       kRms    h = (x * rsqrt(mean(x^2) + eps)) * w             (T5)
 //       kLayer  h = (((x - m) * (1 / sqrt(var + eps))) * w) + b  (CLIP; m
 //               the mean, var the mean of the squared deviations)
@@ -86,10 +88,10 @@ __device__ float block_reduce(float v, float* red) {
 // One block per row of x (K wide): the optional norm, then per-(row,
 // group) symmetric int8 quantization into codes (M, K) and scales (M, G).
 // w is the norm's scale, b the LayerNorm's bias (null where unused).
-template <typename T, int NORM>
+template <typename T, int NORM, typename W = bf16>
 __global__ void __launch_bounds__(NT)
-row_quant_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
-                 const bf16* __restrict__ b, int8_t* __restrict__ codes,
+row_quant_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                 const W* __restrict__ b, int8_t* __restrict__ codes,
                  float* __restrict__ scales, int K, int G, float eps) {
   extern __shared__ float h[];  // the row, K floats
   __shared__ float red[NWARPS + 1];
@@ -107,7 +109,7 @@ row_quant_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
     const float var = __fdiv_rn(block_reduce<false>(s, red), width);
     const float r = rsqrtf(__fadd_rn(var, eps));
     for (int i = threadIdx.x; i < K; i += NT) {  // this thread's own h[i]
-      h[i] = __fmul_rn(__fmul_rn(h[i], r), __bfloat162float(w[i]));
+      h[i] = __fmul_rn(__fmul_rn(h[i], r), to_f32(w[i]));
     }
   }
   if constexpr (NORM == kLayer) {
@@ -122,8 +124,8 @@ row_quant_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
     for (int i = threadIdx.x; i < K; i += NT) {
       h[i] = __fadd_rn(
           __fmul_rn(__fmul_rn(__fsub_rn(h[i], mean), r),
-                    __bfloat162float(w[i])),
-          __bfloat162float(b[i]));
+                    to_f32(w[i])),
+          to_f32(b[i]));
     }
   }
   __syncthreads();
@@ -143,18 +145,18 @@ row_quant_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-template <typename T, int NORM>
+template <typename T, int NORM, typename W = bf16>
 int row_quant(const void* x, const void* w, const void* b, void* codes,
               void* scales, int M, int K, int G, float eps,
               cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(K) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      row_quant_kernel<T, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      row_quant_kernel<T, NORM, W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  row_quant_kernel<T, NORM><<<M, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(b), static_cast<int8_t*>(codes),
+  row_quant_kernel<T, NORM, W><<<M, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w),
+      static_cast<const W*>(b), static_cast<int8_t*>(codes),
       static_cast<float*>(scales), K, G, eps);
   return static_cast<int>(cudaGetLastError());
 }

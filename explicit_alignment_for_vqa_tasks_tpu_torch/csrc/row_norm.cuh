@@ -2,8 +2,8 @@
 // the LayerNorm of vit_block.cu (through block_stages.cuh) and
 // gpt2_block.cu, and the RMSNorm of t5_ffn.cu.
 //
-// One warp per row (of bf16 x, or of an fp32 residual r1 or x) writes h in
-// bf16:
+// One warp per row (of bf16 x, or of an fp32 residual r1 or x; s and b bf16,
+// or fp32 for fp32 parameters) writes h in bf16:
 // the row in the warp's registers (16-byte loads of 8 elements a lane, 8
 // rows a block of 256 threads), each sum a lane's own elements in order
 // then a butterfly of shuffles. In fp32:
@@ -136,13 +136,12 @@ __device__ __forceinline__ void norm_row(
 
 // One warp a row (the kernels' names tell the profiler's split which norm
 // ran).
-template <typename T, int CHUNKS>
+template <typename T, typename S, int CHUNKS>
 __global__ void __launch_bounds__(ROWS * 32)
-layer_norm_kernel(const T* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ scale,
-                  const __nv_bfloat16* __restrict__ bias,
-                  __nv_bfloat16* __restrict__ h, int M, int D, float eps) {
-  norm_row<T, __nv_bfloat16, CHUNKS, false>(x, scale, bias, h, M, D, eps);
+layer_norm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                  const S* __restrict__ bias, __nv_bfloat16* __restrict__ h,
+                  int M, int D, float eps) {
+  norm_row<T, S, CHUNKS, false>(x, scale, bias, h, M, D, eps);
 }
 
 template <typename T, typename S, int CHUNKS>
@@ -162,7 +161,7 @@ int norm_rows(const void* x, const void* scale, const void* bias, void* h,
     rms_norm_kernel<T, S, CHUNKS><<<blocks, ROWS * 32, 0, stream>>>(
         static_cast<const T*>(x), s, out, M, D, eps);
   } else {
-    layer_norm_kernel<T, CHUNKS><<<blocks, ROWS * 32, 0, stream>>>(
+    layer_norm_kernel<T, S, CHUNKS><<<blocks, ROWS * 32, 0, stream>>>(
         static_cast<const T*>(x), s, static_cast<const S*>(bias), out, M, D,
         eps);
   }
@@ -193,10 +192,10 @@ int norm(const void* x, const void* scale, const void* bias, void* h, int M,
 }
 
 // h = bf16(LN(x) * scale + bias) over rows of x (T = bf16 or float)
-template <typename T>
+template <typename T, typename S = __nv_bfloat16>
 int layer_norm(const void* x, const void* scale, const void* bias, void* h,
                int M, int D, float eps, cudaStream_t stream) {
-  return norm<T, __nv_bfloat16, false>(x, scale, bias, h, M, D, eps, stream);
+  return norm<T, S, false>(x, scale, bias, h, M, D, eps, stream);
 }
 
 // h = bf16(RMSNorm(x) * scale) over rows of x (T = bf16 or float), the

@@ -79,11 +79,19 @@ def init_vct0_params(
 ) -> Params:
     """Random params drawn on ``device`` (the card by default) from a
     generator seeded with ``seed``: the LM in ``param_dtype``, the mapper
-    in fp32."""
+    in fp32. The perceiver's latents are the embeddings of
+    ``prefix_length`` vocabulary ids drawn uniformly (JAX
+    ``init_vct0_params``, :84-93)."""
     gen = make_generator(seed, resolve_device(device))
     if lm_params is None:
         lm_params = t5_lib.init_t5_params(gen, cfg.lm, param_dtype)
-    return {"lm": lm_params, "mapper": init_mapper(gen, cfg.mapper)}
+    latents_init = None
+    if cfg.mapper.mapping_type == "perceiver":
+        idx = torch.randint(0, cfg.lm.vocab_size, (cfg.mapper.prefix_length,),
+                            generator=gen, device=gen.device)
+        latents_init = lm_params["shared"][idx].float()
+    return {"lm": lm_params,
+            "mapper": init_mapper(gen, cfg.mapper, latents_init=latents_init)}
 
 
 def quantize_int8_encoder(lm_params: Params,

@@ -635,6 +635,25 @@ def _run(op: str, fn, *args) -> None:
 _BF16, _I8, _F32 = torch.bfloat16, torch.int8, torch.float32
 
 
+def _q8_activation_dtype(op: str, t: torch.Tensor,
+                         name: str = "x") -> torch.dtype:
+    """The int8 T5 kernels' activation dtype: bf16, or fp32 for the fp32
+    forms (the JAX kernels take any dtype and write it)."""
+    if t.dtype not in (_BF16, _F32):
+        raise ValueError(f"{op}: {name} is {t.dtype}; the kernel takes "
+                         "bfloat16 or float32")
+    return t.dtype
+
+
+def _q8_norm_scale(ln_weight: torch.Tensor,
+                   act: torch.dtype) -> torch.Tensor:
+    """The norm scale as the form reads it: bf16 for bf16 x; fp32 for fp32
+    x, a bf16 scale widened (exact), as JAX reads it ``.astype(f32)``."""
+    if act == _F32 and ln_weight.dtype == _BF16:
+        return ln_weight.float()
+    return ln_weight
+
+
 def fused_t5_ln_qkv_q8(
     x: torch.Tensor, ln_weight: torch.Tensor,
     wq: torch.Tensor, sq: torch.Tensor,
@@ -643,20 +662,24 @@ def fused_t5_ln_qkv_q8(
     eps: float = 1e-6,
     *, codes_out: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """RMS-norm + the three int8 T5 attention input projections. CPU
-    tensors take the plain version; CUDA tensors launch the kernel
-    (``fused_t5_ln_qkv_q8.launches`` counts those calls) or raise.
-    ``codes_out``, when given, receives the activation ``codes`` and
-    ``scales`` (the kernel's scratch), as the plain version's does."""
+    """RMS-norm + the three int8 T5 attention input projections; q, k and
+    v in x's dtype, bf16 or fp32 (the fp32 form: fp32 x, its norm scale
+    read as fp32). CPU tensors take the plain version; CUDA tensors launch
+    the kernel (``fused_t5_ln_qkv_q8.launches`` counts those calls, of
+    either form) or raise. ``codes_out``, when given, receives the
+    activation ``codes`` and ``scales`` (the kernel's scratch), as the
+    plain version's does."""
     if x.device.type == "cpu":
         return fused_t5_ln_qkv_q8_plain(x, ln_weight, wq, sq, wk, sk, wv, sv,
                                         eps, codes_out=codes_out)
     kernels.refuse_grad("fused_t5_ln_qkv_q8", x, ln_weight, sq, sk, sv)
     op = "fused_t5_ln_qkv_q8"
     sq, sk, sv = (_as_group_scales(s) for s in (sq, sk, sv))
+    act = _q8_activation_dtype(op, x)
+    ln_weight = _q8_norm_scale(ln_weight, act)
     _check_tensors(
         op, x.device,
-        dict(x=_BF16, ln_weight=_BF16, wq=_I8, wk=_I8, wv=_I8, sq=_F32,
+        dict(x=act, ln_weight=act, wq=_I8, wk=_I8, wv=_I8, sq=_F32,
              sk=_F32, sv=_F32),
         x=x, ln_weight=ln_weight, wq=wq, sq=sq, wk=wk, sk=sk, wv=wv, sv=sv)
     batch, seq, d_model = x.shape
@@ -670,14 +693,15 @@ def fused_t5_ln_qkv_q8(
     rows, inner = batch * seq, wq.shape[1]
     codes = torch.empty((rows, d_model), dtype=_I8, device=x.device)
     row_scales = torch.empty((rows, groups), dtype=_F32, device=x.device)
-    q, k, v = (torch.empty((batch, seq, inner), dtype=_BF16, device=x.device)
+    q, k, v = (torch.empty((batch, seq, inner), dtype=act, device=x.device)
                for _ in range(3))
     w_qkv, s_qkv = _k_major_stacked((wq, wk, wv), (sq, sk, sv))
-    _run(op, _launcher_of("int8_encoder", op, 9, 4, 1),
+    _run(op, _launcher_of("int8_encoder", op, 9, 5, 1),
          x.data_ptr(), ln_weight.data_ptr(), w_qkv.data_ptr(),
          s_qkv.data_ptr(), codes.data_ptr(), row_scales.data_ptr(),
          q.data_ptr(), k.data_ptr(), v.data_ptr(), rows, d_model, inner,
-         groups, eps, torch.cuda.current_stream(x.device).cuda_stream)
+         groups, int(act == _F32), eps,
+         torch.cuda.current_stream(x.device).cuda_stream)
     fused_t5_ln_qkv_q8.launches += 1
     if codes_out is not None:
         codes_out.update(codes=codes, scales=row_scales)
@@ -688,16 +712,21 @@ def fused_oproj_residual_q8(
     residual: torch.Tensor, attn: torch.Tensor,
     wo: torch.Tensor, so: torch.Tensor,
 ) -> torch.Tensor:
-    """residual + attn @ Wo with the product int8. CPU tensors take the
-    plain version; CUDA tensors launch the kernel
-    (``fused_oproj_residual_q8.launches``) or raise."""
+    """residual + attn @ Wo with the product int8, in residual's dtype;
+    attn and residual each bf16 or fp32 (the fp32 forms), as JAX's kernel
+    takes them. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (``fused_oproj_residual_q8.launches``, any form) or
+    raise."""
     if attn.device.type == "cpu":
         return fused_oproj_residual_q8_plain(residual, attn, wo, so)
     kernels.refuse_grad("fused_oproj_residual_q8", residual, attn, so)
     op = "fused_oproj_residual_q8"
     so = _as_group_scales(so)
+    attn_dtype = _q8_activation_dtype(op, attn, "attn")
+    res_dtype = _q8_activation_dtype(op, residual, "residual")
     _check_tensors(op, attn.device,
-                   dict(residual=_BF16, attn=_BF16, wo=_I8, so=_F32),
+                   dict(residual=res_dtype, attn=attn_dtype, wo=_I8,
+                        so=_F32),
                    residual=residual, attn=attn, wo=wo, so=so)
     batch, seq, inner = attn.shape
     groups = so.shape[0]
@@ -712,10 +741,11 @@ def fused_oproj_residual_q8(
     row_scales = torch.empty((rows, groups), dtype=_F32, device=attn.device)
     out = torch.empty_like(residual)
     wo = _k_major(wo)
-    _run(op, _launcher_of("int8_encoder", op, 7, 4, 0),
+    _run(op, _launcher_of("int8_encoder", op, 7, 6, 0),
          residual.data_ptr(), attn.data_ptr(), wo.data_ptr(), so.data_ptr(),
          codes.data_ptr(), row_scales.data_ptr(), out.data_ptr(),
-         rows, inner, d_model, groups,
+         rows, inner, d_model, groups, int(attn_dtype == _F32),
+         int(res_dtype == _F32),
          torch.cuda.current_stream(attn.device).cuda_stream)
     fused_oproj_residual_q8.launches += 1
     return out
@@ -730,9 +760,11 @@ def fused_t5_ffn_q8(
     *, codes_out: Optional[dict] = None,
 ) -> torch.Tensor:
     """x + FFN(RMSNorm(x)) with every product int8 (gated when wi_1 is
-    given). CPU tensors take the plain version; CUDA tensors launch the
-    kernel (``fused_t5_ffn_q8.launches``) or raise. ``codes_out``, when
-    given, receives the plain version's keys from the kernel's scratch."""
+    given), in x's dtype, bf16 or fp32 (the fp32 form: fp32 x, its norm
+    scale read as fp32). CPU tensors take the plain version; CUDA tensors
+    launch the kernel (``fused_t5_ffn_q8.launches``, either form) or raise.
+    ``codes_out``, when given, receives the plain version's keys from the
+    kernel's scratch."""
     if x.device.type == "cpu":
         return fused_t5_ffn_q8_plain(x, ln_weight, wi_0, s_0, wi_1, s_1, wo,
                                      s_o, eps, codes_out=codes_out)
@@ -740,6 +772,8 @@ def fused_t5_ffn_q8(
     op = "fused_t5_ffn_q8"
     gated = wi_1 is not None
     s_0, s_o = _as_group_scales(s_0), _as_group_scales(s_o)
+    act = _q8_activation_dtype(op, x)
+    ln_weight = _q8_norm_scale(ln_weight, act)
     tensors = dict(x=x, ln_weight=ln_weight, wi_0=wi_0, s_0=s_0, wo=wo,
                    s_o=s_o)
     if gated:
@@ -747,7 +781,7 @@ def fused_t5_ffn_q8(
         tensors.update(wi_1=wi_1, s_1=s_1)
     _check_tensors(
         op, x.device,
-        dict(x=_BF16, ln_weight=_BF16, wi_0=_I8, wi_1=_I8, wo=_I8, s_0=_F32,
+        dict(x=act, ln_weight=act, wi_0=_I8, wi_1=_I8, wo=_I8, s_0=_F32,
              s_1=_F32, s_o=_F32),
         **tensors)
     batch, seq, d_model = x.shape
@@ -777,13 +811,13 @@ def fused_t5_ffn_q8(
     else:
         w_up, s_up = _k_major(wi_0), s_0
     wo = _k_major(wo)
-    _run(op, _launcher_of("int8_encoder", op, 12, 6, 1),
+    _run(op, _launcher_of("int8_encoder", op, 12, 7, 1),
          x.data_ptr(), ln_weight.data_ptr(), w_up.data_ptr(), s_up.data_ptr(),
          wo.data_ptr(), s_o.data_ptr(), codes_in.data_ptr(),
          scales_in.data_ptr(), hidden.data_ptr(), codes_hid.data_ptr(),
          scales_hid.data_ptr(), out.data_ptr(),
-         rows, d_model, d_ff, int(gated), g_in, g_hid, eps,
-         torch.cuda.current_stream(dev).cuda_stream)
+         rows, d_model, d_ff, int(gated), g_in, g_hid, int(act == _F32),
+         eps, torch.cuda.current_stream(dev).cuda_stream)
     fused_t5_ffn_q8.launches += 1
     if codes_out is not None:
         codes_out.update(codes=codes_in, scales=scales_in,
@@ -1932,6 +1966,8 @@ GPT2_BLOCK_KEYS = ("ln1_scale", "ln1_bias", "attn_qkv", "attn_qkv_bias",
                    "attn_out", "attn_out_bias", "ln2_scale", "ln2_bias",
                    "mlp_fc", "mlp_fc_bias", "mlp_proj", "mlp_proj_bias")
 GPT2_MASKED = -1e30
+# the four products' weights, which the kernel takes in bf16
+_GPT2_WEIGHTS = ("attn_qkv", "attn_out", "mlp_fc", "mlp_proj")
 
 
 def gpt2_block_group(batch: int, group: int = 4) -> int:
@@ -2016,19 +2052,42 @@ def fused_gpt2_block(
 ) -> torch.Tensor:
     """The whole pre-LN causal GPT-2 block (tanh-gelu) over (B, L, D) x
     under the (B, L) key mask. ``group`` is the JAX wrapper's (halved until
-    it divides B); it decides only the rows with no visible valid key. CPU
-    tensors take the plain version; CUDA tensors launch the kernel
-    (``fused_gpt2_block.launches``) or raise. The kernel is forward only:
-    with grad enabled, an input that requires grad raises; the autograd
-    form is ``fused_gpt2_block_vjp``."""
+    it divides B); it decides only the rows with no visible valid key. x is
+    bf16 with every parameter bf16, or fp32 (the fp32 form: the four
+    weights cast to bf16 here, as the JAX wrapper casts them, the
+    LayerNorms and biases bf16 or fp32, widened to fp32 in the kernel);
+    the output is in x's dtype. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (``fused_gpt2_block.launches``, either form) or raise. The
+    kernel is forward only: with grad enabled, an input that requires grad
+    raises; the autograd form is ``fused_gpt2_block_vjp``."""
     op = "fused_gpt2_block"
     params = (ln1_scale, ln1_bias, w_qkv, b_qkv, w_out, b_out, ln2_scale,
               ln2_bias, w_fc, b_fc, w_proj, b_proj)
     if x.device.type == "cpu":
         return fused_gpt2_block_plain(x, mask, *params, num_heads, group, eps)
+    kernels.refuse_grad(op, x, *params, vjp="fused_gpt2_block_vjp")
+    f32 = x.dtype == _F32
+    vector_dtype = _BF16
+    if f32:
+        for name, t in zip(GPT2_BLOCK_KEYS, params):
+            if t.dtype not in (_BF16, _F32):
+                raise ValueError(f"{op}: {name} is {t.dtype}; the fp32 form "
+                                 "takes bfloat16 or float32 parameters")
+        # the products' operands bf16; the vectors as they are when all are
+        # bf16, else all fp32 (a bf16 one widened, which is exact)
+        vector_dtype = _BF16 if all(
+            t.dtype == _BF16 for name, t in zip(GPT2_BLOCK_KEYS, params)
+            if name not in _GPT2_WEIGHTS) else _F32
+        params = tuple(
+            t.to(_BF16 if name in _GPT2_WEIGHTS else vector_dtype)
+            .contiguous() for name, t in zip(GPT2_BLOCK_KEYS, params))
+        (ln1_scale, ln1_bias, w_qkv, b_qkv, w_out, b_out, ln2_scale,
+         ln2_bias, w_fc, b_fc, w_proj, b_proj) = params
     tensors = dict(zip(("x",) + GPT2_BLOCK_KEYS, (x,) + params))
-    kernels.refuse_grad(op, *tensors.values(), vjp="fused_gpt2_block_vjp")
-    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
+    _check_tensors(op, x.device,
+                   {name: (_F32 if f32 else _BF16) if name == "x" else _BF16
+                    if name in _GPT2_WEIGHTS else vector_dtype
+                    for name in tensors},
                    **tensors)
     if x.dim() != 3:
         raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
@@ -2065,16 +2124,18 @@ def fused_gpt2_block(
     # through device memory, once each: bf16 h (LN1, then LN2), q, k, v and
     # the attention output; the fp32 residual r1; the bf16 tanh-gelu hidden
     h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
-    q, k, v, attn = (torch.empty_like(x) for _ in range(4))
+    q, k, v, attn = (torch.empty((batch, seq, d_model), dtype=_BF16,
+                                 device=dev) for _ in range(4))
     r1 = torch.empty((rows, d_model), dtype=_F32, device=dev)
     hidden = torch.empty((rows, d_ff), dtype=_BF16, device=dev)
     out = torch.empty_like(x)
-    _run(op, _launcher_of("gpt2_block", op, 22, 6, 2),
+    _run(op, _launcher_of("gpt2_block", op, 22, 8, 2),
          x.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
          h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
          attn.data_ptr(), r1.data_ptr(), hidden.data_ptr(), out.data_ptr(),
          batch, seq, num_heads, head_dim, d_ff,
-         gpt2_block_group(batch, group), head_dim ** -0.5, eps,
+         gpt2_block_group(batch, group), int(f32),
+         int(vector_dtype == _F32), head_dim ** -0.5, eps,
          torch.cuda.current_stream(dev).cuda_stream)
     fused_gpt2_block.launches += 1
     return out

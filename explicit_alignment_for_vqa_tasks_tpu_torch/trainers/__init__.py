@@ -1,7 +1,7 @@
 """The port's trainers: the model factory, the executors (registered in
 ``registry.EXECUTORS``: ``FewShotVQAExecutor``, the eval; ``VCT0Executor``,
-mapper training on Conceptual Captions; ``ClipCapExecutor``, which raises
-until ROADMAP.md Queue 1 item 11) over ``BaseExecutor``'s run loop, the
+mapper training on Conceptual Captions; ``ClipCapExecutor``, ClipCap's
+training and eval on VQA2) over ``BaseExecutor``'s run loop, the
 optimizer, metrics and checkpointing."""
 
 from .base_executor import BaseExecutor

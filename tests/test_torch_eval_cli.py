@@ -3,8 +3,8 @@ against the JAX package's, on the CPU at the tiny T5_test size: ``--mode
 test`` writes an answers.pkl equal to the JAX package's main.run on the
 same weights, data and seed, for SimpleTokenizer and the committed subword
 fixture, with the JAX executor's metrics; ``--mode train`` on the few-shot
-config stops with the JAX package's error and on ClipCap's config raises
-with its ROADMAP item, as a multi-process launch does; torch checkpoints
+config stops with the JAX package's error and on ClipCap's config trains;
+a multi-process launch raises with its ROADMAP item; torch checkpoints
 keep the JAX package's index, aliases and resolution, and an Orbax
 checkpoint is refused."""
 
@@ -33,6 +33,7 @@ from test_e2e import (  # noqa: E402
     use_fixture_tokenizer,
     write_vqa_fixtures,
 )
+from test_torch_clipcap_executor import clipcap_argv  # noqa: E402
 from test_torch_eval_e2e import jax_params  # noqa: E402
 
 LM_CONFIG = ("{'d_model':32,'d_kv':8,'num_heads':4,'d_ff':64,"
@@ -158,7 +159,7 @@ def test_cli_train_mode_raises(tmp_path, cli_env):
     """--mode train on the few-shot config: the eval executor's no-op
     training step over the VQA2 train split, whose questions the fixture's
     in-context file does not hold; the port stops where the JAX package
-    does, with its error. ClipCap's executor is not ported (item 11)."""
+    does, with its error. On ClipCap's config the train run completes."""
     fixtures = write_vqa_fixtures(tmp_path)
     # a train run has no results_path: the sanity validation writes its
     # answers.pkl into the working directory (in both packages)
@@ -174,10 +175,15 @@ def test_cli_train_mode_raises(tmp_path, cli_env):
         errors.append(str(raised.value))
     assert errors[0] == errors[1]
     assert "no in-context examples for question" in errors[1]
-    clip_cap = argv(tmp_path, fixtures, "clip_cap", mode="train")
-    clip_cap[0] = os.path.join(REPO_ROOT, "configs/vqa2/clip_cap.jsonnet")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tmain.run(clip_cap, device="cpu")
+    # ClipCap's executor is ported: its train run completes, one epoch
+    # written as model_00 (tests/test_torch_clipcap_executor.py holds it
+    # against the JAX package)
+    executor, metrics = tmain.run(
+        clipcap_argv(tmp_path, fixtures, "clip_cap", "train",
+                     "train.epochs=1"), device="cpu")
+    assert metrics == {} and executor.global_step > 0
+    assert os.path.isfile(os.path.join(executor.config.saved_model_path,
+                                       "model_00", "trainable_state.pt"))
 
 
 def test_cli_refuses_more_than_one_process(tmp_path, cli_env):

@@ -39,6 +39,13 @@ WEIGHT_STD = 0.02
 FP32_TOL = 1e-5
 MIN_CLOSE = 0.95
 FLIP_TOL = 2.0 ** -12
+# the CUDA fp32 form against its plain version on the card, besides the
+# bf16 form's rule: at least this share of the elements within FP32_TOL
+# (1 + |want|) (an output rounded to bf16 has about 0.3 % there), and a
+# relative Frobenius error at most this fraction of the bf16 form's with
+# casts around it
+F32_CLOSE_FLOOR = 0.2
+F32_REL_OF_BF16_CAST = 0.25
 # bf16: every element within one bf16 ulp of JAX's and at least 99.9 % equal
 MIN_EQUAL = 0.999
 KEYS = tfab.GPT2_BLOCK_KEYS
@@ -284,7 +291,7 @@ def cuda_block(batch, seq, cfg=None):
 def test_cuda_fused_gpt2_block_matches_plain_version(batch, seq, left_pad):
     """GPT-2 small widths: every element within 8e-3 (1 + |want|) of the
     plain version (the whole-block rule), one launch counted, a row with no
-    visible key averaging its group (G = 2 at B = 6), grad inputs and fp32
+    visible key averaging its group (G = 2 at B = 6), grad inputs and fp16
     inputs refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -300,11 +307,87 @@ def test_cuda_fused_gpt2_block_matches_plain_version(batch, seq, left_pad):
     assert bool(torch.isfinite(got.float()).all())
     assert bool((err <= 8e-3 * (1 + want.float().abs())).all()), \
         err.max().item()
+    # fp32 x takes the fp32 form (test_cuda_f32_fused_gpt2_block_matches_
+    # plain_version); other dtypes are refused
     with pytest.raises(ValueError, match="bfloat16"):
-        tfab.fused_gpt2_block(x.float(), mask, *params, heads)
+        tfab.fused_gpt2_block(x.half(), mask, *params, heads)
     with pytest.raises(NotImplementedError, match="fused_gpt2_block_vjp"):
         tfab.fused_gpt2_block(x.clone().requires_grad_(), mask, *params,
                               heads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("params_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("batch,seq,left_pad", [(8, 64, 0), (4, 128, 0),
+                                                (6, 64, 7)])
+def test_cuda_f32_fused_gpt2_block_matches_plain_version(batch, seq, left_pad,
+                                                         params_dtype,
+                                                         record_property):
+    """The fp32 form at GPT-2 small widths: fp32 x, the parameters bf16 or
+    fp32 (fp32 LayerNorms and biases no bf16 holds; the weights cast to
+    bf16 by the wrapper), an fp32 output, one launch counted, a row with no
+    visible key averaging its group. Its intermediates are the bf16 form's
+    (bf16 h, q, k, v, p, attention and hidden), so it is held by the bf16
+    form's whole-block rule, every element within 8e-3 (1 + |want|): on
+    the card the tensor cores' sums round some of those intermediates the
+    other way from the plain version's fp32 sums, and each such flip moves
+    the later causal positions of its head. So that the fp32 loads and
+    stores are held as well: at least F32_CLOSE_FLOOR of the elements
+    within FP32_TOL (1 + |want|), and a relative Frobenius error at most
+    F32_REL_OF_BF16_CAST of the bf16 form's with casts around it (the plain
+    version on x rounded to bf16, its output rounded to bf16). The largest
+    error over (|want| + rms) and the readings are recorded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, mask, params, heads = cuda_block(batch, seq)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(x.shape, generator=gen, device="cuda")
+    if params_dtype == "float32":
+        params = [p.float() + (1e-3 * torch.rand(p.shape, generator=gen,
+                                                 device="cuda")
+                               if p.dim() == 1 else 0) for p in params]
+    mask[:, seq - 9:] = 0
+    mask[1, :left_pad] = 0
+    before = tfab.fused_gpt2_block.launches
+    got = tfab.fused_gpt2_block(x, mask, *params, heads)
+    torch.cuda.synchronize()
+    assert tfab.fused_gpt2_block.launches == before + 1
+    want = tfab.fused_gpt2_block_plain(x, mask, *params, heads)
+    assert got.dtype == want.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    assert bool((err <= 8e-3 * (1 + want.abs())).all()), err.max().item()
+    rms = want.square().mean().sqrt()
+    close = (err <= FP32_TOL * (1 + want.abs())).float().mean().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    cast = tfab.fused_gpt2_block_plain(x.bfloat16().float(), mask, *params,
+                                       heads).bfloat16().float()
+    cast_rel = ((cast - want).norm() / want.norm()).item()
+    record_property("flip_max", (err / (want.abs() + rms)).max().item())
+    record_property("close_share", close)
+    record_property("rel_frobenius", rel)
+    record_property("bf16_cast_rel_frobenius", cast_rel)
+    assert close >= F32_CLOSE_FLOOR, close
+    assert rel <= F32_REL_OF_BF16_CAST * cast_rel, (rel, cast_rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,seq,left_pad", [(8, 64, 0), (6, 128, 7)])
+def test_cuda_f32_form_rounds_to_the_bf16_form(batch, seq, left_pad):
+    """On x that bf16 holds, with bf16 parameters, the fp32 form's output
+    rounded to bf16 is the bf16 form's bit for bit: both run the same
+    stages on the same values, and only the fp32 form's last store is not
+    rounded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, mask, params, heads = cuda_block(batch, seq)
+    mask[:, seq - 9:] = 0
+    mask[1, :left_pad] = 0
+    got = tfab.fused_gpt2_block(x.float(), mask, *params, heads)
+    want = tfab.fused_gpt2_block(x, mask, *params, heads)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got.bfloat16(), want)
 
 
 @pytest.mark.gpu

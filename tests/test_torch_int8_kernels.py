@@ -676,8 +676,10 @@ def test_cuda_kernel_matches_plain_version(op, rows):
         assert rel <= 2e-3, rel
         rms = w.square().mean().sqrt()
         assert bool(((g - w).abs() <= 1.6e-2 * w.abs() + 1.6e-2 * rms).all())
-    with pytest.raises(ValueError, match="bfloat16"):
-        fn(args[0].float(), *args[1:])
+    # fp32 x takes the fp32 form (test_cuda_f32_forms_equal_plain); other
+    # dtypes are refused
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fn(args[0].half(), *args[1:])
 
 
 @pytest.mark.gpu
@@ -807,6 +809,69 @@ def test_cuda_qkv_q8_equals_plain(rows, d_model, inner, groups):
     want = tfab.fused_t5_ln_qkv_q8_plain(*args, eps=eps)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ln_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("op", ["qkv", "ffn_gated", "ffn_plain"])
+@pytest.mark.parametrize("rows", [64, 157])
+def test_cuda_f32_forms_equal_plain(rows, op, ln_dtype):
+    """The fp32 forms of fused_t5_ln_qkv_q8 and fused_t5_ffn_q8 (fp32 x,
+    the norm's scale bf16 (widened by the wrapper) or fp32) bit-equal to
+    their plain versions on exact_norm_rows at T0-3B widths and 8 groups:
+    fp32 outputs, unrounded, one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if op == "qkv":
+        args, eps = exact_qkv_case(rows, 2048, 2048, 8)
+    else:
+        args, eps = exact_ffn_case(rows, op == "ffn_gated", 8, 8)
+    lnw = args[1].float()
+    if ln_dtype == "float32":  # a scale no bf16 holds
+        lnw = lnw + 1e-3 * torch.rand(lnw.shape, device="cuda")
+    args = (args[0].float(), lnw, *args[2:])
+    fn, plain = getattr(tfab, WRAPPER[op]), getattr(tfab, PLAIN[op])
+    before = fn.launches
+    got = fn(*args, eps=eps)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args, eps=eps)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attn_dtype,res_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("rows", [64, 157])
+def test_cuda_oproj_f32_forms_match_plain(rows, attn_dtype, res_dtype,
+                                          record_property):
+    """fused_oproj_residual_q8 with attn and residual each bf16 or fp32,
+    the output in the residual's dtype as JAX writes it: bit-equal to the
+    plain version (no norm in front, so no code sits on a boundary the two
+    could round apart; the int8 products' sums are exact and the fp32
+    epilogue is the same operations in the same order), one launch
+    counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, _, wo, so = cuda_case("oproj", rows, groups=8)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    residual, attn = (torch.randn((1, rows, 2048), generator=gen,
+                                  device="cuda").to(TORCH_DTYPES[dt])
+                      for dt in (res_dtype, attn_dtype))
+    fn = tfab.fused_oproj_residual_q8
+    before = fn.launches
+    got = fn(residual, attn, wo, so)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = tfab.fused_oproj_residual_q8_plain(residual, attn, wo, so)
+    assert got.dtype == want.dtype == residual.dtype
+    assert bool(torch.isfinite(got).all())
+    record_property("differing", int((got != want).sum()))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # --- the T5 weight quantizer ------------------------------------------------

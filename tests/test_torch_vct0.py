@@ -244,9 +244,20 @@ def test_pipelined_generate_raises(params):
 
 @pytest.mark.parametrize("mapping_type", ["transformer", "perceiver"])
 def test_unported_mappers_raise(mapping_type):
-    cfg = tmap.MapperConfig(mapping_type=mapping_type)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmap.mapper_apply(cfg, {}, torch.zeros(1, 768))
+    """These two mappers once raised naming their ROADMAP item; they are
+    ported now (tests/test_torch_mappers.py holds them in full): neither
+    raises, and each gives JAX's output on JAX's init within 1e-5."""
+    kw = dict(MAPPER, mapping_type=mapping_type, num_layers=2, num_heads=4,
+              dim_head=8)
+    jp = jmap.init_mapper(jax.random.PRNGKey(1), jmap.MapperConfig(**kw))
+    tp = vct0_params_from_numpy(
+        {"lm": {}, "mapper": jax.tree.map(np.asarray, jp)}, torch.float32,
+        "cpu")["mapper"]
+    x = np.random.default_rng(2).standard_normal((3, 16)).astype(np.float32)
+    got = tmap.mapper_apply(tmap.MapperConfig(**kw), tp, torch.from_numpy(x))
+    want = np.asarray(jmap.mapper_apply(jmap.MapperConfig(**kw), jp,
+                                        jnp.asarray(x)))
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 # --- the prefix splice, on the cases of tests/test_prefix_splice.py -------
