@@ -561,6 +561,22 @@ FP32_Q8_CODES_OFF_SHARE = 1e-4     # codes off the card's plain version's
 # rounded to bf16)
 FP32_GPT2_CLOSE_FLOOR = 0.2
 FP32_GPT2_REL_OF_BF16_CAST = 0.25
+# the fp32 forms of the ViT split3 kernels and attention_core against their
+# plain versions (vit_kernels_f32): attention_core and attention_core_oproj
+# every output within FP32_ATOL (1 + |want|); with fast_exp, where two
+# orders of the scores may round an exponential's argument to bf16 the
+# other way, every output within that plus vit_fast_exp_flip_bound and at
+# least VIT_F32_FAST_CLOSE of them within FP32_ATOL (1 + |want|);
+# fused_ln_qkv and fused_mlp_block (h and hid rounded to bf16, which two
+# sum orders may round the other way) a relative Frobenius error of at most
+# VIT_F32_REL_FROBENIUS and at least VIT_F32_CLOSE of the outputs within
+# FP32_ATOL (1 + |want|). A form rounding x, q / k / v, the attention
+# output or its result to bf16 fails each
+# (tests/test_torch_vit_f32_kernels.py)
+VIT_F32_REL_FROBENIUS = 1e-4
+VIT_F32_CLOSE = 0.2
+VIT_F32_FAST_CLOSE = 0.95
+VIT_F32_BOUND_IMAGES = 16          # images of fast_exp's bound at a time
 # config_clipcap's fp32 run: B=32 at 10 prefix + 32 tokens (ragged query
 # tiles, M = 1,344); the kernel's timed shapes: 64 and 128 positions
 FP32_GPT2_PATH_LEN = 42
@@ -627,6 +643,13 @@ KERNELS = {
                                     JAX_OPS + ":1715"),
     "fused_t5_ffn_q8_f32": (PORT_CSRC + "int8_encoder.cu", JAX_OPS + ":1595"),
     "fused_gpt2_block_f32": (PORT_CSRC + "gpt2_block.cu", JAX_OPS + ":933"),
+    # ViT-L/14@336 in fp32 through ClipImageEncoder (clip_encode_fp32)
+    "fused_ln_qkv_f32": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":290"),
+    "attention_core_oproj_f32": (PORT_CSRC + "vit_block.cu",
+                                 JAX_OPS + ":366"),
+    "fused_mlp_block_f32": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":445"),
+    "attention_core_f32": (PORT_CSRC + "attention_f32.cuh",
+                           JAX_OPS + ":225"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
                 fused_oproj_residual_q8, fused_t5_ffn_q8,
@@ -3599,10 +3622,11 @@ def row_cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def phase_clip_variants(gen: torch.Generator, cfg, params, images,
-                        phase: str, reference: tuple, variants: dict) -> None:
+                        phase: str, reference: tuple, variants: dict) -> dict:
     """One encode at SPLIT_FE_LAYERS layers of each of ``variants`` (name
     -> (config, expected launches)) against ``reference`` (name, config,
-    expected launches) at that depth, on the same weights and images."""
+    expected launches) at that depth, on the same weights and images; each
+    path's run (encode_with_counts')."""
     dev = gen.device
     shallow = dict(params)
     shallow["blocks"] = {key: leaf[:SPLIT_FE_LAYERS]
@@ -3628,7 +3652,12 @@ def phase_clip_variants(gen: torch.Generator, cfg, params, images,
     emit(phase, layers=SPLIT_FE_LAYERS, batch=CLIP_BATCH, reference=ref_name,
          cosine=cosines, floor=CLIP_COSINE_FLOOR,
          launches={name: run["launches"] for name, run in runs.items()},
-         wall_s={name: run["wall_s"] for name, run in runs.items()})
+         wall_s={name: run["wall_s"] for name, run in runs.items()},
+         images_per_s={name: CLIP_BATCH / run["wall_s"]
+                       for name, run in runs.items()},
+         peak_gb={name: run["peak_bytes"] / 1e9
+                  for name, run in runs.items()})
+    return runs
 
 
 def encode_paths(phase: str, encoders: dict, per_call: dict, images,
@@ -4276,6 +4305,383 @@ def phase_clip_encode_pallas(gen: torch.Generator) -> dict:
     return encode_paths("clip_encode_pallas", encoders,
                         {"default": (), "use_pallas": (flash_attention,)},
                         images, cfg.num_layers, floor=PALLAS_COSINE_FLOOR)
+
+
+def vit_fast_exp_flip_bound(q, k, v, heads: int) -> torch.Tensor:
+    """Per output element, how far fp32 attention with fast_exp may move
+    for the bf16 roundings of s - max that two fp32 evaluations of the
+    scores may take apart (tests/test_torch_vit_f32_kernels.py): arguments
+    within the error bound of two fp32 dots of dh terms (2 dh 2^-24 sum
+    |q_i k_i|) of s and of the row's max, and the subtraction's roundings,
+    of a bf16 midpoint; a flip moves the argument by at most 2^-7 |s -
+    max|, its exponential e by e expm1 of that. In fp64, over
+    VIT_F32_BOUND_IMAGES images at a time."""
+    batch, seq, width = q.shape
+    dh = width // heads
+    out = torch.empty_like(q)
+    for b0 in range(0, batch, VIT_F32_BOUND_IMAGES):
+        sl = slice(b0, b0 + VIT_F32_BOUND_IMAGES)
+        n = q[sl].shape[0]
+
+        def h(t):
+            return t[sl].double().reshape(n, seq, heads, dh).transpose(1, 2)
+
+        qh, kh, vh = h(q), h(k), h(v)
+        s = (qh @ kh.transpose(-1, -2)).float()
+        err = (qh.abs() @ kh.abs().transpose(-1, -2)).mul_(
+            2 * dh * 2.0 ** -24)
+        d = (s - s.amax(dim=-1, keepdim=True)).contiguous()
+        del s
+        ulp = torch.nextafter(d.abs(), torch.full_like(d, float("inf"))) \
+            - d.abs()
+        err += err.amax(dim=-1, keepdim=True) + 2 * ulp.double()
+        del ulp
+        bits = d.view(torch.int32) & -65536
+        mid = (bits.view(torch.float32).double()
+               + (bits + 65536).view(torch.float32).double()) / 2
+        del bits
+        dd = d.double()
+        near = (dd - mid).abs() <= err
+        del mid, err, d
+        e = torch.exp(dd)
+        de = near * e * torch.expm1(dd.abs() * 2.0 ** -7)
+        del near, dd
+        denom = e.sum(dim=-1, keepdim=True)
+        o = (e @ vh) / denom
+        bound = (de @ vh.abs() + o.abs() * de.sum(dim=-1, keepdim=True)) \
+            / denom
+        out[sl] = bound.transpose(1, 2).reshape(n, seq, width).float()
+        del e, de, o, bound
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_f32_rule(name: str, got: torch.Tensor, want: torch.Tensor,
+                 flip_bound=None) -> dict:
+    """An fp32 form of a ViT kernel against its plain version: finite fp32
+    outputs held by the function's rule (VIT_F32_REL_FROBENIUS,
+    FP32_ATOL); the readings."""
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          f"{name}: {got.dtype} output or not finite")
+    err = (got.double() - want.double()).abs()
+    limit = FP32_ATOL * (1 + want.double().abs())
+    close = (err <= limit).double().mean().item()
+    out = dict(max_abs_err=err.max().item(), within_fp32_tol_share=close,
+               outputs_off_plain_share=(err > 0).double().mean().item())
+    if name.startswith(("fused_ln_qkv", "fused_mlp_block")):
+        rel = (err.norm() / want.double().norm()).item()
+        out["rel_frobenius"] = rel
+        check(rel <= VIT_F32_REL_FROBENIUS and close >= VIT_F32_CLOSE,
+              f"{name}: relative Frobenius error {rel} (limit "
+              f"{VIT_F32_REL_FROBENIUS}), {close} of outputs within "
+              f"{FP32_ATOL} (1 + |want|) (floor {VIT_F32_CLOSE})")
+    elif flip_bound is None:
+        check(close == 1.0,
+              f"{name}: outside {FP32_ATOL} (1 + |want|) of the plain "
+              f"version (max abs err {out['max_abs_err']})")
+    else:
+        beyond = (err - limit - flip_bound.double()).max().item()
+        out.update(flip_bound_max=flip_bound.max().item(),
+                   beyond_bound=beyond)
+        check(beyond <= 0 and close >= VIT_F32_FAST_CLOSE,
+              f"{name}: {beyond} beyond {FP32_ATOL} (1 + |want|) and the "
+              f"flip bound, {close} of outputs within {FP32_ATOL} (1 + "
+              f"|want|) (floor {VIT_F32_FAST_CLOSE})")
+    del err, limit
+    return out
+
+
+def f32_attention_by_route(q, k, v, heads: int, route: int, fast_exp: bool,
+                           out: torch.Tensor) -> None:
+    """attention_core's fp32 kernel by ``route`` (port_fab.F32_*) into
+    ``out``, whatever route the wrapper would take."""
+    batch, seq, width = q.shape
+    rc = port_fab._launcher_of("vit_block", "attention_core", 4, 7, 0)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, seq,
+        heads, width // heads, int(fast_exp), 1, route,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"attention_core (fp32) by route {route}: launch failed "
+          f"({rc})")
+
+
+def vit_f32_routes(qkv, heads: int, kw: dict, name: str) -> dict:
+    """attention_core's fp32 kernel by the route the wrapper takes and by
+    the two-pass route (the parent's, any L), each by vit_f32_rule against
+    the plain version and timed in turns (two-pass, wrapper's, wrapper's,
+    two-pass); each route's bound on the operations it runs (the held
+    routes q·kᵀ once on whole 64-row, 64-key tiles, the two-pass route
+    q·kᵀ twice) at the fp32 rate."""
+    q, k, v = qkv
+    batch, seq, width = q.shape
+    route = port_fab.vit_f32_route(seq, width // heads)
+    two_pass_out = torch.empty_like(q)
+
+    def two_pass():
+        f32_attention_by_route(q, k, v, heads, port_fab.F32_TWO_PASS,
+                               bool(kw), two_pass_out)
+
+    two_pass()
+    torch.cuda.synchronize()
+    want = attention_core_plain(q, k, v, heads, **kw)
+    flip = vit_fast_exp_flip_bound(q, k, v, heads) if kw else None
+    two_pass_err = vit_f32_rule(f"{name} (two-pass route)", two_pass_out,
+                                want, flip)
+    del want, flip
+    torch.cuda.empty_cache()
+    turns = [cuda_ms(call, iters=5) for call in (
+        two_pass, lambda: attention_core(q, k, v, heads, **kw),
+        lambda: attention_core(q, k, v, heads, **kw), two_pass)]
+    padded = -(-seq // 64) * 64
+    held_ops = 4 * batch * padded * padded * width
+    return dict(
+        route={port_fab.F32_HELD: "held", port_fab.F32_HELD_KS:
+               "held, K in the score rows", port_fab.F32_TWO_PASS:
+               "two-pass"}[route],
+        route_bound_ms=(held_ops if route != port_fab.F32_TWO_PASS else
+                        6 * batch * seq * seq * width) / FP32_FLOP_PER_S
+        * 1e3,
+        two_pass_ms=(turns[0] + turns[3]) / 2,
+        route_turns_ms=dict(two_pass=turns[0::3], route=turns[1:3]),
+        two_pass_route_bound_ms=6 * batch * seq * seq * width
+        / FP32_FLOP_PER_S * 1e3,
+        two_pass_max_abs_err=two_pass_err["max_abs_err"])
+
+
+def phase_vit_kernels_f32(gen: torch.Generator) -> dict:
+    """The fp32 forms of the split3 kernels and attention_core at ViT-L
+    widths on CLIP_BATCH images, the main path's shape: fp32 activations
+    with bf16 parameters (the kernels line's ``_f32`` rows) and with fp32
+    parameters (the weights cast to bf16 by the wrapper each call, the
+    casts timed apart), bf16 activations with fp32 parameters, and
+    attention_core with fast_exp. Each against its plain version by
+    vit_f32_rule (the bf16-activation forms by check_against_plain's bf16
+    rule), timed by CUDA events in turns with the bf16 form, beside its
+    plain version, its bound and, for the fp32 rows, one library function
+    of the same dtypes (TF32 off)."""
+    cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
+    seq, width, heads = cfg.seq_len, cfg.width, cfg.num_heads
+    d_ff, eps = cfg.mlp_ratio * width, cfg.layer_norm_epsilon
+    dev = gen.device
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain versions must multiply in fp32")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    batch, rows = CLIP_BATCH, CLIP_BATCH * seq
+    x = randn(batch, seq, width)
+    vecs = dict(ln_s=1 + randn(width, scale=0.1), ln_b=randn(width, scale=0.1),
+                b=[randn(width, scale=0.1) for _ in range(4)],
+                b_fc=randn(d_ff, scale=0.1), b_pr=randn(width, scale=0.1))
+    mats = dict(w=[randn(width, width, scale=width ** -0.5) for _ in range(4)],
+                w_fc=randn(width, d_ff, scale=width ** -0.5),
+                w_pr=randn(d_ff, width, scale=d_ff ** -0.5))
+    qkv = [randn(batch, seq, width, scale=s) for s in (0.5, 2.0, 1.0)]
+
+    def cast(tree, dtype):
+        if isinstance(tree, dict):
+            return {key: cast(val, dtype) for key, val in tree.items()}
+        if isinstance(tree, list):
+            return [cast(val, dtype) for val in tree]
+        return tree.to(dtype)
+
+    def operands(act, vec, mat):
+        return dict(x=x.to(act), qkv=[t.to(act) for t in qkv],
+                    **cast(vecs, vec), **cast(mats, mat))
+
+    def args_of(name, o):
+        if name == "fused_ln_qkv":
+            return (o["x"], o["ln_s"], o["ln_b"], o["w"][0], o["b"][0],
+                    o["w"][1], o["b"][1], o["w"][2], o["b"][2],
+                    (width // heads) ** -0.5)
+        if name == "attention_core_oproj":
+            return (o["x"], *o["qkv"], o["w"][3], o["b"][3], heads)
+        if name == "fused_mlp_block":
+            return (o["x"], o["ln_s"], o["ln_b"], o["w_fc"], o["b_fc"],
+                    o["w_pr"], o["b_pr"])
+        return (*o["qkv"], heads)
+
+    f32, bf = torch.float32, torch.bfloat16
+    # name -> (activations, vectors, weights)
+    forms = {"f32": (f32, bf, bf), "f32_params_f32": (f32, f32, f32),
+             "bf16_params_f32": (bf, f32, f32)}
+    bf16_form = operands(bf, bf, bf)
+    f = torch.nn.functional
+    lib_w = [w.bfloat16().float() for w in mats["w"]]   # exact in fp32
+
+    # yardsticks only, on the "f32" form's operands (fp32 activations, the
+    # products' weights bf16-valued): fp32 layer_norm, bf16 addmm widened
+    # to fp32; fp32 scaled_dot_product_attention (TF32 off) and an fp32
+    # out-projection on the widened weight; times, not value checks
+    def library(name, o):
+        x2 = o["x"].view(-1, width)
+        if name == "fused_ln_qkv":
+            h = f.layer_norm(x2, (width,), o["ln_s"].float(),
+                             o["ln_b"].float(), eps).bfloat16()
+            w_qkv = torch.cat(o["w"][:3], dim=1)
+            return lambda: torch.addmm(torch.cat(o["b"][:3]), h,
+                                       w_qkv).float()
+        if name == "fused_mlp_block":
+            def mlp():
+                h = f.layer_norm(x2, (width,), o["ln_s"].float(),
+                                 o["ln_b"].float(), eps).bfloat16()
+                z = torch.addmm(o["b_fc"], h, o["w_fc"])
+                return x2 + torch.addmm(o["b_pr"], z * torch.sigmoid(
+                    1.702 * z), o["w_pr"]).float()
+            return mlp
+
+        def attention():
+            q4, k4, v4 = (t.view(batch, seq, heads, -1).transpose(1, 2)
+                          for t in o["qkv"])
+            return f.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        if name == "attention_core":
+            return attention
+
+        def oproj():
+            a = attention().transpose(1, 2).reshape(-1, width)
+            return x2 + torch.addmm(o["b"][3].float(), a, lib_w[3])
+        return oproj
+
+    act32, act16 = rows * width * 4, rows * width * 2
+    attn_ops = 4 * batch * seq * seq * width
+    proj_ops = 2 * rows * width * width
+
+    def bound_of(name, act, vec):
+        a = act32 if act == f32 else act16
+        vb = 4 if vec == f32 else 2
+        fp32_attn = FP32_FLOP_PER_S if act == f32 else BF16_FLOP_PER_S
+        if name == "fused_ln_qkv":
+            return bound(4 * a + 3 * width * width * 2 + 5 * width * vb,
+                         3 * proj_ops, BF16_FLOP_PER_S)
+        if name == "attention_core_oproj":
+            # fp32: the attention on the CUDA cores, the out-projection as
+            # the three exact bf16-plane products
+            planes = 3 if act == f32 else 1
+            return bound_mixed(5 * a + width * width * 2 + width * vb,
+                               [(attn_ops, fp32_attn),
+                                (planes * proj_ops, BF16_FLOP_PER_S)])
+        if name == "fused_mlp_block":
+            return bound(2 * a + 2 * width * d_ff * 2
+                         + (3 * width + d_ff) * vb,
+                         4 * rows * width * d_ff, BF16_FLOP_PER_S)
+        return bound(4 * a, attn_ops, fp32_attn)
+
+    results, line = {}, {}
+    for name in ("fused_ln_qkv", "attention_core_oproj", "fused_mlp_block",
+                 "attention_core", "attention_core_fast_exp"):
+        base = name.removesuffix("_fast_exp")
+        kw = {"fast_exp": True} if name != base else {}
+        fn, plain = globals()[base], globals()[base + "_plain"]
+        bf16_args = args_of(base, bf16_form)
+        for form, dtypes in forms.items():
+            if base == "attention_core" and form != "f32":
+                continue                 # no parameters: the f32 form only
+            o = operands(*dtypes)
+            args = args_of(base, o)
+            what = f"{name} ({form})"
+            if dtypes[0] == bf:
+                errs = check_against_plain(what, lambda *a: fn(*a, **kw),
+                                           lambda *a: plain(*a, **kw), args,
+                                           batch)
+            else:
+                got = fn(*args, **kw)
+                torch.cuda.synchronize()
+                want = plain(*args, **kw)
+                flip = (vit_fast_exp_flip_bound(*o["qkv"], heads) if kw
+                        else None)
+                errs = {}
+                for g, w in zip(*(t if isinstance(t, tuple) else (t,)
+                                  for t in (got, want))):
+                    # of q, k and v: the largest errors, the smallest share
+                    for key, val in vit_f32_rule(what, g, w, flip).items():
+                        pick = min if key == "within_fp32_tol_share" else max
+                        errs[key] = pick(errs.get(key, val), val)
+                del got, want, flip
+                torch.cuda.empty_cache()
+            per_call = launched(fn, lambda: fn(*args, **kw))
+            check(per_call == 1, f"{what}: {per_call} launches a call")
+            iters = 5 if base.startswith("attention") else 10
+            turns = [cuda_ms(call, iters=iters) for call in (
+                lambda: fn(*bf16_args, **kw), lambda: fn(*args, **kw),
+                lambda: fn(*args, **kw), lambda: fn(*bf16_args, **kw))]
+            row = dict(
+                shape=dict(B=batch, L=seq, D=width, H=heads, F=d_ff),
+                dtypes=[str(t).removeprefix("torch.") for t in dtypes],
+                **errs, launches_per_call=per_call,
+                ms=(turns[1] + turns[2]) / 2,
+                bf16_form_ms=(turns[0] + turns[3]) / 2,
+                turns_ms=dict(bf16_form=turns[0::3], form=turns[1:3]),
+                **bound_of(base, *dtypes[:2]))
+            if dtypes[2] == f32 and base != "attention_core":
+                weights = [t for t in args
+                           if torch.is_tensor(t) and t.dim() == 2]
+                row["weight_casts_ms"] = cuda_ms(
+                    lambda: [port_fab._bf16_weight(w) for w in weights],
+                    iters=10)
+                row["ms_note"] = "the wrapper's weight casts included"
+            if form == "f32":
+                row["plain_ms"] = cuda_ms(lambda: plain(*args, **kw),
+                                          iters=2, warmup=1)
+                row["library_ms"] = cuda_ms(library(base, o), iters=iters)
+                if base == "attention_core":
+                    row.update(vit_f32_routes(o["qkv"], heads, kw, name))
+                line[name.replace("_fast_exp", "_f32_fast_exp")
+                     if kw else base + "_f32"] = row
+            results[f"{name} ({form})"] = row
+            emit("vit_kernels_f32", kernel=name, form=form,
+                 kernel_ms=row["ms"],
+                 **{key: val for key, val in row.items() if key != "ms"})
+            del o, args
+            torch.cuda.empty_cache()
+    return line
+
+
+def phase_clip_encode_fp32(gen: torch.Generator) -> dict:
+    """ClipImageEncoder at ViT-L/14@336 on CLIP_BATCH images with fp32
+    parameters (param_dtype=float32): bf16 activations (the cfg's dtype)
+    and fp32 ones (dtype=float32), each under fused_block against the
+    default path of the same dtypes (encode_paths: 24 launches a call of
+    each split3 kernel, per-row cosines); and with fp32 activations at
+    SPLIT_FE_LAYERS layers, split, split_fe and fused_attention (the
+    attention_core kernel) against the default path at that depth."""
+    dev = gen.device
+    cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
+    params = clip_lib.init_clip_vision_params(gen, cfg, torch.float32)
+    images = torch.randn((CLIP_BATCH, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device=dev)
+    results = {}
+    for case, path_cfg in (
+            ("params_f32", cfg),
+            ("f32", dataclasses.replace(cfg, dtype=torch.float32))):
+        encoders = {
+            name: ClipImageEncoder(
+                dataclasses.replace(path_cfg, fused_block=fused), params,
+                batch_size=CLIP_BATCH, param_dtype=torch.float32,
+                device=dev)
+            for name, fused in (("default", False), ("fused", True))}
+        results[case] = encode_paths(
+            f"clip_encode_fp32_{case}", encoders,
+            {"default": (), "fused": VIT_KERNELS}, images, cfg.num_layers)
+        del encoders
+        torch.cuda.empty_cache()
+    n = SPLIT_FE_LAYERS
+    depth = dataclasses.replace(cfg, dtype=torch.float32, num_layers=n)
+    runs = phase_clip_variants(
+        gen, depth, params, images, "clip_fp32_variants",
+        ("default", depth, launches()),
+        {"split": (dataclasses.replace(depth, fused_block=True,
+                                       fused_block_long="split"),
+                   launches(attention_core=n, fused_mlp_block=n)),
+         "split_fe": (dataclasses.replace(depth, fused_block=True,
+                                          fused_block_long="split_fe"),
+                      launches(attention_core=n, fused_mlp_block=n)),
+         "fused_attention": (dataclasses.replace(depth, fused_attention=True),
+                             launches(attention_core=n))})
+    results["fused_attention"] = dict(
+        launches_per_call=[runs["fused_attention"]["launches"]])
+    del params, images
+    torch.cuda.empty_cache()
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -5176,6 +5582,18 @@ def clip_phases(gen: torch.Generator) -> dict:
     torch.cuda.empty_cache()
     out["clip_pallas"] = runs(phase_clip_encode_pallas(gen), "use_pallas")
     torch.cuda.empty_cache()
+    # the fp32 phases draw from generators of their own, so that the phases
+    # above keep their inputs
+    out["vit_f32"] = {name: fields(res) for name, res in phase_vit_kernels_f32(
+        torch.Generator(device=gen.device).manual_seed(SEED + 1)).items()
+        if not name.endswith("fast_exp")}
+    torch.cuda.empty_cache()
+    clip_fp32 = phase_clip_encode_fp32(
+        torch.Generator(device=gen.device).manual_seed(SEED + 2))
+    out["clip_fp32"] = dict(
+        runs(clip_fp32["f32"], "fused"),
+        fused_attention=clip_fp32["fused_attention"])
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5276,6 +5694,7 @@ def main() -> int:
     flash = clip_side["flash"]
     clipcap = clip_side["clipcap"]
     clip_pallas = clip_side["clip_pallas"]
+    vit_f32, clip_fp32 = clip_side["vit_f32"], clip_side["clip_fp32"]
     phase_config_generate(cfg, prefix, tokens, mask, generate)
     torch.cuda.empty_cache()
     config_fp32 = phase_config_generate_fp32(prefix, tokens, mask, generate)
@@ -5320,6 +5739,9 @@ def main() -> int:
                                   clip_b32["fused_attention"]),
         "fused_gpt2_block": (gpt2_block, clipcap["loss"]),
         "flash_attention": (flash, clip_pallas["use_pallas"]),
+        **{name: (res, clip_fp32["fused_attention"
+                                 if name == "attention_core_f32" else "fused"])
+           for name, res in vit_f32.items()},
         **{name: (res, {"fused_t5_ln_qkv_q8_f32": config_eval_fp32_int8,
                         "fused_oproj_residual_q8_f32": config_eval_fp32_int8,
                         "fused_t5_ffn_q8_f32": config_eval_fp32_int8,

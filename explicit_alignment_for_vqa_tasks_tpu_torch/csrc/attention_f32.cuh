@@ -1,7 +1,9 @@
 // fp32 attention on the CUDA cores, in the Pallas kernels' order, for NVIDIA
-// Hopper (sm_90a): t5_attention_core's fp32 form (t5_attention_core.cu),
-// written to be reused by the other fp32 attentions (an optional scale, an
-// optional additive bias with strides, an optional key mask, Lq != Lk).
+// Hopper (sm_90a): t5_attention_core's fp32 form (t5_attention_core.cu) and
+// the fp32 forms of the ViT attention_core and attention_core_oproj
+// (vit_block.cu), with an optional scale, an optional additive bias with
+// strides, an optional key mask, Lq != Lk, the fast_exp exponential and an
+// output as three bf16 planes.
 //
 // For batch row b, head h, query row i and key j, in this order:
 //
@@ -9,18 +11,27 @@
 //   s     = s + bias[b, h, i, j]       where there is a bias
 //   s     = s + (mask[b, j] > 0 ? 0 : -1e9)   where there is a key mask
 //   m     = max_j s                    the WHOLE row's max before any exp
-//   p     = exp(s - m)                 fp32, never rounded
+//   p     = exp(s - m)                 fp32, never rounded; with fast_exp
+//                                      exp(bf16(s - m)), the exponential of
+//                                      the rounded argument in fp32
 //   denom = sum_j p                    unnormalised
 //   o     = (sum_j p v_j) / denom      the division after P . V
 //
 // which is JAX's _make_t5_core_kernel (ops/fused_attention_block.py:1105-1131)
-// on fp32 operands: no online-softmax rescale, whose order differs. Every
-// multiply and add outside the dots is __fmul_rn / __fadd_rn, so that nvcc
-// contracts nothing the plain PyTorch version does not have.
+// and _make_core_kernel (:161-200) on fp32 operands: no online-softmax
+// rescale, whose order differs. Every multiply and add outside the dots is
+// __fmul_rn / __fadd_rn, so that nvcc contracts nothing the plain PyTorch
+// version does not have. o goes out in fp32, or (planes set) as three bf16
+// planes lo | mid | hi of a (B Lq, 3 ldo) matrix, hi = bf16(o), mid =
+// bf16(o - hi), lo = bf16(o - hi - mid), whose sum is o exactly: the A
+// operand of a bf16 tensor-core product that reads its weight three times
+// along K (attention_core_oproj's fp32 out-projection).
 //
 // Two routes, chosen by Lk alone (held_smem_bytes; the wrapper reckons the
 // same bytes from the same constants, and launch_held refuses an Lk whose
-// rows do not fit):
+// rows do not fit), and at head size 64 a third, the held route with K in
+// the score rows (held_ks_smem_bytes: Lk <= 640, ViT-L/14@336's 577 among
+// them), which the ViT wrappers take where the held route does not fit:
 //
 // The held route (attention_f32_held_kernel), where a block's score rows fit
 // its shared memory, as the TPU kernel holds its (L, L) score block in VMEM:
@@ -94,10 +105,15 @@
 // and each block's start and end with one block an SM. The scores on the
 // tensor cores as six bf16-plane products (the variant that
 // tools/kernel_probe.py --f32-variants timed) took 3.21 ms against this
-// route's 3.01 in the same call.
+// route's 3.01 in the same call. At ViT-L/14@336's attention_core (B = 256,
+// L = 577, 16 heads of 64; chip_smoke.py's vit_kernels_f32, same card): the
+// held route with K in the score rows 13.93 ms, the two-pass route 23.41
+// ms in the same call; 4 B H L^2 dh = 349.1 GFLOP (5.21 ms), 6.41 ms on the
+// held route's whole tiles.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -119,10 +135,56 @@ struct Args {
   const float* bias;
   long long bias_b, bias_h, bias_row;
   const int* mask;  // where non-null: (B, Lk), 0 masks key j
-  float* out;       // (B, Lq) rows, ldo apart
+  float* out;       // (B, Lq) rows, ldo apart (unused with planes)
   int B, Lq, Lk, H, ldq, ldk, ldo;
   float scale;
+  // where non-null: o as three bf16 planes, row r's lo | mid | hi at
+  // planes + 3 ldo r + {0, ldo, 2 ldo}, in place of out
+  __nv_bfloat16* planes;
+  int fast_exp;  // not 0: p = exp(bf16(s - m))
 };
+
+// p = exp(s - m), or with fast_exp the exponential of bf16(s - m) (the
+// Pallas kernel's exp of a bf16 argument, which XLA evaluates in fp32 and
+// keeps unrounded where an fp32 value is used).
+__device__ inline float shifted_exp(float s, float m, int fast_exp) {
+  const float d = __fsub_rn(s, m);
+  return expf(fast_exp ? __bfloat162float(__float2bfloat16(d)) : d);
+}
+
+// Four bf16 values at p, as one 8-byte store.
+__device__ inline void store_bf16x4(__nv_bfloat16* p, float a, float b,
+                                    float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&lo);
+  t.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// Four outputs of row `row` (of the B Lq rows) from column `col`: fp32 into
+// out, or their three bf16 planes.
+__device__ inline void store_out4(const Args& a, long long row, int col,
+                                  float4 o) {
+  if (a.planes == nullptr) {
+    *reinterpret_cast<float4*>(a.out + row * a.ldo + col) = o;
+    return;
+  }
+  const float x[4] = {o.x, o.y, o.z, o.w};
+  float hi[4], mid[4], lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = __bfloat162float(__float2bfloat16(x[e]));
+    const float rest = __fsub_rn(x[e], hi[e]);
+    mid[e] = __bfloat162float(__float2bfloat16(rest));
+    lo[e] = __fsub_rn(rest, mid[e]);
+  }
+  __nv_bfloat16* dst = a.planes + row * 3 * a.ldo + col;
+  store_bf16x4(dst, lo[0], lo[1], lo[2], lo[3]);
+  store_bf16x4(dst + a.ldo, mid[0], mid[1], mid[2], mid[3]);
+  store_bf16x4(dst + 2 * a.ldo, hi[0], hi[1], hi[2], hi[3]);
+}
 
 template <int DH>
 __host__ __device__ constexpr int row_stride() {
@@ -274,7 +336,7 @@ attention_f32_kernel(const Args a) {
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(__fsub_rn(s[i][j], m[i]));
+        const float p = shifted_exp(s[i][j], m[i], a.fast_exp);
         denom[i] = __fadd_rn(denom[i], p);
         Ps[(ty + 16 * i) * LD + tx + 16 * j] = p;
       }
@@ -320,13 +382,14 @@ attention_f32_kernel(const Args a) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= a.Lq) continue;
-    float* dst = a.out + (static_cast<long long>(b) * a.Lq + row) * a.ldo +
-                 h * DH + 4 * tx;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      *reinterpret_cast<float4*>(dst + 64 * g) = make_float4(
-          __fdiv_rn(o[i][g][0], denom[i]), __fdiv_rn(o[i][g][1], denom[i]),
-          __fdiv_rn(o[i][g][2], denom[i]), __fdiv_rn(o[i][g][3], denom[i]));
+      store_out4(a, static_cast<long long>(b) * a.Lq + row,
+                 h * DH + 64 * g + 4 * tx,
+                 make_float4(__fdiv_rn(o[i][g][0], denom[i]),
+                             __fdiv_rn(o[i][g][1], denom[i]),
+                             __fdiv_rn(o[i][g][2], denom[i]),
+                             __fdiv_rn(o[i][g][3], denom[i])));
     }
   }
 }
@@ -375,6 +438,21 @@ __host__ __device__ constexpr size_t held_smem_bytes(int lk, int dh) {
               ((lk + HELD_TILE - 1) / HELD_TILE * HELD_TILE + HELD_PAD));
 }
 
+// The held route with K in the score rows (head size 64 only; the held
+// kernel's KS form): a K tile (64 keys x 64 dims) is the size of one
+// 64-column block of the 64 score rows, so each step's K tiles are copied
+// into the score columns that the step then writes (a barrier between its
+// dots and its score stores), and one region holds Q during q . k^T and
+// the V ring after it; the row maxima and sums go to the rows' pad. Its
+// dynamic shared memory: the ring and the score rows, which fit Lk <= 640
+// (ViT-L/14@336's 577 keys among them, one past the held route's 576).
+__host__ __device__ constexpr size_t held_ks_smem_bytes(int lk) {
+  return sizeof(float) *
+         (static_cast<size_t>(HELD_SLOTS) * HELD_TILE * 64 +
+          static_cast<size_t>(HELD_ROWS) *
+              ((lk + HELD_TILE - 1) / HELD_TILE * HELD_TILE + HELD_PAD));
+}
+
 __device__ inline void cp_async16(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
@@ -391,19 +469,20 @@ __device__ inline void cp_async_wait_all() {
 }
 
 // `rows` rows of a (.., DH) fp32 operand, global row r0 + r from src (rows
-// ld apart) into shared row r, 16-byte chunk c at c ^ (r & 7); zero from
-// global row `valid` on. A thread copies chunk threadIdx.x % (DH / 4) of
-// every NT / (DH / 4)-th row: a multiple of 8 rows, so one swizzle.
+// ld apart) into shared row r (rows dld floats apart), 16-byte chunk c at
+// c ^ (r & 7); zero from global row `valid` on. A thread copies chunk
+// threadIdx.x % (DH / 4) of every NT / (DH / 4)-th row: a multiple of 8
+// rows, so one swizzle.
 template <int DH>
 __device__ inline void copy_rows(float* dst, const float* src, long long ld,
-                                 int rows, int r0, int valid) {
+                                 int rows, int r0, int valid, int dld = DH) {
   constexpr int C4 = DH / 4, RSTEP = NT / C4;
   static_assert(RSTEP % 8 == 0, "a thread's rows share one swizzle");
   const int c = threadIdx.x % C4;
   int r = threadIdx.x / C4;
   const float* from = src + static_cast<long long>(r0 + r) * ld + 4 * c;
-  float* to = dst + r * DH + 4 * (c ^ (r & 7));
-  for (; r < rows; r += RSTEP, from += RSTEP * ld, to += RSTEP * DH) {
+  float* to = dst + r * dld + 4 * (c ^ (r & 7));
+  for (; r < rows; r += RSTEP, from += RSTEP * ld, to += RSTEP * dld) {
     const bool in = r0 + r < valid;
     cp_async16(to, in ? from : src, in);
   }
@@ -413,12 +492,16 @@ __device__ inline void copy_rows(float* dst, const float* src, long long ld,
 // last, odd one) for this thread's 8 rows x NJ keys (rows rg + 8 i, keys
 // kg + 32 j), each an fmaf chain over dh in order; then the scale, the
 // bias, the key mask and -inf past Lk; s into the score rows S, the rows'
-// running max into mx. bias: this thread's first row of the (b, h) bias
-// (null without one), its rows brow floats apart; mask: row b of the key
-// mask (or null); rows: how many of the thread's rows lie before Lq.
-template <int DH, int NJ>
+// running max into mx. The step's K tiles: key r of tile u at Kp + u ktile
+// + r kld. bias: this thread's first row of the (b, h) bias (null without
+// one), its rows brow floats apart; mask: row b of the key mask (or null);
+// rows: how many of the thread's rows lie before Lq. KS (the K tiles in
+// the score columns this step writes): a barrier between the dots and the
+// stores.
+template <int DH, int NJ, bool KS>
 __device__ inline void held_scores(const Args& a, const float* Qs,
-                                   const float* Kp, float* S, int sld,
+                                   const float* Kp, int kld, int ktile,
+                                   float* S, int sld,
                                    const float* bias, int brow,
                                    const int* mask, int rows, int k0, int rg,
                                    int kg, float (&mx)[8]) {
@@ -445,8 +528,8 @@ __device__ inline void held_scores(const Args& a, const float* Qs,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) s[i][j] = 0.0f;
   }
-  const float* Qr = Qs + rg * DH;  // rows rg + 8 i: (row & 7) == rg
-  const float* Kr = Kp + kg * DH;  // keys kg + 32 j: (key & 7) == kg & 7
+  const float* Qr = Qs + rg * DH;   // rows rg + 8 i: (row & 7) == rg
+  const float* Kr = Kp + kg * kld;  // keys kg + 32 j: (key & 7) == kg & 7
   const int xk = kg & 7;
 #pragma unroll 8
   for (int c = 0; c < C4; ++c) {
@@ -458,8 +541,8 @@ __device__ inline void held_scores(const Args& a, const float* Qs,
     }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      kv[j] = *reinterpret_cast<const float4*>(Kr + 32 * j * DH +
-                                               4 * (c ^ xk));
+      kv[j] = *reinterpret_cast<const float4*>(
+          Kr + 32 * (j % 2) * kld + (j / 2) * ktile + 4 * (c ^ xk));
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -474,6 +557,7 @@ __device__ inline void held_scores(const Args& a, const float* Qs,
       }
     }
   }
+  if constexpr (KS) __syncthreads();  // every thread's dots read K
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -499,14 +583,14 @@ __device__ inline void load_p4(const float* P, int sld, float4 (&x)[8]) {
   }
 }
 
-__device__ inline void exp_p4(const float (&m)[8], float4 (&x)[8],
-                              float (&sum)[8]) {
+__device__ inline void exp_p4(const float (&m)[8], int fast_exp,
+                              float4 (&x)[8], float (&sum)[8]) {
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    x[r].x = expf(__fsub_rn(x[r].x, m[r]));
-    x[r].y = expf(__fsub_rn(x[r].y, m[r]));
-    x[r].z = expf(__fsub_rn(x[r].z, m[r]));
-    x[r].w = expf(__fsub_rn(x[r].w, m[r]));
+    x[r].x = shifted_exp(x[r].x, m[r], fast_exp);
+    x[r].y = shifted_exp(x[r].y, m[r], fast_exp);
+    x[r].z = shifted_exp(x[r].z, m[r], fast_exp);
+    x[r].w = shifted_exp(x[r].w, m[r], fast_exp);
     sum[r] = __fadd_rn(
         __fadd_rn(__fadd_rn(__fadd_rn(sum[r], x[r].x), x[r].y), x[r].z),
         x[r].w);
@@ -560,14 +644,15 @@ __device__ inline void held_pv(const float* P, const float* Vt, int sld,
   }
 }
 
-template <int DH>
+template <int DH, bool KS>
 __global__ void __launch_bounds__(NT, 1)
 attention_f32_held_kernel(const Args a) {
+  static_assert(!KS || DH == HELD_TILE, "K in the score rows: dh 64 only");
   constexpr int G = DH / 64;
   constexpr int SLOT = HELD_TILE * DH;  // floats a ring slot
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* ring = Qs + HELD_ROWS * DH;
+  float* ring = KS ? Qs : Qs + HELD_ROWS * DH;  // KS: V's ring in Q's place
   float* S = ring + HELD_SLOTS * SLOT;
   const int tiles = (a.Lk + HELD_TILE - 1) / HELD_TILE;
   const int sld = tiles * HELD_TILE + HELD_PAD;
@@ -579,10 +664,19 @@ attention_f32_held_kernel(const Args a) {
   const float* vb = a.v + static_cast<long long>(b) * a.Lk * a.ldk + h * DH;
 
   // copy t < steps holds K tiles 2t, 2t + 1, copy steps + t the V tiles
-  // 2t, 2t + 1, in slots 2 (t % 2) and 2 (t % 2) + 1
+  // 2t, 2t + 1, in slots 2 (t % 2) and 2 (t % 2) + 1; KS: the K tiles in
+  // the score columns 2t HELD_TILE on (the last step's one tile, where
+  // tiles is odd)
   auto copy_step = [&](int t) {
     const bool is_v = t >= steps;
     const int key0 = 2 * HELD_TILE * (is_v ? t - steps : t);
+    if (KS && !is_v) {
+      for (int u = 0; u < 2 && 2 * t + u < tiles; ++u) {
+        copy_rows<DH>(S + key0 + u * HELD_TILE, kb, a.ldk, HELD_TILE,
+                      key0 + u * HELD_TILE, a.Lk, sld);
+      }
+      return;
+    }
     copy_rows<DH>(ring + 2 * (t % 2) * SLOT, is_v ? vb : kb, a.ldk,
                   2 * HELD_TILE, key0, a.Lk);
   };
@@ -608,28 +702,35 @@ attention_f32_held_kernel(const Args a) {
   float mx[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) mx[i] = -INFINITY;
+  const int kld = KS ? sld : DH, ktile = KS ? HELD_TILE : SLOT;
   for (int t = 0; t < steps; ++t) {
     cp_async_wait_all();
     __syncthreads();  // step t's tiles are in; step t - 1's slots are free
-    copy_step(t + 1);
+    // (KS: the first V tiles wait until Q, in their place, is read)
+    if (!KS || t + 1 < steps) copy_step(t + 1);
     cp_async_commit();
-    const float* Kp = ring + 2 * (t % 2) * SLOT;
     const int k0 = 2 * HELD_TILE * t;
+    const float* Kp = KS ? S + k0 : ring + 2 * (t % 2) * SLOT;
     if (k0 + HELD_TILE < a.Lk) {
-      held_scores<DH, 4>(a, Qs, Kp, S, sld, bias, brow, mask, rows, k0, rg,
-                         kg, mx);
+      held_scores<DH, 4, KS>(a, Qs, Kp, kld, ktile, S, sld, bias, brow,
+                             mask, rows, k0, rg, kg, mx);
     } else {
-      held_scores<DH, 2>(a, Qs, Kp, S, sld, bias, brow, mask, rows, k0, rg,
-                         kg, mx);
+      held_scores<DH, 2, KS>(a, Qs, Kp, kld, ktile, S, sld, bias, brow,
+                             mask, rows, k0, rg, kg, mx);
     }
   }
 
   // each row's max (Q's buffer holds the 4 key columns' maxima, then the
-  // rows' sums); warp w then takes rows 8 w .. 8 w + 7 of p, float4 column
-  // l of each step, the first step's now and step t + 1's under step t's
-  // P . V
-  float* red = Qs;
-  float* denom = Qs + 4 * HELD_ROWS;
+  // rows' sums; KS: the score rows' pad); warp w then takes rows 8 w .. 8 w
+  // + 7 of p, float4 column l of each step, the first step's now and step
+  // t + 1's under step t's P . V
+  const int pad0 = tiles * HELD_TILE;
+  auto red = [&](int j, int row) -> float& {
+    return KS ? S[row * sld + pad0 + j] : Qs[j * HELD_ROWS + row];
+  };
+  auto denom = [&](int row) -> float& {
+    return KS ? S[row * sld + pad0 + 4] : Qs[4 * HELD_ROWS + row];
+  };
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
@@ -638,24 +739,28 @@ attention_f32_held_kernel(const Args a) {
     }
   }
   __syncthreads();  // Q is no longer read
+  if constexpr (KS) {
+    copy_step(steps);  // the first V tiles, in Q's place
+    cp_async_commit();
+  }
   if (l % 8 == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) red[(w / 2) * HELD_ROWS + rg + 8 * i] = mx[i];
+    for (int i = 0; i < 8; ++i) red(w / 2, rg + 8 * i) = mx[i];
   }
   __syncthreads();
   float m[8], sum[8];
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = 8 * w + r;
-    m[r] = fmaxf(fmaxf(red[row], red[HELD_ROWS + row]),
-                 fmaxf(red[2 * HELD_ROWS + row], red[3 * HELD_ROWS + row]));
+    m[r] = fmaxf(fmaxf(red(0, row), red(1, row)),
+                 fmaxf(red(2, row), red(3, row)));
     sum[r] = 0.0f;
   }
   float* Pw = S + 8 * w * sld + 4 * l;  // this lane's column of step 0
   if (4 * l < (tiles < 2 ? tiles : 2) * HELD_TILE) {
     float4 x[8];
     load_p4(Pw, sld, x);
-    exp_p4(m, x, sum);
+    exp_p4(m, a.fast_exp, x, sum);
     store_p4(Pw, sld, x);
   }
 
@@ -683,7 +788,7 @@ attention_f32_held_kernel(const Args a) {
     float4 x[8];
     if (exp_next) {
       load_p4(Pw + 2 * HELD_TILE * (t + 1), sld, x);
-      exp_p4(m, x, sum);
+      exp_p4(m, a.fast_exp, x, sum);
     }
     const float* Vp = ring + 2 * ((steps + t) % 2) * SLOT;
     const int tile = 2 * t;
@@ -703,7 +808,7 @@ attention_f32_held_kernel(const Args a) {
   }
   if (l == 0) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) denom[8 * w + r] = sum[r];
+    for (int r = 0; r < 8; ++r) denom(8 * w + r) = sum[r];
   }
 
   // the halves' sums through the ring, then o / denom
@@ -726,29 +831,29 @@ attention_f32_held_kernel(const Args a) {
     const float4 x = *reinterpret_cast<const float4*>(ring + r * DH + 4 * c);
     const float4 y = *reinterpret_cast<const float4*>(
         ring + (HELD_ROWS + r) * DH + 4 * c);
-    const float d = denom[r];
-    *reinterpret_cast<float4*>(
-        a.out + (static_cast<long long>(b) * a.Lq + q0 + r) * a.ldo +
-        h * DH + 4 * c) =
-        make_float4(__fdiv_rn(__fadd_rn(x.x, y.x), d),
-                    __fdiv_rn(__fadd_rn(x.y, y.y), d),
-                    __fdiv_rn(__fadd_rn(x.z, y.z), d),
-                    __fdiv_rn(__fadd_rn(x.w, y.w), d));
+    const float d = denom(r);
+    store_out4(a, static_cast<long long>(b) * a.Lq + q0 + r, h * DH + 4 * c,
+               make_float4(__fdiv_rn(__fadd_rn(x.x, y.x), d),
+                           __fdiv_rn(__fadd_rn(x.y, y.y), d),
+                           __fdiv_rn(__fadd_rn(x.z, y.z), d),
+                           __fdiv_rn(__fadd_rn(x.w, y.w), d)));
   }
 }
 
 // cudaErrorInvalidValue, and nothing launched, where the score rows do not
-// fit (held_smem_bytes(Lk, DH) > MAX_SMEM) or the arguments are out of range.
-template <int DH>
+// fit (held_smem_bytes(Lk, DH), or with KS held_ks_smem_bytes(Lk), >
+// MAX_SMEM) or the arguments are out of range.
+template <int DH, bool KS = false>
 int launch_held(const Args& a, cudaStream_t stream) {
   const int tiles = (a.Lq + HELD_ROWS - 1) / HELD_ROWS;
+  const size_t bytes =
+      KS ? held_ks_smem_bytes(a.Lk) : held_smem_bytes(a.Lk, DH);
   if (a.B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || tiles > 65535 ||
       a.H > 65535 || a.ldq % 4 || a.ldk % 4 || a.ldo % 4 ||
-      held_smem_bytes(a.Lk, DH) > MAX_SMEM) {
+      bytes > MAX_SMEM) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = attention_f32_held_kernel<DH>;
-  const size_t bytes = held_smem_bytes(a.Lk, DH);
+  const auto kernel = attention_f32_held_kernel<DH, KS>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -763,6 +868,12 @@ inline int attention_held(const Args& a, int dh, cudaStream_t stream) {
     case 128: return launch_held<128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The held route with K in the score rows (head size 64).
+inline int attention_held_ks(const Args& a, int dh, cudaStream_t stream) {
+  return dh == HELD_TILE ? launch_held<64, true>(a, stream)
+                         : cudaErrorInvalidValue;
 }
 
 }  // namespace attention_f32

@@ -5,7 +5,8 @@
 //     residual r1).
 //   residual_gemm: bf16_gemm.cuh's 128 x 128 mma.sync main loop with the
 //     epilogue out = bf16(residual + (acc + bias)) in fp32 on the
-//     accumulator, attention_core_oproj's out-projection.
+//     accumulator, attention_core_oproj's out-projection (the bias bf16, or
+//     fp32 for fp32 parameters).
 //
 // Every add is written with __fadd_rn so that nvcc cannot contract it into
 // an FMA that the plain PyTorch version does not have (the build has no
@@ -28,10 +29,11 @@ using namespace row_norm;
 
 // ---- GEMM with the residual epilogue ---------------------------------------
 
+template <typename BiasT>
 struct GemmArgs {
   const bf16* a;         // (M, K) row-major
   const bf16* b;         // (K, N) row-major
-  const bf16* bias;      // (N,)
+  const BiasT* bias;     // (N,)
   bf16* out;             // (M, N)
   const bf16* residual;  // (M, N)
   int M, K, N;
@@ -40,9 +42,13 @@ struct GemmArgs {
 __device__ inline float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ inline float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 
+template <typename BiasT>
 __global__ void __launch_bounds__(NT)
-stage_gemm_kernel(const GemmArgs args) {
+stage_gemm_kernel(const GemmArgs<BiasT> args) {
   extern __shared__ __align__(128) bf16 smem[];
   const int M = args.M, N = args.N;
   const int n0 = blockIdx.x * B_COLS, m0 = blockIdx.y * BM;
@@ -76,21 +82,22 @@ stage_gemm_kernel(const GemmArgs args) {
   }
 }
 
-// out (M, N) = residual + (a . b + bias), all bf16. Returns the launch's
-// cudaError_t (0 on success).
-inline int residual_gemm(const void* a, const void* b, const void* bias,
-                         void* out, const void* residual, int M, int K, int N,
-                         cudaStream_t stream) {
+// out (M, N) = residual + (a . b + bias), all bf16 but the bias, of BiasT
+// (bf16, or fp32). Returns the launch's cudaError_t (0 on success).
+template <typename BiasT = bf16>
+int residual_gemm(const void* a, const void* b, const void* bias, void* out,
+                  const void* residual, int M, int K, int N,
+                  cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      stage_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stage_gemm_kernel<BiasT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       GEMM_SMEM);
   if (err != cudaSuccess) return err;
-  const GemmArgs args{static_cast<const bf16*>(a),
-                      static_cast<const bf16*>(b),
-                      static_cast<const bf16*>(bias), static_cast<bf16*>(out),
-                      static_cast<const bf16*>(residual), M, K, N};
+  const GemmArgs<BiasT> args{
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<const BiasT*>(bias), static_cast<bf16*>(out),
+      static_cast<const bf16*>(residual), M, K, N};
   const dim3 grid(N / B_COLS, (M + BM - 1) / BM);
-  stage_gemm_kernel<<<grid, NT, GEMM_SMEM, stream>>>(args);
+  stage_gemm_kernel<BiasT><<<grid, NT, GEMM_SMEM, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 

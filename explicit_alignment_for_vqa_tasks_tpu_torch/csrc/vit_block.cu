@@ -15,7 +15,7 @@
 //   fused_attention_block  pallas_call at :1452, bodies :107-158 (block_diag)
 //                          and :47-105 (not)
 // It computes, in the Pallas kernels' order of rounding (x (M, D) with M = B L
-// rows; activations, weights and outputs bf16):
+// rows; activations, weights and outputs bf16; the fp32 forms below):
 //
 //   fused_ln_qkv
 //     h   = bf16(LN(x))      fp32: mean m, then var = mean((x - m)^2), then
@@ -55,6 +55,18 @@
 //     o   = bf16(p . v), p = bf16(e / sum(e))   (vit_attention.cuh's
 //                                                kNormalised)
 //     out = bf16((o . wo) + bo)
+//   the fp32 forms of the split3 kernels and attention_core (x, the
+//     residual, q, k, v and the outputs fp32; or bf16 with the LayerNorms'
+//     scales and biases and the biases fp32, as param_dtype=float32 gives
+//     them): the Pallas kernels read each operand in its own dtype, widen it
+//     to fp32 and write x.dtype, the JAX wrappers cast the weights to bf16;
+//     so fused_ln_qkv and fused_mlp_block compute as above with x, q, k, v
+//     and out unrounded, and
+//     attention_core        s = q . k^T in fp32, p = exp(s - max) in fp32
+//                           (fast_exp: exp(bf16(s - max))), denom = sum p,
+//                           o = (p . v) / denom, fp32 (attention_f32.cuh)
+//     attention_core_oproj  that o, unrounded, then
+//                           out = res + ((o . wo) + bo) in fp32
 //
 // Every multiply and add of the fp32 epilogues and norms is written with
 // __fmul_rn / __fadd_rn / __fsub_rn so that nvcc cannot contract them into
@@ -86,7 +98,34 @@
 //                         3 x 157 MB, and the planes, 236 MB, each written
 //                         and read) 1.42 GB = 0.42 ms
 // All are bound by operations but attention_core, bound by bytes; the
-// encoders run each of their kernels once per layer.
+// encoders run each of their kernels once per layer. The fp32 forms at
+// ViT-L, B = 256 (fp32 x, q, k, v and outputs; the attention on the CUDA
+// cores at 67 TFLOP/s):
+//   fused_ln_qkv          929.3 GFLOP = 0.940 ms; 2.43 GB = 0.73 ms
+//   attention_core_oproj  349.1 GFLOP fp32 = 5.21 ms + the out-projection
+//                         as 3 x 309.8 GFLOP of bf16 products = 0.94 ms:
+//                         6.15 ms; 3.03 GB = 0.90 ms (this route, on whole
+//                         64-row and 64-key tiles: 6.41 + 0.94 = 7.35 ms)
+//   attention_core        349.1 GFLOP fp32 = 5.21 ms; 2.42 GB = 0.72 ms
+//                         (this route: 6.41 ms; the two-pass route, q . k^T
+//                         twice: 7.82 ms)
+//   fused_mlp_block       2,478 GFLOP = 2.506 ms; 1.23 GB = 0.37 ms
+//
+// Design of the fp32 forms. One template for each split3 kernel's two
+// forms, over X (the activations' type) and P (the vectors'): the same
+// stages, with their loads and stores in those types (row_norm.cuh's
+// LayerNorm of fp32 rows and P scales; bf16_gemm_tma.cuh's epilogues with P
+// biases and fp32 store boxes for fp32 q, k, v and outputs). fp32 q, k, v
+// rule out the bf16 tensor cores (TF32 keeps 10 bits of mantissa): the
+// attention is attention_f32.cuh's CUDA-core kernel with no bias, no mask,
+// a scale of 1 and the fast_exp exponential, by its held route where a
+// block's 64 score rows fit its shared memory (L <= 576 at dh 64), else at
+// dh 64 the held route with K in the score rows (L <= 640: ViT-L's 577
+// tokens; 13.93 ms against the two-pass route's 23.41 in the same call at
+// B = 256 on an H100), else the two-pass route (any L). Its output
+// goes to attention_core_oproj's out-projection as three bf16 planes whose
+// sum is o exactly (fused_attention_block's planes below), so that product
+// is exact on the tensor cores, wo read three times along K.
 //
 // Design. A Pallas program keeps one image's LN output, scores and
 // quickGELU hidden (fused_vit_block: a group's whole block) in VMEM; no SM
@@ -151,8 +190,10 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "activations.cuh"
+#include "attention_f32.cuh"
 #include "bf16_gemm_tma.cuh"
 #include "block_stages.cuh"
 #include "vit_attention.cuh"
@@ -162,7 +203,6 @@ namespace {
 
 using namespace activations;
 using namespace block_stages;
-using bf16_gemm_tma::QkvEpilogue;
 using vit_attention::attention_dh;
 
 // fused_vit_block's bf16 attention in softmax order `mode`
@@ -187,27 +227,29 @@ int attention_mode(int mode, const void* q, const void* k, const void* v,
 
 // ---- the MLP epilogues on bf16_gemm_tma.cuh --------------------------------
 
-// The up product: hid = bf16(quickGELU(acc + bias)), the sigmoid's
-// reciprocal branch-free (activations.cuh's quick_gelu_fast) where every z
-// of the thread's chunk is at least QUICK_GELU_FAST_FLOOR, else (rare)
-// with quick_gelu's correctly rounded division. The test comes first, so
-// that no accumulator outlives its use (a redo after the fast pass kept
-// the chunk's 32 alive: 0.2 of a 2.6 ms up-GEMM at ViT-L, B=256, on an
-// H100).
-struct BiasQuickGeluEpilogue {
+// The up product: hid = bf16(quickGELU(acc + bias)), the bias bf16 or
+// fp32, the sigmoid's reciprocal branch-free (activations.cuh's
+// quick_gelu_fast) where every z of the thread's chunk is at least
+// QUICK_GELU_FAST_FLOOR, else (rare) with quick_gelu's correctly rounded
+// division. The test comes first, so that no accumulator outlives its use
+// (a redo after the fast pass kept the chunk's 32 alive: 0.2 of a 2.6 ms
+// up-GEMM at ViT-L, B=256, on an H100).
+template <typename BiasT>
+struct BiasQuickGeluEpilogueOf {
   struct Args {
-    const bf16* bias;  // (F,)
+    const BiasT* bias;  // (F,)
   };
   template <int ACC, class Put>
   __device__ static void chunk(const Args& args, int, int, int col,
                                const float (&acc)[ACC], int j0,
                                const Put& put) {
-    const bf16* bias = args.bias + col + 2 * (threadIdx.x % 4);
+    const BiasT* bias = args.bias + col + 2 * (threadIdx.x % 4);
     float z[8][4];  // z[jj][2 half + e], in place of the chunk's acc
     bool low = false;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
-      const float2 b = load2(bias + 8 * jj);
+      const float2 b =
+          bf16_gemm_tma::to_float2(bf16_gemm_tma::load_pair(bias + 8 * jj));
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         z[jj][e] = __fadd_rn(acc[4 * (j0 + jj) + e], e % 2 ? b.y : b.x);
@@ -239,8 +281,7 @@ struct BiasQuickGeluEpilogue {
   }
 };
 
-// fused_mlp_block's down product: out = bf16(x + (acc + bias)).
-using BiasResidualEpilogue = bf16_gemm_tma::ResidualEpilogue<bf16, true>;
+using BiasQuickGeluEpilogue = BiasQuickGeluEpilogueOf<bf16>;
 // fused_vit_block's out-projection, r1 = x + (acc + bias) in fp32, and its
 // down product, out = bf16(r1 + (acc + bias)).
 using R1Epilogue = bf16_gemm_tma::ResidualEpilogue<bf16, true, float>;
@@ -257,6 +298,121 @@ using QkvRoundFirstEpilogue =
 inline bool ln_qkv_shape_ok(int M, int D) {
   return norm_shape_ok(D) && bf16_gemm_tma::shape_ok(M, D, D, 3);
 }
+
+// ---- the split3 kernels, in both forms -----------------------------------
+//
+// X is the activations' type (x, the residual, q, k, v and the outputs:
+// bf16, or fp32 in the fp32 form), P the LayerNorms' and biases' (bf16, or
+// fp32 for fp32 parameters); the weights are bf16 (the wrapper casts fp32
+// ones, as the JAX wrapper casts them). One template each, so that the
+// forms differ only in their loads and stores: on bf16 x with bf16-valued
+// fp32 parameters a form computes the bf16 form's values bit for bit.
+
+// fused_ln_qkv: h = bf16(LN(x)) (row_norm.cuh reads X rows and P scales),
+// then one q | k | v product whose epilogue adds the P biases, scales q and
+// stores X (fp32 through fp32 store boxes).
+template <typename X, typename P>
+int ln_qkv(const void* x, const void* ln_s, const void* ln_b, const void* wq,
+           const void* bq, const void* wk, const void* bk, const void* wv,
+           const void* bv, void* h, void* q, void* k, void* v, int M, int D,
+           float scale, float eps, cudaStream_t s) {
+  int rc = layer_norm<X, P>(x, ln_s, ln_b, h, M, D, eps, s);
+  if (rc != 0) return rc;
+  using Epi = bf16_gemm_tma::QkvEpilogueOf<X, false, P>;
+  const typename Epi::Args args{
+      {static_cast<const P*>(bq), static_cast<const P*>(bk),
+       static_cast<const P*>(bv)},
+      scale};
+  const void* const w[3] = {wq, wk, wv};
+  void* const out[3] = {q, k, v};
+  return bf16_gemm_tma::gemm<Epi>(h, w, out, 3, M, D, D, args, s);
+}
+
+// fused_mlp_block: h = bf16(LN(x)), the up product with the P bias and
+// quickGELU into the bf16 hidden, the down product adding the P bias and
+// the X residual in fp32, stored as X.
+template <typename X, typename P>
+int mlp_block(const void* x, const void* ln_s, const void* ln_b,
+              const void* w_fc, const void* b_fc, const void* w_proj,
+              const void* b_proj, void* h, void* hidden, void* out, int M,
+              int D, int F, float eps, cudaStream_t s) {
+  namespace bt = bf16_gemm_tma;
+  int rc = layer_norm<X, P>(x, ln_s, ln_b, h, M, D, eps, s);
+  if (rc != 0) return rc;
+  void* const hid[1] = {hidden};
+  rc = bt::gemm<BiasQuickGeluEpilogueOf<P>>(h, &w_fc, hid, 1, M, D, F,
+                                            {static_cast<const P*>(b_fc)}, s);
+  if (rc != 0) return rc;
+  void* const res[1] = {out};
+  using Epi = bt::ResidualEpilogue<X, true, X, P>;
+  const typename Epi::Args args{static_cast<const P*>(b_proj),
+                                static_cast<const X*>(x), M, D};
+  return bt::gemm<Epi>(hidden, &w_proj, res, 1, M, F, D, args, s);
+}
+
+// The fp32 attention of attention_core and attention_core_oproj over fp32
+// q (pre-scaled), k, v (B, L, H dh): attention_f32.cuh with no bias, no
+// mask and a scale of 1, by route 0 (two passes, any L), 1 (the held
+// route) or 2 (the held route with K in the score rows, dh 64); the held
+// ones refuse an L whose score rows do not fit. o into out (fp32) or, with
+// planes, as three bf16 planes (B L, 3 H dh).
+int attention_f32_vit(const void* q, const void* k, const void* v, void* out,
+                      void* planes, int B, int L, int H, int dh,
+                      int fast_exp, int route, cudaStream_t s) {
+  const int D = H * dh;
+  attention_f32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.planes = static_cast<bf16*>(planes);
+  a.B = B;
+  a.Lq = a.Lk = L;
+  a.H = H;
+  a.ldq = a.ldk = a.ldo = D;
+  a.scale = 1.0f;
+  a.fast_exp = fast_exp;
+  switch (route) {
+    case 0: return attention_f32::attention(a, dh, s);
+    case 1: return attention_f32::attention_held(a, dh, s);
+    case 2: return attention_f32::attention_held_ks(a, dh, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// attention_core_oproj: the bf16 form's attention (vit_attention_wgmma.cuh,
+// kBf16Sum, into bf16 attn) and mma.sync out-projection, the bias of P; the
+// fp32 form's attention in fp32 (attention_f32_vit, into the three planes
+// of attn (M, 3 D) bf16) and its out-projection on bf16_gemm_tma.cuh over
+// the planes, wo read three times along K (every product exact in fp32),
+// adding the P bias and the fp32 residual, stored fp32.
+template <typename X, typename P>
+int core_oproj(const void* res, const void* q, const void* k, const void* v,
+               const void* wo, const void* bo, void* attn, void* out, int B,
+               int L, int H, int dh, int route, cudaStream_t s) {
+  namespace bt = bf16_gemm_tma;
+  const int M = B * L, D = H * dh;
+  if constexpr (std::is_same<X, float>::value) {
+    int rc = attention_f32_vit(q, k, v, nullptr, attn, B, L, H, dh, 0, route,
+                               s);
+    if (rc != 0) return rc;
+    void* const outs[1] = {out};
+    using Epi = bt::ResidualEpilogue<float, true, float, P>;
+    const typename Epi::Args args{static_cast<const P*>(bo),
+                                  static_cast<const float*>(res), M, D};
+    return bt::gemm<Epi>(attn, &wo, outs, 1, M, 3 * D, D, args, s, 0, D);
+  } else {
+    const int rc = vit_attention_wgmma::attention_dh<
+        vit_attention_wgmma::kBf16Sum>(q, k, v, attn, B, L, H, dh, s);
+    if (rc != 0) return rc;
+    return residual_gemm<P>(attn, wo, bo, out, res, M, D, D, s);
+  }
+}
+
+// The form of (x_f32, params_f32): fn<bf16 or float, bf16 or float>.
+#define VIT_FORM(fn, x_f32, params_f32)                                  \
+  ((x_f32) ? ((params_f32) ? fn<float, float> : fn<float, bf16>)         \
+           : ((params_f32) ? fn<bf16, float> : fn<bf16, bf16>))
 
 // ---- fused_attention_block's fp32 attention ---------------------------------
 
@@ -483,8 +639,9 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DH>
-int attention_f32(const void* q, const void* k, const void* v, void* attn3,
-                  int B, int L, int H, cudaStream_t stream) {
+int block_attention_f32(const void* q, const void* k, const void* v,
+                        void* attn3, int B, int L, int H,
+                        cudaStream_t stream) {
   const size_t smem = f32_att_smem_bytes(L, DH);
   if (L > F32_MAX_LEN ||
       smem > static_cast<size_t>(vit_attention::smem_limit())) {
@@ -523,94 +680,94 @@ extern "C" int attention_block_max_len(int dh) {
   return L;
 }
 
-// q, k, v (M, D) bf16 = (bf16(LN(x)) . w + b) * (scale, 1, 1) for x (M, D)
-// bf16; ln_s, ln_b, bq, bk, bv (D,) and wq, wk, wv (D, D) bf16 in the JAX
-// layout. h (M, D) is the caller's bf16 scratch. Runs on `stream`; returns
-// the first cudaError_t of its launches (0 on success).
+// q, k, v (M, D) = (bf16(LN(x)) . w + b) * (scale, 1, 1) for x (M, D):
+// bf16 x, q, k, v (x_f32 = 0) or fp32 (1); ln_s, ln_b, bq, bk, bv (D,) bf16
+// (params_f32 = 0) or fp32 (1); wq, wk, wv (D, D) bf16 in the JAX layout. h
+// (M, D) is the caller's bf16 scratch. Runs on `stream`; returns the first
+// cudaError_t of its launches (0 on success).
 extern "C" int fused_ln_qkv_launch(const void* x, const void* ln_s,
                                    const void* ln_b, const void* wq,
                                    const void* bq, const void* wk,
                                    const void* bk, const void* wv,
                                    const void* bv, void* h, void* q, void* k,
-                                   void* v, int M, int D, float scale,
-                                   float eps, void* stream) {
+                                   void* v, int M, int D, int x_f32,
+                                   int params_f32, float scale, float eps,
+                                   void* stream) {
   if (!ln_qkv_shape_ok(M, D)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = layer_norm<bf16>(x, ln_s, ln_b, h, M, D, eps, s);
-  if (rc != 0) return rc;
-  const QkvEpilogue::Args args{{static_cast<const bf16*>(bq),
-                                static_cast<const bf16*>(bk),
-                                static_cast<const bf16*>(bv)},
-                               scale};
-  const void* const w[3] = {wq, wk, wv};
-  void* const out[3] = {q, k, v};
-  return bf16_gemm_tma::gemm<QkvEpilogue>(h, w, out, 3, M, D, D, args, s);
+  return VIT_FORM(ln_qkv, x_f32, params_f32)(
+      x, ln_s, ln_b, wq, bq, wk, bk, wv, bv, h, q, k, v, M, D, scale, eps,
+      static_cast<cudaStream_t>(stream));
 }
 
-// out (B, L, D) bf16 = res + softmax(q k^T) v . wo + bo per head, for res,
-// q (pre-scaled), k, v (B, L, H dh) bf16, wo (D, D) and bo (D,) bf16. attn
-// (B, L, D) is the caller's bf16 scratch for the attention output. Runs on
-// `stream`; returns the first cudaError_t of its launches (0 on success).
+// out (B, L, D) = res + softmax(q k^T) v . wo + bo per head, for res, q
+// (pre-scaled), k, v (B, L, H dh) and out bf16 (x_f32 = 0) or fp32 (1), wo
+// (D, D) bf16, bo (D,) bf16 (params_f32 = 0) or fp32 (1). attn is the
+// caller's scratch for the attention output: (B, L, D) bf16, or (B L, 3 D)
+// bf16 for the fp32 form's planes. The fp32 form's attention takes `route`
+// (attention_f32_vit's; the held ones refused where L's score rows do not
+// fit); dh 64 or 128. Runs on `stream`; returns the first cudaError_t of
+// its launches (0 on success).
 extern "C" int attention_core_oproj_launch(const void* res, const void* q,
                                            const void* k, const void* v,
                                            const void* wo, const void* bo,
                                            void* attn, void* out, int B,
-                                           int L, int H, int dh,
+                                           int L, int H, int dh, int x_f32,
+                                           int params_f32, int route,
                                            void* stream) {
-  if (!vit_attention_wgmma::shape_ok(B, L, H) ||
-      !gemm_shape_ok(B * L, H * dh)) {
+  const int M = B * L, D = H * dh;
+  if (x_f32 ? (B <= 0 || L <= 0 || H <= 0 ||
+               !bf16_gemm_tma::shape_ok(M, 3 * D, D, 1) || D % 64)
+            : (!vit_attention_wgmma::shape_ok(B, L, H) ||
+               !gemm_shape_ok(M, D))) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = vit_attention_wgmma::attention_dh<
-      vit_attention_wgmma::kBf16Sum>(q, k, v, attn, B, L, H, dh, s);
-  if (rc != 0) return rc;
-  return residual_gemm(attn, wo, bo, out, res, B * L, H * dh, H * dh, s);
+  return VIT_FORM(core_oproj, x_f32, params_f32)(
+      res, q, k, v, wo, bo, attn, out, B, L, H, dh, route,
+      static_cast<cudaStream_t>(stream));
 }
 
-// out (B, L, H dh) bf16 = softmax(q k^T) v per head for q (pre-scaled), k,
-// v (B, L, H dh) bf16; the exponential of bf16(s - max) when fast_exp is
-// not 0. Runs on `stream`; returns the launch's cudaError_t (0 on success).
+// out (B, L, H dh) = softmax(q k^T) v per head for q (pre-scaled), k, v
+// (B, L, H dh) and out bf16 (x_f32 = 0: vit_attention_wgmma.cuh) or fp32
+// (1: attention_f32.cuh, dh 64 or 128, by `route`, attention_f32_vit's);
+// the exponential of bf16(s - max) when fast_exp is not 0. Runs on
+// `stream`; returns the launch's cudaError_t (0 on success).
 extern "C" int attention_core_launch(const void* q, const void* k,
                                      const void* v, void* out, int B, int L,
-                                     int H, int dh, int fast_exp,
-                                     void* stream) {
+                                     int H, int dh, int fast_exp, int x_f32,
+                                     int route, void* stream) {
   namespace vw = vit_attention_wgmma;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_f32) {
+    return attention_f32_vit(q, k, v, out, nullptr, B, L, H, dh, fast_exp,
+                             route, s);
+  }
   if (fast_exp) {
     return vw::attention_dh<vw::kFastExp>(q, k, v, out, B, L, H, dh, s);
   }
   return vw::attention_dh<vw::kBf16Sum>(q, k, v, out, B, L, H, dh, s);
 }
 
-// out (M, D) bf16 = x + quickGELU(bf16(LN(x)) . w_fc + b_fc) . w_proj +
-// b_proj for x (M, D) bf16; ln_s, ln_b, b_proj (D,), b_fc (F,), w_fc (D, F)
-// and w_proj (F, D) bf16 in the JAX layout. h (M, D) and hidden (M, F) are
-// the caller's bf16 scratch. Runs on `stream`; returns the first
-// cudaError_t of its launches (0 on success).
+// out (M, D) = x + quickGELU(bf16(LN(x)) . w_fc + b_fc) . w_proj + b_proj
+// for x and out (M, D) bf16 (x_f32 = 0) or fp32 (1); ln_s, ln_b, b_proj
+// (D,) and b_fc (F,) bf16 (params_f32 = 0) or fp32 (1); w_fc (D, F) and
+// w_proj (F, D) bf16 in the JAX layout. h (M, D) and hidden (M, F) are the
+// caller's bf16 scratch. Runs on `stream`; returns the first cudaError_t of
+// its launches (0 on success).
 extern "C" int fused_mlp_block_launch(const void* x, const void* ln_s,
                                       const void* ln_b, const void* w_fc,
                                       const void* b_fc, const void* w_proj,
                                       const void* b_proj, void* h,
                                       void* hidden, void* out, int M, int D,
-                                      int F, float eps, void* stream) {
+                                      int F, int x_f32, int params_f32,
+                                      float eps, void* stream) {
   namespace bt = bf16_gemm_tma;
   if (!norm_shape_ok(D) || !bt::shape_ok(M, D, F, 1) ||
       !bt::shape_ok(M, F, D, 1)) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = layer_norm<bf16>(x, ln_s, ln_b, h, M, D, eps, s);
-  if (rc != 0) return rc;
-  void* const hid[1] = {hidden};
-  rc = bt::gemm<BiasQuickGeluEpilogue>(h, &w_fc, hid, 1, M, D, F,
-                                       {static_cast<const bf16*>(b_fc)}, s);
-  if (rc != 0) return rc;
-  void* const res[1] = {out};
-  const BiasResidualEpilogue::Args args{static_cast<const bf16*>(b_proj),
-                                        static_cast<const bf16*>(x), M, D};
-  return bt::gemm<BiasResidualEpilogue>(hidden, &w_proj, res, 1, M, F, D,
-                                        args, s);
+  return VIT_FORM(mlp_block, x_f32, params_f32)(
+      x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, h, hidden, out, M, D, F, eps,
+      static_cast<cudaStream_t>(stream));
 }
 
 // out (B, L, D) bf16 = the whole pre-LN CLIP block over x (B, L, D = H dh)
@@ -637,8 +794,8 @@ extern "C" int fused_vit_block_launch(
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = fused_ln_qkv_launch(x, ln1_s, ln1_b, wq, bq, wk, bk, wv, bv, h, q,
-                               k, v, M, D, scale, eps, stream);
+  int rc = ln_qkv<bf16, bf16>(x, ln1_s, ln1_b, wq, bq, wk, bk, wv, bv, h, q,
+                              k, v, M, D, scale, eps, s);
   if (rc != 0) return rc;
   rc = attention_mode(mode, q, k, v, attn, B, L, H, dh, s);
   if (rc != 0) return rc;
@@ -688,10 +845,18 @@ extern "C" int fused_attention_block_launch(
       s);
   if (rc != 0) return rc;
   switch (dh) {
-    case 16: rc = attention_f32<16>(q, k, v, attn3, B, L, H, s); break;
-    case 32: rc = attention_f32<32>(q, k, v, attn3, B, L, H, s); break;
-    case 64: rc = attention_f32<64>(q, k, v, attn3, B, L, H, s); break;
-    case 128: rc = attention_f32<128>(q, k, v, attn3, B, L, H, s); break;
+    case 16:
+      rc = block_attention_f32<16>(q, k, v, attn3, B, L, H, s);
+      break;
+    case 32:
+      rc = block_attention_f32<32>(q, k, v, attn3, B, L, H, s);
+      break;
+    case 64:
+      rc = block_attention_f32<64>(q, k, v, attn3, B, L, H, s);
+      break;
+    case 128:
+      rc = block_attention_f32<128>(q, k, v, attn3, B, L, H, s);
+      break;
     default: return cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;

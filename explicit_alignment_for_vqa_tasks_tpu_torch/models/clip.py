@@ -22,6 +22,14 @@ tokens or fewer (ViT-B/32's 50) ``fused_block`` runs ``fused_vit_block``
 ``use_pallas`` (below those branches, as in JAX :356-359) runs the plain
 block with the ``flash_attention`` kernel (``ops/attention.py``,
 ``csrc/flash_attention.cu``) in place of the fp32 attention.
+
+Above 128 tokens the split3 kernels and ``attention_core`` also run in fp32,
+as the Pallas kernels take any dtype: ``cfg.dtype=torch.float32`` gives
+fp32 activations (their fp32 forms), and fp32 params (``param_dtype=
+torch.float32``) under a bf16 ``cfg.dtype`` give bf16 activations with fp32
+LayerNorms and biases; the kernels read every operand in its own dtype, the
+weights cast to bf16 as the JAX wrappers cast them. The other kernels take
+bf16 activations only.
 """
 
 from __future__ import annotations

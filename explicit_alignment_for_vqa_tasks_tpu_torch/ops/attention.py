@@ -90,8 +90,10 @@ def _check_inputs(q, k, v, bias) -> None:
         if t.device != q.device:
             raise ValueError(f"{op}: {name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
+            later = (" (its float32 form is still to be ported: ROADMAP.md "
+                     "Queue 2 A)" if t.dtype == torch.float32 else "")
             raise ValueError(f"{op}: {name} is {t.dtype}; the kernel takes "
-                             f"torch.bfloat16 only")
+                             f"torch.bfloat16 only{later}")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be a contiguous (B, L, H, D) "
                              f"tensor, not {tuple(t.shape)}")

@@ -20,7 +20,10 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
   * the CLIP ViT long-sequence attention ``attention_core`` (:203-232,
     optional bf16 exp), kernel in ``csrc/vit_block.cu``. Its attention and
     ``attention_core_oproj``'s are ``csrc/vit_attention_wgmma.cuh``
-    (``wgmma`` and TMA, two passes over the keys, any L);
+    (``wgmma`` and TMA, two passes over the keys, any L); on fp32
+    activations ``csrc/attention_f32.cuh`` (``vit_f32_route`` picks its
+    route). The split3 kernels and ``attention_core`` take bf16 or fp32
+    activations, the vectors and weights as ``_vit_form`` reads them;
   * the int8 ViT long-sequence block: ``fused_qkv_q8`` (:559-593) and
     ``fused_mlp_block_q8`` (:495-527), kernels in ``csrc/vit_block_q8.cu``,
     with ``quantize_weight_i8`` (:690-699), the host quantizer of their
@@ -154,12 +157,45 @@ def t5_f32_held_smem_bytes(seq: int, head_dim: int) -> int:
                 + _F32_HELD_ROWS * (keys + _F32_HELD_PAD))
 
 
+def f32_attention_held(seq: int, head_dim: int) -> bool:
+    """Whether the fp32 attention of ``csrc/attention_f32.cuh`` takes its
+    held route at ``seq`` keys: where the score rows fit a block's shared
+    memory; the two-pass route (any length) past that. The held launcher
+    refuses the lengths it cannot hold, so the two limits cannot part."""
+    return t5_f32_held_smem_bytes(seq, head_dim) <= _F32_MAX_SMEM
+
+
+def f32_held_ks_smem_bytes(seq: int) -> int:
+    """The shared memory of the held route with K in the score rows
+    (``held_ks_smem_bytes`` of ``csrc/attention_f32.cuh``, head size 64):
+    the ring, which holds Q during q·kᵀ, and the score rows."""
+    keys = -(-seq // _F32_HELD_TILE) * _F32_HELD_TILE
+    return 4 * (_F32_HELD_SLOTS * _F32_HELD_TILE * _F32_HELD_TILE
+                + _F32_HELD_ROWS * (keys + _F32_HELD_PAD))
+
+
+# the routes of the ViT kernels' fp32 attention (the launchers' ``route``)
+F32_TWO_PASS, F32_HELD, F32_HELD_KS = 0, 1, 2
+
+
+def vit_f32_route(seq: int, head_dim: int) -> int:
+    """The route of ``attention_core``'s and ``attention_core_oproj``'s fp32
+    attention at ``seq`` keys: the held route where it fits, else at head
+    size 64 the held route with K in the score rows where that fits (up to
+    640 keys: ViT-L/14@336's 577), else the two-pass route. Each held
+    launcher refuses the lengths it cannot hold."""
+    if f32_attention_held(seq, head_dim):
+        return F32_HELD
+    if head_dim == _F32_HELD_TILE and f32_held_ks_smem_bytes(seq) \
+            <= _F32_MAX_SMEM:
+        return F32_HELD_KS
+    return F32_TWO_PASS
+
+
 def t5_f32_route(seq: int, head_dim: int) -> str:
     """The launcher of ``t5_attention_core``'s fp32 form for length
-    ``seq``: the held route where its score rows fit a block's shared
-    memory, the two-pass route (any length) past that. The held launcher
-    refuses the lengths it cannot hold, so the two limits cannot part."""
-    if t5_f32_held_smem_bytes(seq, head_dim) <= _F32_MAX_SMEM:
+    ``seq``: the held route or the two-pass one (``f32_attention_held``)."""
+    if f32_attention_held(seq, head_dim):
         return "t5_attention_core_f32_held_launch"
     return "t5_attention_core_f32_launch"
 
@@ -1151,6 +1187,48 @@ def _check_group(op: str, batch: int, group: int) -> None:
                          f"{group}")
 
 
+def _vit_form(op: str, acts: dict, vectors: dict, weights: dict) -> tuple:
+    """The form of a split3 kernel's CUDA call, as the JAX wrappers read
+    their operands: ``acts`` (x, the residual, q, k, v) of one dtype, bf16
+    or fp32 (the fp32 form); ``vectors`` (the LayerNorms' scales and
+    biases, the biases) bf16 or fp32, read as they are when all are bf16,
+    else all fp32 (a bf16 one widened, which is exact); ``weights`` bf16 or
+    fp32, an fp32 one cast to bf16 (a copy a call, as the JAX wrapper casts
+    it; bf16 ones pass with no copy). Any other dtype raises ValueError.
+    Returns (x_f32, params_f32, vectors, weights), those as the kernel reads
+    them, each checked by ``_check_tensors``."""
+    first, x = next(iter(acts.items()))
+    for name, t in {**acts, **vectors, **weights}.items():
+        if t.dtype not in (_BF16, _F32):
+            raise ValueError(f"{op}: {name} is {t.dtype}; the kernel takes "
+                             "bfloat16 or float32")
+    for name, t in acts.items():
+        if t.dtype != x.dtype:
+            raise ValueError(
+                f"{op}: {name} is {t.dtype}, {first} is {x.dtype}; the "
+                f"kernel takes {', '.join(acts)} of one dtype")
+    params_f32 = any(t.dtype == _F32 for t in vectors.values())
+    vectors = {name: t.float() if params_f32 else t
+               for name, t in vectors.items()}
+    weights = {name: _bf16_weight(t) for name, t in weights.items()}
+    dtypes = {**{name: x.dtype for name in acts},
+              **{name: _F32 if params_f32 else _BF16 for name in vectors},
+              **{name: _BF16 for name in weights}}
+    _check_tensors(op, x.device, dtypes, **acts, **vectors, **weights)
+    return x.dtype == _F32, params_f32, vectors, weights
+
+
+def _refuse_f32(op: str, **acts: torch.Tensor) -> None:
+    """The refusal of fp32 activations by a kernel whose fp32 form is not
+    ported yet."""
+    for name, t in acts.items():
+        if t.dtype == _F32:
+            raise ValueError(
+                f"{op}: {name} is torch.float32; the kernel takes "
+                "torch.bfloat16 only (its float32 form is still to be "
+                "ported: ROADMAP.md Queue 2 A)")
+
+
 def _check_vit_widths(op: str, **widths: int) -> None:
     for name, n in widths.items():
         if n <= 0 or n % VIT_WIDTH_MULTIPLE:
@@ -1194,6 +1272,16 @@ def _vit_head_size(op: str, d_model: int, num_heads: int) -> int:
     return head_dim
 
 
+def _vit_f32_head_size(op: str, d_model: int, num_heads: int) -> int:
+    """The head size, one the fp32 attention (csrc/attention_f32.cuh)
+    takes."""
+    head_dim = _vit_head_size(op, d_model, num_heads)
+    if head_dim not in _F32_HEAD_DIMS:
+        raise ValueError(f"{op}: head size {head_dim} is not one of "
+                         f"{_F32_HEAD_DIMS} (float32)")
+    return head_dim
+
+
 def _vit_head_dim(op: str, seq: int, d_model: int, num_heads: int) -> int:
     """The head size, one the whole blocks' attention kernel takes, at a
     sequence length whose score tile fits the card's shared memory."""
@@ -1221,7 +1309,9 @@ def fused_ln_qkv(
     k, v), each (B, L, D) in x.dtype. ``group`` (images per TPU program) is
     checked (it must divide B) and does not change the results. CPU
     tensors take the plain version; CUDA tensors launch the kernel
-    (``fused_ln_qkv.launches`` counts those calls) or raise."""
+    (``fused_ln_qkv.launches`` counts those calls, of either form) or
+    raise: x bf16 or fp32 (the fp32 form), the vectors and weights as
+    ``_vit_form`` reads them."""
     op = "fused_ln_qkv"
     _check_group(op, x.shape[0], group)
     if x.device.type == "cpu":
@@ -1229,25 +1319,25 @@ def fused_ln_qkv(
                                   bv, scale, eps)
     kernels.refuse_grad("fused_ln_qkv", x, ln_scale, ln_bias, wq, bq, wk, bk,
                         wv, bv)
-    tensors = dict(x=x, ln_scale=ln_scale, ln_bias=ln_bias, wq=wq, bq=bq,
-                   wk=wk, bk=bk, wv=wv, bv=bv)
-    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
-                   **tensors)
+    x_f32, params_f32, vecs, ws = _vit_form(
+        op, dict(x=x), dict(ln_scale=ln_scale, ln_bias=ln_bias, bq=bq, bk=bk,
+                            bv=bv), dict(wq=wq, wk=wk, wv=wv))
     batch, seq, d_model = x.shape
     vec, mat = (d_model,), (d_model, d_model)
-    _check_shapes(op, ln_scale=(ln_scale, vec), ln_bias=(ln_bias, vec),
-                  wq=(wq, mat), bq=(bq, vec), wk=(wk, mat), bk=(bk, vec),
-                  wv=(wv, mat), bv=(bv, vec))
+    _check_shapes(op, **{name: (t, vec) for name, t in vecs.items()},
+                  **{name: (t, mat) for name, t in ws.items()})
     _check_vit_widths(op, D=d_model)
     _check_norm_width(op, d_model)
     rows, dev = batch * seq, x.device
     h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
     q, k, v = (torch.empty_like(x) for _ in range(3))
-    _run(op, _launcher_of("vit_block", op, 13, 2, 2),
-         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-         wv.data_ptr(), bv.data_ptr(), h.data_ptr(), q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), rows, d_model, scale, eps,
+    _run(op, _launcher_of("vit_block", op, 13, 4, 2),
+         x.data_ptr(), vecs["ln_scale"].data_ptr(),
+         vecs["ln_bias"].data_ptr(), ws["wq"].data_ptr(),
+         vecs["bq"].data_ptr(), ws["wk"].data_ptr(), vecs["bk"].data_ptr(),
+         ws["wv"].data_ptr(), vecs["bv"].data_ptr(), h.data_ptr(),
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), rows, d_model,
+         int(x_f32), int(params_f32), scale, eps,
          torch.cuda.current_stream(dev).cuda_stream)
     fused_ln_qkv.launches += 1
     return q, k, v
@@ -1263,33 +1353,43 @@ def attention_core_oproj(
     """residual + softmax(q k^T) v @ wo + bo over pre-scaled q (no bias, no
     mask). ``group`` is checked (it must divide B) and does not change the
     results. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (``attention_core_oproj.launches``) or raise."""
+    kernel (``attention_core_oproj.launches``, either form) or raise: the
+    residual, q, k and v all bf16 or all fp32 (the fp32 form, head sizes
+    64 and 128), bo and wo as ``_vit_form`` reads them."""
     op = "attention_core_oproj"
     _check_group(op, q.shape[0], group)
     if q.device.type == "cpu":
         return attention_core_oproj_plain(residual, q, k, v, wo, bo,
                                           num_heads)
     kernels.refuse_grad("attention_core_oproj", residual, q, k, v, wo, bo)
-    tensors = dict(residual=residual, q=q, k=k, v=v, wo=wo, bo=bo)
-    _check_tensors(op, q.device, {name: _BF16 for name in tensors},
-                   **tensors)
+    x_f32, params_f32, vecs, ws = _vit_form(
+        op, dict(residual=residual, q=q, k=k, v=v), dict(bo=bo), dict(wo=wo))
     if q.dim() != 3:
         raise ValueError(f"{op}: q is {tuple(q.shape)}, expected (B, L, D)")
     batch, seq, d_model = q.shape
     _check_shapes(op, residual=(residual, q.shape), k=(k, q.shape),
-                  v=(v, q.shape), wo=(wo, (d_model, d_model)),
-                  bo=(bo, (d_model,)))
+                  v=(v, q.shape), wo=(ws["wo"], (d_model, d_model)),
+                  bo=(vecs["bo"], (d_model,)))
     _check_vit_widths(op, D=d_model)
-    head_dim = _vit_head_size(op, d_model, num_heads)
     dev = q.device
-    # the attention output goes through device memory once, bf16
-    attn = torch.empty_like(q)
+    if x_f32:
+        # the fp32 attention output goes through device memory once, as
+        # three bf16 planes: the out-projection's A operand
+        head_dim = _vit_f32_head_size(op, d_model, num_heads)
+        route = vit_f32_route(seq, head_dim)
+        attn = torch.empty((batch * seq, 3 * d_model), dtype=_BF16,
+                           device=dev)
+    else:
+        # the attention output goes through device memory once, bf16
+        head_dim = _vit_head_size(op, d_model, num_heads)
+        route = F32_TWO_PASS
+        attn = torch.empty_like(q)
     out = torch.empty_like(residual)
-    _run(op, _launcher_of("vit_block", op, 8, 4, 0),
+    _run(op, _launcher_of("vit_block", op, 8, 7, 0),
          residual.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-         wo.data_ptr(), bo.data_ptr(), attn.data_ptr(), out.data_ptr(),
-         batch, seq, num_heads, head_dim,
-         torch.cuda.current_stream(dev).cuda_stream)
+         ws["wo"].data_ptr(), vecs["bo"].data_ptr(), attn.data_ptr(),
+         out.data_ptr(), batch, seq, num_heads, head_dim, int(x_f32),
+         int(params_f32), route, torch.cuda.current_stream(dev).cuda_stream)
     attention_core_oproj.launches += 1
     return out
 
@@ -1304,8 +1404,9 @@ def fused_mlp_block(
 ) -> torch.Tensor:
     """x + MLP(LN(x)) with quickGELU. ``group`` (images of a TPU program)
     is checked and does not change the results. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (``fused_mlp_block.launches``)
-    or raise."""
+    version; CUDA tensors launch the kernel (``fused_mlp_block.launches``,
+    either form) or raise: x bf16 or fp32 (the fp32 form), the vectors and
+    weights as ``_vit_form`` reads them."""
     op = "fused_mlp_block"
     _check_group(op, x.shape[0], group)
     if x.device.type == "cpu":
@@ -1313,16 +1414,18 @@ def fused_mlp_block(
                                      w_proj, b_proj, eps)
     kernels.refuse_grad("fused_mlp_block", x, ln_scale, ln_bias, w_fc, b_fc,
                         w_proj, b_proj)
-    tensors = dict(x=x, ln_scale=ln_scale, ln_bias=ln_bias, w_fc=w_fc,
-                   b_fc=b_fc, w_proj=w_proj, b_proj=b_proj)
-    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
-                   **tensors)
+    x_f32, params_f32, vecs, ws = _vit_form(
+        op, dict(x=x), dict(ln_scale=ln_scale, ln_bias=ln_bias, b_fc=b_fc,
+                            b_proj=b_proj), dict(w_fc=w_fc, w_proj=w_proj))
     batch, seq, d_model = x.shape
     d_ff = w_fc.shape[-1]
     vec = (d_model,)
-    _check_shapes(op, ln_scale=(ln_scale, vec), ln_bias=(ln_bias, vec),
-                  w_fc=(w_fc, (d_model, d_ff)), b_fc=(b_fc, (d_ff,)),
-                  w_proj=(w_proj, (d_ff, d_model)), b_proj=(b_proj, vec))
+    _check_shapes(op, ln_scale=(vecs["ln_scale"], vec),
+                  ln_bias=(vecs["ln_bias"], vec),
+                  w_fc=(ws["w_fc"], (d_model, d_ff)),
+                  b_fc=(vecs["b_fc"], (d_ff,)),
+                  w_proj=(ws["w_proj"], (d_ff, d_model)),
+                  b_proj=(vecs["b_proj"], vec))
     _check_vit_widths(op, D=d_model, F=d_ff)
     _check_norm_width(op, d_model)
     rows, dev = batch * seq, x.device
@@ -1330,12 +1433,13 @@ def fused_mlp_block(
     # the bf16 quickGELU hidden goes through device memory once
     hidden = torch.empty((rows, d_ff), dtype=_BF16, device=dev)
     out = torch.empty_like(x)
-    _run(op, _launcher_of("vit_block", op, 10, 3, 1),
-         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-         w_fc.data_ptr(), b_fc.data_ptr(), w_proj.data_ptr(),
-         b_proj.data_ptr(), h.data_ptr(), hidden.data_ptr(), out.data_ptr(),
-         rows, d_model, d_ff, eps,
-         torch.cuda.current_stream(dev).cuda_stream)
+    _run(op, _launcher_of("vit_block", op, 10, 5, 1),
+         x.data_ptr(), vecs["ln_scale"].data_ptr(),
+         vecs["ln_bias"].data_ptr(), ws["w_fc"].data_ptr(),
+         vecs["b_fc"].data_ptr(), ws["w_proj"].data_ptr(),
+         vecs["b_proj"].data_ptr(), h.data_ptr(), hidden.data_ptr(),
+         out.data_ptr(), rows, d_model, d_ff, int(x_f32), int(params_f32),
+         eps, torch.cuda.current_stream(dev).cuda_stream)
     fused_mlp_block.launches += 1
     return out
 
@@ -1351,24 +1455,31 @@ def attention_core(
     fast_exp: bool = False,
 ) -> torch.Tensor:
     """softmax(q k^T) v per head over pre-scaled q in the native (B, L, D)
-    layout (no bias, no mask), the exponential in bf16 with ``fast_exp``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``attention_core.launches``) or raise."""
+    layout (no bias, no mask), the exponential's argument rounded to bf16
+    with ``fast_exp``. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (``attention_core.launches``, either form) or raise:
+    q, k and v all bf16 (the tensor-core kernel) or all fp32 (the CUDA-core
+    kernel of csrc/attention_f32.cuh, head sizes 64 and 128, by the route
+    ``vit_f32_route`` gives for L)."""
     op = "attention_core"
     if q.device.type == "cpu":
         return attention_core_plain(q, k, v, num_heads, fast_exp)
     kernels.refuse_grad(op, q, k, v)
-    _check_tensors(op, q.device, dict(q=_BF16, k=_BF16, v=_BF16), q=q, k=k,
-                   v=v)
+    x_f32 = _vit_form(op, dict(q=q, k=k, v=v), {}, {})[0]
     if q.dim() != 3:
         raise ValueError(f"{op}: q is {tuple(q.shape)}, expected (B, L, D)")
     batch, seq, d_model = q.shape
     _check_shapes(op, k=(k, q.shape), v=(v, q.shape))
-    head_dim = _vit_head_size(op, d_model, num_heads)
+    if x_f32:
+        head_dim = _vit_f32_head_size(op, d_model, num_heads)
+        route = vit_f32_route(seq, head_dim)
+    else:
+        head_dim = _vit_head_size(op, d_model, num_heads)
+        route = F32_TWO_PASS
     out = torch.empty_like(q)
-    _run(op, _launcher_of("vit_block", op, 4, 5, 0),
+    _run(op, _launcher_of("vit_block", op, 4, 7, 0),
          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-         batch, seq, num_heads, head_dim, int(fast_exp),
+         batch, seq, num_heads, head_dim, int(fast_exp), int(x_f32), route,
          torch.cuda.current_stream(q.device).cuda_stream)
     attention_core.launches += 1
     return out
@@ -1480,6 +1591,7 @@ def fused_qkv_q8(
         return fused_qkv_q8_plain(x, ln_scale, ln_bias, w_qkv, s_qkv, b_qkv,
                                   scale, eps, codes_out=codes_out)
     kernels.refuse_grad("fused_qkv_q8", x, ln_scale, ln_bias, s_qkv, b_qkv)
+    _refuse_f32(op, x=x)
     batch, seq, d_model = x.shape
     s_qkv = _check_vit_q8_product(op, "w_qkv", w_qkv, s_qkv, d_model)
     _check_tensors(op, x.device,
@@ -1528,6 +1640,7 @@ def fused_mlp_block_q8(
                                         codes_out=codes_out)
     kernels.refuse_grad("fused_mlp_block_q8", x, ln_scale, ln_bias, s_fc,
                         b_fc, s_proj, b_proj)
+    _refuse_f32(op, x=x)
     batch, seq, d_model = x.shape
     d_ff = w_fc.shape[-1]
     s_fc = _check_vit_q8_product(op, "w_fc", w_fc, s_fc, d_model)
@@ -1666,6 +1779,7 @@ def fused_vit_block(
                    ln2_scale=ln2_scale, ln2_bias=ln2_bias, w_fc=w_fc,
                    b_fc=b_fc, w_proj=w_proj, b_proj=b_proj)
     kernels.refuse_grad(op, *tensors.values())
+    _refuse_f32(op, x=x)
     _check_tensors(op, x.device, {name: _BF16 for name in tensors},
                    **tensors)
     if x.dim() != 3:
@@ -1769,6 +1883,7 @@ def fused_vit_block_q8(
             num_heads, eps)
     kernels.refuse_grad(op, x, ln1_scale, ln1_bias, s_qkv, b_qkv, so, bo,
                         ln2_scale, ln2_bias, s_fc, b_fc, s_proj, b_proj)
+    _refuse_f32(op, x=x)
     if x.dim() != 3:
         raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
     batch, seq, d_model = x.shape
@@ -1901,6 +2016,7 @@ def fused_attention_block(
     tensors = dict(x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo,
                    bo=bo)
     kernels.refuse_grad(op, *tensors.values())
+    _refuse_f32(op, x=x)
     _check_tensors(op, x.device, {name: _BF16 for name in tensors},
                    **tensors)
     if x.dim() != 3:

@@ -80,7 +80,10 @@ class ClipImageEncoder:
     """Batched image encoder with a fixed batch size, on ``device`` (the
     card unless the caller passes ``device="cpu"``). ``int8`` quantizes the
     blocks' projections once (``quantize_vision_blocks``, into a copy of
-    the caller's params dict) and runs the int8 blocks."""
+    the caller's params dict) and runs the int8 blocks. ``param_dtype``
+    (bf16 by default) is the dtype of weights it loads or draws; the
+    activations' is ``cfg.dtype``. Under ``cfg.fused_block`` at ViT-L/14@336
+    both may be fp32 (models/clip.py: the split3 kernels' fp32 forms)."""
 
     def __init__(
         self,

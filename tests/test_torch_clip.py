@@ -155,6 +155,37 @@ def test_split3_matches_jax_same_path(towers, tower, variant, dtype):
     assert (cross > CROSS_PATH_COSINE).all(), cross
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split3_encoder_with_fp32_params_matches_jax(towers, dtype):
+    """ClipImageEncoder with fused_block and param_dtype=float32 on the
+    seq197 tower's converted fp32 weights, bf16 activations with fp32
+    LayerNorms and biases (cfg dtype bfloat16) or fp32 ones: against the
+    JAX package's ClipImageEncoder on the same weights and images, each
+    row within SAME_PATH_COSINE, and within CROSS_PATH_COSINE of JAX's
+    default path."""
+    from explicit_alignment_for_vqa_tasks_tpu.tools import (
+        clip_encoder as jenc,
+    )
+    from explicit_alignment_for_vqa_tasks_tpu_torch.tools import (
+        clip_encoder as tenc,
+    )
+
+    jp, tp, images = towers["seq197"]
+    jcfg, tcfg = configs("seq197", dtype, fused_block=True)
+    port = tenc.ClipImageEncoder(tcfg, tp, batch_size=4,
+                                 param_dtype=torch.float32, device="cpu")
+    assert port.params["blocks"]["ln1_scale"].dtype == torch.float32
+    got = port.encode_batch(images)
+    want = jenc.ClipImageEncoder(jcfg, jp, batch_size=4,
+                                 param_dtype=jnp.float32).encode_batch(images)
+    assert got.shape == want.shape == (BATCH, TOWERS["seq197"][
+        "projection_dim"])
+    cos = cosine(got, want)
+    assert (cos >= SAME_PATH_COSINE).all(), cos
+    cross = cosine(got, encode_jax(towers, "seq197", dtype))
+    assert (cross > CROSS_PATH_COSINE).all(), cross
+
+
 def test_split3_is_not_the_default_path(towers):
     """The split3 path rounds h and hid to bf16 even in fp32: it is not
     the default path's arithmetic."""

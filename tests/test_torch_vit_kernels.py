@@ -185,6 +185,115 @@ def test_plain_matches_pallas_kernel(name, dtype):
     assert_close(name, got, want, dtype, inp)
 
 
+# The forms the card runs besides the all-bf16 and all-fp32 ones: bf16 x
+# with fp32 vectors and fp32 weights that are not bf16-valued (the JAX
+# wrappers cast the weights to bf16 themselves), and fp32 x with bf16
+# vectors and weights. Each name: (activations, vectors, weights).
+MIXED = {"bf16_x_f32_params": ("bfloat16", "float32", "float32"),
+         "f32_x_bf16_params": ("float32", "bfloat16", "bfloat16")}
+
+
+def mixed_inputs(case, seed=7):
+    """make_inputs' arrays as a mixed case reads them: fp32 weights drawn
+    anew so that they are not bf16-valued; bf16 activations, vectors and
+    weights rounded to bf16 values (fp32_flip_bounds then reads the values
+    the kernels read)."""
+    inp = make_inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    act, vec, mat = MIXED[case]
+    if act == "bfloat16":
+        inp["x"] = bf16_valued(inp["x"])
+        inp["qkv"] = [bf16_valued(t) for t in inp["qkv"]]
+    if mat == "float32":
+        d, f = WIDTH, D_FF
+        inp["w"] = [(rng.standard_normal((d, d)) * d ** -0.5)
+                    .astype(np.float32) for _ in range(4)]
+        inp["w_fc"] = (rng.standard_normal((d, f)) * d ** -0.5).astype(
+            np.float32)
+        inp["w_proj"] = (rng.standard_normal((f, d)) * f ** -0.5).astype(
+            np.float32)
+        assert (bf16_valued(inp["w"][0]) != inp["w"][0]).any()
+    if vec == "bfloat16":
+        for key in ("ln_s", "ln_b", "b_fc", "b_proj"):
+            inp[key] = bf16_valued(inp[key])
+        inp["b"] = [bf16_valued(b) for b in inp["b"]]
+    return inp
+
+
+def mixed_operands(name, inp, case, cast):
+    """The kernel's operands in the case's dtypes, each made by
+    cast(array, dtype name), in the wrappers' order."""
+    act, vec, mat = MIXED[case]
+
+    def a(t):
+        return cast(t, act)
+
+    def v(t):
+        return cast(t, vec)
+
+    def m(t):
+        return cast(t, mat)
+
+    if name == "fused_ln_qkv":
+        return (a(inp["x"]), v(inp["ln_s"]), v(inp["ln_b"]),
+                *[t for i in range(3) for t in (m(inp["w"][i]),
+                                                v(inp["b"][i]))])
+    if name == "attention_core_oproj":
+        return (a(inp["x"]), *[a(t) for t in inp["qkv"]], m(inp["w"][3]),
+                v(inp["b"][3]))
+    return (a(inp["x"]), v(inp["ln_s"]), v(inp["ln_b"]), m(inp["w_fc"]),
+            v(inp["b_fc"]), m(inp["w_proj"]), v(inp["b_proj"]))
+
+
+@pytest.mark.parametrize("case", list(MIXED))
+@pytest.mark.parametrize("name", KERNELS)
+def test_mixed_plain_matches_pallas_kernel(name, case):
+    """The mixed forms' plain versions against the Pallas kernels on the
+    same numpy inputs: outputs in x's dtype. fp32 by the rule of
+    test_plain_matches_pallas_kernel (FP32_TOL (|jax| + rms) plus the
+    bound of the bf16 roundings of h and hid that may go the other way);
+    bf16 within one bf16 ulp of max(|jax|, rms(jax)) plus twice that bound,
+    at least 99.9 % equal: a flipped h, hid or attention output moves a
+    whole row by a bf16 ulp of it times the weights, which outputs near
+    zero show as more than one ulp of their own."""
+    jnp = pytest.importorskip("jax.numpy")
+    from explicit_alignment_for_vqa_tasks_tpu.ops import (
+        fused_attention_block as jfab,
+    )
+
+    inp = mixed_inputs(case)
+    act = MIXED[case][0]
+    jargs = mixed_operands(name, inp, case,
+                           lambda t, d: jnp.asarray(t, getattr(jnp, d)))
+    targs = mixed_operands(
+        name, inp, case,
+        lambda t, d: torch.from_numpy(np.asarray(t, np.float32)).to(
+            TORCH_DTYPES[d]))
+    if name == "fused_ln_qkv":
+        want = jfab.fused_ln_qkv(*jargs, scale=scale(), eps=EPS,
+                                 interpret=True)
+        got = tfab.fused_ln_qkv_plain(*targs, scale(), EPS)
+    elif name == "attention_core_oproj":
+        want = (jfab.attention_core_oproj(*jargs, num_heads=HEADS,
+                                          interpret=True),)
+        got = (tfab.attention_core_oproj_plain(*targs, HEADS),)
+    else:
+        want = (jfab.fused_mlp_block(*jargs, eps=EPS, interpret=True),)
+        got = (tfab.fused_mlp_block_plain(*targs, EPS),)
+    for g, w in zip(got, want):
+        assert g.dtype == TORCH_DTYPES[act] and w.dtype == getattr(jnp, act)
+    got = [g.float().numpy() for g in got]
+    want = [np.asarray(w.astype(jnp.float32)) for w in want]
+    if act == "float32":
+        assert_close(name, got, want, act, inp)
+        return
+    for g, w, bound in zip(got, want, fp32_flip_bounds(name, inp)):
+        rms = np.sqrt(np.mean(np.square(w)))
+        limit = bf16_ulp_of(np.maximum(np.abs(w), rms)) + 2 * bound
+        assert (np.abs(g - w) <= limit).all(), (name, np.abs(g - w).max())
+        assert (g == w).mean() >= MIN_EQUAL
+
+
 @pytest.mark.parametrize("name", KERNELS)
 def test_short_sequence_with_group_2(name):
     """B=4 at 50 tokens with group 2, as the short-sequence split3 path
@@ -242,9 +351,10 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     before = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert kernels.SOURCES["vit_block"] == "vit_block.cu"
     assert [p.name for p in kernels.included_files("vit_block")] == [
-        "vit_block.cu", "activations.cuh", "bf16_gemm_tma.cuh",
-        "block_stages.cuh", "vit_attention.cuh", "vit_attention_wgmma.cuh",
-        "hopper_async.cuh", "bf16_gemm.cuh", "row_norm.cuh"]
+        "vit_block.cu", "activations.cuh", "attention_f32.cuh",
+        "bf16_gemm_tma.cuh", "block_stages.cuh", "vit_attention.cuh",
+        "vit_attention_wgmma.cuh", "hopper_async.cuh", "bf16_gemm.cuh",
+        "row_norm.cuh"]
     assert [p.name for p in kernels.included_files("gpt2_block")] == [
         "gpt2_block.cu", "activations.cuh", "bf16_gemm_tma.cuh",
         "row_norm.cuh", "vit_attention.cuh", "hopper_async.cuh"]
@@ -290,8 +400,9 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
                          "t5_ffn", "int8_encoder"}),
     ("vit_attention_wgmma.cuh", {"vit_block", "t5_attention_core",
                                  "flash_attention"}),
-    # the fp32 CUDA-core attention (t5_attention_core's fp32 form)
-    ("attention_f32.cuh", {"t5_attention_core"}),
+    # the fp32 CUDA-core attention (t5_attention_core's fp32 form, and the
+    # fp32 forms of attention_core and attention_core_oproj)
+    ("attention_f32.cuh", {"t5_attention_core", "vit_block"}),
 ])
 def test_editing_a_header_renames_exactly_its_users(tmp_path, monkeypatch,
                                                      header, users):
@@ -329,7 +440,9 @@ CUDA_CASES = [pytest.param(name, 2, 577, 1024, 16, id=name)
 @pytest.mark.parametrize("name,batch,seq,width,heads", CUDA_CASES)
 def test_cuda_kernel_matches_plain_version(name, batch, seq, width, heads):
     """bf16 (F = 4 D): every element within 8e-3 (1 + |want|) of the plain
-    version, one launch counted, and fp32 inputs refused."""
+    version, one launch counted; fp32 activations take the fp32 form, one
+    launch counted too (tests/test_torch_vit_f32_kernels.py holds its
+    values)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -365,5 +478,10 @@ def test_cuda_kernel_matches_plain_version(name, batch, seq, width, heads):
         g, p = g.float(), p.float()
         assert bool(((g - p).abs() <= 8e-3 * (1 + p.abs())).all()), \
             (g - p).abs().max().item()
-    with pytest.raises(ValueError, match="bfloat16"):
-        fn(args[0].float(), *args[1:])
+    acts = 4 if name == "attention_core_oproj" else 1   # residual, q, k, v
+    before = fn.launches
+    out = fn(*(a.float() for a in args[:acts]), *args[acts:])
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    out = out if isinstance(out, tuple) else (out,)
+    assert all(o.dtype == torch.float32 for o in out)

@@ -539,7 +539,9 @@ def test_cuda_kernel_matches_plain_version(name):
     """The kernel against its plain version: attention within 8e-3 (1 +
     |want|); the int8 kernels within 1.6e-2 (|want| + rms(want)) with a
     relative Frobenius error of at most 2e-3 (a rare flipped code); one
-    launch counted, and fp32 inputs refused."""
+    launch counted. fp32 inputs: the int8 kernels refuse them (their fp32
+    forms are not ported), attention_core takes its fp32 form (one launch
+    counted; tests/test_torch_vit_f32_kernels.py holds its values)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     args = cuda_case(name)
@@ -562,6 +564,12 @@ def test_cuda_kernel_matches_plain_version(name):
         assert rel <= 2e-3, rel
         rms = p.square().mean().sqrt()
         assert bool(((g - p).abs() <= 1.6e-2 * (p.abs() + rms)).all())
+    if base == "attention_core":
+        before = fn.launches
+        out = fn(*(a.float() for a in args[:3]), *args[3:], **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and out.dtype == torch.float32
+        return
     with pytest.raises(ValueError, match="bfloat16"):
         fn(args[0].float(), *args[1:], **kw)
 
