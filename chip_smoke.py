@@ -209,6 +209,28 @@ register / shared-memory / spill report):
              peak memory, the device's busy share, the calls in turns and
              each path's per-row cosines against the default path's; the
              int8 path's images/s beside the fused path's
+  vit_whole_kernels_f32 (after vit_kernels_f32 and clip_encode_fp32)
+             the fp32 forms of fused_vit_block (fp32 x with fp32 or bf16
+             parameters, bf16 x with fp32 ones) and fused_attention_block
+             (fp32 x and weights, and each with the other bf16) at ViT-B/32
+             widths, and of flash_attention at ViT-L/14@336, against their
+             plain versions on 16 images and at the main shapes (1024 and
+             256 images), timed there in turns with the bf16 form, beside
+             the plain version, the bound (fused_attention_block's: its
+             route's, six bf16-plane products a product of fp32 operands,
+             and the fp32 FMA bound beside it) and one library call of the
+             same dtypes (TF32 off); fused_vit_block's whole_dd order and
+             fused_attention_block past 128 tokens (attention_f32.cuh) at
+             577 tokens on 16 images; from a generator of its own
+  clip_encode_b32_fp32
+             ClipImageEncoder at ViT-B/32 (12 layers), batch 1024, fp32
+             parameters and activations: the default path, fused_block
+             (fused_vit_block), fused_attention (fused_attention_block) and
+             use_pallas (flash_attention), as clip_encode_b32, 12 launches
+             of the path's kernel a call, per-row cosine to the default
+             path >= F32_COSINE_FLOOR; then ViT-L/14@336 in fp32 at 2
+             layers: whole, whole_dd and use_pallas against the default
+             path; from a generator of its own
   config_generate
              the shipped configs/vqa2/few_shot_vqa_hotpotqa.jsonnet through
              the port's config path (main.parse_args_sys, process_config
@@ -327,7 +349,7 @@ register / shared-memory / spill report):
              and clipcap, with and without --fused_attention: the JSON
              lines, the path's kernel launched once a layer a step
 
-The phases from vit_kernels to clip_encode_pallas (the CLIP and GPT-2
+The phases from vit_kernels to clip_encode_b32_fp32 (the CLIP and GPT-2
 ones) run in a process of their own (--clip-phases), from the shared
 generator's state: late in a process that has traced the T5 phases,
 kernel_split's traces lose records.
@@ -335,7 +357,9 @@ kernel_split's traces lose records.
 Then a line listing every kernel of the path with its launches (those of
 t5_attention_core from config_eval, of the int8 trio from config_eval_int8,
 of their fp32 forms from config_eval_fp32_int8, of fused_gpt2_block's fp32
-form from config_clipcap's fp32 run) and times, and last the line {"ok": true, "device": {...}}. Any failed
+form from config_clipcap's fp32 run, of the fp32 forms of fused_vit_block,
+fused_attention_block and flash_attention from clip_encode_b32_fp32) and
+times, and last the line {"ok": true, "device": {...}}. Any failed
 check exits non-zero before that line; without a CUDA card it exits
 non-zero at once.
 """
@@ -577,6 +601,10 @@ VIT_F32_REL_FROBENIUS = 1e-4
 VIT_F32_CLOSE = 0.2
 VIT_F32_FAST_CLOSE = 0.95
 VIT_F32_BOUND_IMAGES = 16          # images of fast_exp's bound at a time
+F32_COSINE_FLOOR = 0.9999          # fp32 fused paths against default, per row
+# fused_vit_block's fp32 forms: a relative Frobenius error at most this share
+# of its bf16 form's on x rounded to bf16 (tests/test_torch_vit_whole_f32.py)
+VIT_BLOCK_F32_VS_BF16 = 0.5
 # config_clipcap's fp32 run: B=32 at 10 prefix + 32 tokens (ragged query
 # tiles, M = 1,344); the kernel's timed shapes: 64 and 128 positions
 FP32_GPT2_PATH_LEN = 42
@@ -621,9 +649,10 @@ KERNELS = {
     "fused_qkv_q8": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":584"),
     "attention_core": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":225"),
     "fused_mlp_block_q8": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":516"),
-    "fused_vit_block": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":1398"),
+    "fused_vit_block": (PORT_CSRC + "vit_whole_block.cu", JAX_OPS + ":1398"),
     "fused_vit_block_q8": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":810"),
-    "fused_attention_block": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":1452"),
+    "fused_attention_block": (PORT_CSRC + "attention_block.cu",
+                              JAX_OPS + ":1452"),
     "fused_gpt2_block": (PORT_CSRC + "gpt2_block.cu", JAX_OPS + ":933"),
     "flash_attention": (
         PORT_CSRC + "flash_attention.cu",
@@ -650,6 +679,14 @@ KERNELS = {
     "fused_mlp_block_f32": (PORT_CSRC + "vit_block.cu", JAX_OPS + ":445"),
     "attention_core_f32": (PORT_CSRC + "attention_f32.cuh",
                            JAX_OPS + ":225"),
+    # ViT-B/32 in fp32 through ClipImageEncoder (clip_encode_b32_fp32)
+    "fused_vit_block_f32": (PORT_CSRC + "vit_whole_block.cu",
+                            JAX_OPS + ":1398"),
+    "fused_attention_block_f32": (PORT_CSRC + "attention_block.cu",
+                                  JAX_OPS + ":1452"),
+    "flash_attention_f32": (
+        PORT_CSRC + "flash_attention.cu",
+        "explicit_alignment_for_vqa_tasks_tpu/ops/attention.py:142"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
                 fused_oproj_residual_q8, fused_t5_ffn_q8,
@@ -3622,11 +3659,13 @@ def row_cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def phase_clip_variants(gen: torch.Generator, cfg, params, images,
-                        phase: str, reference: tuple, variants: dict) -> dict:
+                        phase: str, reference: tuple, variants: dict,
+                        floor: float = CLIP_COSINE_FLOOR) -> dict:
     """One encode at SPLIT_FE_LAYERS layers of each of ``variants`` (name
-    -> (config, expected launches)) against ``reference`` (name, config,
-    expected launches) at that depth, on the same weights and images; each
-    path's run (encode_with_counts')."""
+    -> (config, expected launches[, use_pallas])) against ``reference``
+    (name, config, expected launches) at that depth, on the same weights
+    and images, each per-row cosine to the reference's at least ``floor``;
+    each path's run (encode_with_counts')."""
     dev = gen.device
     shallow = dict(params)
     shallow["blocks"] = {key: leaf[:SPLIT_FE_LAYERS]
@@ -3634,8 +3673,9 @@ def phase_clip_variants(gen: torch.Generator, cfg, params, images,
     ref_name, ref_cfg, ref_launches = reference
     paths = {ref_name: (ref_cfg, ref_launches), **variants}
     outs, runs = {}, {}
-    for name, (path_cfg, expected) in paths.items():
+    for name, (path_cfg, expected, *pallas) in paths.items():
         encoder = ClipImageEncoder(path_cfg, shallow, batch_size=CLIP_BATCH,
+                                   use_pallas=bool(pallas and pallas[0]),
                                    device=dev)
         outs[name], runs[name] = encode_with_counts(
             encoder, images, expected, f"{phase} {name}")
@@ -3644,13 +3684,13 @@ def phase_clip_variants(gen: torch.Generator, cfg, params, images,
         cosine = row_cosine(outs[name], outs[ref_name])
         check(bool(np.isfinite(outs[name]).all()),
               f"{name} embeddings not finite")
-        check(bool((cosine >= CLIP_COSINE_FLOOR).all()),
+        check(bool((cosine >= floor).all()),
               f"{name} embeddings' cosine to the {ref_name} path's "
-              f"{cosine.min()} < {CLIP_COSINE_FLOOR}")
+              f"{cosine.min()} < {floor}")
         cosines[name] = dict(min=float(cosine.min()),
                              mean=float(cosine.mean()))
     emit(phase, layers=SPLIT_FE_LAYERS, batch=CLIP_BATCH, reference=ref_name,
-         cosine=cosines, floor=CLIP_COSINE_FLOOR,
+         cosine=cosines, floor=floor,
          launches={name: run["launches"] for name, run in runs.items()},
          wall_s={name: run["wall_s"] for name, run in runs.items()},
          images_per_s={name: CLIP_BATCH / run["wall_s"]
@@ -4391,6 +4431,26 @@ def vit_f32_rule(name: str, got: torch.Tensor, want: torch.Tensor,
     return out
 
 
+def vit_block_f32_rule(name: str, got: torch.Tensor, want: torch.Tensor,
+                       bf16_form: torch.Tensor) -> dict:
+    """fused_vit_block's fp32 form against its plain version: finite fp32
+    outputs whose relative Frobenius error is at most VIT_BLOCK_F32_VS_BF16
+    of the bf16 form's (``bf16_form``: the kernel on x rounded to bf16, the
+    same parameters); every bf16 intermediate of the block rounds the other
+    way from the plain version's now and then, in its bf16 form as in its
+    fp32 ones. The readings."""
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          f"{name}: {got.dtype} output or not finite")
+    want = want.double()
+    rel = ((got.double() - want).norm() / want.norm()).item()
+    base = ((bf16_form.double() - want).norm() / want.norm()).item()
+    check(rel <= VIT_BLOCK_F32_VS_BF16 * base,
+          f"{name}: relative Frobenius error {rel}, above "
+          f"{VIT_BLOCK_F32_VS_BF16} of the bf16 form's {base}")
+    return dict(max_abs_err=(got.double() - want).abs().max().item(),
+                rel_frobenius=rel, bf16_form_rel_frobenius=base)
+
+
 def f32_attention_by_route(q, k, v, heads: int, route: int, fast_exp: bool,
                            out: torch.Tensor) -> None:
     """attention_core's fp32 kernel by ``route`` (port_fab.F32_*) into
@@ -4679,6 +4739,318 @@ def phase_clip_encode_fp32(gen: torch.Generator) -> dict:
                              launches(attention_core=n))})
     results["fused_attention"] = dict(
         launches_per_call=[runs["fused_attention"]["launches"]])
+    del params, images
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_vit_whole_kernels_f32(gen: torch.Generator) -> dict:
+    """The fp32 forms of the whole-block kernels and of flash_attention
+    against their plain versions on VIT_CHECK_BATCH images and at the main
+    shapes, timed there by CUDA events in turns with the bf16 form, beside
+    the plain version, the bound and one library call of the same dtypes
+    (TF32 off): fused_vit_block and fused_attention_block at ViT-B/32
+    widths on B32_BATCH images (one layer of the tower's init, random
+    LayerNorm parameters and biases; the forms of fp32 x with fp32 or bf16
+    parameters and of bf16 x with fp32 ones), flash_attention at ViT-L/14@336
+    on CLIP_BATCH images; also, on VIT_CHECK_BATCH images at ViT-L/14@336's
+    577 tokens, fused_vit_block's whole_dd order and fused_attention_block
+    past 128 tokens (its attention on attention_f32.cuh). fused_vit_block
+    by vit_f32_rule's relative Frobenius rule, the other two within
+    FP32_ATOL (1 + |want|); bf16 outputs by check_against_plain's rule."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain versions must multiply in fp32")
+    dev = gen.device
+    f32, bf = torch.float32, torch.bfloat16
+    f = torch.nn.functional
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    def layer_of(cfg):
+        layer = {name: leaf[0] for name, leaf in
+                 clip_lib.init_clip_vision_params(gen, cfg, f32)[
+                     "blocks"].items()}
+        for name, leaf in layer.items():
+            if name.endswith(("bias", "scale")):
+                base = 1.0 if name.endswith("scale") else 0.0
+                layer[name] = base + randn(*leaf.shape, scale=0.1)
+        return layer
+
+    def cast(layer, vec, mat):
+        return {name: t.to(vec if name.endswith(("bias", "scale")) else mat)
+                for name, t in layer.items()}
+
+    b32 = clip_lib.CLIPVisionConfig.vit_b_32(num_layers=1)
+    seq, width, heads = b32.seq_len, b32.width, b32.num_heads
+    head_dim, d_ff, eps = width // heads, b32.mlp_ratio * width, \
+        b32.layer_norm_epsilon
+    layer = layer_of(b32)
+    x = randn(B32_BATCH, seq, width)
+    rows = B32_BATCH * seq
+    long_cfg = clip_lib.CLIPVisionConfig.vit_l_14_336(num_layers=1)
+    long_layer = layer_of(long_cfg)
+    long_x = randn(VIT_CHECK_BATCH, long_cfg.seq_len, long_cfg.width)
+
+    def block_args(x_, layer_, heads_):
+        return (x_, *(layer_[n] for n in VIT_BLOCK_KEYS), heads_)
+
+    def attn_args(x_, layer_, heads_):
+        return (x_, *(layer_[n] for n in ("q", "q_bias", "k", "k_bias", "v",
+                                          "v_bias", "o", "o_bias")), heads_)
+
+    # yardsticks only: PyTorch calls of the same dtypes, operands made
+    # before the timing
+    def lib_block(o):
+        # fp32 layer_norm, bf16 addmm widened, bf16 SDPA, quickGELU
+        x2 = o[0].reshape(-1, width).float()
+        vec = {n: o[1 + i].float() for i, n in enumerate(VIT_BLOCK_KEYS)
+               if n.endswith(("bias", "scale"))}
+        wb = {n: o[1 + i].bfloat16() for i, n in enumerate(VIT_BLOCK_KEYS)
+              if not n.endswith(("bias", "scale"))}
+        w_qkv = torch.cat([wb["q"], wb["k"], wb["v"]], dim=1)
+        b_qkv = torch.cat([vec["q_bias"], vec["k_bias"], vec["v_bias"]])
+
+        def run():
+            h = f.layer_norm(x2, (width,), vec["ln1_scale"], vec["ln1_bias"],
+                             eps).bfloat16()
+            qkv = (torch.mm(h, w_qkv).float() + b_qkv).bfloat16().view(
+                B32_BATCH, seq, 3, heads, head_dim)
+            a = f.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4))
+            r1 = x2 + torch.mm(a.transpose(1, 2).reshape(-1, width),
+                               wb["o"]).float() + vec["o_bias"]
+            z = torch.mm(f.layer_norm(r1, (width,), vec["ln2_scale"],
+                                      vec["ln2_bias"], eps).bfloat16(),
+                         wb["mlp_fc"]).float() + vec["mlp_fc_bias"]
+            hid = (z * torch.sigmoid(1.702 * z)).bfloat16()
+            return r1 + torch.mm(hid, wb["mlp_proj"]).float() \
+                + vec["mlp_proj_bias"]
+        return run
+
+    def lib_attention(o):
+        # fp32 addmm (TF32 off) and fp32 SDPA on fp32 copies
+        x2 = o[0].reshape(-1, width).float()
+        w = [o[i].float() for i in (1, 3, 5, 7)]
+        b = [o[i].float() for i in (2, 4, 6, 8)]
+        w_qkv, b_qkv = torch.cat(w[:3], dim=1), torch.cat(b[:3])
+
+        def run():
+            qkv = torch.addmm(b_qkv, x2, w_qkv).view(B32_BATCH, seq, 3,
+                                                     heads, head_dim)
+            a = f.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4))
+            return torch.addmm(b[3], a.transpose(1, 2).reshape(-1, width),
+                               w[3])
+        return run
+
+    vec_n = 4 * width + 4 * width + d_ff + width
+    weights = 4 * width * width + 2 * width * d_ff
+    attention_flops = 4 * B32_BATCH * seq * seq * width
+    proj_flops = 2 * rows * 4 * width * width
+
+    def block_bound(act, vec):
+        a = 4 if act == f32 else 2
+        return bound_mixed(2 * rows * width * a + weights * 2
+                           + vec_n * (4 if vec == f32 else 2),
+                           [(2 * rows * weights + attention_flops,
+                             BF16_FLOP_PER_S)])
+
+    def attention_bound(act, mat):
+        # this route: the projections as the plane products on the tensor
+        # cores (six a product of fp32 operands, three of fp32 and bf16,
+        # one of bf16), the attention on the CUDA cores; the function's
+        # fp32 products on fp32 FMAs beside it
+        products = (6 if act == f32 and mat == f32 else
+                    3 if f32 in (act, mat) else 1)
+        planes_out = 6 if mat == f32 else 3
+        a, m = (4 if act == f32 else 2), (4 if mat == f32 else 2)
+        res = bound_mixed(2 * rows * width * a + 4 * width * width * m
+                          + 4 * width * m,
+                          [(products * 3 * proj_flops / 4, BF16_FLOP_PER_S),
+                           (attention_flops, FP32_FLOP_PER_S),
+                           (planes_out * proj_flops / 4, BF16_FLOP_PER_S)])
+        res["fp32_fma_bound_ms"] = (proj_flops + attention_flops) \
+            / FP32_FLOP_PER_S * 1e3
+        return res
+
+    cases = {}
+    # name -> (wrapper, plain, args of (form, batch), forms, bound, library)
+    block_forms = {"f32_params_f32": (f32, f32, f32), "f32": (f32, bf, bf),
+                   "bf16_params_f32": (bf, f32, f32)}
+    cases["fused_vit_block"] = dict(
+        fn=lambda *a: fused_vit_block(*a, group=4),
+        plain=fused_vit_block_plain,
+        args=lambda dtypes, n: block_args(
+            x[:n].to(dtypes[0]), cast(layer, *dtypes[1:]), heads),
+        forms=block_forms, bound=lambda d: block_bound(d[0], d[1]),
+        library=lambda o: lib_block(o),
+        library_name="the unfused block of the same dtypes: fp32 "
+                     "layer_norm, bf16 mm widened, bf16 SDPA, quickGELU")
+    attn_forms = {"f32": (f32, f32, f32), "f32_x_bf16_weights": (f32, bf, bf),
+                  "bf16_x_f32_weights": (bf, f32, f32)}
+    cases["fused_attention_block"] = dict(
+        fn=lambda *a: fused_attention_block(*a, group=4, block_diag=True),
+        plain=lambda *a: fused_attention_block_plain(*a, block_diag=True),
+        args=lambda dtypes, n: attn_args(
+            x[:n].to(dtypes[0]), cast(layer, *dtypes[1:]), heads),
+        forms=attn_forms, bound=lambda d: attention_bound(d[0], d[2]),
+        library=lambda o: lib_attention(o),
+        library_name="fp32 addmm (TF32 off) and fp32 "
+                     "scaled_dot_product_attention")
+    vit_l = clip_lib.CLIPVisionConfig.vit_l_14_336()
+    l_heads, l_dh = vit_l.num_heads, vit_l.width // vit_l.num_heads
+    qkv = [randn(CLIP_BATCH, vit_l.seq_len, l_heads, l_dh, scale=s)
+           for s in (l_dh ** -0.5, 1.0, 1.0)]
+    l_ops = 4 * CLIP_BATCH * vit_l.seq_len ** 2 * vit_l.width
+
+    def lib_flash(o):
+        q4, k4, v4 = (t.float().transpose(1, 2).contiguous() for t in o)
+        return lambda: f.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+
+    cases["flash_attention"] = dict(
+        fn=flash_attention, plain=flash_attention_plain,
+        args=lambda dtypes, n: tuple(t[:n].to(dtypes[0]) for t in qkv),
+        forms={"f32": (f32,)},
+        bound=lambda d: dict(
+            bound(4 * qkv[0].numel() * 4, l_ops, FP32_FLOP_PER_S),
+            route_bound_ms=l_ops * (640 / 577) ** 2 / FP32_FLOP_PER_S * 1e3),
+        library=lambda o: lib_flash(o),
+        library_name="fp32 scaled_dot_product_attention (TF32 off), scale 1, "
+                     "on (B, H, L, dh) copies")
+
+    line, results = {}, {}
+    for name, case in cases.items():
+        main_batch = CLIP_BATCH if name == "flash_attention" else B32_BATCH
+        bf16_args = case["args"]((bf, bf, bf)[:len(
+            next(iter(case["forms"].values())))], main_batch)
+        for form, dtypes in case["forms"].items():
+            what = f"{name} ({form})"
+            errs = {}
+            for n in (VIT_CHECK_BATCH, main_batch):
+                args = case["args"](dtypes, n)
+                if dtypes[0] == bf:
+                    got = check_against_plain(what, case["fn"], case["plain"],
+                                              args, n)
+                elif name == "fused_vit_block":
+                    out = case["fn"](*args)
+                    base = case["fn"](args[0].bfloat16(), *args[1:])
+                    torch.cuda.synchronize()
+                    got = vit_block_f32_rule(what, out, case["plain"](*args),
+                                             base)
+                    del out, base
+                else:
+                    out = case["fn"](*args)
+                    torch.cuda.synchronize()
+                    got = vit_f32_rule(what, out, case["plain"](*args))
+                    del out
+                errs.update({(key if n == main_batch else
+                              f"b{VIT_CHECK_BATCH}_{key}"): val
+                             for key, val in got.items()})
+                torch.cuda.empty_cache()
+            per_call = launched(globals()[name], lambda: case["fn"](*args))
+            check(per_call == 1, f"{what}: {per_call} launches a call")
+            iters = 5 if name == "flash_attention" else 10
+            turns = [cuda_ms(call, iters=iters) for call in (
+                lambda: case["fn"](*bf16_args), lambda: case["fn"](*args),
+                lambda: case["fn"](*args), lambda: case["fn"](*bf16_args))]
+            row = dict(
+                dtypes=[str(t).removeprefix("torch.") for t in dtypes],
+                **errs, launches_per_call=per_call,
+                ms=(turns[1] + turns[2]) / 2,
+                bf16_form_ms=(turns[0] + turns[3]) / 2,
+                turns_ms=dict(bf16_form=turns[0::3], form=turns[1:3]),
+                **case["bound"](dtypes))
+            if form == next(iter(case["forms"])):
+                row["plain_ms"] = cuda_ms(lambda: case["plain"](*args),
+                                          iters=2, warmup=1)
+                row["library_ms"] = cuda_ms(case["library"](args),
+                                            iters=iters)
+                row["library"] = case["library_name"]
+                line[name + "_f32"] = row
+            results[what] = row
+            emit("vit_whole_kernels_f32", kernel=name, form=form,
+                 batch=main_batch, kernel_ms=row["ms"],
+                 **{key: val for key, val in row.items() if key != "ms"})
+            del args
+            torch.cuda.empty_cache()
+        del bf16_args
+    del qkv
+    torch.cuda.empty_cache()
+
+    # past 128 tokens: ViT-L/14@336's 577 on VIT_CHECK_BATCH images, fp32
+    # x and parameters
+    long_f32 = cast(long_layer, f32, f32)
+    for name, fn, plain, args in (
+            ("fused_vit_block whole_dd", lambda *a: fused_vit_block(
+                *a, group=1, deferred_div=True),
+             lambda *a: fused_vit_block_plain(*a, deferred_div=True),
+             block_args(long_x, long_f32, l_heads)),
+            (f"fused_attention_block {vit_l.seq_len} tokens", lambda *a:
+             fused_attention_block(*a, group=1, block_diag=True),
+             lambda *a: fused_attention_block_plain(*a, block_diag=True),
+             attn_args(long_x, long_f32, l_heads))):
+        out = fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        emit("vit_whole_kernels_f32_long", kernel=name,
+             batch=VIT_CHECK_BATCH, seq=vit_l.seq_len,
+             **(vit_block_f32_rule(name, out, want, fn(
+                 args[0].bfloat16(), *args[1:]))
+                if name.startswith("fused_vit_block")
+                else vit_f32_rule(name, out, want)))
+        del out, want
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_clip_encode_b32_fp32(gen: torch.Generator) -> dict:
+    """ClipImageEncoder at ViT-B/32 (12 layers) on B32_BATCH images with
+    fp32 parameters and activations: the default path, fused_block
+    (fused_vit_block), fused_attention (fused_attention_block) and
+    use_pallas (flash_attention) on the same weights and images
+    (encode_paths, per-row cosine to the default path >= F32_COSINE_FLOOR);
+    then ViT-L/14@336 in fp32 at SPLIT_FE_LAYERS layers, whole, whole_dd
+    and use_pallas against the default path at that depth."""
+    dev = gen.device
+    f32 = torch.float32
+    cfg = clip_lib.CLIPVisionConfig.vit_b_32(dtype=f32)
+    params = clip_lib.init_clip_vision_params(gen, cfg, f32)
+    encoders = {
+        name: ClipImageEncoder(path_cfg, params, batch_size=B32_BATCH,
+                               param_dtype=f32, use_pallas=pallas,
+                               device=dev)
+        for name, path_cfg, pallas in (
+            ("default", cfg, False),
+            ("fused", dataclasses.replace(cfg, fused_block=True), False),
+            ("fused_attention", dataclasses.replace(cfg, fused_attention=True),
+             False),
+            ("use_pallas", cfg, True))}
+    images = torch.randn((B32_BATCH, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device=dev)
+    results = encode_paths(
+        "clip_encode_b32_fp32", encoders,
+        {"default": (), "fused": (fused_vit_block,),
+         "fused_attention": (fused_attention_block,),
+         "use_pallas": (flash_attention,)},
+        images, cfg.num_layers, floor=F32_COSINE_FLOOR)
+    del encoders, params, images
+    torch.cuda.empty_cache()
+
+    n = SPLIT_FE_LAYERS
+    depth = clip_lib.CLIPVisionConfig.vit_l_14_336(dtype=f32, num_layers=n)
+    params = clip_lib.init_clip_vision_params(gen, depth, f32)
+    images = torch.randn((CLIP_BATCH, depth.image_size, depth.image_size, 3),
+                         generator=gen, device=dev)
+    runs = phase_clip_variants(
+        gen, depth, params, images, "clip_fp32_whole",
+        ("default", depth, launches()),
+        {name: (dataclasses.replace(depth, fused_block=True,
+                                    fused_block_long=name),
+                launches(fused_vit_block=n))
+         for name in ("whole", "whole_dd")}
+        | {"use_pallas": (depth, launches(flash_attention=n), True)},
+        floor=F32_COSINE_FLOOR)
+    results["vit_l_fp32"] = {name: run["launches"]
+                             for name, run in runs.items()}
     del params, images
     torch.cuda.empty_cache()
     return results
@@ -5594,6 +5966,14 @@ def clip_phases(gen: torch.Generator) -> dict:
         runs(clip_fp32["f32"], "fused"),
         fused_attention=clip_fp32["fused_attention"])
     torch.cuda.empty_cache()
+    out["vit_whole_f32"] = {
+        name: fields(res) for name, res in phase_vit_whole_kernels_f32(
+            torch.Generator(device=gen.device).manual_seed(SEED + 3)).items()}
+    torch.cuda.empty_cache()
+    out["clip_b32_fp32"] = runs(phase_clip_encode_b32_fp32(
+        torch.Generator(device=gen.device).manual_seed(SEED + 4)), "fused",
+        "fused_attention", "use_pallas")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5695,6 +6075,8 @@ def main() -> int:
     clipcap = clip_side["clipcap"]
     clip_pallas = clip_side["clip_pallas"]
     vit_f32, clip_fp32 = clip_side["vit_f32"], clip_side["clip_fp32"]
+    vit_whole_f32 = clip_side["vit_whole_f32"]
+    clip_b32_fp32 = clip_side["clip_b32_fp32"]
     phase_config_generate(cfg, prefix, tokens, mask, generate)
     torch.cuda.empty_cache()
     config_fp32 = phase_config_generate_fp32(prefix, tokens, mask, generate)
@@ -5742,6 +6124,11 @@ def main() -> int:
         **{name: (res, clip_fp32["fused_attention"
                                  if name == "attention_core_f32" else "fused"])
            for name, res in vit_f32.items()},
+        **{name: (res, clip_b32_fp32[{
+            "fused_vit_block_f32": "fused",
+            "fused_attention_block_f32": "fused_attention",
+            "flash_attention_f32": "use_pallas"}[name]])
+           for name, res in vit_whole_f32.items()},
         **{name: (res, {"fused_t5_ln_qkv_q8_f32": config_eval_fp32_int8,
                         "fused_oproj_residual_q8_f32": config_eval_fp32_int8,
                         "fused_t5_ffn_q8_f32": config_eval_fp32_int8,

@@ -1,20 +1,25 @@
 // fp32 attention on the CUDA cores, in the Pallas kernels' order, for NVIDIA
-// Hopper (sm_90a): t5_attention_core's fp32 form (t5_attention_core.cu) and
+// Hopper (sm_90a): t5_attention_core's fp32 form (t5_attention_core.cu),
 // the fp32 forms of the ViT attention_core and attention_core_oproj
-// (vit_block.cu), with an optional scale, an optional additive bias with
-// strides, an optional key mask, Lq != Lk, the fast_exp exponential and an
-// output as three bf16 planes.
+// (vit_block.cu), fused_attention_block's attention above 128 tokens
+// (attention_block.cu) and flash_attention's fp32 form
+// (flash_attention.cu), with an optional scale, an optional additive bias
+// with four strides, an optional key mask, padded keys, Lq != Lk, the
+// fast_exp exponential and an output as three bf16 planes.
 //
 // For batch row b, head h, query row i and key j, in this order:
 //
 //   s     = (q_i . k_j) * scale        the dot over dh in order (fmaf), fp32
 //   s     = s + bias[b, h, i, j]       where there is a bias
 //   s     = s + (mask[b, j] > 0 ? 0 : -1e9)   where there is a key mask
-//   m     = max_j s                    the WHOLE row's max before any exp
+//   m     = max_j s                    the WHOLE row's max before any exp,
+//                                      with -1e9 where there are n_pad
+//                                      padded keys
 //   p     = exp(s - m)                 fp32, never rounded; with fast_exp
 //                                      exp(bf16(s - m)), the exponential of
 //                                      the rounded argument in fp32
-//   denom = sum_j p                    unnormalised
+//   denom = sum_j p                    unnormalised, plus n_pad
+//                                      exp(-1e9 - m) for the padded keys
 //   o     = (sum_j p v_j) / denom      the division after P . V
 //
 // which is JAX's _make_t5_core_kernel (ops/fused_attention_block.py:1105-1131)
@@ -118,6 +123,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace attention_f32 {
 
@@ -144,12 +150,58 @@ struct Args {
   int fast_exp;  // not 0: p = exp(bf16(s - m))
 };
 
+// flash_attention's form, in kernels of its own (the two fields below, read
+// at run time in every form, slowed t5_attention_core's held route by 8 %
+// on an H100; the forms that take Args compile as before): the bias's
+// stride along the keys (0 broadcasts), and n_pad keys past Lk of score
+// exactly MASK_NEG and value 0 (its padding), which join each row's max
+// and add n_pad exp(MASK_NEG - m) to its denominator.
+struct FlashArgs : Args {
+  long long bias_key;
+  int n_pad;
+};
+
+template <class A>
+constexpr bool kFlash = std::is_same<A, FlashArgs>::value;
+
 // p = exp(s - m), or with fast_exp the exponential of bf16(s - m) (the
 // Pallas kernel's exp of a bf16 argument, which XLA evaluates in fp32 and
 // keeps unrounded where an fp32 value is used).
 __device__ inline float shifted_exp(float s, float m, int fast_exp) {
   const float d = __fsub_rn(s, m);
   return expf(fast_exp ? __bfloat162float(__float2bfloat16(d)) : d);
+}
+
+// The padded keys' share of a row's denominator, n_pad exp(MASK_NEG - m)
+// (FlashArgs), or nothing to add (Args).
+template <class A>
+__device__ inline bool has_pad(const A& a) {
+  if constexpr (kFlash<A>) {
+    return a.n_pad > 0;
+  } else {
+    return false;
+  }
+}
+
+template <class A>
+__device__ inline float pad_share(const A& a, float m) {
+  if constexpr (kFlash<A>) {
+    return __fmul_rn(static_cast<float>(a.n_pad),
+                     shifted_exp(MASK_NEG, m, a.fast_exp));
+  } else {
+    return 0.0f;
+  }
+}
+
+// Key `key`'s offset in a bias row: by the bias's key stride (FlashArgs),
+// else the key itself.
+template <class A>
+__device__ inline auto key_offset(const A& a, int key) {
+  if constexpr (kFlash<A>) {
+    return key * a.bias_key;
+  } else {
+    return key;
+  }
 }
 
 // Four bf16 values at p, as one 8-byte store.
@@ -214,8 +266,8 @@ __device__ inline void load_tile(float* dst, const float* src, long long ld,
 
 // This thread's 4 x 4 scores of key tile k0 (Q and K in shared memory):
 // the dots, the scale, the bias, the key mask, -inf past Lk.
-template <int DH>
-__device__ inline void scores(const Args& a, const float* Qs, const float* Ks,
+template <int DH, class A>
+__device__ inline void scores(const A& a, const float* Qs, const float* Ks,
                               int b, int h, int q0, int k0, int ty, int tx,
                               float (&s)[4][4]) {
   constexpr int LD = row_stride<DH>();
@@ -263,7 +315,8 @@ __device__ inline void scores(const Args& a, const float* Qs, const float* Ks,
       float t = __fmul_rn(s[i][j], a.scale);
       if (a.bias != nullptr && in && row < a.Lq) {
         t = __fadd_rn(t, a.bias[b * a.bias_b + h * a.bias_h +
-                                row * a.bias_row + key]);
+                                row * a.bias_row +
+                                key_offset(a, key)]);
       }
       if (a.mask != nullptr) t = __fadd_rn(t, key_bias);
       s[i][j] = in ? t : -INFINITY;
@@ -271,9 +324,9 @@ __device__ inline void scores(const Args& a, const float* Qs, const float* Ks,
   }
 }
 
-template <int DH>
+template <int DH, class A>
 __global__ void __launch_bounds__(NT)
-attention_f32_kernel(const Args a) {
+attention_f32_kernel(const A a) {
   constexpr int LD = row_stride<DH>();
   constexpr int G = DH / 64;  // float4 groups of o's dims a thread
   extern __shared__ float4 smem4[];
@@ -311,6 +364,7 @@ attention_f32_kernel(const Args a) {
     for (int off = 8; off > 0; off >>= 1) {
       m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], off));
     }
+    if (has_pad(a)) m[i] = fmaxf(m[i], MASK_NEG);
   }
 
   // pass 2: p = exp(s - m), its sum, and p . v
@@ -377,6 +431,7 @@ attention_f32_kernel(const Args a) {
       denom[i] = __fadd_rn(denom[i],
                            __shfl_xor_sync(0xffffffffu, denom[i], off));
     }
+    if (has_pad(a)) denom[i] = __fadd_rn(denom[i], pad_share(a, m[i]));
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -394,14 +449,14 @@ attention_f32_kernel(const Args a) {
   }
 }
 
-template <int DH>
-int launch(const Args& a, cudaStream_t stream) {
+template <int DH, class A>
+int launch(const A& a, cudaStream_t stream) {
   const int tiles = (a.Lq + BQ - 1) / BQ;
   if (a.B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || tiles > 65535 ||
       a.H > 65535 || a.ldq % 4 || a.ldk % 4 || a.ldo % 4) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = attention_f32_kernel<DH>;
+  const auto kernel = attention_f32_kernel<DH, A>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes<DH>()));
@@ -411,7 +466,8 @@ int launch(const Args& a, cudaStream_t stream) {
 }
 
 // The head sizes it takes (a whole number of 64-dim groups a head).
-inline int attention(const Args& a, int dh, cudaStream_t stream) {
+template <class A>
+int attention(const A& a, int dh, cudaStream_t stream) {
   switch (dh) {
     case 64: return launch<64>(a, stream);
     case 128: return launch<128>(a, stream);
@@ -498,8 +554,8 @@ __device__ inline void copy_rows(float* dst, const float* src, long long ld,
 // rows: how many of the thread's rows lie before Lq. KS (the K tiles in
 // the score columns this step writes): a barrier between the dots and the
 // stores.
-template <int DH, int NJ, bool KS>
-__device__ inline void held_scores(const Args& a, const float* Qs,
+template <int DH, int NJ, bool KS, class A>
+__device__ inline void held_scores(const A& a, const float* Qs,
                                    const float* Kp, int kld, int ktile,
                                    float* S, int sld,
                                    const float* bias, int brow,
@@ -518,7 +574,7 @@ __device__ inline void held_scores(const Args& a, const float* Qs,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       bv[i][j] = (bias != nullptr && in[j] && i < rows)
-                     ? bias[8 * i * brow + key]
+                     ? bias[8 * i * brow + key_offset(a, key)]
                      : 0.0f;
     }
   }
@@ -644,9 +700,9 @@ __device__ inline void held_pv(const float* P, const float* Vt, int sld,
   }
 }
 
-template <int DH, bool KS>
+template <int DH, bool KS, class A>
 __global__ void __launch_bounds__(NT, 1)
-attention_f32_held_kernel(const Args a) {
+attention_f32_held_kernel(const A a) {
   static_assert(!KS || DH == HELD_TILE, "K in the score rows: dh 64 only");
   constexpr int G = DH / 64;
   constexpr int SLOT = HELD_TILE * DH;  // floats a ring slot
@@ -754,6 +810,7 @@ attention_f32_held_kernel(const Args a) {
     const int row = 8 * w + r;
     m[r] = fmaxf(fmaxf(red(0, row), red(1, row)),
                  fmaxf(red(2, row), red(3, row)));
+    if (has_pad(a)) m[r] = fmaxf(m[r], MASK_NEG);
     sum[r] = 0.0f;
   }
   float* Pw = S + 8 * w * sld + 4 * l;  // this lane's column of step 0
@@ -808,7 +865,10 @@ attention_f32_held_kernel(const Args a) {
   }
   if (l == 0) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) denom(8 * w + r) = sum[r];
+    for (int r = 0; r < 8; ++r) {
+      denom(8 * w + r) =
+          has_pad(a) ? __fadd_rn(sum[r], pad_share(a, m[r])) : sum[r];
+    }
   }
 
   // the halves' sums through the ring, then o / denom
@@ -843,8 +903,8 @@ attention_f32_held_kernel(const Args a) {
 // cudaErrorInvalidValue, and nothing launched, where the score rows do not
 // fit (held_smem_bytes(Lk, DH), or with KS held_ks_smem_bytes(Lk), >
 // MAX_SMEM) or the arguments are out of range.
-template <int DH, bool KS = false>
-int launch_held(const Args& a, cudaStream_t stream) {
+template <int DH, bool KS = false, class A>
+int launch_held(const A& a, cudaStream_t stream) {
   const int tiles = (a.Lq + HELD_ROWS - 1) / HELD_ROWS;
   const size_t bytes =
       KS ? held_ks_smem_bytes(a.Lk) : held_smem_bytes(a.Lk, DH);
@@ -853,7 +913,7 @@ int launch_held(const Args& a, cudaStream_t stream) {
       bytes > MAX_SMEM) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = attention_f32_held_kernel<DH, KS>;
+  const auto kernel = attention_f32_held_kernel<DH, KS, A>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -862,7 +922,8 @@ int launch_held(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int attention_held(const Args& a, int dh, cudaStream_t stream) {
+template <class A>
+int attention_held(const A& a, int dh, cudaStream_t stream) {
   switch (dh) {
     case 64: return launch_held<64>(a, stream);
     case 128: return launch_held<128>(a, stream);
@@ -871,9 +932,49 @@ inline int attention_held(const Args& a, int dh, cudaStream_t stream) {
 }
 
 // The held route with K in the score rows (head size 64).
-inline int attention_held_ks(const Args& a, int dh, cudaStream_t stream) {
+template <class A>
+int attention_held_ks(const A& a, int dh, cudaStream_t stream) {
   return dh == HELD_TILE ? launch_held<64, true>(a, stream)
                          : cudaErrorInvalidValue;
+}
+
+// The routes by number (the ViT wrappers' vit_f32_route): 0 two passes (any
+// Lk), 1 the held route, 2 the held route with K in the score rows; the
+// held ones refuse an Lk whose score rows do not fit. A: Args, or
+// FlashArgs (flash_attention's form).
+template <class A>
+int by_route(const A& a, int dh, int route, cudaStream_t stream) {
+  switch (route) {
+    case 0: return attention(a, dh, stream);
+    case 1: return attention_held(a, dh, stream);
+    case 2: return attention_held_ks(a, dh, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Self-attention over fp32 q (pre-scaled), k, v (B, L, H dh) with no bias,
+// no mask and a scale of 1, by `route` (by_route's): o into out (fp32) or,
+// with planes, as three bf16 planes (B L, 3 H dh). The ViT kernels'
+// (attention_core, attention_core_oproj, fused_attention_block above 128
+// tokens).
+inline int self_attention(const void* q, const void* k, const void* v,
+                          void* out, void* planes, int B, int L, int H,
+                          int dh, int fast_exp, int route,
+                          cudaStream_t stream) {
+  const int D = H * dh;
+  Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.planes = static_cast<__nv_bfloat16*>(planes);
+  a.B = B;
+  a.Lq = a.Lk = L;
+  a.H = H;
+  a.ldq = a.ldk = a.ldo = D;
+  a.scale = 1.0f;
+  a.fast_exp = fast_exp;
+  return by_route(a, dh, route, stream);
 }
 
 }  // namespace attention_f32

@@ -1,9 +1,9 @@
 // The bf16 GEMM main loop on TMA and asynchronous wgmma, for NVIDIA Hopper
-// (sm_90a): every product of fused_ln_qkv, fused_mlp_block,
-// fused_vit_block and fused_attention_block (csrc/vit_block.cu), of
-// fused_t5_ffn (csrc/t5_ffn.cu) and of fused_gpt2_block
-// (csrc/gpt2_block.cu). The bf16 counterpart of
-// q8_gemm_tma.cuh, with its design:
+// (sm_90a): every product of fused_ln_qkv and fused_mlp_block
+// (csrc/vit_block.cu), of fused_vit_block (csrc/vit_whole_block.cu), of
+// fused_attention_block (csrc/attention_block.cu), of fused_t5_ffn
+// (csrc/t5_ffn.cu) and of fused_gpt2_block (csrc/gpt2_block.cu). The bf16
+// counterpart of q8_gemm_tma.cuh, with its design:
 //
 //   acc = a . b     a (M, K) bf16, K contiguous; b (K, N) bf16 in the JAX
 //                   layout, N contiguous; fp32 accumulation
@@ -16,20 +16,26 @@
 // 3 D) weight (ldb = 3 D), with no copy. B may also hold fewer rows than
 // K (b_rows, a multiple of 64 that divides K): its k coordinate then wraps,
 // so that a (M, 3 D) . (3 D, D) product reads one (D, D) weight three
-// times along K (fused_attention_block's out-projection over its three
-// bf16 planes) with no stacked copy. The paired form (gemm_paired)
-// computes two products over the same a, a . b_0 and a . b_1, into one
-// output: a 256-column B tile is 128 columns of b_0 and the same 128 of
-// b_1, so that n8 group j and group j + 16 of a thread's accumulators are
-// the same output column of the two products (T5's gate, gelu(a . wi_0) *
-// (a . wi_1), with no weight copy). Each kernel that includes this file
-// brings its own epilogue arithmetic (Epi::chunk), given acc in the wgmma
-// accumulator layout (element 4 j + e of a consumer thread is row 64 wg +
-// 16 warp + lane / 4 + 8 (e / 2) of the tile and column 8 j + 2 (lane % 4)
-// + e % 2 of its B tile); ResidualEpilogue and QkvEpilogue below are the
-// ones they share. The outputs are bf16, or fp32 where the epilogue names
-// `using Out = float` (the whole blocks' residual r1, fused_attention_block's
-// fp32 q, k and v).
+// times along K (an out-projection over three bf16 planes) with no
+// stacked copy. In general (gemm_planes) A holds planes of `seg` columns
+// side by side and B planes of `seg` rows one under the other, and K runs
+// over up to eight segments, each the product of one A plane with one B
+// plane, in the order of a table: fp32 operands split into three bf16
+// planes each (hi + mid + lo = the fp32 value) give a product of fp32
+// operands as exact bf16 products (attention_block.cu). The paired form
+// (gemm_paired) computes two products over the same a, a . b_0 and a . b_1,
+// into one output: a 256-column B tile is 128 columns of b_0 and the same
+// 128 of b_1, so that n8 group j and group j + 16 of a thread's
+// accumulators are the same output column of the two products (T5's gate,
+// gelu(a . wi_0) * (a . wi_1), with no weight copy). Each kernel that
+// includes this file brings its own epilogue arithmetic (Epi::chunk), given
+// acc in the wgmma accumulator layout (element 4 j + e of a consumer thread
+// is row 64 wg + 16 warp + lane / 4 + 8 (e / 2) of the tile and column 8 j
+// + 2 (lane % 4) + e % 2 of its B tile); ResidualEpilogue, QkvEpilogueOf,
+// BiasEpilogueOf and BiasQuickGeluEpilogueOf below are the ones they share.
+// The outputs are bf16, or fp32 where the epilogue names `using Out =
+// float` (the whole blocks' residual r1, fused_attention_block's fp32 q, k
+// and v).
 //
 // Design (persistent and warp-specialised, on TMA and asynchronous wgmma):
 //   grid      persistent: one block an SM walks over the output tiles, N
@@ -93,6 +99,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "activations.cuh"
 #include "hopper_async.cuh"
 
 namespace bf16_gemm_tma {
@@ -132,11 +139,18 @@ struct BMaps {
   CUtensorMap map[MAX_B];
 };
 
-// N output columns, each output (and weight) n_split of them; the weights'
-// k coordinate wraps at kb rows (kb = K: it does not).
+// N output columns, each output (and weight) n_split of them. K runs over
+// K / seg segments (at most MAX_SEGMENTS); segment i reads A's columns from
+// a_plane(i) seg on and the weights' rows from b_plane(i) seg on, its
+// planes 4 bits each at bits 4 i of a_planes and b_planes. A has a_cols
+// columns and each weight b_rows rows (the host's tensor maps).
 struct Problem {
-  int M, K, N, n_split, kb;
+  int M, K, N, n_split, seg;
+  uint32_t a_planes, b_planes;
+  int a_cols, b_rows;
 };
+constexpr int MAX_SEGMENTS = 8;
+constexpr uint32_t IDENTITY_PLANES = 0x76543210u;  // segment i, plane i
 
 // The output type of an epilogue: Epi::Out where it names one (fp32), else
 // bf16.
@@ -290,20 +304,27 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       // the same columns of weights 0 and 1
       const int which = n0 / p.n_split;
       const int nb = n0 - which * p.n_split;
-      int kb = 0;  // the weights' k coordinate of step s, wrapping at p.kb
+      // step s's segment and its k offset in the segment's planes
+      int segment = 0, off = 0;
       for (int s = 0; s < steps; ++s, ++t) {
         const int slot = t % STAGES;
         if (t >= STAGES) ha::mbar_wait(&empty[slot], (t / STAGES - 1) & 1);
         ha::mbar_expect_tx(&full[slot], T::STAGE_BYTES);
         unsigned char* sa = ring + slot * T::STAGE_BYTES;
-        ha::tma_load_2d(sa, &map_a, &full[slot], s * BK, m0);
+        const int ka = ((p.a_planes >> (4 * segment)) & 15) * p.seg + off;
+        const int kb = ((p.b_planes >> (4 * segment)) & 15) * p.seg + off;
+        ha::tma_load_2d(sa, &map_a, &full[slot], ka, m0);
 #pragma unroll
         for (int pn = 0; pn < BN / PANEL; ++pn) {
           ha::tma_load_2d(sa + T::A_BYTES + pn * T::PANEL_BYTES,
                           pick(maps_b, PRODUCTS == 2 ? pn / PANELS : which),
                           &full[slot], nb + pn % PANELS * PANEL, kb);
         }
-        kb = kb + BK == p.kb ? 0 : kb + BK;
+        off += BK;
+        if (off == p.seg) {
+          off = 0;
+          ++segment;
+        }
       }
     }
     return;
@@ -409,14 +430,14 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 // out = res + (acc + bias) (BIAS) or res + acc, the sums in fp32, rounded
 // once to OutT (bf16, or fp32: not rounded): res (M, ld) of ResT (bf16 or
 // fp32), bias (n_split,) of BiasT (bf16, or fp32: the GPT-2 block's fp32
-// form, whose fp32 parameters JAX adds unrounded). The whole blocks' out-projection writes
-// their fp32 r1 (ResT bf16, OutT fp32), their down product adds it (ResT
-// fp32, OutT bf16). A
-// chunk's bias and residual are all read, packed, before its arithmetic
-// and its stores: loads issued one at a time between stores, each waiting
-// for memory in turn, took longer than a tile's products (q8_gemm_tma.cuh's
-// epilogues, on an H100); its pairs go to shared memory at the end, which
-// kept the 256-wide tiles free of spills. (Loading the residual's 64 x 64
+// form, whose fp32 parameters JAX adds unrounded). The whole blocks'
+// out-projection writes their fp32 r1 (ResT bf16, OutT fp32), their down
+// product adds it (ResT fp32, OutT bf16). A chunk's bias and residual are
+// all read, packed, before its arithmetic and its stores: loads issued one
+// at a time between stores, each waiting for memory in turn, took longer
+// than a tile's products (q8_gemm_tma.cuh's epilogues, on an H100); its
+// pairs go to shared memory at the end, which kept the 256-wide tiles free
+// of spills. (Loading the residual's 64 x 64
 // box by TMA into the staging buffer instead took the same time.)
 template <typename ResT, bool BIAS, typename OutT = __nv_bfloat16,
           typename BiasT = __nv_bfloat16>
@@ -521,11 +542,13 @@ struct QkvEpilogueOf {
 };
 using QkvEpilogue = QkvEpilogueOf<>;
 
-// out = bf16(acc + bias), bias (n_split,) bf16 (fused_attention_block's
-// out-projection).
-struct BiasEpilogue {
+// out = OutT(acc + bias), bias (n_split,) of BiasT (fused_attention_block's
+// out-projection: bf16 or fp32 out and bias).
+template <typename OutT = __nv_bfloat16, typename BiasT = __nv_bfloat16>
+struct BiasEpilogueOf {
+  using Out = OutT;
   struct Args {
-    const __nv_bfloat16* bias;
+    const BiasT* bias;
   };
   template <int ACC, class Put>
   __device__ static void chunk(const Args& args, int /*which*/, int /*row*/,
@@ -538,8 +561,62 @@ struct BiasEpilogue {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = 4 * (j0 + jj) + 2 * half;
-        put(jj, half, pack_bf16(__fadd_rn(acc[i], b.x),
-                                __fadd_rn(acc[i + 1], b.y)));
+        put(jj, half, pack_out<OutT>(__fadd_rn(acc[i], b.x),
+                                     __fadd_rn(acc[i + 1], b.y)));
+      }
+    }
+  }
+};
+using BiasEpilogue = BiasEpilogueOf<>;
+
+// The ViT MLP's up product: hid = bf16(quickGELU(acc + bias)), the bias
+// bf16 or fp32, the sigmoid's reciprocal branch-free (activations.cuh's
+// quick_gelu_fast) where every z of the thread's chunk is at least
+// QUICK_GELU_FAST_FLOOR, else (rare) with quick_gelu's correctly rounded
+// division. The test comes first, so that no accumulator outlives its use
+// (a redo after the fast pass kept the chunk's 32 alive: 0.2 of a 2.6 ms
+// up-GEMM at ViT-L, B=256, on an H100).
+template <typename BiasT>
+struct BiasQuickGeluEpilogueOf {
+  struct Args {
+    const BiasT* bias;  // (F,)
+  };
+  template <int ACC, class Put>
+  __device__ static void chunk(const Args& args, int, int, int col,
+                               const float (&acc)[ACC], int j0,
+                               const Put& put) {
+    namespace act = activations;
+    const BiasT* bias = args.bias + col + 2 * (threadIdx.x % 4);
+    float z[8][4];  // z[jj][2 half + e], in place of the chunk's acc
+    bool low = false;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 b = to_float2(load_pair(bias + 8 * jj));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        z[jj][e] = __fadd_rn(acc[4 * (j0 + jj) + e], e % 2 ? b.y : b.x);
+        low |= !(z[jj][e] >= act::QUICK_GELU_FAST_FLOOR);  // NaN too
+      }
+    }
+    if (low) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          put(jj, half, pack_bf16(act::quick_gelu(z[jj][2 * half]),
+                                  act::quick_gelu(z[jj][2 * half + 1])));
+        }
+      }
+      return;
+    }
+    bool unused = false;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        put(jj, half,
+            pack_bf16(act::quick_gelu_fast(z[jj][2 * half], unused),
+                      act::quick_gelu_fast(z[jj][2 * half + 1], unused)));
       }
     }
   }
@@ -589,14 +666,15 @@ int launch(const void* a, const void* const* b, int ldb, int weights,
       std::is_same<typename OutOf<Epi>::type, float>::value;
   CUtensorMap map_a;
   BMaps maps_b, maps_c;
-  if (!encode_operand(&map_a, a, p.M, p.K, p.K, BM)) {
+  if (!encode_operand(&map_a, a, p.M, p.a_cols, p.a_cols, BM)) {
     return cudaErrorInvalidValue;
   }
   for (int i = 0; i < MAX_B; ++i) {
     // unused maps repeat the last weight's and output's (never used)
     const int kb = i < weights ? i : weights - 1;
     const int kc = i < outputs ? i : outputs - 1;
-    if (!encode_operand(&maps_b.map[i], b[kb], p.kb, p.n_split, ldb, BK) ||
+    if (!encode_operand(&maps_b.map[i], b[kb], p.b_rows, p.n_split, ldb,
+                        BK) ||
         !encode_operand(&maps_c.map[i], c[kc], p.M, p.n_split, p.n_split,
                         OUT_BOX, f32_out)) {
       return cudaErrorInvalidValue;
@@ -622,24 +700,69 @@ int launch(const void* a, const void* const* b, int ldb, int weights,
 // weights are (b_rows, n_split), read K / b_rows times along K. Returns the
 // launch's cudaError_t (0 on success).
 template <class Epi>
+int launch_product(const void* a, const void* const* b, void* const* c,
+                   int weights, const Problem& p,
+                   const typename Epi::Args& args, cudaStream_t stream,
+                   int ldb) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  return tile_width(p.M, p.N, p.n_split, sms) == 256
+             ? launch<256, 1, Epi>(a, b, ldb, weights, c, weights, p, args,
+                                   sms, stream)
+             : launch<128, 1, Epi>(a, b, ldb, weights, c, weights, p, args,
+                                   sms, stream);
+}
+
+template <class Epi>
 int gemm(const void* a, const void* const* b, void* const* c, int weights,
          int M, int K, int n_split, const typename Epi::Args& args,
          cudaStream_t stream, int ldb = 0, int b_rows = 0) {
   b_rows = b_rows != 0 ? b_rows : K;
   if (!shape_ok(M, K, n_split, weights) || (ldb != 0 && ldb < n_split) ||
-      b_rows <= 0 || b_rows % BK != 0 || K % b_rows != 0) {
+      b_rows <= 0 || b_rows % BK != 0 || K % b_rows != 0 ||
+      K / b_rows > MAX_SEGMENTS) {
     return cudaErrorInvalidValue;
   }
-  ldb = ldb != 0 ? ldb : n_split;
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  const Problem p{M, K, n_split * weights, n_split, b_rows};
-  return tile_width(M, p.N, n_split, sms) == 256
-             ? launch<256, 1, Epi>(a, b, ldb, weights, c, weights, p, args,
-                                   sms, stream)
-             : launch<128, 1, Epi>(a, b, ldb, weights, c, weights, p, args,
-                                   sms, stream);
+  const Problem p{M, K, n_split * weights, n_split, b_rows,
+                  IDENTITY_PLANES, 0u, K, b_rows};
+  return launch_product<Epi>(a, b, c, weights, p, args, stream,
+                             ldb != 0 ? ldb : n_split);
+}
+
+// The plane pairs of a product: `segments` (at most MAX_SEGMENTS) pairs,
+// segment i the product of A plane a[i] with B plane b[i], in this order;
+// A holds a_count planes, each weight b_count.
+struct Planes {
+  int a_count, b_count, segments;
+  int a[MAX_SEGMENTS], b[MAX_SEGMENTS];
+};
+
+// The product over plane pairs: a (M, a_count seg) holds A's planes side by
+// side, each (M, seg); each of the `weights` b[i] (b_count seg, n_split)
+// holds its planes one under the other, each (seg, n_split); K = segments
+// seg. Outputs as gemm's. Returns the launch's cudaError_t (0 on success).
+template <class Epi>
+int gemm_planes(const void* a, const void* const* b, void* const* c,
+                int weights, int M, int seg, int n_split, const Planes& pl,
+                const typename Epi::Args& args, cudaStream_t stream) {
+  const int K = seg * pl.segments;
+  if (!shape_ok(M, K, n_split, weights) || seg % BK != 0 ||
+      pl.segments <= 0 || pl.segments > MAX_SEGMENTS) {
+    return cudaErrorInvalidValue;
+  }
+  uint32_t a_planes = 0, b_planes = 0;
+  for (int i = 0; i < pl.segments; ++i) {
+    if (pl.a[i] < 0 || pl.a[i] >= pl.a_count || pl.b[i] < 0 ||
+        pl.b[i] >= pl.b_count) {
+      return cudaErrorInvalidValue;
+    }
+    a_planes |= static_cast<uint32_t>(pl.a[i]) << (4 * i);
+    b_planes |= static_cast<uint32_t>(pl.b[i]) << (4 * i);
+  }
+  const Problem p{M, K, n_split * weights, n_split, seg, a_planes, b_planes,
+                  pl.a_count * seg, pl.b_count * seg};
+  return launch_product<Epi>(a, b, c, weights, p, args, stream, n_split);
 }
 
 // The paired product: c (M, N) bf16 = Epi(a . b0, a . b1) for a (M, K) and
@@ -655,8 +778,9 @@ int gemm_paired(const void* a, const void* b0, const void* b1, void* c,
   if (err != cudaSuccess) return err;
   const void* const b[2] = {b0, b1};
   void* const out[1] = {c};
-  return launch<256, 2, Epi>(a, b, N, 2, out, 1, Problem{M, K, N, N, K}, args,
-                             sms, stream);
+  return launch<256, 2, Epi>(a, b, N, 2, out, 1,
+                             Problem{M, K, N, N, K, 0u, 0u, K, K}, args, sms,
+                             stream);
 }
 
 }  // namespace bf16_gemm_tma

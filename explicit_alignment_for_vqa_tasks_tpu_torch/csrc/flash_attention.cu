@@ -40,9 +40,22 @@
 // function's two products 349.1 GFLOP = 0.353 ms: bound by bytes. This
 // route computes q k^T twice and PV as three products: 5 x 174.6 GFLOP =
 // 873 GFLOP = 0.883 ms, bound by operations.
+//
+// The fp32 form (fp32 q, k, v and output): the Pallas kernel's order on fp32
+// operands, o = fp32((e . v) / sum(e)), is attention_f32.cuh's CUDA-core
+// kernel with a scale of 1, the (B, L, H, dh) layout (rows H dh apart, head
+// h at h dh), the bias by its four strides and the n_pad padded keys
+// counted as above; by the route the wrapper gives (vit_f32_route of Lk:
+// the held route, the held route with K in the score rows up to 640 keys at
+// dh 64, else two passes; dh 64 or 128). Its bound at ViT-L/14@336, B =
+// 256: 4 B H L^2 dh = 349.1 GFLOP on fp32 FMAs at 67 TFLOP/s = 5.21 ms
+// (6.41 ms on whole 64-key tiles, the held routes'); 2.42 GB = 0.72 ms. At
+// ViT-B/32, B = 1024 (L = 50, 12 heads of 64): 7.9 GFLOP = 0.117 ms, 629 MB
+// = 0.188 ms, bound by bytes.
 
 #include <cuda_runtime.h>
 
+#include "attention_f32.cuh"
 #include "vit_attention_wgmma.cuh"
 
 // out (B, Lq, H, dh) bf16 = softmax(q k^T + bias) v per (image, head) for
@@ -61,4 +74,39 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                              n_pad};
   return vw::flash_dh(q, k, v, out, B, Lq, Lk, H, dh, flash,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The fp32 form: out (B, Lq, H, dh) fp32 = softmax(q k^T + bias) v per
+// (image, head) for pre-scaled q (B, Lq, H, dh) and k, v (B, Lk, H, dh)
+// fp32; the bias and n_pad as flash_attention_launch's; `route` 0, 1 or 2
+// (attention_f32::by_route's; the held ones refuse an Lk whose score rows
+// do not fit); dh 64 or 128. Runs on `stream`; returns the launch's
+// cudaError_t (0 on success).
+extern "C" int flash_attention_f32_launch(const void* q, const void* k,
+                                          const void* v, const void* bias,
+                                          void* out, int B, int Lq, int Lk,
+                                          int H, int dh, int n_pad,
+                                          int route, long long sb,
+                                          long long sh, long long sq,
+                                          long long sk, void* stream) {
+  if (n_pad < 0) return cudaErrorInvalidValue;
+  attention_f32::FlashArgs a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.bias = static_cast<const float*>(bias);
+  a.bias_b = sb;
+  a.bias_h = sh;
+  a.bias_row = sq;
+  a.bias_key = sk;
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.H = H;
+  a.ldq = a.ldk = a.ldo = H * dh;
+  a.scale = 1.0f;
+  a.n_pad = n_pad;
+  return attention_f32::by_route(a, dh, route,
+                                 static_cast<cudaStream_t>(stream));
 }

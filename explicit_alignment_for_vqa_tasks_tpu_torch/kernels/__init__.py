@@ -36,6 +36,8 @@ SOURCES = {
     "cross_attention_decode": "cross_attention_decode.cu",
     "t5_ffn": "t5_ffn.cu",
     "vit_block": "vit_block.cu",
+    "vit_whole_block": "vit_whole_block.cu",
+    "attention_block": "attention_block.cu",
     "vit_block_q8": "vit_block_q8.cu",
     "gpt2_block": "gpt2_block.cu",
     "flash_attention": "flash_attention.cu",

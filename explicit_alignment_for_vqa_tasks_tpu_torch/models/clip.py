@@ -23,13 +23,16 @@ tokens or fewer (ViT-B/32's 50) ``fused_block`` runs ``fused_vit_block``
 block with the ``flash_attention`` kernel (``ops/attention.py``,
 ``csrc/flash_attention.cu``) in place of the fp32 attention.
 
-Above 128 tokens the split3 kernels and ``attention_core`` also run in fp32,
-as the Pallas kernels take any dtype: ``cfg.dtype=torch.float32`` gives
-fp32 activations (their fp32 forms), and fp32 params (``param_dtype=
-torch.float32``) under a bf16 ``cfg.dtype`` give bf16 activations with fp32
-LayerNorms and biases; the kernels read every operand in its own dtype, the
-weights cast to bf16 as the JAX wrappers cast them. The other kernels take
-bf16 activations only.
+Every float kernel also runs in fp32, as the Pallas kernels take any
+dtype: ``cfg.dtype=torch.float32`` gives fp32 activations (the fp32 forms of
+the split3 kernels, ``attention_core``, ``fused_vit_block``,
+``fused_attention_block`` and ``flash_attention``), and fp32 params
+(``param_dtype=torch.float32``) under a bf16 ``cfg.dtype`` give bf16
+activations with fp32 LayerNorms and biases. The kernels read every operand
+in its own dtype; the weights go to bf16 as the JAX wrappers cast them,
+except ``fused_attention``'s, which this module passes in the activations'
+dtype (as JAX's does) and whose fp32 products the kernel computes exactly.
+The int8 kernels take bf16 activations only.
 """
 
 from __future__ import annotations

@@ -2,10 +2,12 @@
 kernel with its plain version.
 
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/attention.py
-(``flash_attention``, :29-152), kernel ``csrc/flash_attention.cu`` over
-``csrc/vit_attention_wgmma.cuh`` (two passes over the keys on wgmma and
-TMA, any Lq and Lk; its note gives the design and the bound). The
-interface is JAX's: (B, Lq, H, D)
+(``flash_attention``, :29-152), kernel ``csrc/flash_attention.cu``: on bf16
+q, k and v over ``csrc/vit_attention_wgmma.cuh`` (two passes over the keys
+on wgmma and TMA, any Lq and Lk), on fp32 ones over
+``csrc/attention_f32.cuh`` (CUDA cores, by the route ``vit_f32_route``
+gives for Lk; head sizes 64 and 128); its note gives the design and the
+bound. The interface is JAX's: (B, Lq, H, D)
 pre-scaled queries, (B, Lk, H, D) keys and values, an optional additive
 bias broadcastable to (B, H, Lq, Lk); the output is (B, Lq, H, D) in q's
 dtype.
@@ -31,11 +33,13 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from .fused_attention_block import vit_f32_route
 
 Q_BLOCK = 256          # the JAX wrapper's default query block
 KEY_MULTIPLE = 128     # Lk is padded to a multiple of this (at least 8)
 PAD_SCORE = -1e9       # the padded keys' bias
 _SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+_F32_HEAD_DIMS = (64, 128)    # the fp32 form's (csrc/attention_f32.cuh)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -75,10 +79,14 @@ def flash_attention_plain(
     return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
-def _launcher():
-    fn = kernels.load("flash_attention").flash_attention_launch
+def _launcher(f32: bool):
+    """The bf16 form's launcher, or the fp32 form's (which also takes the
+    route)."""
+    lib = kernels.load("flash_attention")
+    fn = lib.flash_attention_f32_launch if f32 else lib.flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * (7 if f32 else 6)
                        + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -89,11 +97,12 @@ def _check_inputs(q, k, v, bias) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{op}: {name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            later = (" (its float32 form is still to be ported: ROADMAP.md "
-                     "Queue 2 A)" if t.dtype == torch.float32 else "")
+        if t.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"{op}: {name} is {t.dtype}; the kernel takes "
-                             f"torch.bfloat16 only{later}")
+                             "torch.bfloat16 or torch.float32")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{op}: {name} is {t.dtype}, q is {q.dtype}; "
+                             "the kernel takes q, k and v of one dtype")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be a contiguous (B, L, H, D) "
                              f"tensor, not {tuple(t.shape)}")
@@ -104,9 +113,10 @@ def _check_inputs(q, k, v, bias) -> None:
         raise ValueError(f"{op}: q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"v {tuple(v.shape)} do not match")
     head_dim = q.shape[3]
-    if head_dim not in _SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{op}: head size {head_dim} is not one of "
-                         f"{_SUPPORTED_HEAD_DIMS}")
+    dims = _F32_HEAD_DIMS if q.dtype == torch.float32 else _SUPPORTED_HEAD_DIMS
+    if head_dim not in dims:
+        raise ValueError(f"{op}: head size {head_dim} is not one of {dims} "
+                         f"({q.dtype})")
     if bias is not None and bias.device != q.device:
         raise ValueError(f"{op}: bias is on {bias.device}, q on {q.device}")
 
@@ -119,8 +129,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Fused attention over (B, L, H, D) pre-scaled q; returns (B, Lq, H, D)
     in q's dtype. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (``flash_attention.launches``), which takes bf16 q, k and v, or
-    raise. The bias is read in place through broadcast strides."""
+    kernel (``flash_attention.launches``, either form), which takes q, k and
+    v all bf16 or all fp32 (the fp32 form, head sizes 64 and 128), or raise.
+    The bias is read in place through broadcast strides."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias)
     kernels.refuse_grad("flash_attention", q, k, v, bias)
@@ -132,11 +143,14 @@ def flash_attention(
         bias = torch.broadcast_to(bias.float(), (batch, heads, lq, lk))
         strides = bias.stride()
     out = torch.empty_like(q)
-    rc = _launcher()(
+    f32 = q.dtype == torch.float32
+    # the fp32 form's route, by Lk alone
+    route = (vit_f32_route(lk, head_dim),) if f32 else ()
+    rc = _launcher(f32)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        batch, lq, lk, heads, head_dim, padded_key_len(lk) - lk, *strides,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        batch, lq, lk, heads, head_dim, padded_key_len(lk) - lk, *route,
+        *strides, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {rc}")

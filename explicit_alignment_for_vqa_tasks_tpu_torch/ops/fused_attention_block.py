@@ -29,12 +29,15 @@ Counterpart of explicit_alignment_for_vqa_tasks_tpu/ops/fused_attention_block.py
     with ``quantize_weight_i8`` (:690-699), the host quantizer of their
     weights;
   * the CLIP ViT whole blocks: ``fused_vit_block`` (:1349-1414, also the
-    long ``whole`` / ``whole_dd`` variants) and ``fused_attention_block``
+    long ``whole`` / ``whole_dd`` variants; bf16 or fp32 x, the vectors as
+    ``_vit_form`` reads them), kernel in ``csrc/vit_whole_block.cu``, its
+    attention ``csrc/vit_attention.cuh``; ``fused_attention_block``
     (:1417-1462, with ``block_diag`` and without, in fp32 or bf16
-    ``compute_dtype``), kernels in ``csrc/vit_block.cu``;
-    the int8 ``fused_vit_block_q8`` (:772-826), kernel in
-    ``csrc/vit_block_q8.cu``. Their attention is
-    ``csrc/vit_attention.cuh``;
+    ``compute_dtype``; x and the weights bf16 or fp32, fp32 products as
+    exact bf16 planes; any length, its fp32 attention past 128 tokens on
+    ``csrc/attention_f32.cuh``), kernel in ``csrc/attention_block.cu``; the
+    int8 ``fused_vit_block_q8`` (:772-826), kernel in
+    ``csrc/vit_block_q8.cu``, its attention ``csrc/vit_attention.cuh``;
   * the GPT-2 whole block ``fused_gpt2_block`` (:898-958), kernel
     ``csrc/gpt2_block.cu`` over the same attention with its causal key
     mask.
@@ -1747,6 +1750,14 @@ def fused_vit_block_plain(
     return (r1 + proj(hid, w_proj, b_proj)).to(x.dtype)
 
 
+# fused_vit_block's parameters in the kernel's order; its weights (cast to
+# bf16), the others vectors (read as they are, bf16 or fp32)
+_VIT_BLOCK_ORDER = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv",
+                    "bv", "wo", "bo", "ln2_scale", "ln2_bias", "w_fc", "b_fc",
+                    "w_proj", "b_proj")
+_VIT_BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "w_fc", "w_proj")
+
+
 def fused_vit_block(
     x: torch.Tensor,
     ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
@@ -1766,7 +1777,10 @@ def fused_vit_block(
     """The whole pre-LN CLIP block (quickGELU) over (B, L, D) x. ``group``
     (images per TPU program) is checked (it must divide B) and changes no
     result. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (``fused_vit_block.launches``) or raise."""
+    kernel (``fused_vit_block.launches`` counts those calls, of every form)
+    or raise: x bf16 or fp32 (the fp32 form, output fp32), the vectors and
+    weights as ``_vit_form`` reads them (q, k, v, the attention and the
+    hidden are bf16 in every form, as the Pallas kernel casts them)."""
     op = "fused_vit_block"
     _check_group(op, x.shape[0], group)
     if x.device.type == "cpu":
@@ -1774,42 +1788,44 @@ def fused_vit_block(
             x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wo, bo,
             ln2_scale, ln2_bias, w_fc, b_fc, w_proj, b_proj, num_heads, eps,
             deferred_div, fast_exp)
-    tensors = dict(x=x, ln1_scale=ln1_scale, ln1_bias=ln1_bias, wq=wq, bq=bq,
-                   wk=wk, bk=bk, wv=wv, bv=bv, wo=wo, bo=bo,
-                   ln2_scale=ln2_scale, ln2_bias=ln2_bias, w_fc=w_fc,
-                   b_fc=b_fc, w_proj=w_proj, b_proj=b_proj)
-    kernels.refuse_grad(op, *tensors.values())
-    _refuse_f32(op, x=x)
-    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
-                   **tensors)
+    given = dict(ln1_scale=ln1_scale, ln1_bias=ln1_bias, wq=wq, bq=bq, wk=wk,
+                 bk=bk, wv=wv, bv=bv, wo=wo, bo=bo, ln2_scale=ln2_scale,
+                 ln2_bias=ln2_bias, w_fc=w_fc, b_fc=b_fc, w_proj=w_proj,
+                 b_proj=b_proj)
+    kernels.refuse_grad(op, x, *given.values())
+    x_f32, params_f32, vecs, ws = _vit_form(
+        op, dict(x=x), {name: t for name, t in given.items()
+                        if name not in _VIT_BLOCK_WEIGHTS},
+        {name: given[name] for name in _VIT_BLOCK_WEIGHTS})
+    tensors = {**vecs, **ws}
     if x.dim() != 3:
         raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
     batch, seq, d_model = x.shape
     d_ff = w_fc.shape[-1]
-    vec, mat = (d_model,), (d_model, d_model)
-    _check_shapes(op, ln1_scale=(ln1_scale, vec), ln1_bias=(ln1_bias, vec),
-                  wq=(wq, mat), bq=(bq, vec), wk=(wk, mat), bk=(bk, vec),
-                  wv=(wv, mat), bv=(bv, vec), wo=(wo, mat), bo=(bo, vec),
-                  ln2_scale=(ln2_scale, vec), ln2_bias=(ln2_bias, vec),
-                  w_fc=(w_fc, (d_model, d_ff)), b_fc=(b_fc, (d_ff,)),
-                  w_proj=(w_proj, (d_ff, d_model)), b_proj=(b_proj, vec))
+    shapes = {name: (d_model,) for name in vecs}
+    shapes.update({name: (d_model, d_model) for name in ws},
+                  b_fc=(d_ff,), w_fc=(d_model, d_ff), w_proj=(d_ff, d_model))
+    _check_shapes(op, **{name: (tensors[name], shape)
+                         for name, shape in shapes.items()})
     _check_vit_widths(op, D=d_model, F=d_ff)
     _check_norm_width(op, d_model)
     head_dim = _vit_head_dim(op, seq, d_model, num_heads)
     rows, dev = batch * seq, x.device
     # through device memory, once each: bf16 h (LN1, then LN2), q, k, v and
     # the attention output; the fp32 residual r1; the bf16 quickGELU hidden
-    h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
-    q, k, v, attn = (torch.empty_like(x) for _ in range(4))
+    h, q, k, v, attn = (torch.empty((rows, d_model), dtype=_BF16, device=dev)
+                        for _ in range(5))
     r1 = torch.empty((rows, d_model), dtype=_F32, device=dev)
     hidden = torch.empty((rows, d_ff), dtype=_BF16, device=dev)
     out = torch.empty_like(x)
     mode = SOFTMAX_MODES[_vit_block_softmax(deferred_div, fast_exp)]
-    _run(op, _launcher_of("vit_block", op, 25, 6, 2),
-         *(t.data_ptr() for t in tensors.values()),
+    _run(op, _launcher_of("vit_whole_block", op, 25, 8, 2),
+         x.data_ptr(),
+         *(tensors[name].data_ptr() for name in _VIT_BLOCK_ORDER),
          h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
          attn.data_ptr(), r1.data_ptr(), hidden.data_ptr(), out.data_ptr(),
-         batch, seq, num_heads, head_dim, d_ff, mode, head_dim ** -0.5, eps,
+         batch, seq, num_heads, head_dim, d_ff, mode, int(x_f32),
+         int(params_f32), head_dim ** -0.5, eps,
          torch.cuda.current_stream(dev).cuda_stream)
     fused_vit_block.launches += 1
     return out
@@ -1981,12 +1997,38 @@ def fused_attention_block_plain(
     return proj(attn.float(), wo, bo).to(x.dtype)
 
 
-def attention_block_max_len(head_dim: int) -> int:
-    """The longest sequence ``fused_attention_block``'s fp32 attention
-    kernel takes on the current card at this head size (a block holds an
-    image's fp32 Q, K, V and probabilities, at most 128 rows); 0 for an
-    unsupported head size."""
-    return _kernel_max_len("vit_block", "attention_block_max_len", head_dim)
+# the fp32 chain's attention: the block kernel of csrc/attention_block.cu
+# (one block an image and head, every row of the image: its fp32 Q, K, V
+# and probabilities fit a block's shared memory at every head size) up to
+# this length, csrc/attention_f32.cuh past it; the block kernel's route
+ATTENTION_BLOCK_MAX_LEN = 128
+F32_BLOCK = 3
+
+
+def _attention_block_form(op: str, x: torch.Tensor, cd: torch.dtype,
+                          weights: dict, biases: dict) -> tuple:
+    """The form of a ``fused_attention_block`` CUDA call, as the Pallas
+    kernels read their operands: x bf16 or fp32; the biases read as they
+    are when all are bf16, else all fp32 (a bf16 one widened, exactly); the
+    weights cast to the compute dtype ``cd``: for fp32, all bf16 (the
+    products bf16) or else all fp32 (a bf16 one widened); for bf16, each
+    cast to bf16 (a copy a call for an fp32 one). Any other dtype raises
+    ValueError. Returns (w_f32, b_f32, weights, biases), each checked by
+    ``_check_tensors``."""
+    for name, t in {"x": x, **weights, **biases}.items():
+        if t.dtype not in (_BF16, _F32):
+            raise ValueError(f"{op}: {name} is {t.dtype}; the kernel takes "
+                             "bfloat16 or float32")
+    b_f32 = any(t.dtype == _F32 for t in biases.values())
+    biases = {name: t.float() if b_f32 else t for name, t in biases.items()}
+    w_f32 = cd == _F32 and any(t.dtype == _F32 for t in weights.values())
+    weights = {name: t.float() if w_f32 else _bf16_weight(t)
+               for name, t in weights.items()}
+    dtypes = {"x": x.dtype,
+              **{name: _F32 if b_f32 else _BF16 for name in biases},
+              **{name: _F32 if w_f32 else _BF16 for name in weights}}
+    _check_tensors(op, x.device, dtypes, x=x, **weights, **biases)
+    return w_f32, b_f32, weights, biases
 
 
 def fused_attention_block(
@@ -2004,57 +2046,76 @@ def fused_attention_block(
     residual, in the order of ``fused_attention_block_plain``. ``group`` is
     checked (it must divide B) and changes no result. CPU tensors take the
     plain version; CUDA tensors launch the kernel
-    (``fused_attention_block.launches``) or raise: the fp32 chain when
-    ``block_diag`` or ``compute_dtype`` is fp32 (the same function), the
-    bf16 chain otherwise."""
+    (``fused_attention_block.launches``, every form) or raise: the fp32
+    chain when ``block_diag`` or ``compute_dtype`` is fp32 (the same
+    function; x and the weights each bf16 or fp32, fp32 ones as three
+    exact bf16 planes; its attention the block kernel up to 128 tokens,
+    else csrc/attention_f32.cuh by ``vit_f32_route``, head sizes 64 and
+    128), the bf16 chain otherwise (an fp32 x cast to bf16, the output
+    written in x's dtype from the fp32 sum); the forms as
+    ``_attention_block_form`` reads them."""
     op = "fused_attention_block"
     cd = _attention_block_dtype(op, block_diag, compute_dtype)
     _check_group(op, x.shape[0], group)
     if x.device.type == "cpu":
         return fused_attention_block_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
                                            num_heads, block_diag, cd)
-    tensors = dict(x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo,
-                   bo=bo)
-    kernels.refuse_grad(op, *tensors.values())
-    _refuse_f32(op, x=x)
-    _check_tensors(op, x.device, {name: _BF16 for name in tensors},
-                   **tensors)
+    kernels.refuse_grad(op, x, wq, bq, wk, bk, wv, bv, wo, bo)
+    w_f32, b_f32, ws, bs = _attention_block_form(
+        op, x, cd, dict(wq=wq, wk=wk, wv=wv, wo=wo),
+        dict(bq=bq, bk=bk, bv=bv, bo=bo))
     if x.dim() != 3:
         raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
     batch, seq, d_model = x.shape
     vec, mat = (d_model,), (d_model, d_model)
-    _check_shapes(op, wq=(wq, mat), bq=(bq, vec), wk=(wk, mat), bk=(bk, vec),
-                  wv=(wv, mat), bv=(bv, vec), wo=(wo, mat), bo=(bo, vec))
+    _check_shapes(op, **{name: (t, mat) for name, t in ws.items()},
+                  **{name: (t, vec) for name, t in bs.items()})
     _check_vit_widths(op, D=d_model)
     rows, dev = batch * seq, x.device
     scale = (d_model // num_heads) ** -0.5
+    x_f32 = x.dtype == _F32
+    out = torch.empty_like(x)
+    operands = [ws["wq"], bs["bq"], ws["wk"], bs["bk"], ws["wv"], bs["bv"],
+                ws["wo"], bs["bo"]]
     if cd == _F32:
         head_dim = _vit_head_size(op, d_model, num_heads)
-        limit = attention_block_max_len(head_dim)
-        if seq > limit:
-            raise ValueError(
-                f"{op}: sequence length {seq} exceeds {limit}, the longest "
-                f"the fp32 attention kernel takes at head size {head_dim}")
-        # through device memory, once each: the fp32 q, k, v, and the fp32
-        # attention output as three bf16 planes (lo | mid | hi, (M, 3 D))
-        # whose products with wo, read three times along K, are exact
+        if seq <= ATTENTION_BLOCK_MAX_LEN:
+            route = F32_BLOCK
+        else:
+            head_dim = _vit_f32_head_size(op, d_model, num_heads)
+            route = vit_f32_route(seq, head_dim)
+        # through device memory, once each: fp32 x's and fp32 weights'
+        # bf16 planes, the fp32 q, k, v, and the fp32 attention output as
+        # three bf16 planes (lo | mid | hi, (M, 3 D)) whose products with
+        # the weights' planes are exact
+        empty = torch.empty((0,), dtype=_BF16, device=dev)
+        x_planes = (torch.empty((rows, 3 * d_model), dtype=_BF16, device=dev)
+                    if x_f32 else empty)
+        w_planes = (torch.empty((4, 3 * d_model, d_model), dtype=_BF16,
+                                device=dev) if w_f32 else empty)
         q, k, v = (torch.empty((rows, d_model), dtype=_F32, device=dev)
                    for _ in range(3))
         attn = torch.empty((rows, 3 * d_model), dtype=_BF16, device=dev)
-        launch = "fused_attention_block"
+        _run(op, _launcher_of("attention_block", op, 16, 8, 1),
+             x.data_ptr(), *(t.data_ptr() for t in operands),
+             x_planes.data_ptr(), w_planes.data_ptr(), q.data_ptr(),
+             k.data_ptr(), v.data_ptr(), attn.data_ptr(), out.data_ptr(),
+             batch, seq, num_heads, head_dim, int(x_f32), int(w_f32),
+             int(b_f32), route, scale,
+             torch.cuda.current_stream(dev).cuda_stream)
     else:
-        # bf16 q, k, v and attention output; the bf16 scale
+        # bf16 x (an fp32 one cast, as the Pallas kernel casts it), q, k, v
+        # and attention output; the bf16 scale
         head_dim = _vit_head_dim(op, seq, d_model, num_heads)
+        xb = x.to(_BF16)
         q, k, v, attn = (torch.empty((rows, d_model), dtype=_BF16,
                                      device=dev) for _ in range(4))
         scale = float(torch.tensor(scale, dtype=_BF16))
-        launch = "fused_attention_block_bf16"
-    out = torch.empty_like(x)
-    _run(op, _launcher_of("vit_block", launch, 14, 4, 1),
-         *(t.data_ptr() for t in tensors.values()), q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), attn.data_ptr(), out.data_ptr(), batch,
-         seq, num_heads, head_dim, scale,
-         torch.cuda.current_stream(dev).cuda_stream)
+        _run(op, _launcher_of("attention_block", op + "_bf16", 14, 6, 1),
+             xb.data_ptr(), *(t.data_ptr() for t in operands), q.data_ptr(),
+             k.data_ptr(), v.data_ptr(), attn.data_ptr(), out.data_ptr(),
+             batch, seq, num_heads, head_dim, int(x_f32), int(b_f32), scale,
+             torch.cuda.current_stream(dev).cuda_stream)
     fused_attention_block.launches += 1
     return out
 

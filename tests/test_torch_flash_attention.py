@@ -185,7 +185,8 @@ def test_cuda_flash_attention_matches_plain_version(case):
     bias, and smaller cases under each bias kind, at Lq != Lk, Lq above
     JAX's 256-row query block, head sizes 32 and 128 and 2,500 keys: every
     element within one bf16 ulp of the plain version, one launch counted,
-    fp32 refused."""
+    q, k, v of two dtypes refused (all fp32 take the fp32 form:
+    tests/test_torch_vit_whole_f32.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     batch, lq, lk, heads, head_dim, kind = CUDA_CASES[case]
@@ -204,5 +205,5 @@ def test_cuda_flash_attention_matches_plain_version(case):
     torch.cuda.synchronize()
     assert tattn.flash_attention.launches == before + 1
     assert_within_one_ulp(got, tattn.flash_attention_plain(q, k, v, bias))
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="one dtype"):
         tattn.flash_attention(q.float(), k, v, bias)

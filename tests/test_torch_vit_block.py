@@ -256,7 +256,8 @@ def assert_kernel_close(got, want):
 def test_cuda_fused_vit_block_matches_plain_version(mode):
     """ViT-B/32 widths on 8 images in each softmax order; ViT-L/14@336's
     577 tokens on 2 images for the long variants. One launch counted, and
-    fp32 inputs refused."""
+    float16 inputs refused (fp32 ones take the fp32 form:
+    tests/test_torch_vit_whole_f32.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     long = mode.startswith("whole")
@@ -271,8 +272,8 @@ def test_cuda_fused_vit_block_matches_plain_version(mode):
     torch.cuda.synchronize()
     assert tfab.fused_vit_block.launches == before + 1
     assert_kernel_close(got, tfab.fused_vit_block_plain(*args, **kw))
-    with pytest.raises(ValueError, match="bfloat16"):
-        tfab.fused_vit_block(x.float(), *args[1:], group=group, **kw)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tfab.fused_vit_block(x.half(), *args[1:], group=group, **kw)
 
 
 @pytest.mark.gpu
@@ -304,7 +305,8 @@ def test_cuda_fused_attention_block_matches_plain_version():
     order: neighbouring bf16 values, the ulp of the larger where they lie
     on either side of a power of two, and at least that of rms / 256 for
     outputs near zero, where fp32 noise is many of their ulps), one launch
-    counted, and fp32 inputs refused."""
+    counted, and float16 inputs refused (fp32 ones take the fp32 forms:
+    tests/test_torch_vit_whole_f32.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cfg = tclip.CLIPVisionConfig.vit_b_32()
@@ -320,6 +322,6 @@ def test_cuda_fused_attention_block_matches_plain_version():
     floor = np.sqrt(np.mean(want ** 2)) / 256
     ulp = bf16_ulp_of(np.maximum(np.maximum(np.abs(got), np.abs(want)), floor))
     assert (np.abs(got - want) <= ulp).all(), np.abs(got - want).max()
-    with pytest.raises(ValueError, match="bfloat16"):
-        tfab.fused_attention_block(x.float(), *args[1:], group=4,
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tfab.fused_attention_block(x.half(), *args[1:], group=4,
                                    block_diag=True)

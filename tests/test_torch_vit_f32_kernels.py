@@ -2,8 +2,8 @@
 attention_core_oproj, fused_mlp_block) and of attention_core: fp32
 activations, or bf16 ones with fp32 LayerNorms and biases. On the CPU: the
 wrappers' dtype rules and the form each CUDA call launches (a recording
-launcher on meta tensors), the refusal of fp32 activations by the kernels
-whose fp32 forms are not ported, and the rules that hold the fp32 forms on
+launcher on meta tensors), the refusal of fp32 activations by the int8
+kernels, whose fp32 forms are not ported, and the rules that hold the fp32 forms on
 the card failing every form that rounds x, q / k / v, the attention output
 or the result to bf16 (mutants of the plain versions). On the card: each
 form against its plain version, the mixed forms bit-equal to the bf16
@@ -12,9 +12,6 @@ forms on bf16-valued parameters, and the held route's limit."""
 import pytest
 import torch
 
-from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (
-    attention as tattention,
-)
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (
     fused_attention_block as tfab,
 )
@@ -372,18 +369,15 @@ def test_f32_attention_refuses_head_sizes_it_has_no_kernel_for(recorded,
 
 def not_ported_calls():
     """A call of each kernel whose fp32 form is not ported yet, on fp32
-    meta activations: rows 7 (fused_vit_block), 12 (fused_vit_block_q8),
-    13 (fused_qkv_q8), 14 (fused_mlp_block_q8), 16 (flash_attention) and
-    17 (fused_attention_block)."""
+    meta activations: rows 12 (fused_vit_block_q8), 13 (fused_qkv_q8) and
+    14 (fused_mlp_block_q8). (The fp32 forms of rows 7, 16 and 17 are
+    tests/test_torch_vit_whole_f32.py's.)"""
     def t(*shape, dtype=F32):
         return torch.empty(shape, dtype=dtype, device="meta")
 
     x, vec, mat = t(16, 50, 128), t(128), t(128, 128)
     i8 = t(128, 384, dtype=torch.int8)
     return {
-        "fused_vit_block": lambda: tfab.fused_vit_block(
-            x, vec, vec, mat, vec, mat, vec, mat, vec, mat, vec, vec, vec,
-            t(128, 512), t(512), t(512, 128), vec, 2),
         "fused_vit_block_q8": lambda: tfab.fused_vit_block_q8(
             x, vec, vec, i8, t(384), t(384), mat, vec, vec, vec, vec,
             t(128, 512), t(512), t(512), t(512, 128), vec, vec, 2),
@@ -392,10 +386,6 @@ def not_ported_calls():
         "fused_mlp_block_q8": lambda: tfab.fused_mlp_block_q8(
             x, vec, vec, t(128, 512), t(512), t(512), t(512, 128), vec,
             vec),
-        "flash_attention": lambda: tattention.flash_attention(
-            t(2, 50, 2, 64), t(2, 50, 2, 64), t(2, 50, 2, 64)),
-        "fused_attention_block": lambda: tfab.fused_attention_block(
-            x, mat, vec, mat, vec, mat, vec, mat, vec, 2),
     }
 
 

@@ -351,10 +351,19 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     before = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert kernels.SOURCES["vit_block"] == "vit_block.cu"
     assert [p.name for p in kernels.included_files("vit_block")] == [
-        "vit_block.cu", "activations.cuh", "attention_f32.cuh",
-        "bf16_gemm_tma.cuh", "block_stages.cuh", "vit_attention.cuh",
-        "vit_attention_wgmma.cuh", "hopper_async.cuh", "bf16_gemm.cuh",
+        "vit_block.cu", "attention_f32.cuh", "bf16_gemm_tma.cuh",
+        "block_stages.cuh", "vit_attention.cuh", "vit_attention_wgmma.cuh",
+        "activations.cuh", "hopper_async.cuh", "bf16_gemm.cuh",
         "row_norm.cuh"]
+    assert [p.name for p in kernels.included_files("vit_whole_block")] == [
+        "vit_whole_block.cu", "bf16_gemm_tma.cuh", "row_norm.cuh",
+        "vit_attention.cuh", "activations.cuh", "hopper_async.cuh"]
+    assert [p.name for p in kernels.included_files("attention_block")] == [
+        "attention_block.cu", "attention_f32.cuh", "bf16_gemm_tma.cuh",
+        "vit_attention.cuh", "activations.cuh", "hopper_async.cuh"]
+    assert [p.name for p in kernels.included_files("flash_attention")] == [
+        "flash_attention.cu", "attention_f32.cuh", "vit_attention_wgmma.cuh",
+        "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("gpt2_block")] == [
         "gpt2_block.cu", "activations.cuh", "bf16_gemm_tma.cuh",
         "row_norm.cuh", "vit_attention.cuh", "hopper_async.cuh"]
@@ -386,23 +395,31 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     ("q8_gemm_tma.cuh", {"int8_encoder", "vit_block_q8"}),
     ("q8_gemm.cuh", {"int8_encoder", "vit_block_q8"}),
     ("hopper_async.cuh", {"int8_encoder", "vit_block_q8", "vit_block",
+                          "vit_whole_block", "attention_block",
                           "t5_attention_core", "t5_ffn", "gpt2_block",
                           "flash_attention"}),
     # every product of the whole blocks; the mma.sync loop only for
-    # attention_core_oproj's out-projection and fused_attention_block
-    ("bf16_gemm_tma.cuh", {"vit_block", "t5_ffn", "gpt2_block"}),
+    # attention_core_oproj's out-projection
+    ("bf16_gemm_tma.cuh", {"vit_block", "vit_whole_block", "attention_block",
+                           "t5_ffn", "gpt2_block"}),
     ("bf16_gemm.cuh", {"vit_block"}),
     ("block_stages.cuh", {"vit_block"}),
-    ("vit_attention.cuh", {"vit_block", "vit_block_q8", "gpt2_block"}),
-    ("row_norm.cuh", {"vit_block", "gpt2_block", "t5_ffn"}),
-    # the one copy of the quickGELU (both ViT up-GEMMs) and the tanh-gelu
-    ("activations.cuh", {"vit_block", "vit_block_q8", "gpt2_block",
-                         "t5_ffn", "int8_encoder"}),
+    ("vit_attention.cuh", {"vit_block", "vit_whole_block", "attention_block",
+                           "vit_block_q8", "gpt2_block"}),
+    ("row_norm.cuh", {"vit_block", "vit_whole_block", "gpt2_block",
+                      "t5_ffn"}),
+    # the one copy of the quickGELU (both ViT up-GEMMs) and the tanh-gelu,
+    # through bf16_gemm_tma.cuh's epilogues too
+    ("activations.cuh", {"vit_block", "vit_whole_block", "attention_block",
+                         "vit_block_q8", "gpt2_block", "t5_ffn",
+                         "int8_encoder"}),
     ("vit_attention_wgmma.cuh", {"vit_block", "t5_attention_core",
                                  "flash_attention"}),
-    # the fp32 CUDA-core attention (t5_attention_core's fp32 form, and the
-    # fp32 forms of attention_core and attention_core_oproj)
-    ("attention_f32.cuh", {"t5_attention_core", "vit_block"}),
+    # the fp32 CUDA-core attention (t5_attention_core's fp32 form, the fp32
+    # forms of attention_core, attention_core_oproj and flash_attention, and
+    # fused_attention_block's attention above 128 tokens)
+    ("attention_f32.cuh", {"t5_attention_core", "vit_block",
+                           "attention_block", "flash_attention"}),
 ])
 def test_editing_a_header_renames_exactly_its_users(tmp_path, monkeypatch,
                                                      header, users):
