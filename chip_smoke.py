@@ -153,7 +153,21 @@ register / shared-memory / spill report):
              its outputs differing from plain; the int8 kernels with each
              CUDA kernel's device ms and their GEMM stage beside _int_mm,
              held within Q8_GEMM_STAGE_MAX_RATIO, fused_mlp_block_q8 also
-             beside its route's bound (its fp32 hidden's round trip)
+             beside its route's bound (its fp32 hidden's round trip);
+             attention_core with fast_exp held within the tolerance plus
+             vit_fast_exp_flip_bound (one-ulp flips of bf16(s - max))
+  vit_q8_kernels_f32 (in vit_q8_kernels, inputs from a generator of
+             their own) the fp32 forms of fused_qkv_q8 and fused_mlp_block_q8
+             (256 images at ViT-L/14@336, vit_q8_kernels' weights) and of
+             fused_vit_block_q8 (1024 at ViT-B/32): fp32 x with fp32 or bf16
+             LayerNorms and biases, bf16 x with fp32 ones, against their
+             plain versions on 16 images and at the main shapes (bf16
+             outputs by compare_q8's rule; rows 13 and 14 with fp32 x also
+             within a relative Frobenius error of 1e-4, and 1e-4 of their
+             codes off the card's plain version's; row 12 with fp32 x by
+             block_q8_f32_rule, on its own attention output and r1), timed
+             in turns with the bf16 form, beside the plain version, the
+             bound and torch._int_mm of the same GEMMs
   vit_attention_edges
              attention_core (both orders) and attention_core_oproj against
              their plain versions on 2 images at every head size (16, 32,
@@ -231,6 +245,13 @@ register / shared-memory / spill report):
              path >= F32_COSINE_FLOOR; then ViT-L/14@336 in fp32 at 2
              layers: whole, whole_dd and use_pallas against the default
              path; from a generator of its own
+  clip_encode_int8_fp32
+             ClipImageEncoder(int8=True) with fp32 parameters and bf16 or
+             fp32 activations against the default path of the same dtypes:
+             ViT-L/14@336 on 256 images (24 launches a call each of
+             fused_qkv_q8, attention_core, fused_mlp_block_q8) and ViT-B/32
+             on 1024 (12 of fused_vit_block_q8), per-row cosine >=
+             CLIP_COSINE_FLOOR; from a generator of its own
   config_generate
              the shipped configs/vqa2/few_shot_vqa_hotpotqa.jsonnet through
              the port's config path (main.parse_args_sys, process_config
@@ -349,7 +370,7 @@ register / shared-memory / spill report):
              and clipcap, with and without --fused_attention: the JSON
              lines, the path's kernel launched once a layer a step
 
-The phases from vit_kernels to clip_encode_b32_fp32 (the CLIP and GPT-2
+The phases from vit_kernels to clip_encode_int8_fp32 (the CLIP and GPT-2
 ones) run in a process of their own (--clip-phases), from the shared
 generator's state: late in a process that has traced the T5 phases,
 kernel_split's traces lose records.
@@ -358,8 +379,8 @@ Then a line listing every kernel of the path with its launches (those of
 t5_attention_core from config_eval, of the int8 trio from config_eval_int8,
 of their fp32 forms from config_eval_fp32_int8, of fused_gpt2_block's fp32
 form from config_clipcap's fp32 run, of the fp32 forms of fused_vit_block,
-fused_attention_block and flash_attention from clip_encode_b32_fp32) and
-times, and last the line {"ok": true, "device": {...}}. Any failed
+fused_attention_block and flash_attention from clip_encode_b32_fp32, of
+those of the int8 ViT kernels from clip_encode_int8_fp32) and times, and last the line {"ok": true, "device": {...}}. Any failed
 check exits non-zero before that line; without a CUDA card it exits
 non-zero at once.
 """
@@ -576,6 +597,17 @@ FP32_ATOL = FP32_RTOL = 1e-5
 # would cost about 1e-3
 FP32_Q8_REL_FROBENIUS = 1e-4
 FP32_Q8_CODES_OFF_SHARE = 1e-4     # codes off the card's plain version's
+# the int8 ViT kernels' forms other than bf16 (vit_q8_form): (x's dtype,
+# the LayerNorms' and biases')
+Q8_F32_FORMS = {"f32": (torch.float32, torch.float32),
+                "f32_x_bf16_params": (torch.float32, torch.bfloat16),
+                "bf16_x_f32_params": (torch.bfloat16, torch.float32)}
+# fused_vit_block_q8 with fp32 x (block_q8_f32_rule): its output against the
+# plain MLP over its own r1, as rows 13 and 14 are held on 2 or 3 images in
+# tests/test_torch_vit_q8_f32.py (a .5-boundary flip of the LayerNorm's or
+# the hidden's codes moves its row by about 1e-3); the plain output rounded
+# to bf16 reads about 1.7e-3
+BLOCK_Q8_MLP_REL_FROBENIUS = 3e-4
 # fused_gpt2_block's fp32 form against its plain version: the bf16 form's
 # whole-block rule (its intermediates are bf16), and, since its fp32 loads
 # and stores are what it adds, at least this share of the outputs within
@@ -687,6 +719,14 @@ KERNELS = {
     "flash_attention_f32": (
         PORT_CSRC + "flash_attention.cu",
         "explicit_alignment_for_vqa_tasks_tpu/ops/attention.py:142"),
+    # the int8 towers with fp32 activations through ClipImageEncoder
+    # (clip_encode_int8_fp32): ViT-L/14@336's long branch, ViT-B/32's whole
+    # blocks
+    "fused_qkv_q8_f32": (PORT_CSRC + "vit_block_q8.cu", JAX_OPS + ":584"),
+    "fused_mlp_block_q8_f32": (PORT_CSRC + "vit_block_q8.cu",
+                               JAX_OPS + ":516"),
+    "fused_vit_block_q8_f32": (PORT_CSRC + "vit_block_q8.cu",
+                               JAX_OPS + ":810"),
 }
 PATH_KERNELS = (t5_attention_core, fused_t5_ln_qkv_q8,
                 fused_oproj_residual_q8, fused_t5_ffn_q8,
@@ -887,10 +927,13 @@ def compare_q8(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 
 def check_against_plain(name: str, fn, plain, args, batch: int,
-                        int8: bool = False) -> dict:
+                        int8: bool = False, flip_bound=None) -> dict:
     """The kernel against its plain version on the same inputs: each output
     finite and within KERNEL_ATOL + KERNEL_RTOL |want| (int8 kernels:
-    compare_q8's rule); the largest error, the elements that differ."""
+    compare_q8's rule), plus ``flip_bound`` (per output, where given: how
+    far one-ulp flips of the exponentials' bf16 arguments may move it); the
+    largest error, the elements that differ (and, with a flip bound, those
+    beyond the tolerance alone)."""
     got = fn(*args)
     torch.cuda.synchronize()
     want = plain(*args)
@@ -906,9 +949,15 @@ def check_against_plain(name: str, fn, plain, args, batch: int,
         check(bool(torch.isfinite(g).all()),
               f"{name} at B={batch}: output not finite")
         if not int8:
-            check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * p.abs()).all()),
+            limit = KERNEL_ATOL + KERNEL_RTOL * p.abs()
+            if flip_bound is not None:
+                out["beyond_tolerance"] = int((err > limit).sum())
+                limit += flip_bound
+            check(bool((err <= limit).all()),
                   f"{name} at B={batch} outside atol/rtol 8e-3 of the "
-                  f"plain version (max abs err {err.max().item()})")
+                  f"plain version (and the flip bound, where given; max "
+                  f"abs err {err.max().item()})")
+            del limit
         out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
         out["differing"] += int((err > 0).sum())
         out["elements"] += err.numel()
@@ -3174,11 +3223,23 @@ def phase_vit_kernels(gen: torch.Generator) -> dict:
     return results
 
 
+def int_mm_call(weights, rows: int, gen: torch.Generator):
+    """Yardstick only: a call of torch._int_mm over each int8 (K, N) weight
+    of ``weights`` with random (rows, K) codes, GEMMs alone, the weights
+    column-major as cuBLASLt's int8 GEMM takes them (made before the
+    timing)."""
+    pairs = [(torch.randint(-127, 128, (rows, w.shape[0]), generator=gen,
+                            device=gen.device, dtype=torch.int8),
+              w.t().contiguous().t()) for w in weights]
+    return lambda: [torch._int_mm(a, w) for a, w in pairs]
+
+
 def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
     """The int8 path's kernels against their plain versions at ViT-L widths
     on VIT_CHECK_BATCH and on CLIP_BATCH images, the main path's shape,
     with one layer's weights from the port's quantize_vision_blocks, then
-    timed at CLIP_BATCH images."""
+    timed at CLIP_BATCH images; then the int8 kernels' fp32 forms
+    (vit_q8_form), on the same weights for rows 13 and 14."""
     cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
     seq, width, heads = cfg.seq_len, cfg.width, cfg.num_heads
     d_ff = cfg.mlp_ratio * width
@@ -3211,71 +3272,72 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
     b_qkv, b_fc, b_pr = (randn(n, scale=0.1) for n in (3 * width, d_ff, width))
     q, k, v = (randn(CLIP_BATCH, seq, width, scale=s) for s in (0.5, 2.0, 1.0))
     rows = CLIP_BATCH * seq
-    act = rows * width * 2                 # one bf16 (M, D) activation
-
-    def codes(k_dim, g=gen):  # activation codes for the library yardstick
-        return torch.randint(-127, 128, (rows, k_dim), generator=g,
-                             device=dev, dtype=torch.int8)
-
-    def int_mm(gemms, g=gen):
-        # yardstick only: torch._int_mm of the same int8 products, GEMMs
-        # alone, the weights column-major as cuBLASLt's int8 GEMM takes
-        # them (the transposes made before the timing)
-        pairs = [(codes(k_dim, g), w.t().contiguous().t())
-                 for k_dim, w in gemms]
-        return lambda: [torch._int_mm(a, w) for a, w in pairs]
+    scale = (width // heads) ** -0.5
 
     # the per-GEMM yardsticks draw their codes from a generator of their
     # own, so that the later phases' inputs do not depend on them
     stage_gen = torch.Generator(device=dev).manual_seed(SEED)
+    # and so do the fp32 forms' inputs: fp32 x, LayerNorm parameters and
+    # biases that no bf16 holds, on the same int8 weights
+    f32_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
 
-    def sdpa():
+    def randn32(*shape, scale=1.0):
+        return torch.randn(shape, generator=f32_gen, device=dev).mul_(scale)
+
+    x32 = randn32(CLIP_BATCH, seq, width)
+    ln_s32, ln_b32 = 1 + randn32(width, scale=0.1), randn32(width, scale=0.1)
+    b_qkv32, b_fc32, b_pr32 = (randn32(n, scale=0.1)
+                               for n in (3 * width, d_ff, width))
+
+    def sdpa(g=None):
         # yardstick only: on contiguous (B, H, L, dh) copies of q, k, v
         q4, k4, v4 = (t.view(CLIP_BATCH, seq, heads, -1).transpose(1, 2)
                       .contiguous() for t in (q, k, v))
         return lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, scale=1.0)
 
-    attention_bytes = 4 * act
-    attention_flops = 4 * CLIP_BATCH * seq * seq * width
+    attention = dict(
+        int8=False, args=lambda n: (q[:n], k[:n], v[:n], heads),
+        library=sdpa, library_name="scaled_dot_product_attention, "
+                                   "contiguous (B, H, L, dh) inputs",
+        bytes=lambda xs=2, ps=2: 4 * rows * width * xs,
+        parts=[(4 * CLIP_BATCH * seq * seq * width, BF16_FLOP_PER_S)])
+    int_mm_name = "torch._int_mm, GEMMs only, column-major weights"
+    # each int8 kernel's bytes with x and its outputs of xs bytes an
+    # element, its LayerNorm parameters and biases of ps
     cases = {
         "fused_qkv_q8": dict(
             fn=fused_qkv_q8, plain=fused_qkv_q8_plain, int8=True,
-            args=lambda n: (x[:n], ln_s, ln_b, w_qkv, s_qkv, b_qkv,
-                            (width // heads) ** -0.5),
-            library=lambda: int_mm([(width, w_qkv)]),
-            library_name="torch._int_mm, GEMMs only, column-major weights",
-            bytes=4 * act + w_qkv.numel() + 3 * width * (4 + 2)
-            + 2 * width * 2,
-            ops=2 * rows * width * 3 * width, peak=INT8_OP_PER_S),
+            args=lambda n: (x[:n], ln_s, ln_b, w_qkv, s_qkv, b_qkv, scale),
+            forms=lambda d, n: (x32[:n].to(d[0]), ln_s32.to(d[1]),
+                                ln_b32.to(d[1]), w_qkv, s_qkv,
+                                b_qkv32.to(d[1]), scale),
+            batch=CLIP_BATCH, gemms=[w_qkv],
+            library=lambda g=gen: int_mm_call([w_qkv], rows, g),
+            library_name=int_mm_name,
+            bytes=lambda xs=2, ps=2: 4 * rows * width * xs + w_qkv.numel()
+            + 3 * width * (4 + ps) + 2 * width * ps,
+            parts=[(2 * rows * width * 3 * width, INT8_OP_PER_S)]),
         "attention_core": dict(
-            fn=attention_core, plain=attention_core_plain, int8=False,
-            args=lambda n: (q[:n], k[:n], v[:n], heads), library=sdpa,
-            library_name="scaled_dot_product_attention, contiguous "
-                         "(B, H, L, dh) inputs",
-            bytes=attention_bytes, ops=attention_flops, peak=BF16_FLOP_PER_S),
+            fn=attention_core, plain=attention_core_plain, **attention),
         "attention_core_fast_exp": dict(
             fn=lambda *a: attention_core(*a, fast_exp=True),
             plain=lambda *a: attention_core_plain(*a, fast_exp=True),
-            int8=False, args=lambda n: (q[:n], k[:n], v[:n], heads),
-            library=sdpa,
-            library_name="scaled_dot_product_attention, contiguous "
-                         "(B, H, L, dh) inputs",
-            bytes=attention_bytes, ops=attention_flops, peak=BF16_FLOP_PER_S),
+            **attention),
         "fused_mlp_block_q8": dict(
             fn=fused_mlp_block_q8, plain=fused_mlp_block_q8_plain, int8=True,
             args=lambda n: (x[:n], ln_s, ln_b, w_fc, s_fc, b_fc, w_pr, s_pr,
                             b_pr),
-            library=lambda: int_mm([(width, w_fc), (d_ff, w_pr)]),
-            library_name="torch._int_mm, GEMMs only, column-major weights",
-            bytes=2 * act + w_fc.numel() + w_pr.numel()
-            + (d_ff + width) * (4 + 2) + 2 * width * 2,
-            ops=2 * 2 * rows * width * d_ff, peak=INT8_OP_PER_S),
+            forms=lambda d, n: (x32[:n].to(d[0]), ln_s32.to(d[1]),
+                                ln_b32.to(d[1]), w_fc, s_fc, b_fc32.to(d[1]),
+                                w_pr, s_pr, b_pr32.to(d[1])),
+            batch=CLIP_BATCH, gemms=[w_fc, w_pr],
+            library=lambda g=gen: int_mm_call([w_fc, w_pr], rows, g),
+            library_name=int_mm_name,
+            bytes=lambda xs=2, ps=2: 2 * rows * width * xs + w_fc.numel()
+            + w_pr.numel() + (d_ff + width) * (4 + ps) + 2 * width * ps,
+            parts=[(2 * 2 * rows * width * d_ff, INT8_OP_PER_S)]),
     }
-    # the CUDA GEMM kernels of each int8 kernel, in launch order: the
-    # products (K, weight) that _int_mm times beside each
-    kernel_gemms = {"fused_qkv_q8": [(width, w_qkv)],
-                    "fused_mlp_block_q8": [(width, w_fc), (d_ff, w_pr)]}
 
     results = {}
     for name, case in cases.items():
@@ -3283,7 +3345,11 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
         full = case["args"](CLIP_BATCH)
         ragged, main = (check_against_plain(
             name, case["fn"], case["plain"], case["args"](batch), batch,
-            case["int8"]) for batch in (VIT_CHECK_BATCH, CLIP_BATCH))
+            case["int8"], flip_bound=vit_fast_exp_flip_bound(
+                q[:batch], k[:batch], v[:batch], heads, dot_units=3)
+            if name.endswith("fast_exp") else None)
+            for batch in (VIT_CHECK_BATCH, CLIP_BATCH))
+        torch.cuda.empty_cache()
         if case["int8"]:
             q8_boundary(name, case["fn"], case["plain"],
                         case["args"](VIT_CHECK_BATCH))
@@ -3294,17 +3360,17 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
         if name.startswith("attention_core"):
             extra = dict(differing_share=check_few_differ(name, main),
                          **attention_route_bound(CLIP_BATCH, seq, width,
-                                                 heads, case["bytes"]))
-        if name in kernel_gemms:
-            int_mm_ms = [cuda_ms(int_mm([gemm], stage_gen), iters=10)
-                         for gemm in kernel_gemms[name]]
+                                                 heads, case["bytes"]()))
+        if case["int8"]:
+            int_mm_ms = [cuda_ms(int_mm_call([w], rows, stage_gen), iters=10)
+                         for w in case["gemms"]]
             extra = gemm_stage(name, kernel_split(lambda: case["fn"](*full)),
                                int_mm_ms)
         if name == "fused_mlp_block_q8":
             # this route: the fp32 hidden and its int8 codes each written
             # and read once more
-            route = bound(case["bytes"] + 2 * rows * d_ff * (4 + 1),
-                          case["ops"], INT8_OP_PER_S)
+            route = bound_mixed(case["bytes"]() + 2 * rows * d_ff * (4 + 1),
+                                case["parts"])
             extra.update(route_bound_ms=route["bound_ms"],
                          route_bound_by=route["bound_by"],
                          route_ops=route["ops"])
@@ -3315,12 +3381,145 @@ def phase_vit_q8_kernels(gen: torch.Generator) -> dict:
                        for key, val in ragged.items()},
             ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             library=case["library_name"],
-            **bound(case["bytes"], case["ops"], case["peak"]), **extra)
+            **bound_mixed(case["bytes"](), case["parts"]), **extra)
         emit("vit_q8_kernels", kernel=name, kernel_ms=kernel_ms,
              quantize_layer_s=quantize_s, **{
                  key: val for key, val in results[name].items()
                  if key != "ms"})
+    del x, q, k, v, full
+    torch.cuda.empty_cache()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain versions must multiply in fp32")
+    for name, case in (("fused_qkv_q8", cases["fused_qkv_q8"]),
+                       ("fused_mlp_block_q8", cases["fused_mlp_block_q8"]),
+                       ("fused_vit_block_q8", vit_q8_block_case(f32_gen))):
+        for form, dtypes in Q8_F32_FORMS.items():
+            row = vit_q8_form(name, case, form, dtypes, f32_gen)
+            if form == "f32":
+                results[name + "_f32"] = row
+            torch.cuda.empty_cache()
+    del x32
+    torch.cuda.empty_cache()
     return results
+
+
+def vit_q8_block_case(gen: torch.Generator) -> dict:
+    """fused_vit_block_q8's case for vit_q8_form: ViT-B/32 widths on
+    B32_BATCH images, one layer of the tower's init in fp32 with LayerNorm
+    parameters and biases that no bf16 holds, the weights from
+    quantize_vision_blocks."""
+    cfg = clip_lib.CLIPVisionConfig.vit_b_32(num_layers=1)
+    seq, width, heads = cfg.seq_len, cfg.width, cfg.num_heads
+    d_ff = cfg.mlp_ratio * width
+    dev = gen.device
+    layer = {name: leaf[0] for name, leaf in clip_lib.init_clip_vision_params(
+        gen, cfg, torch.float32)["blocks"].items()}
+    for name, leaf in layer.items():
+        if name.endswith(("bias", "scale")):
+            base = 1.0 if name.endswith("scale") else 0.0
+            layer[name] = base + 0.1 * torch.randn(leaf.shape, generator=gen,
+                                                   device=dev)
+    q8 = {name: leaf[0] for name, leaf in clip_lib.quantize_vision_blocks(
+        {"blocks": {n: layer[n][None] for n in (
+            "q", "k", "v", "o", "mlp_fc", "mlp_proj")}}).items()}
+    layer["qkv_bias"] = torch.cat([layer[n + "_bias"] for n in "qkv"])
+    x = torch.randn((B32_BATCH, seq, width), generator=gen, device=dev)
+    weights = [q8[n] for n in ("qkv", "o", "mlp_fc", "mlp_proj")]
+    rows = B32_BATCH * seq
+
+    def forms(dtypes, n):
+        p = {name: layer[name].to(dtypes[1]) for name in (
+            "ln1_scale", "ln1_bias", "qkv_bias", "o_bias", "ln2_scale",
+            "ln2_bias", "mlp_fc_bias", "mlp_proj_bias")}
+        return (x[:n].to(dtypes[0]), p["ln1_scale"], p["ln1_bias"],
+                q8["qkv"], q8["qkv_scale"], p["qkv_bias"], q8["o"],
+                q8["o_scale"], p["o_bias"], p["ln2_scale"], p["ln2_bias"],
+                q8["mlp_fc"], q8["mlp_fc_scale"], p["mlp_fc_bias"],
+                q8["mlp_proj"], q8["mlp_proj_scale"], p["mlp_proj_bias"],
+                heads)
+
+    return dict(
+        fn=lambda *a: fused_vit_block_q8(*a, group=4),
+        plain=fused_vit_block_q8_plain, forms=forms, batch=B32_BATCH,
+        library=lambda g: int_mm_call(weights, rows, g),
+        bytes=lambda xs, ps: 2 * rows * width * xs
+        + sum(w.numel() for w in weights) + (4 * width + d_ff + width) * 4
+        + (9 * width + d_ff) * ps,
+        parts=[(2 * rows * sum(w.numel() for w in weights), INT8_OP_PER_S),
+               (4 * B32_BATCH * seq * seq * width, BF16_FLOP_PER_S)])
+
+
+def codes_off_plain(name: str, fn, plain, args) -> dict:
+    """How many of an int8 kernel's activation codes (every stage's) differ
+    from those of its plain version run on the card on the same ``args``,
+    of how many; at most FP32_Q8_CODES_OFF_SHARE of them."""
+    codes, plain_codes = {}, {}
+    fn(*args, codes_out=codes)
+    plain(*args, codes_out=plain_codes)
+    keys = [key for key in plain_codes if key.endswith("codes")]
+    off = sum(int((codes[key] != plain_codes[key]).sum()) for key in keys)
+    total = sum(plain_codes[key].numel() for key in keys)
+    check(off <= FP32_Q8_CODES_OFF_SHARE * total,
+          f"{name}: {off} of {total} codes off the card's plain version's")
+    return dict(codes_off_plain=off, codes=total)
+
+
+def vit_q8_form(name: str, case: dict, form: str, dtypes,
+                gen: torch.Generator) -> dict:
+    """One form of an int8 ViT kernel (``dtypes``: x's, the LayerNorms' and
+    biases') against its plain version on VIT_CHECK_BATCH images and on
+    case["batch"]: bf16 outputs by compare_q8's rule; rows 13 and 14 with
+    fp32 x also within FP32_Q8_REL_FROBENIUS, row 12 with fp32 x by
+    block_q8_f32_rule; rows 13 and 14 with at most FP32_Q8_CODES_OFF_SHARE
+    of their codes off the card's plain version's. Timed by CUDA events in
+    turns with the bf16 form on the same values rounded to bf16; the fp32
+    form also beside its plain version and torch._int_mm of its GEMMs."""
+    what = f"{name} ({form})"
+    f32, bf = torch.float32, torch.bfloat16
+    fn, plain, batch = case["fn"], case["plain"], case["batch"]
+    row = dict(dtypes=[str(t).removeprefix("torch.") for t in dtypes],
+               batch=batch)
+    for n in (VIT_CHECK_BATCH, batch):
+        args = case["forms"](dtypes, n)
+        if name == "fused_vit_block_q8":
+            res = (block_q8_f32_rule(what, args) if dtypes[0] == f32 else
+                   check_against_plain(what, fn, plain, args, n, int8=True))
+        else:
+            res = check_against_plain(what, fn, plain, args, n, int8=True)
+            check(dtypes[0] == bf
+                  or res["rel_frobenius"] <= FP32_Q8_REL_FROBENIUS,
+                  f"{what} at B={n}: relative Frobenius error "
+                  f"{res['rel_frobenius']} > {FP32_Q8_REL_FROBENIUS}")
+            res.update(codes_off_plain(f"{what} at B={n}", fn, plain, args))
+        row.update({(key if n == batch else f"b{VIT_CHECK_BATCH}_{key}"): val
+                    for key, val in res.items()})
+        del args
+        torch.cuda.empty_cache()
+    args, bf16_args = case["forms"](dtypes, batch), case["forms"]((bf, bf),
+                                                                  batch)
+    out = fn(*args)
+    out = out if isinstance(out, tuple) else (out,)
+    check(all(o.dtype == dtypes[0] for o in out),
+          f"{what}: outputs {[o.dtype for o in out]}")
+    del out
+    per_call = launched(globals()[name], lambda: fn(*args))
+    check(per_call == 1, f"{what}: {per_call} launches a call")
+    turns = [cuda_ms(call, iters=10) for call in (
+        lambda: fn(*bf16_args), lambda: fn(*args), lambda: fn(*args),
+        lambda: fn(*bf16_args))]
+    row.update(launches_per_call=per_call, ms=(turns[1] + turns[2]) / 2,
+               bf16_form_ms=(turns[0] + turns[3]) / 2,
+               turns_ms=dict(bf16_form=turns[0::3], form=turns[1:3]),
+               **bound_mixed(case["bytes"](*(4 if t == f32 else 2
+                                             for t in dtypes)),
+                             case["parts"]))
+    if form == "f32":
+        row.update(plain_ms=cuda_ms(lambda: plain(*args), iters=2, warmup=1),
+                   library_ms=cuda_ms(case["library"](gen), iters=10),
+                   library="torch._int_mm, GEMMs only, column-major weights")
+    emit("vit_q8_kernels_f32", kernel=name, form=form, kernel_ms=row["ms"],
+         **{key: val for key, val in row.items() if key != "ms"})
+    return row
 
 
 def phase_vit_attention_edges(gen: torch.Generator) -> None:
@@ -3486,18 +3685,7 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
         return [cuda_ms(lambda p=p: torch.addmm(*p), iters=10)
                 for p in products]
 
-    def int_mm_pairs():
-        # torch._int_mm of the four int8 products, GEMMs only, the weights
-        # column-major as cuBLASLt's int8 GEMM takes them (made before the
-        # timing)
-        return [(torch.randint(-127, 128, (rows, w.shape[0]), generator=gen,
-                               device=dev, dtype=torch.int8),
-                 w.t().contiguous().t())
-                for w in (q8["qkv"], q8["o"], q8["mlp_fc"], q8["mlp_proj"])]
-
-    def lib_int_mm():
-        pairs = int_mm_pairs()
-        return lambda: [torch._int_mm(a, w) for a, w in pairs]
+    q8_weights = [q8[n] for n in ("qkv", "o", "mlp_fc", "mlp_proj")]
 
     def lib_attention(dtype):
         # matmuls (fp32: TF32 off) and SDPA in dtype, on copies made before
@@ -3544,7 +3732,7 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
         fn=lambda *a: fused_vit_block_q8(*a, group=4),
         plain=fused_vit_block_q8_plain,
         args=lambda n: (x[:n], *q8_block, heads), int8=True,
-        library=lib_int_mm,
+        library=lambda: int_mm_call(q8_weights, rows, gen),
         library_name="torch._int_mm, GEMMs only, column-major weights",
         bytes=2 * act + weights + (4 * width + d_ff + width) * 4 + vecs,
         parts=[(2 * rows * weights, INT8_OP_PER_S),
@@ -3618,8 +3806,8 @@ def phase_vit_short_kernels(gen: torch.Generator) -> dict:
                     / HBM_BYTES_PER_S * 1e3
         if name == "fused_vit_block_q8":
             # each CUDA kernel's device time; each GEMM beside _int_mm
-            int_mm_ms = [cuda_ms(lambda a=a, w=w: torch._int_mm(a, w),
-                                 iters=10) for a, w in int_mm_pairs()]
+            int_mm_ms = [cuda_ms(int_mm_call([w], rows, gen), iters=10)
+                         for w in q8_weights]
             stage = gemm_stage(name, kernel_split(lambda: case["fn"](*full)),
                                int_mm_ms)
         torch.cuda.empty_cache()
@@ -4347,15 +4535,17 @@ def phase_clip_encode_pallas(gen: torch.Generator) -> dict:
                         images, cfg.num_layers, floor=PALLAS_COSINE_FLOOR)
 
 
-def vit_fast_exp_flip_bound(q, k, v, heads: int) -> torch.Tensor:
-    """Per output element, how far fp32 attention with fast_exp may move
-    for the bf16 roundings of s - max that two fp32 evaluations of the
-    scores may take apart (tests/test_torch_vit_f32_kernels.py): arguments
-    within the error bound of two fp32 dots of dh terms (2 dh 2^-24 sum
-    |q_i k_i|) of s and of the row's max, and the subtraction's roundings,
-    of a bf16 midpoint; a flip moves the argument by at most 2^-7 |s -
-    max|, its exponential e by e expm1 of that. In fp64, over
-    VIT_F32_BOUND_IMAGES images at a time."""
+def vit_fast_exp_flip_bound(q, k, v, heads: int,
+                            dot_units: int = 2) -> torch.Tensor:
+    """Per output element, how far attention with fast_exp may move for the
+    bf16 roundings of s - max that two fp32 evaluations of the scores may
+    take apart (tests/test_torch_vit_f32_kernels.py): arguments within the
+    error bound of two fp32 dots of dh terms (dot_units dh 2^-24 sum |q_i
+    k_i|: 2 for two rounded sums, 3 where one is the tensor cores', whose
+    additions may truncate) of s and of the row's max, and the
+    subtraction's roundings, of a bf16 midpoint; a flip moves the argument
+    by at most 2^-7 |s - max|, its exponential e by e expm1 of that. In
+    fp64, over VIT_F32_BOUND_IMAGES images at a time."""
     batch, seq, width = q.shape
     dh = width // heads
     out = torch.empty_like(q)
@@ -4369,7 +4559,7 @@ def vit_fast_exp_flip_bound(q, k, v, heads: int) -> torch.Tensor:
         qh, kh, vh = h(q), h(k), h(v)
         s = (qh @ kh.transpose(-1, -2)).float()
         err = (qh.abs() @ kh.abs().transpose(-1, -2)).mul_(
-            2 * dh * 2.0 ** -24)
+            dot_units * dh * 2.0 ** -24)
         d = (s - s.amax(dim=-1, keepdim=True)).contiguous()
         del s
         ulp = torch.nextafter(d.abs(), torch.full_like(d, float("inf"))) \
@@ -4449,6 +4639,59 @@ def vit_block_f32_rule(name: str, got: torch.Tensor, want: torch.Tensor,
           f"{VIT_BLOCK_F32_VS_BF16} of the bf16 form's {base}")
     return dict(max_abs_err=(got.double() - want).abs().max().item(),
                 rel_frobenius=rel, bf16_form_rel_frobenius=base)
+
+
+def block_q8_f32_rule(name: str, args) -> dict:
+    """fused_vit_block_q8 with fp32 x against its plain version, by the rule
+    of tests/test_torch_vit_q8_f32.py (block_q8_rule), on its own stages
+    (stages_out): its r1 within FP32_ATOL (1 + |want|) of x plus the plain
+    out-projection of its fp32 attention output; its output within
+    BLOCK_Q8_MLP_REL_FROBENIUS of the plain MLP over its r1; and the whole
+    block's relative Frobenius error at most VIT_BLOCK_F32_VS_BF16 of the
+    plain version's bf16 form's (x rounded to bf16 in, the output rounded).
+    Its bf16 attention and the codes after it flip against the plain
+    version's, so the whole block's error alone does not part a form that
+    stores its output or r1 in bf16 from a sound one; the first two do, and
+    the third fails a form that reads x as bf16. The readings."""
+    stages = {}
+    got = fused_vit_block_q8(*args, group=4, stages_out=stages)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          f"{name}: {got.dtype} output or not finite")
+    x, wo, so, bo = args[0], *args[6:9]
+    width = x.shape[-1]
+    y = port_fab._mm_q8_grouped(
+        [port_fab._row_quant_i8(stages["attn"].reshape(-1, width))], wo,
+        port_fab._as_group_scales(so)) + bo.float()
+    r1_want = (x.reshape(-1, width) + y).double()
+    r1_err = ((stages["r1"].reshape(-1, width).double() - r1_want).abs()
+              / (1 + r1_want.abs())).max().item()
+    del y, r1_want
+    mlp = fused_mlp_block_q8_plain(stages["r1"], *args[9:17])
+    mlp_rel = rel_frobenius(got, mlp)
+    del mlp, stages
+    want = fused_vit_block_q8_plain(*args)
+    rel = rel_frobenius(got, want)
+    base = rel_frobenius(fused_vit_block_q8_plain(x.bfloat16(), *args[1:]),
+                         want)
+    res = dict(max_abs_err=(got.double() - want).abs().max().item(),
+               rel_frobenius=rel, r1_err=r1_err, mlp_rel_frobenius=mlp_rel,
+               plain_bf16_form_rel_frobenius=base,
+               plain_rounded_to_bf16_rel_frobenius=rel_frobenius(
+                   want.bfloat16(), want))
+    check(r1_err <= FP32_ATOL, f"{name}: r1 {r1_err} off x plus the plain "
+          f"out-projection of its attention output: {res}")
+    check(mlp_rel <= BLOCK_Q8_MLP_REL_FROBENIUS,
+          f"{name}: output off the plain MLP over its r1: {res}")
+    check(rel <= VIT_BLOCK_F32_VS_BF16 * base,
+          f"{name}: relative Frobenius error above {VIT_BLOCK_F32_VS_BF16} "
+          f"of the plain bf16 form's: {res}")
+    return res
+
+
+def rel_frobenius(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm()).item()
 
 
 def f32_attention_by_route(q, k, v, heads: int, route: int, fast_exp: bool,
@@ -5053,6 +5296,44 @@ def phase_clip_encode_b32_fp32(gen: torch.Generator) -> dict:
                              for name, run in runs.items()}
     del params, images
     torch.cuda.empty_cache()
+    return results
+
+
+def phase_clip_encode_int8_fp32(gen: torch.Generator) -> dict:
+    """ClipImageEncoder(int8=True) with fp32 parameters (param_dtype=
+    float32), with bf16 activations (the cfg's dtype) and with fp32 ones
+    (dtype=float32): at ViT-L/14@336 on CLIP_BATCH images (24 launches a
+    call of each of fused_qkv_q8, attention_core and fused_mlp_block_q8,
+    their fp32 forms with fp32 x) and at ViT-B/32 on B32_BATCH images (12
+    of fused_vit_block_q8), each against the unquantized default path of
+    the same dtypes on the same weights and images (encode_paths: per-row
+    cosines at least CLIP_COSINE_FLOOR)."""
+    dev = gen.device
+    f32 = torch.float32
+    results = {}
+    for tower, cfg, batch, path_kernels in (
+            ("vit_l", clip_lib.CLIPVisionConfig.vit_l_14_336(), CLIP_BATCH,
+             VIT_Q8_KERNELS),
+            ("b32", clip_lib.CLIPVisionConfig.vit_b_32(), B32_BATCH,
+             (fused_vit_block_q8,))):
+        params = clip_lib.init_clip_vision_params(gen, cfg, f32)
+        images = torch.randn((batch, cfg.image_size, cfg.image_size, 3),
+                             generator=gen, device=dev)
+        for case, path_cfg in (("params_f32", cfg),
+                               ("f32", dataclasses.replace(cfg, dtype=f32))):
+            encoders = {
+                name: ClipImageEncoder(path_cfg, params, batch_size=batch,
+                                       param_dtype=f32, int8=int8,
+                                       device=dev)
+                for name, int8 in (("default", False), ("int8", True))}
+            results[f"{tower}_{case}"] = encode_paths(
+                f"clip_encode_int8_fp32_{tower}_{case}", encoders,
+                {"default": (), "int8": path_kernels}, images,
+                cfg.num_layers)
+            del encoders
+            torch.cuda.empty_cache()
+        del params, images
+        torch.cuda.empty_cache()
     return results
 
 
@@ -5931,7 +6212,8 @@ def clip_phases(gen: torch.Generator) -> dict:
     torch.cuda.empty_cache()
     out["vit_q8_kernels"] = kernels_of(
         phase_vit_q8_kernels(gen), "fused_qkv_q8", "attention_core",
-        "fused_mlp_block_q8")
+        "fused_mlp_block_q8", "fused_qkv_q8_f32", "fused_mlp_block_q8_f32",
+        "fused_vit_block_q8_f32")
     torch.cuda.empty_cache()
     phase_vit_attention_edges(gen)
     torch.cuda.empty_cache()
@@ -5973,6 +6255,11 @@ def clip_phases(gen: torch.Generator) -> dict:
     out["clip_b32_fp32"] = runs(phase_clip_encode_b32_fp32(
         torch.Generator(device=gen.device).manual_seed(SEED + 4)), "fused",
         "fused_attention", "use_pallas")
+    torch.cuda.empty_cache()
+    clip_int8_fp32 = phase_clip_encode_int8_fp32(
+        torch.Generator(device=gen.device).manual_seed(SEED + 6))
+    out["clip_int8_fp32"] = {case: runs(res, "int8")["int8"]
+                             for case, res in clip_int8_fp32.items()}
     torch.cuda.empty_cache()
     return out
 
@@ -6077,6 +6364,7 @@ def main() -> int:
     vit_f32, clip_fp32 = clip_side["vit_f32"], clip_side["clip_fp32"]
     vit_whole_f32 = clip_side["vit_whole_f32"]
     clip_b32_fp32 = clip_side["clip_b32_fp32"]
+    clip_int8_fp32 = clip_side["clip_int8_fp32"]
     phase_config_generate(cfg, prefix, tokens, mask, generate)
     torch.cuda.empty_cache()
     config_fp32 = phase_config_generate_fp32(prefix, tokens, mask, generate)
@@ -6114,6 +6402,10 @@ def main() -> int:
         **{name: (vit_q8_kernels[name], clip_encode["int8"])
            for name in ("fused_qkv_q8", "attention_core",
                         "fused_mlp_block_q8")},
+        **{name: (vit_q8_kernels[name], clip_int8_fp32[
+            "b32_f32" if name == "fused_vit_block_q8_f32" else "vit_l_f32"])
+           for name in ("fused_qkv_q8_f32", "fused_mlp_block_q8_f32",
+                        "fused_vit_block_q8_f32")},
         "fused_vit_block": (vit_short["fused_vit_block"], clip_b32["fused"]),
         "fused_vit_block_q8": (vit_short["fused_vit_block_q8"],
                                clip_b32["int8"]),

@@ -82,6 +82,7 @@
 
 #include "attention_f32.cuh"
 #include "bf16_gemm_tma.cuh"
+#include "forms.cuh"
 #include "vit_attention.cuh"
 
 namespace {
@@ -476,11 +477,6 @@ int bf16_chain(const void* x, const void* const* w, const void* const* b,
       attn, &w[3], outs, 1, M, D, D, {static_cast<const P*>(b[3])}, s);
 }
 
-// The form of (x_f32, b_f32): fn<bf16 or float, bf16 or float>.
-#define BLOCK_FORM(fn, x_f32, b_f32)                                 \
-  ((x_f32) ? ((b_f32) ? fn<float, float> : fn<float, bf16>)          \
-           : ((b_f32) ? fn<bf16, float> : fn<bf16, bf16>))
-
 }  // namespace
 
 // out (B, L, D) = fused_attention_block(x) by the fp32 chain (block_diag,
@@ -506,7 +502,7 @@ extern "C" int fused_attention_block_launch(
   }
   const void* const w[4] = {wq, wk, wv, wo};
   const void* const b[4] = {bq, bk, bv, bo};
-  return BLOCK_FORM(fp32_chain, x_f32, b_f32)(
+  return XP_FORM(fp32_chain, x_f32, b_f32)(
       x, w, b, x_planes, w_planes, w_f32, q, k, v, attn3, out, B, L, H, dh,
       route, scale, static_cast<cudaStream_t>(stream));
 }
@@ -530,7 +526,7 @@ extern "C" int fused_attention_block_bf16_launch(
   }
   const void* const w[4] = {wq, wk, wv, wo};
   const void* const b[4] = {bq, bk, bv, bo};
-  return BLOCK_FORM(bf16_chain, out_f32, b_f32)(
+  return XP_FORM(bf16_chain, out_f32, b_f32)(
       x, w, b, q, k, v, attn, out, B, L, H, dh, scale_bf16,
       static_cast<cudaStream_t>(stream));
 }

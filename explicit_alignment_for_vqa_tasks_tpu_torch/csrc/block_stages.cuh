@@ -20,6 +20,7 @@
 #include <cstdint>
 
 #include "bf16_gemm.cuh"
+#include "forms.cuh"
 #include "row_norm.cuh"
 
 namespace block_stages {
@@ -39,12 +40,7 @@ struct GemmArgs {
   int M, K, N;
 };
 
-__device__ inline float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ inline float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
+using forms::load2;
 
 template <typename BiasT>
 __global__ void __launch_bounds__(NT)

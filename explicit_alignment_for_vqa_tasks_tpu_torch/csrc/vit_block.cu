@@ -126,6 +126,7 @@
 #include "attention_f32.cuh"
 #include "bf16_gemm_tma.cuh"
 #include "block_stages.cuh"
+#include "forms.cuh"
 #include "vit_attention.cuh"
 #include "vit_attention_wgmma.cuh"
 
@@ -219,11 +220,6 @@ int core_oproj(const void* res, const void* q, const void* k, const void* v,
   }
 }
 
-// The form of (x_f32, params_f32): fn<bf16 or float, bf16 or float>.
-#define VIT_FORM(fn, x_f32, params_f32)                                  \
-  ((x_f32) ? ((params_f32) ? fn<float, float> : fn<float, bf16>)         \
-           : ((params_f32) ? fn<bf16, float> : fn<bf16, bf16>))
-
 }  // namespace
 
 // Largest sequence length whose score tile fits the current device's shared
@@ -248,7 +244,7 @@ extern "C" int fused_ln_qkv_launch(const void* x, const void* ln_s,
                                    int params_f32, float scale, float eps,
                                    void* stream) {
   if (!ln_qkv_shape_ok(M, D)) return cudaErrorInvalidValue;
-  return VIT_FORM(ln_qkv, x_f32, params_f32)(
+  return XP_FORM(ln_qkv, x_f32, params_f32)(
       x, ln_s, ln_b, wq, bq, wk, bk, wv, bv, h, q, k, v, M, D, scale, eps,
       static_cast<cudaStream_t>(stream));
 }
@@ -275,7 +271,7 @@ extern "C" int attention_core_oproj_launch(const void* res, const void* q,
                !gemm_shape_ok(M, D))) {
     return cudaErrorInvalidValue;
   }
-  return VIT_FORM(core_oproj, x_f32, params_f32)(
+  return XP_FORM(core_oproj, x_f32, params_f32)(
       res, q, k, v, wo, bo, attn, out, B, L, H, dh, route,
       static_cast<cudaStream_t>(stream));
 }
@@ -319,7 +315,7 @@ extern "C" int fused_mlp_block_launch(const void* x, const void* ln_s,
       !bt::shape_ok(M, F, D, 1)) {
     return cudaErrorInvalidValue;
   }
-  return VIT_FORM(mlp_block, x_f32, params_f32)(
+  return XP_FORM(mlp_block, x_f32, params_f32)(
       x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, h, hidden, out, M, D, F, eps,
       static_cast<cudaStream_t>(stream));
 }

@@ -11,9 +11,10 @@
 // (the attention between them is vit_block.cu's attention_core), and the
 // whole block of the int8 branch at 128 tokens or fewer (:497-530)
 //   fused_vit_block_q8  pallas_call at :810, body :702-769
-// What they compute, in the Pallas kernels' order of rounding (x and the
-// outputs bf16; weights int8 (K, N) with fp32 (N,) per-output-channel
-// scales, bf16 biases; x (M, D) with M = B L rows):
+// What they compute, in the Pallas kernels' order of rounding (x (M, D), M =
+// B L rows, and the outputs bf16 or fp32, X; the LayerNorms' scales and
+// biases and the biases bf16 or fp32, P; weights int8 (K, N) with fp32 (N,)
+// per-output-channel scales):
 //
 //   h    = ((x - m) * (1 / sqrt(var + eps))) * s + b   fp32 LayerNorm, NOT
 //          rounded to bf16 (m the mean, var the mean of (x - m)^2)
@@ -21,19 +22,26 @@
 //   hq   = clip(rint(h / hs), -127, 127)
 //   fused_qkv_q8, one (D, 3D) product over the concatenated q | k | v:
 //     qkv = ((float(hq . W) * hs) * s) + b
-//     q, k, v = bf16(qkv[:, :D] * scale), bf16(qkv[:, D:2D]), bf16(qkv[:, 2D:])
+//     q, k, v = X(qkv[:, :D] * scale), X(qkv[:, D:2D]), X(qkv[:, 2D:]) (fp32
+//               x: stored as they are, unrounded)
 //   fused_mlp_block_q8:
 //     z   = ((float(hq . W_fc) * hs) * s_fc) + b_fc
 //     hid = z * (1 / (1 + exp(-(1.702 z))))    fp32 quickGELU, never bf16
 //     gs, gq: hid quantized per row over its whole width F
-//     out = bf16(x + (((float(gq . W_proj) * gs) * s_proj) + b_proj))
+//     out = X(x + (((float(gq . W_proj) * gs) * s_proj) + b_proj)), x read
+//           in its own dtype for the LayerNorm and again for the residual
 //   fused_vit_block_q8:
-//     q, k, v = fused_qkv_q8(x)
+//     q, k, v = fused_qkv_q8(x), stored bf16 in every form (the Pallas
+//           kernel casts q, k, v and p to bf16 for the attention)
 //     o   = vit_attention.cuh's kNormalised attention, kept fp32
 //     r1  = x + (((float(oq . W_o) * os) * s_o) + b_o)   o quantized per row;
 //           fp32, never rounded
 //     out = fused_mlp_block_q8's MLP over the fp32 r1 (its LayerNorm, hidden
-//           and residual fp32), one cast to bf16
+//           and residual fp32), one cast to X
+// Each launcher is one template <X, P> (the forms of vit_block.cu): an fp32
+// x is read as it is where the bf16 one is widened, an fp32 output stored
+// where the bf16 one is rounded, and fp32 vectors read where bf16 ones are
+// widened; nothing else differs between the four forms.
 //
 // Every multiply and add is written with __fmul_rn / __fadd_rn / __fsub_rn
 // so that nvcc cannot contract them into FMAs; the square root and the
@@ -44,13 +52,17 @@
 // 3.35 TB/s), 2 M K N operations per product, each input read once and each
 // output written once. At ViT-L/14@336 with the image encoder's batch of 256
 // (M = 256 x 577 = 147,712 rows, D = 1024, F = 4096):
-//   fused_qkv_q8        929.3 G ops = 0.470 ms; 1.21 GB = 0.36 ms
-//   fused_mlp_block_q8  2,478 G ops = 1.252 ms; 0.61 GB = 0.18 ms
+//   fused_qkv_q8        929.3 G ops = 0.470 ms; 1.21 GB = 0.36 ms (fp32 x,
+//                       q, k, v: 2.42 GB = 0.72 ms)
+//   fused_mlp_block_q8  2,478 G ops = 1.252 ms; 0.61 GB = 0.18 ms (fp32 x
+//                       and output: 1.22 GB = 0.36 ms)
 // At ViT-B/32 with the bench's batch of 1024 (M = 51,200 rows, D = 768, 12
 // heads of 64, F = 3072):
 //   fused_vit_block_q8  724.8 G int8 ops = 0.366 ms, plus 7.9 GFLOP of bf16
-//                       attention = 0.008 ms; 164 MB = 0.049 ms
-// All are bound by operations; the encoders run each once per layer.
+//                       attention = 0.008 ms; 164 MB = 0.049 ms (fp32 x and
+//                       output: 321 MB = 0.096 ms)
+// All are bound by operations but fused_qkv_q8's fp32 form, bound by its
+// bytes; the encoders run each once per layer.
 //
 // Design, from q8_gemm.cuh's row_quant and q8_gemm_tma.cuh's loop (TMA, a
 // producer warpgroup, wgmma kept in flight, a persistent grid; 128 x 256
@@ -87,6 +99,7 @@
 #include <cstdint>
 
 #include "activations.cuh"
+#include "forms.cuh"
 #include "q8_gemm.cuh"
 #include "q8_gemm_tma.cuh"
 #include "vit_attention.cuh"
@@ -103,10 +116,10 @@ struct GemmArgs {
   const float* a_scale;   // (M, 1) per-row scales
   const int8_t* b;        // (N, K) int8 weights, K contiguous
   const float* b_scale;   // (N,) fp32 per-output-channel scales
-  const bf16* bias;       // (N,)
-  const void* residual;   // (M, N) of the kernel's ResT, for kResidual
-  void* out[3];           // kQkv: q, k, v (M, D) bf16; else out[0] (M, N),
-                          // of the kernel's OutT for kResidual
+  const void* bias;       // (N,) of the epilogue's P
+  const void* residual;   // (M, N) of the epilogue's ResT, for kResidual
+  void* out[3];           // kQkv: q, k, v (M, D); else out[0] (M, N); of
+                          // the epilogue's OutT (kQuickGeluF32: fp32)
   float scale;            // kQkv: the factor of the q columns
   int M, K, N, D;         // D: kQkv's column width of q, k and v
 };
@@ -114,25 +127,16 @@ struct GemmArgs {
 using activations::quick_gelu;
 using activations::quick_gelu_fast;
 
-__device__ inline float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ inline float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ inline void store2(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-__device__ inline void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
+using forms::load2;
+using forms::store2;
 
 // The epilogues over q8_gemm_tma.cuh's main loop, in the Pallas kernels'
 // order of rounding. Each chunk's bias and residual are read before any of
 // its stores: the compiler may not move a load past a store that could
 // alias it, and loads between stores, each waiting for memory in turn, took
-// longer than the tile's products.
-template <int EPI, typename OutT = bf16, typename ResT = bf16>
+// longer than the tile's products. OutT and ResT are the outputs' and the
+// residual's types (bf16 or float), P the bias's.
+template <int EPI, typename OutT, typename ResT, typename P>
 struct TmaEpilogue {
   using Args = GemmArgs;
   static constexpr int CHUNK = 8;
@@ -152,8 +156,8 @@ struct TmaEpilogue {
       float2 bias[CHUNK], res[2][CHUNK];
 #pragma unroll
       for (int jj = 0; jj < CHUNK; ++jj) {
-        bias[jj] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            args.bias + n0 + 8 * (j0 + jj) + 2 * tig));
+        bias[jj] = load2(static_cast<const P*>(args.bias) + n0 +
+                         8 * (j0 + jj) + 2 * tig);
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -184,11 +188,10 @@ struct TmaEpilogue {
               v0 = __fmul_rn(v0, args.scale);
               v1 = __fmul_rn(v1, args.scale);
             }
-            bf16* out = static_cast<bf16*>(
+            OutT* out = static_cast<OutT*>(
                 part == 0 ? args.out[0]
                           : (part == 1 ? args.out[1] : args.out[2]));
-            *reinterpret_cast<__nv_bfloat162*>(out + off) =
-                __floats2bfloat162_rn(v0, v1);
+            store2(out + off, v0, v1);
           } else if constexpr (EPI == kQuickGeluF32) {
             *reinterpret_cast<float2*>(static_cast<float*>(args.out[0]) +
                                        off) =
@@ -221,7 +224,7 @@ struct TmaEpilogue {
 #pragma unroll
       for (int j = 0; j < TILE_N / 8; ++j) {
         const int col = n0 + 8 * j + 2 * tig;
-        const float2 b = load2(args.bias + col);
+        const float2 b = load2(static_cast<const P*>(args.bias) + col);
         *reinterpret_cast<float2*>(static_cast<float*>(args.out[0]) +
                                    static_cast<size_t>(row) * args.N + col) =
             make_float2(
@@ -260,9 +263,9 @@ __global__ void quick_gelu_check_kernel(unsigned long long* differ) {
 
 // A product on q8_gemm_tma.cuh's main loop (one contraction group; the
 // blocks' widths are multiples of 128).
-template <int EPI, typename OutT = bf16, typename ResT = bf16>
+template <int EPI, typename OutT, typename ResT, typename P>
 int tma_gemm(const GemmArgs& args, cudaStream_t stream) {
-  return q8_gemm_tma::gemm<TmaEpilogue<EPI, OutT, ResT>, false>(
+  return q8_gemm_tma::gemm<TmaEpilogue<EPI, OutT, ResT, P>, false>(
       args.a, args.a_scale, args.b, args.b_scale, args.M, args.K, args.N, 1,
       args, stream);
 }
@@ -279,33 +282,22 @@ GemmArgs gemm_args(const void* a, const void* a_scale, const void* w,
   args.a_scale = static_cast<const float*>(a_scale);
   args.b = static_cast<const int8_t*>(w);
   args.b_scale = static_cast<const float*>(s);
-  args.bias = static_cast<const bf16*>(bias);
+  args.bias = bias;
   args.M = M;
   args.K = K;
   args.N = N;
   return args;
 }
 
-}  // namespace
+// The forms of the three launchers: X the activations' and outputs' type, P
+// the LayerNorms' scales and biases' and the biases' (bf16 or float).
 
-// Each launcher runs on `stream` and returns the first cudaError_t of its
-// launches (0 on success). Scratch (codes, scales, the MLP hidden) is the
-// caller's. Weights come K-major: (N, K), the transpose of the JAX layout's
-// (K, N); scales are fp32 (N,), LayerNorm parameters and biases bf16.
-
-// q, k, v (M, D) bf16 = LN(x (M, D)) through w_qkv (3 D, D), the q columns
-// times scale.
-extern "C" int fused_qkv_q8_launch(const void* x, const void* ln_s,
-                                   const void* ln_b, const void* w_qkv,
-                                   const void* s_qkv, const void* b_qkv,
-                                   void* codes, void* row_scales, void* q,
-                                   void* k, void* v, int M, int D,
-                                   float scale, float eps, void* stream) {
-  if (!shape_ok(M, D, 3 * D, 1) || !qkv_tiles_ok(D)) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = row_quant<bf16, kLayer>(x, ln_s, ln_b, codes, row_scales, M, D, 1,
+template <typename X, typename P>
+int qkv_q8(const void* x, const void* ln_s, const void* ln_b,
+           const void* w_qkv, const void* s_qkv, const void* b_qkv,
+           void* codes, void* row_scales, void* q, void* k, void* v, int M,
+           int D, float scale, float eps, cudaStream_t s) {
+  int rc = row_quant<X, kLayer, P>(x, ln_s, ln_b, codes, row_scales, M, D, 1,
                                    eps, s);
   if (rc != 0) return rc;
   GemmArgs args = gemm_args(codes, row_scales, w_qkv, s_qkv, b_qkv, M, D,
@@ -315,27 +307,22 @@ extern "C" int fused_qkv_q8_launch(const void* x, const void* ln_s,
   args.out[2] = v;
   args.scale = scale;
   args.D = D;
-  return tma_gemm<kQkv>(args, s);
+  return tma_gemm<kQkv, X, X, P>(args, s);
 }
 
-// out (M, D) bf16 = x + MLP(LN(x)) for x (M, D); w_fc (F, D) and w_proj
-// (D, F). hidden is fp32 (M, F).
-extern "C" int fused_mlp_block_q8_launch(
-    const void* x, const void* ln_s, const void* ln_b, const void* w_fc,
-    const void* s_fc, const void* b_fc, const void* w_proj,
-    const void* s_proj, const void* b_proj, void* codes_in, void* scales_in,
-    void* hidden, void* codes_hid, void* scales_hid, void* out, int M, int D,
-    int F, float eps, void* stream) {
-  if (!shape_ok(M, D, F, 1) || !shape_ok(M, F, D, 1)) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = row_quant<bf16, kLayer>(x, ln_s, ln_b, codes_in, scales_in, M, D,
+template <typename X, typename P>
+int mlp_block_q8(const void* x, const void* ln_s, const void* ln_b,
+                 const void* w_fc, const void* s_fc, const void* b_fc,
+                 const void* w_proj, const void* s_proj, const void* b_proj,
+                 void* codes_in, void* scales_in, void* hidden,
+                 void* codes_hid, void* scales_hid, void* out, int M, int D,
+                 int F, float eps, cudaStream_t s) {
+  int rc = row_quant<X, kLayer, P>(x, ln_s, ln_b, codes_in, scales_in, M, D,
                                    1, eps, s);
   if (rc != 0) return rc;
   GemmArgs up = gemm_args(codes_in, scales_in, w_fc, s_fc, b_fc, M, D, F);
   up.out[0] = hidden;
-  rc = tma_gemm<kQuickGeluF32>(up, s);
+  rc = tma_gemm<kQuickGeluF32, float, float, P>(up, s);
   if (rc != 0) return rc;
   rc = row_quant<float, kNone>(hidden, nullptr, nullptr, codes_hid,
                                scales_hid, M, F, 1, 0.0f, s);
@@ -344,7 +331,101 @@ extern "C" int fused_mlp_block_q8_launch(
       gemm_args(codes_hid, scales_hid, w_proj, s_proj, b_proj, M, F, D);
   down.out[0] = out;
   down.residual = x;
-  return tma_gemm<kResidual>(down, s);
+  return tma_gemm<kResidual, X, X, P>(down, s);
+}
+
+template <typename X, typename P>
+int vit_block_q8(const void* x, const void* ln1_s, const void* ln1_b,
+                 const void* w_qkv, const void* s_qkv, const void* b_qkv,
+                 const void* wo, const void* so, const void* bo,
+                 const void* ln2_s, const void* ln2_b, const void* w_fc,
+                 const void* s_fc, const void* b_fc, const void* w_proj,
+                 const void* s_proj, const void* b_proj, void* codes,
+                 void* row_scales, void* q, void* k, void* v, void* attn,
+                 void* r1, void* hidden, void* out, int B, int L, int H,
+                 int dh, int F, float scale, float eps, cudaStream_t s) {
+  const int M = B * L, D = H * dh;
+  int rc = row_quant<X, kLayer, P>(x, ln1_s, ln1_b, codes, row_scales, M, D,
+                                   1, eps, s);
+  if (rc != 0) return rc;
+  GemmArgs qkv = gemm_args(codes, row_scales, w_qkv, s_qkv, b_qkv, M, D,
+                           3 * D);
+  qkv.out[0] = q;
+  qkv.out[1] = k;
+  qkv.out[2] = v;
+  qkv.scale = scale;
+  qkv.D = D;
+  rc = tma_gemm<kQkv, bf16, bf16, P>(qkv, s);  // bf16 q, k, v in every form
+  if (rc != 0) return rc;
+  rc = vit_attention::attention_dh<vit_attention::kNormalised, float>(
+      q, k, v, attn, B, L, H, dh, s);
+  if (rc != 0) return rc;
+  rc = row_quant<float, kNone>(attn, nullptr, nullptr, codes, row_scales, M,
+                               D, 1, 0.0f, s);
+  if (rc != 0) return rc;
+  GemmArgs oproj = gemm_args(codes, row_scales, wo, so, bo, M, D, D);
+  oproj.out[0] = r1;
+  oproj.residual = x;
+  rc = tma_gemm<kResidual, float, X, P>(oproj, s);
+  if (rc != 0) return rc;
+  rc = row_quant<float, kLayer, P>(r1, ln2_s, ln2_b, codes, row_scales, M, D,
+                                   1, eps, s);
+  if (rc != 0) return rc;
+  GemmArgs up = gemm_args(codes, row_scales, w_fc, s_fc, b_fc, M, D, F);
+  up.out[0] = hidden;
+  rc = tma_gemm<kQuickGeluF32, float, float, P>(up, s);
+  if (rc != 0) return rc;
+  rc = row_quant<float, kNone>(hidden, nullptr, nullptr, codes, row_scales, M,
+                               F, 1, 0.0f, s);
+  if (rc != 0) return rc;
+  GemmArgs down =
+      gemm_args(codes, row_scales, w_proj, s_proj, b_proj, M, F, D);
+  down.out[0] = out;
+  down.residual = r1;
+  return tma_gemm<kResidual, X, float, P>(down, s);
+}
+
+}  // namespace
+
+// Each launcher runs on `stream` and returns the first cudaError_t of its
+// launches (0 on success). Scratch (codes, scales, the MLP hidden) is the
+// caller's. Weights come K-major: (N, K), the transpose of the JAX layout's
+// (K, N); scales are fp32 (N,). x and the outputs are bf16 (x_f32 = 0) or
+// fp32 (1), the LayerNorm parameters and biases bf16 (params_f32 = 0) or
+// fp32 (1).
+
+// q, k, v (M, D) of x's dtype = LN(x (M, D)) through w_qkv (3 D, D), the q
+// columns times scale.
+extern "C" int fused_qkv_q8_launch(const void* x, const void* ln_s,
+                                   const void* ln_b, const void* w_qkv,
+                                   const void* s_qkv, const void* b_qkv,
+                                   void* codes, void* row_scales, void* q,
+                                   void* k, void* v, int M, int D, int x_f32,
+                                   int params_f32, float scale, float eps,
+                                   void* stream) {
+  if (!shape_ok(M, D, 3 * D, 1) || !qkv_tiles_ok(D)) {
+    return cudaErrorInvalidValue;
+  }
+  return XP_FORM(qkv_q8, x_f32, params_f32)(
+      x, ln_s, ln_b, w_qkv, s_qkv, b_qkv, codes, row_scales, q, k, v, M, D,
+      scale, eps, static_cast<cudaStream_t>(stream));
+}
+
+// out (M, D) of x's dtype = x + MLP(LN(x)) for x (M, D); w_fc (F, D) and
+// w_proj (D, F). hidden is fp32 (M, F) in every form.
+extern "C" int fused_mlp_block_q8_launch(
+    const void* x, const void* ln_s, const void* ln_b, const void* w_fc,
+    const void* s_fc, const void* b_fc, const void* w_proj,
+    const void* s_proj, const void* b_proj, void* codes_in, void* scales_in,
+    void* hidden, void* codes_hid, void* scales_hid, void* out, int M, int D,
+    int F, int x_f32, int params_f32, float eps, void* stream) {
+  if (!shape_ok(M, D, F, 1) || !shape_ok(M, F, D, 1)) {
+    return cudaErrorInvalidValue;
+  }
+  return XP_FORM(mlp_block_q8, x_f32, params_f32)(
+      x, ln_s, ln_b, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, codes_in,
+      scales_in, hidden, codes_hid, scales_hid, out, M, D, F, eps,
+      static_cast<cudaStream_t>(stream));
 }
 
 // differ (one uint64 on the card) += the floats where the epilogues'
@@ -356,12 +437,12 @@ extern "C" int quick_gelu_check(void* differ, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (B, L, D = H dh) bf16 = the whole int8 CLIP block over x (B, L, D)
-// bf16: w_qkv (3 D, D), wo (D, D), w_fc (F, D), w_proj (D, F) K-major with
-// their fp32 scales; ln*, bo, b_proj (D,), b_qkv (3 D,), b_fc (F,) bf16.
-// Scratch of the caller: codes (M, F) int8 and row_scales (M, 1) fp32 (each
-// product's input in turn), q, k, v (M, D) bf16, attn and r1 (M, D) fp32,
-// hidden (M, F) fp32.
+// out (B, L, D = H dh) of x's dtype = the whole int8 CLIP block over x (B,
+// L, D): w_qkv (3 D, D), wo (D, D), w_fc (F, D), w_proj (D, F) K-major with
+// their fp32 scales; ln*, bo, b_proj (D,), b_qkv (3 D,), b_fc (F,). Scratch
+// of the caller: codes (M, F) int8 and row_scales (M, 1) fp32 (each
+// product's input in turn), q, k, v (M, D) bf16 in every form, attn and r1
+// (M, D) fp32, hidden (M, F) fp32.
 extern "C" int fused_vit_block_q8_launch(
     const void* x, const void* ln1_s, const void* ln1_b, const void* w_qkv,
     const void* s_qkv, const void* b_qkv, const void* wo, const void* so,
@@ -369,50 +450,16 @@ extern "C" int fused_vit_block_q8_launch(
     const void* s_fc, const void* b_fc, const void* w_proj,
     const void* s_proj, const void* b_proj, void* codes, void* row_scales,
     void* q, void* k, void* v, void* attn, void* r1, void* hidden, void* out,
-    int B, int L, int H, int dh, int F, float scale, float eps,
-    void* stream) {
+    int B, int L, int H, int dh, int F, int x_f32, int params_f32,
+    float scale, float eps, void* stream) {
   const int M = B * L, D = H * dh;
   if (!vit_attention::shape_ok(B, L, H) || !shape_ok(M, D, 3 * D, 1) ||
       !qkv_tiles_ok(D) || !shape_ok(M, D, F, 1) || !shape_ok(M, F, D, 1)) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = row_quant<bf16, kLayer>(x, ln1_s, ln1_b, codes, row_scales, M, D,
-                                   1, eps, s);
-  if (rc != 0) return rc;
-  GemmArgs qkv = gemm_args(codes, row_scales, w_qkv, s_qkv, b_qkv, M, D,
-                           3 * D);
-  qkv.out[0] = q;
-  qkv.out[1] = k;
-  qkv.out[2] = v;
-  qkv.scale = scale;
-  qkv.D = D;
-  rc = tma_gemm<kQkv>(qkv, s);
-  if (rc != 0) return rc;
-  rc = vit_attention::attention_dh<vit_attention::kNormalised, float>(
-      q, k, v, attn, B, L, H, dh, s);
-  if (rc != 0) return rc;
-  rc = row_quant<float, kNone>(attn, nullptr, nullptr, codes, row_scales, M,
-                               D, 1, 0.0f, s);
-  if (rc != 0) return rc;
-  GemmArgs oproj = gemm_args(codes, row_scales, wo, so, bo, M, D, D);
-  oproj.out[0] = r1;
-  oproj.residual = x;
-  rc = tma_gemm<kResidual, float, bf16>(oproj, s);
-  if (rc != 0) return rc;
-  rc = row_quant<float, kLayer>(r1, ln2_s, ln2_b, codes, row_scales, M, D, 1,
-                                eps, s);
-  if (rc != 0) return rc;
-  GemmArgs up = gemm_args(codes, row_scales, w_fc, s_fc, b_fc, M, D, F);
-  up.out[0] = hidden;
-  rc = tma_gemm<kQuickGeluF32>(up, s);
-  if (rc != 0) return rc;
-  rc = row_quant<float, kNone>(hidden, nullptr, nullptr, codes, row_scales, M,
-                               F, 1, 0.0f, s);
-  if (rc != 0) return rc;
-  GemmArgs down =
-      gemm_args(codes, row_scales, w_proj, s_proj, b_proj, M, F, D);
-  down.out[0] = out;
-  down.residual = r1;
-  return tma_gemm<kResidual, bf16, float>(down, s);
+  return XP_FORM(vit_block_q8, x_f32, params_f32)(
+      x, ln1_s, ln1_b, w_qkv, s_qkv, b_qkv, wo, so, bo, ln2_s, ln2_b, w_fc,
+      s_fc, b_fc, w_proj, s_proj, b_proj, codes, row_scales, q, k, v, attn,
+      r1, hidden, out, B, L, H, dh, F, scale, eps,
+      static_cast<cudaStream_t>(stream));
 }

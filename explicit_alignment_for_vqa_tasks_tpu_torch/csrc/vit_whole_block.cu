@@ -63,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include "bf16_gemm_tma.cuh"
+#include "forms.cuh"
 #include "row_norm.cuh"
 #include "vit_attention.cuh"
 
@@ -160,11 +161,7 @@ extern "C" int fused_vit_block_launch(
   const void* const p[16] = {ln1_s, ln1_b, wq,    bq,    wk,   bk,
                              wv,    bv,    wo,    bo,    ln2_s, ln2_b,
                              w_fc,  b_fc,  w_proj, b_proj};
-  const auto form =
-      x_f32 ? (params_f32 ? whole_block<float, float>
-                          : whole_block<float, bf16>)
-            : (params_f32 ? whole_block<bf16, float>
-                          : whole_block<bf16, bf16>);
-  return form(x, p, h, q, k, v, attn, r1, hidden, out, B, L, H, dh, F, mode,
-              scale, eps, static_cast<cudaStream_t>(stream));
+  return XP_FORM(whole_block, x_f32, params_f32)(
+      x, p, h, q, k, v, attn, r1, hidden, out, B, L, H, dh, F, mode, scale,
+      eps, static_cast<cudaStream_t>(stream));
 }

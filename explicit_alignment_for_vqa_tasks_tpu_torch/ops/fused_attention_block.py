@@ -1191,8 +1191,8 @@ def _check_group(op: str, batch: int, group: int) -> None:
 
 
 def _vit_form(op: str, acts: dict, vectors: dict, weights: dict) -> tuple:
-    """The form of a split3 kernel's CUDA call, as the JAX wrappers read
-    their operands: ``acts`` (x, the residual, q, k, v) of one dtype, bf16
+    """The form of a ViT kernel's CUDA call (split3, whole-block or int8),
+    as the JAX wrappers read their operands: ``acts`` (x, the residual, q, k, v) of one dtype, bf16
     or fp32 (the fp32 form); ``vectors`` (the LayerNorms' scales and
     biases, the biases) bf16 or fp32, read as they are when all are bf16,
     else all fp32 (a bf16 one widened, which is exact); ``weights`` bf16 or
@@ -1219,17 +1219,6 @@ def _vit_form(op: str, acts: dict, vectors: dict, weights: dict) -> tuple:
               **{name: _BF16 for name in weights}}
     _check_tensors(op, x.device, dtypes, **acts, **vectors, **weights)
     return x.dtype == _F32, params_f32, vectors, weights
-
-
-def _refuse_f32(op: str, **acts: torch.Tensor) -> None:
-    """The refusal of fp32 activations by a kernel whose fp32 form is not
-    ported yet."""
-    for name, t in acts.items():
-        if t.dtype == _F32:
-            raise ValueError(
-                f"{op}: {name} is torch.float32; the kernel takes "
-                "torch.bfloat16 only (its float32 form is still to be "
-                "ported: ROADMAP.md Queue 2 A)")
 
 
 def _check_vit_widths(op: str, **widths: int) -> None:
@@ -1586,37 +1575,41 @@ def fused_qkv_q8(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """LayerNorm + the concatenated int8 q | k | v product; returns (q *
     scale, k, v), each (B, L, D) in x.dtype. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (``fused_qkv_q8.launches``) or
-    raise. ``codes_out``, when given, receives the activation ``codes`` and
-    ``scales`` (the kernel's scratch), as the plain version's does."""
+    version; CUDA tensors launch the kernel (``fused_qkv_q8.launches``
+    counts those calls, of every form) or raise: x bf16 or fp32 (the fp32
+    form, q, k, v fp32 and unrounded), the LayerNorm's parameters and the
+    bias as ``_vit_form`` reads them. ``codes_out``, when given, receives
+    the activation ``codes`` and ``scales`` (the kernel's scratch), as the
+    plain version's does."""
     op = "fused_qkv_q8"
     if x.device.type == "cpu":
         return fused_qkv_q8_plain(x, ln_scale, ln_bias, w_qkv, s_qkv, b_qkv,
                                   scale, eps, codes_out=codes_out)
     kernels.refuse_grad("fused_qkv_q8", x, ln_scale, ln_bias, s_qkv, b_qkv)
-    _refuse_f32(op, x=x)
+    x_f32, params_f32, vecs, _ = _vit_form(
+        op, dict(x=x), dict(ln_scale=ln_scale, ln_bias=ln_bias, b_qkv=b_qkv),
+        {})
     batch, seq, d_model = x.shape
     s_qkv = _check_vit_q8_product(op, "w_qkv", w_qkv, s_qkv, d_model)
-    _check_tensors(op, x.device,
-                   dict(x=_BF16, ln_scale=_BF16, ln_bias=_BF16, w_qkv=_I8,
-                        s_qkv=_F32, b_qkv=_BF16),
-                   x=x, ln_scale=ln_scale, ln_bias=ln_bias, w_qkv=w_qkv,
-                   s_qkv=s_qkv, b_qkv=b_qkv)
+    _check_tensors(op, x.device, dict(w_qkv=_I8, s_qkv=_F32), w_qkv=w_qkv,
+                   s_qkv=s_qkv)
     vec = (d_model,)
-    _check_shapes(op, ln_scale=(ln_scale, vec), ln_bias=(ln_bias, vec),
+    _check_shapes(op, ln_scale=(vecs["ln_scale"], vec),
+                  ln_bias=(vecs["ln_bias"], vec),
                   w_qkv=(w_qkv, (d_model, 3 * d_model)),
-                  b_qkv=(b_qkv, (3 * d_model,)))
+                  b_qkv=(vecs["b_qkv"], (3 * d_model,)))
     _check_vit_widths(op, D=d_model)
     rows, dev = batch * seq, x.device
     codes = torch.empty((rows, d_model), dtype=_I8, device=dev)
     row_scales = torch.empty((rows, 1), dtype=_F32, device=dev)
     q, k, v = (torch.empty_like(x) for _ in range(3))
     w_qkv = _k_major(w_qkv)
-    _run(op, _launcher_of("vit_block_q8", op, 11, 2, 2),
-         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-         w_qkv.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(),
-         codes.data_ptr(), row_scales.data_ptr(), q.data_ptr(), k.data_ptr(),
-         v.data_ptr(), rows, d_model, scale, eps,
+    _run(op, _launcher_of("vit_block_q8", op, 11, 4, 2),
+         x.data_ptr(), vecs["ln_scale"].data_ptr(),
+         vecs["ln_bias"].data_ptr(), w_qkv.data_ptr(), s_qkv.data_ptr(),
+         vecs["b_qkv"].data_ptr(), codes.data_ptr(), row_scales.data_ptr(),
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), rows, d_model,
+         int(x_f32), int(params_f32), scale, eps,
          torch.cuda.current_stream(dev).cuda_stream)
     fused_qkv_q8.launches += 1
     if codes_out is not None:
@@ -1634,8 +1627,11 @@ def fused_mlp_block_q8(
 ) -> torch.Tensor:
     """x + MLP(LN(x)) with quickGELU and both products int8. CPU tensors
     take the plain version; CUDA tensors launch the kernel
-    (``fused_mlp_block_q8.launches``) or raise. ``codes_out``, when given,
-    receives the plain version's keys from the kernel's scratch."""
+    (``fused_mlp_block_q8.launches`` counts those calls, of every form) or
+    raise: x bf16 or fp32 (the fp32 form, its output fp32), the LayerNorm's
+    parameters and the biases as ``_vit_form`` reads them; the quickGELU
+    hidden is fp32 in every form. ``codes_out``, when given, receives the
+    plain version's keys from the kernel's scratch."""
     op = "fused_mlp_block_q8"
     if x.device.type == "cpu":
         return fused_mlp_block_q8_plain(x, ln_scale, ln_bias, w_fc, s_fc,
@@ -1643,22 +1639,22 @@ def fused_mlp_block_q8(
                                         codes_out=codes_out)
     kernels.refuse_grad("fused_mlp_block_q8", x, ln_scale, ln_bias, s_fc,
                         b_fc, s_proj, b_proj)
-    _refuse_f32(op, x=x)
+    x_f32, params_f32, vecs, _ = _vit_form(
+        op, dict(x=x), dict(ln_scale=ln_scale, ln_bias=ln_bias, b_fc=b_fc,
+                            b_proj=b_proj), {})
     batch, seq, d_model = x.shape
     d_ff = w_fc.shape[-1]
     s_fc = _check_vit_q8_product(op, "w_fc", w_fc, s_fc, d_model)
     s_proj = _check_vit_q8_product(op, "w_proj", w_proj, s_proj, d_ff)
     _check_tensors(op, x.device,
-                   dict(x=_BF16, ln_scale=_BF16, ln_bias=_BF16, w_fc=_I8,
-                        s_fc=_F32, b_fc=_BF16, w_proj=_I8, s_proj=_F32,
-                        b_proj=_BF16),
-                   x=x, ln_scale=ln_scale, ln_bias=ln_bias, w_fc=w_fc,
-                   s_fc=s_fc, b_fc=b_fc, w_proj=w_proj, s_proj=s_proj,
-                   b_proj=b_proj)
+                   dict(w_fc=_I8, s_fc=_F32, w_proj=_I8, s_proj=_F32),
+                   w_fc=w_fc, s_fc=s_fc, w_proj=w_proj, s_proj=s_proj)
     vec = (d_model,)
-    _check_shapes(op, ln_scale=(ln_scale, vec), ln_bias=(ln_bias, vec),
-                  b_fc=(b_fc, (d_ff,)), w_proj=(w_proj, (d_ff, d_model)),
-                  b_proj=(b_proj, vec))
+    _check_shapes(op, ln_scale=(vecs["ln_scale"], vec),
+                  ln_bias=(vecs["ln_bias"], vec),
+                  b_fc=(vecs["b_fc"], (d_ff,)),
+                  w_proj=(w_proj, (d_ff, d_model)),
+                  b_proj=(vecs["b_proj"], vec))
     _check_vit_widths(op, D=d_model, F=d_ff)
     rows, dev = batch * seq, x.device
     codes_in = torch.empty((rows, d_model), dtype=_I8, device=dev)
@@ -1669,14 +1665,14 @@ def fused_mlp_block_q8(
     scales_hid = torch.empty((rows, 1), dtype=_F32, device=dev)
     out = torch.empty_like(x)
     w_fc, w_proj = _k_major(w_fc), _k_major(w_proj)
-    _run(op, _launcher_of("vit_block_q8", op, 15, 3, 1),
-         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-         w_fc.data_ptr(), s_fc.data_ptr(), b_fc.data_ptr(),
-         w_proj.data_ptr(), s_proj.data_ptr(), b_proj.data_ptr(),
-         codes_in.data_ptr(), scales_in.data_ptr(), hidden.data_ptr(),
-         codes_hid.data_ptr(), scales_hid.data_ptr(), out.data_ptr(),
-         rows, d_model, d_ff, eps,
-         torch.cuda.current_stream(dev).cuda_stream)
+    _run(op, _launcher_of("vit_block_q8", op, 15, 5, 1),
+         x.data_ptr(), vecs["ln_scale"].data_ptr(),
+         vecs["ln_bias"].data_ptr(), w_fc.data_ptr(), s_fc.data_ptr(),
+         vecs["b_fc"].data_ptr(), w_proj.data_ptr(), s_proj.data_ptr(),
+         vecs["b_proj"].data_ptr(), codes_in.data_ptr(), scales_in.data_ptr(),
+         hidden.data_ptr(), codes_hid.data_ptr(), scales_hid.data_ptr(),
+         out.data_ptr(), rows, d_model, d_ff, int(x_f32), int(params_f32),
+         eps, torch.cuda.current_stream(dev).cuda_stream)
     fused_mlp_block_q8.launches += 1
     if codes_out is not None:
         codes_out.update(codes=codes_in, scales=scales_in,
@@ -1844,6 +1840,7 @@ def fused_vit_block_q8_plain(
     w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
     num_heads: int,
     eps: float = 1e-5,
+    *, stages_out: Optional[dict] = None,
 ) -> torch.Tensor:
     """``fused_vit_block`` with the four projections int8 (int8 (K, N)
     weights with fp32 per-output-channel scales), in the Pallas kernel's
@@ -1853,7 +1850,9 @@ def fused_vit_block_q8_plain(
     product, q times the scale; the attention takes q, k, v cast to bf16
     and its "normalised" softmax, and its fp32 output is quantized as it is;
     ``r1 = x + attn-product`` in fp32; the MLP's LN2, quickGELU hidden and
-    residual in fp32; one cast to x's dtype."""
+    residual in fp32; one cast to x's dtype. ``stages_out``, when given,
+    receives the fp32 attention output ``attn`` and ``r1``, each (B, L,
+    D)."""
     bf = torch.bfloat16
     batch, seq, d_model = x.shape
     x32 = x.reshape(-1, d_model).float()
@@ -1868,6 +1867,8 @@ def fused_vit_block_q8_plain(
         q, qkv[:, d_model:2 * d_model], qkv[:, 2 * d_model:]))
     attn = _softmax_pv_f32(q, k, v, num_heads, "normalised")
     r1 = x32 + mm_q8(attn.reshape(-1, d_model), wo, so, bo)
+    if stages_out is not None:
+        stages_out.update(attn=attn.reshape(x.shape), r1=r1.reshape(x.shape))
     hid = mm_q8(_ln_f32(r1, ln2_scale, ln2_bias, eps), w_fc, s_fc, b_fc)
     hid = hid * torch.sigmoid(QUICK_GELU_ALPHA * hid)
     return (r1 + mm_q8(hid, w_proj, s_proj, b_proj)).reshape(x.shape) \
@@ -1885,21 +1886,30 @@ def fused_vit_block_q8(
     num_heads: int,
     group: int = 4,
     eps: float = 1e-5,
+    *, stages_out: Optional[dict] = None,
 ) -> torch.Tensor:
     """The whole int8 CLIP block over (B, L, D) x. ``group`` is checked (it
     must divide B) and changes no result. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (``fused_vit_block_q8.launches``)
-    or raise."""
+    version; CUDA tensors launch the kernel (``fused_vit_block_q8.launches``
+    counts those calls, of every form) or raise: x bf16 or fp32 (the fp32
+    form, output fp32), the LayerNorms' parameters and the biases as
+    ``_vit_form`` reads them (q, k, v are bf16 in every form, as the Pallas
+    kernel casts them; the attention output, r1 and the hidden fp32).
+    ``stages_out``, when given, receives the fp32 ``attn`` and ``r1`` (B,
+    L, D) the call computed (on the card, the kernel's scratch)."""
     op = "fused_vit_block_q8"
     _check_group(op, x.shape[0], group)
     if x.device.type == "cpu":
         return fused_vit_block_q8_plain(
             x, ln1_scale, ln1_bias, w_qkv, s_qkv, b_qkv, wo, so, bo,
             ln2_scale, ln2_bias, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj,
-            num_heads, eps)
+            num_heads, eps, stages_out=stages_out)
     kernels.refuse_grad(op, x, ln1_scale, ln1_bias, s_qkv, b_qkv, so, bo,
                         ln2_scale, ln2_bias, s_fc, b_fc, s_proj, b_proj)
-    _refuse_f32(op, x=x)
+    x_f32, params_f32, vecs, _ = _vit_form(
+        op, dict(x=x), dict(ln1_scale=ln1_scale, ln1_bias=ln1_bias,
+                            b_qkv=b_qkv, bo=bo, ln2_scale=ln2_scale,
+                            ln2_bias=ln2_bias, b_fc=b_fc, b_proj=b_proj), {})
     if x.dim() != 3:
         raise ValueError(f"{op}: x is {tuple(x.shape)}, expected (B, L, D)")
     batch, seq, d_model = x.shape
@@ -1908,23 +1918,22 @@ def fused_vit_block_q8(
     so = _check_vit_q8_product(op, "wo", wo, so, d_model)
     s_fc = _check_vit_q8_product(op, "w_fc", w_fc, s_fc, d_model)
     s_proj = _check_vit_q8_product(op, "w_proj", w_proj, s_proj, d_ff)
-    tensors = dict(x=x, ln1_scale=ln1_scale, ln1_bias=ln1_bias, w_qkv=w_qkv,
-                   s_qkv=s_qkv, b_qkv=b_qkv, wo=wo, so=so, bo=bo,
-                   ln2_scale=ln2_scale, ln2_bias=ln2_bias, w_fc=w_fc,
-                   s_fc=s_fc, b_fc=b_fc, w_proj=w_proj, s_proj=s_proj,
-                   b_proj=b_proj)
+    weights = dict(w_qkv=w_qkv, s_qkv=s_qkv, wo=wo, so=so, w_fc=w_fc,
+                   s_fc=s_fc, w_proj=w_proj, s_proj=s_proj)
     _check_tensors(op, x.device,
-                   dict({name: _BF16 for name in tensors}, w_qkv=_I8, wo=_I8,
-                        w_fc=_I8, w_proj=_I8, s_qkv=_F32, so=_F32, s_fc=_F32,
-                        s_proj=_F32),
-                   **tensors)
+                   {name: _I8 if name.startswith("w") else _F32
+                    for name in weights}, **weights)
     vec = (d_model,)
-    _check_shapes(op, ln1_scale=(ln1_scale, vec), ln1_bias=(ln1_bias, vec),
+    _check_shapes(op, ln1_scale=(vecs["ln1_scale"], vec),
+                  ln1_bias=(vecs["ln1_bias"], vec),
                   w_qkv=(w_qkv, (d_model, 3 * d_model)),
-                  b_qkv=(b_qkv, (3 * d_model,)), wo=(wo, (d_model, d_model)),
-                  bo=(bo, vec), ln2_scale=(ln2_scale, vec),
-                  ln2_bias=(ln2_bias, vec), b_fc=(b_fc, (d_ff,)),
-                  w_proj=(w_proj, (d_ff, d_model)), b_proj=(b_proj, vec))
+                  b_qkv=(vecs["b_qkv"], (3 * d_model,)),
+                  wo=(wo, (d_model, d_model)), bo=(vecs["bo"], vec),
+                  ln2_scale=(vecs["ln2_scale"], vec),
+                  ln2_bias=(vecs["ln2_bias"], vec),
+                  b_fc=(vecs["b_fc"], (d_ff,)),
+                  w_proj=(w_proj, (d_ff, d_model)),
+                  b_proj=(vecs["b_proj"], vec))
     _check_vit_widths(op, D=d_model, F=d_ff)
     head_dim = _vit_head_dim(op, seq, d_model, num_heads)
     rows, dev = batch * seq, x.device
@@ -1933,20 +1942,27 @@ def fused_vit_block_q8(
     # attention output, residual r1 and quickGELU hidden
     codes = torch.empty((rows, d_ff), dtype=_I8, device=dev)
     row_scales = torch.empty((rows, 1), dtype=_F32, device=dev)
-    q, k, v = (torch.empty_like(x) for _ in range(3))
+    q, k, v = (torch.empty((rows, d_model), dtype=_BF16, device=dev)
+               for _ in range(3))
     attn, r1 = (torch.empty((rows, d_model), dtype=_F32, device=dev)
                 for _ in range(2))
     hidden = torch.empty((rows, d_ff), dtype=_F32, device=dev)
     out = torch.empty_like(x)
-    for name in ("w_qkv", "wo", "w_fc", "w_proj"):
-        tensors[name] = _k_major(tensors[name])
-    _run(op, _launcher_of("vit_block_q8", op, 26, 5, 2),
-         *(t.data_ptr() for t in tensors.values()),
+    order = ("ln1_scale", "ln1_bias", "w_qkv", "s_qkv", "b_qkv", "wo", "so",
+             "bo", "ln2_scale", "ln2_bias", "w_fc", "s_fc", "b_fc", "w_proj",
+             "s_proj", "b_proj")
+    tensors = {**vecs, **{name: _k_major(t) if name.startswith("w") else t
+                          for name, t in weights.items()}}
+    _run(op, _launcher_of("vit_block_q8", op, 26, 7, 2),
+         x.data_ptr(), *(tensors[name].data_ptr() for name in order),
          codes.data_ptr(), row_scales.data_ptr(), q.data_ptr(), k.data_ptr(),
          v.data_ptr(), attn.data_ptr(), r1.data_ptr(), hidden.data_ptr(),
-         out.data_ptr(), batch, seq, num_heads, head_dim, d_ff,
-         head_dim ** -0.5, eps, torch.cuda.current_stream(dev).cuda_stream)
+         out.data_ptr(), batch, seq, num_heads, head_dim, d_ff, int(x_f32),
+         int(params_f32), head_dim ** -0.5, eps,
+         torch.cuda.current_stream(dev).cuda_stream)
     fused_vit_block_q8.launches += 1
+    if stages_out is not None:
+        stages_out.update(attn=attn.view(x.shape), r1=r1.view(x.shape))
     return out
 
 

@@ -250,7 +250,8 @@ def test_cuda_kernel_matches_plain_version():
     """ViT-B/32 widths on 8 images, one layer's weights from
     quantize_vision_blocks: within 1.6e-2 (|want| + rms(want)) with a
     relative Frobenius error of at most 2e-3 (a rare flipped code), one
-    launch counted, and fp32 inputs refused."""
+    launch counted; fp32 x takes the fp32 form, one launch counted and an
+    fp32 output (tests/test_torch_vit_q8_f32.py holds its values)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from test_torch_vit_block import cuda_layer
@@ -273,8 +274,11 @@ def test_cuda_kernel_matches_plain_version():
     assert ((g - p).norm() / p.norm()).item() <= 2e-3
     rms = p.square().mean().sqrt()
     assert bool(((g - p).abs() <= 1.6e-2 * (p.abs() + rms)).all())
-    with pytest.raises(ValueError, match="bfloat16"):
-        tfab.fused_vit_block_q8(x.float(), *args[1:], group=4)
+    before = tfab.fused_vit_block_q8.launches
+    out = tfab.fused_vit_block_q8(x.float(), *args[1:], group=4)
+    torch.cuda.synchronize()
+    assert tfab.fused_vit_block_q8.launches == before + 1
+    assert out.dtype == torch.float32
 
 
 @pytest.mark.gpu

@@ -2,10 +2,10 @@
 attention_core_oproj, fused_mlp_block) and of attention_core: fp32
 activations, or bf16 ones with fp32 LayerNorms and biases. On the CPU: the
 wrappers' dtype rules and the form each CUDA call launches (a recording
-launcher on meta tensors), the refusal of fp32 activations by the int8
-kernels, whose fp32 forms are not ported, and the rules that hold the fp32 forms on
-the card failing every form that rounds x, q / k / v, the attention output
-or the result to bf16 (mutants of the plain versions). On the card: each
+launcher on meta tensors), and the rules that hold the fp32 forms on the
+card failing every form that rounds x, q / k / v, the attention output or
+the result to bf16 (mutants of the plain versions). (The int8 kernels'
+fp32 forms are tests/test_torch_vit_q8_f32.py's.) On the card: each
 form against its plain version, the mixed forms bit-equal to the bf16
 forms on bf16-valued parameters, and the held route's limit."""
 
@@ -365,36 +365,6 @@ def test_f32_attention_refuses_head_sizes_it_has_no_kernel_for(recorded,
     bf = meta_inputs(BF16, BF16, BF16, width=256, heads=8)  # the bf16 form
     getattr(tfab, name)(*kernel_args(name, bf))
     assert len(recorded) == 1
-
-
-def not_ported_calls():
-    """A call of each kernel whose fp32 form is not ported yet, on fp32
-    meta activations: rows 12 (fused_vit_block_q8), 13 (fused_qkv_q8) and
-    14 (fused_mlp_block_q8). (The fp32 forms of rows 7, 16 and 17 are
-    tests/test_torch_vit_whole_f32.py's.)"""
-    def t(*shape, dtype=F32):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
-    x, vec, mat = t(16, 50, 128), t(128), t(128, 128)
-    i8 = t(128, 384, dtype=torch.int8)
-    return {
-        "fused_vit_block_q8": lambda: tfab.fused_vit_block_q8(
-            x, vec, vec, i8, t(384), t(384), mat, vec, vec, vec, vec,
-            t(128, 512), t(512), t(512), t(512, 128), vec, vec, 2),
-        "fused_qkv_q8": lambda: tfab.fused_qkv_q8(
-            x, vec, vec, i8, t(384), t(384), 0.125),
-        "fused_mlp_block_q8": lambda: tfab.fused_mlp_block_q8(
-            x, vec, vec, t(128, 512), t(512), t(512), t(512, 128), vec,
-            vec),
-    }
-
-
-@pytest.mark.parametrize("name", list(not_ported_calls()))
-def test_kernels_without_an_fp32_form_refuse_fp32(recorded, name):
-    with pytest.raises(ValueError, match="bfloat16 only.*ROADMAP.md Queue "
-                                         "2 A"):
-        not_ported_calls()[name]()
-    assert not recorded
 
 
 # --- on the card: each form against its plain version -----------------------

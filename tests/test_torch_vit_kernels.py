@@ -352,15 +352,17 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     assert kernels.SOURCES["vit_block"] == "vit_block.cu"
     assert [p.name for p in kernels.included_files("vit_block")] == [
         "vit_block.cu", "attention_f32.cuh", "bf16_gemm_tma.cuh",
-        "block_stages.cuh", "vit_attention.cuh", "vit_attention_wgmma.cuh",
-        "activations.cuh", "hopper_async.cuh", "bf16_gemm.cuh",
-        "row_norm.cuh"]
+        "block_stages.cuh", "forms.cuh", "vit_attention.cuh",
+        "vit_attention_wgmma.cuh", "activations.cuh", "hopper_async.cuh",
+        "bf16_gemm.cuh", "row_norm.cuh"]
     assert [p.name for p in kernels.included_files("vit_whole_block")] == [
-        "vit_whole_block.cu", "bf16_gemm_tma.cuh", "row_norm.cuh",
-        "vit_attention.cuh", "activations.cuh", "hopper_async.cuh"]
+        "vit_whole_block.cu", "bf16_gemm_tma.cuh", "forms.cuh",
+        "row_norm.cuh", "vit_attention.cuh", "activations.cuh",
+        "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("attention_block")] == [
         "attention_block.cu", "attention_f32.cuh", "bf16_gemm_tma.cuh",
-        "vit_attention.cuh", "activations.cuh", "hopper_async.cuh"]
+        "forms.cuh", "vit_attention.cuh", "activations.cuh",
+        "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("flash_attention")] == [
         "flash_attention.cu", "attention_f32.cuh", "vit_attention_wgmma.cuh",
         "hopper_async.cuh"]
@@ -377,7 +379,7 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
         "int8_encoder.cu", "activations.cuh", "q8_gemm.cuh",
         "q8_gemm_tma.cuh", "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("vit_block_q8")] == [
-        "vit_block_q8.cu", "activations.cuh", "q8_gemm.cuh",
+        "vit_block_q8.cu", "activations.cuh", "forms.cuh", "q8_gemm.cuh",
         "q8_gemm_tma.cuh", "vit_attention.cuh", "hopper_async.cuh"]
     header = csrc / "bf16_gemm.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -404,6 +406,9 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
                            "t5_ffn", "gpt2_block"}),
     ("bf16_gemm.cuh", {"vit_block"}),
     ("block_stages.cuh", {"vit_block"}),
+    # the <X, P> forms' dispatch and their loads and stores
+    ("forms.cuh", {"vit_block", "vit_block_q8", "vit_whole_block",
+                   "attention_block"}),
     ("vit_attention.cuh", {"vit_block", "vit_whole_block", "attention_block",
                            "vit_block_q8", "gpt2_block"}),
     ("row_norm.cuh", {"vit_block", "vit_whole_block", "gpt2_block",

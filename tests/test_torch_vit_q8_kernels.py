@@ -493,8 +493,9 @@ def test_library_paths_cover_the_int8_header():
                                       "q8_gemm.cuh", "q8_gemm_tma.cuh",
                                       "hopper_async.cuh"],
                      "vit_block_q8": ["vit_block_q8.cu", "activations.cuh",
-                                      "q8_gemm.cuh", "q8_gemm_tma.cuh",
-                                      "vit_attention.cuh", "hopper_async.cuh"]}
+                                      "forms.cuh", "q8_gemm.cuh",
+                                      "q8_gemm_tma.cuh", "vit_attention.cuh",
+                                      "hopper_async.cuh"]}
     assert kernels.library_path("vit_block_q8").name.startswith(
         "vit_block_q8-")
 
@@ -539,9 +540,9 @@ def test_cuda_kernel_matches_plain_version(name):
     """The kernel against its plain version: attention within 8e-3 (1 +
     |want|); the int8 kernels within 1.6e-2 (|want| + rms(want)) with a
     relative Frobenius error of at most 2e-3 (a rare flipped code); one
-    launch counted. fp32 inputs: the int8 kernels refuse them (their fp32
-    forms are not ported), attention_core takes its fp32 form (one launch
-    counted; tests/test_torch_vit_f32_kernels.py holds its values)."""
+    launch counted. fp32 inputs take each kernel's fp32 form: one launch
+    counted, fp32 outputs (tests/test_torch_vit_f32_kernels.py and
+    tests/test_torch_vit_q8_f32.py hold their values)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     args = cuda_case(name)
@@ -564,14 +565,13 @@ def test_cuda_kernel_matches_plain_version(name):
         assert rel <= 2e-3, rel
         rms = p.square().mean().sqrt()
         assert bool(((g - p).abs() <= 1.6e-2 * (p.abs() + rms)).all())
-    if base == "attention_core":
-        before = fn.launches
-        out = fn(*(a.float() for a in args[:3]), *args[3:], **kw)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1 and out.dtype == torch.float32
-        return
-    with pytest.raises(ValueError, match="bfloat16"):
-        fn(args[0].float(), *args[1:], **kw)
+    n_acts = 3 if base == "attention_core" else 1
+    before = fn.launches
+    out = fn(*(a.float() for a in args[:n_acts]), *args[n_acts:], **kw)
+    torch.cuda.synchronize()
+    out = out if isinstance(out, tuple) else (out,)
+    assert fn.launches == before + 1
+    assert all(o.dtype == torch.float32 for o in out)
 
 
 def exact_mlp_case(rows: int, d_model: int, d_ff: int, seed: int = 0):
