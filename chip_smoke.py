@@ -235,7 +235,7 @@ register / shared-memory / spill report):
              and the fp32 FMA bound beside it) and one library call of the
              same dtypes (TF32 off); fused_vit_block's whole_dd order and
              fused_attention_block past 128 tokens (attention_f32.cuh) at
-             577 tokens on 16 images; from a generator of its own
+             577 tokens on 16 images, timed; from a generator of its own
   clip_encode_b32_fp32
              ClipImageEncoder at ViT-B/32 (12 layers), batch 1024, fp32
              parameters and activations: the default path, fused_block
@@ -5236,6 +5236,7 @@ def phase_vit_whole_kernels_f32(gen: torch.Generator) -> dict:
         want = plain(*args)
         emit("vit_whole_kernels_f32_long", kernel=name,
              batch=VIT_CHECK_BATCH, seq=vit_l.seq_len,
+             kernel_ms=cuda_ms(lambda: fn(*args), iters=5),
              **(vit_block_f32_rule(name, out, want, fn(
                  args[0].bfloat16(), *args[1:]))
                 if name.startswith("fused_vit_block")

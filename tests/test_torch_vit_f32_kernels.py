@@ -291,25 +291,35 @@ def test_wrapper_launches_the_form_of_its_dtypes(recorded, name, form):
         assert ints == (2, 577, 16, 64, 0, x_f32, route)
 
 
-ROUTES = [(197, tfab.F32_HELD), (576, tfab.F32_HELD),
-          (577, tfab.F32_HELD_KS), (640, tfab.F32_HELD_KS),
-          (641, tfab.F32_TWO_PASS)]
+# (tokens, head size, the route)
+ROUTES = [(50, 64, tfab.F32_HELD), (197, 64, tfab.F32_HELD),
+          (576, 64, tfab.F32_HELD), (577, 64, tfab.F32_HELD_KS),
+          (640, 64, tfab.F32_HELD_KS), (641, 64, tfab.F32_TWO_PASS),
+          (50, 128, tfab.F32_HELD), (256, 128, tfab.F32_HELD),
+          (257, 128, tfab.F32_TWO_PASS), (641, 128, tfab.F32_TWO_PASS)]
 
 
-@pytest.mark.parametrize("seq,route", ROUTES)
-@pytest.mark.parametrize("name", ["attention_core", "attention_core_oproj"])
-def test_f32_attention_route_by_length(recorded, name, seq, route):
-    """The fp32 attention's route by L alone at head size 64: the held
-    route up to 576 tokens (its score rows fit a block's shared memory),
-    the held route with K in the score rows up to 640, two passes past
-    that; fast_exp passed through."""
-    inp = meta_inputs(F32, F32, F32, seq=seq)
-    kw = {"fast_exp": True} if name == "attention_core" else {}
+@pytest.mark.parametrize("name,seq,head_dim,route,fast_exp", [
+    (name, seq, head_dim, route, fast_exp)
+    for name in ("attention_core", "attention_core_oproj")
+    for seq, head_dim, route in ROUTES
+    for fast_exp in ((False, True) if name == "attention_core" else (False,))
+])
+def test_f32_attention_route_by_length(recorded, name, seq, head_dim, route,
+                                       fast_exp):
+    """The fp32 attention's route by L and the head size alone: the held
+    route up to 576 tokens at head size 64 and 256 at 128 (its score rows
+    fit a block's shared memory), at 64 the held route with K in the score
+    rows up to 640, two passes past that; fast_exp passed through and not
+    read by the route."""
+    inp = meta_inputs(F32, F32, F32, seq=seq, width=16 * head_dim)
+    kw = {"fast_exp": fast_exp} if name == "attention_core" else {}
     getattr(tfab, name)(*kernel_args(name, inp), **kw)
     ints = recorded[-1][1]
-    assert ints[-1] == route == tfab.vit_f32_route(seq, 64)
+    assert ints[3] == head_dim
+    assert ints[-1] == route == tfab.vit_f32_route(seq, head_dim)
     if name == "attention_core":
-        assert ints[4:6] == (1, 1)
+        assert ints[4:6] == (int(fast_exp), 1)
 
 
 def test_held_route_limits_mirror_the_header():
