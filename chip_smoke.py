@@ -541,6 +541,10 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
 FP32_FLOP_PER_S = 67e12           # outside the tensor cores
+# an exact fp32 product on the tensor cores: six bf16-plane products (hi·hi,
+# hi·mid, mid·hi, hi·lo, mid·mid, lo·hi of three exact planes each), the
+# least the card takes for the fp32 attention's dots
+F32_PLANE_PRODUCTS = 6
 EXP_PER_S = 132 * 16 * 1.98e9      # 16 exponentials a clock on each SM
 KERNEL_ATOL = KERNEL_RTOL = 8e-3   # one bf16 ulp of outputs below 2
 REFERENCE_REL_ERR = 2e-2           # a few bf16 roundings over 2 layers
@@ -4709,11 +4713,13 @@ def f32_attention_by_route(q, k, v, heads: int, route: int, fast_exp: bool,
 
 def vit_f32_routes(qkv, heads: int, kw: dict, name: str) -> dict:
     """attention_core's fp32 kernel by the route the wrapper takes and by
-    the two-pass route (the parent's, any L), each by vit_f32_rule against
-    the plain version and timed in turns (two-pass, wrapper's, wrapper's,
-    two-pass); each route's bound on the operations it runs (the held
-    routes q·kᵀ once on whole 64-row, 64-key tiles, the two-pass route
-    q·kᵀ twice) at the fp32 rate."""
+    the two-pass route (any L), each by vit_f32_rule against the plain
+    version, timed in turns with fp32 scaled_dot_product_attention (TF32
+    off; two-pass, wrapper's, SDPA, SDPA, wrapper's, two-pass); each
+    route's bound on the operations it runs: the held routes q·kᵀ once on
+    whole 64-row, 64-key tiles at the fp32 rate, with P·V there too (the
+    held route) or E·V as six bf16-plane products at the bf16 rate (K in
+    the score rows); the two-pass route q·kᵀ twice."""
     q, k, v = qkv
     batch, seq, width = q.shape
     route = port_fab.vit_f32_route(seq, width // heads)
@@ -4731,22 +4737,38 @@ def vit_f32_routes(qkv, heads: int, kw: dict, name: str) -> dict:
                                 want, flip)
     del want, flip
     torch.cuda.empty_cache()
+    q4, k4, v4 = (t.view(batch, seq, heads, -1).transpose(1, 2)
+                  for t in qkv)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0)
+
+    def wrapper():
+        return attention_core(q, k, v, heads, **kw)
+
     turns = [cuda_ms(call, iters=5) for call in (
-        two_pass, lambda: attention_core(q, k, v, heads, **kw),
-        lambda: attention_core(q, k, v, heads, **kw), two_pass)]
+        two_pass, wrapper, sdpa, sdpa, wrapper, two_pass)]
     padded = -(-seq // 64) * 64
-    held_ops = 4 * batch * padded * padded * width
+    whole = batch * padded * padded * width
+    route_ops = {
+        port_fab.F32_HELD: [(4 * whole, FP32_FLOP_PER_S)],
+        port_fab.F32_HELD_KS: [(2 * whole, FP32_FLOP_PER_S),
+                               (12 * whole, BF16_FLOP_PER_S)],
+        port_fab.F32_TWO_PASS: [(6 * batch * seq * seq * width,
+                                 FP32_FLOP_PER_S)]}
     return dict(
         route={port_fab.F32_HELD: "held", port_fab.F32_HELD_KS:
-               "held, K in the score rows", port_fab.F32_TWO_PASS:
-               "two-pass"}[route],
-        route_bound_ms=(held_ops if route != port_fab.F32_TWO_PASS else
-                        6 * batch * seq * seq * width) / FP32_FLOP_PER_S
-        * 1e3,
-        two_pass_ms=(turns[0] + turns[3]) / 2,
-        route_turns_ms=dict(two_pass=turns[0::3], route=turns[1:3]),
-        two_pass_route_bound_ms=6 * batch * seq * seq * width
-        / FP32_FLOP_PER_S * 1e3,
+               "held, K in the score rows, E·V as bf16-plane wgmma",
+               port_fab.F32_TWO_PASS: "two-pass"}[route],
+        route_bound_ms=bound_mixed(0, route_ops[route])["bound_ms"],
+        route_in_turns_ms=(turns[1] + turns[4]) / 2,
+        sdpa_in_turns_ms=(turns[2] + turns[3]) / 2,
+        two_pass_ms=(turns[0] + turns[5]) / 2,
+        route_turns_ms=dict(two_pass=turns[0::5], route=turns[1::3],
+                            sdpa=turns[2:4]),
+        two_pass_route_bound_ms=bound_mixed(
+            0, route_ops[port_fab.F32_TWO_PASS])["bound_ms"],
         two_pass_max_abs_err=two_pass_err["max_abs_err"])
 
 
@@ -4852,22 +4874,23 @@ def phase_vit_kernels_f32(gen: torch.Generator) -> dict:
     def bound_of(name, act, vec):
         a = act32 if act == f32 else act16
         vb = 4 if vec == f32 else 2
-        fp32_attn = FP32_FLOP_PER_S if act == f32 else BF16_FLOP_PER_S
+        # fp32: the attention's dots as exact bf16-plane products
+        attn = (attn_ops * (F32_PLANE_PRODUCTS if act == f32 else 1),
+                BF16_FLOP_PER_S)
         if name == "fused_ln_qkv":
             return bound(4 * a + 3 * width * width * 2 + 5 * width * vb,
                          3 * proj_ops, BF16_FLOP_PER_S)
         if name == "attention_core_oproj":
-            # fp32: the attention on the CUDA cores, the out-projection as
-            # the three exact bf16-plane products
+            # fp32: the out-projection as the three exact bf16-plane
+            # products over the attention output's planes
             planes = 3 if act == f32 else 1
             return bound_mixed(5 * a + width * width * 2 + width * vb,
-                               [(attn_ops, fp32_attn),
-                                (planes * proj_ops, BF16_FLOP_PER_S)])
+                               [attn, (planes * proj_ops, BF16_FLOP_PER_S)])
         if name == "fused_mlp_block":
             return bound(2 * a + 2 * width * d_ff * 2
                          + (3 * width + d_ff) * vb,
                          4 * rows * width * d_ff, BF16_FLOP_PER_S)
-        return bound(4 * a, attn_ops, fp32_attn)
+        return bound_mixed(4 * a, [attn])
 
     results, line = {}, {}
     for name in ("fused_ln_qkv", "attention_core_oproj", "fused_mlp_block",
@@ -5088,7 +5111,6 @@ def phase_vit_whole_kernels_f32(gen: torch.Generator) -> dict:
     vec_n = 4 * width + 4 * width + d_ff + width
     weights = 4 * width * width + 2 * width * d_ff
     attention_flops = 4 * B32_BATCH * seq * seq * width
-    proj_flops = 2 * rows * 4 * width * width
 
     def block_bound(act, vec):
         a = 4 if act == f32 else 2
@@ -5097,22 +5119,23 @@ def phase_vit_whole_kernels_f32(gen: torch.Generator) -> dict:
                            [(2 * rows * weights + attention_flops,
                              BF16_FLOP_PER_S)])
 
-    def attention_bound(act, mat):
-        # this route: the projections as the plane products on the tensor
-        # cores (six a product of fp32 operands, three of fp32 and bf16,
-        # one of bf16), the attention on the CUDA cores; the function's
-        # fp32 products on fp32 FMAs beside it
+    def attention_bound(act, mat, batch=B32_BATCH, length=seq, dim=width):
+        # the projections as the plane products on the tensor cores (six a
+        # product of fp32 operands, three of fp32 and bf16, one of bf16),
+        # the fp32 attention's dots as six bf16-plane products each; the
+        # function's fp32 products on fp32 FMAs beside it
         products = (6 if act == f32 and mat == f32 else
                     3 if f32 in (act, mat) else 1)
         planes_out = 6 if mat == f32 else 3
         a, m = (4 if act == f32 else 2), (4 if mat == f32 else 2)
-        res = bound_mixed(2 * rows * width * a + 4 * width * width * m
-                          + 4 * width * m,
-                          [(products * 3 * proj_flops / 4, BF16_FLOP_PER_S),
-                           (attention_flops, FP32_FLOP_PER_S),
-                           (planes_out * proj_flops / 4, BF16_FLOP_PER_S)])
-        res["fp32_fma_bound_ms"] = (proj_flops + attention_flops) \
-            / FP32_FLOP_PER_S * 1e3
+        n = batch * length
+        proj = 2 * n * 4 * dim * dim
+        attn = 4 * batch * length * length * dim
+        res = bound_mixed(2 * n * dim * a + 4 * dim * dim * m + 4 * dim * m,
+                          [(products * 3 * proj / 4, BF16_FLOP_PER_S),
+                           (F32_PLANE_PRODUCTS * attn, BF16_FLOP_PER_S),
+                           (planes_out * proj / 4, BF16_FLOP_PER_S)])
+        res["fp32_fma_bound_ms"] = (proj + attn) / FP32_FLOP_PER_S * 1e3
         return res
 
     cases = {}
@@ -5154,8 +5177,13 @@ def phase_vit_whole_kernels_f32(gen: torch.Generator) -> dict:
         args=lambda dtypes, n: tuple(t[:n].to(dtypes[0]) for t in qkv),
         forms={"f32": (f32,)},
         bound=lambda d: dict(
-            bound(4 * qkv[0].numel() * 4, l_ops, FP32_FLOP_PER_S),
-            route_bound_ms=l_ops * (640 / 577) ** 2 / FP32_FLOP_PER_S * 1e3),
+            bound(4 * qkv[0].numel() * 4, F32_PLANE_PRODUCTS * l_ops,
+                  BF16_FLOP_PER_S),
+            # this route: q·kᵀ on whole tiles at the fp32 rate, E·V as six
+            # bf16-plane products (csrc/attention_f32.cuh's KS form)
+            route_bound_ms=bound_mixed(0, [
+                (l_ops / 2 * (640 / 577) ** 2, FP32_FLOP_PER_S),
+                (3 * l_ops * (640 / 577) ** 2, BF16_FLOP_PER_S)])["bound_ms"]),
         library=lambda o: lib_flash(o),
         library_name="fp32 scaled_dot_product_attention (TF32 off), scale 1, "
                      "on (B, H, L, dh) copies")
@@ -5192,21 +5220,30 @@ def phase_vit_whole_kernels_f32(gen: torch.Generator) -> dict:
             per_call = launched(globals()[name], lambda: case["fn"](*args))
             check(per_call == 1, f"{what}: {per_call} launches a call")
             iters = 5 if name == "flash_attention" else 10
+            first = form == next(iter(case["forms"]))
+            # flash_attention: fp32 SDPA in the turns too (row 16 fp32's
+            # yardstick at ViT-L/14@336's 577 keys)
+            lib = [case["library"](args)] * 2 \
+                if first and name == "flash_attention" else []
             turns = [cuda_ms(call, iters=iters) for call in (
                 lambda: case["fn"](*bf16_args), lambda: case["fn"](*args),
-                lambda: case["fn"](*args), lambda: case["fn"](*bf16_args))]
+                *lib, lambda: case["fn"](*args),
+                lambda: case["fn"](*bf16_args))]
             row = dict(
                 dtypes=[str(t).removeprefix("torch.") for t in dtypes],
                 **errs, launches_per_call=per_call,
-                ms=(turns[1] + turns[2]) / 2,
-                bf16_form_ms=(turns[0] + turns[3]) / 2,
-                turns_ms=dict(bf16_form=turns[0::3], form=turns[1:3]),
+                ms=(turns[1] + turns[-2]) / 2,
+                bf16_form_ms=(turns[0] + turns[-1]) / 2,
+                turns_ms=dict(bf16_form=turns[0::len(turns) - 1],
+                              form=[turns[1], turns[-2]],
+                              **({"library": turns[2:4]} if lib else {})),
                 **case["bound"](dtypes))
-            if form == next(iter(case["forms"])):
+            if first:
                 row["plain_ms"] = cuda_ms(lambda: case["plain"](*args),
                                           iters=2, warmup=1)
-                row["library_ms"] = cuda_ms(case["library"](args),
-                                            iters=iters)
+                row["library_ms"] = ((turns[2] + turns[3]) / 2 if lib else
+                                     cuda_ms(case["library"](args),
+                                             iters=iters))
                 row["library"] = case["library_name"]
                 line[name + "_f32"] = row
             results[what] = row
@@ -5222,21 +5259,23 @@ def phase_vit_whole_kernels_f32(gen: torch.Generator) -> dict:
     # past 128 tokens: ViT-L/14@336's 577 on VIT_CHECK_BATCH images, fp32
     # x and parameters
     long_f32 = cast(long_layer, f32, f32)
-    for name, fn, plain, args in (
+    for name, fn, plain, args, extra in (
             ("fused_vit_block whole_dd", lambda *a: fused_vit_block(
                 *a, group=1, deferred_div=True),
              lambda *a: fused_vit_block_plain(*a, deferred_div=True),
-             block_args(long_x, long_f32, l_heads)),
+             block_args(long_x, long_f32, l_heads), {}),
             (f"fused_attention_block {vit_l.seq_len} tokens", lambda *a:
              fused_attention_block(*a, group=1, block_diag=True),
              lambda *a: fused_attention_block_plain(*a, block_diag=True),
-             attn_args(long_x, long_f32, l_heads))):
+             attn_args(long_x, long_f32, l_heads),
+             attention_bound(f32, f32, VIT_CHECK_BATCH, vit_l.seq_len,
+                             vit_l.width))):
         out = fn(*args)
         torch.cuda.synchronize()
         want = plain(*args)
         emit("vit_whole_kernels_f32_long", kernel=name,
              batch=VIT_CHECK_BATCH, seq=vit_l.seq_len,
-             kernel_ms=cuda_ms(lambda: fn(*args), iters=5),
+             kernel_ms=cuda_ms(lambda: fn(*args), iters=5), **extra,
              **(vit_block_f32_rule(name, out, want, fn(
                  args[0].bfloat16(), *args[1:]))
                 if name.startswith("fused_vit_block")

@@ -71,6 +71,33 @@
 // MAX_SMEM = 232,448 (the most an H100 gives a block): Lk <= 576 at dh 64,
 // Lk <= 256 at dh 128. One block an SM.
 //
+// The held route with K in the score rows (attention_f32_held_kernel<64,
+// true>; Lk <= 640): q . k^T, the max and every p as the held route's, each
+// step's K tiles copied into the score columns that the step then writes, Q's
+// 64 KB region free after it. E . V runs on the tensor cores, the two
+// warpgroups on their own: warpgroup g takes tiles g, g + 2, ...; a tile's V
+// comes from global memory into registers (the next one loaded while the tile
+// runs), is split into three exact bf16 planes (E . V below) in the
+// warpgroup's 24 KB slot of Q's region (128-byte swizzle, an MN-major B), and
+// its p = exp(s - m) is computed at the warpgroup's A-fragment places and
+// split in registers; the six plane products, 24 m64n64k16 wgmma over the
+// tile's four k steps, go into a fresh accumulator set, added into o with
+// __fadd_rn; the two halves of o are added at the end and divided by the
+// row's sum. Its grid is (query tile, h, b), the query tiles of one (b, h)
+// side by side, so that their K and V tiles come from L2 (3 % less time than
+// (b, query tile, h), the other routes' order, which keeps a head's T5 bias
+// in L2). Barriers 3 and 4 make the warpgroups' products take turns, so that
+// each one's exponentials and planes run under the other's products. The row
+// sums keep the held route's order: each lane-slot (4 keys of a step, as a
+// warp's lane sums them there) summed in order by the thread pair that holds
+// its keys (a shuffle), the 32 slot sums of a row added as that warp's
+// shuffle tree adds them; so the denominator is bit for bit the held route's.
+// Only o's sums differ: wgmma adds each 16-key step into its fp32 accumulator
+// and truncates, which the fresh set a tile keeps near the tile's own sum
+// (tests/test_torch_vit_f32_planes.py models it). Shared memory: 4 (4 x 64 x
+// 64 + 64 (Lk_pad + 8)) + 1,024 bytes (the planes start on the swizzle's
+// 1,024-byte period).
+//
 // The two-pass route (attention_f32_kernel), for any longer Lk: a block of
 // 256 threads takes 64 query rows, Q in shared memory; key tiles of 64 keys
 // (K and V, in shared memory, zero past Lk) stream through it.
@@ -110,11 +137,24 @@
 // and each block's start and end with one block an SM. The scores on the
 // tensor cores as six bf16-plane products (the variant that
 // tools/kernel_probe.py --f32-variants timed) took 3.21 ms against this
-// route's 3.01 in the same call. At ViT-L/14@336's attention_core (B = 256,
-// L = 577, 16 heads of 64; chip_smoke.py's vit_kernels_f32, same card): the
-// held route with K in the score rows 13.93 ms, the two-pass route 23.41
-// ms in the same call; 4 B H L^2 dh = 349.1 GFLOP (5.21 ms), 6.41 ms on the
-// held route's whole tiles.
+// route's 3.01 in the same call. At ViT-L/14@336's attention (B = 256, L =
+// 577, 16 heads of 64; same card, tools/kernel_probe.py --vit-f32-variants,
+// forms of this route in turns within one call): E . V on the tensor cores
+// with the (b, query tile, h) grid 12.799 / 12.776 ms for attention_core
+// against 13.923 / 13.535 with E . V on the CUDA cores as the held route
+// does it, flash_attention's fp32 form 13.124 / 13.121 against 14.791 /
+// 14.665, fp32 scaled_dot_product_attention 12.353 - 12.402; in another
+// call the (query tile, h, b) grid 12.372 / 12.335 against 12.897 / 12.785,
+// flash_attention 12.894 / 12.991 against 13.270 / 13.212. Each output
+// within 4.1e-6 of the plain version (3.6e-6 with E . V on the CUDA cores).
+// By part (--vit-f32-split, on flash_attention's form, same card) the dots
+// of q . k^T add 5.56 ms, the exponentials 0.54, V's planes 0.47 and their
+// loads 0.24, the plane products 0.15 (beside the CUDA cores' work). The function does 4 B
+// H L^2 dh = 349.1 GFLOP: 5.21 ms at the fp32 rate, 2.12 ms as the twelve
+// bf16-plane products of both dots at 989 TFLOP/s, the least the card takes
+// for it exactly; this route 2 B H Lp^2 dh on the fp32 FMAs (Lp = 640 keys
+// on whole tiles, 3.21 ms) and 12 B H Lp^2 dh of plane products at 989
+// TFLOP/s (1.30 ms): 4.51 ms one after the other.
 
 #pragma once
 
@@ -124,6 +164,8 @@
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
+
+#include "hopper_async.cuh"
 
 namespace attention_f32 {
 
@@ -498,15 +540,27 @@ __host__ __device__ constexpr size_t held_smem_bytes(int lk, int dh) {
 // kernel's KS form): a K tile (64 keys x 64 dims) is the size of one
 // 64-column block of the 64 score rows, so each step's K tiles are copied
 // into the score columns that the step then writes (a barrier between its
-// dots and its score stores), and one region holds Q during q . k^T and
-// the V ring after it; the row maxima and sums go to the rows' pad. Its
-// dynamic shared memory: the ring and the score rows, which fit Lk <= 640
+// dots and its score stores), and one 64 KB region holds Q during q . k^T
+// and, for E . V, a plane slot for each warpgroup and the rows' lane-slot
+// sums (EV_*); the row maxima and sums go to the rows' pad. Its dynamic
+// shared memory: that region, the score rows and EV_ALIGN bytes to start
+// the region on the planes' swizzle period, which fit Lk <= 640
 // (ViT-L/14@336's 577 keys among them, one past the held route's 576).
+constexpr int EV_PLANE = HELD_TILE * 64 * 2;  // bytes: a V tile's bf16 plane
+constexpr int EV_SLOT = 3 * EV_PLANE;         // its hi, mid and lo planes
+constexpr int EV_SUM_LD = 33;                 // floats a row of lane-slot sums
+constexpr int EV_SUMS = HELD_ROWS * EV_SUM_LD * 4;  // 32 sums a row
+constexpr size_t EV_ALIGN = 1024;             // the 128-byte swizzle's period
+static_assert(2 * EV_SLOT + EV_SUMS <= HELD_SLOTS * HELD_TILE * 64 * 4,
+              "two plane slots and the sums fit Q's region");
+
 __host__ __device__ constexpr size_t held_ks_smem_bytes(int lk) {
   return sizeof(float) *
-         (static_cast<size_t>(HELD_SLOTS) * HELD_TILE * 64 +
-          static_cast<size_t>(HELD_ROWS) *
-              ((lk + HELD_TILE - 1) / HELD_TILE * HELD_TILE + HELD_PAD));
+             (static_cast<size_t>(HELD_SLOTS) * HELD_TILE * 64 +
+              static_cast<size_t>(HELD_ROWS) *
+                  ((lk + HELD_TILE - 1) / HELD_TILE * HELD_TILE +
+                   HELD_PAD)) +
+         EV_ALIGN;
 }
 
 __device__ inline void cp_async16(float* dst, const float* src, bool valid) {
@@ -700,6 +754,164 @@ __device__ inline void held_pv(const float* P, const float* Vt, int sld,
   }
 }
 
+// ---- E . V on the tensor cores (the KS form) --------------------------------
+//
+// e (the score rows' p) and V, each as three bf16 planes, hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid), whose sum is x exactly
+// (only below about 2^-110, where lo is a bf16 subnormal, may it drop bits:
+// at most 2^-134 a term), and six of the nine plane products, smallest
+// first: lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi (the three left out
+// are below 2^-25 of the product). Each bf16 product is exact; wgmma sums
+// them in fp32.
+
+// Two values' planes as packed bf16 pairs (x0 in the low half).
+__device__ inline void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                              uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = __fsub_rn(x0, hf.x), r1 = __fsub_rn(x1, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// A V tile's 64 keys x 64 dims in fp32 from global memory (key `key` at
+// vb + key ld) into registers, zero past Lk: warpgroup thread t takes keys
+// key0 + t / 8 + 16 i (i = 0 .. 3), dims 8 (t % 8) .. 8 (t % 8) + 7.
+__device__ inline void load_v_tile(const float* vb, int ld, int key0, int lk,
+                                   int t, float4 (&x)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = key0 + t / 8 + 16 * i;
+    const float4* src = reinterpret_cast<const float4*>(
+        vb + static_cast<long long>(key) * ld + 8 * (t % 8));
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    x[2 * i] = key < lk ? src[0] : zero;
+    x[2 * i + 1] = key < lk ? src[1] : zero;
+  }
+}
+
+// Those registers' three planes into `slot`, hi | mid | lo EV_PLANE bytes
+// apart, each 64 keys of 128 bytes with 16-byte chunk u of key r at u ^ (r
+// & 7) (the 128-byte swizzle of an MN-major B); then the fence that orders
+// these stores before the products' reads (a barrier comes between).
+__device__ inline void store_v_planes(const float4 (&x)[8],
+                                      unsigned char* slot, int t) {
+  const int u = t % 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = t / 8 + 16 * i;
+    const float4 x0 = x[2 * i], x1 = x[2 * i + 1];
+    uint4 hi, mid, lo;
+    split3(x0.x, x0.y, hi.x, mid.x, lo.x);
+    split3(x0.z, x0.w, hi.y, mid.y, lo.y);
+    split3(x1.x, x1.y, hi.z, mid.z, lo.z);
+    split3(x1.z, x1.w, hi.w, mid.w, lo.w);
+    unsigned char* dst = slot + r * 128 + 16 * (u ^ (r & 7));
+    *reinterpret_cast<uint4*>(dst) = hi;
+    *reinterpret_cast<uint4*>(dst + EV_PLANE) = mid;
+    *reinterpret_cast<uint4*>(dst + 2 * EV_PLANE) = lo;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// k step kk (keys 16 kk .. 16 kk + 15) of a plane (shared address `plane`)
+// as the MN-major B of e . v: 8-key groups 1024 bytes apart, one panel.
+__device__ inline uint64_t plane_desc(uint32_t plane, int kk) {
+  return hopper_async::gmma_desc(plane + kk * 16 * 128, EV_PLANE, 8 * 128,
+                                 1);
+}
+
+// The (e plane, V plane) of product pp, smallest first: lo.hi, mid.mid,
+// hi.lo, mid.hi, hi.mid, hi.hi (planes 0 hi, 1 mid, 2 lo).
+__host__ __device__ constexpr int ev_e_plane(int pp) {
+  return pp == 0 ? 2 : (pp == 1 || pp == 3) ? 1 : 0;
+}
+__host__ __device__ constexpr int ev_v_plane(int pp) {
+  return pp == 2 ? 2 : (pp == 1 || pp == 4) ? 1 : 0;
+}
+
+// p = exp(s - m) of one 64-key tile at warpgroup thread (wi, l)'s A-fragment
+// places (rows r0 = 16 wi + l / 4 and r0 + 8, keys 16 kk + 8 h + 2 (l % 4)
+// and the next, kk 0 .. 3, h 0 .. 1; S: the tile's first key of row r0,
+// m0 and m1 the two rows' maxima), split into the A fragments pa, and
+// added into the row sums in the order of the CUDA-core route's lanes
+// (lane-slot s of a tile, keys 4 s .. 4 s + 3, summed in order into its
+// own running sum across the tiles): lanes l and l ^ 1 hold a slot's two
+// key pairs, so the even lane sums row r0's slots 4 kk + 2 h + (l % 4) / 2
+// and the odd one row r0 + 8's, each with the other's pair by a shuffle.
+__device__ inline void tile_exps(const float* S, int sld, float m0, float m1,
+                                 int fast_exp, int l, float (&part)[4][2],
+                                 uint32_t (&pa)[3][4][4]) {
+  const bool odd = l & 1;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 e[2];  // rows r0, r0 + 8
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 s = *reinterpret_cast<const float2*>(
+            S + 8 * i * sld + 16 * kk + 8 * h);
+        const float m = i ? m1 : m0;
+        e[i] = make_float2(shifted_exp(s.x, m, fast_exp),
+                           shifted_exp(s.y, m, fast_exp));
+        split3(e[i].x, e[i].y, pa[0][kk][2 * h + i], pa[1][kk][2 * h + i],
+               pa[2][kk][2 * h + i]);
+      }
+      const float2 send = odd ? e[0] : e[1];
+      const float2 got =
+          make_float2(__shfl_xor_sync(0xffffffffu, send.x, 1),
+                      __shfl_xor_sync(0xffffffffu, send.y, 1));
+      const float2 first = odd ? got : e[0], second = odd ? e[1] : got;
+      part[kk][h] = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fadd_rn(part[kk][h], first.x), first.y),
+                    second.x),
+          second.y);
+    }
+  }
+}
+
+// acc = e . v over one tile's 64 keys for a warpgroup's 64 rows x 64 dims,
+// the six plane products over the four k steps, issued and committed, not
+// waited for (the products own pa and acc until then); V's planes at
+// shared address `slot`.
+__device__ inline void issue_ev(uint32_t slot, uint32_t (&pa)[3][4][4],
+                                float (&acc)[32]) {
+  hopper_async::fence_operands(acc);
+#pragma unroll
+  for (int e = 0; e < 3; ++e) hopper_async::fence_operands(pa[e]);
+  hopper_async::wgmma_fence();
+#pragma unroll
+  for (int pp = 0; pp < 6; ++pp) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper_async::wgmma_rs<1>(
+          acc, pa[ev_e_plane(pp)][kk],
+          plane_desc(slot + ev_v_plane(pp) * EV_PLANE, kk), pp + kk > 0);
+    }
+  }
+  hopper_async::wgmma_commit();
+}
+
+// The 32 lane-slot sums of a row (sum[l]) added as the CUDA-core route's
+// warp adds its lanes' (shuffles xor 16, 8, 4, 2, 1; each lane ends with
+// this value, the additions commuting).
+__device__ inline float lane_tree(const float* sum) {
+  float v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = __fadd_rn(sum[i], sum[i + 16]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(v[i], v[i + 8]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = __fadd_rn(v[i], v[i + 4]);
+  return __fadd_rn(__fadd_rn(v[0], v[2]), __fadd_rn(v[1], v[3]));
+}
+
 template <int DH, bool KS, class A>
 __global__ void __launch_bounds__(NT, 1)
 attention_f32_held_kernel(const A a) {
@@ -708,13 +920,21 @@ attention_f32_held_kernel(const A a) {
   constexpr int SLOT = HELD_TILE * DH;  // floats a ring slot
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* ring = KS ? Qs : Qs + HELD_ROWS * DH;  // KS: V's ring in Q's place
+  if constexpr (KS) {  // Q's region starts on the planes' swizzle period
+    Qs += (EV_ALIGN - hopper_async::smem_addr(smem4) % EV_ALIGN) %
+          EV_ALIGN / sizeof(float);
+  }
+  float* ring = KS ? Qs : Qs + HELD_ROWS * DH;  // KS: V's tiles in Q's place
   float* S = ring + HELD_SLOTS * SLOT;
   const int tiles = (a.Lk + HELD_TILE - 1) / HELD_TILE;
   const int sld = tiles * HELD_TILE + HELD_PAD;
   const int steps = (tiles + 1) / 2;  // steps of two tiles, each product
 
-  const int b = blockIdx.x, q0 = blockIdx.y * HELD_ROWS, h = blockIdx.z;
+  // KS: the grid is (query tile, h, b), so that the blocks at work on one
+  // (b, h) read its K and V from L2 (launch_held)
+  const int b = KS ? blockIdx.z : blockIdx.x;
+  const int q0 = (KS ? blockIdx.x : blockIdx.y) * HELD_ROWS;
+  const int h = KS ? blockIdx.y : blockIdx.z;
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   const float* kb = a.k + static_cast<long long>(b) * a.Lk * a.ldk + h * DH;
   const float* vb = a.v + static_cast<long long>(b) * a.Lk * a.ldk + h * DH;
@@ -722,19 +942,19 @@ attention_f32_held_kernel(const A a) {
   // copy t < steps holds K tiles 2t, 2t + 1, copy steps + t the V tiles
   // 2t, 2t + 1, in slots 2 (t % 2) and 2 (t % 2) + 1; KS: the K tiles in
   // the score columns 2t HELD_TILE on (the last step's one tile, where
-  // tiles is odd)
+  // tiles is odd), and no V copy (E . V loads its own tiles)
   auto copy_step = [&](int t) {
     const bool is_v = t >= steps;
     const int key0 = 2 * HELD_TILE * (is_v ? t - steps : t);
-    if (KS && !is_v) {
+    if constexpr (KS) {
       for (int u = 0; u < 2 && 2 * t + u < tiles; ++u) {
         copy_rows<DH>(S + key0 + u * HELD_TILE, kb, a.ldk, HELD_TILE,
                       key0 + u * HELD_TILE, a.Lk, sld);
       }
-      return;
+    } else {
+      copy_rows<DH>(ring + 2 * (t % 2) * SLOT, is_v ? vb : kb, a.ldk,
+                    2 * HELD_TILE, key0, a.Lk);
     }
-    copy_rows<DH>(ring + 2 * (t % 2) * SLOT, is_v ? vb : kb, a.ldk,
-                  2 * HELD_TILE, key0, a.Lk);
   };
 
   copy_rows<DH>(Qs,
@@ -762,7 +982,6 @@ attention_f32_held_kernel(const A a) {
   for (int t = 0; t < steps; ++t) {
     cp_async_wait_all();
     __syncthreads();  // step t's tiles are in; step t - 1's slots are free
-    // (KS: the first V tiles wait until Q, in their place, is read)
     if (!KS || t + 1 < steps) copy_step(t + 1);
     cp_async_commit();
     const int k0 = 2 * HELD_TILE * t;
@@ -776,10 +995,13 @@ attention_f32_held_kernel(const A a) {
     }
   }
 
+  // KS: the first V tile of this thread's warpgroup, into registers
+  float4 vx[8];
+  if constexpr (KS) load_v_tile(vb, a.ldk, (w / 4) * HELD_TILE, a.Lk,
+                                threadIdx.x % 128, vx);
+
   // each row's max (Q's buffer holds the 4 key columns' maxima, then the
-  // rows' sums; KS: the score rows' pad); warp w then takes rows 8 w .. 8 w
-  // + 7 of p, float4 column l of each step, the first step's now and step
-  // t + 1's under step t's P . V
+  // rows' sums; KS: the score rows' pad)
   const int pad0 = tiles * HELD_TILE;
   auto red = [&](int j, int row) -> float& {
     return KS ? S[row * sld + pad0 + j] : Qs[j * HELD_ROWS + row];
@@ -795,92 +1017,165 @@ attention_f32_held_kernel(const A a) {
     }
   }
   __syncthreads();  // Q is no longer read
-  if constexpr (KS) {
-    copy_step(steps);  // the first V tiles, in Q's place
-    cp_async_commit();
-  }
   if (l % 8 == 0) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) red(w / 2, rg + 8 * i) = mx[i];
   }
   __syncthreads();
-  float m[8], sum[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = 8 * w + r;
-    m[r] = fmaxf(fmaxf(red(0, row), red(1, row)),
-                 fmaxf(red(2, row), red(3, row)));
-    if (has_pad(a)) m[r] = fmaxf(m[r], MASK_NEG);
-    sum[r] = 0.0f;
-  }
-  float* Pw = S + 8 * w * sld + 4 * l;  // this lane's column of step 0
-  if (4 * l < (tiles < 2 ? tiles : 2) * HELD_TILE) {
-    float4 x[8];
-    load_p4(Pw, sld, x);
-    exp_p4(m, a.fast_exp, x, sum);
-    store_p4(Pw, sld, x);
-  }
-
-  // P . V: half 0 (warps 0-3) takes keys 0-31 of each tile, half 1 keys
-  // 32-63; a thread 8 rows x 4 G dims, a warp 4 rows x 8 float4 columns
+  // P . V in two halves, whose sums meet in the ring (part)
   const int half = w / 4, wh = w % 4;
-  const int pr = 4 * (wh % 2) + l / 8, dg = 8 * (wh / 2) + l % 8;
-  float o[8][G][4];
+  float* part = ring + half * HELD_ROWS * DH;
+  auto row_max = [&](int row) {
+    const float mr = fmaxf(fmaxf(red(0, row), red(1, row)),
+                           fmaxf(red(2, row), red(3, row)));
+    return has_pad(a) ? fmaxf(mr, MASK_NEG) : mr;
+  };
+  if constexpr (KS) {
+    // On the tensor cores, each warpgroup on its own: warpgroup `half`
+    // takes tiles half, half + 2, ...; for each, V's planes from the
+    // registers its threads loaded into its plane slot, p of the tile at
+    // its A-fragment places with the row sums, the six plane products into
+    // a fresh accumulator set, added into o in fp32 (element i: row 16 wh
+    // + l / 4 + 8 ((i / 2) % 2), dim 8 (i / 4) + 2 (l % 4) + i % 2), the
+    // next V tile loaded under them. Named barrier 1 + half: the warpgroup;
+    // 3 and 4: the turns of the warpgroups' products (warpgroup 0 first).
+    const int t128 = threadIdx.x % 128, r0 = 16 * wh + l / 4;
+    unsigned char* slot =
+        reinterpret_cast<unsigned char*>(ring) + half * EV_SLOT;
+    const uint32_t slot_at = hopper_async::smem_addr(slot);
+    const float m0 = row_max(r0), m1 = row_max(r0 + 8);
+    float o[32], acc[32], psum[4][2];
+    uint32_t pa[3][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int kk = 0; kk < 4; ++kk) psum[kk][0] = psum[kk][1] = 0.0f;
+    if (half == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    for (int j = half; j < tiles; j += 2) {
+      store_v_planes(vx, slot, t128);
+      if (j + 2 < tiles) {
+        load_v_tile(vb, a.ldk, (j + 2) * HELD_TILE, a.Lk, t128, vx);
+      }
+      tile_exps(S + r0 * sld + j * HELD_TILE + 2 * (l % 4), sld, m0, m1,
+                a.fast_exp, l, psum, pa);
+      // the warpgroups' products take turns, each warpgroup's exponentials
+      // and planes under the other's products: barrier 3 + half waits for
+      // this warpgroup's 128 threads (its planes stored) and for the other
+      // warpgroup's arrival once it has issued its products
+      asm volatile("bar.sync %0, 256;\n" ::"r"(3 + half) : "memory");
+      issue_ev(slot_at, pa, acc);
+      if (j + 1 < tiles) {
+        asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - half) : "memory");
+      }
+      hopper_async::wgmma_wait<0>();
+      hopper_async::fence_operands(acc);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[i][g][e] = 0.0f;
+      for (int i = 0; i < 32; ++i) o[i] = __fadd_rn(o[i], acc[i]);
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + half) : "memory");
     }
-  }
-  for (int t = 0; t < steps; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // step t's V tiles and p are in
-    if (t + 1 < steps) copy_step(steps + t + 1);
-    cp_async_commit();
-    // p of step t + 1 (its columns 2 HELD_TILE (t + 1) + 4 l)
-    const int next = 2 * HELD_TILE * (t + 1) + 4 * l;
-    const bool exp_next = next < tiles * HELD_TILE;
-    float4 x[8];
-    if (exp_next) {
-      load_p4(Pw + 2 * HELD_TILE * (t + 1), sld, x);
-      exp_p4(m, a.fast_exp, x, sum);
-    }
-    const float* Vp = ring + 2 * ((steps + t) % 2) * SLOT;
-    const int tile = 2 * t;
-    held_pv<DH>(S + pr * sld + tile * HELD_TILE, Vp, sld, half, dg, o);
-    if (tile + 1 < tiles) {
-      held_pv<DH>(S + pr * sld + (tile + 1) * HELD_TILE, Vp + SLOT, sld,
-                  half, dg, o);
-    }
-    if (exp_next) store_p4(Pw + 2 * HELD_TILE * (t + 1), sld, x);
-  }
+    // the lane-slot sums (row r0 or r0 + 8, slot 16 half + 4 kk + 2 h +
+    // (l % 4) / 2) past the plane slots, EV_SUM_LD floats a row (a column's
+    // rows in distinct banks)
+    float* sums = reinterpret_cast<float*>(
+        reinterpret_cast<unsigned char*>(ring) + 2 * EV_SLOT);
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], off));
+      for (int h = 0; h < 2; ++h) {
+        sums[(r0 + 8 * (l & 1)) * EV_SUM_LD + 16 * half + 4 * kk + 2 * h +
+             (l % 4) / 2] = psum[kk][h];
+      }
     }
-  }
-  if (l == 0) {
+    __syncthreads();  // every product is done; every slot sum is in
+    if (threadIdx.x < HELD_ROWS) {
+      const int row = threadIdx.x;
+      const float s = lane_tree(sums + row * EV_SUM_LD);
+      denom(row) = has_pad(a) ? __fadd_rn(s, pad_share(a, row_max(row))) : s;
+    }
+    // float2 column c of row r at c ^ 8 (r & 7): a warp's 8 rows in
+    // distinct bank groups
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = r0 + 8 * ((i / 2) % 2);
+      const int c = 8 * (i / 4) + 2 * (l % 4);
+      *reinterpret_cast<float2*>(part + r * DH + (c ^ (8 * (r & 7)))) =
+          make_float2(o[i], o[i + 1]);
+    }
+  } else {
+    // On the CUDA cores: warp w takes rows 8 w .. 8 w + 7 of p, float4
+    // column l of each step, the first step's now and step t + 1's under
+    // step t's P . V; half 0 (warps 0-3) takes keys 0-31 of each tile, half
+    // 1 keys 32-63; a thread 8 rows x 4 G dims, a warp 4 rows x 8 float4
+    // columns
+    float m[8], sum[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      denom(8 * w + r) =
-          has_pad(a) ? __fadd_rn(sum[r], pad_share(a, m[r])) : sum[r];
+      m[r] = row_max(8 * w + r);
+      sum[r] = 0.0f;
     }
-  }
-
-  // the halves' sums through the ring, then o / denom
-  __syncthreads();  // the ring is no longer read; every row's sum is written
-  float* part = ring + half * HELD_ROWS * DH;
+    float* Pw = S + 8 * w * sld + 4 * l;  // this lane's column of step 0
+    if (4 * l < (tiles < 2 ? tiles : 2) * HELD_TILE) {
+      float4 x[8];
+      load_p4(Pw, sld, x);
+      exp_p4(m, a.fast_exp, x, sum);
+      store_p4(Pw, sld, x);
+    }
+    const int pr = 4 * (wh % 2) + l / 8, dg = 8 * (wh / 2) + l % 8;
+    float o[8][G][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      *reinterpret_cast<float4*>(part + (pr + 8 * i) * DH +
-                                 4 * (dg + 16 * g)) =
-          make_float4(o[i][g][0], o[i][g][1], o[i][g][2], o[i][g][3]);
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][g][e] = 0.0f;
+      }
+    }
+    for (int t = 0; t < steps; ++t) {
+      cp_async_wait_all();
+      __syncthreads();  // step t's V tiles and p are in
+      if (t + 1 < steps) copy_step(steps + t + 1);
+      cp_async_commit();
+      // p of step t + 1 (its columns 2 HELD_TILE (t + 1) + 4 l)
+      const int next = 2 * HELD_TILE * (t + 1) + 4 * l;
+      const bool exp_next = next < tiles * HELD_TILE;
+      float4 x[8];
+      if (exp_next) {
+        load_p4(Pw + 2 * HELD_TILE * (t + 1), sld, x);
+        exp_p4(m, a.fast_exp, x, sum);
+      }
+      const float* Vp = ring + 2 * ((steps + t) % 2) * SLOT;
+      const int tile = 2 * t;
+      held_pv<DH>(S + pr * sld + tile * HELD_TILE, Vp, sld, half, dg, o);
+      if (tile + 1 < tiles) {
+        held_pv<DH>(S + pr * sld + (tile + 1) * HELD_TILE, Vp + SLOT, sld,
+                    half, dg, o);
+      }
+      if (exp_next) store_p4(Pw + 2 * HELD_TILE * (t + 1), sld, x);
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        sum[r] =
+            __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], off));
+      }
+    }
+    if (l == 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        denom(8 * w + r) =
+            has_pad(a) ? __fadd_rn(sum[r], pad_share(a, m[r])) : sum[r];
+      }
+    }
+    __syncthreads();  // the ring is no longer read; every row's sum is in
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        *reinterpret_cast<float4*>(part + (pr + 8 * i) * DH +
+                                   4 * (dg + 16 * g)) =
+            make_float4(o[i][g][0], o[i][g][1], o[i][g][2], o[i][g][3]);
+      }
     }
   }
   __syncthreads();
@@ -888,9 +1183,10 @@ attention_f32_held_kernel(const A a) {
   for (int idx = threadIdx.x; idx < HELD_ROWS * C4; idx += NT) {
     const int r = idx / C4, c = idx % C4;
     if (q0 + r >= a.Lq) break;
-    const float4 x = *reinterpret_cast<const float4*>(ring + r * DH + 4 * c);
+    const int col = KS ? (4 * c) ^ (8 * (r & 7)) : 4 * c;  // KS: as stored
+    const float4 x = *reinterpret_cast<const float4*>(ring + r * DH + col);
     const float4 y = *reinterpret_cast<const float4*>(
-        ring + (HELD_ROWS + r) * DH + 4 * c);
+        ring + (HELD_ROWS + r) * DH + col);
     const float d = denom(r);
     store_out4(a, static_cast<long long>(b) * a.Lq + q0 + r, h * DH + 4 * c,
                make_float4(__fdiv_rn(__fadd_rn(x.x, y.x), d),
@@ -902,15 +1198,16 @@ attention_f32_held_kernel(const A a) {
 
 // cudaErrorInvalidValue, and nothing launched, where the score rows do not
 // fit (held_smem_bytes(Lk, DH), or with KS held_ks_smem_bytes(Lk), >
-// MAX_SMEM) or the arguments are out of range.
+// MAX_SMEM) or the arguments are out of range (with KS the batch is the
+// grid's z, at most 65,535; without, its x).
 template <int DH, bool KS = false, class A>
 int launch_held(const A& a, cudaStream_t stream) {
   const int tiles = (a.Lq + HELD_ROWS - 1) / HELD_ROWS;
   const size_t bytes =
       KS ? held_ks_smem_bytes(a.Lk) : held_smem_bytes(a.Lk, DH);
   if (a.B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || tiles > 65535 ||
-      a.H > 65535 || a.ldq % 4 || a.ldk % 4 || a.ldo % 4 ||
-      bytes > MAX_SMEM) {
+      a.H > 65535 || (KS && a.B > 65535) || a.ldq % 4 || a.ldk % 4 ||
+      a.ldo % 4 || bytes > MAX_SMEM) {
     return cudaErrorInvalidValue;
   }
   const auto kernel = attention_f32_held_kernel<DH, KS, A>;
@@ -918,7 +1215,8 @@ int launch_held(const A& a, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.B, tiles, a.H), NT, bytes, stream>>>(a);
+  kernel<<<KS ? dim3(tiles, a.H, a.B) : dim3(a.B, tiles, a.H), NT, bytes,
+           stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

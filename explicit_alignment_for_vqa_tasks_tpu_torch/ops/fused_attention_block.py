@@ -87,6 +87,7 @@ _F32_HEAD_DIMS = (64, 128)
 # past the last tile a score row, and the most shared memory a block gets
 _F32_HELD_ROWS, _F32_HELD_TILE, _F32_HELD_SLOTS, _F32_HELD_PAD = 64, 64, 4, 8
 _F32_MAX_SMEM = 232448
+_F32_EV_ALIGN = 1024  # the E·V planes' swizzle period (attention_f32.cuh)
 _max_len_cache: dict = {}
 
 
@@ -171,10 +172,12 @@ def f32_attention_held(seq: int, head_dim: int) -> bool:
 def f32_held_ks_smem_bytes(seq: int) -> int:
     """The shared memory of the held route with K in the score rows
     (``held_ks_smem_bytes`` of ``csrc/attention_f32.cuh``, head size 64):
-    the ring, which holds Q during q·kᵀ, and the score rows."""
+    the region that holds Q during q·kᵀ and V's tiles and bf16 planes
+    during E·V, the score rows, and the bytes that start the region on the
+    planes' swizzle period."""
     keys = -(-seq // _F32_HELD_TILE) * _F32_HELD_TILE
     return 4 * (_F32_HELD_SLOTS * _F32_HELD_TILE * _F32_HELD_TILE
-                + _F32_HELD_ROWS * (keys + _F32_HELD_PAD))
+                + _F32_HELD_ROWS * (keys + _F32_HELD_PAD)) + _F32_EV_ALIGN
 
 
 # the routes of the ViT kernels' fp32 attention (the launchers' ``route``)

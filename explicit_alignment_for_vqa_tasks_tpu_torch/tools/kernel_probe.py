@@ -21,7 +21,11 @@ time it.
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
         --f32-variants DIR [DIR ...]
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
-        --f32-split
+        --f32-split [DIR]
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --vit-f32-variants DIR [DIR ...]
+    python -m explicit_alignment_for_vqa_tasks_tpu_torch.tools.kernel_probe \
+        --vit-f32-split [DIR]
 
 Shapes: ``fused_t5_ffn`` at M = 32 x 557 rows, D = 2048, F = 5120 (gated),
 with a SHA-256 of its bf16 output (the inputs come from a seeded generator,
@@ -83,10 +87,21 @@ size 128, with the share of outputs that differ from plain); with
 given copy of ``csrc/`` (versions of ``attention_f32.cuh``), checked within
 1e-5 + 1e-5 |want| of the plain version at the main path's shape and at
 L = 1, 65 and 130, and timed at the main path's shape in turns; with
-``--f32-split`` alone, the held route of that fp32 form timed at the main
-path's shape whole and with one part cut at a time (the dots of q . k^T,
-P . V, the exponentials, the bias, the key mask), each cut copy of
-``csrc/`` built under ``build/f32split/``, in turns: what each part adds.
+``--vit-f32-variants`` alone, the fp32 forms of ``attention_core`` (with
+and without ``fast_exp``), ``flash_attention`` and ``attention_core_oproj``
+at ViT-L/14@336's 577 keys (the route that ``vit_f32_route`` gives there)
+built from each given copy of ``csrc/``, held to the plain version on 256
+images and timed there in turns, fp32 ``scaled_dot_product_attention``
+timed beside each turn (all four through ``variants``); with
+``--f32-split`` alone, the held route of ``t5_attention_core``'s fp32 form
+timed at the main path's shape whole and with one part cut at a time (the
+dots of q . k^T, P . V, the exponentials, the bias, the key mask,
+``F32_CUTS``), and with ``--vit-f32-split`` the held route with K in the
+score rows at ViT-L/14@336's attention on 256 images (the dots, the
+exponentials, p's and V's bf16 planes, V's loads, the E . V products,
+``VIT_F32_CUTS``), each cut copy of ``csrc/`` (this tree's, or DIR) built
+under ``build/f32split/`` or ``build/vitf32split/``, in turns: what each
+part adds.
 Prints one line per report and per kernel; ``chip_smoke.py`` makes the full
 measurement.
 """
@@ -497,20 +512,18 @@ def main() -> None:
     if "--flash-reference" in sys.argv[1:]:
         flash_reference()
         return
-    if sys.argv[1:2] == ["--attention-variants"]:
-        attention_variants([Path(d).resolve() for d in sys.argv[2:]])
-        return
-    if sys.argv[1:2] == ["--flash-variants"]:
+    if sys.argv[1:2] and sys.argv[1] in VARIANTS:
         print(torch.cuda.get_device_name(0), flush=True)
-        flash_variants([Path(d).resolve() for d in sys.argv[2:]])
+        make_cases, iters = VARIANTS[sys.argv[1]]
+        builds, cases = make_cases()
+        variants([Path(d).resolve() for d in sys.argv[2:]], builds, cases,
+                 iters)
         return
-    if sys.argv[1:2] == ["--f32-variants"]:
+    if sys.argv[1:2] and sys.argv[1] in SPLITS:
         print(torch.cuda.get_device_name(0), flush=True)
-        f32_variants([Path(d).resolve() for d in sys.argv[2:]])
-        return
-    if "--f32-split" in sys.argv[1:]:
-        print(torch.cuda.get_device_name(0), flush=True)
-        f32_split()
+        tree = Path(sys.argv[2]).resolve() if sys.argv[2:] else \
+            kernels.CSRC_DIR
+        split(tree, *SPLITS[sys.argv[1]])
         return
     if sys.argv[1:2] == ["--q8-variants"]:
         q8_variants([Path(d).resolve() for d in sys.argv[2:]])
@@ -774,30 +787,99 @@ def flash_reference() -> None:
 
 
 
-def attention_variants(dirs: List[Path]) -> None:
-    """attention_core's kernel from each csrc copy in ``dirs``: built in
-    parallel (one process each), then checked and timed in turns."""
-    built = build_variants(dirs, ["vit_block"])
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    batch, seq, width, heads = 256, 577, 1024, 16
-    q, k, v = (torch.randn((batch, seq, width), generator=gen, device="cuda")
-               .mul_(s).bfloat16() for s in (0.5, 2.0, 1.0))
-    want = {fe: fab.attention_core_plain(q, k, v, heads, fast_exp=fe).float()
-            for fe in (False, True)}
+def variants(dirs: List[Path], builds: List[str], cases: dict,
+             iters: int = 10) -> None:
+    """``builds`` from each csrc copy in ``dirs``, built in parallel (one
+    process each, build_variants), then in turns (the list, then reversed)
+    each of ``cases`` run from each copy: name -> (call, plain, rule,
+    timed); where ``plain`` is given, ``rule(got, want)`` reports the
+    call's output against the plain version's (computed once), and a timed
+    case is timed over ``iters`` calls."""
+    built = build_variants(dirs, builds)
+    wants = {name: case[1]() for name, case in cases.items() if case[1]}
     for d in built + built[::-1]:
         kernels.CSRC_DIR = d
         kernels._loaded.clear()
         parts = []
-        for fe in (False, True):
-            got = fab.attention_core(q, k, v, heads, fast_exp=fe).float()
-            err = (got - want[fe]).abs()
-            ok = bool((err <= 8e-3 * (1 + want[fe].abs())).all())
-            ms = cuda_ms(lambda: fab.attention_core(q, k, v, heads,
-                                                    fast_exp=fe), 10)
-            parts.append(f"fast_exp={fe}: within 8e-3 (1 + |want|) {ok}, "
-                         f"{(err > 0).float().mean().item()} of the outputs "
-                         f"differ, {ms} ms")
+        for name, (call, _, rule, timed) in cases.items():
+            part = name
+            if name in wants:
+                part += ": " + rule(call(), wants[name])
+            if timed:
+                part += f", {cuda_ms(call, iters)} ms"
+            parts.append(part)
+            torch.cuda.empty_cache()
         print(f"{d}: " + "; ".join(parts), flush=True)
+
+
+def within(tol: float):
+    """A ``variants`` rule: whether every output lies within tol (1 +
+    |want|) of the plain version's and the share that does, the largest
+    error, the share of outputs that differ and a SHA-256 of the output
+    (to compare copies bit for bit)."""
+    def rule(got: torch.Tensor, want: torch.Tensor) -> str:
+        err = (got.double() - want.double()).abs()
+        near = err <= tol * (1 + want.double().abs())
+        return (f"within {tol} (1 + |want|) {bool(near.all())} "
+                f"({near.double().mean().item()}), max abs err "
+                f"{err.max().item()}, {(err > 0).double().mean().item()} "
+                f"differ, sha256 {sha256_of([got])[:16]}")
+    return rule
+
+
+def within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(every element within one bf16 ulp of the larger of the two values,
+    at least that of rms(want) / 256; the share of elements that differ)."""
+    g, w = got.float(), want.float()
+    top = torch.maximum(torch.maximum(g.abs(), w.abs()),
+                        w.square().mean().sqrt() / 256)
+    err = (g - w).abs()
+    return (bool((err <= torch.exp2(torch.floor(torch.log2(top)) - 7)).all()),
+            (err > 0).float().mean().item())
+
+
+def one_ulp(got: torch.Tensor, want: torch.Tensor) -> str:
+    """A ``variants`` rule: within_one_ulp's verdict and share."""
+    ok, share = within_one_ulp(got, want)
+    return f"within one ulp {ok}, {share} differ"
+
+
+def attention_cases() -> tuple:
+    """--attention-variants: attention_core's bf16 kernel at ViT-L/14@336's
+    attention on 256 images (L = 577, 16 heads of 64), with and without
+    fast_exp, held to 8e-3 (1 + |want|) of plain and timed."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((256, 577, 1024), generator=gen, device="cuda")
+               .mul_(s).bfloat16() for s in (0.5, 2.0, 1.0))
+    return ["vit_block"], {
+        f"fast_exp={fe}": (
+            lambda fe=fe: fab.attention_core(q, k, v, 16, fast_exp=fe),
+            lambda fe=fe: fab.attention_core_plain(q, k, v, 16,
+                                                   fast_exp=fe),
+            within(8e-3), True)
+        for fe in (False, True)}
+
+
+def flash_cases() -> tuple:
+    """--flash-variants: flash_attention's bf16 kernel held within one bf16
+    ulp of plain on 16 images at ViT-L/14@336's attention and on 2 at head
+    size 128, and timed on 256 images."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def qkv(batch, heads, dh):
+        q, k, v = (torch.randn((batch, 577, heads, dh), generator=gen,
+                               device="cuda") for _ in range(3))
+        return (q * dh ** -0.5).bfloat16(), k.bfloat16(), v.bfloat16()
+
+    cases = {}
+    for name, (args, timed) in {"B=16 dh=64": (qkv(16, 16, 64), False),
+                                "B=2 dh=128": (qkv(2, 8, 128), False),
+                                "B=256": (qkv(256, 16, 64), True)}.items():
+        cases[name] = (lambda a=args: attn.flash_attention(*a),
+                       None if timed else
+                       lambda a=args: attn.flash_attention_plain(*a),
+                       one_ulp, timed)
+    return ["flash_attention"], cases
 
 
 def f32_attention_case(batch: int, seq: int, heads: int, head_dim: int,
@@ -818,120 +900,178 @@ def f32_attention_case(batch: int, seq: int, heads: int, head_dim: int,
     return q, k, v, bias, mask, heads
 
 
-def f32_variants(dirs: List[Path]) -> None:
-    """t5_attention_core's fp32 form from each csrc copy in ``dirs``: built
-    in parallel (one process each), checked against the plain version, then
-    timed at B = 32, L = 557, 32 heads of 64 in turns (the list, then
-    reversed)."""
-    built = build_variants(dirs, ["t5_attention_core"])
+def f32_cases() -> tuple:
+    """--f32-variants: t5_attention_core's fp32 form held within 1e-5 (1 +
+    |want|) of plain at the main path's shape (B = 32, L = 557, 32 heads of
+    64; timed) and at L = 1, 65 and 130."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    checks = {f"B={b} L={n} H={h} dh={d}": f32_attention_case(b, n, h, d, gen)
-              for b, n, h, d in ((32, 557, 32, 64), (2, 1, 3, 64),
-                                 (3, 65, 4, 64), (4, 130, 5, 128))}
-    want = {name: fab.t5_attention_core_plain(*a)
-            for name, a in checks.items()}
-    timed = checks["B=32 L=557 H=32 dh=64"]
-    for d in built + built[::-1]:
-        kernels.CSRC_DIR = d
-        kernels._loaded.clear()
-        parts = []
-        for name, args in checks.items():
-            err = (fab.t5_attention_core(*args) - want[name]).abs()
-            ok = bool((err <= 1e-5 + 1e-5 * want[name].abs()).all())
-            parts.append(f"{name}: within 1e-5 {ok}, max abs err "
-                         f"{err.max().item()}")
-        ms = cuda_ms(lambda: fab.t5_attention_core(*timed), 10)
-        print(f"{d}: " + "; ".join(parts) + f"; B=32 L=557 {ms} ms",
-              flush=True)
+    cases = {}
+    for b, n, h, d in ((32, 557, 32, 64), (2, 1, 3, 64), (3, 65, 4, 64),
+                       (4, 130, 5, 128)):
+        args = f32_attention_case(b, n, h, d, gen)
+        cases[f"B={b} L={n} H={h} dh={d}"] = (
+            lambda a=args: fab.t5_attention_core(*a),
+            lambda a=args: fab.t5_attention_core_plain(*a),
+            within(1e-5), n == 557)
+    return ["t5_attention_core"], cases
 
 
-# the held route's parts, each cut from a copy of csrc/ (file, text, cut)
+def vit_f32_inputs(batch: int = 256, seq: int = 577, width: int = 1024):
+    """fp32 q, k, v at ViT-L/14@336's attention, at 0.5, 2 and 1 N(0, 1)
+    (scores up to about 35), and a residual at N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return [torch.randn((batch, seq, width), generator=gen,
+                        device="cuda").mul_(s) for s in (0.5, 2.0, 1.0, 1.0)]
+
+
+def vit_f32_cases() -> tuple:
+    """--vit-f32-variants: rows 11 (with and without fast_exp), 16 and 9
+    fp32 at ViT-L/14@336's attention on 256 images (L = 577, 16 heads of
+    64, the route that vit_f32_route gives there), each held to plain by
+    the fp32 rule 1e-5 (1 + |want|) and timed, and fp32
+    scaled_dot_product_attention (TF32 off) timed beside them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, seq, width, heads = 256, 577, 1024, 16
+    dh = width // heads
+    q, k, v, x = vit_f32_inputs(batch, seq, width)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    wo = (torch.randn((width, width), generator=gen, device="cuda")
+          * width ** -0.5).bfloat16()
+    bo = (torch.randn((width,), generator=gen, device="cuda") * 0.1
+          ).bfloat16()
+    q4, k4, v4 = (t.view(batch, seq, heads, dh) for t in (q, k, v))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q4, k4, v4))
+    print(f"route at L={seq}: {fab.vit_f32_route(seq, dh)}", flush=True)
+    rule = within(1e-5)
+    return ["vit_block", "flash_attention"], {
+        "attention_core": (
+            lambda: fab.attention_core(q, k, v, heads),
+            lambda: fab.attention_core_plain(q, k, v, heads), rule, True),
+        "attention_core fast_exp": (
+            lambda: fab.attention_core(q, k, v, heads, fast_exp=True),
+            lambda: fab.attention_core_plain(q, k, v, heads, fast_exp=True),
+            rule, True),
+        "flash_attention": (
+            lambda: attn.flash_attention(q4, k4, v4),
+            lambda: attn.flash_attention_plain(q4, k4, v4), rule, True),
+        "attention_core_oproj": (
+            lambda: fab.attention_core_oproj(x, q, k, v, wo, bo, heads),
+            lambda: fab.attention_core_oproj_plain(x, q, k, v, wo, bo,
+                                                   heads), rule, True),
+        "fp32 SDPA": (
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, scale=1.0), None, None, True)}
+
+
+# --X-variants DIR...: the case table and its time's iterations
+VARIANTS = {"--attention-variants": (attention_cases, 10),
+            "--flash-variants": (flash_cases, 10),
+            "--f32-variants": (f32_cases, 10),
+            "--vit-f32-variants": (vit_f32_cases, 5)}
+
+# the parts of an fp32 route, each cut from a copy of csrc/: name -> (file,
+# text, cut), every occurrence of the text cut (the copy's output then
+# meaningless). F32_CUTS: the held route (t5_attention_core's fp32 form);
+# VIT_F32_CUTS: the held route with K in the score rows, E . V on the
+# tensor cores (flash_attention's fp32 form at 577 keys)
+_DOTS = ("attention_f32.cuh",
+         "  for (int c = 0; c < C4; ++c) {\n    float4 qv[8], kv[NJ];",
+         "  for (int c = 0; c < C4 * (a.B < 0); ++c) {\n"
+         "    float4 qv[8], kv[NJ];")
 F32_CUTS = {
-    "dots": ("attention_f32.cuh", "  for (int c = 0; c < C4; ++c) {\n"
-             "    float4 qv[8], kv[NJ];",
-             "  for (int c = 0; c < C4 * (a.B < 0); ++c) {\n"
-             "    float4 qv[8], kv[NJ];"),
+    "dots": _DOTS,
     "pv": ("attention_f32.cuh", "held_pv<DH>(S + pr",
            "if (a.B < 0) held_pv<DH>(S + pr"),
-    "exp": ("attention_f32.cuh", "exp_p4(m, x, sum);",
-            "if (a.B < 0) exp_p4(m, x, sum);"),
+    "exp": ("attention_f32.cuh", "exp_p4(m, a.fast_exp, x, sum);",
+            "if (a.B < 0) exp_p4(m, a.fast_exp, x, sum);"),
     "bias": ("t5_attention_core.cu", "static_cast<const float*>(bias),",
              "nullptr,"),
     "mask": ("t5_attention_core.cu", "static_cast<const int*>(mask),",
              "nullptr,"),
 }
+VIT_F32_CUTS = {
+    "dots": _DOTS,
+    "exponentials": (
+        "attention_f32.cuh",
+        "        e[i] = make_float2(shifted_exp(s.x, m, fast_exp),\n"
+        "                           shifted_exp(s.y, m, fast_exp));",
+        "        e[i] = s;"),
+    "p planes": (
+        "attention_f32.cuh",
+        "        split3(e[i].x, e[i].y, pa[0][kk][2 * h + i], "
+        "pa[1][kk][2 * h + i],\n               pa[2][kk][2 * h + i]);",
+        "        pa[0][kk][2 * h + i] = pa[1][kk][2 * h + i] = "
+        "pa[2][kk][2 * h + i] = __float_as_uint(e[i].x);"),
+    "v planes": ("attention_f32.cuh",
+                 "      store_v_planes(vx, slot, t128);",
+                 "      if (a.B < 0) store_v_planes(vx, slot, t128);"),
+    "v loads": ("attention_f32.cuh",
+                "        load_v_tile(vb, a.ldk, (j + 2) * HELD_TILE, a.Lk, "
+                "t128, vx);",
+                "        if (a.B < 0) load_v_tile(vb, a.ldk, (j + 2) * "
+                "HELD_TILE, a.Lk, t128, vx);"),
+    "products": ("attention_f32.cuh", "      hopper_async::wgmma_rs<1>(\n",
+                 "      if (slot == 1u) hopper_async::wgmma_rs<1>(\n"),
+}
 
 
-def f32_split() -> None:
-    """The fp32 held route at B = 32, L = 557, 32 heads of 64: whole, and
-    with each of F32_CUTS cut (its output then meaningless), timed in turns;
-    prints each time and what the cut part adds to the whole."""
+def f32_split_call():
+    """t5_attention_core's fp32 form at the main path's shape (B = 32, L =
+    557, 32 heads of 64: the held route)."""
+    args = f32_attention_case(32, 557, 32, 64,
+                              torch.Generator(device="cuda").manual_seed(0))
+    return lambda: fab.t5_attention_core(*args)
+
+
+def vit_f32_split_call():
+    """flash_attention's fp32 form at ViT-L/14@336's attention (B = 256, L
+    = 577, 16 heads of 64: the held route with K in the score rows)."""
+    q, k, v = (t.view(256, 577, 16, 64) for t in vit_f32_inputs()[:3])
+    return lambda: attn.flash_attention(q, k, v)
+
+
+# --X-split [DIR]: (the copies' folder under build/, the cuts, the sources
+# built, the timed call, its iterations)
+SPLITS = {"--f32-split": ("f32split", F32_CUTS, ["t5_attention_core"],
+                          f32_split_call, 10),
+          "--vit-f32-split": ("vitf32split", VIT_F32_CUTS,
+                              ["flash_attention"], vit_f32_split_call, 5)}
+
+
+def split(tree: Path, folder: str, cuts: dict, builds: List[str], make_call,
+          iters: int) -> None:
+    """The call that ``make_call`` gives, built from the csrc copy
+    ``tree`` whole and with each of ``cuts`` cut (the copies under
+    ``build/<folder>/``, built in parallel), timed in turns: prints each
+    time and what the cut part adds to the whole. Stops if a cut's text is
+    not in its file or a copy does not build."""
     dirs = {}
-    for name in ("whole", *F32_CUTS):
-        d = kernels.BUILD_DIR.parent / "f32split" / name
+    for name in ("whole", *cuts):
+        d = kernels.BUILD_DIR.parent / folder / name.replace(" ", "_")
         if d.exists():
             shutil.rmtree(d)
-        shutil.copytree(kernels.CSRC_DIR, d)
-        if name in F32_CUTS:
-            file, old, new = F32_CUTS[name]
+        shutil.copytree(tree, d)
+        if name in cuts:
+            file, old, new = cuts[name]
             text = (d / file).read_text()
             if old not in text:
                 raise SystemExit(f"kernel_probe: {name}: not in {file}")
             (d / file).write_text(text.replace(old, new))
         dirs[name] = d.resolve()
-    built = build_variants(list(dirs.values()), ["t5_attention_core"])
+    built = build_variants(list(dirs.values()), builds)
     if len(built) != len(dirs):
         raise SystemExit("kernel_probe: a cut copy did not build")
-    args = f32_attention_case(32, 557, 32, 64,
-                              torch.Generator(device="cuda").manual_seed(0))
+    call = make_call()
     times = {name: [] for name in dirs}
     for name in list(dirs) + list(dirs)[::-1]:
         kernels.CSRC_DIR = dirs[name]
         kernels._loaded.clear()
-        times[name].append(cuda_ms(lambda: fab.t5_attention_core(*args), 10))
+        times[name].append(cuda_ms(call, iters))
     whole = sum(times["whole"]) / 2
     for name, ms in times.items():
-        print(f"f32 split {name}: {ms} ms"
+        print(f"{folder} {name}: {ms} ms"
               + ("" if name == "whole" else
                  f"; the part adds {whole - sum(ms) / 2} ms"), flush=True)
-
-
-def within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> tuple:
-    """(every element within one bf16 ulp of the larger of the two values,
-    at least that of rms(want) / 256; the share of elements that differ)."""
-    g, w = got.float(), want.float()
-    top = torch.maximum(torch.maximum(g.abs(), w.abs()),
-                        w.square().mean().sqrt() / 256)
-    err = (g - w).abs()
-    return (bool((err <= torch.exp2(torch.floor(torch.log2(top)) - 7)).all()),
-            (err > 0).float().mean().item())
-
-
-def flash_variants(dirs: List[Path]) -> None:
-    """flash_attention's kernel from each csrc copy in ``dirs``: built in
-    parallel (one process each), checked against the plain version on 16
-    images at ViT-L/14@336's attention and at head size 128, then timed on
-    256 images in turns (the list, then reversed)."""
-    built = build_variants(dirs, ["flash_attention"])
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def qkv(batch, heads, dh):
-        q, k, v = (torch.randn((batch, 577, heads, dh), generator=gen,
-                               device="cuda") for _ in range(3))
-        return (q * dh ** -0.5).bfloat16(), k.bfloat16(), v.bfloat16()
-
-    checks = {"B=16 dh=64": qkv(16, 16, 64), "B=2 dh=128": qkv(2, 8, 128)}
-    want = {name: attn.flash_attention_plain(*a) for name, a in checks.items()}
-    timed = qkv(256, 16, 64)
-    for d in built + built[::-1]:
-        kernels.CSRC_DIR = d
-        kernels._loaded.clear()
-        parts = []
-        for name, args in checks.items():
-            ok, share = within_one_ulp(attn.flash_attention(*args), want[name])
-            parts.append(f"{name}: within one ulp {ok}, {share} differ")
-        ms = cuda_ms(lambda: attn.flash_attention(*timed), 10)
-        print(f"{d}: " + "; ".join(parts) + f"; B=256 {ms} ms", flush=True)
 
 
 def build_variants(dirs: List[Path], names: List[str]) -> List[Path]:

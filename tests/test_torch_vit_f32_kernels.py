@@ -12,9 +12,11 @@ forms on bf16-valued parameters, and the held route's limit."""
 import pytest
 import torch
 
+from explicit_alignment_for_vqa_tasks_tpu_torch import kernels
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops import (
     fused_attention_block as tfab,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.tools import kernel_probe
 
 F32, BF16 = torch.float32, torch.bfloat16
 KERNELS = ("fused_ln_qkv", "attention_core_oproj", "fused_mlp_block",
@@ -324,12 +326,14 @@ def test_f32_attention_route_by_length(recorded, name, seq, head_dim, route,
 
 def test_held_route_limits_mirror_the_header():
     """The limits of the header's held_smem_bytes and held_ks_smem_bytes
-    against the card's 232,448 bytes a block."""
+    (with the 1,024 bytes that align E·V's bf16 planes) against the card's
+    232,448 bytes a block."""
     assert tfab.f32_attention_held(576, 64)
     assert not tfab.f32_attention_held(577, 64)
     assert tfab.f32_attention_held(256, 128)
     assert not tfab.f32_attention_held(257, 128)
-    assert tfab.f32_held_ks_smem_bytes(577) == 231424
+    assert tfab.f32_held_ks_smem_bytes(577) == 232448
+    assert tfab.f32_held_ks_smem_bytes(640) == 232448
     assert tfab.f32_held_ks_smem_bytes(641) > 232448
     assert tfab.vit_f32_route(300, 128) == tfab.F32_TWO_PASS
 
@@ -475,12 +479,14 @@ def launch_f32_attention(q, k, v, heads, route, fast_exp=False):
 @pytest.mark.parametrize("seq,route", [
     (seq, route) for seq in (130, 577) for route in (
         tfab.F32_TWO_PASS, tfab.F32_HELD, tfab.F32_HELD_KS)
-    if not (seq == 577 and route == tfab.F32_HELD)])
+    if not (seq == 577 and route == tfab.F32_HELD)]
+    + [(640, tfab.F32_HELD_KS)])
 @pytest.mark.parametrize("fast_exp", [False, True])
 def test_cuda_f32_attention_routes_match_plain(card, seq, route, fast_exp):
     """Each route of the fp32 attention where it fits, whatever the wrapper
-    would pick (an odd number of key tiles at 130 tokens), by the fp32
-    rule against the plain version."""
+    would pick (an odd number of key tiles at 130 tokens; the held route
+    with K in the score rows, E·V on the tensor cores, also at its longest,
+    640 keys), by the fp32 rule against the plain version."""
     inp = vit_inputs(2, seq, 1024, 16, F32, F32, F32, card, seed=2)
     rc, got = launch_f32_attention(*inp["qkv"], 16, route, fast_exp)
     assert rc == 0
@@ -495,10 +501,40 @@ def test_cuda_f32_attention_routes_match_plain(card, seq, route, fast_exp):
                                        (641, tfab.F32_HELD_KS)])
 def test_cuda_f32_held_launchers_refuse_past_their_limits(card, seq, route):
     """Each held route returns an error, and launches nothing, one key past
-    what its score rows hold at head size 64: the wrapper's route and the
-    header's limits cannot part."""
+    what its score rows hold at head size 64, and runs at that limit: the
+    wrapper's route and the header's limits cannot part."""
     q, k, v = (torch.zeros(1, seq, 128, device=card) for _ in range(3))
     rc, out = launch_f32_attention(q, k, v, 2, route)
     assert rc != 0 and bool((out == 7.0).all())
+    rc, out = launch_f32_attention(q[:, 1:], k[:, 1:], v[:, 1:], 2, route)
+    assert rc == 0 and bool((out == 0).all())
     rc, out = launch_f32_attention(q, k, v, 2, tfab.F32_TWO_PASS)
     assert rc == 0 and bool((out == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", [tfab.F32_HELD, tfab.F32_HELD_KS])
+def test_cuda_f32_held_launchers_batch_limits(card, route):
+    """65,536 images of one token: the held route (the batch on the grid's
+    x) runs them; the held route with K in the score rows (the batch on
+    the grid's z) returns an error and launches nothing, and runs 65,535.
+    One key gives each output its v, 1."""
+    q, k, v = (torch.ones(65536, 1, 128, device=card) for _ in range(3))
+    rc, out = launch_f32_attention(q, k, v, 2, route)
+    if route == tfab.F32_HELD:
+        assert rc == 0 and bool((out == 1).all())
+        return
+    assert rc != 0 and bool((out == 7.0).all())
+    rc, out = launch_f32_attention(q[1:], k[1:], v[1:], 2, route)
+    assert rc == 0 and bool((out == 1).all())
+
+
+@pytest.mark.parametrize("table,name", [
+    (table, name) for table in ("F32_CUTS", "VIT_F32_CUTS")
+    for name in getattr(kernel_probe, table)])
+def test_probe_cuts_find_their_text(table, name):
+    """Each part that kernel_probe's --f32-split and --vit-f32-split cut
+    names text that this tree's sources hold, and the cut changes it."""
+    file, old, new = getattr(kernel_probe, table)[name]
+    text = (kernels.CSRC_DIR / file).read_text()
+    assert old in text and old != new

@@ -353,7 +353,7 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     assert [p.name for p in kernels.included_files("vit_block")] == [
         "vit_block.cu", "attention_f32.cuh", "bf16_gemm_tma.cuh",
         "block_stages.cuh", "forms.cuh", "vit_attention.cuh",
-        "vit_attention_wgmma.cuh", "activations.cuh", "hopper_async.cuh",
+        "vit_attention_wgmma.cuh", "hopper_async.cuh", "activations.cuh",
         "bf16_gemm.cuh", "row_norm.cuh"]
     assert [p.name for p in kernels.included_files("vit_whole_block")] == [
         "vit_whole_block.cu", "bf16_gemm_tma.cuh", "forms.cuh",
@@ -361,8 +361,8 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
         "hopper_async.cuh"]
     assert [p.name for p in kernels.included_files("attention_block")] == [
         "attention_block.cu", "attention_f32.cuh", "bf16_gemm_tma.cuh",
-        "forms.cuh", "vit_attention.cuh", "activations.cuh",
-        "hopper_async.cuh"]
+        "forms.cuh", "vit_attention.cuh", "hopper_async.cuh",
+        "activations.cuh"]
     assert [p.name for p in kernels.included_files("flash_attention")] == [
         "flash_attention.cu", "attention_f32.cuh", "vit_attention_wgmma.cuh",
         "hopper_async.cuh"]

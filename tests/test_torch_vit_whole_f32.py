@@ -667,6 +667,13 @@ CUDA_FLASH_CASES = {
     "lq_ne_lk": (2, 13, 237, 4, 64, None),
     "long_keys": (2, 96, 2500, 4, 64, "key_mask"),
     "head_dim_128": (2, 577, 577, 8, 128, "per_batch_head"),
+    # the held route with K in the score rows (577..640 keys at head size
+    # 64): E·V on the tensor cores under a key mask, a bias, a row masked
+    # entirely (JAX's padded keys in the denominator) and Lq != Lk
+    "key_mask_577": (2, 577, 577, 4, 64, "key_mask"),
+    "per_batch_head_640": (2, 64, 640, 4, 64, "per_batch_head"),
+    "fully_masked_row_600": (3, 70, 600, 4, 64, "fully_masked_row"),
+    "lq_ne_lk_600": (2, 13, 600, 4, 64, None),
 }
 
 
@@ -675,10 +682,13 @@ CUDA_FLASH_CASES = {
 def test_cuda_flash_attention_f32_matches_plain(card, case):
     """fp32 q, k, v under each bias kind (broadcast along the batch, the
     heads, the rows or the keys), a row the bias masks entirely (JAX's
-    padded keys counted), Lq != Lk, 2,500 keys and head size 128: every
-    output within F32_TOL (1 + |want|) of the plain version; one launch
-    counted."""
+    padded keys counted), Lq != Lk, 2,500 keys and head size 128, and at
+    577 to 640 keys the held route with K in the score rows under a key
+    mask, a bias, a masked row and Lq != Lk: every output within F32_TOL
+    (1 + |want|) of the plain version; one launch counted."""
     batch, lq, lk, heads, head_dim, kind = CUDA_FLASH_CASES[case]
+    if case.endswith(("_577", "_600", "_640")):
+        assert tfab.vit_f32_route(lk, head_dim) == tfab.F32_HELD_KS
     gen = torch.Generator(device=card).manual_seed(0)
 
     def randn(*shape):
