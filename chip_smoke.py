@@ -80,9 +80,11 @@ register / shared-memory / spill report):
              of PADDED_KEYS masked keys and one fully masked row;
              t5_attention_core's held route and the two-pass route timed
              in turns at the main shape (the two-pass kernel through its
-             own launcher), beside both routes' bounds and the function's;
-             fused_t5_ffn on fp32 x (bf16 weights) by compare_q8's rule, as
-             t5_ffn holds the bf16 form; each with kernel, plain, library
+             own launcher), beside both routes' bounds and the function's
+             (each dot as six exact bf16-plane products on the tensor
+             cores, as rows 9, 11, 16 and 17 fp32 count theirs; its fp32
+             FMA bound beside it); fused_t5_ffn on fp32 x (bf16 weights)
+             by compare_q8's rule, as t5_ffn holds the bf16 form; each with kernel, plain, library
              and bound times and its launches a call; the fp32 forms of
              the int8 trio (fused_t5_ln_qkv_q8, fused_oproj_residual_q8,
              fused_t5_ffn_q8 on fp32 x, attention output and residual, an
@@ -369,6 +371,28 @@ register / shared-memory / spill report):
              tools/bench_train.py's body at its defaults for --model vct0
              and clipcap, with and without --fused_attention: the JSON
              lines, the path's kernel launched once a layer a step
+  rices      in-context example selection as a user runs it: knn_search on
+             the card against the CPU on integer-valued vectors with
+             planted ties (equal indices and similarities), and under a
+             global TF32 setting within RICES_TF32_TOL of float64; image
+             embeddings of 64 train and 32 val images through
+             ClipImageEncoder at ViT-L/14@336 (random bf16 weights) as
+             shipped (no kernel) and int8 (fused_qkv_q8, attention_core,
+             fused_mlp_block_q8: 24 launches a call each), question
+             embeddings of 128 + 32 questions through ClipTextEncoder
+             (12 layers, 768 wide; encode_ids), the embedding pickles,
+             run_full_pipeline on the card (rices.pkl, its question-only
+             form and the int8 embeddings' rices.pkl) and on the CPU, and
+             LoadInContextExamples reading rices.pkl back: the schema, best
+             example last, the card's lists against the CPU's within
+             RICES_TOL of joint similarity, pipeline seconds
+  rices_at_scale
+             tools/rices_at_scale.py at VQA2's sizes (443,757 train
+             questions, 82,783 images, 768 wide, k = 2048, the top 32) for
+             16 chunks of 1024: its JSON line, queries/s and peak memory
+             beside the card's name and power limit, 8 rows of chunk 0
+             against a CPU recomputation (similarities within 1e-5, rows
+             equal where the scores are clear of each other)
 
 The phases from vit_kernels to clip_encode_int8_fp32 (the CLIP and GPT-2
 ones) run in a process of their own (--clip-phases), from the shared
@@ -413,7 +437,11 @@ from explicit_alignment_for_vqa_tasks_tpu_torch import kernels  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch import main as eval_main  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.data import (  # noqa: E402
     DataLoaderConceptualCaptions,
+    DataLoaderVQA2,
     ListDataset,
+)
+from explicit_alignment_for_vqa_tasks_tpu_torch.in_context_example_selection import (  # noqa: E402
+    run_full_pipeline,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clip as clip_lib  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.models import clipcap as clipcap_lib  # noqa: E402
@@ -438,6 +466,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.models.vct0 import (  # noqa: E4
     project_prefix,
     vct0_caption_loss,
 )
+from explicit_alignment_for_vqa_tasks_tpu_torch.ops.knn import knn_search  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.decode_attention import (  # noqa: E402
     cross_attention_decode,
     cross_attention_decode_plain,
@@ -498,6 +527,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.registry import (  # noqa: E402
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_generate  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_train  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.tools import rices_at_scale  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import clipcap_executor  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import model_factory  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.base_executor import (  # noqa: E402
@@ -1712,8 +1742,12 @@ def phase_fp32_kernels(gen: torch.Generator) -> dict:
         route_bound_ms=4 * BATCH * heads * tiled * tiled * head_dim
         / FP32_FLOP_PER_S * 1e3,
         two_pass_route_bound_ms=1.5 * flops / FP32_FLOP_PER_S * 1e3,
+        # the fp32 attentions' common yardstick (rows 9, 11, 16, 17 fp32):
+        # each dot as the six exact bf16-plane products on the tensor
+        # cores; the function on fp32 FMAs beside it
+        fp32_fma_bound_ms=flops / FP32_FLOP_PER_S * 1e3,
         **bound(4 * q.numel() * 4 + bias.numel() * 4 + mask.numel() * 4,
-                flops, FP32_FLOP_PER_S))
+                F32_PLANE_PRODUCTS * flops, BF16_FLOP_PER_S))
     del args, q, k, v, bias, mask
     torch.cuda.empty_cache()
 
@@ -6227,6 +6261,327 @@ def phase_bench_train() -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# RICES: in-context example selection on the card
+# ---------------------------------------------------------------------------
+
+RICES_TRAIN_IMAGES = 64
+RICES_QUESTIONS_PER_IMAGE = 2      # 128 train questions
+RICES_VAL = 32                     # val questions, an image each
+RICES_IMAGE_BATCH = 32             # ClipImageEncoder's batch here
+RICES_EXAMPLES = 32                # rices.TOP_K_EXAMPLES: each list's length
+# the card's pipeline against the CPU's: the joint similarities (recomputed
+# in float64) of the two lists, position by position; fp32 products in
+# another order move a similarity by about 1e-7
+RICES_TOL = 1e-5
+# knn_search's exactness check: integer-valued vectors (exact products in
+# any order), the last quarter of the database a copy of its first
+RICES_KNN_ROWS, RICES_KNN_QUERIES, RICES_KNN_DIM, RICES_KNN_K = (
+    8192, 256, 768, 64)
+RICES_TF32_TOL = 1e-5              # a TF32 product is off by about 1e-3
+# rices_at_scale: the tool at VQA2's full sizes for 16 chunks of 1024
+RICES_SCALE_ARGS = ("--max_chunks", "16")
+RICES_SCALE_CHECK_ROWS = 8         # rows of chunk 0 recomputed on the CPU
+RICES_SCALE_TOL = 1e-5
+
+
+def rices_items() -> tuple:
+    """(train items, val items) in the VQA2 cache's schema."""
+    train = [{"question_id": 1_000_000 + i,
+              "img_key": 100 + i // RICES_QUESTIONS_PER_IMAGE,
+              "question": f"question {i}", "gold_answer": f"answer {i}"}
+             for i in range(RICES_TRAIN_IMAGES * RICES_QUESTIONS_PER_IMAGE)]
+    val = [{"question_id": 2_000_000 + i, "img_key": 900 + i,
+            "question": f"val question {i}", "gold_answer": f"val {i}"}
+           for i in range(RICES_VAL)]
+    return train, val
+
+
+def joint_similarities(examples: list, val_qid: int, embeddings: dict,
+                       images: bool = True) -> np.ndarray:
+    """Each example's text plus image cosine (the text cosine alone
+    without ``images``) to its val question, in float64 from the embedding
+    pickles' dicts: the score its list is ranked by."""
+    def cos(a, b):
+        a, b = a.reshape(-1).astype(np.float64), b.reshape(-1).astype(
+            np.float64)
+        return a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+
+    val_img = 900 + val_qid - 2_000_000
+    return np.asarray([
+        cos(embeddings["val_text"][str(val_qid)],
+            embeddings["train_text"][str(e["question_id"])])
+        + (cos(embeddings["val_img"][str(val_img)],
+               embeddings["train_img"][str(e["img_key"])]) if images else 0.0)
+        for e in examples])
+
+
+def rices_knn_checks(dev: torch.device, gen: torch.Generator) -> dict:
+    """knn_search on the card against its CPU version on integer-valued
+    vectors with planted ties (normalize=False): equal indices and
+    similarities; then on normal vectors with TF32 switched on globally,
+    its similarities within RICES_TF32_TOL of float64 products."""
+    n, m, d, k = (RICES_KNN_ROWS, RICES_KNN_QUERIES, RICES_KNN_DIM,
+                  RICES_KNN_K)
+    db = torch.randint(-3, 4, (n, d), generator=gen, device=dev).float()
+    db[3 * n // 4:] = db[:n // 4]
+    q = torch.randint(-3, 4, (m, d), generator=gen, device=dev).float()
+    q[:16] = db[:16]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = knn_search(q, db, k, normalize=False, device=dev)
+    card_s = time.perf_counter() - t0
+    want = knn_search(q.cpu(), db.cpu(), k, normalize=False, device="cpu")
+    ties = int((np.diff(want[0], axis=1) == 0).sum())
+    check(np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0]),
+          "knn_search on the card differs from the CPU on exact products")
+    check(ties > 0, "the exactness check planted no tie")
+    qn, dbn = torch.randn((m, d), generator=gen, device=dev), torch.randn(
+        (n, d), generator=gen, device=dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        sims, idx = knn_search(qn, dbn, k, device=dev)
+        check(torch.backends.cuda.matmul.allow_tf32,
+              "knn_search did not restore the caller's TF32 setting")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    q64, db64 = (x.cpu().double() for x in (qn, dbn))
+    exact = ((q64 / q64.norm(dim=1, keepdim=True))
+             @ (db64 / db64.norm(dim=1, keepdim=True)).T).numpy()
+    tf32_err = float(np.abs(
+        sims - np.take_along_axis(exact, idx.astype(np.int64), 1)).max())
+    check(tf32_err <= RICES_TF32_TOL,
+          f"knn_search under a global TF32 setting: similarities off "
+          f"float64 by {tf32_err} > {RICES_TF32_TOL}")
+    return dict(rows=n, queries=m, dim=d, k=k, tied_neighbours=ties,
+                card_s=card_s, tf32_on_max_err=tf32_err)
+
+
+def phase_rices(dev: torch.device, smi: str) -> dict:
+    """The port's RICES as a user runs it, on the card: image embeddings of
+    RICES_TRAIN_IMAGES train and RICES_VAL val images through
+    ClipImageEncoder at ViT-L/14@336 (random bf16 weights), as shipped (no
+    kernel) and with int8=True (fused_qkv_q8, attention_core,
+    fused_mlp_block_q8: 24 launches a call each), counts set to 0 before
+    each call and read after; question embeddings through the 12-layer,
+    768-wide ClipTextEncoder (encode_ids: the card has no tokenizer; no
+    kernel); the four embedding pickles; run_full_pipeline on the card
+    writing rices.pkl (k of 2048, clamped to the 128 train questions), its
+    question-only form, and the int8 embeddings' rices.pkl; the CPU's
+    pipeline on the same pickles; DataLoaderVQA2.LoadInContextExamples
+    reading rices.pkl back. Held: the schema (every val question, 32
+    examples of the train split, best last: the float64 joint
+    similarities ascending within RICES_TOL), the card's lists against the
+    CPU's within RICES_TOL position by position, and knn_search's checks
+    (rices_knn_checks)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    results = {"knn": rices_knn_checks(dev, gen)}
+    torch.cuda.empty_cache()
+
+    cfg = clip_lib.CLIPVisionConfig.vit_l_14_336()
+    params = clip_lib.init_clip_vision_params(gen, cfg, torch.bfloat16)
+    n_images = RICES_TRAIN_IMAGES + RICES_VAL
+    images = torch.randn((n_images, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device=dev)
+    layers = cfg.num_layers
+    image_emb, runs = {}, {}
+    for name, int8, expected in (
+            ("default", False, launches()),
+            ("int8", True, launches(fused_qkv_q8=layers,
+                                    attention_core=layers,
+                                    fused_mlp_block_q8=layers))):
+        encoder = ClipImageEncoder(cfg, params, batch_size=RICES_IMAGE_BATCH,
+                                   int8=int8, device=dev)
+        outs, walls = [], []
+        for start in range(0, n_images, RICES_IMAGE_BATCH):
+            out, run = encode_with_counts(
+                encoder, images[start:start + RICES_IMAGE_BATCH], expected,
+                f"rices {name} image embeddings")
+            outs.append(out)
+            walls.append(run["wall_s"])
+        image_emb[name] = np.concatenate(outs)
+        check(image_emb[name].shape == (n_images, cfg.projection_dim)
+              and bool(np.isfinite(image_emb[name]).all()),
+              f"rices {name} image embeddings not finite or misshapen")
+        runs[name] = dict(calls=len(walls), wall_s=walls,
+                          launches_per_call=launched_only(run["launches"]))
+        del encoder
+    int8_cosine = row_cosine(image_emb["int8"], image_emb["default"])
+    check(bool((int8_cosine >= CLIP_COSINE_FLOOR).all()),
+          f"rices int8 image embeddings' cosine {int8_cosine.min()} < "
+          f"{CLIP_COSINE_FLOOR}")
+    del params, images
+    torch.cuda.empty_cache()
+
+    train, val = rices_items()
+    text_cfg = clip_lib.CLIPTextConfig()
+    n_texts = len(train) + len(val)
+    text = ClipTextEncoder(
+        text_cfg, clip_lib.init_clip_text_params(gen, text_cfg,
+                                                 torch.bfloat16),
+        batch_size=n_texts, device=dev)
+    ids = torch.randint(1, text_cfg.vocab_size - 1,
+                        (n_texts, text_cfg.context_length), generator=gen,
+                        device=dev, dtype=torch.int32)
+    eot = torch.randint(2, text_cfg.context_length, (n_texts,),
+                        generator=gen, device=dev)
+    ids[torch.arange(n_texts, device=dev), eot] = text_cfg.vocab_size - 1
+    zero_counts()
+    text_emb = text.encode_ids(ids)
+    check(kernel_counts() == launches(), "rices: the text tower launched "
+          f"{launched_only(kernel_counts())}")
+    check(text_emb.shape == (n_texts, text_cfg.projection_dim)
+          and bool(np.isfinite(text_emb).all()),
+          "rices text embeddings not finite or misshapen")
+    del text
+    torch.cuda.empty_cache()
+
+    train_imgs = RICES_TRAIN_IMAGES
+    pickles = {name: dict(
+        train_text={str(it["question_id"]): text_emb[i][None]
+                    for i, it in enumerate(train)},
+        val_text={str(it["question_id"]): text_emb[len(train) + i][None]
+                  for i, it in enumerate(val)},
+        train_img={str(100 + j): image_emb[name][j][None]
+                   for j in range(train_imgs)},
+        val_img={str(it["img_key"]): image_emb[name][train_imgs + i][None]
+                 for i, it in enumerate(val)}) for name in image_emb}
+    train_qids = {it["question_id"]: it for it in train}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = {}
+        for name, dicts in pickles.items():
+            files[name] = []
+            for part in ("train_text", "val_text", "train_img", "val_img"):
+                path = folder / f"{name}_{part}.pkl"
+                path.write_bytes(pickle.dumps(dicts[part]))
+                files[name].append(str(path))
+        walls, outs = {}, {}
+        for case, name, question_only, where in (
+                ("rices", "default", False, dev),
+                ("rices_questions_only", "default", True, dev),
+                ("rices_int8", "int8", False, dev),
+                ("rices_cpu", "default", False, "cpu"),
+                ("rices_questions_only_cpu", "default", True, "cpu")):
+            zero_counts()
+            t0 = time.perf_counter()
+            outs[case] = run_full_pipeline(
+                *files[name], train, val, str(folder / f"{case}.pkl"),
+                question_only=question_only, device=where)
+            walls[case] = time.perf_counter() - t0
+            check(kernel_counts() == launches(),
+                  f"{case}: the kNN launched a path kernel")
+        loader = DataLoaderVQA2.__new__(DataLoaderVQA2)
+        loader.data = AttrDict()
+        loader.LoadInContextExamples(
+            AttrDict(config=AttrDict(file_path=str(folder / "rices.pkl"))))
+        read_back = loader.data.in_context_examples
+    check(read_back == outs["rices"],
+          "LoadInContextExamples read another rices.pkl than was written")
+    fields = {"question_id", "img_key", "question", "gold_answer"}
+    exact, worst = {}, {}
+    for case in ("rices", "rices_questions_only", "rices_int8"):
+        got, emb = outs[case], pickles["int8" if "int8" in case
+                                       else "default"]
+        check(list(got) == [str(it["question_id"]) for it in val],
+              f"{case}: the val questions differ")
+        for qid, examples in got.items():
+            check(len(examples) == RICES_EXAMPLES
+                  and all(set(e) == fields for e in examples)
+                  and all(e["img_key"] == train_qids[int(e["question_id"])][
+                      "img_key"] for e in examples),
+                  f"{case}: the examples of {qid} break the schema")
+            sims = joint_similarities(examples, int(qid), emb,
+                                      images=case != "rices_questions_only")
+            check(bool((np.diff(sims) >= -RICES_TOL).all()),
+                  f"{case}: the examples of {qid} are not best last")
+        cpu = outs.get(case + "_cpu")
+        if cpu is None:
+            continue
+        exact[case] = sum(got[q] == cpu[q] for q in got) / len(got)
+        err = 0.0
+        for qid in got:
+            a, b = (joint_similarities(
+                lists[qid], int(qid), emb,
+                images=case != "rices_questions_only") for lists in (got, cpu))
+            err = max(err, float(np.abs(a - b).max()))
+        worst[case] = err
+        check(err <= RICES_TOL, f"{case}: the card's lists off the CPU's "
+              f"by {err} > {RICES_TOL} in joint similarity")
+    overlap = np.mean([
+        len({e["question_id"] for e in outs["rices_int8"][q]}
+            & {e["question_id"] for e in outs["rices"][q]}) / RICES_EXAMPLES
+        for q in outs["rices"]])
+    results.update(
+        images=dict(train=RICES_TRAIN_IMAGES, val=RICES_VAL,
+                    batch=RICES_IMAGE_BATCH, **runs),
+        int8_cosine_min=float(int8_cosine.min()),
+        texts=n_texts, pipeline_s=walls, equal_to_cpu_share=exact,
+        max_joint_err_to_cpu=worst, int8_example_overlap=float(overlap))
+    emit("rices", nvidia_smi=smi, **results)
+    return results
+
+
+def phase_rices_at_scale(dev: torch.device, smi: str) -> dict:
+    """tools/rices_at_scale.py at VQA2's sizes (443,757 train questions,
+    82,783 images, 768 wide, k = 2048, the top 32, chunks of 1024) for the
+    chunks RICES_SCALE_ARGS asks: its JSON line (queries/s, the card's name
+    and power limit), then queries/s, peak memory and the CPU check on a
+    line of this phase: RICES_SCALE_CHECK_ROWS rows of chunk 0 recomputed
+    on the CPU from the same embeddings, the similarities within
+    RICES_SCALE_TOL and the train rows equal wherever the CPU's adjacent
+    scores (the 33rd's beside the 32nd's) are more than RICES_SCALE_TOL
+    apart."""
+    args = rices_at_scale.parse_args(list(RICES_SCALE_ARGS))
+    database = rices_at_scale.make_database(args, dev)
+    zero_counts()
+    result = rices_at_scale.bench(args, database, dev)
+    check(kernel_counts() == launches(),
+          "rices_at_scale launched a path kernel")
+    line = rices_at_scale.report(result, dev)
+    print(json.dumps(line), flush=True)
+    check(line["value"] > 0
+          and line["device"]["name"] == torch.cuda.get_device_name(0)
+          and np.isfinite(line["config"]["checksum"]),
+          f"rices_at_scale: {line}")
+    rows = RICES_SCALE_CHECK_ROWS
+    q_text, q_img = rices_at_scale.make_queries(args, 0, dev)
+    host = tuple(t.cpu() for t in database)
+    t0 = time.perf_counter()
+    want_sims, want_rows = rices_at_scale.rices_chunk(
+        *host, q_text[:rows].cpu(), q_img[:rows].cpu(), args.k,
+        args.top_examples + 1)
+    cpu_s = time.perf_counter() - t0
+    del host
+    got_sims, got_rows = (t[:rows].numpy() for t in result["first"])
+    want_sims, want_rows = want_sims.numpy(), want_rows.numpy()
+    top = args.top_examples
+    sim_err = float(np.abs(got_sims - want_sims[:, :top]).max())
+    gaps = -np.diff(want_sims, axis=1)                 # (rows, top)
+    clear = gaps[:, :top] > RICES_SCALE_TOL
+    clear[:, 1:] &= gaps[:, :top - 1] > RICES_SCALE_TOL
+    check(sim_err <= RICES_SCALE_TOL,
+          f"rices_at_scale: similarities off the CPU's by {sim_err}")
+    check(np.array_equal(got_rows[clear], want_rows[:, :top][clear]),
+          "rices_at_scale: train rows differ from the CPU's where the "
+          "scores are clear of each other")
+    config = line["config"]
+    emit("rices_at_scale", nvidia_smi=smi, queries_per_s=line["value"],
+         peak_gb=config["peak_gb"], seconds=config["seconds"],
+         chunks=config["chunks"], query_chunk=config["query_chunk"],
+         chunk_stage_ms=config["chunk_stage_ms"],
+         projected_full_val_minutes=config["projected_full_val_minutes"],
+         cpu_check=dict(rows=rows, max_sim_err=sim_err,
+                        clear_positions=int(clear.sum()), of=int(clear.size),
+                        rows_equal=int((got_rows == want_rows[:, :top]).all(
+                            axis=1).sum()), cpu_s=cpu_s))
+    del database, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 
@@ -6430,6 +6785,11 @@ def main() -> int:
     config_clipcap = phase_config_clipcap(smi)
     torch.cuda.empty_cache()
     phase_bench_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_rices(dev, smi)
+    torch.cuda.empty_cache()
+    phase_rices_at_scale(dev, smi)
 
     measured = {
         "t5_attention_core": (attention, config_eval),

@@ -1,9 +1,8 @@
-"""HuggingFace T5, CLIP and GPT-2 checkpoints -> the port's parameter
-trees (numpy).
+"""HuggingFace T5, CLIP and GPT-2 checkpoints, and the reference's
+trained mappers -> the port's parameter trees (numpy).
 
-Counterpart of the T5, CLIP and GPT-2 converters of
-explicit_alignment_for_vqa_tasks_tpu/models/hf_convert.py (:33-235): pure
-numpy on a state dict, so ``transformers`` is not imported here. The trees
+Counterpart of explicit_alignment_for_vqa_tasks_tpu/models/hf_convert.py:
+pure numpy on a state dict, so ``transformers`` is not imported here. The trees
 are the JAX package's (keys, stacked layer axis, (in, out) weights, HWIO
 patch kernel); ``convert.t5_params_from_numpy``,
 ``clip_vision_params_from_numpy``, ``clip_text_params_from_numpy`` and
@@ -187,3 +186,82 @@ def gpt2_params_from_hf(state_dict: Mapping[str, Any], cfg,
         "ln_f_scale": _np(sd["ln_f.weight"], dtype),
         "ln_f_bias": _np(sd["ln_f.bias"], dtype),
     }
+
+
+def mapper_params_from_reference_ckpt(state_dict: Mapping[str, Any],
+                                      mapping_type: str,
+                                      dtype: Any = np.float32) -> Params:
+    """Convert a reference (PyTorch-Lightning) checkpoint's trained
+    mapping-network weights to the mapper tree (models/mappers.py; the JAX
+    package's :238-308).
+
+    The reference checkpoint stores the full LightningModule state dict
+    with a ``model.`` prefix (its caption notebook strips ``key[6:]``);
+    only ``clip_project.*`` is trainable, so that is all that is converted.
+    Layouts (reference: src/models/vct0.py):
+      * MLP: ``clip_project.model.{0,2}.{weight,bias}`` — torch Linear
+        (out, in), transposed to (in, out)
+      * Transformer: ``clip_project.linear``, ``clip_project.prefix_const``
+        and 8 ``clip_project.transformer.layers.{i}`` blocks
+        (attn.to_queries / to_keys_values / project, mlp.fc1/fc2,
+        norm1/norm2), stacked on a leading layer axis
+    """
+    sd = {}
+    for key, value in state_dict.items():
+        key = key.removeprefix("model.")
+        if key.startswith("clip_project."):
+            sd[key.removeprefix("clip_project.")] = value
+    if not sd:
+        raise ValueError("no clip_project.* weights found in checkpoint")
+
+    def linear(prefix: str, bias_optional: bool = False) -> Params:
+        out: Params = {"w": _np(sd[f"{prefix}.weight"], dtype).T}
+        if f"{prefix}.bias" in sd:
+            out["b"] = _np(sd[f"{prefix}.bias"], dtype)
+        elif bias_optional:
+            out["b"] = np.zeros(out["w"].shape[-1], dtype=dtype)
+        else:
+            raise KeyError(f"{prefix}.bias")
+        return out
+
+    if mapping_type == "mlp":
+        return {"fc1": linear("model.0"), "fc2": linear("model.2")}
+
+    if mapping_type == "transformer":
+        n_layers = 0
+        while f"transformer.layers.{n_layers}.norm1.weight" in sd:
+            n_layers += 1
+        blocks = []
+        for i in range(n_layers):
+            base = f"transformer.layers.{i}"
+            blocks.append({
+                "ln1_scale": _np(sd[f"{base}.norm1.weight"], dtype),
+                "ln1_bias": _np(sd[f"{base}.norm1.bias"], dtype),
+                "q": linear(f"{base}.attn.to_queries", bias_optional=True),
+                "kv": linear(f"{base}.attn.to_keys_values",
+                             bias_optional=True),
+                "o": linear(f"{base}.attn.project"),
+                "ln2_scale": _np(sd[f"{base}.norm2.weight"], dtype),
+                "ln2_bias": _np(sd[f"{base}.norm2.bias"], dtype),
+                "mlp": {
+                    "fc1": linear(f"{base}.mlp.fc1"),
+                    "fc2": linear(f"{base}.mlp.fc2"),
+                },
+            })
+        return {
+            "linear": linear("linear"),
+            "prefix_const": _np(sd["prefix_const"], dtype),
+            "blocks": _stack_trees(blocks),
+        }
+
+    raise ValueError(
+        f"unsupported mapping_type for conversion: {mapping_type}"
+    )
+
+
+def _stack_trees(trees: list) -> Params:
+    """Nested dicts of equal structure, their leaves stacked on a new
+    leading axis (``jax.tree.map(np.stack)`` of the JAX package)."""
+    return {k: _stack_trees([t[k] for t in trees])
+            if isinstance(trees[0][k], dict)
+            else np.stack([t[k] for t in trees]) for k in trees[0]}

@@ -10,7 +10,9 @@ is a directory ``model_{epoch:02d}`` holding ``trainable_state.pt``
 (``torch.save`` of the tree, tensors on the CPU). The index
 ``checkpoint_index.json``, the best/last aliases and the resolution order
 of ``get_checkpoint_model_path`` are the JAX package's. An Orbax
-directory is refused: converting one is ROADMAP.md, Queue 1 item 10.
+directory is refused; ``tools/convert_orbax_checkpoint.py`` converts one
+(and ``tools/convert_reference_checkpoint.py`` a reference checkpoint) into
+this layout.
 """
 
 from __future__ import annotations
@@ -67,12 +69,28 @@ def save_checkpoint(
     is a tree of tensors and Python numbers; ``epoch`` is stored in it."""
     name = f"model_{epoch:02d}"
     path = os.path.abspath(os.path.join(saved_model_path, name))
-    os.makedirs(path, exist_ok=True)
-    payload = _to_cpu(dict(state))
+    payload = dict(state)
     payload["epoch"] = int(epoch)
+    write_state(path, payload)
+    record_checkpoint(saved_model_path, name, metric_value, metric_mode)
+    logger.info("saved checkpoint %s", path)
+    return path
+
+
+def write_state(path: str, payload: Dict[str, Any]) -> None:
+    """``payload`` (tensors moved to the CPU) as ``path``'s
+    ``trainable_state.pt``, written whole or not at all."""
+    os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(payload, tmp)
+    torch.save(_to_cpu(payload), tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
+
+
+def record_checkpoint(saved_model_path: str, name: str,
+                      metric_value: Optional[float] = None,
+                      metric_mode: str = "min") -> None:
+    """Add ``name`` to the index of ``saved_model_path`` as the last
+    checkpoint, and as the best where ``metric_value`` beats the best's."""
     index = _load_index(saved_model_path)
     if name not in index["epochs"]:
         index["epochs"].append(name)
@@ -88,8 +106,6 @@ def save_checkpoint(
             index["best"] = name
             index["best_metric"] = float(metric_value)
     _save_index(saved_model_path, index)
-    logger.info("saved checkpoint %s", path)
-    return path
 
 
 def get_checkpoint_model_path(
@@ -127,6 +143,8 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     if not os.path.isfile(file):
         raise ValueError(
             f"{path} holds no {STATE_FILE}: an Orbax checkpoint of the JAX "
-            "package cannot be loaded by the port yet; its converter is "
-            "ROADMAP.md, Queue 1 item 10")
+            "package is not read here; convert it on a host with "
+            "tensorstore: python -m explicit_alignment_for_vqa_tasks_tpu_"
+            "torch.tools.convert_orbax_checkpoint --src <its saved_model "
+            "dir or model_NN> --out <the port's saved_model dir>")
     return torch.load(file, map_location="cpu", weights_only=True)

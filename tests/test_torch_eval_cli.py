@@ -5,8 +5,9 @@ same weights, data and seed, for SimpleTokenizer and the committed subword
 fixture, with the JAX executor's metrics; ``--mode train`` on the few-shot
 config stops with the JAX package's error and on ClipCap's config trains;
 a multi-process launch raises with its ROADMAP item; torch checkpoints
-keep the JAX package's index, aliases and resolution, and an Orbax
-checkpoint is refused."""
+keep the JAX package's index, aliases and resolution, an Orbax
+checkpoint is refused with the name of its converter, and --mode test runs
+from the converters' checkpoints."""
 
 import json
 import logging
@@ -235,5 +236,54 @@ def test_orbax_checkpoint_is_refused(tmp_path):
         str(tmp_path / "saved"), 0,
         {"mapper": {"w": np.ones((2, 2), np.float32)}})
     assert tckpt.get_checkpoint_model_path(str(tmp_path / "saved")) == path
-    with pytest.raises(ValueError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="convert_orbax_checkpoint"):
         tckpt.load_checkpoint(path)
+
+
+@pytest.mark.parametrize("converter", ["orbax", "reference"])
+def test_cli_test_mode_loads_converted_checkpoints(tmp_path, cli_env,
+                                                   converter):
+    """main --mode test from a checkpoint the port converted: a JAX Orbax
+    checkpoint (mapper, optax state, epoch) through
+    tools/convert_orbax_checkpoint.py, or a reference Lightning checkpoint
+    through tools/convert_reference_checkpoint.py. The run loads the
+    mapper bit for bit and answers every question."""
+    import jax.numpy as jnp
+    import optax
+
+    from explicit_alignment_for_vqa_tasks_tpu_torch.tools import (
+        convert_orbax_checkpoint,
+        convert_reference_checkpoint,
+    )
+
+    fixtures = write_vqa_fixtures(tmp_path, n_val_imgs=5)
+    saved = saved_model(tmp_path, "torch")
+    gen = torch.Generator().manual_seed(6)
+    hidden, width = 32, 64         # the config's mlp: d_model 32, 2 prefixes
+    mapper = {"fc1": {"w": torch.randn(PREFIX_SIZE, hidden, generator=gen),
+                      "b": torch.randn(hidden, generator=gen)},
+              "fc2": {"w": torch.randn(hidden, width, generator=gen),
+                      "b": torch.randn(width, generator=gen)}}
+    if converter == "orbax":
+        params = jax.tree.map(lambda t: jnp.asarray(t.numpy()), mapper)
+        jckpt.save_checkpoint(str(tmp_path / "jax_saved"), 0, {
+            "mapper": params, "opt_state": optax.adamw(1e-3).init(params),
+            "epoch": np.asarray(0)})
+        convert_orbax_checkpoint.convert(str(tmp_path / "jax_saved"), saved)
+    else:
+        ckpt = str(tmp_path / "model_00.ckpt")
+        torch.save({"state_dict": {
+            f"model.clip_project.model.{i}.{kind}":
+                mapper[layer]["w"].T if kind == "weight" else mapper[layer]["b"]
+            for i, layer in ((0, "fc1"), (2, "fc2"))
+            for kind in ("weight", "bias")}}, ckpt)
+        convert_reference_checkpoint.convert(ckpt, "mlp",
+                                             f"{saved}/model_00")
+    executor, metrics = tmain.run(argv(tmp_path, fixtures, "torch"),
+                                  device="cpu")
+    for name, layer in mapper.items():
+        for key, want in layer.items():
+            assert torch.equal(executor.model.params["mapper"][name][key],
+                               want)
+    assert len(read_answers(tmp_path, "torch")) == 5
+    assert "test_evaluation/accuracy_overall" in metrics

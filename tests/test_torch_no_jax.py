@@ -1,6 +1,6 @@
 """The port and chip_smoke.py import neither jax nor the JAX package (nor,
-at import time, PIL, transformers or orbax), and the port's device rule
-holds."""
+at import time, PIL, transformers, orbax, tensorstore, datasets or
+pyarrow), and the port's device rule holds."""
 
 import ast
 import subprocess
@@ -15,8 +15,10 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.device import resolve_device
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "explicit_alignment_for_vqa_tasks_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "explicit_alignment_for_vqa_tasks_tpu")
-# absent on the card's machine: imported inside the functions that use them
-NOT_AT_IMPORT = ("PIL", "transformers", "orbax")
+# absent on the card's machine (or, tensorstore, not known there): imported
+# inside the functions that use them
+NOT_AT_IMPORT = ("PIL", "transformers", "orbax", "tensorstore", "datasets",
+                 "pyarrow")
 
 
 def port_modules():
@@ -52,7 +54,16 @@ def test_every_kernel_module_is_scanned():
                    "data.vqa2_datasets", "data.data_loader_wrapper",
                    "data.data_loader_vqa2", "trainers.checkpointing",
                    "trainers.metrics_processors", "trainers.base_executor",
-                   "trainers.few_shot_vqa_executor"):
+                   "trainers.few_shot_vqa_executor", "ops.knn",
+                   "in_context_example_selection",
+                   "in_context_example_selection.rices",
+                   "in_context_example_selection.run_rices",
+                   "in_context_example_selection.make_random_examples",
+                   "tools.extract_contrastive_text_embeddings",
+                   "tools.extract_clip_embeddings_conceptual_captions",
+                   "tools.rices_at_scale",
+                   "tools.convert_reference_checkpoint",
+                   "tools.convert_orbax_checkpoint"):
         assert f"{PORT.name}.{module}" in names, module
 
 
@@ -96,3 +107,18 @@ def test_resolve_device_needs_cuda_unless_cpu_is_asked(monkeypatch):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cpu")).type == "cpu"
+
+
+def test_tensorstore_is_imported_only_by_the_orbax_converter():
+    importers = []
+    for path in python_files():
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            if any(name.split(".")[0] == "tensorstore" for name in names):
+                importers.append(path.relative_to(REPO).as_posix())
+    assert importers == [f"{PORT.name}/tools/convert_orbax_checkpoint.py"]
