@@ -528,6 +528,13 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.registry import (  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_generate  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import bench_train  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import rices_at_scale  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.tools import (  # noqa: E402
+    bf16_drift_study,
+    decode_profile,
+    generate_captions as caption_tool,
+    int8_drift_study,
+    replicate_baseline,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import clipcap_executor  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import model_factory  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers.base_executor import (  # noqa: E402
@@ -6582,6 +6589,366 @@ def phase_rices_at_scale(dev: torch.device, smi: str) -> dict:
     return line
 
 
+OKVQA_QUESTIONS = 64               # 2 batches at test.batch_size 32
+CAPTION_IMAGES = 32
+REPLICATE_QUESTIONS = 32           # one batch at the harness's --batch-size
+# bigscience/T0_3B's config.json fields the harness reads
+T0_3B_HF_CONFIG = {"vocab_size": 32128, "d_model": 2048, "d_kv": 64,
+                   "num_heads": 32, "d_ff": 5120, "num_layers": 24,
+                   "num_decoder_layers": 24,
+                   "relative_attention_num_buckets": 32,
+                   "relative_attention_max_distance": 128}
+INT8_OPTS = ("tpu.int8_encoder_ffn=True", "tpu.int8_encoder_attn=True")
+
+
+def phase_line(phase: str, smi: str, t0: float, counts: dict, want: dict,
+               **fields) -> None:
+    """The five later phases' line: the card, the wall since ``t0``, the
+    peak memory, and the launches checked against what the run
+    dispatches."""
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(counts == want, f"{phase}: kernels launched {counts}, expected "
+          f"{want}")
+    emit(phase, nvidia_smi=smi, wall_s=wall,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launched_only(counts), **fields)
+
+
+def start_phase() -> float:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    return time.perf_counter()
+
+
+def write_feature_data(folder: Path, image_keys: list) -> dict:
+    """VinVL detections (TSV), Google-OCR annotations (a JSON an image, a
+    polygon inside the first box) and Oscar captions (JSON) for
+    ``image_keys``, in the reference's file formats."""
+    rng = np.random.default_rng(SEED)
+    ocr = folder / "ocr"
+    ocr.mkdir(parents=True, exist_ok=True)
+    captions = {}
+    with open(folder / "vinvl.tsv", "w") as fh:
+        for key in image_keys:
+            w, h = (int(v) for v in rng.integers(80, 200, 2))
+            objects = [{"rect": [60 * i, 0, 60 * i + w, h], "class": obj,
+                        "conf": 0.9, "attributes": ["red"],
+                        "attribute_scores": [0.7]}
+                       for i, obj in enumerate(EVAL_OBJECTS[:3])]
+            fh.write(f"{key}\t{json.dumps({'objects': objects})}\n")
+            (ocr / f"{key}_ocr.json").write_text(json.dumps({
+                "filtered_text_annotations": [{
+                    "description": "STOP\nHERE", "vertices":
+                    [[5, 5], [40, 5], [40, 20], [5, 20]]}]}))
+            captions[key] = f"a {EVAL_OBJECTS[int(key) % 10]} on a table"
+    (folder / "captions.json").write_text(json.dumps(captions))
+    return {"vinvl": str(folder / "vinvl.tsv"), "ocr": str(ocr),
+            "captions": str(folder / "captions.json")}
+
+
+def phase_okvqa_eval(smi: str) -> dict:
+    """main --mode test on the shipped config turned into an OK-VQA run at
+    full T0-3B width and depth: LoadOKVQAData (on OKVQA_QUESTIONS
+    synthetic questions in the official VQA format) in place of
+    LoadVQA2Data, the VinVL, OCR (merged into the VinVL boxes) and Oscar
+    modules, compute_okvqa_scores in place of compute_vqa_scores. Checks:
+    answers.pkl, the OKVQA accuracy keys, the OCR merged, t5_attention_core
+    24 launches a batch; questions/s."""
+    t0 = start_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = write_eval_data(folder, OKVQA_QUESTIONS)
+        keys = [str(1000 + i) for i in range(EVAL_TRAIN_QUESTIONS)] + [
+            str(2000 + i) for i in range(OKVQA_QUESTIONS)]
+        features = write_feature_data(folder / "features", keys)
+        vqa = {"question_files": {"train": files["train2014_questions"],
+                                  "val": files["val2014_questions"]},
+               "annotation_files": {"train": files["train2014_annotations"],
+                                    "val": files["val2014_annotations"]}}
+        modules = "data_loader.dataset_modules."
+        module_list = ["LoadClipEmbeddings", "LoadInContextExamples",
+                       "LoadVinVLFeatures", "LoadGoogleOCRFeatures",
+                       "LoadOscarCaptionFeatures", "LoadOKVQAData"]
+        module_dict = {
+            "LoadOKVQAData": {"type": "LoadOKVQAData", "option": "default",
+                              "config": {"vqa_data_path": vqa,
+                                         "image_data_path": {
+                                             "train": str(folder),
+                                             "val": str(folder)}}},
+            "LoadVinVLFeatures": {"type": "LoadVinVLFeatures",
+                                  "option": "default",
+                                  "config": {"train": features["vinvl"],
+                                             "test": features["vinvl"]}},
+            "LoadGoogleOCRFeatures": {
+                "type": "LoadGoogleOCRFeatures", "option": "default",
+                "config": {"train": features["ocr"],
+                           "test": features["ocr"],
+                           "combine_with_vinvl": True}},
+            "LoadOscarCaptionFeatures": {
+                "type": "LoadOscarCaptionFeatures", "option": "default",
+                "config": {"train": features["captions"]}},
+        }
+        opts = [f"{modules}module_list={module_list!r}",
+                *(f"{modules}module_dict.{name}={value!r}"
+                  for name, value in module_dict.items()),
+                "metrics=[{'name': 'compute_okvqa_scores'}, "
+                "{'name': 'write_predictions_to_file'}]"]
+        run = run_eval("okvqa_eval", folder, files, OKVQA_QUESTIONS, *opts)
+        executor = run["executor"]
+        data = executor.data_loader.data
+        check(data.get("okvqa_data") is not None
+              and data.okvqa_data is data.vqa_data
+              and "vqa2_data" not in data,
+              "okvqa_eval: the split is not LoadOKVQAData's")
+        merged = sum(p["ocr"] for p in data.vinvl_features.values())
+        check(merged == len(keys), f"okvqa_eval: {merged} OCR texts merged "
+              f"into the VinVL boxes of {len(keys)} images")
+        check(len(data.caption_features) == len(keys),
+              "okvqa_eval: the Oscar captions did not load")
+        answer_keys = sorted(k for k in run["metrics"]
+                             if k.startswith("test_evaluation/accuracy_"))
+        check(any("AnswerType" in k for k in answer_keys),
+              f"okvqa_eval: OK-VQA accuracy keys {answer_keys}")
+        scorers = check_scoring("okvqa_eval", run)
+        layers = executor.model.cfg.lm.num_encoder_layers
+        want = launches(t5_attention_core=layers * run["stats"]["batches"])
+        stats, counts = run["stats"], run["launches"]
+        del executor, data, run
+    phase_line("okvqa_eval", smi, t0, counts, want, accuracy=scorers,
+               accuracy_keys=len(answer_keys), questions=stats["questions"],
+               batches=stats["batches"],
+               questions_per_s=stats["questions_per_s"],
+               test_s=stats["test_s"], host_share=stats["host_share"],
+               run_s=stats["run_s"])
+    return stats
+
+
+def phase_generate_captions(smi: str) -> dict:
+    """tools/generate_captions.py (its CLI, the shipped config) on
+    CAPTION_IMAGES pickled 768-wide embeddings at T0-3B width, the mapper
+    checkpoint written by the port's save_checkpoint: one caption an
+    embedding, each beginning with the forced "A picture of";
+    t5_attention_core 24 launches a batch of 32. captions/s is over
+    generate_captions alone; tool_s is the CLI's whole run (config, a
+    random T0-3B, the checkpoint, the tokenizer)."""
+    t0 = start_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        rng = np.random.default_rng(SEED)
+        embeddings = folder / "embeddings.pkl"
+        embeddings.write_bytes(pickle.dumps({
+            str(i): rng.standard_normal((1, PREFIX_SIZE)).astype(np.float32)
+            for i in range(CAPTION_IMAGES)}))
+        opts = ["model_config.TokenizerClass=SimpleTokenizer",
+                "model_config.pretrained=0"]
+        config = process_config(parse_args_sys(
+            [str(CONFIG_FILE), "--opts", *opts]))
+        lm_cfg = model_factory.T5_CONFIGS[config.model_config.ConfigClass]()
+        mapper_cfg = VCT0Config.from_model_args(
+            dict(config.model_config.model_args), lm_cfg=lm_cfg).mapper
+        save_checkpoint(str(folder / "saved_model"), 0, {"mapper": init_mapper(
+            torch.Generator().manual_seed(SEED), mapper_cfg)})
+        zero_counts()
+        t1 = time.perf_counter()
+        out = caption_tool.main([
+            str(CONFIG_FILE), "--checkpoint",
+            str(folder / "saved_model" / "model_00"),
+            "--embeddings", str(embeddings), "--out",
+            str(folder / "captions.txt"), "--limit", str(CAPTION_IMAGES),
+            "--opts", *opts])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        captions, generate_s = out["captions"], out["generate_s"]
+        written = (folder / "captions.txt").read_text().split("\n")
+    check(len(captions) == CAPTION_IMAGES and written == captions,
+          f"generate_captions: {len(captions)} captions, {len(written)} "
+          "written")
+    check(all(c.startswith("A picture of") for c in captions),
+          f"generate_captions: {captions[:2]}")
+    layers = lm_cfg.num_encoder_layers
+    phase_line("generate_captions", smi, t0, kernel_counts(),
+               launches(t5_attention_core=layers * -(-CAPTION_IMAGES // 32)),
+               captions=len(captions), tool_s=seconds,
+               generate_s=generate_s,
+               captions_per_s=len(captions) / generate_s,
+               first=captions[0])
+    return {"captions_per_s": len(captions) / generate_s}
+
+
+def phase_drift_studies(smi: str) -> dict:
+    """tools/int8_drift_study.py --mode both and tools/bf16_drift_study.py
+    at their defaults (t5-large: 24 + 24 layers, d 1024; B=16, L=64, 20
+    new tokens; the bf16 study's forward on 4 rows) on the card. The int8
+    study encodes with rows 1-4: t5_attention_core 24 a call in the bf16
+    baseline and each of the four variants, rows 2-4 24 in each variant, in
+    each mode; the bf16 study runs the plain encoder, as in JAX, and
+    launches nothing. Both JSON lines are printed; this line carries each
+    study's full-sequence match rates and per-layer errors."""
+    t0 = start_phase()
+    int8 = int8_drift_study.main(["--mode", "both"])
+    int8_s = time.perf_counter() - t0
+    modes = ("normal", "outlier")
+    calls = len(modes) * len(int8_drift_study.VARIANTS)
+    layers = int8["shapes"]["layers"]
+    int8_counts = kernel_counts()
+    want_int8 = launches(
+        t5_attention_core=layers * (calls + len(modes)),
+        fused_t5_ln_qkv_q8=layers * calls,
+        fused_oproj_residual_q8=layers * calls,
+        fused_t5_ffn_q8=layers * calls)
+    check(int8_counts == want_int8, f"drift_studies: the int8 study launched "
+          f"{int8_counts}, expected {want_int8}")
+    for mode in modes:
+        for name, metrics in int8[mode].items():
+            check(0.0 <= metrics["full_sequence_match_rate"] <= 1.0
+                  and len(metrics["per_layer_rel_error"]) == layers
+                  and all(np.isfinite(metrics["per_layer_rel_error"])),
+                  f"drift_studies: int8 {mode} {name}: {metrics}")
+    zero_counts()
+    t1 = time.perf_counter()
+    bf16 = bf16_drift_study.main([])
+    bf16_s = time.perf_counter() - t1
+    dec = bf16["greedy_decode"]
+    check(len(bf16["per_layer_rel_error"]) == bf16["shapes"]["layers"]
+          and all(np.isfinite(bf16["per_layer_rel_error"]))
+          and 0.0 <= dec["full_sequence_match_rate"] <= 1.0,
+          f"drift_studies: bf16 study {bf16}")
+    phase_line(
+        "drift_studies", smi, t0, kernel_counts(), launches(),
+        int8_s=int8_s, bf16_s=bf16_s,
+        int8_launches=launched_only(int8_counts),
+        int8_full_sequence_match_rate={
+            mode: {name: m["full_sequence_match_rate"]
+                   for name, m in int8[mode].items()} for mode in modes},
+        int8_per_layer_rel_error={
+            mode: {name: m["per_layer_rel_error"]
+                   for name, m in int8[mode].items()} for mode in modes},
+        bf16_full_sequence_match_rate=dec["full_sequence_match_rate"],
+        bf16_logit_top1_match=bf16["logit_top1_match"],
+        bf16_per_layer_rel_error=bf16["per_layer_rel_error"])
+    return {"int8": int8, "bf16": bf16}
+
+
+def phase_decode_profile(smi: str) -> dict:
+    """tools/decode_profile.py at its defaults (T0-3B, B=16, 557 encoder
+    tokens, 20 greedy steps): its trace runs in a child process; this
+    process parses it. Checks: the buckets sum to the operations' time,
+    busy within the span, the card's name; records ms a step, the buckets
+    a step, the idle share of the traced span and the busy share of the
+    untraced wall."""
+    t0 = start_phase()
+    line = decode_profile.main([])
+    trace = line["trace"]
+    check(trace["n_events"] > 0 and trace["busy_us"] <= trace["span_us"]
+          and abs(sum(trace["buckets_us"].values()) - trace["summed_us"])
+          <= 1e-6 * trace["summed_us"]
+          and 0.0 <= line["idle_share"] < 1.0
+          and line["device"]["name"] == torch.cuda.get_device_name(0),
+          f"decode_profile: {line}")
+    phase_line("decode_profile", smi, t0, kernel_counts(), launches(),
+               wall_ms_per_step=line["wall_ms_per_step"],
+               steps_run=line["config"]["steps_run"],
+               per_step_us=line["per_step_us"], idle_share=line["idle_share"],
+               busy_share_of_untraced_wall=line[
+                   "busy_share_of_untraced_wall"],
+               busy_us=trace["busy_us"], span_us=trace["span_us"],
+               kernels=trace["n_events"], top_ops_us=trace["top_ops_us"][:6])
+    return line
+
+
+def write_reference_mapper(path: Path, prefix_size: int, d_model: int,
+                           prefix_length: int) -> None:
+    """A reference-style (PyTorch Lightning) checkpoint of the MLP mapper
+    (reference: src/models/vct0.py:58-69, torch Linear layouts), random
+    from SEED with fan-in scaled weights."""
+    gen = torch.Generator().manual_seed(SEED)
+    hidden = d_model * prefix_length // 2
+    out = d_model * prefix_length
+
+    def linear(rows: int, cols: int) -> torch.Tensor:
+        return torch.randn(rows, cols, generator=gen) * cols ** -0.5
+
+    torch.save({"state_dict": {
+        "model.clip_project.model.0.weight": linear(hidden, prefix_size),
+        "model.clip_project.model.0.bias": torch.zeros(hidden),
+        "model.clip_project.model.2.weight": linear(out, hidden),
+        "model.clip_project.model.2.bias": torch.zeros(out)}}, path)
+
+
+def phase_replicate(smi: str) -> dict:
+    """tools/replicate_baseline.py's sweep (_build_config and _run_point
+    through run_sweep) at T0-3B width on REPLICATE_QUESTIONS synthetic
+    questions: main with hotpotqa at 0 and 2 shots, then its int8 twin
+    (INT8_OPTS, --compare-bf16, --skip-int8-drift: the study has its own
+    phase) at 2 shots. The card's machine has no T0 weights or tokenizer
+    files: the phase writes T0-3B's config.json, picks SimpleTokenizer
+    through --opts, and the model factory draws random weights where it
+    finds none. A reference .ckpt goes through
+    tools/convert_reference_checkpoint.py. Checks: report rows with
+    accuracies; t5_attention_core 24 a point, rows 2-4 24 in the int8
+    point."""
+    t0 = start_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = write_eval_data(folder, REPLICATE_QUESTIONS)
+        weights = folder / "T0_3B"
+        weights.mkdir()
+        (weights / "config.json").write_text(json.dumps(T0_3B_HF_CONFIG))
+        ckpt = folder / "model_04.ckpt"
+        write_reference_mapper(ckpt, PREFIX_SIZE, T0_3B_HF_CONFIG["d_model"],
+                               PREFIX_LENGTH)
+        base = ["--t0-weights", str(weights), "--mapper-ckpt", str(ckpt),
+                "--questions-train", files["train2014_questions"],
+                "--annotations-train", files["train2014_annotations"],
+                "--questions-val", files["val2014_questions"],
+                "--annotations-val", files["val2014_annotations"],
+                "--clip-embeddings-train", files["embeddings"],
+                "--clip-embeddings-val", files["embeddings"],
+                "--rices", files["rices"], "--templates", "hotpotqa",
+                "--batch-size", str(REPLICATE_QUESTIONS),
+                "--workdir", str(folder / "work")]
+        simple = "model_config.TokenizerClass=SimpleTokenizer"
+        zero_counts()
+        main_report = replicate_baseline.run_sweep(
+            replicate_baseline.parse_args(
+                base + ["--shots", "0", "2", "--opts", simple]))
+        main_counts = kernel_counts()
+        zero_counts()
+        int8_report = replicate_baseline.run_sweep(
+            replicate_baseline.parse_args(
+                base + ["--shots", "2", "--compare-bf16", "--skip-int8-drift",
+                        "--opts", simple, *INT8_OPTS]))
+    layers = T0_3B_HF_CONFIG["num_layers"]
+    check(main_counts == launches(t5_attention_core=2 * layers),
+          f"replicate: the main points launched {main_counts}")
+    rows = main_report["rows"] + int8_report["rows"]
+    check([(r["mode"], r["num_shots"]) for r in rows]
+          == [("main", 0), ("main", 2), ("main", 2)]
+          and all(r["accuracy"] is not None and 0 <= r["accuracy"] <= 100
+                  and r["questions"] == REPLICATE_QUESTIONS for r in rows)
+          and int8_report["rows"][0].get("accuracy_bf16") is not None
+          and not main_report["random_mapper"],
+          f"replicate: report rows {rows}")
+    check(int8_report.get("int8_drift_study")
+          == "skipped (--skip-int8-drift)", "replicate: the drift study ran")
+    replicate_baseline.print_report(main_report)
+    replicate_baseline.print_report(int8_report)
+    phase_line(
+        "replicate", smi, t0, kernel_counts(),
+        launches(t5_attention_core=2 * layers, fused_t5_ln_qkv_q8=layers,
+                 fused_oproj_residual_q8=layers, fused_t5_ffn_q8=layers),
+        main_launches=launched_only(main_counts),
+        rows=[{key: r.get(key) for key in (
+            "mode", "num_shots", "accuracy", "reference", "accuracy_bf16",
+            "int8_vs_bf16_delta", "questions_per_s",
+            "bf16_questions_per_s")} for r in rows])
+    return {"rows": rows}
+
+
 LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 
@@ -6790,6 +7157,9 @@ def main() -> int:
     phase_rices(dev, smi)
     torch.cuda.empty_cache()
     phase_rices_at_scale(dev, smi)
+    for later in (phase_okvqa_eval, phase_generate_captions,
+                  phase_drift_studies, phase_decode_profile, phase_replicate):
+        later(smi)
 
     measured = {
         "t5_attention_core": (attention, config_eval),

@@ -6,18 +6,21 @@ existing pre-extracted features drop in unchanged:
   * CLIP embeddings: ``{str(img_key): float32 [1, d]}`` pickles per split
   * in-context examples: ``{str(question_id): [ {question_id, img_key,
     question, gold_answer}, ... ]}`` pickle (ascending similarity order)
+  * VinVL detections: TSV of (image_key, json prediction)
+  * OCR: per-image ``{image_key}_ocr.json`` with filtered_text_annotations
 
 The port's own copy of explicit_alignment_for_vqa_tasks_tpu/data/data_loader_vqa2.py,
-held against it by tests/test_torch_eval_data.py. Where the JAX package
-asks ``jax.process_count()``, the port asks ``torch.distributed``
+held against it by tests/test_torch_eval_data.py and (the VinVL, OCR,
+Oscar caption and OK-VQA modules) tests/test_torch_okvqa.py. Where the JAX
+package asks ``jax.process_count()``, the port asks ``torch.distributed``
 (``device.world_size``), which refuses a run over more than one process
 until the multi-process eval is ported (ROADMAP.md, Queue 1 item 14).
-The modules that no shipped config's ``module_list`` names (VinVL, OCR,
-Oscar captions, OK-VQA) raise naming Queue 1 item 16.
 """
 
 from __future__ import annotations
 
+import csv
+import json
 import logging
 import os
 import pickle
@@ -78,10 +81,134 @@ class DataLoaderVQA2(DataLoaderWrapper):
             len(self.data.in_context_examples),
         )
 
+    def LoadVinVLFeatures(self, module_config: Any) -> None:
+        """VinVL object/attribute detections from TSV, cached
+        (reference: data_loader_vqa2.py:119-173)."""
+        csv.field_size_limit(100_000_000)
+        self.data.vinvl_features = load_cached_data(
+            self.config, "vinvl_feature_preprocessed"
+        )
+        if not self.data.vinvl_features:
+            features: Dict[str, Any] = {}
+            for split in ("train", "test"):
+                path = module_config.config[split]
+                logger.info("reading VinVL features: %s", path)
+                with open(path, "r", encoding="utf-8") as fh:
+                    for row in csv.reader(fh, delimiter="\t"):
+                        image_key, prediction = row
+                        features[image_key] = json.loads(prediction)
+            self.data.vinvl_features = features
+            save_cached_data(
+                self.config, features, "vinvl_feature_preprocessed"
+            )
+        logger.info(
+            "[Data Statistics] VinVL features %d",
+            len(self.data.vinvl_features),
+        )
+
+    def LoadGoogleOCRFeatures(self, module_config: Any) -> None:
+        """Per-image OCR JSON; optionally matches OCR text to VinVL boxes
+        by polygon containment + area ratio
+        (reference: data_loader_vqa2.py:175-296)."""
+        self.data.ocr_features = load_cached_data(
+            self.config, "ocr_feature_preprocessed"
+        )
+        if not self.data.ocr_features:
+            ocr: Dict[str, Any] = {}
+            for split in ("train", "test"):
+                folder = module_config.config[split]
+                logger.info("reading OCR features from %s", folder)
+                for image_key in self.data.vinvl_features:
+                    path = os.path.join(folder, f"{image_key}_ocr.json")
+                    if os.path.exists(path):
+                        with open(path, "r", encoding="utf-8") as fh:
+                            ocr[image_key] = json.load(fh)
+            self.data.ocr_features = ocr
+            save_cached_data(self.config, ocr, "ocr_feature_preprocessed")
+
+        annotated = sum(
+            1 for a in self.data.ocr_features.values()
+            if a.get("filtered_text_annotations")
+        )
+        logger.info(
+            "[Data Statistics] OCR features %d, %d with annotations",
+            len(self.data.ocr_features), annotated,
+        )
+        if module_config.config.get("combine_with_vinvl"):
+            self._combine_ocr_with_vinvl()
+
+    def _combine_ocr_with_vinvl(self) -> None:
+        """Each OCR polygon inside a VinVL box is attached to that box as
+        {"text", "score": polygon area / box area}; each image gets its
+        count of matches as "ocr". In float64 numpy, as in JAX."""
+        def poly_area(xs, ys) -> float:
+            xs, ys = np.asarray(xs, dtype=np.float64), np.asarray(ys, np.float64)
+            return 0.5 * abs(
+                np.dot(xs, np.roll(ys, 1)) - np.dot(ys, np.roll(xs, 1))
+            )
+
+        first = next(iter(self.data.vinvl_features.values()), None)
+        if first is None or "ocr" in first:
+            logger.info("OCR already merged into VinVL features; skipping")
+            return
+        for image_key, prediction in self.data.vinvl_features.items():
+            annotations = self.data.ocr_features.get(image_key, {}).get(
+                "filtered_text_annotations", []
+            )
+            count = 0
+            for annotation in annotations:
+                description = annotation["description"].replace("\n", " ")
+                vertices = np.asarray(annotation["vertices"], dtype=np.float64)
+                area = poly_area(vertices[:, 0], vertices[:, 1])
+                for obj in prediction["objects"]:
+                    xmin, ymin, xmax, ymax = obj["rect"]
+                    obj_area = (ymax - ymin) * (xmax - xmin)
+                    inside = (
+                        np.all(vertices[:, 0] >= xmin)
+                        and np.all(vertices[:, 0] <= xmax)
+                        and np.all(vertices[:, 1] >= ymin)
+                        and np.all(vertices[:, 1] <= ymax)
+                    )
+                    score = area / obj_area if inside and obj_area > 0 else 0.0
+                    if score > 0:
+                        count += 1
+                        obj.setdefault("ocr", []).append(
+                            {"text": description, "score": score}
+                        )
+            prediction["ocr"] = count
+        save_cached_data(
+            self.config, self.data.vinvl_features, "vinvl_feature_preprocessed"
+        )
+
+    def LoadOscarCaptionFeatures(self, module_config: Any) -> None:
+        """Predicted captions keyed by image id
+        (reference: data_loader_vqa2.py:298-322)."""
+        self.data.caption_features = {}
+        for path in module_config.config.values():
+            with open(path, "r", encoding="utf-8") as fh:
+                self.data.caption_features.update(json.load(fh))
+        logger.info(
+            "[Data Statistics] caption features %d",
+            len(self.data.caption_features),
+        )
+
     def LoadVQA2Data(self, module_config: Any) -> None:
         """Build per-question data items from the official VQA files with
         gold_answer = most frequent of the 10 answers, pickle-cached per
         split (reference: data_loader_vqa2.py:324-496)."""
+        self._load_vqa_format_data(module_config, target="vqa2_data")
+
+    def LoadOKVQAData(self, module_config: Any) -> None:
+        """OK-VQA: its files use the official VQA format, so loading is
+        shared; the result lands in data.okvqa_data for
+        compute_okvqa_scores (the reference scored okvqa_data without
+        shipping a loader; the JAX package added this one)."""
+        self._load_vqa_format_data(module_config, target="okvqa_data")
+
+    def _load_vqa_format_data(self, module_config: Any, target: str) -> None:
+        """The splits' data items into data[target] (and data.vqa_data),
+        cached as ``{split}_data_preprocessed`` for VQA2 (the reference's
+        names) and ``{target}_{split}_data_preprocessed`` otherwise."""
         answer_candidates: List[str] = []
         splits = ["val"] if self.config.mode == "test" else ["train", "val"]
         vqa_helpers = {
@@ -92,14 +219,14 @@ class DataLoaderVQA2(DataLoaderWrapper):
             for split in splits
         }
 
-        vqa_data = self.data.vqa2_data = AttrDict(
+        vqa_data = self.data[target] = AttrDict(
             train={}, val={}, lookup={}, vqa_helpers=vqa_helpers
         )
+        cache_prefix = "" if target == "vqa2_data" else f"{target}_"
 
         for split, helper in vqa_helpers.items():
-            cached = load_cached_data(
-                self.config, f"{split}_data_preprocessed"
-            )
+            cache_name = f"{cache_prefix}{split}_data_preprocessed"
+            cached = load_cached_data(self.config, cache_name)
             if cached:
                 vqa_data[split] = cached
             else:
@@ -142,11 +269,7 @@ class DataLoaderVQA2(DataLoaderWrapper):
                                 answer_candidates.append(ans)
 
                 vqa_data[split] = AttrDict(data_items=data_items)
-                save_cached_data(
-                    self.config,
-                    vqa_data[split],
-                    f"{split}_data_preprocessed",
-                )
+                save_cached_data(self.config, vqa_data[split], cache_name)
 
             for item in vqa_data[split].data_items:
                 vqa_data.lookup[str(item.question_id)] = item
@@ -164,6 +287,8 @@ class DataLoaderVQA2(DataLoaderWrapper):
         (reference: data_loader_vqa2.py:498-569)."""
         dataset_cls = DATASETS.get(self.config.data_loader.dataset_type)
         common = dict(
+            vinvl_features=self.data.get("vinvl_features"),
+            ocr_features=self.data.get("ocr_features"),
             clip_embeddings=self.data.get("clip_embeddings"),
             in_context_examples=self.data.get("in_context_examples"),
             answer_candidate_list=self.data.vqa_data.answer_candidate_list,
@@ -213,16 +338,3 @@ class DataLoaderVQA2(DataLoaderWrapper):
             "[Data Statistics] test batches: %d", len(self.test_dataloader)
         )
 
-
-def _not_ported(name: str):
-    def load(self, module_config: Any) -> None:
-        raise NotImplementedError(
-            f"the dataset module {name} is not ported yet (ROADMAP.md, "
-            "Queue 1 item 16)")
-    load.__name__ = name
-    return load
-
-
-for _name in ("LoadVinVLFeatures", "LoadGoogleOCRFeatures",
-              "LoadOscarCaptionFeatures", "LoadOKVQAData"):
-    setattr(DataLoaderVQA2, _name, _not_ported(_name))

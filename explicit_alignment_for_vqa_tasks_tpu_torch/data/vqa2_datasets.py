@@ -26,6 +26,8 @@ class VQA2Dataset(ModuleParser):
         self.config = config
         self.mode = dataset_dict["mode"]
         self.data = dataset_dict["data"]
+        self.vinvl_features = dataset_dict.get("vinvl_features")
+        self.ocr_features = dataset_dict.get("ocr_features")
         self.clip_embeddings = dataset_dict.get("clip_embeddings")
         self.in_context_examples = dataset_dict.get("in_context_examples") or {}
         self.answer_candidate_list = dataset_dict.get("answer_candidate_list")

@@ -12,9 +12,11 @@ flags:
 Flow: evaluate the config -> build the data loader (registry by config
 ``data_loader.type``) -> build the executor (``train.type``), whose model
 lives on the card -> load the checkpoint -> train (``--mode train``, e.g.
-``configs/conceptual_captions/conceptual_captions.jsonnet``) or test. The
+``configs/conceptual_captions/conceptual_captions.jsonnet``) or test.
+Initialization logs the environment and the card (``utils/device_stats.py``:
+its name, power limit and memory), as the JAX package logs its TPU. The
 JAX package's TPU knobs (scoped VMEM, the XLA compilation cache) have no
-counterpart, and its device statistics wait for Queue 1 item 15.
+counterpart.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .device import DeviceLike, world_size
 from .registry import DATA_LOADERS, EXECUTORS
 from .utils.color_logging import setup_console_logging
 from .utils.config_system import process_config, save_config
+from .utils.device_stats import print_device_statistics
 from .utils.dirs import create_dirs
 from .utils.loggers import MultiLogger
 from .utils.seed import set_seed
@@ -107,6 +110,11 @@ def initialization(args: argparse.Namespace):
         sys.__excepthook__(exc_type, exc_value, exc_tb)
 
     sys.excepthook = excepthook
+
+    try:
+        print_device_statistics()
+    except Exception as exc:  # diagnostics never stop a run
+        logger.warning("device statistics unavailable: %s", exc)
 
     save_config(config, os.path.join(config.experiment_path, "config.json"))
     return config

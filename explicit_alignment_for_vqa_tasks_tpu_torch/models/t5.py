@@ -620,8 +620,12 @@ def t5_encode(
     input_ids: Optional[torch.Tensor] = None,
     inputs_embeds: Optional[torch.Tensor] = None,
     attention_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Returns encoder hidden states (B, L, D)."""
+    collect_hiddens: bool = False,
+):
+    """Returns encoder hidden states (B, L, D). With ``collect_hiddens``
+    returns ``(final, per_layer (num_layers, B, L, D))``, each layer's
+    output before the final norm (JAX models/t5.py:667-788), for the drift
+    studies (tools/bf16_drift_study.py, tools/int8_drift_study.py)."""
     enc = params["encoder"]
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, cfg, input_ids)
@@ -678,9 +682,15 @@ def t5_encode(
                                 bias, cfg)
             return _encoder_ffn(layer_p, x, cfg)
 
+    per_layer = []
     for i in range(cfg.num_encoder_layers):
         x = _maybe_remat(cfg, layer, x, _encoder_layer(enc, i, cfg))
-    return rms_norm(x, enc["final_ln"], eps)
+        if collect_hiddens:
+            per_layer.append(x)
+    final = rms_norm(x, enc["final_ln"], eps)
+    if collect_hiddens:
+        return final, torch.stack(per_layer)
+    return final
 
 
 # ---------------------------------------------------------------------------

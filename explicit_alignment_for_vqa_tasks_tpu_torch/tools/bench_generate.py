@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 from typing import List, Optional
@@ -45,6 +44,7 @@ from ..models.t5 import T5Config
 from ..models.vct0 import VCT0Config, VCT0Model, init_vct0_params
 from ..ops.prefix_splice import T5_SENTINEL_BASE
 from ..trainers.few_shot_vqa_executor import ensemble_generate
+from ..utils.device_stats import device_info
 
 METRIC = "vct0_3b_fewshot_generate_prompts_per_sec_per_chip"
 PREFIX_SIZE = 768     # CLIP ViT-L/14@336 embedding width
@@ -102,19 +102,6 @@ def check_flags(args: argparse.Namespace) -> None:
         raise ValueError(
             "bench_generate: --prefill_chunks and --eos_at_steps act on the "
             "main generate path only, not beside --ensembles")
-
-
-def device_info(dev: torch.device) -> dict:
-    """The card's name and power limit (nvidia-smi) beside every number."""
-    if dev.type != "cuda":
-        return {"name": str(dev), "power_limit": None}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", f"--id={dev.index or 0}"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return {"name": torch.cuda.get_device_name(dev),
-            "power_limit": smi.split(",")[-1].strip()}
 
 
 def build_model(args: argparse.Namespace, base: T5Config,

@@ -42,7 +42,7 @@ from ..models.mappers import MapperConfig
 from ..models.t5 import T5Config
 from ..models.vct0 import VCT0Config, init_vct0_params, vct0_caption_loss
 from ..trainers.optimization import tree_leaves
-from .bench_generate import device_info
+from ..utils.device_stats import device_info
 
 METRICS = {
     "vct0": "vct0_3b_mapper_train_examples_per_sec_per_chip",

@@ -31,6 +31,7 @@ import torch
 
 from ..device import DeviceLike, make_generator, resolve_device
 from ..ops.knn import l2_normalize, top_k_lowest_index, true_fp32
+from ..utils.device_stats import device_info
 
 Tensor = torch.Tensor
 
@@ -177,8 +178,6 @@ def bench(args: argparse.Namespace, database: Tuple[Tensor, Tensor, Tensor],
 def report(result: dict, dev: torch.device) -> dict:
     """The JSON line of ``bench``'s result, beside the card's name and
     power limit."""
-    from .bench_generate import device_info
-
     return {"metric": "rices_vqa2_scale_queries_per_sec",
             "value": result["value"], "unit": "queries/s",
             "device": device_info(dev), "config": result["config"]}

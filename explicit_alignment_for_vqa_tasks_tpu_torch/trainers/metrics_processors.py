@@ -106,10 +106,12 @@ class MetricsProcessor:
         )
 
     def compute_okvqa_scores(self, module, data_dict, log_dict) -> AttrDict:
-        """OK-VQA variant (reference: metrics_processors.py:303-371): its
-        loader, LoadOKVQAData, is not ported yet."""
-        raise NotImplementedError(
-            "OK-VQA scoring is not ported yet (ROADMAP.md, Queue 1 item 16)")
+        """OK-VQA variant (reference: metrics_processors.py:303-371) over
+        the split LoadOKVQAData loaded."""
+        return self._vqa_scores(
+            self.data_loader.data.okvqa_data.vqa_helpers, data_dict, log_dict,
+            "OKVQA",
+        )
 
     def compute_accuracy(self, module, data_dict, log_dict) -> AttrDict:
         """Exact membership of the prediction in the answer list

@@ -7,8 +7,8 @@ answers.pkl and metrics, for SimpleTokenizer and the committed subword
 fixture and in the int8 calibrated eval; each other generate mode
 (no_prefix, one-at-a-time, beams, a decoder prefix, the one-shot and
 permutation ensembles) equal to JAX's the same way; the eval loop against
-per-batch steps; a missing checkpoint; and each dataset module and metric
-that is not ported yet raising with its ROADMAP item."""
+per-batch steps; and a missing checkpoint. (The VinVL, OCR, Oscar caption
+and OK-VQA modules and OK-VQA scoring: tests/test_torch_okvqa.py.)"""
 
 import copy
 import os
@@ -166,25 +166,6 @@ def test_eval_loop_steps_each_batch_once_in_order(tmp_path):
     assert len(looped) == len(stepwise) == 3
     assert looped == stepwise
     assert texecutor._eval_loop(max_batches=2) == stepwise[:2]
-
-
-@pytest.mark.parametrize("name", [
-    "LoadVinVLFeatures", "LoadGoogleOCRFeatures", "LoadOscarCaptionFeatures",
-    "LoadOKVQAData", "compute_okvqa_scores"])
-def test_unported_dataset_modules_raise(tmp_path, name):
-    """The modules that no shipped config's module_list names."""
-    _, tconfig = configs(tmp_path)
-    data_loader = TDL.get(tconfig.data_loader.type)(tconfig)
-    if name.startswith("Load"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            getattr(data_loader, name)(None)
-        return
-    data_loader.build_dataset()
-    data_loader.set_dataloader()
-    texecutor = TEX.get(tconfig.train.type)(tconfig, data_loader,
-                                            device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        texecutor.compute_okvqa_scores(None, {}, TAttrDict())
 
 
 def test_missing_checkpoint_raises(tmp_path):

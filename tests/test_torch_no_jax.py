@@ -1,6 +1,6 @@
 """The port and chip_smoke.py import neither jax nor the JAX package (nor,
-at import time, PIL, transformers, orbax, tensorstore, datasets or
-pyarrow), and the port's device rule holds."""
+at import time, PIL, transformers, orbax, tensorstore, datasets, pyarrow or
+matplotlib), and the port's device rule holds."""
 
 import ast
 import subprocess
@@ -18,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "explicit_alignment_for_vqa_tasks_tpu")
 # absent on the card's machine (or, tensorstore, not known there): imported
 # inside the functions that use them
 NOT_AT_IMPORT = ("PIL", "transformers", "orbax", "tensorstore", "datasets",
-                 "pyarrow")
+                 "pyarrow", "matplotlib")
 
 
 def port_modules():
@@ -63,7 +63,12 @@ def test_every_kernel_module_is_scanned():
                    "tools.extract_clip_embeddings_conceptual_captions",
                    "tools.rices_at_scale",
                    "tools.convert_reference_checkpoint",
-                   "tools.convert_orbax_checkpoint"):
+                   "tools.convert_orbax_checkpoint", "utils.device_stats",
+                   "tools.generate_captions", "tools.int8_drift_study",
+                   "tools.bf16_drift_study", "tools.decode_profile",
+                   "tools.replicate_baseline", "tools.replicate_dryrun",
+                   "tools.answer_length_analysis", "tools.report_plots",
+                   "tools.visualise_in_context_examples"):
         assert f"{PORT.name}.{module}" in names, module
 
 
