@@ -393,6 +393,27 @@ register / shared-memory / spill report):
              beside the card's name and power limit, 8 rows of chunk 0
              against a CPU recomputation (similarities within 1e-5, rows
              equal where the scores are clear of each other)
+  okvqa_eval, generate_captions, drift_studies, decode_profile, replicate
+             OK-VQA through main, the caption tool, the int8 and bf16
+             drift studies, the decode step's traced breakdown and the
+             replication harness at T0-3B width (their functions' docs)
+  train_step_study, vit_b_study, vit_l_study, eval_pipeline_bench,
+  hw_smoke   each tool's main through tool_phase (every count set to 0
+             just before, held to the launches its programs make after):
+             the T0-3B mapper train step at B=32 and 64 with the remat,
+             xla_attn and fwd variants (finite losses, step_over_fwd_ratio,
+             the card's measured_ceiling_tflops and int8_over_bf16_rate);
+             a chunk of each ViT study (images/s, towers' ms, shares of
+             the measured ceiling); both eval orders on 32 questions
+             (equal predictions, the speedup); hw_smoke's five flows
+  multiprocess_eval
+             main --mode test over two processes on the one card (gloo)
+             at T0-3B width on EVAL_QUESTIONS questions: the gathered
+             predictions cover every question once in rank order, each
+             rank's answers equal a one-process run over its shard, rank
+             0's accuracy is the gathered list's, rank 1 writes no
+             answers.pkl, a two-process train run refuses (item 14); the
+             launches are each rank's, counted in its own process
 
 The phases from vit_kernels to clip_encode_int8_fp32 (the CLIP and GPT-2
 ones) run in a process of their own (--clip-phases), from the shared
@@ -531,9 +552,16 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.tools import rices_at_scale  # n
 from explicit_alignment_for_vqa_tasks_tpu_torch.tools import (  # noqa: E402
     bf16_drift_study,
     decode_profile,
+    e2e_fixtures,
+    eval_pipeline_bench,
     generate_captions as caption_tool,
+    hw_smoke,
     int8_drift_study,
+    multiprocess_eval,
     replicate_baseline,
+    train_step_study,
+    vit_b_study,
+    vit_l_study,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import clipcap_executor  # noqa: E402
 from explicit_alignment_for_vqa_tasks_tpu_torch.trainers import model_factory  # noqa: E402
@@ -565,6 +593,7 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.utils.config_system import (  # 
     process_config,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.utils.vqa_eval import VQAEval  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.utils.vqa_tools import VQA  # noqa: E402
 
 SEED = 0
 BATCH = 32
@@ -6949,6 +6978,272 @@ def phase_replicate(smi: str) -> dict:
     return {"rows": rows}
 
 
+# the kernel studies, the eval-order bench, hw_smoke and the eval over
+# processes: each tool's main through tool_phase; the studies at a chunk
+# (the full, unfiltered runs are the README's commands)
+TRAIN_STUDY_ARGS = ("--batches", "32,64", "--steps", "2", "--trials", "1")
+VIT_B_CHUNK = ("--variants", "xla,whole_g4_shipped,whole_g8,split3_g4",
+               "--towers", "whole_block_g4,attention_core_g4,mlp_fused_g4,"
+               "patch_embed_only", "--trials", "1")
+VIT_L_CHUNK = ("--variants", "xla,split3,whole", "--towers",
+               "attention_core_only,mlp_fused_only,qkv_projections_xla",
+               "--trials", "1")
+# the kernels each timed entry of the chunks runs, once a layer a pass
+VIT_ENTRY_KERNELS = {
+    "xla": (), "qkv_projections_xla": (), "patch_embed_only": (),
+    "whole_g4_shipped": ("fused_vit_block",), "whole": ("fused_vit_block",),
+    "whole_block_g4": ("fused_vit_block",),
+    "split3_g4": ("fused_ln_qkv", "attention_core_oproj", "fused_mlp_block"),
+    "split3": ("fused_ln_qkv", "attention_core_oproj", "fused_mlp_block"),
+    "attention_core_g4": ("attention_core",),
+    "attention_core_only": ("attention_core",),
+    "mlp_fused_g4": ("fused_mlp_block",), "mlp_fused_only": ("fused_mlp_block",),
+}
+# hw_smoke's launches at e2e_fixtures.KERNEL_LM_CONFIG (2 encoder layers,
+# 4 val questions in 2 batches), by flow: eval, one-at-a-time and beam 4
+# each; the ensembles 12 looped and 8 batched; training none (the CC
+# config fuses nothing); the int8 eval 4 of each int8 kernel and of
+# t5_attention_core (the calibration encodes on the plain path)
+HW_SMOKE_LAUNCHES = dict(t5_attention_core=4 + 4 + 4 + 12 + 8 + 4,
+                         fused_t5_ln_qkv_q8=4, fused_oproj_residual_q8=4,
+                         fused_t5_ffn_q8=4)
+PROCESSES = 2                      # multiprocess_eval's ranks, on one card
+
+
+def tool_phase(phase: str, smi: str, tool, argv, want, fields,
+               counts=None) -> dict:
+    """``tool.main(argv)`` with every kernel count set to 0 just before; then
+    ``fields(result)``, which checks the result (raising on a miss) and may
+    run more on the card; then the counts (``counts(result)`` where the tool
+    ran in other processes, else this process's), held to ``want(result)``,
+    and the phase line with the card, wall, peak and the fields."""
+    t0 = start_phase()
+    out = tool.main(list(argv))
+    got = counts(out) if counts else kernel_counts()
+    line = fields(out)
+    phase_line(phase, smi, t0, got, want(out), **line)
+    return out
+
+
+def timed_entry_launches(out: dict, tables: tuple, layers: int) -> dict:
+    """A study's launches: each timed entry's kernels once a layer in each
+    of its (trials + 1) calls of k passes."""
+    calls = (out["trials"] + 1) * out["k_batches"] * layers
+    counts: dict = {}
+    for table in tables:
+        for name, res in out[table].items():
+            if "same_program_as" in res:
+                continue
+            for kernel in VIT_ENTRY_KERNELS[name]:
+                counts[kernel] = counts.get(kernel, 0) + calls
+    return launches(**counts)
+
+
+def train_study_fields(out: dict) -> dict:
+    points = {**{f"B={b}": p for b, p in out["batch_sweep"].items()},
+              **out["variants"]}
+    for name, p in points.items():
+        check("error" not in p and np.isfinite(p["first_loss"])
+              and np.isfinite(p["final_loss"]) and p["ms_per_step"] > 0,
+              f"train_step_study: {name}: {p}")
+    cfg = out["config"]
+    check(cfg["measured_ceiling_tflops"] > 0 and cfg["int8_over_bf16_rate"] > 0
+          and out["variants"]["fwd"]["step_over_fwd_ratio"] > 0
+          and out["int8_forward_bound"]["max_step_speedup"] > 0
+          and out["device"]["name"] == torch.cuda.get_device_name(0),
+          f"train_step_study: {cfg}, {out['int8_forward_bound']}")
+    return dict(
+        measured_ceiling_tflops=cfg["measured_ceiling_tflops"],
+        int8_over_bf16_rate=cfg["int8_over_bf16_rate"],
+        ms_per_step={n: p["ms_per_step"] for n, p in points.items()},
+        pct_of_measured_ceiling={n: p["pct_of_measured_ceiling"]
+                                 for n, p in points.items()},
+        step_over_fwd_ratio=out["variants"]["fwd"]["step_over_fwd_ratio"],
+        int8_forward_bound=out["int8_forward_bound"])
+
+
+def train_study_want(out: dict) -> dict:
+    """The encoder's two kernels once a layer a step's forward: base at
+    each batch, fwd, xla_attn (the FFN alone) once; remat twice (its
+    backward recomputes the forward)."""
+    cfg = out["config"]
+    units = (cfg["steps_per_fetch"] * (cfg["trials"] + 1)
+             * t5_lib.T5Config.t0_3b().num_encoder_layers)
+    base = len(out["batch_sweep"]) + 2 + 1        # + remat twice + fwd
+    return launches(t5_attention_core=units * base,
+                    fused_t5_ffn=units * (base + 1))  # + xla_attn
+
+
+def vit_study_fields(phase: str, towers_key: str):
+    def fields(out: dict) -> dict:
+        entries = {**out["variants"], **out[towers_key]}
+        for name, res in entries.items():
+            check("error" not in res, f"{phase}: {name}: {res}")
+        check(out["measured_ceiling_tflops"] > 0
+              and out["device"]["name"] == torch.cuda.get_device_name(0),
+              f"{phase}: {out['measured_ceiling_tflops']}, {out['device']}")
+        return dict(
+            measured_ceiling_tflops=out["measured_ceiling_tflops"],
+            images_per_s={n: r.get("images_per_s", r.get("same_program_as"))
+                          for n, r in out["variants"].items()},
+            towers=out[towers_key],
+            variants_pct_of_measured_ceiling={
+                n: r.get("pct_of_measured_ceiling")
+                for n, r in out["variants"].items()})
+    return fields
+
+
+def eval_pipeline_fields(out: dict) -> dict:
+    check(out["predictions"] == 32 and out["serial_ms"] > 0
+          and out["pipelined_ms"] > 0, f"eval_pipeline_bench: {out}")
+    return {k: out[k] for k in ("serial_ms", "pipelined_ms", "value",
+                                "batches", "predictions")}
+
+
+def phase_multiprocess_eval(smi: str) -> dict:
+    """main --mode test over PROCESSES processes on the one card
+    (tools/multiprocess_eval.py: the launcher's environment, a gloo group)
+    on the shipped config at T0-3B width with EVAL_QUESTIONS synthetic
+    questions and a saved mapper. Checks: rank 0's answers.pkl (the
+    gathered list) covers every question once, in rank order, and rank 1
+    wrote none; each rank's answers equal a one-process run (in this
+    process) over its [r::PROCESSES] shard; rank 0's accuracy is the
+    gathered list's, scored here; a two-process --mode train refuses,
+    naming ROADMAP Queue 1 item 14. The launches are the ranks' own, each
+    counted in its process: t5_attention_core once an encoder layer a batch
+    of that rank. The one-process shard runs' launches are checked apart
+    from them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = write_eval_data(folder, EVAL_QUESTIONS)
+        config = process_config(parse_args_sys(eval_argv(folder, files)))
+        lm_cfg = model_factory.T5_CONFIGS[config.model_config.ConfigClass]()
+        mapper_cfg = VCT0Config.from_model_args(
+            dict(config.model_config.model_args), lm_cfg=lm_cfg).mapper
+        ckpt = save_checkpoint(str(folder / "ckpt"), 0, {"mapper": init_mapper(
+            torch.Generator().manual_seed(SEED), mapper_cfg)})
+        load = f"test.load_model_path={ckpt}"
+        layers = lm_cfg.num_encoder_layers
+
+        def rank_want(rec: dict) -> dict:
+            return launches(t5_attention_core=layers * rec["batches"])
+
+        def fields(records: list) -> dict:
+            want_ids = [2000000 + i for i in range(EVAL_QUESTIONS)]
+            gathered = records[0]["predictions"]
+            check(gathered is not None
+                  and all(r["predictions"] is None for r in records[1:])
+                  and any(f.endswith("answers.pkl")
+                          for f in records[0]["files"])
+                  and not any(f.endswith("answers.pkl")
+                              for r in records[1:] for f in r["files"]),
+                  "multiprocess_eval: a rank other than 0 wrote predictions, "
+                  "or rank 0 none")
+            check([p["question_id"] for p in gathered]
+                  == [q for r in records for q in r["shard"]]
+                  and sorted(p["question_id"] for p in gathered) == want_ids,
+                  "multiprocess_eval: the gathered predictions do not cover "
+                  "every question once in rank order")
+            offset = 0
+            for r in records:
+                shard = want_ids[r["rank"]::PROCESSES]
+                check(r["shard"] == shard,
+                      f"multiprocess_eval: rank {r['rank']}'s shard")
+                check(r["launches"] == rank_want(r),
+                      f"multiprocess_eval: rank {r['rank']} launched "
+                      f"{launched_only(r['launches'])} in {r['batches']} "
+                      "batches")
+                local = gathered[offset:offset + len(shard)]
+                offset += len(shard)
+                sub = folder / f"shard{r['rank']}"
+                shard_files = dict(files)
+                for kind in ("questions", "annotations"):
+                    rows = json.loads(Path(files[f"val2014_{kind}"])
+                                      .read_text())
+                    rows[kind] = [q for q in rows[kind]
+                                  if q["question_id"] in set(shard)]
+                    path = sub / f"val2014_{kind}.json"
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    path.write_text(json.dumps(rows))
+                    shard_files[f"val2014_{kind}"] = str(path)
+                zero_counts()
+                executor, _ = eval_main.run(eval_argv(sub, shard_files, load))
+                batches = len(executor.test_dataloader)
+                check(batches == r["batches"] and kernel_counts()
+                      == launches(t5_attention_core=layers * batches),
+                      f"multiprocess_eval: the one-process run over rank "
+                      f"{r['rank']}'s shard: {batches} batches, launched "
+                      f"{launched_only(kernel_counts())}")
+                one = pickle.loads((Path(executor.config.results_path)
+                                    / "answers.pkl").read_bytes())
+                check({p["question_id"]: p["answer"] for p in one}
+                      == {p["question_id"]: p["answer"] for p in local},
+                      f"multiprocess_eval: rank {r['rank']}'s answers differ "
+                      "from a one-process run over its shard")
+                del executor
+            helper = VQA(files["val2014_annotations"],
+                         files["val2014_questions"])
+            ev = VQAEval(helper, helper.load_res_from_list(gathered), n=2)
+            ev.evaluate()
+            key = "test_evaluation/accuracy_overall"
+            check(records[0]["metrics"][key] == ev.accuracy["overall"],
+                  "multiprocess_eval: rank 0's accuracy is not the gathered "
+                  "list's")
+            train_argv = eval_argv(folder / "train", files, load)
+            train_argv[train_argv.index("--mode") + 1] = "train"
+            refused = multiprocess_eval.launch(train_argv, PROCESSES,
+                                               folder / "train_ranks")
+            check(all("Queue 1 item 14" in (r["error"] or "")
+                      and not any(r["launches"].values()) for r in refused),
+                  f"multiprocess_eval: a two-process train run: "
+                  f"{[(r['error'], r['launches']) for r in refused]}")
+            return dict(ranks=PROCESSES, questions=len(gathered),
+                        shards=[len(r["shard"]) for r in records],
+                        rank_launches=[launched_only(r["launches"])
+                                       for r in records],
+                        accuracy=records[0]["metrics"][key],
+                        train_refusal=refused[0]["error"])
+
+        def summed(records: list) -> dict:
+            return {name: sum(r["launches"][name] for r in records)
+                    for name in launches()}
+
+        return tool_phase(
+            "multiprocess_eval", smi, multiprocess_eval,
+            ["--nproc", str(PROCESSES), "--out", str(folder / "ranks"), "--",
+             *eval_argv(folder, files, load)],
+            lambda records: launches(t5_attention_core=layers * sum(
+                r["batches"] for r in records)), fields, counts=summed)
+
+
+def phase_tools(smi: str) -> None:
+    """The studies (a chunk each), eval_pipeline_bench, hw_smoke and the
+    eval over processes, each through tool_phase."""
+    tool_phase("train_step_study", smi, train_step_study, TRAIN_STUDY_ARGS,
+               train_study_want, train_study_fields)
+    torch.cuda.empty_cache()
+    tool_phase("vit_b_study", smi, vit_b_study, VIT_B_CHUNK,
+               lambda out: timed_entry_launches(
+                   out, ("variants", "component_towers_12layer"), 12),
+               vit_study_fields("vit_b_study", "component_towers_12layer"))
+    torch.cuda.empty_cache()
+    tool_phase("vit_l_study", smi, vit_l_study, VIT_L_CHUNK,
+               lambda out: timed_entry_launches(
+                   out, ("variants", "component_towers_24layer"), 24),
+               vit_study_fields("vit_l_study", "component_towers_24layer"))
+    torch.cuda.empty_cache()
+    tool_phase("eval_pipeline_bench", smi, eval_pipeline_bench, [],
+               lambda out: launches(t5_attention_core=(
+                   1 + 2 * eval_pipeline_bench.TRIALS) * out["batches"]
+                   * e2e_fixtures.KERNEL_LM_CONFIG["num_encoder_layers"]),
+               eval_pipeline_fields)
+    tool_phase("hw_smoke", smi, hw_smoke, [],
+               lambda out: launches(**HW_SMOKE_LAUNCHES),
+               lambda out: {"flows": out})
+    torch.cuda.empty_cache()
+    phase_multiprocess_eval(smi)
+
+
 LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 
@@ -7160,6 +7455,7 @@ def main() -> int:
     for later in (phase_okvqa_eval, phase_generate_captions,
                   phase_drift_studies, phase_decode_profile, phase_replicate):
         later(smi)
+    phase_tools(smi)
 
     measured = {
         "t5_attention_core": (attention, config_eval),

@@ -12,9 +12,10 @@ existing pre-extracted features drop in unchanged:
 The port's own copy of explicit_alignment_for_vqa_tasks_tpu/data/data_loader_vqa2.py,
 held against it by tests/test_torch_eval_data.py and (the VinVL, OCR,
 Oscar caption and OK-VQA modules) tests/test_torch_okvqa.py. Where the JAX
-package asks ``jax.process_count()``, the port asks ``torch.distributed``
-(``device.world_size``), which refuses a run over more than one process
-until the multi-process eval is ported (ROADMAP.md, Queue 1 item 14).
+package asks ``jax.process_count()`` / ``jax.process_index()``, the port
+asks ``torch.distributed`` (``device.world_size`` / ``device.rank``): an eval
+over several processes gives each its shard of the questions; a training
+run over several raises (ROADMAP.md, Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
-from ..device import world_size
+from ..device import rank, world_size
 from ..registry import DATA_LOADERS, DATASETS
 from ..utils.attr_dict import AttrDict
 from ..utils.cache_system import load_cached_data, save_cached_data
@@ -302,6 +303,9 @@ class DataLoaderVQA2(DataLoaderWrapper):
         # (data_loader_vqa2.py:529, :563). SimpleTokenizer numbers words in
         # the order it first meets them: one collate thread keeps that
         # order, and so the ids, the same from run to run
+        # an eval runs over several processes; training over them raises
+        # here, before any loader is built (ROADMAP.md, Queue 1 item 14)
+        processes = world_size(self.config.mode)
         num_workers = additional.get("num_workers", 8)
         num_workers_test = additional.get("num_workers_test", 4)
         if isinstance(self.tokenizer, SimpleTokenizer) or isinstance(
@@ -322,9 +326,14 @@ class DataLoaderVQA2(DataLoaderWrapper):
                         len(self.train_dataloader))
         self.test_dataset = dataset_cls(self.config, dict(
             common, data=self.data.vqa_data.val, mode="test"))
-        # one process: its shard [0::1] is the whole question set (the
-        # JAX package shards by process here, world_size refuses that)
-        shard_id, num_shards = 0, world_size()
+        # multi-process eval: each process evaluates its [i::P] question
+        # shard; predictions are re-united by gather_predictions_to_host0
+        # before the VQA protocol's full-coverage check
+        shard_id, num_shards = 0, 1
+        if processes > 1 and additional.get("shard_eval_by_process", 1):
+            shard_id, num_shards = rank(), processes
+            logger.info("sharding eval data by process: shard %d/%d",
+                        shard_id, num_shards)
         self.test_dataloader = BatchIterator(
             self.test_dataset,
             batch_size=self.config.valid.batch_size,

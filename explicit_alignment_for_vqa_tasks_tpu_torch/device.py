@@ -1,5 +1,5 @@
-"""Where the port runs: the CUDA card unless the caller asks for the CPU,
-in one process."""
+"""Where the port runs: the CUDA card unless the caller asks for the CPU;
+one process, or several for an eval (``parallel/multihost.py``)."""
 
 from __future__ import annotations
 
@@ -35,17 +35,27 @@ def make_generator(seed: int, device: Optional[torch.device]) -> torch.Generator
     return gen
 
 
-def world_size() -> int:
+def world_size(mode: str = "train") -> int:
     """The processes of this run: ``torch.distributed``'s world when it is
-    initialised, else the launcher's ``WORLD_SIZE`` (1 when unset). Raises
-    for more than one: each process would evaluate one shard, and the
-    gather of predictions to one scorer is not ported yet."""
+    initialised, else the launcher's ``WORLD_SIZE`` (1 when unset). More
+    than one runs an eval (``mode`` "test": each process evaluates its
+    shard of the questions, the predictions gathered to the scorer); for any
+    other mode it raises (data-parallel training is not ported yet)."""
     if dist.is_available() and dist.is_initialized():
         size = dist.get_world_size()
     else:
         size = int(os.environ.get("WORLD_SIZE", "1"))
-    if size > 1:
+    if size > 1 and mode != "test":
         raise NotImplementedError(
-            f"a {size}-process run is not ported yet (ROADMAP.md, Queue 1 "
-            "item 14): run one process")
+            f"a {size}-process {mode} run is not ported yet (ROADMAP.md, "
+            "Queue 1 item 14): run one process; only --mode test runs over "
+            "several")
     return size
+
+
+def rank() -> int:
+    """This process's rank: ``torch.distributed``'s when initialised, else
+    the launcher's ``RANK`` (0 when unset)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("RANK", "0"))

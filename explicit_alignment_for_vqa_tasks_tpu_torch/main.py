@@ -30,7 +30,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from . import data as _data  # noqa: F401 — populates DATA_LOADERS/DATASETS
 from . import trainers as _trainers  # noqa: F401 — populates EXECUTORS
-from .device import DeviceLike, world_size
+from .device import DeviceLike, rank
+from .parallel.multihost import maybe_initialize_distributed
 from .registry import DATA_LOADERS, EXECUTORS
 from .utils.color_logging import setup_console_logging
 from .utils.config_system import process_config, save_config
@@ -116,7 +117,9 @@ def initialization(args: argparse.Namespace):
     except Exception as exc:  # diagnostics never stop a run
         logger.warning("device statistics unavailable: %s", exc)
 
-    save_config(config, os.path.join(config.experiment_path, "config.json"))
+    if rank() == 0:  # one writer where several processes share the folder
+        save_config(config, os.path.join(config.experiment_path,
+                                         "config.json"))
     return config
 
 
@@ -125,7 +128,9 @@ def main(config: Any, device: DeviceLike = None
     """Orchestration (reference: src/main.py:69-197). The model is built
     on ``device``, the card unless the caller passes another. Returns the
     executor and the test metrics (none for a train run)."""
-    world_size()  # one process: more raise (the JAX package starts them here)
+    # more than one process: an eval over the launcher's process group
+    # (training raises, naming ROADMAP Queue 1 item 14)
+    maybe_initialize_distributed(config.mode)
     set_seed(int(config.get("seed", 2021)))
 
     data_loader_cls = DATA_LOADERS.get(config.data_loader.type)

@@ -30,6 +30,7 @@ import torch
 from ..device import DeviceLike, make_generator, resolve_device
 from ..ops import decoding as _decoding
 from ..ops.prefix_splice import T5_SENTINEL_BASE, insert_prefix_into_input
+from ..parallel.gather import max_across_processes
 from ..registry import MODELS
 from . import t5 as t5_lib
 from .mappers import MapperConfig, init_mapper, mapper_apply
@@ -433,8 +434,10 @@ class VCT0Model:
         (``vct0.py:814-818``; weight-only, no statistics). ``batches``:
         iterable of dicts of ``encoder_calibration_batch``'s arguments.
         Returns the act-max statistics and swaps the quantized LM params
-        into ``self.params``. One process only: the statistics are not
-        gathered across processes (ROADMAP.md, Queue 1 item 14)."""
+        into ``self.params``. Over several processes each calibrates on its
+        shard and the statistics are max-reduced across them before the
+        folding (JAX ``vct0.py:793-801``), so every rank's quantized weights
+        are bit-equal."""
         lm_cfg = self.cfg.lm
         if not (lm_cfg.int8_encoder_ffn or lm_cfg.int8_encoder_attn):
             raise ValueError(
@@ -449,6 +452,7 @@ class VCT0Model:
                 k: torch.maximum(stats[k], cur[k]) for k in stats}
         if stats is None:
             raise ValueError("int8 calibration needs >= 1 batch")
+        stats = {k: max_across_processes(v) for k, v in stats.items()}
         lm = self.params["lm"]
         if lm_cfg.int8_encoder_ffn:
             lm = t5_lib.quantize_encoder_ffn(

@@ -29,7 +29,10 @@ import os
 import pickle
 import shutil
 import sys
+from pathlib import Path
 from typing import Dict
+
+from .e2e_fixtures import example_list, write_vqa_splits
 
 logger = logging.getLogger(__name__)
 
@@ -44,66 +47,12 @@ TOK_FIXTURE = os.path.join(REPO, "tests", "fixtures", "tiny_t5_tokenizer")
 def _write_vqa_artifacts(data_dir: str, n_train_imgs: int = 10,
                          n_val_imgs: int = 4) -> Dict[str, str]:
     """Synthetic VQA2 artifacts in the reference's exact file formats
-    (the shapes of tests/test_e2e.py::write_vqa_fixtures, written here so
-    that the tool needs no test code)."""
+    (``e2e_fixtures.write_vqa_splits``), with the main RICES, question-only
+    RICES and RANDOM pickles."""
     import numpy as np
 
-    rng = np.random.default_rng(0)
-    os.makedirs(data_dir, exist_ok=True)
-
-    def make_split(name, n_imgs, qid_base):
-        questions, annotations = [], []
-        for i in range(n_imgs):
-            img_id = qid_base // 1000 + i
-            qid = qid_base + i
-            questions.append({
-                "question_id": qid, "image_id": img_id,
-                "question": f"what color is object {i} ?",
-            })
-            answer = ["red", "blue", "green"][i % 3]
-            annotations.append({
-                "question_id": qid, "image_id": img_id,
-                "question_type": "what color is", "answer_type": "other",
-                "multiple_choice_answer": answer,
-                "answers": [
-                    {"answer": answer, "answer_confidence": "yes",
-                     "answer_id": k + 1} for k in range(10)
-                ],
-            })
-        q_file = os.path.join(data_dir, f"{name}_questions.json")
-        a_file = os.path.join(data_dir, f"{name}_annotations.json")
-        with open(q_file, "w") as fh:
-            json.dump({"info": {}, "task_type": "Open-Ended",
-                       "data_type": "mscoco", "data_subtype": name,
-                       "license": {}, "questions": questions}, fh)
-        with open(a_file, "w") as fh:
-            json.dump({"info": {}, "task_type": "Open-Ended",
-                       "data_type": "mscoco", "data_subtype": name,
-                       "license": {}, "annotations": annotations}, fh)
-        return q_file, a_file, questions
-
-    train_q, train_a, train_qs = make_split("train2014", n_train_imgs,
-                                            1000000)
-    val_q, val_a, val_qs = make_split("val2014", n_val_imgs, 2000000)
-
-    all_img_ids = ([q["image_id"] for q in train_qs]
-                   + [q["image_id"] for q in val_qs])
-    embeddings = {
-        str(i): rng.standard_normal((1, PREFIX_SIZE)).astype(np.float32)
-        for i in all_img_ids
-    }
-    emb_file = os.path.join(data_dir, "clip_embeddings.pkl")
-    with open(emb_file, "wb") as fh:
-        pickle.dump(embeddings, fh)
-
-    def example_list(order):
-        return [
-            {"question_id": tq["question_id"], "img_key": tq["image_id"],
-             "question": tq["question"],
-             "gold_answer": ["red", "blue", "green"][i % 3]}
-            for i, tq in enumerate(order)
-        ]
-
+    files, train_qs, val_qs = write_vqa_splits(Path(data_dir), n_train_imgs,
+                                               n_val_imgs)
     # ascending similarity (best LAST) — main RICES, question-only RICES
     # (different order), and the RANDOM baseline
     rices = {str(q["question_id"]): example_list(train_qs)
@@ -125,9 +74,10 @@ def _write_vqa_artifacts(data_dir: str, n_train_imgs: int = 10,
         return path
 
     return {
-        "questions_train": train_q, "annotations_train": train_a,
-        "questions_val": val_q, "annotations_val": val_a,
-        "embeddings": emb_file,
+        "questions_train": files["train_q"],
+        "annotations_train": files["train_a"],
+        "questions_val": files["val_q"], "annotations_val": files["val_a"],
+        "embeddings": files["embeddings"],
         "rices": dump(rices, "rices.pkl"),
         "text_rices": dump(text_rices, "rices_questions_only.pkl"),
         "random": dump(random_examples, "random.pkl"),

@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..device import rank
 from ..utils.attr_dict import AttrDict
 from ..utils.loggers import MultiLogger
 from ..utils.profiling import ThroughputMeter
@@ -239,7 +240,8 @@ class BaseExecutor(MetricsProcessor):
             return metrics_to_log
         self.log_metrics(metrics_to_log)
         table = log_dict.artifacts.get("test_table")
-        if table and self.config.get("args", {}).get("log_prediction_tables"):
+        if table and self.config.get("args", {}).get(
+                "log_prediction_tables") and rank() == 0:
             if self.multi_logger is not None:
                 self.multi_logger.log_table(
                     f"predictions_epoch{self.current_epoch}"

@@ -24,6 +24,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..device import rank
+
 logger = logging.getLogger(__name__)
 
 _META_FILE = "checkpoint_index.json"
@@ -66,9 +68,13 @@ def save_checkpoint(
     metric_mode: str = "min",
 ) -> str:
     """Save ``model_{epoch:02d}`` and update last/best aliases. ``state``
-    is a tree of tensors and Python numbers; ``epoch`` is stored in it."""
+    is a tree of tensors and Python numbers; ``epoch`` is stored in it.
+    Over several processes rank 0 alone writes (JAX
+    ``checkpointing.py:63``); every rank gets the path."""
     name = f"model_{epoch:02d}"
     path = os.path.abspath(os.path.join(saved_model_path, name))
+    if rank() != 0:
+        return path
     payload = dict(state)
     payload["epoch"] = int(epoch)
     write_state(path, payload)

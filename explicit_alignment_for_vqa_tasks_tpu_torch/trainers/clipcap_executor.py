@@ -28,6 +28,7 @@ import torch
 
 from ..device import DeviceLike
 from ..models.clipcap import clipcap_loss
+from ..parallel.gather import gather_predictions_to_host0
 from ..registry import EXECUTORS
 from ..utils.attr_dict import AttrDict
 from .base_executor import BaseExecutor, tree_to_device
@@ -209,6 +210,8 @@ class ClipCapExecutor(BaseExecutor):
             predictions.extend(out["predictions"])
             if i < 10:
                 rows.extend(out["table_entries"])
+        # over several processes the scorer needs every rank's shard
+        predictions = gather_predictions_to_host0(predictions)
         data = AttrDict(mode=mode, epoch=self.current_epoch,
                         batch_predictions=predictions)
         log_dict = self.compute_metrics(data)

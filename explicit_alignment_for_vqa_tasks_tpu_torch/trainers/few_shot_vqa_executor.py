@@ -21,6 +21,7 @@ import torch
 
 from ..device import DeviceLike
 from ..ops.decoding import sequence_scores
+from ..parallel.gather import gather_predictions_to_host0
 from ..registry import EXECUTORS
 from ..utils.attr_dict import AttrDict
 from .base_executor import BaseExecutor, tree_to_device
@@ -338,16 +339,17 @@ class FewShotVQAExecutor(BaseExecutor):
     def evaluate_outputs(self, step_outputs: List[Dict],
                          mode: str = "test") -> AttrDict:
         """Aggregate predictions + prediction table, compute metrics
-        (reference: few_shot_vqa_executor.py:334-368). One process holds
-        every prediction: the JAX package's gather to the scoring host is
-        the identity here (more processes wait for ROADMAP.md, Queue 1
-        item 14)."""
+        (reference: few_shot_vqa_executor.py:334-368). Over several
+        processes each holds its shard's predictions: they are gathered
+        first (``parallel/gather.py``; the identity in one process), since
+        the VQA scorer needs every question."""
         predictions: List[Dict] = []
         rows: List[List] = []
         for i, out in enumerate(step_outputs):
             predictions.extend(out["predictions"])
             if i < 10:
                 rows.extend(out["table_entries"])
+        predictions = gather_predictions_to_host0(predictions)
         data = AttrDict(
             mode=mode,
             epoch=self.current_epoch,

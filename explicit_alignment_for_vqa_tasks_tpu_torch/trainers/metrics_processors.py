@@ -26,6 +26,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from ..device import rank
 from ..utils.attr_dict import AttrDict
 from ..utils.vqa_eval import VQAEval
 
@@ -254,7 +255,10 @@ class MetricsProcessor:
 
     def write_predictions_to_file(self, module, data_dict, log_dict) -> AttrDict:
         """Dump predictions to answers.pkl in the results dir
-        (reference: metrics_processors.py:446-464 wrote to cwd)."""
+        (reference: metrics_processors.py:446-464 wrote to cwd); over
+        several processes rank 0 alone writes them."""
+        if rank() != 0:
+            return log_dict
         out_dir = self.config.get("results_path") or "."
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, "answers.pkl")

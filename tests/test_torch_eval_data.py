@@ -241,6 +241,9 @@ def test_batch_iterator_surfaces_collate_errors():
 
 
 def test_world_size_refuses_more_than_one_process(tmp_path, monkeypatch):
+    """More than one process runs an eval (each its question shard,
+    tests/test_torch_multiprocess_eval.py) and refuses anything else: a
+    train-mode loader raises, naming ROADMAP Queue 1 item 14."""
     from explicit_alignment_for_vqa_tasks_tpu_torch.device import world_size
 
     monkeypatch.delenv("WORLD_SIZE", raising=False)
@@ -249,6 +252,8 @@ def test_world_size_refuses_more_than_one_process(tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         world_size()
+    assert world_size("test") == 2
+    tdl.config.mode = "train"
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         tdl.set_dataloader()
 

@@ -68,7 +68,12 @@ def test_every_kernel_module_is_scanned():
                    "tools.bf16_drift_study", "tools.decode_profile",
                    "tools.replicate_baseline", "tools.replicate_dryrun",
                    "tools.answer_length_analysis", "tools.report_plots",
-                   "tools.visualise_in_context_examples"):
+                   "tools.visualise_in_context_examples",
+                   "tools.e2e_fixtures", "tools.train_step_study",
+                   "tools.vit_studies", "tools.vit_b_study",
+                   "tools.vit_l_study", "tools.eval_pipeline_bench",
+                   "tools.hw_smoke", "tools.multiprocess_eval", "parallel",
+                   "parallel.gather", "parallel.multihost"):
         assert f"{PORT.name}.{module}" in names, module
 
 
