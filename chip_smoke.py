@@ -488,6 +488,13 @@ from explicit_alignment_for_vqa_tasks_tpu_torch.models.vct0 import (  # noqa: E4
     vct0_caption_loss,
 )
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.knn import knn_search  # noqa: E402
+from explicit_alignment_for_vqa_tasks_tpu_torch.parallel.mesh import (  # noqa: E402
+    make_data_mesh,
+)
+from explicit_alignment_for_vqa_tasks_tpu_torch.parallel.multihost import (  # noqa: E402
+    backend as pbackend,
+    maybe_initialize_distributed,
+)
 from explicit_alignment_for_vqa_tasks_tpu_torch.ops.decode_attention import (  # noqa: E402
     cross_attention_decode,
     cross_attention_decode_plain,
@@ -5529,9 +5536,10 @@ def grad_step(loss_fn, mapper: dict, expected: dict, what: str) -> tuple:
 def compare_grads(what: str, losses: dict, grads: dict, rel_limit: float,
                   a: str = "fused", b: str = "unfused") -> dict:
     rel = abs(losses[a] - losses[b]) / abs(losses[b])
-    cos = float(torch.nn.functional.cosine_similarity(grads[a], grads[b],
-                                                      dim=0))
-    norm_ratio = float(grads[a].norm() / grads[b].norm())
+    # in float64: an fp32 cosine of the 218 M mapper gradients strays past 1
+    ga, gb = grads[a].double(), grads[b].double()
+    cos = float(torch.nn.functional.cosine_similarity(ga, gb, dim=0))
+    norm_ratio = float(ga.norm() / gb.norm())
     check(rel <= rel_limit, f"{what}: loss {losses[a]} against {losses[b]}, "
           f"rel {rel} > {rel_limit}")
     check(cos >= TRAIN_GRAD_COSINE, f"{what}: mapper gradient cosine {cos} "
@@ -7108,8 +7116,9 @@ def phase_multiprocess_eval(smi: str) -> dict:
     gathered list) covers every question once, in rank order, and rank 1
     wrote none; each rank's answers equal a one-process run (in this
     process) over its [r::PROCESSES] shard; rank 0's accuracy is the
-    gathered list's, scored here; a two-process --mode train refuses,
-    naming ROADMAP Queue 1 item 14. The launches are the ranks' own, each
+    gathered list's, scored here; a two-process --mode train on the
+    pipelined mesh (tpu.mesh.pipe 2) refuses, naming ROADMAP Queue 1 item
+    14, the pipeline. The launches are the ranks' own, each
     counted in its process: t5_attention_core once an encoder layer a batch
     of that rank. The one-process shard runs' launches are checked apart
     from them."""
@@ -7189,13 +7198,14 @@ def phase_multiprocess_eval(smi: str) -> dict:
             check(records[0]["metrics"][key] == ev.accuracy["overall"],
                   "multiprocess_eval: rank 0's accuracy is not the gathered "
                   "list's")
-            train_argv = eval_argv(folder / "train", files, load)
+            train_argv = eval_argv(folder / "train", files, load,
+                                   "tpu.mesh.pipe=2")
             train_argv[train_argv.index("--mode") + 1] = "train"
             refused = multiprocess_eval.launch(train_argv, PROCESSES,
                                                folder / "train_ranks")
-            check(all("Queue 1 item 14" in (r["error"] or "")
+            check(all("Queue 1 item 14, the pipeline" in (r["error"] or "")
                       and not any(r["launches"].values()) for r in refused),
-                  f"multiprocess_eval: a two-process train run: "
+                  f"multiprocess_eval: a two-process pipelined train run: "
                   f"{[(r['error'], r['launches']) for r in refused]}")
             return dict(ranks=PROCESSES, questions=len(gathered),
                         shards=[len(r["shard"]) for r in records],
@@ -7242,6 +7252,570 @@ def phase_tools(smi: str) -> None:
                lambda out: {"flows": out})
     torch.cuda.empty_cache()
     phase_multiprocess_eval(smi)
+
+
+# ---------------------------------------------------------------------------
+# The (data, model) mesh over processes: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2                     # the mesh phases' ranks, on the one card
+MESH_TRAIN_BATCH = 4               # a rank's rows a training step
+MESH_DP_STEPS, MESH_TP_STEPS = 3, 2
+MESH_VAL_ROWS, MESH_VAL_BATCH = 4, 2
+# a rank's step loss against the one-process run's (the same rows; the
+# products summed in another order, bf16 at T0-3B width)
+MESH_LOSS_REL = 1e-2
+MESH_EVAL_QUESTIONS = 8
+MESH_IMAGES = 32                   # the extraction batch, 16 a rank
+MESH_KNN_QUERIES = 2048            # two of rices_at_scale's 1024-query chunks
+MESH_KNN_K = 2048                  # the question kNN's k
+# sharded against one card: each rank's product of its database block and
+# one card's of the whole may round a score apart; two scores closer than
+# this may trade places
+MESH_KNN_SIM_TOL = 1e-5
+MESH_HEADS = 16                    # a model rank's heads of T0-3B's 32
+# row 6's partial form against plain: its fp32 partial differs by the
+# kernel's sum order (1.59e-4 on an H100); the same partial rounded to bf16
+# before it is stored, the fault the fp32 form exists to avoid, reads about
+# 1.5e-3. The check also shows that plain's partial rounded to bf16 lies
+# beyond the limit
+PARTIAL_FFN_REL = 5e-4
+# the bf16 split eval: the mesh's first encoder output and first decode
+# step's logits may be at most this many times as far (relative Frobenius)
+# from the fp32 one-process run's as the bf16 one-process run's are
+MESH_BF16_GROWTH = 1.5
+
+
+def mesh_cc_opts(folder: Path, n_train: int) -> list:
+    """CC parquet files of ``n_train`` training rows and MESH_VAL_ROWS val
+    rows, as --opts. SimpleTokenizer numbers words in the order a process
+    meets them: the first val row of every data shard (rows 0 and 1) holds
+    every caption word in one order, so that each rank and the one-process
+    run number them alike in their first (sanity) validation."""
+    check(importlib.util.find_spec("pyarrow") is not None,
+          "mesh phases: the ranks read the CC parquet files, and pyarrow "
+          "does not import")
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(SEED)
+    rows = {"train": cc_rows(n_train, rng), "val": cc_rows(MESH_VAL_ROWS,
+                                                           rng)}
+    for row in rows["val"][:MESH_RANKS]:
+        row["caption"] = [" ".join(CC_WORDS)]
+    modules = "data_loader.dataset_modules.module_dict.LoadConceptualCaptions"
+    opts = []
+    for split, split_rows in rows.items():
+        path = folder / f"cc_{split}.parquet"
+        pq.write_table(pa.table({key: [r[key] for r in split_rows]
+                                 for key in split_rows[0]}), path)
+        opts.append(f"{modules}.config.{split}={path}")
+    return opts
+
+
+def mesh_train_argv(folder: Path, *opts) -> list:
+    return [str(CC_CONFIG_FILE), "--mode", "train", "--experiment_name",
+            "train", "--disable_wandb", "--disable_tensorboard", "--opts",
+            f"EXPERIMENT_FOLDER={folder}/experiments",
+            f"TENSORBOARD_FOLDER={folder}/tb",
+            f"cache.default_folder={folder}/cache",
+            "model_config.TokenizerClass=SimpleTokenizer",
+            "model_config.pretrained=0", "tpu.fused_attention=true",
+            "tpu.fused_ffn=true", "train.epochs=1",
+            "train.additional.gradient_accumulation_steps=1",
+            f"valid.batch_size={MESH_VAL_BATCH}", *opts]
+
+
+def mesh_checks(phase: str, records: list, shape: dict) -> str:
+    """Every rank ran (no refusal) on ``shape`` with one backend: gloo,
+    since the ranks share the one card. Returns the backend."""
+    for rec in records:
+        check(rec["error"] is None, f"{phase}: rank {rec['rank']} refused: "
+              f"{rec['error']}")
+        check(rec["mesh"] == shape, f"{phase}: rank {rec['rank']} on "
+              f"{rec['mesh']}, expected {shape}")
+    backends = {rec["backend"] for rec in records}
+    check(backends == {"gloo"}, f"{phase}: backends {backends}: ranks "
+          "sharing one card take gloo")
+    return backends.pop()
+
+
+def mesh_encodes(steps: int, val_batches: int) -> int:
+    """A training run's encodes: one a step, two a val batch (the loss,
+    then generate) in the sanity validation (at most 2 batches) and in the
+    epoch's."""
+    return steps + 2 * (min(val_batches, 2) + val_batches)
+
+
+def phase_mesh_train(smi: str, phase: str, sizes: dict, steps: int) -> dict:
+    """main --mode train on conceptual_captions.jsonnet at T0-3B width over
+    MESH_RANKS ranks on the mesh ``sizes`` (tools/multiprocess_eval.py:
+    the launcher's environment), MESH_TRAIN_BATCH rows a rank a step, then
+    the one-process run on the union batch (the data ways' rows together:
+    with one data way, the same rows). Checks: each step's loss, equal on
+    the ranks and within MESH_LOSS_REL of the one-process run's; the first
+    step's mapper gradient equal on the ranks and against the one process's
+    (cosine, norm); the mapper and the optimizer's moments bit-identical on
+    the ranks after the run; each rank's launches."""
+    data_ways = MESH_RANKS // sizes["model"]
+    t0 = start_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        cc = mesh_cc_opts(folder, steps * MESH_TRAIN_BATCH * data_ways)
+        mesh_opts = [f"tpu.mesh.{ax}={n}" for ax, n in sizes.items()]
+        ranks_t0 = time.perf_counter()
+        records = multiprocess_eval.launch(
+            mesh_train_argv(folder, f"train.batch_size={MESH_TRAIN_BATCH}",
+                            *mesh_opts, *cc), MESH_RANKS, folder / "ranks")
+        ranks_s = time.perf_counter() - ranks_t0
+        backend = mesh_checks(phase, records, sizes)
+        grad_mesh = torch.load(folder / "ranks" / "first_grad.pt")
+        zero_counts()
+        one_t0 = time.perf_counter()
+        with multiprocess_eval.TrainTrace() as one:
+            executor, _ = eval_main.run(mesh_train_argv(
+                folder / "one",
+                f"train.batch_size={MESH_TRAIN_BATCH * data_ways}", *cc))
+        one_s = time.perf_counter() - one_t0
+        one_counts = kernel_counts()
+        check(executor.model.device.type == "cuda",
+              f"{phase}: the one-process model is on {executor.model.device}")
+        del executor
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key in ("train_losses", "first_grad_sha256", "mapper_sha256",
+                "moments_sha256"):
+        check(all(r[key] == records[0][key] for r in records),
+              f"{phase}: the ranks' {key} differ: "
+              f"{[r[key] for r in records]}")
+    check(all(r["steps"] == steps for r in records)
+          and len(one.losses) == steps,
+          f"{phase}: steps {[r['steps'] for r in records]}, one process "
+          f"{len(one.losses)}")
+    rels = [abs(a - b) / abs(b)
+            for a, b in zip(records[0]["train_losses"], one.losses)]
+    check(max(rels) <= MESH_LOSS_REL,
+          f"{phase}: the ranks' losses {records[0]['train_losses']} against "
+          f"one process's {one.losses}")
+    grads = compare_grads(phase, {"mesh": records[0]["train_losses"][0],
+                                  "one": one.losses[0]},
+                          {"mesh": grad_mesh, "one": one.first_grad},
+                          MESH_LOSS_REL, a="mesh", b="one")
+    layers = t5_lib.T5Config.t0_3b().num_encoder_layers
+    encodes = mesh_encodes(steps, -(-MESH_VAL_ROWS // (
+        MESH_VAL_BATCH * data_ways)))
+    want = launches(t5_attention_core=layers * encodes,
+                    fused_t5_ffn=layers * encodes)
+    for rec in records:
+        check(rec["launches"] == want, f"{phase}: rank {rec['rank']} "
+              f"launched {launched_only(rec['launches'])}, expected "
+              f"{launched_only(want)}")
+    result = dict(mesh=sizes, backend=backend, ranks=MESH_RANKS,
+                  steps=steps, rank_batch=MESH_TRAIN_BATCH,
+                  losses=records[0]["train_losses"],
+                  one_process_losses=one.losses, loss_rel=rels,
+                  grad_cosine=grads["grad_cosine"],
+                  grad_norm_ratio=grads["grad_norm_ratio"],
+                  mapper_sha256=records[0]["mapper_sha256"],
+                  ranks_s=ranks_s, one_process_s=one_s,
+                  one_process_launches=launched_only(one_counts),
+                  rank_launches=[launched_only(r["launches"])
+                                 for r in records])
+    phase_line(phase, smi, t0, records[0]["launches"], want, **result)
+    return result
+
+
+def mesh_kernel_checks(gen: torch.Generator) -> dict:
+    """Rows 1 and 5 at a model rank's MESH_HEADS heads and row 6's partial
+    form at T0-3B's model-2 FFN shard, at the main path's shapes, against
+    their plain versions; timed beside their plain versions, bounds, and
+    for row 6 the unfused shard's cuBLAS products."""
+    cfg = t5_lib.T5Config.t0_3b()
+    length = splice_output_length(PROMPT_LEN, PREFIX_LENGTH, NUM_SHOTS + 1)
+    dev = gen.device
+    width = MESH_HEADS * cfg.d_kv
+    d_model, d_ff = cfg.d_model, cfg.d_ff // (cfg.num_heads // MESH_HEADS)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    out = {}
+    q, k, v = (randn(BATCH, length, width).bfloat16() for _ in range(3))
+    bias = randn(MESH_HEADS, length, length)
+    mask = torch.ones((BATCH, length), dtype=torch.int32, device=dev)
+    mask[1, length - 40:] = 0
+    tiles = t5_bias_tiles(bias)
+    args = (q, k, v, bias, mask, MESH_HEADS, tiles)
+    got = t5_attention_core(*args)
+    want = t5_attention_core_plain(*args[:6])
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all()),
+          "tp_eval: t5_attention_core at 16 heads against plain")
+    flops = 4 * BATCH * MESH_HEADS * length * length * cfg.d_kv
+    out["t5_attention_core"] = dict(
+        shape=dict(B=BATCH, L=length, H=MESH_HEADS),
+        max_abs_err=float(err.max()),
+        ms=cuda_ms(lambda: t5_attention_core(*args), iters=10),
+        plain_ms=cuda_ms(lambda: t5_attention_core_plain(*args[:6]), iters=3,
+                         warmup=1),
+        **bound(4 * BATCH * length * width * 2 + bias.numel() * 4, flops,
+                BF16_FLOP_PER_S))
+    del q, k, v, bias, tiles, got, want
+    layers = cfg.num_decoder_layers
+    cq = randn(BATCH, width).bfloat16()
+    ck, cv = (randn(layers, BATCH, length, width).bfloat16()
+              for _ in range(2))
+    dargs = (cq, ck, cv, mask, DECODE_LAYER, MESH_HEADS)
+    got = cross_attention_decode(*dargs)
+    want = cross_attention_decode_plain(*dargs)
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all()),
+          "tp_eval: cross_attention_decode at 16 heads against plain")
+    out["cross_attention_decode"] = dict(
+        shape=dict(B=BATCH, L=length, H=MESH_HEADS),
+        max_abs_err=float(err.max()),
+        ms=cuda_ms(lambda: cross_attention_decode(*dargs), iters=20),
+        plain_ms=cuda_ms(lambda: cross_attention_decode_plain(*dargs),
+                         iters=5, warmup=1),
+        **bound(2 * BATCH * length * width * 2, 4 * BATCH * length * width,
+                BF16_FLOP_PER_S))
+    del cq, ck, cv, got, want
+    x = randn(BATCH, length, d_model, scale=2.0).bfloat16()
+    lnw = (1 + 0.1 * randn(d_model)).bfloat16()
+    wi_0, wi_1 = (randn(d_model, d_ff, scale=d_model ** -0.5).bfloat16()
+                  for _ in range(2))
+    wo = randn(d_ff, d_model, scale=d_ff ** -0.5).bfloat16()
+    fargs = (x, lnw, wi_0, wi_1, wo, cfg.layer_norm_epsilon)
+    got = fused_t5_ffn(*fargs, residual=False)
+    want = fused_t5_ffn_plain(*fargs, residual=False)
+    check(got.dtype == want.dtype == torch.float32,
+          "tp_eval: the partial FFN's output is not fp32")
+    errs = compare_q8(got, want)
+    planted = ((want.bfloat16().float() - want).norm() / want.norm()).item()
+    check(errs["rel_frobenius"] <= PARTIAL_FFN_REL < planted,
+          f"tp_eval: the partial FFN's relative Frobenius error "
+          f"{errs['rel_frobenius']} against plain, plain's partial rounded "
+          f"to bf16 {planted}: the limit {PARTIAL_FFN_REL} must lie between")
+    rows = BATCH * length
+
+    def unfused_shard():
+        h = t5_lib.rms_norm(x, lnw, cfg.layer_norm_epsilon)
+        return torch.matmul(t5_lib.gelu_new(torch.matmul(h, wi_0))
+                            * torch.matmul(h, wi_1), wo)
+
+    out["fused_t5_ffn_partial"] = dict(
+        shape=dict(M=rows, D=d_model, F=d_ff, gated=True), **errs,
+        bf16_partial_rel_frobenius=planted,
+        ms=cuda_ms(lambda: fused_t5_ffn(*fargs, residual=False), iters=10),
+        plain_ms=cuda_ms(lambda: fused_t5_ffn_plain(*fargs, residual=False),
+                         iters=3, warmup=1),
+        # yardstick: the unfused bf16 shard (the norm, 3 cuBLAS matmuls,
+        # gelu, gate; bf16 out)
+        library_ms=cuda_ms(unfused_shard, iters=10),
+        **bound(rows * d_model * 2 + rows * d_model * 4
+                + 3 * d_model * d_ff * 2, 3 * 2 * rows * d_model * d_ff,
+                BF16_FLOP_PER_S))
+    del x, got, want
+    # models/t5.py::_out_proj under a model split: a rank's partial of the
+    # attention's o product as an fp32 GEMM of upcast bf16 operands, beside
+    # the whole-width form's bf16 GEMM and a bf16 GEMM with an fp32 output
+    y = randn(rows, width).bfloat16()
+    wo_shard = randn(width, d_model, scale=width ** -0.5).bfloat16()
+    upcast = torch.matmul(y.float(), wo_shard.float())
+    to_fp32 = torch.mm(y, wo_shard, out_dtype=torch.float32)
+    out["out_proj_partial"] = dict(
+        shape=dict(M=rows, K=width, N=d_model),
+        fp32_upcast_ms=cuda_ms(
+            lambda: torch.matmul(y.float(), wo_shard.float()), iters=10),
+        bf16_ms=cuda_ms(lambda: torch.matmul(y, wo_shard), iters=10),
+        bf16_fp32_out_ms=cuda_ms(
+            lambda: torch.mm(y, wo_shard, out_dtype=torch.float32),
+            iters=10),
+        bf16_fp32_out_max_abs_diff=(to_fp32 - upcast).abs().max().item(),
+        tf32=torch.backends.cuda.matmul.allow_tf32)
+    return out
+
+
+def tp_eval_run(folder: Path, files: dict, load: str, opts: tuple) -> dict:
+    """main --mode test over MESH_RANKS ranks on (data 1, model 2), then in
+    this process, on the same questions and checkpoint with ``opts``: the
+    ranks' records and the one-process run's answers, metrics, launches,
+    first outputs (``multiprocess_eval.FirstOutputs``) and walls."""
+    ranks_t0 = time.perf_counter()
+    records = multiprocess_eval.launch(
+        eval_argv(folder / "ranks_run", files, load, *opts,
+                  "tpu.mesh.model=2"), MESH_RANKS, folder / "ranks")
+    ranks_s = time.perf_counter() - ranks_t0
+    zero_counts()
+    one_t0 = time.perf_counter()
+    with multiprocess_eval.FirstOutputs() as first:
+        executor, metrics = eval_main.run(eval_argv(folder / "one", files,
+                                                    load, *opts))
+    one_s = time.perf_counter() - one_t0
+    one = pickle.loads((Path(executor.config.results_path)
+                        / "answers.pkl").read_bytes())
+    del executor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(records=records, answers=one, metrics=metrics,
+                counts=kernel_counts(), first=first.outputs, ranks_s=ranks_s,
+                one_s=one_s)
+
+
+def tp_eval_answers(phase: str, run: dict) -> tuple:
+    """Rank 0's gathered answers and the one-process run's, by question;
+    fails unless rank 0 alone wrote every question's prediction."""
+    records = run["records"]
+    gathered = records[0]["predictions"]
+    check(gathered is not None and records[1]["predictions"] is None
+          and len(gathered) == MESH_EVAL_QUESTIONS,
+          f"{phase}: rank 0 alone writes the {MESH_EVAL_QUESTIONS} "
+          "predictions")
+    return ({p["question_id"]: p["answer"] for p in gathered},
+            {p["question_id"]: p["answer"] for p in run["answers"]})
+
+
+def phase_tp_eval(smi: str) -> dict:
+    """main --mode test on the shipped few_shot_vqa_hotpotqa.jsonnet at
+    T0-3B width on (data 1, model 2) over MESH_RANKS ranks (the T5 split,
+    16 heads and half the FFN a rank), each held against the one-process
+    run of the same questions, twice:
+
+    * fp32 activations with the fused encoder and decode attention (rows 1
+      and 5's fp32 forms): rank 0's answers equal one process's token for
+      token, and each rank launched what it did;
+    * the configs' bf16 with the fused FFN too (row 6's partial form on the
+      eval path): in bf16 a split block's sum in another order moves a bf16
+      rounding now and then, and over 48 layers of random weights that
+      flipped a near-tie (on an H100, one of 8 answers ended 2 tokens
+      early), so tokens are not the measure. The first encoder output and
+      the first decode step's logits are held within a relative Frobenius
+      error of MESH_BF16_REL (tests/test_torch_tp_t5.py's bf16 rule), the
+      encoder's launches equal one process's, and the answers that agree
+      are counted.
+
+    Then rows 1, 5 and 6 (its partial form) at the mesh's widths against
+    their plain versions (mesh_kernel_checks)."""
+    t0 = start_phase()
+    fp32_opts = ("tpu.compute_dtype=float32",
+                 "model_config.lm_config.fused_decode_attention=true")
+    bf16_opts = ("tpu.fused_ffn=true",
+                 "model_config.lm_config.fused_decode_attention=true")
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = write_eval_data(folder, MESH_EVAL_QUESTIONS)
+        config = process_config(parse_args_sys(eval_argv(folder, files)))
+        lm_cfg = model_factory.T5_CONFIGS[config.model_config.ConfigClass]()
+        mapper_cfg = VCT0Config.from_model_args(
+            dict(config.model_config.model_args), lm_cfg=lm_cfg).mapper
+        ckpt = save_checkpoint(str(folder / "ckpt"), 0, {"mapper": init_mapper(
+            torch.Generator().manual_seed(SEED), mapper_cfg)})
+        load = f"test.load_model_path={ckpt}"
+        fp32 = tp_eval_run(folder / "fp32", files, load, fp32_opts)
+        bf16 = tp_eval_run(folder / "bf16", files, load, bf16_opts)
+    shape = {"data": 1, "model": 2}
+    backend = mesh_checks("tp_eval", fp32["records"], shape)
+    check(mesh_checks("tp_eval bf16", bf16["records"], shape) == backend,
+          "tp_eval: the bf16 run took another backend")
+    got_answers, want_answers = tp_eval_answers("tp_eval", fp32)
+    check(got_answers == want_answers,
+          f"tp_eval: the mesh's answers {got_answers} differ from one "
+          f"process's {want_answers}")
+    for rec in fp32["records"]:
+        check(rec["launches"] == fp32["counts"] and rec["launches"][
+            "t5_attention_core"] > 0 and rec["launches"][
+            "cross_attention_decode"] > 0,
+              f"tp_eval: rank {rec['rank']} launched "
+              f"{launched_only(rec['launches'])}, one process "
+              f"{launched_only(fp32['counts'])}")
+    bf16_got, bf16_want = tp_eval_answers("tp_eval bf16", bf16)
+    encoder = ("t5_attention_core", "fused_t5_ffn")
+    for rec in bf16["records"]:
+        check(all(rec["launches"][name] == bf16["counts"][name] > 0
+                  for name in encoder)
+              and rec["launches"]["cross_attention_decode"] > 0,
+              f"tp_eval bf16: rank {rec['rank']} launched "
+              f"{launched_only(rec['launches'])}, one process "
+              f"{launched_only(bf16['counts'])}")
+    def rel(got, want):
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    bf16_rel = {}
+    for name, exact in fp32["first"].items():
+        want = bf16["first"][name]
+        got = bf16["records"][0]["first_outputs"][name]
+        check(got.shape == want.shape == exact.shape
+              and bool(np.isfinite(got).all()),
+              f"tp_eval bf16: rank 0's first {name} output {got.shape}, "
+              f"one process's {want.shape}, in fp32 {exact.shape}")
+        bf16_rel[name] = dict(mesh_to_one=rel(got, want),
+                              one_to_fp32=rel(want, exact),
+                              mesh_to_fp32=rel(got, exact))
+        print(f"tp_eval bf16: first {name}: {bf16_rel[name]}", flush=True)
+    check(sorted(bf16_rel) == sorted(multiprocess_eval.FirstOutputs.NAMES),
+          f"tp_eval bf16: first outputs of {sorted(bf16_rel)} only")
+    for name, errs in bf16_rel.items():
+        check(errs["mesh_to_fp32"] <= MESH_BF16_GROWTH * errs["one_to_fp32"],
+              f"tp_eval bf16: rank 0's first {name} output is "
+              f"{errs['mesh_to_fp32']} from the fp32 run's, more than "
+              f"{MESH_BF16_GROWTH} x one bf16 process's {errs['one_to_fp32']}")
+    kernels_t0 = time.perf_counter()
+    checked = mesh_kernel_checks(torch.Generator(device="cuda").manual_seed(
+        SEED + 7))
+    records = fp32["records"]
+    result = dict(mesh=shape, backend=backend, ranks=MESH_RANKS,
+                  questions=MESH_EVAL_QUESTIONS, answers_equal=True,
+                  accuracy=records[0]["metrics"][
+                      "test_evaluation/accuracy_overall"],
+                  one_process_accuracy=fp32["metrics"][
+                      "test_evaluation/accuracy_overall"],
+                  ranks_s=fp32["ranks_s"], one_process_s=fp32["one_s"],
+                  bf16=dict(
+                      answers_equal=sum(bf16_got[q] == a
+                                        for q, a in bf16_want.items()),
+                      first_rel_frobenius=bf16_rel,
+                      ranks_s=bf16["ranks_s"], one_process_s=bf16["one_s"],
+                      rank_launches=[launched_only(r["launches"])
+                                     for r in bf16["records"]],
+                      one_process_launches=launched_only(bf16["counts"])),
+                  kernels_s=time.perf_counter() - kernels_t0,
+                  rank_launches=[launched_only(r["launches"])
+                                 for r in records], kernels=checked)
+    phase_line("tp_eval", smi, t0, records[0]["launches"], fp32["counts"],
+               **result)
+    return result
+
+
+def mesh_tool_inputs(dev: torch.device) -> tuple:
+    """The extraction's MESH_IMAGES preprocessed-size images (numpy) and
+    ViT-L/14@336 weights, and the kNN's VQA2-size question database (on the
+    host, as the tools load it: a rank moves only its block to the card)
+    and MESH_KNN_QUERIES queries (on the card), each from its own seed."""
+    cfg = clip_lib.CLIPVisionConfig.vit_l_14_336(fused_block=True)
+    params = clip_lib.init_clip_vision_params(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, torch.bfloat16)
+    images = np.random.default_rng(SEED).standard_normal(
+        (MESH_IMAGES, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    args = rices_at_scale.parse_args([])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    database = torch.randn((args.n_train, args.dim), generator=gen,
+                           device=dev).cpu().numpy()
+    queries = torch.randn((MESH_KNN_QUERIES, args.dim), generator=gen,
+                          device=dev)
+    return cfg, params, images, database, queries
+
+
+def run_mesh_tools_rank(folder: Path) -> None:
+    """One rank of mesh_tools (``chip_smoke.py --mesh-tools-rank DIR``,
+    started with a launcher's environment): the extraction encoder and the
+    question kNN on ``make_data_mesh(-1)``, its results, backend and
+    launches in DIR/rank{r}.pkl."""
+    maybe_initialize_distributed()
+    mesh = make_data_mesh(-1)
+    dev = torch.device("cuda")
+    cfg, params, images, database, queries = mesh_tool_inputs(dev)
+    zero_counts()
+    encoder = ClipImageEncoder(cfg, params, batch_size=MESH_IMAGES,
+                               mesh=mesh)
+    embeddings = encoder.encode_batch(images)
+    encode_counts = kernel_counts()
+    del encoder
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sims, idx = knn_search(queries, database, MESH_KNN_K, mesh=mesh)
+    record = dict(rank=mesh.data_index, backend=pbackend(),
+                  mesh=dict(mesh.shape), embeddings=embeddings,
+                  sims=sims, idx=idx, launches=encode_counts,
+                  knn_peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9)
+    (folder / f"rank{mesh.data_index}.pkl").write_bytes(pickle.dumps(record))
+
+
+def phase_mesh_tools(smi: str) -> dict:
+    """The extraction mesh and the sharded kNN over MESH_RANKS ranks on the
+    one card (``--mesh_data -1``: ClipImageEncoder at ViT-L/14@336 with the
+    split3 kernels, MESH_IMAGES images, a slice of the batch a rank;
+    knn_search over the VQA2-size question database, each rank a block of
+    its rows), against one card's in this process: the embeddings equal,
+    the kNN's scores within MESH_KNN_SIM_TOL and its indices equal but
+    where two scores are closer than that (counted)."""
+    t0 = start_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        ranks_t0 = time.perf_counter()
+        multiprocess_eval.launch_command(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--mesh-tools-rank", str(folder)], MESH_RANKS, cwd=REPO)
+        ranks_s = time.perf_counter() - ranks_t0
+        records = [pickle.loads((folder / f"rank{r}.pkl").read_bytes())
+                   for r in range(MESH_RANKS)]
+    dev = torch.device("cuda")
+    cfg, params, images, database, queries = mesh_tool_inputs(dev)
+    zero_counts()
+    one_t0 = time.perf_counter()
+    embeddings = ClipImageEncoder(cfg, params, batch_size=MESH_IMAGES
+                                  ).encode_batch(images)
+    encode_counts = kernel_counts()
+    sims, idx = knn_search(queries, database, MESH_KNN_K)
+    one_s = time.perf_counter() - one_t0
+    del params, database, queries
+    gc.collect()
+    torch.cuda.empty_cache()
+    backends = {r["backend"] for r in records}
+    check(backends == {"gloo"} and all(
+        r["mesh"] == {"data": MESH_RANKS, "model": 1} for r in records),
+          f"mesh_tools: backends {backends}, meshes "
+          f"{[r['mesh'] for r in records]}")
+    near_ties, sim_diff = 0, 0.0
+    for rec in records:
+        check(np.array_equal(rec["embeddings"], embeddings),
+              f"mesh_tools: rank {rec['rank']}'s embeddings differ from one "
+              f"card's by {np.abs(rec['embeddings'] - embeddings).max()}")
+        check(np.abs(rec["sims"] - sims).max() <= MESH_KNN_SIM_TOL,
+              f"mesh_tools: rank {rec['rank']}'s kNN scores differ by "
+              f"{np.abs(rec['sims'] - sims).max()}")
+        differ = rec["idx"] != idx
+        gap = np.minimum(np.abs(np.diff(sims, axis=1, prepend=np.inf)),
+                         np.abs(np.diff(sims, axis=1, append=-np.inf)))
+        check(not (differ & (gap > MESH_KNN_SIM_TOL)).any(),
+              f"mesh_tools: rank {rec['rank']}'s kNN indices differ from one "
+              "card's where no two scores are close")
+        near_ties = max(near_ties, int(differ.sum()))
+        sim_diff = max(sim_diff, float(np.abs(rec["sims"] - sims).max()))
+        check(rec["launches"] == encode_counts,
+              f"mesh_tools: rank {rec['rank']} launched "
+              f"{launched_only(rec['launches'])}, one card "
+              f"{launched_only(encode_counts)}")
+    result = dict(backend=backends.pop(), ranks=MESH_RANKS,
+                  images=MESH_IMAGES, knn=dict(
+                      queries=MESH_KNN_QUERIES, k=MESH_KNN_K,
+                      database=list(database_shape())),
+                  knn_indices_swapped_in_near_ties=near_ties,
+                  # above what the rank held before its search: its block
+                  # of the database, the queries' scores and candidates
+                  knn_rank_peak_gb=[r["knn_peak_gb"] for r in records],
+                  knn_max_sim_diff=sim_diff,
+                  ranks_s=ranks_s, one_card_s=one_s,
+                  rank_launches=[launched_only(r["launches"])
+                                 for r in records])
+    phase_line("mesh_tools", smi, t0, records[0]["launches"], encode_counts,
+               **result)
+    return result
+
+
+def database_shape() -> tuple:
+    args = rices_at_scale.parse_args([])
+    return args.n_train, args.dim
+
+
+def phase_mesh(smi: str) -> None:
+    """The four mesh phases, each over MESH_RANKS ranks on the one card."""
+    phase_mesh_train(smi, "dp_train", {"data": 2, "model": 1},
+                     MESH_DP_STEPS)
+    phase_mesh_train(smi, "tp_train", {"data": 1, "model": 2},
+                     MESH_TP_STEPS)
+    phase_tp_eval(smi)
+    phase_mesh_tools(smi)
 
 
 LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -7456,6 +8030,7 @@ def main() -> int:
                   phase_drift_studies, phase_decode_profile, phase_replicate):
         later(smi)
     phase_tools(smi)
+    phase_mesh(smi)
 
     measured = {
         "t5_attention_core": (attention, config_eval),
@@ -7523,5 +8098,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--trace-train-step"]:
         trace_train_step()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mesh-tools-rank"]:
+        run_mesh_tools_rank(Path(sys.argv[2]))
         sys.exit(0)
     sys.exit(main())

@@ -46,6 +46,14 @@
 // bf16 ones, and the down product's epilogue adds the fp32 residual and
 // stores the fp32 sum as it is (two 64 x 32 fp32 store boxes a chunk). The
 // same operations; x and out take 146 MB more of bytes at the main shape.
+//
+// The partial form (fused_t5_ffn_partial_launch), for a rank of a tensor-
+// parallel mesh: wi_0 and wi_1 are its column shard and wo its row shard, so
+// the down product is one term of a sum over the model group, and x may be
+// added once only, after that sum. Its down product's epilogue stores the
+// fp32 accumulators as they are (PartialEpilogue, no residual read); the
+// caller all-reduces them in fp32, adds x and rounds once. The norm and the
+// up product are those of the whole form.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,11 +95,31 @@ struct GeluEpilogue {
   }
 };
 
-// The launches of the three kernels for x and out of type T (bf16, or fp32
-// where tpu.compute_dtype=float32 makes the residual stream fp32) and the
-// norm's scale of type S; h, the hidden and the weights are bf16 whatever T
-// is, as in the Pallas kernel.
-template <typename T, typename S>
+// The partial form's down-product epilogue: out = the fp32 accumulators.
+struct PartialEpilogue {
+  using Out = float;
+  struct Args {};
+  template <int ACC, class Put>
+  __device__ static void chunk(const Args&, int, int, int,
+                               const float (&acc)[ACC], int j0,
+                               const Put& put) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = 4 * (j0 + jj) + 2 * half;
+        put(jj, half, bf16_gemm_tma::pack_out<float>(acc[i], acc[i + 1]));
+      }
+    }
+  }
+};
+
+// The launches of the three kernels for x of type T (bf16, or fp32 where
+// tpu.compute_dtype=float32 makes the residual stream fp32) and the norm's
+// scale of type S; h, the hidden and the weights are bf16 whatever T is, as
+// in the Pallas kernel. With RESIDUAL, out (of type T) = x + the down
+// product; without, out (fp32) = the down product alone.
+template <typename T, typename S, bool RESIDUAL = true>
 int ffn(const void* x, const void* lnw, const void* w0, const void* w1,
         const void* wo, void* h, void* hidden, void* out, int M, int D,
         int F, float eps, cudaStream_t s) {
@@ -110,12 +138,16 @@ int ffn(const void* x, const void* lnw, const void* w0, const void* w1,
     rc = bt::gemm<GeluEpilogue<false>>(h, &w0, hid, 1, M, D, F, {}, s);
   }
   if (rc != 0) return rc;
-  // out = T(x + hid . wo): the fp32 sum rounded once to T (fp32: as it is)
-  using Residual = bt::ResidualEpilogue<T, false, T>;
   void* const res[1] = {out};
-  const typename Residual::Args args{nullptr, static_cast<const T*>(x), M,
-                                     D};
-  return bt::gemm<Residual>(hidden, &wo, res, 1, M, F, D, args, s);
+  if constexpr (!RESIDUAL) {
+    return bt::gemm<PartialEpilogue>(hidden, &wo, res, 1, M, F, D, {}, s);
+  } else {
+    // out = T(x + hid . wo): the fp32 sum rounded once to T (fp32: as it is)
+    using Residual = bt::ResidualEpilogue<T, false, T>;
+    const typename Residual::Args args{nullptr, static_cast<const T*>(x), M,
+                                       D};
+    return bt::gemm<Residual>(hidden, &wo, res, 1, M, F, D, args, s);
+  }
 }
 
 }  // namespace
@@ -138,6 +170,27 @@ extern "C" int fused_t5_ffn_launch(const void* x, const void* lnw,
                                           : &ffn<float, bf16>)
                           : (lnw_f32 != 0 ? &ffn<bf16, float>
                                           : &ffn<bf16, bf16>);
+  return launch(x, lnw, w0, w1, wo, h, hidden, out, M, D, F, eps,
+                static_cast<cudaStream_t>(stream));
+}
+
+// out (M, D) fp32 = FFN(RMSNorm(x)), the down product's fp32 sum with no
+// residual: the partial form, for a column shard w0, w1 (D, F) and a row
+// shard wo (F, D) of a tensor-parallel rank. Its other arguments as
+// fused_t5_ffn_launch's.
+extern "C" int fused_t5_ffn_partial_launch(const void* x, const void* lnw,
+                                           const void* w0, const void* w1,
+                                           const void* wo, void* h,
+                                           void* hidden, void* out, int M,
+                                           int D, int F, int x_f32,
+                                           int lnw_f32, float eps,
+                                           void* stream) {
+  using bf16 = __nv_bfloat16;
+  const auto launch = x_f32 != 0
+                          ? (lnw_f32 != 0 ? &ffn<float, float, false>
+                                          : &ffn<float, bf16, false>)
+                          : (lnw_f32 != 0 ? &ffn<bf16, float, false>
+                                          : &ffn<bf16, bf16, false>);
   return launch(x, lnw, w0, w1, wo, h, hidden, out, M, D, F, eps,
                 static_cast<cudaStream_t>(stream));
 }

@@ -6,9 +6,10 @@ the pre-extracted CLIP-embedding parquet artifacts (columns image_url,
 caption, clip_embeddings — reference:
 src/data_loader_manager/data_loader_conceptual_captions.py:63-104) read
 with pyarrow, caption batches collated with bucketed padding and pad ->
--100 labels. Where the JAX package asks ``jax.process_count()`` for its
-shards, the port asks ``device.world_size``, which refuses more than one
-process (ROADMAP.md, Queue 1 item 14).
+-100 labels. Where the JAX package shards by process
+(``jax.process_index()`` of ``jax.process_count()``), the port shards by the
+data coordinate of the active mesh (``parallel.mesh.data_shard``): the
+ranks of one model group read the same rows.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Any, Dict, List
 import numpy as np
 
 from ..device import world_size
+from ..parallel.mesh import data_shard
 from ..registry import DATA_LOADERS
 from ..utils.attr_dict import AttrDict
 from .data_loader_wrapper import DataLoaderWrapper
@@ -120,9 +122,13 @@ class DataLoaderConceptualCaptions(DataLoaderWrapper):
         num_workers_test = additional.get("num_workers_test", 4)
         if isinstance(self.tokenizer, SimpleTokenizer):
             num_workers = num_workers_test = 1
-        # one process: its shard [0::1] is the whole set (the JAX package
-        # shards by process here, world_size refuses that)
-        shard_id, num_shards = 0, world_size()
+        # several processes: each data shard feeds its [i::D] rows (post-
+        # shuffle, the same seed everywhere: disjoint and exhaustive)
+        shard_id, num_shards = 0, 1
+        if world_size() > 1 and additional.get("shard_train_by_process", 1):
+            shard_id, num_shards = data_shard()
+            logger.info("sharding CC data by data coordinate: shard %d/%d",
+                        shard_id, num_shards)
         self.train_dataset = cc.train
         self.train_dataloader = BatchIterator(
             cc.train,

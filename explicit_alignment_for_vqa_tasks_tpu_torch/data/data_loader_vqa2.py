@@ -13,9 +13,11 @@ The port's own copy of explicit_alignment_for_vqa_tasks_tpu/data/data_loader_vqa
 held against it by tests/test_torch_eval_data.py and (the VinVL, OCR,
 Oscar caption and OK-VQA modules) tests/test_torch_okvqa.py. Where the JAX
 package asks ``jax.process_count()`` / ``jax.process_index()``, the port
-asks ``torch.distributed`` (``device.world_size`` / ``device.rank``): an eval
-over several processes gives each its shard of the questions; a training
-run over several raises (ROADMAP.md, Queue 1 item 14).
+asks the active mesh for its data coordinate (``parallel.mesh.data_shard``:
+the rank among the processes where there is no mesh): an eval over several
+processes gives each data shard its questions, the ranks of one model
+group the same ones; a training run (ClipCap's) gives each data shard its
+rows of the training set too.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 
-from ..device import rank, world_size
+from ..device import world_size
+from ..parallel.mesh import data_shard
 from ..registry import DATA_LOADERS, DATASETS
 from ..utils.attr_dict import AttrDict
 from ..utils.cache_system import load_cached_data, save_cached_data
@@ -303,9 +306,8 @@ class DataLoaderVQA2(DataLoaderWrapper):
         # (data_loader_vqa2.py:529, :563). SimpleTokenizer numbers words in
         # the order it first meets them: one collate thread keeps that
         # order, and so the ids, the same from run to run
-        # an eval runs over several processes; training over them raises
-        # here, before any loader is built (ROADMAP.md, Queue 1 item 14)
-        processes = world_size(self.config.mode)
+        processes = world_size()
+        data_id, data_ways = data_shard()
         num_workers = additional.get("num_workers", 8)
         num_workers_test = additional.get("num_workers_test", 4)
         if isinstance(self.tokenizer, SimpleTokenizer) or isinstance(
@@ -314,6 +316,9 @@ class DataLoaderVQA2(DataLoaderWrapper):
         if self.config.mode == "train":
             self.train_dataset = dataset_cls(self.config, dict(
                 common, data=self.data.vqa_data.train, mode="train"))
+            # data-parallel training: each data shard its [i::D] rows (the
+            # same shuffle everywhere), the model group's ranks the same;
+            # (0, 1) in one process
             self.train_dataloader = BatchIterator(
                 self.train_dataset,
                 batch_size=self.config.train.batch_size,
@@ -321,17 +326,19 @@ class DataLoaderVQA2(DataLoaderWrapper):
                 shuffle=True,
                 seed=self.config.seed,
                 num_workers=num_workers,
+                shard_id=data_id,
+                num_shards=data_ways,
             )
             logger.info("[Data Statistics] train batches: %d",
                         len(self.train_dataloader))
         self.test_dataset = dataset_cls(self.config, dict(
             common, data=self.data.vqa_data.val, mode="test"))
-        # multi-process eval: each process evaluates its [i::P] question
-        # shard; predictions are re-united by gather_predictions_to_host0
+        # multi-process eval: each data shard evaluates its [i::D]
+        # questions; predictions are re-united by gather_predictions_to_host0
         # before the VQA protocol's full-coverage check
         shard_id, num_shards = 0, 1
         if processes > 1 and additional.get("shard_eval_by_process", 1):
-            shard_id, num_shards = rank(), processes
+            shard_id, num_shards = data_id, data_ways
             logger.info("sharding eval data by process: shard %d/%d",
                         shard_id, num_shards)
         self.test_dataloader = BatchIterator(

@@ -1,5 +1,6 @@
 """Where the port runs: the CUDA card unless the caller asks for the CPU;
-one process, or several for an eval (``parallel/multihost.py``)."""
+one process, or several over a mesh (``parallel/multihost.py``,
+``parallel/mesh.py``)."""
 
 from __future__ import annotations
 
@@ -35,22 +36,14 @@ def make_generator(seed: int, device: Optional[torch.device]) -> torch.Generator
     return gen
 
 
-def world_size(mode: str = "train") -> int:
+def world_size() -> int:
     """The processes of this run: ``torch.distributed``'s world when it is
-    initialised, else the launcher's ``WORLD_SIZE`` (1 when unset). More
-    than one runs an eval (``mode`` "test": each process evaluates its
-    shard of the questions, the predictions gathered to the scorer); for any
-    other mode it raises (data-parallel training is not ported yet)."""
+    initialised, else the launcher's ``WORLD_SIZE`` (1 when unset). Every
+    mode runs over several: an eval shards the questions, a training run
+    the batches, over the mesh's data axes (``parallel/mesh.py``)."""
     if dist.is_available() and dist.is_initialized():
-        size = dist.get_world_size()
-    else:
-        size = int(os.environ.get("WORLD_SIZE", "1"))
-    if size > 1 and mode != "test":
-        raise NotImplementedError(
-            f"a {size}-process {mode} run is not ported yet (ROADMAP.md, "
-            "Queue 1 item 14): run one process; only --mode test runs over "
-            "several")
-    return size
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def rank() -> int:

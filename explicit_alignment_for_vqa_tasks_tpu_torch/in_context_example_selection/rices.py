@@ -19,8 +19,11 @@ README.md:151-158):
 
 Stages 1 and 3 run on ``device`` (the card unless the caller passes
 another) as true fp32 products with ``lax.top_k``'s tie order
-(ops/knn.py); 2 and 4 are the JAX package's host code. Every pickle has
-the JAX package's schema, so the files interoperate both ways.
+(ops/knn.py), on one card or over a data mesh of processes (``mesh``,
+the CLI's ``--mesh_data``: the databases' rows split over the ranks, the
+results those of one card, rank 0 writing the pickle); 2 and 4 are the
+JAX package's host code. Every pickle has the JAX package's schema, so the
+files interoperate both ways.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
-from ..ops.knn import check_single_card, knn_search, l2_normalize, true_fp32
+from ..device import DeviceLike, rank, resolve_device
+from ..ops.knn import database_block, knn_search, l2_normalize, true_fp32
+from ..parallel.mesh import MeshLike, resolve_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -51,7 +55,7 @@ def question_knn(
     train_text_embeddings: Dict[str, np.ndarray],
     val_text_embeddings: Dict[str, np.ndarray],
     k: int = TOP_K_QUESTIONS,
-    mesh: Optional[int] = None,
+    mesh: MeshLike = None,
     device: DeviceLike = None,
 ) -> Dict[str, Dict[str, np.ndarray]]:
     """Stages 1+2: cosine top-k of every val question over train questions.
@@ -79,7 +83,7 @@ def image_knn_from_text_knn(
     train_image_embeddings: Dict[str, np.ndarray],
     val_image_embeddings: Dict[str, np.ndarray],
     group_chunk: int = 1024,
-    mesh: Optional[int] = None,
+    mesh: MeshLike = None,
     device: DeviceLike = None,
 ) -> Dict[Any, Dict]:
     """Stage 3: per val question, rank the UNIQUE train images of its
@@ -92,8 +96,11 @@ def image_knn_from_text_knn(
     index rebuild, get_image_knn_from_text_knn.py:57-95): the unique
     train-image matrix lives on the device once; per val chunk one product
     scores the val images against every train image, and a gather selects
-    each neighbour pool's scores."""
-    check_single_card(mesh)
+    each neighbour pool's scores. Over a data ``mesh`` each rank holds a
+    block of the image matrix's rows and scores the candidates it holds;
+    the candidates' scores are summed over the ranks (one rank holds each,
+    the others add zeros), so every rank gets one card's scores."""
+    mesh = resolve_mesh(mesh)
     dev = resolve_device(device)
     # unique train image matrix + searchsorted qid -> image-index map
     img_keys: Dict[Any, int] = {}
@@ -150,7 +157,11 @@ def image_knn_from_text_knn(
 
     results: Dict[Any, Dict] = {}
     with true_fp32():
-        db = l2_normalize(torch.as_tensor(train_img_matrix).to(dev))
+        if mesh is None:
+            db = torch.as_tensor(train_img_matrix).to(dev)
+        else:
+            db, first = database_block(train_img_matrix, mesh, dev)
+        db = l2_normalize(db)   # row by row: a block's rows as the whole's
         for start in range(0, len(val_qids), group_chunk):
             rows = neighbor_img_rows[start:start + group_chunk]
             width = max(len(r) for r in rows)
@@ -162,7 +173,15 @@ def image_knn_from_text_knn(
             q = np.stack(val_query_rows[start:start + group_chunk]).astype(
                 np.float32)
             scores = l2_normalize(torch.as_tensor(q).to(dev)) @ db.T
-            sims = scores.gather(1, torch.as_tensor(cand).to(dev))
+            cand_t = torch.as_tensor(cand).to(dev)
+            if mesh is None:
+                sims = scores.gather(1, cand_t)
+            else:
+                local = cand_t - first
+                mine = (local >= 0) & (local < db.shape[0])
+                sims = torch.where(mine, scores.gather(
+                    1, local.clamp(0, db.shape[0] - 1)), 0.0)
+                torch.distributed.all_reduce(sims, group=mesh.group)
             sims = sims.cpu().numpy()
             for i, r in enumerate(rows):
                 n = len(r)
@@ -276,7 +295,7 @@ def run_full_pipeline(
     out_path: str,
     question_only: bool = False,
     k_questions: int = TOP_K_QUESTIONS,
-    mesh: Optional[int] = None,
+    mesh: MeshLike = None,
     device: DeviceLike = None,
 ) -> Dict[str, List[Dict]]:
     """All 4 stages end to end on ``device``, writing the rices pickle."""
@@ -304,7 +323,8 @@ def run_full_pipeline(
         image_nns or {}, question_nns, train_data_items, val_data_items,
         question_only=question_only,
     )
-    with open(out_path, "wb") as fh:
-        pickle.dump(rices, fh)
-    logger.info("wrote %d example lists to %s", len(rices), out_path)
+    if rank() == 0:  # one writer over a mesh of processes
+        with open(out_path, "wb") as fh:
+            pickle.dump(rices, fh)
+        logger.info("wrote %d example lists to %s", len(rices), out_path)
     return rices

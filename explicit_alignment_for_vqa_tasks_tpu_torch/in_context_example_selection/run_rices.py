@@ -6,7 +6,9 @@ with its flags: the reference's 4 scripts run in order (reference
 README.md:151-158), question kNN -> reformat -> image kNN -> joint ranking,
 writing rices.pkl (or rices_questions_only.pkl with --question_only). The
 kNN stages run on the card; ``main(argv, device="cpu")`` runs them on the
-host.
+host. ``--mesh_data N`` (under ``torchrun --nproc_per_node N``, or -1 for
+every process) splits the databases' rows over the processes; rank 0 writes
+the same file one card writes.
 
     python -m explicit_alignment_for_vqa_tasks_tpu_torch.\
 in_context_example_selection.run_rices --train_cache train.pkl \
@@ -48,13 +50,17 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
     parser.add_argument("--k_questions", type=int, default=2048)
     parser.add_argument(
         "--mesh_data", type=int, default=1,
-        help="cards to shard the kNN databases over; the port searches on "
-             "one (other values: ROADMAP.md, Queue 1 item 14)",
+        help="processes to shard the kNN databases over (one a card, "
+             "started by torchrun): 0 or 1 one card, -1 every process",
     )
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
+    from ..parallel.mesh import make_data_mesh
+    from ..parallel.multihost import maybe_initialize_distributed
     from .rices import run_full_pipeline
+
+    maybe_initialize_distributed()
 
     train_items = _load_cache(args.train_cache)["data_items"]
     val_items = _load_cache(args.val_cache)["data_items"]
@@ -63,7 +69,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
         args.train_image_embeddings, args.val_image_embeddings,
         train_items, val_items, args.out,
         question_only=args.question_only, k_questions=args.k_questions,
-        mesh=args.mesh_data, device=device,
+        mesh=make_data_mesh(args.mesh_data), device=device,
     )
 
 

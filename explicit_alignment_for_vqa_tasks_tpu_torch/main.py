@@ -13,7 +13,10 @@ Flow: evaluate the config -> build the data loader (registry by config
 ``data_loader.type``) -> build the executor (``train.type``), whose model
 lives on the card -> load the checkpoint -> train (``--mode train``, e.g.
 ``configs/conceptual_captions/conceptual_captions.jsonnet``) or test.
-Initialization logs the environment and the card (``utils/device_stats.py``:
+Over several processes (``torchrun --nproc_per_node N -m
+explicit_alignment_for_vqa_tasks_tpu_torch.main ...``) the (data, model) mesh
+of ``tpu.mesh`` is built over them before the loaders, which shard by its
+data coordinate (``parallel/mesh.py``). Initialization logs the environment and the card (``utils/device_stats.py``:
 its name, power limit and memory), as the JAX package logs its TPU. The
 JAX package's TPU knobs (scoped VMEM, the XLA compilation cache) have no
 counterpart.
@@ -30,8 +33,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from . import data as _data  # noqa: F401 — populates DATA_LOADERS/DATASETS
 from . import trainers as _trainers  # noqa: F401 — populates EXECUTORS
-from .device import DeviceLike, rank
-from .parallel.multihost import maybe_initialize_distributed
+from .device import DeviceLike, rank, world_size
+from .parallel.mesh import activate, make_mesh, refuse_pipeline
+from .parallel.multihost import backend, maybe_initialize_distributed
 from .registry import DATA_LOADERS, EXECUTORS
 from .utils.color_logging import setup_console_logging
 from .utils.config_system import process_config, save_config
@@ -128,9 +132,19 @@ def main(config: Any, device: DeviceLike = None
     """Orchestration (reference: src/main.py:69-197). The model is built
     on ``device``, the card unless the caller passes another. Returns the
     executor and the test metrics (none for a train run)."""
-    # more than one process: an eval over the launcher's process group
-    # (training raises, naming ROADMAP Queue 1 item 14)
-    maybe_initialize_distributed(config.mode)
+    # more than one process: the launcher's process group, and the mesh of
+    # tpu.mesh over it (none in one process, or with tpu.use_mesh false);
+    # the T5 executors' pipelined mesh raises first (ClipCap's GPipe-less
+    # model folds pipe into data, as in the JAX package)
+    if config.train.type != "ClipCapExecutor":
+        refuse_pipeline(config)
+    maybe_initialize_distributed()
+    mesh = None
+    if world_size() > 1 and config.get("tpu", {}).get("use_mesh", True):
+        mesh = make_mesh(config)
+        logger.info("mesh %s over %d processes (%s)", mesh.shape,
+                    world_size(), backend())
+    activate(mesh)
     set_seed(int(config.get("seed", 2021)))
 
     data_loader_cls = DATA_LOADERS.get(config.data_loader.type)

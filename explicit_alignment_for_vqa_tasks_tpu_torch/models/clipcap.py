@@ -112,11 +112,13 @@ def clipcap_loss(
     input_ids: torch.Tensor,         # (B, L)
     attention_mask: torch.Tensor,    # (B, L)
     labels: torch.Tensor,            # (B, L), -100 on ignored positions
+    token_count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Causal-LM loss over [prefix; tokens]: the prefix positions are
     ignored, logits at t predict labels at t + 1, the fp32 log-softmax's
     negative log-likelihood is averaged over the valid positions (at least
-    one). A 0-d fp32 tensor."""
+    one), or divided by ``token_count`` (a data-parallel step's global
+    count) where it is given. A 0-d fp32 tensor."""
     if cfg.freeze_lm:
         lm_params = {k: (v.detach() if torch.is_tensor(v) else
                          {n: a.detach() for n, a in v.items()})
@@ -136,7 +138,8 @@ def clipcap_loss(
     safe = torch.where(valid, shifted_labels, 0).long()
     log_probs = torch.log_softmax(shifted_logits.float(), dim=-1)
     ll = torch.gather(log_probs, -1, safe[..., None])[..., 0]
-    return -(ll * valid).sum() / valid.sum().clamp(min=1)
+    divisor = valid.sum() if token_count is None else token_count
+    return -(ll * valid).sum() / divisor.clamp(min=1)
 
 
 class ClipCaptionModel:

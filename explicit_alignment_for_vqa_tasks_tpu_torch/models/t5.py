@@ -41,6 +41,19 @@ kernel or arithmetic as the JAX package:
 These CUDA kernels run on the card; CPU tensors take their plain versions.
 The int8 cross-KV attention and the W8A16 matmuls are plain PyTorch, as
 they are plain XLA in the JAX package.
+
+Under a mesh with a ``model`` axis (``parallel/mesh.py``) the weights arrive
+split as ``shard_lm_params`` splits them, and each function reads its local
+width from them: ``num_heads / model`` heads, ``d_ff / model`` FFN columns.
+Each attention and FFN block then ends in one all-reduce over the model
+group (``reduce_from_model``, in fp32) and begins with its conjugate
+(``copy_to_model``, the gradient's all-reduce), and each rank takes its
+heads' slice of the position bias it computes from the whole table. The
+fused FFN runs its partial form there (no residual: the sum over the group
+takes x once). The subtrees kept whole (the int8 encoder's, the W8A16
+``step_q8``) run at full width on every rank with no collective; the cross
+K/V cache of a whole-width decode step is gathered to every head once.
+With whole weights nothing of this runs.
 """
 
 from __future__ import annotations
@@ -61,6 +74,13 @@ from ..ops.fused_attention_block import (
     fused_t5_ln_qkv_q8,
     t5_attention_core_vjp,
     t5_bias_tiles,
+)
+from ..parallel.mesh import (
+    Mesh,
+    copy_to_model,
+    gather_model,
+    reduce_from_model,
+    split_by_model,
 )
 
 Params = Dict[str, Any]
@@ -311,24 +331,61 @@ def _project(x: torch.Tensor, w: torch.Tensor, heads: int) -> torch.Tensor:
     return y.reshape(y.shape[0], y.shape[1], heads, -1)
 
 
+def local_heads(w: torch.Tensor, cfg: T5Config) -> int:
+    """The heads a q, k or v weight (.., D, heads * d_kv) holds: all of
+    them, or this model rank's share."""
+    return w.shape[-1] // cfg.d_kv
+
+
+def _local_bias(bias: Optional[torch.Tensor], mesh: Optional[Mesh],
+                heads: int, cfg: T5Config) -> Optional[torch.Tensor]:
+    """This model rank's heads of a (.., H, Q, K) bias (one that has a head
+    axis of all H); the bias itself with no split."""
+    if mesh is None or bias is None or bias.shape[1] != cfg.num_heads:
+        return bias
+    first = mesh.model_rank * heads
+    return bias[:, first:first + heads]
+
+
+def _out_proj(y: torch.Tensor, w: torch.Tensor,
+              mesh: Optional[Mesh]) -> torch.Tensor:
+    """y · w, the product that closes a block: whole, in y's dtype (one
+    rounding of the fp32 sum); split over a model axis, each rank's partial
+    product in fp32 (the operands upcast, which is exact), summed over the
+    model group in fp32 and rounded once to y's dtype, as the whole product
+    is."""
+    if mesh is None:
+        return torch.matmul(y, w.to(y.dtype))
+    partial = torch.matmul(y.float(), w.to(y.dtype).float())
+    return reduce_from_model(partial, mesh).to(y.dtype)
+
+
 def _attn_block(
     layer_p: Params, x: torch.Tensor, kv_src: torch.Tensor,
     bias: Optional[torch.Tensor], cfg: T5Config
 ) -> torch.Tensor:
-    h = cfg.num_heads
+    h = local_heads(layer_p["q"], cfg)
+    mesh = split_by_model(h, cfg.num_heads)
+    if mesh is not None:
+        x_in = copy_to_model(x, mesh)
+        kv_src = x_in if kv_src is x else copy_to_model(kv_src, mesh)
+        x = x_in
+        bias = _local_bias(bias, mesh, h, cfg)
     q = _project(x, layer_p["q"], h)
     k = _project(kv_src, layer_p["k"], h)
     v = _project(kv_src, layer_p["v"], h)
     out = _attention(q, k, v, bias, x.dtype)
     out = out.reshape(out.shape[0], out.shape[1], -1)
-    return torch.matmul(out, layer_p["o"].to(x.dtype))
+    return _out_proj(out, layer_p["o"], mesh)
 
 
 def _ffn_block(layer_p: Params, x: torch.Tensor, cfg: T5Config) -> torch.Tensor:
+    mesh = split_by_model(layer_p["wi_0"].shape[-1], cfg.d_ff)
+    x = copy_to_model(x, mesh)
     hidden = gelu_new(torch.matmul(x, layer_p["wi_0"].to(x.dtype)))
     if cfg.is_gated_act:
         hidden = hidden * torch.matmul(x, layer_p["wi_1"].to(x.dtype))
-    return torch.matmul(hidden, layer_p["wo"].to(x.dtype))
+    return _out_proj(hidden, layer_p["wo"], mesh)
 
 
 def _encoder_ffn(layer_p: Params, y: torch.Tensor, cfg: T5Config) -> torch.Tensor:
@@ -349,6 +406,15 @@ def _encoder_ffn(layer_p: Params, y: torch.Tensor, cfg: T5Config) -> torch.Tenso
         )
     if cfg.fused_encoder_ffn:
         ffn_p = layer_p["ffn"]
+        mesh = split_by_model(ffn_p["wi_0"].shape[-1], cfg.d_ff)
+        if mesh is not None:
+            # the shard's partial product in fp32, summed over the model
+            # group in fp32, y added once, one rounding
+            partial = fused_t5_ffn_vjp(
+                copy_to_model(y, mesh), layer_p["ln1"], ffn_p["wi_0"],
+                ffn_p["wi_1"] if cfg.is_gated_act else None,
+                ffn_p["wo"], cfg.layer_norm_epsilon, residual=False)
+            return (y.float() + reduce_from_model(partial, mesh)).to(y.dtype)
         return fused_t5_ffn_vjp(
             y, layer_p["ln1"], ffn_p["wi_0"],
             ffn_p["wi_1"] if cfg.is_gated_act else None,
@@ -641,7 +707,12 @@ def t5_encode(
     )
 
     if cfg.fused_encoder_attention:
-        pos_hll = pos_bias[0].contiguous()  # (H, L, L), shared by the batch
+        # the int8 projections are whole: every head on every rank
+        heads = (cfg.num_heads if cfg.int8_encoder_attn
+                 else local_heads(enc["self_attn"]["q"], cfg))
+        mesh = split_by_model(heads, cfg.num_heads)
+        # (H, L, L), shared by the batch; this rank's heads under a split
+        pos_hll = _local_bias(pos_bias, mesh, heads, cfg)[0].contiguous()
         # the bf16 kernel's order of it, built once for every layer (the
         # fp32 kernel reads pos_hll as it is)
         bias_tiles = (t5_bias_tiles(pos_hll)
@@ -651,7 +722,7 @@ def t5_encode(
 
         def attention(q, k, v):
             return t5_attention_core_vjp(q, k, v, pos_hll, key_mask,
-                                         cfg.num_heads, bias_tiles)
+                                         heads, bias_tiles)
 
         def layer(x, layer_p):
             if cfg.int8_encoder_attn:
@@ -665,11 +736,11 @@ def t5_encode(
                                             a8["o_s"])
                 return _encoder_ffn(layer_p, x, cfg)
             p = layer_p["self_attn"]
-            attn_in = rms_norm(x, layer_p["ln0"], eps)
+            attn_in = copy_to_model(rms_norm(x, layer_p["ln0"], eps), mesh)
             attn = attention(torch.matmul(attn_in, p["q"].to(x.dtype)),
                              torch.matmul(attn_in, p["k"].to(x.dtype)),
                              torch.matmul(attn_in, p["v"].to(x.dtype)))
-            x = x + torch.matmul(attn, p["o"].to(x.dtype))
+            x = x + _out_proj(attn, p["o"], mesh)
             return _encoder_ffn(layer_p, x, cfg)
     else:
         mask_bias = torch.where(
@@ -770,17 +841,22 @@ def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:
     return torch.cat([start, clean[:, :-1]], dim=1)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       token_count: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean token cross-entropy over the positions whose label is not -100,
     from an fp32 log-softmax, divided by that count (at least 1). Returns
-    (loss, count) (JAX models/t5.py:1240-1252)."""
+    (loss, count) (JAX models/t5.py:1240-1252). ``token_count`` divides
+    instead of this batch's count: a data-parallel step passes the global
+    batch's, so that the sum of the ranks' losses is the global batch's
+    token-weighted loss."""
     valid = labels != -100
     safe = torch.where(valid, labels, 0).long()
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     token_ll = torch.gather(log_probs, -1, safe[..., None])[..., 0]
     count = valid.sum()
-    return -(token_ll * valid).sum() / count.clamp(min=1), count
+    divisor = count if token_count is None else token_count
+    return -(token_ll * valid).sum() / divisor.clamp(min=1), count
 
 
 def t5_forward_loss(
@@ -790,18 +866,20 @@ def t5_forward_loss(
     input_ids: Optional[torch.Tensor] = None,
     inputs_embeds: Optional[torch.Tensor] = None,
     attention_mask: Optional[torch.Tensor] = None,
+    token_count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Seq2seq cross-entropy of ``labels`` (the captioning objective, JAX
     models/t5.py:1255-1277): encode, decode the right-shifted labels
-    teacher forced, ``cross_entropy_loss``. With
-    ``fused_encoder_attention`` / ``fused_encoder_ffn`` the encoder runs the
-    kernels forward and their twins backward."""
+    teacher forced, ``cross_entropy_loss`` (divided by ``token_count``
+    where it is given). With ``fused_encoder_attention`` /
+    ``fused_encoder_ffn`` the encoder runs the kernels forward and their
+    twins backward."""
     encoder_hidden = t5_encode(params, cfg, input_ids=input_ids,
                                inputs_embeds=inputs_embeds,
                                attention_mask=attention_mask)
     logits = t5_decode(params, cfg, shift_right(labels, cfg), encoder_hidden,
                        attention_mask)
-    loss, _ = cross_entropy_loss(logits, labels)
+    loss, _ = cross_entropy_loss(logits, labels, token_count)
     return loss
 
 
@@ -875,7 +953,11 @@ def cross_kv_cache(params: Params, cfg: T5Config,
     allocated there by the first call: a chunked prefill fills one cache
     chunk by chunk. Returns the dict written."""
     cross = params["decoder"]["cross_attn"]
-    h = cfg.num_heads
+    h = local_heads(cross["k"], cfg)
+    mesh = split_by_model(h, cfg.num_heads)
+    # the whole-width W8A16 step reads every head: the split cache is
+    # gathered to all of them, once
+    gather = mesh is not None and cfg.int8_decoder_step
     batch = encoder_hidden.shape[0]
     total = batch if layout_batch is None else layout_batch
     cache = {} if out is None else out
@@ -893,6 +975,8 @@ def cross_kv_cache(params: Params, cfg: T5Config,
     for i in range(cfg.num_decoder_layers):
         for name in ("k", "v"):
             proj = _project(encoder_hidden, cross[name][i], h)
+            if gather:
+                proj = gather_model(proj, mesh, dim=2)
             if layout is None:
                 put(f"cross_{name}", i, proj)
                 continue
@@ -902,14 +986,24 @@ def cross_kv_cache(params: Params, cfg: T5Config,
     return cache
 
 
+def self_cache_heads(params: Params, cfg: T5Config) -> int:
+    """The heads of the decode step's self-attention K/V on this rank:
+    every head under the whole-width W8A16 step, else those its q weight
+    holds."""
+    if cfg.int8_decoder_step:
+        return cfg.num_heads
+    return local_heads(params["decoder"]["self_attn"]["q"], cfg)
+
+
 def init_decode_cache(params: Params, cfg: T5Config,
                       encoder_hidden: torch.Tensor, max_len: int) -> Params:
     """Cache dict: cross-attn K/V precomputed once (``cross_kv_cache``);
     self-attn K/V are (num_layers, B, max_len, H, kv) buffers filled step
-    by step. ``index`` is a host integer: the decode loop runs on the
-    host."""
+    by step (H this rank's heads under a model split). ``index`` is a host
+    integer: the decode loop runs on the host."""
     batch = encoder_hidden.shape[0]
-    shape = (cfg.num_decoder_layers, batch, max_len, cfg.num_heads, cfg.d_kv)
+    shape = (cfg.num_decoder_layers, batch, max_len,
+             self_cache_heads(params, cfg), cfg.d_kv)
     cache = {
         "self_k": torch.zeros(shape, dtype=cfg.dtype,
                               device=encoder_hidden.device),
@@ -975,7 +1069,9 @@ def t5_decode_step(
     drop_bf16)."""
     dec = params["decoder"]
     eps = cfg.layer_norm_epsilon
-    h = cfg.num_heads
+    h = self_cache_heads(params, cfg)
+    # the W8A16 step is whole; bf16 weights may be split over a model axis
+    mesh = split_by_model(h, cfg.num_heads)
     if cfg.fused_decode_attention and cfg.int8_cross_kv:
         raise ValueError(
             "int8_cross_kv is implemented for the default (unfused) decode "
@@ -1000,6 +1096,14 @@ def t5_decode_step(
             return out.to(dtype)
         return torch.matmul(y, dec[sub][name][i].to(dtype))
 
+    def proj_out(y: torch.Tensor, sub: str, q8_name: str,
+                 i: int) -> torch.Tensor:
+        """The out-projection of a sublayer: W8A16, or its bf16 weight's
+        product closing the block (summed over a model axis)."""
+        if use_q8:
+            return proj(y, sub, "o", q8_name, i)
+        return _out_proj(y, dec[sub]["o"][i], mesh)
+
     def heads(y: torch.Tensor) -> torch.Tensor:
         return y.reshape(y.shape[0], y.shape[1], h, -1)
 
@@ -1012,6 +1116,7 @@ def t5_decode_step(
     pos_valid = torch.arange(max_len, device=x.device) <= index
     self_bias = self_bias + torch.where(pos_valid[None, None, None, :], 0.0,
                                         NEG_INF)
+    self_bias = _local_bias(self_bias, mesh, h, cfg)
     cross_bias = torch.where(encoder_mask[:, None, None, :] > 0, 0.0, NEG_INF)
     if cfg.fused_decode_attention:
         # (layers, B, L, H, kv) -> (layers, B, L, H*kv): a view; the kernel
@@ -1031,8 +1136,8 @@ def t5_decode_step(
         self_v[i, :, index] = heads(proj(sa_in, "self_attn", "v", "self_v",
                                          i))[:, 0]
         attn = _attention(q, self_k[i], self_v[i], self_bias, dtype)
-        x = x + proj(attn.reshape(batch, 1, -1), "self_attn", "o", "self_o",
-                     i)
+        x = x + proj_out(attn.reshape(batch, 1, -1), "self_attn", "self_o",
+                         i)
 
         ca_in = rms_norm(x, dec["ln1"][i], eps)
         cq = heads(proj(ca_in, "cross_attn", "q", "cross_q", i))
@@ -1046,8 +1151,8 @@ def t5_decode_step(
         else:
             cattn = _attention(cq, cache["cross_k"][i], cache["cross_v"][i],
                                cross_bias, dtype)
-        x = x + proj(cattn.reshape(batch, 1, -1), "cross_attn", "o",
-                     "cross_o", i)
+        x = x + proj_out(cattn.reshape(batch, 1, -1), "cross_attn",
+                         "cross_o", i)
 
         ffn_in = rms_norm(x, dec["ln2"][i], eps)
         if use_q8:

@@ -133,19 +133,22 @@ def vct0_caption_loss(
     cfg: VCT0Config,
     clip_embeddings: torch.Tensor,   # (B, prefix_size)
     labels: torch.Tensor,            # (B, T), -100 on padding
+    token_count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Captioning loss with the projected prefix as the whole encoder input
     (JAX models/vct0.py:112-130; reference: vct0.py:380-394): the mapper's
     fp32 output as (B, prefix_length, d_model) in the LM's dtype,
-    ``t5_forward_loss`` on it. With ``freeze_lm`` the LM is detached, so
-    only the mapper gets gradients. A 0-d fp32 tensor."""
+    ``t5_forward_loss`` on it (divided by ``token_count``, the global
+    batch's valid tokens, where it is given). With ``freeze_lm`` the LM is
+    detached, so only the mapper gets gradients. A 0-d fp32 tensor."""
     if cfg.freeze_lm:
         lm_params = _frozen(lm_params)
     flat = mapper_apply(cfg.mapper, mapper_params, clip_embeddings)
     prefix_embeds = flat.reshape(-1, cfg.mapper.prefix_length,
                                  cfg.lm.d_model).to(cfg.lm.dtype)
     return t5_lib.t5_forward_loss(lm_params, cfg.lm, labels,
-                                  inputs_embeds=prefix_embeds)
+                                  inputs_embeds=prefix_embeds,
+                                  token_count=token_count)
 
 
 def _splice(lm_params: Params, cfg: VCT0Config, prefix_proj: torch.Tensor,
@@ -352,8 +355,9 @@ class VCT0Model:
                 "captioning path (greedy decode only)")
         if self.pipeline_ctx is not None:
             raise NotImplementedError(
-                "VCT0Model.generate: the pipelined generate paths are not "
-                "ported yet (ROADMAP.md, Queue 1 item 14)")
+                "VCT0Model.generate: the pipelined generate paths (the _pp "
+                "twins) are not ported yet (ROADMAP.md, Queue 1 item 14, "
+                "the pipeline)")
         dev = self.device
 
         def on_device(x):

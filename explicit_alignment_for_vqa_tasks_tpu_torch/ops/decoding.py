@@ -129,8 +129,8 @@ def chunked_prefill_greedy_decode_t5(
         raise ValueError(
             f"prefill_chunks={prefill_chunks} must divide batch={batch}")
     rows = batch // prefill_chunks
-    shape = (cfg.num_decoder_layers, batch, max_new_tokens, cfg.num_heads,
-             cfg.d_kv)
+    shape = (cfg.num_decoder_layers, batch, max_new_tokens,
+             t5_lib.self_cache_heads(params, cfg), cfg.d_kv)
     dev = inputs_embeds.device
     cache = {"self_k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
              "self_v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -233,8 +233,8 @@ def beam_search_t5(
     cache = {key: leaf.repeat_interleave(K, dim=1) for key, leaf in
              t5_lib.cross_kv_cache(params, cfg, encoder_hidden,
                                    layout_batch=rows).items()}
-    shape = (cfg.num_decoder_layers, rows, max_new_tokens, cfg.num_heads,
-             cfg.d_kv)
+    shape = (cfg.num_decoder_layers, rows, max_new_tokens,
+             t5_lib.self_cache_heads(params, cfg), cfg.d_kv)
     for key in ("self_k", "self_v"):
         cache[key] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
     cache["index"] = 0

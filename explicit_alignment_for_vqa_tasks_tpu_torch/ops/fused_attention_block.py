@@ -890,6 +890,7 @@ def fused_t5_ffn_plain(
     wi_1: Optional[torch.Tensor],  # (D, F) gate, or None
     wo: torch.Tensor,            # (F, D)
     eps: float = 1e-6,
+    residual: bool = True,
 ) -> torch.Tensor:
     """x + FFN(RMSNorm(x)) in the Pallas kernel's order of rounding: the
     fp32 norm rounded to bf16 whatever x's dtype, the bf16 weights'
@@ -899,22 +900,26 @@ def fused_t5_ffn_plain(
     gelu(a0) * a1 in fp32 and rounded to bf16 once, then the down product
     and the fp32 residual, cast to x's dtype. JAX's XLA twin of the kernel
     (``_t5_ffn_reference``, which its custom VJP differentiates) has this
-    order of rounding too, so the two are one function here."""
-    return _t5_ffn_reference(x, ln_weight, wi_0, wi_1, wo, eps)
+    order of rounding too, so the two are one function here. With
+    ``residual`` False: the fp32 FFN(RMSNorm(x)) alone, the partial form of
+    a tensor-parallel rank (its weights a shard)."""
+    return _t5_ffn_reference(x, ln_weight, wi_0, wi_1, wo, eps,
+                             residual=residual)
 
 
 def _t5_ffn_reference(
     x: torch.Tensor, ln_weight: torch.Tensor,
     wi_0: torch.Tensor, wi_1: Optional[torch.Tensor], wo: torch.Tensor,
-    eps: float = 1e-6,
+    eps: float = 1e-6, residual: bool = True,
     *, wide: torch.dtype = torch.float32, narrow: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """JAX's ``_t5_ffn_reference`` (:1047-1066): ``x32 * rsqrt(mean(x32^2) +
     eps) * w`` in ``wide``, rounded to ``narrow``; the products of
     ``narrow`` operands summed in ``wide``; the tanh-gelu hidden times the
     gate in ``wide``, rounded to ``narrow`` for the down product; the
-    residual in ``wide``, one cast to x's dtype. ``wide`` and ``narrow``
-    are fp32 and bf16 except in the float64 gradient check."""
+    residual in ``wide``, one cast to x's dtype (without ``residual``, the
+    down product in ``wide`` as it is). ``wide`` and ``narrow`` are fp32
+    and bf16 except in the float64 gradient check."""
     x32 = x.to(wide)
 
     def operand(t):
@@ -929,22 +934,28 @@ def _t5_ffn_reference(
     if wi_1 is not None:
         hid = hid * torch.matmul(h.to(wide), operand(wi_1))
     y = torch.matmul(operand(hid), operand(wo))
+    if not residual:
+        return y
     return (x32 + y).to(x.dtype)
 
 
 def fused_t5_ffn(
     x: torch.Tensor, ln_weight: torch.Tensor,
     wi_0: torch.Tensor, wi_1: Optional[torch.Tensor], wo: torch.Tensor,
-    eps: float = 1e-6,
+    eps: float = 1e-6, residual: bool = True,
 ) -> torch.Tensor:
     """x + FFN(RMSNorm(x)), gated when wi_1 is given (T5 v1.1 gated-gelu).
     x (and the output) bf16 or fp32, ln_weight bf16 or fp32; the weights
     are cast to bf16 here where they are not (fp32 params), as the JAX
-    wrapper casts them. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (``fused_t5_ffn.launches`` counts those calls) or
-    raise."""
+    wrapper casts them. With ``residual`` False the output is the fp32
+    FFN(RMSNorm(x)) alone (the partial form: a tensor-parallel rank's
+    shard of wi_0, wi_1 by column and of wo by row, whose sum over the
+    model group takes x once). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (``fused_t5_ffn.launches`` counts those calls,
+    of either form) or raise."""
     if x.device.type == "cpu":
-        return fused_t5_ffn_plain(x, ln_weight, wi_0, wi_1, wo, eps)
+        return fused_t5_ffn_plain(x, ln_weight, wi_0, wi_1, wo, eps,
+                                  residual=residual)
     op = "fused_t5_ffn"
     kernels.refuse_grad(op, x, ln_weight, wi_0, wi_1, wo,
                         vjp="fused_t5_ffn_vjp")
@@ -981,8 +992,10 @@ def fused_t5_ffn(
     h = torch.empty((rows, d_model), dtype=_BF16, device=dev)
     # the bf16 hidden gelu(a0) * a1 goes through device memory once
     hidden = torch.empty((rows, d_ff), dtype=_BF16, device=dev)
-    out = torch.empty_like(x)
-    _run(op, _launcher_of("t5_ffn", op, 8, 5, 1),
+    out = torch.empty_like(x) if residual else torch.empty(
+        x.shape, dtype=_F32, device=dev)
+    _run(op, _launcher_of("t5_ffn", op if residual else op + "_partial",
+                          8, 5, 1),
          x.data_ptr(), ln_weight.data_ptr(), wi_0.data_ptr(),
          wi_1.data_ptr() if gated else None, wo.data_ptr(), h.data_ptr(),
          hidden.data_ptr(), out.data_ptr(), rows, d_model, d_ff,
@@ -1003,31 +1016,33 @@ fused_t5_ffn.launches = 0
 
 class _FusedT5FfnVJP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ln_weight, wi_0, wi_1, wo, eps):
+    def forward(ctx, x, ln_weight, wi_0, wi_1, wo, eps, residual):
         ctx.save_for_backward(x, ln_weight, wi_0, wi_1, wo)
-        ctx.eps = eps
-        return fused_t5_ffn(x, ln_weight, wi_0, wi_1, wo, eps=eps)
+        ctx.eps, ctx.residual = eps, residual
+        return fused_t5_ffn(x, ln_weight, wi_0, wi_1, wo, eps=eps,
+                            residual=residual)
 
     @staticmethod
     def backward(ctx, d_out):
         inputs = ctx.saved_tensors
         grads = _twin_grads(
             ctx.needs_input_grad[:5], inputs,
-            lambda *t: _t5_ffn_reference(*t, ctx.eps), d_out)
-        return (*grads, None)
+            lambda *t: _t5_ffn_reference(*t, ctx.eps,
+                                         residual=ctx.residual), d_out)
+        return (*grads, None, None)
 
 
 def fused_t5_ffn_vjp(
     x: torch.Tensor, ln_weight: torch.Tensor,
     wi_0: torch.Tensor, wi_1: Optional[torch.Tensor], wo: torch.Tensor,
-    eps: float = 1e-6,
+    eps: float = 1e-6, residual: bool = True,
 ) -> torch.Tensor:
     """Differentiable ``fused_t5_ffn`` (JAX ``fused_t5_ffn_vjp``,
     :1069-1102): the wrapper forward (the kernel on CUDA tensors), the
     gradient by recomputing ``_t5_ffn_reference``, since the kernel keeps
     neither the normed input nor the hidden. No kernel runs in the
-    backward."""
-    return _FusedT5FfnVJP.apply(x, ln_weight, wi_0, wi_1, wo, eps)
+    backward. ``residual`` False: the partial form."""
+    return _FusedT5FfnVJP.apply(x, ln_weight, wi_0, wi_1, wo, eps, residual)
 
 
 # ---------------------------------------------------------------------------

@@ -15,29 +15,28 @@ Two rules the JAX package gets from XLA are explicit here:
     them (``top_k_lowest_index``); ``torch.topk`` promises no order.
 
 The JAX package pads the last query chunk and the candidate axis only to
-spare XLA a recompile; the port has no compile, so it pads nothing. Its
-multi-chip search over a mesh is ROADMAP.md, Queue 1 item 14: ``mesh``
-other than None, 0 or 1 raises.
+spare XLA a recompile; the port has no compile, so it pads nothing.
+
+Over a data mesh of processes (``parallel.mesh.make_data_mesh``, the tools'
+``--mesh_data N``; JAX ``knn.py:36-88``) each rank holds a padded
+contiguous block of the database rows on its card and takes its local
+top-``k_local``; the candidates are gathered in (shard, local rank) order
+(a host copy: gloo gathers no CUDA tensor) and merged by
+``top_k_lowest_index``, so that the indices equal one card's, ties
+included (a tie between shards goes to the lower shard, which holds the
+lower rows).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-
-
-def check_single_card(mesh: Optional[int]) -> None:
-    """``mesh`` is the width of a data mesh (the JAX tools' ``--mesh_data``:
-    0 or 1 no mesh, -1 every device); the port searches on one card."""
-    if mesh is not None and mesh not in (0, 1):
-        raise NotImplementedError(
-            f"a kNN mesh of {mesh} cards is not ported yet (ROADMAP.md, "
-            "Queue 1 item 14); use one card")
+from ..parallel.mesh import Mesh, MeshLike, resolve_mesh
 
 
 @contextlib.contextmanager
@@ -99,29 +98,72 @@ def knn_search(
     k: int,
     normalize: bool = True,
     query_chunk: int = 1024,
-    mesh: Optional[int] = None,
+    mesh: MeshLike = None,
     device: DeviceLike = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (similarities (M, k) float32, indices (M, k) int32), sorted
     descending with ties by lowest index: the FAISS ``index.search``
     contract. Runs on ``device``, the card unless the caller passes
-    another."""
-    check_single_card(mesh)
+    another; over ``mesh`` (see ``resolve_mesh``) each rank searches its
+    block of the database and every rank gets the whole result."""
+    mesh = resolve_mesh(mesh)
     dev = resolve_device(device)
-    k = min(k, database.shape[0])
+    n = database.shape[0]
+    k = min(k, n)
     sims_out, idx_out = [], []
     with true_fp32():
-        db = _as_f32(database, dev)
-        if normalize:
+        if mesh is None:
+            db = _as_f32(database, dev)
+        else:
+            db, first = database_block(database, mesh, dev)
+            k_local = min(k, db.shape[0])
+        if normalize:           # row by row: a block's rows as the whole's
             db = l2_normalize(db)
         for start in range(0, queries.shape[0], query_chunk):
             q = _as_f32(queries[start:start + query_chunk], dev)
             if normalize:
                 q = l2_normalize(q)
-            sims, idx = top_k_lowest_index(q @ db.T, k)
+            if mesh is None:
+                sims, idx = top_k_lowest_index(q @ db.T, k)
+            else:
+                sims, idx = _sharded_top_k(q, db, first, n, k, k_local, mesh)
             sims_out.append(sims)
             idx_out.append(idx)
     return _to_numpy(torch.cat(sims_out), torch.cat(idx_out))
+
+
+def database_block(database, mesh: Mesh, dev: torch.device
+                   ) -> Tuple[torch.Tensor, int]:
+    """This rank's block of the database rows (numpy or tensor) as fp32 on
+    ``dev``, padded to ceil(N / ways) rows with zeros, and the global index
+    of its first row (JAX ``_shard_database``). The rows are sliced before
+    they move, so a card holds its block and never the whole database."""
+    ways, index = mesh.data_size, mesh.data_index
+    rows = -(-database.shape[0] // ways)
+    block = _as_f32(database[index * rows:(index + 1) * rows], dev)
+    if block.shape[0] < rows:
+        block = torch.cat([block, block.new_zeros(
+            (rows - block.shape[0], block.shape[1]))])
+    return block, index * rows
+
+
+def _sharded_top_k(q: torch.Tensor, block: torch.Tensor, first: int,
+                   n_valid: int, k: int, k_local: int, mesh: Mesh
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global top ``k`` of ``q`` against the database whose rows
+    ``first`` .. of ``block`` this rank holds: each rank's top-``k_local``
+    (padded rows at -inf, global indices), gathered in rank order, merged
+    by ``top_k_lowest_index`` over the candidates' positions."""
+    from ..parallel.gather import all_gather_host
+
+    scores = q @ block.T
+    rows = torch.arange(first, first + block.shape[0], device=q.device)
+    scores = torch.where(rows[None, :] < n_valid, scores, float("-inf"))
+    sims, local = top_k_lowest_index(scores, k_local)
+    cand_s = torch.cat(all_gather_host(sims, mesh.group), dim=1)
+    cand_i = torch.cat(all_gather_host(local + first, mesh.group), dim=1)
+    top, pos = top_k_lowest_index(cand_s, k)
+    return top, cand_i.gather(1, pos)
 
 
 def grouped_knn_search(

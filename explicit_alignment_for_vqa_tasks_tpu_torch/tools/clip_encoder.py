@@ -3,9 +3,12 @@
 Counterpart of explicit_alignment_for_vqa_tasks_tpu/tools/clip_encoder.py.
 Images are preprocessed on the host (PIL resize, centre crop, normalize),
 batched to a fixed size (the last batch padded with zeros) and encoded by
-one ``clip_encode_image`` call per batch. The JAX package's TPU-only parts
-have no port: the scoped-VMEM guard, and the extraction mesh (a
-data-parallel encode over several cards comes with ROADMAP Queue 1 #14).
+one ``clip_encode_image`` call per batch. Over a data mesh of processes
+(``mesh``: the tools' ``--mesh_data N`` or a ``parallel.mesh.Mesh``; JAX
+``clip_encoder.py:51-80``) each rank encodes its contiguous slice of every
+batch (the batch size must divide by N) and the slices are gathered to
+every rank through the host, so that each rank returns what one card
+returns. The JAX package's scoped-VMEM guard has no port.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, make_generator, resolve_device
+from ..parallel.mesh import Mesh, MeshLike, resolve_mesh
 from ..models.clip import (
     CLIP_IMAGE_MEAN,
     CLIP_IMAGE_STD,
@@ -62,18 +66,34 @@ def preprocess_image(image: np.ndarray, image_size: int) -> np.ndarray:
     return (arr - mean) / std
 
 
-def _check_mesh(mesh: Optional[int]) -> None:
-    """The port encodes on one card; ``mesh`` is the data-parallel width."""
-    if mesh is not None and mesh != 1:
-        raise NotImplementedError(
-            f"an extraction mesh of {mesh} cards is not ported yet "
-            "(ROADMAP Queue 1 #14, multi-process); use one card")
+def _check_mesh(mesh: MeshLike, batch_size: int = 1) -> Optional[Mesh]:
+    """The extraction mesh (None for one card); the fixed batch must
+    divide over its data ways (JAX ``_check_encoder_mesh``)."""
+    mesh = resolve_mesh(mesh)
+    if mesh is not None and batch_size % mesh.data_size:
+        raise ValueError(
+            f"encoder batch_size {batch_size} must divide the mesh's "
+            f"data={mesh.data_size} axis for sharded extraction")
+    return mesh
 
 
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     if x.shape[0] >= rows:
         return x
     return torch.cat([x, x.new_zeros((rows - x.shape[0], *x.shape[1:]))])
+
+
+def _encode_on_mesh(encode, x: torch.Tensor, mesh: Optional[Mesh]
+                    ) -> torch.Tensor:
+    """``encode(x)`` of a full fixed-size batch: on one card, or as each
+    rank's contiguous slice gathered in rank order."""
+    if mesh is None:
+        return encode(x)
+    from ..parallel.gather import all_gather_host
+
+    rows = x.shape[0] // mesh.data_size
+    mine = encode(x[mesh.data_index * rows:(mesh.data_index + 1) * rows])
+    return torch.cat(all_gather_host(mine, mesh.group))
 
 
 class ClipImageEncoder:
@@ -94,10 +114,10 @@ class ClipImageEncoder:
         param_dtype: Optional[torch.dtype] = None,
         use_pallas: bool = False,
         int8: bool = False,
-        mesh: Optional[int] = None,
+        mesh: MeshLike = None,
         device: DeviceLike = None,
     ):
-        _check_mesh(mesh)
+        self.mesh = _check_mesh(mesh, batch_size)
         self.cfg = cfg or CLIPVisionConfig.vit_l_14_336()
         self.device = resolve_device(device)
         self.batch_size = batch_size
@@ -142,9 +162,10 @@ class ClipImageEncoder:
         n = images.shape[0]
         x = torch.as_tensor(images).to(self.device)
         with torch.inference_mode():
-            out = clip_encode_image(self.params, self.cfg,
-                                    _pad_rows(x, self.batch_size),
-                                    use_pallas=self.use_pallas)
+            out = _encode_on_mesh(
+                lambda rows: clip_encode_image(self.params, self.cfg, rows,
+                                               use_pallas=self.use_pallas),
+                _pad_rows(x, self.batch_size), self.mesh)
         return out[:n].float().cpu().numpy()
 
     def encode_iter(
@@ -175,10 +196,10 @@ class ClipTextEncoder:
         model_version: str = DEFAULT_MODEL,
         batch_size: int = 512,
         param_dtype: Optional[torch.dtype] = None,
-        mesh: Optional[int] = None,
+        mesh: MeshLike = None,
         device: DeviceLike = None,
     ):
-        _check_mesh(mesh)
+        self.mesh = _check_mesh(mesh, batch_size)
         self.cfg = cfg or CLIPTextConfig()
         self.device = resolve_device(device)
         self.batch_size = batch_size
@@ -238,8 +259,9 @@ class ClipTextEncoder:
         n = input_ids.shape[0]
         ids = torch.as_tensor(input_ids).to(self.device)
         with torch.inference_mode():
-            out = clip_encode_text(self.params, self.cfg,
-                                   _pad_rows(ids, self.batch_size))
+            out = _encode_on_mesh(
+                lambda rows: clip_encode_text(self.params, self.cfg, rows),
+                _pad_rows(ids, self.batch_size), self.mesh)
         return out[:n].float().cpu().numpy()
 
     def encode_texts(self, texts: List[str]) -> np.ndarray:

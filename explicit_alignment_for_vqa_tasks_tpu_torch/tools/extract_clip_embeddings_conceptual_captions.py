@@ -26,6 +26,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..device import rank
+from ..parallel.multihost import maybe_initialize_distributed
 from .clip_encoder import ClipImageEncoder, preprocess_image
 
 logger = logging.getLogger(__name__)
@@ -90,13 +92,14 @@ def extract_rows(
                 embeddings_out.append(emb.astype(np.float32).tolist())
             logger.info("encoded %d/%d", len(urls_out), len(rows))
 
-    table = pa.table({
-        "image_url": urls_out,
-        "caption": captions_out,
-        "clip_embeddings": embeddings_out,
-    })
-    pq.write_table(table, out_path)
-    logger.info("wrote %d rows to %s", len(urls_out), out_path)
+    if rank() == 0:  # one writer over a mesh of processes
+        table = pa.table({
+            "image_url": urls_out,
+            "caption": captions_out,
+            "clip_embeddings": embeddings_out,
+        })
+        pq.write_table(table, out_path)
+        logger.info("wrote %d rows to %s", len(urls_out), out_path)
     return len(urls_out)
 
 
@@ -115,13 +118,16 @@ def main() -> None:
     )
     parser.add_argument(
         "--mesh_data", type=int, default=1,
-        help="cards to shard each encode batch over; the port runs on one "
-             "(other values: ROADMAP Queue 1 #14)",
+        help="processes (one a card, started by torchrun) to shard each "
+             "encode batch over: 0 or 1 one card, -1 every process; the "
+             "batch size must divide by it, rank 0 writes the output",
     )
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
 
     import datasets  # HF datasets hub loader (reference: :100-105)
+
+    maybe_initialize_distributed()
 
     ds = datasets.load_dataset("conceptual_captions", split=args.split)
     rows = [

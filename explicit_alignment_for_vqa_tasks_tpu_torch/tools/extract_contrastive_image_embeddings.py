@@ -24,6 +24,8 @@ from typing import Dict, Iterable, Tuple
 
 import numpy as np
 
+from ..device import rank
+from ..parallel.multihost import maybe_initialize_distributed
 from .clip_encoder import ClipImageEncoder, preprocess_image
 
 logger = logging.getLogger(__name__)
@@ -68,13 +70,14 @@ def extract(
         )
     ):
         embeddings[str(image_id)] = emb[None, :]  # (1, d) like the reference
-        if (i + 1) % checkpoint_every == 0:
+        if (i + 1) % checkpoint_every == 0 and rank() == 0:
             with open(out_path, "wb") as fh:
                 pickle.dump(embeddings, fh)
             logger.info("checkpointed %d embeddings", len(embeddings))
-    with open(out_path, "wb") as fh:
-        pickle.dump(embeddings, fh)
-    logger.info("wrote %d embeddings to %s", len(embeddings), out_path)
+    if rank() == 0:  # one writer over a mesh of processes
+        with open(out_path, "wb") as fh:
+            pickle.dump(embeddings, fh)
+        logger.info("wrote %d embeddings to %s", len(embeddings), out_path)
     return embeddings
 
 
@@ -95,11 +98,13 @@ def main() -> None:
     )
     parser.add_argument(
         "--mesh_data", type=int, default=1,
-        help="cards to shard each encode batch over; the port runs on one "
-             "(other values: ROADMAP Queue 1 #14)",
+        help="processes (one a card, started by torchrun) to shard each "
+             "encode batch over: 0 or 1 one card, -1 every process; the "
+             "batch size must divide by it, rank 0 writes the output",
     )
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
+    maybe_initialize_distributed()
     encoder = ClipImageEncoder(
         model_version=args.model_version, batch_size=args.batch_size,
         int8=args.int8, mesh=args.mesh_data,

@@ -25,6 +25,8 @@ from typing import Dict
 
 import numpy as np
 
+from ..device import rank
+from ..parallel.multihost import maybe_initialize_distributed
 from .clip_encoder import ClipTextEncoder
 
 logger = logging.getLogger(__name__)
@@ -46,9 +48,11 @@ def extract(
         chunk = encoder.encode_texts(texts[start:start + batch_size])
         for qid, emb in zip(qids[start:start + batch_size], chunk):
             embeddings[str(qid)] = emb[None, :]
-    with open(out_path, "wb") as fh:
-        pickle.dump(embeddings, fh)
-    logger.info("wrote %d text embeddings to %s", len(embeddings), out_path)
+    if rank() == 0:  # one writer over a mesh of processes
+        with open(out_path, "wb") as fh:
+            pickle.dump(embeddings, fh)
+        logger.info("wrote %d text embeddings to %s", len(embeddings),
+                    out_path)
     return embeddings
 
 
@@ -62,11 +66,13 @@ def main() -> None:
     )
     parser.add_argument(
         "--mesh_data", type=int, default=1,
-        help="cards to shard each encode batch over; the port runs on one "
-             "(other values: ROADMAP Queue 1 #14)",
+        help="processes (one a card, started by torchrun) to shard each "
+             "encode batch over: 0 or 1 one card, -1 every process; the "
+             "batch size must divide by it, rank 0 writes the output",
     )
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
+    maybe_initialize_distributed()
     encoder = ClipTextEncoder(
         model_version=args.model_version, batch_size=args.batch_size,
         mesh=args.mesh_data,

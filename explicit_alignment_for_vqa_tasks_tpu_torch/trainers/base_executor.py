@@ -10,9 +10,12 @@ batches), checkpointing every ``train.save_interval`` epochs with
 best/last aliases, metric logging (reference: base_executor.py:59-71), a
 two-batch sanity validation before training, and checkpoint loading
 (reference: src/main.py:35-66), a train run resuming at the epoch after
-the checkpoint's. One process on one card: where the JAX package places
-params and batches on a device mesh, the port moves them onto the model's
-device.
+the checkpoint's. The model lives on one card; over several processes
+the active mesh (``parallel/mesh.py``, built by ``main``) places the rest
+(``_setup_mesh``, as JAX ``base_executor.py:46-199``): the T5 split over the
+model axis, the mapper broadcast from the first rank, the batches sharded
+by the loaders over the data axes; every data rank takes as many training
+steps as the longest shard (``_train_batches``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,13 @@ import numpy as np
 import torch
 
 from ..device import rank
+from ..parallel.mesh import (
+    active_mesh,
+    data_max,
+    data_sum,
+    replicate_params,
+    shard_lm_params,
+)
 from ..utils.attr_dict import AttrDict
 from ..utils.loggers import MultiLogger
 from ..utils.profiling import ThroughputMeter
@@ -61,6 +71,72 @@ class BaseExecutor(MetricsProcessor):
         self.global_step = 0
         self.in_sanity_check = False
         self.multi_logger: Optional[MultiLogger] = None
+        self.mesh = None  # the active mesh, set by _setup_mesh
+
+    def _setup_mesh(self, model: Any) -> None:
+        """Join the active mesh, where there is one: the mapper broadcast
+        from the mesh's first rank (every rank then holds the same value,
+        JAX's invariant), and a T5 LM split over the model axis
+        (``shard_lm_params``) unless its deferred int8 calibration is
+        pending (``_reshard_lm`` splits it after).
+        Another LM (ClipCap's GPT-2) stays whole on every rank: it trains
+        data-parallel only (JAX ``base_executor.py:139-143``)."""
+        self.mesh = active_mesh()
+        if self.mesh is None:
+            return
+        replicate_params(self.mesh, model.params["mapper"])
+        is_t5 = "shared" in model.params["lm"]
+        if is_t5 and not getattr(model, "pending_int8_calibration", None):
+            self._reshard_lm(model)
+        logger.info("mesh active: %s", dict(self.mesh.shape))
+
+    def _reshard_lm(self, model: Any = None) -> None:
+        """The whole T5 tree split over the model axis (after the deferred
+        int8 quantization, which reads the whole weights); nothing with no
+        model axis."""
+        model = model if model is not None else self.model
+        if self.mesh is not None and self.mesh.model_size > 1:
+            model.params["lm"] = shard_lm_params(self.mesh,
+                                                 model.params["lm"])
+
+    def _replicate_loaded(self, params: Any) -> Any:
+        """Checkpoint-loaded params broadcast from the mesh's first rank (the
+        identity without a mesh)."""
+        return replicate_params(self.mesh, params)
+
+    def _global_token_count(self, labels: Any) -> Optional[Any]:
+        """The valid (not -100) labels of the global batch, summed over the
+        data axes; None with one data way, where a loss divides by its own
+        batch's count."""
+        if self.mesh is None or self.mesh.data_group is None:
+            return None
+        return data_sum((labels != -100).sum().float(), self.mesh)
+
+    def _train_batches(self):
+        """The epoch's training batches. With more than one data way every
+        data rank takes as many steps as the longest shard (else the
+        gradients' all-reduce would wait forever): a short rank's missing
+        steps are its last batch marked ``null_step``, whose labels the
+        executors set to -100, so that it adds nothing to the loss's
+        numerator or to its token count."""
+        loader = self.train_dataloader
+        if self.mesh is None or self.mesh.data_group is None:
+            yield from loader
+            return
+        steps = len(loader)
+        most = data_max(steps, self.mesh)
+        last = None
+        for batch in loader:
+            last = batch
+            yield batch
+        if most > steps and last is None:
+            raise ValueError(
+                "a data rank's training shard holds no batch: use fewer "
+                "data ways or more rows")
+        for _ in range(most - steps):
+            null = AttrDict(last)
+            null["null_step"] = True
+            yield null
 
     def _maybe_calibrate_int8(self) -> None:
         """Deferred int8 quantization (tpu.int8_calibrate_batches > 0):
@@ -141,7 +217,7 @@ class BaseExecutor(MetricsProcessor):
                 self.train_dataloader.set_epoch(epoch)
             epoch_t0 = time.perf_counter()
             losses: List[float] = []
-            for batch_idx, batch in enumerate(self.train_dataloader):
+            for batch_idx, batch in enumerate(self._train_batches()):
                 if profile_dir and self.global_step == PROFILE_STEPS[0]:
                     profiler = _start_profiler()
                 meter.start()
@@ -290,6 +366,8 @@ class BaseExecutor(MetricsProcessor):
         state = dict(load_checkpoint(path))
         epoch = state.pop("epoch", None)
         self.load_trainable_state(state)
+        if self.mesh is not None:
+            self._replicate_loaded(self.model.params["mapper"])
         if self.config.mode == "train" and epoch is not None:
             self.current_epoch = int(epoch) + 1
             logger.info("resuming from epoch %d", self.current_epoch)

@@ -13,8 +13,10 @@ the last CLIP row, its gradient into the mapper alone (through
 prompt] whose prediction is the decoded text from the BOS on (reference
 :245-265), scored as the few-shot eval scores. The model lives on the card
 unless the caller passes ``device``; each batch's numpy arrays are moved
-onto it. One process on one device: the JAX package's ``_setup_mesh`` does
-nothing there.
+onto it. Over several processes it trains data-parallel on the active
+mesh, its GPT-2 whole on every rank (JAX ``base_executor.py:139-143``):
+each data rank's shard, the loss over the global batch's valid tokens, the
+mapper's gradients summed over the data axes.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from ..device import DeviceLike
 from ..models.clipcap import clipcap_loss
 from ..parallel.gather import gather_predictions_to_host0
+from ..parallel.mesh import data_sum, sum_grads_over_data
 from ..registry import EXECUTORS
 from ..utils.attr_dict import AttrDict
 from .base_executor import BaseExecutor, tree_to_device
@@ -94,6 +97,7 @@ class ClipCapExecutor(BaseExecutor):
             self.tokenizer.pad_token_id = self.tokenizer.eos_token_id
         self.model, _ = build_model_from_config(config, device=device)
         self._maybe_resize_embeddings()
+        self._setup_mesh(self.model)
         steps_per_epoch = max(len(data_loader.train_dataloader or []), 1) \
             if data_loader.train_dataloader is not None else 1000
         total_steps = steps_per_epoch * min(
@@ -131,15 +135,20 @@ class ClipCapExecutor(BaseExecutor):
     # ------------------------------------------------------------------
     def training_step(self, batch: AttrDict, batch_idx: int) -> Dict:
         input_ids = np.asarray(batch.input_ids)
+        labels = self._answer_labels(input_ids)
+        if batch.get("null_step"):  # a short shard's padding step
+            labels = np.full_like(labels, -100)
+        labels = self._to_model(labels)
         loss = clipcap_loss(
             self.model.params["mapper"], self.model.params["lm"],
             self.model.cfg, self._to_model(last_clip_row(
                 batch.clip_embeddings)),
             self._to_model(input_ids), self._to_model(batch.attention_mask),
-            self._to_model(self._answer_labels(input_ids)))
+            labels, token_count=self._global_token_count(labels))
         loss.backward()
+        sum_grads_over_data(self.mesh, self.optimizer.params)
         self.optimizer.step()
-        return {"loss": loss.detach()}
+        return {"loss": data_sum(loss.detach(), self.mesh)}
 
     def trainable_state(self) -> Dict[str, Any]:
         return {"mapper": self.model.params["mapper"],

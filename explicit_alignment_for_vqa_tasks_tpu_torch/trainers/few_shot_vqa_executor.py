@@ -8,7 +8,9 @@ one-shot and prompt-permutation ensembles, members scored by summed
 log-prob), prediction decoding, VQA metrics, and the deferred SmoothQuant
 calibration of the int8 encoder modes. The model is built on the card
 unless the caller passes ``device``; each batch's numpy arrays are moved
-onto the model's device.
+onto the model's device. On a mesh (``BaseExecutor._setup_mesh``) each
+data rank generates its shard's questions with the T5 split over the model
+axis; the predictions of each model group's first rank are gathered.
 """
 
 from __future__ import annotations
@@ -114,6 +116,7 @@ class FewShotVQAExecutor(BaseExecutor):
         super().__init__(config, data_loader)
         self.model, self.model_kind = build_model_from_config(
             config, device=device)
+        self._setup_mesh(self.model)
         # T5 has no BOS; the reference aliases it to pad
         # (few_shot_vqa_executor.py:62)
         if getattr(self.tokenizer, "bos_token", None) is None:
@@ -184,6 +187,7 @@ class FewShotVQAExecutor(BaseExecutor):
         )
         self.model.calibrate_and_quantize_int8(feed, alpha=pending["alpha"])
         self.model.pending_int8_calibration = None
+        self._reshard_lm()
 
     def trainable_state(self) -> Dict[str, Any]:
         return {"mapper": self.model.params["mapper"]}

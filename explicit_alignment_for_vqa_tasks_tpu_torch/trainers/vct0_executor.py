@@ -8,10 +8,17 @@ every batch and generates captions (prefix-only ``generate``) for the first
 6 (reference :185-218). The model lives on the card unless the caller
 passes ``device``; each batch's numpy arrays are moved onto it.
 
-One process on one device: the JAX package's ``_setup_mesh`` does nothing
-there and its ``_pad_for_pipeline`` pads nothing. A pipelined mesh
-(``tpu.mesh.pipe`` > 1 over several cards) raises naming ROADMAP.md,
-Queue 1 item 14, and ``device.world_size`` refuses more than one process.
+Over several processes the loop runs on the active mesh
+(``BaseExecutor._setup_mesh``): each data rank takes its shard's batches,
+the loss is the global batch's token-weighted cross-entropy (the rank's
+numerator over the valid tokens summed over the data axes), the mapper's
+gradients are summed over the data axes before each optimizer step, so
+that the mapper and its optimizer state stay the same on every rank; a
+short shard's missing steps are batches of -100 labels (JAX's
+``_pad_for_pipeline`` pads rows so). Under a model axis the T5 is split
+and its blocks end in all-reduces (models/t5.py). A pipelined mesh
+(``tpu.mesh.pipe`` > 1 over several processes) raises naming ROADMAP.md,
+Queue 1 item 14 (the pipeline).
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch
 
 from ..device import DeviceLike
 from ..models.vct0 import vct0_caption_loss
+from ..parallel.gather import metric_psum
+from ..parallel.mesh import data_sum, refuse_pipeline, sum_grads_over_data
 from ..registry import EXECUTORS
 from ..utils.attr_dict import AttrDict
 from .base_executor import BaseExecutor, tree_to_device
@@ -36,24 +45,14 @@ CAPTION_TABLE_COLUMNS = ["image_url", "gold_caption", "predicted_caption"]
 NUM_CAPTION_GEN_BATCHES = 6
 
 
-def _refuse_pipelined_mesh(config: Any) -> None:
-    tpu = config.get("tpu", {})
-    pipe = int(tpu.get("mesh", {}).get("pipe", 1) or 1)
-    if pipe > 1 and tpu.get("use_mesh", True) \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"tpu.mesh.pipe={pipe}: the pipelined (data, pipe, model) mesh "
-            "and its GPipe loss are not ported yet (ROADMAP.md, Queue 1 "
-            "item 14); the port trains on one card")
-
-
 @EXECUTORS.register()
 class VCT0Executor(BaseExecutor):
     def __init__(self, config: Any, data_loader: Any,
                  device: DeviceLike = None):
         super().__init__(config, data_loader)
-        _refuse_pipelined_mesh(config)
+        refuse_pipeline(config)
         self.model, _ = build_model_from_config(config, device=device)
+        self._setup_mesh(self.model)
         steps_per_epoch = max(len(data_loader.train_dataloader or []), 1) \
             if data_loader.train_dataloader is not None else 1000
         total_steps = steps_per_epoch * min(
@@ -67,21 +66,30 @@ class VCT0Executor(BaseExecutor):
     def _to_model(self, array: Any) -> torch.Tensor:
         return torch.as_tensor(array, device=self.model.device)
 
-    def _loss(self, batch: AttrDict) -> torch.Tensor:
+    @staticmethod
+    def _labels(batch: AttrDict) -> np.ndarray:
+        """The batch's labels; every one -100 in a null step."""
+        labels = np.asarray(batch.labels)
+        return np.full_like(labels, -100) if batch.get("null_step") \
+            else labels
+
+    def _loss(self, batch: AttrDict, token_count=None) -> torch.Tensor:
         return vct0_caption_loss(
             self.model.params["mapper"], self.model.params["lm"],
             self.model.cfg, self._to_model(batch.clip_embeddings),
-            self._to_model(batch.labels))
+            self._to_model(self._labels(batch)), token_count=token_count)
 
     # ------------------------------------------------------------------
     def training_step(self, batch: AttrDict, batch_idx: int) -> Dict:
-        loss = self._loss(batch)
+        count = self._global_token_count(self._to_model(self._labels(batch)))
+        loss = self._loss(batch, token_count=count)
         loss.backward()
+        sum_grads_over_data(self.mesh, self.optimizer.params)
         self.optimizer.step()
         if self.global_step % 50 == 0:
             self.log_metrics({"train/lr": float(
                 self.schedule(self.global_step))})
-        return {"loss": loss.detach()}
+        return {"loss": data_sum(loss.detach(), self.mesh)}
 
     def trainable_state(self) -> Dict[str, Any]:
         return {"mapper": self.model.params["mapper"],
@@ -130,7 +138,14 @@ class VCT0Executor(BaseExecutor):
         for out in step_outputs:
             rows.extend(out.get("table_entries", []))
         log_dict = AttrDict(metrics={}, artifacts={})
-        if losses:
+        if self.mesh is not None:
+            # the data ranks' batches together (each model group's ranks
+            # hold the same losses)
+            total = metric_psum(torch.tensor(float(np.sum(losses))))
+            count = metric_psum(torch.tensor(float(len(losses))))
+            if count.item():
+                log_dict.metrics["loss"] = float(total / count)
+        elif losses:
             log_dict.metrics["loss"] = float(np.mean(losses))
         log_dict.artifacts["test_table"] = {
             "columns": CAPTION_TABLE_COLUMNS, "rows": rows,

@@ -4,7 +4,7 @@ JAX's {str(qid): float32 [1, proj_dim]} pickle (a tiny CLIPTextConfig with
 converted weights, one stand-in tokenizer for both); the Conceptual
 Captions extract_rows, with a stand-in fetch (no network), writes JAX's
 parquet schema and rows; its main() builds the int8 encoder for --int8 and
-refuses a mesh wider than one card."""
+refuses a mesh wider than the world of processes."""
 
 import json
 import pickle
@@ -141,7 +141,7 @@ def test_conceptual_captions_main_builds_the_int8_encoder(tmp_path,
                                                           monkeypatch):
     """main() with a stand-in ``datasets`` module: --int8 builds
     ClipImageEncoder(int8=True), --limit cuts the rows, --mesh_data 2
-    raises naming Queue 1 item 14."""
+    raises in one process, which has no second rank to shard over."""
     data = [{"image_url": f"u{i}", "caption": f"c{i}"} for i in range(5)]
 
     class Split(list):
@@ -169,5 +169,5 @@ def test_conceptual_captions_main_builds_the_int8_encoder(tmp_path,
     assert rows == data[:3] and kw["batch_size"] == 8
     monkeypatch.setattr(sys, "argv", [
         "extract", "--out", str(tmp_path / "cc.parquet"), "--mesh_data", "2"])
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
+    with pytest.raises(ValueError, match="--mesh_data 2 > 1"):
         tcc.main()

@@ -121,9 +121,11 @@ def test_encode_iter_keeps_the_order(small):
 
 def test_encoders_refuse_what_is_not_ported(small):
     _, _, tcfg, tp = small
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
+    # the extraction mesh is over processes: one process has no second
+    # rank (tests/test_torch_mesh_tools.py encodes over four)
+    with pytest.raises(ValueError, match="--mesh_data 2 > 1"):
         tenc.ClipImageEncoder(tcfg, tp, mesh=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
+    with pytest.raises(ValueError, match="--mesh_data 4 > 1"):
         tenc.ClipTextEncoder(tclip.CLIPTextConfig.small_test(), params={},
                              mesh=4, device="cpu")
 

@@ -184,10 +184,12 @@ def test_parse_args_sys_matches_jax(extra):
 
 
 def test_main_names_the_unported_steps(tmp_path, monkeypatch):
-    """main.run runs the eval now (tests/test_torch_eval_cli.py), over
-    several processes too (tests/test_torch_multiprocess_eval.py); what it
-    still refuses before any data is read names its ROADMAP item: training
-    over more than one process."""
+    """main.run runs the eval now (tests/test_torch_eval_cli.py), and
+    training and eval over several processes on a (data, model) mesh
+    (tests/test_torch_dp_train.py, tests/test_torch_multiprocess_eval.py);
+    what it still refuses before any process group or data names its
+    ROADMAP item: the pipelined mesh (tpu.mesh.pipe > 1) over more than one
+    process."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setattr(sys, "excepthook", sys.excepthook)
     root = logging.getLogger()
@@ -195,7 +197,7 @@ def test_main_names_the_unported_steps(tmp_path, monkeypatch):
     try:
         with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
             tmain.run(["configs/vqa2/few_shot_vqa_hotpotqa.jsonnet",
-                       "--mode", "train", "--opts",
+                       "--mode", "train", "--opts", "tpu.mesh.pipe=2",
                        f"EXPERIMENT_FOLDER={tmp_path}/experiments",
                        f"TENSORBOARD_FOLDER={tmp_path}/tb"])
     finally:

@@ -188,14 +188,15 @@ def test_cli_train_mode_raises(tmp_path, cli_env):
 
 
 def test_cli_refuses_more_than_one_process(tmp_path, cli_env):
-    """A run over two processes is an eval (tests/test_torch_multiprocess_
-    eval.py); training over them raises before any process group or data,
-    naming its ROADMAP item."""
+    """A run over two processes trains or evaluates on a (data, model) mesh
+    (tests/test_torch_dp_train.py, tests/test_torch_multiprocess_eval.py);
+    the pipelined mesh (tpu.mesh.pipe > 1) over them raises before any
+    process group or data, naming its ROADMAP item."""
     fixtures = write_vqa_fixtures(tmp_path)
     cli_env.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tmain.run(argv(tmp_path, fixtures, "torch", mode="train"),
-                  device="cpu")
+        tmain.run(argv(tmp_path, fixtures, "torch", "tpu.mesh.pipe=2",
+                       mode="train"), device="cpu")
 
 
 def test_cli_without_checkpoint_raises(tmp_path, cli_env):

@@ -241,21 +241,35 @@ def test_batch_iterator_surfaces_collate_errors():
 
 
 def test_world_size_refuses_more_than_one_process(tmp_path, monkeypatch):
-    """More than one process runs an eval (each its question shard,
-    tests/test_torch_multiprocess_eval.py) and refuses anything else: a
-    train-mode loader raises, naming ROADMAP Queue 1 item 14."""
+    """More than one process runs any mode now (an eval each its question
+    shard, tests/test_torch_multiprocess_eval.py; training each its rows,
+    tests/test_torch_dp_train.py): world_size no longer refuses training,
+    and with no mesh a loader shards by the launcher's rank and world
+    (``parallel.mesh.data_shard``)."""
     from explicit_alignment_for_vqa_tasks_tpu_torch.device import world_size
+    from explicit_alignment_for_vqa_tasks_tpu_torch.parallel.mesh import (
+        data_shard,
+    )
 
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
     assert world_size() == 1
     jdl, tdl = loaders(tmp_path, "fixture", 2)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        world_size()
-    assert world_size("test") == 2
+    assert world_size() == 2
+    assert data_shard() == (0, 2)
+    monkeypatch.setenv("RANK", "1")
+    assert data_shard() == (1, 2)
+    tdl.set_dataloader()
+    loader = tdl.test_dataloader
+    assert (loader.shard_id, loader.num_shards) == (1, 2)
+    assert loader._num_local() == len(range(1, len(tdl.test_dataset), 2))
+    # training shards its rows the same way, with no option to turn it off
     tdl.config.mode = "train"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tdl.set_dataloader()
+    tdl.build_dataset()
+    tdl.set_dataloader()
+    train = tdl.train_dataloader
+    assert (train.shard_id, train.num_shards) == (1, 2)
 
 
 def test_module_parser_post_processors_equal_jax(tmp_path):

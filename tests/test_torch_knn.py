@@ -135,10 +135,32 @@ def test_grouped_knn_search_matches_jax(k):
 
 def test_mesh_and_missing_card_are_refused(monkeypatch):
     db = np.eye(4, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    # a mesh over processes: one process has no second rank to shard over
+    # (tests/test_torch_mesh_tools.py searches over four)
+    with pytest.raises(ValueError, match="--mesh_data 2 > 1"):
         tknn.knn_search(db, db, k=2, mesh=2, device="cpu")
     tknn.knn_search(db, db, k=2, mesh=1, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tknn.knn_search(db, db, k=2)
 
+
+
+@pytest.mark.parametrize("index,first,rows", [(0, 0, 4), (1, 4, 3)])
+def test_database_block_moves_only_its_rows(index, first, rows):
+    """A data rank's block of a host database: its ceil(N / ways) rows
+    from ``first`` as fp32, zero rows padding the last block, and nothing
+    of the other rows (the block is a tensor of the block's size, made
+    from the host slice, so a card would hold only that)."""
+    import types
+
+    database = np.arange(7 * 3, dtype=np.float64).reshape(7, 3)
+    mesh = types.SimpleNamespace(data_size=2, data_index=index)
+    block, got_first = tknn.database_block(database, mesh,
+                                           torch.device("cpu"))
+    assert got_first == first
+    assert block.dtype == torch.float32 and block.shape == (4, 3)
+    np.testing.assert_array_equal(block[:rows].numpy(),
+                                  database[first:first + rows])
+    assert not block[rows:].any()
+    assert block.untyped_storage().nbytes() == 4 * 3 * 4

@@ -4,7 +4,9 @@ launcher would): the gathered predictions against the one-process run's,
 question by question, and rank 0's accuracy against its accuracy; the
 shards against JAX's ``BatchIterator(shard_id=r, num_shards=2)``; the int8
 calibration statistics max-reduced across the ranks; rank 0 alone writing;
-training over two processes refused, naming ROADMAP Queue 1 item 14. The
+the pipelined mesh over two processes refused, naming ROADMAP Queue 1
+item 14 (the pipeline; training on the (data, model) mesh is
+tests/test_torch_dp_train.py's). The
 fixture tokenizer gives every word one id whatever a shard holds, so the
 two runs' prompts are the same tokens. Answers and statistics are compared
 exactly: the same fp32 arithmetic on the same rows."""
@@ -123,6 +125,37 @@ def test_two_process_eval_equals_one_process(tmp_path, eval_argv, cli_env):  # n
     assert answers in r0["files"] and answers not in r1["files"]
 
 
+def test_first_outputs_keep_the_first_encode_and_decode_step():
+    """``FirstOutputs`` keeps the first call's output of ``t5_encode`` and
+    of ``t5_decode_step`` (the logits) as fp32 arrays, ignores later calls,
+    and puts the functions back after the run."""
+    from explicit_alignment_for_vqa_tasks_tpu_torch.models import t5 as tt5
+    from explicit_alignment_for_vqa_tasks_tpu_torch.ops import decoding
+
+    cfg = tt5.T5Config.small_test()
+    params = tt5.init_t5_params(torch.Generator().manual_seed(0), cfg,
+                                torch.bfloat16)
+    ids = torch.arange(6, dtype=torch.int32).reshape(2, 3) + 1
+    mask = torch.ones(2, 3, dtype=torch.int32)
+    fns = (tt5.t5_encode, tt5.t5_decode_step)
+    with multiprocess_eval.FirstOutputs() as first:
+        hidden = tt5.t5_encode(params, cfg, input_ids=ids)
+        tt5.t5_encode(params, cfg, input_ids=ids + 1)
+        _, logprobs = decoding.greedy_decode_t5(params, cfg, hidden, mask,
+                                                max_new_tokens=3)
+    assert (tt5.t5_encode, tt5.t5_decode_step) == fns
+    assert sorted(first.outputs) == sorted(multiprocess_eval.FirstOutputs.NAMES)
+    got = first.outputs["t5_encode"]
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, hidden.float().numpy())
+    logits = first.outputs["t5_decode_step"]
+    assert logits.shape == (2, cfg.vocab_size)
+    # the first step's log-probabilities are those of the kept logits
+    want = torch.log_softmax(torch.from_numpy(logits), -1).max(-1).values
+    np.testing.assert_allclose(logprobs[:, 0].numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_two_process_int8_calibration_max_reduces(tmp_path, eval_argv):
     ranks = multiprocess_eval.launch(eval_argv("int8", *INT8_OPTS), 2,
                                      tmp_path / "mp", device="cpu",
@@ -140,11 +173,14 @@ def test_two_process_int8_calibration_max_reduces(tmp_path, eval_argv):
 
 
 def test_two_process_training_names_item_14(tmp_path, eval_argv):
-    ranks = multiprocess_eval.launch(eval_argv("train", mode="train"), 2,
-                                     tmp_path / "mp", device="cpu",
-                                     timeout=TIMEOUT)
+    """Two processes train on the (data, model) mesh now; what they refuse
+    is the pipelined mesh, tpu.mesh.pipe > 1, naming the pipeline's item."""
+    ranks = multiprocess_eval.launch(
+        eval_argv("train", "tpu.mesh.pipe=2", mode="train"), 2,
+        tmp_path / "mp", device="cpu", timeout=TIMEOUT)
     for rec in ranks:
         assert "Queue 1 item 14" in rec["error"], rec["error"]
+        assert "the pipeline" in rec["error"], rec["error"]
         assert rec["metrics"] is None
 
 

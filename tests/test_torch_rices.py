@@ -3,7 +3,7 @@ package's on the CPU, on synthetic caches and embeddings drawn from a seed
 (the pattern of tests/test_knn_rices.py): each stage, run_full_pipeline and
 the run_rices CLI write equal pickles (the same keys, question ids and
 order, similarities within 1e-6), random.pkl is the JAX package's, stale
-pickles raise, and a mesh wider than one card is refused."""
+pickles raise, and a mesh wider than the world of processes is refused."""
 
 import json
 import pickle
@@ -205,7 +205,9 @@ def test_run_rices_cli_matches_jax(tmp_path, monkeypatch):
     with open(tmp_path / "port.pkl", "rb") as fh:
         assert pickle.load(fh) == want
     assert len(want) == 12
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    # a mesh over processes: one process has no second rank
+    # (tests/test_torch_mesh_tools.py runs the pipeline over four)
+    with pytest.raises(ValueError, match="--mesh_data 2 > 1"):
         trun.main(flags("mesh.pkl") + ["--mesh_data", "2"], device="cpu")
 
 
@@ -235,10 +237,17 @@ def test_random_pkl_equals_jax(tmp_path, monkeypatch):
 
 
 def test_mesh_is_refused(data):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        trices.question_knn(data["train_text"], data["val_text"], k=4,
-                            mesh=-1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    """Over one process -1 is no mesh (one card's result) and a mesh wider
+    than the world raises (tests/test_torch_mesh_tools.py shards over
+    four ranks)."""
+    want = trices.question_knn(data["train_text"], data["val_text"], k=4,
+                               device="cpu")
+    got = trices.question_knn(data["train_text"], data["val_text"], k=4,
+                              mesh=-1, device="cpu")
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key]["question_ids"] == want[key]["question_ids"]
+    with pytest.raises(ValueError, match="--mesh_data 8 > 1"):
         trices.image_knn_from_text_knn({}, data["train"], data["val"],
                                        data["train_img"], data["val_img"],
                                        mesh=8, device="cpu")
